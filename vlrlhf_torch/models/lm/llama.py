@@ -1,0 +1,193 @@
+"""Llama-family decoder (counterpart of vlrlhf_tpu/models/lm/llama.py):
+the empty-prefill forward (`lm_forward` with `cache_len`) and the
+single-token decode step with the deferred cache write (`lm_decode`).
+
+KV cache layout is vlrlhf_tpu's head-major decode layout: {"k", "v"} each
+(L, B, nkv, Sc, hd), slot == absolute position (right-padded prompts).
+Prefill attention dispatches to the flash kernel on the card
+(ops/attention.py); decode attention to the decode kernel
+(ops/decode_attention.py), which reads the stacked cache by layer offset.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vlrlhf_torch.models.common import Linear, Norm, empty_param, embed
+from vlrlhf_torch.models.config import LMConfig
+from vlrlhf_torch.ops.attention import multi_head_attention
+from vlrlhf_torch.ops.decode_attention import decode_attention
+from vlrlhf_torch.ops.norms import rms_norm
+from vlrlhf_torch.ops.rope import apply_rope, rope_frequencies
+
+
+class LlamaLayer(nn.Module):
+    def __init__(self, cfg: LMConfig, device):
+        super().__init__()
+        h, ff = cfg.hidden_size, cfg.intermediate_size
+        nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+        dt = cfg.dtype
+        self.input_layernorm = Norm(h, False, device, dt)
+        self.post_attention_layernorm = Norm(h, False, device, dt)
+        self.wq = Linear(h, nh * hd, cfg.qkv_bias, device, dt)
+        self.wk = Linear(h, nkv * hd, cfg.qkv_bias, device, dt)
+        self.wv = Linear(h, nkv * hd, cfg.qkv_bias, device, dt)
+        self.wo = Linear(nh * hd, h, cfg.o_bias, device, dt)
+        self.gate = Linear(h, ff, False, device, dt)
+        self.up = Linear(h, ff, False, device, dt)
+        self.down = Linear(ff, h, False, device, dt)
+        self.cfg = cfg
+
+    def qkv(self, h: torch.Tensor):
+        """(B, S, H) normed input -> q (B,S,nh,hd), k/v (B,S,nkv,hd)."""
+        cfg = self.cfg
+        b, s, _ = h.shape
+        nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+        return (
+            self.wq(h).reshape(b, s, nh, hd),
+            self.wk(h).reshape(b, s, nkv, hd),
+            self.wv(h).reshape(b, s, nkv, hd),
+        )
+
+    def mlp(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down(F.silu(self.gate(x)) * self.up(x))
+
+
+class LlamaDecoder(nn.Module):
+    def __init__(self, cfg: LMConfig, device):
+        super().__init__()
+        self.cfg = cfg
+        self.embed_tokens = empty_param((cfg.vocab_size, cfg.hidden_size), device, cfg.dtype)
+        self.layers = nn.ModuleList(LlamaLayer(cfg, device) for _ in range(cfg.num_layers))
+        self.norm = Norm(cfg.hidden_size, False, device, cfg.dtype)
+        self.lm_head = (
+            None if cfg.tie_embeddings
+            else Linear(cfg.hidden_size, cfg.vocab_size, False, device, cfg.dtype)
+        )
+
+    def embed(self, ids: torch.Tensor) -> torch.Tensor:
+        return embed(self.embed_tokens, ids, self.cfg.dtype)
+
+    def head(self, hidden: torch.Tensor) -> torch.Tensor:
+        if self.lm_head is None:
+            return F.linear(hidden, self.embed_tokens.to(hidden.dtype))
+        return self.lm_head(hidden)
+
+    def forward(
+        self,
+        inputs_embeds: torch.Tensor,  # (B, S, H)
+        pad_mask: Optional[torch.Tensor] = None,  # (B, S)
+        cache_len: Optional[int] = None,
+    ):
+        """Causal forward over right-padded prompts (positions == arange).
+        Returns (final-normed hidden (B, S, H), cache or None). With
+        `cache_len` this is the EMPTY-PREFILL mode: each layer's k/v land in
+        slots [0, S) of a fresh (L, B, nkv, cache_len, hd) cache."""
+        cfg = self.cfg
+        b, s, _ = inputs_embeds.shape
+        nkv, hd = cfg.num_kv_heads, cfg.head_dim_
+        positions = torch.arange(s, device=inputs_embeds.device)[None].expand(b, s)
+        cos, sin = rope_frequencies(cfg.rope, positions, seq_len=cache_len or s)
+        cache = None
+        if cache_len is not None:
+            if cache_len < s:
+                raise ValueError(f"cache_len {cache_len} < prompt bucket {s}")
+            # allocated once and filled layer by layer in place: only the
+            # one stacked cache is ever live (no per-layer caches to stack)
+            shape = (cfg.num_layers, b, nkv, cache_len, hd)
+            cache = {
+                "k": torch.zeros(shape, dtype=cfg.dtype, device=inputs_embeds.device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=inputs_embeds.device),
+            }
+        x = inputs_embeds
+        for i, layer in enumerate(self.layers):
+            h = rms_norm(x, layer.input_layernorm.weight, cfg.rms_eps)
+            q, k, v = layer.qkv(h)
+            q, k = apply_rope(q, k, cos, sin)
+            if cache is not None:
+                cache["k"][i, :, :, :s] = k.transpose(1, 2)
+                cache["v"][i, :, :, :s] = v.transpose(1, 2)
+            out = multi_head_attention(
+                q, k, v, causal=True, pad_mask_q=pad_mask, pad_mask_kv=pad_mask
+            )
+            x = x + layer.wo(out.reshape(b, s, -1))
+            h = rms_norm(x, layer.post_attention_layernorm.weight, cfg.rms_eps)
+            x = x + layer.mlp(h)
+        return rms_norm(x, self.norm.weight, cfg.rms_eps), cache
+
+    def decode(
+        self,
+        last_token: torch.Tensor,  # (B,)
+        lengths: torch.Tensor,  # (B,) int32 current position == write slot
+        cache: dict,  # {"k", "v"}: (L, B, nkv, Sc, hd), updated IN PLACE
+        pending: Optional[dict] = None,  # previous token's k/v, not yet written
+    ):
+        """Single-token decode step. Returns (logits (B, V), new_pending).
+
+        The deferred write: the previous step's k/v (`pending`, rows with
+        pos == Sc meaning "nothing pending") land in the cache first, in one
+        batched in-place write; this step's k/v ride through the decode
+        kernel as its self term and come back as the next pending. The
+        cache is written in place — it is the largest buffer on the card."""
+        cfg = self.cfg
+        b = last_token.shape[0]
+        nkv, hd = cfg.num_kv_heads, cfg.head_dim_
+        sc = cache["k"].shape[3]
+        if pending is not None:
+            write_pending_(cache, pending)
+        x = self.embed(last_token[:, None])  # (B, 1, H)
+        positions = lengths.long()[:, None]
+        cos, sin = rope_frequencies(cfg.rope, positions, seq_len=sc)
+        new_k = torch.empty((cfg.num_layers, b, nkv, hd), dtype=cfg.dtype, device=x.device)
+        new_v = torch.empty_like(new_k)
+        for i, layer in enumerate(self.layers):
+            h = rms_norm(x, layer.input_layernorm.weight, cfg.rms_eps)
+            q, k, v = layer.qkv(h)
+            q, k = apply_rope(q, k, cos, sin)
+            new_k[i] = k[:, 0]
+            new_v[i] = v[:, 0]
+            out = decode_attention(
+                q[:, 0], cache["k"], cache["v"], new_k[i], new_v[i], lengths, layer=i
+            )
+            x = x + layer.wo(out.reshape(b, 1, -1))
+            h = rms_norm(x, layer.post_attention_layernorm.weight, cfg.rms_eps)
+            x = x + layer.mlp(h)
+        hidden = rms_norm(x, self.norm.weight, cfg.rms_eps)
+        logits = self.head(hidden)[:, 0]
+        return logits, {"k": new_k, "v": new_v, "pos": lengths.clone()}
+
+
+def empty_pending(cfg: LMConfig, b: int, cache_len: int, device) -> dict:
+    """No-op pending write: pos == cache_len marks "nothing pending"."""
+    shape = (cfg.num_layers, b, cfg.num_kv_heads, cfg.head_dim_)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "pos": torch.full((b,), cache_len, dtype=torch.int32, device=device),
+    }
+
+
+def write_pending_(cache: dict, pending: dict) -> None:
+    """Write deferred k/v rows into the cache in place. A row whose pos is
+    out of range (== Sc: nothing pending, or a parked free slot) is masked
+    out: its slot is clamped in range and rewritten with the value already
+    there — vlrlhf_tpu relies on out-of-bounds scatters being dropped, which
+    index_put_ does not do."""
+    ck, cv = cache["k"], cache["v"]
+    n_layers, b, nkv, sc, _ = ck.shape
+    dev = ck.device
+    pos = pending["pos"].long()
+    valid = (pos >= 0) & (pos < sc)
+    slot = pos.clamp(0, sc - 1)
+    li = torch.arange(n_layers, device=dev)[:, None, None]
+    bi = torch.arange(b, device=dev)[None, :, None]
+    hi = torch.arange(nkv, device=dev)[None, None, :]
+    si = slot[None, :, None]
+    keep = valid[None, :, None, None]
+    for buf, new in ((ck, pending["k"]), (cv, pending["v"])):
+        old = buf[li, bi, hi, si]  # (L, B, nkv, hd)
+        buf[li, bi, hi, si] = torch.where(keep, new.to(buf.dtype), old)

@@ -1,0 +1,112 @@
+"""ViT encoder (counterpart of vlrlhf_tpu/models/vision/vit.py `vit_forward`).
+
+Serves CLIP ViT-L/14-336 for LLaVA-1.5: class token, pre-LN, quick_gelu,
+penultimate feature layer (`feature_layer=-2` runs num_layers - 1 blocks
+and skips the post norm). Attention goes through ops/attention.py, so on
+the card every block's non-causal S=577 attention runs the flash kernel.
+
+The patch embedding is written as patch extraction + one matmul over the
+(p*p*3) patch vector in (row, col, channel) order — exactly the NHWC/HWIO
+convolution vlrlhf_tpu runs, without cuDNN (whose f32 convolutions default
+to TF32 on the card).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vlrlhf_torch.models.common import Linear, Norm, empty_param
+from vlrlhf_torch.models.config import ViTConfig
+from vlrlhf_torch.ops.attention import multi_head_attention
+from vlrlhf_torch.ops.norms import layer_norm
+
+
+def _act(name: str):
+    if name == "quick_gelu":
+        return lambda x: x * torch.sigmoid(1.702 * x)
+    # jax.nn.gelu's default is the tanh approximation
+    return lambda x: F.gelu(x, approximate="tanh")
+
+
+class ViTBlock(nn.Module):
+    def __init__(self, cfg: ViTConfig, device):
+        super().__init__()
+        h, dt = cfg.hidden_size, cfg.dtype
+        self.ln1 = Norm(h, True, device, dt)
+        self.ln2 = Norm(h, True, device, dt)
+        self.wq = Linear(h, h, True, device, dt)
+        self.wk = Linear(h, h, True, device, dt)
+        self.wv = Linear(h, h, True, device, dt)
+        self.wo = Linear(h, h, True, device, dt)
+        self.fc1 = Linear(h, cfg.mlp_dim, True, device, dt)
+        self.fc2 = Linear(cfg.mlp_dim, h, True, device, dt)
+        self.cfg = cfg
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        b, s, _ = x.shape
+        nh = cfg.num_heads
+        hd = cfg.hidden_size // nh
+        h = layer_norm(x, self.ln1.weight, self.ln1.bias, cfg.ln_eps)
+        q = self.wq(h).reshape(b, s, nh, hd)
+        k = self.wk(h).reshape(b, s, nh, hd)
+        v = self.wv(h).reshape(b, s, nh, hd)
+        attn = multi_head_attention(q, k, v, causal=False).reshape(b, s, cfg.hidden_size)
+        x = x + self.wo(attn)
+        h = layer_norm(x, self.ln2.weight, self.ln2.bias, cfg.ln_eps)
+        return x + self.fc2(_act(cfg.act)(self.fc1(h)))
+
+
+class VisionTower(nn.Module):
+    def __init__(self, cfg: ViTConfig, device):
+        super().__init__()
+        h, p, dt = cfg.hidden_size, cfg.patch_size, cfg.dtype
+        self.cfg = cfg
+        # (h, p*p*3): the HWIO conv kernel flattened in (row, col, channel)
+        self.patch_weight = empty_param((h, p * p * 3), device, dt)
+        self.patch_bias = empty_param((h,), device, dt) if cfg.patch_bias else None
+        self.pos_embed = empty_param((cfg.seq_len, h), device, dt)
+        self.cls_token = empty_param((h,), device, dt) if cfg.use_class_token else None
+        self.ln_pre = Norm(h, True, device, dt) if cfg.use_pre_norm else None
+        self.ln_post = Norm(h, True, device, dt) if cfg.use_post_norm else None
+        self.layers = nn.ModuleList(ViTBlock(cfg, device) for _ in range(cfg.num_layers))
+
+    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) normalized float -> (B, n_tokens, hidden) features."""
+        cfg = self.cfg
+        dt = cfg.dtype
+        p = cfg.patch_size
+        b, hh, ww, _ = pixel_values.shape
+        gh, gw = hh // p, ww // p
+        x = pixel_values.to(dt)[:, : gh * p, : gw * p]
+        patches = (
+            x.reshape(b, gh, p, gw, p, 3).permute(0, 1, 3, 2, 4, 5)
+            .reshape(b, gh * gw, p * p * 3)
+        )
+        x = F.linear(patches, self.patch_weight.to(dt))
+        if self.patch_bias is not None:
+            x = x + self.patch_bias.to(dt)
+        pos = self.pos_embed.to(dt)
+        n_patches = x.shape[1]
+        n_pos = pos.shape[0] - (1 if cfg.use_class_token else 0)
+        if n_pos != n_patches:
+            raise ValueError(
+                f"{n_patches} patches but {n_pos} position embeddings; "
+                "interpolated position embeddings are not ported yet"
+            )
+        if cfg.use_class_token:
+            cls = self.cls_token.to(dt)[None, None].expand(b, 1, cfg.hidden_size)
+            x = torch.cat([cls + pos[None, :1], x + pos[None, 1:]], dim=1)
+        else:
+            x = x + pos[None]
+        if self.ln_pre is not None:
+            x = layer_norm(x, self.ln_pre.weight, self.ln_pre.bias, cfg.ln_eps)
+        for block in self.layers[: cfg.layers_run]:
+            x = block(x)
+        if cfg.layers_run == cfg.num_layers and self.ln_post is not None:
+            x = layer_norm(x, self.ln_post.weight, self.ln_post.bias, cfg.ln_eps)
+        if cfg.drop_class_token and cfg.use_class_token:
+            x = x[:, 1:]
+        return x

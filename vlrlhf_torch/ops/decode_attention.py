@@ -1,0 +1,132 @@
+"""Decode attention: one query token per row against the stacked head-major
+KV cache — the hand-written Hopper kernel (csrc/decode_attention.cu) and its
+plain PyTorch version.
+
+Replaces the Pallas `_decode_kernel` / `decode_attention` in
+vlrlhf_tpu/ops/decode_attention.py. Layout as there: q (B, nh, hd); cache
+k/v (L, B, nkv, S, hd) with `layer=`, or (B, nkv, S, hd) without; slot ==
+absolute position; `lengths` (B,) the current position per row. Slots
+< lengths[b] come from the cache (strict: the current token is not written
+yet) and the current token's k/v (k_cur/v_cur, (B, nkv, hd)) join as an
+always-attended self term, which lets the caller defer the cache write
+(models/lm/llama.py `lm_decode`).
+
+Dispatch: a CPU tensor takes `decode_attention_plain`; a CUDA tensor
+launches the kernel or raises. int8 caches (k_scale/v_scale) belong to a
+later slice and raise on both paths.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from vlrlhf_torch.ops import _build
+
+
+def decode_attention_plain(
+    q: torch.Tensor,  # (B, nh, hd)
+    k_cache: torch.Tensor,  # (B, nkv, S, hd) — one layer
+    v_cache: torch.Tensor,
+    k_cur: torch.Tensor,  # (B, nkv, hd)
+    v_cur: torch.Tensor,
+    lengths: torch.Tensor,  # (B,)
+    scale: float,
+) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch, f32 softmax."""
+    b, nh, hd = q.shape
+    nkv, s = k_cache.shape[1], k_cache.shape[2]
+    g = nh // nkv
+    qf = q.float().reshape(b, nkv, g, hd) * scale
+    scores = torch.einsum("bngd,bnsd->bngs", qf, k_cache.float())
+    slot = torch.arange(s, device=q.device)
+    live = slot[None, :] < lengths.to(q.device).long()[:, None]  # (B, S)
+    scores = scores.masked_fill(~live[:, None, None, :], float("-inf"))
+    s_self = torch.einsum("bngd,bnd->bng", qf, k_cur.float())[..., None]
+    probs = torch.softmax(torch.cat([scores, s_self], dim=-1), dim=-1)
+    out = torch.einsum("bngs,bnsd->bngd", probs[..., :s], v_cache.float())
+    out = out + probs[..., s:] * v_cur.float()[:, :, None, :]
+    return out.reshape(b, nh, hd).to(q.dtype)
+
+
+def _launch(q, k_cache, v_cache, k_cur, v_cur, lengths, scale, layer):
+    b, nh, hd = q.shape
+    stacked = layer is not None
+    nkv, s = k_cache.shape[-3], k_cache.shape[-2]
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("k_cur", k_cur), ("v_cur", v_cur)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"decode kernel takes bf16, got {name} {t.dtype}")
+        if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]) or t.data_ptr() % 16:
+            raise ValueError(
+                f"decode kernel needs {name} with unit last stride, strides "
+                f"divisible by 8 and a 16-byte aligned base; got {t.stride()}"
+            )
+    if k_cache.shape != v_cache.shape or k_cache.stride() != v_cache.stride():
+        raise ValueError("k_cache and v_cache must share shape and strides")
+    if nh % nkv or nh // nkv not in (1, 2, 4, 8) or hd % 8 or not 0 < hd <= 256:
+        raise ValueError(
+            f"decode kernel takes GQA groups of 1, 2, 4 or 8 and head_dim a "
+            f"multiple of 8 up to 256; got nh={nh} nkv={nkv} hd={hd}"
+        )
+    if tuple(k_cur.shape) != (b, nkv, hd) or k_cur.stride() != v_cur.stride():
+        raise ValueError(f"k_cur/v_cur must be (B, nkv, hd) = {(b, nkv, hd)}")
+    if not 0 <= (layer or 0) < (k_cache.shape[0] if stacked else 1):
+        raise IndexError(f"layer {layer} out of range")
+    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    o = torch.empty((b, nh, hd), dtype=q.dtype, device=q.device)
+    if b == 0:
+        return o
+    cs = k_cache.stride()[-4:]  # (batch, head, slot, 1) either way
+    layer_offset = layer * k_cache.stride(0) if stacked else 0
+    lib = _build.load("decode_attention")
+    fn = lib.decode_attention_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    err = fn(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_cur.data_ptr(), v_cur.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+        b, nh, nkv, hd, s, layer_offset,
+        q.stride(0), q.stride(1),
+        cs[0], cs[1], cs[2],
+        k_cur.stride(0), k_cur.stride(1),
+        scale, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "decode_attention_bf16")
+    decode_attention.launches += 1
+    return o
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, nh, hd)
+    k_cache: torch.Tensor,  # (B, nkv, S, hd) or (L, B, nkv, S, hd) with `layer`
+    v_cache: torch.Tensor,
+    k_cur: torch.Tensor,  # (B, nkv, hd) current token's k (not yet in cache)
+    v_cur: torch.Tensor,
+    lengths: torch.Tensor,  # (B,) int current positions
+    scale: Optional[float] = None,
+    layer: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(B, nh, hd) attention output. With `layer` the caches are the full
+    stacked buffers; the kernel offsets into layer `layer` in place."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError("int8 KV-cache scales are not ported yet")
+    hd = q.shape[-1]
+    scale = hd**-0.5 if scale is None else scale
+    if q.is_cuda:
+        return _launch(q, k_cache, v_cache, k_cur, v_cur, lengths, scale, layer)
+    if q.device.type != "cpu":
+        raise ValueError(f"decode_attention: no path for device {q.device}")
+    kc = k_cache if layer is None else k_cache[layer]
+    vc = v_cache if layer is None else v_cache[layer]
+    return decode_attention_plain(q, kc, vc, k_cur, v_cur, lengths, scale)
+
+
+decode_attention.launches = 0  # kernel launches; the plain path never counts
