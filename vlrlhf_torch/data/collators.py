@@ -1,6 +1,6 @@
-"""Generation collator: tokenized prompt rows -> right-padded numpy batches
-(the serving subset of vlrlhf_tpu/data/collators.py, copied because the
-original imports jax through its package).
+"""Collators: tokenized rows -> right-padded numpy batches (the generation
+and DPO collators of vlrlhf_tpu/data/collators.py, copied because the
+original imports jax through its package; no anyres or Q-Former).
 
 Right padding because the engine's KV-cache slot index equals the absolute
 token position (generate/engine.py). Images ship as raw uint8; rescale and
@@ -14,7 +14,8 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
-from vlrlhf_torch.data.processor import VLProcessor
+from vlrlhf_torch.data.diffmask import diff_masks
+from vlrlhf_torch.data.processor import LABEL_PAD, VLProcessor
 
 
 def _round_up(x: int, m: int) -> int:
@@ -47,6 +48,15 @@ class CollatorConfig:
     bucket_multiple: int = 128
     image_size: int = 336
     resize_mode: str = "shortest_edge_crop"
+    compute_diff_mask: bool = False  # DDPO: precompute diff masks
+    pad_to: int = 0  # fixed batch length; 0 = bucket by batch max
+
+
+def _pad_rows(rows: list, pad_value: int, length: int, dtype=np.int32) -> np.ndarray:
+    out = np.full((len(rows), length), pad_value, dtype)
+    for i, r in enumerate(rows):
+        out[i, : len(r)] = r[:length]
+    return out
 
 
 class GenerationCollator:
@@ -65,7 +75,10 @@ class GenerationCollator:
     def __call__(self, rows: list[dict]) -> dict[str, Any]:
         """rows: {"input_ids": template-tokenized ids, "img_path": str|None}."""
         cfg = self.cfg
-        expanded = [self.processor.expand_image_tokens(r["input_ids"]) for r in rows]
+        expanded = []
+        for r in rows:
+            ids, _, pos = self.processor.expand_image_tokens(r["input_ids"])
+            expanded.append((ids, pos))
         L = _round_up(max(len(ids) for ids, _ in expanded), cfg.bucket_multiple)
         b = len(rows)
         s = cfg.image_size
@@ -86,3 +99,65 @@ class GenerationCollator:
             "prompt_lens": np.asarray([len(x) for x, _ in expanded], np.int32),
             "pixel_values": pixels,
         }
+
+
+class DPOCollator:
+    """Rows from tokenize_row_dpo -> a concatenated [chosen; rejected]
+    batch: input_ids, labels, pad_mask, image_positions (2B rows),
+    pixel_values (B pairs, 1, H, W, 3) uint8 (one image per pair), the precomputed
+    ref_chosen_logps / ref_rejected_logps when the rows carry them, and the
+    DDPO loss_mask when asked for."""
+
+    def __init__(
+        self,
+        processor: VLProcessor,
+        cfg: CollatorConfig,
+        image_loader: Optional[Callable] = None,  # None = default_image_loader
+    ):
+        self.processor = processor
+        self.cfg = cfg
+        self.image_loader = image_loader or default_image_loader
+
+    def _load_images(self, img_paths: list) -> np.ndarray:
+        s = self.cfg.image_size
+        out = np.zeros((len(img_paths), 1, s, s, 3), np.uint8)
+        for i, path in enumerate(img_paths):
+            if isinstance(path, list):
+                path = path[0] if path else None
+            if path is not None:
+                out[i, 0] = self.image_loader(path, s, self.cfg.resize_mode)
+        return out
+
+    def __call__(self, rows: list[dict]) -> dict[str, Any]:
+        cfg = self.cfg
+        exp = self.processor.expand_image_tokens
+        chosen = [exp(r["chosen_input_ids"], r["chosen_labels"]) for r in rows]
+        rejected = [exp(r["rejected_input_ids"], r["rejected_labels"]) for r in rows]
+        all_rows = chosen + rejected  # [chosen...; rejected...]
+        max_len = max(len(x[0]) for x in all_rows)
+        L = cfg.pad_to or _round_up(max_len, cfg.bucket_multiple)
+        if max_len > L:
+            raise ValueError(f"row of {max_len} tokens does not fit pad_to={L}")
+        labels = _pad_rows([x[1] for x in all_rows], LABEL_PAD, L, np.int64)
+        img_pos = np.full((len(all_rows), self.processor.cfg.num_image_tokens), -1, np.int32)
+        for i, (_, _, pos) in enumerate(all_rows):
+            img_pos[i, : len(pos)] = pos
+        batch = {
+            "input_ids": _pad_rows([x[0] for x in all_rows], cfg.pad_token_id, L),
+            "labels": labels,
+            "pad_mask": _pad_rows([np.ones(len(x[0]), np.int32) for x in all_rows], 0, L)
+            .astype(bool),
+            "image_positions": img_pos,
+            "pixel_values": self._load_images([r.get("img_path") for r in rows]),
+        }
+        if "ref_chosen_logp" in rows[0]:
+            batch["ref_chosen_logps"] = np.asarray([r["ref_chosen_logp"] for r in rows], np.float32)
+            batch["ref_rejected_logps"] = np.asarray(
+                [r["ref_rejected_logp"] for r in rows], np.float32)
+        if cfg.compute_diff_mask:
+            n = len(rows)
+            masks = np.zeros((2 * n, L), bool)
+            for i in range(n):
+                masks[i], masks[n + i] = diff_masks(labels[i], labels[n + i], LABEL_PAD)
+            batch["loss_mask"] = masks
+        return batch

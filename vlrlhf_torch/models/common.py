@@ -1,6 +1,7 @@
 """Shared building blocks (counterpart of vlrlhf_tpu/models/common.py):
-`Linear` (dense + optional bias), clamped `embed`, the static-shape
-image-feature merge, and seeded random initialisation.
+`Ctx` (the per-call adapter switch and LoRA dropout seed), `Linear` (dense
++ optional bias + optional LoRA adapter), clamped `embed`, the
+static-shape image-feature merge, and seeded random initialisation.
 
 Weights follow PyTorch's (out, in) convention; utils/bridge.py transposes
 vlrlhf_tpu's (in, out) kernels on the way in. Parameters are allocated empty
@@ -10,9 +11,50 @@ full-width model is built directly on the card.
 
 from __future__ import annotations
 
+import dataclasses
+import zlib
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from vlrlhf_torch.lora.lora import lora_delta
+
+_MASK63 = (1 << 63) - 1
+
+
+def fold_seed(seed: int, value: int) -> int:
+    """A new 63-bit seed from (seed, value): splitmix64's finalizer, the
+    counterpart of jax.random.fold_in for the port's dropout seeds."""
+    x = (seed * 0x9E3779B97F4A7C15 + value + 1) & 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return (x ^ (x >> 31)) & _MASK63
+
+
+@dataclasses.dataclass(frozen=True)
+class Ctx:
+    """Per-call context threaded through the model (vlrlhf_tpu's Ctx).
+
+    `adapters` switches the LoRA adapters the Linears hold on or off: the
+    DPO reference forward is the same model with adapters off. LoRA dropout
+    draws from `dropout_seed`, which `sub` folds with crc32 of each child's
+    key and the decoder folds with the layer index, so every module of every
+    layer gets its own mask, per step."""
+
+    adapters: bool = False
+    lora_scale: float = 1.0
+    lora_dropout: float = 0.0
+    dropout_seed: Optional[int] = None
+
+    def sub(self, key: str) -> "Ctx":
+        return self.fold(zlib.crc32(key.encode()) & 0x7FFFFFFF)
+
+    def fold(self, value: int) -> "Ctx":
+        if self.dropout_seed is None:
+            return self
+        return dataclasses.replace(self, dropout_seed=fold_seed(self.dropout_seed, value))
 
 
 def empty_param(shape, device, dtype) -> nn.Parameter:
@@ -20,17 +62,26 @@ def empty_param(shape, device, dtype) -> nn.Parameter:
 
 
 class Linear(nn.Module):
-    """y = x @ weight.T (+ bias); weight (out, in)."""
+    """y = x @ weight.T (+ bias) (+ LoRA delta); weight (out, in).
+
+    `lora_a` (in, r) / `lora_b` (r, out) are None until lora.init_lora
+    attaches an adapter; it applies when the call's Ctx has adapters on."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool, device, dtype):
         super().__init__()
         self.weight = empty_param((d_out, d_in), device, dtype)
         self.bias = empty_param((d_out,), device, dtype) if bias else None
+        self.register_parameter("lora_a", None)
+        self.register_parameter("lora_b", None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ctx: Optional[Ctx] = None) -> torch.Tensor:
         y = F.linear(x, self.weight.to(x.dtype))
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
+        if ctx is not None and ctx.adapters and self.lora_a is not None:
+            delta = lora_delta(x, self.lora_a, self.lora_b, ctx.lora_scale,
+                               ctx.lora_dropout, ctx.dropout_seed)
+            y = y + delta.to(y.dtype)
         return y
 
 
@@ -78,6 +129,8 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
+        if leaf in ("lora_a", "lora_b"):
+            raise ValueError("init_random_ runs before lora.init_lora attaches adapters")
         if isinstance(owner, Linear) and leaf == "weight":
             p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
         elif isinstance(owner, Norm) and leaf == "weight":

@@ -37,6 +37,11 @@ class LMConfig:
     o_bias: bool = False
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
+    # Training remat (models/lm/llama.py): torch.utils.checkpoint per layer
+    # ("full") or per half-layer, keeping the residual after attention
+    # ("attn"); the other vlrlhf_tpu policies are not ported yet.
+    remat: bool = True
+    remat_policy: str = "full"
 
     @property
     def head_dim_(self) -> int:
@@ -162,7 +167,7 @@ def scale_down(cfg: VLMConfig, dtype=torch.float32) -> VLMConfig:
     lm_small = dataclasses.replace(
         lm, vocab_size=256, hidden_size=32, intermediate_size=64,
         num_layers=2, num_heads=4, num_kv_heads=max(4 // kv_ratio, 1),
-        head_dim=8, dtype=dtype,
+        head_dim=8, dtype=dtype, remat=False,
     )
     v = cfg.vision
     vis_small = dataclasses.replace(

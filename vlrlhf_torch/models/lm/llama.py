@@ -1,6 +1,14 @@
 """Llama-family decoder (counterpart of vlrlhf_tpu/models/lm/llama.py):
-the empty-prefill forward (`lm_forward` with `cache_len`) and the
-single-token decode step with the deferred cache write (`lm_decode`).
+the training forward and the empty-prefill forward (`lm_forward` without a
+cache / with `cache_len`) and the single-token decode step with the
+deferred cache write (`lm_decode`).
+
+Training: each Linear applies its LoRA adapter when the call's Ctx has
+adapters on, and layers are rematerialized by `torch.utils.checkpoint`
+following `remat_policy_for` (llama.py:647-672): "full" checkpoints each
+layer, "attn" checkpoints the attention half and the MLP half separately so
+the residual between them (x + attn_out, what `save_only_these_names(
+"attn_out")` keeps) is what stays; `LMConfig.remat=False` keeps everything.
 
 KV cache layout is vlrlhf_tpu's head-major decode layout: {"k", "v"} each
 (L, B, nkv, Sc, hd), slot == absolute position (right-padded prompts).
@@ -16,8 +24,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from vlrlhf_torch.models.common import Linear, Norm, empty_param, embed
+from vlrlhf_torch.models.common import Ctx, Linear, Norm, empty_param, embed
 from vlrlhf_torch.models.config import LMConfig
 from vlrlhf_torch.ops.attention import multi_head_attention
 from vlrlhf_torch.ops.decode_attention import decode_attention
@@ -42,19 +51,41 @@ class LlamaLayer(nn.Module):
         self.down = Linear(ff, h, False, device, dt)
         self.cfg = cfg
 
-    def qkv(self, h: torch.Tensor):
+    def qkv(self, h: torch.Tensor, actx: Optional[Ctx] = None):
         """(B, S, H) normed input -> q (B,S,nh,hd), k/v (B,S,nkv,hd)."""
         cfg = self.cfg
         b, s, _ = h.shape
         nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+        actx = actx or Ctx()
         return (
-            self.wq(h).reshape(b, s, nh, hd),
-            self.wk(h).reshape(b, s, nkv, hd),
-            self.wv(h).reshape(b, s, nkv, hd),
+            self.wq(h, actx.sub("wq")).reshape(b, s, nh, hd),
+            self.wk(h, actx.sub("wk")).reshape(b, s, nkv, hd),
+            self.wv(h, actx.sub("wv")).reshape(b, s, nkv, hd),
         )
 
-    def mlp(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(F.silu(self.gate(x)) * self.up(x))
+    def mlp(self, x: torch.Tensor, mctx: Optional[Ctx] = None) -> torch.Tensor:
+        mctx = mctx or Ctx()
+        gate, up = self.gate(x, mctx.sub("gate")), self.up(x, mctx.sub("up"))
+        return self.down(F.silu(gate) * up, mctx.sub("down"))
+
+    def attn_out(self, x, cos, sin, pad_mask, lctx: Ctx) -> torch.Tensor:
+        """The attention half of a training layer: wo(attention(norm(x)))."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        actx = lctx.sub("attn")
+        h = rms_norm(x, self.input_layernorm.weight, cfg.rms_eps)
+        q, k, v = self.qkv(h, actx)
+        q, k = apply_rope(q, k, cos, sin)
+        out = multi_head_attention(q, k, v, causal=True, pad_mask_q=pad_mask, pad_mask_kv=pad_mask)
+        return self.wo(out.reshape(b, s, -1), actx.sub("wo"))
+
+    def mlp_residual(self, x: torch.Tensor, lctx: Ctx) -> torch.Tensor:
+        """The MLP half of a training layer, residual included."""
+        h = rms_norm(x, self.post_attention_layernorm.weight, self.cfg.rms_eps)
+        return x + self.mlp(h, lctx.sub("mlp"))
+
+    def forward(self, x, cos, sin, pad_mask, lctx: Ctx) -> torch.Tensor:
+        return self.mlp_residual(x + self.attn_out(x, cos, sin, pad_mask, lctx), lctx)
 
 
 class LlamaDecoder(nn.Module):
@@ -72,45 +103,50 @@ class LlamaDecoder(nn.Module):
     def embed(self, ids: torch.Tensor) -> torch.Tensor:
         return embed(self.embed_tokens, ids, self.cfg.dtype)
 
-    def head(self, hidden: torch.Tensor) -> torch.Tensor:
+    def head(self, hidden: torch.Tensor, ctx: Optional[Ctx] = None) -> torch.Tensor:
+        """Logits; `ctx` is the LM-level context (an lm_head adapter, if
+        targeted, applies under ctx.sub("lm_head") as in vlrlhf_tpu)."""
         if self.lm_head is None:
             return F.linear(hidden, self.embed_tokens.to(hidden.dtype))
-        return self.lm_head(hidden)
+        return self.lm_head(hidden, ctx.sub("lm_head") if ctx is not None else None)
 
     def forward(
         self,
         inputs_embeds: torch.Tensor,  # (B, S, H)
         pad_mask: Optional[torch.Tensor] = None,  # (B, S)
         cache_len: Optional[int] = None,
+        ctx: Optional[Ctx] = None,
     ):
-        """Causal forward over right-padded prompts (positions == arange).
+        """Causal forward over right-padded rows (positions == arange).
         Returns (final-normed hidden (B, S, H), cache or None). With
         `cache_len` this is the EMPTY-PREFILL mode: each layer's k/v land in
-        slots [0, S) of a fresh (L, B, nkv, cache_len, hd) cache."""
+        slots [0, S) of a fresh (L, B, nkv, cache_len, hd) cache. Without
+        it this is the training forward: `ctx` switches adapters on or off,
+        and under autograd the layers are rematerialized per
+        `cfg.remat_policy`."""
         cfg = self.cfg
         b, s, _ = inputs_embeds.shape
         nkv, hd = cfg.num_kv_heads, cfg.head_dim_
         positions = torch.arange(s, device=inputs_embeds.device)[None].expand(b, s)
         cos, sin = rope_frequencies(cfg.rope, positions, seq_len=cache_len or s)
-        cache = None
-        if cache_len is not None:
-            if cache_len < s:
-                raise ValueError(f"cache_len {cache_len} < prompt bucket {s}")
-            # allocated once and filled layer by layer in place: only the
-            # one stacked cache is ever live (no per-layer caches to stack)
-            shape = (cfg.num_layers, b, nkv, cache_len, hd)
-            cache = {
-                "k": torch.zeros(shape, dtype=cfg.dtype, device=inputs_embeds.device),
-                "v": torch.zeros(shape, dtype=cfg.dtype, device=inputs_embeds.device),
-            }
+        if cache_len is None:
+            return self._train_forward(inputs_embeds, pad_mask, cos, sin, ctx or Ctx()), None
+        if cache_len < s:
+            raise ValueError(f"cache_len {cache_len} < prompt bucket {s}")
+        # allocated once and filled layer by layer in place: only the
+        # one stacked cache is ever live (no per-layer caches to stack)
+        shape = (cfg.num_layers, b, nkv, cache_len, hd)
+        cache = {
+            "k": torch.zeros(shape, dtype=cfg.dtype, device=inputs_embeds.device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=inputs_embeds.device),
+        }
         x = inputs_embeds
         for i, layer in enumerate(self.layers):
             h = rms_norm(x, layer.input_layernorm.weight, cfg.rms_eps)
             q, k, v = layer.qkv(h)
             q, k = apply_rope(q, k, cos, sin)
-            if cache is not None:
-                cache["k"][i, :, :, :s] = k.transpose(1, 2)
-                cache["v"][i, :, :, :s] = v.transpose(1, 2)
+            cache["k"][i, :, :, :s] = k.transpose(1, 2)
+            cache["v"][i, :, :, :s] = v.transpose(1, 2)
             out = multi_head_attention(
                 q, k, v, causal=True, pad_mask_q=pad_mask, pad_mask_kv=pad_mask
             )
@@ -118,6 +154,24 @@ class LlamaDecoder(nn.Module):
             h = rms_norm(x, layer.post_attention_layernorm.weight, cfg.rms_eps)
             x = x + layer.mlp(h)
         return rms_norm(x, self.norm.weight, cfg.rms_eps), cache
+
+    def _train_forward(self, x, pad_mask, cos, sin, ctx: Ctx) -> torch.Tensor:
+        cfg = self.cfg
+        layers_ctx = ctx.sub("layers_scanned")
+        remat = cfg.remat and torch.is_grad_enabled()
+        if remat and cfg.remat_policy not in ("full", "attn"):
+            raise ValueError(f"remat_policy {cfg.remat_policy!r} is not ported yet "
+                             "(ported: 'full', 'attn')")
+        for i, layer in enumerate(self.layers):
+            lctx = layers_ctx.fold(i)  # a distinct dropout stream per layer
+            if not remat:
+                x = layer(x, cos, sin, pad_mask, lctx)
+            elif cfg.remat_policy == "attn":
+                a = checkpoint(layer.attn_out, x, cos, sin, pad_mask, lctx, use_reentrant=False)
+                x = checkpoint(layer.mlp_residual, x + a, lctx, use_reentrant=False)
+            else:
+                x = checkpoint(layer, x, cos, sin, pad_mask, lctx, use_reentrant=False)
+        return rms_norm(x, self.norm.weight, cfg.rms_eps)
 
     def decode(
         self,

@@ -2,6 +2,10 @@
 (counterpart of vlrlhf_tpu/models/vlm.py: `projector_forward`,
 `encode_images`, `vlm_embeds`, `vlm_forward`, `lm_head_fn`).
 
+Training passes precomputed `image_features` (the frozen tower runs once
+per pair, outside autograd) and a `Ctx` that switches the LM's LoRA
+adapters on or off; `head_fn` is the chunk head of the chunked logps.
+
 The processor emits exactly `num_image_tokens` placeholder tokens per image
 plus an `image_positions` map; projected features land at those positions
 (models/common.py merge_multimodal_embeddings).
@@ -15,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vlrlhf_torch.models.common import Linear, merge_multimodal_embeddings
+from vlrlhf_torch.models.common import Ctx, Linear, merge_multimodal_embeddings
 from vlrlhf_torch.models.config import ProjectorConfig, VLMConfig
 from vlrlhf_torch.models.lm.llama import LlamaDecoder
 from vlrlhf_torch.models.vision.vit import VisionTower
@@ -64,19 +68,22 @@ class VLM(nn.Module):
         input_ids: torch.Tensor,  # (B, S) — placeholders already expanded
         pixel_values: Optional[torch.Tensor] = None,  # (B, n_img, H, W, 3)
         image_positions: Optional[torch.Tensor] = None,  # (B, n_img*N_tok)
+        image_features: Optional[torch.Tensor] = None,  # (B, n_img*N_tok, H) precomputed
     ) -> torch.Tensor:
-        """Token embeddings with image features merged in."""
+        """Token embeddings with image features merged in; precomputed
+        `image_features` skip the tower."""
         embeds = self.lm.embed(input_ids)
-        if pixel_values is None:
+        if pixel_values is None and image_features is None:
             return embeds
         if image_positions is None:
-            raise ValueError("pixel_values need image_positions")
-        b, n_img = pixel_values.shape[:2]
-        flat = pixel_values.reshape(b * n_img, *pixel_values.shape[2:])
-        feats = self.encode_images(flat).reshape(
-            b, n_img * self.cfg.num_image_tokens, -1
-        )
-        return merge_multimodal_embeddings(embeds, feats, image_positions)
+            raise ValueError("image inputs need image_positions")
+        if image_features is None:
+            b, n_img = pixel_values.shape[:2]
+            flat = pixel_values.reshape(b * n_img, *pixel_values.shape[2:])
+            image_features = self.encode_images(flat).reshape(
+                b, n_img * self.cfg.num_image_tokens, -1
+            )
+        return merge_multimodal_embeddings(embeds, image_features, image_positions)
 
     def forward(
         self,
@@ -85,11 +92,20 @@ class VLM(nn.Module):
         image_positions: Optional[torch.Tensor] = None,
         pad_mask: Optional[torch.Tensor] = None,
         cache_len: Optional[int] = None,
+        ctx: Optional[Ctx] = None,
+        image_features: Optional[torch.Tensor] = None,
     ):
-        """vlm_forward in empty-prefill mode: returns (final-normed hidden
-        (B, S, H), cache or None). Logits come from `head`."""
-        embeds = self.embeds(input_ids, pixel_values, image_positions)
-        return self.lm(embeds, pad_mask=pad_mask, cache_len=cache_len)
+        """vlm_forward: returns (final-normed hidden (B, S, H), cache or
+        None); with `cache_len` the empty-prefill mode, without it the
+        training forward under `ctx`. Logits come from `head`."""
+        embeds = self.embeds(input_ids, pixel_values, image_positions, image_features)
+        lm_ctx = ctx.sub("lm") if ctx is not None else None
+        return self.lm(embeds, pad_mask=pad_mask, cache_len=cache_len, ctx=lm_ctx)
 
-    def head(self, hidden: torch.Tensor) -> torch.Tensor:
-        return self.lm.head(hidden)
+    def head(self, hidden: torch.Tensor, ctx: Optional[Ctx] = None) -> torch.Tensor:
+        return self.lm.head(hidden, ctx.sub("lm") if ctx is not None else None)
+
+    def head_fn(self, ctx: Optional[Ctx] = None):
+        """(B, C, H) -> (B, C, V): the chunk head of train/losses.py
+        chunked_logps (vlrlhf_tpu `lm_head_fn`)."""
+        return lambda hc: self.head(hc, ctx)

@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
 use with nvcc for sm_90a into `<repo>/build/lib<name>-<hash>.so`, then
 loaded with ctypes. The hash covers the source, so an edited kernel gets a
 fresh library and an unchanged one is reused. Nothing is built at import:
-the CPU tests import every module on machines without nvcc.
+the CPU tests import every module on machines without nvcc. Each library has
+its own lock, so different kernels build in parallel (`build_all`).
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
-_lock = threading.Lock()
+_locks_guard = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}  # name -> nvcc wall seconds (0 = cached)
 ptxas_info: dict[str, str] = {}  # name -> nvcc's register/smem report
@@ -48,7 +50,9 @@ def _nvcc() -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, compiling it if needed."""
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         src = CSRC / f"{name}.cu"
@@ -75,6 +79,17 @@ def load(name: str) -> ctypes.CDLL:
             ptxas_info[name] = proc.stderr.strip()
         _libs[name] = ctypes.CDLL(str(out))
         return _libs[name]
+
+
+def build_all(names) -> None:
+    """Load every named library, running their nvcc builds concurrently
+    (one process per source); raises the first build error."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        for fut in [pool.submit(load, n) for n in names]:
+            fut.result()
 
 
 def check(err: int, what: str) -> None:

@@ -1,0 +1,58 @@
+"""Metrics logging to JSONL with tokens/s and MFU (counterpart of
+vlrlhf_tpu/train/metrics.py without wandb).
+
+MFU is taken against one NVIDIA H100 SXM's dense bf16 tensor-core peak,
+989.4 TFLOP/s (NVIDIA's H100 data sheet), at the card's full 700 W limit.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Optional
+
+H100_BF16_DENSE_FLOPS = 989.4e12  # per card, dense (no sparsity)
+
+
+class MetricsLogger:
+    """Appends one JSON object per logged step to
+    <output_dir>/<run_name>_metrics.jsonl. From the second logged step on,
+    it adds perf/step_time_s (wall time since the previous log divided by the
+    steps between), perf/tokens_per_sec and perf/mfu, from the interval's
+    token and image counts the loop reports as perf/interval_tokens and
+    perf/interval_images."""
+
+    def __init__(
+        self,
+        output_dir: str,
+        run_name: str = "run",
+        flops_per_token: Optional[float] = None,
+        flops_per_image: Optional[float] = None,
+    ):
+        os.makedirs(output_dir, exist_ok=True)
+        self.path = os.path.join(output_dir, f"{run_name}_metrics.jsonl")
+        self._file = open(self.path, "a")
+        self.flops_per_token = flops_per_token
+        self.flops_per_image = flops_per_image
+        self._last: Optional[tuple[float, int]] = None
+
+    def log(self, step: int, metrics: dict[str, Any]) -> dict[str, Any]:
+        now = time.perf_counter()
+        out = {k: float(v) for k, v in metrics.items()}
+        tokens = out.pop("perf/interval_tokens", None)
+        images = out.pop("perf/interval_images", 0.0)
+        if self._last is not None and tokens:
+            dt = now - self._last[0]
+            out["perf/step_time_s"] = dt / max(step - self._last[1], 1)
+            out["perf/tokens_per_sec"] = tokens / dt
+            if self.flops_per_token:
+                flops = self.flops_per_token * tokens + (self.flops_per_image or 0.0) * images
+                out["perf/mfu"] = flops / dt / H100_BF16_DENSE_FLOPS
+        self._last = (now, step)
+        self._file.write(json.dumps({"step": step, **out}) + "\n")
+        self._file.flush()
+        return out
+
+    def close(self):
+        self._file.close()

@@ -8,17 +8,24 @@ per-module inits) and what the bridge does with them:
     slice per nn.ModuleList entry
   - vision "patch_embed" HWIO kernel (p, p, 3, h) -> (h, p*p*3), flattened
     in (row, col, channel) order to match the tower's patch extraction
-The copy goes to each parameter's device and dtype.
+  - LoRA adapter trees ({"a" (in, r), "b" (r, out)} leaves beside the base
+    tree, stacked on the layer axis under "layers_scanned") -> each Linear's
+    lora_a / lora_b, f32; `lora_tree` is the way back, for the adapters or
+    their gradients, so tests compare leaf by leaf
+The copy goes to each parameter's device and dtype. int8 / int4 base leaves
+belong to later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
+from vlrlhf_torch.lora.lora import module_path
 from vlrlhf_torch.models import config as C
 from vlrlhf_torch.models.common import Linear, Norm
 from vlrlhf_torch.models.vlm import VLM
@@ -94,6 +101,63 @@ def load_vlm_params(model: VLM, params: Mapping[str, Any]) -> VLM:
     if lm.lm_head is not None:
         _linear(lm.lm_head, lmp["lm_head"])
     return model
+
+
+def _adapter_key(name: str) -> tuple[tuple[str, ...], Optional[int]]:
+    """A Linear's key in a vlrlhf_tpu adapter tree and its layer index:
+    "lm.layers.3.wq" -> (("lm", "layers_scanned", "attn", "wq"), 3)."""
+    path = module_path(name)[: -len("/kernel")].split("/")
+    if len(path) > 2 and path[1] == "layers":
+        return (path[0], "layers_scanned", *path[3:]), int(path[2])
+    return tuple(path), None
+
+
+def load_lora_params(model: nn.Module, adapters: Mapping[str, Any]) -> list[str]:
+    """Attach (or overwrite) f32 adapters from a vlrlhf_tpu adapter tree
+    (init_lora's output, numpy leaves); returns the adapted module names."""
+    done = []
+    for name, mod in model.named_modules():
+        if not isinstance(mod, Linear):
+            continue
+        key, layer = _adapter_key(name)
+        node: Any = adapters
+        for k in key:
+            node = node.get(k) if isinstance(node, Mapping) else None
+        if not isinstance(node, Mapping) or "a" not in node:
+            continue
+        a, b = np.asarray(node["a"], np.float32), np.asarray(node["b"], np.float32)
+        if layer is not None:
+            a, b = a[layer], b[layer]
+        dev = mod.weight.device
+        if a.shape != (mod.weight.shape[1], b.shape[0]) or b.shape[1] != mod.weight.shape[0]:
+            raise ValueError(f"{name}: adapter {a.shape} {b.shape} does not fit {tuple(mod.weight.shape)}")
+        mod.lora_a = nn.Parameter(torch.tensor(a, device=dev))
+        mod.lora_b = nn.Parameter(torch.tensor(b, device=dev))
+        done.append(name)
+    return done
+
+
+def lora_tree(model: nn.Module, grads: bool = False) -> dict:
+    """The port's adapters (or, with grads=True, their .grad) as a numpy
+    tree with vlrlhf_tpu's structure: per-layer pairs stacked under
+    "layers_scanned"."""
+    stacked: dict = {}
+    for name, mod in model.named_modules():
+        if not isinstance(mod, Linear) or mod.lora_a is None:
+            continue
+        key, layer = _adapter_key(name)
+        for leaf, p in (("a", mod.lora_a), ("b", mod.lora_b)):
+            t = p.grad if grads else p
+            arr = np.zeros(tuple(p.shape), np.float32) if t is None else t.detach().float().cpu().numpy()
+            stacked.setdefault(key + (leaf,), {})[layer] = arr
+    tree: dict = {}
+    for key, by_layer in stacked.items():
+        node = tree
+        for k in key[:-1]:
+            node = node.setdefault(k, {})
+        node[key[-1]] = (by_layer[None] if None in by_layer
+                         else np.stack([by_layer[i] for i in sorted(by_layer)]))
+    return tree
 
 
 def _torch_dtype(dt) -> torch.dtype:
