@@ -11,7 +11,8 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
   2. each kernel against its plain PyTorch version on the card, at the
      serving and DPO paths' shapes, bf16 in, plain computed in f32 on the
      same values; max abs error against 2e-2 (times max(1, max |ref|) for
-     the backward); kernel, plain and PyTorch-SDPA times and each kernel's
+     the backward) and relative Frobenius error against 1e-2, with the
+     median |ref| printed; kernel, plain and PyTorch-SDPA times and each kernel's
      bound max(FLOPs / 989.4e12, bytes / 3.35e12)
   3. serving at full LLaVA-1.5-7B widths but 2 LM / 2 tower layers: the
      same seeded weights on the card (bf16, kernels) and on the CPU (f32,
@@ -57,6 +58,10 @@ import numpy as np
 import torch
 
 TOL = 2e-2  # bf16 kernel vs f32 plain on identical bf16 inputs
+# ||got - ref||_F / ||ref||_F, kernel vs plain: scale-free, so it also holds
+# the many small entries that a max-abs tolerance set by the largest misses
+# (bf16 rounding of P, dS and the outputs alone gives a few 1e-3)
+REL_TOL = 1e-2
 LOGIT_REL_TOL = 5e-2  # bf16 model on the card vs the f32 model on the CPU
 LOSS_REL_TOL = 5e-2  # bf16 DPO loss on the card vs the f32 loss on the CPU
 GRAD_COS_MIN = 0.99  # cosine of the flattened LoRA gradients, card vs CPU
@@ -106,6 +111,22 @@ def phase_build():
         spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", info))
         print(f"ptxas {name}: {len(regs)} kernels, max {max(regs, default=0)} registers, "
               f"{spills} bytes of spill stores", flush=True)
+
+
+def check_close(what: str, got: torch.Tensor, ref: torch.Tensor, atol: float) -> tuple:
+    """Kernel output vs its f32 plain version: max abs error <= atol and
+    relative Frobenius error <= REL_TOL. Returns (max abs err, rel err,
+    a report that names the median |ref| beside the tolerances)."""
+    got, ref = got.float(), ref.float()
+    diff = got - ref
+    err = float(diff.abs().max())
+    rel = float(diff.norm() / ref.norm())
+    med = float(ref.abs().median())
+    if not (np.isfinite(err) and np.isfinite(rel)) or err > atol or rel > REL_TOL:
+        raise AssertionError(f"{what}: max abs err {err:.3e} (tol {atol:.3e}), rel err "
+                             f"{rel:.3e} (tol {REL_TOL}), median |ref| {med:.3e}")
+    return err, rel, (f"max_abs_err={err:.3e} (tol {atol:.3e}) rel_err={rel:.3e} "
+                      f"(tol {REL_TOL}) median|ref|={med:.3e}")
 
 
 def _flash_bytes(b, s, h, hkv, d, grads: str) -> int:
@@ -163,12 +184,7 @@ def phase_kernels():
         torch.cuda.synchronize()
         ref, _ = flash_attention_plain(q.float(), k.float(), v.float(), seg_q, seg_kv,
                                        causal, d**-0.5)
-        err = max(
-            float((out[i, :n].float() - ref[i, :n]).abs().max())
-            for i, n in enumerate(lens_t.tolist())
-        )
-        if not np.isfinite(err) or err > TOL:
-            raise AssertionError(f"flash {label}: max abs err {err} > {TOL}")
+        err, _, report = check_close(f"flash {label}", out[pad], ref[pad], TOL)  # valid rows
         k_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, pad_mask_q=pad,
                                                pad_mask_kv=pad))
         p_ms = time_ms(lambda: flash_attention_plain(q, k, v, seg_q, seg_kv, causal,
@@ -178,8 +194,8 @@ def phase_kernels():
         l_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=h != hkv))
         b_ms, b_by = bound(_flash_flops(b, s, h, d, causal), _flash_bytes(b, s, h, hkv, d, "fwd"))
-        print(f"flash {label} B={b} S={s} H={h} Hkv={hkv} D={d}: max_abs_err={err:.3e} "
-              f"(tol {TOL}) kernel {k_ms:.4f} ms plain {p_ms:.4f} ms sdpa {l_ms:.4f} ms "
+        print(f"flash {label} B={b} S={s} H={h} Hkv={hkv} D={d}: {report}; "
+              f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms sdpa {l_ms:.4f} ms "
               f"bound {b_ms:.4f} ms ({b_by})", flush=True)
         errs.append(err)
         times[label] = (k_ms, p_ms, l_ms, b_ms, b_by)
@@ -213,12 +229,10 @@ def phase_kernels():
                   "dv": (dv.float(), rv)}
         line = []
         for name, (got, ref) in checks.items():
-            err = float((got - ref).abs().max())
-            tol = TOL * max(1.0, float(ref.abs().max()))
-            if not np.isfinite(err) or err > tol:
-                raise AssertionError(f"flash backward {label} {name}: max abs err {err} > {tol}")
+            err, _, report = check_close(f"flash backward {label} {name}", got, ref,
+                                         TOL * max(1.0, float(ref.abs().max())))
             bwd_errs["dq" if name == "dq" else "dkv"].append(err)
-            line.append(f"{name} max_abs_err={err:.3e} (tol {tol:.3e})")
+            line.append(f"{name} {report}")
         args = (q, k, v, do, lse, di, seg_q, seg_kv, True, scale)
         ms = {"dkv": time_ms(lambda: flash_bwd_dkv(*args)),
               "dq": time_ms(lambda: flash_bwd_dq(*args))}
@@ -274,9 +288,7 @@ def phase_kernels():
     torch.cuda.synchronize()
     ref = decode_attention_plain(q.float(), kc[layer].float(), vc[layer].float(),
                                  k_cur.float(), v_cur.float(), lengths, hd**-0.5)
-    err = float((out.float() - ref).abs().max())
-    if not np.isfinite(err) or err > TOL:
-        raise AssertionError(f"decode: max abs err {err} > {TOL}")
+    err, _, report = check_close("decode", out, ref, TOL)
     # timing at the serving shape: 8 rows mid-generation (~640 live slots)
     lengths_t = torch.full((b,), 640, dtype=torch.int32, device=dev)
     k_ms = time_ms(lambda: decode_attention(q, kc, vc, k_cur, v_cur, lengths_t, layer=layer),
@@ -293,7 +305,7 @@ def phase_kernels():
     b_ms, b_by = bound(4.0 * b * nh * 641 * hd,
                        live_bytes + 2 * b * nkv * hd * 2 + 2 * b * nh * hd * 2 + b * 4)
     print(f"decode B={b} L={L} nkv={nkv} hd={hd} Sc={sc} layer={layer}: "
-          f"max_abs_err={err:.3e} (tol {TOL}) kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
+          f"{report}; kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
           f"sdpa {l_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}) "
           f"at length 640 ({live_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s of live k/v)", flush=True)
     results["decode_attention"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,

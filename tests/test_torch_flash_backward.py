@@ -127,8 +127,10 @@ def test_fully_masked_rows_give_zero_and_finite_grads():
     (True, 1, 130, 4, 2, 256, (130,)),  # the widest head_dim the kernels take
 ])
 def test_kernels_match_plain_on_card(causal, b, s, h, hkv, d, lens):
-    """bf16 kernels vs the plain backward in f32 on the same bf16 values;
-    max abs error <= 2e-2 * max(1, max |ref|) for dQ (valid rows), dK, dV."""
+    """bf16 kernels vs the plain backward in f32 on the same bf16 values,
+    for dQ (valid rows), dK, dV: max abs error <= 2e-2 * max(1, max |ref|),
+    and ||got - ref||_F / ||ref||_F <= 1e-2, which holds the many entries
+    far below the largest (bf16 rounding alone gives a few 1e-3)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from vlrlhf_torch.ops.flash_attention import flash_attention_bwd
@@ -151,4 +153,5 @@ def test_kernels_match_plain_on_card(causal, b, s, h, hkv, d, lens):
             g, ref = g[padt], ref[padt]
         err = float((g.float() - ref).abs().max())
         tol = 2e-2 * max(1.0, float(ref.abs().max()))
-        assert err <= tol, (name, err, tol)
+        rel = float((g.float() - ref).norm() / ref.norm())
+        assert err <= tol and rel <= 1e-2, (name, err, tol, rel)

@@ -1,8 +1,8 @@
 """vlrlhf_torch's losses vs vlrlhf_tpu/train/losses.py on the same numpy
 inputs, f32 on CPU, tolerance 1e-5: batch_logps (sum and mean, DDPO mask,
 out-of-vocab labels), chunked_logps (value and gradient against the dense
-path), all five dpo_loss types with label smoothing and reference_free,
-sft_loss and rm_loss."""
+path) and all five dpo_loss types with label smoothing and
+reference_free."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +30,8 @@ def _logits_labels(seed, b=3, s=20, v=50):
     return logits, labels, mask
 
 
-@pytest.mark.parametrize("average,with_mask", [(False, False), (True, False), (False, True)])
+@pytest.mark.parametrize("average,with_mask", [(False, False), (True, False), (False, True),
+                                               (True, True)])
 def test_batch_logps(average, with_mask):
     logits, labels, mask = _logits_labels(0)
     lm = mask if with_mask else None
@@ -97,13 +98,3 @@ def test_dpo_loss_unknown_type_raises():
     z = torch.zeros(2)
     with pytest.raises(ValueError, match="Unknown loss type"):
         T.dpo_loss(z, z, z, z, loss_type="nope")
-
-
-def test_sft_and_rm_losses():
-    logits, labels, mask = _logits_labels(4)
-    _close(T.sft_loss(torch.from_numpy(logits), torch.from_numpy(labels), torch.from_numpy(mask)),
-           J.sft_loss(jnp.asarray(logits), jnp.asarray(labels), jnp.asarray(mask)))
-    rng = np.random.default_rng(5)
-    c, r = rng.standard_normal(6).astype(np.float32), rng.standard_normal(6).astype(np.float32)
-    _close(T.rm_loss(torch.from_numpy(c), torch.from_numpy(r)),
-           J.rm_loss(jnp.asarray(c), jnp.asarray(r)))

@@ -97,12 +97,14 @@ def test_schedules_match_optax():
 
 
 def test_clipping_leaves_callers_grads_and_norm():
-    """The global norm is optax's; clipping works on a copy."""
+    """The global norm is optax's, and apply_updates returns it before
+    clipping; clipping works on a copy."""
     g = [torch.full((3,), 4.0), torch.full((4,), 3.0)]
     want = float(optax.global_norm([jnp.full((3,), 4.0), jnp.full((4,), 3.0)]))
     np.testing.assert_allclose(float(T.global_norm(g)), want, rtol=1e-6)
     cfg = T.OptimizerConfig(learning_rate=1.0, warmup_steps=0, warmup_ratio=0.0,
                             schedule="constant", total_steps=4)
     state = T.init_train_state([torch.zeros(3), torch.zeros(4)], cfg)
-    T.apply_updates(state, g, cfg)
+    got = T.apply_updates(state, g, cfg)
+    np.testing.assert_allclose(float(got), want, rtol=1e-6)
     assert torch.all(g[0] == 4.0) and torch.all(g[1] == 3.0)

@@ -27,7 +27,7 @@ from vlrlhf_torch.lora.lora import lora_parameters
 from vlrlhf_torch.models.common import Ctx, fold_seed
 from vlrlhf_torch.models.vlm import VLM
 from vlrlhf_torch.train.losses import batch_logps, chunked_logps, dpo_loss
-from vlrlhf_torch.train.train_state import OptimizerConfig, TrainState, apply_updates, global_norm
+from vlrlhf_torch.train.train_state import OptimizerConfig, TrainState, apply_updates
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,9 +134,8 @@ def dpo_step(model: VLM, dcfg: DPOConfig, ocfg: OptimizerConfig, state: TrainSta
         "logps/rejected": pr.detach().mean(),
         "logits/chosen": logits[:n_pairs].detach().mean(),
         "logits/rejected": logits[n_pairs:].detach().mean(),
-        "grad_norm": global_norm(grads),
     }
-    apply_updates(state, grads, ocfg)
+    metrics["grad_norm"] = apply_updates(state, grads, ocfg)
     return metrics
 
 

@@ -1,7 +1,6 @@
 """Preference-learning losses (counterpart of vlrlhf_tpu/train/losses.py):
-`batch_logps`, `chunked_logps`, the `dpo_loss` family (sigmoid with label
-smoothing, ddpo, hinge, ipo, kto_pair, reference_free), `sft_loss` and
-`rm_loss`. Same numerics: logps in f32 from the logits' dtype, gather minus
+`batch_logps`, `chunked_logps` and the `dpo_loss` family (sigmoid with
+label smoothing, ddpo, hinge, ipo, kto_pair, reference_free). Same numerics: logps in f32 from the logits' dtype, gather minus
 logsumexp, out-of-vocab labels clamped like take(mode="clip").
 """
 
@@ -132,24 +131,3 @@ def dpo_loss(
     chosen_rewards = beta * (policy_chosen_logps - ref_chosen_logps).detach()
     rejected_rewards = beta * (policy_rejected_logps - ref_rejected_logps).detach()
     return DPOLossOutput(losses.mean(), chosen_rewards, rejected_rewards)
-
-
-def sft_loss(
-    logits: torch.Tensor,  # (B, S, V)
-    labels: torch.Tensor,  # (B, S)
-    pad_mask: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Mean shifted CE over labeled tokens (token mean, HF convention)."""
-    logits = logits[:, :-1].float()
-    labels = labels[:, 1:]
-    mask = labels != LABEL_PAD
-    if pad_mask is not None:
-        mask = mask & pad_mask[:, 1:].bool()
-    safe = torch.where(mask, labels, torch.zeros_like(labels))
-    nll = -_gather_clipped(torch.log_softmax(logits, dim=-1), safe)
-    return (nll * mask).sum() / mask.sum().clamp(min=1)
-
-
-def rm_loss(chosen_rewards: torch.Tensor, rejected_rewards: torch.Tensor) -> torch.Tensor:
-    """Bradley-Terry pairwise loss (TRL RewardTrainer default)."""
-    return -F.logsigmoid(chosen_rewards - rejected_rewards).mean()

@@ -108,9 +108,12 @@ def init_train_state(trainable: Sequence[torch.Tensor], cfg: OptimizerConfig) ->
 
 
 @torch.no_grad()
-def apply_updates(state: TrainState, grads: Sequence[torch.Tensor], cfg: OptimizerConfig) -> None:
-    """One call of the optax chain, in place on `state`."""
+def apply_updates(state: TrainState, grads: Sequence[torch.Tensor],
+                  cfg: OptimizerConfig) -> torch.Tensor:
+    """One call of the optax chain, in place on `state`. Returns the global
+    norm of `grads` as given, before clipping (the step's grad_norm)."""
     grads = [g.float() for g in grads]
+    g_norm = global_norm(grads)
     state.step += 1
     if state.acc_grads is not None:
         diff = torch._foreach_sub(grads, state.acc_grads)
@@ -118,16 +121,18 @@ def apply_updates(state: TrainState, grads: Sequence[torch.Tensor], cfg: Optimiz
         torch._foreach_add_(state.acc_grads, diff)
         state.mini_step += 1
         if state.mini_step < cfg.grad_accum_steps:
-            return
+            return g_norm
         grads = [a.clone() for a in state.acc_grads]
         for a in state.acc_grads:
             a.zero_()
         state.mini_step = 0
+        clip_norm = global_norm(grads)  # of the averaged gradients
+    else:
+        clip_norm = g_norm
 
     # clip_by_global_norm: g * max_norm / g_norm when g_norm >= max_norm
-    g_norm = global_norm(grads)
-    factor = torch.where(g_norm < cfg.max_grad_norm, torch.ones_like(g_norm),
-                         cfg.max_grad_norm / g_norm)
+    factor = torch.where(clip_norm < cfg.max_grad_norm, torch.ones_like(clip_norm),
+                         cfg.max_grad_norm / clip_norm)
     grads = torch._foreach_mul(grads, factor)  # the callers' .grad stay as they are
 
     # adamw: scale_by_adam -> add_decayed_weights -> scale by -lr(count)
@@ -146,3 +151,4 @@ def apply_updates(state: TrainState, grads: Sequence[torch.Tensor], cfg: Optimiz
         torch._foreach_add_(upd, state.trainable, alpha=cfg.weight_decay)
     torch._foreach_mul_(upd, -lr)
     torch._foreach_add_(state.trainable, upd)
+    return g_norm
