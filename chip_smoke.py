@@ -13,16 +13,27 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      same values; max abs error against 2e-2 (times max(1, max |ref|) for
      the backward) and relative Frobenius error against 1e-2, with the
      median |ref| printed; kernel, plain and PyTorch-SDPA times and each kernel's
-     bound max(FLOPs / 989.4e12, bytes / 3.35e12)
+     bound max(FLOPs / 989.4e12, bytes / 3.35e12). Decode attention on a
+     bf16 and an int8 cache; chunk attention at the speculative verify
+     shape (B=8, C=4) and a chat turn's (B=1, C=64), bf16 and int8 caches
+     (SDPA with an explicit mask over the dequantized cache as yardstick)
   3. serving at full LLaVA-1.5-7B widths but 2 LM / 2 tower layers: the
      same seeded weights on the card (bf16, kernels) and on the CPU (f32,
      plain path), one image prefill + 8 greedy tokens; logit error and
-     token agreement
+     token agreement; prefill_chunk logits (C=4, then C=64) into a bf16
+     and an int8 cache; speculative (K=3) vs plain greedy continuous
+     batching on the card, where any divergence must be a top-2 tie of the
+     CPU's teacher-forced logits
   4. full-width LLaVA-1.5-7B with seeded random bf16 weights served over
      HTTP through cli.main.build_server (8 slots, cache_len 1024): 8
      concurrent /generate requests with 336x336 images, 32 new tokens;
      kernel launch counts of that run; then prefill ms, decode tokens/s,
      peak device memory, and one profiled prefill and decode step
+  4b. the same model served through build_server with --quantize int8
+     --kv_cache_dtype int8 --speculative_k 3 --chat_sessions 4: 8
+     concurrent /generate requests whose prompts echo their question, then
+     a 2-turn /chat, each run's kernel launch counts; then tokens per
+     verify iteration, verify ms vs plain decode ms per step, peak memory
   5. DPO at full widths but 2 LM / 2 tower layers, seeded adapters with a
      non-zero b: one loss and backward on the card (bf16, kernels) and on
      the CPU (f32, plain); relative loss error and the cosine of the LoRA
@@ -35,7 +46,8 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
 
 A profiled step prints the card's busy and idle time and its kernel time by
 group (torch.profiler). The line before the last is {"kernels": [...]}
-(launches summed over the serve and DPO runs, split in launches_by_path);
+(launches summed over the serve, speculative int8 serve, /chat and DPO
+runs, split in launches_by_path);
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
 and prints no result.
@@ -67,7 +79,7 @@ LOSS_REL_TOL = 5e-2  # bf16 DPO loss on the card vs the f32 loss on the CPU
 GRAD_COS_MIN = 0.99  # cosine of the flattened LoRA gradients, card vs CPU
 PEAK_FLOPS = 989.4e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
-KERNELS = ("flash_fwd", "decode_attention", "flash_bwd")
+KERNELS = ("flash_fwd", "decode_attention", "flash_bwd", "chunk_attention")
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -155,6 +167,7 @@ def phase_kernels():
         KV_PAD_SEG, Q_PAD_SEG, flash_attention, flash_attention_bwd_plain,
         flash_attention_plain, flash_bwd_dkv, flash_bwd_dq, make_segments,
     )
+    from vlrlhf_torch.ops.quant import dequantize_kv, quantize_kv
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -310,9 +323,110 @@ def phase_kernels():
           f"at length 640 ({live_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s of live k/v)", flush=True)
     results["decode_attention"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                                    "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+    # the int8 cache of the speculative int8 serve and /chat: the same values
+    # quantized per vector; plain and SDPA read the same codes and scales
+    (kq, ks), (vq, vs) = quantize_kv(kc), quantize_kv(vc)
     del kc, vc
+    out = decode_attention(q, kq, vq, k_cur, v_cur, lengths, layer=layer, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    ref = decode_attention_plain(q.float(), kq[layer], vq[layer], k_cur.float(), v_cur.float(),
+                                 lengths, hd**-0.5, ks[layer], vs[layer])
+    err8, _, report = check_close("decode int8", out, ref, TOL)
+    k_ms = time_ms(lambda: decode_attention(q, kq, vq, k_cur, v_cur, lengths_t, layer=layer,
+                                            k_scale=ks, v_scale=vs), iters=50)
+    p_ms = time_ms(lambda: decode_attention_plain(q, kq[layer], vq[layer], k_cur, v_cur,
+                                                  lengths_t, hd**-0.5, ks[layer], vs[layer]))
+    kd, vd = (dequantize_kv(c[layer], s[layer], torch.bfloat16) for c, s in ((kq, ks), (vq, vs)))
+    l_ms = time_ms(lambda: F.scaled_dot_product_attention(qs, kd, vd, attn_mask=live), iters=50)
+    live_bytes = 2 * b * nkv * 640 * (hd + 2)  # codes and one bf16 scale per row
+    b_ms, b_by = bound(4.0 * b * nh * 641 * hd,
+                       live_bytes + 2 * b * nkv * hd * 2 + 2 * b * nh * hd * 2 + b * 4)
+    print(f"decode int8 B={b} L={L} nkv={nkv} hd={hd} Sc={sc} layer={layer}: "
+          f"{report}; kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
+          f"sdpa (dequantized cache) {l_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}) "
+          f"at length 640 ({live_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s of live k/v)", flush=True)
+    results["decode_attention"]["int8"] = {"max_abs_err": err8, "ms": k_ms, "plain_ms": p_ms,
+                                           "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by}
+    results["decode_attention"]["max_abs_err"] = max(err, err8)
+    del kq, vq, ks, vs, kd, vd
     torch.cuda.empty_cache()
+    results["chunk_attention"] = chunk_kernel_checks(randn)
     return results
+
+
+def _chunk_work(lengths, c, nh, nkv, hd, sc, int8: bool) -> tuple[float, int]:
+    """(FLOPs, bytes) one chunk launch needs: QK^T and PV of each query over
+    the slots it attends; q read and o written once (bf16), each live k and
+    v row read once (int8 codes and a bf16 scale, or bf16), the lengths."""
+    attended = sum(min(n + i + 1, sc) for n in lengths for i in range(c))
+    live = sum(min(n + c, sc) for n in lengths)
+    row = hd + 2 if int8 else 2 * hd
+    b = len(lengths)
+    return 4.0 * nh * hd * attended, 2 * b * c * nh * hd * 2 + 2 * nkv * live * row + 4 * b
+
+
+def chunk_kernel_checks(randn) -> dict:
+    """Chunk attention vs its plain version at the speculative verify shape
+    (B=8, C=4 = K+1) and a chat turn's (B=1, C=64), nh = nkv = 32, hd 128,
+    Sc 1024, lengths ~600-700, on a stacked 4-layer cache read at layer 2;
+    bf16 and int8 caches. The main entry is the int8 verify shape (the
+    speculative int8 serve's)."""
+    import torch.nn.functional as F
+
+    from vlrlhf_torch.ops.chunk_attention import chunk_attention, chunk_attention_plain
+    from vlrlhf_torch.ops.quant import dequantize_kv, quantize_kv
+
+    dev = torch.device("cuda")
+    L, nh, nkv, hd, sc, layer = 4, 32, 32, 128, 1024, 2
+    cases, errs = {}, []
+    for label, lens, c in (("verify", (600, 613, 627, 640, 655, 671, 688, 700), 4),
+                           ("chat", (620,), 64)):
+        b = len(lens)
+        q = randn(b, c, nh, hd)
+        kc, vc = randn(L, b, nkv, sc, hd), randn(L, b, nkv, sc, hd)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        limit = lengths[:, None] + torch.arange(c, device=dev)[None]
+        attend = torch.arange(sc, device=dev)[None, None, :] <= limit[:, :, None]  # (B, C, Sc)
+        qt = q.transpose(1, 2)  # SDPA's (B, nh, C, hd)
+        (kq, ks), (vq, vs) = quantize_kv(kc), quantize_kv(vc)
+        for kind, (kk, vv, ksc, vsc) in (("bf16", (kc, vc, None, None)),
+                                         ("int8", (kq, vq, ks, vs))):
+            lks = None if ksc is None else ksc[layer]
+            lvs = None if vsc is None else vsc[layer]
+            out = chunk_attention(q, kk, vv, lengths, layer=layer, k_scale=ksc, v_scale=vsc)
+            torch.cuda.synchronize()
+            ref = chunk_attention_plain(q.float(), kk[layer], vv[layer], lengths, hd**-0.5,
+                                        lks, lvs)
+            err, rel, report = check_close(f"chunk {label} {kind}", out, ref, TOL)
+            k_ms = time_ms(lambda: chunk_attention(q, kk, vv, lengths, layer=layer, k_scale=ksc,
+                                                   v_scale=vsc), iters=50)
+            p_ms = time_ms(lambda: chunk_attention_plain(q, kk[layer], vv[layer], lengths,
+                                                         hd**-0.5, lks, lvs), iters=10)
+            if ksc is None:
+                kd, vd = kk[layer], vv[layer]
+            else:
+                kd = dequantize_kv(kk[layer], lks, torch.bfloat16)
+                vd = dequantize_kv(vv[layer], lvs, torch.bfloat16)
+            l_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kd, vd, attn_mask=attend[:, None]), iters=50)
+            flops, nbytes = _chunk_work(lens, c, nh, nkv, hd, sc, ksc is not None)
+            b_ms, b_by = bound(flops, nbytes)
+            print(f"chunk {label} {kind} B={b} C={c} L={L} nh=nkv={nkv} hd={hd} Sc={sc} "
+                  f"layer={layer} lengths {list(lens)}: {report}; kernel {k_ms:.4f} ms plain "
+                  f"{p_ms:.4f} ms sdpa (masked, {'dequantized ' if ksc is not None else ''}cache) "
+                  f"{l_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.3f} GFLOP, "
+                  f"{nbytes / 1e6:.3f} MB)", flush=True)
+            errs.append(err)
+            cases[f"{label}_{kind}"] = {"max_abs_err": err, "rel_err": rel, "ms": k_ms,
+                                        "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+                                        "bound_by": b_by}
+        del kc, vc, kq, vq, ks, vs
+        torch.cuda.empty_cache()
+    main = cases["verify_int8"]
+    return {"max_abs_err": max(errs), "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "library_ms": main["library_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "cases": cases}
 
 
 def make_processor(cfg):
@@ -387,13 +501,174 @@ def phase_reduced_depth():
         raise AssertionError(f"reduced-depth logits differ: rel {rel} > {LOGIT_REL_TOL}")
     if gap > 2 * err and tokens["cuda"][0] != tokens["cpu"][0]:
         raise AssertionError("first greedy token differs though its margin exceeds the error")
+    with torch.inference_mode():
+        reduced_depth_chunks(cpu, gpu, batch)
+        reduced_depth_spec(cpu, gpu, proc, err)
     del cpu, gpu
     torch.cuda.empty_cache()
 
 
-def phase_serve():
+def reduced_depth_chunks(cpu, gpu, batch) -> None:
+    """prefill_chunk after an image prefill, the verify chunk (C=4) and then
+    a chat turn (C=64), into a bf16 (f32 on the CPU) and an int8 cache: all
+    logits, card bf16 vs CPU f32."""
+    from vlrlhf_torch.generate.engine import GenerateConfig, batch_to_device, prefill
+
+    rng = np.random.default_rng(3)
+    chunks = [rng.integers(16, 31000, (1, 4)), rng.integers(16, 31000, (1, 64))]
+    for kv in ("bf16", "int8"):
+        gen_cfg = GenerateConfig(max_new_tokens=8, pad_token_id=-1, kv_cache_dtype=kv)
+        got = {}
+        for name, model in (("cuda", gpu), ("cpu", cpu)):
+            t = batch_to_device(batch, model.device)
+            cache, lengths, *_ = prefill(model, gen_cfg, 768, t["input_ids"], t["pad_mask"],
+                                         t["prompt_lens"], t["pixel_values"],
+                                         t["image_positions"], None)
+            got[name] = []
+            for ids in chunks:
+                ids_t = torch.as_tensor(ids, dtype=torch.int32, device=model.device)
+                clens = torch.full((1,), ids.shape[1], dtype=torch.int32, device=model.device)
+                logits, lengths = model.lm.prefill_chunk(ids_t, clens, lengths, cache,
+                                                         return_all_logits=True)
+                got[name].append(logits.float().cpu())
+        for ids, g, r in zip(chunks, got["cuda"], got["cpu"]):
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"prefill_chunk logits on the card are not finite ({kv})")
+            err = float((g - r).abs().max())
+            rel = err / float(r.abs().max())
+            print(f"reduced-depth prefill_chunk {kv} cache, C={ids.shape[1]}: logit "
+                  f"max_abs_err={err:.4e} rel={rel:.3e} (tol {LOGIT_REL_TOL})", flush=True)
+            if rel > LOGIT_REL_TOL:
+                raise AssertionError(f"prefill_chunk logits differ ({kv}, C={ids.shape[1]}): "
+                                     f"rel {rel} > {LOGIT_REL_TOL}")
+
+
+def image_requests(proc, questions, max_new_tokens: int, tag: str):
+    """Engine Requests for image prompts (the collator expands the image
+    token); returns (requests, the unexpanded prompt ids, image paths)."""
+    from vlrlhf_torch.data.collators import CollatorConfig, GenerationCollator
+    from vlrlhf_torch.data.processor import make_single_turn_conv
+    from vlrlhf_torch.generate.continuous import Request
+
+    coll = GenerationCollator(proc, CollatorConfig(image_size=336), seeded_image)
+    reqs, ids_list, paths = [], [], []
+    for j, question in enumerate(questions):
+        prompt = proc.format_multimodal_prompt(question, 1)
+        ids = proc.process_conv(make_single_turn_conv(prompt, ""))["input_ids"]
+        path = f"{tag}{j}.png"
+        b1 = coll([{"input_ids": ids, "img_path": path}])
+        n = int(b1["prompt_lens"][0])
+        reqs.append(Request(input_ids=b1["input_ids"][0, :n],
+                            pixel_values=b1["pixel_values"][0, 0],
+                            image_positions=b1["image_positions"][0],
+                            max_new_tokens=max_new_tokens))
+        ids_list.append(list(ids))
+        paths.append(path)
+    return reqs, ids_list, paths
+
+
+def echo_question(i: int) -> str:
+    """A prompt that repeats a phrase, so prompt-lookup drafts find it."""
+    words = " ".join(f"w{100 + 7 * i + k}" for k in range(6))
+    return f"request {i}: repeat after me: {words}. again: {words}. again: {words}. again:"
+
+
+def reduced_depth_spec(cpu, gpu, proc, logit_err: float) -> None:
+    """Speculative (K=3) vs plain greedy continuous batching on the card,
+    bf16 and int8 caches. Where the two differ, the first differing
+    position must be a top-2 tie under teacher forcing: both tokens are the
+    top two of the CPU f32 model's logits after the plain prefix, and their
+    gap is within twice the card-vs-CPU logit error measured above."""
+    from vlrlhf_torch.data.collators import CollatorConfig, GenerationCollator
+    from vlrlhf_torch.generate.continuous import ContinuousEngine
+    from vlrlhf_torch.generate.engine import GenerateConfig, batch_to_device, prefill
+
+    reqs, ids_list, paths = image_requests(proc, [echo_question(i) for i in range(4)], 24, "spec")
+    coll = GenerationCollator(proc, CollatorConfig(image_size=336), seeded_image)
+    ref_cfg = GenerateConfig(max_new_tokens=1, pad_token_id=-1)  # the f32 model's own cache
+    for kv in ("bf16", "int8"):
+        gen_cfg = GenerateConfig(max_new_tokens=24, pad_token_id=-1, kv_cache_dtype=kv)
+        plain = ContinuousEngine(gpu, gen_cfg, n_slots=4, cache_len=768).run(reqs)
+        eng = ContinuousEngine(gpu, gen_cfg, n_slots=4, cache_len=768, speculative_k=3,
+                               speculative_adaptive=False)
+        spec = eng.run(reqs)
+        same, ties = 0, []
+        for r, (p, s) in enumerate(zip(plain, spec)):
+            j = next((i for i in range(max(len(p), len(s)))
+                      if i >= min(len(p), len(s)) or p[i] != s[i]), None)
+            if j is None:
+                same += 1
+                continue
+            if j >= min(len(p), len(s)):
+                raise AssertionError(f"spec {kv} request {r}: lengths differ without a token "
+                                     f"difference: plain {p} spec {s}")
+            t = batch_to_device(coll([{"input_ids": ids_list[r] + p[:j], "img_path": paths[r]}]),
+                                "cpu")
+            *_, ref = prefill(cpu, ref_cfg, t["input_ids"].shape[1], t["input_ids"],
+                              t["pad_mask"], t["prompt_lens"], t["pixel_values"],
+                              t["image_positions"], None)
+            top2 = torch.topk(ref[0], 2)
+            gap = float(abs(ref[0, p[j]] - ref[0, s[j]]))
+            tie = {p[j], s[j]} == set(top2.indices.tolist()) and gap <= 2 * logit_err
+            ties.append((r, j, p[j], s[j], round(gap, 5)))
+            if not tie:
+                raise AssertionError(
+                    f"spec {kv} request {r} diverges from plain greedy at {j} ({p[j]} vs {s[j]}) "
+                    f"and it is no top-2 tie: reference top-2 {top2.indices.tolist()} "
+                    f"{top2.values.tolist()}, gap {gap} > {2 * logit_err} or not the top two")
+        n_tok = sum(len(x) for x in spec)
+        print(f"reduced-depth speculative greedy ({kv} cache, K=3, 4 requests, 24 tokens): "
+              f"{same}/4 token-identical to plain, divergences (request, position, plain, spec, "
+              f"reference gap) {ties} all top-2 ties; {n_tok} tokens in "
+              f"{eng.last_verify_steps} verify steps", flush=True)
+
+
+def serve_args(**kw):
+    """The `serve` CLI's arguments as build_server reads them: 8 slots,
+    cache_len 1024, 32 new tokens, greedy."""
     import argparse
 
+    base = dict(
+        max_new_tokens=32, synthetic=0, do_sample=False, temperature=1.0, top_k=None,
+        top_p=None, max_length=992, slots=8, seed=0, host="127.0.0.1", port=0,
+        quantize="false", kv_cache_dtype="bf16", speculative_k=0, chat_sessions=0,
+    )
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def post_json(url: str, body: dict, timeout: float = 600) -> dict:
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def post_concurrently(url: str, bodies: list) -> list:
+    """POST every body to url at once, one thread each; raises on any
+    failure or a response without text."""
+    results: list = [None] * len(bodies)
+    errors: list = []
+
+    def post(i):
+        try:
+            results[i] = post_json(url, bodies[i])
+        except Exception as e:  # noqa: BLE001 — reported and failed below
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    clients = [threading.Thread(target=post, args=(i,)) for i in range(len(bodies))]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=900)
+    if errors or any(c.is_alive() for c in clients):
+        raise AssertionError(f"serving failed: {errors}")
+    if any(not isinstance(r, dict) or "text" not in r for r in results):
+        raise AssertionError(f"bad responses: {results}")
+    return results
+
+
+def phase_serve():
     from vlrlhf_torch.cli.main import build_server
     from vlrlhf_torch.generate.engine import batch_to_device, prefill
     from vlrlhf_torch.models.common import init_random_
@@ -412,50 +687,24 @@ def phase_serve():
     print(f"full-width LLaVA-1.5-7B: {n_params / 1e9:.3f} B params bf16, random init "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     proc = make_processor(cfg)
-    args = argparse.Namespace(
-        max_new_tokens=32, synthetic=0, do_sample=False, temperature=1.0, top_k=None,
-        top_p=None, max_length=992, slots=8, seed=0, host="127.0.0.1", port=0,
-    )
-    httpd, srv = build_server(cfg, model, proc, args, seeded_image)
+    httpd, srv = build_server(cfg, model, proc, serve_args(), seeded_image)
     engine = srv.engine
     assert engine.cache_len == 1024
     http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     http_thread.start()
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
     n_req = 8
-    results: list = [None] * n_req
-    errors: list = []
-
-    def post(i):
-        body = json.dumps({
-            "question": f"request {i}: what does this image show? answer in detail",
-            "image": f"img{i}.png", "max_new_tokens": 32,
-        }).encode()
-        req = urllib.request.Request(url + "/generate", data=body, method="POST",
-                                     headers={"Content-Type": "application/json"})
-        try:
-            with urllib.request.urlopen(req, timeout=600) as r:
-                results[i] = json.loads(r.read())
-        except Exception as e:  # noqa: BLE001 — reported and failed below
-            errors.append(f"request {i}: {type(e).__name__}: {e}")
-
+    bodies = [{"question": f"request {i}: what does this image show? answer in detail",
+               "image": f"img{i}.png", "max_new_tokens": 32} for i in range(n_req)]
     try:
         flash_attention.launches = 0
         decode_attention.launches = 0
         t0 = time.perf_counter()
-        clients = [threading.Thread(target=post, args=(i,)) for i in range(n_req)]
-        for c in clients:
-            c.start()
-        for c in clients:
-            c.join(timeout=900)
+        results = post_concurrently(url + "/generate", bodies)
         wall = time.perf_counter() - t0
         launches = {"flash_fwd": flash_attention.launches,
                     "decode_attention": decode_attention.launches}
-        if errors or any(c.is_alive() for c in clients):
-            raise AssertionError(f"serving failed: {errors}")
         tokens = [r.get("tokens") for r in results]
-        if any(not isinstance(r, dict) or "text" not in r for r in results):
-            raise AssertionError(f"bad responses: {results}")
         steps = engine.last_decode_steps
         print(f"served {n_req}/{n_req} /generate requests in {wall:.3f} s "
               f"({sum(tokens)} tokens; per request {tokens}); admits "
@@ -480,7 +729,6 @@ def phase_serve():
 
     # measurements on the same model, outside the counted run
     from vlrlhf_torch.data.processor import make_single_turn_conv
-    from vlrlhf_torch.generate.continuous import Request
 
     prompt_ids = []
     for i in range(8):
@@ -506,25 +754,19 @@ def phase_serve():
                 raise AssertionError("prefill logits are not finite")
             prefill_ms[bp] = time_ms(run, iters=3, warmup=1)
         # decode: all 8 slots active, one 31-step burst
-        reqs = []
-        for j, ids in enumerate(prompt_ids):
-            b1 = coll([{"input_ids": ids, "img_path": f"d{j}.png"}])
-            n = int(b1["prompt_lens"][0])
-            reqs.append(Request(input_ids=b1["input_ids"][0, :n],
-                                pixel_values=b1["pixel_values"][0, 0],
-                                image_positions=b1["image_positions"][0],
-                                max_new_tokens=32))
-        cache, pending, state = engine._fresh_buffers()
+        reqs, _, _ = image_requests(
+            proc, [f"request {i}: what does this image show?" for i in range(8)], 32, "d")
+        cache, pending, state, hist = engine._fresh_buffers()
         gen = torch.Generator(device="cuda").manual_seed(0)
         for g in range(0, 8, 2):
-            engine._admit_group(cache, pending, state, [(g, g), (g + 1, g + 1)], reqs, gen)
+            engine._admit_group(cache, pending, state, hist, [(g, g), (g + 1, g + 1)], reqs, gen)
         logits, _ = model.lm.decode(state[1].clone(), state[0].clone(), cache, pending)
         if not torch.isfinite(logits).all():
             raise AssertionError("decode logits are not finite")
         torch.cuda.synchronize()
         engine.last_decode_steps = 0
         t0 = time.perf_counter()
-        _, _, packed = engine._burst(cache, pending, state, 0, gen)
+        _, _, packed, _ = engine._burst(cache, pending, state, hist, 0, gen)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         steps = engine.last_decode_steps
@@ -538,6 +780,147 @@ def phase_serve():
           f"decode 8 slots x {steps} steps: {dt * 1e3 / steps:.3f} ms/step, "
           f"{decode_tok_s:.2f} tokens/s; peak memory {peak / 2**30:.3f} GiB", flush=True)
     return launches
+
+
+def phase_serve_spec_int8():
+    """Full-width LLaVA-1.5-7B served as `serve --quantize int8
+    --kv_cache_dtype int8 --speculative_k 3 --chat_sessions 4`: the bf16
+    model is quantized in place by build_server (never a second copy).
+    Returns the launch counts of the /generate run and of the /chat run."""
+    from vlrlhf_torch.cli.main import build_server
+    from vlrlhf_torch.generate.continuous import device_draft
+    from vlrlhf_torch.models.common import Linear, init_random_
+    from vlrlhf_torch.models.config import _llava_7b
+    from vlrlhf_torch.models.vlm import VLM
+    from vlrlhf_torch.ops.chunk_attention import chunk_attention
+    from vlrlhf_torch.ops.decode_attention import decode_attention
+    from vlrlhf_torch.ops.flash_attention import flash_attention
+
+    counted = {"flash_fwd": flash_attention, "decode_attention": decode_attention,
+               "chunk_attention": chunk_attention}
+
+    def reset():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read():
+        return {name: fn.launches for name, fn in counted.items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    cfg = _llava_7b(torch.bfloat16)
+    model = VLM(cfg, "cuda")
+    init_random_(model, torch.Generator(device="cuda").manual_seed(0))
+    proc = make_processor(cfg)
+    args = serve_args(quantize="int8", kv_cache_dtype="int8", speculative_k=3, chat_sessions=4)
+    httpd, srv = build_server(cfg, model, proc, args, seeded_image)
+    engine = srv.engine
+    n_int8 = sum(1 for m in model.modules() if isinstance(m, Linear) and m.weight is None)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"int8 serving model: {n_int8} linears int8 (W8A16), {weights / 2**30:.3f} GiB of "
+          f"weights after in-place quantization, {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+          f"allocated ({before / 2**30:.3f} GiB before the model); engine cache "
+          f"{engine.gen_cfg.kv_cache_dtype}, "
+          f"speculative_k {engine.speculative_k}, adaptive gate {engine.speculative_adaptive}",
+          flush=True)
+    if n_int8 != 7 * cfg.lm.num_layers + 1 or engine.gen_cfg.kv_cache_dtype != "int8":
+        raise AssertionError(f"expected every LM linear and lm_head int8, got {n_int8}")
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    http_thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    bodies = [{"question": echo_question(i), "image": f"spec{i}.png", "max_new_tokens": 32}
+              for i in range(8)]
+    try:
+        reset()
+        t0 = time.perf_counter()
+        results = post_concurrently(url + "/generate", bodies)
+        wall = time.perf_counter() - t0
+        spec_launches = read()
+        tokens = [r.get("tokens") for r in results]
+        print(f"speculative int8 serve: {len(results)}/8 /generate requests in {wall:.3f} s "
+              f"({sum(tokens)} tokens; per request {tokens}); admits {engine.last_admits}, "
+              f"bursts {engine.last_bursts} ({engine.last_spec_bursts} speculative), verify "
+              f"steps {engine.last_verify_steps}, plain decode steps "
+              f"{engine.last_decode_steps}; launches {json.dumps(spec_launches)}", flush=True)
+        if spec_launches["chunk_attention"] < cfg.lm.num_layers * max(engine.last_verify_steps, 1):
+            raise AssertionError(f"too few chunk launches: {spec_launches}")
+
+        reset()
+        t0 = time.perf_counter()
+        turn1 = post_json(url + "/chat", {"message": "what does this image show? describe it",
+                                          "image": "chat0.png"})
+        turn2 = post_json(url + "/chat", {"message": "and what else? repeat: w5 w6 w7",
+                                          "session_id": turn1["session_id"]})
+        wall = time.perf_counter() - t0
+        chat_launches = read()
+        print(f"/chat: 2 turns of session {turn1['session_id']} in {wall:.3f} s; turn texts "
+              f"{len(turn1['text'])} and {len(turn2['text'])} chars; launches "
+              f"{json.dumps(chat_launches)}", flush=True)
+        if turn2["session_id"] != turn1["session_id"]:
+            raise AssertionError(f"/chat turn 2 opened a new session: {turn1} {turn2}")
+        if chat_launches["chunk_attention"] < cfg.lm.num_layers or \
+                chat_launches["decode_attention"] < cfg.lm.num_layers:
+            raise AssertionError(f"/chat did not run the chunk and int8 decode kernels: "
+                                 f"{chat_launches}")
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            if not json.loads(r.read())["ok"]:
+                raise AssertionError("/health reports the scheduler dead")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.stop()
+        http_thread.join(timeout=60)
+    if http_thread.is_alive() or (srv._thread is not None and srv._thread.is_alive()):
+        raise AssertionError("server threads did not stop")
+
+    # measurements outside the counted runs: 8 admitted slots, one burst of
+    # each kind in turns (plain, spec, spec, plain), each on a fresh admission
+    reqs, _, _ = image_requests(proc, [echo_question(i) for i in range(8)], 32, "m")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    readings = {"plain": [], "spec": []}
+    with torch.inference_mode():
+        for kind in ("plain", "spec", "spec", "plain"):
+            cache, pending, state, hist = engine._fresh_buffers()
+            for g in range(0, 8, 2):
+                engine._admit_group(cache, pending, state, hist, [(g, g), (g + 1, g + 1)],
+                                    reqs, gen)
+            lengths0 = state[0].cpu().numpy()
+            engine.last_decode_steps = engine.last_verify_steps = 0
+            burst = engine._spec_burst if kind == "spec" else engine._burst
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, packed, _ = burst(cache, pending, state, hist, 0, gen)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            steps = engine.last_verify_steps if kind == "spec" else engine.last_decode_steps
+            emitted = int((packed[:, -1] - lengths0).sum())
+            if steps == 0 or emitted == 0:
+                raise AssertionError(f"{kind} burst emitted nothing")
+            readings[kind].append((dt * 1e3 / steps, emitted / steps, steps, emitted))
+            del cache
+        peak = torch.cuda.max_memory_allocated()  # before the profiled steps
+        # one profiled int8 decode step and one verify chunk on 8 admitted slots
+        cache, pending, state, hist = engine._fresh_buffers()
+        for g in range(0, 8, 2):
+            engine._admit_group(cache, pending, state, hist, [(g, g), (g + 1, g + 1)], reqs, gen)
+        last, lengths = state[1].clone(), state[0].clone()
+        chunk = torch.cat([last[:, None], device_draft(hist, lengths + 1, 3, 0)], dim=1)
+        clens = torch.full((8,), 4, dtype=torch.int32, device="cuda")
+        profile_breakdown(lambda: model.lm.decode(last, lengths, cache, pending),
+                          "int8 decode step (8 slots, W8A16 linears, int8 KV)")
+        profile_breakdown(lambda: model.lm.prefill_chunk(chunk, clens, lengths, cache,
+                                                         return_all_logits=True),
+                          "int8 verify step (8 slots x 4 tokens, W8A16 linears, int8 KV)")
+        del cache
+    for kind, rows in readings.items():
+        print(f"int8 {kind} burst, 8 slots: " + "; ".join(
+            f"{ms:.3f} ms per {'verify' if kind == 'spec' else 'decode'} step, {tps:.3f} tokens "
+            f"per step ({tps / 8:.3f} per slot), {n} steps, {e} tokens" for ms, tps, n, e in rows),
+            flush=True)
+    print(f"speculative int8 serving peak memory {peak / 2**30:.3f} GiB (the bf16 weights "
+          f"before their in-place quantization included)", flush=True)
+    del model, engine, srv, httpd
+    return spec_launches, chat_launches
 
 
 def profile_breakdown(fn, label: str) -> None:
@@ -557,7 +940,8 @@ def profile_breakdown(fn, label: str) -> None:
         print(f"profile {label}: the profiler saw no device time", flush=True)
         return
     groups = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dkv": "flash_bwd_dkv_kernel",
-              "flash_bwd_dq": "flash_bwd_dq_kernel", "decode": "decode_attention"}
+              "flash_bwd_dq": "flash_bwd_dq_kernel", "decode": "decode_kernel",
+              "chunk": "chunk_kernel"}
     by_group, by_name = {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
@@ -798,22 +1182,19 @@ def main() -> int:
     kernels = phase_kernels()
     phase_reduced_depth()
     serve_launches = phase_serve()
-    gc.collect()  # the serving model and cache go before any training model
+    gc.collect()  # the bf16 serving model and cache go before the int8 one
+    torch.cuda.empty_cache()
+    spec_launches, chat_launches = phase_serve_spec_int8()
+    gc.collect()  # the serving models and caches go before any training model
     torch.cuda.empty_cache()
     phase_reduced_depth_dpo()
     dpo_launches = phase_dpo()
-    launches = {
-        "flash_fwd": serve_launches["flash_fwd"] + dpo_launches["flash_fwd"],
-        "decode_attention": serve_launches["decode_attention"],
-        "flash_bwd_dkv": dpo_launches["flash_bwd_dkv"],
-        "flash_bwd_dq": dpo_launches["flash_bwd_dq"],
-    }
-    by_path = {
-        "flash_fwd": {"serve": serve_launches["flash_fwd"], "dpo": dpo_launches["flash_fwd"]},
-        "decode_attention": {"serve": serve_launches["decode_attention"]},
-        "flash_bwd_dkv": {"dpo": dpo_launches["flash_bwd_dkv"]},
-        "flash_bwd_dq": {"dpo": dpo_launches["flash_bwd_dq"]},
-    }
+    runs = {"serve": serve_launches, "serve_int8_spec": spec_launches, "chat_int8": chat_launches,
+            "dpo": dpo_launches}
+    by_path = {name: {path: counts[name] for path, counts in runs.items() if name in counts}
+               for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention",
+                            "chunk_attention")}
+    launches = {name: sum(paths.values()) for name, paths in by_path.items()}
     sources = {
         "flash_fwd": ("vlrlhf_torch/csrc/flash_fwd.cu",
                       "vlrlhf_tpu/ops/flash_attention.py:51"),
@@ -823,18 +1204,26 @@ def main() -> int:
                          "vlrlhf_tpu/ops/flash_attention.py:278"),
         "decode_attention": ("vlrlhf_torch/csrc/decode_attention.cu",
                              "vlrlhf_tpu/ops/decode_attention.py:56"),
+        "chunk_attention": ("vlrlhf_torch/csrc/chunk_attention.cu",
+                            "vlrlhf_tpu/ops/chunk_attention.py:46"),
     }
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the paths driven")
+    if by_path["chunk_attention"].get("serve_int8_spec", 0) <= 0 or \
+            by_path["chunk_attention"].get("chat_int8", 0) <= 0:
+        raise AssertionError(f"chunk_attention must run in both the speculative serve and /chat: "
+                             f"{by_path['chunk_attention']}")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
          "launches_by_path": by_path[name],
          "max_abs_err": kernels[name]["max_abs_err"], "ms": kernels[name]["ms"],
          "plain_ms": kernels[name]["plain_ms"], "bound_ms": kernels[name]["bound_ms"],
-         "bound_by": kernels[name]["bound_by"], "library_ms": kernels[name]["library_ms"]}
-        for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention")
+         "bound_by": kernels[name]["bound_by"], "library_ms": kernels[name]["library_ms"],
+         **({"int8": kernels[name]["int8"]} if "int8" in kernels[name] else {})}
+        for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention",
+                     "chunk_attention")
     ]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -172,6 +172,7 @@ def test_serve_http_matches_jax_engine():
     args = argparse.Namespace(
         max_new_tokens=5, synthetic=2, do_sample=False, temperature=1.0, top_k=None,
         top_p=None, max_length=64, slots=2, seed=0, host="127.0.0.1", port=0,
+        quantize="false", kv_cache_dtype="bf16", speculative_k=0, chat_sessions=0,
     )
     httpd, srv = build_server(model.cfg, model, tproc, args, _seeded_image)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -209,10 +210,12 @@ def test_serve_http_matches_jax_engine():
         assert text.strip() == results[0]["text"]
         with urllib.request.urlopen(url + "/health", timeout=30) as r:
             assert json.loads(r.read())["ok"] is True
-        req = urllib.request.Request(url + "/chat", data=b"{}", method="POST")
-        with pytest.raises(urllib.error.HTTPError) as err:
-            urllib.request.urlopen(req, timeout=30)
-        assert err.value.code == 501
+        # /chat is off without --chat_sessions; /score waits for the eval harness
+        for path, code in (("/chat", 400), ("/score", 501)):
+            req = urllib.request.Request(url + path, data=b"{}", method="POST")
+            with pytest.raises(urllib.error.HTTPError) as err:
+                urllib.request.urlopen(req, timeout=30)
+            assert err.value.code == code, path
     finally:
         httpd.shutdown()
         httpd.server_close()

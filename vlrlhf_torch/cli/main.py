@@ -1,7 +1,9 @@
 """CLI: `python -m vlrlhf_torch.cli.main serve|dpo` (counterpart of
 vlrlhf_tpu's `vlrlhf serve` and `vlrlhf dpo`, cli/main.py).
 
-serve: the continuous-batching engine behind an HTTP endpoint on one device.
+serve: the continuous-batching engine behind an HTTP endpoint on one device,
+with int8 weights (--quantize), an int8 KV cache (--kv_cache_dtype),
+speculative decoding (--speculative_k) and /chat sessions (--chat_sessions).
 dpo: LoRA DPO training on one device, writing <output_dir>/dpo_metrics.jsonl.
 
 Flag names follow vlrlhf_tpu's. Differences: `--device` names the device
@@ -96,25 +98,38 @@ def build_server(cfg, model, processor, args, image_loader=None):
     """Engine + scheduler thread + HTTP front-end for `model`. Returns
     (httpd, server); the caller runs httpd.serve_forever() (or serves from
     a thread) and stops both. `image_loader(path, size, mode)` replaces
-    the PIL loader (synthetic runs map paths to seeded arrays)."""
+    the PIL loader (synthetic runs map paths to seeded arrays). With
+    --quantize int8 the LM's linears are quantized in place first
+    (vlrlhf_tpu/cli/main.py:1216-1227)."""
     from vlrlhf_torch.data.collators import CollatorConfig
     from vlrlhf_torch.generate.continuous import ContinuousEngine
     from vlrlhf_torch.generate.engine import GenerateConfig
-    from vlrlhf_torch.generate.server import EngineServer, RequestBuilder, serve_http
+    from vlrlhf_torch.generate.server import (
+        ChatBackend, EngineServer, RequestBuilder, serve_http,
+    )
     from vlrlhf_torch.models.config import FAMILIES
+    from vlrlhf_torch.ops.quant import DEFAULT_QUANT_PATTERNS, quantize_params
 
     family = FAMILIES[cfg.family]
+    qbits = {"false": 0, "true": 8, "int8": 8, "int4": 4}[str(args.quantize).lower()]
+    if qbits == 4:
+        raise SystemExit("vlrlhf-torch serve: not ported yet: --quantize int4 "
+                         "(vlrlhf_tpu's option; ROADMAP.md lists when it comes)")
+    if qbits:
+        quantize_params(model, DEFAULT_QUANT_PATTERNS)
     gen_cfg = GenerateConfig(
         max_new_tokens=args.max_new_tokens,
         eos_token_ids=stop_ids(processor, family, bool(args.synthetic)),
         pad_token_id=processor.tokenizer.pad_token_id or 0,
+        kv_cache_dtype=args.kv_cache_dtype,
         do_sample=args.do_sample,
         temperature=args.temperature,
         top_k=args.top_k,
         top_p=args.top_p,
     )
     cache_len = -(-(args.max_length + args.max_new_tokens) // 128) * 128
-    engine = ContinuousEngine(model, gen_cfg, n_slots=args.slots, cache_len=cache_len)
+    engine = ContinuousEngine(model, gen_cfg, n_slots=args.slots, cache_len=cache_len,
+                              speculative_k=args.speculative_k)
     ccfg = CollatorConfig(
         pad_token_id=processor.tokenizer.pad_token_id or 0,
         bucket_multiple=32 if args.synthetic else 128,
@@ -124,7 +139,14 @@ def build_server(cfg, model, processor, args, image_loader=None):
     generator = torch.Generator(device=model.device).manual_seed(args.seed)
     srv = EngineServer(engine, generator=generator).start()
     builder = RequestBuilder(processor, ccfg, image_loader)
-    httpd = serve_http(srv, builder, processor.tokenizer, args.host, args.port)
+    chat = None
+    if args.chat_sessions > 0:
+        chat = ChatBackend(
+            model, processor, ccfg, gen_cfg, cache_len=cache_len,
+            max_sessions=args.chat_sessions, image_loader=image_loader,
+            generator=torch.Generator(device=model.device).manual_seed(args.seed + 1),
+        )
+    httpd = serve_http(srv, builder, processor.tokenizer, args.host, args.port, chat=chat)
     return httpd, srv
 
 
@@ -141,7 +163,9 @@ def cmd_serve(args):
     print(
         f"serving {args.model_family} on "
         f"http://{httpd.server_address[0]}:{httpd.server_address[1]} "
-        f"({args.slots} slots, device {device})",
+        f"({args.slots} slots, cache_len {srv.engine.cache_len}, quantize {args.quantize}, "
+        f"kv {args.kv_cache_dtype}, speculative_k {args.speculative_k}, "
+        f"chat_sessions {args.chat_sessions}, device {device})",
         flush=True,
     )
     try:
@@ -342,6 +366,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--top_k", type=int, default=None)
     p.add_argument("--top_p", type=float, default=None)
+    p.add_argument("--quantize", type=str, default="false",
+                   choices=["false", "true", "int8", "int4"],
+                   help="weights-only int8 (true/int8) of the LM's linears; int4 is not "
+                        "ported yet")
+    p.add_argument("--kv_cache_dtype", type=str, default="bf16", choices=["bf16", "int8"],
+                   help="int8 halves the KV cache (per-vector scales in the kernels)")
+    p.add_argument("--speculative_k", type=int, default=0,
+                   help=">0: decode bursts verify K-token prompt-lookup drafts per slot in "
+                        "one chunk forward (greedy: same tokens; sampled: same distribution)")
+    p.add_argument("--chat_sessions", type=int, default=0,
+                   help=">0 enables POST /chat multi-turn sessions, each with its own live "
+                        "KV cache, LRU-capped at this many")
     p.set_defaults(fn=cmd_serve)
     return parser
 

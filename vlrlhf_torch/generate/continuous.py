@@ -1,18 +1,30 @@
-"""Continuous-batching (slot-refill) serving engine (counterpart of the
-non-speculative path of vlrlhf_tpu/generate/continuous.py).
+"""Continuous-batching (slot-refill) serving engine (counterpart of
+vlrlhf_tpu/generate/continuous.py, with its speculative burst and the
+adaptive speculation gate).
 
-A fixed B-slot KV cache; when a request finishes its slot is refilled with
-the next queued prompt while the other slots keep decoding. Two phases:
+A fixed B-slot KV cache (bf16 or int8); when a request finishes its slot is
+refilled with the next queued prompt while the other slots keep decoding.
+Two phases:
 
   - ADMIT (`_admit_group`): one batched multimodal prefill of the prompts
     admitted this round that share a prompt bucket (exact group size, no
     padding rows), written into the freed slots of the big cache in place,
     their stale deferred writes parked, their scheduler-state rows set.
-  - DECODE BURST (`_burst`): up to max_new_tokens decode steps for every
-    active slot. With queued work the burst exits once EXIT_FREE slots
-    have retired, so refills wait about one token; with an empty queue it
+  - DECODE BURST: with queued work the burst exits once EXIT_FREE slots
+    have retired, so refills wait about one step; with an empty queue it
     runs long. Each step checks the exit condition on the host (one small
-    sync per token).
+    sync per step). Two kinds share one contract:
+      `_burst`       one decode token per active slot per step;
+      `_spec_burst`  (speculative_k = K > 0) per step, each active slot
+                     verifies a K-token prompt-lookup draft (`device_draft`,
+                     from its token history `hist`) in ONE chunk forward
+                     (`prefill_chunk`, return_all_logits) and emits the
+                     accepted prefix plus the model's own next token: up to
+                     K+1 tokens for one pass over the weights. Greedy
+                     acceptance compares with the argmax; sampled acceptance
+                     is lossless point-mass rejection sampling.
+    With speculation on, `speculative_adaptive` picks the kind per burst
+    from an EMA of wall seconds per emitted token of each kind.
 
 Scheduler state (lengths / last token / active / remaining budget) lives on
 the device as a (4, B) int32 tensor; the host keeps a mirror updated from
@@ -22,14 +34,16 @@ one packed download per burst: [first-token echo | tokens | final length].
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from vlrlhf_torch.generate.engine import GenerateConfig, decode_step, eos_tensor, prefill
-from vlrlhf_torch.models.lm.llama import empty_pending
+from vlrlhf_torch.models.lm.llama import empty_cache, empty_pending, flush_pending
 from vlrlhf_torch.models.vlm import VLM
+from vlrlhf_torch.ops.sampling import warp_logits
 
 FREE, DECODE = 0, 2
 
@@ -48,6 +62,37 @@ class Request:
     max_new_tokens: Optional[int] = None  # per-request cap (else gen_cfg's)
 
 
+def device_draft(hist: torch.Tensor, hlen: torch.Tensor, k: int, pad_id: int) -> torch.Tensor:
+    """Prompt-lookup drafts for every row at once (vlrlhf_tpu
+    `_device_draft`): the tokens that followed the latest earlier
+    occurrence of the row's trailing bigram in hist[:, :hlen], pad-filled
+    past the history; rows without one repeat their last token.
+    hist (B, S) int32, hlen (B,) -> (B, k) int32."""
+    b, s = hist.shape
+    dev = hist.device
+    hlen = hlen.long()
+    idx = torch.arange(s - 1, device=dev)
+    t1 = hist.gather(1, (hlen - 2).clamp(min=0)[:, None])
+    t2 = hist.gather(1, (hlen - 1).clamp(min=0)[:, None])
+    m = (hist[:, :-1] == t1) & (hist[:, 1:] == t2)
+    # exclude the query bigram itself and anything beyond the history
+    m &= idx[None, :] <= (hlen - 3)[:, None]
+    best = torch.where(m, idx[None, :], torch.full_like(idx[None, :], -1)).amax(dim=1)
+    gidx = best[:, None] + 2 + torch.arange(k, device=dev)[None, :]
+    cont = hist.gather(1, gidx.clamp(0, s - 1))
+    cont = torch.where(gidx < hlen[:, None], cont, torch.full_like(cont, pad_id))
+    return torch.where((best >= 0)[:, None], cont, t2.expand(b, k))
+
+
+def _categorical(logits: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One draw per row of the last axis by the Gumbel-max trick (as
+    jax.random.categorical); a row of all -inf gives index 0 instead of
+    failing as torch.multinomial would."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    gumbel = -torch.log(-torch.log(u.clamp(min=1e-20, max=1.0 - 1e-7)))
+    return torch.argmax(logits + gumbel, dim=-1)
+
+
 class ContinuousEngine:
     """Slot-refill serving over a fixed B-slot cache."""
 
@@ -61,6 +106,8 @@ class ContinuousEngine:
         n_slots: int = 8,
         cache_len: int = 1024,
         prefill_chunk: int = 128,  # prompt-length bucket multiple
+        speculative_k: int = 0,  # >0: bursts verify K-token drafts per slot
+        speculative_adaptive: bool = True,  # with speculation: the gate
     ):
         self.model = model
         self.gen_cfg = gen_cfg
@@ -69,33 +116,42 @@ class ContinuousEngine:
         self.prefill_chunk = max(prefill_chunk, 1)
         # a burst can run a whole response when the queue is empty
         self.decode_burst = max(gen_cfg.max_new_tokens, 1)
+        self.speculative_k = max(0, speculative_k)
+        if self.speculative_k:
+            # a spec burst emits whole K+1 chunks only: a burst shorter than
+            # one chunk could never advance any slot (the host would spin)
+            self.decode_burst = max(self.decode_burst, self.speculative_k + 1)
+        self.speculative_adaptive = bool(speculative_adaptive) and self.speculative_k > 0
+        self._probe_every = 16  # the gate re-probes the idle mode this often (tests shrink it)
         # dispatch counters of the last serve() call
         self.last_bursts = 0
+        self.last_spec_bursts = 0
         self.last_admits = 0
-        self.last_decode_steps = 0
+        self.last_decode_steps = 0  # one-token steps (plain bursts)
+        self.last_verify_steps = 0  # chunk forwards (speculative bursts)
 
     @property
     def device(self) -> torch.device:
         return self.model.device
 
     def _fresh_buffers(self):
+        """(cache, pending, state, hist): hist (B, Sc) int32 is the token
+        history of each slot, kept only when speculating (else None)."""
         lm = self.model.cfg.lm
         b, sc = self.n_slots, self.cache_len
-        shape = (lm.num_layers, b, lm.num_kv_heads, sc, lm.head_dim_)
-        cache = {
-            "k": torch.zeros(shape, dtype=lm.dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=lm.dtype, device=self.device),
-        }
+        cache = empty_cache(lm, b, sc, self.gen_cfg.kv_cache_dtype, self.device)
         pending = empty_pending(lm, b, sc, self.device)
         state = torch.zeros((4, b), dtype=torch.int32, device=self.device)
-        return cache, pending, state
+        hist = (torch.zeros((b, sc), dtype=torch.int32, device=self.device)
+                if self.speculative_k else None)
+        return cache, pending, state, hist
 
     # ---------------- admission ----------------
 
-    def _admit_group(self, cache, pending, state, group, requests, generator):
+    def _admit_group(self, cache, pending, state, hist, group, requests, generator):
         """One batched prefill for the (slot, request index) pairs of
         `group`, which share a prompt bucket and modality. Writes the big
-        cache, `pending` and `state` in place."""
+        cache, `pending`, `state` and `hist` in place."""
         dev = self.device
         slots = [s for s, _ in group]
         reqs = [requests[ridx] for _, ridx in group]
@@ -117,30 +173,35 @@ class ContinuousEngine:
             ipos = torch.as_tensor(
                 np.stack([np.asarray(r.image_positions, np.int32) for r in reqs])
             ).to(dev)
+        rows_t, plens_t = torch.as_tensor(rows).to(dev), torch.as_tensor(plens).to(dev)
         small, _, first, done0, _, _ = prefill(
-            self.model, self.gen_cfg, lb,
-            torch.as_tensor(rows).to(dev), torch.as_tensor(pad).to(dev),
-            torch.as_tensor(plens).to(dev), pv, ipos, generator,
+            self.model, self.gen_cfg, lb, rows_t, torch.as_tensor(pad).to(dev),
+            plens_t, pv, ipos, generator,
         )
         slot_t = torch.as_tensor(np.asarray(slots, np.int64)).to(dev)
-        for key in ("k", "v"):
-            # in place into the big cache: stale kv beyond lb is never
-            # attended (slot < length masking) and is overwritten by decode
+        for key in small:
+            # in place into the big cache (and scales): stale kv beyond lb is
+            # never attended (slot masking) and is overwritten by decode
             cache[key][:, slot_t, :, :lb] = small[key]
         del small
         pending["pos"][slot_t] = self.cache_len  # park stale deferred writes
         rem = torch.as_tensor(budgets).to(dev) - 1  # prefill emitted token 1
         active = (~done0) & (rem > 0)
-        state[_LEN, slot_t] = torch.as_tensor(plens).to(dev)
+        state[_LEN, slot_t] = plens_t
         state[_TOK, slot_t] = first
         state[_ACT, slot_t] = active.to(torch.int32)
         state[_REM, slot_t] = rem.to(torch.int32)
+        if hist is not None:
+            # the prompt and the first token seed the prompt lookup; pad
+            # columns past prompt_len are masked by the history length
+            hist[slot_t, :lb] = rows_t
+            hist[slot_t, plens_t.long()] = first
 
-    # ---------------- decode burst ----------------
+    # ---------------- decode bursts ----------------
 
-    def _burst(self, cache, pending, state, exit_free: int, generator):
-        """Up to `decode_burst` tokens for every active slot. Returns
-        (pending, state, packed (B, decode_burst+2) numpy)."""
+    def _burst(self, cache, pending, state, hist, exit_free: int, generator):
+        """Up to `decode_burst` tokens for every active slot, one per step.
+        Returns (pending, state, hist, packed (B, decode_burst+2) numpy)."""
         gen_cfg = self.gen_cfg
         b, sc = self.n_slots, self.cache_len
         eos = eos_tensor(gen_cfg, self.device)
@@ -154,18 +215,133 @@ class ContinuousEngine:
         pending = dict(pending, pos=torch.where(active0, pending["pos"],
                                                 torch.full_like(pending["pos"], sc)))
         lengths, last, done = lengths0.clone(), last0.clone(), ~active0
+        rows = torch.arange(b, device=self.device)
         for i in range(self.decode_burst):
             go = ~done.all()
             if exit_free:
                 go &= (done & active0).sum() < exit_free
             if not bool(go):
                 break
+            lengths_in = lengths
             pending, lengths, last, done = decode_step(
                 self.model, gen_cfg, eos, cache, pending, lengths, last, done,
                 out, i, generator,
             )
+            if hist is not None:
+                # the history's valid length is lengths + 1: this step's
+                # token lands at lengths_in + 1 on the rows that advanced
+                hpos = (lengths_in.long() + 1).clamp(max=sc - 1)
+                hist[rows, hpos] = torch.where(lengths > lengths_in, last, hist[rows, hpos])
             done = done | (active0 & ((lengths - lengths0) >= remaining))
             self.last_decode_steps += 1
+        return pending, *self._finish_burst(lengths0, last0, active0, remaining,
+                                            lengths, last, done, out), hist
+
+    def _spec_burst(self, cache, pending, state, hist, exit_free: int, generator):
+        """The speculative burst (vlrlhf_tpu `_cb_spec_burst_impl`): per step
+        every active slot verifies [last token, K drafts] in one chunk
+        forward and emits the accepted prefix plus one token of the model's
+        own. Same contract as `_burst`; the pending write is flushed up
+        front (chunk forwards write their own kv), so the returned pending
+        is empty. History invariant: hist holds prompt + every emitted
+        token, valid length == cache length + 1 (the newest token's kv is
+        written by the next chunk, which starts with it)."""
+        gen_cfg = self.gen_cfg
+        dev = self.device
+        k = self.speculative_k
+        c = k + 1
+        b, sc = self.n_slots, self.cache_len
+        max_burst = self.decode_burst
+        pad_id = gen_cfg.pad_token_id
+        eos = eos_tensor(gen_cfg, dev)
+        lengths0, last0 = state[_LEN].clone(), state[_TOK].clone()
+        active0 = state[_ACT].bool()
+        remaining = state[_REM]
+        out = torch.full((b, max_burst), pad_id, dtype=torch.int32, device=dev)
+        pending = dict(pending, pos=torch.where(active0, pending["pos"],
+                                                torch.full_like(pending["pos"], sc)))
+        flush_pending(cache, pending)
+        pending_out = dict(pending, pos=torch.full_like(pending["pos"], sc))
+        jj = torch.arange(c, device=dev)[None, :]
+        rows = torch.arange(b, device=dev)
+        lengths, last, done = lengths0.clone(), last0.clone(), ~active0
+        for _ in range(max_burst):
+            delta = lengths - lengths0
+            # rows with fewer than C columns left in `out` sit this burst out
+            # (the next burst resumes them): a partial chunk would desync the
+            # emitted count from the kv the chunk wrote
+            can = (~done) & (delta + c <= max_burst)
+            go = can.any()
+            if exit_free:
+                go &= (done & active0).sum() < exit_free
+            if not bool(go):
+                break
+            hlen = lengths + 1  # the history includes the not-yet-written last token
+            chunk = torch.cat([last[:, None], device_draft(hist, hlen, k, pad_id)], dim=1)
+            clens = torch.where(can, c, 0).to(torch.int32)  # 0 writes no kv
+            logits, _ = self.model.lm.prefill_chunk(chunk, clens, lengths, cache,
+                                                    return_all_logits=True)  # (B, C, V)
+            self.last_verify_steps += 1
+            if not gen_cfg.do_sample:
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)  # (B, C)
+                match = tok[:, :-1] == chunk[:, 1:]
+            else:
+                tok, match = self._spec_sample(logits, chunk, generator)
+            allowed = torch.cat([torch.ones((b, 1), dtype=torch.bool, device=dev),
+                                 torch.cumprod(match.int(), dim=1).bool()], dim=1)
+            allowed &= jj < (remaining - delta)[:, None]
+            allowed &= can[:, None]
+            is_eos = torch.isin(tok, eos)
+            eos_before = torch.cumsum(is_eos.int(), dim=1) - is_eos.int()
+            emit = allowed & (eos_before == 0)
+            n_emit = emit.sum(dim=1).to(torch.int32)  # == the kv advance
+            for j in range(c):  # one column at a time: no two writes share a slot
+                col = (delta.long() + j).clamp(max=max_burst - 1)
+                out[rows, col] = torch.where(emit[:, j], tok[:, j], out[rows, col])
+                hpos = (hlen.long() + j).clamp(max=sc - 1)
+                hist[rows, hpos] = torch.where(emit[:, j], tok[:, j], hist[rows, hpos])
+            new_last = tok.gather(1, (n_emit.long() - 1).clamp(min=0)[:, None])[:, 0]
+            last = torch.where(n_emit > 0, new_last, last)
+            lengths = lengths + n_emit
+            done = done | (emit & is_eos).any(dim=1)
+            done = done | ((lengths - lengths0) >= remaining)
+        return pending_out, *self._finish_burst(lengths0, last0, active0, remaining,
+                                                lengths, last, done, out), hist
+
+    def _spec_sample(self, logits, chunk, generator):
+        """Lossless point-mass rejection sampling over the chunk: draft j+1
+        is accepted with probability p_j(draft); at the first rejection the
+        residual (p_j with the draft removed, renormalized) is sampled, and
+        when every draft survives the last position samples a bonus token.
+        Returns (tokens (B, C), accepted (B, C-1)); top_k=1 reproduces
+        greedy exactly."""
+        gen_cfg = self.gen_cfg
+        b, c, v = logits.shape
+        warped = warp_logits(logits.float(), gen_cfg.temperature, gen_cfg.top_k, gen_cfg.top_p)
+        p = torch.softmax(warped, dim=-1)
+        d_next = chunk[:, 1:].long()  # the draft proposed for position j's output
+        # a pad draft (pad_token_id may be negative) gathers as JAX's
+        # take_along_axis does, index modulo v, and excludes no token
+        p_draft = p[:, :-1].gather(2, d_next.remainder(v)[..., None])[..., 0]  # (B, C-1)
+        u = torch.rand(p_draft.shape, generator=generator, device=logits.device)
+        accept = u < p_draft
+        vocab = torch.arange(v, device=logits.device)
+        excl = warped[:, :-1].masked_fill(vocab == d_next[..., None], float("-inf"))
+        res = _categorical(excl, generator)  # (B, C-1)
+        full = _categorical(warped, generator)  # (B, C)
+        n_acc = torch.cumprod(accept.int(), dim=1).sum(dim=1)  # (B,)
+        jj = torch.arange(c, device=logits.device)[None, :]
+        res_pad = torch.cat([res, res[:, -1:]], dim=1)
+        d_pad = torch.cat([d_next, d_next[:, -1:]], dim=1)
+        # position j emits the accepted draft (j < a), the residual draw at
+        # the rejection point, or the bonus sample when all drafts survived
+        tok = torch.where(jj < n_acc[:, None], d_pad,
+                          torch.where(jj == c - 1, full, res_pad)).to(torch.int32)
+        return tok, jj[:, : c - 1] < n_acc[:, None]
+
+    @staticmethod
+    def _finish_burst(lengths0, last0, active0, remaining, lengths, last, done, out):
+        """(state, packed numpy) at the end of a burst of either kind."""
         state = torch.stack([
             lengths,
             last,
@@ -173,7 +349,7 @@ class ContinuousEngine:
             remaining - (lengths - lengths0),
         ])
         packed = torch.cat([last0[:, None], out, lengths[:, None]], dim=1)
-        return pending, state, packed.cpu().numpy()
+        return state, packed.cpu().numpy()
 
     # ---------------- the scheduler ----------------
 
@@ -221,7 +397,7 @@ class ContinuousEngine:
         b = self.n_slots
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        cache, pending, state = self._fresh_buffers()
+        cache, pending, state, hist = self._fresh_buffers()
 
         # host MIRROR of the device scheduler state, updated only from the
         # packed burst downloads
@@ -233,10 +409,27 @@ class ContinuousEngine:
         resp: dict = {}  # ridx -> token list being accumulated
         eos = set(gen_cfg.eos_token_ids or ())
         live = 0
+        it = 0
         self.last_bursts = 0
+        self.last_spec_bursts = 0
         self.last_admits = 0
         self.last_decode_steps = 0
+        self.last_verify_steps = 0
         newly: set[int] = set()
+        # the adaptive speculation gate (vlrlhf_tpu continuous.py:789-817,
+        # :975-1017): an EMA per mode of wall seconds per emitted token over
+        # the whole interval between burst downloads (host gap + burst), so
+        # the host's per-burst cost counts against the mode that pays it.
+        # Asymmetric hysteresis: any plain advantage leaves spec; entering
+        # spec needs a 10% advantage. The idle mode is probed on the second
+        # burst, then with exponential backoff (x2 per confirming probe, at
+        # most 8x _probe_every; a switch resets it).
+        adaptive = self.speculative_adaptive
+        use_spec = bool(self.speculative_k)
+        ema: dict = {True: None, False: None}
+        t_mark = None
+        probe_gap = self._probe_every
+        next_probe = 1
 
         def finish(slot: int):
             nonlocal live
@@ -310,7 +503,7 @@ class ContinuousEngine:
                     for i in range(0, len(glist), g)
                 ]
                 for group in groups:
-                    self._admit_group(cache, pending, state, group, inflight, generator)
+                    self._admit_group(cache, pending, state, hist, group, inflight, generator)
                     self.last_admits += 1
                     for slot, ridx in group:
                         r = inflight[ridx]
@@ -320,15 +513,49 @@ class ContinuousEngine:
                         phase[slot] = DECODE
                         live += 1
                         newly.add(slot)
+                if adaptive:
+                    # finish the admissions and restart the interval clock:
+                    # admission time must not count against the next burst
+                    state.cpu()
+                    t_mark = time.perf_counter()
             if live == 0:
                 if source.done():
                     return
                 source.wait()
                 continue
             exit_free = min(self.EXIT_FREE, source.pending(), live)
-            pending, state, packed = self._burst(cache, pending, state, exit_free, generator)
+            spec = use_spec
+            if adaptive and it == next_probe:
+                spec = not use_spec  # refresh the idle mode's estimate
+            burst = self._spec_burst if spec else self._burst
+            pending, state, packed, hist = burst(cache, pending, state, hist, exit_free,
+                                                 generator)
+            if adaptive:
+                # snapshot before consume mutates phase / lengths
+                dec = phase == DECODE
+                emitted = int((packed[dec, -1] - lengths[dec]).sum())
             consume(packed)
-            self.last_bursts += 1
+            if adaptive:
+                # the interval ends after consume: the host's drain cost
+                # belongs to the burst whose tokens it drains
+                now = time.perf_counter()
+                if t_mark is not None and emitted > 0:
+                    cost = (now - t_mark) / emitted
+                    ema[spec] = cost if ema[spec] is None else 0.7 * ema[spec] + 0.3 * cost
+                was = use_spec
+                if ema[True] is not None and ema[False] is not None:
+                    if use_spec and ema[False] < ema[True]:
+                        use_spec = False
+                    elif not use_spec and ema[True] < 0.9 * ema[False]:
+                        use_spec = True
+                if spec != was:  # this burst was a probe
+                    probe_gap = (self._probe_every if use_spec != was
+                                 else min(2 * probe_gap, 8 * self._probe_every))
+                    next_probe = it + probe_gap
+                t_mark = now
+            self.last_spec_bursts += int(spec)
+            it += 1
+            self.last_bursts = it
 
 
 class _ListSource:

@@ -1,13 +1,16 @@
 """Bucketed prefill + decode generation (counterpart of
 vlrlhf_tpu/generate/engine.py: GenerateConfig, `_generate_impl`,
-`_empty_pending`, `_decode_body`, and the host-loop `Generator`).
+`_empty_pending`, `_decode_body`, the host-loop `Generator`, `_extend_impl`
+and `ChatSession`).
 
 Right padding everywhere: KV slot == absolute position, so each row decodes
 from its own prompt_len slot. The prefill (`prefill`) runs the full
-multimodal forward into a fresh cache and samples the first token; each
-decode step (`decode_step`) runs `LlamaDecoder.decode` with the deferred
-cache write. PyTorch runs eagerly, so the decode loop is a Python loop that
-updates the cache and the output buffer in place.
+multimodal forward into a fresh bf16 or int8 cache and samples the first
+token; each decode step (`decode_step`) runs `LlamaDecoder.decode` with the
+deferred cache write. PyTorch runs eagerly, so the decode loop is a Python
+loop that updates the cache and the output buffer in place. A ChatSession
+keeps the cache of one conversation and chunk-prefills each next turn into
+it (`extend`).
 """
 
 from __future__ import annotations
@@ -32,6 +35,10 @@ class GenerateConfig:
     top_p: Optional[float] = None
     eos_token_ids: tuple[int, ...] = ()
     pad_token_id: int = 0
+    # 'bf16' | 'int8': int8 halves the KV cache (capacity and decode bytes)
+    # with per-vector scales folded into the decode and chunk kernels
+    # (ops/quant.py quantize_kv); the current token's self term stays bf16
+    kv_cache_dtype: str = "bf16"
 
 
 def _sample(gen_cfg: GenerateConfig, logits, generator):
@@ -61,7 +68,8 @@ def prefill(
     last_logits). Only the last prompt position goes through the LM head."""
     b = input_ids.shape[0]
     hidden, cache = model(
-        input_ids, pixel_values, image_positions, pad_mask, cache_len=cache_len
+        input_ids, pixel_values, image_positions, pad_mask, cache_len=cache_len,
+        kv_cache_dtype=gen_cfg.kv_cache_dtype,
     )
     rows = torch.arange(b, device=hidden.device)
     last_h = hidden[rows, prompt_lens.long() - 1][:, None]  # (B, 1, H)
@@ -107,6 +115,32 @@ def batch_to_device(batch: dict, device) -> dict:
     return out
 
 
+def decode_loop(
+    model: VLM,
+    gen_cfg: GenerateConfig,
+    cache: dict,  # updated in place
+    lengths: torch.Tensor,
+    last: torch.Tensor,
+    done: torch.Tensor,
+    out: torch.Tensor,  # (B, N), columns 1.. written in place
+    generator: Optional[torch.Generator],
+    early_exit_every: int = 8,
+):
+    """Decode columns 1..N-1 after a prefill that sampled column 0, with a
+    host check for all-done every `early_exit_every` steps. Returns the
+    live (pending, lengths)."""
+    lm = model.cfg.lm
+    pending = empty_pending(lm, lengths.shape[0], cache["k"].shape[3], lengths.device)
+    eos = eos_tensor(gen_cfg, lengths.device)
+    for step in range(1, gen_cfg.max_new_tokens):
+        pending, lengths, last, done = decode_step(
+            model, gen_cfg, eos, cache, pending, lengths, last, done, out, step, generator,
+        )
+        if step % early_exit_every == 0 and bool(done.all()):
+            break
+    return pending, lengths
+
+
 class Generator:
     """Static-batch generation: one prefill, then a host loop of decode
     steps with an early-exit check every few steps."""
@@ -122,30 +156,81 @@ class Generator:
         self,
         batch: dict,  # from GenerationCollator (right-padded)
         generator: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
-        """Returns (B, max_new_tokens) int32 token ids."""
+        return_state: bool = False,
+        cache_len: Optional[int] = None,
+    ):
+        """Returns (B, max_new_tokens) int32 token ids, with return_state
+        also the live session state {"cache", "pending", "lengths"} (see
+        ChatSession). `cache_len` reserves extra slots (multi-turn
+        sessions); by default the cache holds the bucket plus the new
+        tokens, rounded up to 128."""
         gen_cfg = self.gen_cfg
         device = self.model.device
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         t = batch_to_device(batch, device)
-        l = t["input_ids"].shape[1]
-        cache_len = -(-(l + gen_cfg.max_new_tokens) // 128) * 128
+        if cache_len is None:
+            cache_len = -(-(t["input_ids"].shape[1] + gen_cfg.max_new_tokens) // 128) * 128
         cache, lengths, last, done, out, _ = prefill(
             self.model, gen_cfg, cache_len, t["input_ids"], t["pad_mask"],
             t["prompt_lens"], t["pixel_values"], t["image_positions"], generator,
         )
-        if gen_cfg.max_new_tokens <= 1:
-            return out
-        lm = self.model.cfg.lm
-        pending = empty_pending(lm, lengths.shape[0], cache_len, device)
-        eos = eos_tensor(gen_cfg, device)
-        # slot `prompt_lens` holds the first generated token; loop writes 1..
-        for step in range(1, gen_cfg.max_new_tokens):
-            pending, lengths, last, done = decode_step(
-                self.model, gen_cfg, eos, cache, pending, lengths, last, done,
-                out, step, generator,
+        pending, lengths = decode_loop(self.model, gen_cfg, cache, lengths, last, done, out,
+                                       generator, self.EARLY_EXIT_EVERY)
+        if return_state:
+            return out, {"cache": cache, "pending": pending, "lengths": lengths}
+        return out
+
+
+class ChatSession:
+    """Multi-turn serving over one cache (vlrlhf_tpu ChatSession,
+    engine.py:425-479): start(batch) decodes turn 1; extend(new_ids,
+    chunk_lens) chunk-prefills the next turn's tokens into the live cache
+    and decodes. The previous response's last token leads the next chunk:
+    its k/v were never computed. Rows are right-padded."""
+
+    def __init__(self, generator: Generator, cache_len: Optional[int] = None):
+        self.gen = generator
+        self.cache_len = cache_len  # total session budget (prompt + all turns)
+        self.state: Optional[dict] = None
+
+    def start(self, batch: dict, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        out, self.state = self.gen(batch, generator, return_state=True,
+                                   cache_len=self.cache_len)
+        return out
+
+    @torch.inference_mode()
+    def extend(self, new_ids, chunk_lens, generator: Optional[torch.Generator] = None):
+        """new_ids (B, C) right-padded, chunk_lens (B,); returns (B,
+        max_new_tokens) token ids (vlrlhf_tpu `_extend_impl`)."""
+        if self.state is None:
+            raise RuntimeError("call start() first")
+        gen_cfg = self.gen.gen_cfg
+        model = self.gen.model
+        device = model.device
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        s = self.state
+        new_ids = torch.as_tensor(np.asarray(new_ids)).to(device)
+        chunk_lens = torch.as_tensor(np.asarray(chunk_lens)).to(device)
+        c = new_ids.shape[1]
+        sc = s["cache"]["k"].shape[3]
+        needed = int(s["lengths"].max()) + c + gen_cfg.max_new_tokens
+        if needed > sc:
+            raise ValueError(
+                f"session cache full: need {needed} slots, have {sc} — start a new "
+                "session with a larger cache or trim the conversation"
             )
-            if step % self.EARLY_EXIT_EVERY == 0 and bool(done.all()):
-                break
+        cache = s["cache"]
+        logits, lengths = model.lm.prefill_chunk(new_ids, chunk_lens, s["lengths"], cache,
+                                                 pending=s["pending"])
+        first = _sample(gen_cfg, logits, generator)
+        done = torch.isin(first, eos_tensor(gen_cfg, device))
+        pad = gen_cfg.pad_token_id
+        out = torch.full((first.shape[0], gen_cfg.max_new_tokens), pad, dtype=torch.int32,
+                         device=device)
+        out[:, 0] = torch.where(done, torch.full_like(first, pad), first)
+        pending, lengths = decode_loop(model, gen_cfg, cache, lengths, first, done, out,
+                                       generator, self.gen.EARLY_EXIT_EVERY)
+        self.state = {"cache": cache, "pending": pending, "lengths": lengths}
         return out

@@ -6,10 +6,14 @@ one frees.
   QueueSource    — source protocol over a deque + condition variable
   EngineServer   — owns the scheduler thread; submit(Request) -> Future
   RequestBuilder — question + image -> engine Request
+  ChatBackend    — multi-turn sessions: one ChatSession (its own live
+                   cache) per session id, LRU-capped
   serve_http     — stdlib ThreadingHTTPServer: POST /generate
                    {"question", "image"?, "max_new_tokens"?, "stream"?} ->
-                   {"text", "tokens"}, GET /health, GET /metrics. /score
-                   and /chat answer 501 until their slice is ported.
+                   {"text", "tokens"}, POST /chat {"message", "session_id"?,
+                   "image"?} -> {"text", "session_id"}, GET /health, GET
+                   /metrics. /score answers 501: it needs the eval harness,
+                   which is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import json
 import queue
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from concurrent.futures import Future
 from typing import Any, Optional
 
@@ -28,6 +32,7 @@ import torch
 from vlrlhf_torch.data.collators import GenerationCollator
 from vlrlhf_torch.data.processor import make_single_turn_conv
 from vlrlhf_torch.generate.continuous import ContinuousEngine, Request
+from vlrlhf_torch.generate.engine import ChatSession, GenerateConfig, Generator
 
 
 class QueueSource:
@@ -204,6 +209,80 @@ class RequestBuilder:
         )
 
 
+class ChatBackend:
+    """Multi-turn /chat sessions over ChatSession (vlrlhf_tpu ChatBackend,
+    server.py:258-354): each turn chunk-prefills into the session's live
+    cache instead of re-prefilling the conversation.
+
+    One cache of cache_len slots per session, LRU-capped at max_sessions
+    (at 7B a 1024-slot cache is 0.5 GiB bf16, 0.27 GiB int8). Turn N+1's
+    tokens are the template delta `assistant_end + user_begin + message +
+    user_end + assistant_begin`, tokenized alone; the previous response's
+    stop token leads it, since the decode loop never wrote that token's
+    kv. One chat operation runs at a time; the sessions share one
+    Generator (and the engine's model)."""
+
+    def __init__(
+        self,
+        model,
+        processor,
+        collator_cfg,
+        gen_cfg: GenerateConfig,
+        cache_len: int = 1024,
+        max_sessions: int = 4,
+        image_loader=None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        self.processor = processor
+        self.template = processor.template
+        self.gen_cfg = gen_cfg
+        self.cache_len = cache_len
+        self.max_sessions = max_sessions
+        self._gen = Generator(model, gen_cfg)
+        self._collator = GenerationCollator(processor, collator_cfg, image_loader)
+        self._generator = generator
+        self._sessions: OrderedDict[str, ChatSession] = OrderedDict()
+        self._lock = threading.Lock()
+        self._counter = 0
+
+    def _strip(self, row) -> str:
+        stop = {int(t) for t in (self.gen_cfg.eos_token_ids or ())}
+        stop.add(int(self.gen_cfg.pad_token_id))
+        keep = []
+        for t in np.asarray(row).tolist():
+            if int(t) in stop:
+                break
+            keep.append(int(t))
+        return self.processor.tokenizer.decode(keep, skip_special_tokens=True).strip()
+
+    def chat(self, message: str, session_id: Optional[str] = None,
+             image: Optional[str] = None) -> tuple[str, str]:
+        """Returns (response text, session id)."""
+        with self._lock:
+            proc = self.processor
+            if session_id is None or session_id not in self._sessions:
+                self._counter += 1
+                session_id = session_id or f"s{self._counter}"
+                n_img = 0 if image is None else 1
+                prompt = proc.format_multimodal_prompt(message, n_img)
+                ids = proc.process_conv(make_single_turn_conv(prompt, ""))["input_ids"]
+                batch = self._collator([{"input_ids": ids, "img_path": image}])
+                sess = ChatSession(self._gen, cache_len=self.cache_len)
+                out = sess.start(batch, self._generator)
+                self._sessions[session_id] = sess
+                while len(self._sessions) > self.max_sessions:
+                    self._sessions.popitem(last=False)  # LRU evict
+            else:
+                sess = self._sessions.pop(session_id)
+                self._sessions[session_id] = sess  # most recently used
+                t = self.template
+                delta = t.assistant_end + t.user_begin + message + t.user_end + t.assistant_begin
+                ids = proc.tokenizer.encode(delta, add_special_tokens=False)
+                out = sess.extend(np.asarray([ids], np.int32),
+                                  np.asarray([len(ids)], np.int32), self._generator)
+            return self._strip(out[0].cpu()), session_id
+
+
 def serve_http(
     server: EngineServer,
     builder: RequestBuilder,
@@ -211,6 +290,7 @@ def serve_http(
     host: str = "127.0.0.1",
     port: int = 8000,
     request_timeout: float = 600.0,
+    chat: Optional[ChatBackend] = None,
 ):
     """Blocking HTTP front-end. Returns the HTTPServer (call .shutdown()
     from another thread to stop); port=0 picks an ephemeral port
@@ -242,8 +322,21 @@ def serve_http(
                 self._json(404, {"error": "not found"})
 
         def do_POST(self):
-            if self.path in ("/score", "/chat"):
-                self._json(501, {"error": f"{self.path} is not ported yet"})
+            if self.path == "/score":
+                self._json(501, {"error": "/score is not ported yet"})
+                return
+            if self.path == "/chat":
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                    body = json.loads(self.rfile.read(n) or b"{}")
+                    if chat is None:
+                        self._json(400, {"error": "chat sessions disabled (--chat_sessions 0)"})
+                        return
+                    text, sid = chat.chat(body["message"], body.get("session_id"),
+                                          body.get("image"))
+                    self._json(200, {"text": text, "session_id": sid})
+                except Exception as e:  # noqa: BLE001 — report to the client
+                    self._json(500, {"error": f"{type(e).__name__}: {e}"})
                 return
             if self.path != "/generate":
                 self._json(404, {"error": "not found"})

@@ -75,8 +75,8 @@ def init_lora(model: nn.Module, cfg: LoraConfig, generator: torch.Generator) -> 
     ln 2). Returns the names of the adapted modules."""
     names = []
     for name, mod in match_lora_targets(model, cfg.target_patterns):
-        d_out, d_in = mod.weight.shape
-        dev = mod.weight.device
+        d_out, d_in = mod.d_out, mod.d_in
+        dev = mod.device
         a = torch.randn((d_in, cfg.r), generator=generator, device=dev, dtype=torch.float32)
         mod.lora_a = nn.Parameter(a / cfg.r**0.5)
         mod.lora_b = nn.Parameter(torch.zeros((cfg.r, d_out), device=dev, dtype=torch.float32))

@@ -65,17 +65,48 @@ class Linear(nn.Module):
     """y = x @ weight.T (+ bias) (+ LoRA delta); weight (out, in).
 
     `lora_a` (in, r) / `lora_b` (r, out) are None until lora.init_lora
-    attaches an adapter; it applies when the call's Ctx has adapters on."""
+    attaches an adapter; it applies when the call's Ctx has adapters on.
+
+    Quantized (`quantize_` or the bridge's int8 leaves), `weight` is None
+    and `weight_q` (out, in) int8 with `weight_scale` (out,) bf16 take its
+    place: y = (x @ weight_q.T) * weight_scale, the W8A16 path of
+    vlrlhf_tpu's `linear` (models/common.py:76-78)."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool, device, dtype):
         super().__init__()
+        self.d_in, self.d_out = d_in, d_out
         self.weight = empty_param((d_out, d_in), device, dtype)
         self.bias = empty_param((d_out,), device, dtype) if bias else None
+        self.register_parameter("weight_q", None)
+        self.register_parameter("weight_scale", None)
         self.register_parameter("lora_a", None)
         self.register_parameter("lora_b", None)
 
+    @property
+    def device(self) -> torch.device:
+        return (self.weight if self.weight is not None else self.weight_q).device
+
+    def set_quantized_(self, q: torch.Tensor, scale: torch.Tensor) -> None:
+        """Hold int8 codes (out, in) and bf16 scales (out,) instead of weight."""
+        if tuple(q.shape) != (self.d_out, self.d_in) or tuple(scale.shape) != (self.d_out,):
+            raise ValueError(f"int8 weight {tuple(q.shape)} / scale {tuple(scale.shape)} "
+                             f"does not fit ({self.d_out}, {self.d_in})")
+        self.weight = None
+        self.weight_q = nn.Parameter(q.to(torch.int8), requires_grad=False)
+        self.weight_scale = nn.Parameter(scale.to(torch.bfloat16), requires_grad=False)
+
+    @torch.no_grad()
+    def quantize_(self) -> None:
+        """Replace weight by its int8 codes and scales (ops/quant.py)."""
+        from vlrlhf_torch.ops.quant import quantize_linear
+
+        self.set_quantized_(*quantize_linear(self.weight))
+
     def forward(self, x: torch.Tensor, ctx: Optional[Ctx] = None) -> torch.Tensor:
-        y = F.linear(x, self.weight.to(x.dtype))
+        if self.weight is None:
+            y = F.linear(x, self.weight_q.to(x.dtype)) * self.weight_scale.to(x.dtype)
+        else:
+            y = F.linear(x, self.weight.to(x.dtype))
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         if ctx is not None and ctx.adapters and self.lora_a is not None:
@@ -131,6 +162,8 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
         if leaf in ("lora_a", "lora_b"):
             raise ValueError("init_random_ runs before lora.init_lora attaches adapters")
+        if leaf in ("weight_q", "weight_scale"):
+            raise ValueError("init_random_ runs before quantization")
         if isinstance(owner, Linear) and leaf == "weight":
             p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
         elif isinstance(owner, Norm) and leaf == "weight":

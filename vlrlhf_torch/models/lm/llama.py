@@ -1,7 +1,8 @@
 """Llama-family decoder (counterpart of vlrlhf_tpu/models/lm/llama.py):
 the training forward and the empty-prefill forward (`lm_forward` without a
-cache / with `cache_len`) and the single-token decode step with the
-deferred cache write (`lm_decode`).
+cache / with `cache_len`), the single-token decode step with the deferred
+cache write (`lm_decode`, `flush_pending`) and the chunk prefill into a
+live cache (`lm_prefill_chunk`).
 
 Training: each Linear applies its LoRA adapter when the call's Ctx has
 adapters on, and layers are rematerialized by `torch.utils.checkpoint`
@@ -11,10 +12,12 @@ the residual between them (x + attn_out, what `save_only_these_names(
 "attn_out")` keeps) is what stays; `LMConfig.remat=False` keeps everything.
 
 KV cache layout is vlrlhf_tpu's head-major decode layout: {"k", "v"} each
-(L, B, nkv, Sc, hd), slot == absolute position (right-padded prompts).
-Prefill attention dispatches to the flash kernel on the card
-(ops/attention.py); decode attention to the decode kernel
-(ops/decode_attention.py), which reads the stacked cache by layer offset.
+(L, B, nkv, Sc, hd), slot == absolute position (right-padded prompts); an
+int8 cache adds {"k_scale", "v_scale"} (L, B, nkv, Sc) bf16 and every write
+quantizes per vector (ops/quant.py). Prefill attention dispatches to the
+flash kernel on the card (ops/attention.py); decode and chunk attention to
+their kernels (ops/decode_attention.py, ops/chunk_attention.py), which read
+the stacked cache by layer offset.
 """
 
 from __future__ import annotations
@@ -29,8 +32,10 @@ from torch.utils.checkpoint import checkpoint
 from vlrlhf_torch.models.common import Ctx, Linear, Norm, empty_param, embed
 from vlrlhf_torch.models.config import LMConfig
 from vlrlhf_torch.ops.attention import multi_head_attention
+from vlrlhf_torch.ops.chunk_attention import chunk_attention
 from vlrlhf_torch.ops.decode_attention import decode_attention
 from vlrlhf_torch.ops.norms import rms_norm
+from vlrlhf_torch.ops.quant import quantize_kv
 from vlrlhf_torch.ops.rope import apply_rope, rope_frequencies
 
 
@@ -116,17 +121,20 @@ class LlamaDecoder(nn.Module):
         pad_mask: Optional[torch.Tensor] = None,  # (B, S)
         cache_len: Optional[int] = None,
         ctx: Optional[Ctx] = None,
+        kv_cache_dtype: str = "bf16",
     ):
         """Causal forward over right-padded rows (positions == arange).
         Returns (final-normed hidden (B, S, H), cache or None). With
         `cache_len` this is the EMPTY-PREFILL mode: each layer's k/v land in
-        slots [0, S) of a fresh (L, B, nkv, cache_len, hd) cache. Without
-        it this is the training forward: `ctx` switches adapters on or off,
+        slots [0, S) of a fresh (L, B, nkv, cache_len, hd) cache; with
+        kv_cache_dtype "int8" they are quantized per vector before the write
+        (ops/quant.py), so a bf16 cache never exists, and the cache carries
+        "k_scale" / "v_scale" (L, B, nkv, cache_len). Without `cache_len`
+        this is the training forward: `ctx` switches adapters on or off,
         and under autograd the layers are rematerialized per
         `cfg.remat_policy`."""
         cfg = self.cfg
         b, s, _ = inputs_embeds.shape
-        nkv, hd = cfg.num_kv_heads, cfg.head_dim_
         positions = torch.arange(s, device=inputs_embeds.device)[None].expand(b, s)
         cos, sin = rope_frequencies(cfg.rope, positions, seq_len=cache_len or s)
         if cache_len is None:
@@ -135,18 +143,18 @@ class LlamaDecoder(nn.Module):
             raise ValueError(f"cache_len {cache_len} < prompt bucket {s}")
         # allocated once and filled layer by layer in place: only the
         # one stacked cache is ever live (no per-layer caches to stack)
-        shape = (cfg.num_layers, b, nkv, cache_len, hd)
-        cache = {
-            "k": torch.zeros(shape, dtype=cfg.dtype, device=inputs_embeds.device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=inputs_embeds.device),
-        }
+        cache = empty_cache(cfg, b, cache_len, kv_cache_dtype, inputs_embeds.device)
         x = inputs_embeds
         for i, layer in enumerate(self.layers):
             h = rms_norm(x, layer.input_layernorm.weight, cfg.rms_eps)
             q, k, v = layer.qkv(h)
             q, k = apply_rope(q, k, cos, sin)
-            cache["k"][i, :, :, :s] = k.transpose(1, 2)
-            cache["v"][i, :, :, :s] = v.transpose(1, 2)
+            for key, t in (("k", k), ("v", v)):
+                t = t.transpose(1, 2)  # (B, nkv, S, hd)
+                if "k_scale" in cache:
+                    t, scales = quantize_kv(t)
+                    cache[f"{key}_scale"][i, :, :, :s] = scales
+                cache[key][i, :, :, :s] = t
             out = multi_head_attention(
                 q, k, v, causal=True, pad_mask_q=pad_mask, pad_mask_kv=pad_mask
             )
@@ -177,22 +185,23 @@ class LlamaDecoder(nn.Module):
         self,
         last_token: torch.Tensor,  # (B,)
         lengths: torch.Tensor,  # (B,) int32 current position == write slot
-        cache: dict,  # {"k", "v"}: (L, B, nkv, Sc, hd), updated IN PLACE
+        cache: dict,  # {"k", "v"[, "k_scale", "v_scale"]}, updated IN PLACE
         pending: Optional[dict] = None,  # previous token's k/v, not yet written
     ):
         """Single-token decode step. Returns (logits (B, V), new_pending).
 
         The deferred write: the previous step's k/v (`pending`, rows with
         pos == Sc meaning "nothing pending") land in the cache first, in one
-        batched in-place write; this step's k/v ride through the decode
-        kernel as its self term and come back as the next pending. The
-        cache is written in place — it is the largest buffer on the card."""
+        batched in-place write (quantized there when the cache is int8);
+        this step's k/v ride through the decode kernel as its bf16 self term
+        and come back as the next pending. The cache is written in place —
+        it is the largest buffer on the card."""
         cfg = self.cfg
         b = last_token.shape[0]
         nkv, hd = cfg.num_kv_heads, cfg.head_dim_
         sc = cache["k"].shape[3]
         if pending is not None:
-            write_pending_(cache, pending)
+            flush_pending(cache, pending)
         x = self.embed(last_token[:, None])  # (B, 1, H)
         positions = lengths.long()[:, None]
         cos, sin = rope_frequencies(cfg.rope, positions, seq_len=sc)
@@ -205,7 +214,8 @@ class LlamaDecoder(nn.Module):
             new_k[i] = k[:, 0]
             new_v[i] = v[:, 0]
             out = decode_attention(
-                q[:, 0], cache["k"], cache["v"], new_k[i], new_v[i], lengths, layer=i
+                q[:, 0], cache["k"], cache["v"], new_k[i], new_v[i], lengths, layer=i,
+                k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
             )
             x = x + layer.wo(out.reshape(b, 1, -1))
             h = rms_norm(x, layer.post_attention_layernorm.weight, cfg.rms_eps)
@@ -213,6 +223,105 @@ class LlamaDecoder(nn.Module):
         hidden = rms_norm(x, self.norm.weight, cfg.rms_eps)
         logits = self.head(hidden)[:, 0]
         return logits, {"k": new_k, "v": new_v, "pos": lengths.clone()}
+
+    def prefill_chunk(
+        self,
+        input_ids: torch.Tensor,  # (B, C) right-padded chunk
+        chunk_lens: torch.Tensor,  # (B,) real tokens in this chunk
+        lengths: torch.Tensor,  # (B,) tokens already in the cache (chunk offset)
+        cache: dict,  # {"k", "v"[, "k_scale", "v_scale"]}: (L, B, nkv, Sc, hd), IN PLACE
+        pending: Optional[dict] = None,  # deferred kv from a prior decode
+        return_all_logits: bool = False,
+    ):
+        """Prefill a chunk into a NON-EMPTY cache (vlrlhf_tpu `lm_prefill_chunk`,
+        llama.py:506-644): the speculative verify chunk and a chat session's
+        next turn. `pending` lands first; then per layer the chunk's k/v are
+        written at slots lengths + i (quantized for an int8 cache; pad rows
+        and slots past Sc write nothing), and the chunk kernel attends the
+        stacked cache at the layer's offset, query i seeing slots
+        <= lengths + i.
+
+        Returns (logits, new_lengths): logits are the last real position's
+        (B, V), or with return_all_logits every position's (B, C, V)."""
+        cfg = self.cfg
+        b, c = input_ids.shape
+        sc = cache["k"].shape[3]
+        dev = input_ids.device
+        if pending is not None:
+            flush_pending(cache, pending)
+        lengths = lengths.to(device=dev, dtype=torch.int32)
+        chunk_lens = chunk_lens.to(device=dev, dtype=torch.int32)
+        positions = lengths.long()[:, None] + torch.arange(c, device=dev)[None]  # (B, C)
+        x = self.embed(input_ids)
+        cos, sin = rope_frequencies(cfg.rope, positions, seq_len=sc)
+        # the write plan, shared by every layer: rows write chunk positions
+        # i < n (n = the real chunk length, cut at Sc); every other position
+        # repeats row position n - 1 (same slot, same value), or, for a row
+        # that writes nothing, rewrites the slot's own value
+        n = torch.minimum(chunk_lens.long(), (sc - lengths.long()).clamp(min=0))
+        src = torch.minimum(torch.arange(c, device=dev)[None], (n - 1).clamp(min=0)[:, None])
+        slot = (lengths.long()[:, None] + src).clamp(0, sc - 1)  # (B, C)
+        writes = n > 0
+        for i, layer in enumerate(self.layers):
+            h = rms_norm(x, layer.input_layernorm.weight, cfg.rms_eps)
+            q, k, v = layer.qkv(h)
+            q, k = apply_rope(q, k, cos, sin)
+            _write_chunk_(cache, i, k, v, src, slot, writes)
+            out = chunk_attention(
+                q, cache["k"], cache["v"], lengths, layer=i,
+                k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+            )
+            x = x + layer.wo(out.reshape(b, c, -1))
+            h = rms_norm(x, layer.post_attention_layernorm.weight, cfg.rms_eps)
+            x = x + layer.mlp(h)
+        hidden = rms_norm(x, self.norm.weight, cfg.rms_eps)
+        if return_all_logits:
+            logits = self.head(hidden)
+        else:
+            # only the chunk's last real position seeds the next token: gather
+            # it before the head ((B, 1, H) through the head, not (B, C, H))
+            last = (chunk_lens.long() - 1).clamp(min=0)
+            logits = self.head(hidden[torch.arange(b, device=dev), last][:, None])[:, 0]
+        return logits, lengths + chunk_lens
+
+
+def empty_cache(cfg: LMConfig, b: int, cache_len: int, kv_cache_dtype: str, device) -> dict:
+    """A zeroed (L, B, nkv, cache_len, hd) cache: bf16 (the model dtype), or
+    int8 codes with bf16 (L, B, nkv, cache_len) "k_scale" / "v_scale"."""
+    if kv_cache_dtype not in ("bf16", "int8"):
+        raise ValueError(f"kv_cache_dtype {kv_cache_dtype!r}: expected 'bf16' or 'int8'")
+    shape = (cfg.num_layers, b, cfg.num_kv_heads, cache_len, cfg.head_dim_)
+    dt = torch.int8 if kv_cache_dtype == "int8" else cfg.dtype
+    cache = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+    if kv_cache_dtype == "int8":
+        for key in ("k_scale", "v_scale"):
+            cache[key] = torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device)
+    return cache
+
+
+def _write_chunk_(cache: dict, layer: int, k, v, src, slot, writes) -> None:
+    """Write one layer's chunk k/v ((B, C, nkv, hd)) into the cache in
+    place by the plan of `prefill_chunk`: position i of row b takes chunk
+    row src[b, i] at slot[b, i]; rows with writes[b] False keep their old
+    values. Every duplicate slot receives identical bytes, so the scatter
+    is deterministic (index_put_ does not drop out-of-range writes as
+    vlrlhf_tpu's mode="drop" scatter does)."""
+    b, c, nkv, _ = k.shape
+    dev = k.device
+    bi = torch.arange(b, device=dev)[:, None, None]
+    hi = torch.arange(nkv, device=dev)[None, :, None]
+    si = slot[:, None, :]  # (B, 1, C)
+    keep = writes[:, None, None]
+    rows = src[:, :, None, None].expand(b, c, nkv, k.shape[-1])
+    for key, t in (("k", k), ("v", v)):
+        t = torch.gather(t, 1, rows).transpose(1, 2)  # (B, nkv, C, hd)
+        buf = cache[key][layer]
+        if "k_scale" in cache:
+            t, sc_new = quantize_kv(t)
+            sbuf = cache[f"{key}_scale"][layer]
+            sbuf[bi, hi, si] = torch.where(keep, sc_new, sbuf[bi, hi, si])
+        buf[bi, hi, si] = torch.where(keep[..., None], t.to(buf.dtype), buf[bi, hi, si])
 
 
 def empty_pending(cfg: LMConfig, b: int, cache_len: int, device) -> dict:
@@ -225,13 +334,15 @@ def empty_pending(cfg: LMConfig, b: int, cache_len: int, device) -> dict:
     }
 
 
-def write_pending_(cache: dict, pending: dict) -> None:
-    """Write deferred k/v rows into the cache in place. A row whose pos is
-    out of range (== Sc: nothing pending, or a parked free slot) is masked
-    out: its slot is clamped in range and rewritten with the value already
-    there — vlrlhf_tpu relies on out-of-bounds scatters being dropped, which
-    index_put_ does not do."""
-    ck, cv = cache["k"], cache["v"]
+def flush_pending(cache: dict, pending: dict) -> None:
+    """Write deferred k/v rows into the cache in place (vlrlhf_tpu
+    `flush_pending`, llama.py:475-503; also the first act of `decode` and
+    `prefill_chunk`), quantized per vector when the cache is int8. A row
+    whose pos is out of range (== Sc: nothing pending, or a parked free
+    slot) is masked out: its slot is clamped in range and rewritten with the
+    value already there — vlrlhf_tpu relies on out-of-bounds scatters being
+    dropped, which index_put_ does not do."""
+    ck = cache["k"]
     n_layers, b, nkv, sc, _ = ck.shape
     dev = ck.device
     pos = pending["pos"].long()
@@ -241,7 +352,11 @@ def write_pending_(cache: dict, pending: dict) -> None:
     bi = torch.arange(b, device=dev)[None, :, None]
     hi = torch.arange(nkv, device=dev)[None, None, :]
     si = slot[None, :, None]
-    keep = valid[None, :, None, None]
-    for buf, new in ((ck, pending["k"]), (cv, pending["v"])):
-        old = buf[li, bi, hi, si]  # (L, B, nkv, hd)
-        buf[li, bi, hi, si] = torch.where(keep, new.to(buf.dtype), old)
+    keep = valid[None, :, None]
+    for key in ("k", "v"):
+        buf, new = cache[key], pending[key]  # new: (L, B, nkv, hd)
+        if "k_scale" in cache:
+            new, sc_new = quantize_kv(new)
+            sbuf = cache[f"{key}_scale"]
+            sbuf[li, bi, hi, si] = torch.where(keep, sc_new, sbuf[li, bi, hi, si])
+        buf[li, bi, hi, si] = torch.where(keep[..., None], new.to(buf.dtype), buf[li, bi, hi, si])

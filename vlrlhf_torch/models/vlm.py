@@ -94,13 +94,16 @@ class VLM(nn.Module):
         cache_len: Optional[int] = None,
         ctx: Optional[Ctx] = None,
         image_features: Optional[torch.Tensor] = None,
+        kv_cache_dtype: str = "bf16",
     ):
         """vlm_forward: returns (final-normed hidden (B, S, H), cache or
-        None); with `cache_len` the empty-prefill mode, without it the
-        training forward under `ctx`. Logits come from `head`."""
+        None); with `cache_len` the empty-prefill mode (a bf16 or int8
+        cache), without it the training forward under `ctx`. Logits come
+        from `head`."""
         embeds = self.embeds(input_ids, pixel_values, image_positions, image_features)
         lm_ctx = ctx.sub("lm") if ctx is not None else None
-        return self.lm(embeds, pad_mask=pad_mask, cache_len=cache_len, ctx=lm_ctx)
+        return self.lm(embeds, pad_mask=pad_mask, cache_len=cache_len, ctx=lm_ctx,
+                       kv_cache_dtype=kv_cache_dtype)
 
     def head(self, hidden: torch.Tensor, ctx: Optional[Ctx] = None) -> torch.Tensor:
         return self.lm.head(hidden, ctx.sub("lm") if ctx is not None else None)

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on first
 use with nvcc for sm_90a into `<repo>/build/lib<name>-<hash>.so`, then
-loaded with ctypes. The hash covers the source, so an edited kernel gets a
-fresh library and an unchanged one is reused. Nothing is built at import:
+loaded with ctypes. The hash covers the source and the shared headers
+(`csrc/*.cuh`), so an edited kernel gets a fresh library and an unchanged
+one is reused. Nothing is built at import:
 the CPU tests import every module on machines without nvcc. Each library has
 its own lock, so different kernels build in parallel (`build_all`).
 """
@@ -56,8 +57,9 @@ def load(name: str) -> ctypes.CDLL:
         if name in _libs:
             return _libs[name]
         src = CSRC / f"{name}.cu"
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
         digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         out = BUILD_DIR / f"lib{name}-{digest}.so"
         if out.exists():

@@ -4,6 +4,8 @@
 vlrlhf_tpu layouts (keys as in vlrlhf_tpu/models/common.py and the
 per-module inits) and what the bridge does with them:
   - linear {"kernel" (in, out)[, "bias"]} -> Linear.weight (out, in): transposed
+  - int8 linear {"kernel_q" (in, out) int8, "kernel_scale" (1, out) bf16}
+    (ops/quant.py) -> Linear.weight_q (out, in) / weight_scale (out,)
   - "layers_scanned": every leaf stacked on a leading layer axis -> one
     slice per nn.ModuleList entry
   - vision "patch_embed" HWIO kernel (p, p, 3, h) -> (h, p*p*3), flattened
@@ -12,8 +14,8 @@ per-module inits) and what the bridge does with them:
     tree, stacked on the layer axis under "layers_scanned") -> each Linear's
     lora_a / lora_b, f32; `lora_tree` is the way back, for the adapters or
     their gradients, so tests compare leaf by leaf
-The copy goes to each parameter's device and dtype. int8 / int4 base leaves
-belong to later slices.
+The copy goes to each parameter's device and dtype. int4 base leaves
+belong to a later slice.
 """
 
 from __future__ import annotations
@@ -40,7 +42,16 @@ def _copy(dst: torch.Tensor, src) -> None:
 
 
 def _linear(dst: Linear, p: Mapping[str, Any]) -> None:
-    _copy(dst.weight, np.asarray(p["kernel"]).T)
+    if "kernel_q" in p:
+        # W8A16: (in, out) int8 codes and (1, out) bf16 scales, transposed
+        dev = dst.device
+        q = torch.from_numpy(np.array(np.asarray(p["kernel_q"]).T, dtype=np.int8))
+        scale = torch.from_numpy(np.array(p["kernel_scale"], dtype=np.float32).reshape(-1))
+        dst.set_quantized_(q.to(dev), scale.to(dev))
+    else:
+        if dst.weight is None:
+            raise ValueError("source linear is not quantized, the module is")
+        _copy(dst.weight, np.asarray(p["kernel"]).T)
     if dst.bias is not None:
         _copy(dst.bias, p["bias"])
     elif "bias" in p:
@@ -128,9 +139,10 @@ def load_lora_params(model: nn.Module, adapters: Mapping[str, Any]) -> list[str]
         a, b = np.asarray(node["a"], np.float32), np.asarray(node["b"], np.float32)
         if layer is not None:
             a, b = a[layer], b[layer]
-        dev = mod.weight.device
-        if a.shape != (mod.weight.shape[1], b.shape[0]) or b.shape[1] != mod.weight.shape[0]:
-            raise ValueError(f"{name}: adapter {a.shape} {b.shape} does not fit {tuple(mod.weight.shape)}")
+        dev = mod.device
+        if a.shape != (mod.d_in, b.shape[0]) or b.shape[1] != mod.d_out:
+            raise ValueError(f"{name}: adapter {a.shape} {b.shape} does not fit "
+                             f"({mod.d_out}, {mod.d_in})")
         mod.lora_a = nn.Parameter(torch.tensor(a, device=dev))
         mod.lora_b = nn.Parameter(torch.tensor(b, device=dev))
         done.append(name)
