@@ -12,18 +12,24 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      serving and DPO paths' shapes, bf16 in, plain computed in f32 on the
      same values; max abs error against 2e-2 (times max(1, max |ref|) for
      the backward) and relative Frobenius error against 1e-2, with the
-     median |ref| printed; kernel, plain and PyTorch-SDPA times and each kernel's
-     bound max(FLOPs / 989.4e12, bytes / 3.35e12). Decode attention on a
-     bf16 and an int8 cache; chunk attention at the speculative verify
+     median |ref| printed; kernel, plain and yardstick times and each
+     kernel's bound max(FLOPs / 989.4e12, bytes / 3.35e12). Decode attention
+     on a bf16 and an int8 cache; chunk attention at the speculative verify
      shape (B=8, C=4) and a chat turn's (B=1, C=64), bf16 and int8 caches
-     (SDPA with an explicit mask over the dequantized cache as yardstick)
+     (SDPA with an explicit mask over the dequantized cache as yardstick);
+     the int4 matmul (kernel 6) at decode (T=8) and T=2048 and its
+     transpose (kernel 7) at T=2048, LLaVA-1.5-7B's 4096 -> 11008 and
+     11008 -> 4096, plus an edge shape (cuBLAS bf16 on the dequantized
+     weight as yardstick)
   3. serving at full LLaVA-1.5-7B widths but 2 LM / 2 tower layers: the
      same seeded weights on the card (bf16, kernels) and on the CPU (f32,
      plain path), one image prefill + 8 greedy tokens; logit error and
      token agreement; prefill_chunk logits (C=4, then C=64) into a bf16
      and an int8 cache; speculative (K=3) vs plain greedy continuous
      batching on the card, where any divergence must be a top-2 tie of the
-     CPU's teacher-forced logits
+     CPU's teacher-forced logits; then the LM int4 (the same codes on both
+     sides): prefill + 8 greedy tokens again, and fused (--fuse_decode)
+     against unfused tokens on the card
   4. full-width LLaVA-1.5-7B with seeded random bf16 weights served over
      HTTP through cli.main.build_server (8 slots, cache_len 1024): 8
      concurrent /generate requests with 336x336 images, 32 new tokens;
@@ -34,20 +40,28 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      concurrent /generate requests whose prompts echo their question, then
      a 2-turn /chat, each run's kernel launch counts; then tokens per
      verify iteration, verify ms vs plain decode ms per step, peak memory
+  4c. the same model served with --quantize int4 --fuse_decode true (129
+     int4 linears): 8 concurrent /generate requests and their launch
+     counts, resident weights, decode ms per step beside 4's and 4b's, one
+     profiled decode step
   5. DPO at full widths but 2 LM / 2 tower layers, seeded adapters with a
      non-zero b: one loss and backward on the card (bf16, kernels) and on
      the CPU (f32, plain); relative loss error and the cosine of the LoRA
-     gradients
+     gradients; again with the LM's linears int4 (QLoRA, the same codes on
+     both sides)
   6. full-width LLaVA-1.5-7B DPO through cli.main.build_dpo (LoRA r64/a16
      on all 7 LM linears, 1 pair of 1024 tokens with an image, 'attn'
      remat, logits_chunk 256, precomputed reference logps): 5 steps on one
      batch with their loss / grad-norm checks and kernel launch counts, then
      step ms, pairs/s, MFU, peak device memory and one profiled step
+  6b. the same with --q_lora true --bits 4 (224 int4 LM linears): 3 steps
+     with their checks and launch counts, then step ms, pairs/s, MFU, peak
+     memory beside phase 6's, and one profiled step
 
 A profiled step prints the card's busy and idle time and its kernel time by
 group (torch.profiler). The line before the last is {"kernels": [...]}
-(launches summed over the serve, speculative int8 serve, /chat and DPO
-runs, split in launches_by_path);
+(launches summed over the serve, speculative int8 serve, /chat, int4
+serve, DPO and QLoRA runs, split in launches_by_path);
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
 and prints no result.
@@ -79,7 +93,7 @@ LOSS_REL_TOL = 5e-2  # bf16 DPO loss on the card vs the f32 loss on the CPU
 GRAD_COS_MIN = 0.99  # cosine of the flattened LoRA gradients, card vs CPU
 PEAK_FLOPS = 989.4e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
-KERNELS = ("flash_fwd", "decode_attention", "flash_bwd", "chunk_attention")
+KERNELS = ("flash_fwd", "decode_attention", "flash_bwd", "chunk_attention", "int4_matmul")
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -352,6 +366,83 @@ def phase_kernels():
     del kq, vq, ks, vs, kd, vd
     torch.cuda.empty_cache()
     results["chunk_attention"] = chunk_kernel_checks(randn)
+    results.update(int4_kernel_checks(gen))
+    return results
+
+
+def int4_kernel_checks(gen) -> dict:
+    """Kernels 6 and 7 (csrc/int4_matmul.cu) against their plain versions on
+    the same bf16 operands, f32 plain: LLaVA-1.5-7B's gate/up (4096 ->
+    11008) and down (11008 -> 4096) at decode (T=8) and at the DPO step
+    (T=2048), and an edge shape (in 384: odd n_lo and a padded half; out
+    200; T=5). Operands are scaled so outputs have unit variance. Times:
+    kernel, plain, and cuBLAS bf16 on the weight dequantized once outside
+    the timing (library_ms), beside the bound. At decode the kernel's
+    weights rotate over 4 copies (96 MB, more than the 50 MB L2), as a step
+    reads 225 distinct weights. The main entries are decode gate/up (kernel
+    6, the serving path) and the DPO gate (kernel 7)."""
+    import itertools
+
+    from vlrlhf_torch.ops.int4 import (
+        dequantize_int4, int4_matmul, int4_matmul_plain, int4_matmul_t, int4_matmul_t_plain,
+        quantize_int4,
+    )
+
+    dev = torch.device("cuda")
+    weights = {}
+
+    def weight(d_in, d_out):
+        if (d_in, d_out) not in weights:
+            w = torch.randn((d_out, d_in), device=dev, generator=gen) * d_in**-0.5
+            packed, scale = quantize_int4(w)
+            weights[(d_in, d_out)] = (packed, scale, dequantize_int4(packed, scale))
+        return weights[(d_in, d_out)]
+
+    fwd = [("decode_gate", 8, 4096, 11008), ("decode_down", 8, 11008, 4096),
+           ("dpo_gate", 2048, 4096, 11008), ("dpo_down", 2048, 11008, 4096),
+           ("edge", 5, 384, 200)]
+    bwd = [("dpo_gate", 2048, 4096, 11008), ("dpo_down", 2048, 11008, 4096),
+           ("edge", 5, 384, 200)]
+    results = {}
+    for name, cases, kern, plain in (("int4_matmul", fwd, int4_matmul, int4_matmul_plain),
+                                     ("int4_matmul_t", bwd, int4_matmul_t, int4_matmul_t_plain)):
+        by_case, errs = {}, []
+        for label, t, d_in, d_out in cases:
+            packed, scale, wdeq = weight(d_in, d_out)
+            width, scale_a = (d_in, 1.0) if name == "int4_matmul" else (d_out, (d_in / d_out) ** 0.5)
+            a = (torch.randn((t, width), device=dev, generator=gen) * scale_a).to(torch.bfloat16)
+            got = kern(a, packed, scale)
+            torch.cuda.synchronize()
+            err, rel, report = check_close(f"{name} {label}", got, plain(a.float(), packed, scale),
+                                           TOL)
+            if label.startswith("decode"):
+                copies = itertools.cycle([(packed, scale)] + [(packed.clone(), scale.clone())
+                                                              for _ in range(3)])
+                k_ms = time_ms(lambda: kern(a, *next(copies)), iters=40)
+            else:
+                k_ms = time_ms(lambda: kern(a, packed, scale), iters=10)
+            p_ms = time_ms(lambda: plain(a, packed, scale), iters=3, warmup=1)
+            if name == "int4_matmul":
+                l_ms = time_ms(lambda: a @ wdeq.T, iters=10)
+            else:
+                l_ms = time_ms(lambda: a @ wdeq, iters=10)
+            w_bytes = packed.numel() + 2 * scale.numel()
+            nbytes = w_bytes + 2 * t * (d_in + d_out)
+            b_ms, b_by = bound(2.0 * t * d_in * d_out, nbytes)
+            print(f"{name} {label} T={t} in={d_in} out={d_out}: {report}; kernel {k_ms:.4f} ms "
+                  f"plain {p_ms:.4f} ms cublas bf16 on the dequantized weight {l_ms:.4f} ms "
+                  f"bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.3f} MB, "
+                  f"{2.0 * t * d_in * d_out / 1e9:.3f} GFLOP); {nbytes / (k_ms * 1e-3) / 1e9:.1f} "
+                  f"GB/s, {2.0 * t * d_in * d_out / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s", flush=True)
+            errs.append(err)
+            by_case[label] = {"max_abs_err": err, "rel_err": rel, "ms": k_ms, "plain_ms": p_ms,
+                              "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by}
+        main = by_case["decode_gate" if name == "int4_matmul" else "dpo_gate"]
+        results[name] = {**{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                   "bound_by")},
+                         "max_abs_err": max(errs), "cases": by_case}
+    weights.clear()
+    torch.cuda.empty_cache()
     return results
 
 
@@ -504,8 +595,72 @@ def phase_reduced_depth():
     with torch.inference_mode():
         reduced_depth_chunks(cpu, gpu, batch)
         reduced_depth_spec(cpu, gpu, proc, err)
+    reduced_depth_int4(cpu, gpu, batch)
     del cpu, gpu
     torch.cuda.empty_cache()
+
+
+def share_int4(cpu, gpu, patterns, what: str) -> int:
+    """Quantize the CPU model's linears that match `patterns` to int4 once,
+    on the CPU from its f32 weights, and hand the same packed codes and
+    scales to the card model (whose bf16 weights are dropped); returns the
+    number of int4 linears."""
+    from vlrlhf_torch.models.common import Linear
+    from vlrlhf_torch.ops.quant import quantize_params
+
+    quantize_params(cpu, patterns, bits=4)
+    mods = dict(gpu.named_modules())
+    n = 0
+    for name, mod in cpu.named_modules():
+        if isinstance(mod, Linear) and mod.weight_q4 is not None:
+            mods[name].set_quantized4_(mod.weight_q4.cuda(), mod.weight_scale4.cuda())
+            n += 1
+    print(f"{what}: {n} linears int4, the same codes on the CPU and the card", flush=True)
+    return n
+
+
+def reduced_depth_int4(cpu, gpu, batch) -> None:
+    """int4 serving at reduced depth: the LM linears and lm_head int4
+    (DEFAULT_QUANT_PATTERNS), the same codes on the card (bf16 activations,
+    kernel 6) and the CPU (f32, plain); image prefill + 8 greedy tokens,
+    logit error and token agreement; then the card model fused
+    (--fuse_decode) must give the same tokens as unfused."""
+    from vlrlhf_torch.generate.engine import GenerateConfig, Generator, batch_to_device, prefill
+    from vlrlhf_torch.models.lm.fuse import fuse_lm_
+    from vlrlhf_torch.ops.quant import DEFAULT_QUANT_PATTERNS
+
+    n4 = share_int4(cpu, gpu, DEFAULT_QUANT_PATTERNS, "reduced-depth int4 serving")
+    if n4 != 7 * cpu.cfg.lm.num_layers + 1:
+        raise AssertionError(f"expected every LM linear and lm_head int4, got {n4}")
+    gen_cfg = GenerateConfig(max_new_tokens=8, pad_token_id=-1)
+    logits, tokens = {}, {}
+    with torch.inference_mode():
+        for name, model in (("cuda", gpu), ("cpu", cpu)):
+            t = batch_to_device(batch, model.device)
+            *_, last = prefill(model, gen_cfg, 768, t["input_ids"], t["pad_mask"],
+                               t["prompt_lens"], t["pixel_values"], t["image_positions"], None)
+            logits[name] = last.float().cpu()
+            tokens[name] = Generator(model, gen_cfg)(batch).cpu()[0].tolist()
+    fuse_lm_(gpu.lm)
+    with torch.inference_mode():
+        fused = Generator(gpu, gen_cfg)(batch).cpu()[0].tolist()
+    ref, got = logits["cpu"], logits["cuda"]
+    if not torch.isfinite(got).all():
+        raise AssertionError("reduced-depth int4 logits on the card are not finite")
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    agree = sum(int(a == b) for a, b in zip(tokens["cuda"], tokens["cpu"]))
+    top2 = torch.topk(ref[0], 2).values
+    print(f"reduced-depth int4 serving (2 LM / 2 tower layers, full widths): logit "
+          f"max_abs_err={err:.4e} rel={rel:.3e} (tol {LOGIT_REL_TOL}); greedy tokens agree "
+          f"{agree}/8; cuda {tokens['cuda']} cpu {tokens['cpu']}; fused on the card "
+          f"{fused} ({'identical' if fused == tokens['cuda'] else 'DIFFERENT'})", flush=True)
+    if rel > LOGIT_REL_TOL:
+        raise AssertionError(f"reduced-depth int4 logits differ: rel {rel} > {LOGIT_REL_TOL}")
+    if float(top2[0] - top2[1]) > 2 * err and tokens["cuda"][0] != tokens["cpu"][0]:
+        raise AssertionError("first int4 greedy token differs though its margin exceeds the error")
+    if fused != tokens["cuda"]:
+        raise AssertionError(f"fused int4 tokens {fused} differ from unfused {tokens['cuda']}")
 
 
 def reduced_depth_chunks(cpu, gpu, batch) -> None:
@@ -632,6 +787,7 @@ def serve_args(**kw):
         max_new_tokens=32, synthetic=0, do_sample=False, temperature=1.0, top_k=None,
         top_p=None, max_length=992, slots=8, seed=0, host="127.0.0.1", port=0,
         quantize="false", kv_cache_dtype="bf16", speculative_k=0, chat_sessions=0,
+        fuse_decode=False,
     )
     base.update(kw)
     return argparse.Namespace(**base)
@@ -779,7 +935,7 @@ def phase_serve():
           f"bucket): B=1 {prefill_ms[1]:.3f} ms, B=2 {prefill_ms[2]:.3f} ms; "
           f"decode 8 slots x {steps} steps: {dt * 1e3 / steps:.3f} ms/step, "
           f"{decode_tok_s:.2f} tokens/s; peak memory {peak / 2**30:.3f} GiB", flush=True)
-    return launches
+    return launches, dt * 1e3 / steps
 
 
 def phase_serve_spec_int8():
@@ -920,7 +1076,110 @@ def phase_serve_spec_int8():
     print(f"speculative int8 serving peak memory {peak / 2**30:.3f} GiB (the bf16 weights "
           f"before their in-place quantization included)", flush=True)
     del model, engine, srv, httpd
-    return spec_launches, chat_launches
+    return spec_launches, chat_launches, [r[0] for r in readings["plain"]]
+
+
+def phase_serve_int4(bf16_ms: float, int8_ms: list) -> dict:
+    """Full-width LLaVA-1.5-7B served as `serve --quantize int4 --fuse_decode
+    true`: build_server quantizes the bf16 model's LM linears and lm_head to
+    int4 in place, then fuses each layer (129 int4 linears). 8 concurrent
+    image /generate requests, 32 new tokens, greedy, with their launch
+    counts; resident weights; decode ms per step (8 slots, one burst) beside
+    phases 4 and 4b of this run; one profiled decode step. Returns the
+    launch counts of the /generate run."""
+    from vlrlhf_torch.cli.main import build_server
+    from vlrlhf_torch.models.common import Linear, init_random_
+    from vlrlhf_torch.models.config import _llava_7b
+    from vlrlhf_torch.models.vlm import VLM
+    from vlrlhf_torch.ops.decode_attention import decode_attention
+    from vlrlhf_torch.ops.flash_attention import flash_attention
+    from vlrlhf_torch.ops.int4 import int4_matmul
+
+    counted = {"flash_fwd": flash_attention, "decode_attention": decode_attention,
+               "int4_matmul": int4_matmul}
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    cfg = _llava_7b(torch.bfloat16)
+    model = VLM(cfg, "cuda")
+    init_random_(model, torch.Generator(device="cuda").manual_seed(0))
+    proc = make_processor(cfg)
+    t0 = time.perf_counter()
+    httpd, srv = build_server(cfg, model, proc, serve_args(quantize="int4", fuse_decode=True),
+                              seeded_image)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    engine = srv.engine
+    n4 = sum(1 for m in model.modules() if isinstance(m, Linear) and m.weight_q4 is not None)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    lm_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                   if n.startswith("lm.") and "embed" not in n)
+    print(f"int4 serving model: {n4} int4 linears (fused wqkv / wo / gateup / down per layer and "
+          f"lm_head), quantized and fused in place in {setup_s:.2f} s; weights "
+          f"{weights / 2**30:.3f} GiB ({lm_bytes / 2**30:.3f} GiB of LM linears, norms and "
+          f"lm_head; the rest the bf16 tower, projector and embedding); "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated ({before / 2**30:.3f} GiB "
+          f"before the model); peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+          flush=True)
+    if n4 != 4 * cfg.lm.num_layers + 1 or model.lm.layers[0].wq is not None:
+        raise AssertionError(f"expected 129 fused int4 linears, got {n4}")
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    http_thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    bodies = [{"question": f"request {i}: what does this image show? answer in detail",
+               "image": f"img{i}.png", "max_new_tokens": 32} for i in range(8)]
+    try:
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        results = post_concurrently(url + "/generate", bodies)
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counted.items()}
+        tokens = [r.get("tokens") for r in results]
+        steps = engine.last_decode_steps
+        print(f"int4 serve: {len(results)}/8 /generate requests in {wall:.3f} s ({sum(tokens)} "
+              f"tokens; per request {tokens}); admits {engine.last_admits}, bursts "
+              f"{engine.last_bursts}, decode steps {steps}; launches {json.dumps(launches)}",
+              flush=True)
+        if steps == 0 or launches["int4_matmul"] < n4 * steps:
+            raise AssertionError(f"too few int4 launches for {steps} decode steps: {launches}")
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            if not json.loads(r.read())["ok"]:
+                raise AssertionError("/health reports the scheduler dead")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.stop()
+        http_thread.join(timeout=60)
+    if http_thread.is_alive() or (srv._thread is not None and srv._thread.is_alive()):
+        raise AssertionError("server threads did not stop")
+
+    # measurement outside the counted run: 8 admitted slots, one burst
+    reqs, _, _ = image_requests(
+        proc, [f"request {i}: what does this image show?" for i in range(8)], 32, "q")
+    with torch.inference_mode():
+        cache, pending, state, hist = engine._fresh_buffers()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for g in range(0, 8, 2):
+            engine._admit_group(cache, pending, state, hist, [(g, g), (g + 1, g + 1)], reqs, gen)
+        logits, _ = model.lm.decode(state[1].clone(), state[0].clone(), cache, pending)
+        if not torch.isfinite(logits).all():
+            raise AssertionError("int4 decode logits are not finite")
+        torch.cuda.synchronize()
+        engine.last_decode_steps = 0
+        t0 = time.perf_counter()
+        engine._burst(cache, pending, state, hist, 0, gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps = engine.last_decode_steps
+        profile_breakdown(lambda: model.lm.decode(state[1].clone(), state[0].clone(), cache,
+                                                  pending),
+                          "int4 decode step (8 slots, fused W4A16 linears)")
+        del cache
+    print(f"decode ms per step, 8 slots, this run: int4 fused {dt * 1e3 / steps:.3f} "
+          f"({steps} steps); bf16 {bf16_ms:.3f} (phase 4); int8 W8A16 + int8 KV plain bursts "
+          f"{', '.join(f'{x:.3f}' for x in int8_ms)} (phase 4b)", flush=True)
+    del model, engine, srv, httpd
+    return launches
 
 
 def profile_breakdown(fn, label: str) -> None:
@@ -941,7 +1200,8 @@ def profile_breakdown(fn, label: str) -> None:
         return
     groups = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dkv": "flash_bwd_dkv_kernel",
               "flash_bwd_dq": "flash_bwd_dq_kernel", "decode": "decode_kernel",
-              "chunk": "chunk_kernel"}
+              "chunk": "chunk_kernel", "int4_matmul_t": "int4_matmul_t_kernel",
+              "int4_matmul": "int4_matmul_kernel"}  # also matches int4_matmul_kernel_tiled
     by_group, by_name = {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
@@ -986,15 +1246,18 @@ def dpo_args(**kw):
         max_grad_norm=1.0, gradient_accumulation_steps=1, beta=0.1, label_smoothing=0.0,
         loss_type="sigmoid", reference_free=False, precompute_ref_logps=True,
         logits_chunk=256, max_length=1024, per_device_train_batch_size=1, synthetic=0,
+        q_lora=False, bits=8, q_lora_vision=False,
     )
     base.update(kw)
     return argparse.Namespace(**base)
 
 
-def phase_reduced_depth_dpo():
+def phase_reduced_depth_dpo(bits: int = 0):
     """One DPO loss + backward at full widths, 2 LM / 2 tower layers, the
     same seeded weights and non-zero adapters on the card (bf16, kernels)
-    and on the CPU (f32, plain path)."""
+    and on the CPU (f32, plain path). bits=4: QLoRA, the LM's attention and
+    MLP linears int4 (TRAIN_QUANT_PATTERNS) with the same codes on both
+    before the adapters attach, so kernels 6 and 7 run on the card."""
     import dataclasses
 
     from vlrlhf_torch.cli.main import with_remat_policy
@@ -1020,6 +1283,13 @@ def phase_reduced_depth_dpo():
     cpu = init_random_(VLM(cfg32, "cpu"), torch.Generator().manual_seed(1))
     gpu = VLM(cfg16, "cuda")
     gpu.load_state_dict(cpu.state_dict())
+    label = "DPO"
+    if bits:
+        from vlrlhf_torch.ops.quant import TRAIN_QUANT_PATTERNS
+
+        label = "QLoRA int4 DPO"
+        if share_int4(cpu, gpu, TRAIN_QUANT_PATTERNS, f"reduced-depth {label}") != 14:
+            raise AssertionError("expected the 14 LM linears of 2 layers int4")
     lcfg = LoraConfig(r=64, alpha=16.0, dropout=0.0, target_patterns=LM_ALL_LINEARS)
     gen = torch.Generator().manual_seed(2)
     init_lora(cpu, lcfg, gen)
@@ -1042,17 +1312,18 @@ def phase_reduced_depth_dpo():
         grads[name] = torch.cat([p.grad.float().flatten().cpu() for p in state.trainable])
     g, r = grads["cuda"], grads["cpu"]
     if not (np.isfinite(loss["cuda"]) and torch.isfinite(g).all()):
-        raise AssertionError("reduced-depth DPO on the card is not finite")
+        raise AssertionError(f"reduced-depth {label} on the card is not finite")
     rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
     cos = float(torch.dot(g.double(), r.double()) / (g.double().norm() * r.double().norm()))
-    print(f"reduced-depth DPO (2 LM / 2 tower layers, full widths, 1 pair of "
+    print(f"reduced-depth {label} (2 LM / 2 tower layers, full widths, 1 pair of "
           f"{batch['input_ids'].shape[1]} tokens): loss cuda {loss['cuda']:.6f} cpu "
           f"{loss['cpu']:.6f} rel err {rel:.3e} (tol {LOSS_REL_TOL}); LoRA gradient cosine "
           f"{cos:.6f} (min {GRAD_COS_MIN}) over {g.numel()} entries", flush=True)
     if rel > LOSS_REL_TOL:
-        raise AssertionError(f"reduced-depth DPO loss differs: rel {rel} > {LOSS_REL_TOL}")
+        raise AssertionError(f"reduced-depth {label} loss differs: rel {rel} > {LOSS_REL_TOL}")
     if cos < GRAD_COS_MIN:
-        raise AssertionError(f"reduced-depth LoRA gradients differ: cosine {cos} < {GRAD_COS_MIN}")
+        raise AssertionError(f"reduced-depth {label} LoRA gradients differ: cosine {cos} < "
+                             f"{GRAD_COS_MIN}")
     del cpu, gpu
     torch.cuda.empty_cache()
 
@@ -1166,6 +1437,95 @@ def phase_dpo():
           f"{peak / 2**30:.3f} GiB", flush=True)
     del run, model, batch
     torch.cuda.empty_cache()
+    return launches, {"median_ms": med, "pairs_per_s": 1e3 / med,
+                      "mfu": flops / (med * 1e-3) / PEAK_FLOPS, "peak_gib": peak / 2**30}
+
+
+def phase_dpo_qlora4(bf16: dict) -> dict:
+    """Full-width LLaVA-1.5-7B QLoRA DPO through cli.main.build_dpo with
+    --q_lora true --bits 4 at phase 6's shape: the bf16 model's 224 LM
+    linears go int4 in place before the adapters attach (lm_head stays
+    bf16). 3 steps with step-1 loss ln 2, finite norms and adapters that
+    change at step 2, and their launch counts (kernel 6 in the forward and
+    its recompute, kernel 7 in the backward); then step ms, pairs/s, MFU
+    and peak memory beside phase 6's, and one profiled step."""
+    import math
+    import statistics
+
+    from vlrlhf_torch.cli.main import build_dpo, with_remat_policy
+    from vlrlhf_torch.models.common import Linear, init_random_
+    from vlrlhf_torch.models.config import _llava_7b
+    from vlrlhf_torch.models.vlm import VLM
+    from vlrlhf_torch.ops.flash_attention import flash_attention, flash_bwd_dkv, flash_bwd_dq
+    from vlrlhf_torch.ops.int4 import int4_matmul, int4_matmul_t
+    from vlrlhf_torch.train.dpo import batch_to_device
+    from vlrlhf_torch.train.loop import read_metrics
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = with_remat_policy(_llava_7b(torch.bfloat16), "attn")
+    t0 = time.perf_counter()
+    model = VLM(cfg, "cuda")
+    init_random_(model, torch.Generator(device="cuda").manual_seed(0))
+    proc = make_processor(cfg)
+    run = build_dpo(cfg, model, proc, dpo_args(q_lora=True, bits=4, max_steps=3),
+                    [pair_row(7, 150, 260, 250)], seeded_image)
+    n4 = sum(1 for m in model.modules() if isinstance(m, Linear) and m.weight_q4 is not None)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    batch_np = run.collator([run.tokenize_fn(r) for r in run.rows])
+    batch = batch_to_device(batch_np, "cuda")
+    torch.cuda.synchronize()
+    print(f"full-width QLoRA DPO: {n4} LM linears int4 (lm_head bf16), weights "
+          f"{weights / 2**30:.3f} GiB with the adapters, set-up {time.perf_counter() - t0:.1f} s; "
+          f"rows of {batch_np['pad_mask'].sum(1).tolist()} real tokens padded to "
+          f"{batch_np['input_ids'].shape[1]}", flush=True)
+    if n4 != 7 * cfg.lm.num_layers:
+        raise AssertionError(f"expected 224 int4 LM linears, got {n4}")
+
+    counted = {"flash_fwd": flash_attention, "flash_bwd_dkv": flash_bwd_dkv,
+               "flash_bwd_dq": flash_bwd_dq, "int4_matmul": int4_matmul,
+               "int4_matmul_t": int4_matmul_t}
+    for fn in counted.values():
+        fn.launches = 0
+    history, snap = [], None
+    for i in range(3):
+        if i == 1:
+            snap = [p.detach().clone() for p in run.state.trainable]
+        history.append(read_metrics(run.step(batch)))
+        if i == 1 and all(torch.equal(p, q) for p, q in zip(run.state.trainable, snap)):
+            raise AssertionError("the adapters did not change at step 2")
+    launches = {name: fn.launches for name, fn in counted.items()}
+    losses = [h["loss"] for h in history]
+    norms = [h["grad_norm"] for h in history]
+    print(f"QLoRA int4 DPO steps 1-3: loss {losses}; grad_norm {norms}; launches "
+          f"{json.dumps(launches)}", flush=True)
+    if abs(losses[0] - math.log(2.0)) > 1e-3:
+        raise AssertionError(f"QLoRA step-1 loss {losses[0]} is not ln 2 within 1e-3")
+    if not all(np.isfinite(x) for x in losses + norms) or min(norms) <= 0:
+        raise AssertionError(f"non-finite loss or zero/non-finite grad norm: {losses} {norms}")
+    if launches["int4_matmul"] < 3 * n4 or launches["int4_matmul_t"] <= 0:
+        raise AssertionError(f"too few int4 launches for 3 steps: {launches}")
+
+    step_ms = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        m = run.step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    if not np.isfinite(read_metrics(m)["loss"]):
+        raise AssertionError("QLoRA DPO loss is not finite in the timed steps")
+    peak = torch.cuda.max_memory_allocated()
+    profile_breakdown(lambda: run.step(batch), "QLoRA int4 DPO step")
+    med = statistics.median(step_ms)
+    tokens = int(np.prod(batch_np["input_ids"].shape))
+    flops = run.flops_per_token * tokens + run.flops_per_image * batch_np["pixel_values"].shape[0]
+    print(f"QLoRA int4 DPO step (phase 6's shape): median {med:.3f} ms over 3 steps "
+          f"{[round(x, 3) for x in step_ms]}; {1e3 / med:.4f} pairs/s; MFU "
+          f"{flops / (med * 1e-3) / PEAK_FLOPS:.4f}; peak memory {peak / 2**30:.3f} GiB "
+          f"(the bf16 model before its in-place quantization included) | bf16 DPO (phase 6): "
+          f"median {bf16['median_ms']:.3f} ms, {bf16['pairs_per_s']:.4f} pairs/s, MFU "
+          f"{bf16['mfu']:.4f}, peak {bf16['peak_gib']:.3f} GiB", flush=True)
+    del run, model, batch
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1181,19 +1541,27 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels()
     phase_reduced_depth()
-    serve_launches = phase_serve()
+    serve_launches, bf16_decode_ms = phase_serve()
     gc.collect()  # the bf16 serving model and cache go before the int8 one
     torch.cuda.empty_cache()
-    spec_launches, chat_launches = phase_serve_spec_int8()
+    spec_launches, chat_launches, int8_decode_ms = phase_serve_spec_int8()
+    gc.collect()
+    torch.cuda.empty_cache()
+    int4_launches = phase_serve_int4(bf16_decode_ms, int8_decode_ms)
     gc.collect()  # the serving models and caches go before any training model
     torch.cuda.empty_cache()
     phase_reduced_depth_dpo()
-    dpo_launches = phase_dpo()
+    phase_reduced_depth_dpo(bits=4)
+    dpo_launches, dpo_stats = phase_dpo()
+    gc.collect()
+    torch.cuda.empty_cache()
+    qlora_launches = phase_dpo_qlora4(dpo_stats)
     runs = {"serve": serve_launches, "serve_int8_spec": spec_launches, "chat_int8": chat_launches,
-            "dpo": dpo_launches}
+            "serve_int4": int4_launches, "dpo": dpo_launches, "dpo_qlora4": qlora_launches}
+    names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention", "chunk_attention",
+             "int4_matmul", "int4_matmul_t")
     by_path = {name: {path: counts[name] for path, counts in runs.items() if name in counts}
-               for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention",
-                            "chunk_attention")}
+               for name in names}
     launches = {name: sum(paths.values()) for name, paths in by_path.items()}
     sources = {
         "flash_fwd": ("vlrlhf_torch/csrc/flash_fwd.cu",
@@ -1206,6 +1574,8 @@ def main() -> int:
                              "vlrlhf_tpu/ops/decode_attention.py:56"),
         "chunk_attention": ("vlrlhf_torch/csrc/chunk_attention.cu",
                             "vlrlhf_tpu/ops/chunk_attention.py:46"),
+        "int4_matmul": ("vlrlhf_torch/csrc/int4_matmul.cu", "vlrlhf_tpu/ops/int4.py:219"),
+        "int4_matmul_t": ("vlrlhf_torch/csrc/int4_matmul.cu", "vlrlhf_tpu/ops/int4.py:323"),
     }
     for name, n in launches.items():
         if n <= 0:
@@ -1214,6 +1584,11 @@ def main() -> int:
             by_path["chunk_attention"].get("chat_int8", 0) <= 0:
         raise AssertionError(f"chunk_attention must run in both the speculative serve and /chat: "
                              f"{by_path['chunk_attention']}")
+    if by_path["int4_matmul"].get("serve_int4", 0) <= 0 or \
+            by_path["int4_matmul"].get("dpo_qlora4", 0) <= 0 or \
+            by_path["int4_matmul_t"].get("dpo_qlora4", 0) <= 0:
+        raise AssertionError(f"int4 kernels must run in the int4 serve and the QLoRA step: "
+                             f"{by_path['int4_matmul']} {by_path['int4_matmul_t']}")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
@@ -1222,8 +1597,7 @@ def main() -> int:
          "plain_ms": kernels[name]["plain_ms"], "bound_ms": kernels[name]["bound_ms"],
          "bound_by": kernels[name]["bound_by"], "library_ms": kernels[name]["library_ms"],
          **({"int8": kernels[name]["int8"]} if "int8" in kernels[name] else {})}
-        for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention",
-                     "chunk_attention")
+        for name in names
     ]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

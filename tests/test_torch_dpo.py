@@ -268,9 +268,9 @@ def test_cli_dpo_synthetic_cpu(tmp_path):
 def test_cli_refuses_unported_flags(tmp_path):
     from vlrlhf_torch.cli.main import main
 
-    with pytest.raises(SystemExit, match="--q_lora"):
+    with pytest.raises(SystemExit, match="--eval_steps"):
         main(["dpo", "--synthetic", "4", "--device", "cpu", "--output_dir", str(tmp_path),
-              "--q_lora", "true"])
+              "--eval_steps", "5"])
     with pytest.raises(SystemExit, match="gradient_accumulation_steps|--use_lora"):
         main(["dpo", "--synthetic", "4", "--device", "cpu", "--output_dir", str(tmp_path),
               "--use_lora", "false"])

@@ -54,6 +54,15 @@ def _quantized_paths(tree, path=""):
     return []
 
 
+def _quantized_kinds(tree, path=""):
+    if isinstance(tree, dict):
+        if "kernel_q4" in tree or "kernel_q" in tree:
+            return {path: "int4" if "kernel_q4" in tree else "int8"}
+        return {p: k for key, v in tree.items()
+                for p, k in _quantized_kinds(v, f"{path}/{key}" if path else key).items()}
+    return {}
+
+
 @pytest.mark.parametrize("which", ["default", "serve_wide"])
 def test_quantize_params_selects_the_same_linears(which):
     from vlrlhf_tpu.ops import quant as jquant
@@ -69,8 +78,17 @@ def test_quantize_params_selects_the_same_linears(which):
     for path in set(got):
         stacked = "layers_scanned" in path
         assert got.count(path) == (n_layers[path.split("/")[0]] if stacked else 1), path
-    with pytest.raises(NotImplementedError):
-        tq.quantize_params(model, patterns, bits=4)
+    # bits=4 on the 128-wide model: the same linears, int4 where in % 128
+    # == 0 and int8 elsewhere (the 16-wide tower, projector fc1), as in JAX
+    from tests.test_int4 import _vlm128
+
+    _, params4, model4 = ported(jcfg=_vlm128())
+    want4 = _quantized_kinds(jquant.quantize_params(params4, patterns, bits=4))
+    tq.quantize_params(model4, patterns, bits=4)
+    got4 = {tq.linear_path(n): "int4" if m.weight_q4 is not None else "int8"
+            for n, m in model4.named_modules() if isinstance(m, Linear) and m.weight is None}
+    assert got4 == want4 and "int4" in want4.values()
+    assert ("int8" in want4.values()) == (which == "serve_wide")
 
 
 @pytest.mark.parametrize("bias", [False, True])

@@ -430,25 +430,39 @@ def test_chat_over_http_matches_jax_chat_backend():
     assert not thread.is_alive()
 
 
-def test_serve_accepts_the_new_flags_and_refuses_int4():
+def test_serve_accepts_int4_and_fuse_decode_and_refuses_adapter():
+    """`serve --quantize int4 --fuse_decode true` on the synthetic model:
+    its widths (32, 64) are no multiple of 128, so every LM linear and
+    lm_head falls back to int8 (as vlrlhf_tpu's quantize_params does), the
+    layers are fused, and /generate answers. --adapter stays refused."""
     from vlrlhf_torch.cli.main import build_parser, build_server, main
 
     args = build_parser().parse_args(
-        ["serve", "--quantize", "int8", "--kv_cache_dtype", "int8", "--speculative_k", "3",
-         "--chat_sessions", "4"])
-    assert (args.quantize, args.kv_cache_dtype, args.speculative_k, args.chat_sessions) == \
-        ("int8", "int8", 3, 4)
+        ["serve", "--quantize", "int4", "--fuse_decode", "true", "--kv_cache_dtype", "int8",
+         "--speculative_k", "3", "--chat_sessions", "4"])
+    assert (args.quantize, args.fuse_decode, args.kv_cache_dtype, args.speculative_k,
+            args.chat_sessions) == ("int4", True, "int8", 3, 4)
     _, _, _, model, tproc = _bundles()
     httpd, srv = build_server(model.cfg, model, tproc,
-                              _serve_args(quantize="int8", kv_cache_dtype="int8",
+                              _serve_args(quantize="int4", fuse_decode=True, kv_cache_dtype="int8",
                                           speculative_k=3), _seeded_image)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
     try:
-        assert model.lm.layers[0].wq.weight is None and model.lm.lm_head.weight is None
+        layer = model.lm.layers[0]
+        assert layer.wq is None and layer.wqkv.weight_q is not None
+        assert layer.gateup.weight_q is not None and layer.down.weight_q is not None
+        assert model.lm.lm_head.weight_q is not None and model.lm.lm_head.weight_q4 is None
         assert model.vision.layers[0].wq.weight is not None
         assert srv.engine.gen_cfg.kv_cache_dtype == "int8"
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        gen = _post(url, "/generate", {"question": "what is shown?", "image": "img0.png",
+                                       "max_new_tokens": 4})
+        assert gen["tokens"] >= 1
     finally:
+        httpd.shutdown()
         httpd.server_close()
         srv.stop()
-    for argv in (["--quantize", "int4"], ["--fuse_decode", "true"], ["--adapter", "a=b"]):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            main(["serve", "--device", "cpu", "--synthetic", "2", *argv])
+        thread.join(timeout=30)
+    with pytest.raises(SystemExit, match="not ported yet"):
+        main(["serve", "--device", "cpu", "--synthetic", "2", "--adapter", "a=b"])

@@ -2,15 +2,20 @@
 vlrlhf_tpu's `vlrlhf serve` and `vlrlhf dpo`, cli/main.py).
 
 serve: the continuous-batching engine behind an HTTP endpoint on one device,
-with int8 weights (--quantize), an int8 KV cache (--kv_cache_dtype),
-speculative decoding (--speculative_k) and /chat sessions (--chat_sessions).
-dpo: LoRA DPO training on one device, writing <output_dir>/dpo_metrics.jsonl.
+with int8 or int4 weights (--quantize), the fused qkv / gate-up layout
+(--fuse_decode), an int8 KV cache (--kv_cache_dtype), speculative decoding
+(--speculative_k) and /chat sessions (--chat_sessions).
+dpo: LoRA DPO training on one device, over a frozen int8 or int4 base with
+--q_lora true --bits {8,4}, writing <output_dir>/dpo_metrics.jsonl.
 
 Flag names follow vlrlhf_tpu's. Differences: `--device` names the device
 explicitly (default cuda; an absent device is an error, never a silent CPU
 run), and without a checkpoint importer yet, `--synthetic N` is the only
 way to get weights: a scaled-down family model with seeded random weights
-and the ToyTokenizer (for dpo also N synthetic preference pairs). A flag of
+and the ToyTokenizer (for dpo also N synthetic preference pairs). Its
+widths (hidden 32, intermediate 64) are no multiple of 128, so
+--quantize int4 and --q_lora --bits 4 quantize every selected linear to
+int8 there, as vlrlhf_tpu does (ops/quant.py). A flag of
 vlrlhf_tpu's dpo that the port does not honour yet is refused with an
 error, never ignored; dpo saves no adapters until checkpointing is ported.
 
@@ -108,15 +113,15 @@ def build_server(cfg, model, processor, args, image_loader=None):
         ChatBackend, EngineServer, RequestBuilder, serve_http,
     )
     from vlrlhf_torch.models.config import FAMILIES
+    from vlrlhf_torch.models.lm.fuse import fuse_lm_
     from vlrlhf_torch.ops.quant import DEFAULT_QUANT_PATTERNS, quantize_params
 
     family = FAMILIES[cfg.family]
     qbits = {"false": 0, "true": 8, "int8": 8, "int4": 4}[str(args.quantize).lower()]
-    if qbits == 4:
-        raise SystemExit("vlrlhf-torch serve: not ported yet: --quantize int4 "
-                         "(vlrlhf_tpu's option; ROADMAP.md lists when it comes)")
     if qbits:
-        quantize_params(model, DEFAULT_QUANT_PATTERNS)
+        quantize_params(model, DEFAULT_QUANT_PATTERNS, bits=qbits)
+    if getattr(args, "fuse_decode", False):
+        fuse_lm_(model.lm)
     gen_cfg = GenerateConfig(
         max_new_tokens=args.max_new_tokens,
         eos_token_ids=stop_ids(processor, family, bool(args.synthetic)),
@@ -164,6 +169,7 @@ def cmd_serve(args):
         f"serving {args.model_family} on "
         f"http://{httpd.server_address[0]}:{httpd.server_address[1]} "
         f"({args.slots} slots, cache_len {srv.engine.cache_len}, quantize {args.quantize}, "
+        f"fuse_decode {args.fuse_decode}, "
         f"kv {args.kv_cache_dtype}, speculative_k {args.speculative_k}, "
         f"chat_sessions {args.chat_sessions}, device {device})",
         flush=True,
@@ -216,7 +222,10 @@ class DPORun:
 def build_dpo(cfg, model, processor, args, rows: list, image_loader=None) -> DPORun:
     """Adapters (LoRA on every LM attention and MLP linear), optimizer,
     collator and, with --precompute_ref_logps, the reference pass over
-    `rows`. `model` holds seeded base weights on its device already."""
+    `rows`. `model` holds seeded base weights on its device already; with
+    --q_lora they are quantized in place (--bits, TRAIN_QUANT_PATTERNS, or
+    the _WIDE set with --q_lora_vision) before the adapters attach, the
+    order of vlrlhf_tpu/cli/main.py:308-338."""
     from vlrlhf_torch.data.collators import CollatorConfig, DPOCollator
     from vlrlhf_torch.lora.lora import LM_ALL_LINEARS, LoraConfig, init_lora
     from vlrlhf_torch.models.config import FAMILIES
@@ -225,6 +234,13 @@ def build_dpo(cfg, model, processor, args, rows: list, image_loader=None) -> DPO
     from vlrlhf_torch.train.train_state import OptimizerConfig, init_train_state
 
     family = FAMILIES[cfg.family]
+    if getattr(args, "q_lora", False):
+        from vlrlhf_torch.ops.quant import (
+            TRAIN_QUANT_PATTERNS, TRAIN_QUANT_PATTERNS_WIDE, quantize_params,
+        )
+
+        pats = TRAIN_QUANT_PATTERNS_WIDE if args.q_lora_vision else TRAIN_QUANT_PATTERNS
+        quantize_params(model, pats, bits=args.bits)
     lcfg = LoraConfig(r=args.lora_r, alpha=args.lora_alpha, dropout=args.lora_dropout,
                       target_patterns=LM_ALL_LINEARS)
     init_lora(model, lcfg, torch.Generator(device=model.device).manual_seed(args.seed))
@@ -341,6 +357,15 @@ def _add_dpo_parser(sub) -> None:
                         "skip the reference forward")
     p.add_argument("--logits_chunk", type=int, default=0,
                    help=">0: chunked lm_head + logp over S-chunks of this size")
+    p.add_argument("--q_lora", type=_bool, default=False,
+                   help="LoRA over a frozen quantized base: the LM's attention and MLP "
+                        "linears (lm_head stays bf16)")
+    p.add_argument("--bits", type=int, default=8, choices=[8, 4],
+                   help="--q_lora weight bits: 8 = int8 (W8A16), 4 = group-64 int4 (the "
+                        "W4A16 kernel forward, its transpose kernel for the activation "
+                        "gradients); in not a multiple of 128 falls back to int8")
+    p.add_argument("--q_lora_vision", type=_bool, default=False,
+                   help="with --q_lora: also quantize the frozen vision tower and projector")
     p.set_defaults(fn=cmd_dpo)
 
 
@@ -368,8 +393,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--top_p", type=float, default=None)
     p.add_argument("--quantize", type=str, default="false",
                    choices=["false", "true", "int8", "int4"],
-                   help="weights-only int8 (true/int8) of the LM's linears; int4 is not "
-                        "ported yet")
+                   help="weights-only int8 (true/int8) or group-64 int4 (the W4A16 kernel) "
+                        "of the LM's linears and lm_head; int4 takes linears whose in is a "
+                        "multiple of 128 and int8 the rest")
+    p.add_argument("--fuse_decode", type=lambda x: x.lower() == "true", default=False,
+                   help="fused wqkv / gateup serving weights: 4 weight products per layer "
+                        "instead of 7 (models/lm/fuse.py)")
     p.add_argument("--kv_cache_dtype", type=str, default="bf16", choices=["bf16", "int8"],
                    help="int8 halves the KV cache (per-vector scales in the kernels)")
     p.add_argument("--speculative_k", type=int, default=0,

@@ -27,8 +27,8 @@ from torch import nn
 # The JAX package's default LLaVA targets (vlrlhf_tpu/models/registry.py).
 LM_ALL_LINEARS = (r"lm/.*attn/(wq|wk|wv|wo)/", r"lm/.*mlp/(gate|up|down)/")
 
-_ATTN = ("wq", "wk", "wv", "wo")
-_MLP = ("gate", "up", "down", "fc1", "fc2")
+_ATTN = ("wq", "wk", "wv", "wo", "wqkv")  # wqkv, gateup: the fused serving layout
+_MLP = ("gate", "up", "down", "fc1", "fc2", "gateup")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vlrlhf_torch.lora.lora import lora_delta
+from vlrlhf_torch.ops.int4 import BLOCK, GROUP, half_padded, int4_apply, quantize_int4, scale_cols
 
 _MASK63 = (1 << 63) - 1
 
@@ -67,10 +68,16 @@ class Linear(nn.Module):
     `lora_a` (in, r) / `lora_b` (r, out) are None until lora.init_lora
     attaches an adapter; it applies when the call's Ctx has adapters on.
 
-    Quantized (`quantize_` or the bridge's int8 leaves), `weight` is None
-    and `weight_q` (out, in) int8 with `weight_scale` (out,) bf16 take its
-    place: y = (x @ weight_q.T) * weight_scale, the W8A16 path of
-    vlrlhf_tpu's `linear` (models/common.py:76-78)."""
+    Quantized (`quantize_` or the bridge's int8 / int4 leaves), `weight` is
+    None and one of two states takes its place:
+      - int8: `weight_q` (out, in) int8 with `weight_scale` (out,) bf16,
+        y = (x @ weight_q.T) * weight_scale, the W8A16 path of vlrlhf_tpu's
+        `linear` (models/common.py:76-78);
+      - int4: `weight_q4` (out, half_p) packed codes with `weight_scale4`
+        (out, S) bf16 group scales and, from an asymmetric GPTQ
+        checkpoint, `weight_gbias` (out, in/64); y = ops/int4.py
+        `int4_apply`, the W4A16 kernel on the card (vlrlhf_tpu's `linear`,
+        models/common.py:80-86)."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool, device, dtype):
         super().__init__()
@@ -79,12 +86,16 @@ class Linear(nn.Module):
         self.bias = empty_param((d_out,), device, dtype) if bias else None
         self.register_parameter("weight_q", None)
         self.register_parameter("weight_scale", None)
+        self.register_parameter("weight_q4", None)
+        self.register_parameter("weight_scale4", None)
+        self.register_parameter("weight_gbias", None)
         self.register_parameter("lora_a", None)
         self.register_parameter("lora_b", None)
 
     @property
     def device(self) -> torch.device:
-        return (self.weight if self.weight is not None else self.weight_q).device
+        held = next(t for t in (self.weight, self.weight_q, self.weight_q4) if t is not None)
+        return held.device
 
     def set_quantized_(self, q: torch.Tensor, scale: torch.Tensor) -> None:
         """Hold int8 codes (out, in) and bf16 scales (out,) instead of weight."""
@@ -95,15 +106,42 @@ class Linear(nn.Module):
         self.weight_q = nn.Parameter(q.to(torch.int8), requires_grad=False)
         self.weight_scale = nn.Parameter(scale.to(torch.bfloat16), requires_grad=False)
 
+    def set_quantized4_(self, packed: torch.Tensor, scale: torch.Tensor,
+                        gbias: Optional[torch.Tensor] = None) -> None:
+        """Hold int4 packed codes (out, half_p), bf16 group scales (out, S)
+        and an optional zero-point gbias (out, in/64) instead of weight."""
+        if self.d_in % BLOCK:
+            raise ValueError(f"int4 needs in % {BLOCK} == 0, got in={self.d_in}")
+        want = ((self.d_out, half_padded(self.d_in // 2)), (self.d_out, scale_cols(self.d_in)))
+        if (tuple(packed.shape), tuple(scale.shape)) != want or (
+                gbias is not None and tuple(gbias.shape) != (self.d_out, self.d_in // GROUP)):
+            raise ValueError(f"int4 weight {tuple(packed.shape)} / scale {tuple(scale.shape)} "
+                             f"does not fit ({self.d_out}, {self.d_in})")
+        self.weight = None
+        # contiguous: the kernels read them in place on every call
+        self.weight_q4 = nn.Parameter(packed.to(torch.int8).contiguous(), requires_grad=False)
+        self.weight_scale4 = nn.Parameter(scale.to(torch.bfloat16).contiguous(),
+                                          requires_grad=False)
+        self.weight_gbias = None if gbias is None else nn.Parameter(
+            gbias.to(torch.bfloat16).contiguous(), requires_grad=False)
+
     @torch.no_grad()
-    def quantize_(self) -> None:
-        """Replace weight by its int8 codes and scales (ops/quant.py)."""
+    def quantize_(self, bits: int = 8) -> None:
+        """Replace weight by its int8 codes and scales, or (bits=4) its int4
+        packed codes and group scales (ops/quant.py, ops/int4.py)."""
         from vlrlhf_torch.ops.quant import quantize_linear
 
-        self.set_quantized_(*quantize_linear(self.weight))
+        if bits == 4:
+            self.set_quantized4_(*quantize_int4(self.weight))
+        elif bits == 8:
+            self.set_quantized_(*quantize_linear(self.weight))
+        else:
+            raise ValueError(f"bits={bits}: expected 8 or 4")
 
     def forward(self, x: torch.Tensor, ctx: Optional[Ctx] = None) -> torch.Tensor:
-        if self.weight is None:
+        if self.weight_q4 is not None:
+            y = int4_apply(x, self.weight_q4, self.weight_scale4, self.weight_gbias)
+        elif self.weight is None:
             y = F.linear(x, self.weight_q.to(x.dtype)) * self.weight_scale.to(x.dtype)
         else:
             y = F.linear(x, self.weight.to(x.dtype))
@@ -162,7 +200,7 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
         owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
         if leaf in ("lora_a", "lora_b"):
             raise ValueError("init_random_ runs before lora.init_lora attaches adapters")
-        if leaf in ("weight_q", "weight_scale"):
+        if leaf in ("weight_q", "weight_scale", "weight_q4", "weight_scale4", "weight_gbias"):
             raise ValueError("init_random_ runs before quantization")
         if isinstance(owner, Linear) and leaf == "weight":
             p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)

@@ -39,6 +39,13 @@ from vlrlhf_torch.ops.quant import quantize_kv
 from vlrlhf_torch.ops.rope import apply_rope, rope_frequencies
 
 
+def _fused(lin: Linear, x: torch.Tensor) -> torch.Tensor:
+    """A fused serving linear's product; it carries no adapter (fuse.py)."""
+    if lin.lora_a is not None:
+        raise ValueError("a fused serving linear holds a LoRA adapter: not supported")
+    return lin(x)
+
+
 class LlamaLayer(nn.Module):
     def __init__(self, cfg: LMConfig, device):
         super().__init__()
@@ -54,6 +61,10 @@ class LlamaLayer(nn.Module):
         self.gate = Linear(h, ff, False, device, dt)
         self.up = Linear(h, ff, False, device, dt)
         self.down = Linear(ff, h, False, device, dt)
+        # the fused serving layout (models/lm/fuse.py) replaces wq/wk/wv by
+        # wqkv and gate/up by gateup
+        self.wqkv: Optional[Linear] = None
+        self.gateup: Optional[Linear] = None
         self.cfg = cfg
 
     def qkv(self, h: torch.Tensor, actx: Optional[Ctx] = None):
@@ -62,6 +73,12 @@ class LlamaLayer(nn.Module):
         b, s, _ = h.shape
         nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
         actx = actx or Ctx()
+        if self.wqkv is not None:
+            y = _fused(self.wqkv, h)
+            dq, dk = nh * hd, nkv * hd
+            return (y[..., :dq].reshape(b, s, nh, hd),
+                    y[..., dq:dq + dk].reshape(b, s, nkv, hd),
+                    y[..., dq + dk:].reshape(b, s, nkv, hd))
         return (
             self.wq(h, actx.sub("wq")).reshape(b, s, nh, hd),
             self.wk(h, actx.sub("wk")).reshape(b, s, nkv, hd),
@@ -70,7 +87,11 @@ class LlamaLayer(nn.Module):
 
     def mlp(self, x: torch.Tensor, mctx: Optional[Ctx] = None) -> torch.Tensor:
         mctx = mctx or Ctx()
-        gate, up = self.gate(x, mctx.sub("gate")), self.up(x, mctx.sub("up"))
+        if self.gateup is not None:
+            y = _fused(self.gateup, x)
+            gate, up = y[..., :self.cfg.intermediate_size], y[..., self.cfg.intermediate_size:]
+        else:
+            gate, up = self.gate(x, mctx.sub("gate")), self.up(x, mctx.sub("up"))
         return self.down(F.silu(gate) * up, mctx.sub("down"))
 
     def attn_out(self, x, cos, sin, pad_mask, lctx: Ctx) -> torch.Tensor:

@@ -1,18 +1,21 @@
-"""Weights-only int8 quantization and the int8 KV cache (counterpart of
-vlrlhf_tpu/ops/quant.py: DEFAULT_QUANT_PATTERNS, quantize_linear,
-quantize_params, dequantize_linear, quantize_kv).
+"""Weights-only quantization and the int8 KV cache (counterpart of
+vlrlhf_tpu/ops/quant.py: DEFAULT_QUANT_PATTERNS, TRAIN_QUANT_PATTERNS[_WIDE],
+quantize_linear, quantize_params, dequantize_linear, dequantize_params,
+quantize_kv).
 
-A quantized `models.common.Linear` holds `weight_q` (out, in) int8 and
+An int8 `models.common.Linear` holds `weight_q` (out, in) int8 and
 `weight_scale` (out,) bf16 in place of `weight`: symmetric per output
 channel, y = (x @ weight_q.T) * weight_scale (W8A16). The JAX package
 computes that product in plain XLA with no Pallas kernel, so the port's is
-a plain matmul too. Paths are the JAX layout's ("lm/layers/3/attn/wq/kernel"
-via lora.module_path), so the JAX patterns select the same linears.
+a plain matmul too. An int4 Linear (bits=4) holds group-64 packed codes and
+scales (ops/int4.py) and runs the W4A16 kernel on the card; a linear whose
+`in` is not a multiple of 128 falls back to int8, as in vlrlhf_tpu. Paths
+are the JAX layout's ("lm/layers/3/attn/wq/kernel" via lora.module_path),
+so the JAX patterns select the same linears.
 
 The int8 KV cache quantizes per vector over head_dim: codes (..., hd) int8
 and one bf16 scale per vector; the decode and chunk kernels fold the
-scales into the scores and the softmax weights. int4 (bits=4) belongs to a
-later slice and raises.
+scales into the scores and the softmax weights.
 """
 
 from __future__ import annotations
@@ -30,6 +33,14 @@ from vlrlhf_torch.lora.lora import module_path
 DEFAULT_QUANT_PATTERNS = (
     r"(^|/)lm/layers_scanned/(attn|mlp)/",
     r"(^|/)lm/lm_head$",
+)
+
+# QLoRA training keeps lm_head bf16 (DPO logps are logit-precision
+# sensitive); the wide set also quantizes the frozen tower and projector.
+TRAIN_QUANT_PATTERNS = (r"(^|/)lm/layers_scanned/(attn|mlp)/",)
+TRAIN_QUANT_PATTERNS_WIDE = TRAIN_QUANT_PATTERNS + (
+    r"(^|/)vision/layers_scanned/(attn|mlp)/",
+    r"(^|/)projector/",
 )
 
 
@@ -66,20 +77,47 @@ def quantize_params(
     bits: int = 8,
 ) -> list[str]:
     """Quantize, in place, every Linear whose JAX-layout path matches a
-    pattern; returns those paths. One linear at a time: the transient is
-    one f32 copy of one weight, never a second model."""
+    pattern; returns those paths. bits=4 takes int4 where in % 128 == 0 and
+    int8 elsewhere (vlrlhf_tpu/ops/quant.py:158-164). One linear at a time:
+    the transient is one f32 copy of one weight, never a second model."""
     from vlrlhf_torch.models.common import Linear
+    from vlrlhf_torch.ops.int4 import BLOCK
 
-    if bits != 8:
-        raise NotImplementedError(f"bits={bits}: int4 quantization is not ported yet")
+    if bits not in (8, 4):
+        raise ValueError(f"bits={bits}: expected 8 or 4")
     regs = [re.compile(p) for p in patterns]
     done = []
     for name, mod in model.named_modules():
         if isinstance(mod, Linear) and mod.weight is not None:
             path = linear_path(name)
             if any(r.search(path) for r in regs):
-                mod.quantize_()
+                mod.quantize_(bits=4 if bits == 4 and mod.d_in % BLOCK == 0 else 8)
                 done.append(path)
+    return done
+
+
+@torch.no_grad()
+def dequantize_params(model: nn.Module, dtype=torch.bfloat16) -> list[str]:
+    """Restore a dense `dtype` weight in every int8 or int4 Linear, in place
+    (the plain oracle, and the base a LoRA merge needs); returns the
+    paths."""
+    from vlrlhf_torch.models.common import Linear
+    from vlrlhf_torch.ops.int4 import GROUP, dequantize_int4
+
+    done = []
+    for name, mod in model.named_modules():
+        if not isinstance(mod, Linear) or mod.weight is not None:
+            continue
+        if mod.weight_q4 is not None:
+            w = dequantize_int4(mod.weight_q4, mod.weight_scale4, torch.float32)
+            if mod.weight_gbias is not None:
+                w = w + mod.weight_gbias.float().repeat_interleave(GROUP, dim=1)
+            mod.weight_q4 = mod.weight_scale4 = mod.weight_gbias = None
+        else:
+            w = dequantize_linear(mod.weight_q, mod.weight_scale, torch.float32)
+            mod.weight_q = mod.weight_scale = None
+        mod.weight = nn.Parameter(w.to(dtype), requires_grad=False)
+        done.append(linear_path(name))
     return done
 
 

@@ -6,6 +6,10 @@ per-module inits) and what the bridge does with them:
   - linear {"kernel" (in, out)[, "bias"]} -> Linear.weight (out, in): transposed
   - int8 linear {"kernel_q" (in, out) int8, "kernel_scale" (1, out) bf16}
     (ops/quant.py) -> Linear.weight_q (out, in) / weight_scale (out,)
+  - int4 linear {"kernel_q4" (half_p, out) int8, "kernel_scale" (S, out)
+    bf16[, "kernel_gbias" (in/64, out)]} (ops/int4.py, utils/gptq.py) ->
+    Linear.weight_q4 (out, half_p) / weight_scale4 (out, S) / weight_gbias
+    (out, in/64): the same packed bytes and scales, transposed
   - "layers_scanned": every leaf stacked on a leading layer axis -> one
     slice per nn.ModuleList entry
   - vision "patch_embed" HWIO kernel (p, p, 3, h) -> (h, p*p*3), flattened
@@ -14,8 +18,7 @@ per-module inits) and what the bridge does with them:
     tree, stacked on the layer axis under "layers_scanned") -> each Linear's
     lora_a / lora_b, f32; `lora_tree` is the way back, for the adapters or
     their gradients, so tests compare leaf by leaf
-The copy goes to each parameter's device and dtype. int4 base leaves
-belong to a later slice.
+The copy goes to each parameter's device and dtype.
 """
 
 from __future__ import annotations
@@ -41,12 +44,25 @@ def _copy(dst: torch.Tensor, src) -> None:
         dst.copy_(src.to(dtype=dst.dtype, device=dst.device))
 
 
+def _f32(a) -> torch.Tensor:
+    """A leaf (numpy float, or ml_dtypes bf16) as an f32 tensor, exactly."""
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
 def _linear(dst: Linear, p: Mapping[str, Any]) -> None:
-    if "kernel_q" in p:
+    if "kernel_q4" in p:
+        # W4A16: packed (half_p, out) codes and (S, out) group scales, the
+        # same bytes transposed to the port's (out, ...) convention
+        dev = dst.device
+        packed = torch.from_numpy(np.ascontiguousarray(np.asarray(p["kernel_q4"], np.int8).T))
+        scale = _f32(np.asarray(p["kernel_scale"]).T)
+        gbias = _f32(np.asarray(p["kernel_gbias"]).T).to(dev) if "kernel_gbias" in p else None
+        dst.set_quantized4_(packed.to(dev), scale.to(dev), gbias)
+    elif "kernel_q" in p:
         # W8A16: (in, out) int8 codes and (1, out) bf16 scales, transposed
         dev = dst.device
         q = torch.from_numpy(np.array(np.asarray(p["kernel_q"]).T, dtype=np.int8))
-        scale = torch.from_numpy(np.array(p["kernel_scale"], dtype=np.float32).reshape(-1))
+        scale = _f32(p["kernel_scale"]).reshape(-1)
         dst.set_quantized_(q.to(dev), scale.to(dev))
     else:
         if dst.weight is None:
