@@ -13,12 +13,16 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      same values; max abs error against 2e-2 (times max(1, max |ref|) for
      the backward) and relative Frobenius error against 1e-2, with the
      median |ref| printed; kernel, plain and yardstick times and each
-     kernel's bound max(FLOPs / 989.4e12, bytes / 3.35e12). Decode attention
+     kernel's bound max(FLOPs / 989.4e12, bytes / 3.35e12); the flash
+     forward and the int4 matmuls are timed alone (their C entry points on
+     preallocated outputs) and through their wrappers, and each wrapper's
+     host microseconds per call are printed. Decode attention
      on a bf16 and an int8 cache; chunk attention at the speculative verify
      shape (B=8, C=4) and a chat turn's (B=1, C=64), bf16 and int8 caches
      (SDPA with an explicit mask over the dequantized cache as yardstick);
-     the int4 matmul (kernel 6) at decode (T=8) and T=2048 and its
-     transpose (kernel 7) at T=2048, LLaVA-1.5-7B's 4096 -> 11008 and
+     the int4 matmul (kernel 6) at decode (T=8), verify (T=32), prefill
+     (T=1280) and T=2048 and its transpose (kernel 7) at T=2048,
+     LLaVA-1.5-7B's 4096 -> 11008 and
      11008 -> 4096, plus an edge shape (cuBLAS bf16 on the dequantized
      weight as yardstick)
   3. serving at full LLaVA-1.5-7B widths but 2 LM / 2 tower layers: the
@@ -173,6 +177,40 @@ def _flash_flops(b, s, h, d, causal: bool) -> float:
     return 4.0 * b * h * s * s * d * (0.5 if causal else 1.0)
 
 
+def flash_kernel_call(q, k, v, seg_q, seg_kv, causal: bool, scale: float):
+    """A closure that launches the flash kernel's C entry point on outputs
+    allocated once: the kernel's own time, without the wrapper's checks,
+    allocations and segment ids (host ~10 us; no launch is counted)."""
+    from vlrlhf_torch.ops import _build
+    from vlrlhf_torch.ops.flash_attention import _FWD_ARGS
+
+    b, sq, h, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    fn = _build.fn("flash_fwd", "flash_fwd_bf16", _FWD_ARGS)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(), seg_kv.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), b, h, k.shape[2], sq, k.shape[1], d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], scale, int(causal),
+            torch.cuda.current_stream().cuda_stream)
+    return lambda: _build.check(fn(*args), "flash_fwd_bf16")
+
+
+def int4_kernel_call(name: str, a, d_c: int, d_in: int, d_out: int):
+    """A closure (packed, scale) -> None launching int4 kernel `name`'s C
+    entry point on an output allocated once (no launch is counted)."""
+    from vlrlhf_torch.ops import _build
+    from vlrlhf_torch.ops.int4 import _ARGS
+
+    c = torch.empty((a.shape[0], d_c), dtype=torch.bfloat16, device=a.device)
+    fn = _build.fn("int4_matmul", name, _ARGS)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(packed, scale):
+        _build.check(fn(a.data_ptr(), packed.data_ptr(), scale.data_ptr(), c.data_ptr(),
+                        a.shape[0], d_in, d_out, packed.shape[1], scale.shape[1], stream), name)
+    return call
+
+
 def phase_kernels():
     import torch.nn.functional as F
 
@@ -212,7 +250,10 @@ def phase_kernels():
         ref, _ = flash_attention_plain(q.float(), k.float(), v.float(), seg_q, seg_kv,
                                        causal, d**-0.5)
         err, _, report = check_close(f"flash {label}", out[pad], ref[pad], TOL)  # valid rows
-        k_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, pad_mask_q=pad,
+        # the kernel alone (segment ids built once, outside the timing) and
+        # the wrapper as the model calls it (segment ids built per call)
+        k_ms = time_ms(flash_kernel_call(q, k, v, seg_q, seg_kv, causal, d**-0.5))
+        w_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, pad_mask_q=pad,
                                                pad_mask_kv=pad))
         p_ms = time_ms(lambda: flash_attention_plain(q, k, v, seg_q, seg_kv, causal,
                                                      d**-0.5), iters=5)
@@ -220,17 +261,20 @@ def phase_kernels():
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         l_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=h != hkv))
-        b_ms, b_by = bound(_flash_flops(b, s, h, d, causal), _flash_bytes(b, s, h, hkv, d, "fwd"))
+        flops = _flash_flops(b, s, h, d, causal)
+        b_ms, b_by = bound(flops, _flash_bytes(b, s, h, hkv, d, "fwd"))
         print(f"flash {label} B={b} S={s} H={h} Hkv={hkv} D={d}: {report}; "
-              f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms sdpa {l_ms:.4f} ms "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"kernel alone {k_ms:.4f} ms ({flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+              f"{k_ms / l_ms:.2f}x sdpa), wrapper {w_ms:.4f} ms "
+              f"({flops / (w_ms * 1e-3) / 1e12:.1f} TFLOP/s, {w_ms / l_ms:.2f}x sdpa), "
+              f"plain {p_ms:.4f} ms, sdpa {l_ms:.4f} ms "
+              f"({flops / (l_ms * 1e-3) / 1e12:.1f} TFLOP/s), bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
         errs.append(err)
-        times[label] = (k_ms, p_ms, l_ms, b_ms, b_by)
+        times[label] = {"ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                        "bound_ms": b_ms, "bound_by": b_by}
     main = times["dpo_lm_causal"]
-    results["flash_fwd"] = {
-        "max_abs_err": max(errs), "ms": main[0], "plain_ms": main[1], "library_ms": main[2],
-        "bound_ms": main[3], "bound_by": main[4], "cases": times,
-    }
+    results["flash_fwd"] = {"max_abs_err": max(errs), **main, "cases": times}
 
     # backward: the DPO path's LM case and a GQA case
     bwd_cases = [
@@ -367,17 +411,20 @@ def phase_kernels():
     torch.cuda.empty_cache()
     results["chunk_attention"] = chunk_kernel_checks(randn)
     results.update(int4_kernel_checks(gen))
+    wrapper_host_us()
     return results
 
 
 def int4_kernel_checks(gen) -> dict:
     """Kernels 6 and 7 (csrc/int4_matmul.cu) against their plain versions on
     the same bf16 operands, f32 plain: LLaVA-1.5-7B's gate/up (4096 ->
-    11008) and down (11008 -> 4096) at decode (T=8) and at the DPO step
-    (T=2048), and an edge shape (in 384: odd n_lo and a padded half; out
-    200; T=5). Operands are scaled so outputs have unit variance. Times:
-    kernel, plain, and cuBLAS bf16 on the weight dequantized once outside
-    the timing (library_ms), beside the bound. At decode the kernel's
+    11008) and down (11008 -> 4096) at decode (T=8), a verify chunk (T=32),
+    a B=2 prefill (T=1280; kernel 6 only) and the DPO step (T=2048), and
+    edge shapes (in 384: odd n_lo and a padded half; out 200; T=5 on the
+    cluster kernel, T=65 on the wgmma one). Operands are scaled so outputs
+    have unit variance. Times: the kernel alone (its C entry point on a
+    preallocated output) and through its wrapper, plain, and cuBLAS bf16 on the weight dequantized once
+    outside the timing (library_ms), beside the bound. At T <= 32 the
     weights rotate over 4 copies (96 MB, more than the 50 MB L2), as a step
     reads 225 distinct weights. The main entries are decode gate/up (kernel
     6, the serving path) and the DPO gate (kernel 7)."""
@@ -399,8 +446,10 @@ def int4_kernel_checks(gen) -> dict:
         return weights[(d_in, d_out)]
 
     fwd = [("decode_gate", 8, 4096, 11008), ("decode_down", 8, 11008, 4096),
+           ("verify_gate", 32, 4096, 11008), ("verify_down", 32, 11008, 4096),
+           ("prefill_gate", 1280, 4096, 11008), ("prefill_down", 1280, 11008, 4096),
            ("dpo_gate", 2048, 4096, 11008), ("dpo_down", 2048, 11008, 4096),
-           ("edge", 5, 384, 200)]
+           ("edge", 5, 384, 200), ("edge_wgmma", 65, 384, 200)]
     bwd = [("dpo_gate", 2048, 4096, 11008), ("dpo_down", 2048, 11008, 4096),
            ("edge", 5, 384, 200)]
     results = {}
@@ -415,12 +464,17 @@ def int4_kernel_checks(gen) -> dict:
             torch.cuda.synchronize()
             err, rel, report = check_close(f"{name} {label}", got, plain(a.float(), packed, scale),
                                            TOL)
-            if label.startswith("decode"):
+            # the kernel alone (its C entry point) and through its wrapper
+            alone = int4_kernel_call(name, a, d_out if name == "int4_matmul" else d_in, d_in,
+                                     d_out)
+            if label.startswith(("decode", "verify")):
                 copies = itertools.cycle([(packed, scale)] + [(packed.clone(), scale.clone())
                                                               for _ in range(3)])
-                k_ms = time_ms(lambda: kern(a, *next(copies)), iters=40)
+                k_ms = time_ms(lambda: alone(*next(copies)), iters=40)
+                w_ms = time_ms(lambda: kern(a, *next(copies)), iters=40)
             else:
-                k_ms = time_ms(lambda: kern(a, packed, scale), iters=10)
+                k_ms = time_ms(lambda: alone(packed, scale), iters=10)
+                w_ms = time_ms(lambda: kern(a, packed, scale), iters=10)
             p_ms = time_ms(lambda: plain(a, packed, scale), iters=3, warmup=1)
             if name == "int4_matmul":
                 l_ms = time_ms(lambda: a @ wdeq.T, iters=10)
@@ -429,14 +483,16 @@ def int4_kernel_checks(gen) -> dict:
             w_bytes = packed.numel() + 2 * scale.numel()
             nbytes = w_bytes + 2 * t * (d_in + d_out)
             b_ms, b_by = bound(2.0 * t * d_in * d_out, nbytes)
-            print(f"{name} {label} T={t} in={d_in} out={d_out}: {report}; kernel {k_ms:.4f} ms "
+            print(f"{name} {label} T={t} in={d_in} out={d_out}: {report}; kernel alone "
+                  f"{k_ms:.4f} ms ({k_ms / l_ms:.2f}x cublas), wrapper {w_ms:.4f} ms, "
                   f"plain {p_ms:.4f} ms cublas bf16 on the dequantized weight {l_ms:.4f} ms "
                   f"bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.3f} MB, "
                   f"{2.0 * t * d_in * d_out / 1e9:.3f} GFLOP); {nbytes / (k_ms * 1e-3) / 1e9:.1f} "
                   f"GB/s, {2.0 * t * d_in * d_out / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s", flush=True)
             errs.append(err)
-            by_case[label] = {"max_abs_err": err, "rel_err": rel, "ms": k_ms, "plain_ms": p_ms,
-                              "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by}
+            by_case[label] = {"max_abs_err": err, "rel_err": rel, "ms": k_ms, "wrapper_ms": w_ms,
+                              "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+                              "bound_by": b_by}
         main = by_case["decode_gate" if name == "int4_matmul" else "dpo_gate"]
         results[name] = {**{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                    "bound_by")},
@@ -444,6 +500,51 @@ def int4_kernel_checks(gen) -> dict:
     weights.clear()
     torch.cuda.empty_cache()
     return results
+
+
+def wrapper_host_us() -> dict:
+    """Host microseconds per wrapper call: 200 calls enqueued without a
+    synchronize on tiny shapes (the card never holds the host back), wall
+    clock over the count. Includes the Python checks, allocations and the
+    ctypes call; the kernels' prototypes are set once per library."""
+    from vlrlhf_torch.ops.chunk_attention import chunk_attention
+    from vlrlhf_torch.ops.decode_attention import decode_attention
+    from vlrlhf_torch.ops.flash_attention import _launch as flash_launch
+    from vlrlhf_torch.ops.flash_attention import flash_attention, make_segments
+    from vlrlhf_torch.ops.int4 import int4_matmul, quantize_int4
+
+    dev = torch.device("cuda")
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    q, k, v = (torch.randn((1, 64, 2, 64), **bf) for _ in range(3))
+    pad = torch.ones((1, 64), dtype=torch.bool, device=dev)
+    seg = make_segments(1, 64, dev, None, None, 0)
+    packed, scale = quantize_int4(torch.randn((256, 1024), device=dev))
+    x = torch.randn((8, 1024), **bf)
+    kc, vc = torch.randn((2, 1, 2, 64, 64), **bf), torch.randn((2, 1, 2, 64, 64), **bf)
+    qd, cur = torch.randn((1, 2, 64), **bf), torch.randn((1, 2, 64), **bf)
+    qc = torch.randn((1, 4, 2, 64), **bf)
+    lengths = torch.full((1,), 30, dtype=torch.int32, device=dev)
+    calls = {
+        "flash_fwd wrapper": lambda: flash_attention(q, k, v, causal=True, pad_mask_q=pad,
+                                                     pad_mask_kv=pad),
+        "flash_fwd _launch": lambda: flash_launch(q, k, v, seg, seg, True, 0.125),
+        "int4_matmul": lambda: int4_matmul(x, packed, scale),
+        "decode_attention": lambda: decode_attention(qd, kc, vc, cur, cur, lengths, layer=1),
+        "chunk_attention": lambda: chunk_attention(qc, kc, vc, lengths, layer=1),
+    }
+    out = {}
+    for name, fn in calls.items():
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        out[name] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+    print("wrapper host us per call (200 calls, no synchronize, tiny shapes): "
+          + json.dumps({n: round(us, 2) for n, us in out.items()}), flush=True)
+    return out
 
 
 def _chunk_work(lengths, c, nh, nkv, hd, sc, int8: bool) -> tuple[float, int]:
@@ -1201,7 +1302,8 @@ def profile_breakdown(fn, label: str) -> None:
     groups = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dkv": "flash_bwd_dkv_kernel",
               "flash_bwd_dq": "flash_bwd_dq_kernel", "decode": "decode_kernel",
               "chunk": "chunk_kernel", "int4_matmul_t": "int4_matmul_t_kernel",
-              "int4_matmul": "int4_matmul_kernel"}  # also matches int4_matmul_kernel_tiled
+              "int4_matmul": "int4_matmul_kernel",  # T <= 64
+              "int4_matmul_wgmma": "int4_matmul_wgmma_kernel"}
     by_group, by_name = {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()

@@ -68,27 +68,78 @@ def test_plain_lse_and_masked_rows():
     torch.testing.assert_close(lse[0, :, :12], ref[:, :12], atol=TOL, rtol=TOL)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("causal,b,s,h,hkv,d", [
-    (False, 2, 577, 16, 16, 64), (True, 2, 640, 32, 32, 128),
-    (True, 1, 200, 8, 2, 128), (True, 2, 40, 4, 4, 8),
-])
-def test_kernel_matches_plain_on_card(causal, b, s, h, hkv, d):
+def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    from vlrlhf_torch.ops.flash_attention import (
-        KV_PAD_SEG, Q_PAD_SEG, flash_attention_plain, make_segments,
-    )
+    return torch.device("cuda")
 
-    q, k, v = (torch.from_numpy(a).cuda().bfloat16() for a in _inputs(1, b, s, h, hkv, d))
-    lens = torch.tensor([s - 3 * i for i in range(b)], device="cuda")
-    pad = torch.arange(s, device="cuda")[None] < lens[:, None]
-    o, lse = tflash(q, k, v, causal=causal, pad_mask_q=pad, pad_mask_kv=pad, return_lse=True)
+
+def _card_check(q, k, v, causal, seg_q, seg_kv, rows, **kw):
+    """One kernel launch (counted) against the plain version on the same
+    bf16 values; `rows` (B, Sq) bool selects the rows compared."""
+    from vlrlhf_torch.ops.flash_attention import flash_attention_plain
+
+    before = tflash.launches
+    o, lse = tflash(q, k, v, causal=causal, return_lse=True, **kw)
     torch.cuda.synchronize()
-    seg_q = make_segments(b, s, q.device, None, pad, Q_PAD_SEG)
-    seg_kv = make_segments(b, s, q.device, None, pad, KV_PAD_SEG)
-    ro, rlse = flash_attention_plain(q.float(), k.float(), v.float(), seg_q, seg_kv, causal, d**-0.5)
-    for i in range(b):
-        n = int(lens[i])
-        torch.testing.assert_close(o[i, :n].float(), ro[i, :n], atol=2e-2, rtol=2e-2)
-        torch.testing.assert_close(lse[i, :, :n], rlse[i, :, :n], atol=2e-2, rtol=2e-2)
+    assert tflash.launches == before + 1
+    ro, rlse = flash_attention_plain(q.float(), k.float(), v.float(), seg_q, seg_kv, causal,
+                                     q.shape[-1]**-0.5)
+    torch.testing.assert_close(o[rows].float(), ro[rows], atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse.transpose(1, 2)[rows], rlse.transpose(1, 2)[rows],
+                               atol=2e-2, rtol=2e-2)
+    return o, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,b,s,h,hkv,d,lens", [
+    (False, 2, 577, 16, 16, 64, None), (True, 2, 640, 32, 32, 128, None),
+    (True, 1, 200, 8, 2, 128, None), (True, 2, 40, 4, 4, 8, None),
+    (True, 2, 1024, 32, 32, 128, (1000, 900)),  # the DPO step
+    (True, 2, 640, 32, 8, 128, (640, 601)),  # GQA 32 / 8
+    (True, 1, 65, 4, 4, 64, None), (False, 2, 129, 4, 2, 128, None),  # tile edges + 1
+    (True, 2, 577, 4, 4, 64, None), (False, 1, 577, 2, 2, 128, None),  # the ragged tower length
+    (True, 2, 200, 4, 2, 256, None), (False, 1, 129, 2, 2, 256, None),  # D = 256
+    (True, 1, 130, 2, 2, 72, None),  # D padded up to the next instantiated width
+])
+def test_kernel_matches_plain_on_card(causal, b, s, h, hkv, d, lens):
+    from vlrlhf_torch.ops.flash_attention import KV_PAD_SEG, Q_PAD_SEG, make_segments
+
+    dev = _card()
+    q, k, v = (torch.from_numpy(a).to(dev).bfloat16() for a in _inputs(1, b, s, h, hkv, d))
+    lens = torch.tensor(lens or [s - 3 * i for i in range(b)], device=dev)
+    pad = torch.arange(s, device=dev)[None] < lens[:, None]
+    seg_q = make_segments(b, s, dev, None, pad, Q_PAD_SEG)
+    seg_kv = make_segments(b, s, dev, None, pad, KV_PAD_SEG)
+    _card_check(q, k, v, causal, seg_q, seg_kv, pad, pad_mask_q=pad, pad_mask_kv=pad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_segments_inside_a_tile_on_card(causal):
+    """Packed sequences: several segments inside one key tile (explicit
+    segment ids, segment lengths 5-70), so no tile is uniform."""
+    dev = _card()
+    b, s, h, d = 2, 300, 4, 128
+    q, k, v = (torch.from_numpy(a).to(dev).bfloat16() for a in _inputs(2, b, s, h, h, d))
+    rng = np.random.default_rng(3)
+    seg = np.repeat(np.arange(60), rng.integers(5, 71, 60))[: b * s].reshape(b, s)
+    seg = torch.from_numpy(seg).to(dev, torch.int32)
+    rows = torch.ones((b, s), dtype=torch.bool, device=dev)
+    _card_check(q, k, v, causal, seg, seg, rows, segment_ids_q=seg, segment_ids_kv=seg)
+
+
+@pytest.mark.cuda
+def test_kernel_fully_masked_rows_on_card():
+    """A query row that matches no key gives O = 0 and LSE = -inf (the
+    backward kernels read the LSE); the other rows match the plain version."""
+    dev = _card()
+    b, s, h, d = 1, 150, 2, 64
+    q, k, v = (torch.from_numpy(a).to(dev).bfloat16() for a in _inputs(4, b, s, h, h, d))
+    seg_q = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    seg_q[0, 100:] = 7  # no key carries segment 7
+    seg_kv = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    rows = seg_q == 0
+    o, lse = _card_check(q, k, v, True, seg_q, seg_kv, rows, segment_ids_q=seg_q,
+                         segment_ids_kv=seg_kv)
+    assert torch.all(o[0, 100:] == 0) and torch.all(torch.isneginf(lse[0, :, 100:]))

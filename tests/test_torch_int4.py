@@ -328,12 +328,16 @@ CARD_CASES = [  # T, in, out
     (1, 128, 40),
     (37, 640, 200),
     (300, 256, 136),
-    (100, 384, 200),  # the tiled forward (T > 64) with an odd n_lo and ragged T, out
+    (100, 384, 200),  # the wgmma forward (T > 64) with an odd n_lo and ragged T, out
     (8, 4096, 11008),  # LLaVA-1.5-7B gate/up at decode
     (8, 11008, 4096),  # down at decode (n_lo = 43, no padding)
     (32, 4096, 12288),  # fused wqkv at a verify chunk
     (2048, 4096, 11008),  # the QLoRA step
     (2048, 11008, 4096),
+    (65, 384, 200),  # the first T on the wgmma path, odd n_lo, ragged out
+    (129, 640, 136),  # T > 128, odd n_lo, ragged out
+    (32, 11008, 4096),  # down at a verify chunk: the cluster split of the contraction
+    (16, 4224, 40),  # a cluster of 8 whose last CTA has no block
 ]
 
 
@@ -374,6 +378,25 @@ def test_kernels_match_plain_on_card(t, d_in, d_out):
     _assert_card_close(y, t4.int4_matmul_plain(x.float(), packed, scale), f"y {t}x{d_in}x{d_out}")
     _assert_card_close(dx, t4.int4_matmul_t_plain(dy.float(), packed, scale),
                        f"dx {t}x{d_in}x{d_out}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [8, 32, 200])
+def test_weights_bit_exact_on_card(t):
+    """x (dy) holds rows of the identity, so y (dx) is a set of the weight's
+    columns (rows): the kernels' weights must equal bf16(q * s) bit for bit,
+    both halves of the packing (forward at T = 8 and 32: the cluster kernel;
+    T = 200: the wgmma one)."""
+    packed, scale, _, _ = _card_operands(t, 640, 136, seed=2)
+    w = t4.dequantize_int4(packed, scale)  # (out, in)
+    idx = torch.arange(t, device="cuda") * (640 // t)
+    rows = torch.arange(t, device="cuda") % 136
+    before = (t4.int4_matmul.launches, t4.int4_matmul_t.launches)
+    y = t4.int4_matmul(torch.eye(640, device="cuda", dtype=torch.bfloat16)[idx], packed, scale)
+    dx = t4.int4_matmul_t(torch.eye(136, device="cuda", dtype=torch.bfloat16)[rows], packed, scale)
+    torch.cuda.synchronize()
+    assert (t4.int4_matmul.launches, t4.int4_matmul_t.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(y, w[:, idx].T) and torch.equal(dx, w[rows])
 
 
 @pytest.mark.cuda

@@ -11,18 +11,30 @@
 // kernel masks its ragged S edge itself, so S=577 is not padded to 640; a
 // fully masked row gives output 0 and LSE -inf.
 //
-// What bounds it on the H100: at the serving path's shapes (S ~ 600, D 64 or
-// 128) attention is compute-bound — ~S*D flops per loaded byte of K/V — so
-// the tensor cores must stay fed. FlashAttention-2 structure on mma.sync:
-// one CTA per (64 query rows, head, batch row), 4 warps each owning 16
-// query rows end to end. Q fragments, the S = QK^T accumulators, the
-// probabilities (reused in registers as the A operand of PV) and the O
-// accumulator all stay in registers; softmax statistics reduce across the
-// 4 lanes of a quad, so no block barrier sits between QK^T, softmax and
-// PV. K/V tiles (64 keys) stream through shared memory with cp.async, two
-// stages deep so the next tile loads while this one computes; rows are
-// padded by 16 bytes so ldmatrix reads are bank-conflict free. wgmma with
-// TMA loads and warp specialisation are the next PRs' work.
+// What bounds it on the H100: at the path's shapes (S 577-1024, D 64 or 128)
+// attention is bound by the tensor cores (~S*D flops per byte of K/V), so
+// the design keeps them fed (FlashAttention-3's structure, simplified):
+// - one CTA per (128 query rows, head, batch row), three warpgroups. Warp 0
+//   of the first is the producer: TMA loads Q once and K/V tiles of BN keys
+//   into a ring of ST stages (full / empty mbarriers; the K and V halves of
+//   a stage have their own full barriers), and writes each tile's key
+//   segment ids and their min / max to shared memory. setmaxnreg moves its
+//   registers to the two consumer warpgroups of 64 query rows each;
+// - a consumer computes S = Q K^T with wgmma from 128-byte-swizzled shared
+//   memory (both K-major), runs the online softmax in f32 registers, packs
+//   P to bf16 in registers as the A operand of O += P V (V read MN-major
+//   through its descriptor: no transpose copy). The P V product of tile i
+//   is in flight while the S of tile i+1 is computed and softmaxed, and the
+//   two consumers take turns to issue their GEMMs, so one's softmax runs
+//   under the other's tensor-core work;
+// - masks apply only where a tile needs them: the causal diagonal, the
+//   ragged S edge (its missing keys carry segment INT_MIN) and tiles whose
+//   key segments are not one value equal to the row's. Interior tiles skip
+//   the per-element mask;
+// - causal row blocks launch heaviest first (the query-block index is
+//   reversed and is the grid's slowest dimension).
+// Head dims are instantiated at 64, 128 and 256; a smaller D reads zeros
+// from TMA past D (the box is 64 columns wide) and writes its D columns.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
@@ -30,64 +42,49 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
+
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BM = 64;         // query rows per CTA
-constexpr int BN = 64;         // keys per tile
-constexpr int NTHREADS = 128;  // 4 warps x 16 query rows
+using namespace hopper;
+
+constexpr int BM = 128;           // query rows per CTA
+constexpr int NTHREADS = 384;     // producer warpgroup + two consumer warpgroups
 constexpr int MAX_D = 256;
 constexpr int Q_PAD_SEG = -3;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
   const int* seg_q;   // (B, Sq)
   const int* seg_kv;  // (B, Skv)
   __nv_bfloat16* o;   // (B, Sq, H, D) contiguous
   float* lse;         // (B, H, Sq)
-  int B, H, Hkv, Sq, Skv, D;
-  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
-  float scale;
+  int B, H, Hkv, Sq, Skv, D, n_mblocks;
+  float scale_log2;   // softmax scale * log2(e): the softmax runs in base 2
   int causal;
 };
 
-__device__ inline uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// Shared-memory plan (byte offsets from a 1024-aligned base). Each operand
+// tile is DP/64 blocks of rows x 128 bytes in the 128-byte swizzle.
+template <int DP, int BN, int ST>
+struct Plan {
+  static constexpr int CH = DP / 64;
+  static constexpr int Q_BYTES = CH * BM * 128;
+  static constexpr int KV_BYTES = CH * BN * 128;  // one K or V tile
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + ST * KV_BYTES;
+  static constexpr int SEG_OFF = V_OFF + ST * KV_BYTES;     // int [ST][BN]
+  static constexpr int RANGE_OFF = SEG_OFF + ST * BN * 4;   // int2 [ST]: min, max
+  static constexpr int BAR_OFF = RANGE_OFF + ST * 8;        // q, full_k[ST], full_v[ST], empty[ST]
+  static constexpr int ALLOC = BAR_OFF + (1 + 3 * ST) * 8 + 1024;  // + alignment slack
+};
 
-__device__ inline void cp_async16(void* dst, const void* src, bool valid) {
-  // src-size 0 zero-fills the 16 destination bytes without reading src
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ inline void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ inline void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ inline void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p)));
-}
-__device__ inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// D (16x8 f32) += A (16x16 bf16, row) * B (16x8 bf16, col)
-__device__ inline void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ inline float fast_exp2(float x) {  // ex2.approx: 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ inline uint32_t pack_bf16(float lo, float hi) {
@@ -95,175 +92,249 @@ __device__ inline uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Copy rows [r0, r0+64) x [0, DP) of one head into a padded shared tile
-// (row stride DP + 8) as 16-byte cp.async chunks; rows past `rows` and
-// columns past D are zero-filled.
-template <int DP>
-__device__ inline void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                       long long row_stride, int r0, int rows, int D) {
-  constexpr int CPR = DP / 8;  // chunks per row
-  for (int c = threadIdx.x; c < 64 * CPR; c += NTHREADS) {
-    const int r = c / CPR;
-    const int d = (c % CPR) * 8;
-    const bool ok = (r0 + r < rows) && (d < D);
-    const __nv_bfloat16* src = ok ? base + (long long)(r0 + r) * row_stride + d : base;
-    cp_async16(dst + r * (DP + 8) + d, src, ok);
-  }
-}
+template <int DP, int BN, int ST>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  using L = Plan<DP, BN, ST>;
+  constexpr int CH = L::CH;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = smem;
+  unsigned char* sK = smem + L::K_OFF;
+  unsigned char* sV = smem + L::V_OFF;
+  int* sSeg = reinterpret_cast<int*>(smem + L::SEG_OFF);
+  int2* sRange = reinterpret_cast<int2*>(smem + L::RANGE_OFF);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + ST;
+  uint64_t* empty = full_v + ST;
 
-template <int DP>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Params p) {
-  constexpr int LD = DP + 8;     // padded row stride (elements)
-  constexpr int KSTEPS = DP / 16;  // mma k-steps over the head dim
-  constexpr int DTILES = DP / 8;   // 8-wide output column tiles
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + BM * LD;        // 2 stages
-  __nv_bfloat16* sV = sK + 2 * BN * LD;    // 2 stages
-  int* sSeg = reinterpret_cast<int*>(sV + 2 * BN * LD);  // 2 stages x BN
-
-  const int m0 = blockIdx.x * BM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int m0 = (p.causal ? p.n_mblocks - 1 - (int)blockIdx.z : (int)blockIdx.z) * BM;
   const int hk = h / (p.H / p.Hkv);
-  const int warp = threadIdx.x / 32;
+  const int n_end = p.causal ? min(p.Skv, m0 + BM) : p.Skv;
+  const int n_tiles = (n_end + BN - 1) / BN;
+  // warp-uniform as far as the compiler can see (a divergent-looking branch
+  // around wgmma makes ptxas serialize it)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full_k[s], 33);  // TMA bytes + the producer warp's 32 lanes (segment ids)
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], 8);    // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---------------- producer ----------------
+    setmaxnreg_dec<40>();
+    if (threadIdx.x >= 32) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_q, L::Q_BYTES);
+      for (int c = 0; c < CH; ++c) tma_load_4d(sQ + c * BM * 128, &tm_q, bar_q, c * 64, h, m0, b);
+    }
+    const int* segkv = p.seg_kv + (long long)b * p.Skv;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % ST;
+      mbar_wait(&empty[st], ((it / ST) & 1) ^ 1);
+      const int n0 = it * BN;
+      if (lane == 0) {  // the tiles first, so the segment loads below overlap them
+        mbar_arrive_expect_tx(&full_k[st], L::KV_BYTES);
+        for (int c = 0; c < CH; ++c)
+          tma_load_4d(sK + st * L::KV_BYTES + c * BN * 128, &tm_k, &full_k[st], c * 64, hk, n0, b);
+        mbar_arrive_expect_tx(&full_v[st], L::KV_BYTES);
+        for (int c = 0; c < CH; ++c)
+          tma_load_4d(sV + st * L::KV_BYTES + c * BN * 128, &tm_v, &full_v[st], c * 64, hk, n0, b);
+      }
+      int lo = INT_MAX, hi = INT_MIN;
+      for (int j = lane; j < BN; j += 32) {
+        const int s = n0 + j < p.Skv ? segkv[n0 + j] : INT_MIN;  // the ragged edge never matches
+        sSeg[st * BN + j] = s;
+        lo = min(lo, s);
+        hi = max(hi, s);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2) {
+        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+      }
+      if (lane == 0) sRange[st] = make_int2(lo, hi);
+      mbar_arrive(&full_k[st]);  // each lane releases its own segment-id stores
+    }
+    return;
+  }
+
+  // ---------------- consumers ----------------
+  setmaxnreg_inc<232>();
+  const int warp = (threadIdx.x % 128) / 32;
   const int g = lane / 4;   // row within the warp's 8-row half
   const int tq = lane % 4;  // lane within the quad
-
-  const __nv_bfloat16* qbase = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kbase = p.k + b * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* vbase = p.v + b * p.v_sb + hk * p.v_sh;
-  const int* segkv = p.seg_kv + (long long)b * p.Skv;
-
-  // this thread's two query rows: warp*16 + g and warp*16 + g + 8
+  const int r0 = m0 + (wg - 1) * 64;  // this warpgroup's first query row
   int qrow[2], segq[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    qrow[i] = m0 + warp * 16 + g + 8 * i;
+    qrow[i] = r0 + warp * 16 + g + 8 * i;
     segq[i] = qrow[i] < p.Sq ? p.seg_q[(long long)b * p.Sq + qrow[i]] : Q_PAD_SEG;
   }
 
-  const int n_end = p.causal ? min(p.Skv, m0 + BM) : p.Skv;
-  const int n_tiles = (n_end + BN - 1) / BN;
-
-  auto load_kv = [&](int tile, int stage) {
-    const int n0 = tile * BN;
-    load_tile_async<DP>(sK + stage * BN * LD, kbase, p.k_ss, n0, p.Skv, p.D);
-    load_tile_async<DP>(sV + stage * BN * LD, vbase, p.v_ss, n0, p.Skv, p.D);
-    for (int j = threadIdx.x; j < BN; j += NTHREADS) {
-      sSeg[stage * BN + j] = (n0 + j < p.Skv) ? segkv[n0 + j] : INT32_MIN;
-    }
-  };
-
-  load_tile_async<DP>(sQ, qbase, p.q_ss, m0, p.Sq, p.D);
-  if (n_tiles > 0) load_kv(0, 0);
-  cp_async_commit();
-
-  uint32_t qf[KSTEPS][4];
-  float o[DTILES][4];
+  float o[DP / 2];
 #pragma unroll
-  for (int t = 0; t < DTILES; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float s[BN / 2];
+  uint32_t pa[BN / 16][4];  // P of the tile whose P V product is in flight
   float m_i[2] = {-INFINITY, -INFINITY};
   float l_i[2] = {0.f, 0.f};  // per-thread partial row sums (quad-reduced at the end)
+  const uint64_t dq = desc_sw128(sQ + (wg - 1) * 64 * 128, 16, 1024);
+  mbar_wait(bar_q, 0);
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int stage = it & 1;
-    if (it + 1 < n_tiles) {
-      load_kv(it + 1, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (it == 0) {
+  auto issue_pv = [&](int st) {
+    const uint64_t dv = desc_sw128(sV + st * L::KV_BYTES, BN * 128, 1024);
 #pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        ldmatrix_x4(qf[ks], sQ + (warp * 16 + (lane % 16)) * LD + ks * 16 + (lane / 16) * 8);
-      }
+    for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_tb<DP>(o, pa[kk], dv + ((kk * 2048) >> 4), 1);
+    wgmma_commit();
+  };
+  auto release = [&](int st) {  // this warp is done with stage st
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  };
+  // The two consumer warpgroups take turns to issue their GEMMs (named
+  // barriers 1 and 2), so one's softmax runs under the other's GEMMs. Both
+  // walk all n_tiles tiles (the first one's tiles past its diagonal are
+  // masked), so the turns pair up; the second warpgroup gives the first its
+  // first turn and skips passing its last.
+  auto wait_turn = [&]() {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(wg) : "memory");
+  };
+  auto pass_turn = [&](int it) {
+    if (wg == 1 || it + 1 < n_tiles) {
+      asm volatile("bar.arrive %0, 256;\n" ::"r"(3 - wg) : "memory");
     }
-    const __nv_bfloat16* cK = sK + stage * BN * LD;
-    const __nv_bfloat16* cV = sV + stage * BN * LD;
-    const int* cSeg = sSeg + stage * BN;
-    const int n0 = it * BN;
+  };
+  if (wg == 2 && n_tiles > 0) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
 
-    // S = Q K^T: 8 key tiles of 8
-    float s[BN / 8][4];
+  auto issue_s = [&](int st) {  // S = Q K^T over the head dim, one commit group
+    const uint64_t dk = desc_sw128(sK + st * L::KV_BYTES, 16, 1024);
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        uint32_t kb[2];
-        ldmatrix_x2(kb, cK + (j * 8 + (lane % 8)) * LD + ks * 16 + ((lane / 8) % 2) * 8);
-        mma16816(s[j], qf[ks], kb[0], kb[1]);
-      }
+    for (int ks = 0; ks < DP / 16; ++ks) {
+      const int off = (ks / 4) * (BM * 128) + (ks % 4) * 32;
+      const int koff = (ks / 4) * (BN * 128) + (ks % 4) * 32;
+      wgmma_ss<BN>(s, dq + (off >> 4), dk + (koff >> 4), ks > 0);
     }
-
-    // mask, online softmax (rows g and g+8 of this warp; quad-wide max)
+    wgmma_commit();
+  };
+  // scale (base 2), mask where the tile needs it, online softmax: s becomes
+  // P (f32), m_i / l_i move on, alpha rescales O
+  auto softmax = [&](int st, int n0, float (&alpha)[2]) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) fence_operand(s[i]);
+    const int2 rg = sRange[st];
+    const bool uniform = rg.x == rg.y && rg.x == segq[0] && rg.x == segq[1];
+    const bool below = !p.causal || n0 + BN - 1 <= qrow[0];
     float mx[2] = {m_i[0], m_i[1]};
+    if (__all_sync(0xffffffffu, uniform && below)) {  // decided per warp
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
+      for (int i = 0; i < BN / 2; ++i) {
+        s[i] *= p.scale_log2;
+        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+      }
+    } else {
+      const int* seg = sSeg + st * BN;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e / 2;
-        const int cl = j * 8 + tq * 2 + (e % 2);
-        const int col = n0 + cl;
-        const bool ok = col < p.Skv && (!p.causal || col <= qrow[r]) && cSeg[cl] == segq[r];
-        const float v = ok ? s[j][e] * p.scale : -INFINITY;
-        s[j][e] = v;
-        mx[r] = fmaxf(mx[r], v);
+      for (int j = 0; j < BN / 8; ++j) {
+        const int cl = j * 8 + tq * 2;
+        const int sk[2] = {seg[cl], seg[cl + 1]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e / 2;
+          const int col = n0 + cl + (e % 2);
+          const bool ok = (!p.causal || col <= qrow[r]) && sk[e % 2] == segq[r];
+          const float v = ok ? s[4 * j + e] * p.scale_log2 : -INFINITY;
+          s[4 * j + e] = v;
+          mx[r] = fmaxf(mx[r], v);
+        }
       }
     }
-    float alpha[2];
+    float mref[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = (m_i[r] == -INFINITY) ? 0.f : __expf(m_i[r] - mx[r]);
+      alpha[r] = m_i[r] == -INFINITY ? 0.f : fast_exp2(m_i[r] - mx[r]);
       m_i[r] = mx[r];
+      mref[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // a fully masked row so far: every p is 0
       l_i[r] *= alpha[r];
     }
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e / 2;
-        const float pv = (s[j][e] == -INFINITY) ? 0.f : __expf(s[j][e] - m_i[r]);
-        s[j][e] = pv;
-        l_i[r] += pv;
-      }
+    for (int i = 0; i < BN / 2; ++i) {
+      const int r = (i / 2) % 2;
+      s[i] = fast_exp2(s[i] - mref[r]);
+      l_i[r] += s[i];
     }
-#pragma unroll
-    for (int t = 0; t < DTILES; ++t) {
-      o[t][0] *= alpha[0];
-      o[t][1] *= alpha[0];
-      o[t][2] *= alpha[1];
-      o[t][3] *= alpha[1];
-    }
-
-    // O += P V: P's accumulators become the A operand in registers
+  };
+  auto pack_p = [&]() {  // P in bf16 as wgmma's register A fragments (mma.sync's A layout)
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int t = 0; t < DTILES; t += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, cV + (kk * 16 + (lane % 16)) * LD + t * 8 + (lane / 16) * 8);
-        mma16816(o[t], pa, vb[0], vb[1]);
-        mma16816(o[t + 1], pa, vb[2], vb[3]);
-      }
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
     }
-    __syncthreads();  // every warp is done with this stage before it is refilled
+  };
+
+  // straight-line loop bodies, so ptxas can follow the two commit groups
+  float alpha[2];
+  if (n_tiles > 0) {  // tile 0: O is still zero
+    mbar_wait(&full_k[0], 0);
+    wait_turn();
+    wgmma_fence();
+    issue_s(0);
+    pass_turn(0);
+    wgmma_wait<0>();
+    softmax(0, 0, alpha);
+    pack_p();
   }
-
-  cp_async_wait<0>();  // nothing may stay in flight at exit (Skv == 0)
-
+  for (int it = 1; it < n_tiles; ++it) {
+    const int st = it % ST;
+    const int pst = (it - 1) % ST;  // the previous tile's stage
+    mbar_wait(&full_k[st], (it / ST) & 1);
+    mbar_wait(&full_v[pst], ((it - 1) / ST) & 1);
+    wait_turn();
+    wgmma_fence();
+    issue_s(st);
+    issue_pv(pst);    // the previous tile's P V runs while this S is softmaxed
+    pass_turn(it);
+    wgmma_wait<1>();  // S is ready
+    softmax(st, it * BN, alpha);
+    wgmma_wait<0>();  // the previous P V is done: O and its P registers are free
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) fence_operand(o[i]);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) fence_operand(pa[kk][e]);
+    release(pst);
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+    pack_p();
+  }
+  if (n_tiles > 0) {  // the last tile's P V
+    const int st = (n_tiles - 1) % ST;
+    mbar_wait(&full_v[st], ((n_tiles - 1) / ST) & 1);
+    wgmma_fence();
+    issue_pv(st);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) fence_operand(o[i]);
+    release(st);
+  }
   // finalize: quad-reduce the row sums, normalize, write O and the LSE
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -276,34 +347,50 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Params p) {
     const float inv = l_i[r] > 0.f ? 1.f / l_i[r] : 0.f;
     __nv_bfloat16* out = p.o + (((long long)b * p.Sq + qrow[r]) * p.H + h) * p.D;
 #pragma unroll
-    for (int t = 0; t < DTILES; ++t) {
+    for (int t = 0; t < DP / 8; ++t) {
       const int d = t * 8 + tq * 2;
       if (d < p.D) {
         *reinterpret_cast<__nv_bfloat162*>(out + d) =
-            __floats2bfloat162_rn(o[t][2 * r] * inv, o[t][2 * r + 1] * inv);
+            __floats2bfloat162_rn(o[4 * t + 2 * r] * inv, o[4 * t + 2 * r + 1] * inv);
       }
     }
     if (tq == 0) {
       p.lse[((long long)b * p.H + h) * p.Sq + qrow[r]] =
-          l_i[r] > 0.f ? m_i[r] + logf(l_i[r]) : -INFINITY;
+          l_i[r] > 0.f ? (m_i[r] + log2f(l_i[r])) / LOG2E : -INFINITY;
     }
   }
 }
 
-template <int DP>
-int launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = (size_t)(BM + 4 * BN) * (DP + 8) * sizeof(__nv_bfloat16) +
-                      2 * BN * sizeof(int);
+// A 4D map over one (B, S, H, D) operand, dims innermost first (D, H, S, B),
+// box 64 columns x `rows` positions of one head and batch row.
+int make_map(CUtensorMap* map, const void* base, int D, int H, int S, int B, long long sb,
+             long long ss, long long sh, int rows) {
+  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)max(S, 1), (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)sh * 2, (uint64_t)ss * 2, (uint64_t)sb * 2};
+  const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
+  return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int DP, int BN, int ST>
+int launch(const void* q, const void* k, const void* v, Params p, const long long* st,
+           cudaStream_t stream) {
+  constexpr int smem = Plan<DP, BN, ST>::ALLOC;
   static bool configured = false;  // per instantiation
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<DP, BN, ST>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  dim3 grid((p.Sq + BM - 1) / BM, p.H, p.B);
-  flash_fwd_kernel<DP><<<grid, NTHREADS, smem, stream>>>(p);
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, q, p.D, p.H, p.Sq, p.B, st[0], st[1], st[2], BM);
+  if (!err) err = make_map(&tk, k, p.D, p.Hkv, p.Skv, p.B, st[3], st[4], st[5], BN);
+  if (!err) err = make_map(&tv, v, p.D, p.Hkv, p.Skv, p.B, st[6], st[7], st[8], BN);
+  if (err) return err;
+  p.n_mblocks = (p.Sq + BM - 1) / BM;
+  dim3 grid(p.H, p.B, p.n_mblocks);
+  flash_fwd_kernel<DP, BN, ST><<<grid, NTHREADS, smem, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
@@ -318,25 +405,19 @@ extern "C" int flash_fwd_bf16(
   if (D <= 0 || D % 8 != 0 || D > MAX_D || Hkv <= 0 || H % Hkv != 0) {
     return (int)cudaErrorInvalidValue;
   }
+  if ((long long)B * H * Sq == 0) return 0;
   Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
   p.seg_q = seg_q;
   p.seg_kv = seg_kv;
   p.o = static_cast<__nv_bfloat16*>(o);
   p.lse = lse;
   p.B = B; p.H = H; p.Hkv = Hkv; p.Sq = Sq; p.Skv = Skv; p.D = D;
-  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
-  p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
-  p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
-  p.scale = scale;
+  p.scale_log2 = scale * LOG2E;
   p.causal = causal;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // head dims pad up to the next supported tile width with zero columns
-  if (D <= 16) return launch<16>(p, st);
-  if (D <= 32) return launch<32>(p, st);
-  if (D <= 64) return launch<64>(p, st);
-  if (D <= 128) return launch<128>(p, st);
-  return launch<256>(p, st);
+  const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // head dims pad up to the next instantiated width with zero columns
+  if (D <= 64) return launch<64, 128, 4>(q, k, v, p, st, s);
+  if (D <= 128) return launch<128, 128, 2>(q, k, v, p, st, s);
+  return launch<256, 64, 2>(q, k, v, p, st, s);
 }

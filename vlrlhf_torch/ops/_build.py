@@ -31,6 +31,7 @@ NVCC_FLAGS = [
 _locks_guard = threading.Lock()
 _locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], object] = {}  # (name, symbol) -> prototyped C function
 build_seconds: dict[str, float] = {}  # name -> nvcc wall seconds (0 = cached)
 ptxas_info: dict[str, str] = {}  # name -> nvcc's register/smem report
 
@@ -81,6 +82,17 @@ def load(name: str) -> ctypes.CDLL:
             ptxas_info[name] = proc.stderr.strip()
         _libs[name] = ctypes.CDLL(str(out))
         return _libs[name]
+
+
+def fn(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """The C function `symbol` of csrc/<name>.cu with its ctypes prototype
+    set once per library, so a launch pays a dict lookup, not the set-up."""
+    f = _fns.get((name, symbol))
+    if f is None:
+        f = getattr(load(name), symbol)
+        f.argtypes, f.restype = list(argtypes), restype
+        _fns[(name, symbol)] = f
+    return f
 
 
 def build_all(names) -> None:

@@ -30,6 +30,9 @@ import torch
 from vlrlhf_torch.ops import _build
 from vlrlhf_torch.ops.decode_attention import check_cache, check_operand
 
+_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 10
+         + [ctypes.c_float, ctypes.c_void_p])  # the C prototype of chunk_attention
+
 
 def chunk_attention_plain(
     q: torch.Tensor,  # (B, C, nh, hd)
@@ -78,13 +81,7 @@ def _launch(q, k_cache, v_cache, lengths, scale, layer, k_scale, v_scale):
     ss = k_scale.stride()[-3:] if quantized else (0, 0, 1)
     layer_offset = layer * k_cache.stride(0) if stacked else 0
     s_layer_offset = layer * k_scale.stride(0) if stacked and quantized else 0
-    fn = _build.load("chunk_attention").chunk_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 10
-        + [ctypes.c_float, ctypes.c_void_p]
-    )
-    err = fn(
+    err = _build.fn("chunk_attention", "chunk_attention", _ARGS)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
         lengths.data_ptr(), o.data_ptr(),

@@ -29,6 +29,9 @@ import torch
 
 from vlrlhf_torch.ops import _build
 
+_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 11
+         + [ctypes.c_float, ctypes.c_void_p])  # the C prototype of decode_attention
+
 
 def decode_attention_plain(
     q: torch.Tensor,  # (B, nh, hd)
@@ -116,13 +119,7 @@ def _launch(q, k_cache, v_cache, k_cur, v_cur, lengths, scale, layer, k_scale, v
     ss = k_scale.stride()[-3:] if quantized else (0, 0, 1)
     layer_offset = layer * k_cache.stride(0) if stacked else 0
     s_layer_offset = layer * k_scale.stride(0) if stacked and quantized else 0
-    fn = _build.load("decode_attention").decode_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 11
-        + [ctypes.c_float, ctypes.c_void_p]
-    )
-    err = fn(
+    err = _build.fn("decode_attention", "decode_attention", _ARGS)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
         k_cur.data_ptr(), v_cur.data_ptr(), lengths.data_ptr(), o.data_ptr(),

@@ -42,13 +42,14 @@ def make_segments(
     pad_mask: Optional[torch.Tensor],
     pad_value: int,
 ) -> torch.Tensor:
-    seg = (
-        segment_ids.to(torch.int32)
-        if segment_ids is not None
-        else torch.zeros((b, s), dtype=torch.int32, device=device)
-    )
+    if segment_ids is None:
+        if pad_mask is None:
+            return torch.zeros((b, s), dtype=torch.int32, device=device)
+        # valid -> 0, pad -> pad_value: two in-place passes over a fresh copy
+        return pad_mask.to(torch.int32, copy=True).sub_(1).mul_(-pad_value).contiguous()
+    seg = segment_ids.to(torch.int32)
     if pad_mask is not None:
-        seg = torch.where(pad_mask.bool(), seg, torch.full_like(seg, pad_value))
+        seg = torch.where(pad_mask.bool(), seg, pad_value).to(torch.int32)
     return seg.contiguous()
 
 
@@ -81,6 +82,13 @@ def flash_attention_plain(
     return o.transpose(1, 2).to(q.dtype), lse
 
 
+# the C prototypes of flash_fwd_bf16 and the two backward entry points
+_FWD_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_BWD_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
 def _check_inputs(q, k, v):
     b, sq, h, d = q.shape
     hkv = k.shape[2]
@@ -109,14 +117,7 @@ def _launch(q, k, v, seg_q, seg_kv, causal, scale):
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b * sq * h == 0:
         return o, lse
-    lib = _build.load("flash_fwd")
-    fn = lib.flash_fwd_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    )
-    err = fn(
+    err = _build.fn("flash_fwd", "flash_fwd_bf16", _FWD_ARGS)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(),
         seg_kv.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, h, hkv, sq, skv, d,
@@ -175,20 +176,10 @@ def flash_attention_bwd_plain(
     return dq.transpose(1, 2), group_sum(dk), group_sum(dv)
 
 
-def _bwd_fn(name: str):
-    fn = getattr(_build.load("flash_bwd"), name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    )
-    return fn
-
-
 def _bwd_launch(name, q, k, v, do, lse, di, seg_q, seg_kv, dq, dk, dv, causal, scale):
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    err = _bwd_fn(name)(
+    err = _build.fn("flash_bwd", name, _BWD_ARGS)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         di.data_ptr(), seg_q.data_ptr(), seg_kv.data_ptr(),
         dq.data_ptr() if dq is not None else None,

@@ -148,16 +148,16 @@ def _check_weight(packed: torch.Tensor, scale: torch.Tensor, device) -> tuple[in
     return d_in, d_out, half_p
 
 
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]  # both C prototypes
+
+
 def _launch(name: str, a2d, packed, scale, d_c: int, d_in: int, d_out: int, half_p: int):
     t = a2d.shape[0]
     c = torch.empty((t, d_c), dtype=torch.bfloat16, device=a2d.device)
     if t == 0:
         return c
     a2d, packed, scale = _aligned(a2d.to(torch.bfloat16)), _aligned(packed), _aligned(scale)
-    fn = getattr(_build.load("int4_matmul"), name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    err = fn(a2d.data_ptr(), packed.data_ptr(), scale.data_ptr(), c.data_ptr(),
+    err = _build.fn("int4_matmul", name, _ARGS)(a2d.data_ptr(), packed.data_ptr(), scale.data_ptr(), c.data_ptr(),
              t, d_in, d_out, half_p, scale.shape[1],
              torch.cuda.current_stream(a2d.device).cuda_stream)
     _build.check(err, name)
