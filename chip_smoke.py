@@ -22,9 +22,9 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      (SDPA with an explicit mask over the dequantized cache as yardstick);
      the int4 matmul (kernel 6) at decode (T=8), verify (T=32), prefill
      (T=1280) and T=2048 and its transpose (kernel 7) at T=2048,
-     LLaVA-1.5-7B's 4096 -> 11008 and
-     11008 -> 4096, plus an edge shape (cuBLAS bf16 on the dequantized
-     weight as yardstick)
+     LLaVA-1.5-7B's 4096 -> 11008 and 11008 -> 4096 (and, for kernel 7,
+     the attention projections' 4096 -> 4096), plus edge shapes (cuBLAS
+     bf16 on the dequantized weight as yardstick)
   3. serving at full LLaVA-1.5-7B widths but 2 LM / 2 tower layers: the
      same seeded weights on the card (bf16, kernels) and on the CPU (f32,
      plain path), one image prefill + 8 greedy tokens; logit error and
@@ -419,9 +419,11 @@ def int4_kernel_checks(gen) -> dict:
     """Kernels 6 and 7 (csrc/int4_matmul.cu) against their plain versions on
     the same bf16 operands, f32 plain: LLaVA-1.5-7B's gate/up (4096 ->
     11008) and down (11008 -> 4096) at decode (T=8), a verify chunk (T=32),
-    a B=2 prefill (T=1280; kernel 6 only) and the DPO step (T=2048), and
-    edge shapes (in 384: odd n_lo and a padded half; out 200; T=5 on the
-    cluster kernel, T=65 on the wgmma one). Operands are scaled so outputs
+    a B=2 prefill (T=1280; kernel 6 only) and the DPO step (T=2048; for
+    kernel 7 also the attention projections, 4096 -> 4096, 125 of its 221
+    launches a QLoRA step), and edge shapes (in 384: odd n_lo and a padded
+    half; out 200; T=5 on the cluster kernel and the dx kernel's smallest
+    tile, T=65 and 129 on the wgmma ones). Operands are scaled so outputs
     have unit variance. Times: the kernel alone (its C entry point on a
     preallocated output) and through its wrapper, plain, and cuBLAS bf16 on the weight dequantized once
     outside the timing (library_ms), beside the bound. At T <= 32 the
@@ -451,7 +453,7 @@ def int4_kernel_checks(gen) -> dict:
            ("dpo_gate", 2048, 4096, 11008), ("dpo_down", 2048, 11008, 4096),
            ("edge", 5, 384, 200), ("edge_wgmma", 65, 384, 200)]
     bwd = [("dpo_gate", 2048, 4096, 11008), ("dpo_down", 2048, 11008, 4096),
-           ("edge", 5, 384, 200)]
+           ("dpo_attn", 2048, 4096, 4096), ("edge", 5, 384, 200), ("edge_wgmma", 129, 384, 200)]
     results = {}
     for name, cases, kern, plain in (("int4_matmul", fwd, int4_matmul, int4_matmul_plain),
                                      ("int4_matmul_t", bwd, int4_matmul_t, int4_matmul_t_plain)):
@@ -1299,9 +1301,9 @@ def profile_breakdown(fn, label: str) -> None:
     if not kernels:
         print(f"profile {label}: the profiler saw no device time", flush=True)
         return
-    groups = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+    groups = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dkv": "flash_bwd_dkv_",  # both designs
               "flash_bwd_dq": "flash_bwd_dq_kernel", "decode": "decode_kernel",
-              "chunk": "chunk_kernel", "int4_matmul_t": "int4_matmul_t_kernel",
+              "chunk": "chunk_kernel", "int4_matmul_t": "int4_matmul_t_",  # both designs
               "int4_matmul": "int4_matmul_kernel",  # T <= 64
               "int4_matmul_wgmma": "int4_matmul_wgmma_kernel"}
     by_group, by_name = {}, {}

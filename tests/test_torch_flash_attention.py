@@ -143,3 +143,24 @@ def test_kernel_fully_masked_rows_on_card():
     o, lse = _card_check(q, k, v, True, seg_q, seg_kv, rows, segment_ids_q=seg_q,
                          segment_ids_kv=seg_kv)
     assert torch.all(o[0, 100:] == 0) and torch.all(torch.isneginf(lse[0, :, 100:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,sq,skv,d", [
+    (False, 100, 300, 128), (True, 300, 100, 128),  # more keys / more queries than the other
+    (True, 129, 577, 64), (False, 577, 65, 64),  # ragged tiles on both sides
+])
+def test_kernel_non_square_on_card(causal, sq, skv, d):
+    """Sq != Skv, which the kernel's contract keeps legal (causality by
+    absolute index, key <= query) though no caller sends it today: every
+    query row sees key 0, so all rows are compared."""
+    dev = _card()
+    rng = np.random.default_rng(sq + skv)
+    b, h, hkv = 2, 4, 2
+    q = torch.from_numpy(rng.standard_normal((b, sq, h, d)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((b, skv, hkv, d)).astype(np.float32))
+            for _ in range(2))
+    q, k, v = (t.to(dev).bfloat16() for t in (q, k, v))
+    seg_q = torch.zeros((b, sq), dtype=torch.int32, device=dev)
+    seg_kv = torch.zeros((b, skv), dtype=torch.int32, device=dev)
+    _card_check(q, k, v, causal, seg_q, seg_kv, torch.ones((b, sq), dtype=torch.bool, device=dev))

@@ -124,7 +124,13 @@ def test_fully_masked_rows_give_zero_and_finite_grads():
     (True, 2, 640, 32, 8, 128, (640, 601)),  # GQA
     (False, 1, 200, 4, 4, 64, (200,)),
     (True, 2, 40, 4, 2, 8, (40, 33)),  # the synthetic head_dim, ragged tiles
-    (True, 1, 130, 4, 2, 256, (130,)),  # the widest head_dim the kernels take
+    (True, 1, 130, 4, 2, 256, (130,)),  # the widest head_dim: the mma.sync dK/dV kernel, by shape
+    (True, 1, 65, 4, 4, 64, None),  # one key and one query past a tile
+    (False, 2, 129, 4, 2, 128, (129, 100)),
+    (True, 2, 577, 4, 4, 64, (577, 500)),  # the tower's ragged length
+    (False, 1, 577, 2, 2, 128, None),
+    (True, 2, 129, 32, 8, 128, (129, 77)),  # GQA 32 / 8 at ragged tiles
+    (False, 1, 130, 2, 2, 72, None),  # D read through TMA's zero fill up to 128
 ])
 def test_kernels_match_plain_on_card(causal, b, s, h, hkv, d, lens):
     """bf16 kernels vs the plain backward in f32 on the same bf16 values,
@@ -143,8 +149,12 @@ def test_kernels_match_plain_on_card(causal, b, s, h, hkv, d, lens):
     seg_kv = make_segments(b, s, q.device, None, padt, KV_PAD_SEG)
     o, lse = flash_attention(q, k, v, causal=causal, pad_mask_q=padt, pad_mask_kv=padt,
                              return_lse=True)
+    from vlrlhf_torch.ops.flash_attention import flash_bwd_dkv, flash_bwd_dq
+
+    before = (flash_bwd_dkv.launches, flash_bwd_dq.launches)
     got = flash_attention_bwd(q, k, v, o, lse, do, seg_q, seg_kv, causal, d**-0.5)
     torch.cuda.synchronize()
+    assert (flash_bwd_dkv.launches, flash_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
     di = (o.float() * do.float()).sum(-1).transpose(1, 2)
     want = flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(), lse, di,
                                      seg_q, seg_kv, causal, d**-0.5)
@@ -155,3 +165,68 @@ def test_kernels_match_plain_on_card(causal, b, s, h, hkv, d, lens):
         tol = 2e-2 * max(1.0, float(ref.abs().max()))
         rel = float((g.float() - ref).norm() / ref.norm())
         assert err <= tol and rel <= 1e-2, (name, err, tol, rel)
+
+
+def _card_dkv(q, k, v, w, seg_q, seg_kv, causal, rows):
+    """The dK/dV kernel (one counted launch) vs the plain backward in f32 on
+    the same bf16 values, at the bounds above; dO is `w` on `rows` and 0
+    elsewhere. The LSE comes from the forward kernel."""
+    from vlrlhf_torch.ops.flash_attention import flash_bwd_dkv
+
+    scale = q.shape[-1] ** -0.5
+    o, lse = flash_attention(q, k, v, causal=causal, segment_ids_q=seg_q,
+                             segment_ids_kv=seg_kv, return_lse=True)
+    do = torch.where(rows[..., None, None], w, 0.0).bfloat16().contiguous()
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    before = flash_bwd_dkv.launches
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, di, seg_q, seg_kv, causal, scale)
+    torch.cuda.synchronize()
+    assert flash_bwd_dkv.launches == before + 1
+    _, rk, rv = flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(), lse, di,
+                                          seg_q, seg_kv, causal, scale)
+    for g, ref, name in ((dk, rk, "dk"), (dv, rv, "dv")):
+        assert torch.isfinite(g.float()).all(), name
+        err = float((g.float() - ref).abs().max())
+        tol = 2e-2 * max(1.0, float(ref.abs().max()))
+        rel = float((g.float() - ref).norm() / ref.norm())
+        assert err <= tol and rel <= 1e-2, (name, err, tol, rel)
+    return dk, dv
+
+
+def _card_tensors(seed, b, s, h, hkv, d):
+    """bf16 q, k, v and the f32 upstream weights on the card."""
+    q, k, v, w, _, _ = _inputs(seed, b, s, h, hkv, d, None, False)
+    return [torch.from_numpy(a).cuda().bfloat16() for a in (q, k, v)] + [torch.from_numpy(w).cuda()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_dkv_kernel_segments_inside_a_tile_on_card(causal):
+    """Packed sequences: several segments inside one key tile (lengths
+    5-70), so no tile is uniform and every one takes the masked path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    b, s, h, d = 2, 300, 4, 128
+    q, k, v, w = _card_tensors(8, b, s, h, h, d)
+    rng = np.random.default_rng(9)
+    seg = np.repeat(np.arange(60), rng.integers(5, 71, 60))[: b * s].reshape(b, s)
+    seg = torch.from_numpy(seg).cuda().to(torch.int32)
+    _card_dkv(q, k, v, w, seg, seg, causal, torch.ones((b, s), dtype=torch.bool, device="cuda"))
+
+
+@pytest.mark.cuda
+def test_dkv_kernel_fully_masked_rows_on_card():
+    """Query rows that match no key (LSE -inf) with a nonzero upstream
+    gradient: they contribute nothing, and dK / dV stay finite; keys no
+    query sees get exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    b, s, h, d = 1, 150, 2, 128
+    q, k, v, w = _card_tensors(10, b, s, h, h, d)
+    seg_q = torch.zeros((b, s), dtype=torch.int32, device="cuda")
+    seg_q[0, 100:] = 7  # no key carries segment 7
+    seg_kv = torch.zeros((b, s), dtype=torch.int32, device="cuda")
+    seg_kv[0, 140:] = 5  # and no query carries segment 5
+    dk, dv = _card_dkv(q, k, v, w, seg_q, seg_kv, True,
+                       torch.ones((b, s), dtype=torch.bool, device="cuda"))
+    assert torch.all(dk[0, 140:] == 0) and torch.all(dv[0, 140:] == 0)

@@ -338,6 +338,9 @@ CARD_CASES = [  # T, in, out
     (129, 640, 136),  # T > 128, odd n_lo, ragged out
     (32, 11008, 4096),  # down at a verify chunk: the cluster split of the contraction
     (16, 4224, 40),  # a cluster of 8 whose last CTA has no block
+    (129, 384, 200),  # dx: ragged row tiles, a ragged last chunk of `out` (200 = 3 x 64 + 8)
+    (300, 384, 200),
+    (2048, 4096, 4096),  # the QLoRA step's attention projections wq, wk, wv, wo
 ]
 
 
@@ -424,3 +427,4 @@ def test_cuda_refuses_what_the_kernel_does_not_take():
         t4.int4_matmul(x[:, :64], packed, scale)
     with pytest.raises(ValueError, match="out % 8"):
         t4.int4_matmul_t(dy[:, :36], packed[:36], scale[:36])
+

@@ -20,12 +20,18 @@
 //
 // What bounds it on the H100: 2.5x the forward's matmul work (QK^T and dO V^T
 // recomputed, then P^T dO, dS^T Q and dS K) over the same bytes, so it is
-// compute-bound at S ~ 1000, D = 128. FlashAttention-2 structure on
-// mma.sync m16n8k16, 4 warps a CTA, every warp owning 16 rows end to end:
-//   dK/dV: a CTA owns 64 keys of one KV head; each warp computes S^T and
-//     dP^T for its 16 keys against a 32-query tile, turns them into P^T and
-//     dS^T in registers and feeds them straight back as the A operand of
-//     dV += P^T dO and dK += dS^T Q. dK and dV accumulate in f32 registers
+// compute-bound at S ~ 1000, D = 128.
+//   dK/dV (D <= 128): flash_bwd_dkv_wgmma_kernel, the forward's Hopper
+//     machinery (hopper.cuh): TMA, an mbarrier ring, a producer warp and two
+//     consumer warpgroups running wgmma, 128 keys a CTA (details at the
+//     kernel). D = 256 does not fit its dK and dV accumulators in registers
+//     and dispatches by shape to flash_bwd_dkv_kernel below.
+//   FlashAttention-2 structure on mma.sync m16n8k16, 4 warps a CTA, every
+//   warp owning 16 rows end to end:
+//   dK/dV at D = 256: a CTA owns 64 keys of one KV head; each warp computes
+//     S^T and dP^T for its 16 keys against a 32-query tile, turns them into
+//     P^T and dS^T in registers and feeds them straight back as the A operand
+//     of dV += P^T dO and dK += dS^T Q. dK and dV accumulate in f32 registers
 //     across every query tile of every head in the GQA group. Q, dO (and
 //     their LSE, di, segment ids) stream through a 2-stage cp.async ring;
 //     causal skipping starts at the first query tile that reaches the KV
@@ -34,15 +40,19 @@
 //     its 16 queries against a 64-key tile, dS in registers, dQ += dS K.
 //     K/V stream through a 2-stage ring; causal skipping stops at the
 //     diagonal.
-// Operand fragments are re-read from shared memory with ldmatrix (padded
-// rows, conflict-free) instead of held in registers, which keeps the f32
-// accumulators in registers at D = 128. wgmma and TMA are later work.
+// The mma.sync kernels re-read operand fragments from shared memory with
+// ldmatrix (padded rows, conflict-free) instead of holding them in
+// registers, which keeps the f32 accumulators in registers at D = 128.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <climits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -325,6 +335,305 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(Params p) {
   }
 }
 
+// ─────────────────────── dK / dV on wgmma (D <= 128) ───────────────────────
+//
+// One CTA per (128 keys, KV head, batch row), three warpgroups. Warp 0 of the
+// first is the producer: it TMA-loads the CTA's K and V tiles once, then
+// streams 64-query tiles of Q and dO (every query tile of every head in the
+// GQA group) through a ring of ST stages, and beside each tile writes its
+// base-2 LSE, di and query segment ids, and their min / max, to shared
+// memory. setmaxnreg hands its registers to the two consumer warpgroups,
+// which own 64 keys each. Per query tile a consumer computes
+//   S^T = K Q^T and dP^T = V dO^T   (wgmma, both operands K-major along D,
+//                                    two commit groups: P^T is built while
+//                                    dP^T is still in flight),
+//   P^T = exp2(S^T scale log2(e) - lse2[query]) under the mask and
+//   dS^T = P^T (dP^T - di[query])   (f32 registers; the per-query values
+//                                    index the accumulator's columns),
+//   dV += P^T dO and dK += dS^T Q   (wgmma with P^T / dS^T packed to bf16 as
+//                                    the register A operand, dO and Q read
+//                                    MN-major, as the forward reads V).
+// dK and dV stay in f32 registers (64 + 64 at D = 128) across every tile;
+// dK takes the softmax scale once at the end. A row past Sq or fully masked
+// (LSE -inf) carries lse2 = +inf, so its p is 0 before any product. Masks
+// apply only to tiles that straddle the diagonal, the ragged edge or a
+// segment boundary (decided per warp from the tile's segment range). Causal
+// work starts at the first query tile that reaches the key block, and the
+// key-block index is the grid's slowest dimension, heaviest first. No
+// atomics: deterministic.
+
+constexpr int WBN = 128;       // keys per CTA: 64 per consumer warpgroup
+constexpr int WBM = 64;        // queries per streamed tile
+constexpr int WTHREADS = 384;  // producer warpgroup + two consumer warpgroups
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared-memory plan (byte offsets from a 1024-aligned base). Each operand
+// tile is DP/64 blocks of rows x 128 bytes in the 128-byte swizzle.
+template <int DP, int ST>
+struct DkvPlan {
+  static constexpr int CH = DP / 64;
+  static constexpr int KV_BYTES = CH * WBN * 128;  // K or V
+  static constexpr int QT_BYTES = CH * WBM * 128;  // one Q or dO tile
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + ST * QT_BYTES;
+  static constexpr int ROW_OFF = DO_OFF + ST * QT_BYTES;  // f32 lse2, di, int seg: [ST][WBM] each
+  static constexpr int RANGE_OFF = ROW_OFF + 3 * ST * WBM * 4;  // int2 [ST]: min, max
+  static constexpr int BAR_OFF = RANGE_OFF + ST * 8;            // kv, full[ST], empty[ST]
+  static constexpr int ALLOC = BAR_OFF + (1 + 2 * ST) * 8 + 1024;  // + alignment slack
+};
+
+__device__ inline float fast_exp2(float x) {  // ex2.approx: 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int DP, int ST>
+__global__ void __launch_bounds__(WTHREADS, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_do, const Params p) {
+  using namespace hopper;
+  using L = DkvPlan<DP, ST>;
+  constexpr int CH = L::CH;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sK = smem;
+  unsigned char* sV = smem + L::V_OFF;
+  unsigned char* sQ = smem + L::Q_OFF;
+  unsigned char* sdO = smem + L::DO_OFF;
+  float* sLse = reinterpret_cast<float*>(smem + L::ROW_OFF);
+  float* sDi = sLse + ST * WBM;
+  int* sSeg = reinterpret_cast<int*>(sDi + ST * WBM);
+  int2* sRange = reinterpret_cast<int2*>(smem + L::RANGE_OFF);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + ST;
+
+  const int hk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int n0 = blockIdx.z * WBN;
+  const int G = p.H / p.Hkv;
+  // the first query tile that can see this key block (WBM divides WBN)
+  const int m_start = p.causal ? n0 : 0;
+  const int nq = m_start < p.Sq ? (p.Sq - m_start + WBM - 1) / WBM : 0;
+  const int n_iters = G * nq;
+  // warp-uniform as far as the compiler can see (a divergent-looking branch
+  // around wgmma makes ptxas serialize it)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 33);  // TMA bytes + the producer warp's 32 lanes (row values)
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---------------- producer ----------------
+    setmaxnreg_dec<24>();
+    if (threadIdx.x >= 32 || n_iters == 0) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_kv, 2 * L::KV_BYTES);
+      for (int c = 0; c < CH; ++c) {
+        tma_load_4d(sK + c * WBN * 128, &tm_k, bar_kv, c * 64, hk, n0, b);
+        tma_load_4d(sV + c * WBN * 128, &tm_v, bar_kv, c * 64, hk, n0, b);
+      }
+    }
+    for (int it = 0; it < n_iters; ++it) {
+      const int st = it % ST;
+      const int h = hk * G + it / nq;
+      const int m0 = m_start + (it % nq) * WBM;
+      mbar_wait(&empty[st], ((it / ST) & 1) ^ 1);
+      if (lane == 0) {  // the tiles first, so the row loads below overlap them
+        mbar_arrive_expect_tx(&full[st], 2 * L::QT_BYTES);
+        for (int c = 0; c < CH; ++c) {
+          tma_load_4d(sQ + st * L::QT_BYTES + c * WBM * 128, &tm_q, &full[st], c * 64, h, m0, b);
+          tma_load_4d(sdO + st * L::QT_BYTES + c * WBM * 128, &tm_do, &full[st], c * 64, h, m0,
+                      b);
+        }
+      }
+      const long long row = ((long long)b * p.H + h) * p.Sq;
+      int lo = INT_MAX, hi = INT_MIN;
+      for (int j = lane; j < WBM; j += 32) {
+        const int qi = m0 + j;
+        const bool ok = qi < p.Sq;
+        const float l = ok ? p.lse[row + qi] : -INFINITY;
+        sLse[st * WBM + j] = l == -INFINITY ? INFINITY : l * LOG2E;  // p = 2^(x - inf) = 0
+        sDi[st * WBM + j] = ok ? p.di[row + qi] : 0.f;
+        const int s = ok ? p.seg_q[(long long)b * p.Sq + qi] : Q_PAD_SEG;
+        sSeg[st * WBM + j] = s;
+        lo = min(lo, s);
+        hi = max(hi, s);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2) {
+        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+      }
+      if (lane == 0) sRange[st] = make_int2(lo, hi);
+      mbar_arrive(&full[st]);  // each lane releases its own row-value stores
+    }
+    return;
+  }
+
+  // ---------------- consumers: 64 keys each ----------------
+  setmaxnreg_inc<240>();
+  const int cw = wg - 1;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int g = lane / 4;   // row within the warp's 8-row half
+  const int tq = lane % 4;  // lane within the quad
+  int krow[2], segk[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    krow[i] = n0 + cw * 64 + warp * 16 + g + 8 * i;
+    // a key past Skv never matches (TMA's zero rows would give p = 2^-lse2)
+    segk[i] = krow[i] < p.Skv ? p.seg_kv[(long long)b * p.Skv + krow[i]] : INT_MIN;
+  }
+  const float scale_log2 = p.scale * LOG2E;
+
+  float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+  float s[WBM / 2], dp[WBM / 2];
+  uint32_t pa[WBM / 16][4], da[WBM / 16][4];
+  const uint64_t dk_a = desc_sw128(sK + cw * 64 * 128, 16, 1024);
+  const uint64_t dv_a = desc_sw128(sV + cw * 64 * 128, 16, 1024);
+  if (n_iters > 0) mbar_wait(bar_kv, 0);
+
+  for (int it = 0; it < n_iters; ++it) {
+    const int st = it % ST;
+    const int m0 = m_start + (it % nq) * WBM;
+    unsigned char* cQ = sQ + st * L::QT_BYTES;
+    unsigned char* cdO = sdO + st * L::QT_BYTES;
+    mbar_wait(&full[st], (it / ST) & 1);
+    // S^T = K Q^T, then dP^T = V dO^T: two commit groups
+    const uint64_t dq_b = desc_sw128(cQ, 16, 1024);
+    const uint64_t ddo_b = desc_sw128(cdO, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) {
+      const int aoff = (ks / 4) * (WBN * 128) + (ks % 4) * 32;
+      const int boff = (ks / 4) * (WBM * 128) + (ks % 4) * 32;
+      wgmma_ss<WBM>(s, dk_a + (aoff >> 4), dq_b + (boff >> 4), ks > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) {
+      const int aoff = (ks / 4) * (WBN * 128) + (ks % 4) * 32;
+      const int boff = (ks / 4) * (WBM * 128) + (ks % 4) * 32;
+      wgmma_ss<WBM>(dp, dv_a + (aoff >> 4), ddo_b + (boff >> 4), ks > 0);
+    }
+    wgmma_commit();
+
+    wgmma_wait<1>();  // S^T is ready; dP^T is still in flight
+#pragma unroll
+    for (int i = 0; i < WBM / 2; ++i) fence_operand(s[i]);
+    const float* lse2 = sLse + st * WBM;
+    const float* dis = sDi + st * WBM;
+    const int2 rg = sRange[st];
+    const bool uniform = rg.x == rg.y && rg.x == segk[0] && rg.x == segk[1];
+    const bool below = !p.causal || krow[1] <= m0;  // every key of the thread <= every query
+    if (__all_sync(0xffffffffu, uniform && below)) {  // decided per warp
+#pragma unroll
+      for (int j = 0; j < WBM / 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(lse2 + j * 8 + tq * 2);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[4 * j + e] = fast_exp2(s[4 * j + e] * scale_log2 - (e % 2 ? l.y : l.x));
+        }
+      }
+    } else {
+      const int* seg = sSeg + st * WBM;
+#pragma unroll
+      for (int j = 0; j < WBM / 8; ++j) {
+        const int cl = j * 8 + tq * 2;
+        const float2 l = *reinterpret_cast<const float2*>(lse2 + cl);
+        const int sq[2] = {seg[cl], seg[cl + 1]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e / 2;
+          const bool ok = (!p.causal || krow[r] <= m0 + cl + (e % 2)) && sq[e % 2] == segk[r];
+          s[4 * j + e] =
+              ok ? fast_exp2(s[4 * j + e] * scale_log2 - (e % 2 ? l.y : l.x)) : 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < WBM / 16; ++kk) {  // P^T as wgmma's register A fragments
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    wgmma_wait<0>();  // dP^T is ready
+#pragma unroll
+    for (int i = 0; i < WBM / 2; ++i) fence_operand(dp[i]);
+#pragma unroll
+    for (int j = 0; j < WBM / 8; ++j) {
+      const float2 d = *reinterpret_cast<const float2*>(dis + j * 8 + tq * 2);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - (e % 2 ? d.y : d.x));
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < WBM / 16; ++kk) {
+      da[kk][0] = pack_bf16(dp[8 * kk + 0], dp[8 * kk + 1]);
+      da[kk][1] = pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]);
+      da[kk][2] = pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]);
+      da[kk][3] = pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7]);
+    }
+
+    // dV += P^T dO, dK += dS^T Q: dO and Q MN-major (queries are rows)
+    const uint64_t bdo = desc_sw128(cdO, WBM * 128, 1024);
+    const uint64_t bq = desc_sw128(cQ, WBM * 128, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WBM / 16; ++kk) wgmma_rs_tb<DP>(dv, pa[kk], bdo + ((kk * 2048) >> 4), 1);
+#pragma unroll
+    for (int kk = 0; kk < WBM / 16; ++kk) wgmma_rs_tb<DP>(dk, da[kk], bq + ((kk * 2048) >> 4), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) {
+      fence_operand(dk[i]);
+      fence_operand(dv[i]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < WBM / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        fence_operand(pa[kk][e]);
+        fence_operand(da[kk][e]);
+      }
+    __syncwarp();  // this warp is done with stage st
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (krow[r] >= p.Skv) continue;
+    const long long off = (((long long)b * p.Skv + krow[r]) * p.Hkv + hk) * p.D;
+#pragma unroll
+    for (int t = 0; t < DP / 8; ++t) {
+      const int d = t * 8 + tq * 2;
+      if (d < p.D) {
+        *reinterpret_cast<__nv_bfloat162*>(p.dk + off + d) = __floats2bfloat162_rn(
+            dk[4 * t + 2 * r] * p.scale, dk[4 * t + 2 * r + 1] * p.scale);
+        *reinterpret_cast<__nv_bfloat162*>(p.dv + off + d) =
+            __floats2bfloat162_rn(dv[4 * t + 2 * r], dv[4 * t + 2 * r + 1]);
+      }
+    }
+  }
+}
+
 // ──────────────────────────────── dQ ────────────────────────────────
 
 template <int DP>
@@ -499,6 +808,39 @@ int launch_dkv(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// A 4D map over one (B, S, H, D) operand, dims innermost first (D, H, S, B),
+// box 64 columns x `rows` positions of one head and batch row.
+int make_map(CUtensorMap* map, const void* base, int D, int H, int S, int B, long long sb,
+             long long ss, long long sh, int rows) {
+  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)max(S, 1), (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)sh * 2, (uint64_t)ss * 2, (uint64_t)sb * 2};
+  const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
+  return hopper::encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides,
+                                   box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int DP, int ST>
+int launch_dkv_wgmma(const Params& p, cudaStream_t stream) {
+  constexpr int smem = DkvPlan<DP, ST>::ALLOC;
+  static bool configured = false;  // per instantiation
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<DP, ST>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const long long do_ss = (long long)p.H * p.D;  // dO is contiguous
+  CUtensorMap tq, tk, tv, tdo;
+  int err = make_map(&tq, p.q, p.D, p.H, p.Sq, p.B, p.q_sb, p.q_ss, p.q_sh, WBM);
+  if (!err) err = make_map(&tk, p.k, p.D, p.Hkv, p.Skv, p.B, p.k_sb, p.k_ss, p.k_sh, WBN);
+  if (!err) err = make_map(&tv, p.v, p.D, p.Hkv, p.Skv, p.B, p.v_sb, p.v_ss, p.v_sh, WBN);
+  if (!err) err = make_map(&tdo, p.dout, p.D, p.H, p.Sq, p.B, p.Sq * do_ss, do_ss, p.D, WBM);
+  if (err) return err;
+  dim3 grid(p.Hkv, p.B, (p.Skv + WBN - 1) / WBN);
+  flash_bwd_dkv_wgmma_kernel<DP, ST><<<grid, WTHREADS, smem, stream>>>(tq, tk, tv, tdo, p);
+  return (int)cudaGetLastError();
+}
+
 template <int DP>
 int launch_dq(const Params& p, cudaStream_t stream) {
   constexpr int LD = DP + 8;
@@ -561,10 +903,11 @@ extern "C" int flash_bwd_dkv_bf16(FLASH_BWD_ARGS) {
   Params p;
   if (!FLASH_BWD_FILL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 16) return launch_dkv<16>(p, st);
-  if (D <= 32) return launch_dkv<32>(p, st);
-  if (D <= 64) return launch_dkv<64>(p, st);
-  if (D <= 128) return launch_dkv<128>(p, st);
+  // by shape: D <= 128 is the wgmma kernel (a smaller D reads TMA's zero
+  // fill); D = 256 would need 256 accumulator registers a thread for dK and
+  // dV, so it keeps the mma.sync kernel
+  if (D <= 64) return launch_dkv_wgmma<64, 4>(p, st);
+  if (D <= 128) return launch_dkv_wgmma<128, 3>(p, st);
   return launch_dkv<256>(p, st);
 }
 

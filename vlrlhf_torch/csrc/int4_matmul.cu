@@ -45,13 +45,17 @@
 //   and the packed tiles, a dequantizing warpgroup writes each weight tile
 //   once per 256 rows into shared memory while two consumer warpgroups run
 //   wgmma on the previous one (details at the kernel).
-// - int4_matmul_t_kernel contracts over `out`, across packed rows, so the
-//   weight goes through shared memory: each chunk of 64 packed rows x 64
-//   bytes is dequantized once into a bf16 [out][in] tile that
-//   ldmatrix.trans reads as the B operand of 128 dx rows (mma.sync, 8 warps,
-//   warp tile 64 x 32, two CTAs per SM). One CTA writes the dx columns blk*64.. of the low
-//   half and in/2 + blk*64.. of the high half directly: no padding, no
-//   concatenation.
+// - dx contracts over `out`, across packed rows, so the weight goes through
+//   shared memory as a bf16 [out][in] tile per chunk of 64 packed rows x 64
+//   bytes. It is bound by operations too (185 GFLOP at T = 2048), so
+//   int4_matmul_t_wgmma_kernel is kernel 6's machinery with the operands
+//   turned round: TMA brings dy and the packed tiles, a dequantizing
+//   warpgroup writes each weight tile MN-major once per 256 rows, two
+//   consumer warpgroups run wgmma on it (details at the kernel). One CTA
+//   writes the dx columns blk*64.. of the low half and in/2 + blk*64.. of
+//   the high half directly: no padding, no concatenation. Only the QLoRA
+//   step calls it, at T = 2048; a small T takes the same kernel (a
+//   128-row tile, TMA's zero fill past T).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
@@ -66,7 +70,6 @@ namespace {
 
 constexpr int GROUP = 64;      // quantization group rows along `in`; packed bytes per block
 constexpr int NTHREADS = 128;  // register-direct forward: 4 warps
-constexpr int FTHREADS = 256;  // int4_matmul_t_kernel: 8 warps
 
 struct Params {
   const __nv_bfloat16* a;      // x (T, in) or dy (T, out), row-major
@@ -75,30 +78,6 @@ struct Params {
   __nv_bfloat16* c;            // y (T, out) or dx (T, in)
   int T, in, out, half_p, S;
 };
-
-__device__ inline uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ inline void cp_async16(void* dst, const void* src, bool valid) {
-  // src-size 0 zero-fills the 16 destination bytes without reading src
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ inline void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ inline void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
 
 // D (16x8 f32) += A (16x16 bf16, row) * B (16x8 bf16, col)
 __device__ inline void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
@@ -303,132 +282,6 @@ __global__ void __launch_bounds__(NTHREADS) int4_matmul_kernel(Params p) {
           if (n < p.out) yrow[n] = __float2bfloat16_rn(v0);
           if (n + 1 < p.out) yrow[n + 1] = __float2bfloat16_rn(v1);
         }
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Backward (dx): CTA = 128 dx rows x one 64-byte packed column block `blk`
-// (dx columns blk*64.. of the low half and in/2 + blk*64.. of the high
-// half, 128 in all), 8 warps as 2 (rows) x 4 (columns), warp tile 64 x 32:
-// warps 0-1 of each row pair own low-half columns, 2-3 high-half ones. The
-// loop walks `out` in chunks of 64: each thread holds 16 packed bytes of one
-// weight row in registers (loaded one chunk ahead), the block dequantizes
-// them into a bf16 [out][in] tile per half, which ldmatrix.trans reads as
-// the B operand; dy tiles arrive by cp.async (double buffered).
-
-constexpr int BTM = 128;        // dx rows per CTA
-constexpr int BKC = 64;         // contraction (out) per chunk
-constexpr int LDB = GROUP + 8;  // padded dy / weight tile row (bf16): ldmatrix without conflicts
-constexpr size_t BSMEM =
-    (size_t)2 * BTM * LDB * sizeof(__nv_bfloat16)     // dy: 2 stages
-    + (size_t)2 * BKC * LDB * sizeof(__nv_bfloat16);  // weight: 2 halves
-
-__global__ void __launch_bounds__(FTHREADS, 2) int4_matmul_t_kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* sDy = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [st][BTM][LDB]
-  __nv_bfloat16* sW = sDy + 2 * BTM * LDB;                             // [h][BKC][LDB]
-
-  const int blk = blockIdx.x;
-  const int m0 = blockIdx.y * BTM;
-  const int half = p.in / 2;
-  const int n_lo = p.in / 128;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int tq = lane % 4;
-  const int wm = (warp / 4) * 64;  // warp's first dx row in the tile
-  const int wh = (warp % 4) / 2;   // 0: low-half columns, 1: high-half
-  const int wc = (warp % 2) * 32;  // warp's first column within its half
-  const int n_chunks = (p.out + BKC - 1) / BKC;
-
-  auto load_dy = [&](int chunk, int st) {
-    const int n0 = chunk * BKC;
-    for (int i = threadIdx.x; i < BTM * (BKC / 8); i += FTHREADS) {
-      const int r = i / (BKC / 8), q = (i % (BKC / 8)) * 8;
-      const bool ok = m0 + r < p.T && n0 + q < p.out;  // out % 8 == 0: whole chunks
-      const __nv_bfloat16* src = ok ? p.a + (long long)(m0 + r) * p.out + n0 + q : p.a;
-      cp_async16(sDy + (st * BTM + r) * LDB + q, src, ok);
-    }
-  };
-  // dequantization: thread -> one packed row of the chunk, 16 of its 64 bytes
-  const int dr = threadIdx.x / 4;
-  const int dc = (threadIdx.x % 4) * 16;
-  auto load_w = [&](int chunk, uint4& raw, __nv_bfloat162& slo, __nv_bfloat162& shi) {
-    const int n = chunk * BKC + dr;
-    const bool ok = n < p.out;
-    const __nv_bfloat16 zero = __float2bfloat16(0.f);
-    raw = ok ? __ldg(reinterpret_cast<const uint4*>(p.packed + (long long)n * p.half_p +
-                                                    blk * GROUP + dc))
-             : make_uint4(0u, 0u, 0u, 0u);
-    slo = __bfloat162bfloat162(ok ? p.scale[(long long)n * p.S + blk] : zero);
-    shi = __bfloat162bfloat162(ok ? p.scale[(long long)n * p.S + n_lo + blk] : zero);
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int t = 0; t < 4; ++t) acc[mt][t][0] = acc[mt][t][1] = acc[mt][t][2] = acc[mt][t][3] = 0.f;
-
-  uint4 raw;
-  __nv_bfloat162 slo, shi;
-  load_w(0, raw, slo, shi);
-  load_dy(0, 0);
-  cp_async_commit();
-  for (int c = 0; c < n_chunks; ++c) {
-    const int st = c & 1;
-    cp_async_wait<0>();
-    __syncthreads();  // dy chunk c landed; every warp is done with sW and dy stage st^1
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      uint32_t lo01, lo23, hi01, hi23;
-      dequant_word(word(raw, s), slo, shi, lo01, lo23, hi01, hi23);
-      *reinterpret_cast<uint2*>(sW + dr * LDB + dc + 4 * s) = make_uint2(lo01, lo23);
-      *reinterpret_cast<uint2*>(sW + (BKC + dr) * LDB + dc + 4 * s) = make_uint2(hi01, hi23);
-    }
-    if (c + 1 < n_chunks) {  // the next chunk's loads fly during this chunk's mma
-      load_dy(c + 1, st ^ 1);
-      cp_async_commit();
-      load_w(c + 1, raw, slo, shi);
-    }
-    __syncthreads();  // sW holds chunk c
-    const __nv_bfloat16* cDy = sDy + st * BTM * LDB;
-    const __nv_bfloat16* cW = sW + wh * BKC * LDB;
-#pragma unroll
-    for (int ks = 0; ks < BKC / 16; ++ks) {
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int t = 0; t < 4; t += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, cW + (ks * 16 + (lane % 16)) * LDB + wc + t * 8 + (lane / 16) * 8);
-        bf[t][0] = vb[0];
-        bf[t][1] = vb[1];
-        bf[t + 1][0] = vb[2];
-        bf[t + 1][1] = vb[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        uint32_t af[4];
-        ldmatrix_x4(af, cDy + (wm + mt * 16 + (lane % 16)) * LDB + ks * 16 + (lane / 16) * 8);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) mma16816(acc[mt][t], af, bf[t][0], bf[t][1]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int m = m0 + wm + mt * 16 + g + 8 * r;
-      if (m >= p.T) continue;
-      __nv_bfloat16* dxrow = p.c + (long long)m * p.in + (wh ? half : 0) + blk * GROUP + wc;
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        *reinterpret_cast<__nv_bfloat162*>(dxrow + t * 8 + 2 * tq) =
-            __floats2bfloat162_rn(acc[mt][t][2 * r], acc[mt][t][2 * r + 1]);
       }
     }
   }
@@ -682,22 +535,267 @@ int launch_fwd_wgmma(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// 256-row CTAs dequantize each weight half as often as 128-row ones; the
-// smaller tile wins where it fills the card's last wave better. Estimated
-// time in waves of one CTA per SM, a 128-row CTA at 0.55 of a 256-row one.
-int launch_fwd_wgmma_by_waves(const Params& p, cudaStream_t stream) {
+// 256-row CTAs dequantize each weight tile half as often as 128-row ones;
+// the smaller tile wins where it fills the card's last wave better.
+// Estimated time in waves of one CTA per SM, a 128-row CTA at 0.55 of a
+// 256-row one. Returns 2 or 1 (the WM to launch), or -cudaError.
+int rows_by_waves(long long cols, int T) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
+    if (e != cudaSuccess) return -(int)e;
   }
-  const long long cols = (p.out + GBN - 1) / GBN;
-  const long long waves256 = (cols * ((p.T + 255) / 256) + sms - 1) / sms;
-  const long long waves128 = (cols * ((p.T + 127) / 128) + sms - 1) / sms;
-  return 100 * waves256 <= 55 * waves128 ? launch_fwd_wgmma<2>(p, stream)
-                                         : launch_fwd_wgmma<1>(p, stream);
+  const long long waves256 = (cols * ((T + 255) / 256) + sms - 1) / sms;
+  const long long waves128 = (cols * ((T + 127) / 128) + sms - 1) / sms;
+  return 100 * waves256 <= 55 * waves128 ? 2 : 1;
+}
+
+int launch_fwd_wgmma_by_waves(const Params& p, cudaStream_t stream) {
+  const int wm = rows_by_waves((p.out + GBN - 1) / GBN, p.T);
+  if (wm < 0) return -wm;
+  return wm == 2 ? launch_fwd_wgmma<2>(p, stream) : launch_fwd_wgmma<1>(p, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Backward (dx): a warp-specialised wgmma GEMM
+// that contracts over `out`. CTA = 256 (or 128) dx rows x one 64-byte packed
+// column block blk, i.e. dx columns blk*64.. of the low half and
+// in/2 + blk*64.. of the high half (128 columns), three warpgroups:
+// - warpgroup 0 dequantizes (setmaxnreg gives its registers away): per
+//   chunk c of 64 `out` rows, TMA brings the 64 x 64-byte packed tile into a
+//   ring of TRST stages; each pair of its threads turns one weight row's 64
+//   bytes into bf16 rows of the low and the high weight tile of stage
+//   c % TST, [64 out rows][64 in columns] each, MN-major for wgmma's B (the
+//   layout the flash forward reads V in: k16 steps by two atoms, the high
+//   tile one LBO after the low one, so one m64n128 wgmma covers both halves).
+//   A row's scales are one per half, scale[o, blk] and scale[o, n_lo + blk].
+//   Its thread 0 also issues the stage's dy tile (BM rows x 64 out columns,
+//   K-major, swizzled by TMA);
+// - warpgroups 1 and 2 own 64 * WM rows each: per chunk, 4 k16 steps x WM
+//   m64 tiles of wgmma m64n128k16 (dy as A, the weight as B, both from
+//   shared memory), one commit group per chunk; the previous chunk's group
+//   retires while this one runs, and then frees its stage.
+// Each weight is dequantized T / BM times per launch (8 at T = 2048) and
+// the dequantization overlaps the tensor cores. A ragged `out` reads TMA's
+// zero fill for dy and the packed bytes (a zero scale beside them); ragged
+// T is masked at the stores. The
+// epilogue goes through the warpgroup's own dy rows of stages 0 and 1 to
+// coalesced 16-byte stores, written in place in both halves of dx.
+
+constexpr int TST = 4;                // dy / weight stages
+constexpr int TRST = 4;               // packed-tile stages
+constexpr int TBK = 64;               // out rows per chunk
+constexpr int TW_BYTES = TBK * 128;   // one half's bf16 weight tile, 8 KB
+constexpr int TRAW = TBK * GROUP;     // one packed tile, 4 KB
+
+template <int WM>
+struct TPlan {
+  static constexpr int BM = 128 * WM;                    // dx rows per CTA
+  static constexpr int DY_BYTES = BM * 128;              // one dy tile
+  static constexpr int STAGE = DY_BYTES + 2 * TW_BYTES;  // 48 KB at WM = 2
+  static constexpr int RAW_OFF = TST * STAGE;
+  static constexpr int BAR_OFF = RAW_OFF + TRST * TRAW;  // full[TST], empty[TST], raw[TRST]
+  static constexpr int SMEM = BAR_OFF + (2 * TST + TRST) * 8 + 1024;  // + alignment slack
+};
+
+template <int WM>
+__global__ void __launch_bounds__(GTHREADS, 1)
+    int4_matmul_t_wgmma_kernel(const __grid_constant__ CUtensorMap tm_dy,
+                               const __grid_constant__ CUtensorMap tm_w, const Params p) {
+  using namespace hopper;
+  using L = TPlan<WM>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sRaw = smem + L::RAW_OFF;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + TST;
+  uint64_t* raw_full = empty + TST;
+
+  const int blk = blockIdx.x;
+  const int m0 = blockIdx.y * L::BM;
+  const int half = p.in / 2;
+  const int n_lo = p.in / 128;
+  const int n_chunks = (p.out + TBK - 1) / TBK;
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform to ptxas
+  const int t = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TST; ++s) {
+      mbar_init(&full[s], 1 + 128);  // dy bytes + the 128 dequantizing threads
+      mbar_init(&empty[s], 8);       // one arrival per consumer warp
+    }
+    for (int s = 0; s < TRST; ++s) mbar_init(&raw_full[s], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---------------- dequantization (and the TMA issue) ----------------
+    setmaxnreg_dec<56>();
+    if (t == 0) {
+      for (int c = 0; c < min(TRST, n_chunks); ++c) {
+        mbar_arrive_expect_tx(&raw_full[c], TRAW);
+        tma_load_2d(sRaw + c * TRAW, &tm_w, &raw_full[c], blk * GROUP, c * TBK);
+      }
+    }
+    const int r = t / 2;     // this thread's weight row within a chunk
+    const int part = t % 2;  // and its 32 of the row's 64 bytes
+    const __nv_bfloat16 zero = __float2bfloat16(0.f);
+    auto scales = [&](int c, __nv_bfloat162& lo, __nv_bfloat162& hi) {
+      const int o = c * TBK + r;
+      const bool ok = o < p.out;  // past `out`: a zero scale on TMA's zero bytes
+      const __nv_bfloat16* srow = p.scale + (long long)(ok ? o : 0) * p.S;
+      lo = __bfloat162bfloat162(ok ? srow[blk] : zero);
+      hi = __bfloat162bfloat162(ok ? srow[n_lo + blk] : zero);
+    };
+    __nv_bfloat162 slo, shi;
+    scales(0, slo, shi);
+    for (int c = 0; c < n_chunks; ++c) {
+      const int st = c % TST, rs = c % TRST;
+      unsigned char* stage = smem + st * L::STAGE;
+      mbar_wait(&empty[st], ((c / TST) & 1) ^ 1);
+      if (t == 0) {
+        mbar_arrive_expect_tx(&full[st], L::DY_BYTES);
+        tma_load_2d(stage, &tm_dy, &full[st], c * TBK, m0);
+      }
+      __nv_bfloat162 nlo, nhi;  // the next chunk's scales fly while this one is dequantized
+      scales(c + 1, nlo, nhi);
+      mbar_wait(&raw_full[rs], (c / TRST) & 1);
+      const unsigned char* raw = sRaw + rs * TRAW + r * GROUP + part * 32;
+      unsigned char* wlo = stage + L::DY_BYTES + r * 128;
+      unsigned char* whi = wlo + TW_BYTES;
+#pragma unroll
+      for (int qq = 0; qq < 2; ++qq) {
+        const int q = 2 * part + qq;  // 16-byte piece of the packed row
+        const uint4 w = *reinterpret_cast<const uint4*>(raw + 16 * qq);
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {  // 8 codes -> one 16-byte chunk per half
+          uint32_t lo[4], hi[4];
+          dequant_word(word(w, 2 * h2), slo, shi, lo[0], lo[1], hi[0], hi[1]);
+          dequant_word(word(w, 2 * h2 + 1), slo, shi, lo[2], lo[3], hi[2], hi[3]);
+          const int off = (((2 * q + h2) ^ (r & 7)) * 16);  // the 128-byte swizzle
+          *reinterpret_cast<uint4*>(wlo + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+          *reinterpret_cast<uint4*>(whi + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        }
+      }
+      fence_proxy_async();  // the weight tiles are read by wgmma (the async proxy)
+      mbar_arrive(&full[st]);
+      named_sync<1>();  // every thread is done with packed stage rs
+      if (t == 0 && c + TRST < n_chunks) {
+        mbar_arrive_expect_tx(&raw_full[rs], TRAW);
+        tma_load_2d(sRaw + rs * TRAW, &tm_w, &raw_full[rs], blk * GROUP, (c + TRST) * TBK);
+      }
+      slo = nlo;
+      shi = nhi;
+    }
+    return;
+  }
+
+  // ---------------- consumers: 64 * WM rows each ----------------
+  setmaxnreg_inc<224>();
+  const int cw = wg - 1;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  float acc[WM][64];  // written first by wgmma (scale_d = 0): no other code defines it
+  for (int c = 0; c < n_chunks; ++c) {
+    const int st = c % TST;
+    unsigned char* stage = smem + st * L::STAGE;
+    mbar_wait(&full[st], (c / TST) & 1);
+    wgmma_fence();
+    const uint64_t da = desc_sw128(stage + cw * WM * 64 * 128, 16, 1024);
+    const uint64_t db = desc_sw128(stage + L::DY_BYTES, TW_BYTES, 1024);
+#pragma unroll
+    for (int ks = 0; ks < TBK / 16; ++ks) {
+#pragma unroll
+      for (int mt = 0; mt < WM; ++mt) {
+        wgmma_ss_tb<128>(acc[mt], da + ((mt * 64 * 128 + ks * 32) >> 4),
+                         db + ((ks * 2048) >> 4), c > 0 || ks > 0);
+      }
+    }
+    wgmma_commit();
+    if (c > 0) {
+      wgmma_wait<1>();  // chunk c-1 is done: free its stage
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(c - 1) % TST]);
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < WM; ++mt)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) hopper::fence_operand(acc[mt][i]);
+
+  // epilogue: this warpgroup's rows of the dy tiles of stages 0 and 1 (every
+  // load has landed and only this warpgroup reads these rows) hold its
+  // 64 * WM x 128 bf16 output, the low-half columns in stage 0's tile and
+  // the high-half ones in stage 1's
+  unsigned char* e0 = smem + cw * WM * 64 * 128;
+  unsigned char* e1 = e0 + L::STAGE;
+  const int g = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < WM; ++mt) {
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int rr = mt * 64 + warp * 16 + g + 8 * rh;
+#pragma unroll
+      for (int jt = 0; jt < 16; ++jt) {
+        const int off = rr * 128 + (((jt % 8) ^ (rr & 7)) * 16) + tq * 4;
+        *reinterpret_cast<uint32_t*>((jt < 8 ? e0 : e1) + off) =
+            pack_bf16(acc[mt][4 * jt + 2 * rh], acc[mt][4 * jt + 2 * rh + 1]);
+      }
+    }
+  }
+  if (cw == 0) {
+    named_sync<2>();
+  } else {
+    named_sync<3>();
+  }
+#pragma unroll 4
+  for (int i = 0; i < 8 * WM; ++i) {
+    const int idx = t + 128 * i;
+    const int rr = idx / 16, ch = idx % 16;
+    const int m = m0 + cw * WM * 64 + rr;
+    if (m >= p.T) continue;
+    const unsigned char* src = (ch < 8 ? e0 : e1) + rr * 128 + (((ch % 8) ^ (rr & 7)) * 16);
+    const int n = (ch < 8 ? 0 : half) + blk * GROUP + (ch % 8) * 8;
+    *reinterpret_cast<uint4*>(p.c + (long long)m * p.in + n) =
+        *reinterpret_cast<const uint4*>(src);
+  }
+}
+
+template <int WM>
+int launch_t_wgmma(const Params& p, cudaStream_t stream) {
+  using L = TPlan<WM>;
+  static bool configured = false;  // per instantiation
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(int4_matmul_t_wgmma_kernel<WM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  // dy (T, out) bf16, 64-column boxes of BM rows; packed (out, half_p)
+  // bytes, 64-byte boxes of 64 rows (plain layout: the dequantizing threads
+  // read it)
+  CUtensorMap tm_dy, tm_w;
+  const uint64_t ddims[2] = {(uint64_t)p.out, (uint64_t)p.T};
+  const uint64_t dstride[1] = {(uint64_t)p.out * 2};
+  const uint32_t dbox[2] = {TBK, L::BM};
+  int err = hopper::encode_tensor_map(&tm_dy, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.a, ddims,
+                                      dstride, dbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  const uint64_t wdims[2] = {(uint64_t)p.half_p, (uint64_t)p.out};
+  const uint64_t wstride[1] = {(uint64_t)p.half_p};
+  const uint32_t wbox[2] = {GROUP, TBK};
+  if (!err) {
+    err = hopper::encode_tensor_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, p.packed, wdims,
+                                    wstride, wbox, CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  if (err) return err;
+  dim3 grid(p.in / 128, (p.T + L::BM - 1) / L::BM);
+  int4_matmul_t_wgmma_kernel<WM><<<grid, GTHREADS, L::SMEM, stream>>>(tm_dy, tm_w, p);
+  return (int)cudaGetLastError();
 }
 
 template <int MT, int NT, int U>
@@ -780,14 +878,9 @@ extern "C" int int4_matmul_t(const void* dy, const void* packed, const void* sca
   if (!valid_shape(T, in, out, half_p, S) || out % 8 != 0) return (int)cudaErrorInvalidValue;
   if (T == 0) return 0;
   const Params p = make_params(dy, packed, scale, dx, T, in, out, half_p, S);
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(int4_matmul_t_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BSMEM);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
-  dim3 grid(in / 128, (T + BTM - 1) / BTM);
-  int4_matmul_t_kernel<<<grid, FTHREADS, BSMEM, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 256- or 128-row CTAs by the wave estimate (128 at T <= 128)
+  const int wm = rows_by_waves(in / 128, T);
+  if (wm < 0) return -wm;
+  return wm == 2 ? launch_t_wgmma<2>(p, st) : launch_t_wgmma<1>(p, st);
 }

@@ -244,6 +244,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, seg_q, seg_kv, causal, scale):
     di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()  # (B, H, Sq)
     if q.is_cuda:
         do = do.to(q.dtype).contiguous()  # autograd may hand over any strides
+        if do.data_ptr() % 16:  # the dK/dV kernel's TMA map needs a 16-byte aligned base
+            do = do.clone()
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, di, seg_q, seg_kv, causal, scale)
         dq = flash_bwd_dq(q, k, v, do, lse, di, seg_q, seg_kv, causal, scale)
         return dq, dk, dv
