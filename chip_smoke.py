@@ -14,12 +14,15 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      the backward) and relative Frobenius error against 1e-2, with the
      median |ref| printed; kernel, plain and yardstick times and each
      kernel's bound max(FLOPs / 989.4e12, bytes / 3.35e12); the flash
-     forward and the int4 matmuls are timed alone (their C entry points on
-     preallocated outputs) and through their wrappers, and each wrapper's
-     host microseconds per call are printed. Decode attention
-     on a bf16 and an int8 cache; chunk attention at the speculative verify
-     shape (B=8, C=4) and a chat turn's (B=1, C=64), bf16 and int8 caches
-     (SDPA with an explicit mask over the dequantized cache as yardstick);
+     forward, the int4 matmuls and the decode and chunk attention kernels
+     are timed alone (their C entry points on preallocated outputs) and
+     through their wrappers, and each wrapper's host microseconds per call
+     are printed. Decode attention on a bf16 and an int8 cache, timed at
+     length 640 and at a full cache (1023); chunk attention at the
+     speculative verify shape (B=8, C=4) and a chat turn's (B=1, C=64),
+     bf16 and int8 caches; the attention timings rotate over cache layers
+     so each launch reads device memory (SDPA with an explicit mask over
+     the dequantized cache as yardstick);
      the int4 matmul (kernel 6) at decode (T=8), verify (T=32), prefill
      (T=1280) and T=2048 and its transpose (kernel 7) at T=2048,
      LLaVA-1.5-7B's 4096 -> 11008 and 11008 -> 4096 (and, for kernel 7,
@@ -74,6 +77,7 @@ and prints no result.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import os
 import re
@@ -214,12 +218,10 @@ def int4_kernel_call(name: str, a, d_c: int, d_in: int, d_out: int):
 def phase_kernels():
     import torch.nn.functional as F
 
-    from vlrlhf_torch.ops.decode_attention import decode_attention, decode_attention_plain
     from vlrlhf_torch.ops.flash_attention import (
         KV_PAD_SEG, Q_PAD_SEG, flash_attention, flash_attention_bwd_plain,
         flash_attention_plain, flash_bwd_dkv, flash_bwd_dq, make_segments,
     )
-    from vlrlhf_torch.ops.quant import dequantize_kv, quantize_kv
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -349,66 +351,7 @@ def phase_kernels():
             "cases": bwd[kname],
         }
 
-    L, b, nh, nkv, hd, sc, layer = 32, 8, 32, 32, 128, 1024, 17
-    q = randn(b, nh, hd)
-    kc, vc = randn(L, b, nkv, sc, hd), randn(L, b, nkv, sc, hd)
-    k_cur, v_cur = randn(b, nkv, hd), randn(b, nkv, hd)
-    lengths = torch.tensor([0, sc - 1, 600, 613, 1, 640, 827, 128], dtype=torch.int32,
-                           device=dev)
-    out = decode_attention(q, kc, vc, k_cur, v_cur, lengths, layer=layer)
-    torch.cuda.synchronize()
-    ref = decode_attention_plain(q.float(), kc[layer].float(), vc[layer].float(),
-                                 k_cur.float(), v_cur.float(), lengths, hd**-0.5)
-    err, _, report = check_close("decode", out, ref, TOL)
-    # timing at the serving shape: 8 rows mid-generation (~640 live slots)
-    lengths_t = torch.full((b,), 640, dtype=torch.int32, device=dev)
-    k_ms = time_ms(lambda: decode_attention(q, kc, vc, k_cur, v_cur, lengths_t, layer=layer),
-                   iters=50)
-    p_ms = time_ms(lambda: decode_attention_plain(q, kc[layer], vc[layer], k_cur, v_cur,
-                                                  lengths_t, hd**-0.5), iters=20)
-    # yardstick: SDPA of the one query against the layer's cache, masked to
-    # the 640 live slots (the kernel's self term has no counterpart there)
-    live = (torch.arange(sc, device=dev) < 640)[None, None, None, :]
-    qs = q[:, :, None]
-    l_ms = time_ms(lambda: F.scaled_dot_product_attention(qs, kc[layer], vc[layer],
-                                                          attn_mask=live), iters=50)
-    live_bytes = 2 * b * nkv * 640 * hd * 2
-    b_ms, b_by = bound(4.0 * b * nh * 641 * hd,
-                       live_bytes + 2 * b * nkv * hd * 2 + 2 * b * nh * hd * 2 + b * 4)
-    print(f"decode B={b} L={L} nkv={nkv} hd={hd} Sc={sc} layer={layer}: "
-          f"{report}; kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
-          f"sdpa {l_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}) "
-          f"at length 640 ({live_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s of live k/v)", flush=True)
-    results["decode_attention"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                                   "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by}
-
-    # the int8 cache of the speculative int8 serve and /chat: the same values
-    # quantized per vector; plain and SDPA read the same codes and scales
-    (kq, ks), (vq, vs) = quantize_kv(kc), quantize_kv(vc)
-    del kc, vc
-    out = decode_attention(q, kq, vq, k_cur, v_cur, lengths, layer=layer, k_scale=ks, v_scale=vs)
-    torch.cuda.synchronize()
-    ref = decode_attention_plain(q.float(), kq[layer], vq[layer], k_cur.float(), v_cur.float(),
-                                 lengths, hd**-0.5, ks[layer], vs[layer])
-    err8, _, report = check_close("decode int8", out, ref, TOL)
-    k_ms = time_ms(lambda: decode_attention(q, kq, vq, k_cur, v_cur, lengths_t, layer=layer,
-                                            k_scale=ks, v_scale=vs), iters=50)
-    p_ms = time_ms(lambda: decode_attention_plain(q, kq[layer], vq[layer], k_cur, v_cur,
-                                                  lengths_t, hd**-0.5, ks[layer], vs[layer]))
-    kd, vd = (dequantize_kv(c[layer], s[layer], torch.bfloat16) for c, s in ((kq, ks), (vq, vs)))
-    l_ms = time_ms(lambda: F.scaled_dot_product_attention(qs, kd, vd, attn_mask=live), iters=50)
-    live_bytes = 2 * b * nkv * 640 * (hd + 2)  # codes and one bf16 scale per row
-    b_ms, b_by = bound(4.0 * b * nh * 641 * hd,
-                       live_bytes + 2 * b * nkv * hd * 2 + 2 * b * nh * hd * 2 + b * 4)
-    print(f"decode int8 B={b} L={L} nkv={nkv} hd={hd} Sc={sc} layer={layer}: "
-          f"{report}; kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
-          f"sdpa (dequantized cache) {l_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}) "
-          f"at length 640 ({live_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s of live k/v)", flush=True)
-    results["decode_attention"]["int8"] = {"max_abs_err": err8, "ms": k_ms, "plain_ms": p_ms,
-                                           "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by}
-    results["decode_attention"]["max_abs_err"] = max(err, err8)
-    del kq, vq, ks, vs, kd, vd
-    torch.cuda.empty_cache()
+    results["decode_attention"] = decode_kernel_checks(randn)
     results["chunk_attention"] = chunk_kernel_checks(randn)
     results.update(int4_kernel_checks(gen))
     wrapper_host_us()
@@ -504,6 +447,109 @@ def int4_kernel_checks(gen) -> dict:
     return results
 
 
+def decode_kernel_checks(randn) -> dict:
+    """Decode attention vs its plain version, bf16 and int8 caches, nh =
+    nkv = 32, hd 128, a stacked 32-layer cache of 1024 slots read at layer
+    17, at two shapes: the serve's B=8 (rows of lengths 0, S - 1, 1 and in
+    between; 256 CTAs, S not split) and a /chat session's B=1 (lengths 0
+    and 613; S split across a cluster of CTAs, merged with the self term
+    in distributed shared memory). Times at every row's length 640 and S - 1
+    (B=8) and 613 (B=1): the kernel alone (its C entry point on an output
+    allocated once) and through its wrapper, each launch on the next of
+    layers 17-20 so the cache comes from device memory as it does on the
+    path, beside plain, SDPA of the one query over the live slots (over
+    the dequantized cache for int8; the self term has no counterpart
+    there) and the bound. The main entry is B=8 bf16 at length 640; "int8"
+    holds the B=8 int8 one, "chat" both B=1 ones."""
+    import torch.nn.functional as F
+
+    from vlrlhf_torch.ops import _build
+    from vlrlhf_torch.ops.decode_attention import (
+        _ARGS, c_args, decode_attention, decode_attention_plain,
+    )
+    from vlrlhf_torch.ops.quant import dequantize_kv, quantize_kv
+
+    dev = torch.device("cuda")
+    L, nh, nkv, hd, sc, layer = 32, 32, 32, 128, 1024, 17
+    timed_layers = range(layer, layer + 4)
+    fn = _build.fn("decode_attention", "decode_attention", _ARGS)
+    results = {}
+    for shape, b, checked, timed in (
+            ("serve", 8, [(0, sc - 1, 600, 613, 1, 640, 827, 128)], (640, sc - 1)),
+            ("chat", 1, [(0,), (613,)], (613,))):
+        q = randn(b, nh, hd)
+        kc, vc = randn(L, b, nkv, sc, hd), randn(L, b, nkv, sc, hd)
+        k_cur, v_cur = randn(b, nkv, hd), randn(b, nkv, hd)
+        o = torch.empty_like(q)
+        qs = q[:, :, None]
+        for kind in ("bf16", "int8"):
+            if kind == "int8":
+                # the int8 cache of the speculative int8 serve and /chat: the
+                # same values quantized per vector; plain and SDPA read the codes
+                (kc, ks), (vc, vs) = quantize_kv(kc), quantize_kv(vc)
+            else:
+                ks = vs = None
+            lks = None if ks is None else ks[layer]
+            lvs = None if vs is None else vs[layer]
+            errs, rels = [], []
+            for lens in checked:
+                lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+                out = decode_attention(q, kc, vc, k_cur, v_cur, lengths, layer=layer,
+                                       k_scale=ks, v_scale=vs)
+                torch.cuda.synchronize()
+                ref = decode_attention_plain(q.float(), kc[layer].float(), vc[layer].float(),
+                                             k_cur.float(), v_cur.float(), lengths, hd**-0.5,
+                                             lks, lvs)
+                err, rel, report = check_close(f"decode {shape} {kind} lengths {list(lens)}",
+                                               out, ref, TOL)
+                print(f"decode {shape} {kind} B={b} lengths {list(lens)}: {report}", flush=True)
+                errs.append(err)
+                rels.append(rel)
+            kd = [kc[i] if ks is None else dequantize_kv(kc[i], ks[i], torch.bfloat16)
+                  for i in timed_layers]
+            vd = [vc[i] if vs is None else dequantize_kv(vc[i], vs[i], torch.bfloat16)
+                  for i in timed_layers]
+            cases = {}
+            for length in timed:
+                lengths_t = torch.full((b,), length, dtype=torch.int32, device=dev)
+                alone = _build.Rotating(fn, [c_args(q, kc, vc, k_cur, v_cur, lengths_t, o,
+                                                    hd**-0.5, i, ks, vs) for i in timed_layers],
+                                        "decode_attention")
+                k_ms = time_ms(alone, iters=100, warmup=8)
+                wrap = itertools.cycle(timed_layers)
+                w_ms = time_ms(lambda: decode_attention(q, kc, vc, k_cur, v_cur, lengths_t,
+                                                        layer=next(wrap), k_scale=ks, v_scale=vs),
+                               iters=100, warmup=8)
+                p_ms = time_ms(lambda: decode_attention_plain(q, kc[layer], vc[layer], k_cur,
+                                                              v_cur, lengths_t, hd**-0.5, lks, lvs))
+                live = (torch.arange(sc, device=dev) < length)[None, None, None, :]
+                pairs = itertools.cycle(list(zip(kd, vd)))
+                l_ms = time_ms(lambda: F.scaled_dot_product_attention(qs, *next(pairs),
+                                                                      attn_mask=live), iters=100)
+                row = hd + 2 if ks is not None else 2 * hd  # int8: codes and one bf16 scale
+                live_bytes = 2 * b * nkv * length * row
+                b_ms, b_by = bound(4.0 * b * nh * (length + 1) * hd,
+                                   live_bytes + 2 * b * nkv * hd * 2 + 2 * b * nh * hd * 2 + b * 4)
+                print(f"decode {shape} {kind} B={b} L={L} nkv={nkv} hd={hd} Sc={sc} layers "
+                      f"{timed_layers[0]}-{timed_layers[-1]} length {length}: kernel alone "
+                      f"{k_ms:.4f} ms ({live_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s of live k/v, "
+                      f"{k_ms / l_ms:.2f}x sdpa), wrapper {w_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                      f"sdpa ({'dequantized ' if ks is not None else ''}cache, masked) "
+                      f"{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+                cases[f"length_{length}"] = {"ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
+                                             "library_ms": l_ms, "bound_ms": b_ms,
+                                             "bound_by": b_by}
+            results[f"{shape}_{kind}"] = {"max_abs_err": max(errs), "rel_err": max(rels),
+                                          **cases[f"length_{timed[0]}"], "cases": cases}
+            del kd, vd
+        del kc, vc, ks, vs
+        torch.cuda.empty_cache()
+    return {**results["serve_bf16"],
+            "max_abs_err": max(r["max_abs_err"] for r in results.values()),
+            "int8": results["serve_int8"],
+            "chat": {"bf16": results["chat_bf16"], "int8": results["chat_int8"]}}
+
+
 def wrapper_host_us() -> dict:
     """Host microseconds per wrapper call: 200 calls enqueued without a
     synchronize on tiny shapes (the card never holds the host back), wall
@@ -562,20 +608,29 @@ def _chunk_work(lengths, c, nh, nkv, hd, sc, int8: bool) -> tuple[float, int]:
 
 def chunk_kernel_checks(randn) -> dict:
     """Chunk attention vs its plain version at the speculative verify shape
-    (B=8, C=4 = K+1) and a chat turn's (B=1, C=64), nh = nkv = 32, hd 128,
-    Sc 1024, lengths ~600-700, on a stacked 4-layer cache read at layer 2;
-    bf16 and int8 caches. The main entry is the int8 verify shape (the
-    speculative int8 serve's)."""
+    (B=8, C=4 = K+1; the CUDA-core path, S not split), a chat turn's (B=1,
+    C=64; the tensor-core path) and a short chat turn's (B=1, C=16: 16 rows
+    on the CUDA cores with S split across a cluster of CTAs), nh = nkv =
+    32, hd 128, Sc 1024, lengths ~600-700, on a stacked cache (4 layers
+    for verify, 8 for chat) checked at layer 2; bf16 and int8 caches. Times: the kernel alone (its C entry point on
+    an output allocated once) and through its wrapper, each launch on the
+    next layer (more than the L2 in all), beside plain, SDPA with an
+    explicit mask (over the dequantized cache for int8) and the bound. The
+    main entry is the int8 verify shape (the speculative int8 serve's)."""
     import torch.nn.functional as F
 
-    from vlrlhf_torch.ops.chunk_attention import chunk_attention, chunk_attention_plain
+    from vlrlhf_torch.ops import _build
+    from vlrlhf_torch.ops.chunk_attention import (
+        _ARGS, c_args, chunk_attention, chunk_attention_plain,
+    )
     from vlrlhf_torch.ops.quant import dequantize_kv, quantize_kv
 
     dev = torch.device("cuda")
-    L, nh, nkv, hd, sc, layer = 4, 32, 32, 128, 1024, 2
+    nh, nkv, hd, sc, layer = 32, 32, 128, 1024, 2
+    fn = _build.fn("chunk_attention", "chunk_attention", _ARGS)
     cases, errs = {}, []
-    for label, lens, c in (("verify", (600, 613, 627, 640, 655, 671, 688, 700), 4),
-                           ("chat", (620,), 64)):
+    for label, lens, c, L in (("verify", (600, 613, 627, 640, 655, 671, 688, 700), 4, 4),
+                              ("chat", (620,), 64, 8), ("chat_short", (620,), 16, 8)):
         b = len(lens)
         q = randn(b, c, nh, hd)
         kc, vc = randn(L, b, nkv, sc, hd), randn(L, b, nkv, sc, hd)
@@ -583,6 +638,7 @@ def chunk_kernel_checks(randn) -> dict:
         limit = lengths[:, None] + torch.arange(c, device=dev)[None]
         attend = torch.arange(sc, device=dev)[None, None, :] <= limit[:, :, None]  # (B, C, Sc)
         qt = q.transpose(1, 2)  # SDPA's (B, nh, C, hd)
+        o = torch.empty_like(q)
         (kq, ks), (vq, vs) = quantize_kv(kc), quantize_kv(vc)
         for kind, (kk, vv, ksc, vsc) in (("bf16", (kc, vc, None, None)),
                                          ("int8", (kq, vq, ks, vs))):
@@ -593,28 +649,35 @@ def chunk_kernel_checks(randn) -> dict:
             ref = chunk_attention_plain(q.float(), kk[layer], vv[layer], lengths, hd**-0.5,
                                         lks, lvs)
             err, rel, report = check_close(f"chunk {label} {kind}", out, ref, TOL)
-            k_ms = time_ms(lambda: chunk_attention(q, kk, vv, lengths, layer=layer, k_scale=ksc,
-                                                   v_scale=vsc), iters=50)
+            alone = _build.Rotating(fn, [c_args(q, kk, vv, lengths, o, hd**-0.5, i, ksc, vsc)
+                                         for i in range(L)], "chunk_attention")
+            k_ms = time_ms(alone, iters=100, warmup=8)
+            wrap = itertools.cycle(range(L))
+            w_ms = time_ms(lambda: chunk_attention(q, kk, vv, lengths, layer=next(wrap),
+                                                   k_scale=ksc, v_scale=vsc), iters=100, warmup=8)
             p_ms = time_ms(lambda: chunk_attention_plain(q, kk[layer], vv[layer], lengths,
                                                          hd**-0.5, lks, lvs), iters=10)
-            if ksc is None:
-                kd, vd = kk[layer], vv[layer]
-            else:
-                kd = dequantize_kv(kk[layer], lks, torch.bfloat16)
-                vd = dequantize_kv(vv[layer], lvs, torch.bfloat16)
+            kd = [kk[i] if ksc is None else dequantize_kv(kk[i], ksc[i], torch.bfloat16)
+                  for i in range(L)]
+            vd = [vv[i] if vsc is None else dequantize_kv(vv[i], vsc[i], torch.bfloat16)
+                  for i in range(L)]
+            pairs = itertools.cycle(list(zip(kd, vd)))
             l_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kd, vd, attn_mask=attend[:, None]), iters=50)
+                qt, *next(pairs), attn_mask=attend[:, None]), iters=100)
+            del kd, vd
             flops, nbytes = _chunk_work(lens, c, nh, nkv, hd, sc, ksc is not None)
             b_ms, b_by = bound(flops, nbytes)
             print(f"chunk {label} {kind} B={b} C={c} L={L} nh=nkv={nkv} hd={hd} Sc={sc} "
-                  f"layer={layer} lengths {list(lens)}: {report}; kernel {k_ms:.4f} ms plain "
-                  f"{p_ms:.4f} ms sdpa (masked, {'dequantized ' if ksc is not None else ''}cache) "
-                  f"{l_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.3f} GFLOP, "
+                  f"lengths {list(lens)}: {report}; kernel alone {k_ms:.4f} ms "
+                  f"({k_ms / l_ms:.2f}x sdpa, {flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+                  f"{nbytes / (k_ms * 1e-3) / 1e9:.1f} GB/s), wrapper {w_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, sdpa (masked, {'dequantized ' if ksc is not None else ''}cache) "
+                  f"{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.3f} GFLOP, "
                   f"{nbytes / 1e6:.3f} MB)", flush=True)
             errs.append(err)
             cases[f"{label}_{kind}"] = {"max_abs_err": err, "rel_err": rel, "ms": k_ms,
-                                        "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
-                                        "bound_by": b_by}
+                                        "wrapper_ms": w_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                                        "bound_ms": b_ms, "bound_by": b_by}
         del kc, vc, kq, vq, ks, vs
         torch.cuda.empty_cache()
     main = cases["verify_int8"]
@@ -1301,16 +1364,17 @@ def profile_breakdown(fn, label: str) -> None:
     if not kernels:
         print(f"profile {label}: the profiler saw no device time", flush=True)
         return
-    groups = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dkv": "flash_bwd_dkv_",  # both designs
-              "flash_bwd_dq": "flash_bwd_dq_kernel", "decode": "decode_kernel",
-              "chunk": "chunk_kernel", "int4_matmul_t": "int4_matmul_t_",  # both designs
-              "int4_matmul": "int4_matmul_kernel",  # T <= 64
-              "int4_matmul_wgmma": "int4_matmul_wgmma_kernel"}
+    groups = {"flash_fwd": ("flash_fwd_kernel",), "flash_bwd_dkv": ("flash_bwd_dkv_",),
+              "flash_bwd_dq": ("flash_bwd_dq_kernel",), "decode": ("decode_split_kernel",),
+              "chunk": ("chunk_split_kernel", "chunk_mma_kernel"),  # short / long chunks
+              "int4_matmul_t": ("int4_matmul_t_",),  # before int4_matmul: both designs
+              "int4_matmul": ("int4_matmul_kernel",),  # T <= 64
+              "int4_matmul_wgmma": ("int4_matmul_wgmma_kernel",)}
     by_group, by_name = {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
         name = e.name
-        grp = next((g for g, key in groups.items() if key in name), None)
+        grp = next((g for g, keys in groups.items() if any(k in name for k in keys)), None)
         if grp is None:
             low = name.lower()
             grp = "matmul" if any(t in low for t in ("gemm", "xmma", "nvjet", "cutlass")) \
@@ -1700,7 +1764,7 @@ def main() -> int:
          "max_abs_err": kernels[name]["max_abs_err"], "ms": kernels[name]["ms"],
          "plain_ms": kernels[name]["plain_ms"], "bound_ms": kernels[name]["bound_ms"],
          "bound_by": kernels[name]["bound_by"], "library_ms": kernels[name]["library_ms"],
-         **({"int8": kernels[name]["int8"]} if "int8" in kernels[name] else {})}
+         **{k: kernels[name][k] for k in ("int8", "chat") if k in kernels[name]}}
         for name in names
     ]}
     print(json.dumps(line))

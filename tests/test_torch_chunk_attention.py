@@ -132,3 +132,72 @@ def test_kernel_matches_plain_on_card(L, b, c, nh, nkv, hd, s, kind):
     torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)
     rel = float((got.float() - want).norm() / want.norm())
     assert rel <= 1e-2, rel
+
+
+def _card_chunk_case(kind, b, c, nh, nkv, hd, s, lengths, strided=False):
+    from vlrlhf_torch.ops.chunk_attention import chunk_attention_plain
+
+    int8 = kind == "int8"
+    L = 2
+    q, kc, vc, ks, vs = _inputs(c + hd + nh, L, b, c, nh, nkv, 2 * hd if strided else hd, s,
+                                int8)
+    q = torch.from_numpy(q[..., :hd].copy()).cuda().bfloat16()
+    if int8:
+        kc, vc = torch.from_numpy(kc).cuda(), torch.from_numpy(vc).cuda()
+        ks, vs = torch.from_numpy(ks).cuda().bfloat16(), torch.from_numpy(vs).cuda().bfloat16()
+    else:
+        kc, vc = torch.from_numpy(kc).cuda().bfloat16(), torch.from_numpy(vc).cuda().bfloat16()
+    kc, vc = kc[..., :hd], vc[..., :hd]  # strided: slots 2 * hd apart
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    layer = L - 1
+    got = tchunk(q, kc, vc, lens, layer=layer, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    want = chunk_attention_plain(q.float(), kc[layer], vc[layer], lens, hd**-0.5,
+                                 None if ks is None else ks[layer],
+                                 None if vs is None else vs[layer])
+    # rows whose chunk runs past S are chunk padding: compare the real queries
+    for i, n in enumerate(lengths):
+        real = min(c, s - n)
+        torch.testing.assert_close(got[i, :real].float(), want[i, :real], atol=2e-2, rtol=2e-2)
+    rel = float((got.float() - want).norm() / want.norm())
+    assert rel <= 1e-2, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("c", [1, 4, 16, 17, 64, 65])
+def test_kernel_chunk_lengths_on_card(kind, c):
+    """Chunk lengths across the short (g * C <= 16 rows, CUDA cores) / long
+    (tensor cores) switch, 65 = two query tiles; row 1's causal window
+    crosses the 32-slot tile edge (slots 30..30 + C)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    s = 256
+    _card_chunk_case(kind, 4, c, 4, 4, 128, s, [0, 30, 97, s - c])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("c,nh,nkv,hd", [
+    (4, 16, 4, 256),  # 16 rows at head_dim 256: tensor cores, 256-wide tile
+    (2, 16, 2, 8),  # 16 rows of head_dim 8 on the CUDA cores
+    (9, 16, 2, 64),  # 72 rows: two query tiles, g = 8
+    (3, 8, 4, 72),  # head_dim 72: zero-padded to the 128-wide tile
+    (40, 8, 4, 8),  # 80 rows of head_dim 8 (int8: 8-byte rows)
+])
+def test_kernel_gqa_and_head_dims_on_card(kind, c, nh, nkv, hd):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _card_chunk_case(kind, 3, c, nh, nkv, hd, 128, [0, 31, 128 - c])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("c,s,strided", [(4, 100, False), (64, 100, False), (4, 128, True),
+                                         (20, 128, True)])
+def test_kernel_plain_copy_shapes_on_card(kind, c, s, strided):
+    """Caches a bulk copy cannot read (S % 8 != 0; slots 2 * hd apart) take
+    the producer's plain-load path, on both chunk paths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _card_chunk_case(kind, 3, c, 4, 2, 64, s, [0, 33, s - c], strided)

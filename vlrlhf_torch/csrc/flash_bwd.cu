@@ -56,6 +56,14 @@
 
 namespace {
 
+using hopper::fast_exp2;
+using hopper::ldmatrix_x2;
+using hopper::ldmatrix_x4;
+using hopper::ldmatrix_x4_trans;
+using hopper::mma16816;
+using hopper::pack_bf16;
+using hopper::smem_u32;
+
 constexpr int NTHREADS = 128;  // 4 warps x 16 rows
 constexpr int MAX_D = 256;
 constexpr int Q_PAD_SEG = -3;
@@ -84,10 +92,6 @@ struct Params {
   int causal;
 };
 
-__device__ inline uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ inline void cp_async16(void* dst, const void* src, bool valid) {
   // src-size 0 zero-fills the 16 destination bytes without reading src
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
@@ -96,36 +100,6 @@ __device__ inline void cp_async16(void* dst, const void* src, bool valid) {
 __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ inline void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ inline void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ inline void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p)));
-}
-__device__ inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// D (16x8 f32) += A (16x16 bf16, row) * B (16x8 bf16, col)
-__device__ inline void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ inline uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // Copy rows [r0, r0+ROWS) x [0, DP) of one head into a padded shared tile
 // (row stride DP + 8) as 16-byte cp.async chunks; rows past `rows` and
@@ -382,12 +356,6 @@ struct DkvPlan {
   static constexpr int BAR_OFF = RANGE_OFF + ST * 8;            // kv, full[ST], empty[ST]
   static constexpr int ALLOC = BAR_OFF + (1 + 2 * ST) * 8 + 1024;  // + alignment slack
 };
-
-__device__ inline float fast_exp2(float x) {  // ex2.approx: 2^-inf = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <int DP, int ST>
 __global__ void __launch_bounds__(WTHREADS, 1)

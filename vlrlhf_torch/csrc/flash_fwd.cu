@@ -81,17 +81,6 @@ struct Plan {
   static constexpr int ALLOC = BAR_OFF + (1 + 3 * ST) * 8 + 1024;  // + alignment slack
 };
 
-__device__ inline float fast_exp2(float x) {  // ex2.approx: 2^-inf = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ inline uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 template <int DP, int BN, int ST>
 __global__ void __launch_bounds__(NTHREADS, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,

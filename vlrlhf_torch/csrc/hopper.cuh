@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the hand-written kernels: mbarriers,
-// TMA tile loads, wgmma shared-memory descriptors for the 128-byte swizzle,
-// the wgmma instructions and their fences, setmaxnreg, and the host-side
-// tensor-map encoder.
+// TMA tile loads and 1-D bulk copies, named barriers, the mma.sync
+// fragment loads and m16n8k16 product, wgmma shared-memory descriptors for
+// the 128-byte swizzle, the wgmma instructions and their fences,
+// setmaxnreg, and the host-side tensor-map encoder.
 //
 // The encoder looks cuTensorMapEncodeTiled up at run time with
 // cudaGetDriverEntryPoint, so a library that includes this header links
@@ -21,6 +22,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -82,9 +84,58 @@ __device__ inline void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* 
       "r"(c3)
       : "memory");
 }
+// 1-D bulk copy (no tensor map): `bytes` contiguous bytes from global `src`
+// to shared `dst`, completing on `bar`. Both addresses 16-byte aligned,
+// `bytes` a multiple of 16.
+__device__ inline void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// named barrier `id` (1-15; 0 is __syncthreads) over `count` threads, whole warps
+__device__ inline void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
 // generic-proxy stores to shared memory become visible to wgmma / TMA
 __device__ inline void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync fragments (m16n8k16, bf16 in, f32 accumulate) and their helpers
+
+__device__ inline void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ inline void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+__device__ inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+// D (16x8 f32) += A (16x16 bf16, row) * B (16x8 bf16, col)
+__device__ inline void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ inline uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ inline float fast_exp2(float x) {  // ex2.approx: 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---------------------------------------------------------------------------

@@ -68,6 +68,9 @@
 
 namespace {
 
+using hopper::mma16816;
+using hopper::pack_bf16;
+
 constexpr int GROUP = 64;      // quantization group rows along `in`; packed bytes per block
 constexpr int NTHREADS = 128;  // register-direct forward: 4 warps
 
@@ -78,20 +81,6 @@ struct Params {
   __nv_bfloat16* c;            // y (T, out) or dx (T, in)
   int T, in, out, half_p, S;
 };
-
-// D (16x8 f32) += A (16x16 bf16, row) * B (16x8 bf16, col)
-__device__ inline void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ inline uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // Four packed bytes (byte e = bits 8e..8e+7) -> bf16 pairs of the
 // low-nibble weights (bytes 0,1 and 2,3 times slo) and the high-nibble ones

@@ -110,3 +110,17 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+class Rotating:
+    """A call that launches the C function fn on the next of arg_sets each
+    time (a kernel alone: no wrapper, no launch counted), so that timed
+    launches read a cache or weights that moved out of the L2; `index` is
+    the arg set it launched on last."""
+
+    def __init__(self, fn, arg_sets, what: str):
+        self.fn, self.arg_sets, self.what, self.index = fn, list(arg_sets), what, -1
+
+    def __call__(self) -> None:
+        self.index = (self.index + 1) % len(self.arg_sets)
+        check(self.fn(*self.arg_sets[self.index]), self.what)

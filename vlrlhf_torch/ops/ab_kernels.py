@@ -1,18 +1,23 @@
-"""Time this checkout's flash-forward, flash dK/dV and int4 kernels against
-another checkout's, in turns, on one card.
+"""Time this checkout's flash-forward, flash dK/dV, int4, decode-attention
+and chunk-attention kernels against another checkout's, in turns, on one
+card.
 
-    python -m vlrlhf_torch.ops.ab_kernels OTHER_CSRC_DIR
+    python -m vlrlhf_torch.ops.ab_kernels OTHER_CSRC_DIR [--only NAME ...]
 
-OTHER_CSRC_DIR holds the other version's `flash_fwd.cu`, `flash_bwd.cu`
-and `int4_matmul.cu` (for example `build/parent/vlrlhf_torch/csrc` after
-`git archive <commit> | tar -x -C build/parent`). Both are built with the
-same nvcc flags into `build/ab/`, and each C entry point is timed on
-outputs allocated once (CUDA events, the other version, this one, this one,
-the other), with its max abs error against the plain version and the
-library call of the same function beside it (SDPA; the aten flash
-backward, which computes dQ as well, MHA only; cuBLAS bf16 on the weight
-dequantized once). Decode and verify shapes rotate over 4 weight copies
-(more than the L2). Prints one line per shape; needs a CUDA card.
+OTHER_CSRC_DIR holds the other version's `flash_fwd.cu`, `flash_bwd.cu`,
+`int4_matmul.cu`, `decode_attention.cu` and `chunk_attention.cu` with their
+headers (for example `build/parent/vlrlhf_torch/csrc` after `git archive
+<commit> | tar -x -C build/parent`). Both are built with the same nvcc
+flags into `build/ab/`, and each C entry point is timed on outputs
+allocated once (CUDA events, the other version, this one, this one, the
+other), with its max abs error against the plain version and the library
+call of the same function beside it (SDPA, masked to the attended slots
+and over the dequantized cache for int8; the aten flash backward, which
+computes dQ as well, MHA only; cuBLAS bf16 on the weight dequantized
+once). Decode and verify shapes rotate over 4 weight copies or cache
+layers (more than the L2), a chat turn over 8 layers. `--only` picks
+groups (flash, flash_bwd, int4, decode, chunk). Prints one line per
+shape; needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from vlrlhf_torch.ops import _build
+from vlrlhf_torch.ops import chunk_attention as chunk_mod
+from vlrlhf_torch.ops import decode_attention as decode_mod
 from vlrlhf_torch.ops.flash_attention import (
     KV_PAD_SEG, Q_PAD_SEG, _BWD_ARGS, _FWD_ARGS, flash_attention_bwd_plain,
     flash_attention_plain, make_segments,
@@ -34,6 +41,7 @@ from vlrlhf_torch.ops.flash_attention import (
 from vlrlhf_torch.ops.int4 import (
     _ARGS as INT4_ARGS, dequantize_int4, int4_matmul_plain, int4_matmul_t_plain, quantize_int4,
 )
+from vlrlhf_torch.ops.quant import dequantize_kv, quantize_kv
 
 FLASH_SHAPES = [  # label, causal, B, S, H, Hkv, D, row lengths
     ("vit", False, 2, 577, 16, 16, 64, None),
@@ -60,15 +68,24 @@ INT4_SHAPES = [  # label, C symbol, T, in, out
 ]
 
 
-LIBS = ("flash_fwd", "flash_bwd", "int4_matmul")
+DECODE_SHAPES = [  # label, B, nh, nkv, hd, S, live length of every row
+    ("decode", 8, 32, 32, 128, 1024, 640),
+    ("decode full cache", 8, 32, 32, 128, 1024, 1023),
+]
+CHUNK_SHAPES = [  # label, lengths, C, nh, nkv, hd, S, layers rotated
+    ("verify", (600, 613, 627, 640, 655, 671, 688, 700), 4, 32, 32, 128, 1024, 4),
+    ("chat", (620,), 64, 32, 32, 128, 1024, 8),
+]
+
+LIBS = ("flash_fwd", "flash_bwd", "int4_matmul", "decode_attention", "chunk_attention")
 
 
-def build_other(csrc: Path) -> dict[str, ctypes.CDLL]:
+def build_other(csrc: Path, names=LIBS) -> dict[str, ctypes.CDLL]:
     """The other checkout's libraries, built against its own headers."""
     out_dir = _build.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     libs = {}
-    for name in LIBS:
+    for name in names:
         out = out_dir / f"lib{name}.so"
         proc = subprocess.run(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(out),
@@ -212,19 +229,116 @@ def int4_lines(versions: dict, gen: torch.Generator) -> None:
               flush=True)
 
 
+def _cache_kinds(kc, vc):
+    """(kind, k, v, k scale, v scale) for a bf16 cache and its int8 codes."""
+    (kq, ks), (vq, vs) = quantize_kv(kc), quantize_kv(vc)
+    return [("bf16", kc, vc, None, None), ("int8", kq, vq, ks, vs)]
+
+
+def decode_lines(versions: dict, gen: torch.Generator) -> None:
+    dev = torch.device("cuda")
+    layers = 4
+    for label, b, nh, nkv, hd, s, length in DECODE_SHAPES:
+        q = torch.randn((b, nh, hd), device=dev, generator=gen).bfloat16()
+        kc, vc = (torch.randn((layers, b, nkv, s, hd), device=dev, generator=gen).bfloat16()
+                  for _ in range(2))
+        cur = [torch.randn((b, nkv, hd), device=dev, generator=gen).bfloat16() for _ in range(2)]
+        lengths = torch.full((b,), length, dtype=torch.int32, device=dev)
+        live = (torch.arange(s, device=dev) < length)[None, None, None, :]
+        o = torch.empty_like(q)
+        for kind, kk, vv, ks, vs in _cache_kinds(kc, vc):
+            refs = [decode_mod.decode_attention_plain(
+                q.float(), kk[i].float(), vv[i].float(), cur[0].float(), cur[1].float(), lengths,
+                hd**-0.5, None if ks is None else ks[i], None if vs is None else vs[i])
+                for i in range(layers)]
+            last = {}
+
+            def make_call(lib):
+                fn = lib.decode_attention
+                fn.argtypes, fn.restype = decode_mod._ARGS, ctypes.c_int
+                last["call"] = _build.Rotating(fn, [decode_mod.c_args(
+                    q, kk, vv, cur[0], cur[1], lengths, o, hd**-0.5, layer, ks, vs)
+                    for layer in range(layers)], "decode_attention")
+                return last["call"]
+
+            def check():
+                return float((o.float() - refs[last["call"].index]).abs().max())
+
+            turns = in_turns(versions["decode_attention"], make_call, check)
+            kd = [kk[i] if ks is None else dequantize_kv(kk[i], ks[i], torch.bfloat16)
+                  for i in range(layers)]
+            vd = [vv[i] if vs is None else dequantize_kv(vv[i], vs[i], torch.bfloat16)
+                  for i in range(layers)]
+            pairs = itertools.cycle(list(zip(kd, vd)))
+            sdpa = time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], *next(pairs),
+                                                                  attn_mask=live))
+            print(f"decode_attention {label} {kind} B={b} nh={nh} nkv={nkv} hd={hd} S={s} "
+                  f"length {length}: {turns} sdpa {sdpa:.4f} ms", flush=True)
+            del kd, vd
+
+
+def chunk_lines(versions: dict, gen: torch.Generator) -> None:
+    dev = torch.device("cuda")
+    for label, lens, c, nh, nkv, hd, s, layers in CHUNK_SHAPES:
+        b = len(lens)
+        q = torch.randn((b, c, nh, hd), device=dev, generator=gen).bfloat16()
+        kc, vc = (torch.randn((layers, b, nkv, s, hd), device=dev, generator=gen).bfloat16()
+                  for _ in range(2))
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        limit = lengths[:, None] + torch.arange(c, device=dev)[None]
+        attend = (torch.arange(s, device=dev)[None, None, :] <= limit[:, :, None])[:, None]
+        o = torch.empty_like(q)
+        for kind, kk, vv, ks, vs in _cache_kinds(kc, vc):
+            refs = [chunk_mod.chunk_attention_plain(
+                q.float(), kk[i], vv[i], lengths, hd**-0.5, None if ks is None else ks[i],
+                None if vs is None else vs[i]) for i in range(layers)]
+            last = {}
+
+            def make_call(lib):
+                fn = lib.chunk_attention
+                fn.argtypes, fn.restype = chunk_mod._ARGS, ctypes.c_int
+                last["call"] = _build.Rotating(fn, [chunk_mod.c_args(
+                    q, kk, vv, lengths, o, hd**-0.5, layer, ks, vs) for layer in range(layers)],
+                    "chunk_attention")
+                return last["call"]
+
+            def check():
+                return float((o.float() - refs[last["call"].index]).abs().max())
+
+            turns = in_turns(versions["chunk_attention"], make_call, check)
+            kd = [kk[i] if ks is None else dequantize_kv(kk[i], ks[i], torch.bfloat16)
+                  for i in range(layers)]
+            vd = [vv[i] if vs is None else dequantize_kv(vv[i], vs[i], torch.bfloat16)
+                  for i in range(layers)]
+            pairs = itertools.cycle(list(zip(kd, vd)))
+            qt = q.transpose(1, 2)
+            sdpa = time_ms(lambda: F.scaled_dot_product_attention(qt, *next(pairs),
+                                                                  attn_mask=attend))
+            print(f"chunk_attention {label} {kind} B={b} C={c} nh={nh} nkv={nkv} hd={hd} S={s} "
+                  f"lengths {list(lens)}: {turns} sdpa {sdpa:.4f} ms", flush=True)
+            del kd, vd
+
+
+GROUPS = {"flash": (flash_lines, "flash_fwd"), "flash_bwd": (flash_bwd_lines, "flash_bwd"),
+          "int4": (int4_lines, "int4_matmul"), "decode": (decode_lines, "decode_attention"),
+          "chunk": (chunk_lines, "chunk_attention")}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("other_csrc", type=Path, help="the other version's csrc directory")
+    parser.add_argument("--only", nargs="+", choices=sorted(GROUPS), default=list(GROUPS),
+                        help="the kernel groups to time (default: all)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ab_kernels: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    other = build_other(args.other_csrc)
-    versions = {name: {"other": other[name], "this": _build.load(name)} for name in LIBS}
+    libs = [GROUPS[g][1] for g in args.only]
+    other = build_other(args.other_csrc, libs)
+    versions = {name: {"other": other[name], "this": _build.load(name)} for name in libs}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    flash_lines(versions, gen)
-    flash_bwd_lines(versions, gen)
-    int4_lines(versions, gen)
+    for group in args.only:
+        GROUPS[group][0](versions, gen)
 
 
 if __name__ == "__main__":

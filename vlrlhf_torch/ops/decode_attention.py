@@ -97,13 +97,37 @@ def check_cache(k_cache, v_cache, k_scale, v_scale, stacked: bool, layer) -> boo
     return quantized
 
 
+def c_args(q, k_cache, v_cache, k_cur, v_cur, lengths, o, scale, layer, k_scale, v_scale):
+    """The C entry point's arguments for checked operands, int32 `lengths`
+    on the card and the output `o` (the wrapper's, or one allocated once
+    for timing the kernel alone)."""
+    b, nh, hd = q.shape
+    nkv, s = k_cache.shape[-3], k_cache.shape[-2]
+    quantized = k_scale is not None
+    cs = k_cache.stride()[-4:]  # (batch, head, slot, 1) either way
+    ss = k_scale.stride()[-3:] if quantized else (0, 0, 1)
+    stacked = layer is not None
+    layer_offset = layer * k_cache.stride(0) if stacked else 0
+    s_layer_offset = layer * k_scale.stride(0) if stacked and quantized else 0
+    return (
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
+        k_cur.data_ptr(), v_cur.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+        b, nh, nkv, hd, s, int(quantized), layer_offset, s_layer_offset,
+        q.stride(0), q.stride(1),
+        cs[0], cs[1], cs[2], ss[0], ss[1],
+        k_cur.stride(0), k_cur.stride(1),
+        scale, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+
+
 def _launch(q, k_cache, v_cache, k_cur, v_cur, lengths, scale, layer, k_scale, v_scale):
     b, nh, hd = q.shape
     stacked = layer is not None
-    nkv, s = k_cache.shape[-3], k_cache.shape[-2]
+    nkv = k_cache.shape[-3]
     for name, t in (("q", q), ("k_cur", k_cur), ("v_cur", v_cur)):
         check_operand(name, t, torch.bfloat16)
-    quantized = check_cache(k_cache, v_cache, k_scale, v_scale, stacked, layer)
+    check_cache(k_cache, v_cache, k_scale, v_scale, stacked, layer)
     if nh % nkv or nh // nkv not in (1, 2, 4, 8) or hd % 8 or not 0 < hd <= 256:
         raise ValueError(
             f"decode kernel takes GQA groups of 1, 2, 4 or 8 and head_dim a "
@@ -115,20 +139,8 @@ def _launch(q, k_cache, v_cache, k_cur, v_cur, lengths, scale, layer, k_scale, v
     o = torch.empty((b, nh, hd), dtype=q.dtype, device=q.device)
     if b == 0:
         return o
-    cs = k_cache.stride()[-4:]  # (batch, head, slot, 1) either way
-    ss = k_scale.stride()[-3:] if quantized else (0, 0, 1)
-    layer_offset = layer * k_cache.stride(0) if stacked else 0
-    s_layer_offset = layer * k_scale.stride(0) if stacked and quantized else 0
     err = _build.fn("decode_attention", "decode_attention", _ARGS)(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        k_scale.data_ptr() if quantized else None, v_scale.data_ptr() if quantized else None,
-        k_cur.data_ptr(), v_cur.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-        b, nh, nkv, hd, s, int(quantized), layer_offset, s_layer_offset,
-        q.stride(0), q.stride(1),
-        cs[0], cs[1], cs[2], ss[0], ss[1],
-        k_cur.stride(0), k_cur.stride(1),
-        scale, torch.cuda.current_stream(q.device).cuda_stream,
-    )
+        *c_args(q, k_cache, v_cache, k_cur, v_cur, lengths, o, scale, layer, k_scale, v_scale))
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     return o
