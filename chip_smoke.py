@@ -14,10 +14,10 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      the backward) and relative Frobenius error against 1e-2, with the
      median |ref| printed; kernel, plain and yardstick times and each
      kernel's bound max(FLOPs / 989.4e12, bytes / 3.35e12); the flash
-     forward, the int4 matmuls and the decode and chunk attention kernels
-     are timed alone (their C entry points on preallocated outputs) and
-     through their wrappers, and each wrapper's host microseconds per call
-     are printed. Decode attention on a bf16 and an int8 cache, timed at
+     forward and backward kernels, the int4 matmuls and the decode and
+     chunk attention kernels are timed alone (their C entry points on
+     preallocated outputs) and through their wrappers, and each wrapper's
+     host microseconds per call are printed. Decode attention on a bf16 and an int8 cache, timed at
      length 640 and at a full cache (1023); chunk attention at the
      speculative verify shape (B=8, C=4) and a chat turn's (B=1, C=64),
      bf16 and int8 caches; the attention timings rotate over cache layers
@@ -143,8 +143,10 @@ def phase_build():
     for name, info in _build.ptxas_info.items():  # nvcc -Xptxas -v, all instantiations
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", info)]
         spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", info))
+        serial = sorted(set(re.findall(r"\((C75\d\d)\)", info)))  # "wgmma ... serialized"
         print(f"ptxas {name}: {len(regs)} kernels, max {max(regs, default=0)} registers, "
-              f"{spills} bytes of spill stores", flush=True)
+              f"{spills} bytes of spill stores, wgmma serialization warnings "
+              f"{serial or 'none'}", flush=True)
 
 
 def check_close(what: str, got: torch.Tensor, ref: torch.Tensor, atol: float) -> tuple:
@@ -163,22 +165,26 @@ def check_close(what: str, got: torch.Tensor, ref: torch.Tensor, atol: float) ->
                       f"(tol {REL_TOL}) median|ref|={med:.3e}")
 
 
-def _flash_bytes(b, s, h, hkv, d, grads: str) -> int:
-    """Bytes a flash launch must move: each input read once, each output
-    written once (bf16 tensors, f32 LSE / di, int32 segment ids)."""
-    q, kv, row = b * s * h * d * 2, b * s * hkv * d * 2, b * h * s * 4
-    seg = 2 * b * s * 4
+def _flash_bytes(lens, s, h, hkv, d, grads: str) -> int:
+    """Bytes a flash launch must move on rows of valid lengths `lens` padded
+    to `s`: each valid row's inputs read once (bf16 tensors, f32 LSE / di),
+    the segment ids read in full, each output written in full (a padded
+    row's output is 0 or -inf, but is written)."""
+    n, n_all = sum(lens), len(lens) * s
+    q, kv, row = h * d * 2, hkv * d * 2, h * 4
+    seg = 2 * n_all * 4
     if grads == "fwd":  # q, k, v, seg -> o, lse
-        return 2 * q + 2 * kv + row + seg
+        return n * (q + 2 * kv) + seg + n_all * (q + row)
     if grads == "dkv":  # q, k, v, do, lse, di, seg -> dk, dv
-        return 2 * q + 2 * kv + 2 * row + seg + 2 * kv
-    return 2 * q + 2 * kv + 2 * row + seg + q  # dq
+        return n * (2 * q + 2 * kv + 2 * row) + seg + n_all * 2 * kv
+    return n * (2 * q + 2 * kv + 2 * row) + seg + n_all * q  # dq
 
 
-def _flash_flops(b, s, h, d, causal: bool) -> float:
-    """Matmul FLOPs of one attention forward (QK^T and PV), causal tiles at
-    half occupancy."""
-    return 4.0 * b * h * s * s * d * (0.5 if causal else 1.0)
+def _flash_flops(lens, h, d, causal: bool) -> float:
+    """Matmul FLOPs of one attention forward (QK^T and PV) on rows of valid
+    lengths `lens`: a row of length L attends L(L+1)/2 (query, key) pairs
+    when causal, L^2 when not; padded rows and keys need none."""
+    return 4.0 * h * d * sum(n * (n + 1) / 2 if causal else n * n for n in lens)
 
 
 def flash_kernel_call(q, k, v, seg_q, seg_kv, causal: bool, scale: float):
@@ -197,6 +203,22 @@ def flash_kernel_call(q, k, v, seg_q, seg_kv, causal: bool, scale: float):
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], scale, int(causal),
             torch.cuda.current_stream().cuda_stream)
     return lambda: _build.check(fn(*args), "flash_fwd_bf16")
+
+
+def flash_bwd_kernel_call(symbol: str, q, k, v, do, lse, di, seg_q, seg_kv, causal: bool,
+                          scale: float):
+    """A closure that launches flash backward entry point `symbol`
+    (flash_bwd_dkv_bf16 or flash_bwd_dq_bf16) on outputs allocated once: the
+    kernel's own time, without the wrapper's checks and allocations (no
+    launch is counted)."""
+    from vlrlhf_torch.ops import _build
+    from vlrlhf_torch.ops.flash_attention import _BWD_ARGS, _bwd_args
+
+    dq = torch.empty_like(q) if symbol == "flash_bwd_dq_bf16" else None
+    dk, dv = (torch.empty_like(k), torch.empty_like(v)) if dq is None else (None, None)
+    fn = _build.fn("flash_bwd", symbol, _BWD_ARGS)
+    args = _bwd_args(q, k, v, do, lse, di, seg_q, seg_kv, dq, dk, dv, causal, scale)
+    return lambda: _build.check(fn(*args), symbol)
 
 
 def int4_kernel_call(name: str, a, d_c: int, d_in: int, d_out: int):
@@ -263,8 +285,8 @@ def phase_kernels():
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         l_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=h != hkv))
-        flops = _flash_flops(b, s, h, d, causal)
-        b_ms, b_by = bound(flops, _flash_bytes(b, s, h, hkv, d, "fwd"))
+        flops = _flash_flops(lens or (s,) * b, h, d, causal)
+        b_ms, b_by = bound(flops, _flash_bytes(lens or (s,) * b, s, h, hkv, d, "fwd"))
         print(f"flash {label} B={b} S={s} H={h} Hkv={hkv} D={d}: {report}; "
               f"kernel alone {k_ms:.4f} ms ({flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s, "
               f"{k_ms / l_ms:.2f}x sdpa), wrapper {w_ms:.4f} ms "
@@ -307,8 +329,12 @@ def phase_kernels():
             bwd_errs["dq" if name == "dq" else "dkv"].append(err)
             line.append(f"{name} {report}")
         args = (q, k, v, do, lse, di, seg_q, seg_kv, True, scale)
-        ms = {"dkv": time_ms(lambda: flash_bwd_dkv(*args)),
-              "dq": time_ms(lambda: flash_bwd_dq(*args))}
+        # each kernel alone (its C entry point on outputs allocated once) and
+        # through its wrapper, as FlashAttention.backward calls it
+        ms = {"dkv": time_ms(flash_bwd_kernel_call("flash_bwd_dkv_bf16", *args)),
+              "dq": time_ms(flash_bwd_kernel_call("flash_bwd_dq_bf16", *args))}
+        w_ms = {"dkv": time_ms(lambda: flash_bwd_dkv(*args)),
+                "dq": time_ms(lambda: flash_bwd_dq(*args))}
         plain_ms = time_ms(lambda: flash_attention_bwd_plain(*args), iters=3, warmup=1)
         # yardsticks: SDPA forward+backward, and its flash backward alone
         # (one aten call computing dQ, dK, dV from O and the LSE; MHA only)
@@ -329,26 +355,31 @@ def phase_kernels():
             lib_bwd_ms = time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
                 dot, qt, kt, vt, fo[0], fo[1], fo[2], fo[3], fo[4], fo[5], 0.0, True, fo[6],
                 fo[7], scale=scale))
-        fwd_flops = _flash_flops(b, s, h, d, True)
-        bounds = {"dkv": bound(2.0 * fwd_flops, _flash_bytes(b, s, h, hkv, d, "dkv")),
-                  "dq": bound(1.5 * fwd_flops, _flash_bytes(b, s, h, hkv, d, "dq"))}
-        pair_bound = bound(2.5 * fwd_flops, _flash_bytes(b, s, h, hkv, d, "dkv") + b * s * h * d * 2)
+        fwd_flops = _flash_flops(lens, h, d, True)
+        bounds = {"dkv": bound(2.0 * fwd_flops, _flash_bytes(lens, s, h, hkv, d, "dkv")),
+                  "dq": bound(1.5 * fwd_flops, _flash_bytes(lens, s, h, hkv, d, "dq"))}
+        pair_bound = bound(2.5 * fwd_flops, _flash_bytes(lens, s, h, hkv, d, "dkv") + b * s * h * d * 2)
+        flops = {"dkv": 2.0 * fwd_flops, "dq": 1.5 * fwd_flops}
+        kern = ", ".join(
+            f"{kname} kernel alone / wrapper {ms[kname]:.4f} / {w_ms[kname]:.4f} ms "
+            f"({flops[kname] / (ms[kname] * 1e-3) / 1e12:.1f} TFLOP/s alone, bound "
+            f"{bounds[kname][0]:.4f} ms ({bounds[kname][1]}), "
+            f"{bounds[kname][0] / ms[kname]:.2f} of it)" for kname in ("dkv", "dq"))
         print(f"flash backward {label} B={b} S={s} H={h} Hkv={hkv} D={d}: " + ", ".join(line)
-              + f"; dkv kernel {ms['dkv']:.4f} ms (bound {bounds['dkv'][0]:.4f} ms, "
-              f"{bounds['dkv'][1]}), dq kernel {ms['dq']:.4f} ms (bound {bounds['dq'][0]:.4f} ms, "
-              f"{bounds['dq'][1]}), pair {ms['dkv'] + ms['dq']:.4f} ms (bound at 2.5x forward "
+              + f"; {kern}; pair alone {ms['dkv'] + ms['dq']:.4f} ms (bound at 2.5x forward "
               f"{pair_bound[0]:.4f} ms); plain {plain_ms:.4f} ms; sdpa fwd+bwd {fb_ms:.4f} ms, "
               f"sdpa flash backward alone "
               f"{'n/a (GQA)' if lib_bwd_ms is None else f'{lib_bwd_ms:.4f} ms'}", flush=True)
         for kname in ("dkv", "dq"):
-            bwd[kname][label] = (ms[kname], plain_ms, lib_bwd_ms, *bounds[kname], fb_ms)
+            bwd[kname][label] = (ms[kname], plain_ms, lib_bwd_ms, *bounds[kname], fb_ms,
+                                 w_ms[kname])
         del qt, kt, vt, fo
     for kname in ("dkv", "dq"):
         m = bwd[kname]["dpo_lm_causal"]
         results[f"flash_bwd_{kname}"] = {
             "max_abs_err": max(bwd_errs[kname]), "ms": m[0], "plain_ms": m[1],
             "library_ms": m[2], "bound_ms": m[3], "bound_by": m[4], "sdpa_fwd_bwd_ms": m[5],
-            "cases": bwd[kname],
+            "wrapper_ms": m[6], "cases": bwd[kname],
         }
 
     results["decode_attention"] = decode_kernel_checks(randn)
@@ -1365,7 +1396,7 @@ def profile_breakdown(fn, label: str) -> None:
         print(f"profile {label}: the profiler saw no device time", flush=True)
         return
     groups = {"flash_fwd": ("flash_fwd_kernel",), "flash_bwd_dkv": ("flash_bwd_dkv_",),
-              "flash_bwd_dq": ("flash_bwd_dq_kernel",), "decode": ("decode_split_kernel",),
+              "flash_bwd_dq": ("flash_bwd_dq_",), "decode": ("decode_split_kernel",),
               "chunk": ("chunk_split_kernel", "chunk_mma_kernel"),  # short / long chunks
               "int4_matmul_t": ("int4_matmul_t_",),  # before int4_matmul: both designs
               "int4_matmul": ("int4_matmul_kernel",),  # T <= 64

@@ -124,14 +124,14 @@ def test_fully_masked_rows_give_zero_and_finite_grads():
     (True, 2, 640, 32, 8, 128, (640, 601)),  # GQA
     (False, 1, 200, 4, 4, 64, (200,)),
     (True, 2, 40, 4, 2, 8, (40, 33)),  # the synthetic head_dim, ragged tiles
-    (True, 1, 130, 4, 2, 256, (130,)),  # the widest head_dim: the mma.sync dK/dV kernel, by shape
+    (True, 1, 130, 4, 2, 256, (130,)),  # the widest head_dim: the mma.sync dK/dV and dQ kernels, by shape
     (True, 1, 65, 4, 4, 64, None),  # one key and one query past a tile
     (False, 2, 129, 4, 2, 128, (129, 100)),
     (True, 2, 577, 4, 4, 64, (577, 500)),  # the tower's ragged length
     (False, 1, 577, 2, 2, 128, None),
     (True, 2, 129, 32, 8, 128, (129, 77)),  # GQA 32 / 8 at ragged tiles
     (False, 1, 130, 2, 2, 72, None),  # D read through TMA's zero fill up to 128
-])
+])  # every other case reaches the wgmma dK/dV and dQ kernels
 def test_kernels_match_plain_on_card(causal, b, s, h, hkv, d, lens):
     """bf16 kernels vs the plain backward in f32 on the same bf16 values,
     for dQ (valid rows), dK, dV: max abs error <= 2e-2 * max(1, max |ref|),
@@ -230,3 +230,102 @@ def test_dkv_kernel_fully_masked_rows_on_card():
     dk, dv = _card_dkv(q, k, v, w, seg_q, seg_kv, True,
                        torch.ones((b, s), dtype=torch.bool, device="cuda"))
     assert torch.all(dk[0, 140:] == 0) and torch.all(dv[0, 140:] == 0)
+
+
+def _card_dq(q, k, v, w, seg_q, seg_kv, causal, rows):
+    """The dQ kernel (one counted launch) vs the plain backward in f32 on the
+    same bf16 values, over every row (a row that matches no key gets 0 on
+    both sides), at the bounds above; dO is `w` on `rows` and 0 elsewhere.
+    The LSE comes from the forward kernel. Returns (dQ, the launch's
+    arguments) so a test can launch again."""
+    from vlrlhf_torch.ops.flash_attention import flash_bwd_dq
+
+    scale = q.shape[-1] ** -0.5
+    o, lse = flash_attention(q, k, v, causal=causal, segment_ids_q=seg_q,
+                             segment_ids_kv=seg_kv, return_lse=True)
+    do = torch.where(rows[..., None, None], w, 0.0).bfloat16().contiguous()
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, di, seg_q, seg_kv, causal, scale)
+    before = flash_bwd_dq.launches
+    dq = flash_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert flash_bwd_dq.launches == before + 1
+    rq, _, _ = flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(), lse, di,
+                                         seg_q, seg_kv, causal, scale)
+    assert torch.isfinite(dq.float()).all()
+    err = float((dq.float() - rq).abs().max())
+    tol = 2e-2 * max(1.0, float(rq.abs().max()))
+    rel = float((dq.float() - rq).norm() / rq.norm())
+    assert err <= tol and rel <= 1e-2, ("dq", err, tol, rel)
+    return dq, args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_dq_kernel_segments_inside_a_tile_on_card(causal):
+    """Packed sequences: several segments inside one key tile (lengths
+    5-70), so no tile is uniform and every one takes the masked path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    b, s, h, d = 2, 300, 4, 128
+    q, k, v, w = _card_tensors(8, b, s, h, h, d)
+    rng = np.random.default_rng(9)
+    seg = np.repeat(np.arange(60), rng.integers(5, 71, 60))[: b * s].reshape(b, s)
+    seg = torch.from_numpy(seg).cuda().to(torch.int32)
+    _card_dq(q, k, v, w, seg, seg, causal, torch.ones((b, s), dtype=torch.bool, device="cuda"))
+
+
+@pytest.mark.cuda
+def test_dq_kernel_fully_masked_rows_on_card():
+    """Query rows whose segment matches no key (LSE -inf) with a nonzero
+    upstream gradient get dQ exactly 0; every other row is finite and
+    matches the plain backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    b, s, h, d = 1, 150, 2, 128
+    q, k, v, w = _card_tensors(10, b, s, h, h, d)
+    seg_q = torch.zeros((b, s), dtype=torch.int32, device="cuda")
+    seg_q[0, 100:] = 7  # no key carries segment 7
+    seg_kv = torch.zeros((b, s), dtype=torch.int32, device="cuda")
+    seg_kv[0, 140:] = 5  # and no query carries segment 5
+    dq, _ = _card_dq(q, k, v, w, seg_q, seg_kv, True,
+                     torch.ones((b, s), dtype=torch.bool, device="cuda"))
+    assert torch.all(dq[0, 100:] == 0)
+    assert torch.any(dq[0, :100] != 0)
+
+
+def _padded_segments(b, s, lens):
+    pad = torch.arange(s, device="cuda")[None] < torch.tensor(lens, device="cuda")[:, None]
+    return pad, make_segments(b, s, pad.device, None, pad, Q_PAD_SEG), \
+        make_segments(b, s, pad.device, None, pad, KV_PAD_SEG)
+
+
+@pytest.mark.cuda
+def test_dq_kernel_long_causal_rows_with_a_short_row_on_card():
+    """S = 1024 with a second row of 300 tokens: the query blocks launch
+    heaviest first (reversed grid), and for the short row every block past
+    token 300 meets the ragged edge of its keys; those rows get dQ 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    b, s, h, d = 2, 1024, 4, 128
+    q, k, v, w = _card_tensors(11, b, s, h, h, d)
+    pad, seg_q, seg_kv = _padded_segments(b, s, (1024, 300))
+    dq, _ = _card_dq(q, k, v, w, seg_q, seg_kv, True, pad)
+    assert torch.all(dq[1, 300:] == 0)
+
+
+@pytest.mark.cuda
+def test_dq_kernel_is_deterministic_on_card():
+    """No atomics: two launches on the same inputs give bit-identical dQ
+    (S = 1024, GQA 32 / 8, ragged rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from vlrlhf_torch.ops.flash_attention import flash_bwd_dq
+
+    b, s, h, hkv, d = 2, 1024, 32, 8, 128
+    q, k, v, w = _card_tensors(12, b, s, h, hkv, d)
+    pad, seg_q, seg_kv = _padded_segments(b, s, (1000, 900))
+    first, args = _card_dq(q, k, v, w, seg_q, seg_kv, True, pad)
+    second = flash_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

@@ -20,18 +20,27 @@
 //
 // What bounds it on the H100: 2.5x the forward's matmul work (QK^T and dO V^T
 // recomputed, then P^T dO, dS^T Q and dS K) over the same bytes, so it is
-// compute-bound at S ~ 1000, D = 128.
-//   dK/dV (D <= 128): flash_bwd_dkv_wgmma_kernel, the forward's Hopper
-//     machinery (hopper.cuh): TMA, an mbarrier ring, a producer warp and two
-//     consumer warpgroups running wgmma, 128 keys a CTA (details at the
-//     kernel). D = 256 does not fit its dK and dV accumulators in registers
-//     and dispatches by shape to flash_bwd_dkv_kernel below.
-//   FlashAttention-2 structure on mma.sync m16n8k16, 4 warps a CTA, every
-//   warp owning 16 rows end to end:
-//   dK/dV at D = 256: a CTA owns 64 keys of one KV head; each warp computes
-//     S^T and dP^T for its 16 keys against a 32-query tile, turns them into
-//     P^T and dS^T in registers and feeds them straight back as the A operand
-//     of dV += P^T dO and dK += dS^T Q. dK and dV accumulate in f32 registers
+// compute-bound at S ~ 1000, D = 128: each kernel has to keep the tensor
+// cores fed, which on Hopper means wgmma from swizzled shared memory that TMA
+// fills while the previous tile is in use. Both kernels (D <= 128) are the
+// forward's Hopper machinery (hopper.cuh): TMA, an mbarrier ring, a producer
+// warp and two consumer warpgroups running wgmma (details at each kernel).
+//   dK/dV (flash_bwd_dkv_wgmma_kernel): 128 keys a CTA, Q and dO streamed.
+//   dQ (flash_bwd_dq_wgmma_kernel): 128 queries a CTA, Q and dO loaded once,
+//     K and V streamed; it recomputes S and dP (two of its three GEMMs), so
+//     it costs 1.5x the forward's work. mma.sync on fragments re-read
+//     through ldmatrix, behind loads it waits for, reaches about a tenth of
+//     the H100's bf16 peak here; so the ring's TMA loads, one warpgroup's
+//     exp / dS work and the other's GEMMs overlap, and each tile's dQ
+//     product stays in flight under the next tile's S and dP.
+// D = 256 does not fit the wgmma kernels' f32 accumulators in registers (dK
+// and dV 128 each; dQ 128 beside S and dP) and dispatches by shape to the
+// FlashAttention-2 kernels below, on mma.sync m16n8k16, 4 warps a CTA, every
+// warp owning 16 rows end to end:
+//   dK/dV: a CTA owns 64 keys of one KV head; each warp computes S^T and
+//     dP^T for its 16 keys against a 32-query tile, turns them into P^T and
+//     dS^T in registers and feeds them straight back as the A operand of
+//     dV += P^T dO and dK += dS^T Q. dK and dV accumulate in f32 registers
 //     across every query tile of every head in the GQA group. Q, dO (and
 //     their LSE, di, segment ids) stream through a 2-stage cp.async ring;
 //     causal skipping starts at the first query tile that reaches the KV
@@ -42,7 +51,7 @@
 //     diagonal.
 // The mma.sync kernels re-read operand fragments from shared memory with
 // ldmatrix (padded rows, conflict-free) instead of holding them in
-// registers, which keeps the f32 accumulators in registers at D = 128.
+// registers, which keeps the f32 accumulators in registers.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
@@ -67,10 +76,10 @@ using hopper::smem_u32;
 constexpr int NTHREADS = 128;  // 4 warps x 16 rows
 constexpr int MAX_D = 256;
 constexpr int Q_PAD_SEG = -3;
-constexpr int DKV_BN = 64;  // dK/dV kernel: keys per CTA
-constexpr int DKV_BM = 32;  // dK/dV kernel: queries per streamed tile
-constexpr int DQ_BM = 64;   // dQ kernel: queries per CTA
-constexpr int DQ_BN = 64;   // dQ kernel: keys per streamed tile
+constexpr int DKV_BN = 64;  // mma.sync dK/dV kernel: keys per CTA
+constexpr int DKV_BM = 32;  // mma.sync dK/dV kernel: queries per streamed tile
+constexpr int DQ_BM = 64;   // mma.sync dQ kernel: queries per CTA
+constexpr int DQ_BN = 64;   // mma.sync dQ kernel: keys per streamed tile
 
 typedef __nv_bfloat16 bf16;
 
@@ -135,7 +144,7 @@ __device__ inline void load_b_trans(uint32_t (&b)[4], const bf16* tile, int k0, 
   ldmatrix_x4_trans(b, tile + (k0 + (lane % 16)) * LD + n0 + (lane / 16) * 8);
 }
 
-// ─────────────────────────────── dK / dV ───────────────────────────────
+// ─────────────────────────── dK / dV on mma.sync (D = 256) ───────────────────────────
 
 template <int DP>
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(Params p) {
@@ -602,7 +611,7 @@ __global__ void __launch_bounds__(WTHREADS, 1)
   }
 }
 
-// ──────────────────────────────── dQ ────────────────────────────────
+// ─────────────────────────── dQ on mma.sync (D = 256) ───────────────────────────
 
 template <int DP>
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(Params p) {
@@ -756,6 +765,317 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(Params p) {
   }
 }
 
+// ──────────────────────────── dQ on wgmma (D <= 128) ────────────────────────────
+//
+// One CTA per (128 queries, head, batch row), three warpgroups, the forward's
+// structure with its operand roles. Warp 0 of the first is the producer: it
+// TMA-loads the CTA's Q and dO tiles once, then streams BN-key tiles of K and
+// V (KV head h / (H / Hkv)) through a ring of ST stages, and beside each
+// tile writes its key segment ids and their min / max to shared memory.
+// setmaxnreg hands its registers to the two consumer warpgroups, which own
+// 64 queries each and hold their rows' base-2 LSE and di in registers. Per
+// key tile a consumer computes
+//   S = Q K^T and dP = dO V^T      (wgmma, both operands K-major along D, two
+//                                   commit groups: P is built while dP is
+//                                   still in flight),
+//   P = exp2(S scale log2(e) - lse2[row]) under the mask and
+//   dS = P (dP - di[row])          (f32 registers),
+//   dQ += dS K                     (wgmma with dS packed to bf16 as the
+//                                   register A operand, K read MN-major
+//                                   through its descriptor, as the forward
+//                                   reads V: no transpose copy).
+// A tile's dQ product is issued with the next tile's S and dP and finishes
+// under that tile's exp / dS work; the two consumers take turns to issue
+// (named barriers 1 and 2), so one's elementwise work runs under the other's
+// GEMMs. dQ stays in f32 registers and takes the softmax scale once at the
+// end. A row past Sq or fully masked (LSE -inf) carries lse2 = +inf, so its
+// p is 0 before any product and its dQ exactly 0. Masks apply only to tiles
+// that straddle the diagonal, the ragged Skv edge (missing keys carry
+// segment INT_MIN) or a segment boundary, decided per warp from the tile's
+// segment range. Causal work stops at each warpgroup's own diagonal (the
+// first consumer's last tile past it is skipped) and query blocks launch
+// heaviest first (the block index is reversed and is the grid's slowest
+// dimension). Each CTA owns its dQ rows outright: no atomics, deterministic.
+
+constexpr int DQW_BM = 128;  // queries per CTA: 64 per consumer warpgroup
+
+// Shared-memory plan (byte offsets from a 1024-aligned base). Each operand
+// tile is DP/64 blocks of rows x 128 bytes in the 128-byte swizzle.
+template <int DP, int BN, int ST>
+struct DqPlan {
+  static constexpr int CH = DP / 64;
+  static constexpr int Q_BYTES = CH * DQW_BM * 128;  // Q or dO
+  static constexpr int KV_BYTES = CH * BN * 128;     // one K or V tile
+  static constexpr int DO_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + ST * KV_BYTES;
+  static constexpr int SEG_OFF = V_OFF + ST * KV_BYTES;    // int [ST][BN]
+  static constexpr int RANGE_OFF = SEG_OFF + ST * BN * 4;  // int2 [ST]: min, max
+  static constexpr int BAR_OFF = RANGE_OFF + ST * 8;       // q, full[ST], empty[ST]
+  static constexpr int ALLOC = BAR_OFF + (1 + 2 * ST) * 8 + 1024;  // + alignment slack
+};
+
+template <int DP, int BN, int ST>
+__global__ void __launch_bounds__(WTHREADS, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do, const Params p) {
+  using namespace hopper;
+  using L = DqPlan<DP, BN, ST>;
+  constexpr int CH = L::CH;
+  // the first consumer skips at most the tiles of the CTA's last 64 rows,
+  // which are the last tiles and are never refilled
+  static_assert(ST >= 2 && ST * BN >= 64, "ring too short");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sQ = smem;
+  unsigned char* sdO = smem + L::DO_OFF;
+  unsigned char* sK = smem + L::K_OFF;
+  unsigned char* sV = smem + L::V_OFF;
+  int* sSeg = reinterpret_cast<int*>(smem + L::SEG_OFF);
+  int2* sRange = reinterpret_cast<int2*>(smem + L::RANGE_OFF);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + ST;
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int n_mblocks = (p.Sq + DQW_BM - 1) / DQW_BM;
+  const int m0 = (p.causal ? n_mblocks - 1 - (int)blockIdx.z : (int)blockIdx.z) * DQW_BM;
+  const int hk = h / (p.H / p.Hkv);
+  // key tiles the CTA's rows can see, and those its first 64 rows can
+  const int n_tiles = ((p.causal ? min(p.Skv, m0 + DQW_BM) : p.Skv) + BN - 1) / BN;
+  const int n_first = ((p.causal ? min(p.Skv, m0 + 64) : p.Skv) + BN - 1) / BN;
+  // warp-uniform as far as the compiler can see (a divergent-looking branch
+  // around wgmma makes ptxas serialize it)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 33);  // TMA bytes + the producer warp's 32 lanes (segment ids)
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---------------- producer ----------------
+    setmaxnreg_dec<24>();
+    if (threadIdx.x >= 32 || n_tiles == 0) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_q, 2 * L::Q_BYTES);
+      for (int c = 0; c < CH; ++c) {
+        tma_load_4d(sQ + c * DQW_BM * 128, &tm_q, bar_q, c * 64, h, m0, b);
+        tma_load_4d(sdO + c * DQW_BM * 128, &tm_do, bar_q, c * 64, h, m0, b);
+      }
+    }
+    const int* segkv = p.seg_kv + (long long)b * p.Skv;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % ST;
+      const int n0 = it * BN;
+      mbar_wait(&empty[st], ((it / ST) & 1) ^ 1);
+      if (lane == 0) {  // the tiles first, so the segment loads below overlap them
+        mbar_arrive_expect_tx(&full[st], 2 * L::KV_BYTES);
+        for (int c = 0; c < CH; ++c) {
+          tma_load_4d(sK + st * L::KV_BYTES + c * BN * 128, &tm_k, &full[st], c * 64, hk, n0, b);
+          tma_load_4d(sV + st * L::KV_BYTES + c * BN * 128, &tm_v, &full[st], c * 64, hk, n0, b);
+        }
+      }
+      int lo = INT_MAX, hi = INT_MIN;
+      for (int j = lane; j < BN; j += 32) {
+        const int s = n0 + j < p.Skv ? segkv[n0 + j] : INT_MIN;  // the ragged edge never matches
+        sSeg[st * BN + j] = s;
+        lo = min(lo, s);
+        hi = max(hi, s);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2) {
+        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+      }
+      if (lane == 0) sRange[st] = make_int2(lo, hi);
+      mbar_arrive(&full[st]);  // each lane releases its own segment-id stores
+    }
+    return;
+  }
+
+  // ---------------- consumers: 64 queries each ----------------
+  setmaxnreg_inc<240>();
+  const int cw = wg - 1;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int g = lane / 4;   // row within the warp's 8-row half
+  const int tq = lane % 4;  // lane within the quad
+  const int my_tiles = cw == 0 ? n_first : n_tiles;
+  int qrow[2], segq[2];
+  float lse2[2], dis[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    qrow[i] = m0 + cw * 64 + warp * 16 + g + 8 * i;
+    const bool ok = qrow[i] < p.Sq;
+    const long long row = ((long long)b * p.H + h) * p.Sq + qrow[i];
+    segq[i] = ok ? p.seg_q[(long long)b * p.Sq + qrow[i]] : Q_PAD_SEG;
+    const float l = ok ? p.lse[row] : -INFINITY;
+    lse2[i] = l == -INFINITY ? INFINITY : l * LOG2E;  // p = 2^(x - inf) = 0
+    dis[i] = ok ? p.di[row] : 0.f;
+  }
+  const float scale_log2 = p.scale * LOG2E;
+
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  float s[BN / 2], dp[BN / 2];
+  uint32_t da[BN / 16][4];  // dS of the tile whose dQ product is in flight
+  const uint64_t a_q = desc_sw128(sQ + cw * 64 * 128, 16, 1024);
+  const uint64_t a_do = desc_sw128(sdO + cw * 64 * 128, 16, 1024);
+  if (my_tiles > 0) mbar_wait(bar_q, 0);
+
+  auto issue_s_dp = [&](int st) {  // S = Q K^T, then dP = dO V^T: two commit groups
+    const uint64_t bk = desc_sw128(sK + st * L::KV_BYTES, 16, 1024);
+    const uint64_t bv = desc_sw128(sV + st * L::KV_BYTES, 16, 1024);
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) {
+      const int off = (ks / 4) * (DQW_BM * 128) + (ks % 4) * 32;
+      const int koff = (ks / 4) * (BN * 128) + (ks % 4) * 32;
+      wgmma_ss<BN>(s, a_q + (off >> 4), bk + (koff >> 4), ks > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) {
+      const int off = (ks / 4) * (DQW_BM * 128) + (ks % 4) * 32;
+      const int koff = (ks / 4) * (BN * 128) + (ks % 4) * 32;
+      wgmma_ss<BN>(dp, a_do + (off >> 4), bv + (koff >> 4), ks > 0);
+    }
+    wgmma_commit();
+  };
+  auto issue_dq = [&](int st) {  // dQ += dS K, K MN-major (keys are rows)
+    const uint64_t bk = desc_sw128(sK + st * L::KV_BYTES, BN * 128, 1024);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs_tb<DP>(acc, da[kk], bk + ((kk * 2048) >> 4), 1);
+    wgmma_commit();
+  };
+  // S -> P in place: scale (base 2), minus the row's lse2, masked where the
+  // tile needs it
+  auto make_p = [&](int st, int n0) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) fence_operand(s[i]);
+    const int2 rg = sRange[st];
+    const bool uniform = rg.x == rg.y && rg.x == segq[0] && rg.x == segq[1];
+    const bool below = !p.causal || n0 + BN - 1 <= qrow[0];
+    if (__all_sync(0xffffffffu, uniform && below)) {  // decided per warp
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) s[i] = fast_exp2(s[i] * scale_log2 - lse2[(i / 2) % 2]);
+    } else {
+      const int* seg = sSeg + st * BN;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int cl = j * 8 + tq * 2;
+        const int sk[2] = {seg[cl], seg[cl + 1]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e / 2;
+          const bool ok = (!p.causal || n0 + cl + (e % 2) <= qrow[r]) && sk[e % 2] == segq[r];
+          s[4 * j + e] = ok ? fast_exp2(s[4 * j + e] * scale_log2 - lse2[r]) : 0.f;
+        }
+      }
+    }
+  };
+  auto make_ds = [&]() {  // dP -> dS in place
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      fence_operand(dp[i]);
+      dp[i] = s[i] * (dp[i] - dis[(i / 2) % 2]);
+    }
+  };
+  auto pack_ds = [&]() {  // dS in bf16 as wgmma's register A fragments (mma.sync's A layout)
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      da[kk][0] = pack_bf16(dp[8 * kk + 0], dp[8 * kk + 1]);
+      da[kk][1] = pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]);
+      da[kk][2] = pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]);
+      da[kk][3] = pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7]);
+    }
+  };
+  auto release = [&](int st) {  // this warp is done with stage st
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  };
+  // The consumers take turns to issue their GEMMs (named barriers 1 and 2).
+  // The first walks n_first tiles, the second n_tiles >= n_first; the turns
+  // pair up over the first n_first, the second gives the first its first
+  // turn, and past n_first the second issues alone.
+  auto wait_turn = [&](int it) {
+    if (wg == 1 || it < n_first) bar_sync(wg, 256);
+  };
+  auto pass_turn = [&](int it) {
+    if (wg == 1 || it + 1 < n_first) bar_arrive(3 - wg, 256);
+  };
+  if (wg == 2 && n_first > 0) bar_arrive(1, 256);
+
+  // straight-line loop bodies, so ptxas can follow the commit groups
+  if (my_tiles > 0) {  // tile 0: no dQ product in flight yet
+    mbar_wait(&full[0], 0);
+    wait_turn(0);
+    wgmma_fence();
+    issue_s_dp(0);
+    pass_turn(0);
+    wgmma_wait<1>();  // S is ready; dP is still in flight
+    make_p(0, 0);
+    wgmma_wait<0>();
+    make_ds();
+    pack_ds();
+  }
+  for (int it = 1; it < my_tiles; ++it) {
+    const int st = it % ST;
+    const int pst = (it - 1) % ST;  // the previous tile's stage
+    mbar_wait(&full[st], (it / ST) & 1);
+    wait_turn(it);
+    wgmma_fence();
+    issue_s_dp(st);
+    issue_dq(pst);  // the previous tile's dQ runs under this tile's exp / dS work
+    pass_turn(it);
+    wgmma_wait<2>();  // S is ready
+    make_p(st, it * BN);
+    wgmma_wait<1>();  // dP is ready
+    make_ds();
+    wgmma_wait<0>();  // the previous dQ is done: its dS registers and stage are free
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) fence_operand(acc[i]);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) fence_operand(da[kk][e]);
+    release(pst);
+    pack_ds();
+  }
+  if (my_tiles > 0) {  // the last tile's dQ
+    const int st = (my_tiles - 1) % ST;
+    wgmma_fence();
+    issue_dq(st);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) fence_operand(acc[i]);
+    release(st);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qrow[r] >= p.Sq) continue;
+    bf16* out = p.dq + (((long long)b * p.Sq + qrow[r]) * p.H + h) * p.D;
+#pragma unroll
+    for (int t = 0; t < DP / 8; ++t) {
+      const int d = t * 8 + tq * 2;
+      if (d < p.D) {
+        *reinterpret_cast<__nv_bfloat162*>(out + d) = __floats2bfloat162_rn(
+            acc[4 * t + 2 * r] * p.scale, acc[4 * t + 2 * r + 1] * p.scale);
+      }
+    }
+  }
+}
+
 // ─────────────────────────────── launch ───────────────────────────────
 
 template <int DP>
@@ -776,17 +1096,6 @@ int launch_dkv(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// A 4D map over one (B, S, H, D) operand, dims innermost first (D, H, S, B),
-// box 64 columns x `rows` positions of one head and batch row.
-int make_map(CUtensorMap* map, const void* base, int D, int H, int S, int B, long long sb,
-             long long ss, long long sh, int rows) {
-  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)max(S, 1), (uint64_t)B};
-  const uint64_t strides[3] = {(uint64_t)sh * 2, (uint64_t)ss * 2, (uint64_t)sb * 2};
-  const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
-  return hopper::encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides,
-                                   box, CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
 template <int DP, int ST>
 int launch_dkv_wgmma(const Params& p, cudaStream_t stream) {
   constexpr int smem = DkvPlan<DP, ST>::ALLOC;
@@ -799,10 +1108,10 @@ int launch_dkv_wgmma(const Params& p, cudaStream_t stream) {
   }
   const long long do_ss = (long long)p.H * p.D;  // dO is contiguous
   CUtensorMap tq, tk, tv, tdo;
-  int err = make_map(&tq, p.q, p.D, p.H, p.Sq, p.B, p.q_sb, p.q_ss, p.q_sh, WBM);
-  if (!err) err = make_map(&tk, p.k, p.D, p.Hkv, p.Skv, p.B, p.k_sb, p.k_ss, p.k_sh, WBN);
-  if (!err) err = make_map(&tv, p.v, p.D, p.Hkv, p.Skv, p.B, p.v_sb, p.v_ss, p.v_sh, WBN);
-  if (!err) err = make_map(&tdo, p.dout, p.D, p.H, p.Sq, p.B, p.Sq * do_ss, do_ss, p.D, WBM);
+  int err = hopper::make_bshd_map(&tq, p.q, p.D, p.H, p.Sq, p.B, p.q_sb, p.q_ss, p.q_sh, WBM);
+  if (!err) err = hopper::make_bshd_map(&tk, p.k, p.D, p.Hkv, p.Skv, p.B, p.k_sb, p.k_ss, p.k_sh, WBN);
+  if (!err) err = hopper::make_bshd_map(&tv, p.v, p.D, p.Hkv, p.Skv, p.B, p.v_sb, p.v_ss, p.v_sh, WBN);
+  if (!err) err = hopper::make_bshd_map(&tdo, p.dout, p.D, p.H, p.Sq, p.B, p.Sq * do_ss, do_ss, p.D, WBM);
   if (err) return err;
   dim3 grid(p.Hkv, p.B, (p.Skv + WBN - 1) / WBN);
   flash_bwd_dkv_wgmma_kernel<DP, ST><<<grid, WTHREADS, smem, stream>>>(tq, tk, tv, tdo, p);
@@ -824,6 +1133,31 @@ int launch_dq(const Params& p, cudaStream_t stream) {
   }
   dim3 grid((p.Sq + DQ_BM - 1) / DQ_BM, p.H, p.B);
   flash_bwd_dq_kernel<DP><<<grid, NTHREADS, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int DP, int BN, int ST>
+int launch_dq_wgmma(const Params& p, cudaStream_t stream) {
+  constexpr int smem = DqPlan<DP, BN, ST>::ALLOC;
+  static bool configured = false;  // per instantiation
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<DP, BN, ST>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const long long do_ss = (long long)p.H * p.D;  // dO is contiguous
+  CUtensorMap tq, tk, tv, tdo;
+  int err = hopper::make_bshd_map(&tq, p.q, p.D, p.H, p.Sq, p.B, p.q_sb, p.q_ss, p.q_sh, DQW_BM);
+  if (!err) err = hopper::make_bshd_map(&tk, p.k, p.D, p.Hkv, p.Skv, p.B, p.k_sb, p.k_ss, p.k_sh, BN);
+  if (!err) err = hopper::make_bshd_map(&tv, p.v, p.D, p.Hkv, p.Skv, p.B, p.v_sb, p.v_ss, p.v_sh, BN);
+  if (!err) {
+    err = hopper::make_bshd_map(&tdo, p.dout, p.D, p.H, p.Sq, p.B, p.Sq * do_ss, do_ss, p.D,
+                                DQW_BM);
+  }
+  if (err) return err;
+  dim3 grid(p.H, p.B, (p.Sq + DQW_BM - 1) / DQW_BM);
+  flash_bwd_dq_wgmma_kernel<DP, BN, ST><<<grid, WTHREADS, smem, stream>>>(tq, tk, tv, tdo, p);
   return (int)cudaGetLastError();
 }
 
@@ -884,9 +1218,12 @@ extern "C" int flash_bwd_dq_bf16(FLASH_BWD_ARGS) {
   Params p;
   if (!FLASH_BWD_FILL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 16) return launch_dq<16>(p, st);
-  if (D <= 32) return launch_dq<32>(p, st);
-  if (D <= 64) return launch_dq<64>(p, st);
-  if (D <= 128) return launch_dq<128>(p, st);
+  // by shape: D <= 128 is the wgmma kernel (a smaller D reads TMA's zero
+  // fill); at D = 256 the dQ accumulator alone would take 128 registers a
+  // thread beside S and dP, so it keeps the mma.sync kernel. D = 128's 4
+  // stages were timed against 5; D = 64's 6 (16 KB each, a ring near D =
+  // 128's 128 KB) are untimed, as no path runs a D = 64 backward
+  if (D <= 64) return launch_dq_wgmma<64, 64, 6>(p, st);
+  if (D <= 128) return launch_dq_wgmma<128, 64, 4>(p, st);
   return launch_dq<256>(p, st);
 }

@@ -199,15 +199,13 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   // walk all n_tiles tiles (the first one's tiles past its diagonal are
   // masked), so the turns pair up; the second warpgroup gives the first its
   // first turn and skips passing its last.
-  auto wait_turn = [&]() {
-    asm volatile("bar.sync %0, 256;\n" ::"r"(wg) : "memory");
-  };
+  auto wait_turn = [&]() { bar_sync(wg, 256); };
   auto pass_turn = [&](int it) {
     if (wg == 1 || it + 1 < n_tiles) {
-      asm volatile("bar.arrive %0, 256;\n" ::"r"(3 - wg) : "memory");
+      bar_arrive(3 - wg, 256);
     }
   };
-  if (wg == 2 && n_tiles > 0) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+  if (wg == 2 && n_tiles > 0) bar_arrive(1, 256);
 
   auto issue_s = [&](int st) {  // S = Q K^T over the head dim, one commit group
     const uint64_t dk = desc_sw128(sK + st * L::KV_BYTES, 16, 1024);
@@ -350,17 +348,6 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
-// A 4D map over one (B, S, H, D) operand, dims innermost first (D, H, S, B),
-// box 64 columns x `rows` positions of one head and batch row.
-int make_map(CUtensorMap* map, const void* base, int D, int H, int S, int B, long long sb,
-             long long ss, long long sh, int rows) {
-  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)max(S, 1), (uint64_t)B};
-  const uint64_t strides[3] = {(uint64_t)sh * 2, (uint64_t)ss * 2, (uint64_t)sb * 2};
-  const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
-  return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box,
-                           CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
 template <int DP, int BN, int ST>
 int launch(const void* q, const void* k, const void* v, Params p, const long long* st,
            cudaStream_t stream) {
@@ -373,9 +360,9 @@ int launch(const void* q, const void* k, const void* v, Params p, const long lon
     configured = true;
   }
   CUtensorMap tq, tk, tv;
-  int err = make_map(&tq, q, p.D, p.H, p.Sq, p.B, st[0], st[1], st[2], BM);
-  if (!err) err = make_map(&tk, k, p.D, p.Hkv, p.Skv, p.B, st[3], st[4], st[5], BN);
-  if (!err) err = make_map(&tv, v, p.D, p.Hkv, p.Skv, p.B, st[6], st[7], st[8], BN);
+  int err = make_bshd_map(&tq, q, p.D, p.H, p.Sq, p.B, st[0], st[1], st[2], BM);
+  if (!err) err = make_bshd_map(&tk, k, p.D, p.Hkv, p.Skv, p.B, st[3], st[4], st[5], BN);
+  if (!err) err = make_bshd_map(&tv, v, p.D, p.Hkv, p.Skv, p.B, st[6], st[7], st[8], BN);
   if (err) return err;
   p.n_mblocks = (p.Sq + BM - 1) / BM;
   dim3 grid(p.H, p.B, p.n_mblocks);

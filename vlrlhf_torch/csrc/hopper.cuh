@@ -2,7 +2,8 @@
 // TMA tile loads and 1-D bulk copies, named barriers, the mma.sync
 // fragment loads and m16n8k16 product, wgmma shared-memory descriptors for
 // the 128-byte swizzle, the wgmma instructions and their fences,
-// setmaxnreg, and the host-side tensor-map encoder.
+// setmaxnreg, and the host-side tensor-map encoder (with the (B, S, H, D)
+// attention operand's map built on it).
 //
 // The encoder looks cuTensorMapEncodeTiled up at run time with
 // cudaGetDriverEntryPoint, so a library that includes this header links
@@ -96,6 +97,10 @@ __device__ inline void bulk_load(void* dst, const void* src, uint32_t bytes, uin
 // named barrier `id` (1-15; 0 is __syncthreads) over `count` threads, whole warps
 __device__ inline void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// arrive at named barrier `id` without waiting (the other side bar_syncs)
+__device__ inline void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 // generic-proxy stores to shared memory become visible to wgmma / TMA
 __device__ inline void fence_proxy_async() {
@@ -374,6 +379,18 @@ inline int encode_tensor_map(CUtensorMap* map, CUtensorMapDataType dtype, int ra
                             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
+}
+
+// A 4D bf16 map over one (B, S, H, D) operand given its element strides,
+// dims innermost first (D, H, S, B), box 64 columns x `rows` positions of
+// one head and batch row, 128-byte swizzle. Columns past D read as zeros.
+inline int make_bshd_map(CUtensorMap* map, const void* base, int D, int H, int S, int B,
+                         long long sb, long long ss, long long sh, int rows) {
+  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)(S > 1 ? S : 1), (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)sh * 2, (uint64_t)ss * 2, (uint64_t)sb * 2};
+  const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
+  return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box,
+                           CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace hopper

@@ -1,6 +1,6 @@
-"""Time this checkout's flash-forward, flash dK/dV, int4, decode-attention
-and chunk-attention kernels against another checkout's, in turns, on one
-card.
+"""Time this checkout's flash-forward, flash backward (dK/dV and dQ), int4,
+decode-attention and chunk-attention kernels against another checkout's, in
+turns, on one card.
 
     python -m vlrlhf_torch.ops.ab_kernels OTHER_CSRC_DIR [--only NAME ...]
 
@@ -35,7 +35,7 @@ from vlrlhf_torch.ops import _build
 from vlrlhf_torch.ops import chunk_attention as chunk_mod
 from vlrlhf_torch.ops import decode_attention as decode_mod
 from vlrlhf_torch.ops.flash_attention import (
-    KV_PAD_SEG, Q_PAD_SEG, _BWD_ARGS, _FWD_ARGS, flash_attention_bwd_plain,
+    KV_PAD_SEG, Q_PAD_SEG, _BWD_ARGS, _FWD_ARGS, _bwd_args, flash_attention_bwd_plain,
     flash_attention_plain, make_segments,
 )
 from vlrlhf_torch.ops.int4 import (
@@ -167,22 +167,25 @@ def flash_bwd_lines(versions: dict, gen: torch.Generator) -> None:
         o, lse = flash_attention_plain(q.float(), k.float(), v.float(), seg_q, seg_kv, True,
                                        scale)
         di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
-        _, rk, rv = flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(), lse,
-                                              di, seg_q, seg_kv, True, scale)
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                di.data_ptr(), seg_q.data_ptr(), seg_kv.data_ptr(), None, dk.data_ptr(),
-                dv.data_ptr(), b, h, hkv, s, s, d, *q.stride()[:3], *k.stride()[:3],
-                *v.stride()[:3], scale, 1, torch.cuda.current_stream().cuda_stream)
+        rq, rk, rv = flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(),
+                                               lse, di, seg_q, seg_kv, True, scale)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
-        def make_call(lib):
-            fn = lib.flash_bwd_dkv_bf16
-            fn.argtypes, fn.restype = _BWD_ARGS, ctypes.c_int
-            return lambda: _build.check(fn(*args), "flash_bwd_dkv_bf16")
+        def make_caller(symbol, outs):
+            args = _bwd_args(q, k, v, do, lse, di, seg_q, seg_kv, *outs, True, scale)
 
-        turns = in_turns(versions["flash_bwd"], make_call,
+            def make_call(lib):
+                fn = getattr(lib, symbol)
+                fn.argtypes, fn.restype = _BWD_ARGS, ctypes.c_int
+                return lambda: _build.check(fn(*args), symbol)
+            return make_call
+
+        turns = in_turns(versions["flash_bwd"], make_caller("flash_bwd_dkv_bf16", (None, dk, dv)),
                          lambda: max(float((dk.float() - rk).abs().max()),
                                      float((dv.float() - rv).abs().max())))
+        turns_dq = in_turns(versions["flash_bwd"],
+                            make_caller("flash_bwd_dq_bf16", (dq, None, None)),
+                            lambda: float((dq[pad].float() - rq[pad]).abs().max()))
         lib = "n/a (GQA)"
         if h == hkv:  # one aten call computing dQ, dK and dV from O and the LSE
             qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
@@ -195,6 +198,8 @@ def flash_bwd_lines(versions: dict, gen: torch.Generator) -> None:
             lib = f"{lib_ms:.4f} ms"
         print(f"flash_bwd_dkv {label} B={b} S={s} H={h} Hkv={hkv} D={d}: {turns} "
               f"aten flash backward (all grads) {lib}", flush=True)
+        print(f"flash_bwd_dq {label} B={b} S={s} H={h} Hkv={hkv} D={d} (valid rows): "
+              f"{turns_dq}", flush=True)
 
 
 def int4_lines(versions: dict, gen: torch.Generator) -> None:

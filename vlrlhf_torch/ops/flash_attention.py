@@ -176,21 +176,26 @@ def flash_attention_bwd_plain(
     return dq.transpose(1, 2), group_sum(dk), group_sum(dv)
 
 
-def _bwd_launch(name, q, k, v, do, lse, di, seg_q, seg_kv, dq, dk, dv, causal, scale):
+def _bwd_args(q, k, v, do, lse, di, seg_q, seg_kv, dq, dk, dv, causal, scale) -> tuple:
+    """The argument tuple of the backward entry points (`_BWD_ARGS`); an
+    output that is None (the other kernel's) passes a null pointer."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    err = _build.fn("flash_bwd", name, _BWD_ARGS)(
+    return (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         di.data_ptr(), seg_q.data_ptr(), seg_kv.data_ptr(),
-        dq.data_ptr() if dq is not None else None,
-        dk.data_ptr() if dk is not None else None,
-        dv.data_ptr() if dv is not None else None,
+        *(None if t is None else t.data_ptr() for t in (dq, dk, dv)),
         b, h, hkv, sq, skv, d,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         scale, int(causal), torch.cuda.current_stream(q.device).cuda_stream,
     )
+
+
+def _bwd_launch(name, q, k, v, do, lse, di, seg_q, seg_kv, dq, dk, dv, causal, scale):
+    err = _build.fn("flash_bwd", name, _BWD_ARGS)(
+        *_bwd_args(q, k, v, do, lse, di, seg_q, seg_kv, dq, dk, dv, causal, scale))
     _build.check(err, name)
 
 
@@ -244,7 +249,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, seg_q, seg_kv, causal, scale):
     di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()  # (B, H, Sq)
     if q.is_cuda:
         do = do.to(q.dtype).contiguous()  # autograd may hand over any strides
-        if do.data_ptr() % 16:  # the dK/dV kernel's TMA map needs a 16-byte aligned base
+        if do.data_ptr() % 16:  # the backward kernels' TMA maps need a 16-byte aligned base
             do = do.clone()
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, di, seg_q, seg_kv, causal, scale)
         dq = flash_bwd_dq(q, k, v, do, lse, di, seg_q, seg_kv, causal, scale)
