@@ -63,12 +63,34 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      step ms, pairs/s, MFU, peak device memory and one profiled step
   6b. the same with --q_lora true --bits 4 (224 int4 LM linears): 3 steps
      with their checks and launch counts, then step ms, pairs/s, MFU, peak
-     memory beside phase 6's, and one profiled step
+     memory beside phase 6's, and one profiled step; then cli.main
+     finish_dpo's merged save over the int4 base, checked on sampled
+     linears against the dequantized weight plus scale (A B)^T
+  7. the `dpo` trainer's functions (cli.main build_dpo, make_eval_hook,
+     train_dpo, finish_dpo) at full LLaVA-1.5-7B width and depth on phase
+     6's pair: (a) 3 steps under each remat policy (full, attn, dots, mlp,
+     mlp1, acts) from the same adapters: step-1 loss ln 2, loss within
+     1e-3 and grad norm within 1e-2 of attn's, median step ms and peak
+     memory, the peaks ordered full <= attn <= mlp1 <= mlp <= acts; (b)
+     --freeze_vision_tower false with LoRA on the LM's 7 linears and the
+     tower's wq|wk|wv|wo: 3 steps, every tower adapter of the layers run
+     with a non-zero gradient from step 2, the D = 64 backward kernels'
+     launches, one profiled step; (c) 16 pairs, --eval_steps 2
+     --eval_ratio 0.125 --eval_samples 2: eval/* finite at steps 0 and 2,
+     the step-0 policy and reference samples identical; (d) 4 steps
+     straight against 2 steps, a checkpoint, --resume_from_checkpoint auto
+     and 2 more (losses within 1e-3), checkpoint bytes, save and restore
+     ms; (e) --merge_adapter_after_training: the merged file equals
+     W + scale (A B)^T on sampled linears
 
 A profiled step prints the card's busy and idle time and its kernel time by
-group (torch.profiler). The line before the last is {"kernels": [...]}
-(launches summed over the serve, speculative int8 serve, /chat, int4
-serve, DPO and QLoRA runs, split in launches_by_path);
+group (torch.profiler; the flash groups split by head dim). Phase 2's
+backward cases include the tower's (B=2, S=577, H=16, D=64, non-causal)
+and take the aten flash backward as yardstick everywhere (under GQA on K
+and V expanded to the query heads, without the group sum). The line
+before the last is {"kernels": [...]} (launches summed over the serve,
+speculative int8 serve, /chat, int4 serve, DPO, QLoRA and trainer runs,
+split in launches_by_path);
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
 and prints no result.
@@ -79,6 +101,7 @@ from __future__ import annotations
 import gc
 import itertools
 import json
+import math
 import os
 import re
 import subprocess
@@ -300,26 +323,28 @@ def phase_kernels():
     main = times["dpo_lm_causal"]
     results["flash_fwd"] = {"max_abs_err": max(errs), **main, "cases": times}
 
-    # backward: the DPO path's LM case and a GQA case
+    # backward: the DPO path's LM case, a GQA case and an unfrozen tower's
+    # (D = 64, non-causal, the 2 tiled rows of one pair)
     bwd_cases = [
-        ("dpo_lm_causal", 2, 1024, 32, 32, 128, (1000, 900)),
-        ("lm_causal_gqa", 2, 640, 32, 8, 128, (640, 601)),
+        ("dpo_lm_causal", True, 2, 1024, 32, 32, 128, (1000, 900)),
+        ("lm_causal_gqa", True, 2, 640, 32, 8, 128, (640, 601)),
+        ("vit_noncausal", False, 2, 577, 16, 16, 64, (577, 577)),
     ]
     bwd = {"dkv": {}, "dq": {}}
     bwd_errs = {"dkv": [], "dq": []}
-    for label, b, s, h, hkv, d, lens in bwd_cases:
+    for label, causal, b, s, h, hkv, d, lens in bwd_cases:
         q, k, v = randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
         lens_t, pad, seg_q, seg_kv = segs(b, s, lens)
         do = torch.where(pad[..., None, None], randn(b, s, h, d), 0).contiguous()
-        o, lse = flash_attention(q, k, v, causal=True, pad_mask_q=pad, pad_mask_kv=pad,
+        o, lse = flash_attention(q, k, v, causal=causal, pad_mask_q=pad, pad_mask_kv=pad,
                                  return_lse=True)
         di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
         scale = d**-0.5
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, di, seg_q, seg_kv, True, scale)
-        dq = flash_bwd_dq(q, k, v, do, lse, di, seg_q, seg_kv, True, scale)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, di, seg_q, seg_kv, causal, scale)
+        dq = flash_bwd_dq(q, k, v, do, lse, di, seg_q, seg_kv, causal, scale)
         torch.cuda.synchronize()
         rq, rk, rv = flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(),
-                                               lse, di, seg_q, seg_kv, True, scale)
+                                               lse, di, seg_q, seg_kv, causal, scale)
         checks = {"dq": (dq[pad].float(), rq[pad]), "dk": (dk.float(), rk),
                   "dv": (dv.float(), rv)}
         line = []
@@ -328,7 +353,7 @@ def phase_kernels():
                                          TOL * max(1.0, float(ref.abs().max())))
             bwd_errs["dq" if name == "dq" else "dkv"].append(err)
             line.append(f"{name} {report}")
-        args = (q, k, v, do, lse, di, seg_q, seg_kv, True, scale)
+        args = (q, k, v, do, lse, di, seg_q, seg_kv, causal, scale)
         # each kernel alone (its C entry point on outputs allocated once) and
         # through its wrapper, as FlashAttention.backward calls it
         ms = {"dkv": time_ms(flash_bwd_kernel_call("flash_bwd_dkv_bf16", *args)),
@@ -337,25 +362,27 @@ def phase_kernels():
                 "dq": time_ms(lambda: flash_bwd_dq(*args))}
         plain_ms = time_ms(lambda: flash_attention_bwd_plain(*args), iters=3, warmup=1)
         # yardsticks: SDPA forward+backward, and its flash backward alone
-        # (one aten call computing dQ, dK, dV from O and the LSE; MHA only)
+        # (one aten call computing dQ, dK, dV from O and the LSE). It takes
+        # as many K / V heads as query heads, so under GQA K and V are
+        # expanded to H heads before the timed call; its dK / dV then come
+        # per query head, without the group sum the kernels do
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         dot = do.transpose(1, 2)
 
         def sdpa_fwd_bwd():
-            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                  enable_gqa=h != hkv)
             torch.autograd.grad(out, (qt, kt, vt), dot)
 
         fb_ms = time_ms(sdpa_fwd_bwd)
-        lib_bwd_ms, fo = None, None
-        if h == hkv:
-            with torch.no_grad():
-                fo = torch.ops.aten._scaled_dot_product_flash_attention(
-                    qt, kt, vt, 0.0, True, False, scale=scale)
-            lib_bwd_ms = time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
-                dot, qt, kt, vt, fo[0], fo[1], fo[2], fo[3], fo[4], fo[5], 0.0, True, fo[6],
-                fo[7], scale=scale))
-        fwd_flops = _flash_flops(lens, h, d, True)
+        ke, ve = (t.detach().repeat_interleave(h // hkv, dim=1) for t in (kt, vt))
+        with torch.no_grad():
+            fo = torch.ops.aten._scaled_dot_product_flash_attention(
+                qt.detach(), ke, ve, 0.0, causal, False, scale=scale)
+        lib_bwd_ms = time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            dot, qt.detach(), ke, ve, fo[0], fo[1], fo[2], fo[3], fo[4], fo[5], 0.0, causal,
+            fo[6], fo[7], scale=scale))
+        fwd_flops = _flash_flops(lens, h, d, causal)
         bounds = {"dkv": bound(2.0 * fwd_flops, _flash_bytes(lens, s, h, hkv, d, "dkv")),
                   "dq": bound(1.5 * fwd_flops, _flash_bytes(lens, s, h, hkv, d, "dq"))}
         pair_bound = bound(2.5 * fwd_flops, _flash_bytes(lens, s, h, hkv, d, "dkv") + b * s * h * d * 2)
@@ -365,15 +392,18 @@ def phase_kernels():
             f"({flops[kname] / (ms[kname] * 1e-3) / 1e12:.1f} TFLOP/s alone, bound "
             f"{bounds[kname][0]:.4f} ms ({bounds[kname][1]}), "
             f"{bounds[kname][0] / ms[kname]:.2f} of it)" for kname in ("dkv", "dq"))
-        print(f"flash backward {label} B={b} S={s} H={h} Hkv={hkv} D={d}: " + ", ".join(line)
-              + f"; {kern}; pair alone {ms['dkv'] + ms['dq']:.4f} ms (bound at 2.5x forward "
+        print(f"flash backward {label} causal={causal} B={b} S={s} H={h} Hkv={hkv} D={d}: "
+              + ", ".join(line)
+              + f"; {kern}; pair alone {ms['dkv'] + ms['dq']:.4f} ms, through the wrappers "
+              f"{w_ms['dkv'] + w_ms['dq']:.4f} ms (bound at 2.5x forward "
               f"{pair_bound[0]:.4f} ms); plain {plain_ms:.4f} ms; sdpa fwd+bwd {fb_ms:.4f} ms, "
-              f"sdpa flash backward alone "
-              f"{'n/a (GQA)' if lib_bwd_ms is None else f'{lib_bwd_ms:.4f} ms'}", flush=True)
+              f"aten flash backward alone {lib_bwd_ms:.4f} ms"
+              + (f" (K / V expanded to {h} heads, no group sum)" if h != hkv else ""),
+              flush=True)
         for kname in ("dkv", "dq"):
             bwd[kname][label] = (ms[kname], plain_ms, lib_bwd_ms, *bounds[kname], fb_ms,
                                  w_ms[kname])
-        del qt, kt, vt, fo
+        del qt, kt, vt, ke, ve, fo
     for kname in ("dkv", "dq"):
         m = bwd[kname]["dpo_lm_causal"]
         results[f"flash_bwd_{kname}"] = {
@@ -1379,10 +1409,11 @@ def phase_serve_int4(bf16_ms: float, int8_ms: list) -> dict:
     return launches
 
 
-def profile_breakdown(fn, label: str) -> None:
+def profile_breakdown(fn, label: str):
     """Run fn() once under torch.profiler and print where the card's time
     went: wall ms, busy ms (kernel durations summed; one stream), idle
-    share, and kernel time by group and by name."""
+    share, and kernel time by group and by name. Returns the busy ms (None
+    when the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1394,7 +1425,7 @@ def profile_breakdown(fn, label: str) -> None:
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         print(f"profile {label}: the profiler saw no device time", flush=True)
-        return
+        return None
     groups = {"flash_fwd": ("flash_fwd_kernel",), "flash_bwd_dkv": ("flash_bwd_dkv_",),
               "flash_bwd_dq": ("flash_bwd_dq_",), "decode": ("decode_split_kernel",),
               "chunk": ("chunk_split_kernel", "chunk_mma_kernel"),  # short / long chunks
@@ -1406,6 +1437,9 @@ def profile_breakdown(fn, label: str) -> None:
         us = e.time_range.elapsed_us()
         name = e.name
         grp = next((g for g, keys in groups.items() if any(k in name for k in keys)), None)
+        dim = re.search(r"kernel<(\d+)", name)
+        if grp is not None and grp.startswith("flash") and dim:
+            grp += f"[D={dim.group(1)}]"  # the tower's D = 64 apart from the LM's 128
         if grp is None:
             low = name.lower()
             grp = "matmul" if any(t in low for t in ("gemm", "xmma", "nvjet", "cutlass")) \
@@ -1422,6 +1456,7 @@ def profile_breakdown(fn, label: str) -> None:
                         sorted(by_group.items(), key=lambda kv: -kv[1][1])})
           + "; top kernels " + json.dumps([(nm[:60], n, round(t / 1e3, 3)) for nm, (n, t) in top]),
           flush=True)
+    return busy
 
 
 def pair_row(i: int, prompt_words: int, chosen_words: int, rejected_words: int) -> dict:
@@ -1445,7 +1480,10 @@ def dpo_args(**kw):
         max_grad_norm=1.0, gradient_accumulation_steps=1, beta=0.1, label_smoothing=0.0,
         loss_type="sigmoid", reference_free=False, precompute_ref_logps=True,
         logits_chunk=256, max_length=1024, per_device_train_batch_size=1, synthetic=0,
-        q_lora=False, bits=8, q_lora_vision=False,
+        q_lora=False, bits=8, q_lora_vision=False, use_lora=True, lora_target_modules="auto",
+        freeze_vision_tower=True, eval_steps=0, eval_ratio=0.005, eval_samples=0,
+        save_steps=500, resume_from_checkpoint=None, merge_adapter_after_training=False,
+        output_dir=None, logging_steps=1, num_train_epochs=1.0,
     )
     base.update(kw)
     return argparse.Namespace(**base)
@@ -1656,7 +1694,9 @@ def phase_dpo_qlora4(bf16: dict) -> dict:
     from vlrlhf_torch.models.config import _llava_7b
     from vlrlhf_torch.models.vlm import VLM
     from vlrlhf_torch.ops.flash_attention import flash_attention, flash_bwd_dkv, flash_bwd_dq
-    from vlrlhf_torch.ops.int4 import int4_matmul, int4_matmul_t
+    import tempfile
+
+    from vlrlhf_torch.ops.int4 import dequantize_int4, int4_matmul, int4_matmul_t
     from vlrlhf_torch.train.dpo import batch_to_device
     from vlrlhf_torch.train.loop import read_metrics
 
@@ -1723,8 +1763,396 @@ def phase_dpo_qlora4(bf16: dict) -> dict:
           f"(the bf16 model before its in-place quantization included) | bf16 DPO (phase 6): "
           f"median {bf16['median_ms']:.3f} ms, {bf16['pairs_per_s']:.4f} pairs/s, MFU "
           f"{bf16['mfu']:.4f}, peak {bf16['peak_gib']:.3f} GiB", flush=True)
+
+    # the merged save over the int4 base: W is the dequantized q * s (no gbias
+    # in a base quantized here), rounded to bf16 as dequantize_params does
+    names = ("lm.layers.0.wq", f"lm.layers.{cfg.lm.num_layers - 1}.down")
+    dense = {}
+    for n in names:
+        lin = model.get_submodule(n)
+        if lin.weight_gbias is not None:
+            raise AssertionError(f"{n}: an int4 base quantized here holds no gbias")
+        dense[n] = dequantize_int4(lin.weight_q4, lin.weight_scale4,
+                                   torch.float32).to(torch.bfloat16)
+    want = sampled_merges(model, run.lcfg.scale, names, dense)
+    with tempfile.TemporaryDirectory() as tmp:
+        finish_timed(run, dpo_args(q_lora=True, bits=4, merge_adapter_after_training=True,
+                                   output_dir=tmp), want, "phase 7e merge over int4 (6b's run)")
     del run, model, batch
     torch.cuda.empty_cache()
+    return launches
+
+
+TOWER_TARGETS = ("lm/.*attn/(wq|wk|wv|wo)/,lm/.*mlp/(gate|up|down)/,"
+                 "vision/.*attn/(wq|wk|wv|wo)/")
+
+
+def drop_adapters(model) -> None:
+    """Detach every LoRA adapter, so the next build_dpo starts clean."""
+    from vlrlhf_torch.models.common import Linear
+
+    for m in model.modules():
+        if isinstance(m, Linear):
+            m.lora_a = m.lora_b = None
+
+
+def timed_steps(run, batch, n: int):
+    """n steps on one batch, each ending in a synchronize: (metrics, ms)."""
+    from vlrlhf_torch.train.loop import read_metrics
+
+    hist, ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        hist.append(read_metrics(run.step(batch)))  # the read synchronizes
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return hist, ms
+
+
+def merged_check(path: str, sampled: dict, what: str) -> None:
+    """The saved merged weights of the sampled linears equal the expected
+    W + scale (A B)^T, bit for bit (the same expression on the same card)."""
+    from vlrlhf_torch.train.checkpoint import load_params
+
+    merged = load_params(path, mmap=True)
+    for name, want in sampled.items():
+        got = merged[f"{name}.weight"].to("cuda")
+        if not torch.equal(got, want):
+            err = float((got.float() - want.float()).abs().max())
+            raise AssertionError(f"{what}: merged {name} differs from W + s (A B)^T by {err}")
+    print(f"{what}: merged weights in {path} ({len(merged)} tensors) equal W + s (A B)^T on "
+          f"{', '.join(sampled)}", flush=True)
+
+
+def sampled_merges(model, scale: float, names, dense: dict) -> dict:
+    """W + scale (A B)^T in W's dtype for the named linears; `dense` gives
+    each one's W (its dense weight, or its int4 weight dequantized to bf16)."""
+    out = {}
+    for name in names:
+        lin = model.get_submodule(name)
+        delta = (lin.lora_a.float() @ lin.lora_b.float()) * scale
+        out[name] = (dense[name].float() + delta.T).to(dense[name].dtype)
+    return out
+
+
+def forward_memory(run, batch) -> dict:
+    """GiB the policy forward (adapters on) leaves allocated for its
+    backward ("kept"), and the peaks of that forward and of the backward
+    above what each found: the part of the step the remat policy sets."""
+    from vlrlhf_torch.models.common import Ctx
+    from vlrlhf_torch.train.dpo import forward_logps, pair_image_features
+
+    feats = pair_image_features(run.model, batch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    logps, _ = forward_logps(run.model, run.dcfg, batch, Ctx(True, run.dcfg.lora_scale), feats)
+    kept = torch.cuda.memory_allocated() - base
+    fwd_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    after_fwd = torch.cuda.memory_allocated()
+    logps.sum().backward()
+    bwd_peak = torch.cuda.max_memory_allocated() - after_fwd
+    for p in run.state.trainable:
+        p.grad = None
+    return {"kept": kept / 2**30, "fwd_peak": fwd_peak / 2**30, "bwd_peak": bwd_peak / 2**30}
+
+
+def finish_timed(run, args, want: dict, what: str) -> None:
+    """cli.main.finish_dpo (adapters and merged weights), timed, then the
+    merged file checked on the sampled linears."""
+    from vlrlhf_torch.cli.main import finish_dpo
+
+    t0 = time.perf_counter()
+    finish_dpo(run, args)
+    ms = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(args.output_dir, "merged")
+    size = os.path.getsize(os.path.join(path, "params.pt"))
+    print(f"{what}: finish_dpo {ms:.3f} ms, merged file {size / 2**30:.3f} GiB", flush=True)
+    merged_check(path, want, what)
+
+
+def trainer_model():
+    """Phase 7's model: LLaVA-1.5-7B at full width and depth, bf16, random
+    weights from seed 0, on the card; (cfg, model, processor)."""
+    from vlrlhf_torch.models.common import init_random_
+    from vlrlhf_torch.models.config import _llava_7b
+    from vlrlhf_torch.models.vlm import VLM
+
+    cfg = _llava_7b(torch.bfloat16)
+    model = VLM(cfg, "cuda")
+    init_random_(model, torch.Generator(device="cuda").manual_seed(0))
+    return cfg, model, make_processor(cfg)
+
+
+def host_grads(run) -> list:
+    """This step's gradient of every trainable leaf, f32 on the host (a
+    leaf that got none counts as zeros)."""
+    return [(p.grad if p.grad is not None else torch.zeros_like(p)).to("cpu", torch.float32,
+                                                                        copy=True)
+            for p in run.state.trainable]
+
+
+def worst_leaf_gap(got: list, want: list) -> tuple[float, int]:
+    """The largest relative L2 difference |g - w| / |w| over gradient
+    leaves, and its leaf's index (a leaf whose w is zero counts 0 if g is
+    zero too, else inf)."""
+    worst, at = 0.0, -1
+    for i, (g, w) in enumerate(zip(got, want)):
+        wn, dn = float(w.norm()), float((g - w).norm())
+        gap = dn / wn if wn > 0 else (0.0 if dn == 0 else math.inf)
+        if gap > worst:
+            worst, at = gap, i
+    return worst, at
+
+
+# the worst leaf's relative L2 gradient difference a remat policy may show
+# against attn's from the same state, at phase 7a's bf16 shape: about twice
+# the largest seen on an H100 (mlp1 0.0229, mlp and acts 0.017; full and
+# dots 0), far below a dropped (1) or mis-signed (2) leaf
+LEAF_GAP_BOUND = 5e-2
+
+
+def trainer_remat(cfg, model, proc):
+    """Phase 7a: 3 DPO steps under each remat policy, every step from
+    attn's state before it (the same adapters, moments, batch and seed), so
+    the comparison holds remat alone, not Adam's amplification of bf16
+    rounding along a trajectory (its first updates are sign(g) * lr on
+    every entry). Each step's loss, and each leaf's gradient, must agree
+    with attn's; the forward / backward peaks must be ordered as the
+    policies keep more. Returns (per-policy results, the device batch)."""
+    import dataclasses
+    import statistics
+
+    from vlrlhf_torch.cli.main import build_dpo
+    from vlrlhf_torch.train.dpo import batch_to_device
+    from vlrlhf_torch.train.train_state import load_state_tree_
+
+    def set_policy(policy):
+        model.lm.cfg = dataclasses.replace(model.lm.cfg, remat_policy=policy)
+
+    run = build_dpo(cfg, model, proc, dpo_args(max_steps=3), [pair_row(7, 150, 260, 250)],
+                    seeded_image)
+    batch_np = run.collator([run.tokenize_fn(r) for r in run.rows])
+    real = batch_np["pad_mask"].sum(1).tolist()
+    batch = batch_to_device(batch_np, "cuda")
+    states, ref_grads, res = [], [], {}
+    for policy in ("attn", "full", "dots", "mlp", "mlp1", "acts"):
+        set_policy(policy)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        hist, ms, gaps = [], [], []
+        for k in range(3):
+            if policy == "attn":  # held on the host: the card's peaks stay the step's
+                states.append({g: {n: t.to("cpu", copy=True) for n, t in v.items()}
+                               if isinstance(v, dict) else v
+                               for g, v in run.state_tree().items()})
+            else:
+                load_state_tree_(run.state, run.keys, states[k])
+            h, t = timed_steps(run, batch, 1)
+            hist += h
+            ms += t
+            if policy == "attn":
+                ref_grads.append(host_grads(run))
+            else:
+                gaps.append(worst_leaf_gap(host_grads(run), ref_grads[k]))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms += timed_steps(run, batch, 3)[1]  # 3 more, timed only
+        mem = forward_memory(run, batch)
+        gap, at = max(gaps, default=(0.0, -1))
+        res[policy] = {"loss": [h["loss"] for h in hist], "norm": [h["grad_norm"] for h in hist],
+                       "leaf_gaps": [g for g, _ in gaps], "leaf_gap": gap,
+                       "leaf": run.keys[at] if at >= 0 else None,
+                       "ms": statistics.median(ms), "peak": peak, **mem,
+                       "fb_peak": max(mem["fwd_peak"], mem["kept"] + mem["bwd_peak"])}
+        print(f"remat {policy}: loss {res[policy]['loss']}; grad_norm {res[policy]['norm']}; "
+              f"worst leaf's relative L2 gradient gap to attn per step {res[policy]['leaf_gaps']} "
+              f"({res[policy]['leaf']}); "
+              f"step ms {[round(x, 3) for x in ms]} (median {res[policy]['ms']:.3f}); step peak "
+              f"{peak:.3f} GiB; the policy forward keeps {mem['kept']:.3f} GiB for the backward "
+              f"(forward peak +{mem['fwd_peak']:.3f}, backward peak +{mem['bwd_peak']:.3f} over "
+              f"what the forward left; forward / backward peak +{res[policy]['fb_peak']:.3f})",
+              flush=True)
+        res[policy]["busy"] = profile_breakdown(lambda: run.step(batch),
+                                                f"DPO step, {policy} remat")
+    ref = res["attn"]
+    for policy, r in res.items():
+        if abs(r["loss"][0] - math.log(2.0)) > 1e-3:
+            raise AssertionError(f"remat {policy}: step-1 loss {r['loss'][0]} is not ln 2")
+        for a, b in zip(r["loss"], ref["loss"]):
+            if abs(a - b) > 1e-3 * abs(b):
+                raise AssertionError(f"remat {policy}: loss {r['loss']} vs attn {ref['loss']}")
+        for a, b in zip(r["norm"], ref["norm"]):
+            if not (np.isfinite(a) and abs(a - b) <= 1e-2 * abs(b)):
+                raise AssertionError(f"remat {policy}: grad_norm {r['norm']} vs attn "
+                                     f"{ref['norm']}")
+        if not r["leaf_gap"] <= LEAF_GAP_BOUND:
+            raise AssertionError(f"remat {policy}: leaf {r['leaf']}'s gradient differs from "
+                                 f"attn's by {r['leaf_gap']} (relative L2), bound "
+                                 f"{LEAF_GAP_BOUND}")
+    # the peak a policy sets is its forward / backward's; the step's own
+    # peak can sit in the AdamW update (temporaries the size of 2 adapter
+    # copies), the same under every policy that keeps less than that
+    order = ("full", "attn", "mlp1", "mlp", "acts")
+    peaks = [res[p]["fb_peak"] for p in order]
+    if peaks != sorted(peaks):
+        raise AssertionError(f"forward / backward peaks are not ordered {' <= '.join(order)}: "
+                             f"{peaks}")
+    print(f"phase 7a remat policies (rows of {real} real tokens padded to 1024): loss within "
+          f"1e-3, grad norm within 1e-2 and every leaf's gradient within {LEAF_GAP_BOUND} "
+          f"(relative L2) of attn's from the same states, step-1 ln 2, "
+          f"forward / backward peaks ordered {' <= '.join(order)}: " + json.dumps(
+              {p: {"median_ms": round(r["ms"], 3), "busy_ms": r["busy"] and round(r["busy"], 3),
+                   "step_peak_gib": round(r["peak"], 3), "kept_gib": round(r["kept"], 3),
+                   "fwd_bwd_peak_gib": round(r["fb_peak"], 3),
+                   "worst_leaf_gap": r["leaf_gap"]} for p, r in res.items()}),
+          flush=True)
+    set_policy("attn")
+    return res, batch
+
+
+def phase_trainer():
+    """Phase 7: the `dpo` trainer's functions at full LLaVA-1.5-7B width and
+    depth on phase 6's pair (bf16): (a) the remat policies, (b) an unfrozen
+    tower with tower LoRA targets, (c) the eval pass and its samples, (d)
+    checkpoint, resume and the straight run they must equal, (e) the merged
+    save. Returns the kernel launch counts of the phase."""
+    import statistics
+    import tempfile
+
+    from vlrlhf_torch.cli.main import build_dpo, make_eval_hook, train_dpo
+    from vlrlhf_torch.ops.decode_attention import decode_attention
+    from vlrlhf_torch.ops.flash_attention import flash_attention, flash_bwd_dkv, flash_bwd_dq
+    from vlrlhf_torch.train.checkpoint import CheckpointManager
+    from vlrlhf_torch.train.metrics import MetricsLogger
+    from vlrlhf_torch.train.train_state import load_state_tree_
+
+    cfg, model, proc = trainer_model()
+    counted = {"flash_fwd": flash_attention, "flash_bwd_dkv": flash_bwd_dkv,
+               "flash_bwd_dq": flash_bwd_dq, "decode_attention": decode_attention}
+    for fn in counted.values():
+        fn.launches = 0
+
+    # (a) every remat policy from the same states
+    res, batch = trainer_remat(cfg, model, proc)
+
+    # (b) unfrozen tower, LoRA on the LM's 7 linears and the tower's 4
+    drop_adapters(model)
+    run = build_dpo(cfg, model, proc, dpo_args(max_steps=3, freeze_vision_tower=False,
+                                               lora_target_modules=TOWER_TARGETS),
+                    [pair_row(7, 150, 260, 250)], seeded_image)
+    tower = [(n, p) for n, p in model.named_parameters()
+             if n.startswith("vision.layers.") and "lora_" in n
+             and int(n.split(".")[2]) < cfg.vision.layers_run]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bwd0 = (flash_bwd_dkv.launches, flash_bwd_dq.launches)
+    hist, ms = [], []
+    for i in range(3):
+        h, t = timed_steps(run, batch, 1)
+        hist += h
+        ms += t
+        if i >= 1 and not all(p.grad is not None and bool(p.grad.any()) for _, p in tower):
+            raise AssertionError(f"unfrozen tower: a tower adapter has no gradient at step {i + 1}")
+    bwd = (flash_bwd_dkv.launches - bwd0[0], flash_bwd_dq.launches - bwd0[1])
+    losses = [h["loss"] for h in hist]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if abs(losses[0] - math.log(2.0)) > 1e-3 or not all(np.isfinite(losses)):
+        raise AssertionError(f"unfrozen tower: losses {losses}")
+    want = 3 * (cfg.lm.num_layers + cfg.vision.layers_run)
+    if min(bwd) < want:
+        raise AssertionError(f"unfrozen tower: {bwd} dK/dV, dQ launches in 3 steps, want {want}")
+    print(f"phase 7b unfrozen tower ({len(tower)} tower adapter leaves of {cfg.vision.layers_run} "
+          f"layers, all with non-zero gradients at steps 2-3): loss {losses}; grad_norm "
+          f"{[h['grad_norm'] for h in hist]}; step ms {[round(x, 3) for x in ms]} (median "
+          f"{statistics.median(ms):.3f}; attn remat frozen tower {res['attn']['ms']:.3f}); "
+          f"peak {peak:.3f} GiB; flash backward launches (dK/dV, dQ) {bwd}", flush=True)
+    profile_breakdown(lambda: run.step(batch), "unfrozen-tower DPO step")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c) the eval pass and its samples: 16 pairs, 2 held out
+        drop_adapters(model)
+        rows = [pair_row(300 + i, 150, 260, 250) for i in range(16)]
+        args = dpo_args(max_steps=2, eval_steps=2, eval_ratio=0.125, eval_samples=2,
+                        output_dir=os.path.join(tmp, "eval"))
+        run = build_dpo(cfg, model, proc, args, rows, seeded_image)
+        logger = MetricsLogger(args.output_dir, "dpo")
+        dec0 = decode_attention.launches
+        make_eval_hook(run, proc, args, logger)(0)  # adapters still zero
+        dec = decode_attention.launches - dec0
+        train_dpo(run, proc, args, logger)
+        logger.close()
+        lines = [json.loads(x) for x in open(logger.path).read().splitlines()]
+        evals = {r["step"]: r for r in lines if "eval/loss" in r}
+        samples = [json.loads(x) for x in
+                   open(os.path.join(args.output_dir, "dpo_samples.jsonl")).read().splitlines()]
+        at0 = [x for x in samples if x["step"] == 0]
+        if sorted(evals) != [0, 2] or not all(np.isfinite(v) for r in evals.values()
+                                              for v in r.values()):
+            raise AssertionError(f"eval lines: {evals}")
+        if len(at0) != 2 or any(x["policy"] != x["ref"] or not x["policy"] for x in at0):
+            raise AssertionError(f"step-0 policy and reference samples differ: {at0}")
+        if dec < 2 * cfg.lm.num_layers or len(samples) != 4:
+            raise AssertionError(f"eval samples: {dec} decode launches, {len(samples)} samples")
+        print(f"phase 7c eval ({len(run.eval_rows)} of 16 pairs held out): eval/* at steps 0 "
+              f"and 2 {json.dumps({k: {m: round(v, 6) for m, v in r.items() if m != 'step'} for k, r in evals.items()})}; "
+              f"step-0 policy == reference samples ({len(at0[0]['policy'].split())} and "
+              f"{len(at0[1]['policy'].split())} words); {dec} decode launches at step 0",
+              flush=True)
+
+        # (d) 4 steps straight; 2 steps + a checkpoint, a resume, 2 more
+        def leg(out, epochs, **kw):
+            drop_adapters(model)
+            a = dpo_args(max_steps=4, num_train_epochs=epochs, lora_dropout=0.05,
+                         output_dir=os.path.join(tmp, out), **kw)
+            r = build_dpo(cfg, model, proc, a, [pair_row(7, 150, 260, 250)], seeded_image)
+            lg = MetricsLogger(a.output_dir, "dpo")
+            last = train_dpo(r, proc, a, lg)
+            lg.close()
+            losses = {x["step"]: x["loss"] for x in map(json.loads, open(lg.path))}
+            return r, a, last, losses
+
+        _, _, _, straight = leg("straight", 100)
+        first, a1, last, _ = leg("resumed", 2, save_steps=2)
+        ck = os.path.join(tmp, "resumed", "checkpoints")
+        nbytes = os.path.getsize(os.path.join(ck, "2", "state.pt"))
+        mgr = CheckpointManager(os.path.join(tmp, "timing"))
+        t0 = time.perf_counter()
+        mgr.save(2, first.state_tree())
+        mgr.wait()
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        tree, _ = mgr.restore(2)
+        load_state_tree_(first.state, first.keys, tree)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        del tree
+        resumed, a2, last2, losses = leg("resumed", 100, resume_from_checkpoint="auto",
+                                         merge_adapter_after_training=True)
+        if last != 2 or last2 != 4 or sorted(os.listdir(ck)) != ["2"]:
+            raise AssertionError(f"save / resume: legs ended at {last}, {last2}; "
+                                 f"checkpoints {os.listdir(ck)}")
+        for step in (3, 4):
+            if abs(losses[step] - straight[step]) > 1e-3 * abs(straight[step]):
+                raise AssertionError(f"resumed step {step} loss {losses[step]} vs straight "
+                                     f"{straight[step]}")
+        print(f"phase 7d save / resume: straight losses {straight}; resumed "
+              f"{ {k: losses[k] for k in (3, 4)} } (within 1e-3); checkpoint "
+              f"{nbytes / 2**20:.3f} MiB ({len(first.keys)} adapter leaves with their moments), "
+              f"save {save_ms:.3f} ms (host copy and write), restore {restore_ms:.3f} ms",
+              flush=True)
+
+        # (e) the merged save of the resumed run
+        n_layers = cfg.lm.num_layers
+        names = ("lm.layers.0.wq", f"lm.layers.{n_layers // 2}.gate",
+                 f"lm.layers.{n_layers - 1}.down")
+        want = sampled_merges(model, resumed.lcfg.scale, names,
+                              {n: model.get_submodule(n).weight for n in names})
+        finish_timed(resumed, a2, want, "phase 7e merge")
+    launches = {name: fn.launches for name, fn in counted.items()}
+    print(f"phase 7 launches {json.dumps(launches)}", flush=True)
+    del run, model, batch
     return launches
 
 
@@ -1755,8 +2183,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     qlora_launches = phase_dpo_qlora4(dpo_stats)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer_launches = phase_trainer()
     runs = {"serve": serve_launches, "serve_int8_spec": spec_launches, "chat_int8": chat_launches,
-            "serve_int4": int4_launches, "dpo": dpo_launches, "dpo_qlora4": qlora_launches}
+            "serve_int4": int4_launches, "dpo": dpo_launches, "dpo_qlora4": qlora_launches,
+            "dpo_trainer": trainer_launches}
     names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention", "chunk_attention",
              "int4_matmul", "int4_matmul_t")
     by_path = {name: {path: counts[name] for path, counts in runs.items() if name in counts}

@@ -129,6 +129,7 @@ def test_fully_masked_rows_give_zero_and_finite_grads():
     (False, 2, 129, 4, 2, 128, (129, 100)),
     (True, 2, 577, 4, 4, 64, (577, 500)),  # the tower's ragged length
     (False, 1, 577, 2, 2, 128, None),
+    (False, 2, 577, 16, 16, 64, None),  # an unfrozen tower's backward: the D = 64 dQ ring
     (True, 2, 129, 32, 8, 128, (129, 77)),  # GQA 32 / 8 at ragged tiles
     (False, 1, 130, 2, 2, 72, None),  # D read through TMA's zero fill up to 128
 ])  # every other case reaches the wgmma dK/dV and dQ kernels

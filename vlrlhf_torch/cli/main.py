@@ -6,7 +6,15 @@ with int8 or int4 weights (--quantize), the fused qkv / gate-up layout
 (--fuse_decode), an int8 KV cache (--kv_cache_dtype), speculative decoding
 (--speculative_k) and /chat sessions (--chat_sessions).
 dpo: LoRA DPO training on one device, over a frozen int8 or int4 base with
---q_lora true --bits {8,4}, writing <output_dir>/dpo_metrics.jsonl.
+--q_lora true --bits {8,4}, with any remat policy (--remat_policy), an
+unfrozen vision tower (--freeze_vision_tower false) and LoRA targets in the
+tower (--lora_target_modules), a holdout eval pass with greedy policy and
+reference samples (--eval_steps, --eval_ratio, --eval_samples), periodic
+checkpoints and resume (--save_steps, --resume_from_checkpoint) and a
+merged save (--merge_adapter_after_training). It writes
+<output_dir>/dpo_metrics.jsonl, checkpoints/<step>/, adapters/,
+merged/ and dpo_samples.jsonl, in the port's own format
+(train/checkpoint.py), not vlrlhf_tpu's orbax.
 
 Flag names follow vlrlhf_tpu's. Differences: `--device` names the device
 explicitly (default cuda; an absent device is an error, never a silent CPU
@@ -17,10 +25,13 @@ widths (hidden 32, intermediate 64) are no multiple of 128, so
 --quantize int4 and --q_lora --bits 4 quantize every selected linear to
 int8 there, as vlrlhf_tpu does (ops/quant.py). A flag of
 vlrlhf_tpu's dpo that the port does not honour yet is refused with an
-error, never ignored; dpo saves no adapters until checkpointing is ported.
+error, never ignored. As in vlrlhf_tpu, --use_lora false still trains
+LoRA adapters: it only turns LoRA dropout off and counts 6N training FLOPs.
 
 `build_server` / `build_dpo` are the bodies of serve / dpo minus argument
-parsing and the loop; chip_smoke.py drives the same functions.
+parsing and the loop; `train_dpo` is the loop with its eval, checkpoint and
+resume, `finish_dpo` the final saves. chip_smoke.py drives the same
+functions.
 """
 
 from __future__ import annotations
@@ -206,9 +217,11 @@ class DPORun:
     ocfg: OptimizerConfig
     lcfg: LoraConfig
     state: TrainState
+    keys: list  # the adapters' JAX-layout keys, in the optimizer's order
     collator: DPOCollator
     tokenize_fn: Callable[[dict], dict]
     rows: list
+    eval_rows: list
     flops_per_token: float
     flops_per_image: float
 
@@ -218,31 +231,45 @@ class DPORun:
 
         return dpo_step(self.model, self.dcfg, self.ocfg, self.state, batch)
 
+    def state_tree(self) -> dict:
+        from vlrlhf_torch.train.train_state import state_tree
+
+        return state_tree(self.state, self.keys)
+
 
 def build_dpo(cfg, model, processor, args, rows: list, image_loader=None) -> DPORun:
-    """Adapters (LoRA on every LM attention and MLP linear), optimizer,
-    collator and, with --precompute_ref_logps, the reference pass over
-    `rows`. `model` holds seeded base weights on its device already; with
-    --q_lora they are quantized in place (--bits, TRAIN_QUANT_PATTERNS, or
-    the _WIDE set with --q_lora_vision) before the adapters attach, the
-    order of vlrlhf_tpu/cli/main.py:308-338."""
+    """Adapters (--lora_target_modules; the family's default is every LM
+    attention and MLP linear), optimizer, collator, the holdout split
+    (with --eval_steps) and, with --precompute_ref_logps, the reference
+    pass over the training rows. `model` holds seeded base weights on its
+    device already; with --q_lora they are quantized in place (--bits,
+    TRAIN_QUANT_PATTERNS, or the _WIDE set with --q_lora_vision) before the
+    adapters attach, the order of vlrlhf_tpu/cli/main.py:308-338."""
     from vlrlhf_torch.data.collators import CollatorConfig, DPOCollator
-    from vlrlhf_torch.lora.lora import LM_ALL_LINEARS, LoraConfig, init_lora
+    from vlrlhf_torch.data.datasets import train_eval_split
+    from vlrlhf_torch.lora.lora import LM_ALL_LINEARS, LoraConfig, init_lora, lora_keys
     from vlrlhf_torch.models.config import FAMILIES
     from vlrlhf_torch.train.dpo import DPOConfig, adapter_params, precompute_ref_logps
     from vlrlhf_torch.train.flops import dpo_flops_per_token, vision_flops_per_image
     from vlrlhf_torch.train.train_state import OptimizerConfig, init_train_state
 
     family = FAMILIES[cfg.family]
-    if getattr(args, "q_lora", False):
+    use_lora = getattr(args, "use_lora", True)
+    eval_rows = []
+    if getattr(args, "eval_steps", 0):
+        rows, eval_rows = train_eval_split(rows, args.eval_ratio, args.seed)
+    if getattr(args, "q_lora", False) and use_lora:
         from vlrlhf_torch.ops.quant import (
             TRAIN_QUANT_PATTERNS, TRAIN_QUANT_PATTERNS_WIDE, quantize_params,
         )
 
         pats = TRAIN_QUANT_PATTERNS_WIDE if args.q_lora_vision else TRAIN_QUANT_PATTERNS
         quantize_params(model, pats, bits=args.bits)
+    # 'auto': the family's LM linears; else comma-separated JAX-layout regexes
+    targets = getattr(args, "lora_target_modules", "auto")
     lcfg = LoraConfig(r=args.lora_r, alpha=args.lora_alpha, dropout=args.lora_dropout,
-                      target_patterns=LM_ALL_LINEARS)
+                      target_patterns=LM_ALL_LINEARS if targets == "auto"
+                      else tuple(targets.split(",")))
     init_lora(model, lcfg, torch.Generator(device=model.device).manual_seed(args.seed))
     ocfg = OptimizerConfig(
         learning_rate=args.learning_rate, warmup_ratio=args.warmup_ratio,
@@ -253,7 +280,8 @@ def build_dpo(cfg, model, processor, args, rows: list, image_loader=None) -> DPO
     dcfg = DPOConfig(
         beta=args.beta, label_smoothing=args.label_smoothing, loss_type=args.loss_type,
         reference_free=args.reference_free, lora_scale=lcfg.scale,
-        lora_dropout=args.lora_dropout, dropout_seed=args.seed,
+        lora_dropout=args.lora_dropout if use_lora else 0.0, dropout_seed=args.seed,
+        frozen_vision=getattr(args, "freeze_vision_tower", True),
         logits_chunk=args.logits_chunk,
     )
     collator = DPOCollator(processor, CollatorConfig(
@@ -274,16 +302,146 @@ def build_dpo(cfg, model, processor, args, rows: list, image_loader=None) -> DPO
 
     return DPORun(
         model=model, dcfg=dcfg, ocfg=ocfg, lcfg=lcfg,
-        state=init_train_state(adapter_params(model), ocfg),
-        collator=collator, tokenize_fn=tokenize_fn, rows=rows,
+        state=init_train_state(adapter_params(model), ocfg), keys=lora_keys(model),
+        collator=collator, tokenize_fn=tokenize_fn, rows=rows, eval_rows=eval_rows,
         flops_per_token=dpo_flops_per_token(
-            cfg, args.max_length, ref_forward=not (dcfg.reference_free or precompute)),
+            cfg, args.max_length, ref_forward=not (dcfg.reference_free or precompute),
+            train_mode="adapter" if use_lora else "full"),
         flops_per_image=vision_flops_per_image(cfg.vision),
     )
 
 
+def make_eval_hook(run: DPORun, processor, args, logger):
+    """The `on_step` of a run with --eval_steps (vlrlhf_tpu/cli/main.py:
+    494-586): every eval_steps steps, the eval pass over the holdout
+    (eval/* means logged at that step) and, with --eval_samples N, greedy
+    64-token generations for the first N holdout prompts with the adapters
+    on (policy) and off (reference), appended to
+    <output_dir>/dpo_samples.jsonl. None without an eval split."""
+    import json
+    import os
+
+    from vlrlhf_torch.data.collators import GenerationCollator
+    from vlrlhf_torch.data.processor import make_single_turn_conv
+    from vlrlhf_torch.generate.engine import GenerateConfig, Generator
+    from vlrlhf_torch.train.dpo import batch_to_device, make_dpo_eval_fn
+    from vlrlhf_torch.train.loop import read_metrics
+
+    if not (args.eval_steps and run.eval_rows):
+        return None
+    eval_fn = make_dpo_eval_fn(run.model, run.dcfg)
+    bs = args.per_device_train_batch_size
+    batches = [run.collator([processor.tokenize_row_dpo(r) for r in run.eval_rows[i: i + bs]])
+               for i in range(0, len(run.eval_rows), bs)]
+    pad = processor.tokenizer.pad_token_id or 0
+    sample_rows = run.eval_rows[: args.eval_samples]
+    sample_gen = sample_batch = None
+    if sample_rows:
+        # llava puts no image ids in front of the prompt (vlrlhf_tpu's
+        # maybe_prefix_image_ids is the identity for it)
+        gcoll = GenerationCollator(processor, run.collator.cfg, run.collator.image_loader)
+        sample_batch = gcoll([
+            {"input_ids": processor.process_conv(make_single_turn_conv(
+                processor.format_multimodal_prompt(r["prompt"], 1 if r.get("img_path") else 0),
+                ""))["input_ids"], "img_path": r.get("img_path")}
+            for r in sample_rows])
+        sample_gen = Generator(run.model, GenerateConfig(max_new_tokens=64, pad_token_id=pad),
+                               lora_scale=run.lcfg.scale)
+
+    def on_step(step: int, _metrics=None) -> None:
+        if step % args.eval_steps:
+            return
+        agg: dict = {}
+        for eb in batches:
+            for k, v in read_metrics(eval_fn(batch_to_device(eb, run.model.device))).items():
+                agg.setdefault(k, []).append(v)
+        logger.log(step, {k: float(np.mean(v)) for k, v in agg.items()})
+        if sample_gen is None:
+            return
+        outs = {}
+        for name, on in (("policy", True), ("ref", False)):
+            sample_gen.adapters = on
+            outs[name] = sample_gen(sample_batch).cpu().numpy()
+        sample_gen.adapters = False
+        with open(os.path.join(args.output_dir, "dpo_samples.jsonl"), "a") as f:
+            for i, r in enumerate(sample_rows):
+                dec = {k: processor.tokenizer.decode(o[i][o[i] != pad].tolist(),
+                                                     skip_special_tokens=True)
+                       for k, o in outs.items()}
+                f.write(json.dumps({"step": step, "prompt": r["prompt"], **dec}) + "\n")
+
+    return on_step
+
+
+def maybe_resume(args, run: DPORun, ckpt) -> int:
+    """--resume_from_checkpoint: 'auto' (or 'true') resumes the latest step
+    in <output_dir>/checkpoints, a path that manager's latest. Returns the
+    step to count on from (0 for a fresh run)."""
+    from vlrlhf_torch.train.checkpoint import CheckpointManager
+    from vlrlhf_torch.train.train_state import load_state_tree_
+
+    spec = getattr(args, "resume_from_checkpoint", None)
+    if not spec:
+        return 0
+    mgr = ckpt if spec in ("auto", "true", "True") else CheckpointManager(spec)
+    step = mgr.latest_step()
+    if step is None:
+        print("no checkpoint found; starting fresh", flush=True)
+        return 0
+    tree, _ = mgr.restore(step)
+    load_state_tree_(run.state, run.keys, tree)
+    print(f"resumed from step {step}", flush=True)
+    return step
+
+
+def train_dpo(run: DPORun, processor, args, logger) -> int:
+    """The training loop of `dpo`: resume, prefetched batches, the eval
+    hook, a checkpoint every --save_steps; returns the last step once the
+    last checkpoint is on disk."""
+    import os
+
+    from vlrlhf_torch.train.checkpoint import CheckpointManager
+    from vlrlhf_torch.train.loop import batch_iterator, prefetch_iterator, run_training
+
+    ckpt = CheckpointManager(os.path.join(args.output_dir, "checkpoints"))
+    start = maybe_resume(args, run, ckpt)
+    batches = prefetch_iterator(batch_iterator(
+        run.rows, run.tokenize_fn, run.collator, args.per_device_train_batch_size,
+        args.num_train_epochs, args.seed))
+    try:
+        return run_training(
+            run.step, batches, run.model.device, logger, logging_steps=args.logging_steps,
+            max_steps=args.max_steps, checkpoint_manager=ckpt, state_fn=run.state_tree,
+            save_steps=args.save_steps, start_step=start,
+            on_step=make_eval_hook(run, processor, args, logger),
+        )
+    finally:
+        ckpt.close()
+
+
+def finish_dpo(run: DPORun, args) -> None:
+    """<output_dir>/adapters (the trained adapters by key) and, with
+    --merge_adapter_after_training, <output_dir>/merged: every weight with
+    the adapters folded in, a quantized base dequantized to bf16 first
+    (vlrlhf_tpu `_finish`, cli/main.py:366-397). The HF export of the merged
+    weights waits for the checkpoint importer."""
+    import os
+
+    from vlrlhf_torch.lora.lora import merge_lora
+    from vlrlhf_torch.train.checkpoint import save_params
+
+    save_params(os.path.join(args.output_dir, "adapters"),
+                dict(zip(run.keys, run.state.trainable)))
+    if args.merge_adapter_after_training:
+        if getattr(args, "q_lora", False):
+            from vlrlhf_torch.ops.quant import dequantize_params
+
+            dequantize_params(run.model)
+        save_params(os.path.join(args.output_dir, "merged"),
+                    merge_lora(run.model, run.lcfg.scale))
+
+
 def cmd_dpo(args):
-    from vlrlhf_torch.train.loop import batch_iterator, run_training
     from vlrlhf_torch.train.metrics import MetricsLogger
 
     device = resolve_device(args.device)
@@ -299,16 +457,12 @@ def cmd_dpo(args):
                            flops_per_token=run.flops_per_token,
                            flops_per_image=run.flops_per_image)
     try:
-        steps = run_training(
-            run.step,
-            batch_iterator(run.rows, run.tokenize_fn, run.collator,
-                           args.per_device_train_batch_size, args.num_train_epochs, args.seed),
-            device, logger, logging_steps=args.logging_steps, max_steps=args.max_steps,
-        )
+        step = train_dpo(run, processor, args, logger)
     finally:
         logger.close()
-    print(f"dpo: {steps} steps on {device}; metrics in {logger.path} "
-          "(adapters are not saved until checkpointing is ported)", flush=True)
+    finish_dpo(run, args)
+    print(f"dpo: step {step} on {device}; metrics in {logger.path}; saved to "
+          f"{args.output_dir}", flush=True)
 
 
 def _bool(x: str) -> bool:
@@ -318,8 +472,8 @@ def _bool(x: str) -> bool:
 def _add_dpo_parser(sub) -> None:
     p = sub.add_parser(
         "dpo",
-        help="LoRA DPO training on one device; writes <output_dir>/dpo_metrics.jsonl "
-             "(no adapter checkpoints yet)",
+        help="LoRA DPO training on one device; writes <output_dir>/dpo_metrics.jsonl, "
+             "checkpoints/, adapters/ (and merged/, dpo_samples.jsonl)",
     )
     p.add_argument("--model_family", type=str, default="llava", choices=["llava"])
     p.add_argument("--output_dir", type=str, required=True)
@@ -345,8 +499,33 @@ def _add_dpo_parser(sub) -> None:
     p.add_argument("--lora_r", type=int, default=64)
     p.add_argument("--lora_alpha", type=float, default=16.0)
     p.add_argument("--lora_dropout", type=float, default=0.05)
-    p.add_argument("--remat_policy", type=str, default="", choices=["", "full", "attn"],
-                   help="gradient-checkpoint policy ('' keeps the model default, 'full')")
+    p.add_argument("--save_steps", type=int, default=500,
+                   help="checkpoint every N steps to <output_dir>/checkpoints (3 kept)")
+    p.add_argument("--resume_from_checkpoint", type=str, default=None,
+                   help="'auto': the latest step in <output_dir>/checkpoints; or a "
+                        "checkpoints directory (its latest step)")
+    p.add_argument("--merge_adapter_after_training", action="store_true",
+                   help="also save <output_dir>/merged: the weights with the adapters "
+                        "folded in (a quantized base dequantized to bf16 first)")
+    p.add_argument("--eval_steps", type=int, default=0,
+                   help="evaluate on the holdout split every N steps")
+    p.add_argument("--eval_ratio", type=float, default=0.005)
+    p.add_argument("--eval_samples", type=int, default=0,
+                   help="generate N policy + reference samples from the holdout at each "
+                        "eval (<output_dir>/dpo_samples.jsonl)")
+    p.add_argument("--use_lora", type=_bool, default=True,
+                   help="false: as vlrlhf_tpu, LoRA dropout off and 6N training FLOPs "
+                        "(the adapters still train)")
+    p.add_argument("--lora_target_modules", type=str, default="auto",
+                   help="'auto' (the LM's attention and MLP linears) or comma-separated "
+                        "regexes over JAX-layout paths, e.g. vision/.*attn/(wq|wk|wv|wo)/")
+    p.add_argument("--freeze_vision_tower", type=_bool, default=True,
+                   help="false: the tower runs inside every forward (under autograd in "
+                        "the policy's), so tower LoRA targets train")
+    p.add_argument("--remat_policy", type=str, default="",
+                   choices=["", "full", "dots", "attn", "mlp", "mlp1", "acts"],
+                   help="gradient-checkpoint policy ('' keeps the model default, 'full'; "
+                        "'acts' keeps every named per-layer activation)")
     p.add_argument("--beta", type=float, default=0.1)
     p.add_argument("--label_smoothing", type=float, default=0.0)
     p.add_argument("--loss_type", type=str, default="sigmoid",

@@ -1221,9 +1221,9 @@ extern "C" int flash_bwd_dq_bf16(FLASH_BWD_ARGS) {
   // by shape: D <= 128 is the wgmma kernel (a smaller D reads TMA's zero
   // fill); at D = 256 the dQ accumulator alone would take 128 registers a
   // thread beside S and dP, so it keeps the mma.sync kernel. D = 128's 4
-  // stages were timed against 5; D = 64's 6 (16 KB each, a ring near D =
-  // 128's 128 KB) are untimed, as no path runs a D = 64 backward
-  if (D <= 64) return launch_dq_wgmma<64, 64, 6>(p, st);
+  // stages were timed against 5; D = 64's 4 against 6 at an unfrozen
+  // tower's shape (B=2, S=577, H=16, non-causal), where 4 were faster
+  if (D <= 64) return launch_dq_wgmma<64, 64, 4>(p, st);
   if (D <= 128) return launch_dq_wgmma<128, 64, 4>(p, st);
   return launch_dq<256>(p, st);
 }

@@ -11,6 +11,11 @@ deferred cache write. PyTorch runs eagerly, so the decode loop is a Python
 loop that updates the cache and the output buffer in place. A ChatSession
 keeps the cache of one conversation and chunk-prefills each next turn into
 it (`extend`).
+
+`Generator.adapters` switches the model's LoRA adapters on (at
+`lora_scale`) or off for its runs, vlrlhf_tpu's single-adapter
+`serving_ctx` (engine.py:72-76): the DPO eval samples decode the policy
+with them on and the reference with them off.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vlrlhf_torch.models.common import Ctx
 from vlrlhf_torch.models.lm.llama import empty_pending
 from vlrlhf_torch.models.vlm import VLM
 from vlrlhf_torch.ops.sampling import sample_tokens
@@ -62,6 +68,7 @@ def prefill(
     pixel_values: Optional[torch.Tensor],  # (B, n_img, H, W, 3)
     image_positions: Optional[torch.Tensor],
     generator: Optional[torch.Generator],
+    ctx: Optional[Ctx] = None,  # VLM-level: adapters on or off
 ):
     """Prefill into a fresh (L, B, nkv, cache_len, hd) cache and sample the
     first token. Returns (cache, lengths, first_token, done0, out0,
@@ -69,11 +76,11 @@ def prefill(
     b = input_ids.shape[0]
     hidden, cache = model(
         input_ids, pixel_values, image_positions, pad_mask, cache_len=cache_len,
-        kv_cache_dtype=gen_cfg.kv_cache_dtype,
+        ctx=ctx, kv_cache_dtype=gen_cfg.kv_cache_dtype,
     )
     rows = torch.arange(b, device=hidden.device)
     last_h = hidden[rows, prompt_lens.long() - 1][:, None]  # (B, 1, H)
-    last_logits = model.head(last_h)[:, 0]
+    last_logits = model.head(last_h, ctx)[:, 0]
     first = _sample(gen_cfg, last_logits, generator)
     done0 = torch.isin(first, eos_tensor(gen_cfg, first.device))
     pad = gen_cfg.pad_token_id
@@ -94,10 +101,12 @@ def decode_step(
     out: torch.Tensor,  # (B, N), column `step` written in place
     step: int,
     generator: Optional[torch.Generator],
+    ctx: Optional[Ctx] = None,  # VLM-level: adapters on or off
 ):
     """One decode token for every row. Returns (pending, lengths,
     next_token, done)."""
-    logits, pending = model.lm.decode(last_token, lengths, cache, pending)
+    logits, pending = model.lm.decode(last_token, lengths, cache, pending,
+                                      ctx.sub("lm") if ctx is not None else None)
     nxt = _sample(gen_cfg, logits, generator)
     nxt = torch.where(done, torch.full_like(nxt, gen_cfg.pad_token_id), nxt)
     out[:, step] = nxt
@@ -125,6 +134,7 @@ def decode_loop(
     out: torch.Tensor,  # (B, N), columns 1.. written in place
     generator: Optional[torch.Generator],
     early_exit_every: int = 8,
+    ctx: Optional[Ctx] = None,
 ):
     """Decode columns 1..N-1 after a prefill that sampled column 0, with a
     host check for all-done every `early_exit_every` steps. Returns the
@@ -134,7 +144,7 @@ def decode_loop(
     eos = eos_tensor(gen_cfg, lengths.device)
     for step in range(1, gen_cfg.max_new_tokens):
         pending, lengths, last, done = decode_step(
-            model, gen_cfg, eos, cache, pending, lengths, last, done, out, step, generator,
+            model, gen_cfg, eos, cache, pending, lengths, last, done, out, step, generator, ctx,
         )
         if step % early_exit_every == 0 and bool(done.all()):
             break
@@ -143,13 +153,16 @@ def decode_loop(
 
 class Generator:
     """Static-batch generation: one prefill, then a host loop of decode
-    steps with an early-exit check every few steps."""
+    steps with an early-exit check every few steps. Set `adapters` True
+    and the model's LoRA adapters apply at `lora_scale`."""
 
     EARLY_EXIT_EVERY = 8  # decode steps between host checks for all-done
 
-    def __init__(self, model: VLM, gen_cfg: GenerateConfig):
+    def __init__(self, model: VLM, gen_cfg: GenerateConfig, lora_scale: float = 1.0):
         self.model = model
         self.gen_cfg = gen_cfg
+        self.lora_scale = lora_scale
+        self.adapters = False
 
     @torch.inference_mode()
     def __call__(
@@ -171,12 +184,13 @@ class Generator:
         t = batch_to_device(batch, device)
         if cache_len is None:
             cache_len = -(-(t["input_ids"].shape[1] + gen_cfg.max_new_tokens) // 128) * 128
+        ctx = Ctx(adapters=self.adapters, lora_scale=self.lora_scale)
         cache, lengths, last, done, out, _ = prefill(
             self.model, gen_cfg, cache_len, t["input_ids"], t["pad_mask"],
-            t["prompt_lens"], t["pixel_values"], t["image_positions"], generator,
+            t["prompt_lens"], t["pixel_values"], t["image_positions"], generator, ctx,
         )
         pending, lengths = decode_loop(self.model, gen_cfg, cache, lengths, last, done, out,
-                                       generator, self.EARLY_EXIT_EVERY)
+                                       generator, self.EARLY_EXIT_EVERY, ctx)
         if return_state:
             return out, {"cache": cache, "pending": pending, "lengths": lengths}
         return out
@@ -205,6 +219,9 @@ class ChatSession:
         max_new_tokens) token ids (vlrlhf_tpu `_extend_impl`)."""
         if self.state is None:
             raise RuntimeError("call start() first")
+        if self.gen.adapters:
+            raise ValueError("a chat session's next turn runs without adapters: "
+                             "adapters in prefill_chunk are not ported")
         gen_cfg = self.gen.gen_cfg
         model = self.gen.model
         device = model.device

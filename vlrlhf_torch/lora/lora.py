@@ -11,8 +11,10 @@ adapters off.
 Targets are chosen by the JAX package's regexes (e.g. LM_ALL_LINEARS)
 applied to each Linear's parameter path in the JAX layout, which
 `module_path` derives from the port's module name ("lm.layers.3.wq" ->
-"lm/layers/3/attn/wq/kernel"). Stacked adapter sets (multi-adapter
-serving) and `merge_lora` belong to later slices.
+"lm/layers/3/attn/wq/kernel"); `lora_parameters` names each adapter leaf
+by that path ("lm/layers/3/attn/wq/a"), the keys of the port's
+checkpoints. `merge_lora` folds the adapters into the base weights.
+Stacked adapter sets (multi-adapter serving) belong to a later slice.
 """
 
 from __future__ import annotations
@@ -86,17 +88,47 @@ def init_lora(model: nn.Module, cfg: LoraConfig, generator: torch.Generator) -> 
     return names
 
 
-def lora_parameters(model: nn.Module) -> list[tuple[str, nn.Parameter]]:
-    """Every adapter parameter as (name, param), in module path order then
-    a before b: the optimizer's leaf order."""
+def _adapted(model: nn.Module) -> list[tuple[str, str, nn.Module]]:
+    """(JAX-layout path, module name, Linear) of every adapted Linear, by path."""
     from vlrlhf_torch.models.common import Linear
 
-    mods = sorted(
+    return sorted(
         ((module_path(n), n, m) for n, m in model.named_modules()
          if isinstance(m, Linear) and m.lora_a is not None),
         key=lambda t: t[0],
     )
-    return [(f"{n}.{leaf}", getattr(m, leaf)) for _, n, m in mods for leaf in ("lora_a", "lora_b")]
+
+
+def lora_parameters(model: nn.Module) -> list[tuple[str, nn.Parameter]]:
+    """Every adapter parameter as (name, param), in module path order then
+    a before b: the optimizer's leaf order."""
+    return [(f"{n}.{leaf}", getattr(m, leaf)) for _, n, m in _adapted(model)
+            for leaf in ("lora_a", "lora_b")]
+
+
+def lora_keys(model: nn.Module) -> list[str]:
+    """The JAX-layout key of each leaf of `lora_parameters`, in its order:
+    "lm/layers/3/attn/wq/a", "lm/layers/3/attn/wq/b", ..."""
+    return [f"{path[: -len('/kernel')]}/{leaf}" for path, _, _ in _adapted(model)
+            for leaf in ("a", "b")]
+
+
+@torch.no_grad()
+def merge_lora(model: nn.Module, scale: float) -> dict[str, torch.Tensor]:
+    """The model's state dict with every adapter folded into its base
+    weight, W + scale * (A @ B).T summed in f32 and cast back to W's dtype
+    (vlrlhf_tpu `merge_lora`, lora.py:298); the adapter leaves are left
+    out. The model is not changed. An adapted Linear must hold a dense
+    weight: a quantized base goes through ops/quant.py dequantize_params
+    first, as vlrlhf_tpu's merge does."""
+    merged = {}
+    for _, name, mod in _adapted(model):
+        if mod.weight is None:
+            raise ValueError(f"{name}: merge_lora needs a dense weight; dequantize first")
+        delta = (mod.lora_a.float() @ mod.lora_b.float()) * scale  # (in, out)
+        merged[f"{name}.weight"] = (mod.weight.float() + delta.T).to(mod.weight.dtype)
+    return {k: merged.get(k, v) for k, v in model.state_dict().items()
+            if not k.endswith((".lora_a", ".lora_b"))}
 
 
 def lora_delta(

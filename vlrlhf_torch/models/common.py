@@ -138,20 +138,50 @@ class Linear(nn.Module):
         else:
             raise ValueError(f"bits={bits}: expected 8 or 4")
 
-    def forward(self, x: torch.Tensor, ctx: Optional[Ctx] = None) -> torch.Tensor:
+    def base(self, x: torch.Tensor) -> torch.Tensor:
+        """The frozen product x @ W.T (+ bias). Its backward needs no
+        activation: autograd keeps only weights (int8 codes and scales for
+        a W8A16 base, packed codes for int4)."""
         if self.weight_q4 is not None:
             y = int4_apply(x, self.weight_q4, self.weight_scale4, self.weight_gbias)
         elif self.weight is None:
-            y = F.linear(x, self.weight_q.to(x.dtype)) * self.weight_scale.to(x.dtype)
+            y = W8A16.apply(x, self.weight_q, self.weight_scale)
         else:
             y = F.linear(x, self.weight.to(x.dtype))
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
-        if ctx is not None and ctx.adapters and self.lora_a is not None:
-            delta = lora_delta(x, self.lora_a, self.lora_b, ctx.lora_scale,
-                               ctx.lora_dropout, ctx.dropout_seed)
-            y = y + delta.to(y.dtype)
         return y
+
+    def adapted(self, ctx: Optional[Ctx]) -> bool:
+        return ctx is not None and ctx.adapters and self.lora_a is not None
+
+    def delta(self, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+        """The adapter's term for input x under ctx (see `adapted`)."""
+        return lora_delta(x, self.lora_a, self.lora_b, ctx.lora_scale,
+                          ctx.lora_dropout, ctx.dropout_seed)
+
+    def forward(self, x: torch.Tensor, ctx: Optional[Ctx] = None) -> torch.Tensor:
+        y = self.base(x)
+        if self.adapted(ctx):
+            y = y + self.delta(x, ctx).to(y.dtype)
+        return y
+
+
+class W8A16(torch.autograd.Function):
+    """(x @ q.T) * scale with int8 codes q (out, in) and bf16 scales (out,),
+    differentiable in x only. Autograd through the plain expression would
+    keep the codes' x.dtype copy (a dense weight per linear) for the
+    backward; this keeps the codes and converts again there."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale):
+        ctx.save_for_backward(q, scale)
+        return F.linear(x, q.to(x.dtype)) * scale.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, scale = ctx.saved_tensors
+        return (g * scale.to(g.dtype)) @ q.to(g.dtype), None, None
 
 
 class Norm(nn.Module):

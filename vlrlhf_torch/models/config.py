@@ -37,9 +37,9 @@ class LMConfig:
     o_bias: bool = False
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
-    # Training remat (models/lm/llama.py): torch.utils.checkpoint per layer
-    # ("full") or per half-layer, keeping the residual after attention
-    # ("attn"); the other vlrlhf_tpu policies are not ported yet.
+    # Training remat (models/lm/llama.py): vlrlhf_tpu's policies "full",
+    # "attn", "dots", "mlp", "mlp1" and "acts", each keeping the per-layer
+    # tensors its JAX counterpart keeps.
     remat: bool = True
     remat_policy: str = "full"
 
@@ -77,6 +77,8 @@ class ViTConfig:
     patch_bias: bool = False
     ln_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    # under autograd (an unfrozen tower), each block is one checkpoint region
+    remat: bool = True
 
     @property
     def grid(self) -> int:

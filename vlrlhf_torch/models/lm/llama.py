@@ -5,11 +5,28 @@ cache write (`lm_decode`, `flush_pending`) and the chunk prefill into a
 live cache (`lm_prefill_chunk`).
 
 Training: each Linear applies its LoRA adapter when the call's Ctx has
-adapters on, and layers are rematerialized by `torch.utils.checkpoint`
-following `remat_policy_for` (llama.py:647-672): "full" checkpoints each
-layer, "attn" checkpoints the attention half and the MLP half separately so
-the residual between them (x + attn_out, what `save_only_these_names(
-"attn_out")` keeps) is what stays; `LMConfig.remat=False` keeps everything.
+adapters on, and under autograd the layers are rematerialized by
+`torch.utils.checkpoint` following `remat_policy_for` (llama.py:647-672),
+each policy keeping the per-layer tensors its JAX counterpart keeps:
+  - "full": the layer input only (one region per layer);
+  - "attn": `attn_out`, held as the residual x + attn_out that the MLP
+    half's region takes as input (the same bytes);
+  - "mlp1" / "mlp" / "acts": the named activations `attn_out` (again as
+    x + attn_out), `ffn_gate` (mlp1), `ffn_up` (mlp), and `attn_q`,
+    `attn_k`, `attn_v`, `attn_pre_wo` (acts). The layer is cut into
+    regions whose inputs are exactly those tensors (`_named_forward`), so
+    nothing else stays and no frozen product whose output is kept is
+    computed twice: one region computes a norm or activation and the
+    adapter terms of the Linears that read it (`_lins`), and their frozen
+    products run on its output outside any region (their backward needs
+    weights only);
+  - "dots": every matmul output without batch dims
+    (`dots_with_no_batch_dims_saveable`): a selective checkpoint of the
+    layer that keeps `aten.mm` / `aten.addmm` results. The flash and int4
+    Functions' buffers come from allocations filled by their kernels, never
+    from those ops, so they are recomputed whole, as JAX recomputes its
+    Pallas calls.
+`LMConfig.remat=False` keeps everything.
 
 KV cache layout is vlrlhf_tpu's head-major decode layout: {"k", "v"} each
 (L, B, nkv, Sc, hd), slot == absolute position (right-padded prompts); an
@@ -27,7 +44,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from vlrlhf_torch.models.common import Ctx, Linear, Norm, empty_param, embed
 from vlrlhf_torch.models.config import LMConfig
@@ -113,6 +130,102 @@ class LlamaLayer(nn.Module):
     def forward(self, x, cos, sin, pad_mask, lctx: Ctx) -> torch.Tensor:
         return self.mlp_residual(x + self.attn_out(x, cos, sin, pad_mask, lctx), lctx)
 
+    def _attend(self, q, k, v, cos, sin, pad_mask) -> torch.Tensor:
+        """rope + attention over (B, S, heads * hd) projections; the output is
+        (B, S, nh * hd), `attn_pre_wo`."""
+        cfg = self.cfg
+        b, s, _ = q.shape
+        nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+        q, k = apply_rope(q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd), cos, sin)
+        out = multi_head_attention(q, k, v.reshape(b, s, nkv, hd), causal=True,
+                                   pad_mask_q=pad_mask, pad_mask_kv=pad_mask)
+        return out.reshape(b, s, nh * hd)
+
+    def _named_forward(self, x, cos, sin, pad_mask, lctx: Ctx, policy: str) -> torch.Tensor:
+        """The layer under "mlp1", "mlp" or "acts" (see the module note):
+        the same values as `forward`, with only the policy's tensors kept."""
+        eps = self.cfg.rms_eps
+        actx, mctx = lctx.sub("attn"), lctx.sub("mlp")
+
+        def norm1(t):
+            return rms_norm(t, self.input_layernorm.weight, eps)
+
+        def norm2(t):
+            return rms_norm(t, self.post_attention_layernorm.weight, eps)
+
+        def act(g, u):
+            return F.silu(g) * u
+
+        if policy == "acts":
+            q, k, v = _lins([self.wq, self.wk, self.wv], norm1, (x,),
+                            [actx.sub(n) for n in ("wq", "wk", "wv")])
+            o = _region(self._attend, q, k, v, cos, sin, pad_mask)
+            (a,) = _lins([self.wo], None, (o,), [actx.sub("wo")])
+        else:
+            a = _region(self.attn_out, x, cos, sin, pad_mask, lctx)
+        x = x + a
+        if policy == "mlp1":  # ffn_up is not kept: down's region recomputes it
+            (gate,) = _lins([self.gate], norm2, (x,), [mctx.sub("gate")])
+
+            def up_act(x1, g):
+                return act(g, self.up(norm2(x1), mctx.sub("up")))
+
+            (d,) = _lins([self.down], up_act, (x, gate), [mctx.sub("down")])
+            return x + d
+        gate, up = _lins([self.gate, self.up], norm2, (x,), [mctx.sub("gate"), mctx.sub("up")])
+        (d,) = _lins([self.down], act, (gate, up), [mctx.sub("down")])
+        return x + d
+
+
+def _region(fn, *args, **kw):
+    """fn(*args) with nothing inside kept for the backward but `args`. No
+    region draws from the global RNG (LoRA dropout seeds its own
+    generator per call), so its state is not stashed for the recompute."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
+def _lins(lins: list, pre, pre_args: tuple, ctxs: list) -> list:
+    """[lin(h, ctx) ...] for Linears reading one input h = pre(*pre_args),
+    or h = pre_args[0] when pre is None. One region computes h and the
+    adapter terms, so only pre_args are kept; the frozen products run on h
+    outside it (their backward needs weights only, not h)."""
+    on = [i for i, (lin, ctx) in enumerate(zip(lins, ctxs)) if lin.adapted(ctx)]
+
+    def deltas(h):
+        return tuple(lins[i].delta(h, ctxs[i]) for i in on)
+
+    def input_and_deltas(*t):
+        h = pre(*t)
+        return (h, *deltas(h))
+
+    if pre is None:
+        h = pre_args[0]
+        ds = _region(deltas, h) if on else ()
+    else:
+        h, *ds = _region(input_and_deltas, *pre_args)
+    ys = [lin.base(h) for lin in lins]
+    for i, d in zip(on, ds):
+        ys[i] = ys[i] + d.to(ys[i].dtype)
+    return ys
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_matmuls(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of 2-D matmuls (a Linear's
+    product and its adapter's two factors), recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op in _MATMULS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_keep_matmuls)
+
+
+REMAT_POLICIES = ("full", "attn", "dots", "mlp", "mlp1", "acts")
+
 
 class LlamaDecoder(nn.Module):
     def __init__(self, cfg: LMConfig, device):
@@ -166,9 +279,12 @@ class LlamaDecoder(nn.Module):
         # one stacked cache is ever live (no per-layer caches to stack)
         cache = empty_cache(cfg, b, cache_len, kv_cache_dtype, inputs_embeds.device)
         x = inputs_embeds
+        layers_ctx = (ctx or Ctx()).sub("layers_scanned")
         for i, layer in enumerate(self.layers):
+            lctx = layers_ctx.fold(i)
+            actx = lctx.sub("attn")
             h = rms_norm(x, layer.input_layernorm.weight, cfg.rms_eps)
-            q, k, v = layer.qkv(h)
+            q, k, v = layer.qkv(h, actx)
             q, k = apply_rope(q, k, cos, sin)
             for key, t in (("k", k), ("v", v)):
                 t = t.transpose(1, 2)  # (B, nkv, S, hd)
@@ -179,27 +295,31 @@ class LlamaDecoder(nn.Module):
             out = multi_head_attention(
                 q, k, v, causal=True, pad_mask_q=pad_mask, pad_mask_kv=pad_mask
             )
-            x = x + layer.wo(out.reshape(b, s, -1))
+            x = x + layer.wo(out.reshape(b, s, -1), actx.sub("wo"))
             h = rms_norm(x, layer.post_attention_layernorm.weight, cfg.rms_eps)
-            x = x + layer.mlp(h)
+            x = x + layer.mlp(h, lctx.sub("mlp"))
         return rms_norm(x, self.norm.weight, cfg.rms_eps), cache
 
     def _train_forward(self, x, pad_mask, cos, sin, ctx: Ctx) -> torch.Tensor:
         cfg = self.cfg
         layers_ctx = ctx.sub("layers_scanned")
         remat = cfg.remat and torch.is_grad_enabled()
-        if remat and cfg.remat_policy not in ("full", "attn"):
-            raise ValueError(f"remat_policy {cfg.remat_policy!r} is not ported yet "
-                             "(ported: 'full', 'attn')")
+        policy = cfg.remat_policy
+        if policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {policy!r}: expected one of {REMAT_POLICIES}")
         for i, layer in enumerate(self.layers):
             lctx = layers_ctx.fold(i)  # a distinct dropout stream per layer
             if not remat:
                 x = layer(x, cos, sin, pad_mask, lctx)
-            elif cfg.remat_policy == "attn":
-                a = checkpoint(layer.attn_out, x, cos, sin, pad_mask, lctx, use_reentrant=False)
-                x = checkpoint(layer.mlp_residual, x + a, lctx, use_reentrant=False)
+            elif policy == "attn":
+                a = _region(layer.attn_out, x, cos, sin, pad_mask, lctx)
+                x = _region(layer.mlp_residual, x + a, lctx)
+            elif policy == "dots":
+                x = _region(layer, x, cos, sin, pad_mask, lctx, context_fn=_dots_context)
+            elif policy == "full":
+                x = _region(layer, x, cos, sin, pad_mask, lctx)
             else:
-                x = checkpoint(layer, x, cos, sin, pad_mask, lctx, use_reentrant=False)
+                x = layer._named_forward(x, cos, sin, pad_mask, lctx, policy)
         return rms_norm(x, self.norm.weight, cfg.rms_eps)
 
     def decode(
@@ -208,6 +328,7 @@ class LlamaDecoder(nn.Module):
         lengths: torch.Tensor,  # (B,) int32 current position == write slot
         cache: dict,  # {"k", "v"[, "k_scale", "v_scale"]}, updated IN PLACE
         pending: Optional[dict] = None,  # previous token's k/v, not yet written
+        ctx: Optional[Ctx] = None,  # the LM-level context (adapters on or off)
     ):
         """Single-token decode step. Returns (logits (B, V), new_pending).
 
@@ -228,9 +349,12 @@ class LlamaDecoder(nn.Module):
         cos, sin = rope_frequencies(cfg.rope, positions, seq_len=sc)
         new_k = torch.empty((cfg.num_layers, b, nkv, hd), dtype=cfg.dtype, device=x.device)
         new_v = torch.empty_like(new_k)
+        layers_ctx = (ctx or Ctx()).sub("layers_scanned")
         for i, layer in enumerate(self.layers):
+            lctx = layers_ctx.fold(i)
+            actx = lctx.sub("attn")
             h = rms_norm(x, layer.input_layernorm.weight, cfg.rms_eps)
-            q, k, v = layer.qkv(h)
+            q, k, v = layer.qkv(h, actx)
             q, k = apply_rope(q, k, cos, sin)
             new_k[i] = k[:, 0]
             new_v[i] = v[:, 0]
@@ -238,11 +362,11 @@ class LlamaDecoder(nn.Module):
                 q[:, 0], cache["k"], cache["v"], new_k[i], new_v[i], lengths, layer=i,
                 k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
             )
-            x = x + layer.wo(out.reshape(b, 1, -1))
+            x = x + layer.wo(out.reshape(b, 1, -1), actx.sub("wo"))
             h = rms_norm(x, layer.post_attention_layernorm.weight, cfg.rms_eps)
-            x = x + layer.mlp(h)
+            x = x + layer.mlp(h, lctx.sub("mlp"))
         hidden = rms_norm(x, self.norm.weight, cfg.rms_eps)
-        logits = self.head(hidden)[:, 0]
+        logits = self.head(hidden, ctx)[:, 0]
         return logits, {"k": new_k, "v": new_v, "pos": lengths.clone()}
 
     def prefill_chunk(

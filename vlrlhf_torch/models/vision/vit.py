@@ -9,15 +9,25 @@ The patch embedding is written as patch extraction + one matmul over the
 (p*p*3) patch vector in (row, col, channel) order — exactly the NHWC/HWIO
 convolution vlrlhf_tpu runs, without cuDNN (whose f32 convolutions default
 to TF32 on the card).
+
+Under autograd (DPO with an unfrozen tower) each block is rematerialized
+as one checkpoint region (vit.py:192, `cfg.remat`), and the block's
+Linears apply their LoRA adapters when the call's Ctx has adapters on, so
+`vision/...` LoRA targets train. vlrlhf_tpu's `vit_forward` calls its
+linears without the Ctx and so never applies tower adapters (they stay at
+zero gradient there); ROADMAP.md §3 records the difference.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from vlrlhf_torch.models.common import Linear, Norm, empty_param
+from vlrlhf_torch.models.common import Ctx, Linear, Norm, empty_param
 from vlrlhf_torch.models.config import ViTConfig
 from vlrlhf_torch.ops.attention import multi_head_attention
 from vlrlhf_torch.ops.norms import layer_norm
@@ -44,19 +54,21 @@ class ViTBlock(nn.Module):
         self.fc2 = Linear(cfg.mlp_dim, h, True, device, dt)
         self.cfg = cfg
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lctx: Optional[Ctx] = None) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = x.shape
         nh = cfg.num_heads
         hd = cfg.hidden_size // nh
+        lctx = lctx or Ctx()
+        actx, mctx = lctx.sub("attn"), lctx.sub("mlp")
         h = layer_norm(x, self.ln1.weight, self.ln1.bias, cfg.ln_eps)
-        q = self.wq(h).reshape(b, s, nh, hd)
-        k = self.wk(h).reshape(b, s, nh, hd)
-        v = self.wv(h).reshape(b, s, nh, hd)
+        q = self.wq(h, actx.sub("wq")).reshape(b, s, nh, hd)
+        k = self.wk(h, actx.sub("wk")).reshape(b, s, nh, hd)
+        v = self.wv(h, actx.sub("wv")).reshape(b, s, nh, hd)
         attn = multi_head_attention(q, k, v, causal=False).reshape(b, s, cfg.hidden_size)
-        x = x + self.wo(attn)
+        x = x + self.wo(attn, actx.sub("wo"))
         h = layer_norm(x, self.ln2.weight, self.ln2.bias, cfg.ln_eps)
-        return x + self.fc2(_act(cfg.act)(self.fc1(h)))
+        return x + self.fc2(_act(cfg.act)(self.fc1(h, mctx.sub("fc1"))), mctx.sub("fc2"))
 
 
 class VisionTower(nn.Module):
@@ -73,8 +85,9 @@ class VisionTower(nn.Module):
         self.ln_post = Norm(h, True, device, dt) if cfg.use_post_norm else None
         self.layers = nn.ModuleList(ViTBlock(cfg, device) for _ in range(cfg.num_layers))
 
-    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) normalized float -> (B, n_tokens, hidden) features."""
+    def forward(self, pixel_values: torch.Tensor, ctx: Optional[Ctx] = None) -> torch.Tensor:
+        """(B, H, W, 3) normalized float -> (B, n_tokens, hidden) features;
+        `ctx` is the tower's context (adapters on or off)."""
         cfg = self.cfg
         dt = cfg.dtype
         p = cfg.patch_size
@@ -103,8 +116,13 @@ class VisionTower(nn.Module):
             x = x + pos[None]
         if self.ln_pre is not None:
             x = layer_norm(x, self.ln_pre.weight, self.ln_pre.bias, cfg.ln_eps)
-        for block in self.layers[: cfg.layers_run]:
-            x = block(x)
+        layers_ctx = (ctx or Ctx()).sub("layers_scanned")
+        remat = cfg.remat and torch.is_grad_enabled()
+        for i, block in enumerate(self.layers[: cfg.layers_run]):
+            lctx = layers_ctx.fold(i)  # a distinct dropout stream per layer
+            # no global RNG draws inside a block: its state is not stashed
+            x = (checkpoint(block, x, lctx, use_reentrant=False, preserve_rng_state=False)
+                 if remat else block(x, lctx))
         if cfg.layers_run == cfg.num_layers and self.ln_post is not None:
             x = layer_norm(x, self.ln_post.weight, self.ln_post.bias, cfg.ln_eps)
         if cfg.drop_class_token and cfg.use_class_token:

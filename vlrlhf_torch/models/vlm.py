@@ -3,8 +3,10 @@
 `encode_images`, `vlm_embeds`, `vlm_forward`, `lm_head_fn`).
 
 Training passes precomputed `image_features` (the frozen tower runs once
-per pair, outside autograd) and a `Ctx` that switches the LM's LoRA
-adapters on or off; `head_fn` is the chunk head of the chunked logps.
+per pair, outside autograd), or, with an unfrozen tower, `pixel_values`
+tiled to every row, and a `Ctx` that switches the LoRA adapters on or off
+(the tower's under ctx.sub("vision"), the LM's under ctx.sub("lm"));
+`head_fn` is the chunk head of the chunked logps.
 
 The processor emits exactly `num_image_tokens` placeholder tokens per image
 plus an `image_positions` map; projected features land at those positions
@@ -52,16 +54,17 @@ class VLM(nn.Module):
     def device(self) -> torch.device:
         return self.lm.embed_tokens.device
 
-    def encode_images(self, pixel_values: torch.Tensor) -> torch.Tensor:
+    def encode_images(self, pixel_values: torch.Tensor, ctx: Optional[Ctx] = None) -> torch.Tensor:
         """(N, H, W, 3) uint8 or normalized float -> (N, num_image_tokens,
-        lm_hidden). uint8 pixels are rescaled and normalized here."""
+        lm_hidden). uint8 pixels are rescaled and normalized here; `ctx`
+        is the VLM-level context (the tower runs under ctx.sub("vision"))."""
         cfg = self.cfg
         if pixel_values.dtype == torch.uint8:
             x = pixel_values.float() / 255.0
             mean = torch.tensor(cfg.image_mean, dtype=torch.float32, device=x.device)
             std = torch.tensor(cfg.image_std, dtype=torch.float32, device=x.device)
             pixel_values = ((x - mean) / std).to(cfg.lm.dtype)
-        return self.projector(self.vision(pixel_values))
+        return self.projector(self.vision(pixel_values, (ctx or Ctx()).sub("vision")))
 
     def embeds(
         self,
@@ -69,6 +72,7 @@ class VLM(nn.Module):
         pixel_values: Optional[torch.Tensor] = None,  # (B, n_img, H, W, 3)
         image_positions: Optional[torch.Tensor] = None,  # (B, n_img*N_tok)
         image_features: Optional[torch.Tensor] = None,  # (B, n_img*N_tok, H) precomputed
+        ctx: Optional[Ctx] = None,
     ) -> torch.Tensor:
         """Token embeddings with image features merged in; precomputed
         `image_features` skip the tower."""
@@ -80,7 +84,7 @@ class VLM(nn.Module):
         if image_features is None:
             b, n_img = pixel_values.shape[:2]
             flat = pixel_values.reshape(b * n_img, *pixel_values.shape[2:])
-            image_features = self.encode_images(flat).reshape(
+            image_features = self.encode_images(flat, ctx).reshape(
                 b, n_img * self.cfg.num_image_tokens, -1
             )
         return merge_multimodal_embeddings(embeds, image_features, image_positions)
@@ -98,9 +102,9 @@ class VLM(nn.Module):
     ):
         """vlm_forward: returns (final-normed hidden (B, S, H), cache or
         None); with `cache_len` the empty-prefill mode (a bf16 or int8
-        cache), without it the training forward under `ctx`. Logits come
-        from `head`."""
-        embeds = self.embeds(input_ids, pixel_values, image_positions, image_features)
+        cache), without it the training forward. `ctx` switches the
+        adapters on or off in both. Logits come from `head`."""
+        embeds = self.embeds(input_ids, pixel_values, image_positions, image_features, ctx)
         lm_ctx = ctx.sub("lm") if ctx is not None else None
         return self.lm(embeds, pad_mask=pad_mask, cache_len=cache_len, ctx=lm_ctx,
                        kv_cache_dtype=kv_cache_dtype)

@@ -48,9 +48,10 @@ FLASH_SHAPES = [  # label, causal, B, S, H, Hkv, D, row lengths
     ("prefill", True, 4, 640, 32, 32, 128, (600, 613, 627, 640)),
     ("dpo", True, 2, 1024, 32, 32, 128, (1000, 900)),
 ]
-FLASH_BWD_SHAPES = [  # label, B, S, H, Hkv, D, row lengths (causal)
-    ("dpo", 2, 1024, 32, 32, 128, (1000, 900)),
-    ("gqa", 2, 640, 32, 8, 128, (640, 601)),
+FLASH_BWD_SHAPES = [  # label, causal, B, S, H, Hkv, D, row lengths
+    ("dpo", True, 2, 1024, 32, 32, 128, (1000, 900)),
+    ("gqa", True, 2, 640, 32, 8, 128, (640, 601)),
+    ("vit", False, 2, 577, 16, 16, 64, (577, 577)),  # an unfrozen tower's backward
 ]
 INT4_SHAPES = [  # label, C symbol, T, in, out
     ("decode gate", "int4_matmul", 8, 4096, 11008),
@@ -155,7 +156,7 @@ def flash_lines(versions: dict, gen: torch.Generator) -> None:
 
 def flash_bwd_lines(versions: dict, gen: torch.Generator) -> None:
     dev = torch.device("cuda")
-    for label, b, s, h, hkv, d, lens in FLASH_BWD_SHAPES:
+    for label, causal, b, s, h, hkv, d, lens in FLASH_BWD_SHAPES:
         q, do = (torch.randn((b, s, h, d), device=dev, generator=gen).bfloat16() for _ in range(2))
         k, v = (torch.randn((b, s, hkv, d), device=dev, generator=gen).bfloat16()
                 for _ in range(2))
@@ -164,15 +165,15 @@ def flash_bwd_lines(versions: dict, gen: torch.Generator) -> None:
         seg_q = make_segments(b, s, dev, None, pad, Q_PAD_SEG)
         seg_kv = make_segments(b, s, dev, None, pad, KV_PAD_SEG)
         scale = d**-0.5
-        o, lse = flash_attention_plain(q.float(), k.float(), v.float(), seg_q, seg_kv, True,
+        o, lse = flash_attention_plain(q.float(), k.float(), v.float(), seg_q, seg_kv, causal,
                                        scale)
         di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
         rq, rk, rv = flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(),
-                                               lse, di, seg_q, seg_kv, True, scale)
+                                               lse, di, seg_q, seg_kv, causal, scale)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
         def make_caller(symbol, outs):
-            args = _bwd_args(q, k, v, do, lse, di, seg_q, seg_kv, *outs, True, scale)
+            args = _bwd_args(q, k, v, do, lse, di, seg_q, seg_kv, *outs, causal, scale)
 
             def make_call(lib):
                 fn = getattr(lib, symbol)
@@ -191,10 +192,10 @@ def flash_bwd_lines(versions: dict, gen: torch.Generator) -> None:
             qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
             with torch.no_grad():
                 fo = torch.ops.aten._scaled_dot_product_flash_attention(
-                    qt, kt, vt, 0.0, True, False, scale=scale)
+                    qt, kt, vt, 0.0, causal, False, scale=scale)
             lib_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
             lib_ms = time_ms(lambda: lib_bwd(dot, qt, kt, vt, fo[0], fo[1], fo[2], fo[3], fo[4],
-                                             fo[5], 0.0, True, fo[6], fo[7], scale=scale))
+                                             fo[5], 0.0, causal, fo[6], fo[7], scale=scale))
             lib = f"{lib_ms:.4f} ms"
         print(f"flash_bwd_dkv {label} B={b} S={s} H={h} Hkv={hkv} D={d}: {turns} "
               f"aten flash backward (all grads) {lib}", flush=True)

@@ -1,9 +1,13 @@
 """DPO training step (counterpart of vlrlhf_tpu/train/dpo.py: DPOConfig,
-dpo_step_fn, make_ref_logps_fn, precompute_ref_logps).
+dpo_step_fn, make_ref_logps_fn, precompute_ref_logps, make_dpo_eval_fn).
 
 One step, as in the JAX package:
-  - the frozen vision tower encodes each pair's images once, outside
-    autograd, and the features are tiled to the [chosen; rejected] rows;
+  - with a frozen vision tower (`frozen_vision`, the default) the tower
+    encodes each pair's images once, outside autograd, and the features are
+    tiled to the [chosen; rejected] rows; unfrozen, the per-pair images are
+    tiled to the 2B rows (`tile_pair_images`) and the tower runs inside
+    every forward: under autograd with the adapters on in the policy
+    forward, under no_grad with them off in the reference forward;
   - the reference logps come from the batch (precomputed), are zero
     (reference_free), or come from the same model with adapters off under
     no_grad — the same kernels as the policy forward, so with b = 0 the
@@ -11,8 +15,8 @@ One step, as in the JAX package:
   - the policy forward with adapters on, the loss, the backward into the
     LoRA adapters, the gradients' global norm and the optimizer update.
 The metrics come back as 0-dim tensors on the device; the caller reads them
-once per logging step. The vision tower is always frozen here (training it
-waits, like the eval function).
+once per logging step. `make_dpo_eval_fn` is the holdout pass: the same
+loss with no update, the tower run as the step runs it.
 """
 
 from __future__ import annotations
@@ -41,6 +45,9 @@ class DPOConfig:
     # adapter-off, so dropout never touches it)
     lora_dropout: float = 0.0
     dropout_seed: int = 0
+    # the tower is frozen: its features are computed once per pair outside
+    # autograd; False runs it inside each forward on the tiled images
+    frozen_vision: bool = True
     # > 0: logps through losses.chunked_logps over S-chunks of this size,
     # never materializing (B, S, V) logits; 0 = one lm_head matmul
     logits_chunk: int = 0
@@ -69,13 +76,25 @@ def pair_image_features(model: VLM, batch: dict) -> Optional[torch.Tensor]:
     return torch.cat([feats, feats], dim=0)
 
 
+def tile_pair_images(batch: dict) -> dict:
+    """The batch with its per-pair pixel_values (B pairs) tiled to the 2B
+    [chosen; rejected] rows (vlrlhf_tpu `_tile_pair_images`)."""
+    pv = batch.get("pixel_values")
+    if pv is None or pv.shape[0] * 2 != batch["input_ids"].shape[0]:
+        return batch
+    return dict(batch, pixel_values=torch.cat([pv, pv], dim=0))
+
+
 def forward_logps(model: VLM, dcfg: DPOConfig, batch: dict, ctx: Ctx,
                   image_features: Optional[torch.Tensor]):
-    """(logps (2B,), per-row f32 logits mean (2B,)) for the batch's rows."""
+    """(logps (2B,), per-row f32 logits mean (2B,)) for the batch's rows.
+    Without image features the tower runs on the batch's (tiled)
+    pixel_values under `ctx`."""
     loss_mask = batch.get("loss_mask") if dcfg.loss_type == "ddpo" else None
     hidden, _ = model(
         batch["input_ids"], image_positions=batch.get("image_positions"),
         pad_mask=batch["pad_mask"], ctx=ctx, image_features=image_features,
+        pixel_values=None if image_features is not None else batch.get("pixel_values"),
     )
     s, v = batch["input_ids"].shape[1], model.cfg.lm.vocab_size
     if dcfg.logits_chunk:
@@ -98,7 +117,11 @@ def dpo_step(model: VLM, dcfg: DPOConfig, ocfg: OptimizerConfig, state: TrainSta
     device. Returns the metrics of vlrlhf_tpu's dpo_step_fn as 0-dim
     tensors; the adapters' .grad hold this step's gradients afterwards."""
     n_pairs = batch["input_ids"].shape[0] // 2
-    feats = pair_image_features(model, batch)
+    feats = None
+    if dcfg.frozen_vision:
+        feats = pair_image_features(model, batch)
+    else:
+        batch = tile_pair_images(batch)
 
     if dcfg.reference_free:
         ref_chosen = ref_rejected = torch.zeros((n_pairs,), device=model.device)
@@ -177,3 +200,35 @@ def precompute_ref_logps(model: VLM, dcfg: DPOConfig, rows: list, tokenize_fn, c
             out.append(dict(rows[idx[k]], ref_chosen_logp=float(c[k]),
                             ref_rejected_logp=float(r[k])))
     return out
+
+
+def make_dpo_eval_fn(model: VLM, dcfg: DPOConfig):
+    """The holdout pass (vlrlhf_tpu `make_dpo_eval_fn`, dpo.py:339-391):
+    batch -> {"eval/loss", "eval/rewards_accuracies", "eval/rewards_margins"}
+    as 0-dim device tensors, no update. The reference forward has the
+    adapters off, the policy forward on, without dropout. The tower runs as
+    in `dpo_step`: frozen, its features once per pair; unfrozen, inside each
+    forward under that forward's ctx, so tower adapters count in the policy
+    as they do in training, the samples and the merged save."""
+
+    @torch.no_grad()
+    def f(batch: dict) -> dict:
+        n_pairs = batch["input_ids"].shape[0] // 2
+        feats = None
+        if dcfg.frozen_vision:
+            feats = pair_image_features(model, batch)
+        else:
+            batch = tile_pair_images(batch)
+        ref, _ = forward_logps(model, dcfg, batch, Ctx(), feats)
+        logps, _ = forward_logps(model, dcfg, batch, Ctx(adapters=True, lora_scale=dcfg.lora_scale),
+                                 feats)
+        out = dpo_loss(logps[:n_pairs], logps[n_pairs:], ref[:n_pairs], ref[n_pairs:],
+                       beta=dcfg.beta, label_smoothing=dcfg.label_smoothing,
+                       loss_type=dcfg.loss_type, reference_free=dcfg.reference_free)
+        return {
+            "eval/loss": out.loss,
+            "eval/rewards_accuracies": (out.chosen_rewards > out.rejected_rewards).float().mean(),
+            "eval/rewards_margins": (out.chosen_rewards - out.rejected_rewards).mean(),
+        }
+
+    return f

@@ -1,10 +1,14 @@
 """The training loop (counterpart of vlrlhf_tpu/train/loop.py
-`batch_iterator` and `run_training`), single process.
+`batch_iterator`, `PreemptionGuard`, `run_training` and
+`prefetch_iterator`), single process.
 
-Rows are tokenized lazily per batch; each batch moves to the device, the
-step runs, and the step's metrics stay on the device until a logging step,
-where all of them come back in one read. Checkpoint saves wait for the
-checkpointing slice.
+Rows are tokenized lazily per batch (on a background thread with
+`prefetch_iterator`); each batch moves to the device, the step runs, and
+the step's metrics stay on the device until a logging step, where all of
+them come back in one read. Every `save_steps` steps, and at a SIGTERM
+(`PreemptionGuard`: the step in progress finishes, then the state is saved
+and the loop stops), the state tree goes to the checkpoint manager
+(train/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -50,6 +54,37 @@ def read_metrics(metrics: dict) -> dict[str, float]:
     return dict(zip(keys, vals.cpu().tolist()))
 
 
+class PreemptionGuard:
+    """SIGTERM -> finish the current step, checkpoint, stop cleanly (a
+    preemptible machine's notice). Installing it off the main thread is a
+    no-op (the signal module's rule)."""
+
+    def __init__(self):
+        self.flag = False
+        self._prev = None
+        self._installed = False
+
+    def install(self) -> "PreemptionGuard":
+        import signal
+
+        def _on(signum, frame):
+            self.flag = True
+
+        try:
+            self._prev = signal.signal(signal.SIGTERM, _on)
+            self._installed = True
+        except ValueError:  # not the main thread
+            pass
+        return self
+
+    def uninstall(self) -> None:
+        if self._installed:
+            import signal
+
+            signal.signal(signal.SIGTERM, self._prev)
+            self._installed = False
+
+
 def run_training(
     step_fn: Callable[[dict], dict],  # device batch -> metrics (0-dim tensors)
     batches: Iterable[dict],
@@ -57,23 +92,86 @@ def run_training(
     logger=None,
     logging_steps: int = 10,
     max_steps: int = 0,
+    checkpoint_manager=None,
+    state_fn: Optional[Callable[[], dict]] = None,  # the state tree to save
+    save_steps: int = 500,
+    start_step: int = 0,
+    on_step: Optional[Callable[[int, dict], None]] = None,  # (step, metrics)
 ) -> int:
-    """Drive `step_fn` over numpy `batches`; returns the steps taken."""
-    step = 0
+    """Drive `step_fn` over numpy `batches`, counting steps from
+    `start_step` (a resumed run: the batches start from the beginning
+    again, as in vlrlhf_tpu); returns the last step's number."""
+    guard = PreemptionGuard().install()
+    last_saved = -1
+
+    def save(step_idx):
+        nonlocal last_saved
+        if checkpoint_manager is not None and step_idx != last_saved:
+            checkpoint_manager.save(step_idx, state_fn())
+            last_saved = step_idx
+
+    step = start_step
     interval_tokens = interval_images = 0
-    for batch in batches:
-        metrics = step_fn(batch_to_device(batch, device))
-        step += 1
-        interval_tokens += int(np.prod(batch["input_ids"].shape))
-        pv: Optional[np.ndarray] = batch.get("pixel_values")
-        if pv is not None:
-            interval_images += int(np.prod(pv.shape[:2]))
-        if logger is not None and step % logging_steps == 0:
-            host = read_metrics(metrics)  # the only sync of the interval
-            host["perf/interval_tokens"] = interval_tokens
-            host["perf/interval_images"] = interval_images
-            interval_tokens = interval_images = 0
-            logger.log(step, host)
-        if max_steps and step >= max_steps:
-            break
+    try:
+        for batch in batches:
+            metrics = step_fn(batch_to_device(batch, device))
+            step += 1
+            interval_tokens += int(np.prod(batch["input_ids"].shape))
+            pv: Optional[np.ndarray] = batch.get("pixel_values")
+            if pv is not None:
+                interval_images += int(np.prod(pv.shape[:2]))
+            if logger is not None and step % logging_steps == 0:
+                host = read_metrics(metrics)  # the only sync of the interval
+                host["perf/interval_tokens"] = interval_tokens
+                host["perf/interval_images"] = interval_images
+                interval_tokens = interval_images = 0
+                logger.log(step, host)
+            if on_step is not None:
+                on_step(step, metrics)
+            if step % save_steps == 0:
+                save(step)
+            if guard.flag:
+                # preempted: save at this step boundary and stop; the run
+                # resumes here with --resume_from_checkpoint
+                save(step)
+                if checkpoint_manager is not None:
+                    checkpoint_manager.wait()
+                if logger is not None:
+                    logger.log(step, {"train/preempted": 1.0})
+                print(f"preempted: checkpoint saved at step {step}", flush=True)
+                break
+            if max_steps and step >= max_steps:
+                break
+    finally:
+        guard.uninstall()
     return step
+
+
+def prefetch_iterator(it: Iterable[dict], depth: int = 2) -> Iterable[dict]:
+    """Run the upstream iterator (tokenize + collate + image loading) on a
+    background thread, `depth` batches ahead, so host data work overlaps
+    the device steps; a worker's exception is raised in the consumer."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    sentinel = object()
+    err: list[BaseException] = []
+
+    def worker():
+        try:
+            for item in it:
+                q.put(item)
+        except BaseException as e:  # propagate into the consumer
+            err.append(e)
+        finally:
+            q.put(sentinel)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is sentinel:
+            if err:
+                raise err[0]
+            return
+        yield item

@@ -17,8 +17,11 @@ for update:
 
 The state is updated in place (the adapters, their moments and the
 accumulator are the largest buffers a LoRA run owns), with multi-tensor
-`torch._foreach_*` ops, and nothing is read back to the host. The freeze
-masks of full fine-tuning wait for that mode.
+`torch._foreach_*` ops, and nothing is read back to the host.
+`state_tree` / `load_state_tree_` give the whole state, keyed by the
+trainable leaves' names, to train/checkpoint.py and back. The freeze masks
+of full fine-tuning wait for that mode (vlrlhf_tpu's `--use_lora false`
+trains adapters too: ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -142,13 +145,56 @@ def apply_updates(state: TrainState, grads: Sequence[torch.Tensor],
     torch._foreach_add_(state.mu, grads, alpha=1.0 - cfg.b1)
     torch._foreach_mul_(state.nu, cfg.b2)
     torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - cfg.b2)
-    mu_hat = torch._foreach_div(state.mu, 1.0 - cfg.b1**state.count)
+    # at most two trainable-sized temporaries live at once from here on
+    # (the step's memory peak at 7B LoRA r64 is this update's)
+    del grads
     denom = torch._foreach_div(state.nu, 1.0 - cfg.b2**state.count)
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, cfg.eps)
-    upd = torch._foreach_div(mu_hat, denom)
+    upd = torch._foreach_div(state.mu, 1.0 - cfg.b1**state.count)  # mu_hat
+    torch._foreach_div_(upd, denom)
+    del denom
     if cfg.weight_decay:
         torch._foreach_add_(upd, state.trainable, alpha=cfg.weight_decay)
     torch._foreach_mul_(upd, -lr)
     torch._foreach_add_(state.trainable, upd)
     return g_norm
+
+
+_COUNTERS = ("step", "count", "mini_step")
+
+
+def state_tree(state: TrainState, keys: Sequence[str]) -> dict:
+    """Everything a resume needs: {"trainable", "mu", "nu"[, "acc_grads"]}
+    as {key: tensor} (the live tensors, not copies) and the three counters
+    as ints. `keys` names the trainable leaves in order."""
+    if len(keys) != len(state.trainable):
+        raise ValueError(f"{len(keys)} keys for {len(state.trainable)} trainable leaves")
+    tree = {"trainable": dict(zip(keys, state.trainable)), "mu": dict(zip(keys, state.mu)),
+            "nu": dict(zip(keys, state.nu))}
+    if state.acc_grads is not None:
+        tree["acc_grads"] = dict(zip(keys, state.acc_grads))
+    tree.update({c: getattr(state, c) for c in _COUNTERS})
+    return tree
+
+
+@torch.no_grad()
+def load_state_tree_(state: TrainState, keys: Sequence[str], tree: dict) -> None:
+    """Copy a `state_tree` (from a checkpoint) into `state` in place: each
+    tensor lands on its leaf's device in its dtype. The groups, keys and
+    shapes must be the ones `state` holds."""
+    groups = {"trainable": state.trainable, "mu": state.mu, "nu": state.nu}
+    if state.acc_grads is not None:
+        groups["acc_grads"] = state.acc_grads
+    if set(tree) - set(_COUNTERS) != set(groups):
+        raise ValueError(f"checkpoint holds {sorted(tree)}, the state {sorted(groups)}")
+    for group, leaves in groups.items():
+        if list(tree[group]) != list(keys):
+            raise ValueError(f"checkpoint {group} keys differ from the model's adapters")
+        for dst, src in zip(leaves, tree[group].values()):
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"checkpoint {group} leaf {tuple(src.shape)} does not fit "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(src)
+    for c in _COUNTERS:
+        setattr(state, c, int(tree[c]))
