@@ -82,15 +82,41 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      and 2 more (losses within 1e-3), checkpoint bytes, save and restore
      ms; (e) --merge_adapter_after_training: the merged file equals
      W + scale (A B)^T on sampled linears
+  8. `eval` and the serving leftovers at full LLaVA-1.5-7B width and depth
+     (seeded random bf16 weights) over an MME-shaped TSV (32 yes/no rows,
+     16 images as base64 blobs that a seeded loader maps to pixels by file
+     name) and a SEEDBench json (16 questions x 4 choices): (a) cli.main
+     build_eval / run_eval on MME three ways, static batch 16,
+     --continuous_batching true with 8 slots and --speculative_k 3, 16 new
+     tokens: images/s each, verify_calls and tokens per row verify, the
+     three paths' tokens equal up to top-2 ties of the card's
+     teacher-forced logits; (b) CE ranking, 64 SEEDBench rows in batches of
+     16, every ppl finite, rows/s; the launch counts of (a) + (b) are the
+     "eval" path, which must launch kernels 1, 4 and 5; (c) two r64
+     adapter sets with a non-zero b, written by train/checkpoint.py and
+     served by build_server --adapter a=... --adapter b=...: 8 concurrent
+     /generate requests over a, b and the base model, each equal to an
+     engine holding only its set (tie rule); /score through
+     EndpointRunner.run_vqa_ppl against the in-process run_vqa_ppl (1e-3
+     relative); `eval --endpoint` on MME against (a)'s continuous tokens;
+     again with --fuse_decode true, the fused adapter layout against the
+     unfused tokens; (d) the EvalRunner at 2 LM / 2 tower layers on the
+     card (bf16) and the CPU (f32): ppl within PPL_REL_TOL (two broken
+     controls, no causal mask and labels one token off, must fail it),
+     greedy tokens equal up to top-2 ties of the CPU's logits
 
 A profiled step prints the card's busy and idle time and its kernel time by
 group (torch.profiler; the flash groups split by head dim). Phase 2's
 backward cases include the tower's (B=2, S=577, H=16, D=64, non-causal)
 and take the aten flash backward as yardstick everywhere (under GQA on K
-and V expanded to the query heads, without the group sum). The line
+and V expanded to the query heads, without the group sum). Phase 2 also
+holds the eval path's shapes: the flash forward on 16 right-padded rows
+of S = 640 (the CE ranking forward), decode at B=16 (the static
+Generator) and chunk at B=16, C=4 (the static speculative verify). The line
 before the last is {"kernels": [...]} (launches summed over the serve,
-speculative int8 serve, /chat, int4 serve, DPO, QLoRA and trainer runs,
-split in launches_by_path);
+speculative int8 serve, /chat, int4 serve, DPO, QLoRA, trainer, eval and
+multi-adapter serving runs, split in launches_by_path; the eval shapes'
+times under "eval");
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
 and prints no result.
@@ -120,11 +146,19 @@ TOL = 2e-2  # bf16 kernel vs f32 plain on identical bf16 inputs
 # (bf16 rounding of P, dS and the outputs alone gives a few 1e-3)
 REL_TOL = 1e-2
 LOGIT_REL_TOL = 5e-2  # bf16 model on the card vs the f32 model on the CPU
+# eval's mean answer CE, card bf16 vs CPU f32 at 2 layers: 2.5x the gap of
+# sound runs (3.919e-4 on an H100, every run). Random weights put every
+# row's CE near ln V, so LOGIT_REL_TOL would pass a wrong mask; phase 8d's
+# broken controls must fail this limit (no causal mask: 2.648e-3)
+PPL_REL_TOL = 1e-3
 LOSS_REL_TOL = 5e-2  # bf16 DPO loss on the card vs the f32 loss on the CPU
 GRAD_COS_MIN = 0.99  # cosine of the flattened LoRA gradients, card vs CPU
 PEAK_FLOPS = 989.4e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 KERNELS = ("flash_fwd", "decode_attention", "flash_bwd", "chunk_attention", "int4_matmul")
+# eval's batch of 16 rows: prompt lengths around an image prompt's ~600 tokens
+EVAL_LENS = (598, 604, 611, 617, 622, 629, 633, 640, 645, 651, 656, 662, 668, 673, 681, 690)
+CE_LENS = tuple(min(n, 640) - 9 * (i % 3) for i, n in enumerate(EVAL_LENS))  # S = 640 bucket
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -287,6 +321,8 @@ def phase_kernels():
         ("lm_causal_padded", True, 4, 640, 32, 32, 128, (600, 613, 627, 640)),
         ("lm_causal_gqa", True, 2, 640, 32, 8, 128, (640, 601)),
         ("dpo_lm_causal", True, 2, 1024, 32, 32, 128, (1000, 900)),
+        # the CE ranking forward of eval: 16 right-padded rows of uneven length
+        ("ce_rows_padded", True, 16, 640, 32, 32, 128, CE_LENS),
     ]
     errs, times = [], {}
     for label, causal, b, s, h, hkv, d, lens in flash_cases:
@@ -304,10 +340,18 @@ def phase_kernels():
                                                pad_mask_kv=pad))
         p_ms = time_ms(lambda: flash_attention_plain(q, k, v, seg_q, seg_kv, causal,
                                                      d**-0.5), iters=5)
-        # yardstick: PyTorch's SDPA on the same (B, H, S, D) views, no pad mask
+        # yardstick: PyTorch's SDPA on the same (B, H, S, D) views and the
+        # same function: rows with padding take one boolean mask, causal
+        # and the keys' pad mask together
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None
+        if lens is not None:
+            mask = pad[:, None, None, :]
+            if causal:
+                mask = mask & torch.ones((s, s), dtype=torch.bool, device=dev).tril()
         l_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=h != hkv))
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=h != hkv))
         flops = _flash_flops(lens or (s,) * b, h, d, causal)
         b_ms, b_by = bound(flops, _flash_bytes(lens or (s,) * b, s, h, hkv, d, "fwd"))
         print(f"flash {label} B={b} S={s} H={h} Hkv={hkv} D={d}: {report}; "
@@ -321,7 +365,8 @@ def phase_kernels():
         times[label] = {"ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms, "library_ms": l_ms,
                         "bound_ms": b_ms, "bound_by": b_by}
     main = times["dpo_lm_causal"]
-    results["flash_fwd"] = {"max_abs_err": max(errs), **main, "cases": times}
+    results["flash_fwd"] = {"max_abs_err": max(errs), **main, "cases": times,
+                            "eval": times["ce_rows_padded"]}
 
     # backward: the DPO path's LM case, a GQA case and an unfrozen tower's
     # (D = 64, non-causal, the 2 tiled rows of one pair)
@@ -521,7 +566,9 @@ def decode_kernel_checks(randn) -> dict:
     path, beside plain, SDPA of the one query over the live slots (over
     the dequantized cache for int8; the self term has no counterpart
     there) and the bound. The main entry is B=8 bf16 at length 640; "int8"
-    holds the B=8 int8 one, "chat" both B=1 ones."""
+    holds the B=8 int8 one, "chat" both B=1 ones, "eval" the B=16 bf16 one
+    (eval's static Generator; rows of EVAL_LENS, on an 8-layer cache read
+    at layers 2-5)."""
     import torch.nn.functional as F
 
     from vlrlhf_torch.ops import _build
@@ -531,19 +578,22 @@ def decode_kernel_checks(randn) -> dict:
     from vlrlhf_torch.ops.quant import dequantize_kv, quantize_kv
 
     dev = torch.device("cuda")
-    L, nh, nkv, hd, sc, layer = 32, 32, 32, 128, 1024, 17
-    timed_layers = range(layer, layer + 4)
+    nh, nkv, hd, sc = 32, 32, 128, 1024
     fn = _build.fn("decode_attention", "decode_attention", _ARGS)
     results = {}
-    for shape, b, checked, timed in (
-            ("serve", 8, [(0, sc - 1, 600, 613, 1, 640, 827, 128)], (640, sc - 1)),
-            ("chat", 1, [(0,), (613,)], (613,))):
+    for shape, b, L, layer, checked, timed, kinds in (
+            ("serve", 8, 32, 17, [(0, sc - 1, 600, 613, 1, 640, 827, 128)], (640, sc - 1),
+             ("bf16", "int8")),
+            ("chat", 1, 32, 17, [(0,), (613,)], (613,), ("bf16", "int8")),
+            # eval's static Generator: 16 rows of ~600-700 tokens
+            ("eval", 16, 8, 2, [EVAL_LENS, (0, sc - 1) * 8], (640,), ("bf16",))):
+        timed_layers = range(layer, layer + 4)
         q = randn(b, nh, hd)
         kc, vc = randn(L, b, nkv, sc, hd), randn(L, b, nkv, sc, hd)
         k_cur, v_cur = randn(b, nkv, hd), randn(b, nkv, hd)
         o = torch.empty_like(q)
         qs = q[:, :, None]
-        for kind in ("bf16", "int8"):
+        for kind in kinds:
             if kind == "int8":
                 # the int8 cache of the speculative int8 serve and /chat: the
                 # same values quantized per vector; plain and SDPA read the codes
@@ -608,7 +658,8 @@ def decode_kernel_checks(randn) -> dict:
     return {**results["serve_bf16"],
             "max_abs_err": max(r["max_abs_err"] for r in results.values()),
             "int8": results["serve_int8"],
-            "chat": {"bf16": results["chat_bf16"], "int8": results["chat_int8"]}}
+            "chat": {"bf16": results["chat_bf16"], "int8": results["chat_int8"]},
+            "eval": results["eval_bf16"]}
 
 
 def wrapper_host_us() -> dict:
@@ -677,7 +728,9 @@ def chunk_kernel_checks(randn) -> dict:
     an output allocated once) and through its wrapper, each launch on the
     next layer (more than the L2 in all), beside plain, SDPA with an
     explicit mask (over the dequantized cache for int8) and the bound. The
-    main entry is the int8 verify shape (the speculative int8 serve's)."""
+    main entry is the int8 verify shape (the speculative int8 serve's);
+    "eval" holds B=16, C=4 (the static speculative verify over eval's
+    batch), bf16 and int8."""
     import torch.nn.functional as F
 
     from vlrlhf_torch.ops import _build
@@ -691,7 +744,9 @@ def chunk_kernel_checks(randn) -> dict:
     fn = _build.fn("chunk_attention", "chunk_attention", _ARGS)
     cases, errs = {}, []
     for label, lens, c, L in (("verify", (600, 613, 627, 640, 655, 671, 688, 700), 4, 4),
-                              ("chat", (620,), 64, 8), ("chat_short", (620,), 16, 8)):
+                              ("chat", (620,), 64, 8), ("chat_short", (620,), 16, 8),
+                              # the static SpeculativeGenerator's verify over eval's batch
+                              ("eval_verify", EVAL_LENS, 4, 4)):
         b = len(lens)
         q = randn(b, c, nh, hd)
         kc, vc = randn(L, b, nkv, sc, hd), randn(L, b, nkv, sc, hd)
@@ -744,7 +799,8 @@ def chunk_kernel_checks(randn) -> dict:
     main = cases["verify_int8"]
     return {"max_abs_err": max(errs), "ms": main["ms"], "plain_ms": main["plain_ms"],
             "library_ms": main["library_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "cases": cases}
+            "bound_by": main["bound_by"], "cases": cases,
+            "eval": {"bf16": cases["eval_verify_bf16"], "int8": cases["eval_verify_int8"]}}
 
 
 def make_processor(cfg):
@@ -2156,6 +2212,447 @@ def phase_trainer():
     return launches
 
 
+EVAL_SLOTS = 8  # phase 8: the continuous path's slots (the static batch is 16)
+EVAL_NEW = 16  # phase 8: new tokens per row
+
+
+def eval_image(path, size, mode="shortest_edge_crop"):
+    """Image loader for eval rows: the file name names a seed (each run
+    decodes its TSV into a directory of its own)."""
+    return seeded_image(os.path.basename(str(path)), size, mode)
+
+
+def write_eval_data(tmp: str) -> tuple[str, str]:
+    """An MME-shaped TSV (32 yes/no rows over 16 images; an image's second
+    row names the first's index, as MME's TSV does) and a SEEDBench json
+    (16 questions x 4 choices). The images are seeded blobs that
+    `eval_image` maps to pixels by file name."""
+    import base64
+
+    rng = np.random.default_rng(8)
+    cats = ("existence", "count", "position", "color", "OCR", "commonsense_reasoning")
+    mme = os.path.join(tmp, "mme.tsv")
+    with open(mme, "w") as f:
+        f.write("index\timage\tquestion\tanswer\tcategory\n")
+        for i in range(16):
+            blob = base64.b64encode(rng.integers(0, 256, 96, dtype=np.uint8).tobytes()).decode()
+            for j in range(2):
+                q = (f"Is there a w{100 + i} {('red', 'blue')[j]} object in the image? "
+                     "Please answer yes or no.")
+                f.write(f"{i}-{j}\t{blob if j == 0 else f'{i}-0'}\t{q}\t"
+                        f"{('Yes', 'No')[(i + j) % 2]}\t{cats[i % len(cats)]}\n")
+    seed = os.path.join(tmp, "seed.json")
+    with open(seed, "w") as f:
+        json.dump({"questions": [
+            {"question_id": f"q{i}", "question": f"What does the picture w{200 + i} show?",
+             "choice_a": f"a dog w{i}", "choice_b": "a cat on a mat", "choice_c": "two birds",
+             "choice_d": f"a fish in water w{3 * i}", "answer": "ABCD"[i % 4],
+             "data_id": f"seed{i}.jpg", "question_type_id": 1 + i % 9} for i in range(16)]}, f)
+    return mme, seed
+
+
+def eval_args(**kw):
+    """`eval`'s arguments as build_eval / run_eval read them: batch 16,
+    EVAL_NEW new tokens, greedy."""
+    import argparse
+
+    base = dict(benchmark="mme", data_file="", image_root="", output_dir="", sqlite_db=None,
+                tag="phase8", max_new_tokens=EVAL_NEW, per_device_train_batch_size=16,
+                quantize="false", fuse_decode=False, kv_cache_dtype="bf16",
+                continuous_batching=False, speculative_k=0, do_sample=False, temperature=1.0,
+                top_k=None, top_p=None, synthetic=0, seed=0)
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def record_tokens(runner, eos: set) -> list:
+    """Wrap runner._decode so each row's generated ids, cut at the first
+    stop token, are appended (in row order) to the returned list."""
+    seen: list = []
+    decode = runner._decode
+
+    def wrapped(toks):
+        ids = [int(t) for t in toks]
+        cut = next((i for i, t in enumerate(ids) if t in eos), len(ids))
+        seen.append(ids[:cut])
+        return decode(toks)
+
+    runner._decode = wrapped
+    return seen
+
+
+def divergence(ref: list, got: list, eos: int):
+    """(position, ref token, got token) where two token lists first differ
+    (past the shorter's end its token is the stop token), or None."""
+    for j in range(max(len(ref), len(got))):
+        a = ref[j] if j < len(ref) else eos
+        b = got[j] if j < len(got) else eos
+        if a != b:
+            return j, a, b
+    return None
+
+
+def tie_or_raise(what: str, model, proc, ids: list, img, ref: list, got: list, eos: int,
+                 ctx=None):
+    """None when `got` equals `ref`. Else the first divergence must be a
+    top-2 tie of `model`'s teacher-forced logits after ref's common
+    prefix (under `ctx`'s adapters): both tokens are its top two and their
+    gap is within LOGIT_REL_TOL of the largest |logit|. Returns (position,
+    ref token, got token, gap)."""
+    from vlrlhf_torch.data.collators import CollatorConfig, GenerationCollator
+    from vlrlhf_torch.generate.engine import GenerateConfig, batch_to_device, prefill
+
+    d = divergence(ref, got, eos)
+    if d is None:
+        return None
+    j, a, b = d
+    coll = GenerationCollator(proc, CollatorConfig(image_size=model.cfg.vision.image_size),
+                              eval_image)
+    t = batch_to_device(coll([{"input_ids": list(ids) + list(ref[:j]), "img_path": img}]),
+                        model.device)
+    with torch.inference_mode():
+        *_, last = prefill(model, GenerateConfig(max_new_tokens=1, pad_token_id=-1),
+                           t["input_ids"].shape[1], t["input_ids"], t["pad_mask"],
+                           t["prompt_lens"], t["pixel_values"], t["image_positions"], None, ctx)
+    logits = last[0].float().cpu()
+    top2 = torch.topk(logits, 2)
+    gap = float((logits[a] - logits[b]).abs())
+    limit = LOGIT_REL_TOL * float(logits.abs().max())
+    if {a, b} != set(top2.indices.tolist()) or gap > limit:
+        raise AssertionError(f"{what}: diverges at {j} ({a} vs {b}) and it is no top-2 tie: "
+                             f"top-2 {top2.indices.tolist()} {top2.values.tolist()}, gap {gap} "
+                             f"(limit {limit})")
+    return j, a, b, round(gap, 5)
+
+
+def text_ids(text: str) -> list:
+    """The ids of a ToyTokenizer text (it prints id i >= 16 as "w<i>" and
+    drops the specials and reserved ids below 16)."""
+    return [int(w[1:]) for w in text.split()]
+
+
+def visible(ids: list) -> list:
+    return [t for t in ids if t >= 16]
+
+
+def adapter_set(model, seed: int) -> dict:
+    """A LoRA r64 set on the LM's 7 linears, keyed as a dpo run's adapters
+    file: a ~ N(0, 1/r), b ~ N(0, 0.01^2), so its delta moves the tokens."""
+    from vlrlhf_torch.lora.lora import LM_ALL_LINEARS, match_lora_targets, module_path
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for name, mod in match_lora_targets(model, LM_ALL_LINEARS):
+        key = module_path(name)[: -len("/kernel")]
+        out[f"{key}/a"] = torch.randn((mod.d_in, 64), generator=gen, device="cuda") / 8.0
+        out[f"{key}/b"] = 0.01 * torch.randn((64, mod.d_out), generator=gen, device="cuda")
+    return out
+
+
+def phase_eval():
+    """Phase 8: `eval` and the serving leftovers at full LLaVA-1.5-7B width
+    and depth (seeded random bf16 weights), then the harness at reduced
+    depth against the CPU. Returns the launch counts of (a) + (b), the
+    "eval" path, and of (c)'s servers, "serve_adapters"; tie checks and
+    reference runs are not counted."""
+    import tempfile
+    from contextlib import nullcontext
+
+    from vlrlhf_torch.cli.main import build_eval, build_server, collator_config, main, run_eval
+    from vlrlhf_torch.data.processor import make_single_turn_conv
+    from vlrlhf_torch.eval.harness import EvalRunner
+    from vlrlhf_torch.generate.continuous import ContinuousEngine
+    from vlrlhf_torch.generate.server import EndpointRunner, RequestBuilder
+    from vlrlhf_torch.lora.lora import lend_adapters
+    from vlrlhf_torch.models.common import Ctx, init_random_
+    from vlrlhf_torch.models.config import FAMILIES, _llava_7b
+    from vlrlhf_torch.models.vlm import VLM
+    from vlrlhf_torch.ops.chunk_attention import chunk_attention
+    from vlrlhf_torch.ops.decode_attention import decode_attention
+    from vlrlhf_torch.ops.flash_attention import flash_attention
+    from vlrlhf_torch.train.checkpoint import save_params
+
+    counted = {"flash_fwd": flash_attention, "decode_attention": decode_attention,
+               "chunk_attention": chunk_attention}
+
+    def reset():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read():
+        return {name: fn.launches for name, fn in counted.items()}
+
+    cfg = _llava_7b(torch.bfloat16)
+    model = VLM(cfg, "cuda")
+    init_random_(model, torch.Generator(device="cuda").manual_seed(0))
+    proc = make_processor(cfg)
+    family = FAMILIES[cfg.family]
+    with tempfile.TemporaryDirectory() as tmp:
+        mme, seed = write_eval_data(tmp)
+        # (a) generation paths, (b) CE ranking: the "eval" path's launches
+        reset()
+        paths = {"static": {}, "continuous": dict(continuous_batching=True,
+                                                  per_device_train_batch_size=EVAL_SLOTS),
+                 "speculative": dict(speculative_k=3)}
+        toks, texts, prompts = {}, {}, None
+        for name, kw in paths.items():
+            args = eval_args(data_file=mme, output_dir=os.path.join(tmp, name), **kw)
+            runner = build_eval(cfg, model, proc, args, eval_image)
+            eos = set(runner.gen_cfg.eos_token_ids)
+            toks[name] = record_tokens(runner, eos)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = run_eval(runner, args, progress=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with open(os.path.join(tmp, name, "mme.json")) as f:
+                rows = json.load(f)
+            texts[name] = [r["response"] for r in rows]
+            if prompts is None:
+                prompts = [runner._prompt_row(r["question"], os.path.basename(r["img"]))
+                           for r in rows]
+            n_tok = sum(len(t) for t in toks[name])
+            extra = ""
+            if name == "speculative":
+                g = runner._gen
+                extra = (f"; verify_calls {g.verify_calls}, {g.verify_rows} row verifies, "
+                         f"{g.verify_tokens / max(g.verify_rows, 1):.3f} tokens per row "
+                         f"verify (K=3)")
+            print(f"phase 8a eval mme {name} ({len(rows)} rows, "
+                  f"{'8 slots' if name == 'continuous' else 'batch 16'}, {EVAL_NEW} new "
+                  f"tokens): {len(rows) / wall:.3f} images/s ({wall:.3f} s, {n_tok} tokens)"
+                  f"{extra}; metrics {json.dumps(metrics)}", flush=True)
+            if len(rows) != 32 or any(len(t) == 0 for t in toks[name]):
+                raise AssertionError(f"eval {name}: {len(rows)} rows, empty responses")
+        stop = runner.gen_cfg.eos_token_ids[-1]
+        args = eval_args(benchmark="seedbench", data_file=seed, output_dir=os.path.join(tmp, "ce"))
+        runner = build_eval(cfg, model, proc, args, eval_image)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = run_eval(runner, args, progress=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(tmp, "ce", "seedbench.json")) as f:
+            ce_rows = json.load(f)
+        ppl = np.asarray([r["ppl"] for r in ce_rows])
+        print(f"phase 8b CE ranking (seedbench, {len(ce_rows)} rows in batches of 16): "
+              f"{len(ce_rows) / wall:.3f} rows/s ({wall:.3f} s); ppl min {ppl.min():.4f} max "
+              f"{ppl.max():.4f}; metrics {json.dumps(metrics)}", flush=True)
+        if len(ce_rows) != 64 or not np.isfinite(ppl).all():
+            raise AssertionError(f"CE ranking: {len(ce_rows)} rows, finite {np.isfinite(ppl).all()}")
+        eval_launches = read()
+        print(f"phase 8 eval path launches {json.dumps(eval_launches)}", flush=True)
+        # the checks below run teacher-forced prefills: after the count
+        for name in ("continuous", "speculative"):
+            ties = [(i, tie) for i, (p, r, g) in enumerate(zip(prompts, toks["static"],
+                                                                 toks[name]))
+                    if (tie := tie_or_raise(f"eval {name} row {i}", model, proc,
+                                            p["input_ids"], p["img_path"], r, g, stop))]
+            print(f"phase 8a {name} vs static: {32 - len(ties)}/32 rows token-identical; "
+                  f"divergences (row, (position, static, {name}, gap)) {ties}, all top-2 ties",
+                  flush=True)
+
+        # (c) multi-adapter serving, /score, eval --endpoint, the fused layout;
+        # the "serve_adapters" path counts what the servers launch, from
+        # build to stop, and not the reference engines and tie checks
+        adapter_launches = dict.fromkeys(counted, 0)
+        sets = {"a": adapter_set(model, 11), "b": adapter_set(model, 12)}
+        specs = []
+        for name, tree in sets.items():
+            save_params(os.path.join(tmp, name, "adapters"), tree)
+            specs.append(f"{name}={os.path.join(tmp, name, 'adapters')}")
+        questions = [(f"request {i}: what does this image show? answer in detail",
+                      f"ad{i}.png", ("a", "b", None)[i % 3]) for i in range(8)]
+        http = {}
+        for fused in (False, True):
+            sargs = serve_args(adapter=specs, lora_r=64, lora_alpha=16.0,
+                               max_new_tokens=EVAL_NEW, fuse_decode=fused)
+            reset()
+            httpd, srv = build_server(cfg, model, proc, sargs, eval_image)
+            thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+            thread.start()
+            url = f"http://127.0.0.1:{httpd.server_address[1]}"
+            try:
+                bodies = [dict({"question": q, "image": img, "max_new_tokens": EVAL_NEW},
+                               **({"adapter": a} if a else {})) for q, img, a in questions]
+                t0 = time.perf_counter()
+                http[fused] = [text_ids(r["text"]) for r in
+                               post_concurrently(url + "/generate", bodies)]
+                wall = time.perf_counter() - t0
+                print(f"phase 8c {'fused' if fused else 'unfused'} multi-adapter serve: 8 "
+                      f"/generate requests over a, b and the base model in {wall:.3f} s",
+                      flush=True)
+                if not fused:
+                    score_rows = [{"question": r["question"], "answer": r["answer"],
+                                   "img": os.path.basename(r["img"])} for r in ce_rows[:16]]
+                    remote = EndpointRunner(url).run_vqa_ppl(score_rows)
+                    main(["eval", "--endpoint", url, "--benchmark", "mme", "--data_file", mme,
+                          "--output_dir", os.path.join(tmp, "endpoint")])
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                srv.stop()
+                thread.join(timeout=60)
+            if thread.is_alive() or (srv._thread is not None and srv._thread.is_alive()):
+                raise AssertionError("server threads did not stop")
+            for name, n in read().items():
+                adapter_launches[name] += n
+            gen_cfg = srv.engine.gen_cfg
+            builder = RequestBuilder(proc, collator_config(cfg, family, proc, sargs), eval_image)
+            stop = gen_cfg.eos_token_ids[-1]
+            ids = [proc.process_conv(make_single_turn_conv(proc.format_multimodal_prompt(q, 1),
+                                                           ""))["input_ids"]
+                   for q, _, _ in questions]
+            ties = []
+            if not fused:
+                local = EvalRunner(model, proc, gen_cfg, collator_config(cfg, family, proc, sargs),
+                                   eval_image).run_vqa_ppl(score_rows)
+                rel = max(abs(r["ppl"] - w["ppl"]) / abs(w["ppl"]) for r, w in zip(remote, local))
+                print(f"phase 8c /score via EndpointRunner vs in-process run_vqa_ppl (16 rows): "
+                      f"max rel diff {rel:.3e} (tol 1e-3)", flush=True)
+                if rel > 1e-3:
+                    raise AssertionError(f"/score differs from run_vqa_ppl: rel {rel}")
+                with open(os.path.join(tmp, "endpoint", "mme.json")) as f:
+                    remote_rows = json.load(f)
+                eties = [(i, tie) for i, (p, r, row) in enumerate(zip(prompts, toks["continuous"],
+                                                                       remote_rows))
+                         if (tie := tie_or_raise(f"eval --endpoint row {i}", model, proc,
+                                                 p["input_ids"], p["img_path"], visible(r),
+                                                 text_ids(row["response"]), stop))]
+                print(f"phase 8c eval --endpoint mme vs in-process continuous: "
+                      f"{32 - len(eties)}/32 rows identical, divergences {eties}", flush=True)
+                for name in ("a", "b", None):
+                    idx = [i for i, q in enumerate(questions) if q[2] == name]
+                    reqs = [builder.build(questions[i][0], questions[i][1], EVAL_NEW,
+                                          adapter_idx=None if name is None else 0) for i in idx]
+                    eng = ContinuousEngine(model, gen_cfg, n_slots=EVAL_SLOTS,
+                                           cache_len=srv.engine.cache_len,
+                                           adapter_sets=None if name is None else [sets[name]],
+                                           lora_scale=0.25)
+                    want = eng.run(reqs)
+                    ctx = None if name is None else Ctx(adapters=True, lora_scale=0.25,
+                                                        adapter_mix=torch.ones((1, 1),
+                                                                               device="cuda"))
+                    # a tie check's prefill runs the engine's set, lent again
+                    with (nullcontext() if name is None
+                          else lend_adapters(model, eng.adapter_sets)):
+                        for i, w in zip(idx, want):
+                            tie = tie_or_raise(f"adapter {name} request {i}", model, proc,
+                                               ids[i], questions[i][1], visible(w),
+                                               http[False][i], stop, ctx)
+                            if tie:
+                                ties.append((i, name, tie))
+                print(f"phase 8c multi-adapter tokens vs one-set engines: {8 - len(ties)}/8 "
+                      f"identical, divergences {ties}", flush=True)
+            else:
+                names = ["a", "b"]
+                with lend_adapters(model, srv.engine.adapter_sets):  # the server's fused sets
+                    for i, (q, img, name) in enumerate(questions):
+                        mix = torch.zeros((1, 2), device="cuda")
+                        if name is not None:
+                            mix[0, names.index(name)] = 1.0
+                        tie = tie_or_raise(f"fused adapter {name} request {i}", model, proc,
+                                           ids[i], img, http[False][i], http[True][i], stop,
+                                           Ctx(adapters=True, lora_scale=0.25, adapter_mix=mix))
+                        if tie:
+                            ties.append((i, name, tie))
+                print(f"phase 8c fused (--fuse_decode true) vs unfused adapter tokens: "
+                      f"{8 - len(ties)}/8 identical, divergences {ties}", flush=True)
+        print(f"phase 8c launches {json.dumps(adapter_launches)}", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    eval_reduced_depth()
+    return eval_launches, adapter_launches
+
+
+def eval_reduced_depth():
+    """Phase 8d: EvalRunner at full widths but 2 LM / 2 tower layers, the
+    same seeded weights on the card (bf16, kernels) and the CPU (f32,
+    plain): 4 image questions (8 greedy tokens) and 8 CE rows. ppl within
+    PPL_REL_TOL relative; greedy tokens equal up to top-2 ties of the
+    CPU's teacher-forced logits. Two broken controls on the card must fail
+    PPL_REL_TOL, or the check could not catch a wrong path: the LM's
+    attention without its causal mask, and the answer labels one token
+    off."""
+    import dataclasses
+
+    import vlrlhf_torch.models.lm.llama as llama
+
+    from vlrlhf_torch.data.collators import CollatorConfig
+    from vlrlhf_torch.eval.harness import EvalRunner
+    from vlrlhf_torch.generate.engine import GenerateConfig
+    from vlrlhf_torch.models.common import init_random_
+    from vlrlhf_torch.models.config import _llava_7b
+    from vlrlhf_torch.models.vlm import VLM
+
+    full = _llava_7b(torch.float32)
+    cfg32 = dataclasses.replace(full, lm=dataclasses.replace(full.lm, num_layers=2),
+                                vision=dataclasses.replace(full.vision, num_layers=2))
+    cfg16 = dataclasses.replace(cfg32, lm=dataclasses.replace(cfg32.lm, dtype=torch.bfloat16),
+                                vision=dataclasses.replace(cfg32.vision, dtype=torch.bfloat16))
+    cpu = init_random_(VLM(cfg32, "cpu"), torch.Generator().manual_seed(1))
+    gpu = VLM(cfg16, "cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    proc = make_processor(cfg32)
+    gen_rows = [{"question": f"Is there a w{300 + i} in the image? Please answer yes or no.",
+                 "img": f"d{i}.jpg"} for i in range(4)]
+    ce_rows = [{"question": f"What does the picture w{400 + i // 4} show?",
+                "answer": f"The answer is: {('a dog', 'a cat', 'two birds', 'a fish')[i % 4]}",
+                "img": f"d{i // 4}.jpg"} for i in range(8)]
+    out, runners = {}, {}
+    for name, model in (("card", gpu), ("host", cpu)):
+        runner = runners[name] = EvalRunner(
+            model, proc, GenerateConfig(max_new_tokens=8, pad_token_id=0),
+            CollatorConfig(image_size=cfg32.vision.image_size), eval_image)
+        toks = record_tokens(runner, set())
+        runner.run_vqa(gen_rows, batch_size=4)
+        ppl = [r["ppl"] for r in runner.run_vqa_ppl(ce_rows, batch_size=8)]
+        out[name] = (toks, np.asarray(ppl))
+
+    def rel_err(ppl):
+        return float(np.max(np.abs(ppl - out["host"][1]) / np.abs(out["host"][1])))
+
+    def card_ppl():
+        return np.asarray([r["ppl"] for r in runners["card"].run_vqa_ppl(ce_rows, batch_size=8)])
+
+    rel = rel_err(out["card"][1])
+    controls = {}
+    mha = llama.multi_head_attention
+    llama.multi_head_attention = lambda q, k, v, causal=True, **kw: mha(q, k, v, causal=False,
+                                                                        **kw)
+    try:
+        controls["no causal mask"] = rel_err(card_ppl())
+    finally:
+        llama.multi_head_attention = mha
+    ce = runners["card"].ce
+    runners["card"].ce = lambda batch: ce(dict(batch,
+                                               labels=np.roll(np.asarray(batch["labels"]), 1, 1)))
+    try:
+        controls["labels one token off"] = rel_err(card_ppl())
+    finally:
+        del runners["card"].ce
+    ties = []
+    for i, (r, g) in enumerate(zip(out["host"][0], out["card"][0])):
+        p = runner._prompt_row(gen_rows[i]["question"], gen_rows[i]["img"])
+        tie = tie_or_raise(f"reduced-depth eval row {i}", cpu, proc, p["input_ids"],
+                           p["img_path"], r, g, 2)
+        if tie:
+            ties.append((i, tie))
+    print(f"phase 8d reduced-depth EvalRunner (2 LM / 2 tower layers, full widths), card bf16 "
+          f"vs CPU f32: ppl max rel err {rel:.3e} (tol {PPL_REL_TOL}), ppl card "
+          f"{np.round(out['card'][1], 4).tolist()}; broken controls' max rel err "
+          f"{ {k: f'{v:.3e}' for k, v in controls.items()} } (each must exceed the tol); "
+          f"greedy tokens {4 - len(ties)}/4 rows identical, divergences {ties}", flush=True)
+    if not np.isfinite(out["card"][1]).all() or rel > PPL_REL_TOL:
+        raise AssertionError(f"reduced-depth ppl differs: rel {rel} > {PPL_REL_TOL}")
+    if min(controls.values()) <= PPL_REL_TOL:
+        raise AssertionError(f"a broken control passes PPL_REL_TOL, so the ppl check cannot "
+                             f"catch it: {controls}")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2186,9 +2683,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     trainer_launches = phase_trainer()
+    gc.collect()
+    torch.cuda.empty_cache()
+    eval_launches, adapter_launches = phase_eval()
     runs = {"serve": serve_launches, "serve_int8_spec": spec_launches, "chat_int8": chat_launches,
             "serve_int4": int4_launches, "dpo": dpo_launches, "dpo_qlora4": qlora_launches,
-            "dpo_trainer": trainer_launches}
+            "dpo_trainer": trainer_launches, "eval": eval_launches,
+            "serve_adapters": adapter_launches}
     names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention", "chunk_attention",
              "int4_matmul", "int4_matmul_t")
     by_path = {name: {path: counts[name] for path, counts in runs.items() if name in counts}
@@ -2215,6 +2716,10 @@ def main() -> int:
             by_path["chunk_attention"].get("chat_int8", 0) <= 0:
         raise AssertionError(f"chunk_attention must run in both the speculative serve and /chat: "
                              f"{by_path['chunk_attention']}")
+    if any(by_path[name].get("eval", 0) <= 0
+           for name in ("flash_fwd", "decode_attention", "chunk_attention")):
+        raise AssertionError(f"kernels 1, 4 and 5 must run on the eval path: "
+                             f"{ {n: by_path[n].get('eval') for n in by_path} }")
     if by_path["int4_matmul"].get("serve_int4", 0) <= 0 or \
             by_path["int4_matmul"].get("dpo_qlora4", 0) <= 0 or \
             by_path["int4_matmul_t"].get("dpo_qlora4", 0) <= 0:
@@ -2227,7 +2732,7 @@ def main() -> int:
          "max_abs_err": kernels[name]["max_abs_err"], "ms": kernels[name]["ms"],
          "plain_ms": kernels[name]["plain_ms"], "bound_ms": kernels[name]["bound_ms"],
          "bound_by": kernels[name]["bound_by"], "library_ms": kernels[name]["library_ms"],
-         **{k: kernels[name][k] for k in ("int8", "chat") if k in kernels[name]}}
+         **{k: kernels[name][k] for k in ("int8", "chat", "eval") if k in kernels[name]}}
         for name in names
     ]}
     print(json.dumps(line))

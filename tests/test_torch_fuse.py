@@ -115,21 +115,31 @@ def test_concat_linears_matches_jax_concat():
 
 
 def test_fusion_refuses_adapters_and_mixed_kinds():
+    """Fusion refuses parts of different kinds, and adapters of different
+    ranks; adapters on the parts fuse with them (block-diagonal b, zeros
+    for a part without one), so the fused linear's adapted output is the
+    parts' side by side."""
+    from vlrlhf_torch.models.common import Ctx
+
     _, _, model = int4_ported(bits=4, seed=22)
-    layer = model.lm.layers[0]
-    layer.wk.lora_a = torch.nn.Parameter(torch.zeros(128, 2))
-    layer.wk.lora_b = torch.nn.Parameter(torch.zeros(2, 128))
-    with pytest.raises(ValueError, match="LoRA adapter"):
-        fuse_lm_(model.lm)
     dense = Linear(128, 8, False, "cpu", torch.float32)
     with pytest.raises(ValueError, match="one kind"):
         concat_linears([model.lm.layers[1].wq, dense])
-    layer.wk.lora_a = layer.wk.lora_b = None
-    fuse_lm_(model.lm)
-    layer.wqkv.lora_a = torch.nn.Parameter(torch.zeros(128, 2))
-    layer.wqkv.lora_b = torch.nn.Parameter(torch.zeros(2, 3 * 128))
-    with pytest.raises(ValueError, match="LoRA adapter"):
-        layer.qkv(torch.zeros(1, 2, 128))
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(1, 2, 128, generator=gen)
+    ctx = Ctx(adapters=True, lora_scale=0.5)
+    for i, held in ((0, (True, False, True)), (1, (True, True, True))):
+        parts = [getattr(model.lm.layers[i], n) for n in ("wq", "wk", "wv")]
+        for p, on in zip(parts, held):
+            if on:
+                p.lora_a = torch.nn.Parameter(torch.randn(128, 2, generator=gen))
+                p.lora_b = torch.nn.Parameter(torch.randn(2, p.d_out, generator=gen))
+        want = torch.cat([p(x, ctx) for p in parts], dim=-1)
+        torch.testing.assert_close(concat_linears(parts)(x, ctx), want, atol=TOL, rtol=TOL)
+    model.lm.layers[1].wk.lora_a = torch.nn.Parameter(torch.randn(128, 3, generator=gen))
+    model.lm.layers[1].wk.lora_b = torch.nn.Parameter(torch.randn(3, 128, generator=gen))
+    with pytest.raises(ValueError, match="one rank"):
+        fuse_lm_(model.lm)
 
 
 def test_build_server_int4_fused_on_the_wide_model(monkeypatch):

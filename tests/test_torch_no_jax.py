@@ -60,3 +60,30 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_every_module_imports_without_pandas_or_pil():
+    """The card machine has neither pandas nor PIL: every module of the
+    port (the eval harness, speculative decoding and multi-adapter
+    serving among them) imports with both blocked, and none is pulled in."""
+    mods = list(_modules())
+    for new in ("vlrlhf_torch.eval.harness", "vlrlhf_torch.eval.benchmarks",
+                "vlrlhf_torch.eval.datasets", "vlrlhf_torch.eval.db", "vlrlhf_torch.eval.judge",
+                "vlrlhf_torch.eval.scorers", "vlrlhf_torch.eval.xlsx",
+                "vlrlhf_torch.generate.speculative"):
+        assert new in mods, new
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'vlrlhf_tpu', 'pandas', 'PIL'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k.split('.')[0] in ('jax', 'vlrlhf_tpu', 'pandas', 'PIL')\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

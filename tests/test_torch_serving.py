@@ -210,8 +210,8 @@ def test_serve_http_matches_jax_engine():
         assert text.strip() == results[0]["text"]
         with urllib.request.urlopen(url + "/health", timeout=30) as r:
             assert json.loads(r.read())["ok"] is True
-        # /chat is off without --chat_sessions; /score waits for the eval harness
-        for path, code in (("/chat", 400), ("/score", 501)):
+        # /chat is off without --chat_sessions; /score refuses a body without rows
+        for path, code in (("/chat", 400), ("/score", 400)):
             req = urllib.request.Request(url + path, data=b"{}", method="POST")
             with pytest.raises(urllib.error.HTTPError) as err:
                 urllib.request.urlopen(req, timeout=30)

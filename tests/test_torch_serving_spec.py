@@ -434,7 +434,8 @@ def test_serve_accepts_int4_and_fuse_decode_and_refuses_adapter():
     """`serve --quantize int4 --fuse_decode true` on the synthetic model:
     its widths (32, 64) are no multiple of 128, so every LM linear and
     lm_head falls back to int8 (as vlrlhf_tpu's quantize_params does), the
-    layers are fused, and /generate answers. --adapter stays refused."""
+    layers are fused, and /generate answers. An --adapter that is not
+    NAME=PATH is refused."""
     from vlrlhf_torch.cli.main import build_parser, build_server, main
 
     args = build_parser().parse_args(
@@ -464,5 +465,5 @@ def test_serve_accepts_int4_and_fuse_decode_and_refuses_adapter():
         httpd.server_close()
         srv.stop()
         thread.join(timeout=30)
-    with pytest.raises(SystemExit, match="not ported yet"):
-        main(["serve", "--device", "cpu", "--synthetic", "2", "--adapter", "a=b"])
+    with pytest.raises(SystemExit, match="NAME=PATH"):
+        main(["serve", "--device", "cpu", "--synthetic", "2", "--adapter", "a"])

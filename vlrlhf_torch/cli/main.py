@@ -1,10 +1,19 @@
-"""CLI: `python -m vlrlhf_torch.cli.main serve|dpo` (counterpart of
-vlrlhf_tpu's `vlrlhf serve` and `vlrlhf dpo`, cli/main.py).
+"""CLI: `python -m vlrlhf_torch.cli.main serve|dpo|eval` (counterpart of
+vlrlhf_tpu's `vlrlhf serve`, `vlrlhf dpo` and `vlrlhf eval`, cli/main.py).
 
 serve: the continuous-batching engine behind an HTTP endpoint on one device,
 with int8 or int4 weights (--quantize), the fused qkv / gate-up layout
 (--fuse_decode), an int8 KV cache (--kv_cache_dtype), speculative decoding
-(--speculative_k) and /chat sessions (--chat_sessions).
+(--speculative_k), /chat sessions (--chat_sessions), N LoRA adapter sets
+chosen per request by name (--adapter NAME=PATH, repeatable; PATH is the
+`adapters` directory a `dpo` run writes; scale --lora_alpha / --lora_r)
+and /score (the mean CE of answers, for remote CE-ranked benchmarks).
+eval: one benchmark (--benchmark mme, mmbench, seedbench, seedbench_gen,
+mmvet, mmmu, mathvista, pope, vqa) over --data_file: static batches,
+--continuous_batching true or --speculative_k K; or, with --endpoint URL,
+against a `serve` daemon over HTTP (no model here). It writes
+<output_dir>/<benchmark>.json, its .xlsx twin and, with --sqlite_db, one
+row of metrics.
 dpo: LoRA DPO training on one device, over a frozen int8 or int4 base with
 --q_lora true --bits {8,4}, with any remat policy (--remat_policy), an
 unfrozen vision tower (--freeze_vision_tower false) and LoRA targets in the
@@ -28,10 +37,12 @@ vlrlhf_tpu's dpo that the port does not honour yet is refused with an
 error, never ignored. As in vlrlhf_tpu, --use_lora false still trains
 LoRA adapters: it only turns LoRA dropout off and counts 6N training FLOPs.
 
-`build_server` / `build_dpo` are the bodies of serve / dpo minus argument
-parsing and the loop; `train_dpo` is the loop with its eval, checkpoint and
-resume, `finish_dpo` the final saves. chip_smoke.py drives the same
-functions.
+`build_server` / `build_dpo` / `build_eval` are the bodies of serve / dpo /
+eval minus argument parsing and the loop; `train_dpo` is the loop with its
+eval, checkpoint and resume, `finish_dpo` the final saves, `run_eval` the
+benchmark run. chip_smoke.py drives the same functions. --judge_model_path
+(eval's LLM judge) is refused until checkpoint import lands: the judge is
+a checkpoint.
 """
 
 from __future__ import annotations
@@ -110,30 +121,23 @@ def stop_ids(processor, family, synthetic: bool) -> tuple:
     return ids
 
 
-def build_server(cfg, model, processor, args, image_loader=None):
-    """Engine + scheduler thread + HTTP front-end for `model`. Returns
-    (httpd, server); the caller runs httpd.serve_forever() (or serves from
-    a thread) and stops both. `image_loader(path, size, mode)` replaces
-    the PIL loader (synthetic runs map paths to seeded arrays). With
-    --quantize int8 the LM's linears are quantized in place first
-    (vlrlhf_tpu/cli/main.py:1216-1227)."""
-    from vlrlhf_torch.data.collators import CollatorConfig
-    from vlrlhf_torch.generate.continuous import ContinuousEngine
-    from vlrlhf_torch.generate.engine import GenerateConfig
-    from vlrlhf_torch.generate.server import (
-        ChatBackend, EngineServer, RequestBuilder, serve_http,
-    )
-    from vlrlhf_torch.models.config import FAMILIES
+def serving_weights_(model, args) -> None:
+    """--quantize (the LM's linears and lm_head, in place) then
+    --fuse_decode, the order of vlrlhf_tpu/cli/main.py:1216-1227."""
     from vlrlhf_torch.models.lm.fuse import fuse_lm_
     from vlrlhf_torch.ops.quant import DEFAULT_QUANT_PATTERNS, quantize_params
 
-    family = FAMILIES[cfg.family]
     qbits = {"false": 0, "true": 8, "int8": 8, "int4": 4}[str(args.quantize).lower()]
     if qbits:
         quantize_params(model, DEFAULT_QUANT_PATTERNS, bits=qbits)
     if getattr(args, "fuse_decode", False):
         fuse_lm_(model.lm)
-    gen_cfg = GenerateConfig(
+
+
+def generate_config(processor, family, args):
+    from vlrlhf_torch.generate.engine import GenerateConfig
+
+    return GenerateConfig(
         max_new_tokens=args.max_new_tokens,
         eos_token_ids=stop_ids(processor, family, bool(args.synthetic)),
         pad_token_id=processor.tokenizer.pad_token_id or 0,
@@ -143,15 +147,65 @@ def build_server(cfg, model, processor, args, image_loader=None):
         top_k=args.top_k,
         top_p=args.top_p,
     )
-    cache_len = -(-(args.max_length + args.max_new_tokens) // 128) * 128
-    engine = ContinuousEngine(model, gen_cfg, n_slots=args.slots, cache_len=cache_len,
-                              speculative_k=args.speculative_k)
-    ccfg = CollatorConfig(
+
+
+def collator_config(cfg, family, processor, args):
+    from vlrlhf_torch.data.collators import CollatorConfig
+
+    return CollatorConfig(
         pad_token_id=processor.tokenizer.pad_token_id or 0,
         bucket_multiple=32 if args.synthetic else 128,
         image_size=cfg.vision.image_size,
         resize_mode=family.resize_mode,
     )
+
+
+def load_adapter_specs(specs) -> tuple[Optional[list], Optional[list]]:
+    """--adapter NAME=PATH ... -> (names, adapter sets read from each PATH,
+    the `adapters` directory of a `dpo` run), or (None, None)."""
+    from vlrlhf_torch.train.checkpoint import load_params
+
+    if not specs:
+        return None, None
+    names, sets = [], []
+    for spec in specs:
+        name, _, path = spec.partition("=")
+        if not name or not path:
+            raise SystemExit(f"--adapter expects NAME=PATH, got {spec!r}")
+        names.append(name)
+        sets.append(load_params(path))
+    return names, sets
+
+
+def build_server(cfg, model, processor, args, image_loader=None):
+    """Engine + scheduler thread + HTTP front-end for `model`. Returns
+    (httpd, server); the caller runs httpd.serve_forever() (or serves from
+    a thread) and stops both. `image_loader(path, size, mode)` replaces
+    the PIL loader (synthetic runs map paths to seeded arrays). With
+    --quantize the LM's linears are quantized in place first
+    (vlrlhf_tpu/cli/main.py:1216-1227). --adapter sets are served by name
+    (the "adapter" field of /generate), and /score runs the base model's
+    CE ranking through an EvalRunner, one request at a time."""
+    import threading
+
+    from vlrlhf_torch.eval.harness import EvalRunner
+    from vlrlhf_torch.generate.continuous import ContinuousEngine
+    from vlrlhf_torch.generate.server import (
+        ChatBackend, EngineServer, RequestBuilder, serve_http,
+    )
+    from vlrlhf_torch.models.config import FAMILIES
+
+    family = FAMILIES[cfg.family]
+    serving_weights_(model, args)
+    gen_cfg = generate_config(processor, family, args)
+    cache_len = -(-(args.max_length + args.max_new_tokens) // 128) * 128
+    names, sets = load_adapter_specs(getattr(args, "adapter", None))
+    engine = ContinuousEngine(model, gen_cfg, n_slots=args.slots, cache_len=cache_len,
+                              speculative_k=args.speculative_k, adapter_sets=sets,
+                              lora_scale=getattr(args, "lora_alpha", 16.0)
+                              / getattr(args, "lora_r", 64))
+    del sets  # the engine keeps only the stacked sets
+    ccfg = collator_config(cfg, family, processor, args)
     generator = torch.Generator(device=model.device).manual_seed(args.seed)
     srv = EngineServer(engine, generator=generator).start()
     builder = RequestBuilder(processor, ccfg, image_loader)
@@ -162,7 +216,15 @@ def build_server(cfg, model, processor, args, image_loader=None):
             max_sessions=args.chat_sessions, image_loader=image_loader,
             generator=torch.Generator(device=model.device).manual_seed(args.seed + 1),
         )
-    httpd = serve_http(srv, builder, processor.tokenizer, args.host, args.port, chat=chat)
+    score_runner = EvalRunner(model, processor, gen_cfg, ccfg, image_loader)
+    score_lock = threading.Lock()
+
+    def scorer(rows):
+        with score_lock:
+            return score_runner.run_vqa_ppl(rows)
+
+    httpd = serve_http(srv, builder, processor.tokenizer, args.host, args.port, chat=chat,
+                       scorer=scorer, adapter_names=names)
     return httpd, srv
 
 
@@ -182,7 +244,7 @@ def cmd_serve(args):
         f"({args.slots} slots, cache_len {srv.engine.cache_len}, quantize {args.quantize}, "
         f"fuse_decode {args.fuse_decode}, "
         f"kv {args.kv_cache_dtype}, speculative_k {args.speculative_k}, "
-        f"chat_sessions {args.chat_sessions}, device {device})",
+        f"chat_sessions {args.chat_sessions}, adapters {args.adapter or []}, device {device})",
         flush=True,
     )
     try:
@@ -465,8 +527,110 @@ def cmd_dpo(args):
           f"{args.output_dir}", flush=True)
 
 
+def build_eval(cfg, model, processor, args, image_loader=None):
+    """The EvalRunner of `eval` for `model`: --quantize / --fuse_decode
+    applied in place, then static, --continuous_batching or
+    --speculative_k generation (vlrlhf_tpu/cli/main.py:1070-1144)."""
+    from vlrlhf_torch.eval.harness import EvalRunner
+    from vlrlhf_torch.models.config import FAMILIES
+
+    family = FAMILIES[cfg.family]
+    serving_weights_(model, args)
+    return EvalRunner(
+        model, processor, generate_config(processor, family, args),
+        collator_config(cfg, family, processor, args), image_loader,
+        continuous_batching=args.continuous_batching, speculative_k=args.speculative_k,
+        seed=args.seed,
+    )
+
+
+def run_eval(runner, args, progress: bool = True) -> dict:
+    """run_benchmark with `eval`'s outputs: <output_dir>/<benchmark>.json,
+    its .xlsx twin and the --sqlite_db row. Returns the metrics."""
+    import os
+
+    from vlrlhf_torch.eval.benchmarks import run_benchmark
+
+    return run_benchmark(
+        args.benchmark, runner, args.data_file, args.image_root,
+        batch_size=args.per_device_train_batch_size,
+        output_json=os.path.join(args.output_dir, f"{args.benchmark}.json"),
+        sqlite_db=args.sqlite_db, tag=args.tag, progress=progress,
+    )
+
+
+def cmd_eval(args):
+    from vlrlhf_torch.eval.benchmarks import BENCHMARKS
+
+    if args.benchmark not in BENCHMARKS:
+        raise SystemExit(f"--benchmark {args.benchmark}: expected one of {sorted(BENCHMARKS)}")
+    if args.judge_model_path:
+        raise SystemExit(
+            "--judge_model_path: the judge is a checkpoint, and checkpoint import is not "
+            "ported yet (ROADMAP.md §1c item 8)"
+        )
+    if args.endpoint:
+        # remote mode: the model lives in a `serve` process; nothing loads here
+        from vlrlhf_torch.generate.server import EndpointRunner
+
+        print(run_eval(EndpointRunner(args.endpoint), args), flush=True)
+        return
+    device = resolve_device(args.device)
+    if not args.synthetic:
+        raise SystemExit(
+            "checkpoint import is not ported yet: run with --synthetic N "
+            "(random weights) until utils/hf_port.py has its port"
+        )
+    _, cfg, model, processor = synthetic_bundle(args, device)
+    image_loader = lambda p, s, m: np.zeros((s, s, 3), np.uint8)  # noqa: E731
+    print(run_eval(build_eval(cfg, model, processor, args, image_loader), args), flush=True)
+
+
 def _bool(x: str) -> bool:
     return x.lower() == "true"
+
+
+def _add_eval_parser(sub) -> None:
+    p = sub.add_parser(
+        "eval",
+        help="one benchmark in-process (or against a serve daemon with --endpoint); writes "
+             "<output_dir>/<benchmark>.json and .xlsx (and a --sqlite_db row)",
+    )
+    p.add_argument("--model_family", type=str, default="llava", choices=["llava"])
+    p.add_argument("--output_dir", type=str, required=True)
+    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="use a tiny random-weight model (no checkpoint)")
+    p.add_argument("--bf16", type=_bool, default=True)
+    p.add_argument("--max_length", type=int, default=1024)
+    p.add_argument("--max_prompt_length", type=int, default=512)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--benchmark", type=str, required=True)
+    p.add_argument("--data_file", type=str, required=True)
+    p.add_argument("--image_root", type=str, default="")
+    p.add_argument("--per_device_train_batch_size", type=int, default=4,
+                   help="rows per batch (slots with --continuous_batching true)")
+    p.add_argument("--max_new_tokens", type=int, default=64)
+    p.add_argument("--sqlite_db", type=str, default=None)
+    p.add_argument("--tag", type=str, default=None)
+    p.add_argument("--judge_model_path", type=str, default=None,
+                   help="refused until checkpoint import lands (ROADMAP.md §1c item 8)")
+    p.add_argument("--quantize", type=str, default="false",
+                   choices=["false", "true", "int8", "int4"])
+    p.add_argument("--kv_cache_dtype", type=str, default="bf16", choices=["bf16", "int8"])
+    p.add_argument("--continuous_batching", type=_bool, default=False,
+                   help="slot-refill serving of the rows (per_device_train_batch_size slots)")
+    p.add_argument("--fuse_decode", type=_bool, default=False)
+    p.add_argument("--speculative_k", type=int, default=0,
+                   help=">0: prompt-lookup speculative decoding with K-token drafts")
+    p.add_argument("--do_sample", type=_bool, default=False)
+    p.add_argument("--temperature", type=float, default=1.0)
+    p.add_argument("--top_k", type=int, default=None)
+    p.add_argument("--top_p", type=float, default=None)
+    p.add_argument("--endpoint", type=str, default=None,
+                   help="http://host:port of a serve daemon: rows go over /generate and "
+                        "/score, no model loads here")
+    p.set_defaults(fn=cmd_eval)
 
 
 def _add_dpo_parser(sub) -> None:
@@ -552,6 +716,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="vlrlhf-torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_dpo_parser(sub)
+    _add_eval_parser(sub)
     p = sub.add_parser("serve")
     p.add_argument("--model_family", type=str, default="llava", choices=["llava"])
     p.add_argument("--device", type=str, default="cuda")
@@ -586,6 +751,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chat_sessions", type=int, default=0,
                    help=">0 enables POST /chat multi-turn sessions, each with its own live "
                         "KV cache, LRU-capped at this many")
+    p.add_argument("--adapter", action="append", default=None,
+                   help="NAME=PATH (repeatable): serve the LoRA adapters a dpo run wrote to "
+                        "PATH (<output_dir>/adapters) under NAME; a /generate body's "
+                        "\"adapter\": NAME picks them. All sets share targets and rank")
+    p.add_argument("--lora_r", type=int, default=64)
+    p.add_argument("--lora_alpha", type=float, default=16.0,
+                   help="the adapters' scale is lora_alpha / lora_r")
     p.set_defaults(fn=cmd_serve)
     return parser
 

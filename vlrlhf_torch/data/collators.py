@@ -1,6 +1,7 @@
-"""Collators: tokenized rows -> right-padded numpy batches (the generation
-and DPO collators of vlrlhf_tpu/data/collators.py, copied because the
-original imports jax through its package; no anyres or Q-Former).
+"""Collators: tokenized rows -> right-padded numpy batches (the generation,
+DPO and SFT collators of vlrlhf_tpu/data/collators.py, copied because the
+original imports jax through its package; no anyres or Q-Former; one image
+slot per row, the first of a list, as vlrlhf_tpu's max_images=1).
 
 Right padding because the engine's KV-cache slot index equals the absolute
 token position (generate/engine.py). Images ship as raw uint8; rescale and
@@ -59,6 +60,13 @@ def _pad_rows(rows: list, pad_value: int, length: int, dtype=np.int32) -> np.nda
     return out
 
 
+def _first_image(path):
+    """The one image a row carries: a path, the first of a list, or None."""
+    if isinstance(path, list):
+        return path[0] if path else None
+    return path
+
+
 class GenerationCollator:
     """RIGHT-padded prompt batches for generation, one image slot per row."""
 
@@ -90,8 +98,9 @@ class GenerationCollator:
             ids[i, : len(row_ids)] = row_ids
             pad_mask[i, : len(row_ids)] = True
             img_pos[i, : len(pos)] = pos
-            if row.get("img_path") is not None:
-                pixels[i, 0] = self.image_loader(row["img_path"], s, cfg.resize_mode)
+            path = _first_image(row.get("img_path"))
+            if path is not None:
+                pixels[i, 0] = self.image_loader(path, s, cfg.resize_mode)
         return {
             "input_ids": ids,
             "pad_mask": pad_mask,
@@ -122,8 +131,7 @@ class DPOCollator:
         s = self.cfg.image_size
         out = np.zeros((len(img_paths), 1, s, s, 3), np.uint8)
         for i, path in enumerate(img_paths):
-            if isinstance(path, list):
-                path = path[0] if path else None
+            path = _first_image(path)
             if path is not None:
                 out[i, 0] = self.image_loader(path, s, self.cfg.resize_mode)
         return out
@@ -161,3 +169,27 @@ class DPOCollator:
                 masks[i], masks[n + i] = diff_masks(labels[i], labels[n + i], LABEL_PAD)
             batch["loss_mask"] = masks
         return batch
+
+
+class SFTCollator(DPOCollator):
+    """Rows from tokenize_row_sft -> input_ids, labels (LABEL_PAD on the
+    padding), pad_mask, image_positions and pixel_values (B, 1, H, W, 3)
+    uint8: vlrlhf_tpu's SFTCollator (collators.py:284-330), the batch of
+    the CE ranking forward (eval/harness.py run_vqa_ppl)."""
+
+    def __call__(self, rows: list[dict]) -> dict[str, Any]:
+        cfg = self.cfg
+        expanded = [self.processor.expand_image_tokens(r["input_ids"], r["labels"])
+                    for r in rows]
+        L = cfg.pad_to or _round_up(max(len(x[0]) for x in expanded), cfg.bucket_multiple)
+        img_pos = np.full((len(rows), self.processor.cfg.num_image_tokens), -1, np.int32)
+        for i, (_, _, pos) in enumerate(expanded):
+            img_pos[i, : len(pos)] = pos
+        return {
+            "input_ids": _pad_rows([x[0] for x in expanded], cfg.pad_token_id, L),
+            "labels": _pad_rows([x[1] for x in expanded], LABEL_PAD, L, np.int64),
+            "pad_mask": _pad_rows([np.ones(len(x[0]), np.int32) for x in expanded], 0, L)
+            .astype(bool),
+            "image_positions": img_pos,
+            "pixel_values": self._load_images([r.get("img_path") for r in rows]),
+        }

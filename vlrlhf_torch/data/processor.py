@@ -1,7 +1,7 @@
-"""VLProcessor: prompt formatting, conversation tokenization, DPO row
-tokenization and image placeholder expansion — the serving and DPO subset of
-vlrlhf_tpu/data/processor.py (incremental-template families), copied
-because importing anything under vlrlhf_tpu pulls in jax.
+"""VLProcessor: prompt formatting, conversation tokenization, DPO and SFT
+row tokenization and image placeholder expansion — the serving, DPO and
+eval subset of vlrlhf_tpu/data/processor.py (incremental-template
+families), copied because importing anything under vlrlhf_tpu pulls in jax.
 
 `tokenize_row_dpo` follows TRL 0.8.1 DPOTrainer.tokenize_row as the JAX
 package does: merge-boundary handling in `_build_tokenized_answer`, BOS/EOS
@@ -74,6 +74,61 @@ class VLProcessor:
             "input_ids": self.tokenizer.encode(raw, add_special_tokens=True),
             "raw_str": raw,
         }
+
+    def maybe_prefix_image_ids(self, input_ids: Sequence[int], n_images: int) -> list:
+        """The prompt ids of a generation row (vlrlhf_tpu processor.py:90-95):
+        unchanged for LLaVA, whose image placeholder sits in the text; the
+        prefix-embedding families that put image ids before the prompt
+        come with their port (ROADMAP.md §1c item 9)."""
+        return list(input_ids)
+
+    def label_conv(self, conv: Sequence[dict], add_end_for_empty_value: bool = False) -> dict:
+        """{input_ids, labels, raw_str}: vlrlhf_tpu's incremental labeling
+        (`_process_conv_incremental`): the growing conversation is
+        retokenized turn by turn, and an assistant turn's new tokens are
+        labelled with the tail of its answer tokenized alone."""
+        t = self.template
+        role_begin = {"user": t.user_begin, "assistant": t.assistant_begin}
+        role_end = {"user": t.user_end, "assistant": t.assistant_end}
+        raw = t.preamble
+        labels: list[int] = []
+        input_ids: list[int] = []
+        prev_len = 0
+        for idx, turn in enumerate(conv):
+            value = turn["value"]
+            raw += role_begin[turn["from"]] + value + (
+                role_end[turn["from"]] if value != "" or add_end_for_empty_value else "")
+            text_tokens = self.tokenizer.encode(value, add_special_tokens=(idx == 0))
+            input_ids = self.tokenizer.encode(raw, add_special_tokens=True)
+            extend_len = len(input_ids) - prev_len
+            prev_len = len(input_ids)
+            labels.extend([LABEL_PAD] * extend_len)
+            if turn["from"] == "assistant" and text_tokens:
+                target_len = min(extend_len, len(text_tokens), len(labels))
+                if target_len > 0:
+                    labels[-target_len:] = text_tokens[-target_len:]
+        return {"input_ids": input_ids, "labels": labels, "raw_str": raw}
+
+    def tokenize_row_sft(self, feature: dict) -> dict:
+        """feature: {prompt, answer | conversations, img_path?} -> {input_ids,
+        labels, img_path} (vlrlhf_tpu `tokenize_row_sft`, processor.py:384;
+        the reference's VLSFTTrainer.tokenize_row). The assistant turn's
+        new tokens carry labels (`label_conv`), everything else LABEL_PAD."""
+        n_images = 1 if feature.get("img_path") else 0
+        if "conversations" in feature:
+            conv = list(feature["conversations"])
+            conv[0] = dict(conv[0], value=self.format_multimodal_prompt(conv[0]["value"],
+                                                                        n_images))
+        else:
+            conv = make_single_turn_conv(
+                self.format_multimodal_prompt(feature["prompt"], n_images), feature["answer"])
+        out = self.label_conv(conv, add_end_for_empty_value=True)
+        ids, labels = out["input_ids"], out["labels"]
+        if self.template.assistant_end == "" and self.tokenizer.eos_token_id is not None:
+            ids = ids + [self.tokenizer.eos_token_id]
+            labels = labels + [self.tokenizer.eos_token_id]
+        return {"input_ids": ids[: self.cfg.max_length], "labels": labels[: self.cfg.max_length],
+                "img_path": feature.get("img_path")}
 
     # ─────────── DPO row tokenization (TRL 0.8.1 semantics) ───────────
 

@@ -29,6 +29,20 @@ Two phases:
 Scheduler state (lengths / last token / active / remaining budget) lives on
 the device as a (4, B) int32 tensor; the host keeps a mirror updated from
 one packed download per burst: [first-token echo | tokens | final length].
+
+Adapters (vlrlhf_tpu continuous.py:425-534): `adapters=True` runs the
+model's own LoRA adapters at `lora_scale`; `adapter_sets` (N trees keyed
+by JAX-layout paths, the `dpo` adapters file) serves N sets at once. They
+are stacked once (lora.stack_adapter_sets), in the fused wqkv / gateup
+layout when the model is fused (lora.fuse_adapter_sets), at assignment:
+reassigning `adapter_sets` replaces the served tree, so no cache can serve
+a stale fused tree (vlrlhf_tpu keys that cache by id(), which a new tree
+at a freed tree's address can match). `serve` lends the tree to the
+model's Linears for its run and gives back what they held before
+(lora.lend_adapters; a model already lent to another engine raises); each
+request's `adapter_idx` picks its set (None: the base model) through a
+per-slot one-hot `Ctx.adapter_mix` row, in admit groups and in plain and
+speculative bursts alike.
 """
 
 from __future__ import annotations
@@ -40,7 +54,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from vlrlhf_torch.generate.engine import GenerateConfig, decode_step, eos_tensor, prefill
+from vlrlhf_torch.generate.engine import (
+    GenerateConfig, adapter_mix_rows, decode_step, eos_tensor, prefill,
+)
+from vlrlhf_torch.lora.lora import fuse_adapter_sets, lend_adapters, stack_adapter_sets
+from vlrlhf_torch.models.common import Ctx
 from vlrlhf_torch.models.lm.llama import empty_cache, empty_pending, flush_pending
 from vlrlhf_torch.models.vlm import VLM
 from vlrlhf_torch.ops.sampling import warp_logits
@@ -60,6 +78,7 @@ class Request:
     pixel_values: Optional[np.ndarray] = None  # (H, W, 3), one image
     image_positions: Optional[np.ndarray] = None  # (N_img_tok,)
     max_new_tokens: Optional[int] = None  # per-request cap (else gen_cfg's)
+    adapter_idx: Optional[int] = None  # which of the engine's adapter_sets; None = base
 
 
 def device_draft(hist: torch.Tensor, hlen: torch.Tensor, k: int, pad_id: int) -> torch.Tensor:
@@ -108,7 +127,12 @@ class ContinuousEngine:
         prefill_chunk: int = 128,  # prompt-length bucket multiple
         speculative_k: int = 0,  # >0: bursts verify K-token drafts per slot
         speculative_adaptive: bool = True,  # with speculation: the gate
+        adapters: bool = False,  # the model's own adapters on (single set)
+        adapter_sets: Optional[Sequence[dict]] = None,  # N sets, per-request choice
+        lora_scale: float = 1.0,
     ):
+        if adapters and adapter_sets:
+            raise ValueError("pass either adapters (the model's own) or adapter_sets")
         self.model = model
         self.gen_cfg = gen_cfg
         self.n_slots = n_slots
@@ -129,10 +153,38 @@ class ContinuousEngine:
         self.last_admits = 0
         self.last_decode_steps = 0  # one-token steps (plain bursts)
         self.last_verify_steps = 0  # chunk forwards (speculative bursts)
+        self.adapters = adapters
+        self.lora_scale = lora_scale
+        self.adapter_sets = adapter_sets
 
     @property
     def device(self) -> torch.device:
         return self.model.device
+
+    @property
+    def adapter_sets(self) -> Optional[dict]:
+        """The served sets, stacked (lora.stack_adapter_sets) on the device
+        in the model's layout (fused or not); assign a list of sets (or
+        None) to replace them."""
+        return self._held
+
+    @adapter_sets.setter
+    def adapter_sets(self, sets: Optional[Sequence[dict]]) -> None:
+        self.n_adapter_sets = len(sets) if sets else 0
+        self._held = None
+        if sets:
+            # held in the model's dtype: the delta casts to the activations' anyway
+            dt = self.model.cfg.lm.dtype
+            self._held = {k: v.to(self.device, dt)
+                          for k, v in stack_adapter_sets(list(sets)).items()}
+            if self.model.lm.layers[0].wqkv is not None:
+                self._held = fuse_adapter_sets(self._held, self.model.cfg.lm)
+
+    def _ctx(self, adapter_mix: Optional[torch.Tensor]) -> Optional[Ctx]:
+        """The VLM-level context of a dispatch: None without adapters."""
+        if self._held is not None:
+            return Ctx(adapters=True, lora_scale=self.lora_scale, adapter_mix=adapter_mix)
+        return Ctx(adapters=True, lora_scale=self.lora_scale) if self.adapters else None
 
     def _fresh_buffers(self):
         """(cache, pending, state, hist): hist (B, Sc) int32 is the token
@@ -144,6 +196,9 @@ class ContinuousEngine:
         state = torch.zeros((4, b), dtype=torch.int32, device=self.device)
         hist = (torch.zeros((b, sc), dtype=torch.int32, device=self.device)
                 if self.speculative_k else None)
+        # each slot's one-hot adapter row (zeros: the base model)
+        self._slot_mix = torch.zeros((b, max(self.n_adapter_sets, 1)), dtype=torch.float32,
+                                     device=self.device)
         return cache, pending, state, hist
 
     # ---------------- admission ----------------
@@ -174,11 +229,14 @@ class ContinuousEngine:
                 np.stack([np.asarray(r.image_positions, np.int32) for r in reqs])
             ).to(dev)
         rows_t, plens_t = torch.as_tensor(rows).to(dev), torch.as_tensor(plens).to(dev)
+        slot_t = torch.as_tensor(np.asarray(slots, np.int64)).to(dev)
+        if self._held is not None:
+            self._slot_mix[slot_t] = adapter_mix_rows([r.adapter_idx for r in reqs],
+                                                      self.n_adapter_sets, dev)
         small, _, first, done0, _, _ = prefill(
             self.model, self.gen_cfg, lb, rows_t, torch.as_tensor(pad).to(dev),
-            plens_t, pv, ipos, generator,
+            plens_t, pv, ipos, generator, self._ctx(self._slot_mix[slot_t]),
         )
-        slot_t = torch.as_tensor(np.asarray(slots, np.int64)).to(dev)
         for key in small:
             # in place into the big cache (and scales): stale kv beyond lb is
             # never attended (slot masking) and is overwritten by decode
@@ -216,6 +274,7 @@ class ContinuousEngine:
                                                 torch.full_like(pending["pos"], sc)))
         lengths, last, done = lengths0.clone(), last0.clone(), ~active0
         rows = torch.arange(b, device=self.device)
+        ctx = self._ctx(self._slot_mix)
         for i in range(self.decode_burst):
             go = ~done.all()
             if exit_free:
@@ -225,7 +284,7 @@ class ContinuousEngine:
             lengths_in = lengths
             pending, lengths, last, done = decode_step(
                 self.model, gen_cfg, eos, cache, pending, lengths, last, done,
-                out, i, generator,
+                out, i, generator, ctx,
             )
             if hist is not None:
                 # the history's valid length is lengths + 1: this step's
@@ -264,6 +323,8 @@ class ContinuousEngine:
         pending_out = dict(pending, pos=torch.full_like(pending["pos"], sc))
         jj = torch.arange(c, device=dev)[None, :]
         rows = torch.arange(b, device=dev)
+        ctx = self._ctx(self._slot_mix)
+        lm_ctx = None if ctx is None else ctx.sub("lm")
         lengths, last, done = lengths0.clone(), last0.clone(), ~active0
         for _ in range(max_burst):
             delta = lengths - lengths0
@@ -280,7 +341,8 @@ class ContinuousEngine:
             chunk = torch.cat([last[:, None], device_draft(hist, hlen, k, pad_id)], dim=1)
             clens = torch.where(can, c, 0).to(torch.int32)  # 0 writes no kv
             logits, _ = self.model.lm.prefill_chunk(chunk, clens, lengths, cache,
-                                                    return_all_logits=True)  # (B, C, V)
+                                                    return_all_logits=True,
+                                                    ctx=lm_ctx)  # (B, C, V)
             self.last_verify_steps += 1
             if not gen_cfg.do_sample:
                 tok = torch.argmax(logits, dim=-1).to(torch.int32)  # (B, C)
@@ -357,6 +419,9 @@ class ContinuousEngine:
         need = len(r.input_ids) + (r.max_new_tokens or self.gen_cfg.max_new_tokens)
         if need > self.cache_len:
             raise ValueError(f"request needs {need} cache slots, engine has {self.cache_len}")
+        if r.adapter_idx is not None and not 0 <= r.adapter_idx < self.n_adapter_sets:
+            raise ValueError(f"adapter_idx {r.adapter_idx}: the engine serves "
+                             f"{self.n_adapter_sets} adapter sets")
 
     def run(
         self,
@@ -393,6 +458,12 @@ class ContinuousEngine:
           done()    -> bool                     — no request will EVER arrive
           wait()    -> None                     — block briefly for work
         on_finish(ridx, tokens) fires as each request completes."""
+        if self._held is None:
+            return self._serve_loop(source, on_finish, generator, on_token)
+        with lend_adapters(self.model, self._held):
+            return self._serve_loop(source, on_finish, generator, on_token)
+
+    def _serve_loop(self, source, on_finish, generator, on_token) -> None:
         gen_cfg = self.gen_cfg
         b = self.n_slots
         if generator is None:

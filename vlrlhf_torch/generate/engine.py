@@ -15,7 +15,10 @@ it (`extend`).
 `Generator.adapters` switches the model's LoRA adapters on (at
 `lora_scale`) or off for its runs, vlrlhf_tpu's single-adapter
 `serving_ctx` (engine.py:72-76): the DPO eval samples decode the policy
-with them on and the reference with them off.
+with them on and the reference with them off. When the model holds
+stacked adapter sets (lora.set_adapters_), a call's `adapter_mix` (B, N)
+picks each row's set (`adapter_mix_rows`), as vlrlhf_tpu's Generator does
+with a "__mix__" beside its stacked tree.
 """
 
 from __future__ import annotations
@@ -115,6 +118,18 @@ def decode_step(
     return pending, lengths, nxt, new_done
 
 
+def adapter_mix_rows(idx, n_sets: int, device) -> torch.Tensor:
+    """(B, n_sets) one-hot rows for per-row set indices; None or a negative
+    index gives a zero row, the base model."""
+    mix = torch.zeros((len(idx), n_sets), dtype=torch.float32)
+    for row, i in enumerate(idx):
+        if i is not None and i >= 0:
+            if i >= n_sets:
+                raise ValueError(f"adapter index {i} out of range for {n_sets} sets")
+            mix[row, i] = 1.0
+    return mix.to(device)
+
+
 def batch_to_device(batch: dict, device) -> dict:
     """GenerationCollator numpy batch -> tensors on `device`."""
     out = {}
@@ -171,6 +186,7 @@ class Generator:
         generator: Optional[torch.Generator] = None,
         return_state: bool = False,
         cache_len: Optional[int] = None,
+        adapter_mix: Optional[torch.Tensor] = None,  # (B, N) for stacked sets
     ):
         """Returns (B, max_new_tokens) int32 token ids, with return_state
         also the live session state {"cache", "pending", "lengths"} (see
@@ -184,7 +200,7 @@ class Generator:
         t = batch_to_device(batch, device)
         if cache_len is None:
             cache_len = -(-(t["input_ids"].shape[1] + gen_cfg.max_new_tokens) // 128) * 128
-        ctx = Ctx(adapters=self.adapters, lora_scale=self.lora_scale)
+        ctx = self.ctx(adapter_mix)
         cache, lengths, last, done, out, _ = prefill(
             self.model, gen_cfg, cache_len, t["input_ids"], t["pad_mask"],
             t["prompt_lens"], t["pixel_values"], t["image_positions"], generator, ctx,
@@ -192,8 +208,13 @@ class Generator:
         pending, lengths = decode_loop(self.model, gen_cfg, cache, lengths, last, done, out,
                                        generator, self.EARLY_EXIT_EVERY, ctx)
         if return_state:
-            return out, {"cache": cache, "pending": pending, "lengths": lengths}
+            return out, {"cache": cache, "pending": pending, "lengths": lengths, "ctx": ctx}
         return out
+
+    def ctx(self, adapter_mix: Optional[torch.Tensor] = None) -> Ctx:
+        """The VLM-level context of a run: adapters on or off, the mix."""
+        mix = None if adapter_mix is None else adapter_mix.to(self.model.device)
+        return Ctx(adapters=self.adapters, lora_scale=self.lora_scale, adapter_mix=mix)
 
 
 class ChatSession:
@@ -209,6 +230,8 @@ class ChatSession:
         self.state: Optional[dict] = None
 
     def start(self, batch: dict, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Turn 1; the session keeps its adapter context for the turns that
+        follow."""
         out, self.state = self.gen(batch, generator, return_state=True,
                                    cache_len=self.cache_len)
         return out
@@ -219,9 +242,6 @@ class ChatSession:
         max_new_tokens) token ids (vlrlhf_tpu `_extend_impl`)."""
         if self.state is None:
             raise RuntimeError("call start() first")
-        if self.gen.adapters:
-            raise ValueError("a chat session's next turn runs without adapters: "
-                             "adapters in prefill_chunk are not ported")
         gen_cfg = self.gen.gen_cfg
         model = self.gen.model
         device = model.device
@@ -239,8 +259,9 @@ class ChatSession:
                 "session with a larger cache or trim the conversation"
             )
         cache = s["cache"]
+        ctx = s["ctx"]
         logits, lengths = model.lm.prefill_chunk(new_ids, chunk_lens, s["lengths"], cache,
-                                                 pending=s["pending"])
+                                                 pending=s["pending"], ctx=ctx.sub("lm"))
         first = _sample(gen_cfg, logits, generator)
         done = torch.isin(first, eos_tensor(gen_cfg, device))
         pad = gen_cfg.pad_token_id
@@ -248,6 +269,6 @@ class ChatSession:
                          device=device)
         out[:, 0] = torch.where(done, torch.full_like(first, pad), first)
         pending, lengths = decode_loop(model, gen_cfg, cache, lengths, first, done, out,
-                                       generator, self.gen.EARLY_EXIT_EVERY)
-        self.state = {"cache": cache, "pending": pending, "lengths": lengths}
+                                       generator, self.gen.EARLY_EXIT_EVERY, ctx)
+        self.state = {"cache": cache, "pending": pending, "lengths": lengths, "ctx": ctx}
         return out

@@ -5,15 +5,21 @@ one frees.
 
   QueueSource    — source protocol over a deque + condition variable
   EngineServer   — owns the scheduler thread; submit(Request) -> Future
-  RequestBuilder — question + image -> engine Request
+  RequestBuilder — question + image (+ adapter index) -> engine Request
   ChatBackend    — multi-turn sessions: one ChatSession (its own live
                    cache) per session id, LRU-capped
+  EndpointRunner — the eval harness's runner over HTTP: run_vqa posts
+                   /generate from a thread pool, run_vqa_ppl posts /score
   serve_http     — stdlib ThreadingHTTPServer: POST /generate
-                   {"question", "image"?, "max_new_tokens"?, "stream"?} ->
-                   {"text", "tokens"}, POST /chat {"message", "session_id"?,
-                   "image"?} -> {"text", "session_id"}, GET /health, GET
-                   /metrics. /score answers 501: it needs the eval harness,
-                   which is not ported yet.
+                   {"question", "image"?, "max_new_tokens"?, "stream"?,
+                   "adapter"?} -> {"text", "tokens"} ("adapter" names one
+                   of the engine's registered sets; an unknown name answers
+                   400 with the registered names; without it the base model
+                   decodes), POST /chat {"message", "session_id"?,
+                   "image"?} -> {"text", "session_id"}, POST /score {"rows":
+                   [{"question", "answer", "image"?}]} -> {"ppl": [...]}
+                   (the mean CE of each answer, eval/harness.py
+                   run_vqa_ppl behind a lock), GET /health, GET /metrics.
 """
 
 from __future__ import annotations
@@ -193,11 +199,13 @@ class RequestBuilder:
         question: str,
         img_path: Optional[str] = None,
         max_new_tokens: Optional[int] = None,
+        adapter_idx: Optional[int] = None,
     ) -> Request:
         proc = self.processor
         n_img = 0 if img_path is None else 1
         prompt = proc.format_multimodal_prompt(question, n_img)
         ids = proc.process_conv(make_single_turn_conv(prompt, ""))["input_ids"]
+        ids = proc.maybe_prefix_image_ids(ids, n_img)
         b = self.collator([{"input_ids": ids, "img_path": img_path}])
         plen = int(b["prompt_lens"][0])
         has_img = img_path is not None
@@ -206,6 +214,7 @@ class RequestBuilder:
             pixel_values=b["pixel_values"][0, 0] if has_img else None,
             image_positions=np.asarray(b["image_positions"][0]) if has_img else None,
             max_new_tokens=max_new_tokens,
+            adapter_idx=adapter_idx,
         )
 
 
@@ -283,6 +292,56 @@ class ChatBackend:
             return self._strip(out[0].cpu()), session_id
 
 
+class EndpointRunner:
+    """The eval harness's runner against a `serve` daemon over HTTP
+    (vlrlhf_tpu EndpointRunner, server.py:357-428; the reference's remote
+    run_vqa_sgl): run_vqa posts each row to /generate from `num_threads`
+    threads, run_vqa_ppl posts batches of rows to /score. The model lives
+    in the serving process."""
+
+    def __init__(self, endpoint: str, num_threads: int = 32, timeout: float = 600.0):
+        self.endpoint = endpoint.rstrip("/")
+        self.num_threads = num_threads
+        self.timeout = timeout
+
+    def _post(self, path: str, body: dict) -> dict:
+        import urllib.request
+
+        req = urllib.request.Request(self.endpoint + path, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"},
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=self.timeout) as r:
+            out = json.loads(r.read())
+        if "error" in out:
+            raise RuntimeError(out["error"])
+        return out
+
+    def run_vqa(self, rows, batch_size: int = 16, prompt_key: str = "question",
+                image_key: str = "img", progress: bool = False) -> list[dict]:
+        from concurrent.futures import ThreadPoolExecutor
+
+        rows = [dict(r) for r in rows]
+        with ThreadPoolExecutor(self.num_threads) as ex:
+            texts = list(ex.map(lambda r: self._post("/generate", {
+                "question": r[prompt_key], "image": r.get(image_key)})["text"], rows))
+        for r, t in zip(rows, texts):
+            r["response"] = t
+        return rows
+
+    def run_vqa_ppl(self, rows, batch_size: int = 16, prompt_key: str = "question",
+                    answer_key: str = "answer", image_key: str = "img",
+                    progress: bool = False) -> list[dict]:
+        rows = [dict(r) for r in rows]
+        for start in range(0, len(rows), batch_size):
+            chunk = rows[start: start + batch_size]
+            res = self._post("/score", {"rows": [
+                {"question": r[prompt_key], "answer": r[answer_key], "image": r.get(image_key)}
+                for r in chunk]})
+            for row, ppl in zip(chunk, res["ppl"]):
+                row["ppl"] = float(ppl)
+        return rows
+
+
 def serve_http(
     server: EngineServer,
     builder: RequestBuilder,
@@ -291,6 +350,8 @@ def serve_http(
     port: int = 8000,
     request_timeout: float = 600.0,
     chat: Optional[ChatBackend] = None,
+    scorer=None,  # callable(rows) -> rows with "ppl": /score (EvalRunner.run_vqa_ppl)
+    adapter_names: Optional[list] = None,  # "adapter" name -> Request.adapter_idx
 ):
     """Blocking HTTP front-end. Returns the HTTPServer (call .shutdown()
     from another thread to stop); port=0 picks an ephemeral port
@@ -323,7 +384,21 @@ def serve_http(
 
         def do_POST(self):
             if self.path == "/score":
-                self._json(501, {"error": "/score is not ported yet"})
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                    body = json.loads(self.rfile.read(n) or b"{}")
+                    if scorer is None:
+                        self._json(400, {"error": "scoring disabled"})
+                        return
+                    if not isinstance(body.get("rows"), list):
+                        self._json(400, {"error": 'expected {"rows": [{"question", "answer", '
+                                                  '"image"?}, ...]}'})
+                        return
+                    scored = scorer([{"question": r["question"], "answer": r["answer"],
+                                      "img": r.get("image")} for r in body["rows"]])
+                    self._json(200, {"ppl": [r["ppl"] for r in scored]})
+                except Exception as e:  # noqa: BLE001 — report to the client
+                    self._json(500, {"error": f"{type(e).__name__}: {e}"})
                 return
             if self.path == "/chat":
                 try:
@@ -344,9 +419,15 @@ def serve_http(
             try:
                 n = int(self.headers.get("Content-Length", 0))
                 body = json.loads(self.rfile.read(n) or b"{}")
-                req = builder.build(
-                    body["question"], body.get("image"), body.get("max_new_tokens")
-                )
+                aidx = None
+                if body.get("adapter") is not None:
+                    if not adapter_names or body["adapter"] not in adapter_names:
+                        self._json(400, {"error": f"unknown adapter {body['adapter']!r}; "
+                                                  f"registered: {adapter_names or []}"})
+                        return
+                    aidx = adapter_names.index(body["adapter"])
+                req = builder.build(body["question"], body.get("image"),
+                                    body.get("max_new_tokens"), adapter_idx=aidx)
                 if body.get("stream"):
                     self._stream(req)
                     return

@@ -42,12 +42,18 @@ class Ctx:
     DPO reference forward is the same model with adapters off. LoRA dropout
     draws from `dropout_seed`, which `sub` folds with crc32 of each child's
     key and the decoder folds with the layer index, so every module of every
-    layer gets its own mask, per step."""
+    layer gets its own mask, per step.
+
+    `adapter_mix` (B, N) serves stacked adapter sets (lora.py
+    `stack_adapter_sets`): row b's delta is the mix-weighted sum of the
+    sets' deltas, so a one-hot row selects its set and a zero row runs the
+    base model (vlrlhf_tpu's Ctx.adapter_mix, models/common.py:40-44)."""
 
     adapters: bool = False
     lora_scale: float = 1.0
     lora_dropout: float = 0.0
     dropout_seed: Optional[int] = None
+    adapter_mix: Optional[torch.Tensor] = None
 
     def sub(self, key: str) -> "Ctx":
         return self.fold(zlib.crc32(key.encode()) & 0x7FFFFFFF)
@@ -67,6 +73,8 @@ class Linear(nn.Module):
 
     `lora_a` (in, r) / `lora_b` (r, out) are None until lora.init_lora
     attaches an adapter; it applies when the call's Ctx has adapters on.
+    Stacked sets for multi-adapter serving hold (in, N, r) / (N*r, out)
+    and read the Ctx's per-row `adapter_mix` (lora.set_adapters_).
 
     Quantized (`quantize_` or the bridge's int8 / int4 leaves), `weight` is
     None and one of two states takes its place:
@@ -158,7 +166,7 @@ class Linear(nn.Module):
     def delta(self, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
         """The adapter's term for input x under ctx (see `adapted`)."""
         return lora_delta(x, self.lora_a, self.lora_b, ctx.lora_scale,
-                          ctx.lora_dropout, ctx.dropout_seed)
+                          ctx.lora_dropout, ctx.dropout_seed, ctx.adapter_mix)
 
     def forward(self, x: torch.Tensor, ctx: Optional[Ctx] = None) -> torch.Tensor:
         y = self.base(x)

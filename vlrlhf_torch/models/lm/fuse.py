@@ -10,8 +10,11 @@ decode layer then runs 4 weight products instead of 7: with int4 weights,
 129 launches of the W4A16 kernel per step instead of 225.
 
 A serving transform, applied after quantization: training, LoRA targets
-and the bridge address wq/wk/wv/gate/up separately. The port serves no
-adapters yet, so fusing a linear that holds one is refused.
+and the bridge address wq/wk/wv/gate/up separately. Adapters the parts
+hold (single or stacked sets, one rank) fuse with them
+(lora.fuse_adapter_group): the a's side by side on the rank axis, the b's
+block diagonal (zeros for a part without one), so the fused linear's delta
+equals the parts' deltas side by side.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from vlrlhf_torch.lora.lora import fuse_adapter_group
 from vlrlhf_torch.models.common import Linear
 from vlrlhf_torch.ops.int4 import GROUP
 
@@ -42,8 +46,6 @@ def concat_linears(parts: list[Linear]) -> Linear:
              else "dense" for p in parts}
     if len(kinds) != 1 or len({p.d_in for p in parts}) != 1:
         raise ValueError(f"fusion needs linears of one kind and width, got {kinds}")
-    if any(p.lora_a is not None for p in parts):
-        raise ValueError("fusion of a linear that holds a LoRA adapter is not supported")
     kind = kinds.pop()
     first = parts[0]
     # built on "meta" and filled with the concatenations: no empty weight
@@ -60,6 +62,12 @@ def concat_linears(parts: list[Linear]) -> Linear:
             _cat(parts, "weight_gbias", lambda p: (p.d_out, p.d_in // GROUP)))
     bias = _cat(parts, "bias", lambda p: (p.d_out,))
     fused.bias = None if bias is None else nn.Parameter(bias, requires_grad=False)
+    if any(p.lora_a is not None for p in parts):
+        a, b = fuse_adapter_group(
+            [None if p.lora_a is None else (p.lora_a.detach(), p.lora_b.detach()) for p in parts],
+            [p.d_out for p in parts])
+        fused.lora_a = nn.Parameter(a, requires_grad=False)
+        fused.lora_b = nn.Parameter(b, requires_grad=False)
     return fused
 
 

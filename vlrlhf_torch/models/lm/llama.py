@@ -56,13 +56,6 @@ from vlrlhf_torch.ops.quant import quantize_kv
 from vlrlhf_torch.ops.rope import apply_rope, rope_frequencies
 
 
-def _fused(lin: Linear, x: torch.Tensor) -> torch.Tensor:
-    """A fused serving linear's product; it carries no adapter (fuse.py)."""
-    if lin.lora_a is not None:
-        raise ValueError("a fused serving linear holds a LoRA adapter: not supported")
-    return lin(x)
-
-
 class LlamaLayer(nn.Module):
     def __init__(self, cfg: LMConfig, device):
         super().__init__()
@@ -91,7 +84,7 @@ class LlamaLayer(nn.Module):
         nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
         actx = actx or Ctx()
         if self.wqkv is not None:
-            y = _fused(self.wqkv, h)
+            y = self.wqkv(h, actx.sub("wqkv"))
             dq, dk = nh * hd, nkv * hd
             return (y[..., :dq].reshape(b, s, nh, hd),
                     y[..., dq:dq + dk].reshape(b, s, nkv, hd),
@@ -105,7 +98,7 @@ class LlamaLayer(nn.Module):
     def mlp(self, x: torch.Tensor, mctx: Optional[Ctx] = None) -> torch.Tensor:
         mctx = mctx or Ctx()
         if self.gateup is not None:
-            y = _fused(self.gateup, x)
+            y = self.gateup(x, mctx.sub("gateup"))
             gate, up = y[..., :self.cfg.intermediate_size], y[..., self.cfg.intermediate_size:]
         else:
             gate, up = self.gate(x, mctx.sub("gate")), self.up(x, mctx.sub("up"))
@@ -377,6 +370,7 @@ class LlamaDecoder(nn.Module):
         cache: dict,  # {"k", "v"[, "k_scale", "v_scale"]}: (L, B, nkv, Sc, hd), IN PLACE
         pending: Optional[dict] = None,  # deferred kv from a prior decode
         return_all_logits: bool = False,
+        ctx: Optional[Ctx] = None,  # the LM-level context (adapters on or off)
     ):
         """Prefill a chunk into a NON-EMPTY cache (vlrlhf_tpu `lm_prefill_chunk`,
         llama.py:506-644): the speculative verify chunk and a chat session's
@@ -407,26 +401,29 @@ class LlamaDecoder(nn.Module):
         src = torch.minimum(torch.arange(c, device=dev)[None], (n - 1).clamp(min=0)[:, None])
         slot = (lengths.long()[:, None] + src).clamp(0, sc - 1)  # (B, C)
         writes = n > 0
+        layers_ctx = (ctx or Ctx()).sub("layers_scanned")
         for i, layer in enumerate(self.layers):
+            lctx = layers_ctx.fold(i)
+            actx = lctx.sub("attn")
             h = rms_norm(x, layer.input_layernorm.weight, cfg.rms_eps)
-            q, k, v = layer.qkv(h)
+            q, k, v = layer.qkv(h, actx)
             q, k = apply_rope(q, k, cos, sin)
             _write_chunk_(cache, i, k, v, src, slot, writes)
             out = chunk_attention(
                 q, cache["k"], cache["v"], lengths, layer=i,
                 k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
             )
-            x = x + layer.wo(out.reshape(b, c, -1))
+            x = x + layer.wo(out.reshape(b, c, -1), actx.sub("wo"))
             h = rms_norm(x, layer.post_attention_layernorm.weight, cfg.rms_eps)
-            x = x + layer.mlp(h)
+            x = x + layer.mlp(h, lctx.sub("mlp"))
         hidden = rms_norm(x, self.norm.weight, cfg.rms_eps)
         if return_all_logits:
-            logits = self.head(hidden)
+            logits = self.head(hidden, ctx)
         else:
             # only the chunk's last real position seeds the next token: gather
             # it before the head ((B, 1, H) through the head, not (B, C, H))
             last = (chunk_lens.long() - 1).clamp(min=0)
-            logits = self.head(hidden[torch.arange(b, device=dev), last][:, None])[:, 0]
+            logits = self.head(hidden[torch.arange(b, device=dev), last][:, None], ctx)[:, 0]
         return logits, lengths + chunk_lens
 
 

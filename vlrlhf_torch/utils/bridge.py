@@ -16,7 +16,11 @@ per-module inits) and what the bridge does with them:
     in (row, col, channel) order to match the tower's patch extraction
   - LoRA adapter trees ({"a" (in, r), "b" (r, out)} leaves beside the base
     tree, stacked on the layer axis under "layers_scanned") -> each Linear's
-    lora_a / lora_b, f32; `lora_tree` is the way back, for the adapters or
+    lora_a / lora_b, f32; a list of N such trees (vlrlhf_tpu's
+    multi-adapter `adapter_sets`) -> the port's stacked sets, (in, N, r) /
+    (N*r, out) on each Linear (lora.stack_adapter_sets); `adapter_keys`
+    flattens one tree to the port's {JAX-layout key: tensor} form (the
+    `dpo` adapters file); `lora_tree` is the way back, for the adapters or
     their gradients, so tests compare leaf by leaf
 The copy goes to each parameter's device and dtype.
 """
@@ -24,13 +28,13 @@ The copy goes to each parameter's device and dtype.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from vlrlhf_torch.lora.lora import module_path
+from vlrlhf_torch.lora.lora import module_path, set_adapters_, stack_adapter_sets
 from vlrlhf_torch.models import config as C
 from vlrlhf_torch.models.common import Linear, Norm
 from vlrlhf_torch.models.vlm import VLM
@@ -139,9 +143,38 @@ def _adapter_key(name: str) -> tuple[tuple[str, ...], Optional[int]]:
     return tuple(path), None
 
 
-def load_lora_params(model: nn.Module, adapters: Mapping[str, Any]) -> list[str]:
+def adapter_keys(adapters: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A vlrlhf_tpu adapter tree as {JAX-layout key: f32 tensor}, the
+    per-layer keys of the port's checkpoints: ("lm", "layers_scanned",
+    "attn", "wq", "a") (L, in, r) -> "lm/layers/<i>/attn/wq/a" (in, r)."""
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, path + (str(k),))
+            return
+        arr = _f32(node)
+        if "layers_scanned" in path:
+            j = path.index("layers_scanned")
+            for i in range(arr.shape[0]):
+                out["/".join(path[:j] + ("layers", str(i)) + path[j + 1:])] = arr[i].clone()
+        else:
+            out["/".join(path)] = arr
+
+    walk(adapters, ())
+    return out
+
+
+def load_lora_params(model: nn.Module,
+                     adapters: Union[Mapping[str, Any], Sequence[Mapping[str, Any]]]) -> list[str]:
     """Attach (or overwrite) f32 adapters from a vlrlhf_tpu adapter tree
-    (init_lora's output, numpy leaves); returns the adapted module names."""
+    (init_lora's output, numpy leaves); from a list of trees, hold them as
+    stacked sets for multi-adapter serving (the set index is the list
+    index; every other Linear's adapter is dropped). Returns the adapted
+    module names."""
+    if not isinstance(adapters, Mapping):
+        return set_adapters_(model, stack_adapter_sets([adapter_keys(t) for t in adapters]))
     done = []
     for name, mod in model.named_modules():
         if not isinstance(mod, Linear):
