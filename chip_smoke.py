@@ -104,6 +104,22 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      card (bf16) and the CPU (f32): ppl within PPL_REL_TOL (two broken
      controls, no causal mask and labels one token off, must fail it),
      greedy tokens equal up to top-2 ties of the CPU's logits
+  9. a checkpoint on disk: full-width, full-depth LLaVA-1.5-7B with seeded
+     random bf16 weights written as an HF checkpoint (utils/hf_export.py,
+     the published llava-hf/llava-1.5-7b-hf config.json, a seeded llama
+     tokenizer.json) and read back by cli.main.load_bundle: bf16 equal to
+     the model in memory, tensor for tensor and in the greedy tokens of 8
+     image requests (after 8 more over HTTP); int8 (--kv_cache_dtype int8
+     --speculative_k 3) and int4, quantized while they stream in, equal to
+     the in-memory model quantized after; each import's ms, GB/s and peak
+     memory over the resident model (at most one LM layer more); `dpo`'s
+     functions from a plain_dpo dataset of the JPEG fixtures (step-1 loss ln
+     2, finite) with step ms; then at 2 LM / 2 tower layers QLoRA int4 dpo,
+     eval mmvet with the checkpoint as its own judge and `merge
+     --export_format hf`, reloaded bit-equal with equal logits. The JPEGs go
+     through the native loader where it builds; where it does not (no
+     libjpeg), the finding is printed and tests/fixtures' .npz (the CPU
+     box's decode of the same files) is fed instead
 
 A profiled step prints the card's busy and idle time and its kernel time by
 group (torch.profiler; the flash groups split by head dim). Phase 2's
@@ -114,9 +130,9 @@ holds the eval path's shapes: the flash forward on 16 right-padded rows
 of S = 640 (the CE ranking forward), decode at B=16 (the static
 Generator) and chunk at B=16, C=4 (the static speculative verify). The line
 before the last is {"kernels": [...]} (launches summed over the serve,
-speculative int8 serve, /chat, int4 serve, DPO, QLoRA, trainer, eval and
-multi-adapter serving runs, split in launches_by_path; the eval shapes'
-times under "eval");
+speculative int8 serve, /chat, int4 serve, DPO, QLoRA, trainer, eval,
+multi-adapter serving and phase 9's runs (ckpt_*), split in
+launches_by_path; the eval shapes' times under "eval");
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
 and prints no result.
@@ -2653,6 +2669,415 @@ def eval_reduced_depth():
     torch.cuda.empty_cache()
 
 
+# ───────────────────────── phase 9: a checkpoint on disk ─────────────────────────
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures")
+FIXTURE_ARRAYS = "fx_336_shortest_edge_crop.npz"  # the CPU box's native decode of the JPEGs
+CKPT_QUESTIONS = [f"request {i}: what is shown in the image? describe it in detail"
+                  for i in range(8)]
+
+
+def fixture_jpegs() -> list:
+    return sorted(os.path.join(FIXTURES, n) for n in os.listdir(FIXTURES) if n.endswith(".jpg"))
+
+
+def phase9_image_loader():
+    """The loader phase 9 feeds its JPEG fixtures through: the port's native
+    loader where it builds (then None, the collators' default, and the
+    decode rate of load_batch), else the arrays the CPU box decoded from
+    the same files with it. The second is this harness's choice of input,
+    not a fallback of the program: the native loader still raises here."""
+    from vlrlhf_torch.data import native_image
+
+    with np.load(os.path.join(FIXTURES, FIXTURE_ARRAYS)) as npz:  # read once: the HTTP
+        arrays = {k: npz[k] for k in npz.files}  # threads load concurrently
+    try:
+        native_image._library()
+    except RuntimeError as e:
+        reason = " | ".join(str(e).strip().splitlines()[:3])
+        try:
+            native_image.load_image(fixture_jpegs()[0], 336)
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("the native loader decoded a JPEG after its build failed")
+        print(f"phase 9 finding: the native JPEG loader does not build on this machine "
+              f"({reason}); the JPEG fixtures are fed as {FIXTURE_ARRAYS}, the CPU box's "
+              f"decode of the same files, and load_batch images/s is not measured", flush=True)
+
+        def load(path, size, mode="shortest_edge_crop"):
+            if size != 336 or mode != "shortest_edge_crop":
+                raise ValueError(f"{FIXTURE_ARRAYS} holds 336-px shortest_edge_crop decodes only")
+            return arrays[os.path.basename(path)]
+
+        return load, None
+    paths = fixture_jpegs() * 16
+    native_image.load_batch(paths[:6], 336)
+    t0 = time.perf_counter()
+    out = native_image.load_batch(paths, 336)
+    rate = len(paths) / (time.perf_counter() - t0)
+    worst = max(int(np.abs(out[i].astype(int) - arrays[os.path.basename(p)].astype(int)).max())
+                for i, p in enumerate(paths[:6]))
+    print(f"phase 9 native JPEG loader: load_batch {len(paths)} images of 6 fixtures at 336 px "
+          f"in 8 threads: {rate:.1f} images/s; max |this machine - the CPU box's decode| "
+          f"{worst}", flush=True)
+    return None, rate
+
+
+def ckpt_requests(proc, loader):
+    """The 8 image requests of phase 9 (fixture JPEGs in turn)."""
+    from vlrlhf_torch.data.collators import CollatorConfig, GenerationCollator
+    from vlrlhf_torch.data.processor import make_single_turn_conv
+    from vlrlhf_torch.generate.continuous import Request
+
+    coll = GenerationCollator(proc, CollatorConfig(pad_token_id=proc.tokenizer.pad_token_id,
+                                                   image_size=336), loader)
+    jpegs = fixture_jpegs()
+    reqs = []
+    for j, question in enumerate(CKPT_QUESTIONS):
+        ids = proc.process_conv(make_single_turn_conv(
+            proc.format_multimodal_prompt(question, 1), ""))["input_ids"]
+        b1 = coll([{"input_ids": ids, "img_path": jpegs[j % len(jpegs)]}])
+        n = int(b1["prompt_lens"][0])
+        reqs.append(Request(input_ids=b1["input_ids"][0, :n],
+                            pixel_values=b1["pixel_values"][0, 0],
+                            image_positions=b1["image_positions"][0], max_new_tokens=32))
+    return reqs
+
+
+def ckpt_serve(model, proc, args, loader, http: bool) -> tuple:
+    """build_server over `model` (which applies --quantize in place); with
+    `http` the 8 requests over /generate and their kernel launch counts;
+    then, the scheduler stopped, the engine's greedy tokens for them in
+    batch mode (a fixed admission order). Returns (tokens, launches)."""
+    from vlrlhf_torch.cli.main import build_server
+    from vlrlhf_torch.ops.chunk_attention import chunk_attention
+    from vlrlhf_torch.ops.decode_attention import decode_attention
+    from vlrlhf_torch.ops.flash_attention import flash_attention
+    from vlrlhf_torch.ops.int4 import int4_matmul
+
+    counted = {"flash_fwd": flash_attention, "decode_attention": decode_attention,
+               "chunk_attention": chunk_attention, "int4_matmul": int4_matmul}
+    httpd, srv = build_server(model.cfg, model, proc, args, loader)
+    launches = None
+    thread = None
+    try:
+        if http:
+            thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+            thread.start()
+            url = f"http://127.0.0.1:{httpd.server_address[1]}/generate"
+            jpegs = fixture_jpegs()
+            bodies = [{"question": q, "image": jpegs[j % len(jpegs)], "max_new_tokens": 32}
+                      for j, q in enumerate(CKPT_QUESTIONS)]
+            for fn in counted.values():
+                fn.launches = 0
+            results = post_concurrently(url, bodies)
+            launches = {k: fn.launches for k, fn in counted.items() if fn.launches}
+            if not all(r["tokens"] > 0 for r in results):
+                raise AssertionError(f"an empty response: {results}")
+    finally:
+        if thread is not None:
+            httpd.shutdown()
+            thread.join(timeout=60)
+        httpd.server_close()
+        srv.stop()
+    if thread is not None and thread.is_alive():
+        raise AssertionError("the HTTP thread did not stop")
+    tokens = srv.engine.run(ckpt_requests(proc, loader),
+                            torch.Generator(device=model.device).manual_seed(0))
+    del srv
+    return [list(map(int, t)) for t in tokens], launches
+
+
+def ckpt_import(args) -> tuple:
+    """load_bundle (the CLI's loader) with the card's peak memory during the
+    import over what was allocated before it. Returns (bundle, ms, peak
+    bytes over the baseline, resident bytes of the model)."""
+    from vlrlhf_torch.cli.main import load_bundle
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = load_bundle(args, torch.device("cuda"))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - before
+    resident = sum(t.numel() * t.element_size() for t in bundle[2].state_dict().values())
+    return bundle, ms, peak, resident
+
+
+def same_state(a, b, what: str) -> None:
+    sa, sb = a.state_dict(), b.state_dict()
+    bad = [k for k in sa if k not in sb or sa[k].dtype != sb[k].dtype or
+           not torch.equal(sa[k], sb[k])]
+    if bad or sa.keys() != sb.keys():
+        raise AssertionError(f"{what}: {len(bad)} tensors differ, e.g. {bad[:4]}")
+
+
+def same_tokens(got: list, want: list, what: str) -> None:
+    same = sum(g == w for g, w in zip(got, want))
+    print(f"phase 9 {what}: greedy tokens {same}/{len(want)} requests identical", flush=True)
+    if same != len(want):
+        raise AssertionError(f"{what}: tokens differ: {got} vs {want}")
+
+
+def ckpt_dpo(args, loader, counted: dict) -> tuple:
+    """`dpo` from a checkpoint and a dataset through the CLI's functions
+    (load_rows, load_bundle, build_dpo, train_dpo, finish_dpo): the step
+    metrics, the launch counts and the run; the JPEGs through `loader`."""
+    from vlrlhf_torch.cli.main import build_dpo, finish_dpo, load_bundle, load_rows, train_dpo
+    from vlrlhf_torch.train.metrics import MetricsLogger
+
+    rows = load_rows(args)
+    _, cfg, model, proc = load_bundle(args, torch.device("cuda"))
+    run = build_dpo(cfg, model, proc, args, rows, loader)
+    logger = MetricsLogger(args.output_dir, "dpo", flops_per_token=run.flops_per_token,
+                           flops_per_image=run.flops_per_image)
+    for fn in counted.values():
+        fn.launches = 0
+    try:
+        train_dpo(run, proc, args, logger)
+    finally:
+        logger.close()
+    launches = {k: fn.launches for k, fn in counted.items() if fn.launches}
+    finish_dpo(run, args)
+    with open(os.path.join(args.output_dir, "dpo_metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    losses = [m["loss"] for m in metrics if "loss" in m]
+    if len(losses) != args.max_steps or abs(losses[0] - math.log(2.0)) > 1e-3 or \
+            not all(np.isfinite(v) for m in metrics for v in m.values() if isinstance(v, float)):
+        raise AssertionError(f"dpo from the checkpoint: step-1 loss {losses} is not ln 2 within "
+                             f"1e-3 or a metric is not finite: {metrics}")
+    return run, losses, launches
+
+
+def phase_checkpoint(dpo_ms: float) -> dict:
+    """Phase 9: a full-width, full-depth LLaVA-1.5-7B checkpoint written to
+    disk (seeded random weights through utils/hf_export.py, the published
+    llava-hf/llava-1.5-7b-hf config.json, the seeded llama tokenizer.json)
+    and read back through the CLI's loader: served bf16, int8 (speculative,
+    int8 KV) and int4, each quantized while it streams in, against the same
+    weights built in memory (and quantized after); DPO from a plain_dpo
+    dataset of the JPEG fixtures; then at 2 LM / 2 tower layers QLoRA int4
+    DPO, eval mmvet with the checkpoint as its judge, and merge
+    --export_format hf reloaded. Returns the kernel launch counts by path."""
+    import dataclasses
+    import shutil
+
+    from vlrlhf_torch.cli.loading import make_processor as bundle_processor
+    from vlrlhf_torch.cli.main import build_eval, build_parser, load_judge, main as cli, run_eval
+    from vlrlhf_torch.data.tokenizer import JsonTokenizer
+    from vlrlhf_torch.eval.judge import EngineJudge
+    from vlrlhf_torch.models.common import init_random_
+    from vlrlhf_torch.models.config import FAMILIES, _llava_7b
+    from vlrlhf_torch.models.vlm import VLM
+    from vlrlhf_torch.ops.flash_attention import flash_attention, flash_bwd_dkv, flash_bwd_dq
+    from vlrlhf_torch.ops.int4 import int4_matmul, int4_matmul_t
+    from vlrlhf_torch.ops.decode_attention import decode_attention
+    from vlrlhf_torch.train.checkpoint import load_params
+    from vlrlhf_torch.train.dpo import batch_to_device
+    from vlrlhf_torch.utils.synthetic_checkpoint import (
+        LLAVA_15_7B_CONFIG, write_llava_checkpoint,
+    )
+
+    loader, imgs_per_s = phase9_image_loader()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"phase9-{os.getpid()}")
+    full = os.path.join(root, "llava-1.5-7b")
+    launches: dict = {}
+    train_counted = {"flash_fwd": flash_attention, "flash_bwd_dkv": flash_bwd_dkv,
+                     "flash_bwd_dq": flash_bwd_dq, "int4_matmul": int4_matmul,
+                     "int4_matmul_t": int4_matmul_t}
+
+    def serve_ns(**kw):
+        return serve_args(model_name_or_path=full, bf16=True, device="cuda", adapter=None, **kw)
+
+    try:
+        cfg = _llava_7b(torch.bfloat16)
+
+        def in_memory():
+            m = VLM(cfg, "cuda")
+            return init_random_(m, torch.Generator(device="cuda").manual_seed(0))
+
+        model = in_memory()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbytes = write_llava_checkpoint(full, model.state_dict(), cfg, config=LLAVA_15_7B_CONFIG)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        print(f"phase 9 checkpoint: {nbytes} bytes ({nbytes / 1e9:.3f} GB) of model.safetensors "
+              f"written in {write_ms:.1f} ms ({nbytes / write_ms / 1e6:.3f} GB/s), the published "
+              f"llava-1.5-7b-hf config.json, a {JsonTokenizer(full).vocab_size}-token "
+              f"tokenizer.json", flush=True)
+        proc = bundle_processor(FAMILIES["llava"], JsonTokenizer(full), cfg,
+                                max_length=992, max_prompt_length=512)
+        want_bf16, _ = ckpt_serve(model, proc, serve_ns(), loader, http=False)
+
+        # bf16: the import against the same weights in memory
+        layer = sum(t.numel() * t.element_size() for t in model.lm.layers[0].state_dict().values())
+
+        def check_peak(what, peak, resident):
+            print(f"phase 9 import {what}: peak {peak / 2**30:.3f} GiB over "
+                  f"{resident / 2**30:.3f} GiB resident, +{(peak - resident) / 2**20:.1f} MiB "
+                  f"(one LM layer is {layer / 2**20:.1f} MiB)", flush=True)
+            if peak - resident > layer:
+                raise AssertionError(f"the {what} import held more than a layer beyond the model")
+
+        bundle, ms, peak, resident = ckpt_import(serve_ns())
+        imported = bundle[2]
+        same_state(imported, model, "bf16 import vs the in-memory model")
+        print(f"phase 9 import bf16: {ms:.1f} ms, {nbytes / ms / 1e6:.3f} GB/s", flush=True)
+        check_peak("bf16", peak, resident)
+        got, launches["ckpt_serve"] = ckpt_serve(imported, bundle[3], serve_ns(), loader, True)
+        same_tokens(got, want_bf16, "bf16 serve from the checkpoint vs in memory")
+        del bundle, imported
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        for bits, kw in ((8, dict(quantize="int8", kv_cache_dtype="int8", speculative_k=3)),
+                         (4, dict(quantize="int4"))):
+            if bits == 4:
+                model = in_memory()
+            want, _ = ckpt_serve(model, proc, serve_ns(**kw), loader, http=False)  # after
+            bundle, ms, peak, resident = ckpt_import(serve_ns(**kw))  # during
+            same_state(bundle[2], model, f"int{bits} import vs quantizing after")
+            print(f"phase 9 import int{bits} (quantized on the host while streaming): {ms:.1f} "
+                  f"ms, {nbytes / ms / 1e6:.3f} GB/s of checkpoint", flush=True)
+            check_peak(f"int{bits}", peak, resident)
+            got, launches[f"ckpt_serve_int{bits}"] = ckpt_serve(bundle[2], bundle[3],
+                                                               serve_ns(**kw), loader, True)
+            same_tokens(got, want, f"int{bits} serve, quantized during the import vs after")
+            del bundle, model
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # DPO from a plain_dpo dataset over the JPEG fixtures
+        jpegs = [os.path.basename(p) for p in fixture_jpegs()]
+        data = os.path.join(root, "pairs.json")
+        with open(data, "w") as f:
+            json.dump([{"prompt": f"question {i}: what is shown in the image?",
+                        "image": jpegs[i % len(jpegs)],
+                        "chosen": f"a dog is sitting on the table {i}",
+                        "rejected": f"a red car in the street {i}"} for i in range(4)], f)
+        dargs = build_parser().parse_args([
+            "dpo", "--device", "cuda", "--model_name_or_path", full, "--dataset_name",
+            "plain_dpo", "--data_path", data, "--image_root", FIXTURES, "--max_steps", "2",
+            "--per_device_train_batch_size", "1", "--logging_steps", "1", "--output_dir",
+            os.path.join(root, "dpo"), "--remat_policy", "attn"])
+        run, losses, launches["ckpt_dpo"] = ckpt_dpo(dargs, loader, train_counted)
+        batch = batch_to_device(run.collator([run.tokenize_fn(r) for r in run.rows[:1]]), "cuda")
+        step_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run.step(batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"phase 9 dpo from the checkpoint (plain_dpo, 4 pairs of the JPEG fixtures, "
+              f"{batch['input_ids'].shape[1]}-token rows): losses {losses}; step ms "
+              f"{[round(x, 3) for x in step_ms]} (phase 6's 1024-token step {dpo_ms:.3f}); "
+              f"launches {json.dumps(launches['ckpt_dpo'])}", flush=True)
+        del run, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # reduced depth, full widths: 2 LM / 2 tower layers
+        small = os.path.join(root, "llava-1.5-7b-2layers")
+        scfg = dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, num_layers=2),
+                                   vision=dataclasses.replace(cfg.vision, num_layers=2))
+        conf = json.loads(json.dumps(LLAVA_15_7B_CONFIG))
+        conf["text_config"]["num_hidden_layers"] = conf["vision_config"]["num_hidden_layers"] = 2
+        smodel = init_random_(VLM(scfg, "cuda"), torch.Generator(device="cuda").manual_seed(1))
+        write_llava_checkpoint(small, smodel.state_dict(), scfg, config=conf)
+        del smodel
+        qargs = build_parser().parse_args([
+            "dpo", "--device", "cuda", "--model_name_or_path", small, "--dataset_name",
+            "plain_dpo", "--data_path", data, "--image_root", FIXTURES, "--max_steps", "2",
+            "--per_device_train_batch_size", "1", "--logging_steps", "1", "--output_dir",
+            os.path.join(root, "qlora"), "--q_lora", "true", "--bits", "4", "--lora_dropout",
+            "0"])
+        run, qlosses, launches["ckpt_qlora4"] = ckpt_dpo(qargs, loader, train_counted)
+        n4 = sum(1 for m in run.model.modules() if getattr(m, "weight_q4", None) is not None)
+        print(f"phase 9 QLoRA int4 dpo from the 2-layer checkpoint ({n4} int4 linears): losses "
+              f"{qlosses}; launches {json.dumps(launches['ckpt_qlora4'])}", flush=True)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        mmvet = os.path.join(root, "mmvet.json")
+        with open(mmvet, "w") as f:
+            json.dump({f"v{i}": {"imagename": jpegs[i % len(jpegs)],
+                                 "question": f"what is shown in picture {i}?",
+                                 "answer": ["a dog", "a red car", ""][i % 3]}
+                       for i in range(6)}, f)
+        eargs = build_parser().parse_args([
+            "eval", "--device", "cuda", "--model_name_or_path", small, "--judge_model_path",
+            small, "--benchmark", "mmvet", "--data_file", mmvet, "--image_root", FIXTURES,
+            "--output_dir", os.path.join(root, "eval"), "--max_new_tokens", "16"])
+        graded: list = []
+        grade = EngineJudge.grade
+
+        def counting_grade(self, rows):
+            graded.append(len(rows))
+            return grade(self, rows)
+
+        EngineJudge.grade = counting_grade
+        try:
+            from vlrlhf_torch.cli.main import load_bundle
+
+            _, ecfg, emodel, eproc = load_bundle(eargs, torch.device("cuda"))
+            eval_counted = {"flash_fwd": flash_attention, "decode_attention": decode_attention}
+            for fn in eval_counted.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            metrics = run_eval(build_eval(ecfg, emodel, eproc, eargs, loader), eargs,
+                               progress=False, judge=load_judge(eargs, torch.device("cuda")))
+            eval_s = time.perf_counter() - t0
+        finally:
+            EngineJudge.grade = grade
+        launches["ckpt_eval"] = {k: fn.launches for k, fn in eval_counted.items()}
+        if graded != [4]:
+            raise AssertionError(f"the judge graded {graded}, want the 4 rows with an answer")
+        print(f"phase 9 eval mmvet (2-layer checkpoint, the same checkpoint as its judge): "
+              f"{metrics} in {eval_s:.3f} s, the judge's LM graded {graded[0]} rows", flush=True)
+        del emodel
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        merged = os.path.join(root, "merge")
+        cli(["merge", "--device", "cuda", "--model_name_or_path", small, "--adapter_path",
+             os.path.join(root, "qlora", "adapters"), "--output_dir", merged])
+        from vlrlhf_torch.cli.loading import load_model_bundle
+        from vlrlhf_torch.lora.lora import merge_lora, set_adapters_
+
+        _, _, base, _ = load_model_bundle(small, device="cuda")
+        set_adapters_(base, load_params(os.path.join(root, "qlora", "adapters")))
+        state = merge_lora(base, 16.0 / 64)
+        set_adapters_(base, None)
+        base.load_state_dict(state)
+        _, _, back, bproc = load_model_bundle(os.path.join(merged, "merged_hf"), device="cuda")
+        same_state(back, base, "merge --export_format hf reloaded vs merged in memory")
+        reqs = ckpt_requests(bproc, loader)[:2]
+        ids = torch.as_tensor(np.stack([r.input_ids[:64] for r in reqs])).cuda()
+        px = torch.as_tensor(np.stack([r.pixel_values for r in reqs]))[:, None].cuda()
+        pos = torch.as_tensor(np.stack([r.image_positions for r in reqs])).cuda()
+        pos = torch.where(pos < 64, pos, torch.full_like(pos, -1))
+        with torch.inference_mode():
+            logits = [m.head(m(ids, px, pos, torch.ones_like(ids, dtype=torch.bool))[0])
+                      for m in (back, base)]
+        if not torch.equal(logits[0], logits[1]) or not torch.isfinite(logits[0]).all():
+            raise AssertionError("the reloaded merge's logits differ from the merged model's")
+        print(f"phase 9 merge --export_format hf: {len(state)} merged tensors reloaded "
+              f"bit-equal; logits on 2 x 64 tokens identical", flush=True)
+        del base, back, state
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase 9 launches {json.dumps(launches)}; load_batch images/s "
+          f"{'not measured' if imgs_per_s is None else round(imgs_per_s, 1)}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2686,10 +3111,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     eval_launches, adapter_launches = phase_eval()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt_launches = phase_checkpoint(dpo_stats["median_ms"])
     runs = {"serve": serve_launches, "serve_int8_spec": spec_launches, "chat_int8": chat_launches,
             "serve_int4": int4_launches, "dpo": dpo_launches, "dpo_qlora4": qlora_launches,
             "dpo_trainer": trainer_launches, "eval": eval_launches,
-            "serve_adapters": adapter_launches}
+            "serve_adapters": adapter_launches, **ckpt_launches}
     names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention", "chunk_attention",
              "int4_matmul", "int4_matmul_t")
     by_path = {name: {path: counts[name] for path, counts in runs.items() if name in counts}
@@ -2725,6 +3153,16 @@ def main() -> int:
             by_path["int4_matmul_t"].get("dpo_qlora4", 0) <= 0:
         raise AssertionError(f"int4 kernels must run in the int4 serve and the QLoRA step: "
                              f"{by_path['int4_matmul']} {by_path['int4_matmul_t']}")
+    want9 = {"ckpt_serve": ("flash_fwd", "decode_attention"),
+             "ckpt_serve_int8": ("flash_fwd", "chunk_attention"),
+             "ckpt_serve_int4": ("flash_fwd", "decode_attention", "int4_matmul"),
+             "ckpt_dpo": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
+             "ckpt_qlora4": ("int4_matmul", "int4_matmul_t"),
+             "ckpt_eval": ("flash_fwd", "decode_attention")}
+    missing9 = [(path, name) for path, names in want9.items() for name in names
+                if by_path[name].get(path, 0) <= 0]
+    if missing9:
+        raise AssertionError(f"phase 9 paths that did not launch their kernels: {missing9}")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],

@@ -377,3 +377,40 @@ def test_run_vqa_continuous_and_speculative_paths_match_static(runners, adapters
         got = runner.run_vqa(rows, batch_size=2)
         assert [r["response"] for r in got] == [r["response"] for r in static], kw
     assert runner._gen.verify_calls >= 1
+
+
+def test_run_vqa_ppl_with_adapters_matches_jax_merge_oracle(runners):
+    """CE ranking with adapters: the port's EvalRunner.ce runs the adapted
+    model (Ctx(adapters=True)); vlrlhf_tpu's `_ce` leaves its adapters out
+    (eval/harness.py:171-195), so the oracle is built from its own pieces:
+    its merge_lora, then its run_vqa_ppl on the merged params (the method
+    of tests/test_torch_dpo_eval.py's tower-adapter oracles). ppl within
+    PPL_RTOL, and the adapters must move it."""
+    import dataclasses
+
+    import jax
+
+    from tests.test_multilora import _sets
+    from vlrlhf_tpu.lora.lora import merge_lora
+    from vlrlhf_torch.lora.lora import set_adapters_
+    from vlrlhf_torch.utils.bridge import load_lora_params
+
+    tr, jr = runners
+    rows = [{"question": q, "answer": a, "img": img} for q, a, img in (
+        ("is there a dog?", "yes", "a.png"), ("what color is the sky w3?", "blue w9", None),
+        ("describe the picture", "a cat on a mat", "b.png"), ("count: a, b, c!", "three", None))]
+    sets, lcfg = _sets(jr.params)
+    adapters = {"lm": jax.device_get(sets[1]["lm"])}
+    load_lora_params(tr.model, adapters)
+    try:
+        got = dataclasses.replace(tr, adapters=True, lora_scale=lcfg.scale).run_vqa_ppl(
+            rows, batch_size=2)
+        base = tr.run_vqa_ppl(rows, batch_size=2)
+    finally:
+        set_adapters_(tr.model, None)
+    want = dataclasses.replace(jr, params=merge_lora(jr.params, adapters, lcfg.scale)) \
+        .run_vqa_ppl(rows, batch_size=2)
+    assert [{k: v for k, v in r.items() if k != "ppl"} for r in got] == \
+        [{k: v for k, v in r.items() if k != "ppl"} for r in want]
+    np.testing.assert_allclose([r["ppl"] for r in got], [r["ppl"] for r in want], rtol=PPL_RTOL)
+    assert max(abs(g["ppl"] - b["ppl"]) / b["ppl"] for g, b in zip(got, base)) > 100 * PPL_RTOL

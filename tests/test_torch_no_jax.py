@@ -1,6 +1,7 @@
 """The port must run where JAX is absent: no module of vlrlhf_torch (nor
 chip_smoke.py) imports jax or vlrlhf_tpu, every module imports with jax
-blocked, and chip_smoke.py refuses to run without a CUDA device."""
+(and pandas, PIL and the HF packages) blocked, and chip_smoke.py refuses
+to run without a CUDA device."""
 
 import pathlib
 import re
@@ -62,24 +63,33 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
     assert '"ok": true' not in out.stdout
 
 
+BLOCKED = ("jax", "vlrlhf_tpu", "pandas", "PIL", "transformers", "tokenizers", "safetensors",
+           "datasets")
+
+
 def test_every_module_imports_without_pandas_or_pil():
-    """The card machine has neither pandas nor PIL: every module of the
-    port (the eval harness, speculative decoding and multi-adapter
-    serving among them) imports with both blocked, and none is pulled in."""
+    """The port leans on no package the card machine may lack: every module
+    (the eval harness, speculative decoding, multi-adapter serving, the
+    checkpoint import and export, the tokenizer and the dataset builders
+    among them) imports with pandas, PIL, transformers, tokenizers,
+    safetensors and HF datasets blocked, and none is pulled in."""
     mods = list(_modules())
     for new in ("vlrlhf_torch.eval.harness", "vlrlhf_torch.eval.benchmarks",
                 "vlrlhf_torch.eval.datasets", "vlrlhf_torch.eval.db", "vlrlhf_torch.eval.judge",
                 "vlrlhf_torch.eval.scorers", "vlrlhf_torch.eval.xlsx",
-                "vlrlhf_torch.generate.speculative"):
+                "vlrlhf_torch.generate.speculative", "vlrlhf_torch.utils.hf_port",
+                "vlrlhf_torch.utils.hf_export", "vlrlhf_torch.utils.safetensors_io",
+                "vlrlhf_torch.utils.synthetic_checkpoint", "vlrlhf_torch.cli.loading",
+                "vlrlhf_torch.data.native_image", "vlrlhf_torch.data.datasets"):
         assert new in mods, new
     code = (
         "import sys\n"
-        "for name in ('jax', 'vlrlhf_tpu', 'pandas', 'PIL'):\n"
+        f"for name in {BLOCKED!r}:\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert not any(k.split('.')[0] in ('jax', 'vlrlhf_tpu', 'pandas', 'PIL')\n"
+        f"assert not any(k.split('.')[0] in {BLOCKED!r}\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
     )

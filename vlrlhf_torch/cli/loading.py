@@ -1,0 +1,152 @@
+"""Model bundle loading: an HF checkpoint directory -> (family, config,
+model, processor), the llava part of vlrlhf_tpu/cli/loading.py
+(`config_from_hf`, `load_model_bundle`).
+
+config.json gives the family (`architectures[0]`, models/config.py
+`resolve_family`) and the geometry. A key the config leaves out takes the
+default of the transformers config class that reads it (LlamaConfig for
+text_config, CLIPVisionConfig for vision_config), as `from_pretrained`
+would: llava-hf's published configs write only the keys that differ. The
+weights stream from the checkpoint into a model built on the meta device
+(utils/hf_port.py), quantized on the way when asked, and the processor runs
+on the checkpoint's tokenizer.json (data/tokenizer.py JsonTokenizer). A
+family vlrlhf_tpu has and the port does not yet (llava_next, qwen_vl,
+instructblip, internlm_xc2) is refused by name.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Optional, Sequence
+
+import torch
+
+from vlrlhf_torch.models.config import (
+    LMConfig, ModelFamily, ProjectorConfig, ViTConfig, VLMConfig, resolve_family,
+)
+
+# transformers' LlamaConfig and CLIPVisionConfig defaults (the keys read here)
+LLAMA_DEFAULTS = dict(
+    vocab_size=32000, hidden_size=4096, intermediate_size=11008, num_hidden_layers=32,
+    num_attention_heads=32, rope_theta=10000.0, max_position_embeddings=2048,
+    rms_norm_eps=1e-6,
+)
+CLIP_VISION_DEFAULTS = dict(
+    hidden_size=768, intermediate_size=3072, num_hidden_layers=12, num_attention_heads=12,
+    image_size=224, patch_size=32, hidden_act="quick_gelu", layer_norm_eps=1e-5,
+)
+
+
+def _llama_lm_from_hf(tc: dict, dtype) -> LMConfig:
+    tc = {**LLAMA_DEFAULTS, **tc}
+    if tc.get("rope_scaling"):
+        raise ValueError(f"text_config rope_scaling {tc['rope_scaling']} is not ported")
+    head_dim = tc.get("head_dim") or 0
+    if head_dim == tc["hidden_size"] // tc["num_attention_heads"]:
+        head_dim = 0  # the LMConfig default: hidden_size // num_heads
+    return LMConfig(
+        vocab_size=tc["vocab_size"],
+        hidden_size=tc["hidden_size"],
+        intermediate_size=tc["intermediate_size"],
+        num_layers=tc["num_hidden_layers"],
+        num_heads=tc["num_attention_heads"],
+        num_kv_heads=tc.get("num_key_value_heads") or tc["num_attention_heads"],
+        head_dim=head_dim,
+        rope_base=tc["rope_theta"],
+        max_position_embeddings=tc["max_position_embeddings"],
+        rms_eps=tc["rms_norm_eps"],
+        tie_embeddings=bool(tc.get("tie_word_embeddings", False)),
+        dtype=dtype,
+    )
+
+
+def _clip_vit_from_hf(vc: dict, dtype, feature_layer: int = -2) -> ViTConfig:
+    vc = {**CLIP_VISION_DEFAULTS, **vc}
+    return ViTConfig(
+        image_size=vc["image_size"],
+        patch_size=vc["patch_size"],
+        hidden_size=vc["hidden_size"],
+        num_layers=vc["num_hidden_layers"],
+        num_heads=vc["num_attention_heads"],
+        mlp_dim=vc["intermediate_size"],
+        act=vc["hidden_act"],
+        feature_layer=feature_layer,
+        drop_class_token=True,
+        ln_eps=vc["layer_norm_eps"],
+        dtype=dtype,
+    )
+
+
+def config_from_hf(hf: dict, dtype=torch.bfloat16) -> tuple[ModelFamily, VLMConfig]:
+    """The family and VLMConfig of an HF config.json (llava only)."""
+    arch = hf["architectures"][0]
+    tc = hf.get("text_config") or {}
+    family = resolve_family(arch, tc.get("_name_or_path", "") or tc.get("model_type", ""))
+    if tc.get("model_type", "llama") != "llama":
+        raise ValueError(f"llava text model {tc['model_type']!r} is not ported "
+                         "(ROADMAP.md §1 item 9)")
+    if hf.get("vision_feature_select_strategy", "default") != "default":
+        raise ValueError("vision_feature_select_strategy "
+                         f"{hf['vision_feature_select_strategy']!r} is not ported (only "
+                         "'default', which drops the class token)")
+    vc = {**CLIP_VISION_DEFAULTS, **(hf.get("vision_config") or {})}
+    cfg = VLMConfig(
+        lm=_llama_lm_from_hf(tc, dtype),
+        vision=_clip_vit_from_hf(vc, dtype, feature_layer=hf.get("vision_feature_layer", -2)),
+        projector=ProjectorConfig(kind="mlp2x_gelu", in_dim=vc["hidden_size"],
+                                  out_dim={**LLAMA_DEFAULTS, **tc}["hidden_size"]),
+        image_token_id=hf.get("image_token_index", 32000),
+        num_image_tokens=(vc["image_size"] // vc["patch_size"]) ** 2,
+        family=family.name,
+    )
+    return family, cfg
+
+
+def make_processor(family: ModelFamily, tokenizer, cfg: VLMConfig, **overrides):
+    """The family's VLProcessor over `tokenizer`, its placeholder count and
+    id taken from the checkpoint's config (vlrlhf_tpu keeps the family
+    defaults, which are LLaVA-1.5-7B's: 576 tokens, id 32000)."""
+    from vlrlhf_torch.data.processor import ProcessorConfig, VLProcessor
+
+    pcfg = ProcessorConfig(**{**family.processor_defaults,
+                              "num_image_tokens": cfg.num_image_tokens,
+                              "image_token_id": cfg.image_token_id, **overrides})
+    return VLProcessor(tokenizer, family.template, pcfg)
+
+
+def load_model_bundle(
+    path: str,
+    dtype=torch.bfloat16,
+    max_length: int = 1024,
+    max_prompt_length: int = 512,
+    quantize_patterns: Optional[Sequence[str]] = None,
+    quantize_bits: int = 8,
+    device="cuda",
+    remat_policy: str = "",
+):
+    """Config, weights, tokenizer and processor of a checkpoint directory,
+    the model on `device`. quantize_patterns (ops/quant.py pattern tuples)
+    quantizes the matching linears to int8 or, with quantize_bits=4, int4
+    while they stream in, so the device never holds their bf16 weights
+    (the same codes as quantizing after the load: tests/
+    test_torch_hf_import.py). remat_policy ('' keeps the default) sets the
+    LM's training remat policy."""
+    import dataclasses
+
+    from vlrlhf_torch.data.tokenizer import JsonTokenizer
+    from vlrlhf_torch.models.vlm import VLM
+    from vlrlhf_torch.utils.hf_port import PORTERS, open_hf_state_dict
+
+    with open(os.path.join(path, "config.json")) as f:
+        hf = json.load(f)
+    family, cfg = config_from_hf(hf, dtype)
+    if remat_policy:
+        cfg = dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, remat_policy=remat_policy))
+    tokenizer = JsonTokenizer(path)  # before the weights: a refusal costs no load
+    model = VLM(cfg, device="meta")
+    PORTERS[family.name](open_hf_state_dict(path), model, device,
+                         quantize=quantize_patterns or (), bits=quantize_bits)
+    processor = make_processor(family, tokenizer, cfg, max_length=max_length,
+                               max_prompt_length=max_prompt_length)
+    return family, cfg, model, processor

@@ -1,5 +1,11 @@
-"""CLI: `python -m vlrlhf_torch.cli.main serve|dpo|eval` (counterpart of
-vlrlhf_tpu's `vlrlhf serve`, `vlrlhf dpo` and `vlrlhf eval`, cli/main.py).
+"""CLI: `python -m vlrlhf_torch.cli.main serve|dpo|eval|merge` (counterpart of
+vlrlhf_tpu's `vlrlhf serve`, `dpo`, `eval` and `merge`, cli/main.py).
+
+Weights come from an HF LLaVA checkpoint directory (--model_name_or_path:
+safetensors or pytorch_model*.bin, config.json, tokenizer.json;
+cli/loading.py), quantized while they stream in when the run quantizes
+anyway (--quantize, --q_lora), or, with --synthetic N, from a scaled-down
+family model with seeded random weights and the ToyTokenizer.
 
 serve: the continuous-batching engine behind an HTTP endpoint on one device,
 with int8 or int4 weights (--quantize), the fused qkv / gate-up layout
@@ -14,7 +20,12 @@ mmvet, mmmu, mathvista, pope, vqa) over --data_file: static batches,
 against a `serve` daemon over HTTP (no model here). It writes
 <output_dir>/<benchmark>.json, its .xlsx twin and, with --sqlite_db, one
 row of metrics.
-dpo: LoRA DPO training on one device, over a frozen int8 or int4 base with
+eval --judge_model_path loads a second checkpoint as the LLM judge (its LM
+only), wrapped in eval.judge.EngineJudge.
+dpo: LoRA DPO training on one device on a dataset (--dataset_name
+plain_dpo | vlfeedback_paired | vlquery_json | rlhfv over a local
+--data_path .json / .jsonl, --image_root, --data_ratio, --score_margin;
+data/datasets.py), over a frozen int8 or int4 base with
 --q_lora true --bits {8,4}, with any remat policy (--remat_policy), an
 unfrozen vision tower (--freeze_vision_tower false) and LoRA targets in the
 tower (--lora_target_modules), a holdout eval pass with greedy policy and
@@ -23,13 +34,18 @@ checkpoints and resume (--save_steps, --resume_from_checkpoint) and a
 merged save (--merge_adapter_after_training). It writes
 <output_dir>/dpo_metrics.jsonl, checkpoints/<step>/, adapters/,
 merged/ and dpo_samples.jsonl, in the port's own format
-(train/checkpoint.py), not vlrlhf_tpu's orbax.
+(train/checkpoint.py), not vlrlhf_tpu's orbax, and, from a checkpoint,
+merged_hf/: the merged weights as an HF checkpoint (utils/hf_export.py).
+merge: --adapter_path (a dpo run's adapters/) folded into the checkpoint's
+weights; writes <output_dir>/merged and, with --export_format hf,
+<output_dir>/merged_hf.
 
 Flag names follow vlrlhf_tpu's. Differences: `--device` names the device
 explicitly (default cuda; an absent device is an error, never a silent CPU
-run), and without a checkpoint importer yet, `--synthetic N` is the only
-way to get weights: a scaled-down family model with seeded random weights
-and the ToyTokenizer (for dpo also N synthetic preference pairs). Its
+run). Images are JPEGs decoded by the native loader (data/native_image.py;
+no PIL). --synthetic N gives a scaled-down family model with seeded random
+weights and the ToyTokenizer (for dpo also N synthetic preference pairs,
+for every path all-zero images). Its
 widths (hidden 32, intermediate 64) are no multiple of 128, so
 --quantize int4 and --q_lora --bits 4 quantize every selected linear to
 int8 there, as vlrlhf_tpu does (ops/quant.py). A flag of
@@ -37,12 +53,11 @@ vlrlhf_tpu's dpo that the port does not honour yet is refused with an
 error, never ignored. As in vlrlhf_tpu, --use_lora false still trains
 LoRA adapters: it only turns LoRA dropout off and counts 6N training FLOPs.
 
+`load_bundle` / `load_rows` give the model and the dataset rows;
 `build_server` / `build_dpo` / `build_eval` are the bodies of serve / dpo /
 eval minus argument parsing and the loop; `train_dpo` is the loop with its
-eval, checkpoint and resume, `finish_dpo` the final saves, `run_eval` the
-benchmark run. chip_smoke.py drives the same functions. --judge_model_path
-(eval's LLM judge) is refused until checkpoint import lands: the judge is
-a checkpoint.
+eval, checkpoint and resume, `finish_dpo` the final saves, `load_judge` and
+`run_eval` the benchmark run. chip_smoke.py drives the same functions.
 """
 
 from __future__ import annotations
@@ -103,6 +118,46 @@ def synthetic_bundle(args, device: torch.device):
     return family, cfg, model, processor
 
 
+def load_bundle(args, device: torch.device):
+    """(family, cfg, model, processor): --synthetic N, or the checkpoint at
+    --model_name_or_path (vlrlhf_tpu `_load_bundle`). A run that quantizes
+    anyway quantizes while the weights stream in: --quantize takes the LM
+    and lm_head (with --judge_model_path also the tower and projector, as
+    vlrlhf_tpu plans a co-resident judge), --q_lora the LM's linears (and
+    the tower and projector with --q_lora_vision)."""
+    if args.synthetic:
+        if getattr(args, "model_name_or_path", None):
+            raise SystemExit("--synthetic N builds its own model: drop --model_name_or_path")
+        return synthetic_bundle(args, device)
+    if not getattr(args, "model_name_or_path", None):
+        raise SystemExit("give --model_name_or_path (an HF LLaVA checkpoint directory) or "
+                         "--synthetic N")
+    from vlrlhf_torch.cli.loading import load_model_bundle
+    from vlrlhf_torch.ops import quant
+
+    qbits = QUANT_BITS[str(getattr(args, "quantize", "false")).lower()]
+    qpats = None
+    if qbits:
+        qpats = (quant.SERVE_QUANT_PATTERNS_WIDE if getattr(args, "judge_model_path", None)
+                 else quant.DEFAULT_QUANT_PATTERNS)
+    elif getattr(args, "q_lora", False) and getattr(args, "use_lora", True):
+        qbits = args.bits
+        qpats = (quant.TRAIN_QUANT_PATTERNS_WIDE if getattr(args, "q_lora_vision", False)
+                 else quant.TRAIN_QUANT_PATTERNS)
+    return load_model_bundle(
+        args.model_name_or_path, torch.bfloat16 if args.bf16 else torch.float32,
+        args.max_length, getattr(args, "max_prompt_length", 512), quantize_patterns=qpats,
+        quantize_bits=qbits or 8, device=device, remat_policy=getattr(args, "remat_policy", ""))
+
+
+def image_loader_for(args):
+    """--synthetic runs see all-zero images; a checkpoint run decodes its
+    JPEGs with the collators' default (native) loader."""
+    if args.synthetic:
+        return lambda p, s, m: np.zeros((s, s, 3), np.uint8)
+    return None
+
+
 def with_remat_policy(cfg, policy: str):
     """`cfg` with the LM's remat policy replaced ('' keeps the default)."""
     if not policy:
@@ -121,15 +176,20 @@ def stop_ids(processor, family, synthetic: bool) -> tuple:
     return ids
 
 
-def serving_weights_(model, args) -> None:
-    """--quantize (the LM's linears and lm_head, in place) then
+QUANT_BITS = {"false": 0, "true": 8, "int8": 8, "int4": 4}
+
+
+def serving_weights_(model, args, patterns=None) -> None:
+    """--quantize (`patterns`, default the LM's linears and lm_head, in
+    place; linears quantized during the load are left as they are) then
     --fuse_decode, the order of vlrlhf_tpu/cli/main.py:1216-1227."""
     from vlrlhf_torch.models.lm.fuse import fuse_lm_
     from vlrlhf_torch.ops.quant import DEFAULT_QUANT_PATTERNS, quantize_params
 
-    qbits = {"false": 0, "true": 8, "int8": 8, "int4": 4}[str(args.quantize).lower()]
+    patterns = patterns or DEFAULT_QUANT_PATTERNS
+    qbits = QUANT_BITS[str(args.quantize).lower()]
     if qbits:
-        quantize_params(model, DEFAULT_QUANT_PATTERNS, bits=qbits)
+        quantize_params(model, patterns, bits=qbits)
     if getattr(args, "fuse_decode", False):
         fuse_lm_(model.lm)
 
@@ -181,7 +241,7 @@ def build_server(cfg, model, processor, args, image_loader=None):
     """Engine + scheduler thread + HTTP front-end for `model`. Returns
     (httpd, server); the caller runs httpd.serve_forever() (or serves from
     a thread) and stops both. `image_loader(path, size, mode)` replaces
-    the PIL loader (synthetic runs map paths to seeded arrays). With
+    the native JPEG loader (synthetic runs map paths to seeded arrays). With
     --quantize the LM's linears are quantized in place first
     (vlrlhf_tpu/cli/main.py:1216-1227). --adapter sets are served by name
     (the "adapter" field of /generate), and /score runs the base model's
@@ -230,16 +290,10 @@ def build_server(cfg, model, processor, args, image_loader=None):
 
 def cmd_serve(args):
     device = resolve_device(args.device)
-    if not args.synthetic:
-        raise SystemExit(
-            "checkpoint import is not ported yet: run with --synthetic N "
-            "(random weights) until utils/hf_port.py has its port"
-        )
-    family, cfg, model, processor = synthetic_bundle(args, device)
-    image_loader = lambda p, s, m: np.zeros((s, s, 3), np.uint8)  # noqa: E731
-    httpd, srv = build_server(cfg, model, processor, args, image_loader)
+    family, cfg, model, processor = load_bundle(args, device)
+    httpd, srv = build_server(cfg, model, processor, args, image_loader_for(args))
     print(
-        f"serving {args.model_family} on "
+        f"serving {family.name} on "
         f"http://{httpd.server_address[0]}:{httpd.server_address[1]} "
         f"({args.slots} slots, cache_len {srv.engine.cache_len}, quantize {args.quantize}, "
         f"fuse_decode {args.fuse_decode}, "
@@ -252,6 +306,32 @@ def cmd_serve(args):
     finally:
         httpd.server_close()
         srv.stop()
+
+
+def load_rows(args) -> list[dict]:
+    """--dataset_name's builder over --data_path (a local .json / .jsonl)
+    and --image_root; --score_margin for vlfeedback_paired; the first
+    --data_ratio of the rows (vlrlhf_tpu `_load_rows`, cli/main.py:219-240)."""
+    from vlrlhf_torch.data.datasets import DATASET_MAP
+
+    if args.dataset_name not in DATASET_MAP:
+        raise SystemExit(f"--dataset_name {args.dataset_name}: expected one of "
+                         f"{sorted(DATASET_MAP)}")
+    if not args.data_path:
+        raise SystemExit(f"--dataset_name {args.dataset_name} needs --data_path (a local .json "
+                         "or .jsonl file)")
+    kwargs = {"data_path": args.data_path}
+    if args.image_root:
+        kwargs["image_root"] = args.image_root
+    if args.dataset_name == "vlfeedback_paired":
+        kwargs["score_margin"] = args.score_margin
+    try:
+        rows = DATASET_MAP[args.dataset_name](**kwargs)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    if args.data_ratio < 1.0:
+        rows = rows[: int(len(rows) * args.data_ratio)]
+    return rows
 
 
 def synthetic_rows(n: int) -> list[dict]:
@@ -481,40 +561,53 @@ def train_dpo(run: DPORun, processor, args, logger) -> int:
         ckpt.close()
 
 
-def finish_dpo(run: DPORun, args) -> None:
-    """<output_dir>/adapters (the trained adapters by key) and, with
-    --merge_adapter_after_training, <output_dir>/merged: every weight with
-    the adapters folded in, a quantized base dequantized to bf16 first
-    (vlrlhf_tpu `_finish`, cli/main.py:366-397). The HF export of the merged
-    weights waits for the checkpoint importer."""
+def save_merged(model, scale: float, args) -> dict:
+    """<output_dir>/merged: every weight with the adapters folded in, a
+    quantized base dequantized first (in place); from a checkpoint
+    (--model_name_or_path) also <output_dir>/merged_hf, the merged weights
+    as an HF checkpoint beside the source's config and tokenizer files
+    (vlrlhf_tpu `_finish` and `cmd_merge`). Returns the merged state dict."""
     import os
 
     from vlrlhf_torch.lora.lora import merge_lora
+    from vlrlhf_torch.ops.quant import dequantize_params
+    from vlrlhf_torch.train.checkpoint import save_params
+
+    dequantize_params(model, torch.bfloat16 if getattr(args, "bf16", True) else torch.float32)
+    merged = merge_lora(model, scale)
+    save_params(os.path.join(args.output_dir, "merged"), merged)
+    src = getattr(args, "model_name_or_path", None)
+    if src and not args.synthetic and getattr(args, "export_format", "hf") == "hf":
+        from vlrlhf_torch.utils.hf_export import export_hf
+
+        export_hf(merged, model.cfg, model.cfg.family, os.path.join(args.output_dir, "merged_hf"),
+                  base_dir=src, dtype="bfloat16" if args.bf16 else "float32")
+    return merged
+
+
+def finish_dpo(run: DPORun, args) -> None:
+    """<output_dir>/adapters (the trained adapters by key) and, with
+    --merge_adapter_after_training, `save_merged`'s merged (and merged_hf)
+    weights (vlrlhf_tpu `_finish`, cli/main.py:366-397)."""
+    import os
+
     from vlrlhf_torch.train.checkpoint import save_params
 
     save_params(os.path.join(args.output_dir, "adapters"),
                 dict(zip(run.keys, run.state.trainable)))
     if args.merge_adapter_after_training:
-        if getattr(args, "q_lora", False):
-            from vlrlhf_torch.ops.quant import dequantize_params
-
-            dequantize_params(run.model)
-        save_params(os.path.join(args.output_dir, "merged"),
-                    merge_lora(run.model, run.lcfg.scale))
+        save_merged(run.model, run.lcfg.scale, args)
 
 
 def cmd_dpo(args):
     from vlrlhf_torch.train.metrics import MetricsLogger
 
     device = resolve_device(args.device)
-    if not args.synthetic:
-        raise SystemExit(
-            "checkpoint import is not ported yet: run with --synthetic N "
-            "(random weights, N synthetic pairs) until utils/hf_port.py has its port"
-        )
-    family, cfg, model, processor = synthetic_bundle(args, device)
-    image_loader = lambda p, s, m: np.zeros((s, s, 3), np.uint8)  # noqa: E731
-    run = build_dpo(cfg, model, processor, args, synthetic_rows(args.synthetic), image_loader)
+    if args.synthetic and args.data_path:
+        raise SystemExit("--synthetic N makes its own pairs: drop --data_path")
+    rows = synthetic_rows(args.synthetic) if args.synthetic else load_rows(args)
+    family, cfg, model, processor = load_bundle(args, device)
+    run = build_dpo(cfg, model, processor, args, rows, image_loader_for(args))
     logger = MetricsLogger(args.output_dir, args.run_name or "dpo",
                            flops_per_token=run.flops_per_token,
                            flops_per_image=run.flops_per_image)
@@ -529,13 +622,16 @@ def cmd_dpo(args):
 
 def build_eval(cfg, model, processor, args, image_loader=None):
     """The EvalRunner of `eval` for `model`: --quantize / --fuse_decode
-    applied in place, then static, --continuous_batching or
-    --speculative_k generation (vlrlhf_tpu/cli/main.py:1070-1144)."""
+    applied in place (with --judge_model_path the wide pattern set), then
+    static, --continuous_batching or --speculative_k generation
+    (vlrlhf_tpu/cli/main.py:1070-1144)."""
     from vlrlhf_torch.eval.harness import EvalRunner
     from vlrlhf_torch.models.config import FAMILIES
+    from vlrlhf_torch.ops.quant import SERVE_QUANT_PATTERNS_WIDE
 
     family = FAMILIES[cfg.family]
-    serving_weights_(model, args)
+    serving_weights_(model, args,
+                     SERVE_QUANT_PATTERNS_WIDE if getattr(args, "judge_model_path", None) else None)
     return EvalRunner(
         model, processor, generate_config(processor, family, args),
         collator_config(cfg, family, processor, args), image_loader,
@@ -544,7 +640,33 @@ def build_eval(cfg, model, processor, args, image_loader=None):
     )
 
 
-def run_eval(runner, args, progress: bool = True) -> dict:
+def load_judge(args, device: torch.device):
+    """--judge_model_path as an EngineJudge (vlrlhf_tpu/cli/main.py:
+    1150-1190): the checkpoint quantized during its load when the eval
+    model is (--quantize), its tower and projector dropped (judging is
+    text only), 4 greedy tokens per verdict."""
+    from vlrlhf_torch.cli.loading import load_model_bundle
+    from vlrlhf_torch.data.collators import CollatorConfig
+    from vlrlhf_torch.eval.harness import EvalRunner
+    from vlrlhf_torch.eval.judge import EngineJudge
+    from vlrlhf_torch.generate.engine import GenerateConfig
+    from vlrlhf_torch.ops.quant import DEFAULT_QUANT_PATTERNS
+
+    qbits = QUANT_BITS[str(args.quantize).lower()]
+    _, jcfg, jmodel, jproc = load_model_bundle(
+        args.judge_model_path, torch.bfloat16 if args.bf16 else torch.float32, args.max_length,
+        args.max_prompt_length, quantize_patterns=DEFAULT_QUANT_PATTERNS if qbits else None,
+        quantize_bits=qbits or 8, device=device)
+    jmodel.drop_vision_()
+    pad = jproc.tokenizer.pad_token_id or 0
+    return EngineJudge(EvalRunner(
+        jmodel, jproc, GenerateConfig(max_new_tokens=4, pad_token_id=pad,
+                                      kv_cache_dtype=args.kv_cache_dtype),
+        CollatorConfig(pad_token_id=pad, bucket_multiple=128,
+                       image_size=jcfg.vision.image_size)))
+
+
+def run_eval(runner, args, progress: bool = True, judge=None) -> dict:
     """run_benchmark with `eval`'s outputs: <output_dir>/<benchmark>.json,
     its .xlsx twin and the --sqlite_db row. Returns the metrics."""
     import os
@@ -555,7 +677,7 @@ def run_eval(runner, args, progress: bool = True) -> dict:
         args.benchmark, runner, args.data_file, args.image_root,
         batch_size=args.per_device_train_batch_size,
         output_json=os.path.join(args.output_dir, f"{args.benchmark}.json"),
-        sqlite_db=args.sqlite_db, tag=args.tag, progress=progress,
+        sqlite_db=args.sqlite_db, tag=args.tag, progress=progress, judge=judge,
     )
 
 
@@ -564,11 +686,6 @@ def cmd_eval(args):
 
     if args.benchmark not in BENCHMARKS:
         raise SystemExit(f"--benchmark {args.benchmark}: expected one of {sorted(BENCHMARKS)}")
-    if args.judge_model_path:
-        raise SystemExit(
-            "--judge_model_path: the judge is a checkpoint, and checkpoint import is not "
-            "ported yet (ROADMAP.md §1c item 8)"
-        )
     if args.endpoint:
         # remote mode: the model lives in a `serve` process; nothing loads here
         from vlrlhf_torch.generate.server import EndpointRunner
@@ -576,14 +693,28 @@ def cmd_eval(args):
         print(run_eval(EndpointRunner(args.endpoint), args), flush=True)
         return
     device = resolve_device(args.device)
-    if not args.synthetic:
-        raise SystemExit(
-            "checkpoint import is not ported yet: run with --synthetic N "
-            "(random weights) until utils/hf_port.py has its port"
-        )
-    _, cfg, model, processor = synthetic_bundle(args, device)
-    image_loader = lambda p, s, m: np.zeros((s, s, 3), np.uint8)  # noqa: E731
-    print(run_eval(build_eval(cfg, model, processor, args, image_loader), args), flush=True)
+    _, cfg, model, processor = load_bundle(args, device)
+    runner = build_eval(cfg, model, processor, args, image_loader_for(args))
+    judge = load_judge(args, device) if args.judge_model_path else None
+    print(run_eval(runner, args, judge=judge), flush=True)
+
+
+def cmd_merge(args):
+    """--adapter_path (a dpo run's adapters/) folded into the checkpoint's
+    weights: <output_dir>/merged and, with --export_format hf, merged_hf
+    (vlrlhf_tpu `cmd_merge`, cli/main.py:1329-1353; the reference's
+    merge_peft_model.py)."""
+    from vlrlhf_torch.lora.lora import set_adapters_
+    from vlrlhf_torch.train.checkpoint import load_params
+
+    device = resolve_device(args.device)
+    _, _, model, _ = load_bundle(args, device)
+    adapters = load_params(args.adapter_path)
+    set_adapters_(model, adapters)
+    save_merged(model, args.lora_alpha / args.lora_r, args)
+    print(f"merged -> {args.output_dir}/merged"
+          + (f", HF checkpoint -> {args.output_dir}/merged_hf"
+             if args.export_format == "hf" and not args.synthetic else ""), flush=True)
 
 
 def _bool(x: str) -> bool:
@@ -596,15 +727,9 @@ def _add_eval_parser(sub) -> None:
         help="one benchmark in-process (or against a serve daemon with --endpoint); writes "
              "<output_dir>/<benchmark>.json and .xlsx (and a --sqlite_db row)",
     )
-    p.add_argument("--model_family", type=str, default="llava", choices=["llava"])
+    _add_model_args(p, "use a tiny random-weight model (no checkpoint)")
     p.add_argument("--output_dir", type=str, required=True)
-    p.add_argument("--device", type=str, default="cuda")
-    p.add_argument("--synthetic", type=int, default=0,
-                   help="use a tiny random-weight model (no checkpoint)")
-    p.add_argument("--bf16", type=_bool, default=True)
-    p.add_argument("--max_length", type=int, default=1024)
     p.add_argument("--max_prompt_length", type=int, default=512)
-    p.add_argument("--seed", type=int, default=42)
     p.add_argument("--benchmark", type=str, required=True)
     p.add_argument("--data_file", type=str, required=True)
     p.add_argument("--image_root", type=str, default="")
@@ -614,7 +739,8 @@ def _add_eval_parser(sub) -> None:
     p.add_argument("--sqlite_db", type=str, default=None)
     p.add_argument("--tag", type=str, default=None)
     p.add_argument("--judge_model_path", type=str, default=None,
-                   help="refused until checkpoint import lands (ROADMAP.md §1c item 8)")
+                   help="an HF checkpoint directory whose LM judges free-form answers (mmvet) "
+                        "and unresolved choices")
     p.add_argument("--quantize", type=str, default="false",
                    choices=["false", "true", "int8", "int4"])
     p.add_argument("--kv_cache_dtype", type=str, default="bf16", choices=["bf16", "int8"])
@@ -639,14 +765,20 @@ def _add_dpo_parser(sub) -> None:
         help="LoRA DPO training on one device; writes <output_dir>/dpo_metrics.jsonl, "
              "checkpoints/, adapters/ (and merged/, dpo_samples.jsonl)",
     )
-    p.add_argument("--model_family", type=str, default="llava", choices=["llava"])
+    _add_model_args(p, "a tiny random-weight model + N synthetic pairs (no checkpoint)")
     p.add_argument("--output_dir", type=str, required=True)
-    p.add_argument("--device", type=str, default="cuda")
-    p.add_argument("--synthetic", type=int, default=0,
-                   help="a tiny random-weight model + N synthetic pairs (no checkpoint)")
-    p.add_argument("--bf16", type=_bool, default=True)
-    p.add_argument("--max_length", type=int, default=1024)
     p.add_argument("--max_prompt_length", type=int, default=512)
+    p.add_argument("--dataset_name", type=str, default="plain_dpo",
+                   help="plain_dpo, vlfeedback_paired, vlquery_json or rlhfv (data/datasets.py)")
+    p.add_argument("--data_path", type=str, default=None,
+                   help="the dataset as a local .json or .jsonl file")
+    p.add_argument("--image_root", type=str, default="",
+                   help="directory the rows' image paths are relative to")
+    p.add_argument("--data_ratio", type=float, default=1.0,
+                   help="train on the first fraction of the rows")
+    p.add_argument("--score_margin", type=float, default=-1,
+                   help="vlfeedback_paired: keep pairs whose rating gap is at least this; -1 "
+                        "keeps each sample's largest-gap pairs")
     p.add_argument("--per_device_train_batch_size", type=int, default=4)
     p.add_argument("--gradient_accumulation_steps", type=int, default=1)
     p.add_argument("--learning_rate", type=float, default=1e-5)
@@ -658,7 +790,6 @@ def _add_dpo_parser(sub) -> None:
     p.add_argument("--weight_decay", type=float, default=0.0)
     p.add_argument("--max_grad_norm", type=float, default=1.0)
     p.add_argument("--logging_steps", type=int, default=10)
-    p.add_argument("--seed", type=int, default=42)
     p.add_argument("--run_name", type=str, default=None)
     p.add_argument("--lora_r", type=int, default=64)
     p.add_argument("--lora_alpha", type=float, default=16.0)
@@ -712,20 +843,46 @@ def _add_dpo_parser(sub) -> None:
     p.set_defaults(fn=cmd_dpo)
 
 
+def _add_model_args(p, synthetic_help: str) -> None:
+    """Where the weights come from, and on what device in what dtype."""
+    p.add_argument("--model_name_or_path", type=str, default=None,
+                   help="an HF LLaVA checkpoint directory (config.json, *.safetensors or "
+                        "pytorch_model*.bin, tokenizer.json)")
+    p.add_argument("--model_family", type=str, default="llava", choices=["llava"],
+                   help="the --synthetic model's family (a checkpoint names its own)")
+    p.add_argument("--synthetic", type=int, default=0, help=synthetic_help)
+    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--bf16", type=_bool, default=True)
+    p.add_argument("--max_length", type=int, default=1024,
+                   help="longest prompt; a KV cache holds this + max_new_tokens")
+    p.add_argument("--seed", type=int, default=42)
+
+
+def _add_merge_parser(sub) -> None:
+    p = sub.add_parser(
+        "merge", help="fold a dpo run's adapters into the checkpoint's weights; writes "
+                      "<output_dir>/merged (and merged_hf, an HF checkpoint)")
+    _add_model_args(p, "a tiny random-weight model (no checkpoint, no HF export)")
+    p.add_argument("--output_dir", type=str, required=True)
+    p.add_argument("--adapter_path", type=str, required=True,
+                   help="a dpo run's <output_dir>/adapters")
+    p.add_argument("--export_format", type=str, default="hf", choices=["hf", "torch"],
+                   help="'hf' also writes merged_hf/ (model.safetensors, config and tokenizer "
+                        "files), loadable by HF transformers")
+    p.add_argument("--lora_r", type=int, default=64)
+    p.add_argument("--lora_alpha", type=float, default=16.0,
+                   help="the merged delta is lora_alpha / lora_r * A B")
+    p.set_defaults(fn=cmd_merge)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="vlrlhf-torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_dpo_parser(sub)
     _add_eval_parser(sub)
+    _add_merge_parser(sub)
     p = sub.add_parser("serve")
-    p.add_argument("--model_family", type=str, default="llava", choices=["llava"])
-    p.add_argument("--device", type=str, default="cuda")
-    p.add_argument("--max_length", type=int, default=1024,
-                   help="longest prompt; the KV cache holds this + max_new_tokens")
-    p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--bf16", type=lambda x: x.lower() == "true", default=True)
-    p.add_argument("--synthetic", type=int, default=0,
-                   help="use a tiny random-weight model (no checkpoint)")
+    _add_model_args(p, "use a tiny random-weight model (no checkpoint)")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--slots", type=int, default=8,

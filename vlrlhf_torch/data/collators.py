@@ -1,7 +1,10 @@
 """Collators: tokenized rows -> right-padded numpy batches (the generation,
-DPO and SFT collators of vlrlhf_tpu/data/collators.py, copied because the
-original imports jax through its package; no anyres or Q-Former; one image
-slot per row, the first of a list, as vlrlhf_tpu's max_images=1).
+DPO, SFT and RM collators of vlrlhf_tpu/data/collators.py, copied because
+the original imports jax through its package; no anyres or Q-Former; one
+image slot per row, the first of a list, as vlrlhf_tpu's max_images=1).
+Images decode through the native JPEG loader unless the caller passes an
+`image_loader(path, size, mode)`; a DPO batch decodes on its thread pool
+(`load_batch`), as vlrlhf_tpu's default pipeline does.
 
 Right padding because the engine's KV-cache slot index equals the absolute
 token position (generate/engine.py). Images ship as raw uint8; rescale and
@@ -24,23 +27,14 @@ def _round_up(x: int, m: int) -> int:
 
 
 def default_image_loader(path: str, size: int, mode: str = "shortest_edge_crop"):
-    """Host-side decode + resize to (size, size, 3) uint8.
+    """Host-side decode + resize to (size, size, 3) uint8 through the native
+    JPEG loader (data/native_image.py; no PIL, no fallback).
 
     mode 'shortest_edge_crop' = CLIP-style resize+center-crop; 'squash' =
     plain resize."""
-    from PIL import Image
+    from vlrlhf_torch.data.native_image import load_image
 
-    img = Image.open(path).convert("RGB")
-    if mode == "squash":
-        img = img.resize((size, size), Image.BICUBIC)
-    else:
-        w, h = img.size
-        scale = size / min(w, h)
-        img = img.resize((round(w * scale), round(h * scale)), Image.BICUBIC)
-        w, h = img.size
-        left, top = (w - size) // 2, (h - size) // 2
-        img = img.crop((left, top, left + size, top + size))
-    return np.asarray(img, np.uint8)
+    return load_image(path, size, mode)
 
 
 @dataclasses.dataclass
@@ -129,9 +123,13 @@ class DPOCollator:
 
     def _load_images(self, img_paths: list) -> np.ndarray:
         s = self.cfg.image_size
-        out = np.zeros((len(img_paths), 1, s, s, 3), np.uint8)
-        for i, path in enumerate(img_paths):
-            path = _first_image(path)
+        paths = [_first_image(p) for p in img_paths]
+        if self.image_loader is default_image_loader:
+            from vlrlhf_torch.data.native_image import load_batch
+
+            return load_batch(paths, s, self.cfg.resize_mode)[:, None]
+        out = np.zeros((len(paths), 1, s, s, 3), np.uint8)
+        for i, path in enumerate(paths):
             if path is not None:
                 out[i, 0] = self.image_loader(path, s, self.cfg.resize_mode)
         return out
@@ -193,3 +191,9 @@ class SFTCollator(DPOCollator):
             "image_positions": img_pos,
             "pixel_values": self._load_images([r.get("img_path") for r in rows]),
         }
+
+
+class RMCollator(DPOCollator):
+    """Reward-model batches share the DPO [chosen; rejected] layout; labels
+    are unused by the RM loss but kept for parity checks (vlrlhf_tpu's
+    RMCollator, collators.py:331)."""

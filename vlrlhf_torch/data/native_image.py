@@ -1,0 +1,116 @@
+"""JPEG decode and resize through the native C++ image pipeline
+(native/imageops.cpp, bound with ctypes): the counterpart of
+vlrlhf_tpu/data/native_image.py and the collators' default image loader,
+so no PIL is needed on any path (the card machine has none).
+
+The library is compiled from native/imageops.cpp with g++ (`-ljpeg
+-lpthread`, the flags of native/Makefile) into `<repo>/build/` at first
+use, keyed by the digest of the source and the flags; nothing is written
+into native/. Unlike vlrlhf_tpu, nothing falls back to PIL: a failed build
+raises with the compiler's own output (a library that does not load, with
+the loader's), a path that is not a .jpg / .jpeg raises, and so does a file
+the decoder rejects.
+
+  load_image(path, size, mode)            one image -> (size, size, 3) uint8
+  load_batch(paths, size, mode, threads)  a batch decoded on a thread pool
+                                          (None or "" leaves a zero slot)
+Modes: "shortest_edge_crop" (resize the short side to `size`, centre
+crop; CLIP's) and "squash" (resize to size x size).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional, Sequence
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[2]
+SOURCE = ROOT / "native" / "imageops.cpp"
+BUILD_DIR = ROOT / "build"
+CXX_FLAGS = ["-O2", "-march=native", "-fPIC", "-shared", "-std=c++17", "-Wall"]
+LIBS = ["-ljpeg", "-lpthread"]
+_MODES = {"squash": 0, "shortest_edge_crop": 1}
+_JPEG = (".jpg", ".jpeg")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _library(source: Optional[Path] = None) -> ctypes.CDLL:
+    """The loaded library built from `source` (default SOURCE), compiling
+    it on first use; raises RuntimeError with g++'s output when the build
+    fails."""
+    source = Path(source or SOURCE)
+    with _lock:
+        lib = _libs.get(str(source))
+        if lib is not None:
+            return lib
+        try:
+            code = source.read_bytes()
+        except OSError as e:
+            raise RuntimeError(f"native image loader: cannot read {source}: {e}") from None
+        digest = hashlib.sha256(code + " ".join(CXX_FLAGS + LIBS).encode()).hexdigest()[:16]
+        out = BUILD_DIR / f"libimageops-{digest}.so"
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp),
+                                   str(source), *LIBS], capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"native image loader: g++ failed to build {source}:\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)  # atomic: another process never loads a partial .so
+        try:
+            lib = ctypes.CDLL(str(out))
+        except OSError as e:  # e.g. built where libjpeg is, loaded where it is not
+            raise RuntimeError(f"native image loader: cannot load {out}: {e}") from None
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.vlr_load_image.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, u8p]
+        lib.vlr_load_image.restype = ctypes.c_int
+        lib.vlr_load_batch.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_int, u8p, ctypes.c_int]
+        lib.vlr_load_batch.restype = ctypes.c_int
+        _libs[str(source)] = lib
+        return lib
+
+
+def _check(path: str) -> None:
+    if not str(path).lower().endswith(_JPEG):
+        raise ValueError(f"{path}: the native loader decodes JPEG (.jpg / .jpeg) only")
+
+
+def load_image(path: str, size: int, mode: str = "shortest_edge_crop") -> np.ndarray:
+    """Decode + resize one JPEG to (size, size, 3) uint8."""
+    _check(path)
+    lib = _library()
+    out = np.empty((size, size, 3), np.uint8)
+    if lib.vlr_load_image(os.fsencode(path), size, _MODES[mode],
+                          out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))) != 0:
+        raise ValueError(f"{path}: the native loader could not decode it")
+    return out
+
+
+def load_batch(paths: Sequence[Optional[str]], size: int, mode: str = "shortest_edge_crop",
+               n_threads: int = 8) -> np.ndarray:
+    """(len(paths), size, size, 3) uint8, decoded on `n_threads` native
+    threads; a None or empty path leaves its slot zero."""
+    for p in paths:
+        if p:
+            _check(p)
+    lib = _library()
+    n = len(paths)
+    out = np.zeros((n, size, size, 3), np.uint8)
+    names = [os.fsencode(p) if p else b"" for p in paths]
+    arr = (ctypes.c_char_p * n)(*names)
+    failed = lib.vlr_load_batch(arr, n, size, _MODES[mode],
+                                out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), n_threads)
+    if failed:
+        raise ValueError(f"the native loader could not decode {failed} of the {n} images "
+                         f"{[p for p in paths if p]}")
+    return out

@@ -1,10 +1,39 @@
-"""Tokenizer seam (copy of vlrlhf_tpu/data/tokenizer.py's ToyTokenizer — the
-deterministic word-level tokenizer the hermetic paths use)."""
+"""Tokenizers: `ToyTokenizer` (a copy of vlrlhf_tpu/data/tokenizer.py's, the
+deterministic word-level tokenizer of the hermetic paths) and
+`JsonTokenizer`, the counterpart of vlrlhf_tpu's `HFTokenizer` for a
+checkpoint's llama-style `tokenizer.json`, read without `transformers` or
+`tokenizers` (the card machine has neither).
+
+JsonTokenizer implements what the `tokenizers` library does with the
+pieces llama's tokenizer.json is made of, and refuses any other piece by
+name rather than guess:
+  - added tokens (special or not, `lstrip` / `rstrip`), matched on the raw
+    text before anything else, longest first;
+  - the normalizer: none, or a Sequence of `Prepend` and `Replace` (the
+    older layout: Prepend("▁") + Replace(" ", "▁"), applied to each span
+    between added tokens);
+  - the pre-tokenizer: none, or `Metaspace` (the newer layout; prepend
+    scheme "first" prepends only to the span that starts the text,
+    "always" to every span; `split`);
+  - a BPE model with `byte_fallback` (<0xXX> tokens for characters outside
+    the vocabulary) and `fuse_unk`, merged pair by pair, lowest rank and
+    then leftmost first;
+  - the `TemplateProcessing` post-processor for add_special_tokens (for a
+    llama tokenizer class, the template transformers' LlamaTokenizerFast
+    rebuilds from add_bos_token / add_eos_token);
+  - the decoder chain `Replace` / `ByteFallback` / `Fuse` / `Strip`.
+tokenizer_config.json gives the special tokens, the tokenizer class and
+clean_up_tokenization_spaces, as transformers reads them. The pad id falls
+back to the unk id when no pad token is set, as HFTokenizer does.
+"""
 
 from __future__ import annotations
 
+import json
+import os
 import re
 import zlib
+from typing import Optional, Sequence
 
 
 class ToyTokenizer:
@@ -59,3 +88,367 @@ class ToyTokenizer:
 
     def convert_token_to_id(self, token: str) -> int:
         return self._specials.get(token, 4)
+
+
+_LLAMA_CLASSES = ("LlamaTokenizer", "LlamaTokenizerFast")
+_CLASSES = _LLAMA_CLASSES + ("PreTrainedTokenizerFast", None)
+_BYTE = re.compile(r"^<0x([0-9A-Fa-f]{2})>$")
+_CACHE_MAX = 65536
+
+
+def _refuse(path: str, what: str) -> ValueError:
+    return ValueError(f"{path}: {what} is not supported by JsonTokenizer (it reads llama's "
+                      "BPE tokenizer.json only)")
+
+
+def _token_str(v) -> Optional[str]:
+    """A special token as tokenizer_config.json writes it: a string or an
+    AddedToken dict."""
+    return v.get("content") if isinstance(v, dict) else v
+
+
+class JsonTokenizer:
+    """A llama tokenizer.json (BPE, byte fallback) with the interface of
+    vlrlhf_tpu's HFTokenizer: bos / eos / pad token ids, vocab_size (every
+    token, added ones included), encode, decode, convert_token_to_id."""
+
+    def __init__(self, path: str):
+        json_path = os.path.join(path, "tokenizer.json")
+        if not os.path.exists(json_path):
+            if os.path.exists(os.path.join(path, "tokenizer.model")):
+                raise ValueError(
+                    f"{path} has a sentencepiece tokenizer.model and no tokenizer.json; the port "
+                    "reads tokenizer.json only (ROADMAP.md §1 item 8): save the tokenizer once "
+                    "with transformers' save_pretrained to write it")
+            raise FileNotFoundError(f"no tokenizer.json under {path}")
+        with open(json_path, encoding="utf-8") as f:
+            spec = json.load(f)
+        conf: dict = {}
+        conf_path = os.path.join(path, "tokenizer_config.json")
+        if os.path.exists(conf_path):
+            with open(conf_path, encoding="utf-8") as f:
+                conf = json.load(f)
+        self._read_model(json_path, spec.get("model") or {})
+        self._read_added(json_path, spec.get("added_tokens") or [])
+        self._normalizers = self._read_normalizer(json_path, spec.get("normalizer"))
+        self._metaspace = self._read_pre_tokenizer(json_path, spec.get("pre_tokenizer"))
+        self._decoders = self._read_decoder(json_path, spec.get("decoder"))
+        self._read_config(conf_path, conf)
+        self._template = self._read_template(json_path, spec.get("post_processor"), conf)
+        self._cache: dict[str, list[int]] = {}
+
+    @classmethod
+    def from_pretrained(cls, path: str, **_kw) -> "JsonTokenizer":
+        return cls(path)
+
+    # -- reading tokenizer.json ------------------------------------------
+
+    def _read_model(self, path: str, m: dict) -> None:
+        if m.get("type") != "BPE":
+            raise _refuse(path, f"model type {m.get('type')!r}")
+        for key in ("continuing_subword_prefix", "end_of_word_suffix"):
+            if m.get(key):
+                raise _refuse(path, f"BPE {key}={m[key]!r}")
+        if m.get("dropout") not in (None, 0, 0.0):
+            raise _refuse(path, f"BPE dropout={m['dropout']!r}")
+        self.vocab: dict[str, int] = dict(m["vocab"])
+        self._unk = m.get("unk_token")
+        self._fuse_unk = bool(m.get("fuse_unk", False))
+        self._byte_fallback = bool(m.get("byte_fallback", False))
+        self._ignore_merges = bool(m.get("ignore_merges", False))
+        self._ranks: dict[tuple[int, int], tuple[int, int]] = {}
+        for rank, merge in enumerate(m.get("merges", [])):
+            a, b = merge.split(" ") if isinstance(merge, str) else merge
+            self._ranks[(self.vocab[a], self.vocab[b])] = (rank, self.vocab[a + b])
+
+    def _read_added(self, path: str, added: list) -> None:
+        self._added: dict[str, int] = {}
+        self._special_ids: set[int] = set()
+        alts = []
+        for t in added:
+            if t.get("single_word"):
+                raise _refuse(path, f"added token {t['content']!r} with single_word")
+            if t.get("normalized") and not t.get("special"):
+                raise _refuse(path, f"added token {t['content']!r} matched after normalization")
+            self._added[t["content"]] = t["id"]
+            if t.get("special"):
+                self._special_ids.add(t["id"])
+            alts.append((t["content"], t.get("lstrip", False), t.get("rstrip", False)))
+        self._set_added_pattern(alts)
+
+    def _set_added_pattern(self, alts: list) -> None:
+        self._alts = alts
+        pats = [(r"\s*" if ls else "") + f"({re.escape(c)})" + (r"\s*" if rs else "")
+                for c, ls, rs in sorted(alts, key=lambda a: -len(a[0]))]
+        self._added_re = re.compile("|".join(pats)) if pats else None
+
+    @staticmethod
+    def _read_normalizer(path: str, n: Optional[dict]) -> list:
+        if n is None:
+            return []
+        steps = n["normalizers"] if n.get("type") == "Sequence" else [n]
+        out = []
+        for s in steps:
+            if s.get("type") == "Prepend":
+                out.append(("prepend", s["prepend"]))
+            elif s.get("type") == "Replace" and "String" in s.get("pattern", {}):
+                out.append(("replace", s["pattern"]["String"], s["content"]))
+            else:
+                raise _refuse(path, f"normalizer {s}")
+        return out
+
+    @staticmethod
+    def _read_pre_tokenizer(path: str, p: Optional[dict]) -> Optional[tuple]:
+        if p is None:
+            return None
+        if p.get("type") != "Metaspace":
+            raise _refuse(path, f"pre-tokenizer {p.get('type')!r}")
+        scheme = p.get("prepend_scheme")
+        if scheme is None:  # the layout before prepend_scheme existed
+            scheme = "always" if p.get("add_prefix_space", True) else "never"
+        if scheme not in ("first", "always", "never"):
+            raise _refuse(path, f"Metaspace prepend_scheme {scheme!r}")
+        return p.get("replacement", "▁"), scheme, bool(p.get("split", True))
+
+    @staticmethod
+    def _read_decoder(path: str, d: Optional[dict]) -> Optional[list]:
+        if d is None:
+            return None
+        steps = d["decoders"] if d.get("type") == "Sequence" else [d]
+        out = []
+        for s in steps:
+            kind = s.get("type")
+            if kind == "Replace" and "String" in s.get("pattern", {}):
+                out.append(("replace", s["pattern"]["String"], s["content"]))
+            elif kind in ("ByteFallback", "Fuse"):
+                out.append((kind.lower(),))
+            elif kind == "Strip":
+                out.append(("strip", s["content"], int(s["start"]), int(s["stop"])))
+            else:
+                raise _refuse(path, f"decoder {s}")
+        return out
+
+    def _read_config(self, path: str, conf: dict) -> None:
+        cls = conf.get("tokenizer_class")
+        if cls not in _CLASSES:
+            raise _refuse(path, f"tokenizer_class {cls!r}")
+        if conf.get("add_prefix_space") is not None:
+            raise _refuse(path, "add_prefix_space (transformers rebuilds the tokenizer from "
+                                "sentencepiece for it)")
+        self._llama = cls in _LLAMA_CLASSES
+        defaults = ({"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>"}
+                    if self._llama else {})
+        tokens = {k: _token_str(conf.get(k, defaults.get(k)))
+                  for k in ("unk_token", "bos_token", "eos_token", "pad_token")}
+        extra = [_token_str(t) for t in conf.get("additional_special_tokens") or []]
+        # transformers adds a named special token the tokenizer.json lacks
+        missing = [t for t in [*tokens.values(), *extra] if t and t not in self._added]
+        for t in dict.fromkeys(missing):
+            tid = self.vocab.get(t)
+            if tid is None:
+                tid = len(set(self.vocab.values()) | set(self._added.values()))
+                self.vocab[t] = tid
+            self._added[t] = tid
+            self._special_ids.add(tid)
+            self._alts.append((t, False, False))
+        if missing:
+            self._set_added_pattern(self._alts)
+        self._id_to_token = {i: t for t, i in self.vocab.items()}
+        self._id_to_token.update({i: t for t, i in self._added.items()})
+        self._clean_up = bool(conf.get("clean_up_tokenization_spaces", False))
+        self.unk_token_id = self._opt_id(tokens["unk_token"])
+        self.bos_token_id = self._opt_id(tokens["bos_token"])
+        self.eos_token_id = self._opt_id(tokens["eos_token"])
+        pad = self._opt_id(tokens["pad_token"])
+        self.pad_token_id = pad if pad is not None else self.unk_token_id
+        self.vocab_size = len(self._id_to_token)
+        self._add_bos = conf.get("add_bos_token", True)
+        self._add_eos = conf.get("add_eos_token", False)
+
+    def _read_template(self, path: str, p: Optional[dict], conf: dict) -> tuple:
+        if self._llama:  # LlamaTokenizerFast.update_post_processor's template
+            pre = [self.bos_token_id] if self._add_bos else []
+            post = [self.eos_token_id] if self._add_eos else []
+            return pre, post
+        if p is None:
+            return [], []
+        if p.get("type") != "TemplateProcessing":
+            raise _refuse(path, f"post-processor {p.get('type')!r}")
+        pre: list[int] = []
+        post: list[int] = []
+        seen_seq = False
+        for item in p["single"]:
+            if "Sequence" in item:
+                seen_seq = True
+            else:
+                ids = p["special_tokens"][item["SpecialToken"]["id"]]["ids"]
+                (post if seen_seq else pre).extend(ids)
+        return pre, post
+
+    def _opt_id(self, token: Optional[str]) -> Optional[int]:
+        return None if token is None else self.convert_token_to_id(token)
+
+    # -- encode ------------------------------------------------------------
+
+    def _spans(self, text: str):
+        """(start offset, text span or None, added id or None) in order."""
+        pos = 0
+        if self._added_re is not None:
+            for m in self._added_re.finditer(text):
+                if m.start() > pos:
+                    yield pos, text[pos:m.start()], None
+                token = next(g for g in m.groups() if g is not None)
+                yield m.start(), None, self._added[token]
+                pos = m.end()
+        if pos < len(text):
+            yield pos, text[pos:], None
+
+    def _words(self, span: str, at_start: bool) -> list[str]:
+        for step in self._normalizers:
+            if step[0] == "prepend":
+                span = step[1] + span if span else span
+            else:
+                span = span.replace(step[1], step[2])
+        if self._metaspace is None:
+            return [span] if span else []
+        rep, scheme, split = self._metaspace
+        span = span.replace(" ", rep)
+        if not span.startswith(rep) and (scheme == "always" or (scheme == "first" and at_start)):
+            span = rep + span
+        if not split:
+            return [span] if span else []
+        return [w for w in re.split(f"(?={re.escape(rep)})", span) if w]
+
+    def _bpe(self, word: str) -> list[int]:
+        hit = self._cache.get(word)
+        if hit is not None:
+            return hit
+        if self._ignore_merges and word in self.vocab:
+            return [self.vocab[word]]
+        ids: list[int] = []
+        unk_open = False  # the last symbol is a fusable unk
+        for ch in word:
+            tid = self.vocab.get(ch)
+            if tid is not None:
+                ids.append(tid)
+                unk_open = False
+                continue
+            if self._byte_fallback:
+                bts = [self.vocab.get(f"<0x{b:02X}>") for b in ch.encode("utf-8")]
+                if all(b is not None for b in bts):
+                    ids.extend(bts)
+                    unk_open = False
+                    continue
+            if self._unk is not None:
+                if not (self._fuse_unk and unk_open):
+                    ids.append(self.vocab[self._unk])
+                unk_open = True
+        ranks = self._ranks
+        while len(ids) > 1:
+            best = None
+            for i in range(len(ids) - 1):
+                r = ranks.get((ids[i], ids[i + 1]))
+                if r is not None and (best is None or r[0] < best[0]):
+                    best = (r[0], i, r[1])
+            if best is None:
+                break
+            _, i, new = best
+            ids[i: i + 2] = [new]
+        if len(self._cache) >= _CACHE_MAX:
+            self._cache.clear()
+        self._cache[word] = ids
+        return ids
+
+    def encode(self, text: str, add_special_tokens: bool = False) -> list[int]:
+        ids: list[int] = []
+        for start, span, added in self._spans(text):
+            if added is not None:
+                ids.append(added)
+                continue
+            for word in self._words(span, start == 0):
+                ids.extend(self._bpe(word))
+        if add_special_tokens:
+            pre, post = self._template
+            ids = pre + ids + post
+        return ids
+
+    # -- decode ------------------------------------------------------------
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        if isinstance(ids, int):
+            ids = [ids]
+        tokens = []
+        for i in ids:
+            i = int(i)
+            t = self._id_to_token.get(i)
+            if t is None or (skip_special_tokens and i in self._special_ids):
+                continue
+            tokens.append(t)
+        if self._decoders is None:
+            text = " ".join(tokens)
+        else:
+            for step in self._decoders:
+                tokens = _DECODE[step[0]](tokens, *step[1:])
+            text = "".join(tokens)
+        return _clean_up(text) if self._clean_up else text
+
+    def convert_token_to_id(self, token: str) -> int:
+        tid = self._added.get(token, self.vocab.get(token))
+        return self.unk_token_id if tid is None else tid
+
+
+def _byte_fallback(tokens: Sequence[str]) -> list[str]:
+    """Runs of <0xXX> tokens become their UTF-8 text, or one U+FFFD per
+    byte when the run is not valid UTF-8."""
+    out: list[str] = []
+    run = bytearray()
+
+    def flush():
+        if run:
+            try:
+                out.append(run.decode("utf-8"))
+            except UnicodeDecodeError:
+                out.extend("�" * len(run))
+            run.clear()
+
+    for t in tokens:
+        m = _BYTE.match(t) if len(t) == 6 else None
+        if m:
+            run.append(int(m.group(1), 16))
+        else:
+            flush()
+            out.append(t)
+    flush()
+    return out
+
+
+def _strip(tokens: Sequence[str], content: str, start: int, stop: int) -> list[str]:
+    out = []
+    for t in tokens:
+        lo, hi = 0, len(t)
+        while lo < min(start, len(t)) and t[lo] == content:
+            lo += 1
+        for _ in range(stop):
+            if hi > lo and t[hi - 1] == content:
+                hi -= 1
+            else:
+                break
+        out.append(t[lo:hi])
+    return out
+
+
+_DECODE = {
+    "replace": lambda tokens, a, b: [t.replace(a, b) for t in tokens],
+    "bytefallback": _byte_fallback,
+    "fuse": lambda tokens: ["".join(tokens)],
+    "strip": _strip,
+}
+
+
+def _clean_up(text: str) -> str:
+    """transformers' clean_up_tokenization."""
+    for a, b in ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"),
+                 (" n't", "n't"), (" 'm", "'m"), (" 's", "'s"), (" 've", "'ve"),
+                 (" 're", "'re")):
+        text = text.replace(a, b)
+    return text

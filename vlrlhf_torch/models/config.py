@@ -3,7 +3,8 @@ its family entry, and `scale_down` for test-size models.
 
 Counterparts: LMConfig (vlrlhf_tpu/models/lm/llama.py), ViTConfig
 (models/vision/vit.py), ProjectorConfig / VLMConfig (models/vlm.py),
-`_llava_7b`, FAMILIES["llava"] and `scale_down` (models/registry.py). Field
+`_llava_7b`, FAMILIES["llava"], `scale_down`, ARCH_TO_FAMILY and
+`resolve_family` (models/registry.py). Field
 names and defaults are the same; dtypes are torch dtypes. Fields that only
 training, sharding or other families read are left out.
 """
@@ -189,3 +190,31 @@ def scale_down(cfg: VLMConfig, dtype=torch.float32) -> VLMConfig:
         num_image_tokens=n_img_tokens,
         image_token_id=250,
     )
+
+
+# vlrlhf_tpu/models/registry.py:272-293. Every architecture the JAX package
+# imports resolves to its family; only llava is ported (FAMILIES).
+ARCH_TO_FAMILY = {
+    "LlavaForConditionalGeneration": "llava",
+    "QWenLMHeadModel": "qwen_vl",
+    "InstructBlipForConditionalGeneration": "instructblip",
+    "InstructBlipForRL": "instructblip",
+    "InternLMXComposer2ForCausalLM": "internlm_xc2",
+}
+
+
+def resolve_family(architecture: str, text_model_name: str = "") -> ModelFamily:
+    """The family of an HF `architectures[0]` (LlavaNext by its text
+    model's name, as vlrlhf_tpu resolves it). A family vlrlhf_tpu has and
+    the port does not yet is refused by name."""
+    if architecture == "LlavaNextForConditionalGeneration":
+        name = ("llava_next_mistral" if "mistral" in text_model_name.lower()
+                else "llava_next_vicuna")
+    elif architecture in ARCH_TO_FAMILY:
+        name = ARCH_TO_FAMILY[architecture]
+    else:
+        raise ValueError(f"architecture {architecture!r} is not a family vlrlhf_tpu supports")
+    if name not in FAMILIES:
+        raise ValueError(f"family {name!r} ({architecture}) is not ported to vlrlhf_torch yet "
+                         "(ROADMAP.md §1 item 9)")
+    return FAMILIES[name]

@@ -54,6 +54,11 @@ class VLM(nn.Module):
     def device(self) -> torch.device:
         return self.lm.embed_tokens.device
 
+    def drop_vision_(self) -> None:
+        """Free the tower and projector: the model becomes a text-only LM
+        (an LLM judge's), whose image inputs are ignored."""
+        self.vision = self.projector = None
+
     def encode_images(self, pixel_values: torch.Tensor, ctx: Optional[Ctx] = None) -> torch.Tensor:
         """(N, H, W, 3) uint8 or normalized float -> (N, num_image_tokens,
         lm_hidden). uint8 pixels are rescaled and normalized here; `ctx`
@@ -77,7 +82,7 @@ class VLM(nn.Module):
         """Token embeddings with image features merged in; precomputed
         `image_features` skip the tower."""
         embeds = self.lm.embed(input_ids)
-        if pixel_values is None and image_features is None:
+        if (pixel_values is None and image_features is None) or self.vision is None:
             return embeds
         if image_positions is None:
             raise ValueError("image inputs need image_positions")

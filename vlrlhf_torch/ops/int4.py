@@ -73,16 +73,19 @@ def quantize_int4(weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     d_out, d_in = weight.shape
     if d_in % (2 * GROUP):
         raise ValueError(f"in={d_in} not divisible by {2 * GROUP}")
-    wf = weight.float().reshape(d_out, d_in // GROUP, GROUP)
+    # a private copy, divided in place below
+    wf = weight.to(torch.float32, copy=True).reshape(d_out, d_in // GROUP, GROUP)
     amax = wf.abs().amax(dim=2, keepdim=True)
-    scale = torch.where(amax > 0, amax / 7.0, torch.ones_like(amax))
-    q = torch.round(wf / scale).clamp(-8, 7).to(torch.int32).reshape(d_out, d_in)
+    # a tensor divisor, as in ops/quant.py quantize_linear: host and card agree
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 7.0), torch.ones_like(amax))
+    # codes as bytes: -8..7 -> two's complement, whose low nibble is the code's
+    q = wf.div_(scale).round_().clamp_(-8, 7).to(torch.int8).reshape(d_out, d_in)
     del wf
+    q = q.view(torch.uint8)
     half = d_in // 2
-    v = (q[:, :half] & 0x0F) | ((q[:, half:] & 0x0F) << 4)  # 0..255
-    v = v - ((v >> 7) & 1) * 256  # as a signed byte
+    v = (q[:, :half] & 0x0F) | (q[:, half:] << 4)  # uint8: the shift drops the high nibble
     packed = torch.zeros((d_out, half_padded(half)), dtype=torch.int8, device=weight.device)
-    packed[:, :half] = v.to(torch.int8)
+    packed[:, :half] = v.view(torch.int8)
     scale2d = torch.zeros((d_out, scale_cols(d_in)), dtype=torch.bfloat16, device=weight.device)
     scale2d[:, : d_in // GROUP] = scale[:, :, 0].to(torch.bfloat16)
     return packed, scale2d

@@ -1,5 +1,6 @@
 """Weights-only quantization and the int8 KV cache (counterpart of
-vlrlhf_tpu/ops/quant.py: DEFAULT_QUANT_PATTERNS, TRAIN_QUANT_PATTERNS[_WIDE],
+vlrlhf_tpu/ops/quant.py: DEFAULT_QUANT_PATTERNS, SERVE_QUANT_PATTERNS_WIDE,
+TRAIN_QUANT_PATTERNS[_WIDE],
 quantize_linear, quantize_params, dequantize_linear, dequantize_params,
 quantize_kv).
 
@@ -35,6 +36,12 @@ DEFAULT_QUANT_PATTERNS = (
     r"(^|/)lm/lm_head$",
 )
 
+# serving beside a co-resident judge also quantizes the tower and projector
+SERVE_QUANT_PATTERNS_WIDE = DEFAULT_QUANT_PATTERNS + (
+    r"(^|/)vision/layers_scanned/(attn|mlp)/",
+    r"(^|/)projector/",
+)
+
 # QLoRA training keeps lm_head bf16 (DPO logps are logit-precision
 # sensitive); the wide set also quantizes the frozen tower and projector.
 TRAIN_QUANT_PATTERNS = (r"(^|/)lm/layers_scanned/(attn|mlp)/",)
@@ -58,10 +65,13 @@ def linear_path(name: str) -> str:
 def quantize_linear(weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(out, in) weight -> (int8 codes (out, in), bf16 scales (out,)):
     f32 amax / 127 per output channel, round half to even, clip to ±127."""
-    wf = weight.float()
+    wf = weight.to(torch.float32, copy=True)  # a private copy: divided in place below
     amax = wf.abs().amax(dim=1, keepdim=True)
-    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
-    q = torch.round(wf / scale).clamp(-127, 127).to(torch.int8)
+    # a tensor divisor: CUDA multiplies by the reciprocal of a Python-scalar
+    # one, a rounding off the host's division, and the importer quantizes
+    # on the host what a quantize after the load does on the card
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
+    q = wf.div_(scale).round_().clamp_(-127, 127).to(torch.int8)
     return q, scale[:, 0].to(torch.bfloat16)
 
 

@@ -21,8 +21,8 @@ them as it takes vlrlhf_tpu's, and tests compare them bit for bit. The bf16
 scales and gbias are returned as float32 arrays holding bf16 values
 (round to nearest even): the port does not depend on ml_dtypes.
 
-No loader calls this yet: it serves the HF checkpoint import of a later
-slice (ROADMAP.md); until then only the tests do.
+The HF checkpoint import (utils/hf_port.py `_gptq_linear`) calls it for
+every linear that comes as `qweight` / `qzeros` / `scales`.
 """
 
 from __future__ import annotations

@@ -1,0 +1,161 @@
+"""Export the port's LLaVA weights as an HF checkpoint (the llava half of
+vlrlhf_tpu/utils/hf_export.py: `_ln`, `_linear`, `export_llama_lm`,
+`export_clip_vit`, `export_llava`, `save_hf_checkpoint`, `export_hf` and
+`ARCHITECTURES`).
+
+The input is a state dict keyed by the port's parameter names (a model's
+`state_dict()`, or `lora.merge_lora`'s merged one); each exporter inverts
+its importer in utils/hf_port.py (the same name tables), so
+import(export(x)) is x bit for bit. Keys follow the 4.41-era llava layout
+(language_model.model.*), as vlrlhf_tpu writes it. A quantized linear
+(int8 or int4 codes) is refused: dequantize it first (ops/quant.py
+dequantize_params), as a merged save over a QLoRA base does.
+
+`save_hf_checkpoint` writes one model.safetensors through
+utils/safetensors_io.py, the config.json (the source checkpoint's with
+`architectures` and `torch_dtype` set, or a minimal one) and the source's
+tokenizer / processor files beside it.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Mapping, Optional
+
+import torch
+
+from vlrlhf_torch.utils.hf_port import (
+    CLIP_LINEARS, CLIP_NORMS, LLAMA_LINEARS, LLAMA_NORMS, LLAVA_PROJECTOR, conv_from_patch,
+)
+from vlrlhf_torch.utils.safetensors_io import save_file
+
+StateDict = Mapping[str, torch.Tensor]
+
+
+class _SD(dict):
+    """state_dict builder that rejects accidental double-writes."""
+
+    def put(self, key: str, value: torch.Tensor) -> None:
+        if key in self:
+            raise ValueError(f"duplicate export key {key}")
+        self[key] = value
+
+
+def _get(src: StateDict, key: str) -> torch.Tensor:
+    if key not in src:
+        stem = key.rsplit(".", 1)[0]
+        if f"{stem}.weight_q" in src or f"{stem}.weight_q4" in src:
+            raise ValueError(f"{stem} is quantized: dequantize it before the export "
+                             "(ops/quant.py dequantize_params)")
+        raise KeyError(f"the state dict has no {key!r}")
+    return src[key]
+
+
+def _linear(sd: _SD, prefix: str, src: StateDict, ours: str) -> None:
+    """weight (out, in) as HF holds it, and the bias if any."""
+    sd.put(f"{prefix}.weight", _get(src, f"{ours}.weight"))
+    if f"{ours}.bias" in src:
+        sd.put(f"{prefix}.bias", src[f"{ours}.bias"])
+
+
+_ln = _linear  # a norm's weight and bias go out as a linear's do
+
+
+def _n_layers(src: StateDict, prefix: str) -> int:
+    return len({k.split(".")[2] for k in src if k.startswith(f"{prefix}.layers.")})
+
+
+def export_llama_lm(src: StateDict, sd: _SD, prefix: str = "model") -> None:
+    """Inverse of hf_port.port_llama_lm (the port's `lm.*` keys)."""
+    sd.put(f"{prefix}.embed_tokens.weight", _get(src, "lm.embed_tokens"))
+    for i in range(_n_layers(src, "lm")):
+        ours, theirs = f"lm.layers.{i}", f"{prefix}.layers.{i}"
+        for o, t in LLAMA_NORMS:
+            _ln(sd, f"{theirs}.{t}", src, f"{ours}.{o}")
+        for o, t in LLAMA_LINEARS:
+            _linear(sd, f"{theirs}.{t}", src, f"{ours}.{o}")
+    _ln(sd, f"{prefix}.norm", src, "lm.norm")
+    if any(k.startswith("lm.lm_head.") for k in src):
+        head = prefix.rsplit(".", 1)[0] if prefix.endswith(".model") else ""
+        _linear(sd, f"{head}.lm_head" if head else "lm_head", src, "lm.lm_head")
+
+
+def export_clip_vit(src: StateDict, sd: _SD, prefix: str, patch: int) -> None:
+    """Inverse of hf_port.port_clip_vit (the port's `vision.*` keys)."""
+    emb = f"{prefix}.embeddings"
+    sd.put(f"{emb}.patch_embedding.weight", conv_from_patch(_get(src, "vision.patch_weight"),
+                                                            patch))
+    if "vision.patch_bias" in src:
+        sd.put(f"{emb}.patch_embedding.bias", src["vision.patch_bias"])
+    sd.put(f"{emb}.position_embedding.weight", _get(src, "vision.pos_embed"))
+    if "vision.cls_token" in src:
+        sd.put(f"{emb}.class_embedding", src["vision.cls_token"])
+    for i in range(_n_layers(src, "vision")):
+        ours, theirs = f"vision.layers.{i}", f"{prefix}.encoder.layers.{i}"
+        for o, t in CLIP_NORMS:
+            _ln(sd, f"{theirs}.{t}", src, f"{ours}.{o}")
+        for o, t in CLIP_LINEARS:
+            _linear(sd, f"{theirs}.{t}", src, f"{ours}.{o}")
+    if "vision.ln_pre.weight" in src:
+        _ln(sd, f"{prefix}.pre_layrnorm", src, "vision.ln_pre")  # HF CLIP's (sic)
+    if "vision.ln_post.weight" in src:
+        _ln(sd, f"{prefix}.post_layernorm", src, "vision.ln_post")
+
+
+def export_llava(src: StateDict, cfg) -> dict[str, torch.Tensor]:
+    """The port's LLaVA state dict -> HF LlavaForConditionalGeneration
+    keys (vlrlhf_tpu's export_llava)."""
+    sd = _SD()
+    export_clip_vit(src, sd, "vision_tower.vision_model", cfg.vision.patch_size)
+    for ours, theirs in LLAVA_PROJECTOR:
+        _linear(sd, theirs, src, f"projector.{ours}")
+    export_llama_lm(src, sd, "language_model.model")
+    return dict(sd)
+
+
+EXPORTERS = {"llava": export_llava}
+ARCHITECTURES = {"llava": ["LlavaForConditionalGeneration"]}
+
+# Files copied from the source checkpoint so the exported directory is a
+# complete, loadable HF checkpoint (tokenizer, processor, generation config)
+_SIDECAR_PATTERNS = (
+    "tokenizer", "special_tokens", "preprocessor", "processor", "chat_template",
+    "generation_config", "added_tokens", "vocab", "merges",
+)
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+
+
+def save_hf_checkpoint(state_dict: StateDict, out_dir: str, family: str,
+                       base_dir: Optional[str] = None, dtype: str = "bfloat16") -> int:
+    """Write model.safetensors (floating tensors cast to `dtype`), the
+    config.json and, from `base_dir`, the tokenizer and processor files.
+    With a base_dir its config.json is copied with `architectures` and
+    `torch_dtype` set (the reference's merge_peft_model.py); without one a
+    minimal config.json is written. Returns the weights file's bytes."""
+    os.makedirs(out_dir, exist_ok=True)
+    nbytes = save_file(state_dict, os.path.join(out_dir, "model.safetensors"),
+                       float_dtype=_DTYPES[dtype])
+    config: dict = {"architectures": ARCHITECTURES[family], "torch_dtype": dtype}
+    if base_dir and os.path.exists(os.path.join(base_dir, "config.json")):
+        with open(os.path.join(base_dir, "config.json")) as f:
+            config = json.load(f)
+        config["architectures"] = ARCHITECTURES[family]
+        config["torch_dtype"] = dtype
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    if base_dir and os.path.isdir(base_dir):
+        for name in os.listdir(base_dir):
+            src = os.path.join(base_dir, name)
+            if any(pat in name for pat in _SIDECAR_PATTERNS) and os.path.isfile(src):
+                shutil.copy2(src, os.path.join(out_dir, name))
+    return nbytes
+
+
+def export_hf(state_dict: StateDict, cfg, family: str, out_dir: str,
+              base_dir: Optional[str] = None, dtype: str = "bfloat16") -> dict[str, torch.Tensor]:
+    """State dict -> HF checkpoint directory; returns the HF-keyed dict."""
+    sd = EXPORTERS[family](state_dict, cfg)
+    save_hf_checkpoint(sd, out_dir, family, base_dir, dtype)
+    return sd

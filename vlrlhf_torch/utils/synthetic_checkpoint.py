@@ -1,0 +1,203 @@
+"""A seeded stand-in for a downloaded LLaVA checkpoint, for machines that
+cannot download one: the config.json of llava-hf/llava-1.5-7b-hf, a
+llama-layout tokenizer.json generated from a seed, and weights written by
+utils/hf_export.py. The import path (cli/loading.py) reads such a
+directory exactly as it reads a real one; chip_smoke.py and the tests use
+it.
+
+The tokenizer follows llama's layout: <unk> 0, <s> 1, </s> 2, the 256
+byte-fallback tokens <0x00>..<0xFF>, the single characters, then BPE
+pieces up to `vocab_size` (32000), and the added tokens <image> 32000 and
+<pad> 32001. Its merges first build a list of common English words letter
+by letter (so text tokenizes into word pieces, as it would with a trained
+vocabulary), then join random pairs of pieces of up to 4 characters until
+the vocabulary is full.
+`layout` picks the older normalizer (Prepend + Replace) or the newer
+Metaspace pre-tokenizer (prepend_scheme "first").
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import string
+from typing import Mapping
+
+import numpy as np
+
+# llava-hf/llava-1.5-7b-hf config.json as published (keys it leaves out take
+# transformers' LlamaConfig / CLIPVisionConfig defaults)
+LLAVA_15_7B_CONFIG = {
+    "architectures": ["LlavaForConditionalGeneration"],
+    "ignore_index": -100,
+    "image_token_index": 32000,
+    "model_type": "llava",
+    "pad_token_id": 32001,
+    "projector_hidden_act": "gelu",
+    "text_config": {
+        "_name_or_path": "lmsys/vicuna-7b-v1.5",
+        "architectures": ["LlamaForCausalLM"],
+        "max_position_embeddings": 4096,
+        "model_type": "llama",
+        "rms_norm_eps": 1e-05,
+        "torch_dtype": "float16",
+        "vocab_size": 32064,
+    },
+    "tie_word_embeddings": False,
+    "torch_dtype": "float16",
+    "vision_config": {
+        "hidden_size": 1024,
+        "image_size": 336,
+        "intermediate_size": 4096,
+        "model_type": "clip_vision_model",
+        "num_attention_heads": 16,
+        "num_hidden_layers": 24,
+        "patch_size": 14,
+        "projection_dim": 768,
+        "vocab_size": 32000,
+    },
+    "vision_feature_layer": -2,
+    "vision_feature_select_strategy": "default",
+    "vocab_size": 32064,
+}
+
+_WORDS = (
+    "the of and to a in is that it for on with as was be by this are at from or an have "
+    "not but what all were when we there can which their if do will each about how up out "
+    "them then she many some so these would other into has more her two like him see time "
+    "could no make than first been its who now people my made over did down only way find "
+    "use may water long little very after words called just where most know get through "
+    "back much before go good new write our used me man too any day same right look think "
+    "also around another came come work three word must because does part even place well "
+    "such here take why help put different away again off went old number image picture "
+    "photo show shown describe detail answer question color left right person people "
+    "animal table street white black red blue green yellow dog cat car sitting standing "
+    "holding wearing front background USER ASSISTANT yes no there two three large small"
+).split()
+
+
+def llava_config(cfg) -> dict:
+    """The published LLaVA-1.5-7B config.json with `cfg`'s geometry written
+    out key by key (so a narrower or shallower model round-trips too)."""
+    out = json.loads(json.dumps(LLAVA_15_7B_CONFIG))
+    lm, vis = cfg.lm, cfg.vision
+    out["text_config"].update(
+        vocab_size=lm.vocab_size, hidden_size=lm.hidden_size,
+        intermediate_size=lm.intermediate_size, num_hidden_layers=lm.num_layers,
+        num_attention_heads=lm.num_heads, num_key_value_heads=lm.num_kv_heads,
+        max_position_embeddings=lm.max_position_embeddings, rms_norm_eps=lm.rms_eps,
+        rope_theta=lm.rope_base)
+    out["vision_config"].update(
+        hidden_size=vis.hidden_size, image_size=vis.image_size, intermediate_size=vis.mlp_dim,
+        num_attention_heads=vis.num_heads, num_hidden_layers=vis.num_layers,
+        patch_size=vis.patch_size, hidden_act=vis.act, layer_norm_eps=vis.ln_eps)
+    out.update(image_token_index=cfg.image_token_id, vocab_size=lm.vocab_size,
+               vision_feature_layer=vis.feature_layer)
+    return out
+
+
+def llama_tokenizer(vocab_size: int = 32000, seed: int = 0,
+                    layout: str = "prepend") -> tuple[dict, dict]:
+    """(tokenizer.json, tokenizer_config.json) contents of a seeded llama
+    BPE tokenizer with byte fallback; `layout` "prepend" (the older
+    normalizer) or "metaspace" (the newer pre-tokenizer)."""
+    if layout not in ("prepend", "metaspace"):
+        raise ValueError(f"layout {layout!r}: expected 'prepend' or 'metaspace'")
+    specials = ["<unk>", "<s>", "</s>"]
+    vocab: dict[str, int] = {t: i for i, t in enumerate(specials)}
+    for b in range(256):
+        vocab[f"<0x{b:02X}>"] = len(vocab)
+    chars = "▁" + string.ascii_letters + string.digits + string.punctuation
+    for c in chars:
+        vocab[c] = len(vocab)
+    merges: list[tuple[str, str]] = []
+
+    def add(a: str, b: str) -> None:
+        if a + b not in vocab and len(vocab) < vocab_size:
+            merges.append((a, b))
+            vocab[a + b] = len(vocab)
+
+    for w in _WORDS:
+        w = "▁" + w
+        for i in range(2, len(w) + 1):
+            add(w[: i - 1], w[i - 1])
+    rng = np.random.default_rng(seed)
+    short = [t for t in vocab if t not in specials and not t.startswith("<0x") and len(t) <= 4]
+    while len(vocab) < vocab_size:
+        for i, j in rng.integers(0, len(short), (4096, 2)).tolist():
+            a, b = short[i], short[j]
+            if a + b not in vocab:
+                add(a, b)
+                if len(a + b) <= 4:
+                    short.append(a + b)
+    added = [{"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False,
+              "normalized": False, "special": True}
+             for i, t in enumerate(specials)]
+    added += [{"id": vocab_size + j, "content": t, "single_word": False, "lstrip": False,
+               "rstrip": False, "normalized": False, "special": True}
+              for j, t in enumerate(("<image>", "<pad>"))]
+    if layout == "prepend":
+        normalizer = {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": "▁"},
+            {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}]}
+        pre_tokenizer = None
+    else:
+        normalizer = None
+        pre_tokenizer = {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "first",
+                         "split": False}
+    bos = {"SpecialToken": {"id": "<s>", "type_id": 0}}
+    tok = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added,
+        "normalizer": normalizer,
+        "pre_tokenizer": pre_tokenizer,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [bos, {"Sequence": {"id": "A", "type_id": 0}}],
+            "pair": [bos, {"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "<s>", "type_id": 1}},
+                     {"Sequence": {"id": "B", "type_id": 1}}],
+            "special_tokens": {"<s>": {"id": "<s>", "ids": [1], "tokens": ["<s>"]}},
+        },
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"},
+            {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "model": {
+            "type": "BPE", "dropout": None, "unk_token": "<unk>",
+            "continuing_subword_prefix": None, "end_of_word_suffix": None, "fuse_unk": True,
+            "byte_fallback": True, "ignore_merges": False, "vocab": vocab,
+            "merges": [f"{a} {b}" for a, b in merges],
+        },
+    }
+    conf = {
+        "tokenizer_class": "LlamaTokenizer", "bos_token": "<s>", "eos_token": "</s>",
+        "unk_token": "<unk>", "pad_token": "<pad>", "add_bos_token": True,
+        "add_eos_token": False, "clean_up_tokenization_spaces": False,
+        "legacy": layout == "prepend", "model_max_length": 4096, "padding_side": "left",
+    }
+    return tok, conf
+
+
+def write_tokenizer(path: str, vocab_size: int = 32000, seed: int = 0,
+                    layout: str = "prepend") -> None:
+    os.makedirs(path, exist_ok=True)
+    tok, conf = llama_tokenizer(vocab_size, seed, layout)
+    with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(tok, f, ensure_ascii=False)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump(conf, f, indent=2)
+
+
+def write_llava_checkpoint(path: str, state_dict: Mapping, cfg, dtype: str = "bfloat16",
+                           config: dict | None = None) -> int:
+    """An HF LLaVA checkpoint directory from the port's state dict: the
+    weights (utils/hf_export.py), `config` (default llava_config(cfg)) and
+    the seeded tokenizer. Returns the weights file's bytes."""
+    from vlrlhf_torch.utils.hf_export import export_llava, save_hf_checkpoint
+
+    nbytes = save_hf_checkpoint(export_llava(state_dict, cfg), path, "llava", dtype=dtype)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dict(config or llava_config(cfg), torch_dtype=dtype), f, indent=2)
+    write_tokenizer(path)
+    return nbytes
