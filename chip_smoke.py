@@ -64,10 +64,10 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
   6b. the same with --q_lora true --bits 4 (224 int4 LM linears): 3 steps
      with their checks and launch counts, then step ms, pairs/s, MFU, peak
      memory beside phase 6's, and one profiled step; then cli.main
-     finish_dpo's merged save over the int4 base, checked on sampled
+     finish_run's merged save over the int4 base, checked on sampled
      linears against the dequantized weight plus scale (A B)^T
   7. the `dpo` trainer's functions (cli.main build_dpo, make_eval_hook,
-     train_dpo, finish_dpo) at full LLaVA-1.5-7B width and depth on phase
+     train_dpo, finish_run) at full LLaVA-1.5-7B width and depth on phase
      6's pair: (a) 3 steps under each remat policy (full, attn, dots, mlp,
      mlp1, acts) from the same adapters: step-1 loss ln 2, loss within
      1e-3 and grad norm within 1e-2 of attn's, median step ms and peak
@@ -120,6 +120,28 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      through the native loader where it builds; where it does not (no
      libjpeg), the finding is printed and tests/fixtures' .npz (the CPU
      box's decode of the same files) is fed instead
+  10. the sft, rm and ppo trainers: (a) at full widths but 2 LM / 2 tower
+     layers, the same seeded weights and non-zero adapters on the card
+     (bf16, kernels) and the CPU (f32, plain), short text rows: an sft
+     step's loss and LoRA gradients; rm from the zero head (step-1 loss ln
+     2 on both), then step 2's loss and head + adapter gradients; ppo's
+     stats (logprobs, values, advantages over 4 rows, one with an empty
+     response) and one update's loss and gradients, without and with value
+     adapters; losses and stats within LOSS_REL_TOL, gradient cosines at
+     least GRAD_COS_MIN. (b) full LLaVA-1.5-7B width and depth, seeded
+     random bf16 weights, through cli.main's build_sft / build_rm /
+     build_ppo, train_steps / train_ppo and finish_run: sft 3 steps on 2
+     image rows of ~1000 tokens (attn remat, logits_chunk 256), step ms and
+     MFU; rm 3 steps on 2 image pairs (step-1 loss ln 2 within 1e-6), its
+     adapters/ saved; ppo with that rm as --reward_model_path: 8 image
+     prompts, 32 sampled tokens, --ppo_epochs 2 --minibatch_size 4, 2 outer
+     steps of static rollouts, a checkpoint, then a resumed third step with
+     continuous rollouts: no skipped step, every metric finite, each step's
+     first minibatch at ratio 1 within 1e-2 with nothing clipped, the
+     policy adapters bit-equal around each reward forward; rollout tokens/s,
+     reward / stats / update / outer-step ms, peak memory, GAE's host ms,
+     one profiled outer step. (c) ppo --q_lora true --bits 4 at 2 LM
+     layers: one outer step, kernels 6 and 7 launched
 
 A profiled step prints the card's busy and idle time and its kernel time by
 group (torch.profiler; the flash groups split by head dim). Phase 2's
@@ -128,11 +150,14 @@ and take the aten flash backward as yardstick everywhere (under GQA on K
 and V expanded to the query heads, without the group sum). Phase 2 also
 holds the eval path's shapes: the flash forward on 16 right-padded rows
 of S = 640 (the CE ranking forward), decode at B=16 (the static
-Generator) and chunk at B=16, C=4 (the static speculative verify). The line
-before the last is {"kernels": [...]} (launches summed over the serve,
-speculative int8 serve, /chat, int4 serve, DPO, QLoRA, trainer, eval,
-multi-adapter serving and phase 9's runs (ckpt_*), split in
-launches_by_path; the eval shapes' times under "eval");
+Generator) and chunk at B=16, C=4 (the static speculative verify), and
+ppo's: the flash forward and backward on its update minibatch (4
+right-padded rows of 660-720 tokens, S = 768) and decode at B=8 over
+caches of ~650-700 tokens. The line before the last is {"kernels": [...]}
+(launches summed over the serve, speculative int8 serve, /chat, int4
+serve, DPO, QLoRA, trainer, eval, multi-adapter serving, phase 9's runs
+(ckpt_*) and phase 10's (sft, rm, ppo, ppo_qlora4), split in
+launches_by_path; the eval and ppo shapes' times under "eval" and "ppo");
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
 and prints no result.
@@ -175,6 +200,10 @@ KERNELS = ("flash_fwd", "decode_attention", "flash_bwd", "chunk_attention", "int
 # eval's batch of 16 rows: prompt lengths around an image prompt's ~600 tokens
 EVAL_LENS = (598, 604, 611, 617, 622, 629, 633, 640, 645, 651, 656, 662, 668, 673, 681, 690)
 CE_LENS = tuple(min(n, 640) - 9 * (i % 3) for i, n in enumerate(EVAL_LENS))  # S = 640 bucket
+# ppo's update minibatch: 4 rows of prompt + response in a 768-token batch,
+# and its rollout decode: 8 slots over caches of ~650-700 tokens
+PPO_LENS = (660, 683, 702, 720)
+PPO_DECODE_LENS = (648, 655, 662, 670, 677, 684, 692, 700)
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -339,6 +368,8 @@ def phase_kernels():
         ("dpo_lm_causal", True, 2, 1024, 32, 32, 128, (1000, 900)),
         # the CE ranking forward of eval: 16 right-padded rows of uneven length
         ("ce_rows_padded", True, 16, 640, 32, 32, 128, CE_LENS),
+        # ppo's stats and update forwards: a minibatch of 4 right-padded rows
+        ("ppo_update_padded", True, 4, 768, 32, 32, 128, PPO_LENS),
     ]
     errs, times = [], {}
     for label, causal, b, s, h, hkv, d, lens in flash_cases:
@@ -382,7 +413,7 @@ def phase_kernels():
                         "bound_ms": b_ms, "bound_by": b_by}
     main = times["dpo_lm_causal"]
     results["flash_fwd"] = {"max_abs_err": max(errs), **main, "cases": times,
-                            "eval": times["ce_rows_padded"]}
+                            "eval": times["ce_rows_padded"], "ppo": times["ppo_update_padded"]}
 
     # backward: the DPO path's LM case, a GQA case and an unfrozen tower's
     # (D = 64, non-causal, the 2 tiled rows of one pair)
@@ -390,6 +421,7 @@ def phase_kernels():
         ("dpo_lm_causal", True, 2, 1024, 32, 32, 128, (1000, 900)),
         ("lm_causal_gqa", True, 2, 640, 32, 8, 128, (640, 601)),
         ("vit_noncausal", False, 2, 577, 16, 16, 64, (577, 577)),
+        ("ppo_update_padded", True, 4, 768, 32, 32, 128, PPO_LENS),
     ]
     bwd = {"dkv": {}, "dq": {}}
     bwd_errs = {"dkv": [], "dq": []}
@@ -465,12 +497,13 @@ def phase_kernels():
             bwd[kname][label] = (ms[kname], plain_ms, lib_bwd_ms, *bounds[kname], fb_ms,
                                  w_ms[kname])
         del qt, kt, vt, ke, ve, fo
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "sdpa_fwd_bwd_ms",
+            "wrapper_ms")
     for kname in ("dkv", "dq"):
-        m = bwd[kname]["dpo_lm_causal"]
         results[f"flash_bwd_{kname}"] = {
-            "max_abs_err": max(bwd_errs[kname]), "ms": m[0], "plain_ms": m[1],
-            "library_ms": m[2], "bound_ms": m[3], "bound_by": m[4], "sdpa_fwd_bwd_ms": m[5],
-            "wrapper_ms": m[6], "cases": bwd[kname],
+            "max_abs_err": max(bwd_errs[kname]),
+            **dict(zip(keys, bwd[kname]["dpo_lm_causal"])), "cases": bwd[kname],
+            "ppo": dict(zip(keys, bwd[kname]["ppo_update_padded"])),
         }
 
     results["decode_attention"] = decode_kernel_checks(randn)
@@ -584,7 +617,8 @@ def decode_kernel_checks(randn) -> dict:
     there) and the bound. The main entry is B=8 bf16 at length 640; "int8"
     holds the B=8 int8 one, "chat" both B=1 ones, "eval" the B=16 bf16 one
     (eval's static Generator; rows of EVAL_LENS, on an 8-layer cache read
-    at layers 2-5)."""
+    at layers 2-5), "ppo" the B=8 bf16 one of ppo's rollouts (rows of
+    PPO_DECODE_LENS, timed at 672)."""
     import torch.nn.functional as F
 
     from vlrlhf_torch.ops import _build
@@ -602,7 +636,9 @@ def decode_kernel_checks(randn) -> dict:
              ("bf16", "int8")),
             ("chat", 1, 32, 17, [(0,), (613,)], (613,), ("bf16", "int8")),
             # eval's static Generator: 16 rows of ~600-700 tokens
-            ("eval", 16, 8, 2, [EVAL_LENS, (0, sc - 1) * 8], (640,), ("bf16",))):
+            ("eval", 16, 8, 2, [EVAL_LENS, (0, sc - 1) * 8], (640,), ("bf16",)),
+            # ppo's rollouts: 8 slots of ~650-700 tokens
+            ("ppo", 8, 8, 2, [PPO_DECODE_LENS], (672,), ("bf16",))):
         timed_layers = range(layer, layer + 4)
         q = randn(b, nh, hd)
         kc, vc = randn(L, b, nkv, sc, hd), randn(L, b, nkv, sc, hd)
@@ -675,7 +711,7 @@ def decode_kernel_checks(randn) -> dict:
             "max_abs_err": max(r["max_abs_err"] for r in results.values()),
             "int8": results["serve_int8"],
             "chat": {"bf16": results["chat_bf16"], "int8": results["chat_int8"]},
-            "eval": results["eval_bf16"]}
+            "eval": results["eval_bf16"], "ppo": results["ppo_bf16"]}
 
 
 def wrapper_host_us() -> dict:
@@ -1561,37 +1597,58 @@ def dpo_args(**kw):
     return argparse.Namespace(**base)
 
 
+def reduced_depth_models():
+    """(cfg32, cpu, gpu): LLaVA-1.5-7B's widths at 2 LM / 2 tower layers,
+    attn remat, the same seeded weights in f32 on the CPU and in bf16 on
+    the card."""
+    import dataclasses
+
+    from vlrlhf_torch.cli.main import with_remat_policy
+    from vlrlhf_torch.models.common import init_random_
+    from vlrlhf_torch.models.config import _llava_7b
+    from vlrlhf_torch.models.vlm import VLM
+
+    full = with_remat_policy(_llava_7b(torch.float32), "attn")
+    cfg32 = dataclasses.replace(full, lm=dataclasses.replace(full.lm, num_layers=2),
+                                vision=dataclasses.replace(full.vision, num_layers=2))
+    cfg16 = dataclasses.replace(cfg32, lm=dataclasses.replace(cfg32.lm, dtype=torch.bfloat16),
+                                vision=dataclasses.replace(cfg32.vision, dtype=torch.bfloat16))
+    cpu = init_random_(VLM(cfg32, "cpu"), torch.Generator().manual_seed(1))
+    gpu = VLM(cfg16, "cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    return cfg32, cpu, gpu
+
+
+def shared_adapters(cpu, gpu, adapter_set: str = ""):
+    """r64 / alpha 16 adapters on the 7 LM linears of both models (the named
+    set `adapter_set` if given), seeded on the CPU with a non-zero b
+    (policy != reference) and copied to the card. Returns the LoraConfig."""
+    from vlrlhf_torch.lora.lora import LM_ALL_LINEARS, LoraConfig, init_lora, lora_parameters
+
+    lcfg = LoraConfig(r=64, alpha=16.0, dropout=0.0, target_patterns=LM_ALL_LINEARS)
+    gen = torch.Generator().manual_seed(2 + len(adapter_set))
+    init_lora(cpu, lcfg, gen, adapter_set=adapter_set)
+    init_lora(gpu, lcfg, torch.Generator(device="cuda").manual_seed(2), adapter_set=adapter_set)
+    with torch.no_grad():
+        for (name, pc), (_, pg) in zip(lora_parameters(cpu, adapter_set),
+                                       lora_parameters(gpu, adapter_set)):
+            if name.endswith("lora_b"):
+                pc.normal_(0.0, 0.02, generator=gen)
+            pg.copy_(pc)
+    return lcfg
+
+
 def phase_reduced_depth_dpo(bits: int = 0):
     """One DPO loss + backward at full widths, 2 LM / 2 tower layers, the
     same seeded weights and non-zero adapters on the card (bf16, kernels)
     and on the CPU (f32, plain path). bits=4: QLoRA, the LM's attention and
     MLP linears int4 (TRAIN_QUANT_PATTERNS) with the same codes on both
     before the adapters attach, so kernels 6 and 7 run on the card."""
-    import dataclasses
-
-    from vlrlhf_torch.cli.main import with_remat_policy
     from vlrlhf_torch.data.collators import CollatorConfig, DPOCollator
-    from vlrlhf_torch.lora.lora import LM_ALL_LINEARS, LoraConfig, init_lora, lora_parameters
-    from vlrlhf_torch.models.common import init_random_
-    from vlrlhf_torch.models.config import _llava_7b
-    from vlrlhf_torch.models.vlm import VLM
     from vlrlhf_torch.train.dpo import DPOConfig, adapter_params, batch_to_device, dpo_step
     from vlrlhf_torch.train.train_state import OptimizerConfig, init_train_state
 
-    full = with_remat_policy(_llava_7b(torch.float32), "attn")
-    cfg32 = dataclasses.replace(
-        full,
-        lm=dataclasses.replace(full.lm, num_layers=2),
-        vision=dataclasses.replace(full.vision, num_layers=2),
-    )
-    cfg16 = dataclasses.replace(
-        cfg32,
-        lm=dataclasses.replace(cfg32.lm, dtype=torch.bfloat16),
-        vision=dataclasses.replace(cfg32.vision, dtype=torch.bfloat16),
-    )
-    cpu = init_random_(VLM(cfg32, "cpu"), torch.Generator().manual_seed(1))
-    gpu = VLM(cfg16, "cuda")
-    gpu.load_state_dict(cpu.state_dict())
+    cfg32, cpu, gpu = reduced_depth_models()
     label = "DPO"
     if bits:
         from vlrlhf_torch.ops.quant import TRAIN_QUANT_PATTERNS
@@ -1599,15 +1656,7 @@ def phase_reduced_depth_dpo(bits: int = 0):
         label = "QLoRA int4 DPO"
         if share_int4(cpu, gpu, TRAIN_QUANT_PATTERNS, f"reduced-depth {label}") != 14:
             raise AssertionError("expected the 14 LM linears of 2 layers int4")
-    lcfg = LoraConfig(r=64, alpha=16.0, dropout=0.0, target_patterns=LM_ALL_LINEARS)
-    gen = torch.Generator().manual_seed(2)
-    init_lora(cpu, lcfg, gen)
-    init_lora(gpu, lcfg, torch.Generator(device="cuda").manual_seed(2))
-    with torch.no_grad():
-        for (name, pc), (_, pg) in zip(lora_parameters(cpu), lora_parameters(gpu)):
-            if name.endswith("lora_b"):  # non-zero b: policy != reference
-                pc.normal_(0.0, 0.02, generator=gen)
-            pg.copy_(pc)
+    lcfg = shared_adapters(cpu, gpu)
     proc = make_processor(cfg32)
     coll = DPOCollator(proc, CollatorConfig(image_size=336), seeded_image)
     batch = coll([proc.tokenize_row_dpo(pair_row(0, 12, 40, 30))])
@@ -1930,16 +1979,16 @@ def forward_memory(run, batch) -> dict:
 
 
 def finish_timed(run, args, want: dict, what: str) -> None:
-    """cli.main.finish_dpo (adapters and merged weights), timed, then the
+    """cli.main.finish_run (adapters and merged weights), timed, then the
     merged file checked on the sampled linears."""
-    from vlrlhf_torch.cli.main import finish_dpo
+    from vlrlhf_torch.cli.main import finish_run
 
     t0 = time.perf_counter()
-    finish_dpo(run, args)
+    finish_run(run, args)
     ms = (time.perf_counter() - t0) * 1e3
     path = os.path.join(args.output_dir, "merged")
     size = os.path.getsize(os.path.join(path, "params.pt"))
-    print(f"{what}: finish_dpo {ms:.3f} ms, merged file {size / 2**30:.3f} GiB", flush=True)
+    print(f"{what}: finish_run {ms:.3f} ms, merged file {size / 2**30:.3f} GiB", flush=True)
     merged_check(path, want, what)
 
 
@@ -1956,12 +2005,12 @@ def trainer_model():
     return cfg, model, make_processor(cfg)
 
 
-def host_grads(run) -> list:
-    """This step's gradient of every trainable leaf, f32 on the host (a
-    leaf that got none counts as zeros)."""
+def host_grads(state) -> list:
+    """This step's gradient of every trainable leaf of a TrainState, f32 on
+    the host (a leaf that got none counts as zeros)."""
     return [(p.grad if p.grad is not None else torch.zeros_like(p)).to("cpu", torch.float32,
                                                                         copy=True)
-            for p in run.state.trainable]
+            for p in state.trainable]
 
 
 def worst_leaf_gap(got: list, want: list) -> tuple[float, int]:
@@ -2025,9 +2074,9 @@ def trainer_remat(cfg, model, proc):
             hist += h
             ms += t
             if policy == "attn":
-                ref_grads.append(host_grads(run))
+                ref_grads.append(host_grads(run.state))
             else:
-                gaps.append(worst_leaf_gap(host_grads(run), ref_grads[k]))
+                gaps.append(worst_leaf_gap(host_grads(run.state), ref_grads[k]))
         peak = torch.cuda.max_memory_allocated() / 2**30
         ms += timed_steps(run, batch, 3)[1]  # 3 more, timed only
         mem = forward_memory(run, batch)
@@ -2824,9 +2873,9 @@ def same_tokens(got: list, want: list, what: str) -> None:
 
 def ckpt_dpo(args, loader, counted: dict) -> tuple:
     """`dpo` from a checkpoint and a dataset through the CLI's functions
-    (load_rows, load_bundle, build_dpo, train_dpo, finish_dpo): the step
+    (load_rows, load_bundle, build_dpo, train_dpo, finish_run): the step
     metrics, the launch counts and the run; the JPEGs through `loader`."""
-    from vlrlhf_torch.cli.main import build_dpo, finish_dpo, load_bundle, load_rows, train_dpo
+    from vlrlhf_torch.cli.main import build_dpo, finish_run, load_bundle, load_rows, train_dpo
     from vlrlhf_torch.train.metrics import MetricsLogger
 
     rows = load_rows(args)
@@ -2841,7 +2890,7 @@ def ckpt_dpo(args, loader, counted: dict) -> tuple:
     finally:
         logger.close()
     launches = {k: fn.launches for k, fn in counted.items() if fn.launches}
-    finish_dpo(run, args)
+    finish_run(run, args)
     with open(os.path.join(args.output_dir, "dpo_metrics.jsonl")) as f:
         metrics = [json.loads(line) for line in f]
     losses = [m["loss"] for m in metrics if "loss" in m]
@@ -3078,6 +3127,437 @@ def phase_checkpoint(dpo_ms: float) -> dict:
     return launches
 
 
+# phase 10: the sft, rm and ppo trainers
+# phase 10b's 8 image prompts: 576 image tokens + the template + these
+# words, about 650-690 tokens; with 32 new tokens, rows of about 650-720
+# valid tokens in a 768-token batch (phase 2's PPO shapes)
+PPO_PROMPT_WORDS = (60, 65, 70, 75, 80, 85, 90, 95)
+
+
+def trainer_args(**kw):
+    """The sft / rm / ppo CLI's arguments as build_sft / build_rm /
+    build_ppo, train_steps / train_ppo and finish_run read them: dpo_args
+    with 3 steps of 2 rows, no warmup and ppo's flags."""
+    base = dict(
+        warmup_ratio=0.0, max_steps=3, per_device_train_batch_size=2, run_name=None,
+        reward_model_path=None, init_kl_coef=0.2, max_new_tokens=32, ppo_epochs=2,
+        minibatch_size=4, rollout_chunk_size=8, rollout_continuous_batching=False,
+        use_value_adapter=False, use_score_scaling=False, use_score_norm=False, score_clip=None,
+    )
+    base.update(kw)
+    return dpo_args(**base)
+
+
+def sft_row(i: int, prompt_words: int, answer_words: int) -> dict:
+    """A seeded synthetic SFT row with an image."""
+    rng = np.random.default_rng(2000 + i)
+
+    def words(n):
+        return " ".join(f"w{int(x)}" for x in rng.integers(16, 31000, n))
+
+    return {"prompt": f"row {i}: {words(prompt_words)}", "img_path": f"sft{i}.png",
+            "answer": words(answer_words)}
+
+
+def ppo_prompt(i: int, words: int, image: bool = True) -> dict:
+    rng = np.random.default_rng(3000 + i)
+    return {"prompt": f"prompt {i}: " + " ".join(f"w{int(x)}" for x in
+                                                  rng.integers(16, 31000, words)),
+            "img_path": f"ppo{i}.png" if image else None}
+
+
+def drop_all_adapters(model) -> None:
+    """Detach every adapter, the named sets too."""
+    from vlrlhf_torch.models.common import Linear
+
+    drop_adapters(model)
+    for m in model.modules():
+        if isinstance(m, Linear):
+            m.lora_sets.clear()
+
+
+def grads_of(state) -> torch.Tensor:
+    return torch.cat([g.flatten() for g in host_grads(state)])
+
+
+def compare(what: str, card: dict, host: dict) -> None:
+    """Card (bf16, kernels) against CPU (f32, plain) at reduced depth: each
+    loss within LOSS_REL_TOL, each stats tensor within LOSS_REL_TOL relative
+    (Frobenius), the gradients' cosine at least GRAD_COS_MIN."""
+    parts = []
+    for k, c in card.items():
+        h = host[k]
+        if k == "grads":
+            cos = float(torch.dot(c.double(), h.double()) / (c.double().norm() * h.double().norm()))
+            parts.append(f"gradient cosine {cos:.6f} (min {GRAD_COS_MIN}) over {c.numel()}")
+            if not (torch.isfinite(c).all() and cos >= GRAD_COS_MIN):
+                raise AssertionError(f"{what}: gradients differ, cosine {cos} < {GRAD_COS_MIN}")
+            continue
+        c, h = torch.as_tensor(c).double().cpu(), torch.as_tensor(h).double().cpu()
+        rel = float((c - h).norm() / h.norm().clamp(min=1e-12))
+        parts.append(f"{k} rel err {rel:.3e}" + (f" ({float(c):.6f} vs {float(h):.6f})"
+                                                  if c.dim() == 0 else ""))
+        if not (torch.isfinite(c).all() and rel <= LOSS_REL_TOL):
+            raise AssertionError(f"{what}: {k} differs, rel {rel} > {LOSS_REL_TOL}")
+    print(f"reduced-depth {what}: " + "; ".join(parts) + f" (tol {LOSS_REL_TOL})", flush=True)
+
+
+def phase_reduced_depth_trainers():
+    """Phase 10a: sft, rm and ppo steps at full widths, 2 LM / 2 tower
+    layers, the same seeded weights and non-zero adapters on the card
+    (bf16, kernels) and on the CPU (f32, plain path), on short text rows
+    (the CPU's f32 model is slow on 576 image tokens; phase 10b runs the
+    tower)."""
+    from vlrlhf_torch.cli.main import prompt_row
+    from vlrlhf_torch.data.collators import (
+        CollatorConfig, GenerationCollator, RMCollator, SFTCollator,
+    )
+    from vlrlhf_torch.lora.lora import lora_parameters
+    from vlrlhf_torch.models.vlm import init_rm_head
+    from vlrlhf_torch.train import ppo as tp
+    from vlrlhf_torch.train.dpo import adapter_params, batch_to_device
+    from vlrlhf_torch.train.rm import RMConfig, rm_step
+    from vlrlhf_torch.train.sft import SFTConfig, sft_step
+    from vlrlhf_torch.train.train_state import OptimizerConfig, init_train_state
+
+    cfg32, cpu, gpu = reduced_depth_models()
+    models = {"card": gpu, "host": cpu}
+    lcfg = shared_adapters(cpu, gpu)
+    proc = make_processor(cfg32)
+    ccfg = CollatorConfig(image_size=cfg32.vision.image_size, bucket_multiple=32)
+    ocfg = OptimizerConfig(learning_rate=1e-3, warmup_ratio=0.0)
+
+    # SFT: one loss and backward
+    sft_batch = SFTCollator(proc, ccfg, seeded_image)([proc.tokenize_row_sft(
+        {"prompt": "row: " + " ".join(f"w{i}" for i in range(40, 70)), "img_path": None,
+         "answer": " ".join(f"w{i}" for i in range(300, 360))})])
+    out = {}
+    for name, model in models.items():
+        state = init_train_state(adapter_params(model), ocfg)
+        m = sft_step(model, SFTConfig(lora_scale=lcfg.scale, logits_chunk=256), ocfg, state,
+                     batch_to_device(sft_batch, model.device))
+        out[name] = {"loss": float(m["loss"]), "grads": grads_of(state)}
+    compare(f"SFT (1 row of {sft_batch['input_ids'].shape[1]} tokens)", out["card"], out["host"])
+
+    # RM: step 1 from the zero head is ln 2 on both; step 2's loss and
+    # gradients (head and adapters) after one update
+    pairs = [{"prompt": f"pair {j}: " + " ".join(f"w{40 * j + i}" for i in range(20)),
+              "img_path": None, "chosen": " ".join(f"w{500 + i}" for i in range(30 + j)),
+              "rejected": " ".join(f"w{900 + i}" for i in range(20 + 3 * j))} for j in range(2)]
+    rm_batch = RMCollator(proc, ccfg, seeded_image)([proc.tokenize_row_dpo(r) for r in pairs])
+    out = {}
+    for name, model in models.items():
+        snap = [p.detach().clone() for p in adapter_params(model)]
+        head = init_rm_head(cfg32.lm.hidden_size, model.device)["kernel"]
+        state = init_train_state(adapter_params(model) + [head], ocfg)
+        tb = batch_to_device(rm_batch, model.device)
+        m1 = rm_step(model, RMConfig(lora_scale=lcfg.scale), ocfg, state, head, tb)
+        if abs(float(m1["loss"]) - math.log(2.0)) > 1e-6:
+            raise AssertionError(f"RM step-1 loss on {name} is {float(m1['loss'])}, not ln 2")
+        m2 = rm_step(model, RMConfig(lora_scale=lcfg.scale), ocfg, state, head, tb)
+        out[name] = {"loss": float(m2["loss"]), "grads": grads_of(state)}
+        with torch.no_grad():  # the PPO checks start from the same adapters again
+            for p, s in zip(adapter_params(model), snap):
+                p.copy_(s)
+    compare(f"RM step 2 (2 pairs of {rm_batch['input_ids'].shape[1]} tokens, step 1 ln 2 on "
+            f"both)", out["card"], out["host"])
+
+    # PPO: 4 text prompts with responses of 8, 0 (a first-token stop), 5 and
+    # 12 tokens; the stats and one update, without and with value adapters
+    pb = GenerationCollator(proc, ccfg, seeded_image)(
+        [prompt_row(proc, ppo_prompt(i, 12 + 5 * i, False)) for i in range(4)])
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(16, 31000, (4, 12)).astype(np.int32)
+    batch = tp.rollout_to_batch(pb, tokens, 0, resp_lens=[8, 0, 5, 12])
+    scores = (rng.normal(size=4) * 3).astype(np.float32)
+    kernel = torch.from_numpy((rng.normal(size=(cfg32.lm.hidden_size, 1)) * 0.01)
+                              .astype(np.float32))
+    for value_adapters in (False, True):
+        if value_adapters:
+            shared_adapters(cpu, gpu, tp.VALUE_SET)
+        pcfg = tp.PPOConfig(lora_scale=lcfg.scale)
+        out = {}
+        for name, model in models.items():
+            v_head = {"kernel": torch.nn.Parameter(kernel.clone().to(model.device))}
+            leaves = adapter_params(model) + [v_head["kernel"]]
+            if value_adapters:
+                leaves += [p for _, p in lora_parameters(model, tp.VALUE_SET)]
+            state = init_train_state(leaves, ocfg)
+            tb = batch_to_device(batch, model.device)
+            stats = tp.compute_rollout_stats(model, pcfg, v_head, tb,
+                                             torch.from_numpy(scores).to(model.device),
+                                             pcfg.init_kl_coef, value_adapters)
+            m = tp.ppo_update(model, pcfg, ocfg, state, v_head, tb, stats, value_adapters)
+            out[name] = {"logprobs": stats.logprobs * stats.response_mask,
+                         "values": stats.values, "advantages": stats.advantages,
+                         "loss": float(m["ppo/loss/total"]), "grads": grads_of(state)}
+        compare(f"PPO stats + update ({'with' if value_adapters else 'without'} value adapters, "
+                f"4 rows of {batch['input_ids'].shape[1]} tokens)", out["card"], out["host"])
+    del cpu, gpu, models
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def counted(names=("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention",
+                   "chunk_attention", "int4_matmul", "int4_matmul_t")):
+    """The wrappers whose launch counts a path reads, by kernel name."""
+    from vlrlhf_torch.ops.chunk_attention import chunk_attention
+    from vlrlhf_torch.ops.decode_attention import decode_attention
+    from vlrlhf_torch.ops.flash_attention import flash_attention, flash_bwd_dkv, flash_bwd_dq
+    from vlrlhf_torch.ops.int4 import int4_matmul, int4_matmul_t
+
+    fns = {"flash_fwd": flash_attention, "flash_bwd_dkv": flash_bwd_dkv,
+           "flash_bwd_dq": flash_bwd_dq, "decode_attention": decode_attention,
+           "chunk_attention": chunk_attention, "int4_matmul": int4_matmul,
+           "int4_matmul_t": int4_matmul_t}
+    return {n: fns[n] for n in names}
+
+
+def zero_counts(fns: dict) -> None:
+    for fn in fns.values():
+        fn.launches = 0
+
+
+def read_counts(fns: dict) -> dict:
+    return {n: fn.launches for n, fn in fns.items()}
+
+
+def train_timed(run, args, what: str, launches_out: dict, path: str):
+    """cli.main.train_steps over the run's rows (counts zeroed just before,
+    read just after); per-step ms from the metrics log's step times."""
+    from vlrlhf_torch.cli.main import train_steps
+    from vlrlhf_torch.train.metrics import MetricsLogger
+
+    fns = counted()
+    logger = MetricsLogger(args.output_dir, what, flops_per_token=run.flops_per_token,
+                           flops_per_image=run.flops_per_image)
+    zero_counts(fns)
+    t0 = time.perf_counter()
+    try:
+        steps = train_steps(run, args, logger)
+    finally:
+        logger.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_out[path] = read_counts(fns)
+    with open(logger.path) as f:
+        recs = [json.loads(line) for line in f]
+    return steps, recs, wall
+
+
+def phase_trainers() -> dict:
+    """Phase 10b: sft, rm and ppo at full LLaVA-1.5-7B width and depth,
+    seeded random bf16 weights, through cli.main's build_* / train_* /
+    finish_run; 10c: ppo --q_lora true --bits 4 at 2 LM layers. Returns the
+    launch counts of paths sft, rm, ppo and ppo_qlora4."""
+    import dataclasses
+    import shutil
+
+    from vlrlhf_torch.cli.main import build_ppo, build_rm, build_sft, finish_run, train_ppo
+    from vlrlhf_torch.lora.lora import lora_parameters
+    from vlrlhf_torch.train.metrics import MetricsLogger
+    from vlrlhf_torch.train.ppo import gae_host
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"phase10-{os.getpid()}")
+    launches: dict = {}
+    try:
+        cfg, model, proc = trainer_model()
+        model.lm.cfg = dataclasses.replace(model.lm.cfg, remat_policy="attn")
+
+        # sft: 3 steps on 2 image rows of ~1000 tokens
+        # 2 rows make one batch an epoch: 3 epochs give 3 steps
+        args = trainer_args(output_dir=os.path.join(root, "sft"), num_train_epochs=3.0)
+        rows = [sft_row(i, 150, 260) for i in range(2)]
+        run = build_sft(cfg, model, proc, args, rows, seeded_image)
+        batch = run.collator([run.tokenize_fn(r) for r in rows])
+        real = batch["pad_mask"].sum(1).tolist()
+        _, recs, wall = train_timed(run, args, "sft", launches, "sft")
+        losses = [r["loss"] for r in recs]
+        step_ms = [r["perf/step_time_s"] * 1e3 for r in recs if "perf/step_time_s" in r]
+        mfu = [r["perf/mfu"] for r in recs if "perf/mfu" in r]
+        print(f"phase 10b sft: 2 image rows of {real} tokens padded to "
+              f"{batch['input_ids'].shape[1]}, attn remat, logits_chunk 256: losses {losses}; "
+              f"step ms {[round(x, 3) for x in step_ms]}; MFU {mfu}; {len(recs)} steps in "
+              f"{wall:.1f} s; launches {json.dumps(launches['sft'])}", flush=True)
+        if len(recs) != 3 or not all(np.isfinite(x) for x in losses):
+            raise AssertionError(f"sft: {recs}")
+        del run
+        drop_all_adapters(model)
+
+        # rm: 3 steps on 2 image pairs from ln 2; adapters/ saved for ppo
+        args = trainer_args(output_dir=os.path.join(root, "rm"), learning_rate=1e-4,
+                            num_train_epochs=3.0)
+        rows = [pair_row(20 + i, 40, 60 + 10 * i, 50) for i in range(2)]
+        run = build_rm(cfg, model, proc, args, rows, seeded_image)
+        _, recs, wall = train_timed(run, args, "rm", launches, "rm")
+        print(f"phase 10b rm: 2 image pairs: " + "; ".join(
+            f"step {r['step']} loss {r['loss']!r} accuracy {r['accuracy']} chosen "
+            f"{r['reward/chosen']:.6g} rejected {r['reward/rejected']:.6g} grad_norm "
+            f"{r['grad_norm']:.6g}" for r in recs) + f"; {wall:.1f} s; launches "
+              f"{json.dumps(launches['rm'])}", flush=True)
+        if abs(recs[0]["loss"] - math.log(2.0)) > 1e-6:
+            raise AssertionError(f"rm step-1 loss {recs[0]['loss']} is not ln 2 within 1e-6")
+        if len(recs) != 3 or not all(np.isfinite(v) for r in recs for v in r.values()):
+            raise AssertionError(f"rm: {recs}")
+        finish_run(run, args)
+        rm_path = os.path.join(args.output_dir, "adapters")
+        del run
+        drop_all_adapters(model)
+
+        # ppo: 8 image prompts, 32 sampled tokens, the rm above as reward; 2
+        # outer steps of static rollouts, a checkpoint, then a resumed third
+        # step with continuous rollouts
+        torch.cuda.reset_peak_memory_stats()
+        args = trainer_args(output_dir=os.path.join(root, "ppo"), reward_model_path=rm_path,
+                            per_device_train_batch_size=8, max_steps=2, save_steps=2,
+                            logits_chunk=0)
+        rows = [ppo_prompt(i, w) for i, w in enumerate(PPO_PROMPT_WORDS)]
+        run = build_ppo(cfg, model, proc, args, rows, seeded_image)
+        policy = [p for _, p in lora_parameters(model)]
+        reward_fn = run.reward_fn
+        bit_equal = []
+
+        def reward_checked(tb):
+            before = [p.detach().clone() for p in policy]
+            out = reward_fn(tb)
+            bit_equal.append(all(torch.equal(a, p) for a, p in zip(before, policy)))
+            return out
+
+        run.reward_fn = reward_checked
+        infos = []
+        fns = counted()
+        logger = MetricsLogger(args.output_dir, "ppo", flops_per_token=run.flops_per_token,
+                               flops_per_image=run.flops_per_image)
+        zero_counts(fns)
+        try:
+            train_ppo(run, proc, args, logger, on_step=lambda s, info: infos.append(info))
+            args.rollout_continuous_batching = True
+            args.max_steps, args.resume_from_checkpoint = 3, "auto"
+            train_ppo(run, proc, args, logger, on_step=lambda s, info: infos.append(info))
+        finally:
+            logger.close()
+        launches["ppo"] = read_counts(fns)
+        peak = torch.cuda.max_memory_allocated()
+        with open(logger.path) as f:
+            recs = [json.loads(line) for line in f]
+        ppo_report(recs, infos, bit_equal, launches["ppo"], peak)
+        # the host cost of GAE at this run's stats shape (B, L - 1)
+        n = infos[0]["shape"][1] - 1
+        mask = np.ones((len(rows), n), np.float32)
+        deltas = np.random.default_rng(0).normal(size=(len(rows), n)).astype(np.float32)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            gae_host(deltas, mask, 0.95)
+        print(f"phase 10b gae_host ({len(rows)} x {n}, f32 numpy on the host): "
+              f"{(time.perf_counter() - t0) * 100:.3f} ms a call", flush=True)
+        # one profiled outer step (static rollouts)
+        args.rollout_continuous_batching = False
+        args.max_steps, args.resume_from_checkpoint, args.save_steps = 1, None, 100
+        logger = MetricsLogger(os.path.join(root, "ppo_profiled"), "ppo")
+        try:
+            profile_breakdown(lambda: train_ppo(run, proc, args, logger), "PPO outer step")
+        finally:
+            logger.close()
+        del run, policy, reward_fn
+        drop_all_adapters(model)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["ppo_qlora4"] = phase_ppo_qlora4(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def ppo_report(recs, infos, bit_equal, launches, peak) -> None:
+    """Phase 10b's PPO checks and numbers: no skipped step, every metric
+    finite, each step's first minibatch at ratio 1 (within bf16's 1e-2) and
+    nothing clipped, the policy adapters bit-equal around each reward
+    forward, kernels 1-4 launched."""
+    import statistics
+
+    if any("ppo/skipped" in r for r in recs) or len(infos) != 3:
+        raise AssertionError(f"a PPO step was skipped: {recs}")
+    bad = [(r["step"], k) for r in recs for k, v in r.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite PPO metrics: {bad}")
+    first = [info["history"][0] for info in infos]
+    devs = [f["ppo/ratio_max_abs_dev"] for f in first]
+    clips = [f["ppo/policy/clipfrac"] for f in first]
+    if max(devs) > 1e-2 or max(clips) != 0.0:
+        raise AssertionError(f"first minibatch ratio deviation {devs} (max 1e-2) or clipfrac "
+                             f"{clips} (want 0)")
+    if not bit_equal or not all(bit_equal):
+        raise AssertionError(f"the policy adapters changed across the reward forward: {bit_equal}")
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"ppo did not launch {name}: {launches}")
+    for i, (r, info) in enumerate(zip(recs, infos)):
+        n_mb = len(info["history"])
+        print(f"phase 10b ppo step {i + 1} ({'continuous' if i == 2 else 'static'} rollouts): "
+              f"resp_lens {info['resp_lens'].tolist()}, rollout {info['rollout_s'] * 1e3:.3f} ms "
+              f"({r['ppo/rollout_tok_s']:.1f} tokens/s), reward {info['reward_s'] * 1e3:.3f} ms, "
+              f"stats {info['stats_s'] * 1e3:.3f} ms, update {info['update_s'] * 1e3:.3f} ms "
+              f"({info['update_s'] * 1e3 / n_mb:.3f} ms per minibatch x {n_mb}), outer step "
+              f"{info['step_s'] * 1e3:.3f} ms; first minibatch ratio_max_abs_dev {devs[i]!r} "
+              f"clipfrac {clips[i]}; kl {r['ppo/kl']:.6g} mean_score {r['ppo/mean_score']:.6g} "
+              f"loss {r['ppo/loss/total']:.6g} grad_norm {r['grad_norm']:.6g}"
+              + (f" mfu {r['perf/mfu']:.4f}" if "perf/mfu" in r else ""), flush=True)
+    print(f"phase 10b ppo: median outer step "
+          f"{statistics.median(i['step_s'] for i in infos) * 1e3:.3f} ms; peak memory "
+          f"{peak / 2**30:.3f} GiB; policy adapters bit-equal around {len(bit_equal)} reward "
+          f"forwards; launches {json.dumps(launches)}", flush=True)
+
+
+def phase_ppo_qlora4(root: str) -> dict:
+    """Phase 10c: ppo --q_lora true --bits 4 at full widths, 2 LM / 2 tower
+    layers (the LM's 14 linears int4 before the adapters attach), the
+    synthetic length reward, one outer step of 4 image prompts; kernels 6
+    and 7 must launch. Returns its launch counts."""
+    import dataclasses
+
+    from vlrlhf_torch.cli.main import build_ppo, train_ppo
+    from vlrlhf_torch.models.common import init_random_
+    from vlrlhf_torch.models.config import _llava_7b
+    from vlrlhf_torch.models.vlm import VLM
+    from vlrlhf_torch.train.metrics import MetricsLogger
+
+    full = _llava_7b(torch.bfloat16)
+    cfg = dataclasses.replace(full, lm=dataclasses.replace(full.lm, num_layers=2,
+                                                           remat_policy="attn"),
+                              vision=dataclasses.replace(full.vision, num_layers=2))
+    model = init_random_(VLM(cfg, "cuda"), torch.Generator(device="cuda").manual_seed(3))
+    proc = make_processor(cfg)
+    args = trainer_args(output_dir=os.path.join(root, "ppo_qlora4"), q_lora=True, bits=4,
+                        synthetic=1, per_device_train_batch_size=4, max_steps=1,
+                        max_new_tokens=16, ppo_epochs=1, minibatch_size=0)
+    run = build_ppo(cfg, model, proc, args, [ppo_prompt(i, 20) for i in range(4)], seeded_image)
+    n4 = sum(1 for m in model.modules() if getattr(m, "weight_q4", None) is not None)
+    fns = counted()
+    logger = MetricsLogger(args.output_dir, "ppo")
+    infos = []
+    zero_counts(fns)
+    try:
+        train_ppo(run, proc, args, logger, on_step=lambda s, info: infos.append(info))
+    finally:
+        logger.close()
+    launches = read_counts(fns)
+    with open(logger.path) as f:
+        recs = [json.loads(line) for line in f]
+    print(f"phase 10c ppo QLoRA int4 (2 LM layers, {n4} int4 linears): {json.dumps(recs)}; "
+          f"launches {json.dumps(launches)}", flush=True)
+    if n4 != 14 or len(infos) != 1 or any("ppo/skipped" in r for r in recs) or \
+            not all(np.isfinite(v) for r in recs for v in r.values()):
+        raise AssertionError(f"ppo QLoRA int4: {n4} int4 linears, {recs}")
+    if launches["int4_matmul"] <= 0 or launches["int4_matmul_t"] <= 0:
+        raise AssertionError(f"ppo QLoRA int4 did not launch kernels 6 and 7: {launches}")
+    del run, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3114,10 +3594,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ckpt_launches = phase_checkpoint(dpo_stats["median_ms"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_reduced_depth_trainers()
+    trainer10_launches = phase_trainers()
     runs = {"serve": serve_launches, "serve_int8_spec": spec_launches, "chat_int8": chat_launches,
             "serve_int4": int4_launches, "dpo": dpo_launches, "dpo_qlora4": qlora_launches,
             "dpo_trainer": trainer_launches, "eval": eval_launches,
-            "serve_adapters": adapter_launches, **ckpt_launches}
+            "serve_adapters": adapter_launches, **ckpt_launches, **trainer10_launches}
     names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention", "chunk_attention",
              "int4_matmul", "int4_matmul_t")
     by_path = {name: {path: counts[name] for path, counts in runs.items() if name in counts}
@@ -3163,6 +3647,14 @@ def main() -> int:
                 if by_path[name].get(path, 0) <= 0]
     if missing9:
         raise AssertionError(f"phase 9 paths that did not launch their kernels: {missing9}")
+    want10 = {"sft": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
+              "rm": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
+              "ppo": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention"),
+              "ppo_qlora4": ("int4_matmul", "int4_matmul_t")}
+    missing10 = [(path, name) for path, names in want10.items() for name in names
+                 if by_path[name].get(path, 0) <= 0]
+    if missing10:
+        raise AssertionError(f"phase 10 paths that did not launch their kernels: {missing10}")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
@@ -3170,7 +3662,7 @@ def main() -> int:
          "max_abs_err": kernels[name]["max_abs_err"], "ms": kernels[name]["ms"],
          "plain_ms": kernels[name]["plain_ms"], "bound_ms": kernels[name]["bound_ms"],
          "bound_by": kernels[name]["bound_by"], "library_ms": kernels[name]["library_ms"],
-         **{k: kernels[name][k] for k in ("int8", "chat", "eval") if k in kernels[name]}}
+         **{k: kernels[name][k] for k in ("int8", "chat", "eval", "ppo") if k in kernels[name]}}
         for name in names
     ]}
     print(json.dumps(line))

@@ -1,6 +1,6 @@
 """Checkpoints, resume, preemption and the merged save (vlrlhf_torch
 train/checkpoint.py, train/loop.py, lora.merge_lora, cli.main train_dpo /
-finish_dpo), on the CPU in f32.
+finish_run), on the CPU in f32.
 
   - 4 `dpo` steps straight are bit-identical to 2 steps + a checkpoint + a
     resume (`auto`, and an explicit checkpoints path) + 2 steps: adapters,

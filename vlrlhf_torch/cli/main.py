@@ -1,5 +1,6 @@
-"""CLI: `python -m vlrlhf_torch.cli.main serve|dpo|eval|merge` (counterpart of
-vlrlhf_tpu's `vlrlhf serve`, `dpo`, `eval` and `merge`, cli/main.py).
+"""CLI: `python -m vlrlhf_torch.cli.main serve|dpo|sft|rm|ppo|eval|merge`
+(counterpart of vlrlhf_tpu's `vlrlhf` subcommands of those names,
+cli/main.py).
 
 Weights come from an HF LLaVA checkpoint directory (--model_name_or_path:
 safetensors or pytorch_model*.bin, config.json, tokenizer.json;
@@ -36,28 +37,48 @@ merged save (--merge_adapter_after_training). It writes
 merged/ and dpo_samples.jsonl, in the port's own format
 (train/checkpoint.py), not vlrlhf_tpu's orbax, and, from a checkpoint,
 merged_hf/: the merged weights as an HF checkpoint (utils/hf_export.py).
-merge: --adapter_path (a dpo run's adapters/) folded into the checkpoint's
-weights; writes <output_dir>/merged and, with --export_format hf,
-<output_dir>/merged_hf.
+sft: LoRA SFT on the assistant tokens (SFTCollator rows; --logits_chunk).
+rm: a reward model, LoRA plus a zero-initialised scalar head on the last
+real token, Bradley-Terry over [chosen; rejected] pairs; its adapters/
+holds "adapters/<key>" and "rm_head/kernel".
+ppo: PPO on one model: rollouts with the policy's adapters (static in
+chunks of --rollout_chunk_size, or --rollout_continuous_batching), the
+reward of an rm run (--reward_model_path, its adapters held as a named set
+on the same base) or with --synthetic a length reward, the adapter-off
+reference, the stats pass and --ppo_epochs over --minibatch_size
+minibatches, value head on the policy trunk or its own LoRA set
+(--use_value_adapter); <output_dir>/ppo_metrics.jsonl, ppo_gamelog.jsonl,
+checkpoints/ and adapters/ ("adapters/<key>", "v_head/kernel"[,
+"value_adapters/<key>"]). sft, rm and ppo share dpo's training flags
+(`setup_training`: --q_lora, --lora_*, the optimizer).
+merge: --adapter_path (a training run's adapters/; of an rm or ppo run
+only the LoRA adapters) folded into the checkpoint's weights; writes
+<output_dir>/merged and, with --export_format hf, <output_dir>/merged_hf.
 
 Flag names follow vlrlhf_tpu's. Differences: `--device` names the device
 explicitly (default cuda; an absent device is an error, never a silent CPU
-run). Images are JPEGs decoded by the native loader (data/native_image.py;
-no PIL). --synthetic N gives a scaled-down family model with seeded random
-weights and the ToyTokenizer (for dpo also N synthetic preference pairs,
-for every path all-zero images). Its
+run). ppo reads --reward_model_path also with --synthetic (vlrlhf_tpu
+scores synthetic runs by length whatever the flag says). Images are JPEGs
+decoded by the native loader (data/native_image.py; no PIL). --synthetic N
+gives a scaled-down family model with seeded random weights and the
+ToyTokenizer (for dpo and rm also N synthetic preference pairs, for sft
+and ppo N prompts with one answer, for every path all-zero images). Its
 widths (hidden 32, intermediate 64) are no multiple of 128, so
 --quantize int4 and --q_lora --bits 4 quantize every selected linear to
 int8 there, as vlrlhf_tpu does (ops/quant.py). A flag of
-vlrlhf_tpu's dpo that the port does not honour yet is refused with an
-error, never ignored. As in vlrlhf_tpu, --use_lora false still trains
+vlrlhf_tpu's that the port does not honour is refused with an error,
+never ignored (sft, rm and ppo refuse --eval_steps and
+--freeze_vision_tower, which vlrlhf_tpu accepts there and ignores; ppo
+refuses --num_train_epochs). As in vlrlhf_tpu, --use_lora false still trains
 LoRA adapters: it only turns LoRA dropout off and counts 6N training FLOPs.
 
 `load_bundle` / `load_rows` give the model and the dataset rows;
-`build_server` / `build_dpo` / `build_eval` are the bodies of serve / dpo /
-eval minus argument parsing and the loop; `train_dpo` is the loop with its
-eval, checkpoint and resume, `finish_dpo` the final saves, `load_judge` and
-`run_eval` the benchmark run. chip_smoke.py drives the same functions.
+`build_server` / `build_dpo` / `build_sft` / `build_rm` / `build_ppo` /
+`build_eval` are the bodies of the commands minus argument parsing and the
+loop; `train_steps` is the loop of dpo, sft and rm with its checkpoints and
+resume (`train_dpo` adds the eval hook), `train_ppo` the outer loop of ppo,
+`finish_run` the final saves, `load_judge` and `run_eval` the benchmark
+run. chip_smoke.py drives the same functions.
 """
 
 from __future__ import annotations
@@ -71,9 +92,11 @@ import torch
 
 if TYPE_CHECKING:
     from vlrlhf_torch.data.collators import DPOCollator
+    from vlrlhf_torch.generate.engine import GenerateConfig
     from vlrlhf_torch.lora.lora import LoraConfig
     from vlrlhf_torch.models.vlm import VLM
     from vlrlhf_torch.train.dpo import DPOConfig
+    from vlrlhf_torch.train.ppo import PPOConfig
     from vlrlhf_torch.train.train_state import OptimizerConfig, TrainState
 
 
@@ -222,7 +245,9 @@ def collator_config(cfg, family, processor, args):
 
 def load_adapter_specs(specs) -> tuple[Optional[list], Optional[list]]:
     """--adapter NAME=PATH ... -> (names, adapter sets read from each PATH,
-    the `adapters` directory of a `dpo` run), or (None, None)."""
+    the `adapters` directory of a training run; an rm or ppo run's LoRA
+    adapters only), or (None, None)."""
+    from vlrlhf_torch.lora.lora import adapters_of
     from vlrlhf_torch.train.checkpoint import load_params
 
     if not specs:
@@ -233,7 +258,7 @@ def load_adapter_specs(specs) -> tuple[Optional[list], Optional[list]]:
         if not name or not path:
             raise SystemExit(f"--adapter expects NAME=PATH, got {spec!r}")
         names.append(name)
-        sets.append(load_params(path))
+        sets.append(adapters_of(load_params(path)))
     return names, sets
 
 
@@ -334,20 +359,25 @@ def load_rows(args) -> list[dict]:
     return rows
 
 
-def synthetic_rows(n: int) -> list[dict]:
-    """N synthetic preference pairs (vlrlhf_tpu's `_synthetic_rows`)."""
+def synthetic_rows(n: int, with_pairs: bool = True) -> list[dict]:
+    """N synthetic rows (vlrlhf_tpu's `_synthetic_rows`): preference pairs,
+    or with `with_pairs` False prompts with one answer (sft, ppo)."""
     rng = np.random.default_rng(0)
-    return [
-        {
+    rows = []
+    for i in range(n):
+        row = {
             "prompt": f"describe item {i} " + " ".join(
                 f"w{rng.integers(100)}" for _ in range(int(rng.integers(3, 9)))
             ),
             "img_path": None,
-            "chosen": f"a good answer {i} with detail",
-            "rejected": f"a bad answer {i}",
         }
-        for i in range(n)
-    ]
+        if with_pairs:
+            row["chosen"] = f"a good answer {i} with detail"
+            row["rejected"] = f"a bad answer {i}"
+        else:
+            row["answer"] = f"an answer {i}"
+        rows.append(row)
+    return rows
 
 
 @dataclasses.dataclass
@@ -379,28 +409,18 @@ class DPORun:
         return state_tree(self.state, self.keys)
 
 
-def build_dpo(cfg, model, processor, args, rows: list, image_loader=None) -> DPORun:
-    """Adapters (--lora_target_modules; the family's default is every LM
-    attention and MLP linear), optimizer, collator, the holdout split
-    (with --eval_steps) and, with --precompute_ref_logps, the reference
-    pass over the training rows. `model` holds seeded base weights on its
-    device already; with --q_lora they are quantized in place (--bits,
-    TRAIN_QUANT_PATTERNS, or the _WIDE set with --q_lora_vision) before the
-    adapters attach, the order of vlrlhf_tpu/cli/main.py:308-338."""
-    from vlrlhf_torch.data.collators import CollatorConfig, DPOCollator
-    from vlrlhf_torch.data.datasets import train_eval_split
-    from vlrlhf_torch.lora.lora import LM_ALL_LINEARS, LoraConfig, init_lora, lora_keys
-    from vlrlhf_torch.models.config import FAMILIES
-    from vlrlhf_torch.train.dpo import DPOConfig, adapter_params, precompute_ref_logps
-    from vlrlhf_torch.train.flops import dpo_flops_per_token, vision_flops_per_image
-    from vlrlhf_torch.train.train_state import OptimizerConfig, init_train_state
+def setup_training(model, args) -> tuple[LoraConfig, OptimizerConfig]:
+    """The setup every trainer shares (vlrlhf_tpu `_setup_training`,
+    cli/main.py:291-353): with --q_lora the base's linears are quantized in
+    place (--bits, TRAIN_QUANT_PATTERNS, or the _WIDE set with
+    --q_lora_vision) before the adapters attach (--lora_target_modules; the
+    family's default is every LM attention and MLP linear, drawn from
+    --seed), then the optimizer's config. `model` holds its base weights on
+    its device already."""
+    from vlrlhf_torch.lora.lora import LM_ALL_LINEARS, LoraConfig, init_lora
+    from vlrlhf_torch.train.train_state import OptimizerConfig
 
-    family = FAMILIES[cfg.family]
-    use_lora = getattr(args, "use_lora", True)
-    eval_rows = []
-    if getattr(args, "eval_steps", 0):
-        rows, eval_rows = train_eval_split(rows, args.eval_ratio, args.seed)
-    if getattr(args, "q_lora", False) and use_lora:
+    if getattr(args, "q_lora", False) and getattr(args, "use_lora", True):
         from vlrlhf_torch.ops.quant import (
             TRAIN_QUANT_PATTERNS, TRAIN_QUANT_PATTERNS_WIDE, quantize_params,
         )
@@ -419,6 +439,27 @@ def build_dpo(cfg, model, processor, args, rows: list, image_loader=None) -> DPO
         weight_decay=args.weight_decay, max_grad_norm=args.max_grad_norm,
         grad_accum_steps=args.gradient_accumulation_steps,
     )
+    return lcfg, ocfg
+
+
+def build_dpo(cfg, model, processor, args, rows: list, image_loader=None) -> DPORun:
+    """`setup_training` (quantization, adapters, optimizer), then the DPO
+    config, collator, the holdout split (with --eval_steps) and, with
+    --precompute_ref_logps, the reference pass over the training rows."""
+    from vlrlhf_torch.data.collators import CollatorConfig, DPOCollator
+    from vlrlhf_torch.data.datasets import train_eval_split
+    from vlrlhf_torch.lora.lora import lora_keys
+    from vlrlhf_torch.models.config import FAMILIES
+    from vlrlhf_torch.train.dpo import DPOConfig, adapter_params, precompute_ref_logps
+    from vlrlhf_torch.train.flops import dpo_flops_per_token, vision_flops_per_image
+    from vlrlhf_torch.train.train_state import init_train_state
+
+    family = FAMILIES[cfg.family]
+    use_lora = getattr(args, "use_lora", True)
+    eval_rows = []
+    if getattr(args, "eval_steps", 0):
+        rows, eval_rows = train_eval_split(rows, args.eval_ratio, args.seed)
+    lcfg, ocfg = setup_training(model, args)
     dcfg = DPOConfig(
         beta=args.beta, label_smoothing=args.label_smoothing, loss_type=args.loss_type,
         reference_free=args.reference_free, lora_scale=lcfg.scale,
@@ -515,7 +556,7 @@ def make_eval_hook(run: DPORun, processor, args, logger):
     return on_step
 
 
-def maybe_resume(args, run: DPORun, ckpt) -> int:
+def maybe_resume(args, run, ckpt) -> int:
     """--resume_from_checkpoint: 'auto' (or 'true') resumes the latest step
     in <output_dir>/checkpoints, a path that manager's latest. Returns the
     step to count on from (0 for a fresh run)."""
@@ -537,9 +578,14 @@ def maybe_resume(args, run: DPORun, ckpt) -> int:
 
 
 def train_dpo(run: DPORun, processor, args, logger) -> int:
-    """The training loop of `dpo`: resume, prefetched batches, the eval
-    hook, a checkpoint every --save_steps; returns the last step once the
-    last checkpoint is on disk."""
+    """The training loop of `dpo`: `train_steps` with the eval hook."""
+    return train_steps(run, args, logger, make_eval_hook(run, processor, args, logger))
+
+
+def train_steps(run, args, logger, on_step=None) -> int:
+    """The training loop of dpo, sft and rm: resume, prefetched batches,
+    `on_step`, a checkpoint every --save_steps; returns the last step once
+    the last checkpoint is on disk."""
     import os
 
     from vlrlhf_torch.train.checkpoint import CheckpointManager
@@ -554,8 +600,7 @@ def train_dpo(run: DPORun, processor, args, logger) -> int:
         return run_training(
             run.step, batches, run.model.device, logger, logging_steps=args.logging_steps,
             max_steps=args.max_steps, checkpoint_manager=ckpt, state_fn=run.state_tree,
-            save_steps=args.save_steps, start_step=start,
-            on_step=make_eval_hook(run, processor, args, logger),
+            save_steps=args.save_steps, start_step=start, on_step=on_step,
         )
     finally:
         ckpt.close()
@@ -585,10 +630,12 @@ def save_merged(model, scale: float, args) -> dict:
     return merged
 
 
-def finish_dpo(run: DPORun, args) -> None:
-    """<output_dir>/adapters (the trained adapters by key) and, with
+def finish_run(run, args) -> None:
+    """<output_dir>/adapters (the trained leaves by key: the adapters, and
+    for rm / ppo the head and value adapters beside them) and, with
     --merge_adapter_after_training, `save_merged`'s merged (and merged_hf)
-    weights (vlrlhf_tpu `_finish`, cli/main.py:366-397)."""
+    weights, which fold in the policy's adapters only (vlrlhf_tpu
+    `_finish`, cli/main.py:366-397)."""
     import os
 
     from vlrlhf_torch.train.checkpoint import save_params
@@ -615,8 +662,463 @@ def cmd_dpo(args):
         step = train_dpo(run, processor, args, logger)
     finally:
         logger.close()
-    finish_dpo(run, args)
+    finish_run(run, args)
     print(f"dpo: step {step} on {device}; metrics in {logger.path}; saved to "
+          f"{args.output_dir}", flush=True)
+
+
+@dataclasses.dataclass
+class TrainRun:
+    """An sft or rm run besides its data iterator: `step` takes a device
+    batch and returns its metrics as 0-dim device tensors."""
+
+    model: VLM
+    ocfg: OptimizerConfig
+    lcfg: LoraConfig
+    state: TrainState
+    keys: list  # the trainable leaves' JAX-layout keys, in the optimizer's order
+    collator: Callable[[list], dict]
+    tokenize_fn: Callable[[dict], dict]
+    rows: list
+    step: Callable[[dict], dict]
+    flops_per_token: float
+    flops_per_image: float
+
+    def state_tree(self) -> dict:
+        from vlrlhf_torch.train.train_state import state_tree
+
+        return state_tree(self.state, self.keys)
+
+
+def build_sft(cfg, model, processor, args, rows: list, image_loader=None) -> TrainRun:
+    """`setup_training`, then SFT in adapter mode over SFTCollator batches
+    of tokenize_row_sft rows (vlrlhf_tpu `cmd_sft`, cli/main.py:600-663)."""
+    from vlrlhf_torch.data.collators import SFTCollator
+    from vlrlhf_torch.lora.lora import lora_keys
+    from vlrlhf_torch.models.config import FAMILIES
+    from vlrlhf_torch.train.dpo import adapter_params
+    from vlrlhf_torch.train.flops import sft_flops_per_token, vision_flops_per_image
+    from vlrlhf_torch.train.sft import SFTConfig, sft_step
+    from vlrlhf_torch.train.train_state import init_train_state
+
+    use_lora = getattr(args, "use_lora", True)
+    lcfg, ocfg = setup_training(model, args)
+    scfg = SFTConfig(lora_scale=lcfg.scale, lora_dropout=args.lora_dropout if use_lora else 0.0,
+                     dropout_seed=args.seed, logits_chunk=args.logits_chunk)
+    state = init_train_state(adapter_params(model), ocfg)
+    return TrainRun(
+        model=model, ocfg=ocfg, lcfg=lcfg, state=state, keys=lora_keys(model),
+        collator=SFTCollator(processor, collator_config(cfg, FAMILIES[cfg.family], processor, args),
+                             image_loader),
+        tokenize_fn=processor.tokenize_row_sft, rows=rows,
+        step=lambda batch: sft_step(model, scfg, ocfg, state, batch),
+        flops_per_token=sft_flops_per_token(cfg, args.max_length,
+                                            "adapter" if use_lora else "full"),
+        flops_per_image=vision_flops_per_image(cfg.vision),
+    )
+
+
+def build_rm(cfg, model, processor, args, rows: list, image_loader=None) -> TrainRun:
+    """`setup_training`, then the reward model: the adapters plus a zero
+    (H, 1) head, keyed "adapters/<key>" and "rm_head/kernel" as vlrlhf_tpu
+    saves {"adapters", "rm_head"}, over RMCollator [chosen; rejected]
+    batches (vlrlhf_tpu `cmd_rm`, cli/main.py:666-734)."""
+    from vlrlhf_torch.data.collators import RMCollator
+    from vlrlhf_torch.lora.lora import lora_keys
+    from vlrlhf_torch.models.config import FAMILIES
+    from vlrlhf_torch.models.vlm import init_rm_head
+    from vlrlhf_torch.train.dpo import adapter_params
+    from vlrlhf_torch.train.flops import rm_flops_per_token, vision_flops_per_image
+    from vlrlhf_torch.train.rm import RMConfig, rm_step
+    from vlrlhf_torch.train.train_state import init_train_state
+
+    use_lora = getattr(args, "use_lora", True)
+    lcfg, ocfg = setup_training(model, args)
+    rcfg = RMConfig(lora_scale=lcfg.scale, lora_dropout=args.lora_dropout if use_lora else 0.0,
+                    dropout_seed=args.seed)
+    head = init_rm_head(cfg.lm.hidden_size, model.device)["kernel"]
+    state = init_train_state(adapter_params(model) + [head], ocfg)
+    return TrainRun(
+        model=model, ocfg=ocfg, lcfg=lcfg, state=state,
+        keys=[f"adapters/{k}" for k in lora_keys(model)] + ["rm_head/kernel"],
+        collator=RMCollator(processor, collator_config(cfg, FAMILIES[cfg.family], processor, args),
+                            image_loader),
+        tokenize_fn=processor.tokenize_row_dpo, rows=rows,
+        step=lambda batch: rm_step(model, rcfg, ocfg, state, head, batch),
+        flops_per_token=rm_flops_per_token(cfg, args.max_length,
+                                           "adapter" if use_lora else "full"),
+        flops_per_image=vision_flops_per_image(cfg.vision),
+    )
+
+
+def _train_cmd(args, name: str, build, with_pairs: bool) -> None:
+    """The body of `sft` and `rm`: rows, the model, `build`, the loop, the
+    final saves."""
+    from vlrlhf_torch.train.metrics import MetricsLogger
+
+    device = resolve_device(args.device)
+    if args.synthetic and args.data_path:
+        raise SystemExit("--synthetic N makes its own rows: drop --data_path")
+    rows = synthetic_rows(args.synthetic, with_pairs) if args.synthetic else load_rows(args)
+    _, cfg, model, processor = load_bundle(args, device)
+    run = build(cfg, model, processor, args, rows, image_loader_for(args))
+    logger = MetricsLogger(args.output_dir, args.run_name or name,
+                           flops_per_token=run.flops_per_token,
+                           flops_per_image=run.flops_per_image)
+    try:
+        step = train_steps(run, args, logger)
+    finally:
+        logger.close()
+    finish_run(run, args)
+    print(f"{name}: step {step} on {device}; metrics in {logger.path}; saved to "
+          f"{args.output_dir}", flush=True)
+
+
+def cmd_sft(args):
+    _train_cmd(args, "sft", build_sft, with_pairs=False)
+
+
+def cmd_rm(args):
+    _train_cmd(args, "rm", build_rm, with_pairs=True)
+
+
+@dataclasses.dataclass
+class PPORun:
+    """A ppo run: the policy (the model's adapters), the value head (and
+    with --use_value_adapter the named VALUE_SET adapters), the optimizer
+    state over all of them, the rollout config and the reward."""
+
+    model: VLM
+    pcfg: PPOConfig
+    ocfg: OptimizerConfig
+    lcfg: LoraConfig
+    state: TrainState
+    keys: list  # "adapters/<key>", "v_head/kernel"[, "value_adapters/<key>"]
+    v_head: dict
+    value_adapters: bool
+    gen_cfg: GenerateConfig
+    gen_collator: Callable[[list], dict]
+    rows: list
+    # device batch (input_ids, pad_mask, response_mask, pixel_values,
+    # image_positions) -> (B,) f32 sequence scores
+    reward_fn: Callable[[dict], torch.Tensor]
+    flops_per_token: float
+    flops_per_image: float
+
+    def state_tree(self) -> dict:
+        from vlrlhf_torch.train.train_state import state_tree
+
+        return state_tree(self.state, self.keys)
+
+    def update(self, batch: dict, stats) -> dict:
+        """One PPO optimizer step on a minibatch (metrics on the device)."""
+        from vlrlhf_torch.train.ppo import ppo_update
+
+        return ppo_update(self.model, self.pcfg, self.ocfg, self.state, self.v_head, batch,
+                          stats, self.value_adapters)
+
+
+REWARD_SET = "reward"  # the named adapter set a --reward_model_path run holds
+
+
+def reward_model_fn(model, path: str, lora_scale: float):
+    """The reward of `ppo --reward_model_path PATH` (an rm run's
+    <output_dir>/adapters): its adapters held as the frozen named set
+    REWARD_SET on the policy's base and its head, scored under no_grad
+    (vlrlhf_tpu cli/main.py:790-807). The policy's adapters are not
+    touched."""
+    from vlrlhf_torch.lora.lora import adapters_of, set_adapters_
+    from vlrlhf_torch.models.common import Ctx
+    from vlrlhf_torch.train.checkpoint import load_params
+    from vlrlhf_torch.train.rm import rm_scores
+
+    tree = load_params(path)
+    if "rm_head/kernel" not in tree:
+        raise SystemExit(f"--reward_model_path {path}: no rm_head/kernel (not an rm run's "
+                         "adapters directory)")
+    set_adapters_(model, adapters_of(tree), REWARD_SET)
+    kernel = tree["rm_head/kernel"].to(model.device, torch.float32)
+    ctx = Ctx(adapters=True, lora_scale=lora_scale, adapter_set=REWARD_SET)
+
+    @torch.no_grad()
+    def reward_fn(batch: dict) -> torch.Tensor:
+        return rm_scores(model, kernel, batch, ctx)
+
+    return reward_fn
+
+
+def synthetic_reward(batch: dict) -> torch.Tensor:
+    """--synthetic's reward: the response's share of the row's length
+    (vlrlhf_tpu cli/main.py:786-789)."""
+    m = batch["response_mask"]
+    return (m.sum(dim=1).double() / max(m.shape[1], 1)).float()
+
+
+def build_ppo(cfg, model, processor, args, rows: list, image_loader=None) -> PPORun:
+    """`setup_training`, then PPO's trainables: the policy adapters, a zero
+    (H, 1) value head without a bias (cmd_ppo's own), with
+    --use_value_adapter a second LoRA set drawn from --seed + 1; the
+    sampled rollout config (temperature 1, the family's stop ids) and the
+    reward: the rm run at --reward_model_path, else with --synthetic the
+    length reward (vlrlhf_tpu `cmd_ppo`, cli/main.py:737-860)."""
+    from vlrlhf_torch.data.collators import GenerationCollator
+    from vlrlhf_torch.generate.engine import GenerateConfig
+    from vlrlhf_torch.lora.lora import init_lora, lora_keys, lora_parameters
+    from vlrlhf_torch.models.config import FAMILIES
+    from vlrlhf_torch.train.flops import ppo_flops_per_token, vision_flops_per_image
+    from vlrlhf_torch.train.ppo import VALUE_SET, PPOConfig
+    from vlrlhf_torch.train.train_state import init_train_state
+
+    family = FAMILIES[cfg.family]
+    lcfg, ocfg = setup_training(model, args)
+    v_head = {"kernel": torch.nn.Parameter(torch.zeros((cfg.lm.hidden_size, 1),
+                                                       device=model.device))}
+    leaves = [p for _, p in lora_parameters(model)] + [v_head["kernel"]]
+    keys = [f"adapters/{k}" for k in lora_keys(model)] + ["v_head/kernel"]
+    if args.use_value_adapter:
+        init_lora(model, lcfg, torch.Generator(device=model.device).manual_seed(args.seed + 1),
+                  adapter_set=VALUE_SET)
+        leaves += [p for _, p in lora_parameters(model, VALUE_SET)]
+        keys += [f"value_adapters/{k}" for k in lora_keys(model, VALUE_SET)]
+    pcfg = PPOConfig(
+        lora_scale=lcfg.scale, init_kl_coef=args.init_kl_coef, ppo_epochs=args.ppo_epochs,
+        minibatch_size=args.minibatch_size, use_score_scaling=args.use_score_scaling,
+        use_score_norm=args.use_score_norm, score_clip=args.score_clip,
+        logits_chunk=args.logits_chunk,
+    )
+    if args.reward_model_path:
+        reward_fn = reward_model_fn(model, args.reward_model_path, lcfg.scale)
+    elif args.synthetic:
+        reward_fn = synthetic_reward
+    else:
+        raise SystemExit("ppo needs --reward_model_path (an rm run's <output_dir>/adapters) "
+                         "or --synthetic N")
+    pad = processor.tokenizer.pad_token_id or 0
+    return PPORun(
+        model=model, pcfg=pcfg, ocfg=ocfg, lcfg=lcfg,
+        state=init_train_state(leaves, ocfg), keys=keys, v_head=v_head,
+        value_adapters=args.use_value_adapter,
+        gen_cfg=GenerateConfig(max_new_tokens=args.max_new_tokens, do_sample=True,
+                               temperature=1.0, pad_token_id=pad,
+                               eos_token_ids=stop_ids(processor, family, bool(args.synthetic))),
+        gen_collator=GenerationCollator(processor, collator_config(cfg, family, processor, args),
+                                        image_loader),
+        rows=rows, reward_fn=reward_fn,
+        flops_per_token=ppo_flops_per_token(
+            cfg, args.max_length, ppo_epochs=args.ppo_epochs,
+            separate_value=args.use_value_adapter,
+            train_mode="adapter" if getattr(args, "use_lora", True) else "full"),
+        flops_per_image=vision_flops_per_image(cfg.vision),
+    )
+
+
+def prompt_row(processor, row: dict) -> dict:
+    """A PPO prompt row for GenerationCollator: the templated prompt with an
+    empty assistant turn (vlrlhf_tpu cli/main.py:877-893)."""
+    from vlrlhf_torch.data.processor import make_single_turn_conv
+
+    n_img = 1 if row.get("img_path") else 0
+    conv = make_single_turn_conv(processor.format_multimodal_prompt(row["prompt"], n_img), "")
+    ids = processor.maybe_prefix_image_ids(processor.process_conv(conv)["input_ids"], n_img)
+    return {"input_ids": ids, "img_path": row.get("img_path")}
+
+
+def static_rollouts(gen, pb: dict, chunk_sz: int, generator) -> tuple[np.ndarray, np.ndarray]:
+    """(tokens (B, max_new_tokens), resp_lens (B,)) from the static engine in
+    chunks of `chunk_sz` rows. An engine length counts decode advances: a
+    row that emitted r tokens (its stop token included) advanced r - 1
+    times, a first-token stop (masked to empty) 0 times, so resp_len is
+    adv + 1 except that 0 stays 0 (vlrlhf_tpu cli/main.py:969-979)."""
+    parts, lparts = [], []
+    bs = pb["input_ids"].shape[0]
+    for cs in range(0, bs, chunk_sz):
+        sub = {k: v[cs: cs + chunk_sz] if hasattr(v, "shape") else v for k, v in pb.items()}
+        out, st = gen(sub, generator, return_state=True)
+        parts.append(out.cpu().numpy())
+        lparts.append(st["lengths"].cpu().numpy() - np.asarray(sub["prompt_lens"]))
+    tokens = np.concatenate(parts, axis=0)
+    adv = np.concatenate(lparts, axis=0)
+    if gen.gen_cfg.max_new_tokens == 1:
+        return tokens, (tokens != gen.gen_cfg.pad_token_id).sum(axis=1)
+    return tokens, np.where(adv == 0, 0, adv + 1)
+
+
+def continuous_rollouts(engine, pb: dict, prompt_rows: list, generator,
+                        max_new_tokens: int, pad_id: int) -> tuple[np.ndarray, np.ndarray]:
+    """(tokens, resp_lens) from the continuous engine: one request per
+    prompt row, its stop token kept in the response (emit_stop_token)."""
+    from vlrlhf_torch.generate.continuous import Request
+
+    plens = np.asarray(pb["prompt_lens"])
+    reqs = []
+    for i, row in enumerate(prompt_rows):
+        has_img = row.get("img_path") is not None
+        reqs.append(Request(
+            input_ids=np.asarray(pb["input_ids"][i, : int(plens[i])]),
+            pixel_values=np.asarray(pb["pixel_values"][i, 0]) if has_img else None,
+            image_positions=np.asarray(pb["image_positions"][i]) if has_img else None,
+        ))
+    outs = engine.run(reqs, generator)
+    tokens = np.full((len(reqs), max_new_tokens), pad_id, np.int32)
+    resp_lens = np.zeros((len(reqs),), np.int32)
+    for i, toks in enumerate(outs):
+        tokens[i, : len(toks)] = toks
+        resp_lens[i] = len(toks)
+    return tokens, resp_lens
+
+
+def train_ppo(run: PPORun, processor, args, logger, on_step=None) -> int:
+    """The outer loop of `ppo` (vlrlhf_tpu cli/main.py:875-1065): per step,
+    --per_device_train_batch_size prompt rows; rollouts from the static
+    engine in chunks of --rollout_chunk_size or, with
+    --rollout_continuous_batching, a continuous engine of that many slots
+    (one per cache length); the reward, preprocess_scores, the stats pass,
+    ppo_update_epochs and the KL controller; the metrics of
+    cli/main.py:1011-1024 and <output_dir>/ppo_gamelog.jsonl every 10
+    steps. A step whose rollout or reward fails is skipped and logged as
+    ppo/skipped. Checkpoints every --save_steps and at a SIGTERM; resume
+    with --resume_from_checkpoint. `on_step(step, info)` sees each step's
+    every minibatch metrics and its phase times. Returns the last step."""
+    import json
+    import os
+    import time
+    import traceback
+
+    from vlrlhf_torch.generate.continuous import ContinuousEngine
+    from vlrlhf_torch.generate.engine import Generator
+    from vlrlhf_torch.train.checkpoint import CheckpointManager
+    from vlrlhf_torch.train.dpo import batch_to_device
+    from vlrlhf_torch.train.loop import PreemptionGuard, read_metrics
+    from vlrlhf_torch.train.ppo import (
+        AdaptiveKLController, RunningMoments, compute_rollout_stats, ppo_update_epochs,
+        preprocess_scores, rollout_to_batch,
+    )
+
+    model, pcfg = run.model, run.pcfg
+    device = model.device
+    ckpt = CheckpointManager(os.path.join(args.output_dir, "checkpoints"))
+    start = maybe_resume(args, run, ckpt)
+    kl_ctl = AdaptiveKLController(pcfg)
+    moments = RunningMoments()
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    pad_id = run.gen_cfg.pad_token_id
+    bs = args.per_device_train_batch_size
+    rows = run.rows
+    n_steps = args.max_steps or max(len(rows) // bs, 1)
+    # the engines run the model's own adapters: each step samples with the
+    # adapters of the last update
+    gen = Generator(model, run.gen_cfg, lora_scale=run.lcfg.scale)
+    gen.adapters = True
+    chunk_sz = max(1, min(args.rollout_chunk_size, bs))
+    engines: dict = {}
+    guard = PreemptionGuard().install()
+    last_saved = -1
+    done = start
+
+    def save(step: int) -> None:
+        nonlocal last_saved
+        if step != last_saved:
+            ckpt.save(step, run.state_tree())
+            last_saved = step
+
+    try:
+        for it in range(start, n_steps):
+            done = it + 1
+            lo = (it * bs) % len(rows)
+            chunk = rows[lo: lo + bs]
+            if len(chunk) < bs:
+                chunk = (chunk + rows)[:bs]
+            prompt_rows = [prompt_row(processor, r) for r in chunk]
+            pb = run.gen_collator(prompt_rows)
+            t0 = time.perf_counter()
+            try:
+                if args.rollout_continuous_batching:
+                    c_len = -(-(int(np.max(pb["prompt_lens"])) + args.max_new_tokens) // 128) * 128
+                    if c_len not in engines:
+                        engines[c_len] = ContinuousEngine(
+                            model, run.gen_cfg, n_slots=chunk_sz, cache_len=c_len,
+                            adapters=True, lora_scale=run.lcfg.scale, emit_stop_token=True)
+                    tokens, resp_lens = continuous_rollouts(
+                        engines[c_len], pb, prompt_rows, generator, args.max_new_tokens, pad_id)
+                else:
+                    tokens, resp_lens = static_rollouts(gen, pb, chunk_sz, generator)
+                t_roll = time.perf_counter()
+                batch = rollout_to_batch(pb, tokens, pad_id, resp_lens=resp_lens)
+                tb = batch_to_device(batch, device)
+                raw = run.reward_fn(tb).float().cpu().numpy()
+                if not np.all(np.isfinite(raw)):
+                    raise ValueError(f"non-finite RM scores: {raw}")
+            except Exception as e:  # noqa: BLE001 — vlrlhf_tpu's skip, not a crash
+                traceback.print_exc()
+                print(f"rollout/reward failed at step {it + 1}: {e}", flush=True)
+                logger.log(it + 1, {"ppo/skipped": 1.0})
+                continue
+            t_reward = time.perf_counter()
+            scores = preprocess_scores(raw, pcfg, moments)
+            stats = compute_rollout_stats(model, pcfg, run.v_head, tb,
+                                          torch.from_numpy(scores).to(device), kl_ctl.value,
+                                          run.value_adapters)
+            kl = float(stats.kl)
+            t_stats = time.perf_counter()
+            history: list = []
+            ppo_update_epochs(run.update, tb, stats, pcfg, seed=args.seed + it, history=history)
+            history = [read_metrics(m) for m in history]
+            t_update = time.perf_counter()
+            kl_ctl.update(kl, len(chunk))
+            metrics = dict(history[-1]) if history else {}  # the last update's, as vlrlhf_tpu
+            metrics["ppo/mean_score"] = float(np.mean(scores))
+            metrics["ppo/kl"] = kl
+            metrics["ppo/kl_coef"] = kl_ctl.value
+            metrics["perf/interval_tokens"] = float(np.prod(batch["input_ids"].shape))
+            metrics["perf/interval_images"] = float(
+                0 if batch.get("pixel_values") is None else batch["pixel_values"].shape[0])
+            metrics["ppo/rollout_tok_s"] = float(tokens.size / max(t_roll - t0, 1e-9))
+            logger.log(it + 1, metrics)
+            if on_step is not None:
+                on_step(it + 1, {"history": history, "resp_lens": resp_lens,
+                                 "shape": batch["input_ids"].shape, "rollout_s": t_roll - t0,
+                                 "reward_s": t_reward - t_roll, "stats_s": t_stats - t_reward,
+                                 "update_s": t_update - t_stats,
+                                 "step_s": time.perf_counter() - t0})
+            if (it + 1) % args.save_steps == 0:
+                save(it + 1)
+            if guard.flag:
+                save(it + 1)
+                ckpt.wait()
+                logger.log(it + 1, {"train/preempted": 1.0})
+                print(f"preempted: PPO checkpoint saved at step {it + 1}", flush=True)
+                break
+            if it % 10 == 0:
+                toks = tokens[0]
+                resp = processor.tokenizer.decode(toks[toks != pad_id].tolist(),
+                                                  skip_special_tokens=True)
+                with open(os.path.join(args.output_dir, "ppo_gamelog.jsonl"), "a") as f:
+                    f.write(json.dumps({"step": it + 1, "prompt": chunk[0]["prompt"],
+                                        "response": resp, "score": float(scores[0])}) + "\n")
+    finally:
+        guard.uninstall()
+        ckpt.close()
+    return done
+
+
+def cmd_ppo(args):
+    from vlrlhf_torch.train.metrics import MetricsLogger
+
+    device = resolve_device(args.device)
+    if args.synthetic and args.data_path:
+        raise SystemExit("--synthetic N makes its own prompts: drop --data_path")
+    rows = synthetic_rows(args.synthetic, with_pairs=False) if args.synthetic else load_rows(args)
+    _, cfg, model, processor = load_bundle(args, device)
+    run = build_ppo(cfg, model, processor, args, rows, image_loader_for(args))
+    logger = MetricsLogger(args.output_dir, args.run_name or "ppo",
+                           flops_per_token=run.flops_per_token,
+                           flops_per_image=run.flops_per_image)
+    try:
+        step = train_ppo(run, processor, args, logger)
+    finally:
+        logger.close()
+    finish_run(run, args)
+    print(f"ppo: step {step} on {device}; metrics in {logger.path}; saved to "
           f"{args.output_dir}", flush=True)
 
 
@@ -700,17 +1202,17 @@ def cmd_eval(args):
 
 
 def cmd_merge(args):
-    """--adapter_path (a dpo run's adapters/) folded into the checkpoint's
-    weights: <output_dir>/merged and, with --export_format hf, merged_hf
-    (vlrlhf_tpu `cmd_merge`, cli/main.py:1329-1353; the reference's
-    merge_peft_model.py)."""
-    from vlrlhf_torch.lora.lora import set_adapters_
+    """--adapter_path (a training run's adapters/) folded into the
+    checkpoint's weights: <output_dir>/merged and, with --export_format hf,
+    merged_hf (vlrlhf_tpu `cmd_merge`, cli/main.py:1329-1353; the
+    reference's merge_peft_model.py). Of an rm or ppo run only the LoRA
+    adapters fold in; its rm_head / v_head (and value adapters) stay out."""
+    from vlrlhf_torch.lora.lora import adapters_of, set_adapters_
     from vlrlhf_torch.train.checkpoint import load_params
 
     device = resolve_device(args.device)
     _, _, model, _ = load_bundle(args, device)
-    adapters = load_params(args.adapter_path)
-    set_adapters_(model, adapters)
+    set_adapters_(model, adapters_of(load_params(args.adapter_path)))
     save_merged(model, args.lora_alpha / args.lora_r, args)
     print(f"merged -> {args.output_dir}/merged"
           + (f", HF checkpoint -> {args.output_dir}/merged_hf"
@@ -759,13 +1261,10 @@ def _add_eval_parser(sub) -> None:
     p.set_defaults(fn=cmd_eval)
 
 
-def _add_dpo_parser(sub) -> None:
-    p = sub.add_parser(
-        "dpo",
-        help="LoRA DPO training on one device; writes <output_dir>/dpo_metrics.jsonl, "
-             "checkpoints/, adapters/ (and merged/, dpo_samples.jsonl)",
-    )
-    _add_model_args(p, "a tiny random-weight model + N synthetic pairs (no checkpoint)")
+def _add_train_args(p, synthetic_help: str, epochs: bool = True) -> None:
+    """The flags dpo, sft, rm and ppo share (vlrlhf_tpu `_common_args`, less
+    the mesh and wandb flags, which the port refuses)."""
+    _add_model_args(p, synthetic_help)
     p.add_argument("--output_dir", type=str, required=True)
     p.add_argument("--max_prompt_length", type=int, default=512)
     p.add_argument("--dataset_name", type=str, default="plain_dpo",
@@ -782,7 +1281,8 @@ def _add_dpo_parser(sub) -> None:
     p.add_argument("--per_device_train_batch_size", type=int, default=4)
     p.add_argument("--gradient_accumulation_steps", type=int, default=1)
     p.add_argument("--learning_rate", type=float, default=1e-5)
-    p.add_argument("--num_train_epochs", type=float, default=1.0)
+    if epochs:
+        p.add_argument("--num_train_epochs", type=float, default=1.0)
     p.add_argument("--max_steps", type=int, default=0)
     p.add_argument("--warmup_ratio", type=float, default=0.1)
     p.add_argument("--lr_scheduler_type", type=str, default="cosine",
@@ -802,35 +1302,16 @@ def _add_dpo_parser(sub) -> None:
     p.add_argument("--merge_adapter_after_training", action="store_true",
                    help="also save <output_dir>/merged: the weights with the adapters "
                         "folded in (a quantized base dequantized to bf16 first)")
-    p.add_argument("--eval_steps", type=int, default=0,
-                   help="evaluate on the holdout split every N steps")
-    p.add_argument("--eval_ratio", type=float, default=0.005)
-    p.add_argument("--eval_samples", type=int, default=0,
-                   help="generate N policy + reference samples from the holdout at each "
-                        "eval (<output_dir>/dpo_samples.jsonl)")
     p.add_argument("--use_lora", type=_bool, default=True,
                    help="false: as vlrlhf_tpu, LoRA dropout off and 6N training FLOPs "
                         "(the adapters still train)")
     p.add_argument("--lora_target_modules", type=str, default="auto",
                    help="'auto' (the LM's attention and MLP linears) or comma-separated "
                         "regexes over JAX-layout paths, e.g. vision/.*attn/(wq|wk|wv|wo)/")
-    p.add_argument("--freeze_vision_tower", type=_bool, default=True,
-                   help="false: the tower runs inside every forward (under autograd in "
-                        "the policy's), so tower LoRA targets train")
     p.add_argument("--remat_policy", type=str, default="",
                    choices=["", "full", "dots", "attn", "mlp", "mlp1", "acts"],
                    help="gradient-checkpoint policy ('' keeps the model default, 'full'; "
                         "'acts' keeps every named per-layer activation)")
-    p.add_argument("--beta", type=float, default=0.1)
-    p.add_argument("--label_smoothing", type=float, default=0.0)
-    p.add_argument("--loss_type", type=str, default="sigmoid",
-                   choices=["sigmoid", "hinge", "ipo", "kto_pair", "ddpo"])
-    p.add_argument("--reference_free", type=_bool, default=False)
-    p.add_argument("--precompute_ref_logps", type=_bool, default=False,
-                   help="one adapter-off pass caches the reference logps; train steps "
-                        "skip the reference forward")
-    p.add_argument("--logits_chunk", type=int, default=0,
-                   help=">0: chunked lm_head + logp over S-chunks of this size")
     p.add_argument("--q_lora", type=_bool, default=False,
                    help="LoRA over a frozen quantized base: the LM's attention and MLP "
                         "linears (lm_head stays bf16)")
@@ -840,7 +1321,80 @@ def _add_dpo_parser(sub) -> None:
                         "gradients); in not a multiple of 128 falls back to int8")
     p.add_argument("--q_lora_vision", type=_bool, default=False,
                    help="with --q_lora: also quantize the frozen vision tower and projector")
+
+
+def _add_logits_chunk(p) -> None:
+    p.add_argument("--logits_chunk", type=int, default=0,
+                   help=">0: chunked lm_head + logp over S-chunks of this size")
+
+
+def _add_dpo_parser(sub) -> None:
+    p = sub.add_parser(
+        "dpo",
+        help="LoRA DPO training on one device; writes <output_dir>/dpo_metrics.jsonl, "
+             "checkpoints/, adapters/ (and merged/, dpo_samples.jsonl)",
+    )
+    _add_train_args(p, "a tiny random-weight model + N synthetic pairs (no checkpoint)")
+    p.add_argument("--eval_steps", type=int, default=0,
+                   help="evaluate on the holdout split every N steps")
+    p.add_argument("--eval_ratio", type=float, default=0.005)
+    p.add_argument("--eval_samples", type=int, default=0,
+                   help="generate N policy + reference samples from the holdout at each "
+                        "eval (<output_dir>/dpo_samples.jsonl)")
+    p.add_argument("--freeze_vision_tower", type=_bool, default=True,
+                   help="false: the tower runs inside every forward (under autograd in "
+                        "the policy's), so tower LoRA targets train")
+    p.add_argument("--beta", type=float, default=0.1)
+    p.add_argument("--label_smoothing", type=float, default=0.0)
+    p.add_argument("--loss_type", type=str, default="sigmoid",
+                   choices=["sigmoid", "hinge", "ipo", "kto_pair", "ddpo"])
+    p.add_argument("--reference_free", type=_bool, default=False)
+    p.add_argument("--precompute_ref_logps", type=_bool, default=False,
+                   help="one adapter-off pass caches the reference logps; train steps "
+                        "skip the reference forward")
+    _add_logits_chunk(p)
     p.set_defaults(fn=cmd_dpo)
+
+
+def _add_sft_rm_ppo_parsers(sub) -> None:
+    p = sub.add_parser(
+        "sft", help="supervised LoRA fine-tuning on one device; writes "
+                    "<output_dir>/sft_metrics.jsonl, checkpoints/, adapters/ (and merged/)")
+    _add_train_args(p, "a tiny random-weight model + N synthetic rows (no checkpoint)")
+    _add_logits_chunk(p)
+    p.set_defaults(fn=cmd_sft)
+    p = sub.add_parser(
+        "rm", help="reward-model training (LoRA + a scalar head) on one device; writes "
+                   "<output_dir>/rm_metrics.jsonl, checkpoints/, adapters/ (the adapters and "
+                   "rm_head, ppo's --reward_model_path)")
+    _add_train_args(p, "a tiny random-weight model + N synthetic pairs (no checkpoint)")
+    p.set_defaults(fn=cmd_rm)
+    p = sub.add_parser(
+        "ppo", help="PPO on one device: rollouts, reward, reference and update on one model; "
+                    "writes <output_dir>/ppo_metrics.jsonl, ppo_gamelog.jsonl, checkpoints/, "
+                    "adapters/")
+    _add_train_args(p, "a tiny random-weight model + N synthetic prompts and the length "
+                       "reward (no checkpoint)", epochs=False)
+    _add_logits_chunk(p)
+    p.add_argument("--reward_model_path", type=str, default=None,
+                   help="an rm run's <output_dir>/adapters: its adapters and head score the "
+                        "rollouts on the policy's base")
+    p.add_argument("--init_kl_coef", type=float, default=0.2)
+    p.add_argument("--max_new_tokens", type=int, default=32)
+    p.add_argument("--ppo_epochs", type=int, default=4)
+    p.add_argument("--minibatch_size", type=int, default=0,
+                   help="inner-update minibatch (0 = the full batch)")
+    p.add_argument("--rollout_chunk_size", type=int, default=32)
+    p.add_argument("--rollout_continuous_batching", type=_bool, default=False,
+                   help="slot-refill rollouts (rollout_chunk_size slots)")
+    p.add_argument("--use_value_adapter", type=_bool, default=False,
+                   help="a separate LoRA set for the value function")
+    p.add_argument("--use_score_scaling", type=_bool, default=False,
+                   help="divide the scores by their running std (TRL)")
+    p.add_argument("--use_score_norm", type=_bool, default=False,
+                   help="also subtract the running mean (needs --use_score_scaling true)")
+    p.add_argument("--score_clip", type=float, default=None)
+    p.set_defaults(fn=cmd_ppo)
 
 
 def _add_model_args(p, synthetic_help: str) -> None:
@@ -865,7 +1419,7 @@ def _add_merge_parser(sub) -> None:
     _add_model_args(p, "a tiny random-weight model (no checkpoint, no HF export)")
     p.add_argument("--output_dir", type=str, required=True)
     p.add_argument("--adapter_path", type=str, required=True,
-                   help="a dpo run's <output_dir>/adapters")
+                   help="a dpo, sft, rm or ppo run's <output_dir>/adapters")
     p.add_argument("--export_format", type=str, default="hf", choices=["hf", "torch"],
                    help="'hf' also writes merged_hf/ (model.safetensors, config and tokenizer "
                         "files), loadable by HF transformers")
@@ -879,6 +1433,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="vlrlhf-torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_dpo_parser(sub)
+    _add_sft_rm_ppo_parsers(sub)
     _add_eval_parser(sub)
     _add_merge_parser(sub)
     p = sub.add_parser("serve")

@@ -130,6 +130,10 @@ class ContinuousEngine:
         adapters: bool = False,  # the model's own adapters on (single set)
         adapter_sets: Optional[Sequence[dict]] = None,  # N sets, per-request choice
         lora_scale: float = 1.0,
+        # the stop token joins its response (PPO rollouts: the reward lands
+        # on it, as in the static engine's output); a first-token stop still
+        # gives an empty response, as the static engine masks it
+        emit_stop_token: bool = False,
     ):
         if adapters and adapter_sets:
             raise ValueError("pass either adapters (the model's own) or adapter_sets")
@@ -156,6 +160,7 @@ class ContinuousEngine:
         self.adapters = adapters
         self.lora_scale = lora_scale
         self.adapter_sets = adapter_sets
+        self.emit_stop_token = emit_stop_token
 
     @property
     def device(self) -> torch.device:
@@ -515,7 +520,10 @@ class ContinuousEngine:
             """Append one sampled token; False when the slot retired."""
             ridx = int(req_idx[slot])
             if tok in eos:
-                # the stop token stays out of the response
+                # with emit_stop_token the stop token joins a non-empty
+                # response (vlrlhf_tpu continuous.py:833-840)
+                if self.emit_stop_token and resp[ridx]:
+                    resp[ridx].append(tok)
                 finish(slot)
                 return False
             resp[ridx].append(tok)

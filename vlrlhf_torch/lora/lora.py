@@ -22,6 +22,12 @@ Linear into `lora_a` (in, N, r) and `lora_b` (N*r, out), and the forward's
 mixed delta is two dense matmuls. `set_adapters_` puts a tree of adapters
 (single or stacked, keyed by JAX-layout paths) on a model's Linears;
 `lend_adapters` does so for a block and then restores what they held.
+
+Named sets (PPO's value adapters, a reward model's adapters beside the
+policy's on one base): `init_lora`, `set_adapters_`, `lora_parameters` and
+`lora_keys` take `adapter_set=NAME` and keep or read a second pair per
+Linear in `Linear.lora_sets`, which a forward applies under
+`Ctx(adapters=True, adapter_set=NAME)`.
 """
 
 from __future__ import annotations
@@ -78,47 +84,63 @@ def match_lora_targets(model: nn.Module, patterns: Sequence[str]) -> list[tuple[
     return [(name, mod) for _, name, mod in sorted(found, key=lambda t: t[0])]
 
 
-def init_lora(model: nn.Module, cfg: LoraConfig, generator: torch.Generator) -> list[str]:
+def init_lora(model: nn.Module, cfg: LoraConfig, generator: torch.Generator,
+              adapter_set: str = "") -> list[str]:
     """Attach adapters to every matched Linear: a ~ N(0, 1/r), b = 0, both
     f32 on the module's device, drawn from `generator` in path order. b = 0
     makes the adapted model start equal to the base (the DPO step-1 loss is
-    ln 2). Returns the names of the adapted modules."""
+    ln 2). With `adapter_set` they go into the Linears' `lora_sets` under
+    that name instead of `lora_a` / `lora_b`. Returns the names of the
+    adapted modules."""
     names = []
     for name, mod in match_lora_targets(model, cfg.target_patterns):
         d_out, d_in = mod.d_out, mod.d_in
         dev = mod.device
         a = torch.randn((d_in, cfg.r), generator=generator, device=dev, dtype=torch.float32)
-        mod.lora_a = nn.Parameter(a / cfg.r**0.5)
-        mod.lora_b = nn.Parameter(torch.zeros((cfg.r, d_out), device=dev, dtype=torch.float32))
+        b = torch.zeros((cfg.r, d_out), device=dev, dtype=torch.float32)
+        mod.set_adapter_pair(adapter_set, nn.Parameter(a / cfg.r**0.5), nn.Parameter(b))
         names.append(name)
     if not names:
         raise ValueError(f"no Linear matches the LoRA targets {cfg.target_patterns}")
     return names
 
 
-def _adapted(model: nn.Module) -> list[tuple[str, str, nn.Module]]:
-    """(JAX-layout path, module name, Linear) of every adapted Linear, by path."""
+def _adapted(model: nn.Module, adapter_set: str = "") -> list[tuple[str, str, nn.Module]]:
+    """(JAX-layout path, module name, Linear) of every Linear holding an
+    adapter of `adapter_set` ("" = lora_a / lora_b), by path."""
     from vlrlhf_torch.models.common import Linear
 
     return sorted(
         ((module_path(n), n, m) for n, m in model.named_modules()
-         if isinstance(m, Linear) and m.lora_a is not None),
+         if isinstance(m, Linear) and m.adapter_pair(adapter_set) is not None),
         key=lambda t: t[0],
     )
 
 
-def lora_parameters(model: nn.Module) -> list[tuple[str, nn.Parameter]]:
-    """Every adapter parameter as (name, param), in module path order then
-    a before b: the optimizer's leaf order."""
-    return [(f"{n}.{leaf}", getattr(m, leaf)) for _, n, m in _adapted(model)
-            for leaf in ("lora_a", "lora_b")]
+def lora_parameters(model: nn.Module, adapter_set: str = "") -> list[tuple[str, nn.Parameter]]:
+    """Every adapter parameter of `adapter_set` as (name, param), in module
+    path order then a before b: the optimizer's leaf order."""
+    prefix = f"{adapter_set}." if adapter_set else ""
+    return [(f"{n}.{prefix}{leaf}", p) for _, n, m in _adapted(model, adapter_set)
+            for leaf, p in zip(("lora_a", "lora_b"), m.adapter_pair(adapter_set))]
 
 
-def lora_keys(model: nn.Module) -> list[str]:
+def lora_keys(model: nn.Module, adapter_set: str = "") -> list[str]:
     """The JAX-layout key of each leaf of `lora_parameters`, in its order:
     "lm/layers/3/attn/wq/a", "lm/layers/3/attn/wq/b", ..."""
-    return [f"{path[: -len('/kernel')]}/{leaf}" for path, _, _ in _adapted(model)
+    return [f"{path[: -len('/kernel')]}/{leaf}" for path, _, _ in _adapted(model, adapter_set)
             for leaf in ("a", "b")]
+
+
+def adapters_of(tree: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The LoRA adapters of a saved trainable tree: an rm or ppo run keys
+    its adapters "adapters/<key>" beside "rm_head/kernel" or "v_head/..."
+    (and "value_adapters/<key>"), a dpo or sft run keys them bare
+    (vlrlhf_tpu's `tree.get("adapters", tree)`, cli/main.py:1337-1339)."""
+    pre = "adapters/"
+    if any(k.startswith(pre) for k in tree):
+        return {k[len(pre):]: v for k, v in tree.items() if k.startswith(pre)}
+    return dict(tree)
 
 
 @torch.no_grad()
@@ -249,12 +271,15 @@ def fuse_adapter_sets(tree: Mapping[str, torch.Tensor], lm_cfg) -> dict[str, tor
     return out
 
 
-def set_adapters_(model: nn.Module, tree: Optional[Mapping[str, torch.Tensor]]) -> list[str]:
+def set_adapters_(model: nn.Module, tree: Optional[Mapping[str, torch.Tensor]],
+                  adapter_set: str = "") -> list[str]:
     """Hold `tree`'s adapters (single (in, r) / (r, out) or stacked (in, N,
     r) / (N*r, out), keyed by JAX-layout paths) on the model's Linears, as
     frozen parameters on each module's device; every other Linear holds
-    none. A key that names no Linear of the model is an error. Returns the
-    adapted module names."""
+    none. With `adapter_set` they become that named set (`Linear.lora_sets`)
+    and the Linears' own adapters and other sets stay as they are. A key
+    that names no Linear of the model is an error. Returns the adapted
+    module names."""
     from vlrlhf_torch.models.common import Linear
 
     tree = dict(tree or {})
@@ -265,14 +290,14 @@ def set_adapters_(model: nn.Module, tree: Optional[Mapping[str, torch.Tensor]]) 
         key = module_path(name)[: -len("/kernel")]
         a, b = tree.pop(f"{key}/a", None), tree.pop(f"{key}/b", None)
         if a is None or b is None:
-            mod.lora_a = mod.lora_b = None
+            mod.set_adapter_pair(adapter_set, None, None)
             continue
         if a.shape[0] != mod.d_in or b.shape[-1] != mod.d_out or b.shape[0] != a[0].numel():
             raise ValueError(f"{name}: adapter {tuple(a.shape)} {tuple(b.shape)} does not fit "
                              f"({mod.d_out}, {mod.d_in})")
         dev = mod.device
-        mod.lora_a = nn.Parameter(a.to(dev), requires_grad=False)
-        mod.lora_b = nn.Parameter(b.to(dev), requires_grad=False)
+        mod.set_adapter_pair(adapter_set, nn.Parameter(a.to(dev), requires_grad=False),
+                             nn.Parameter(b.to(dev), requires_grad=False))
         done.append(name)
     if tree:
         raise ValueError(f"adapter keys that name no Linear of the model: {sorted(tree)[:4]}")

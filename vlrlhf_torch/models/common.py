@@ -47,13 +47,21 @@ class Ctx:
     `adapter_mix` (B, N) serves stacked adapter sets (lora.py
     `stack_adapter_sets`): row b's delta is the mix-weighted sum of the
     sets' deltas, so a one-hot row selects its set and a zero row runs the
-    base model (vlrlhf_tpu's Ctx.adapter_mix, models/common.py:40-44)."""
+    base model (vlrlhf_tpu's Ctx.adapter_mix, models/common.py:40-44).
+
+    `adapter_set` names which of a Linear's adapters apply: "" the pair it
+    holds as `lora_a` / `lora_b`, any other name a set of `Linear.lora_sets`
+    (PPO's value adapters, a reward model's adapters on the policy's base).
+    vlrlhf_tpu's Ctx carries the adapter tree itself; here the name travels
+    with the call, so a remat region recomputed in the backward reads the
+    set its forward read."""
 
     adapters: bool = False
     lora_scale: float = 1.0
     lora_dropout: float = 0.0
     dropout_seed: Optional[int] = None
     adapter_mix: Optional[torch.Tensor] = None
+    adapter_set: str = ""
 
     def sub(self, key: str) -> "Ctx":
         return self.fold(zlib.crc32(key.encode()) & 0x7FFFFFFF)
@@ -75,6 +83,9 @@ class Linear(nn.Module):
     attaches an adapter; it applies when the call's Ctx has adapters on.
     Stacked sets for multi-adapter serving hold (in, N, r) / (N*r, out)
     and read the Ctx's per-row `adapter_mix` (lora.set_adapters_).
+    `lora_sets` holds further named (a, b) pairs, outside the state dict;
+    a Ctx with that `adapter_set` applies them instead (lora.init_lora,
+    lora.set_adapters_).
 
     Quantized (`quantize_` or the bridge's int8 / int4 leaves), `weight` is
     None and one of two states takes its place:
@@ -99,6 +110,7 @@ class Linear(nn.Module):
         self.register_parameter("weight_gbias", None)
         self.register_parameter("lora_a", None)
         self.register_parameter("lora_b", None)
+        self.lora_sets: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
 
     @property
     def device(self) -> torch.device:
@@ -160,13 +172,30 @@ class Linear(nn.Module):
             y = y + self.bias.to(y.dtype)
         return y
 
+    def adapter_pair(self, adapter_set: str = "") -> Optional[tuple[torch.Tensor, torch.Tensor]]:
+        """(a, b) of the named set ("" = lora_a / lora_b), or None."""
+        if adapter_set:
+            return self.lora_sets.get(adapter_set)
+        return None if self.lora_a is None else (self.lora_a, self.lora_b)
+
+    def set_adapter_pair(self, adapter_set: str, a: Optional[torch.Tensor],
+                         b: Optional[torch.Tensor]) -> None:
+        """Hold (a, b) as the named set ("" = lora_a / lora_b); None drops it."""
+        if not adapter_set:
+            self.lora_a, self.lora_b = a, b
+        elif a is None:
+            self.lora_sets.pop(adapter_set, None)
+        else:
+            self.lora_sets[adapter_set] = (a, b)
+
     def adapted(self, ctx: Optional[Ctx]) -> bool:
-        return ctx is not None and ctx.adapters and self.lora_a is not None
+        return ctx is not None and ctx.adapters and self.adapter_pair(ctx.adapter_set) is not None
 
     def delta(self, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
         """The adapter's term for input x under ctx (see `adapted`)."""
-        return lora_delta(x, self.lora_a, self.lora_b, ctx.lora_scale,
-                          ctx.lora_dropout, ctx.dropout_seed, ctx.adapter_mix)
+        a, b = self.adapter_pair(ctx.adapter_set)
+        return lora_delta(x, a, b, ctx.lora_scale, ctx.lora_dropout, ctx.dropout_seed,
+                          ctx.adapter_mix)
 
     def forward(self, x: torch.Tensor, ctx: Optional[Ctx] = None) -> torch.Tensor:
         y = self.base(x)

@@ -11,6 +11,10 @@ tiled to every row, and a `Ctx` that switches the LoRA adapters on or off
 The processor emits exactly `num_image_tokens` placeholder tokens per image
 plus an `image_positions` map; projected features land at those positions
 (models/common.py merge_multimodal_embeddings).
+
+The reward and value heads (`init_rm_head`, `reward_forward`,
+`init_value_head`, `value_forward`) are f32 {"kernel" (H, 1)[, "bias"
+(1,)]} dicts beside the model, as in vlrlhf_tpu (models/vlm.py:284-322).
 """
 
 from __future__ import annotations
@@ -121,3 +125,46 @@ class VLM(nn.Module):
         """(B, C, H) -> (B, C, V): the chunk head of train/losses.py
         chunked_logps (vlrlhf_tpu `lm_head_fn`)."""
         return lambda hc: self.head(hc, ctx)
+
+
+# reward / value heads
+
+
+def init_rm_head(hidden_size: int, device="cpu") -> dict[str, torch.Tensor]:
+    """Zero (H, 1) f32 kernel scoring the last real token (vlrlhf_tpu
+    `init_rm_head`: the reference's zero-initialised VLRewardModel head)."""
+    return {"kernel": nn.Parameter(torch.zeros((hidden_size, 1), device=device))}
+
+
+def last_token_scores(hidden: torch.Tensor, kernel: torch.Tensor, pad_mask: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B,) head scores at each row's last real token, sum(pad_mask) - 1
+    (rows right-padded), the product taken in `dtype`."""
+    scores = (hidden.to(dtype) @ kernel.to(dtype))[..., 0]  # (B, S)
+    last = pad_mask.long().sum(dim=1) - 1
+    return scores.gather(1, last[:, None])[:, 0]
+
+
+def reward_forward(model: VLM, rm_head: dict, pad_mask: torch.Tensor,
+                   ctx: Optional[Ctx] = None, **kwargs) -> torch.Tensor:
+    """Scalar reward per sequence (vlrlhf_tpu `reward_forward`): the head on
+    the last non-pad hidden state, in the hidden states' dtype. kwargs are
+    the model's (input_ids, pixel_values, image_positions, ...)."""
+    hidden, _ = model(pad_mask=pad_mask, ctx=ctx, **kwargs)
+    return last_token_scores(hidden, rm_head["kernel"], pad_mask, hidden.dtype)
+
+
+def init_value_head(hidden_size: int, device="cpu") -> dict[str, torch.Tensor]:
+    """PPO's value head with a bias, both zero (vlrlhf_tpu `init_value_head`:
+    init_linear at scale 0)."""
+    return {"kernel": nn.Parameter(torch.zeros((hidden_size, 1), device=device)),
+            "bias": nn.Parameter(torch.zeros((1,), device=device))}
+
+
+def value_forward(hidden: torch.Tensor, v_head: dict) -> torch.Tensor:
+    """(B, S) values: hidden in f32 @ kernel (+ bias when the head has one;
+    `cmd_ppo`'s own head has none)."""
+    values = (hidden.float() @ v_head["kernel"].float())[..., 0]
+    if "bias" in v_head:
+        values = values + v_head["bias"][0]
+    return values

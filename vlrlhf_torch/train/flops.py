@@ -1,6 +1,6 @@
-"""FLOPs model for MFU accounting (copy of the DPO part of
-vlrlhf_tpu/train/flops.py, so the port's MFU counts what the JAX package's
-counts).
+"""FLOPs model for MFU accounting (copy of the DPO, SFT, RM and PPO parts
+of vlrlhf_tpu/train/flops.py, so the port's MFU counts what the JAX
+package's counts).
 
 Conventions: a "token" is one position of the concatenated [chosen;
 rejected] batch (2 * pairs * seq per DPO step). Matmul FLOPs are 2N per token
@@ -49,3 +49,29 @@ def dpo_flops_per_token(
     if ref_forward:
         attn += attention_flops_per_token(cfg.lm, seq, fwd_bwd=False)
     return mat + attn
+
+
+def sft_flops_per_token(cfg, seq: int, train_mode: str = "adapter") -> float:
+    return _bwd_mult(train_mode) * lm_matmul_params(cfg.lm) + attention_flops_per_token(
+        cfg.lm, seq, fwd_bwd=True)
+
+
+def rm_flops_per_token(cfg, seq: int, train_mode: str = "adapter") -> float:
+    # the shape of SFT: one fwd+bwd over the [chosen; rejected] batch
+    return sft_flops_per_token(cfg, seq, train_mode)
+
+
+def ppo_flops_per_token(cfg, seq: int, ppo_epochs: int = 4, separate_value: bool = False,
+                        train_mode: str = "adapter") -> float:
+    """FLOPs per rollout-batch token of one PPO outer step (the stats pass
+    and ppo_epochs inner updates; the rollout is counted apart, by tokens
+    generated). Stats: policy fwd (2N) + adapter-off reference fwd (2N)
+    [+ the value-adapter trunk's fwd]. Each epoch: policy fwd+bwd (4N
+    adapter / 6N full) [+ the value trunk's fwd+bwd]."""
+    n_lm = lm_matmul_params(cfg.lm)
+    trunks = 3 if separate_value else 2
+    stats = trunks * 2 * n_lm + trunks * attention_flops_per_token(cfg.lm, seq, fwd_bwd=False)
+    per_epoch_trunks = 2 if separate_value else 1
+    epoch = per_epoch_trunks * (_bwd_mult(train_mode) * n_lm
+                                + attention_flops_per_token(cfg.lm, seq, fwd_bwd=True))
+    return stats + ppo_epochs * epoch

@@ -1,7 +1,9 @@
-"""Preference-learning losses (counterpart of vlrlhf_tpu/train/losses.py):
-`batch_logps`, `chunked_logps` and the `dpo_loss` family (sigmoid with
-label smoothing, ddpo, hinge, ipo, kto_pair, reference_free). Same numerics: logps in f32 from the logits' dtype, gather minus
-logsumexp, out-of-vocab labels clamped like take(mode="clip").
+"""Training losses (counterpart of vlrlhf_tpu/train/losses.py):
+`batch_logps`, `chunked_logps`, `chunked_token_logps`, the `dpo_loss`
+family (sigmoid with label smoothing, ddpo, hinge, ipo, kto_pair,
+reference_free), `sft_loss` and `rm_loss`. Same numerics: logps in f32
+from the logits' dtype, gather minus logsumexp, out-of-vocab labels
+clamped like take(mode="clip").
 """
 
 from __future__ import annotations
@@ -85,6 +87,57 @@ def chunked_logps(
     if average_log_prob:
         logps = logps / mask.sum(-1).clamp(min=1)
     return logps, logits_sum
+
+
+def _chunk_token_terms(head_fn, hc, lc):
+    logits = head_fn(hc)  # (B, C, V)
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    return _gather_clipped(logits, lc).float() - lse
+
+
+def chunked_token_logps(
+    hidden: torch.Tensor,  # (B, S, H) final hidden states (pre lm_head)
+    ids: torch.Tensor,  # (B, S) token ids
+    head_fn,  # (B, C, H) -> (B, C, V)
+    *,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Per-token logp of ids[t+1] under head(hidden[t]), (B, S-1) f32: PPO's
+    token logprobs without materializing (B, S, V) logits. The same S-chunk
+    loop as chunked_logps, each chunk under torch.utils.checkpoint, emitting
+    the per-position values instead of their sum."""
+    b, s, _ = hidden.shape
+    ids_next = torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])], dim=1)
+    c = min(chunk, s)
+    parts = []
+    for lo in range(0, s, c):
+        args = (head_fn, hidden[:, lo:lo + c], ids_next[:, lo:lo + c])
+        if torch.is_grad_enabled() and hidden.requires_grad:
+            parts.append(checkpoint(_chunk_token_terms, *args, use_reentrant=False))
+        else:
+            parts.append(_chunk_token_terms(*args))
+    return torch.cat(parts, dim=1)[:, : s - 1]
+
+
+def sft_loss(
+    logits: torch.Tensor,  # (B, S, V)
+    labels: torch.Tensor,  # (B, S)
+    pad_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Mean shifted CE over labeled tokens (token mean, the HF convention)."""
+    logits = logits[:, :-1].float()
+    labels = labels[:, 1:]
+    mask = labels != LABEL_PAD
+    if pad_mask is not None:
+        mask = mask & pad_mask[:, 1:].bool()
+    safe = torch.where(mask, labels, torch.zeros_like(labels))
+    nll = -(_gather_clipped(logits, safe) - torch.logsumexp(logits, dim=-1))
+    return (nll * mask).sum() / mask.sum().clamp(min=1)
+
+
+def rm_loss(chosen_rewards: torch.Tensor, rejected_rewards: torch.Tensor) -> torch.Tensor:
+    """Bradley-Terry pairwise loss (TRL RewardTrainer's default)."""
+    return -F.logsigmoid(chosen_rewards - rejected_rewards).mean()
 
 
 class DPOLossOutput(NamedTuple):

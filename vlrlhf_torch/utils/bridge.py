@@ -167,12 +167,13 @@ def adapter_keys(adapters: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
 
 def load_lora_params(model: nn.Module,
-                     adapters: Union[Mapping[str, Any], Sequence[Mapping[str, Any]]]) -> list[str]:
+                     adapters: Union[Mapping[str, Any], Sequence[Mapping[str, Any]]],
+                     adapter_set: str = "") -> list[str]:
     """Attach (or overwrite) f32 adapters from a vlrlhf_tpu adapter tree
-    (init_lora's output, numpy leaves); from a list of trees, hold them as
-    stacked sets for multi-adapter serving (the set index is the list
-    index; every other Linear's adapter is dropped). Returns the adapted
-    module names."""
+    (init_lora's output, numpy leaves), as the named set `adapter_set` when
+    given; from a list of trees, hold them as stacked sets for
+    multi-adapter serving (the set index is the list index; every other
+    Linear's adapter is dropped). Returns the adapted module names."""
     if not isinstance(adapters, Mapping):
         return set_adapters_(model, stack_adapter_sets([adapter_keys(t) for t in adapters]))
     done = []
@@ -192,22 +193,23 @@ def load_lora_params(model: nn.Module,
         if a.shape != (mod.d_in, b.shape[0]) or b.shape[1] != mod.d_out:
             raise ValueError(f"{name}: adapter {a.shape} {b.shape} does not fit "
                              f"({mod.d_out}, {mod.d_in})")
-        mod.lora_a = nn.Parameter(torch.tensor(a, device=dev))
-        mod.lora_b = nn.Parameter(torch.tensor(b, device=dev))
+        mod.set_adapter_pair(adapter_set, nn.Parameter(torch.tensor(a, device=dev)),
+                             nn.Parameter(torch.tensor(b, device=dev)))
         done.append(name)
     return done
 
 
-def lora_tree(model: nn.Module, grads: bool = False) -> dict:
+def lora_tree(model: nn.Module, grads: bool = False, adapter_set: str = "") -> dict:
     """The port's adapters (or, with grads=True, their .grad) as a numpy
     tree with vlrlhf_tpu's structure: per-layer pairs stacked under
-    "layers_scanned"."""
+    "layers_scanned". `adapter_set` picks a named set."""
     stacked: dict = {}
     for name, mod in model.named_modules():
-        if not isinstance(mod, Linear) or mod.lora_a is None:
+        pair = mod.adapter_pair(adapter_set) if isinstance(mod, Linear) else None
+        if pair is None:
             continue
         key, layer = _adapter_key(name)
-        for leaf, p in (("a", mod.lora_a), ("b", mod.lora_b)):
+        for leaf, p in zip(("a", "b"), pair):
             t = p.grad if grads else p
             arr = np.zeros(tuple(p.shape), np.float32) if t is None else t.detach().float().cpu().numpy()
             stacked.setdefault(key + (leaf,), {})[layer] = arr
