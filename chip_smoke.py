@@ -142,6 +142,28 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      reward / stats / update / outer-step ms, peak memory, GAE's host ms,
      one profiled outer step. (c) ppo --q_lora true --bits 4 at 2 LM
      layers: one outer step, kernels 6 and 7 launched
+  11. the LLaVA-Next and InstructBLIP families: (a) llava_next_mistral and
+     instructblip at their 7B widths but 2 LM / 2 tower layers, the same
+     seeded weights on the card (bf16) and the CPU (f32): an image prompt's
+     logits and 8 greedy tokens (a 336 x 336 anyres image in 3 tiles; a
+     Q-Former instruction read through a seeded WordPiece tokenizer), one
+     DPO pair's loss and LoRA gradients (LOGIT_REL_TOL, LOSS_REL_TOL,
+     GRAD_COS_MIN); InstructBLIP again with --freeze_vision_tower false and
+     LoRA on the EVA tower's attention (the D = 88 backward kernels, their
+     launches counted); LLaVA-Next mistral int4 with --fuse_decode (the
+     fused GQA wqkv), card against CPU and fused against unfused. (b)
+     full-width, full-depth LLaVA-Next mistral 7B (seeded random bf16
+     weights) through cli.main.build_server: 8 anyres image prompts of mixed
+     aspect ratios (1,476-2,928 image tokens, named <h>x<w> and made from a
+     seed as decoded arrays: the card machine has no libjpeg), 8 slots, 32
+     greedy tokens, the cache sized for the largest anyres image; TTFT of a
+     lone request; then build_dpo on one pair with a 672 x 672 image padded
+     to 4096 tokens (attn remat, precomputed reference): step-1 loss ln 2,
+     step ms, MFU, peak memory; then --quantize int8 --kv_cache_dtype int8
+     --speculative_k 3 on echo prompts. (c) full-width, full-depth
+     InstructBLIP-Vicuna-7B: 8 image prompts with their Q-Former ids over
+     HTTP, one DPO pair whose frozen-tower features take the pair's
+     instruction, one CE ranking batch of 16 rows through build_eval
 
 A profiled step prints the card's busy and idle time and its kernel time by
 group (torch.profiler; the flash groups split by head dim). Phase 2's
@@ -153,10 +175,18 @@ of S = 640 (the CE ranking forward), decode at B=16 (the static
 Generator) and chunk at B=16, C=4 (the static speculative verify), and
 ppo's: the flash forward and backward on its update minibatch (4
 right-padded rows of 660-720 tokens, S = 768) and decode at B=8 over
-caches of ~650-700 tokens. The line before the last is {"kernels": [...]}
+caches of ~650-700 tokens, and phase 11's ("families" in the kernels
+line): the flash forward on the anyres tower's 10 tiles (S = 577, D = 64),
+the EVA tower (B = 16, S = 257, H = 16, D = 88, forward and backward) and
+LLaVA-Next mistral's DPO pair (GQA 32/8, causal, S = 4096, a 3,800-token
+row; forward and backward), decode at B = 8 under GQA 32/8 over caches of
+2,900-3,100 tokens and the verify chunk at g * C = 16 over the same. The
+line before the last is {"kernels": [...]}
 (launches summed over the serve, speculative int8 serve, /chat, int4
 serve, DPO, QLoRA, trainer, eval, multi-adapter serving, phase 9's runs
-(ckpt_*) and phase 10's (sft, rm, ppo, ppo_qlora4), split in
+(ckpt_*), phase 10's (sft, rm, ppo, ppo_qlora4) and phase 11's
+(next_serve, next_dpo, next_serve_int8_spec, blip_serve, blip_dpo,
+blip_eval), split in
 launches_by_path; the eval and ppo shapes' times under "eval" and "ppo");
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -204,6 +234,18 @@ CE_LENS = tuple(min(n, 640) - 9 * (i % 3) for i, n in enumerate(EVAL_LENS))  # S
 # and its rollout decode: 8 slots over caches of ~650-700 tokens
 PPO_LENS = (660, 683, 702, 720)
 PPO_DECODE_LENS = (648, 655, 662, 670, 677, 684, 692, 700)
+# phase 11's shapes: LLaVA-Next mistral's GQA 32/8 LM on a DPO pair padded
+# to S = 4096 (one row 3,800 tokens), its serving decode and verify over
+# 8 caches of ~3,000 tokens (anyres prompts), the anyres tower's tiles
+# (2 requests x 5 tiles of 577 tokens, D = 64) and InstructBLIP's EVA
+# tower (D = 88, S = 257, 16 images)
+MISTRAL_LENS = (4096, 3800)
+MISTRAL_DECODE_LENS = (2900, 2930, 2960, 2990, 3020, 3050, 3080, 3100)
+MISTRAL_SC = 3200
+# phase 11b's anyres images, (height, width): mixed aspect ratios, so the
+# plans differ (672 x 672 -> 2,928 image tokens, 336 x 1008 -> 2,328)
+ANYRES_SIZES = ((672, 672), (336, 1008), (1008, 336), (480, 640), (640, 480), (500, 333),
+                (720, 1280), (600, 600))
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -370,6 +412,11 @@ def phase_kernels():
         ("ce_rows_padded", True, 16, 640, 32, 32, 128, CE_LENS),
         # ppo's stats and update forwards: a minibatch of 4 right-padded rows
         ("ppo_update_padded", True, 4, 768, 32, 32, 128, PPO_LENS),
+        # phase 11: the anyres tower (2 prefill requests x 5 tiles), the EVA
+        # tower (D = 88: TMA zero-fills to 128) and the mistral LM's DPO pair
+        ("anyres_tiles_noncausal", False, 10, 577, 16, 16, 64, None),
+        ("eva_noncausal_d88", False, 16, 257, 16, 16, 88, None),
+        ("mistral_gqa_4096", True, 2, 4096, 32, 8, 128, MISTRAL_LENS),
     ]
     errs, times = [], {}
     for label, causal, b, s, h, hkv, d, lens in flash_cases:
@@ -413,7 +460,10 @@ def phase_kernels():
                         "bound_ms": b_ms, "bound_by": b_by}
     main = times["dpo_lm_causal"]
     results["flash_fwd"] = {"max_abs_err": max(errs), **main, "cases": times,
-                            "eval": times["ce_rows_padded"], "ppo": times["ppo_update_padded"]}
+                            "eval": times["ce_rows_padded"], "ppo": times["ppo_update_padded"],
+                            "families": {k: times[k] for k in ("anyres_tiles_noncausal",
+                                                               "eva_noncausal_d88",
+                                                               "mistral_gqa_4096")}}
 
     # backward: the DPO path's LM case, a GQA case and an unfrozen tower's
     # (D = 64, non-causal, the 2 tiled rows of one pair)
@@ -422,6 +472,9 @@ def phase_kernels():
         ("lm_causal_gqa", True, 2, 640, 32, 8, 128, (640, 601)),
         ("vit_noncausal", False, 2, 577, 16, 16, 64, (577, 577)),
         ("ppo_update_padded", True, 4, 768, 32, 32, 128, PPO_LENS),
+        # phase 11: an unfrozen EVA tower (D = 88) and the mistral DPO pair
+        ("eva_noncausal_d88", False, 16, 257, 16, 16, 88, (257,) * 16),
+        ("mistral_gqa_4096", True, 2, 4096, 32, 8, 128, MISTRAL_LENS),
     ]
     bwd = {"dkv": {}, "dq": {}}
     bwd_errs = {"dkv": [], "dq": []}
@@ -504,6 +557,8 @@ def phase_kernels():
             "max_abs_err": max(bwd_errs[kname]),
             **dict(zip(keys, bwd[kname]["dpo_lm_causal"])), "cases": bwd[kname],
             "ppo": dict(zip(keys, bwd[kname]["ppo_update_padded"])),
+            "families": {k: dict(zip(keys, bwd[kname][k]))
+                         for k in ("eva_noncausal_d88", "mistral_gqa_4096")},
         }
 
     results["decode_attention"] = decode_kernel_checks(randn)
@@ -618,7 +673,9 @@ def decode_kernel_checks(randn) -> dict:
     holds the B=8 int8 one, "chat" both B=1 ones, "eval" the B=16 bf16 one
     (eval's static Generator; rows of EVAL_LENS, on an 8-layer cache read
     at layers 2-5), "ppo" the B=8 bf16 one of ppo's rollouts (rows of
-    PPO_DECODE_LENS, timed at 672)."""
+    PPO_DECODE_LENS, timed at 672), "families" phase 11b's LLaVA-Next
+    mistral slots (B=8, GQA nh 32 / nkv 8, 3,200-slot caches on 4 layers,
+    rows of MISTRAL_DECODE_LENS, timed at 3,000), bf16 and int8."""
     import torch.nn.functional as F
 
     from vlrlhf_torch.ops import _build
@@ -628,17 +685,22 @@ def decode_kernel_checks(randn) -> dict:
     from vlrlhf_torch.ops.quant import dequantize_kv, quantize_kv
 
     dev = torch.device("cuda")
-    nh, nkv, hd, sc = 32, 32, 128, 1024
+    nh, hd = 32, 128
     fn = _build.fn("decode_attention", "decode_attention", _ARGS)
     results = {}
-    for shape, b, L, layer, checked, timed, kinds in (
-            ("serve", 8, 32, 17, [(0, sc - 1, 600, 613, 1, 640, 827, 128)], (640, sc - 1),
-             ("bf16", "int8")),
-            ("chat", 1, 32, 17, [(0,), (613,)], (613,), ("bf16", "int8")),
+    for shape, b, L, layer, nkv, sc, checked, timed, kinds in (
+            ("serve", 8, 32, 17, 32, 1024, [(0, 1023, 600, 613, 1, 640, 827, 128)],
+             (640, 1023), ("bf16", "int8")),
+            ("chat", 1, 32, 17, 32, 1024, [(0,), (613,)], (613,), ("bf16", "int8")),
             # eval's static Generator: 16 rows of ~600-700 tokens
-            ("eval", 16, 8, 2, [EVAL_LENS, (0, sc - 1) * 8], (640,), ("bf16",)),
+            ("eval", 16, 8, 2, 32, 1024, [EVAL_LENS, (0, 1023) * 8], (640,), ("bf16",)),
             # ppo's rollouts: 8 slots of ~650-700 tokens
-            ("ppo", 8, 8, 2, [PPO_DECODE_LENS], (672,), ("bf16",))):
+            ("ppo", 8, 8, 2, 32, 1024, [PPO_DECODE_LENS], (672,), ("bf16",)),
+            # phase 11b: LLaVA-Next mistral's 8 slots, GQA 32/8 (g = 4), over
+            # ~3,000-token anyres caches
+            ("mistral", 8, 4, 0, 8, MISTRAL_SC,
+             [MISTRAL_DECODE_LENS, (0, MISTRAL_SC - 1, 1, 2999, 3000, 3001, 1500, 3100)],
+             (3000,), ("bf16", "int8"))):
         timed_layers = range(layer, layer + 4)
         q = randn(b, nh, hd)
         kc, vc = randn(L, b, nkv, sc, hd), randn(L, b, nkv, sc, hd)
@@ -687,13 +749,13 @@ def decode_kernel_checks(randn) -> dict:
                                                               v_cur, lengths_t, hd**-0.5, lks, lvs))
                 live = (torch.arange(sc, device=dev) < length)[None, None, None, :]
                 pairs = itertools.cycle(list(zip(kd, vd)))
-                l_ms = time_ms(lambda: F.scaled_dot_product_attention(qs, *next(pairs),
-                                                                      attn_mask=live), iters=100)
+                l_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    qs, *next(pairs), attn_mask=live, enable_gqa=nh != nkv), iters=100)
                 row = hd + 2 if ks is not None else 2 * hd  # int8: codes and one bf16 scale
                 live_bytes = 2 * b * nkv * length * row
                 b_ms, b_by = bound(4.0 * b * nh * (length + 1) * hd,
                                    live_bytes + 2 * b * nkv * hd * 2 + 2 * b * nh * hd * 2 + b * 4)
-                print(f"decode {shape} {kind} B={b} L={L} nkv={nkv} hd={hd} Sc={sc} layers "
+                print(f"decode {shape} {kind} B={b} L={L} nh={nh} nkv={nkv} hd={hd} Sc={sc} layers "
                       f"{timed_layers[0]}-{timed_layers[-1]} length {length}: kernel alone "
                       f"{k_ms:.4f} ms ({live_bytes / (k_ms * 1e-3) / 1e9:.1f} GB/s of live k/v, "
                       f"{k_ms / l_ms:.2f}x sdpa), wrapper {w_ms:.4f} ms, plain {p_ms:.4f} ms, "
@@ -711,7 +773,8 @@ def decode_kernel_checks(randn) -> dict:
             "max_abs_err": max(r["max_abs_err"] for r in results.values()),
             "int8": results["serve_int8"],
             "chat": {"bf16": results["chat_bf16"], "int8": results["chat_int8"]},
-            "eval": results["eval_bf16"], "ppo": results["ppo_bf16"]}
+            "eval": results["eval_bf16"], "ppo": results["ppo_bf16"],
+            "families": {"bf16": results["mistral_bf16"], "int8": results["mistral_int8"]}}
 
 
 def wrapper_host_us() -> dict:
@@ -782,7 +845,8 @@ def chunk_kernel_checks(randn) -> dict:
     explicit mask (over the dequantized cache for int8) and the bound. The
     main entry is the int8 verify shape (the speculative int8 serve's);
     "eval" holds B=16, C=4 (the static speculative verify over eval's
-    batch), bf16 and int8."""
+    batch), bf16 and int8; "families" phase 11b's mistral verify (B=8, C=4,
+    GQA 32/8 so g * C = 16, caches of ~3,000 tokens in 3,200 slots)."""
     import torch.nn.functional as F
 
     from vlrlhf_torch.ops import _build
@@ -792,13 +856,17 @@ def chunk_kernel_checks(randn) -> dict:
     from vlrlhf_torch.ops.quant import dequantize_kv, quantize_kv
 
     dev = torch.device("cuda")
-    nh, nkv, hd, sc, layer = 32, 32, 128, 1024, 2
+    nh, hd, layer = 32, 128, 2
     fn = _build.fn("chunk_attention", "chunk_attention", _ARGS)
     cases, errs = {}, []
-    for label, lens, c, L in (("verify", (600, 613, 627, 640, 655, 671, 688, 700), 4, 4),
-                              ("chat", (620,), 64, 8), ("chat_short", (620,), 16, 8),
-                              # the static SpeculativeGenerator's verify over eval's batch
-                              ("eval_verify", EVAL_LENS, 4, 4)):
+    for label, lens, c, L, nkv, sc in (
+            ("verify", (600, 613, 627, 640, 655, 671, 688, 700), 4, 4, 32, 1024),
+            ("chat", (620,), 64, 8, 32, 1024), ("chat_short", (620,), 16, 8, 32, 1024),
+            # the static SpeculativeGenerator's verify over eval's batch
+            ("eval_verify", EVAL_LENS, 4, 4, 32, 1024),
+            # phase 11b's speculative verify on mistral: g * C = 4 * 4 = 16
+            # rows per KV head, the CUDA-core path's limit
+            ("mistral_verify", MISTRAL_DECODE_LENS, 4, 4, 8, MISTRAL_SC)):
         b = len(lens)
         q = randn(b, c, nh, hd)
         kc, vc = randn(L, b, nkv, sc, hd), randn(L, b, nkv, sc, hd)
@@ -831,11 +899,11 @@ def chunk_kernel_checks(randn) -> dict:
                   for i in range(L)]
             pairs = itertools.cycle(list(zip(kd, vd)))
             l_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, *next(pairs), attn_mask=attend[:, None]), iters=100)
+                qt, *next(pairs), attn_mask=attend[:, None], enable_gqa=nh != nkv), iters=100)
             del kd, vd
             flops, nbytes = _chunk_work(lens, c, nh, nkv, hd, sc, ksc is not None)
             b_ms, b_by = bound(flops, nbytes)
-            print(f"chunk {label} {kind} B={b} C={c} L={L} nh=nkv={nkv} hd={hd} Sc={sc} "
+            print(f"chunk {label} {kind} B={b} C={c} L={L} nh={nh} nkv={nkv} hd={hd} Sc={sc} "
                   f"lengths {list(lens)}: {report}; kernel alone {k_ms:.4f} ms "
                   f"({k_ms / l_ms:.2f}x sdpa, {flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s, "
                   f"{nbytes / (k_ms * 1e-3) / 1e9:.1f} GB/s), wrapper {w_ms:.4f} ms, plain "
@@ -852,7 +920,9 @@ def chunk_kernel_checks(randn) -> dict:
     return {"max_abs_err": max(errs), "ms": main["ms"], "plain_ms": main["plain_ms"],
             "library_ms": main["library_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "cases": cases,
-            "eval": {"bf16": cases["eval_verify_bf16"], "int8": cases["eval_verify_int8"]}}
+            "eval": {"bf16": cases["eval_verify_bf16"], "int8": cases["eval_verify_int8"]},
+            "families": {"bf16": cases["mistral_verify_bf16"],
+                         "int8": cases["mistral_verify_int8"]}}
 
 
 def make_processor(cfg):
@@ -954,14 +1024,16 @@ def share_int4(cpu, gpu, patterns, what: str) -> int:
     return n
 
 
-def reduced_depth_int4(cpu, gpu, batch) -> None:
+def reduced_depth_int4(cpu, gpu, batch, label: str = "") -> None:
     """int4 serving at reduced depth: the LM linears and lm_head int4
     (DEFAULT_QUANT_PATTERNS), the same codes on the card (bf16 activations,
     kernel 6) and the CPU (f32, plain); image prefill + 8 greedy tokens,
     logit error and token agreement; then the card model fused
-    (--fuse_decode) must give the same tokens as unfused."""
+    (--fuse_decode) must give the same tokens as unfused. The batch may
+    carry a family's anyres / Q-Former fields."""
     from vlrlhf_torch.generate.engine import GenerateConfig, Generator, batch_to_device, prefill
     from vlrlhf_torch.models.lm.fuse import fuse_lm_
+    from vlrlhf_torch.models.vlm import image_inputs
     from vlrlhf_torch.ops.quant import DEFAULT_QUANT_PATTERNS
 
     n4 = share_int4(cpu, gpu, DEFAULT_QUANT_PATTERNS, "reduced-depth int4 serving")
@@ -972,8 +1044,10 @@ def reduced_depth_int4(cpu, gpu, batch) -> None:
     with torch.inference_mode():
         for name, model in (("cuda", gpu), ("cpu", cpu)):
             t = batch_to_device(batch, model.device)
-            *_, last = prefill(model, gen_cfg, 768, t["input_ids"], t["pad_mask"],
-                               t["prompt_lens"], t["pixel_values"], t["image_positions"], None)
+            cache_len = -(-(t["input_ids"].shape[1] + 8) // 128) * 128
+            *_, last = prefill(model, gen_cfg, cache_len, t["input_ids"], t["pad_mask"],
+                               t["prompt_lens"], t["pixel_values"], t["image_positions"], None,
+                               **image_inputs(t))
             logits[name] = last.float().cpu()
             tokens[name] = Generator(model, gen_cfg)(batch).cpu()[0].tolist()
     fuse_lm_(gpu.lm)
@@ -986,7 +1060,7 @@ def reduced_depth_int4(cpu, gpu, batch) -> None:
     rel = err / float(ref.abs().max())
     agree = sum(int(a == b) for a, b in zip(tokens["cuda"], tokens["cpu"]))
     top2 = torch.topk(ref[0], 2).values
-    print(f"reduced-depth int4 serving (2 LM / 2 tower layers, full widths): logit "
+    print(f"reduced-depth int4 serving{label} (2 LM / 2 tower layers, full widths): logit "
           f"max_abs_err={err:.4e} rel={rel:.3e} (tol {LOGIT_REL_TOL}); greedy tokens agree "
           f"{agree}/8; cuda {tokens['cuda']} cpu {tokens['cpu']}; fused on the card "
           f"{fused} ({'identical' if fused == tokens['cuda'] else 'DIFFERENT'})", flush=True)
@@ -1619,13 +1693,15 @@ def reduced_depth_models():
     return cfg32, cpu, gpu
 
 
-def shared_adapters(cpu, gpu, adapter_set: str = ""):
-    """r64 / alpha 16 adapters on the 7 LM linears of both models (the named
-    set `adapter_set` if given), seeded on the CPU with a non-zero b
-    (policy != reference) and copied to the card. Returns the LoraConfig."""
+def shared_adapters(cpu, gpu, adapter_set: str = "", patterns=None):
+    """r64 / alpha 16 adapters on the 7 LM linears of both models (or on
+    `patterns`; the named set `adapter_set` if given), seeded on the CPU
+    with a non-zero b (policy != reference) and copied to the card.
+    Returns the LoraConfig."""
     from vlrlhf_torch.lora.lora import LM_ALL_LINEARS, LoraConfig, init_lora, lora_parameters
 
-    lcfg = LoraConfig(r=64, alpha=16.0, dropout=0.0, target_patterns=LM_ALL_LINEARS)
+    lcfg = LoraConfig(r=64, alpha=16.0, dropout=0.0,
+                      target_patterns=tuple(patterns or LM_ALL_LINEARS))
     gen = torch.Generator().manual_seed(2 + len(adapter_set))
     init_lora(cpu, lcfg, gen, adapter_set=adapter_set)
     init_lora(gpu, lcfg, torch.Generator(device="cuda").manual_seed(2), adapter_set=adapter_set)
@@ -1993,8 +2069,8 @@ def finish_timed(run, args, want: dict, what: str) -> None:
 
 
 def trainer_model():
-    """Phase 7's model: LLaVA-1.5-7B at full width and depth, bf16, random
-    weights from seed 0, on the card; (cfg, model, processor)."""
+    """Phases 7 and 10b's model: LLaVA-1.5-7B at full width and depth, bf16,
+    random weights from seed 0, on the card; (cfg, model, processor)."""
     from vlrlhf_torch.models.common import init_random_
     from vlrlhf_torch.models.config import _llava_7b
     from vlrlhf_torch.models.vlm import VLM
@@ -2474,7 +2550,8 @@ def phase_eval():
                 rows = json.load(f)
             texts[name] = [r["response"] for r in rows]
             if prompts is None:
-                prompts = [runner._prompt_row(r["question"], os.path.basename(r["img"]))
+                prompts = [runner.processor.generation_row(r["question"],
+                                                           os.path.basename(r["img"]))
                            for r in rows]
             n_tok = sum(len(t) for t in toks[name])
             extra = ""
@@ -2699,7 +2776,7 @@ def eval_reduced_depth():
         del runners["card"].ce
     ties = []
     for i, (r, g) in enumerate(zip(out["host"][0], out["card"][0])):
-        p = runner._prompt_row(gen_rows[i]["question"], gen_rows[i]["img"])
+        p = runner.processor.generation_row(gen_rows[i]["question"], gen_rows[i]["img"])
         tie = tie_or_raise(f"reduced-depth eval row {i}", cpu, proc, p["input_ids"],
                            p["img_path"], r, g, 2)
         if tie:
@@ -3558,6 +3635,433 @@ def phase_ppo_qlora4(root: str) -> dict:
     return launches
 
 
+# ─────────────────────── phase 11: LLaVA-Next and InstructBLIP ───────────────────────
+
+
+def anyres_image(path, size, mode="shortest_edge_crop"):
+    """Image loader of phase 11: in 'raw' mode (the anyres collator's whole
+    image) a file name "<tag>_<h>x<w>_<i>.png" gives a seeded (h, w, 3)
+    uint8 image of that size; other modes are seeded_image's."""
+    if mode != "raw":
+        return seeded_image(path, size, mode)
+    m = re.search(r"_(\d+)x(\d+)_", os.path.basename(str(path)))
+    if m is None:
+        raise ValueError(f"{path}: an anyres image name carries its <h>x<w>")
+    rng = np.random.default_rng(zlib.crc32(str(path).encode()))
+    return rng.integers(0, 256, (int(m.group(1)), int(m.group(2)), 3), dtype=np.uint8)
+
+
+def qformer_tokenizer(vocab_size: int):
+    """A seeded BERT WordPiece tokenizer of `vocab_size` pieces (+ [DEC])
+    written under build/ and read by the port's JsonTokenizer, as a
+    checkpoint's qformer_tokenizer/ is."""
+    import shutil
+
+    from vlrlhf_torch.data.tokenizer import JsonTokenizer
+    from vlrlhf_torch.utils.synthetic_checkpoint import write_bert_tokenizer
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"phase11-qtok-{os.getpid()}")
+    write_bert_tokenizer(path, vocab_size)
+    try:
+        return JsonTokenizer(path)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def family_processor(cfg, qtok=None):
+    """make_processor for a phase 11 family, with InstructBLIP's Q-Former
+    tokenizer."""
+    proc = make_processor(cfg)
+    proc.qformer_tokenizer = qtok
+    return proc
+
+
+def family_collator_config(cfg):
+    from vlrlhf_torch.data.collators import CollatorConfig
+
+    return CollatorConfig(image_size=cfg.vision.image_size, anyres=bool(cfg.grid_pinpoints),
+                          grid_pinpoints=cfg.grid_pinpoints,
+                          tile_grid=cfg.vision.image_size // cfg.vision.patch_size)
+
+
+def family_models(family: str):
+    """(cfg32, cpu, gpu): `family`'s 7B widths at 2 LM / 2 tower layers (the
+    Q-Former whole), attn remat, the same seeded weights in f32 on the CPU
+    and bf16 on the card."""
+    import dataclasses
+
+    from vlrlhf_torch.cli.main import with_remat_policy
+    from vlrlhf_torch.models.common import init_random_
+    from vlrlhf_torch.models.config import FAMILIES
+    from vlrlhf_torch.models.vlm import VLM
+
+    full = with_remat_policy(FAMILIES[family].make_config(torch.float32), "attn")
+    cfg32 = dataclasses.replace(full, lm=dataclasses.replace(full.lm, num_layers=2),
+                                vision=dataclasses.replace(full.vision, num_layers=2))
+    bf = torch.bfloat16
+    cfg16 = dataclasses.replace(
+        cfg32, lm=dataclasses.replace(cfg32.lm, dtype=bf),
+        vision=dataclasses.replace(cfg32.vision, dtype=bf),
+        qformer=None if cfg32.qformer is None else dataclasses.replace(cfg32.qformer, dtype=bf))
+    cpu = init_random_(VLM(cfg32, "cpu"), torch.Generator().manual_seed(1))
+    gpu = VLM(cfg16, "cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    return cfg32, cpu, gpu
+
+
+def card_vs_cpu_logits(cpu, gpu, batch, label: str) -> float:
+    """Image prefill + 8 greedy tokens of every row of `batch` on both
+    models: last-prompt logits within LOGIT_REL_TOL, each row's first token
+    equal where its margin exceeds twice the error. Returns the max abs
+    logit error."""
+    from vlrlhf_torch.generate.engine import GenerateConfig, Generator, batch_to_device, prefill
+    from vlrlhf_torch.models.vlm import image_inputs
+
+    gen_cfg = GenerateConfig(max_new_tokens=8, pad_token_id=-1)
+    logits, tokens = {}, {}
+    with torch.inference_mode():
+        for name, model in (("cuda", gpu), ("cpu", cpu)):
+            t = batch_to_device(batch, model.device)
+            cache_len = -(-(t["input_ids"].shape[1] + 8) // 128) * 128
+            *_, last = prefill(model, gen_cfg, cache_len, t["input_ids"], t["pad_mask"],
+                               t["prompt_lens"], t["pixel_values"], t["image_positions"], None,
+                               **image_inputs(t))
+            logits[name] = last.float().cpu()
+            tokens[name] = Generator(model, gen_cfg)(batch).cpu().tolist()
+    ref, got = logits["cpu"], logits["cuda"]
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: logits on the card are not finite")
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    agree = [sum(int(a == b) for a, b in zip(c, h))
+             for c, h in zip(tokens["cuda"], tokens["cpu"])]
+    print(f"{label} (2 LM / 2 tower layers, full widths, {len(agree)} prompts of "
+          f"{batch['prompt_lens'].tolist()} tokens): logit max_abs_err={err:.4e} rel={rel:.3e} "
+          f"(tol {LOGIT_REL_TOL}); greedy tokens agree {agree} of 8; cuda {tokens['cuda']} cpu "
+          f"{tokens['cpu']}", flush=True)
+    if rel > LOGIT_REL_TOL:
+        raise AssertionError(f"{label}: logits differ: rel {rel} > {LOGIT_REL_TOL}")
+    for row in range(len(agree)):
+        top2 = torch.topk(ref[row], 2).values
+        if float(top2[0] - top2[1]) > 2 * err and tokens["cuda"][row][0] != tokens["cpu"][row][0]:
+            raise AssertionError(f"{label}: row {row}'s first greedy token differs though its "
+                                 "margin exceeds the error")
+    return err
+
+
+def card_vs_cpu_dpo(cpu, gpu, batch, dcfg, label: str, counts=None):
+    """One DPO loss + backward on both models (adapters already shared):
+    loss within LOSS_REL_TOL, LoRA gradient cosine at least GRAD_COS_MIN.
+    `counts` (counted() wrappers) are zeroed before the card's step and
+    read after it; returns those launches (None without `counts`)."""
+    from vlrlhf_torch.train.dpo import adapter_params, batch_to_device, dpo_step
+    from vlrlhf_torch.train.train_state import OptimizerConfig, init_train_state
+
+    ocfg = OptimizerConfig(learning_rate=1e-5)
+    loss, grads, launches = {}, {}, None
+    for name, model in (("cuda", gpu), ("cpu", cpu)):
+        state = init_train_state(adapter_params(model), ocfg)
+        if counts is not None and name == "cuda":
+            zero_counts(counts)
+        m = dpo_step(model, dcfg, ocfg, state, batch_to_device(batch, model.device))
+        loss[name] = float(m["loss"])
+        if counts is not None and name == "cuda":
+            launches = read_counts(counts)
+        grads[name] = torch.cat([p.grad.float().flatten().cpu() for p in state.trainable])
+    g, r = grads["cuda"], grads["cpu"]
+    if not (np.isfinite(loss["cuda"]) and torch.isfinite(g).all()):
+        raise AssertionError(f"{label} on the card is not finite")
+    rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+    cos = float(torch.dot(g.double(), r.double()) / (g.double().norm() * r.double().norm()))
+    print(f"{label} (2 LM / 2 tower layers, full widths, 1 pair of {batch['input_ids'].shape[1]} "
+          f"tokens): loss cuda {loss['cuda']:.6f} cpu {loss['cpu']:.6f} rel err {rel:.3e} (tol "
+          f"{LOSS_REL_TOL}); LoRA gradient cosine {cos:.6f} (min {GRAD_COS_MIN}) over "
+          f"{g.numel()} entries" + (f"; launches {json.dumps(launches)}" if launches else ""),
+          flush=True)
+    if rel > LOSS_REL_TOL:
+        raise AssertionError(f"{label}: loss differs: rel {rel} > {LOSS_REL_TOL}")
+    if cos < GRAD_COS_MIN:
+        raise AssertionError(f"{label}: LoRA gradients differ: cosine {cos} < {GRAD_COS_MIN}")
+    return launches
+
+
+def phase_families_reduced_depth() -> None:
+    """Phase 11a: llava_next_mistral and instructblip at 2 LM / 2 tower
+    layers, full widths, card bf16 against CPU f32: two image prompts'
+    logits and 8 greedy tokens in one batch (anyres images of 336 x 336 and
+    336 x 672, 3 tiles each but plans of 1,176 and 1,752 tokens, so one row
+    is padded; Q-Former instructions of two lengths), one DPO pair's loss
+    and LoRA gradients; then
+    InstructBLIP with an unfrozen tower and LoRA on its attention (the
+    D = 88 backward kernels) and LLaVA-Next mistral int4 with --fuse_decode
+    (kernel 6 on the fused GQA wqkv, N = 4096 + 1024 + 1024)."""
+    from vlrlhf_torch.data.collators import DPOCollator, GenerationCollator
+    from vlrlhf_torch.train.dpo import DPOConfig
+
+    for family in ("llava_next_mistral", "instructblip"):
+        t0 = time.perf_counter()
+        cfg32, cpu, gpu = family_models(family)
+        qtok = qformer_tokenizer(cfg32.qformer.vocab_size - 1) if cfg32.qformer else None
+        proc = family_processor(cfg32, qtok)
+        ccfg = family_collator_config(cfg32)
+        batch = GenerationCollator(proc, ccfg, anyres_image)(
+            [proc.generation_row("describe the picture in detail", "r11_336x336_0.png"),
+             proc.generation_row("what is on the left side of this wide picture?",
+                                 "r11_336x672_1.png")])
+        if family == "instructblip" and batch["qformer_mask"].all():
+            raise AssertionError("the InstructBLIP batch should pad one row's Q-Former ids")
+        if family != "instructblip" and not (batch["anyres_gather"][0] == -2).any():
+            raise AssertionError("the anyres batch should pad its first row's gather map")
+        card_vs_cpu_logits(cpu, gpu, batch, f"reduced-depth {family} serving")
+        lcfg = shared_adapters(cpu, gpu)
+        dbatch = DPOCollator(proc, ccfg, anyres_image)([proc.tokenize_row_dpo(
+            dict(pair_row(0, 12, 40, 30), img_path="p11_336x336_0.png"))])
+        dcfg = DPOConfig(beta=0.1, lora_scale=lcfg.scale, logits_chunk=256)
+        card_vs_cpu_dpo(cpu, gpu, dbatch, dcfg, f"reduced-depth {family} DPO")
+        if family == "instructblip":
+            drop_adapters(cpu)
+            drop_adapters(gpu)
+            lcfg = shared_adapters(cpu, gpu, patterns=(
+                r"lm/.*attn/(wq|wk|wv|wo)/", r"vision/.*attn/(wq|wk|wv|wo)/"))
+            counts = counted(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
+            launches = card_vs_cpu_dpo(
+                cpu, gpu, dbatch, DPOConfig(beta=0.1, lora_scale=lcfg.scale, logits_chunk=256,
+                                            frozen_vision=False),
+                "reduced-depth instructblip DPO, unfrozen EVA tower (D = 88)", counts)
+            # policy backward: the LM's 2 layers and the tower's 2 (the
+            # reference forward runs under no_grad)
+            want = cfg32.lm.num_layers + cfg32.vision.layers_run
+            if min(launches["flash_bwd_dkv"], launches["flash_bwd_dq"]) < want:
+                raise AssertionError(f"the unfrozen tower's backward kernels did not all run: "
+                                     f"{launches}, want >= {want} each")
+        else:
+            drop_adapters(cpu)
+            drop_adapters(gpu)
+            reduced_depth_int4(cpu, gpu, batch, f" {family} (fused GQA wqkv)")
+        print(f"phase 11a {family}: {time.perf_counter() - t0:.1f} s", flush=True)
+        del cpu, gpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def serve_family(cfg, model, proc, args, bodies: list, what: str, loader) -> tuple:
+    """Serve `bodies` at once over HTTP through cli.main.build_server; the
+    kernel counts zeroed just before, read just after. Returns (launches,
+    results, wall s, engine stats, TTFT ms of a lone 1-token request)."""
+    from vlrlhf_torch.cli.main import build_server
+
+    httpd, srv = build_server(cfg, model, proc, args, loader)
+    engine = srv.engine
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    http_thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    fns = counted(("flash_fwd", "decode_attention", "chunk_attention"))
+    try:
+        zero_counts(fns)
+        t0 = time.perf_counter()
+        results = post_concurrently(url + "/generate", bodies)
+        wall = time.perf_counter() - t0
+        launches = read_counts(fns)
+        stats = {"admits": engine.last_admits, "bursts": engine.last_bursts,
+                 "decode_steps": engine.last_decode_steps,
+                 "verify_steps": engine.last_verify_steps, "cache_len": engine.cache_len}
+        ttft = []
+        for _ in range(3):  # an idle server: admit, prefill, first token, reply
+            t1 = time.perf_counter()
+            post_json(url + "/generate", dict(bodies[0], max_new_tokens=1))
+            ttft.append((time.perf_counter() - t1) * 1e3)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.stop()
+        http_thread.join(timeout=60)
+    if http_thread.is_alive() or (srv._thread is not None and srv._thread.is_alive()):
+        raise AssertionError(f"{what}: server threads did not stop")
+    tokens = [r.get("tokens") for r in results]
+    print(f"{what}: {len(bodies)} /generate requests in {wall:.3f} s, {sum(tokens)} tokens "
+          f"({sum(tokens) / wall:.2f} tokens/s; per request {tokens}); engine "
+          f"{json.dumps(stats)}; launches {json.dumps(launches)}; TTFT (idle server, one "
+          f"1-token request) {[round(x, 3) for x in ttft]} ms", flush=True)
+    if launches["flash_fwd"] < stats["admits"] * (cfg.vision.layers_run + cfg.lm.num_layers):
+        raise AssertionError(f"{what}: too few flash launches: {launches}")
+    if stats["decode_steps"] and launches["decode_attention"] < cfg.lm.num_layers * \
+            stats["decode_steps"]:
+        raise AssertionError(f"{what}: too few decode launches: {launches}")
+    return launches, results, wall, stats, sorted(ttft)[1]
+
+
+def family_dpo(cfg, model, proc, rows, loader, what: str, pad_to: int = 0, steps: int = 3,
+               profile: bool = False):
+    """cli.main.build_dpo on `rows` (precomputed reference logps, attn
+    remat, logits_chunk 256), `steps` steps with their counts, step-1 loss
+    ln 2 within 1e-3, then 3 timed steps (and with `profile` one profiled
+    step): (launches, {median ms, MFU, peak GiB, seq})."""
+    import statistics
+
+    from vlrlhf_torch.cli.main import build_dpo
+    from vlrlhf_torch.train.dpo import batch_to_device
+    from vlrlhf_torch.train.flops import dpo_flops_per_token, vision_flops_per_image
+    from vlrlhf_torch.train.loop import read_metrics
+
+    torch.cuda.reset_peak_memory_stats()
+    run = build_dpo(cfg, model, proc, dpo_args(max_length=1024), rows, loader)
+    if pad_to:
+        run.collator.cfg.pad_to = pad_to
+    batch_np = run.collator([run.tokenize_fn(r) for r in run.rows])
+    real = batch_np["pad_mask"].sum(1).tolist()
+    batch = batch_to_device(batch_np, "cuda")
+    fns = counted(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
+    zero_counts(fns)
+    losses = [read_metrics(run.step(batch))["loss"] for _ in range(steps)]
+    launches = read_counts(fns)
+    if abs(losses[0] - math.log(2.0)) > 1e-3 or not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: step-1 loss {losses[0]} is not ln 2 within 1e-3, or a "
+                             f"loss is not finite: {losses}")
+    if min(launches["flash_bwd_dkv"], launches["flash_bwd_dq"]) < cfg.lm.num_layers * steps:
+        raise AssertionError(f"{what}: too few backward launches: {launches}")
+    step_ms = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        m = run.step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    if not np.isfinite(read_metrics(m)["loss"]):
+        raise AssertionError(f"{what}: a timed step's loss is not finite")
+    peak = torch.cuda.max_memory_allocated()
+    if profile:
+        profile_breakdown(lambda: run.step(batch), f"{what} step")
+    med = statistics.median(step_ms)
+    s = batch_np["input_ids"].shape[1]
+    tokens = int(np.prod(batch_np["input_ids"].shape))
+    images = int(np.prod(batch_np["pixel_values"].shape[:2]))  # pairs x (images | tiles)
+    flops = (dpo_flops_per_token(cfg, s, ref_forward=False) * tokens
+             + vision_flops_per_image(cfg.vision) * images)
+    mfu = flops / (med * 1e-3) / PEAK_FLOPS
+    print(f"{what}: 1 pair, rows of {real} real tokens padded to {s}, {images} tower images; "
+          f"steps 1-{steps} loss {losses}; launches {json.dumps(launches)}; step median "
+          f"{med:.3f} ms {[round(x, 3) for x in step_ms]}, {tokens / (med * 1e-3):.1f} tokens/s, "
+          f"MFU {mfu:.4f} ({flops / 1e12:.3f} TFLOP per step, train/flops.py); peak memory "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    del run, batch
+    drop_adapters(model)
+    return launches, {"median_ms": med, "mfu": mfu, "peak_gib": peak / 2**30, "seq": s}
+
+
+def phase_llava_next() -> dict:
+    """Phase 11b: full-width, full-depth LLaVA-Next mistral 7B (seeded random
+    bf16 weights): 8 anyres image prompts of mixed aspect ratios served over
+    HTTP (8 slots, 32 greedy tokens), one DPO pair with an anyres image
+    padded to 4096 tokens, then the same model served with --quantize int8
+    --kv_cache_dtype int8 --speculative_k 3. Returns the launch counts by
+    path."""
+    from vlrlhf_torch.cli.main import with_remat_policy
+    from vlrlhf_torch.models.anyres import anyres_plan
+    from vlrlhf_torch.models.common import init_random_
+    from vlrlhf_torch.models.config import _llava_next_mistral_7b
+    from vlrlhf_torch.models.vlm import VLM
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = with_remat_policy(_llava_next_mistral_7b(torch.bfloat16), "attn")
+    t0 = time.perf_counter()
+    model = VLM(cfg, "cuda")
+    init_random_(model, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    proc = family_processor(cfg)
+    plans = {hw: anyres_plan(hw, cfg.grid_pinpoints)["n_tokens"] for hw in ANYRES_SIZES}
+    print(f"full-width LLaVA-Next mistral 7B: {sum(p.numel() for p in model.parameters()) / 1e9:.3f}"
+          f" B params bf16, init {time.perf_counter() - t0:.1f} s; anyres image tokens by "
+          f"(h, w): {plans}", flush=True)
+    bodies = [{"question": f"request {i}: what does this image show? answer in detail",
+               "image": f"any_{h}x{w}_{i}.png", "max_new_tokens": 32}
+              for i, (h, w) in enumerate(ANYRES_SIZES)]
+    serve_l, _, _, stats, ttft = serve_family(cfg, model, proc, serve_args(), bodies,
+                                              "phase 11b LLaVA-Next mistral bf16 serve",
+                                              anyres_image)
+    if stats["cache_len"] < max(plans.values()) + 32:
+        raise AssertionError(f"the serving cache ({stats['cache_len']}) cannot hold an anyres "
+                             "prompt")
+    pair = dict(pair_row(11, 300, 640, 600), img_path="dpo_672x672_0.png")
+    dpo_l, dpo_stats = family_dpo(cfg, model, proc, [pair], anyres_image,
+                                  "phase 11b LLaVA-Next mistral DPO (anyres pair)", pad_to=4096,
+                                  profile=True)
+    if dpo_stats["seq"] != 4096:
+        raise AssertionError(f"the anyres DPO pair is not padded to 4096: {dpo_stats}")
+    spec_bodies = [{"question": echo_question(i), "image": f"any_{h}x{w}_{i}.png",
+                    "max_new_tokens": 32} for i, (h, w) in enumerate(ANYRES_SIZES)]
+    spec_l, _, _, spec_stats, _ = serve_family(
+        cfg, model, proc, serve_args(quantize="int8", kv_cache_dtype="int8", speculative_k=3),
+        spec_bodies, "phase 11b LLaVA-Next mistral int8 --speculative_k 3 serve", anyres_image)
+    if spec_l["chunk_attention"] <= 0:
+        raise AssertionError(f"the speculative serve ran no verify chunks: {spec_l}")
+    print(f"phase 11b summary: TTFT {ttft:.3f} ms (bf16), DPO step {dpo_stats['median_ms']:.3f} "
+          f"ms MFU {dpo_stats['mfu']:.4f} peak {dpo_stats['peak_gib']:.3f} GiB; "
+          f"peak memory of the phase {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+          flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"next_serve": serve_l, "next_dpo": dpo_l, "next_serve_int8_spec": spec_l}
+
+
+def phase_instructblip() -> dict:
+    """Phase 11c: full-width, full-depth InstructBLIP-Vicuna-7B (seeded
+    random bf16 weights, a seeded WordPiece Q-Former tokenizer): 8 image
+    prompts served over HTTP with their Q-Former ids, one DPO pair whose
+    frozen-tower features take the pair's instruction, one CE eval batch of
+    16 rows. Returns the launch counts by path."""
+    from vlrlhf_torch.cli.main import build_eval, with_remat_policy
+    from vlrlhf_torch.generate.server import RequestBuilder
+    from vlrlhf_torch.models.common import init_random_
+    from vlrlhf_torch.models.config import _instructblip_vicuna_7b
+    from vlrlhf_torch.models.vlm import VLM
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = with_remat_policy(_instructblip_vicuna_7b(torch.bfloat16), "attn")
+    t0 = time.perf_counter()
+    model = VLM(cfg, "cuda")
+    init_random_(model, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    proc = family_processor(cfg, qformer_tokenizer(cfg.qformer.vocab_size - 1))
+    print(f"full-width InstructBLIP-Vicuna-7B: "
+          f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params bf16, init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    req = RequestBuilder(proc, family_collator_config(cfg), seeded_image).build(
+        "what is in the image?", "q.png")
+    if req.qformer_input_ids is None or req.input_ids[0] != proc.cfg.image_token_id:
+        raise AssertionError("an InstructBLIP request lacks its Q-Former ids or image prefix")
+    bodies = [{"question": f"request {i}: what does this image show? answer in detail",
+               "image": f"blip{i}.png", "max_new_tokens": 32} for i in range(8)]
+    serve_l, _, _, _, ttft = serve_family(cfg, model, proc, serve_args(), bodies,
+                                          "phase 11c InstructBLIP bf16 serve", seeded_image)
+    pair = pair_row(12, 150, 260, 250)
+    dpo_l, dpo_stats = family_dpo(cfg, model, proc, [pair], seeded_image,
+                                  "phase 11c InstructBLIP DPO (frozen tower, per-pair Q-Former)")
+    runner = build_eval(cfg, model, proc, eval_args(), seeded_image)
+    rows = [{"question": f"question {i}: is there a dog in the picture?",
+             "answer": ("yes", "no", "a dog", "two cats")[i % 4], "img": f"ce{i // 4}.png"}
+            for i in range(16)]
+    fns = counted(("flash_fwd",))
+    zero_counts(fns)
+    t1 = time.perf_counter()
+    out = runner.run_vqa_ppl(rows, batch_size=16)
+    ce_s = time.perf_counter() - t1
+    ce_l = read_counts(fns)
+    ppl = [r["ppl"] for r in out]
+    print(f"phase 11c InstructBLIP CE ranking: 16 rows in {ce_s * 1e3:.3f} ms "
+          f"({16 / ce_s:.2f} rows/s), ppl {[round(x, 4) for x in ppl]}; launches "
+          f"{json.dumps(ce_l)}", flush=True)
+    if not all(np.isfinite(ppl)) or ce_l["flash_fwd"] < cfg.vision.layers_run + cfg.lm.num_layers:
+        raise AssertionError(f"CE ranking: non-finite ppl or too few launches: {ppl} {ce_l}")
+    print(f"phase 11c summary: TTFT {ttft:.3f} ms, DPO step {dpo_stats['median_ms']:.3f} ms MFU "
+          f"{dpo_stats['mfu']:.4f} peak {dpo_stats['peak_gib']:.3f} GiB; peak memory of the "
+          f"phase {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    del model, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"blip_serve": serve_l, "blip_dpo": dpo_l, "blip_eval": ce_l}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3567,9 +4071,18 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    def mark(label: str) -> None:
+        print(f"wall: phase {label} done {time.perf_counter() - t_start:.1f} s after the start",
+              flush=True)
+
     phase_build()
+    mark("1")
     kernels = phase_kernels()
+    mark("2")
     phase_reduced_depth()
+    mark("3")
     serve_launches, bf16_decode_ms = phase_serve()
     gc.collect()  # the bf16 serving model and cache go before the int8 one
     torch.cuda.empty_cache()
@@ -3577,31 +4090,46 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     int4_launches = phase_serve_int4(bf16_decode_ms, int8_decode_ms)
+    mark("4")
     gc.collect()  # the serving models and caches go before any training model
     torch.cuda.empty_cache()
     phase_reduced_depth_dpo()
     phase_reduced_depth_dpo(bits=4)
+    mark("5")
     dpo_launches, dpo_stats = phase_dpo()
     gc.collect()
     torch.cuda.empty_cache()
     qlora_launches = phase_dpo_qlora4(dpo_stats)
+    mark("6")
     gc.collect()
     torch.cuda.empty_cache()
     trainer_launches = phase_trainer()
+    mark("7")
     gc.collect()
     torch.cuda.empty_cache()
     eval_launches, adapter_launches = phase_eval()
+    mark("8")
     gc.collect()
     torch.cuda.empty_cache()
     ckpt_launches = phase_checkpoint(dpo_stats["median_ms"])
+    mark("9")
     gc.collect()
     torch.cuda.empty_cache()
     phase_reduced_depth_trainers()
     trainer10_launches = phase_trainers()
+    mark("10")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_families_reduced_depth()
+    mark("11a")
+    next_launches = phase_llava_next()
+    blip_launches = phase_instructblip()
+    mark("11")
     runs = {"serve": serve_launches, "serve_int8_spec": spec_launches, "chat_int8": chat_launches,
             "serve_int4": int4_launches, "dpo": dpo_launches, "dpo_qlora4": qlora_launches,
             "dpo_trainer": trainer_launches, "eval": eval_launches,
-            "serve_adapters": adapter_launches, **ckpt_launches, **trainer10_launches}
+            "serve_adapters": adapter_launches, **ckpt_launches, **trainer10_launches,
+            **next_launches, **blip_launches}
     names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention", "chunk_attention",
              "int4_matmul", "int4_matmul_t")
     by_path = {name: {path: counts[name] for path, counts in runs.items() if name in counts}
@@ -3655,6 +4183,16 @@ def main() -> int:
                  if by_path[name].get(path, 0) <= 0]
     if missing10:
         raise AssertionError(f"phase 10 paths that did not launch their kernels: {missing10}")
+    want11 = {"next_serve": ("flash_fwd", "decode_attention"),
+              "next_dpo": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
+              "next_serve_int8_spec": ("flash_fwd", "chunk_attention"),
+              "blip_serve": ("flash_fwd", "decode_attention"),
+              "blip_dpo": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
+              "blip_eval": ("flash_fwd",)}
+    missing11 = [(path, name) for path, names in want11.items() for name in names
+                 if by_path[name].get(path, 0) <= 0]
+    if missing11:
+        raise AssertionError(f"phase 11 paths that did not launch their kernels: {missing11}")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
@@ -3662,7 +4200,8 @@ def main() -> int:
          "max_abs_err": kernels[name]["max_abs_err"], "ms": kernels[name]["ms"],
          "plain_ms": kernels[name]["plain_ms"], "bound_ms": kernels[name]["bound_ms"],
          "bound_by": kernels[name]["bound_by"], "library_ms": kernels[name]["library_ms"],
-         **{k: kernels[name][k] for k in ("int8", "chat", "eval", "ppo") if k in kernels[name]}}
+         **{k: kernels[name][k] for k in ("int8", "chat", "eval", "ppo", "families")
+            if k in kernels[name]}}
         for name in names
     ]}
     print(json.dumps(line))

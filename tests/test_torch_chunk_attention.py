@@ -201,3 +201,15 @@ def test_kernel_plain_copy_shapes_on_card(kind, c, s, strided):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     _card_chunk_case(kind, 3, c, 4, 2, 64, s, [0, 33, s - c], strided)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_verify_over_anyres_length_caches_on_card(kind):
+    """LLaVA-Next mistral's speculative verify: C = 4 under GQA 32 / 8, so
+    g * C = 16 rows per KV head (the CUDA-core path's limit), 8 slots over
+    caches of ~3,000 tokens in 3,200 slots."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _card_chunk_case(kind, 8, 4, 32, 8, 128, 3200,
+                     [2900, 2930, 2960, 2990, 3020, 3050, 3080, 3196])

@@ -199,10 +199,10 @@ def test_split_merge_matches_plain(cuts):
         torch.testing.assert_close(got, want[b], atol=TOL, rtol=TOL)
 
 
-def _card_decode_case(kind, g, hd, s, lengths, strided=False):
+def _card_decode_case(kind, g, hd, s, lengths, strided=False, nkv=2):
     from vlrlhf_torch.ops.decode_attention import decode_attention_plain
 
-    b, nkv, L = len(lengths), 2, 2
+    b, L = len(lengths), 2
     nh = nkv * g
     q, _, _, kc, vc = (torch.from_numpy(a).cuda().bfloat16()
                        for a in _inputs(hd + g, 1, b, nh, nkv, hd, 1))
@@ -254,3 +254,14 @@ def test_kernel_plain_copy_shapes_on_card(kind, s, strided):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     _card_decode_case(kind, 2, 64, s, [0, 1, 33, s - 1, s // 2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_gqa_over_anyres_length_caches_on_card(kind):
+    """LLaVA-Next mistral's serving decode: GQA 32 / 8 (g = 4), hd 128, 8
+    slots over caches of ~3,000 tokens in 3,200 slots (anyres prompts)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _card_decode_case(kind, 4, 128, 3200, [2900, 2930, 2960, 2990, 3020, 3050, 3080, 3199],
+                      nkv=8)

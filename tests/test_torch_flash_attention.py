@@ -101,6 +101,8 @@ def _card_check(q, k, v, causal, seg_q, seg_kv, rows, **kw):
     (True, 2, 577, 4, 4, 64, None), (False, 1, 577, 2, 2, 128, None),  # the ragged tower length
     (True, 2, 200, 4, 2, 256, None), (False, 1, 129, 2, 2, 256, None),  # D = 256
     (True, 1, 130, 2, 2, 72, None),  # D padded up to the next instantiated width
+    (False, 16, 257, 16, 16, 88, None),  # InstructBLIP's EVA tower: D = 88, S = 257
+    (True, 2, 4096, 32, 8, 128, (4096, 3800)),  # LLaVA-Next mistral's anyres DPO pair
 ])
 def test_kernel_matches_plain_on_card(causal, b, s, h, hkv, d, lens):
     from vlrlhf_torch.ops.flash_attention import KV_PAD_SEG, Q_PAD_SEG, make_segments

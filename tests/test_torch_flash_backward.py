@@ -132,6 +132,8 @@ def test_fully_masked_rows_give_zero_and_finite_grads():
     (False, 2, 577, 16, 16, 64, None),  # an unfrozen tower's backward: the D = 64 dQ ring
     (True, 2, 129, 32, 8, 128, (129, 77)),  # GQA 32 / 8 at ragged tiles
     (False, 1, 130, 2, 2, 72, None),  # D read through TMA's zero fill up to 128
+    (False, 16, 257, 16, 16, 88, None),  # an unfrozen EVA tower (InstructBLIP): D = 88
+    (True, 2, 4096, 32, 8, 128, (4096, 3800)),  # LLaVA-Next mistral's anyres DPO pair
 ])  # every other case reaches the wgmma dK/dV and dQ kernels
 def test_kernels_match_plain_on_card(causal, b, s, h, hkv, d, lens):
     """bf16 kernels vs the plain backward in f32 on the same bf16 values,

@@ -6,7 +6,8 @@ f32 on the CPU:
     tolerances; every parameter equals vlrlhf_tpu's load_model_bundle
     bridged into the port (utils/bridge.py), exactly;
   - the published llava-hf/llava-1.5-7b-hf config.json maps to the port's
-    LLaVA-1.5-7B config; other families are refused naming ROADMAP item 9;
+    LLaVA-1.5-7B config; the families still to port (qwen_vl,
+    internlm_xc2) are refused naming ROADMAP item 9;
   - int8 and int4 quantization during the import give the codes of
     quantizing after it (the serving, QLoRA and wide pattern sets);
   - a GPTQ-layout linear imports as vlrlhf_tpu's import does;
@@ -119,8 +120,7 @@ def test_published_llava_15_config_and_refusals():
     assert cfg == _llava_7b()
     small = dataclasses.replace(_llava_7b(), lm=dataclasses.replace(_llava_7b().lm, num_layers=2))
     assert config_from_hf(llava_config(small))[1] == small
-    for arch in ("LlavaNextForConditionalGeneration", "QWenLMHeadModel",
-                 "InstructBlipForConditionalGeneration", "InternLMXComposer2ForCausalLM"):
+    for arch in ("QWenLMHeadModel", "InternLMXComposer2ForCausalLM"):
         with pytest.raises(ValueError, match=r"not ported to vlrlhf_torch yet.*item 9"):
             config_from_hf(dict(LLAVA_15_7B_CONFIG, architectures=[arch]))
 

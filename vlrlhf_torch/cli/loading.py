@@ -1,17 +1,21 @@
 """Model bundle loading: an HF checkpoint directory -> (family, config,
-model, processor), the llava part of vlrlhf_tpu/cli/loading.py
-(`config_from_hf`, `load_model_bundle`).
+model, processor), the llava, llava_next and instructblip part of
+vlrlhf_tpu/cli/loading.py (`config_from_hf`, `load_model_bundle`).
 
 config.json gives the family (`architectures[0]`, models/config.py
-`resolve_family`) and the geometry. A key the config leaves out takes the
-default of the transformers config class that reads it (LlamaConfig for
-text_config, CLIPVisionConfig for vision_config), as `from_pretrained`
-would: llava-hf's published configs write only the keys that differ. The
-weights stream from the checkpoint into a model built on the meta device
-(utils/hf_port.py), quantized on the way when asked, and the processor runs
-on the checkpoint's tokenizer.json (data/tokenizer.py JsonTokenizer). A
-family vlrlhf_tpu has and the port does not yet (llava_next, qwen_vl,
-instructblip, internlm_xc2) is refused by name.
+`resolve_family`; LLaVA-Next's text model names vicuna or mistral) and the
+geometry. A key the config leaves out takes the default of the
+transformers config class that reads it (LlamaConfig / MistralConfig for
+text_config, CLIPVisionConfig or InstructBlipVisionConfig for
+vision_config, InstructBlipQFormerConfig for qformer_config), as
+`from_pretrained` would: published configs write only the keys that
+differ. The weights stream from the checkpoint into a model built on the
+meta device (utils/hf_port.py), quantized on the way when asked, and the
+processor runs on the checkpoint's tokenizer.json (data/tokenizer.py
+JsonTokenizer); InstructBLIP's Q-Former reads qformer_tokenizer/
+tokenizer.json, and a checkpoint without one is refused (vlrlhf_tpu runs
+its Q-Former without instructions then). The families vlrlhf_tpu has and
+the port does not yet (qwen_vl, internlm_xc2) are refused by name.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import Optional, Sequence
 import torch
 
 from vlrlhf_torch.models.config import (
-    LMConfig, ModelFamily, ProjectorConfig, ViTConfig, VLMConfig, resolve_family,
+    LMConfig, ModelFamily, ProjectorConfig, QFormerConfig, ViTConfig, VLMConfig, resolve_family,
 )
 
 # transformers' LlamaConfig and CLIPVisionConfig defaults (the keys read here)
@@ -32,14 +36,29 @@ LLAMA_DEFAULTS = dict(
     num_attention_heads=32, rope_theta=10000.0, max_position_embeddings=2048,
     rms_norm_eps=1e-6,
 )
+# MistralConfig's (LLaVA-Next mistral's text model)
+MISTRAL_DEFAULTS = dict(
+    LLAMA_DEFAULTS, intermediate_size=14336, num_key_value_heads=8,
+    max_position_embeddings=4096 * 32,
+)
 CLIP_VISION_DEFAULTS = dict(
     hidden_size=768, intermediate_size=3072, num_hidden_layers=12, num_attention_heads=12,
     image_size=224, patch_size=32, hidden_act="quick_gelu", layer_norm_eps=1e-5,
 )
+# InstructBlipVisionConfig / InstructBlipQFormerConfig / InstructBlipConfig
+EVA_VISION_DEFAULTS = dict(
+    hidden_size=1408, intermediate_size=6144, num_hidden_layers=39, num_attention_heads=16,
+    image_size=224, patch_size=14, hidden_act="gelu", layer_norm_eps=1e-6,
+)
+QFORMER_DEFAULTS = dict(
+    vocab_size=30522, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+    intermediate_size=3072, cross_attention_frequency=2, encoder_hidden_size=1408,
+    max_position_embeddings=512, layer_norm_eps=1e-12,
+)
 
 
 def _llama_lm_from_hf(tc: dict, dtype) -> LMConfig:
-    tc = {**LLAMA_DEFAULTS, **tc}
+    tc = {**(MISTRAL_DEFAULTS if tc.get("model_type") == "mistral" else LLAMA_DEFAULTS), **tc}
     if tc.get("rope_scaling"):
         raise ValueError(f"text_config rope_scaling {tc['rope_scaling']} is not ported")
     head_dim = tc.get("head_dim") or 0
@@ -78,14 +97,50 @@ def _clip_vit_from_hf(vc: dict, dtype, feature_layer: int = -2) -> ViTConfig:
     )
 
 
+def _instructblip_from_hf(hf: dict, family: ModelFamily, dtype) -> VLMConfig:
+    """vlrlhf_tpu/cli/loading.py:145-180: the EVA tower (no pre-norm, a
+    post norm, a patch bias, the class token kept), the Q-Former and the
+    linear language projection."""
+    tc = hf.get("text_config") or {}
+    vc = {**EVA_VISION_DEFAULTS, **(hf.get("vision_config") or {})}
+    qc = {**QFORMER_DEFAULTS, **(hf.get("qformer_config") or {})}
+    n_query = hf.get("num_query_tokens") or 32
+    return VLMConfig(
+        lm=_llama_lm_from_hf(tc, dtype),
+        vision=ViTConfig(
+            image_size=vc["image_size"], patch_size=vc["patch_size"],
+            hidden_size=vc["hidden_size"], num_layers=vc["num_hidden_layers"],
+            num_heads=vc["num_attention_heads"], mlp_dim=vc["intermediate_size"],
+            act=vc["hidden_act"], use_pre_norm=False, use_post_norm=True, patch_bias=True,
+            ln_eps=vc["layer_norm_eps"], dtype=dtype,
+        ),
+        projector=ProjectorConfig(kind="linear", in_dim=qc["hidden_size"],
+                                  out_dim={**LLAMA_DEFAULTS, **tc}["hidden_size"]),
+        qformer=QFormerConfig(
+            vocab_size=qc["vocab_size"], hidden_size=qc["hidden_size"],
+            num_layers=qc["num_hidden_layers"], num_heads=qc["num_attention_heads"],
+            intermediate_size=qc["intermediate_size"], encoder_hidden_size=vc["hidden_size"],
+            num_query_tokens=n_query, cross_attention_frequency=qc["cross_attention_frequency"],
+            max_position_embeddings=qc["max_position_embeddings"], ln_eps=qc["layer_norm_eps"],
+            dtype=dtype,
+        ),
+        image_token_id=hf.get("image_token_index") or 32000,
+        num_image_tokens=n_query,
+        family=family.name,
+    )
+
+
 def config_from_hf(hf: dict, dtype=torch.bfloat16) -> tuple[ModelFamily, VLMConfig]:
-    """The family and VLMConfig of an HF config.json (llava only)."""
+    """The family and VLMConfig of an HF config.json (llava, llava_next,
+    instructblip)."""
     arch = hf["architectures"][0]
     tc = hf.get("text_config") or {}
     family = resolve_family(arch, tc.get("_name_or_path", "") or tc.get("model_type", ""))
-    if tc.get("model_type", "llama") != "llama":
-        raise ValueError(f"llava text model {tc['model_type']!r} is not ported "
+    if tc.get("model_type", "llama") not in ("llama", "mistral"):
+        raise ValueError(f"text model {tc['model_type']!r} is not ported "
                          "(ROADMAP.md §1 item 9)")
+    if family.name == "instructblip":
+        return family, _instructblip_from_hf(hf, family, dtype)
     if hf.get("vision_feature_select_strategy", "default") != "default":
         raise ValueError("vision_feature_select_strategy "
                          f"{hf['vision_feature_select_strategy']!r} is not ported (only "
@@ -99,20 +154,41 @@ def config_from_hf(hf: dict, dtype=torch.bfloat16) -> tuple[ModelFamily, VLMConf
         image_token_id=hf.get("image_token_index", 32000),
         num_image_tokens=(vc["image_size"] // vc["patch_size"]) ** 2,
         family=family.name,
+        grid_pinpoints=(tuple(tuple(p) for p in hf.get("image_grid_pinpoints") or ())
+                        if family.name.startswith("llava_next") else ()),
     )
+    if family.name.startswith("llava_next") and not cfg.grid_pinpoints:
+        raise ValueError("a LLaVA-Next config.json needs image_grid_pinpoints")
     return family, cfg
 
 
-def make_processor(family: ModelFamily, tokenizer, cfg: VLMConfig, **overrides):
-    """The family's VLProcessor over `tokenizer`, its placeholder count and
-    id taken from the checkpoint's config (vlrlhf_tpu keeps the family
-    defaults, which are LLaVA-1.5-7B's: 576 tokens, id 32000)."""
+def make_processor(family: ModelFamily, tokenizer, cfg: VLMConfig, qformer_tokenizer=None,
+                   **overrides):
+    """The family's VLProcessor over `tokenizer` (and InstructBLIP's
+    `qformer_tokenizer`), its placeholder count and id taken from the
+    checkpoint's config (vlrlhf_tpu keeps the family defaults, which are
+    the 7B checkpoints')."""
     from vlrlhf_torch.data.processor import ProcessorConfig, VLProcessor
 
     pcfg = ProcessorConfig(**{**family.processor_defaults,
                               "num_image_tokens": cfg.num_image_tokens,
                               "image_token_id": cfg.image_token_id, **overrides})
-    return VLProcessor(tokenizer, family.template, pcfg)
+    return VLProcessor(tokenizer, family.template, pcfg, qformer_tokenizer)
+
+
+def load_qformer_tokenizer(path: str):
+    """InstructBLIP's Q-Former tokenizer, <path>/qformer_tokenizer/ (a BERT
+    tokenizer.json). Missing, it is an error: vlrlhf_tpu swallows it and
+    runs the Q-Former without the instruction, a different model."""
+    from vlrlhf_torch.data.tokenizer import JsonTokenizer
+    from vlrlhf_torch.utils.hf_port import QFORMER_TOKENIZER_DIR
+
+    qdir = os.path.join(path, QFORMER_TOKENIZER_DIR)
+    if not os.path.exists(os.path.join(qdir, "tokenizer.json")):
+        raise FileNotFoundError(
+            f"{path}: an InstructBLIP checkpoint needs its Q-Former tokenizer at "
+            f"{QFORMER_TOKENIZER_DIR}/tokenizer.json (the Q-Former reads each prompt through it)")
+    return JsonTokenizer(qdir)
 
 
 def load_model_bundle(
@@ -144,9 +220,10 @@ def load_model_bundle(
     if remat_policy:
         cfg = dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, remat_policy=remat_policy))
     tokenizer = JsonTokenizer(path)  # before the weights: a refusal costs no load
+    qtok = load_qformer_tokenizer(path) if cfg.qformer is not None else None
     model = VLM(cfg, device="meta")
     PORTERS[family.name](open_hf_state_dict(path), model, device,
                          quantize=quantize_patterns or (), bits=quantize_bits)
-    processor = make_processor(family, tokenizer, cfg, max_length=max_length,
+    processor = make_processor(family, tokenizer, cfg, qtok, max_length=max_length,
                                max_prompt_length=max_prompt_length)
     return family, cfg, model, processor

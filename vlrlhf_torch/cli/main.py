@@ -232,7 +232,9 @@ def generate_config(processor, family, args):
     )
 
 
-def collator_config(cfg, family, processor, args):
+def collator_config(cfg, family, processor, args, **overrides):
+    """The run's CollatorConfig: anyres tiling for a LLaVA-Next checkpoint
+    (--synthetic runs keep one image slot, as vlrlhf_tpu's do)."""
     from vlrlhf_torch.data.collators import CollatorConfig
 
     return CollatorConfig(
@@ -240,7 +242,24 @@ def collator_config(cfg, family, processor, args):
         bucket_multiple=32 if args.synthetic else 128,
         image_size=cfg.vision.image_size,
         resize_mode=family.resize_mode,
+        anyres=bool(cfg.grid_pinpoints) and not args.synthetic,
+        grid_pinpoints=cfg.grid_pinpoints,
+        tile_grid=cfg.vision.image_size // cfg.vision.patch_size,
+        **overrides,
     )
+
+
+def serve_cache_len(ccfg, args) -> int:
+    """Slots per sequence of a serving cache: --max_length text tokens plus
+    the new tokens, and for anyres images the most image tokens the grid
+    can give (one placeholder is in the text already), rounded up to 128."""
+    extra = 0
+    if ccfg.anyres:
+        from vlrlhf_torch.models.anyres import DEFAULT_GRID_PINPOINTS, anyres_max_dims
+
+        extra = anyres_max_dims(ccfg.grid_pinpoints or DEFAULT_GRID_PINPOINTS,
+                                ccfg.image_size, ccfg.tile_grid)[1] - 1
+    return -(-(args.max_length + extra + args.max_new_tokens) // 128) * 128
 
 
 def load_adapter_specs(specs) -> tuple[Optional[list], Optional[list]]:
@@ -283,14 +302,14 @@ def build_server(cfg, model, processor, args, image_loader=None):
     family = FAMILIES[cfg.family]
     serving_weights_(model, args)
     gen_cfg = generate_config(processor, family, args)
-    cache_len = -(-(args.max_length + args.max_new_tokens) // 128) * 128
+    ccfg = collator_config(cfg, family, processor, args)
+    cache_len = serve_cache_len(ccfg, args)
     names, sets = load_adapter_specs(getattr(args, "adapter", None))
     engine = ContinuousEngine(model, gen_cfg, n_slots=args.slots, cache_len=cache_len,
                               speculative_k=args.speculative_k, adapter_sets=sets,
                               lora_scale=getattr(args, "lora_alpha", 16.0)
                               / getattr(args, "lora_r", 64))
     del sets  # the engine keeps only the stacked sets
-    ccfg = collator_config(cfg, family, processor, args)
     generator = torch.Generator(device=model.device).manual_seed(args.seed)
     srv = EngineServer(engine, generator=generator).start()
     builder = RequestBuilder(processor, ccfg, image_loader)
@@ -446,7 +465,7 @@ def build_dpo(cfg, model, processor, args, rows: list, image_loader=None) -> DPO
     """`setup_training` (quantization, adapters, optimizer), then the DPO
     config, collator, the holdout split (with --eval_steps) and, with
     --precompute_ref_logps, the reference pass over the training rows."""
-    from vlrlhf_torch.data.collators import CollatorConfig, DPOCollator
+    from vlrlhf_torch.data.collators import DPOCollator
     from vlrlhf_torch.data.datasets import train_eval_split
     from vlrlhf_torch.lora.lora import lora_keys
     from vlrlhf_torch.models.config import FAMILIES
@@ -467,12 +486,8 @@ def build_dpo(cfg, model, processor, args, rows: list, image_loader=None) -> DPO
         frozen_vision=getattr(args, "freeze_vision_tower", True),
         logits_chunk=args.logits_chunk,
     )
-    collator = DPOCollator(processor, CollatorConfig(
-        pad_token_id=processor.tokenizer.pad_token_id or 0,
-        bucket_multiple=32 if args.synthetic else 128,
-        image_size=cfg.vision.image_size, resize_mode=family.resize_mode,
-        compute_diff_mask=args.loss_type == "ddpo",
-    ), image_loader)
+    collator = DPOCollator(processor, collator_config(
+        cfg, family, processor, args, compute_diff_mask=args.loss_type == "ddpo"), image_loader)
     tokenize_fn = processor.tokenize_row_dpo
     precompute = args.precompute_ref_logps and not dcfg.reference_free
     if precompute:
@@ -505,7 +520,6 @@ def make_eval_hook(run: DPORun, processor, args, logger):
     import os
 
     from vlrlhf_torch.data.collators import GenerationCollator
-    from vlrlhf_torch.data.processor import make_single_turn_conv
     from vlrlhf_torch.generate.engine import GenerateConfig, Generator
     from vlrlhf_torch.train.dpo import batch_to_device, make_dpo_eval_fn
     from vlrlhf_torch.train.loop import read_metrics
@@ -520,14 +534,9 @@ def make_eval_hook(run: DPORun, processor, args, logger):
     sample_rows = run.eval_rows[: args.eval_samples]
     sample_gen = sample_batch = None
     if sample_rows:
-        # llava puts no image ids in front of the prompt (vlrlhf_tpu's
-        # maybe_prefix_image_ids is the identity for it)
         gcoll = GenerationCollator(processor, run.collator.cfg, run.collator.image_loader)
-        sample_batch = gcoll([
-            {"input_ids": processor.process_conv(make_single_turn_conv(
-                processor.format_multimodal_prompt(r["prompt"], 1 if r.get("img_path") else 0),
-                ""))["input_ids"], "img_path": r.get("img_path")}
-            for r in sample_rows])
+        sample_batch = gcoll([processor.generation_row(r["prompt"], r.get("img_path"))
+                              for r in sample_rows])
         sample_gen = Generator(run.model, GenerateConfig(max_new_tokens=64, pad_token_id=pad),
                                lora_scale=run.lcfg.scale)
 
@@ -914,13 +923,9 @@ def build_ppo(cfg, model, processor, args, rows: list, image_loader=None) -> PPO
 
 def prompt_row(processor, row: dict) -> dict:
     """A PPO prompt row for GenerationCollator: the templated prompt with an
-    empty assistant turn (vlrlhf_tpu cli/main.py:877-893)."""
-    from vlrlhf_torch.data.processor import make_single_turn_conv
-
-    n_img = 1 if row.get("img_path") else 0
-    conv = make_single_turn_conv(processor.format_multimodal_prompt(row["prompt"], n_img), "")
-    ids = processor.maybe_prefix_image_ids(processor.process_conv(conv)["input_ids"], n_img)
-    return {"input_ids": ids, "img_path": row.get("img_path")}
+    empty assistant turn, and its Q-Former ids for InstructBLIP
+    (vlrlhf_tpu cli/main.py:877-893)."""
+    return processor.generation_row(row["prompt"], row.get("img_path") or None)
 
 
 def static_rollouts(gen, pb: dict, chunk_sz: int, generator) -> tuple[np.ndarray, np.ndarray]:
@@ -947,17 +952,10 @@ def continuous_rollouts(engine, pb: dict, prompt_rows: list, generator,
                         max_new_tokens: int, pad_id: int) -> tuple[np.ndarray, np.ndarray]:
     """(tokens, resp_lens) from the continuous engine: one request per
     prompt row, its stop token kept in the response (emit_stop_token)."""
-    from vlrlhf_torch.generate.continuous import Request
+    from vlrlhf_torch.generate.continuous import request_from_batch
 
-    plens = np.asarray(pb["prompt_lens"])
-    reqs = []
-    for i, row in enumerate(prompt_rows):
-        has_img = row.get("img_path") is not None
-        reqs.append(Request(
-            input_ids=np.asarray(pb["input_ids"][i, : int(plens[i])]),
-            pixel_values=np.asarray(pb["pixel_values"][i, 0]) if has_img else None,
-            image_positions=np.asarray(pb["image_positions"][i]) if has_img else None,
-        ))
+    reqs = [request_from_batch(pb, i, row.get("img_path") is not None)
+            for i, row in enumerate(prompt_rows)]
     outs = engine.run(reqs, generator)
     tokens = np.full((len(reqs), max_new_tokens), pad_id, np.int32)
     resp_lens = np.zeros((len(reqs),), np.int32)
@@ -1402,7 +1400,8 @@ def _add_model_args(p, synthetic_help: str) -> None:
     p.add_argument("--model_name_or_path", type=str, default=None,
                    help="an HF LLaVA checkpoint directory (config.json, *.safetensors or "
                         "pytorch_model*.bin, tokenizer.json)")
-    p.add_argument("--model_family", type=str, default="llava", choices=["llava"],
+    p.add_argument("--model_family", type=str, default="llava",
+                   choices=["llava", "llava_next_vicuna", "llava_next_mistral", "instructblip"],
                    help="the --synthetic model's family (a checkpoint names its own)")
     p.add_argument("--synthetic", type=int, default=0, help=synthetic_help)
     p.add_argument("--device", type=str, default="cuda")

@@ -1,5 +1,7 @@
-"""Chat templates serving needs (copy of vlrlhf_tpu/data/chat_templates.py,
-LLaVA-1.5 entry only; string-for-string identical so tokenization matches).
+"""Chat templates of the ported families (copy of
+vlrlhf_tpu/data/chat_templates.py: llava, llava_next_mistral,
+llava_next_vicuna and instructblip; string-for-string identical so
+tokenization matches).
 """
 
 from __future__ import annotations
@@ -18,6 +20,12 @@ class ChatTemplate:
     preamble: str = ""
 
 
+VICUNA_PREAMBLE = (
+    "A chat between a curious human and an artificial intelligence assistant. "
+    "The assistant gives helpful, detailed, and polite answers to the human's "
+    "questions. "
+)
+
 TEMPLATES: dict[str, ChatTemplate] = {
     "llava": ChatTemplate(
         user_begin="USER: ",
@@ -25,5 +33,27 @@ TEMPLATES: dict[str, ChatTemplate] = {
         assistant_begin="ASSISTANT: ",
         assistant_end="",
         image_placeholder="<image>\n",
+    ),
+    "llava_next_mistral": ChatTemplate(
+        user_begin="[INST] ",
+        user_end=" [/INST]",
+        assistant_begin="",
+        assistant_end="",
+        image_placeholder="<image>\n",
+    ),
+    "llava_next_vicuna": ChatTemplate(
+        user_begin="USER: ",
+        user_end="",
+        assistant_begin="ASSISTANT: ",
+        assistant_end="",
+        image_placeholder="<image>\n",
+        preamble=VICUNA_PREAMBLE,
+    ),
+    "instructblip": ChatTemplate(
+        user_begin="",
+        user_end="",
+        assistant_begin="",
+        assistant_end="",
+        image_placeholder="",
     ),
 }

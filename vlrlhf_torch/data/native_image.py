@@ -14,6 +14,9 @@ the decoder rejects.
   load_image(path, size, mode)            one image -> (size, size, 3) uint8
   load_batch(paths, size, mode, threads)  a batch decoded on a thread pool
                                           (None or "" leaves a zero slot)
+  decode_image(path)                      one image at its own size ->
+                                          (H, W, 3) uint8 (anyres tiling)
+  jpeg_size(path)                         (height, width) from the header
 Modes: "shortest_edge_crop" (resize the short side to `size`, centre
 crop; CLIP's) and "squash" (resize to size x size).
 """
@@ -76,6 +79,9 @@ def _library(source: Optional[Path] = None) -> ctypes.CDLL:
         lib.vlr_load_batch.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
                                        ctypes.c_int, ctypes.c_int, u8p, ctypes.c_int]
         lib.vlr_load_batch.restype = ctypes.c_int
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.vlr_decode_jpeg.argtypes = [ctypes.c_char_p, u8p, ctypes.c_long, ip, ip]
+        lib.vlr_decode_jpeg.restype = ctypes.c_long
         _libs[str(source)] = lib
         return lib
 
@@ -113,4 +119,54 @@ def load_batch(paths: Sequence[Optional[str]], size: int, mode: str = "shortest_
     if failed:
         raise ValueError(f"the native loader could not decode {failed} of the {n} images "
                          f"{[p for p in paths if p]}")
+    return out
+
+
+# JPEG start-of-frame markers (baseline, extended, progressive, lossless,
+# and their arithmetic-coded twins); their payload holds the image size
+_SOF = {0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF}
+
+
+def jpeg_size(path: str) -> tuple[int, int]:
+    """(height, width) of a JPEG, read from its start-of-frame header (the
+    size vlrlhf_tpu reads with PIL before it plans anyres tiles)."""
+    _check(path)
+    with open(path, "rb") as f:
+        if f.read(2) != b"\xff\xd8":
+            raise ValueError(f"{path}: not a JPEG")
+        while True:
+            byte = f.read(1)
+            if not byte:
+                break
+            if byte != b"\xff":
+                continue
+            marker = f.read(1)
+            while marker == b"\xff":  # fill bytes
+                marker = f.read(1)
+            if not marker:
+                break
+            m = marker[0]
+            if m in (0xD8, 0x01) or 0xD0 <= m <= 0xD7:  # no payload
+                continue
+            seg = f.read(2)
+            if len(seg) < 2:
+                break
+            n = int.from_bytes(seg, "big")
+            if m in _SOF:
+                body = f.read(5)
+                return int.from_bytes(body[1:3], "big"), int.from_bytes(body[3:5], "big")
+            f.seek(n - 2, 1)
+    raise ValueError(f"{path}: no JPEG frame header")
+
+
+def decode_image(path: str) -> np.ndarray:
+    """Decode one JPEG at its own size: (H, W, 3) uint8 RGB."""
+    h, w = jpeg_size(path)
+    lib = _library()
+    out = np.empty((h, w, 3), np.uint8)
+    cw, ch = ctypes.c_int(0), ctypes.c_int(0)
+    n = lib.vlr_decode_jpeg(os.fsencode(path), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                            out.nbytes, ctypes.byref(cw), ctypes.byref(ch))
+    if n < 0 or (ch.value, cw.value) != (h, w):
+        raise ValueError(f"{path}: the native loader could not decode it")
     return out

@@ -3,6 +3,14 @@ row tokenization and image placeholder expansion — the serving, DPO and
 eval subset of vlrlhf_tpu/data/processor.py (incremental-template
 families), copied because importing anything under vlrlhf_tpu pulls in jax.
 
+InstructBLIP is a prefix-embedding model: its prompt text has no
+placeholder, and one image token per image is put before the sequence
+(`prefix_image_tokens`, `maybe_prefix_image_ids`); its Q-Former reads the
+prompt through a second, BERT tokenizer (`qformer_tokenizer`,
+`qformer_ids`), and the DPO and SFT rows carry those ids as
+`qformer_input_ids`. LLaVA-Next's anyres images expand to a per-image
+token count (`expand_image_tokens(counts=...)`).
+
 `tokenize_row_dpo` follows TRL 0.8.1 DPOTrainer.tokenize_row as the JAX
 package does: merge-boundary handling in `_build_tokenized_answer`, BOS/EOS
 insertion, keep_end prompt truncation.
@@ -31,6 +39,10 @@ class ProcessorConfig:
     image_token_id: int = 32000
     max_length: int = 1024
     max_prompt_length: int = 512  # truncation keeps a prompt's end
+    # prefix-embedding models (InstructBLIP): no placeholder in the text;
+    # one image token per image is prepended to the sequence (before BOS)
+    # and expands to num_image_tokens, the reference's query-embeds prepend
+    prefix_image_tokens: bool = False
 
 
 def make_single_turn_conv(prompt: str, answer: str = "") -> list[dict]:
@@ -40,11 +52,23 @@ def make_single_turn_conv(prompt: str, answer: str = "") -> list[dict]:
     ]
 
 
+QFORMER_MAX_IDS = 512  # the reference's clamp (models/InstructBlip/__init__.py:305-322)
+
+
 class VLProcessor:
-    def __init__(self, tokenizer, template: ChatTemplate, cfg: ProcessorConfig):
+    def __init__(self, tokenizer, template: ChatTemplate, cfg: ProcessorConfig,
+                 qformer_tokenizer=None):
         self.tokenizer = tokenizer
         self.template = template
         self.cfg = cfg
+        self.qformer_tokenizer = qformer_tokenizer  # InstructBLIP's second tokenizer
+
+    def qformer_ids(self, text: str, max_len: int = QFORMER_MAX_IDS) -> list[int]:
+        """The Q-Former's instruction ids of a prompt: the text without its
+        image placeholders, [CLS] ... [SEP], clamped to `max_len`."""
+        clean = text.replace(self.template.image_placeholder, "").replace(
+            self.cfg.image_token, "")
+        return self.qformer_tokenizer.encode(clean, add_special_tokens=True)[:max_len]
 
     def format_multimodal_prompt(self, prompt: str, n_images: int = 1) -> str:
         ph = self.template.image_placeholder
@@ -77,10 +101,24 @@ class VLProcessor:
 
     def maybe_prefix_image_ids(self, input_ids: Sequence[int], n_images: int) -> list:
         """The prompt ids of a generation row (vlrlhf_tpu processor.py:90-95):
-        unchanged for LLaVA, whose image placeholder sits in the text; the
-        prefix-embedding families that put image ids before the prompt
-        come with their port (ROADMAP.md §1c item 9)."""
+        a prefix-embedding model gets one placeholder per image in front;
+        LLaVA's placeholder sits in the text already."""
+        if self.cfg.prefix_image_tokens and n_images:
+            return [self.cfg.image_token_id] * n_images + list(input_ids)
         return list(input_ids)
+
+    def generation_row(self, question: str, img_path=None) -> dict:
+        """A GenerationCollator row for `question`: the templated prompt
+        with an empty assistant turn, image ids prefixed where the family
+        wants them, and the Q-Former's instruction ids where it has one
+        (vlrlhf_tpu builds this row in the server, eval and PPO paths)."""
+        n_img = 0 if img_path is None else (len(img_path) if isinstance(img_path, list) else 1)
+        prompt = self.format_multimodal_prompt(question, n_img)
+        ids = self.process_conv(make_single_turn_conv(prompt, ""))["input_ids"]
+        row = {"input_ids": self.maybe_prefix_image_ids(ids, n_img), "img_path": img_path}
+        if self.qformer_tokenizer is not None:
+            row["qformer_input_ids"] = self.qformer_ids(question)
+        return row
 
     def label_conv(self, conv: Sequence[dict], add_end_for_empty_value: bool = False) -> dict:
         """{input_ids, labels, raw_str}: vlrlhf_tpu's incremental labeling
@@ -127,8 +165,15 @@ class VLProcessor:
         if self.template.assistant_end == "" and self.tokenizer.eos_token_id is not None:
             ids = ids + [self.tokenizer.eos_token_id]
             labels = labels + [self.tokenizer.eos_token_id]
-        return {"input_ids": ids[: self.cfg.max_length], "labels": labels[: self.cfg.max_length],
-                "img_path": feature.get("img_path")}
+        if self.cfg.prefix_image_tokens and n_images:
+            ids = [self.cfg.image_token_id] * n_images + ids
+            labels = [LABEL_PAD] * n_images + labels
+        out = {"input_ids": ids[: self.cfg.max_length], "labels": labels[: self.cfg.max_length],
+               "img_path": feature.get("img_path")}
+        if self.qformer_tokenizer is not None:
+            src = feature.get("prompt") or feature["conversations"][0]["value"]
+            out["qformer_input_ids"] = self.qformer_ids(src)
+        return out
 
     # ─────────── DPO row tokenization (TRL 0.8.1 semantics) ───────────
 
@@ -195,14 +240,26 @@ class VLProcessor:
         if len(rejected_prompt) + longer > cfg.max_length:
             rejected_ans = rejected_ans[: cfg.max_length - cfg.max_prompt_length]
 
-        return {
-            "chosen_input_ids": chosen_prompt + chosen_ans,
-            "chosen_labels": [LABEL_PAD] * len(chosen_prompt) + chosen_ans,
-            "rejected_input_ids": rejected_prompt + rejected_ans,
-            "rejected_labels": [LABEL_PAD] * len(rejected_prompt) + rejected_ans,
+        chosen_ids = chosen_prompt + chosen_ans
+        rejected_ids = rejected_prompt + rejected_ans
+        chosen_labels = [LABEL_PAD] * len(chosen_prompt) + chosen_ans
+        rejected_labels = [LABEL_PAD] * len(rejected_prompt) + rejected_ans
+        if cfg.prefix_image_tokens and n_images:
+            pre = [cfg.image_token_id] * n_images
+            chosen_ids, rejected_ids = pre + chosen_ids, pre + rejected_ids
+            chosen_labels = [LABEL_PAD] * n_images + chosen_labels
+            rejected_labels = [LABEL_PAD] * n_images + rejected_labels
+        out = {
+            "chosen_input_ids": chosen_ids,
+            "chosen_labels": chosen_labels,
+            "rejected_input_ids": rejected_ids,
+            "rejected_labels": rejected_labels,
             "prompt_input_ids": rows["prompt"],
             "img_path": feature.get("img_path"),
         }
+        if self.qformer_tokenizer is not None:
+            out["qformer_input_ids"] = self.qformer_ids(feature["prompt"])
+        return out
 
     # ─────────── image token expansion ───────────
 
@@ -210,19 +267,21 @@ class VLProcessor:
         self,
         input_ids: Sequence[int],
         labels: Optional[Sequence[int]] = None,
+        counts: Optional[Sequence[int]] = None,  # anyres: per-image token counts
     ) -> tuple[np.ndarray, Optional[np.ndarray], np.ndarray]:
-        """Expand each image placeholder id into num_image_tokens copies
-        (labels LABEL_PAD there). Returns (new_ids, new_labels or None,
-        image_positions) with one position per expanded image token."""
+        """Expand each image placeholder id into num_image_tokens copies, or
+        `counts[i]` copies for anyres images (labels LABEL_PAD there).
+        Returns (new_ids, new_labels or None, image_positions) with one
+        position per expanded image token."""
         ids = np.asarray(input_ids)
         img_id = self.cfg.image_token_id
         occ = np.nonzero(ids == img_id)[0]
         if len(occ) == 0:
             return ids, (None if labels is None else np.asarray(labels)), np.zeros((0,), np.int32)
-        n_tok = self.cfg.num_image_tokens
         out_ids, out_labels, positions = [], [], []
         prev = 0
-        for o in occ:
+        for j, o in enumerate(occ):
+            n_tok = int(counts[j]) if counts is not None else self.cfg.num_image_tokens
             out_ids.extend(ids[prev:o].tolist())
             if labels is not None:
                 out_labels.extend(list(labels[prev:o]))

@@ -22,6 +22,16 @@ name rather than guess:
     llama tokenizer class, the template transformers' LlamaTokenizerFast
     rebuilds from add_bos_token / add_eos_token);
   - the decoder chain `Replace` / `ByteFallback` / `Fuse` / `Strip`.
+And the pieces of a BERT WordPiece tokenizer.json (InstructBLIP's
+`qformer_tokenizer/`):
+  - a `WordPiece` model: greedy longest-match-first with the
+    continuing-subword prefix, a word the vocabulary cannot cover (or one
+    longer than max_input_chars_per_word) becomes one unk;
+  - the `BertNormalizer` (clean_text, handle_chinese_chars, strip_accents
+    following lowercase when unset, lowercase) and the `BertPreTokenizer`
+    (split on whitespace, every punctuation character its own word);
+  - the `[CLS] $A [SEP]` template (TemplateProcessing or BertProcessing);
+  - the `WordPiece` decoder (prefix joins, its cleanup).
 tokenizer_config.json gives the special tokens, the tokenizer class and
 clean_up_tokenization_spaces, as transformers reads them. The pad id falls
 back to the unk id when no pad token is set, as HFTokenizer does.
@@ -32,6 +42,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import unicodedata
 import zlib
 from typing import Optional, Sequence
 
@@ -91,14 +102,15 @@ class ToyTokenizer:
 
 
 _LLAMA_CLASSES = ("LlamaTokenizer", "LlamaTokenizerFast")
-_CLASSES = _LLAMA_CLASSES + ("PreTrainedTokenizerFast", None)
+_CLASSES = _LLAMA_CLASSES + ("BertTokenizer", "BertTokenizerFast", "PreTrainedTokenizerFast",
+                             None)
 _BYTE = re.compile(r"^<0x([0-9A-Fa-f]{2})>$")
 _CACHE_MAX = 65536
 
 
 def _refuse(path: str, what: str) -> ValueError:
     return ValueError(f"{path}: {what} is not supported by JsonTokenizer (it reads llama's "
-                      "BPE tokenizer.json only)")
+                      "BPE and BERT's WordPiece tokenizer.json only)")
 
 
 def _token_str(v) -> Optional[str]:
@@ -108,9 +120,10 @@ def _token_str(v) -> Optional[str]:
 
 
 class JsonTokenizer:
-    """A llama tokenizer.json (BPE, byte fallback) with the interface of
-    vlrlhf_tpu's HFTokenizer: bos / eos / pad token ids, vocab_size (every
-    token, added ones included), encode, decode, convert_token_to_id."""
+    """A llama tokenizer.json (BPE, byte fallback) or a BERT one
+    (WordPiece) with the interface of vlrlhf_tpu's HFTokenizer: bos / eos /
+    pad token ids, vocab_size (every token, added ones included), encode,
+    decode, convert_token_to_id."""
 
     def __init__(self, path: str):
         json_path = os.path.join(path, "tokenizer.json")
@@ -133,6 +146,15 @@ class JsonTokenizer:
         self._normalizers = self._read_normalizer(json_path, spec.get("normalizer"))
         self._metaspace = self._read_pre_tokenizer(json_path, spec.get("pre_tokenizer"))
         self._decoders = self._read_decoder(json_path, spec.get("decoder"))
+        # BERT's pieces go with the WordPiece model only, llama's with BPE only
+        bert = ({s[0] for s in self._normalizers} | {s[0] for s in self._decoders or []}
+                | ({"bert"} if self._metaspace == ("bert",) else set()))
+        mixed = (bert - {"bert", "wordpiece"} if self._wordpiece
+                 else bert & {"bert", "wordpiece"})
+        if mixed:
+            raise _refuse(json_path, f"{sorted(mixed)} pieces with a "
+                                     f"{'WordPiece' if self._wordpiece else 'BPE'} model "
+                                     "(normalizer / pre-tokenizer / decoder)")
         self._read_config(conf_path, conf)
         self._template = self._read_template(json_path, spec.get("post_processor"), conf)
         self._cache: dict[str, list[int]] = {}
@@ -144,6 +166,13 @@ class JsonTokenizer:
     # -- reading tokenizer.json ------------------------------------------
 
     def _read_model(self, path: str, m: dict) -> None:
+        self._wordpiece = m.get("type") == "WordPiece"
+        if self._wordpiece:
+            self.vocab = dict(m["vocab"])
+            self._unk = m.get("unk_token", "[UNK]")
+            self._wp_prefix = m.get("continuing_subword_prefix", "##")
+            self._wp_max_chars = int(m.get("max_input_chars_per_word", 100))
+            return
         if m.get("type") != "BPE":
             raise _refuse(path, f"model type {m.get('type')!r}")
         for key in ("continuing_subword_prefix", "end_of_word_suffix"):
@@ -189,7 +218,13 @@ class JsonTokenizer:
         steps = n["normalizers"] if n.get("type") == "Sequence" else [n]
         out = []
         for s in steps:
-            if s.get("type") == "Prepend":
+            if s.get("type") == "BertNormalizer":
+                lower = bool(s.get("lowercase", True))
+                strip = s.get("strip_accents")
+                out.append(("bert", bool(s.get("clean_text", True)),
+                            bool(s.get("handle_chinese_chars", True)),
+                            lower if strip is None else bool(strip), lower))
+            elif s.get("type") == "Prepend":
                 out.append(("prepend", s["prepend"]))
             elif s.get("type") == "Replace" and "String" in s.get("pattern", {}):
                 out.append(("replace", s["pattern"]["String"], s["content"]))
@@ -201,6 +236,8 @@ class JsonTokenizer:
     def _read_pre_tokenizer(path: str, p: Optional[dict]) -> Optional[tuple]:
         if p is None:
             return None
+        if p.get("type") == "BertPreTokenizer":
+            return ("bert",)
         if p.get("type") != "Metaspace":
             raise _refuse(path, f"pre-tokenizer {p.get('type')!r}")
         scheme = p.get("prepend_scheme")
@@ -224,6 +261,8 @@ class JsonTokenizer:
                 out.append((kind.lower(),))
             elif kind == "Strip":
                 out.append(("strip", s["content"], int(s["start"]), int(s["stop"])))
+            elif kind == "WordPiece":
+                out.append(("wordpiece", s.get("prefix", "##"), bool(s.get("cleanup", True))))
             else:
                 raise _refuse(path, f"decoder {s}")
         return out
@@ -272,6 +311,8 @@ class JsonTokenizer:
             return pre, post
         if p is None:
             return [], []
+        if p.get("type") == "BertProcessing":
+            return [p["cls"][1]], [p["sep"][1]]
         if p.get("type") != "TemplateProcessing":
             raise _refuse(path, f"post-processor {p.get('type')!r}")
         pre: list[int] = []
@@ -305,12 +346,16 @@ class JsonTokenizer:
 
     def _words(self, span: str, at_start: bool) -> list[str]:
         for step in self._normalizers:
-            if step[0] == "prepend":
+            if step[0] == "bert":
+                span = _bert_normalize(span, *step[1:])
+            elif step[0] == "prepend":
                 span = step[1] + span if span else span
             else:
                 span = span.replace(step[1], step[2])
         if self._metaspace is None:
             return [span] if span else []
+        if self._metaspace == ("bert",):
+            return _bert_split(span)
         rep, scheme, split = self._metaspace
         span = span.replace(" ", rep)
         if not span.startswith(rep) and (scheme == "always" or (scheme == "first" and at_start)):
@@ -318,6 +363,26 @@ class JsonTokenizer:
         if not split:
             return [span] if span else []
         return [w for w in re.split(f"(?={re.escape(rep)})", span) if w]
+
+    def _wordpiece_ids(self, word: str) -> list[int]:
+        """Greedy longest-match-first over the word's characters."""
+        unk = [self.vocab[self._unk]]
+        if len(word) > self._wp_max_chars:
+            return unk
+        ids, start = [], 0
+        while start < len(word):
+            end, cur = len(word), None
+            while start < end:
+                piece = word[start:end] if start == 0 else self._wp_prefix + word[start:end]
+                cur = self.vocab.get(piece)
+                if cur is not None:
+                    break
+                end -= 1
+            if cur is None:
+                return unk
+            ids.append(cur)
+            start = end
+        return ids
 
     def _bpe(self, word: str) -> list[int]:
         hit = self._cache.get(word)
@@ -366,7 +431,7 @@ class JsonTokenizer:
                 ids.append(added)
                 continue
             for word in self._words(span, start == 0):
-                ids.extend(self._bpe(word))
+                ids.extend(self._wordpiece_ids(word) if self._wordpiece else self._bpe(word))
         if add_special_tokens:
             pre, post = self._template
             ids = pre + ids + post
@@ -422,6 +487,75 @@ def _byte_fallback(tokens: Sequence[str]) -> list[str]:
     return out
 
 
+def _is_control(c: str) -> bool:
+    return c not in "\t\n\r" and unicodedata.category(c).startswith("C")
+
+
+def _is_chinese(c: str) -> bool:
+    cp = ord(c)
+    return any(lo <= cp <= hi for lo, hi in (
+        (0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF), (0x2A700, 0x2B73F),
+        (0x2B740, 0x2B81F), (0x2B920, 0x2CEAF), (0xF900, 0xFAFF), (0x2F800, 0x2FA1F)))
+
+
+def _bert_normalize(text: str, clean: bool, chinese: bool, strip_accents: bool,
+                    lower: bool) -> str:
+    """tokenizers' BertNormalizer, its steps in its order."""
+    if clean:
+        text = "".join(" " if c.isspace() else c for c in text
+                       if not (c in "\x00\ufffd" or _is_control(c)))
+    if chinese:
+        text = "".join(f" {c} " if _is_chinese(c) else c for c in text)
+    if strip_accents:
+        text = "".join(c for c in unicodedata.normalize("NFD", text)
+                       if unicodedata.category(c) != "Mn")
+    return text.lower() if lower else text
+
+
+def _is_punct(c: str) -> bool:
+    o = ord(c)
+    ascii_punct = 33 <= o <= 47 or 58 <= o <= 64 or 91 <= o <= 96 or 123 <= o <= 126
+    return ascii_punct or unicodedata.category(c).startswith("P")
+
+
+def _bert_split(text: str) -> list[str]:
+    """tokenizers' BertPreTokenizer: whitespace splits and is dropped,
+    every punctuation character is a word of its own."""
+    words, cur = [], []
+    for c in text:
+        if c.isspace():
+            if cur:
+                words.append("".join(cur))
+                cur = []
+        elif _is_punct(c):
+            if cur:
+                words.append("".join(cur))
+                cur = []
+            words.append(c)
+        else:
+            cur.append(c)
+    if cur:
+        words.append("".join(cur))
+    return words
+
+
+def _wordpiece_decode(tokens: Sequence[str], prefix: str, cleanup: bool) -> list[str]:
+    """tokenizers' WordPiece decoder: a continuing piece loses its prefix
+    and joins the previous one, any other piece after the first gets a
+    space; `cleanup` undoes the tokenization spaces piece by piece."""
+    out = []
+    for i, t in enumerate(tokens):
+        if i:
+            t = t.replace(prefix, "", 1) if t.startswith(prefix) else " " + t
+        if cleanup:
+            for a, b in ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"),
+                         (" n't", "n't"), (" 'm", "'m"), (" do not", " don't"), (" 's", "'s"),
+                         (" 've", "'ve"), (" 're", "'re")):
+                t = t.replace(a, b)
+        out.append(t)
+    return out
+
+
 def _strip(tokens: Sequence[str], content: str, start: int, stop: int) -> list[str]:
     out = []
     for t in tokens:
@@ -442,6 +576,7 @@ _DECODE = {
     "bytefallback": _byte_fallback,
     "fuse": lambda tokens: ["".join(tokens)],
     "strip": _strip,
+    "wordpiece": _wordpiece_decode,
 }
 
 

@@ -31,11 +31,11 @@ import torch
 import torch.nn.functional as F
 
 from vlrlhf_torch.data.collators import CollatorConfig, GenerationCollator, SFTCollator
-from vlrlhf_torch.data.processor import LABEL_PAD, VLProcessor, make_single_turn_conv
+from vlrlhf_torch.data.processor import LABEL_PAD, VLProcessor
 from vlrlhf_torch.generate.engine import GenerateConfig, Generator
 from vlrlhf_torch.generate.speculative import SpeculativeGenerator
 from vlrlhf_torch.models.common import Ctx
-from vlrlhf_torch.models.vlm import VLM
+from vlrlhf_torch.models.vlm import IMAGE_INPUT_KEYS, VLM, image_inputs
 
 
 def _progress(done: int, total: int, on: bool) -> None:
@@ -70,13 +70,6 @@ class EvalRunner:
         return torch.Generator(device=self.model.device).manual_seed(self.seed)
 
     # ───────────── generation mode ─────────────
-
-    def _prompt_row(self, question: str, img_path) -> dict:
-        n_img = 0 if img_path is None else (len(img_path) if isinstance(img_path, list) else 1)
-        prompt = self.processor.format_multimodal_prompt(question, n_img)
-        ids = self.processor.process_conv(make_single_turn_conv(prompt, ""))["input_ids"]
-        return {"input_ids": self.processor.maybe_prefix_image_ids(ids, n_img),
-                "img_path": img_path}
 
     def _decode(self, toks) -> str:
         return self.processor.tokenizer.decode(list(toks), skip_special_tokens=True).strip()
@@ -119,7 +112,8 @@ class EvalRunner:
         results = []
         for start in range(0, len(rows), batch_size):
             chunk = list(rows[start: start + batch_size])
-            batch = collator([self._prompt_row(r[prompt_key], r.get(image_key)) for r in chunk])
+            batch = collator([self.processor.generation_row(r[prompt_key], r.get(image_key))
+                              for r in chunk])
             tokens = self._gen(batch, self._generator()).cpu().numpy()
             for r, toks in zip(chunk, tokens):
                 results.append(dict(r, response=self._decode(toks[toks != pad])))
@@ -134,10 +128,11 @@ class EvalRunner:
         one against the logits), f32."""
         dev = self.model.device
         t = {k: torch.as_tensor(np.asarray(batch[k])).to(dev)
-             for k in ("input_ids", "labels", "pad_mask", "pixel_values", "image_positions")}
+             for k in ("input_ids", "labels", "pad_mask", "pixel_values", "image_positions",
+                       *IMAGE_INPUT_KEYS) if batch.get(k) is not None}
         ctx = Ctx(adapters=self.adapters, lora_scale=self.lora_scale)
-        hidden, _ = self.model(t["input_ids"], t["pixel_values"], t["image_positions"],
-                               t["pad_mask"], ctx=ctx)
+        hidden, _ = self.model(t["input_ids"], t.get("pixel_values"), t.get("image_positions"),
+                               t["pad_mask"], ctx=ctx, **image_inputs(t))
         logits = self.model.head(hidden[:, :-1], ctx).float()
         labels = t["labels"][:, 1:].long()
         nll = F.cross_entropy(logits.transpose(1, 2), labels, ignore_index=LABEL_PAD,

@@ -58,6 +58,7 @@ from vlrlhf_torch.generate.engine import (
     GenerateConfig, adapter_mix_rows, decode_step, eos_tensor, prefill,
 )
 from vlrlhf_torch.lora.lora import fuse_adapter_sets, lend_adapters, stack_adapter_sets
+from vlrlhf_torch.models.anyres import PAD_IDX
 from vlrlhf_torch.models.common import Ctx
 from vlrlhf_torch.models.lm.llama import empty_cache, empty_pending, flush_pending
 from vlrlhf_torch.models.vlm import VLM
@@ -75,10 +76,37 @@ class Request:
     VLProcessor.expand_image_tokens / GenerationCollator rows)."""
 
     input_ids: np.ndarray  # (L,)
-    pixel_values: Optional[np.ndarray] = None  # (H, W, 3), one image
+    # (H, W, 3), one image; with anyres_gather (n_tiles, H, W, 3), its tiles
+    pixel_values: Optional[np.ndarray] = None
     image_positions: Optional[np.ndarray] = None  # (N_img_tok,)
     max_new_tokens: Optional[int] = None  # per-request cap (else gen_cfg's)
     adapter_idx: Optional[int] = None  # which of the engine's adapter_sets; None = base
+    qformer_input_ids: Optional[np.ndarray] = None  # (T,) InstructBLIP instruction
+    anyres_gather: Optional[np.ndarray] = None  # (N_img_tok,) LLaVA-Next gather map
+
+
+def request_from_batch(batch: dict, i: int, has_image: bool, **kw) -> Request:
+    """Row i of a GenerationCollator batch as a Request: its prompt, and
+    with an image its pixels (one image, or anyres tiles with the gather
+    map), positions and Q-Former ids. `kw` sets max_new_tokens /
+    adapter_idx."""
+    plen = int(batch["prompt_lens"][i])
+    pv = gather = qids = None
+    if has_image:
+        if batch.get("anyres_gather") is not None:
+            pv, gather = np.asarray(batch["pixel_values"][i]), np.asarray(batch["anyres_gather"][i])
+        else:
+            pv = np.asarray(batch["pixel_values"][i, 0])
+    if batch.get("qformer_input_ids") is not None:
+        qids = np.asarray(batch["qformer_input_ids"][i])[np.asarray(batch["qformer_mask"][i])]
+    return Request(
+        input_ids=np.asarray(batch["input_ids"][i, :plen]),
+        pixel_values=pv,
+        image_positions=np.asarray(batch["image_positions"][i]) if has_image else None,
+        qformer_input_ids=qids,
+        anyres_gather=gather,
+        **kw,
+    )
 
 
 def device_draft(hist: torch.Tensor, hlen: torch.Tensor, k: int, pad_id: int) -> torch.Tensor:
@@ -228,11 +256,9 @@ class ContinuousEngine:
             plens[i] = len(ids)
             budgets[i] = r.max_new_tokens or self.gen_cfg.max_new_tokens
         pv = ipos = None
+        image_kw = {}
         if reqs[0].pixel_values is not None:
-            pv = torch.as_tensor(np.stack([np.asarray(r.pixel_values)[None] for r in reqs])).to(dev)
-            ipos = torch.as_tensor(
-                np.stack([np.asarray(r.image_positions, np.int32) for r in reqs])
-            ).to(dev)
+            pv, ipos, image_kw = self._group_images(reqs)
         rows_t, plens_t = torch.as_tensor(rows).to(dev), torch.as_tensor(plens).to(dev)
         slot_t = torch.as_tensor(np.asarray(slots, np.int64)).to(dev)
         if self._held is not None:
@@ -240,7 +266,7 @@ class ContinuousEngine:
                                                       self.n_adapter_sets, dev)
         small, _, first, done0, _, _ = prefill(
             self.model, self.gen_cfg, lb, rows_t, torch.as_tensor(pad).to(dev),
-            plens_t, pv, ipos, generator, self._ctx(self._slot_mix[slot_t]),
+            plens_t, pv, ipos, generator, self._ctx(self._slot_mix[slot_t]), **image_kw,
         )
         for key in small:
             # in place into the big cache (and scales): stale kv beyond lb is
@@ -259,6 +285,42 @@ class ContinuousEngine:
             # columns past prompt_len are masked by the history length
             hist[slot_t, :lb] = rows_t
             hist[slot_t, plens_t.long()] = first
+
+    def _group_images(self, reqs: list):
+        """A group's pixel_values, image_positions and model keywords on the
+        device. The layout follows the first request; anyres tiles, gather
+        maps and positions, and Q-Former ids pad to the group's longest
+        (PAD_IDX / -1 / mask False scatter nowhere)."""
+        dev = self.device
+        bp = len(reqs)
+        kw = {}
+        if reqs[0].anyres_gather is not None:
+            n_tiles = max(np.asarray(r.pixel_values).shape[0] for r in reqs)
+            n_tok = max(len(r.anyres_gather) for r in reqs)
+            first = np.asarray(reqs[0].pixel_values)
+            pv = np.zeros((bp, n_tiles) + first.shape[1:], first.dtype)
+            gather = np.full((bp, n_tok), PAD_IDX, np.int32)
+            ipos = np.full((bp, n_tok), -1, np.int32)
+            for i, r in enumerate(reqs):
+                t = np.asarray(r.pixel_values)
+                pv[i, : t.shape[0]] = t
+                gather[i, : len(r.anyres_gather)] = r.anyres_gather
+                ipos[i, : len(r.image_positions)] = r.image_positions
+            kw["anyres_gather"] = torch.as_tensor(gather).to(dev)
+        else:
+            pv = np.stack([np.asarray(r.pixel_values)[None] for r in reqs])
+            ipos = np.stack([np.asarray(r.image_positions, np.int32) for r in reqs])
+        if reqs[0].qformer_input_ids is not None:
+            ql = max(len(r.qformer_input_ids) for r in reqs)
+            qi = np.zeros((bp, ql), np.int32)
+            qm = np.zeros((bp, ql), bool)
+            for i, r in enumerate(reqs):
+                q = np.asarray(r.qformer_input_ids, np.int32)
+                qi[i, : len(q)] = q
+                qm[i, : len(q)] = True
+            kw["qformer_input_ids"] = torch.as_tensor(qi).to(dev)
+            kw["qformer_mask"] = torch.as_tensor(qm).to(dev)
+        return torch.as_tensor(pv).to(dev), torch.as_tensor(ipos).to(dev), kw
 
     # ---------------- decode bursts ----------------
 
@@ -572,8 +634,11 @@ class ContinuousEngine:
                 for slot, ridx in admits:
                     r = inflight[ridx]
                     lb = -(-len(r.input_ids) // self.prefill_chunk) * self.prefill_chunk
-                    # a text-only row never shares a prefill with an image row
-                    key = (lb, r.pixel_values is not None)
+                    # a text-only row never shares a prefill with an image
+                    # row; the group's qformer / anyres layout follows its
+                    # first request
+                    key = (lb, r.pixel_values is not None, r.qformer_input_ids is not None,
+                           r.anyres_gather is not None)
                     by_bucket.setdefault(key, []).append((slot, ridx))
                 g = self.MAX_PREFILL_GROUP
                 groups = [

@@ -31,7 +31,7 @@ import torch
 
 from vlrlhf_torch.models.common import Ctx
 from vlrlhf_torch.models.lm.llama import empty_pending
-from vlrlhf_torch.models.vlm import VLM
+from vlrlhf_torch.models.vlm import IMAGE_INPUT_KEYS, VLM, image_inputs
 from vlrlhf_torch.ops.sampling import sample_tokens
 
 
@@ -72,6 +72,7 @@ def prefill(
     image_positions: Optional[torch.Tensor],
     generator: Optional[torch.Generator],
     ctx: Optional[Ctx] = None,  # VLM-level: adapters on or off
+    **image_kw,  # anyres_gather / qformer_input_ids / qformer_mask (models/vlm.py)
 ):
     """Prefill into a fresh (L, B, nkv, cache_len, hd) cache and sample the
     first token. Returns (cache, lengths, first_token, done0, out0,
@@ -79,7 +80,7 @@ def prefill(
     b = input_ids.shape[0]
     hidden, cache = model(
         input_ids, pixel_values, image_positions, pad_mask, cache_len=cache_len,
-        ctx=ctx, kv_cache_dtype=gen_cfg.kv_cache_dtype,
+        ctx=ctx, kv_cache_dtype=gen_cfg.kv_cache_dtype, **image_kw,
     )
     rows = torch.arange(b, device=hidden.device)
     last_h = hidden[rows, prompt_lens.long() - 1][:, None]  # (B, 1, H)
@@ -131,9 +132,11 @@ def adapter_mix_rows(idx, n_sets: int, device) -> torch.Tensor:
 
 
 def batch_to_device(batch: dict, device) -> dict:
-    """GenerationCollator numpy batch -> tensors on `device`."""
+    """GenerationCollator numpy batch -> tensors on `device` (the anyres /
+    Q-Former fields too, where the batch has them)."""
     out = {}
-    for key in ("input_ids", "pad_mask", "prompt_lens", "pixel_values", "image_positions"):
+    for key in ("input_ids", "pad_mask", "prompt_lens", "pixel_values", "image_positions",
+                *IMAGE_INPUT_KEYS):
         v = batch.get(key)
         out[key] = None if v is None else torch.as_tensor(np.asarray(v)).to(device)
     return out
@@ -204,6 +207,7 @@ class Generator:
         cache, lengths, last, done, out, _ = prefill(
             self.model, gen_cfg, cache_len, t["input_ids"], t["pad_mask"],
             t["prompt_lens"], t["pixel_values"], t["image_positions"], generator, ctx,
+            **image_inputs(t),
         )
         pending, lengths = decode_loop(self.model, gen_cfg, cache, lengths, last, done, out,
                                        generator, self.EARLY_EXIT_EVERY, ctx)

@@ -36,8 +36,7 @@ import numpy as np
 import torch
 
 from vlrlhf_torch.data.collators import GenerationCollator
-from vlrlhf_torch.data.processor import make_single_turn_conv
-from vlrlhf_torch.generate.continuous import ContinuousEngine, Request
+from vlrlhf_torch.generate.continuous import ContinuousEngine, Request, request_from_batch
 from vlrlhf_torch.generate.engine import ChatSession, GenerateConfig, Generator
 
 
@@ -201,21 +200,9 @@ class RequestBuilder:
         max_new_tokens: Optional[int] = None,
         adapter_idx: Optional[int] = None,
     ) -> Request:
-        proc = self.processor
-        n_img = 0 if img_path is None else 1
-        prompt = proc.format_multimodal_prompt(question, n_img)
-        ids = proc.process_conv(make_single_turn_conv(prompt, ""))["input_ids"]
-        ids = proc.maybe_prefix_image_ids(ids, n_img)
-        b = self.collator([{"input_ids": ids, "img_path": img_path}])
-        plen = int(b["prompt_lens"][0])
-        has_img = img_path is not None
-        return Request(
-            input_ids=np.asarray(b["input_ids"][0, :plen]),
-            pixel_values=b["pixel_values"][0, 0] if has_img else None,
-            image_positions=np.asarray(b["image_positions"][0]) if has_img else None,
-            max_new_tokens=max_new_tokens,
-            adapter_idx=adapter_idx,
-        )
+        b = self.collator([self.processor.generation_row(question, img_path)])
+        return request_from_batch(b, 0, img_path is not None, max_new_tokens=max_new_tokens,
+                                  adapter_idx=adapter_idx)
 
 
 class ChatBackend:
@@ -272,10 +259,7 @@ class ChatBackend:
             if session_id is None or session_id not in self._sessions:
                 self._counter += 1
                 session_id = session_id or f"s{self._counter}"
-                n_img = 0 if image is None else 1
-                prompt = proc.format_multimodal_prompt(message, n_img)
-                ids = proc.process_conv(make_single_turn_conv(prompt, ""))["input_ids"]
-                batch = self._collator([{"input_ids": ids, "img_path": image}])
+                batch = self._collator([proc.generation_row(message, image)])
                 sess = ChatSession(self._gen, cache_len=self.cache_len)
                 out = sess.start(batch, self._generator)
                 self._sessions[session_id] = sess

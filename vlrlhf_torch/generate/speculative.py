@@ -33,7 +33,7 @@ import torch
 from vlrlhf_torch.generate.continuous import _categorical
 from vlrlhf_torch.generate.engine import GenerateConfig, batch_to_device, prefill
 from vlrlhf_torch.models.common import Ctx
-from vlrlhf_torch.models.vlm import VLM
+from vlrlhf_torch.models.vlm import VLM, image_inputs
 from vlrlhf_torch.ops.sampling import warp_logits
 
 
@@ -117,7 +117,7 @@ class SpeculativeGenerator:
         cache, _, first, done0, _, _ = prefill(
             self.model, dataclasses.replace(gcfg, max_new_tokens=1), cache_len, t["input_ids"],
             t["pad_mask"], t["prompt_lens"], t["pixel_values"], t["image_positions"],
-            generator, ctx,
+            generator, ctx, **image_inputs(t),
         )
         eos = {int(e) for e in (gcfg.eos_token_ids or ())}
         first = first.cpu().numpy()

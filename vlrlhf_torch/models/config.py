@@ -1,12 +1,14 @@
-"""Model configuration: the geometry dataclasses, the LLaVA-1.5-7B config and
-its family entry, and `scale_down` for test-size models.
+"""Model configuration: the geometry dataclasses, the family configs and
+entries, and `scale_down` for test-size models.
 
 Counterparts: LMConfig (vlrlhf_tpu/models/lm/llama.py), ViTConfig
-(models/vision/vit.py), ProjectorConfig / VLMConfig (models/vlm.py),
-`_llava_7b`, FAMILIES["llava"], `scale_down`, ARCH_TO_FAMILY and
-`resolve_family` (models/registry.py). Field
-names and defaults are the same; dtypes are torch dtypes. Fields that only
-training, sharding or other families read are left out.
+(models/vision/vit.py), QFormerConfig (models/vision/qformer.py),
+ProjectorConfig / VLMConfig (models/vlm.py), `_llava_7b`,
+`_llava_next_vicuna_7b`, `_llava_next_mistral_7b`,
+`_instructblip_vicuna_7b`, FAMILIES, `scale_down`, ARCH_TO_FAMILY and
+`resolve_family` (models/registry.py). Field names and defaults are the
+same; dtypes are torch dtypes. Fields that only training, sharding or the
+families still to port (qwen_vl, internlm_xc2) read are left out.
 """
 
 from __future__ import annotations
@@ -102,8 +104,27 @@ class ViTConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class QFormerConfig:
+    """InstructBLIP's instruction-aware query transformer (BERT geometry)."""
+
+    vocab_size: int = 30523
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    encoder_hidden_size: int = 1408  # the tower's feature width
+    num_query_tokens: int = 32
+    cross_attention_frequency: int = 2
+    max_position_embeddings: int = 512
+    ln_eps: float = 1e-12
+    dtype: torch.dtype = torch.bfloat16
+
+
+@dataclasses.dataclass(frozen=True)
 class ProjectorConfig:
-    kind: str = "mlp2x_gelu"  # the only kind ported so far
+    # 'mlp2x_gelu' (LLaVA, LLaVA-Next), 'linear' (InstructBLIP's
+    # language_projection)
+    kind: str = "mlp2x_gelu"
     in_dim: int = 1024
     out_dim: int = 4096
 
@@ -115,17 +136,28 @@ class VLMConfig:
     projector: ProjectorConfig
     image_token_id: int
     num_image_tokens: int  # placeholder tokens per image (static)
+    # InstructBLIP: the Q-Former between the tower and the projector
+    qformer: Optional[QFormerConfig] = None
     family: str = "llava"
+    # LLaVA-Next anyres: grid pinpoints (empty = not an anyres model)
+    grid_pinpoints: tuple = ()
     image_mean: tuple = (0.48145466, 0.4578275, 0.40821073)
     image_std: tuple = (0.26862954, 0.26130258, 0.27577711)
+
+
+# LoRA target patterns over the JAX-layout param paths
+LM_ALL_LINEARS = (r"lm/.*attn/(wq|wk|wv|wo)/", r"lm/.*mlp/(gate|up|down)/")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelFamily:
     name: str
+    hf_architectures: tuple[str, ...]
     make_config: Callable[..., VLMConfig]
     template: ChatTemplate
     processor_defaults: dict
+    lora_targets: tuple[str, ...]
+    freeze_vision_patterns: tuple[str, ...]
     resize_mode: str = "shortest_edge_crop"
     stop_tokens: tuple[str, ...] = ()
 
@@ -150,21 +182,114 @@ def _llava_7b(dtype=torch.bfloat16) -> VLMConfig:
     )
 
 
+DEFAULT_ANYRES_PINPOINTS = (
+    (336, 672), (672, 336), (672, 672), (1008, 336), (336, 1008),
+)
+
+
+def _llava_next_vicuna_7b(dtype=torch.bfloat16) -> VLMConfig:
+    cfg = _llava_7b(dtype)
+    return dataclasses.replace(
+        cfg, family="llava_next_vicuna",
+        grid_pinpoints=DEFAULT_ANYRES_PINPOINTS,
+    )
+
+
+def _llava_next_mistral_7b(dtype=torch.bfloat16) -> VLMConfig:
+    return VLMConfig(
+        lm=LMConfig(
+            vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+            num_layers=32, num_heads=32, num_kv_heads=8,  # Mistral GQA
+            rope_base=1e6, max_position_embeddings=32768, rms_eps=1e-5,
+            dtype=dtype,
+        ),
+        vision=ViTConfig(
+            image_size=336, patch_size=14, hidden_size=1024, num_layers=24,
+            num_heads=16, mlp_dim=4096, act="quick_gelu", feature_layer=-2,
+            drop_class_token=True, dtype=dtype,
+        ),
+        projector=ProjectorConfig(kind="mlp2x_gelu", in_dim=1024, out_dim=4096),
+        image_token_id=32000,
+        num_image_tokens=576,
+        family="llava_next_mistral",
+        grid_pinpoints=DEFAULT_ANYRES_PINPOINTS,
+    )
+
+
+def _instructblip_vicuna_7b(dtype=torch.bfloat16) -> VLMConfig:
+    """InstructBLIP-Vicuna-7B: EVA ViT-g/14 @224 + Q-Former (32 queries) +
+    linear projection; prefix-embedding model, 32 image tokens."""
+    return VLMConfig(
+        lm=LMConfig(
+            vocab_size=32001, hidden_size=4096, intermediate_size=11008,
+            num_layers=32, num_heads=32, num_kv_heads=32,
+            max_position_embeddings=4096, rms_eps=1e-5, dtype=dtype,
+        ),
+        vision=ViTConfig(
+            image_size=224, patch_size=14, hidden_size=1408, num_layers=39,
+            num_heads=16, mlp_dim=6144, act="gelu", use_pre_norm=False,
+            use_post_norm=True, patch_bias=True, dtype=dtype,
+        ),
+        projector=ProjectorConfig(kind="linear", in_dim=768, out_dim=4096),
+        qformer=QFormerConfig(
+            vocab_size=30523, hidden_size=768, num_layers=12, num_heads=12,
+            intermediate_size=3072, encoder_hidden_size=1408,
+            num_query_tokens=32, cross_attention_frequency=2, dtype=dtype,
+        ),
+        image_token_id=32000,  # added <image> token
+        num_image_tokens=32,
+        family="instructblip",
+    )
+
+
+_LLAVA_PROCESSOR = dict(num_image_tokens=576, image_token="<image>", image_token_id=32000)
+
 FAMILIES: dict[str, ModelFamily] = {
     "llava": ModelFamily(
         name="llava",
+        hf_architectures=("LlavaForConditionalGeneration", "LlavaForRL"),
         make_config=_llava_7b,
         template=TEMPLATES["llava"],
+        processor_defaults=dict(_LLAVA_PROCESSOR),
+        lora_targets=LM_ALL_LINEARS,
+        freeze_vision_patterns=(r"^vision/", r"^projector/"),
+    ),
+    "llava_next_vicuna": ModelFamily(
+        name="llava_next_vicuna",
+        hf_architectures=("LlavaNextForConditionalGeneration",),
+        make_config=_llava_next_vicuna_7b,
+        template=TEMPLATES["llava_next_vicuna"],
+        processor_defaults=dict(_LLAVA_PROCESSOR),
+        lora_targets=LM_ALL_LINEARS,
+        freeze_vision_patterns=(r"^vision/", r"^projector/"),
+    ),
+    "llava_next_mistral": ModelFamily(
+        name="llava_next_mistral",
+        hf_architectures=("LlavaNextForConditionalGeneration",),
+        make_config=_llava_next_mistral_7b,
+        template=TEMPLATES["llava_next_mistral"],
+        processor_defaults=dict(_LLAVA_PROCESSOR),
+        lora_targets=LM_ALL_LINEARS,
+        freeze_vision_patterns=(r"^vision/", r"^projector/"),
+    ),
+    "instructblip": ModelFamily(
+        name="instructblip",
+        hf_architectures=("InstructBlipForConditionalGeneration", "InstructBlipForRL"),
+        make_config=_instructblip_vicuna_7b,
+        template=TEMPLATES["instructblip"],
         processor_defaults=dict(
-            num_image_tokens=576, image_token="<image>", image_token_id=32000
+            num_image_tokens=32, image_token="<image>", image_token_id=32000,
+            prefix_image_tokens=True,
         ),
+        lora_targets=LM_ALL_LINEARS,
+        freeze_vision_patterns=(r"^vision/", r"^projector/", r"^qformer/"),
     ),
 }
 
 
 def scale_down(cfg: VLMConfig, dtype=torch.float32) -> VLMConfig:
     """Shrink a family config to test size, keeping its structure (GQA
-    ratio, projector kind, class-token/pre-norm layout)."""
+    ratio, projector kind, Q-Former, class-token/pre-norm layout)."""
     lm = cfg.lm
     kv_ratio = max(lm.num_heads // lm.num_kv_heads, 1)
     lm_small = dataclasses.replace(
@@ -178,22 +303,33 @@ def scale_down(cfg: VLMConfig, dtype=torch.float32) -> VLMConfig:
         num_heads=2, mlp_dim=32, dtype=dtype,
     )
     n_grid_tokens = (16 // 4) ** 2
-    n_img_tokens = (
-        n_grid_tokens if v.drop_class_token or not v.use_class_token
-        else n_grid_tokens + 1
-    )
+    qf = None
+    if cfg.qformer is not None:
+        qf = dataclasses.replace(
+            cfg.qformer, vocab_size=64, hidden_size=16, num_layers=2,
+            num_heads=2, intermediate_size=32, encoder_hidden_size=16,
+            num_query_tokens=4, dtype=dtype,
+        )
+        n_img_tokens = 4
+    else:
+        n_img_tokens = (
+            n_grid_tokens if v.drop_class_token or not v.use_class_token
+            else n_grid_tokens + 1
+        )
     return dataclasses.replace(
         cfg,
         lm=lm_small,
         vision=vis_small,
         projector=dataclasses.replace(cfg.projector, in_dim=16, out_dim=32),
+        qformer=qf,
         num_image_tokens=n_img_tokens,
         image_token_id=250,
     )
 
 
 # vlrlhf_tpu/models/registry.py:272-293. Every architecture the JAX package
-# imports resolves to its family; only llava is ported (FAMILIES).
+# imports resolves to its family; qwen_vl and internlm_xc2 are not ported
+# (FAMILIES).
 ARCH_TO_FAMILY = {
     "LlavaForConditionalGeneration": "llava",
     "QWenLMHeadModel": "qwen_vl",

@@ -1,9 +1,15 @@
 """ViT encoder (counterpart of vlrlhf_tpu/models/vision/vit.py `vit_forward`).
 
-Serves CLIP ViT-L/14-336 for LLaVA-1.5: class token, pre-LN, quick_gelu,
-penultimate feature layer (`feature_layer=-2` runs num_layers - 1 blocks
-and skips the post norm). Attention goes through ops/attention.py, so on
-the card every block's non-causal S=577 attention runs the flash kernel.
+Serves CLIP ViT-L/14-336 for LLaVA-1.5 and LLaVA-Next: class token,
+pre-LN, quick_gelu, penultimate feature layer (`feature_layer=-2` runs
+num_layers - 1 blocks and skips the post norm); and InstructBLIP's EVA
+ViT-g/14-224: a patch bias, no pre-LN, every layer then the post norm,
+the class token kept, tanh GELU (vlrlhf_tpu's; HF's EVA uses erf,
+ROADMAP.md §3). A position table of another length than the patch grid
+(vlrlhf_tpu's `interpolate_pos_embed`, Qwen-VL's and InternLM-XC2's) is
+refused. Attention goes through ops/attention.py, so on the card every
+block's non-causal attention runs the flash kernel (S=577, D=64 for CLIP;
+S=257, D=88 for EVA).
 
 The patch embedding is written as patch extraction + one matmul over the
 (p*p*3) patch vector in (row, col, channel) order — exactly the NHWC/HWIO

@@ -1,6 +1,15 @@
-"""VLM assembly: vision tower + projector + LM + static-shape image merge
-(counterpart of vlrlhf_tpu/models/vlm.py: `projector_forward`,
+"""VLM assembly: vision tower (+ Q-Former) + projector + LM + static-shape
+image merge (counterpart of vlrlhf_tpu/models/vlm.py: `projector_forward`,
 `encode_images`, `vlm_embeds`, `vlm_forward`, `lm_head_fn`).
+
+The families' image inputs beside `pixel_values` (B, n_img, H, W, 3):
+  - LLaVA-Next anyres: `pixel_values` (B, n_tiles, H, W, 3) holds each
+    row's tiles and `anyres_gather` (B, n_tok) maps the tiles' features,
+    plus the learned `image_newline` row, to the row's image tokens
+    (models/anyres.py);
+  - InstructBLIP: `qformer_input_ids` / `qformer_mask` (B * n_img, T), the
+    instruction the Q-Former reads beside each image's tower features.
+`image_inputs(batch)` picks them out of a collator batch.
 
 Training passes precomputed `image_features` (the frozen tower runs once
 per pair, outside autograd), or, with an unfrozen tower, `pixel_values`
@@ -25,25 +34,39 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vlrlhf_torch.models.common import Ctx, Linear, merge_multimodal_embeddings
+from vlrlhf_torch.models.anyres import gather_anyres_features
+from vlrlhf_torch.models.common import Ctx, Linear, empty_param, merge_multimodal_embeddings
 from vlrlhf_torch.models.config import ProjectorConfig, VLMConfig
 from vlrlhf_torch.models.lm.llama import LlamaDecoder
+from vlrlhf_torch.models.vision.qformer import QFormer
 from vlrlhf_torch.models.vision.vit import VisionTower
+
+# the families' extra image inputs: collator batch keys and model keywords
+IMAGE_INPUT_KEYS = ("anyres_gather", "qformer_input_ids", "qformer_mask")
+
+
+def image_inputs(batch: dict) -> dict:
+    """A batch's anyres / Q-Former inputs (those it holds)."""
+    return {k: batch[k] for k in IMAGE_INPUT_KEYS if batch.get(k) is not None}
 
 
 class Projector(nn.Module):
-    """LLaVA's mlp2x-GELU projector (vlrlhf_tpu `projector_forward`)."""
+    """LLaVA's mlp2x-GELU projector or InstructBLIP's linear
+    language_projection (vlrlhf_tpu `projector_forward`)."""
 
     def __init__(self, cfg: ProjectorConfig, device, dtype):
         super().__init__()
-        if cfg.kind != "mlp2x_gelu":
-            raise ValueError(f"projector kind {cfg.kind!r} is not ported yet")
+        if cfg.kind not in ("mlp2x_gelu", "linear"):
+            raise ValueError(f"projector kind {cfg.kind!r} is not ported "
+                             "(ROADMAP.md §1 item 9: qwen_vl's resampler)")
         self.fc1 = Linear(cfg.in_dim, cfg.out_dim, True, device, dtype)
-        self.fc2 = Linear(cfg.out_dim, cfg.out_dim, True, device, dtype)
+        self.fc2 = (Linear(cfg.out_dim, cfg.out_dim, True, device, dtype)
+                    if cfg.kind == "mlp2x_gelu" else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.fc1(x)
         # jax.nn.gelu defaults to the tanh approximation
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        return x if self.fc2 is None else self.fc2(F.gelu(x, approximate="tanh"))
 
 
 class VLM(nn.Module):
@@ -51,8 +74,12 @@ class VLM(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.vision = VisionTower(cfg.vision, device)
+        self.qformer = QFormer(cfg.qformer, device) if cfg.qformer is not None else None
         self.projector = Projector(cfg.projector, device, cfg.lm.dtype)
         self.lm = LlamaDecoder(cfg.lm, device)
+        # LLaVA-Next's learned row after each row of unpadded tile features
+        self.image_newline = (empty_param((cfg.lm.hidden_size,), device, cfg.lm.dtype)
+                              if cfg.grid_pinpoints else None)
 
     @property
     def device(self) -> torch.device:
@@ -61,27 +88,53 @@ class VLM(nn.Module):
     def drop_vision_(self) -> None:
         """Free the tower and projector: the model becomes a text-only LM
         (an LLM judge's), whose image inputs are ignored."""
-        self.vision = self.projector = None
+        self.vision = self.projector = self.qformer = None
 
-    def encode_images(self, pixel_values: torch.Tensor, ctx: Optional[Ctx] = None) -> torch.Tensor:
+    def encode_images(self, pixel_values: torch.Tensor, ctx: Optional[Ctx] = None,
+                      qformer_input_ids: Optional[torch.Tensor] = None,
+                      qformer_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(N, H, W, 3) uint8 or normalized float -> (N, num_image_tokens,
         lm_hidden). uint8 pixels are rescaled and normalized here; `ctx`
-        is the VLM-level context (the tower runs under ctx.sub("vision"))."""
+        is the VLM-level context (the tower runs under ctx.sub("vision")).
+        With a Q-Former, `qformer_input_ids` / `qformer_mask` (N, T) are each
+        image's instruction (None: the queries alone)."""
         cfg = self.cfg
         if pixel_values.dtype == torch.uint8:
             x = pixel_values.float() / 255.0
             mean = torch.tensor(cfg.image_mean, dtype=torch.float32, device=x.device)
             std = torch.tensor(cfg.image_std, dtype=torch.float32, device=x.device)
             pixel_values = ((x - mean) / std).to(cfg.lm.dtype)
-        return self.projector(self.vision(pixel_values, (ctx or Ctx()).sub("vision")))
+        feats = self.vision(pixel_values, (ctx or Ctx()).sub("vision"))
+        if self.qformer is not None:
+            feats = self.qformer(feats, qformer_input_ids, qformer_mask)
+        return self.projector(feats)
+
+    def row_features(self, pixel_values: torch.Tensor, ctx: Optional[Ctx] = None,
+                       anyres_gather: Optional[torch.Tensor] = None,
+                       qformer_input_ids: Optional[torch.Tensor] = None,
+                       qformer_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, n_img | n_tiles, H, W, 3) -> (B, n_tok, lm_hidden), the rows
+        the merge places at image_positions: each row's images' features
+        in order, or with `anyres_gather` (B, n_tok) its tiles' features
+        gathered with the newline rows (vlrlhf_tpu `vlm_embeds`)."""
+        b, n_img = pixel_values.shape[:2]
+        flat = pixel_values.reshape(b * n_img, *pixel_values.shape[2:])
+        feats = self.encode_images(flat, ctx, qformer_input_ids, qformer_mask)
+        if anyres_gather is not None:
+            return gather_anyres_features(feats.reshape(b, -1, feats.shape[-1]),
+                                          anyres_gather, self.image_newline)
+        return feats.reshape(b, n_img * self.cfg.num_image_tokens, -1)
 
     def embeds(
         self,
         input_ids: torch.Tensor,  # (B, S) — placeholders already expanded
-        pixel_values: Optional[torch.Tensor] = None,  # (B, n_img, H, W, 3)
-        image_positions: Optional[torch.Tensor] = None,  # (B, n_img*N_tok)
-        image_features: Optional[torch.Tensor] = None,  # (B, n_img*N_tok, H) precomputed
+        pixel_values: Optional[torch.Tensor] = None,  # (B, n_img | n_tiles, H, W, 3)
+        image_positions: Optional[torch.Tensor] = None,  # (B, n_tok); -1 = unused
+        image_features: Optional[torch.Tensor] = None,  # (B, n_tok, H) precomputed
         ctx: Optional[Ctx] = None,
+        anyres_gather: Optional[torch.Tensor] = None,  # (B, n_tok) LLaVA-Next
+        qformer_input_ids: Optional[torch.Tensor] = None,  # (B * n_img, T) InstructBLIP
+        qformer_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Token embeddings with image features merged in; precomputed
         `image_features` skip the tower."""
@@ -91,11 +144,8 @@ class VLM(nn.Module):
         if image_positions is None:
             raise ValueError("image inputs need image_positions")
         if image_features is None:
-            b, n_img = pixel_values.shape[:2]
-            flat = pixel_values.reshape(b * n_img, *pixel_values.shape[2:])
-            image_features = self.encode_images(flat, ctx).reshape(
-                b, n_img * self.cfg.num_image_tokens, -1
-            )
+            image_features = self.row_features(pixel_values, ctx, anyres_gather,
+                                               qformer_input_ids, qformer_mask)
         return merge_multimodal_embeddings(embeds, image_features, image_positions)
 
     def forward(
@@ -108,12 +158,16 @@ class VLM(nn.Module):
         ctx: Optional[Ctx] = None,
         image_features: Optional[torch.Tensor] = None,
         kv_cache_dtype: str = "bf16",
+        anyres_gather: Optional[torch.Tensor] = None,
+        qformer_input_ids: Optional[torch.Tensor] = None,
+        qformer_mask: Optional[torch.Tensor] = None,
     ):
         """vlm_forward: returns (final-normed hidden (B, S, H), cache or
         None); with `cache_len` the empty-prefill mode (a bf16 or int8
         cache), without it the training forward. `ctx` switches the
         adapters on or off in both. Logits come from `head`."""
-        embeds = self.embeds(input_ids, pixel_values, image_positions, image_features, ctx)
+        embeds = self.embeds(input_ids, pixel_values, image_positions, image_features, ctx,
+                             anyres_gather, qformer_input_ids, qformer_mask)
         lm_ctx = ctx.sub("lm") if ctx is not None else None
         return self.lm(embeds, pad_mask=pad_mask, cache_len=cache_len, ctx=lm_ctx,
                        kv_cache_dtype=kv_cache_dtype)

@@ -29,7 +29,7 @@ import torch
 
 from vlrlhf_torch.lora.lora import lora_parameters
 from vlrlhf_torch.models.common import Ctx, fold_seed
-from vlrlhf_torch.models.vlm import VLM
+from vlrlhf_torch.models.vlm import VLM, image_inputs
 from vlrlhf_torch.train.losses import batch_logps, chunked_logps, dpo_loss
 from vlrlhf_torch.train.train_state import OptimizerConfig, TrainState, apply_updates
 
@@ -66,23 +66,31 @@ def batch_to_device(batch: dict, device) -> dict:
 @torch.no_grad()
 def pair_image_features(model: VLM, batch: dict) -> Optional[torch.Tensor]:
     """The frozen tower's features for each pair's images, tiled to the
-    [chosen; rejected] rows: (2B, n_img * num_image_tokens, H), or None."""
+    [chosen; rejected] rows: (2B, n_tok, H), or None. A pair's features
+    are computed once, with the pair's own Q-Former instruction
+    (InstructBLIP's depend on it) and gathered through its anyres map
+    (LLaVA-Next)."""
     pv = batch.get("pixel_values")
     if pv is None:
         return None
-    b, n_img = pv.shape[:2]
-    feats = model.encode_images(pv.reshape(b * n_img, *pv.shape[2:]))
-    feats = feats.reshape(b, n_img * model.cfg.num_image_tokens, -1)
+    feats = model.row_features(pv, None, **image_inputs(batch))
     return torch.cat([feats, feats], dim=0)
 
 
+PAIR_IMAGE_KEYS = ("pixel_values", "anyres_gather", "qformer_input_ids", "qformer_mask")
+
+
 def tile_pair_images(batch: dict) -> dict:
-    """The batch with its per-pair pixel_values (B pairs) tiled to the 2B
-    [chosen; rejected] rows (vlrlhf_tpu `_tile_pair_images`)."""
-    pv = batch.get("pixel_values")
-    if pv is None or pv.shape[0] * 2 != batch["input_ids"].shape[0]:
-        return batch
-    return dict(batch, pixel_values=torch.cat([pv, pv], dim=0))
+    """The batch with its per-pair image inputs (B pairs: pixel_values and
+    the anyres / Q-Former fields) tiled to the 2B [chosen; rejected] rows
+    (vlrlhf_tpu `_tile_pair_images`)."""
+    n2 = batch["input_ids"].shape[0]
+    out = dict(batch)
+    for k in PAIR_IMAGE_KEYS:
+        v = batch.get(k)
+        if v is not None and v.shape[0] * 2 == n2:
+            out[k] = torch.cat([v, v], dim=0)
+    return out
 
 
 def forward_logps(model: VLM, dcfg: DPOConfig, batch: dict, ctx: Ctx,
@@ -95,6 +103,7 @@ def forward_logps(model: VLM, dcfg: DPOConfig, batch: dict, ctx: Ctx,
         batch["input_ids"], image_positions=batch.get("image_positions"),
         pad_mask=batch["pad_mask"], ctx=ctx, image_features=image_features,
         pixel_values=None if image_features is not None else batch.get("pixel_values"),
+        **({} if image_features is not None else image_inputs(batch)),
     )
     s, v = batch["input_ids"].shape[1], model.cfg.lm.vocab_size
     if dcfg.logits_chunk:

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from vlrlhf_torch.models.common import Ctx
-from vlrlhf_torch.models.vlm import VLM, value_forward
+from vlrlhf_torch.models.vlm import IMAGE_INPUT_KEYS, VLM, image_inputs, value_forward
 from vlrlhf_torch.train.losses import _gather_clipped, chunked_token_logps
 from vlrlhf_torch.train.train_state import OptimizerConfig, TrainState, apply_updates
 
@@ -106,7 +106,7 @@ def policy_ctx(pcfg: PPOConfig, adapter_set: str = "") -> Ctx:
 
 def _trunk(model: VLM, batch: dict, ctx: Ctx) -> torch.Tensor:
     hidden, _ = model(batch["input_ids"], batch.get("pixel_values"), batch.get("image_positions"),
-                      batch["pad_mask"], ctx=ctx)
+                      batch["pad_mask"], ctx=ctx, **image_inputs(batch))
     return hidden
 
 
@@ -276,7 +276,9 @@ def rollout_to_batch(prompt_batch: dict, response_tokens, pad_token_id: int,
         pad_mask[i, : p + r] = True
         resp_mask[i, p: p + r] = True
     out = {"input_ids": ids, "pad_mask": pad_mask, "response_mask": resp_mask}
-    for k in ("pixel_values", "image_positions"):
+    # the image inputs ride along, the anyres map and Q-Former ids too
+    # (vlrlhf_tpu's update forwards drop those two; ROADMAP.md §3)
+    for k in ("pixel_values", "image_positions", *IMAGE_INPUT_KEYS):
         if prompt_batch.get(k) is not None:
             out[k] = prompt_batch[k]
     return out

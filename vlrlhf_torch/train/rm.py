@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 
 from vlrlhf_torch.models.common import Ctx, fold_seed
-from vlrlhf_torch.models.vlm import VLM, last_token_scores
+from vlrlhf_torch.models.vlm import VLM, image_inputs, last_token_scores
 from vlrlhf_torch.train.dpo import pair_image_features
 from vlrlhf_torch.train.losses import rm_loss
 from vlrlhf_torch.train.train_state import OptimizerConfig, TrainState, apply_updates
@@ -40,6 +40,7 @@ def rm_scores(model: VLM, kernel: torch.Tensor, batch: dict, ctx: Optional[Ctx],
         batch["input_ids"], image_positions=batch.get("image_positions"),
         pad_mask=batch["pad_mask"], ctx=ctx, image_features=image_features,
         pixel_values=None if image_features is not None else batch.get("pixel_values"),
+        **({} if image_features is not None else image_inputs(batch)),
     )
     return last_token_scores(hidden, kernel, batch["pad_mask"])
 

@@ -23,7 +23,7 @@ from typing import Optional
 import torch
 
 from vlrlhf_torch.models.common import Ctx, fold_seed
-from vlrlhf_torch.models.vlm import VLM
+from vlrlhf_torch.models.vlm import VLM, image_inputs
 from vlrlhf_torch.train.losses import LABEL_PAD, chunked_logps, sft_loss
 from vlrlhf_torch.train.train_state import OptimizerConfig, TrainState, apply_updates, global_norm
 
@@ -67,7 +67,7 @@ def sft_step(model: VLM, scfg: SFTConfig, ocfg: OptimizerConfig, state: TrainSta
     for p in (*state.trainable, *frozen):
         p.grad = None
     hidden, _ = model(batch["input_ids"], batch.get("pixel_values"), batch.get("image_positions"),
-                      batch["pad_mask"], ctx=ctx)
+                      batch["pad_mask"], ctx=ctx, **image_inputs(batch))
     if scfg.logits_chunk:
         logps, _ = chunked_logps(hidden, batch["labels"], model.head_fn(ctx),
                                  loss_mask=batch["pad_mask"], chunk=scfg.logits_chunk)

@@ -14,6 +14,9 @@ per-module inits) and what the bridge does with them:
     slice per nn.ModuleList entry
   - vision "patch_embed" HWIO kernel (p, p, 3, h) -> (h, p*p*3), flattened
     in (row, col, channel) order to match the tower's patch extraction
+  - "qformer" (a list of per-layer dicts: self_attn, cross_attn every
+    cross_attention_frequency layers, ffn, ffn_query) -> QFormer's layers;
+    "image_newline" {"embedding" (H,)} -> VLM.image_newline
   - LoRA adapter trees ({"a" (in, r), "b" (r, out)} leaves beside the base
     tree, stacked on the layer axis under "layers_scanned") -> each Linear's
     lora_a / lora_b, f32; a list of N such trees (vlrlhf_tpu's
@@ -116,7 +119,12 @@ def load_vlm_params(model: VLM, params: Mapping[str, Any]) -> VLM:
 
     pp = params["projector"]
     _linear(model.projector.fc1, pp["fc1"])
-    _linear(model.projector.fc2, pp["fc2"])
+    if model.projector.fc2 is not None:
+        _linear(model.projector.fc2, pp["fc2"])
+    if model.qformer is not None:
+        _load_qformer(model.qformer, params["qformer"])
+    if model.image_newline is not None:
+        _copy(model.image_newline, params["image_newline"]["embedding"])
 
     lm, lmp = model.lm, params["lm"]
     _copy(lm.embed_tokens, lmp["embed_tokens"]["embedding"])
@@ -132,6 +140,32 @@ def load_vlm_params(model: VLM, params: Mapping[str, Any]) -> VLM:
     if lm.lm_head is not None:
         _linear(lm.lm_head, lmp["lm_head"])
     return model
+
+
+def _load_qformer(qf, p: Mapping[str, Any]) -> None:
+    """vlrlhf_tpu's Q-Former tree (a list of heterogeneous layers, not a
+    stacked one) into models/vision/qformer.py's modules."""
+    _copy(qf.query_tokens, p["query_tokens"])
+    emb = p["embeddings"]
+    _copy(qf.word_embed, emb["word"]["embedding"])
+    _copy(qf.pos_embed, emb["position"]["embedding"])
+    _norm(qf.emb_ln, emb["ln"])
+    if len(p["layers"]) != len(qf.layers):
+        raise ValueError(f"{len(p['layers'])} Q-Former layers for {len(qf.layers)}")
+    for layer, lp in zip(qf.layers, p["layers"]):
+        for name in ("self_attn", "cross_attn"):
+            mod = getattr(layer, name)
+            if (mod is None) != (name not in lp):
+                raise ValueError(f"Q-Former {name} layout differs")
+            if mod is not None:
+                for w in ("wq", "wk", "wv", "wo"):
+                    _linear(getattr(mod, w), lp[name][w])
+                _norm(mod.ln, lp[name]["ln"])
+        for name in ("ffn", "ffn_query"):
+            mod = getattr(layer, name)
+            _linear(mod.fc1, lp[name]["fc1"])
+            _linear(mod.fc2, lp[name]["fc2"])
+            _norm(mod.ln, lp[name]["ln"])
 
 
 def _adapter_key(name: str) -> tuple[tuple[str, ...], Optional[int]]:
@@ -241,16 +275,18 @@ def vlm_config_from(src) -> C.VLMConfig:
                 kw[f.name] = _torch_dtype(v) if f.name == "dtype" else v
         return cls(**kw)
 
-    if getattr(src, "qformer", None) is not None or getattr(src, "plora", False) \
-            or getattr(src, "grid_pinpoints", ()):
-        raise ValueError("only LLaVA-1.5-style configs are ported")
+    if getattr(src, "plora", False) or src.projector.kind not in ("mlp2x_gelu", "linear"):
+        raise ValueError(f"family {src.family!r} is not ported (ROADMAP.md §1 item 9)")
+    qf = getattr(src, "qformer", None)
     return C.VLMConfig(
         lm=conv(C.LMConfig, src.lm),
         vision=conv(C.ViTConfig, src.vision),
         projector=conv(C.ProjectorConfig, src.projector),
         image_token_id=src.image_token_id,
         num_image_tokens=src.num_image_tokens,
+        qformer=None if qf is None else conv(C.QFormerConfig, qf),
         family=src.family,
+        grid_pinpoints=tuple(tuple(p) for p in getattr(src, "grid_pinpoints", ())),
         image_mean=tuple(src.image_mean),
         image_std=tuple(src.image_std),
     )

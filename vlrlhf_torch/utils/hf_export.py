@@ -1,6 +1,8 @@
-"""Export the port's LLaVA weights as an HF checkpoint (the llava half of
-vlrlhf_tpu/utils/hf_export.py: `_ln`, `_linear`, `export_llama_lm`,
-`export_clip_vit`, `export_llava`, `save_hf_checkpoint`, `export_hf` and
+"""Export the port's LLaVA, LLaVA-Next and InstructBLIP weights as an HF
+checkpoint (those families' half of vlrlhf_tpu/utils/hf_export.py: `_ln`,
+`_linear`, `export_llama_lm`, `export_clip_vit`, `export_llava` (with
+`image_newline`), `export_instructblip_vit`, `export_qformer`,
+`export_instructblip`, `save_hf_checkpoint`, `export_hf` and
 `ARCHITECTURES`).
 
 The input is a state dict keyed by the port's parameter names (a model's
@@ -14,7 +16,8 @@ dequantize_params), as a merged save over a QLoRA base does.
 `save_hf_checkpoint` writes one model.safetensors through
 utils/safetensors_io.py, the config.json (the source checkpoint's with
 `architectures` and `torch_dtype` set, or a minimal one) and the source's
-tokenizer / processor files beside it.
+tokenizer / processor files beside it (InstructBLIP's qformer_tokenizer/
+directory too).
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ from typing import Mapping, Optional
 import torch
 
 from vlrlhf_torch.utils.hf_port import (
-    CLIP_LINEARS, CLIP_NORMS, LLAMA_LINEARS, LLAMA_NORMS, LLAVA_PROJECTOR, conv_from_patch,
+    CLIP_LINEARS, CLIP_NORMS, EVA_LINEARS, EVA_NORMS, LLAMA_LINEARS, LLAMA_NORMS,
+    LLAVA_PROJECTOR, QFORMER_ATTNS, QFORMER_BERT, QFORMER_FFNS, QFORMER_TOKENIZER_DIR,
+    conv_from_patch,
 )
 from vlrlhf_torch.utils.safetensors_io import save_file
 
@@ -105,18 +110,81 @@ def export_clip_vit(src: StateDict, sd: _SD, prefix: str, patch: int) -> None:
 
 
 def export_llava(src: StateDict, cfg) -> dict[str, torch.Tensor]:
-    """The port's LLaVA state dict -> HF LlavaForConditionalGeneration
-    keys (vlrlhf_tpu's export_llava)."""
+    """The port's LLaVA / LLaVA-Next state dict -> HF
+    LlavaForConditionalGeneration / LlavaNextForConditionalGeneration keys
+    (vlrlhf_tpu's export_llava)."""
     sd = _SD()
     export_clip_vit(src, sd, "vision_tower.vision_model", cfg.vision.patch_size)
     for ours, theirs in LLAVA_PROJECTOR:
         _linear(sd, theirs, src, f"projector.{ours}")
     export_llama_lm(src, sd, "language_model.model")
+    if "image_newline" in src:
+        sd.put("image_newline", src["image_newline"])
     return dict(sd)
 
 
-EXPORTERS = {"llava": export_llava}
-ARCHITECTURES = {"llava": ["LlavaForConditionalGeneration"]}
+def export_instructblip_vit(src: StateDict, sd: _SD, prefix: str, patch: int) -> None:
+    """Inverse of hf_port.port_instructblip_vit: wq / wk / wv fused back
+    into one qkv linear, the embeddings as raw Parameters."""
+    emb = f"{prefix}.embeddings"
+    sd.put(f"{emb}.patch_embedding.weight", conv_from_patch(_get(src, "vision.patch_weight"),
+                                                            patch))
+    sd.put(f"{emb}.patch_embedding.bias", _get(src, "vision.patch_bias"))
+    sd.put(f"{emb}.position_embedding", _get(src, "vision.pos_embed")[None])
+    sd.put(f"{emb}.class_embedding", _get(src, "vision.cls_token")[None, None])
+    for i in range(_n_layers(src, "vision")):
+        ours, theirs = f"vision.layers.{i}", f"{prefix}.encoder.layers.{i}"
+        for o, t in EVA_NORMS:
+            _ln(sd, f"{theirs}.{t}", src, f"{ours}.{o}")
+        for leaf in ("weight", "bias"):
+            sd.put(f"{theirs}.self_attn.qkv.{leaf}", torch.cat(
+                [_get(src, f"{ours}.{n}.{leaf}") for n in ("wq", "wk", "wv")], dim=0))
+        for o, t in EVA_LINEARS:
+            _linear(sd, f"{theirs}.{t}", src, f"{ours}.{o}")
+    _ln(sd, f"{prefix}.post_layernorm", src, "vision.ln_post")
+
+
+def export_qformer(src: StateDict, sd: _SD, prefix: str = "qformer") -> None:
+    """Inverse of hf_port.port_qformer."""
+    sd.put("query_tokens", _get(src, "qformer.query_tokens")[None])
+    sd.put(f"{prefix}.embeddings.word_embeddings.weight", _get(src, "qformer.word_embed"))
+    sd.put(f"{prefix}.embeddings.position_embeddings.weight", _get(src, "qformer.pos_embed"))
+    _ln(sd, f"{prefix}.embeddings.layernorm", src, "qformer.emb_ln")
+    for i in range(_n_layers(src, "qformer")):
+        ours, theirs = f"qformer.layers.{i}", f"{prefix}.encoder.layer.{i}"
+        for mod, att, out in QFORMER_ATTNS:
+            if f"{ours}.{mod}.wq.weight" not in src:
+                continue  # cross-attention every cross_attention_frequency layers
+            for o, t in QFORMER_BERT:
+                _linear(sd, f"{theirs}.{att}.{t}", src, f"{ours}.{mod}.{o}")
+            _linear(sd, f"{theirs}.{out}.dense", src, f"{ours}.{mod}.wo")
+            _ln(sd, f"{theirs}.{out}.LayerNorm", src, f"{ours}.{mod}.ln")
+        for mod, fc1, fc2 in QFORMER_FFNS:
+            _linear(sd, f"{theirs}.{fc1}.dense", src, f"{ours}.{mod}.fc1")
+            _linear(sd, f"{theirs}.{fc2}.dense", src, f"{ours}.{mod}.fc2")
+            _ln(sd, f"{theirs}.{fc2}.LayerNorm", src, f"{ours}.{mod}.ln")
+
+
+def export_instructblip(src: StateDict, cfg) -> dict[str, torch.Tensor]:
+    """The port's InstructBLIP state dict -> HF
+    InstructBlipForConditionalGeneration keys (vlrlhf_tpu's
+    export_instructblip)."""
+    sd = _SD()
+    export_instructblip_vit(src, sd, "vision_model", cfg.vision.patch_size)
+    export_qformer(src, sd)
+    _linear(sd, "language_projection", src, "projector.fc1")
+    export_llama_lm(src, sd, "language_model.model")
+    return dict(sd)
+
+
+EXPORTERS = {"llava": export_llava, "llava_next_vicuna": export_llava,
+             "llava_next_mistral": export_llava, "instructblip": export_instructblip}
+ARCHITECTURES = {
+    "llava": ["LlavaForConditionalGeneration"],
+    "llava_next_vicuna": ["LlavaNextForConditionalGeneration"],
+    "llava_next_mistral": ["LlavaNextForConditionalGeneration"],
+    "instructblip": ["InstructBlipForConditionalGeneration"],
+}
 
 # Files copied from the source checkpoint so the exported directory is a
 # complete, loadable HF checkpoint (tokenizer, processor, generation config)
@@ -150,6 +218,8 @@ def save_hf_checkpoint(state_dict: StateDict, out_dir: str, family: str,
             src = os.path.join(base_dir, name)
             if any(pat in name for pat in _SIDECAR_PATTERNS) and os.path.isfile(src):
                 shutil.copy2(src, os.path.join(out_dir, name))
+            elif name == QFORMER_TOKENIZER_DIR and os.path.isdir(src):
+                shutil.copytree(src, os.path.join(out_dir, name), dirs_exist_ok=True)
     return nbytes
 
 

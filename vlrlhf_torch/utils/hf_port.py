@@ -1,7 +1,9 @@
-"""Import an HF LLaVA checkpoint into the port's `VLM` (the llava half of
-vlrlhf_tpu/utils/hf_port.py: `_ln`, `_linear`, `port_llama_lm`,
-`port_clip_vit`, `_normalize_llava_keys`, `port_llava`, `LazyStateDict`,
-`open_hf_state_dict`, `load_hf_state_dict` and `PORTERS`).
+"""Import an HF LLaVA, LLaVA-Next or InstructBLIP checkpoint into the
+port's `VLM` (those families' half of vlrlhf_tpu/utils/hf_port.py: `_ln`,
+`_linear`, `port_llama_lm`, `port_clip_vit`, `_normalize_llava_keys`,
+`port_llava` (with LLaVA-Next's `image_newline`), `port_instructblip_vit`,
+`port_instructblip`, `LazyStateDict`, `open_hf_state_dict`,
+`load_hf_state_dict` and `PORTERS`).
 
 The port's Linear holds (out, in) as torch does, so vlrlhf_tpu's transposes
 drop out; only the CLIP patch convolution changes layout ((h, 3, p, p) ->
@@ -47,6 +49,18 @@ CLIP_LINEARS = (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
                 ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2"))
 LLAVA_PROJECTOR = (("fc1", "multi_modal_projector.linear_1"),
                    ("fc2", "multi_modal_projector.linear_2"))
+# InstructBLIP's EVA tower (the qkv linear is fused, split in blocks of rows)
+EVA_NORMS = (("ln1", "layer_norm1"), ("ln2", "layer_norm2"))
+EVA_LINEARS = (("wo", "self_attn.projection"), ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2"))
+# Q-Former layer: (port module, HF attention prefix, HF output prefix) of its
+# BERT attentions, and (port module, HF fc1, HF fc2 / LayerNorm prefix) of
+# its two feed-forwards
+QFORMER_ATTNS = (("self_attn", "attention.attention", "attention.output"),
+                 ("cross_attn", "crossattention.attention", "crossattention.output"))
+QFORMER_BERT = (("wq", "query"), ("wk", "key"), ("wv", "value"))
+QFORMER_FFNS = (("ffn", "intermediate", "output"),
+                ("ffn_query", "intermediate_query", "output_query"))
+QFORMER_TOKENIZER_DIR = "qformer_tokenizer"  # InstructBLIP's second tokenizer
 
 
 def patch_from_conv(w: torch.Tensor) -> torch.Tensor:
@@ -102,19 +116,16 @@ def _ln(p: _Port, prefix: str, norm: Norm) -> None:
         p.put(norm, "bias", p.read(f"{prefix}.bias"))
 
 
-def _linear(p: _Port, prefix: str, lin: Linear) -> None:
-    """A dense, quantized-on-read or GPTQ linear, then its bias. A
-    checkpoint bias for a bias-free linear must be zero (AutoGPTQ writes
-    zero biases)."""
-    if f"{prefix}.qweight" in p.sd:
-        _gptq_linear(p, prefix, lin)
-    elif p.quantizes(lin):
+def _weight(p: _Port, lin: Linear, w: torch.Tensor, name: str) -> None:
+    """A dense weight (out, in) into `lin`, quantized on the host first when
+    the linear matches the port's patterns."""
+    if p.quantizes(lin):
         from vlrlhf_torch.ops.int4 import BLOCK, quantize_int4
         from vlrlhf_torch.ops.quant import quantize_linear
 
-        w = p.read(f"{prefix}.weight").to(lin.weight.dtype)
+        w = w.to(lin.weight.dtype)
         if tuple(w.shape) != (lin.d_out, lin.d_in):
-            raise ValueError(f"{prefix}.weight: checkpoint shape {tuple(w.shape)}, model "
+            raise ValueError(f"{name}: checkpoint shape {tuple(w.shape)}, model "
                              f"({lin.d_out}, {lin.d_in})")
         if p.bits == 4 and lin.d_in % BLOCK == 0:
             packed, scale = quantize_int4(w)
@@ -123,7 +134,17 @@ def _linear(p: _Port, prefix: str, lin: Linear) -> None:
             q, scale = quantize_linear(w)
             lin.set_quantized_(q.to(p.device), scale.to(p.device))
     else:
-        p.put(lin, "weight", p.read(f"{prefix}.weight"))
+        p.put(lin, "weight", w)
+
+
+def _linear(p: _Port, prefix: str, lin: Linear) -> None:
+    """A dense, quantized-on-read or GPTQ linear, then its bias. A
+    checkpoint bias for a bias-free linear must be zero (AutoGPTQ writes
+    zero biases)."""
+    if f"{prefix}.qweight" in p.sd:
+        _gptq_linear(p, prefix, lin)
+    else:
+        _weight(p, lin, p.read(f"{prefix}.weight"), f"{prefix}.weight")
     if lin.bias is not None:
         p.put(lin, "bias", p.read(f"{prefix}.bias"))
     elif f"{prefix}.bias" in p.sd and p.read(f"{prefix}.bias").any():
@@ -230,24 +251,97 @@ def _normalize_llava_keys(sd: Mapping) -> Mapping:
     return _Renamed(sd, _llava_key)
 
 
+def _check_complete(model: nn.Module) -> None:
+    left = [n for n, t in model.named_parameters() if t.is_meta]
+    if left:
+        raise ValueError(f"the checkpoint left {len(left)} parameters unset: {left[:5]}")
+
+
 def port_llava(sd: Mapping, model: nn.Module, device,
                quantize: Sequence[str] = (), bits: int = 8) -> int:
     """Fill a meta-device LLaVA VLM from an HF LlavaForConditionalGeneration
-    state dict on `device`; linears matching `quantize` become int8 or
-    int4 (`bits`) on the way. Returns the checkpoint bytes read."""
+    (or LlavaNextForConditionalGeneration, whose `image_newline` the
+    anyres gather places) state dict on `device`; linears matching
+    `quantize` become int8 or int4 (`bits`) on the way. Returns the
+    checkpoint bytes read."""
     sd = _normalize_llava_keys(sd)
     p = _Port(sd, model, device, quantize, bits)
     port_clip_vit(p, model.vision, "vision_tower.vision_model")
     for ours, theirs in LLAVA_PROJECTOR:
         _linear(p, theirs, getattr(model.projector, ours))
     port_llama_lm(p, model.lm, "language_model.model")
-    left = [n for n, t in model.named_parameters() if t.is_meta]
-    if left:
-        raise ValueError(f"the checkpoint left {len(left)} parameters unset: {left[:5]}")
+    if model.image_newline is not None:
+        p.put(model, "image_newline", p.read("image_newline"))
+    _check_complete(model)
     return p.bytes_read
 
 
-PORTERS = {"llava": port_llava}
+def port_instructblip_vit(p: _Port, vis: nn.Module, prefix: str) -> None:
+    """HF InstructBlipVisionModel (EVA ViT-g) -> the port's VisionTower:
+    the fused qkv linear split into wq / wk / wv by blocks of rows, the
+    class and position embeddings raw (1, 1, h) / (1, n, h) Parameters,
+    no pre-norm, a post norm."""
+    emb = f"{prefix}.embeddings"
+    p.put(vis, "patch_weight", patch_from_conv(p.read(f"{emb}.patch_embedding.weight")))
+    p.put(vis, "patch_bias", p.read(f"{emb}.patch_embedding.bias"))
+    p.put(vis, "pos_embed", p.read(f"{emb}.position_embedding")[0])
+    p.put(vis, "cls_token", p.read(f"{emb}.class_embedding")[0, 0])
+    for i, blk in enumerate(vis.layers):
+        hp = f"{prefix}.encoder.layers.{i}"
+        for ours, theirs in EVA_NORMS:
+            _ln(p, f"{hp}.{theirs}", getattr(blk, ours))
+        w = p.read(f"{hp}.self_attn.qkv.weight").chunk(3, dim=0)
+        b = p.read(f"{hp}.self_attn.qkv.bias").chunk(3, dim=0)
+        for j, name in enumerate(("wq", "wk", "wv")):
+            lin = getattr(blk, name)
+            _weight(p, lin, w[j], f"{hp}.self_attn.qkv.weight[{name}]")
+            p.put(lin, "bias", b[j])
+        for ours, theirs in EVA_LINEARS:
+            _linear(p, f"{hp}.{theirs}", getattr(blk, ours))
+    _ln(p, f"{prefix}.post_layernorm", vis.ln_post)
+
+
+def port_qformer(p: _Port, qf: nn.Module, prefix: str = "qformer") -> None:
+    """HF InstructBlipQFormerModel (+ the top-level query_tokens) -> the
+    port's QFormer."""
+    p.put(qf, "query_tokens", p.read("query_tokens")[0])
+    p.put(qf, "word_embed", p.read(f"{prefix}.embeddings.word_embeddings.weight"))
+    p.put(qf, "pos_embed", p.read(f"{prefix}.embeddings.position_embeddings.weight"))
+    _ln(p, f"{prefix}.embeddings.layernorm", qf.emb_ln)
+    for i, layer in enumerate(qf.layers):
+        hp = f"{prefix}.encoder.layer.{i}"
+        for ours, att, out in QFORMER_ATTNS:
+            mod = getattr(layer, ours)
+            if mod is None:
+                continue
+            for o, t in QFORMER_BERT:
+                _linear(p, f"{hp}.{att}.{t}", getattr(mod, o))
+            _linear(p, f"{hp}.{out}.dense", mod.wo)
+            _ln(p, f"{hp}.{out}.LayerNorm", mod.ln)
+        for ours, fc1, fc2 in QFORMER_FFNS:
+            mod = getattr(layer, ours)
+            _linear(p, f"{hp}.{fc1}.dense", mod.fc1)
+            _linear(p, f"{hp}.{fc2}.dense", mod.fc2)
+            _ln(p, f"{hp}.{fc2}.LayerNorm", mod.ln)
+
+
+def port_instructblip(sd: Mapping, model: nn.Module, device,
+                      quantize: Sequence[str] = (), bits: int = 8) -> int:
+    """Fill a meta-device InstructBLIP VLM from an HF
+    InstructBlipForConditionalGeneration state dict (vlrlhf_tpu
+    `port_instructblip`); returns the checkpoint bytes read."""
+    sd = _normalize_llava_keys(sd)
+    p = _Port(sd, model, device, quantize, bits)
+    port_instructblip_vit(p, model.vision, "vision_model")
+    port_qformer(p, model.qformer)
+    _linear(p, "language_projection", model.projector.fc1)
+    port_llama_lm(p, model.lm, "language_model.model")
+    _check_complete(model)
+    return p.bytes_read
+
+
+PORTERS = {"llava": port_llava, "llava_next_vicuna": port_llava,
+           "llava_next_mistral": port_llava, "instructblip": port_instructblip}
 
 
 class LazyStateDict(Mapping):

@@ -1,9 +1,12 @@
-"""A seeded stand-in for a downloaded LLaVA checkpoint, for machines that
-cannot download one: the config.json of llava-hf/llava-1.5-7b-hf, a
-llama-layout tokenizer.json generated from a seed, and weights written by
-utils/hf_export.py. The import path (cli/loading.py) reads such a
-directory exactly as it reads a real one; chip_smoke.py and the tests use
-it.
+"""A seeded stand-in for a downloaded LLaVA, LLaVA-Next or InstructBLIP
+checkpoint, for machines that cannot download one: a config.json in the
+layout of the published one (llava-hf/llava-1.5-7b-hf,
+llava-hf/llava-v1.6-{vicuna,mistral}-7b-hf, Salesforce/instructblip-
+vicuna-7b) with the model's geometry written out, a llama-layout
+tokenizer.json generated from a seed (and for InstructBLIP a BERT
+WordPiece qformer_tokenizer/), and weights written by utils/hf_export.py.
+The import path (cli/loading.py) reads such a directory exactly as it
+reads a real one; chip_smoke.py and the tests use it.
 
 The tokenizer follows llama's layout: <unk> 0, <s> 1, </s> 2, the 256
 byte-fallback tokens <0x00>..<0xFF>, the single characters, then BPE
@@ -96,6 +99,132 @@ def llava_config(cfg) -> dict:
     return out
 
 
+def llava_next_config(cfg) -> dict:
+    """A LlavaNextForConditionalGeneration config.json with `cfg`'s geometry
+    and grid pinpoints; the text model is named after the family's
+    (vicuna or mistral), which is how the family is told apart."""
+    out = llava_config(cfg)
+    mistral = cfg.family == "llava_next_mistral"
+    out.update(architectures=["LlavaNextForConditionalGeneration"], model_type="llava_next",
+               image_grid_pinpoints=[list(p) for p in cfg.grid_pinpoints],
+               use_image_newline_parameter=True)
+    out["text_config"].update(
+        _name_or_path=("mistralai/Mistral-7B-Instruct-v0.2" if mistral
+                       else "lmsys/vicuna-7b-v1.5"),
+        architectures=["MistralForCausalLM" if mistral else "LlamaForCausalLM"],
+        model_type="mistral" if mistral else "llama")
+    if mistral:
+        out["text_config"]["sliding_window"] = None
+    return out
+
+
+def instructblip_config(cfg) -> dict:
+    """An InstructBlipForConditionalGeneration config.json (the layout of
+    Salesforce/instructblip-vicuna-7b's) with `cfg`'s geometry."""
+    lm, vis, qf = cfg.lm, cfg.vision, cfg.qformer
+    return {
+        "architectures": ["InstructBlipForConditionalGeneration"],
+        "initializer_factor": 1.0, "initializer_range": 0.02,
+        "model_type": "instructblip",
+        "num_query_tokens": qf.num_query_tokens,
+        "image_token_index": cfg.image_token_id,
+        "text_config": {
+            "_name_or_path": "lmsys/vicuna-7b-v1.1", "architectures": ["LlamaForCausalLM"],
+            "model_type": "llama", "vocab_size": lm.vocab_size, "hidden_size": lm.hidden_size,
+            "intermediate_size": lm.intermediate_size, "num_hidden_layers": lm.num_layers,
+            "num_attention_heads": lm.num_heads, "num_key_value_heads": lm.num_kv_heads,
+            "max_position_embeddings": lm.max_position_embeddings,
+            "rms_norm_eps": lm.rms_eps, "rope_theta": lm.rope_base,
+            "pad_token_id": 0, "bos_token_id": 1, "eos_token_id": 2,
+        },
+        "vision_config": {
+            "model_type": "instructblip_vision_model", "hidden_size": vis.hidden_size,
+            "intermediate_size": vis.mlp_dim, "num_hidden_layers": vis.num_layers,
+            "num_attention_heads": vis.num_heads, "image_size": vis.image_size,
+            "patch_size": vis.patch_size, "hidden_act": vis.act, "layer_norm_eps": vis.ln_eps,
+            "qkv_bias": True,
+        },
+        "qformer_config": {
+            "model_type": "instructblip_qformer", "vocab_size": qf.vocab_size,
+            "hidden_size": qf.hidden_size, "num_hidden_layers": qf.num_layers,
+            "num_attention_heads": qf.num_heads, "intermediate_size": qf.intermediate_size,
+            "cross_attention_frequency": qf.cross_attention_frequency,
+            "encoder_hidden_size": qf.encoder_hidden_size,
+            "max_position_embeddings": qf.max_position_embeddings,
+            "layer_norm_eps": qf.ln_eps,
+        },
+        "tie_word_embeddings": False,
+        "use_decoder_only_language_model": True,
+    }
+
+
+def bert_tokenizer(vocab_size: int = 30522, seed: int = 0) -> tuple[dict, dict]:
+    """(tokenizer.json, tokenizer_config.json) contents of a seeded
+    bert-base-uncased-style WordPiece tokenizer of `vocab_size` pieces
+    ([PAD] [UNK] [CLS] [SEP] [MASK], the characters and their "##"
+    continuations, common words, then seeded pieces) plus the added [DEC]
+    token (InstructBLIP's Q-Former tokenizer has it)."""
+    specials = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    chars = string.ascii_lowercase + string.digits + string.punctuation
+    pieces = specials + list(chars) + ["##" + c for c in chars]
+    pieces = list(dict.fromkeys(pieces + [w.lower() for w in _WORDS]))
+    rng = np.random.default_rng(seed)
+    seen = set(pieces)
+    while len(pieces) < vocab_size:
+        n = int(rng.integers(2, 6))
+        w = "".join(rng.choice(list(string.ascii_lowercase), n))
+        w = w if rng.random() < 0.5 else "##" + w
+        if w not in seen:
+            seen.add(w)
+            pieces.append(w)
+    vocab = {t: i for i, t in enumerate(pieces[:vocab_size])}
+    added = [{"id": vocab[t], "content": t, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True}
+             for t in specials if t in vocab]
+    added.append({"id": vocab_size, "content": "[DEC]", "single_word": False, "lstrip": False,
+                  "rstrip": False, "normalized": False, "special": True})
+    tok = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added,
+        "normalizer": {"type": "BertNormalizer", "clean_text": True,
+                       "handle_chinese_chars": True, "strip_accents": None,
+                       "lowercase": True},
+        "pre_tokenizer": {"type": "BertPreTokenizer"},
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "[CLS]", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "[SEP]", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "[CLS]", "type_id": 0}},
+                     {"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "[SEP]", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 1}},
+                     {"SpecialToken": {"id": "[SEP]", "type_id": 1}}],
+            "special_tokens": {t: {"id": t, "ids": [vocab[t]], "tokens": [t]}
+                               for t in ("[CLS]", "[SEP]")},
+        },
+        "decoder": {"type": "WordPiece", "prefix": "##", "cleanup": True},
+        "model": {"type": "WordPiece", "unk_token": "[UNK]",
+                  "continuing_subword_prefix": "##", "max_input_chars_per_word": 100,
+                  "vocab": vocab},
+    }
+    conf = {
+        "tokenizer_class": "BertTokenizer", "do_lower_case": True, "unk_token": "[UNK]",
+        "sep_token": "[SEP]", "pad_token": "[PAD]", "cls_token": "[CLS]",
+        "mask_token": "[MASK]", "bos_token": "[DEC]", "clean_up_tokenization_spaces": True,
+        "model_max_length": 512,
+    }
+    return tok, conf
+
+
+def _write_json_pair(path: str, tok: dict, conf: dict) -> None:
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(tok, f, ensure_ascii=False)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump(conf, f, indent=2)
+
+
 def llama_tokenizer(vocab_size: int = 32000, seed: int = 0,
                     layout: str = "prepend") -> tuple[dict, dict]:
     """(tokenizer.json, tokenizer_config.json) contents of a seeded llama
@@ -181,23 +310,41 @@ def llama_tokenizer(vocab_size: int = 32000, seed: int = 0,
 
 def write_tokenizer(path: str, vocab_size: int = 32000, seed: int = 0,
                     layout: str = "prepend") -> None:
-    os.makedirs(path, exist_ok=True)
-    tok, conf = llama_tokenizer(vocab_size, seed, layout)
-    with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
-        json.dump(tok, f, ensure_ascii=False)
-    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
-        json.dump(conf, f, indent=2)
+    _write_json_pair(path, *llama_tokenizer(vocab_size, seed, layout))
 
 
-def write_llava_checkpoint(path: str, state_dict: Mapping, cfg, dtype: str = "bfloat16",
-                           config: dict | None = None) -> int:
-    """An HF LLaVA checkpoint directory from the port's state dict: the
-    weights (utils/hf_export.py), `config` (default llava_config(cfg)) and
-    the seeded tokenizer. Returns the weights file's bytes."""
-    from vlrlhf_torch.utils.hf_export import export_llava, save_hf_checkpoint
+def write_bert_tokenizer(path: str, vocab_size: int = 30522, seed: int = 0) -> None:
+    _write_json_pair(path, *bert_tokenizer(vocab_size, seed))
 
-    nbytes = save_hf_checkpoint(export_llava(state_dict, cfg), path, "llava", dtype=dtype)
+
+def hf_config(cfg) -> dict:
+    """The config.json of `cfg`'s family (llava, llava_next_*, instructblip)."""
+    if cfg.family == "instructblip":
+        return instructblip_config(cfg)
+    if cfg.family.startswith("llava_next"):
+        return llava_next_config(cfg)
+    return llava_config(cfg)
+
+
+def write_checkpoint(path: str, state_dict: Mapping, cfg, dtype: str = "bfloat16",
+                     config: dict | None = None) -> int:
+    """An HF checkpoint directory of `cfg`'s family from the port's state
+    dict: the weights (utils/hf_export.py EXPORTERS), `config` (default
+    hf_config(cfg)), the seeded llama tokenizer and, for InstructBLIP, a
+    seeded WordPiece qformer_tokenizer/ over the Q-Former's vocabulary
+    (less the added [DEC]). Returns the weights file's bytes."""
+    from vlrlhf_torch.utils.hf_export import EXPORTERS, save_hf_checkpoint
+    from vlrlhf_torch.utils.hf_port import QFORMER_TOKENIZER_DIR
+
+    nbytes = save_hf_checkpoint(EXPORTERS[cfg.family](state_dict, cfg), path, cfg.family,
+                                dtype=dtype)
     with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump(dict(config or llava_config(cfg), torch_dtype=dtype), f, indent=2)
+        json.dump(dict(config or hf_config(cfg), torch_dtype=dtype), f, indent=2)
     write_tokenizer(path)
+    if cfg.qformer is not None:
+        write_bert_tokenizer(os.path.join(path, QFORMER_TOKENIZER_DIR),
+                             cfg.qformer.vocab_size - 1)
     return nbytes
+
+
+write_llava_checkpoint = write_checkpoint  # the name LLaVA-1.5's callers use
