@@ -256,10 +256,10 @@ def test_refusals(ckpt, tmp_path):
         main(["dpo", *CPU, "--model_name_or_path", ckpt, "--dataset_name",
               "vlfeedback_paired", "--data_path", "MMInstruction/VLFeedback",
               "--output_dir", str(tmp_path / "d")])
-    other = tmp_path / "qwen"
+    other = tmp_path / "gpt2"
     other.mkdir()
-    (other / "config.json").write_text(json.dumps({"architectures": ["QWenLMHeadModel"]}))
-    with pytest.raises(ValueError, match="item 9"):
+    (other / "config.json").write_text(json.dumps({"architectures": ["GPT2LMHeadModel"]}))
+    with pytest.raises(ValueError, match="not a family vlrlhf_tpu supports"):
         main(["eval", *CPU, "--model_name_or_path", str(other), "--benchmark", "pope",
               "--data_file", "x.jsonl", "--output_dir", str(tmp_path / "e")])
     with pytest.raises(SystemExit, match="--model_name_or_path"):

@@ -1,7 +1,9 @@
-"""The LLaVA-Next (vicuna, mistral) and InstructBLIP families in
-vlrlhf_torch against vlrlhf_tpu, f32 on the CPU, tolerance 1e-5, on the
-scaled-down family configs (models/config.py `scale_down`) with the JAX
-weights bridged into the port (utils/bridge.py):
+"""The LLaVA-Next (vicuna, mistral), Qwen-VL, InternLM-XC2 and InstructBLIP
+families in vlrlhf_torch against vlrlhf_tpu, f32 on the CPU, tolerance
+1e-5, on the scaled-down family configs (models/config.py `scale_down`)
+with the JAX weights bridged into the port (utils/bridge.py); Qwen-VL's and
+XC2's towers hold a 3 x 3 position table (resized to the 4 x 4 patch grid
+in the forward, XC2's beside its class row) and XC2 a PLoRA tree:
   - the family forward: logits of vlm_forward and VLM.forward on the same
     numpy inputs, with anyres gather maps of two image sizes padded to the
     batch's longest (PAD_IDX / -1 slots scatter nowhere) and Q-Former
@@ -9,8 +11,9 @@ weights bridged into the port (utils/bridge.py):
   - encode_images with uint8 pixels (the Q-Former with and without ids);
   - the registry: the 7B configs and their scaled-down versions equal
     vlrlhf_tpu's field for field, `resolve_family` by architecture and
-    text model, the refusal of qwen_vl / internlm_xc2, each family's LoRA
-    targets, freeze patterns, processor defaults and chat template.
+    text model (qwen_vl and internlm_xc2 included), the refusal of an
+    unknown architecture, each family's LoRA targets, freeze patterns,
+    processor defaults and chat template.
 
 `family_port` is shared with tests/test_torch_anyres.py and
 tests/test_torch_instructblip.py."""
@@ -28,7 +31,8 @@ from vlrlhf_torch.models.vlm import VLM
 from vlrlhf_torch.utils.bridge import load_lora_params, load_vlm_params, vlm_config_from
 
 TOL = 1e-5
-FAMILIES = ("llava_next_vicuna", "llava_next_mistral", "instructblip")
+FAMILIES = ("llava_next_vicuna", "llava_next_mistral", "qwen_vl", "internlm_xc2",
+            "instructblip")
 # the scaled-down tile: 16 pixels, patch 4 -> a 4x4 feature grid per tile
 PINPOINTS = ((16, 32), (32, 16), (32, 32))
 TILE, TILE_GRID = 16, 4
@@ -57,6 +61,17 @@ def _jax_family(family: str, seed: int):
     if jcfg.grid_pinpoints:
         params["image_newline"] = {"embedding": jax.random.normal(
             jax.random.PRNGKey(seed + 9), (jcfg.lm.hidden_size,))}
+    if family in ("qwen_vl", "internlm_xc2"):
+        # a checkpoint's table of another grid (3 x 3, + the class row)
+        rows = 9 + int(jcfg.vision.use_class_token)
+        params["vision"] = dict(params["vision"], pos_embed={"embedding": 0.02 * jax.random.normal(
+            jax.random.PRNGKey(seed + 11), (rows, jcfg.vision.hidden_size))})
+    if jcfg.plora:  # the checkpoint's PLoRA (params["plora"], cli/loading.py)
+        from vlrlhf_tpu.lora.lora import LoraConfig, init_lora
+
+        plora = init_lora(params, LoraConfig(r=2, alpha=2.0, target_patterns=(
+            r"lm/.*attn/", r"lm/.*mlp/")), jax.random.PRNGKey(seed + 12))
+        params["plora"] = jax.tree.map(lambda x: x + 0.05, plora)
     return jcfg, params
 
 
@@ -188,11 +203,9 @@ def test_resolve_family_and_refusals():
              ("LlavaNextForConditionalGeneration", "lmsys/vicuna-7b-v1.5"),
              ("LlavaNextForConditionalGeneration", "mistral"),
              ("InstructBlipForConditionalGeneration", ""), ("InstructBlipForRL", "")]
+    cases += [("QWenLMHeadModel", ""), ("InternLMXComposer2ForCausalLM", "")]
     for arch, text in cases:
         assert resolve_family(arch, text).name == jresolve(arch, text).name
-    for arch in ("QWenLMHeadModel", "InternLMXComposer2ForCausalLM"):
-        with pytest.raises(ValueError, match="item 9"):
-            resolve_family(arch)
     with pytest.raises(ValueError, match="not a family"):
         resolve_family("GPT2LMHeadModel")
 

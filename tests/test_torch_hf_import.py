@@ -5,9 +5,11 @@ f32 on the CPU:
     save_pretrained: logits equal transformers' at tests/test_hf_port.py's
     tolerances; every parameter equals vlrlhf_tpu's load_model_bundle
     bridged into the port (utils/bridge.py), exactly;
-  - the published llava-hf/llava-1.5-7b-hf config.json maps to the port's
-    LLaVA-1.5-7B config; the families still to port (qwen_vl,
-    internlm_xc2) are refused naming ROADMAP item 9;
+  - the published llava-hf/llava-1.5-7b-hf, Qwen/Qwen-VL-Chat and
+    internlm/internlm-xcomposer2-vl-7b config.json files map to the port's
+    7B configs as vlrlhf_tpu's config_from_hf maps them (Qwen's trained
+    context is its seq_length, 2,048, its head width kv_channels); an
+    unknown architecture is refused;
   - int8 and int4 quantization during the import give the codes of
     quantizing after it (the serving, QLoRA and wide pattern sets);
   - a GPTQ-layout linear imports as vlrlhf_tpu's import does;
@@ -120,9 +122,20 @@ def test_published_llava_15_config_and_refusals():
     assert cfg == _llava_7b()
     small = dataclasses.replace(_llava_7b(), lm=dataclasses.replace(_llava_7b().lm, num_layers=2))
     assert config_from_hf(llava_config(small))[1] == small
-    for arch in ("QWenLMHeadModel", "InternLMXComposer2ForCausalLM"):
-        with pytest.raises(ValueError, match=r"not ported to vlrlhf_torch yet.*item 9"):
-            config_from_hf(dict(LLAVA_15_7B_CONFIG, architectures=[arch]))
+    from vlrlhf_tpu.cli.loading import config_from_hf as jconfig
+    from vlrlhf_torch.models.config import _internlm_xc2_7b, _qwen_vl_chat
+    from vlrlhf_torch.utils.bridge import vlm_config_from
+    from vlrlhf_torch.utils.synthetic_checkpoint import QWEN_VL_CHAT_CONFIG, XC2_7B_CONFIG
+
+    qwen = _qwen_vl_chat()
+    for hf, want in ((QWEN_VL_CHAT_CONFIG, dataclasses.replace(qwen, lm=dataclasses.replace(
+            qwen.lm, max_position_embeddings=2048, head_dim=128))),
+                     (XC2_7B_CONFIG, _internlm_xc2_7b())):
+        family, got = config_from_hf(hf)
+        assert got == want and family.name == want.family
+        assert vlm_config_from(jconfig(hf)[1]) == got
+    with pytest.raises(ValueError, match="not a family vlrlhf_tpu supports"):
+        config_from_hf(dict(LLAVA_15_7B_CONFIG, architectures=["GPT2LMHeadModel"]))
 
 
 def _port_model(cfg, seed=0):

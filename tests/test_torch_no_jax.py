@@ -1,7 +1,8 @@
 """The port must run where JAX is absent: no module of vlrlhf_torch (nor
 chip_smoke.py) imports jax or vlrlhf_tpu, every module imports with jax
-(and pandas, PIL and the HF packages) blocked, and chip_smoke.py refuses
-to run without a CUDA device."""
+(and pandas, PIL, the HF packages and the tokenizer packages) blocked, the
+tokenizer readers run with them blocked, and chip_smoke.py refuses to run
+without a CUDA device."""
 
 import pathlib
 import re
@@ -64,7 +65,7 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
 
 
 BLOCKED = ("jax", "vlrlhf_tpu", "pandas", "PIL", "transformers", "tokenizers", "safetensors",
-           "datasets")
+           "datasets", "tiktoken", "sentencepiece", "google.protobuf")
 
 
 def test_every_module_imports_without_pandas_or_pil():
@@ -72,7 +73,9 @@ def test_every_module_imports_without_pandas_or_pil():
     (the eval harness, speculative decoding, multi-adapter serving, the
     checkpoint import and export, the tokenizer and the dataset builders
     among them) imports with pandas, PIL, transformers, tokenizers,
-    safetensors and HF datasets blocked, and none is pulled in."""
+    safetensors, HF datasets, tiktoken, sentencepiece and protobuf blocked,
+    and none is pulled in; the qwen.tiktoken and sentencepiece
+    tokenizer.model readers then read and encode their files."""
     mods = list(_modules())
     for new in ("vlrlhf_torch.eval.harness", "vlrlhf_torch.eval.benchmarks",
                 "vlrlhf_torch.eval.datasets", "vlrlhf_torch.eval.db", "vlrlhf_torch.eval.judge",
@@ -86,10 +89,17 @@ def test_every_module_imports_without_pandas_or_pil():
         "import sys\n"
         f"for name in {BLOCKED!r}:\n"
         "    sys.modules[name] = None\n"
-        "import importlib\n"
+        "import importlib, tempfile\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        f"assert not any(k.split('.')[0] in {BLOCKED!r}\n"
+        "from vlrlhf_torch.data.tokenizer import load_tokenizer\n"
+        "from vlrlhf_torch.utils import synthetic_checkpoint as sc\n"
+        "for write in (lambda d: sc.write_qwen_tiktoken(d, 300),\n"
+        "              lambda d: sc.write_sentencepiece_tokenizer(d, 600)):\n"
+        "    d = tempfile.mkdtemp()\n"
+        "    write(d)\n"
+        "    assert len(load_tokenizer(d).encode('the dog <|im_start|> 12')) > 3\n"
+        f"assert not any(k == b or k.startswith(b + '.') for b in {BLOCKED!r}\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
     )

@@ -102,10 +102,55 @@ def test_unsupported_pieces_are_refused_by_name(tmp_path, edit, match):
         JsonTokenizer(str(tmp_path))
 
 
-def test_sentencepiece_only_directory_is_refused(tmp_path):
-    (tmp_path / "tokenizer.model").write_bytes(b"\x00sentencepiece")
-    with pytest.raises(ValueError, match=r"sentencepiece.*ROADMAP.md §1 item 8"):
-        JsonTokenizer(str(tmp_path))
+def test_sentencepiece_only_directory_loads(tmp_path):
+    """A llava checkpoint directory with a sentencepiece tokenizer.model and
+    no tokenizer.json loads through the same reader (data/tokenizer.py
+    `sentencepiece_spec`): its ids equal those of the tokenizer.json that
+    `tokenizers` builds from the same pieces, and load_model_bundle reads
+    such a checkpoint."""
+    import torch
+    from tokenizers import AddedToken, Tokenizer, decoders, models, normalizers
+
+    from vlrlhf_torch.cli.loading import load_model_bundle
+    from vlrlhf_torch.data.tokenizer import read_sentencepiece
+    from vlrlhf_torch.models.common import init_random_
+    from vlrlhf_torch.models.config import FAMILIES, scale_down
+    from vlrlhf_torch.models.vlm import VLM
+    from vlrlhf_torch.utils.synthetic_checkpoint import (
+        write_checkpoint, write_sentencepiece_tokenizer,
+    )
+
+    spm_dir, json_dir = tmp_path / "spm", tmp_path / "json"
+    write_sentencepiece_tokenizer(str(spm_dir), 2000)
+    pieces = read_sentencepiece(str(spm_dir / "tokenizer.model"))["pieces"]
+    vocab = {p: i for i, (p, _, _) in enumerate(pieces)}
+    merges = sorted((-sc, vocab[p[:i]], vocab[p[i:]], p[:i], p[i:]) for p, sc, _ in pieces
+                    for i in range(1, len(p)) if p[:i] in vocab and p[i:] in vocab)
+    ref = Tokenizer(models.BPE(vocab, [(a, b) for *_, a, b in merges], unk_token="<unk>",
+                               fuse_unk=True, byte_fallback=True))
+    ref.normalizer = normalizers.Sequence([normalizers.Prepend("▁"),
+                                           normalizers.Replace(" ", "▁")])
+    ref.decoder = decoders.Sequence([decoders.Replace("▁", " "), decoders.ByteFallback(),
+                                     decoders.Fuse(), decoders.Strip(" ", 1, 0)])
+    ref.add_tokens([AddedToken(p, normalized=False, special=True) for p in ("<s>", "</s>")])
+    json_dir.mkdir()
+    ref.save(str(json_dir / "tokenizer.json"))
+    (json_dir / "tokenizer_config.json").write_text((spm_dir / "tokenizer_config.json")
+                                                    .read_text())
+    from_spm, from_json = JsonTokenizer(str(spm_dir)), JsonTokenizer(str(json_dir))
+    for text in TEXTS:
+        for special in (False, True):
+            got = from_spm.encode(text, add_special_tokens=special)
+            assert got == from_json.encode(text, add_special_tokens=special), (text, special)
+        assert from_spm.decode(got) == from_json.decode(got)
+    cfg = scale_down(FAMILIES["llava"].make_config())
+    model = init_random_(VLM(cfg), torch.Generator().manual_seed(0))
+    ckpt = tmp_path / "ckpt"
+    write_checkpoint(str(ckpt), model.state_dict(), cfg, dtype="float32")
+    (ckpt / "tokenizer.json").unlink()
+    write_sentencepiece_tokenizer(str(ckpt), 2000)
+    _, _, _, proc = load_model_bundle(str(ckpt), torch.float32, device="cpu")
+    assert proc.tokenizer.encode("the dog") == from_json.encode("the dog")
 
 
 ROWS = [

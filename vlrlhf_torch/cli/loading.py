@@ -1,6 +1,6 @@
 """Model bundle loading: an HF checkpoint directory -> (family, config,
-model, processor), the llava, llava_next and instructblip part of
-vlrlhf_tpu/cli/loading.py (`config_from_hf`, `load_model_bundle`).
+model, processor) for any of the five families (vlrlhf_tpu/cli/loading.py
+`config_from_hf`, `load_model_bundle`).
 
 config.json gives the family (`architectures[0]`, models/config.py
 `resolve_family`; LLaVA-Next's text model names vicuna or mistral) and the
@@ -11,11 +11,21 @@ vision_config, InstructBlipQFormerConfig for qformer_config), as
 `from_pretrained` would: published configs write only the keys that
 differ. The weights stream from the checkpoint into a model built on the
 meta device (utils/hf_port.py), quantized on the way when asked, and the
-processor runs on the checkpoint's tokenizer.json (data/tokenizer.py
-JsonTokenizer); InstructBLIP's Q-Former reads qformer_tokenizer/
+processor runs on the checkpoint's tokenizer (data/tokenizer.py
+`load_tokenizer`: tokenizer.json, a sentencepiece tokenizer.model, or
+Qwen's qwen.tiktoken); InstructBLIP's Q-Former reads qformer_tokenizer/
 tokenizer.json, and a checkpoint without one is refused (vlrlhf_tpu runs
-its Q-Former without instructions then). The families vlrlhf_tpu has and
-the port does not yet (qwen_vl, internlm_xc2) are refused by name.
+its Q-Former without instructions then).
+
+Qwen-VL (QWenLMHeadModel) reads its flat config: intermediate_size is
+twice the MLP width, kv_channels the head width, seq_length the trained
+context of the dynamic-NTK rope (`use_dynamic_ntk`), `visual` the tower and
+resampler; its placeholder is the tokenizer-special <imgpad>
+(image_start_id + 2). `use_logn_attn` is read by neither package
+(ROADMAP.md §3). InternLM-XC2 keeps the family's tower and projector with
+the config's LM geometry and `img_size`; its tokenizer gains <ImageHere>
+as a special token, whose id becomes the image token id (it may equal the
+LM's vocabulary size: embed clamps it, and its features overwrite it).
 """
 
 from __future__ import annotations
@@ -130,15 +140,62 @@ def _instructblip_from_hf(hf: dict, family: ModelFamily, dtype) -> VLMConfig:
     )
 
 
+def _qwen_vl_from_hf(hf: dict, dtype) -> VLMConfig:
+    """vlrlhf_tpu/cli/loading.py:92-134."""
+    vis = hf["visual"]
+    return VLMConfig(
+        lm=LMConfig(
+            vocab_size=hf["vocab_size"], hidden_size=hf["hidden_size"],
+            intermediate_size=hf["intermediate_size"] // 2,
+            num_layers=hf["num_hidden_layers"], num_heads=hf["num_attention_heads"],
+            num_kv_heads=hf["num_attention_heads"], head_dim=hf.get("kv_channels", 128),
+            qkv_bias=True, rope_base=hf.get("rotary_emb_base", 10000.0),
+            rope_scaling_type="dynamic" if hf.get("use_dynamic_ntk") else "none",
+            max_position_embeddings=hf.get("seq_length", 8192),
+            rms_eps=hf.get("layer_norm_epsilon", 1e-6), dtype=dtype,
+        ),
+        vision=ViTConfig(
+            image_size=vis["image_size"], patch_size=vis["patch_size"],
+            hidden_size=vis["width"], num_layers=vis["layers"], num_heads=vis["heads"],
+            mlp_dim=int(vis["width"] * vis["mlp_ratio"]), act="gelu", use_class_token=False,
+            use_pre_norm=True, use_post_norm=False, ln_eps=1e-6, dtype=dtype,
+        ),
+        projector=ProjectorConfig(
+            kind="resampler", in_dim=vis["width"], out_dim=vis["output_dim"],
+            num_queries=vis.get("n_queries", 256), num_heads=max(vis["output_dim"] // 128, 1),
+        ),
+        image_token_id=vis.get("image_start_id", 151857) + 2,  # <imgpad>
+        num_image_tokens=vis.get("n_queries", 256),
+        family="qwen_vl",
+    )
+
+
+def _xc2_from_hf(hf: dict, family: ModelFamily, dtype) -> VLMConfig:
+    """vlrlhf_tpu/cli/loading.py:135-145: the family's tower (at the
+    config's img_size) and projector, the LM from the config."""
+    import dataclasses
+
+    base = family.make_config(dtype)
+    img_size = hf.get("img_size", base.vision.image_size)
+    return dataclasses.replace(
+        base, lm=_llama_lm_from_hf(hf, dtype),
+        vision=dataclasses.replace(base.vision, image_size=img_size),
+        num_image_tokens=(img_size // base.vision.patch_size) ** 2,
+    )
+
+
 def config_from_hf(hf: dict, dtype=torch.bfloat16) -> tuple[ModelFamily, VLMConfig]:
-    """The family and VLMConfig of an HF config.json (llava, llava_next,
-    instructblip)."""
+    """The family and VLMConfig of an HF config.json."""
     arch = hf["architectures"][0]
     tc = hf.get("text_config") or {}
     family = resolve_family(arch, tc.get("_name_or_path", "") or tc.get("model_type", ""))
+    if family.name == "qwen_vl":
+        return family, _qwen_vl_from_hf(hf, dtype)
+    if family.name == "internlm_xc2":
+        return family, _xc2_from_hf(hf, family, dtype)
     if tc.get("model_type", "llama") not in ("llama", "mistral"):
-        raise ValueError(f"text model {tc['model_type']!r} is not ported "
-                         "(ROADMAP.md §1 item 9)")
+        raise ValueError(f"text model {tc['model_type']!r}: the llava-layout families read "
+                         "llama or mistral text models, as vlrlhf_tpu's do")
     if family.name == "instructblip":
         return family, _instructblip_from_hf(hf, family, dtype)
     if hf.get("vision_feature_select_strategy", "default") != "default":
@@ -210,7 +267,7 @@ def load_model_bundle(
     LM's training remat policy."""
     import dataclasses
 
-    from vlrlhf_torch.data.tokenizer import JsonTokenizer
+    from vlrlhf_torch.data.tokenizer import load_tokenizer
     from vlrlhf_torch.models.vlm import VLM
     from vlrlhf_torch.utils.hf_port import PORTERS, open_hf_state_dict
 
@@ -219,11 +276,18 @@ def load_model_bundle(
     family, cfg = config_from_hf(hf, dtype)
     if remat_policy:
         cfg = dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, remat_policy=remat_policy))
-    tokenizer = JsonTokenizer(path)  # before the weights: a refusal costs no load
+    tokenizer = load_tokenizer(path)  # before the weights: a refusal costs no load
     qtok = load_qformer_tokenizer(path) if cfg.qformer is not None else None
+    overrides: dict = {}
+    if family.name == "qwen_vl":
+        # the placeholder must be one tokenizer-special id for
+        # expand_image_tokens to find; "Picture 1: ...\n" is the processor's
+        overrides["image_token"] = "<imgpad>"
+    if family.name == "internlm_xc2":
+        cfg = dataclasses.replace(cfg, image_token_id=tokenizer.add_special_token("<ImageHere>"))
     model = VLM(cfg, device="meta")
     PORTERS[family.name](open_hf_state_dict(path), model, device,
                          quantize=quantize_patterns or (), bits=quantize_bits)
     processor = make_processor(family, tokenizer, cfg, qtok, max_length=max_length,
-                               max_prompt_length=max_prompt_length)
+                               max_prompt_length=max_prompt_length, **overrides)
     return family, cfg, model, processor

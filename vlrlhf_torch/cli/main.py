@@ -134,6 +134,8 @@ def synthetic_bundle(args, device: torch.device):
     overrides.update(
         num_image_tokens=cfg.num_image_tokens,
         image_token_id=3,  # ToyTokenizer <image>
+        # plain expansion (vlrlhf_tpu's synthetic bundle drops Qwen's wraps)
+        image_start_id=None, image_end_id=None, image_pad_id=None,
         max_length=args.max_length,
         max_prompt_length=getattr(args, "max_prompt_length", 512),
     )
@@ -153,7 +155,7 @@ def load_bundle(args, device: torch.device):
             raise SystemExit("--synthetic N builds its own model: drop --model_name_or_path")
         return synthetic_bundle(args, device)
     if not getattr(args, "model_name_or_path", None):
-        raise SystemExit("give --model_name_or_path (an HF LLaVA checkpoint directory) or "
+        raise SystemExit("give --model_name_or_path (an HF checkpoint directory) or "
                          "--synthetic N")
     from vlrlhf_torch.cli.loading import load_model_bundle
     from vlrlhf_torch.ops import quant
@@ -432,11 +434,12 @@ def setup_training(model, args) -> tuple[LoraConfig, OptimizerConfig]:
     """The setup every trainer shares (vlrlhf_tpu `_setup_training`,
     cli/main.py:291-353): with --q_lora the base's linears are quantized in
     place (--bits, TRAIN_QUANT_PATTERNS, or the _WIDE set with
-    --q_lora_vision) before the adapters attach (--lora_target_modules; the
-    family's default is every LM attention and MLP linear, drawn from
-    --seed), then the optimizer's config. `model` holds its base weights on
-    its device already."""
-    from vlrlhf_torch.lora.lora import LM_ALL_LINEARS, LoraConfig, init_lora
+    --q_lora_vision) before the adapters attach (--lora_target_modules; 'auto'
+    is the family's default, every LM attention and MLP linear but Qwen's
+    MLP down projection, drawn from --seed), then the optimizer's config.
+    `model` holds its base weights on its device already."""
+    from vlrlhf_torch.lora.lora import LoraConfig, init_lora
+    from vlrlhf_torch.models.config import FAMILIES
     from vlrlhf_torch.train.train_state import OptimizerConfig
 
     if getattr(args, "q_lora", False) and getattr(args, "use_lora", True):
@@ -449,8 +452,8 @@ def setup_training(model, args) -> tuple[LoraConfig, OptimizerConfig]:
     # 'auto': the family's LM linears; else comma-separated JAX-layout regexes
     targets = getattr(args, "lora_target_modules", "auto")
     lcfg = LoraConfig(r=args.lora_r, alpha=args.lora_alpha, dropout=args.lora_dropout,
-                      target_patterns=LM_ALL_LINEARS if targets == "auto"
-                      else tuple(targets.split(",")))
+                      target_patterns=FAMILIES[model.cfg.family].lora_targets
+                      if targets == "auto" else tuple(targets.split(",")))
     init_lora(model, lcfg, torch.Generator(device=model.device).manual_seed(args.seed))
     ocfg = OptimizerConfig(
         learning_rate=args.learning_rate, warmup_ratio=args.warmup_ratio,
@@ -1398,10 +1401,12 @@ def _add_sft_rm_ppo_parsers(sub) -> None:
 def _add_model_args(p, synthetic_help: str) -> None:
     """Where the weights come from, and on what device in what dtype."""
     p.add_argument("--model_name_or_path", type=str, default=None,
-                   help="an HF LLaVA checkpoint directory (config.json, *.safetensors or "
-                        "pytorch_model*.bin, tokenizer.json)")
+                   help="an HF checkpoint directory of a supported family (config.json, "
+                        "*.safetensors or pytorch_model*.bin, and tokenizer.json, "
+                        "tokenizer.model or qwen.tiktoken)")
     p.add_argument("--model_family", type=str, default="llava",
-                   choices=["llava", "llava_next_vicuna", "llava_next_mistral", "instructblip"],
+                   choices=["llava", "llava_next_vicuna", "llava_next_mistral", "qwen_vl",
+                            "internlm_xc2", "instructblip"],
                    help="the --synthetic model's family (a checkpoint names its own)")
     p.add_argument("--synthetic", type=int, default=0, help=synthetic_help)
     p.add_argument("--device", type=str, default="cuda")

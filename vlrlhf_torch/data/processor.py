@@ -1,7 +1,14 @@
 """VLProcessor: prompt formatting, conversation tokenization, DPO and SFT
-row tokenization and image placeholder expansion — the serving, DPO and
-eval subset of vlrlhf_tpu/data/processor.py (incremental-template
-families), copied because importing anything under vlrlhf_tpu pulls in jax.
+row tokenization and image placeholder expansion — the serving, training
+and eval subset of vlrlhf_tpu/data/processor.py, copied because importing
+anything under vlrlhf_tpu pulls in jax.
+
+Qwen-VL's template is ChatML, built token by token (`style="chatml"`,
+`_process_conv_chatml`, `_tokenize_row_dpo_chatml`) with no BOS
+(`add_bos=False`); its image placeholder is wrapped: "Picture 1: <img>"
+text around one placeholder id that expands to image_start_id, n pad ids
+and image_end_id, the features landing on the pad ids
+(`format_multimodal_prompt`, `expand_image_tokens`).
 
 InstructBLIP is a prefix-embedding model: its prompt text has no
 placeholder, and one image token per image is put before the sequence
@@ -39,6 +46,12 @@ class ProcessorConfig:
     image_token_id: int = 32000
     max_length: int = 1024
     max_prompt_length: int = 512  # truncation keeps a prompt's end
+    add_bos: bool = True
+    # Qwen-style wrapped expansion: placeholder -> start + n * pad + end,
+    # the features scattered onto the pad slots
+    image_start_id: Optional[int] = None
+    image_end_id: Optional[int] = None
+    image_pad_id: Optional[int] = None  # defaults to image_token_id
     # prefix-embedding models (InstructBLIP): no placeholder in the text;
     # one image token per image is prepended to the sequence (before BOS)
     # and expands to num_image_tokens, the reference's query-embeds prepend
@@ -74,6 +87,16 @@ class VLProcessor:
         ph = self.template.image_placeholder
         if n_images == 0:
             return prompt
+        if self.cfg.image_start_id is not None:
+            # wrapped mode (Qwen-VL): "Picture 1: <img>...</img>\n" for a bare
+            # single-image prompt, "<img>...</img>\n" per "<image>" otherwise;
+            # cfg.image_token is the tokenizer-special surface form
+            if n_images == 1 and "<image>" not in prompt:
+                return f"Picture 1: {self.cfg.image_token}\n{prompt}"
+            if prompt.count("<image>") != n_images:
+                raise ValueError(f"{n_images} images but prompt has "
+                                 f"{prompt.count('<image>')} placeholders")
+            return prompt.replace("<image>", f"{self.cfg.image_token}\n")
         if n_images == 1 and self.cfg.image_token not in prompt:
             return ph + prompt
         if prompt.count(self.cfg.image_token) != n_images:
@@ -86,7 +109,10 @@ class VLProcessor:
     def process_conv(self, conv: Sequence[dict]) -> dict[str, Any]:
         """Returns {input_ids, raw_str} for one conversation: the templated
         string, tokenized once with the BOS token (the incremental labeling
-        of vlrlhf_tpu yields the same ids; serving needs no labels)."""
+        of vlrlhf_tpu yields the same ids; serving needs no labels), or the
+        ChatML build."""
+        if self.template.style == "chatml":
+            return self._process_conv_chatml(conv, False)
         t = self.template
         role_begin = {"user": t.user_begin, "assistant": t.assistant_begin}
         role_end = {"user": t.user_end, "assistant": t.assistant_end}
@@ -124,7 +150,10 @@ class VLProcessor:
         """{input_ids, labels, raw_str}: vlrlhf_tpu's incremental labeling
         (`_process_conv_incremental`): the growing conversation is
         retokenized turn by turn, and an assistant turn's new tokens are
-        labelled with the tail of its answer tokenized alone."""
+        labelled with the tail of its answer tokenized alone; or the ChatML
+        build's labels."""
+        if self.template.style == "chatml":
+            return self._process_conv_chatml(conv, add_end_for_empty_value)
         t = self.template
         role_begin = {"user": t.user_begin, "assistant": t.assistant_begin}
         role_end = {"user": t.user_end, "assistant": t.assistant_end}
@@ -146,6 +175,54 @@ class VLProcessor:
                 if target_len > 0:
                     labels[-target_len:] = text_tokens[-target_len:]
         return {"input_ids": input_ids, "labels": labels, "raw_str": raw}
+
+    def _process_conv_chatml(self, conv: Sequence[dict], add_end_for_empty_value: bool) -> dict:
+        """Qwen's ChatML, token by token (vlrlhf_tpu `_process_conv_chatml`):
+        <|im_start|>role\n ... <|im_end|>\n per turn after a system turn;
+        labels pad everything between each im_start and im_end except an
+        assistant turn's answer. Returns {input_ids, labels, raw_str,
+        prompt_ids, answer_ids, answer_labels}."""
+        tok = self.tokenizer
+        im_start = tok.convert_token_to_id("<|im_start|>")
+        im_end = tok.convert_token_to_id("<|im_end|>")
+        nl = tok.encode("\n")
+        system_msg = self.template.system_message
+        system = [im_start] + tok.encode("system") + nl + tok.encode(system_msg) + [im_end] + nl
+        input_ids = list(system)
+        labels = [im_start] + [LABEL_PAD] * (len(system) - 2 - len(nl)) + [im_end] + nl
+        raw = f"<|im_start|>system\n{system_msg}<|im_end|>\n"
+        prompt_ids: list[int] = []
+        answer_ids: list[int] = []
+        answer_labels: list[int] = []
+        for turn in conv:
+            role = "user" if turn["from"] == "user" else "assistant"
+            role_ids = tok.encode(f"<|im_start|>{role}")
+            value = turn["value"]
+            closed = value != "" or add_end_for_empty_value
+            turn_ids = role_ids + nl
+            raw += f"<|im_start|>{role}\n"
+            if closed:
+                turn_ids = turn_ids + tok.encode(value) + [im_end] + nl
+                raw += f"{value}<|im_end|>\n"
+            input_ids += turn_ids
+            if not closed:
+                turn_labels = [im_start] + [LABEL_PAD] * (len(turn_ids) - 1)
+            elif role == "user":
+                turn_labels = ([im_start] + [LABEL_PAD] * (len(turn_ids) - 2 - len(nl))
+                               + [im_end] + nl)
+            else:
+                value_ids = turn_ids[len(role_ids) + len(nl): -(1 + len(nl))]
+                turn_labels = ([im_start] + [LABEL_PAD] * (len(role_ids) - 1 + len(nl))
+                               + value_ids + [im_end] + nl)
+            if role == "user":
+                prompt_ids = list(input_ids)
+            else:
+                answer_ids += turn_ids
+                answer_labels += turn_labels
+            labels += turn_labels
+        return {"input_ids": input_ids, "labels": labels, "raw_str": raw,
+                "prompt_ids": prompt_ids, "answer_ids": answer_ids,
+                "answer_labels": answer_labels}
 
     def tokenize_row_sft(self, feature: dict) -> dict:
         """feature: {prompt, answer | conversations, img_path?} -> {input_ids,
@@ -200,6 +277,8 @@ class VLProcessor:
                 if isinstance(feature["img_path"], list)
                 else 1
             )
+        if self.template.style == "chatml":
+            return self._tokenize_row_dpo_chatml(feature, n_images)
         prompt_raw = self.process_conv(
             make_single_turn_conv(
                 self.format_multimodal_prompt(feature["prompt"], n_images), ""
@@ -219,7 +298,7 @@ class VLProcessor:
         prompt_ids = prompt_ids[:prompt_len]
 
         def with_bos(ids):
-            if tok.bos_token_id is not None:
+            if cfg.add_bos and tok.bos_token_id is not None:
                 return [tok.bos_token_id] + ids
             return ids
 
@@ -261,6 +340,39 @@ class VLProcessor:
             out["qformer_input_ids"] = self.qformer_ids(feature["prompt"])
         return out
 
+    def _tokenize_row_dpo_chatml(self, feature: dict, n_images: int) -> dict:
+        """Qwen's ChatML DPO row (vlrlhf_tpu `_tokenize_row_dpo_chatml`):
+        the prompt and answer streams of the ChatML build, EOS after each
+        answer, TRL-style truncation keeping the prompt's end."""
+        cfg = self.cfg
+        eos = self.tokenizer.eos_token_id
+        prompt = self.format_multimodal_prompt(feature["prompt"], n_images)
+        chosen_c = self._process_conv_chatml(make_single_turn_conv(prompt, feature["chosen"]),
+                                             False)
+        rejected_c = self._process_conv_chatml(
+            make_single_turn_conv(prompt, feature["rejected"]), False)
+        prompt_ids = list(chosen_c["prompt_ids"])
+        chosen_ans = list(chosen_c["answer_ids"]) + [eos]
+        chosen_lab = list(chosen_c["answer_labels"]) + [eos]
+        rejected_ans = list(rejected_c["answer_ids"]) + [eos]
+        rejected_lab = list(rejected_c["answer_labels"]) + [eos]
+        longer = max(len(chosen_ans), len(rejected_ans))
+        if len(prompt_ids) + longer > cfg.max_length:
+            prompt_ids = prompt_ids[-cfg.max_prompt_length:]
+        if len(prompt_ids) + longer > cfg.max_length:
+            cut = cfg.max_length - cfg.max_prompt_length
+            chosen_ans, chosen_lab = chosen_ans[:cut], chosen_lab[:cut]
+            rejected_ans, rejected_lab = rejected_ans[:cut], rejected_lab[:cut]
+        prompt_pad = [LABEL_PAD] * len(prompt_ids)
+        return {
+            "chosen_input_ids": prompt_ids + chosen_ans,
+            "chosen_labels": prompt_pad + chosen_lab,
+            "rejected_input_ids": prompt_ids + rejected_ans,
+            "rejected_labels": prompt_pad + rejected_lab,
+            "prompt_input_ids": prompt_ids,
+            "img_path": feature.get("img_path"),
+        }
+
     # ─────────── image token expansion ───────────
 
     def expand_image_tokens(
@@ -270,14 +382,17 @@ class VLProcessor:
         counts: Optional[Sequence[int]] = None,  # anyres: per-image token counts
     ) -> tuple[np.ndarray, Optional[np.ndarray], np.ndarray]:
         """Expand each image placeholder id into num_image_tokens copies, or
-        `counts[i]` copies for anyres images (labels LABEL_PAD there).
-        Returns (new_ids, new_labels or None, image_positions) with one
-        position per expanded image token."""
+        `counts[i]` copies for anyres images (labels LABEL_PAD there); in
+        wrapped mode into image_start_id, the copies as image_pad_id, and
+        image_end_id. Returns (new_ids, new_labels or None,
+        image_positions) with one position per expanded image token."""
         ids = np.asarray(input_ids)
         img_id = self.cfg.image_token_id
         occ = np.nonzero(ids == img_id)[0]
         if len(occ) == 0:
             return ids, (None if labels is None else np.asarray(labels)), np.zeros((0,), np.int32)
+        pad_id = self.cfg.image_pad_id if self.cfg.image_pad_id is not None else img_id
+        wrapped = self.cfg.image_start_id is not None
         out_ids, out_labels, positions = [], [], []
         prev = 0
         for j, o in enumerate(occ):
@@ -285,11 +400,19 @@ class VLProcessor:
             out_ids.extend(ids[prev:o].tolist())
             if labels is not None:
                 out_labels.extend(list(labels[prev:o]))
+            if wrapped:
+                out_ids.append(self.cfg.image_start_id)
+                if labels is not None:
+                    out_labels.append(LABEL_PAD)
             start = len(out_ids)
-            out_ids.extend([img_id] * n_tok)
+            out_ids.extend([pad_id] * n_tok)
             if labels is not None:
                 out_labels.extend([LABEL_PAD] * n_tok)
             positions.extend(range(start, start + n_tok))
+            if wrapped:
+                out_ids.append(self.cfg.image_end_id)
+                if labels is not None:
+                    out_labels.append(LABEL_PAD)
             prev = o + 1
         out_ids.extend(ids[prev:].tolist())
         if labels is not None:

@@ -1,8 +1,22 @@
 """Tokenizers: `ToyTokenizer` (a copy of vlrlhf_tpu/data/tokenizer.py's, the
-deterministic word-level tokenizer of the hermetic paths) and
-`JsonTokenizer`, the counterpart of vlrlhf_tpu's `HFTokenizer` for a
-checkpoint's llama-style `tokenizer.json`, read without `transformers` or
-`tokenizers` (the card machine has neither).
+deterministic word-level tokenizer of the hermetic paths), `JsonTokenizer`,
+the counterpart of vlrlhf_tpu's `HFTokenizer` for a checkpoint's
+llama-style `tokenizer.json` or sentencepiece `tokenizer.model`, and
+`QwenTokenizer` for Qwen-VL's `qwen.tiktoken`, all read without
+`transformers`, `tokenizers`, `tiktoken`, `sentencepiece` or `protobuf`
+(one code path on every machine).
+
+A sentencepiece `tokenizer.model` (llama's, InternLM2's) is a protobuf
+ModelProto, parsed here by hand (`read_sentencepiece`) and turned into the
+tokenizer.json spec transformers' LlamaConverter writes for it
+(`sentencepiece_spec`): the pieces as the BPE vocab, the merges of every
+piece that splits into two pieces, ordered by the merged piece's score
+(transformers' SentencePieceExtractor), byte fallback as the trainer spec
+says, control and user-defined pieces as added tokens matched whole in the
+raw text, the dummy prefix as a Prepend normalizer applied to each span
+between added tokens (the legacy layout, as the slow sentencepiece
+tokenizer encodes each such span alone). So one BPE engine serves both
+files.
 
 JsonTokenizer implements what the `tokenizers` library does with the
 pieces llama's tokenizer.json is made of, and refuses any other piece by
@@ -53,7 +67,7 @@ class ToyTokenizer:
     Splits on whitespace + punctuation; each distinct word hashes into the
     vocab. Special tokens occupy the bottom of the id space."""
 
-    def __init__(self, vocab_size: int = 4096):
+    def __init__(self, vocab_size: int = 4096, specials: Optional[dict] = None):
         self.vocab_size = vocab_size
         self.bos_token_id = 1
         self.eos_token_id = 2
@@ -64,6 +78,8 @@ class ToyTokenizer:
             "<|im_start|>": 5,
             "<|im_end|>": 6,
         }
+        if specials:
+            self._specials.update(specials)
         self._n_reserved = 16
         self._inv = {v: k for k, v in self._specials.items()}
 
@@ -101,7 +117,8 @@ class ToyTokenizer:
         return self._specials.get(token, 4)
 
 
-_LLAMA_CLASSES = ("LlamaTokenizer", "LlamaTokenizerFast")
+_LLAMA_CLASSES = ("LlamaTokenizer", "LlamaTokenizerFast", "InternLM2Tokenizer",
+                  "InternLMXComposer2Tokenizer")
 _CLASSES = _LLAMA_CLASSES + ("BertTokenizer", "BertTokenizerFast", "PreTrainedTokenizerFast",
                              None)
 _BYTE = re.compile(r"^<0x([0-9A-Fa-f]{2})>$")
@@ -127,15 +144,16 @@ class JsonTokenizer:
 
     def __init__(self, path: str):
         json_path = os.path.join(path, "tokenizer.json")
-        if not os.path.exists(json_path):
-            if os.path.exists(os.path.join(path, "tokenizer.model")):
-                raise ValueError(
-                    f"{path} has a sentencepiece tokenizer.model and no tokenizer.json; the port "
-                    "reads tokenizer.json only (ROADMAP.md §1 item 8): save the tokenizer once "
-                    "with transformers' save_pretrained to write it")
-            raise FileNotFoundError(f"no tokenizer.json under {path}")
-        with open(json_path, encoding="utf-8") as f:
-            spec = json.load(f)
+        spm_path = os.path.join(path, "tokenizer.model")
+        self._from_spm = not os.path.exists(json_path)
+        if not self._from_spm:
+            with open(json_path, encoding="utf-8") as f:
+                spec = json.load(f)
+        elif os.path.exists(spm_path):
+            spec = sentencepiece_spec(spm_path)
+            json_path = spm_path
+        else:
+            raise FileNotFoundError(f"no tokenizer.json or tokenizer.model under {path}")
         conf: dict = {}
         conf_path = os.path.join(path, "tokenizer_config.json")
         if os.path.exists(conf_path):
@@ -224,6 +242,8 @@ class JsonTokenizer:
                 out.append(("bert", bool(s.get("clean_text", True)),
                             bool(s.get("handle_chinese_chars", True)),
                             lower if strip is None else bool(strip), lower))
+            elif s.get("type") == "SentencePieceCollapse":  # written by sentencepiece_spec only
+                out.append(("collapse",))
             elif s.get("type") == "Prepend":
                 out.append(("prepend", s["prepend"]))
             elif s.get("type") == "Replace" and "String" in s.get("pattern", {}):
@@ -274,7 +294,8 @@ class JsonTokenizer:
         if conf.get("add_prefix_space") is not None:
             raise _refuse(path, "add_prefix_space (transformers rebuilds the tokenizer from "
                                 "sentencepiece for it)")
-        self._llama = cls in _LLAMA_CLASSES
+        # a bare tokenizer.model is read as a llama tokenizer would be
+        self._llama = cls in _LLAMA_CLASSES or (cls is None and self._from_spm)
         defaults = ({"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>"}
                     if self._llama else {})
         tokens = {k: _token_str(conf.get(k, defaults.get(k)))
@@ -326,6 +347,23 @@ class JsonTokenizer:
                 (post if seen_seq else pre).extend(ids)
         return pre, post
 
+    def add_special_token(self, token: str) -> int:
+        """Add `token` as a special token matched whole in raw text (an
+        existing token keeps its id; a new one takes the next id) and return
+        its id (transformers' add_tokens(special_tokens=True))."""
+        if token in self._added:
+            return self._added[token]
+        tid = self.vocab.get(token)
+        if tid is None:
+            tid = self.vocab_size
+        self._added[token] = tid
+        self._special_ids.add(tid)
+        self._id_to_token[tid] = token
+        self._alts.append((token, False, False))
+        self._set_added_pattern(self._alts)
+        self.vocab_size = len(self._id_to_token)
+        return tid
+
     def _opt_id(self, token: Optional[str]) -> Optional[int]:
         return None if token is None else self.convert_token_to_id(token)
 
@@ -348,6 +386,8 @@ class JsonTokenizer:
         for step in self._normalizers:
             if step[0] == "bert":
                 span = _bert_normalize(span, *step[1:])
+            elif step[0] == "collapse":
+                span = _collapse_spaces(span)
             elif step[0] == "prepend":
                 span = step[1] + span if span else span
             else:
@@ -587,3 +627,301 @@ def _clean_up(text: str) -> str:
                  (" 're", "'re")):
         text = text.replace(a, b)
     return text
+
+
+def _collapse_spaces(text: str) -> str:
+    """sentencepiece's remove_extra_whitespaces: no leading or trailing
+    spaces, runs of spaces as one."""
+    return re.sub(" +", " ", text).strip(" ")
+
+
+# -- sentencepiece tokenizer.model --------------------------------------------
+
+# sentencepiece_model.proto: SentencePiece.Type and TrainerSpec.ModelType
+SPM_NORMAL, SPM_UNKNOWN, SPM_CONTROL, SPM_USER_DEFINED, SPM_UNUSED, SPM_BYTE = 1, 2, 3, 4, 5, 6
+SPM_UNIGRAM, SPM_BPE = 1, 2
+
+
+def _varint(buf: bytes, i: int) -> tuple[int, int]:
+    out = shift = 0
+    while True:
+        b = buf[i]
+        i += 1
+        out |= (b & 0x7F) << shift
+        if b < 0x80:
+            return out, i
+        shift += 7
+
+
+def _fields(buf: bytes):
+    """(field number, wire type, value) of a protobuf message: an int for
+    varints, bytes for length-delimited fields and fixed32 / fixed64."""
+    i = 0
+    while i < len(buf):
+        key, i = _varint(buf, i)
+        num, wire = key >> 3, key & 7
+        if wire == 0:
+            val, i = _varint(buf, i)
+        elif wire == 2:
+            n, i = _varint(buf, i)
+            val, i = buf[i:i + n], i + n
+        elif wire == 5:
+            val, i = buf[i:i + 4], i + 4
+        elif wire == 1:
+            val, i = buf[i:i + 8], i + 8
+        else:
+            raise ValueError(f"protobuf wire type {wire} is not supported")
+        yield num, wire, val
+
+
+def read_sentencepiece(path: str) -> dict:
+    """A sentencepiece ModelProto, by hand: {"pieces": [(piece, score,
+    type)], "model_type", "byte_fallback", "unk_piece", "add_dummy_prefix",
+    "remove_extra_whitespaces", "escape_whitespaces", "normalizer_name",
+    "charsmap"} with the proto's defaults for absent fields."""
+    import struct
+
+    with open(path, "rb") as f:
+        buf = f.read()
+    out = {"pieces": [], "model_type": SPM_UNIGRAM, "byte_fallback": False, "unk_piece": "<unk>",
+           "add_dummy_prefix": True, "remove_extra_whitespaces": True,
+           "escape_whitespaces": True, "normalizer_name": "", "charsmap": b""}
+    for num, _, val in _fields(buf):
+        if num == 1:  # SentencePiece
+            piece, score, kind = "", 0.0, SPM_NORMAL
+            for n, _, v in _fields(val):
+                if n == 1:
+                    piece = v.decode("utf-8")
+                elif n == 2:
+                    score = struct.unpack("<f", v)[0]
+                elif n == 3:
+                    kind = v
+            out["pieces"].append((piece, score, kind))
+        elif num == 2:  # TrainerSpec
+            for n, _, v in _fields(val):
+                if n == 3:
+                    out["model_type"] = v
+                elif n == 35:
+                    out["byte_fallback"] = bool(v)
+                elif n == 45:
+                    out["unk_piece"] = v.decode("utf-8")
+        elif num == 3:  # NormalizerSpec
+            for n, _, v in _fields(val):
+                if n == 1:
+                    out["normalizer_name"] = v.decode("utf-8")
+                elif n == 2:
+                    out["charsmap"] = v
+                elif n == 3:
+                    out["add_dummy_prefix"] = bool(v)
+                elif n == 4:
+                    out["remove_extra_whitespaces"] = bool(v)
+                elif n == 5:
+                    out["escape_whitespaces"] = bool(v)
+    return out
+
+
+def sentencepiece_spec(path: str) -> dict:
+    """The tokenizer.json spec of a BPE tokenizer.model, as transformers'
+    LlamaConverter (legacy layout) writes it; see the module note. A
+    unigram model or a normalizer with a precompiled character map is
+    refused by name."""
+    m = read_sentencepiece(path)
+    if m["model_type"] != SPM_BPE:
+        raise _refuse(path, f"sentencepiece model_type {m['model_type']} (only BPE, 2)")
+    if m["charsmap"] or m["normalizer_name"] not in ("", "identity"):
+        raise _refuse(path, f"sentencepiece normalizer {m['normalizer_name']!r} with a "
+                            "precompiled character map")
+    pieces = m["pieces"]
+    vocab = {p: i for i, (p, _, _) in enumerate(pieces)}
+    # SentencePieceExtractor.extract: each piece's splits into two pieces,
+    # by the parts' ids, then all merges by the merged piece's score
+    merges = []
+    for piece, score, _ in pieces:
+        local = [(piece[:i], piece[i:], score) for i in range(1, len(piece))
+                 if piece[:i] in vocab and piece[i:] in vocab]
+        local.sort(key=lambda t: (vocab[t[0]], vocab[t[1]]))
+        merges.extend(local)
+    merges.sort(key=lambda t: t[2], reverse=True)
+    normalizers = []
+    if m["remove_extra_whitespaces"]:
+        normalizers.append({"type": "SentencePieceCollapse"})
+    if m["add_dummy_prefix"]:
+        normalizers.append({"type": "Prepend", "prepend": "▁"})
+    if m["escape_whitespaces"]:
+        normalizers.append({"type": "Replace", "pattern": {"String": " "}, "content": "▁"})
+    decoders = [{"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+                {"type": "ByteFallback"}, {"type": "Fuse"}]
+    if m["add_dummy_prefix"]:
+        decoders.append({"type": "Strip", "content": " ", "start": 1, "stop": 0})
+    added = [{"id": i, "content": p, "special": t == SPM_CONTROL, "normalized": False}
+             for i, (p, _, t) in enumerate(pieces) if t in (SPM_CONTROL, SPM_USER_DEFINED)]
+    return {
+        "model": {"type": "BPE", "vocab": vocab, "merges": [[a, b] for a, b, _ in merges],
+                  "unk_token": m["unk_piece"], "fuse_unk": True,
+                  "byte_fallback": m["byte_fallback"]},
+        "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": normalizers},
+        "pre_tokenizer": None,
+        "decoder": {"type": "Sequence", "decoders": decoders},
+        "post_processor": None,
+    }
+
+
+# -- Qwen's qwen.tiktoken ------------------------------------------------------
+
+QWEN_VOCAB_FILE = "qwen.tiktoken"
+# Qwen-VL's tokenization_qwen.py: the specials follow the mergeable ranks
+# (151,643 in the released file): <|endoftext|>, <|im_start|>, <|im_end|>,
+# 205 <|extra_i|>, then the image / box / ref tags
+QWEN_SPECIALS = (("<|endoftext|>", "<|im_start|>", "<|im_end|>")
+                 + tuple(f"<|extra_{i}|>" for i in range(205))
+                 + ("<ref>", "</ref>", "<box>", "</box>", "<quad>", "</quad>",
+                    "<img>", "</img>", "<imgpad>"))
+# Unicode White_Space, the \s of tiktoken's (Rust) regex engine
+_WHITE_SPACE = "\t\n\x0b\x0c\r \x85\xa0\u1680\u2000-\u200a\u2028\u2029\u202f\u205f\u3000"
+
+
+def _class_ranges(pred) -> str:
+    """A regex character-class body for the code points where pred(category)."""
+    out, start = [], None
+    for cp in range(0x110001):
+        inside = cp < 0x110000 and pred(unicodedata.category(chr(cp)))
+        if inside and start is None:
+            start = cp
+        elif not inside and start is not None:
+            out.append(f"\\U{start:08x}" if start == cp - 1
+                       else f"\\U{start:08x}-\\U{cp - 1:08x}")
+            start = None
+    return "".join(out)
+
+
+_QWEN_PAT: Optional[re.Pattern] = None
+
+
+def qwen_pattern() -> re.Pattern:
+    """Qwen's pre-tokenizer regex,
+      (?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\\r\\n\\p{L}\\p{N}]?\\p{L}+|\\p{N}
+      | ?[^\\s\\p{L}\\p{N}]+[\\r\\n]*|\\s*[\\r\\n]+|\\s+(?!\\S)|\\s+
+    for Python's `re`, which has no \\p{L} / \\p{N}: the letter and number
+    classes are spelled out from unicodedata's categories, and \\s is
+    Unicode White_Space. Built once (a pass over every code point)."""
+    global _QWEN_PAT
+    if _QWEN_PAT is None:
+        lt = _class_ranges(lambda c: c[0] == "L")
+        nm = _class_ranges(lambda c: c[0] == "N")
+        ws = _WHITE_SPACE
+        _QWEN_PAT = re.compile(
+            rf"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n{lt}{nm}]?[{lt}]+|[{nm}]"
+            rf"| ?[^{ws}{lt}{nm}]+[\r\n]*|[{ws}]*[\r\n]+|[{ws}]+(?![^{ws}])|[{ws}]+")
+    return _QWEN_PAT
+
+
+class QwenTokenizer:
+    """Qwen-VL's tokenizer from its `qwen.tiktoken` (one "base64-token
+    rank" line per mergeable token): NFC normalization, the special
+    tokens matched whole in raw text (all allowed, as Qwen's tokenize
+    does), Qwen's pre-tokenizer regex, then byte-level BPE by rank
+    (tiktoken's: a piece that is a token is one id; otherwise adjacent
+    parts merge, lowest rank first, leftmost on ties). No BOS; EOS and pad
+    are <|endoftext|> (Qwen's eod); decode drops the specials when asked
+    (Qwen's `i < eod_id`) and replaces invalid UTF-8."""
+
+    def __init__(self, path: str):
+        import base64
+
+        vocab_path = os.path.join(path, QWEN_VOCAB_FILE) if os.path.isdir(path) else path
+        self.ranks: dict[bytes, int] = {}
+        with open(vocab_path, "rb") as f:
+            for line in f:
+                if line.strip():
+                    tok, rank = line.split()
+                    self.ranks[base64.b64decode(tok)] = int(rank)
+        self._bytes = {r: t for t, r in self.ranks.items()}
+        n = len(self.ranks)
+        self.specials = {t: n + i for i, t in enumerate(QWEN_SPECIALS)}
+        self._inv_specials = {i: t for t, i in self.specials.items()}
+        self.vocab_size = n + len(self.specials)
+        self.eod_id = self.specials["<|endoftext|>"]
+        self.bos_token_id = None
+        self.eos_token_id = self.eod_id
+        self.pad_token_id = self.eod_id
+        self._special_re = re.compile(
+            "|".join(re.escape(t) for t in sorted(self.specials, key=len, reverse=True)))
+        self._cache: dict[bytes, list[int]] = {}
+
+    @classmethod
+    def from_pretrained(cls, path: str, **_kw) -> "QwenTokenizer":
+        return cls(path)
+
+    def _bpe(self, piece: bytes) -> list[int]:
+        hit = self.ranks.get(piece)
+        if hit is not None:
+            return [hit]
+        cached = self._cache.get(piece)
+        if cached is not None:
+            return cached
+        parts = [piece[i:i + 1] for i in range(len(piece))]
+        ranks = self.ranks
+        while len(parts) > 1:
+            best, at = None, -1
+            for i in range(len(parts) - 1):
+                r = ranks.get(parts[i] + parts[i + 1])
+                if r is not None and (best is None or r < best):
+                    best, at = r, i
+            if best is None:
+                break
+            parts[at: at + 2] = [parts[at] + parts[at + 1]]
+        ids = [ranks[p] for p in parts]
+        if len(self._cache) >= _CACHE_MAX:
+            self._cache.clear()
+        self._cache[piece] = ids
+        return ids
+
+    def _encode_ordinary(self, text: str) -> list[int]:
+        ids: list[int] = []
+        for m in qwen_pattern().finditer(text):
+            ids.extend(self._bpe(m.group().encode("utf-8")))
+        return ids
+
+    def encode(self, text: str, add_special_tokens: bool = False) -> list[int]:
+        del add_special_tokens  # Qwen adds no BOS / EOS
+        text = unicodedata.normalize("NFC", text)
+        ids: list[int] = []
+        pos = 0
+        for m in self._special_re.finditer(text):
+            ids.extend(self._encode_ordinary(text[pos:m.start()]))
+            ids.append(self.specials[m.group()])
+            pos = m.end()
+        ids.extend(self._encode_ordinary(text[pos:]))
+        return ids
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        if isinstance(ids, int):
+            ids = [ids]
+        out = bytearray()
+        for i in ids:
+            i = int(i)
+            if i in self._inv_specials:
+                if not skip_special_tokens:
+                    out += self._inv_specials[i].encode("utf-8")
+            elif i in self._bytes:
+                out += self._bytes[i]
+        return out.decode("utf-8", errors="replace")
+
+    def convert_token_to_id(self, token: str) -> int:
+        if token in self.specials:
+            return self.specials[token]
+        rank = self.ranks.get(token.encode("utf-8"))
+        if rank is None:
+            raise KeyError(f"{token!r} is not a token of this qwen.tiktoken")
+        return rank
+
+
+def load_tokenizer(path: str):
+    """A checkpoint directory's tokenizer: tokenizer.json or a
+    sentencepiece tokenizer.model (JsonTokenizer), or qwen.tiktoken
+    (QwenTokenizer)."""
+    if not os.path.exists(os.path.join(path, "tokenizer.json")) and os.path.exists(
+            os.path.join(path, QWEN_VOCAB_FILE)):
+        return QwenTokenizer(path)
+    return JsonTokenizer(path)

@@ -105,6 +105,31 @@ def init_lora(model: nn.Module, cfg: LoraConfig, generator: torch.Generator,
     return names
 
 
+PLORA_LINEARS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+
+
+@torch.no_grad()
+def init_plora_(model: nn.Module, r: int, generator: torch.Generator) -> None:
+    """Seeded stand-in for a checkpoint's PLoRA (InternLM-XC2 ships r = 256
+    on all seven LM linears of every layer): a ~ N(0, 1/in), shared by
+    wq / wk / wv as XC2's fused wqkv shares its Plora_A, and b ~ N(0, 1/r),
+    in the LM's dtype, frozen (Linear.set_plora_)."""
+    for layer in model.lm.layers:
+        shared = None
+        for name in PLORA_LINEARS:
+            lin = getattr(layer, name)
+            dev, dt = lin.device, model.cfg.lm.dtype
+            if name in ("wq", "wk", "wv") and shared is not None:
+                a = shared
+            else:
+                a = torch.randn((lin.d_in, r), generator=generator, device=dev) * lin.d_in**-0.5
+                a = a.to(dt)
+                if name == "wq":
+                    shared = a
+            b = (torch.randn((r, lin.d_out), generator=generator, device=dev) * r**-0.5).to(dt)
+            lin.set_plora_(a, b)
+
+
 def _adapted(model: nn.Module, adapter_set: str = "") -> list[tuple[str, str, nn.Module]]:
     """(JAX-layout path, module name, Linear) of every Linear holding an
     adapter of `adapter_set` ("" = lora_a / lora_b), by path."""

@@ -1,7 +1,8 @@
 """Shared building blocks (counterpart of vlrlhf_tpu/models/common.py):
-`Ctx` (the per-call adapter switch and LoRA dropout seed), `Linear` (dense
-+ optional bias + optional LoRA adapter), clamped `embed`, the
-static-shape image-feature merge, and seeded random initialisation.
+`Ctx` (the per-call adapter switch, LoRA dropout seed and PLoRA mask),
+`Linear` (dense + optional bias + optional LoRA adapter + optional frozen
+PLoRA), clamped `embed`, the static-shape image-feature merge, PLoRA's
+`image_position_mask`, and seeded random initialisation.
 
 Weights follow PyTorch's (out, in) convention; utils/bridge.py transposes
 vlrlhf_tpu's (in, out) kernels on the way in. Parameters are allocated empty
@@ -54,7 +55,15 @@ class Ctx:
     (PPO's value adapters, a reward model's adapters on the policy's base).
     vlrlhf_tpu's Ctx carries the adapter tree itself; here the name travels
     with the call, so a remat region recomputed in the backward reads the
-    set its forward read."""
+    set its forward read.
+
+    `lora_mask` (B, S) gates PLoRA (InternLM-XC2's checkpoint-built-in
+    LoRA, `Linear.plora_a` / `plora_b`) to the image positions: 1.0 there,
+    0 elsewhere (vlrlhf_tpu's Ctx.lora_mask / base_adapters). VLM.forward
+    sets it from the image positions for a PLoRA family, with adapters on
+    or off alike; the decode step and the chunk prefill drop it (their
+    tokens are text). Being part of the call's Ctx, a remat region's
+    recompute reads the mask its forward read."""
 
     adapters: bool = False
     lora_scale: float = 1.0
@@ -62,6 +71,7 @@ class Ctx:
     dropout_seed: Optional[int] = None
     adapter_mix: Optional[torch.Tensor] = None
     adapter_set: str = ""
+    lora_mask: Optional[torch.Tensor] = None
 
     def sub(self, key: str) -> "Ctx":
         return self.fold(zlib.crc32(key.encode()) & 0x7FFFFFFF)
@@ -96,7 +106,14 @@ class Linear(nn.Module):
         (out, S) bf16 group scales and, from an asymmetric GPTQ
         checkpoint, `weight_gbias` (out, in/64); y = ops/int4.py
         `int4_apply`, the W4A16 kernel on the card (vlrlhf_tpu's `linear`,
-        models/common.py:80-86)."""
+        models/common.py:80-86).
+
+    PLoRA (InternLM-XC2): `plora_a` (in, r) / `plora_b` (r, out), frozen
+    weights of the checkpoint in the model's dtype, saved and exported
+    with it, never trained and never folded by lora.merge_lora. Under a Ctx
+    with a `lora_mask` they add mask * (x @ a @ b) (scale 1.0, r = alpha)
+    before the trainable adapter's term, whatever the base's kind
+    (vlrlhf_tpu `linear_deltas`, models/common.py:97-121)."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool, device, dtype):
         super().__init__()
@@ -110,6 +127,8 @@ class Linear(nn.Module):
         self.register_parameter("weight_gbias", None)
         self.register_parameter("lora_a", None)
         self.register_parameter("lora_b", None)
+        self.register_parameter("plora_a", None)
+        self.register_parameter("plora_b", None)
         self.lora_sets: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
 
     @property
@@ -188,14 +207,41 @@ class Linear(nn.Module):
         else:
             self.lora_sets[adapter_set] = (a, b)
 
-    def adapted(self, ctx: Optional[Ctx]) -> bool:
+    def set_plora_(self, a: Optional[torch.Tensor], b: Optional[torch.Tensor]) -> None:
+        """Hold frozen PLoRA weights a (in, r) / b (r, out); None drops them."""
+        if a is None:
+            self.plora_a = self.plora_b = None
+            return
+        if a.shape[0] != self.d_in or b.shape != (a.shape[1], self.d_out):
+            raise ValueError(f"PLoRA {tuple(a.shape)} {tuple(b.shape)} does not fit "
+                             f"({self.d_out}, {self.d_in})")
+        self.plora_a = nn.Parameter(a, requires_grad=False)
+        self.plora_b = nn.Parameter(b, requires_grad=False)
+
+    def _lora_on(self, ctx: Optional[Ctx]) -> bool:
         return ctx is not None and ctx.adapters and self.adapter_pair(ctx.adapter_set) is not None
 
+    def _plora_on(self, ctx: Optional[Ctx]) -> bool:
+        return ctx is not None and ctx.lora_mask is not None and self.plora_a is not None
+
+    def adapted(self, ctx: Optional[Ctx]) -> bool:
+        """Whether `delta` adds anything under ctx: the trainable adapter is
+        on, or PLoRA is held and the call carries its mask."""
+        return self._lora_on(ctx) or self._plora_on(ctx)
+
     def delta(self, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
-        """The adapter's term for input x under ctx (see `adapted`)."""
-        a, b = self.adapter_pair(ctx.adapter_set)
-        return lora_delta(x, a, b, ctx.lora_scale, ctx.lora_dropout, ctx.dropout_seed,
-                          ctx.adapter_mix)
+        """The adapter terms for input x under ctx (see `adapted`): PLoRA
+        at the masked positions, then the trainable adapter at all."""
+        out = None
+        if self._plora_on(ctx):
+            out = (x @ self.plora_a.to(x.dtype)) @ self.plora_b.to(x.dtype)
+            out = out * ctx.lora_mask[..., None].to(out.dtype)
+        if self._lora_on(ctx):
+            a, b = self.adapter_pair(ctx.adapter_set)
+            d = lora_delta(x, a, b, ctx.lora_scale, ctx.lora_dropout, ctx.dropout_seed,
+                           ctx.adapter_mix)
+            out = d if out is None else out + d.to(out.dtype)
+        return out
 
     def forward(self, x: torch.Tensor, ctx: Optional[Ctx] = None) -> torch.Tensor:
         y = self.base(x)
@@ -256,6 +302,18 @@ def merge_multimodal_embeddings(
     return out
 
 
+def image_position_mask(image_positions: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """(B, S) f32, 1.0 at the image-token positions of (B, N) positions
+    (-1 = unused slot): PLoRA's im_mask (vlrlhf_tpu `image_position_mask`)."""
+    pos = image_positions.long()
+    b = pos.shape[0]
+    valid = (pos >= 0) & (pos < seq_len)
+    rows = torch.arange(b, device=pos.device)[:, None].expand_as(pos)
+    mask = torch.zeros((b, seq_len), dtype=torch.float32, device=pos.device)
+    mask[rows[valid], pos[valid]] = 1.0
+    return mask
+
+
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights in vlrlhf_tpu's init scheme (models/common.py
@@ -265,8 +323,8 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
-        if leaf in ("lora_a", "lora_b"):
-            raise ValueError("init_random_ runs before lora.init_lora attaches adapters")
+        if leaf in ("lora_a", "lora_b", "plora_a", "plora_b"):
+            raise ValueError("init_random_ runs before adapters or PLoRA are attached")
         if leaf in ("weight_q", "weight_scale", "weight_q4", "weight_scale4", "weight_gbias"):
             raise ValueError("init_random_ runs before quantization")
         if isinstance(owner, Linear) and leaf == "weight":
@@ -277,4 +335,7 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             p.zero_()
         else:
             p.normal_(0.0, 0.02, generator=generator)
+    for mod in module.modules():
+        if hasattr(mod, "reset_fixed_"):  # fixed tables (the resampler's sincos)
+            mod.reset_fixed_()
     return module

@@ -4,11 +4,11 @@ entries, and `scale_down` for test-size models.
 Counterparts: LMConfig (vlrlhf_tpu/models/lm/llama.py), ViTConfig
 (models/vision/vit.py), QFormerConfig (models/vision/qformer.py),
 ProjectorConfig / VLMConfig (models/vlm.py), `_llava_7b`,
-`_llava_next_vicuna_7b`, `_llava_next_mistral_7b`,
-`_instructblip_vicuna_7b`, FAMILIES, `scale_down`, ARCH_TO_FAMILY and
-`resolve_family` (models/registry.py). Field names and defaults are the
-same; dtypes are torch dtypes. Fields that only training, sharding or the
-families still to port (qwen_vl, internlm_xc2) read are left out.
+`_llava_next_vicuna_7b`, `_llava_next_mistral_7b`, `_qwen_vl_chat`,
+`_internlm_xc2_7b`, `_instructblip_vicuna_7b`, FAMILIES, `scale_down`,
+ARCH_TO_FAMILY and `resolve_family` (models/registry.py). Field names and
+defaults are the same; dtypes are torch dtypes. Fields that only
+vlrlhf_tpu's sharding and pipelining read are left out.
 """
 
 from __future__ import annotations
@@ -72,7 +72,9 @@ class ViTConfig:
     use_class_token: bool = True
     use_pre_norm: bool = True
     use_post_norm: bool = True
-    act: str = "quick_gelu"  # 'gelu' (tanh approximation) | 'quick_gelu'
+    # 'gelu' is jax.nn.gelu's tanh approximation in both packages (Qwen-VL's
+    # and EVA's towers; upstream's nn.GELU is erf, ROADMAP.md §3)
+    act: str = "quick_gelu"  # 'gelu' | 'quick_gelu'
     # None = all layers (+post norm). -2 = penultimate layer output, no post
     # norm (LLaVA's vision_feature_layer=-2).
     feature_layer: Optional[int] = None
@@ -122,11 +124,14 @@ class QFormerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ProjectorConfig:
-    # 'mlp2x_gelu' (LLaVA, LLaVA-Next), 'linear' (InstructBLIP's
-    # language_projection)
+    # 'mlp2x_gelu' (LLaVA, LLaVA-Next, InternLM-XC2), 'linear'
+    # (InstructBLIP's language_projection), 'resampler' (Qwen-VL's attn_pool
+    # + ln_post + proj, models/vision/resampler.py)
     kind: str = "mlp2x_gelu"
     in_dim: int = 1024
     out_dim: int = 4096
+    num_queries: int = 256  # resampler only
+    num_heads: int = 32  # resampler only
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +143,9 @@ class VLMConfig:
     num_image_tokens: int  # placeholder tokens per image (static)
     # InstructBLIP: the Q-Former between the tower and the projector
     qformer: Optional[QFormerConfig] = None
+    # PLoRA (InternLM-XC2): the checkpoint's own LoRA, applied at image
+    # positions only (models/common.py Linear.plora_a / plora_b)
+    plora: bool = False
     family: str = "llava"
     # LLaVA-Next anyres: grid pinpoints (empty = not an anyres model)
     grid_pinpoints: tuple = ()
@@ -147,6 +155,7 @@ class VLMConfig:
 
 # LoRA target patterns over the JAX-layout param paths
 LM_ALL_LINEARS = (r"lm/.*attn/(wq|wk|wv|wo)/", r"lm/.*mlp/(gate|up|down)/")
+QWEN_TARGETS = (r"lm/.*attn/(wq|wk|wv|wo)/", r"lm/.*mlp/(gate|up)/")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,6 +225,55 @@ def _llava_next_mistral_7b(dtype=torch.bfloat16) -> VLMConfig:
     )
 
 
+def _qwen_vl_chat(dtype=torch.bfloat16) -> VLMConfig:
+    """Qwen-VL-Chat: QWen-7B LM (fused qkv bias, w2=gate/w1=up) + ViT-bigG
+    448 + 256-query Resampler."""
+    return VLMConfig(
+        lm=LMConfig(
+            vocab_size=151936, hidden_size=4096, intermediate_size=11008,
+            num_layers=32, num_heads=32, num_kv_heads=32, qkv_bias=True,
+            rope_base=10000.0, rope_scaling_type="dynamic",
+            max_position_embeddings=8192, rms_eps=1e-6, dtype=dtype,
+        ),
+        vision=ViTConfig(
+            image_size=448, patch_size=14, hidden_size=1664, num_layers=48,
+            num_heads=16, mlp_dim=8192, act="gelu", use_class_token=False,
+            use_pre_norm=True, use_post_norm=False, ln_eps=1e-6, dtype=dtype,
+        ),
+        projector=ProjectorConfig(
+            kind="resampler", in_dim=1664, out_dim=4096, num_queries=256,
+            num_heads=32,
+        ),
+        image_token_id=151859,  # <imgpad>
+        num_image_tokens=256,
+        family="qwen_vl",
+    )
+
+
+def _internlm_xc2_7b(dtype=torch.bfloat16) -> VLMConfig:
+    """InternLM-XComposer2-VL-7B: InternLM2 (GQA 8 kv heads) + CLIP-L/14 run
+    at 490 px (its 24x24 position grid interpolated to 35x35 in the
+    forward) + 2-layer MLP projector + PLoRA at image positions."""
+    return VLMConfig(
+        lm=LMConfig(
+            vocab_size=92544, hidden_size=4096, intermediate_size=14336,
+            num_layers=32, num_heads=32, num_kv_heads=8, rope_base=1e6,
+            max_position_embeddings=32768, rms_eps=1e-5, dtype=dtype,
+        ),
+        vision=ViTConfig(
+            image_size=490, patch_size=14, hidden_size=1024, num_layers=24,
+            num_heads=16, mlp_dim=4096, act="quick_gelu",
+            feature_layer=-1,  # the last layer, before the (unused) post norm
+            use_post_norm=False, drop_class_token=True, dtype=dtype,
+        ),
+        projector=ProjectorConfig(kind="mlp2x_gelu", in_dim=1024, out_dim=4096),
+        image_token_id=92544 - 1,  # <ImageHere>, resolved from the tokenizer at load
+        num_image_tokens=35 * 35,
+        plora=True,
+        family="internlm_xc2",
+    )
+
+
 def _instructblip_vicuna_7b(dtype=torch.bfloat16) -> VLMConfig:
     """InstructBLIP-Vicuna-7B: EVA ViT-g/14 @224 + Q-Former (32 queries) +
     linear projection; prefix-embedding model, 32 image tokens."""
@@ -272,6 +330,38 @@ FAMILIES: dict[str, ModelFamily] = {
         lora_targets=LM_ALL_LINEARS,
         freeze_vision_patterns=(r"^vision/", r"^projector/"),
     ),
+    "qwen_vl": ModelFamily(
+        name="qwen_vl",
+        hf_architectures=("QWenLMHeadModel", "QwenVLForRL"),
+        make_config=_qwen_vl_chat,
+        template=TEMPLATES["qwen_vl"],
+        processor_defaults=dict(
+            num_image_tokens=256, image_token="<image>", image_token_id=151859,
+            image_start_id=151857, image_end_id=151858, image_pad_id=151859,
+            add_bos=False,  # QWen has no BOS
+        ),
+        # c_attn -> wq/wk/wv, attn.c_proj -> wo, w1 -> up, w2 -> gate; the
+        # MLP's c_proj (down) is not a target
+        lora_targets=QWEN_TARGETS,
+        # the resampler (attn_pool) stays trainable
+        freeze_vision_patterns=(r"^vision/", r"^projector/(ln_post|proj)/"),
+        resize_mode="squash",
+        stop_tokens=("<|im_end|>", "<|im_start|>"),
+    ),
+    "internlm_xc2": ModelFamily(
+        name="internlm_xc2",
+        hf_architectures=("InternLMXComposer2ForCausalLM",),
+        make_config=_internlm_xc2_7b,
+        template=TEMPLATES["internlm_xc2"],
+        processor_defaults=dict(
+            num_image_tokens=35 * 35, image_token="<ImageHere>",
+            image_token_id=92543,
+        ),
+        lora_targets=LM_ALL_LINEARS,
+        freeze_vision_patterns=(r"^vision/", r"^projector/"),
+        resize_mode="squash",
+        stop_tokens=("[UNUSED_TOKEN_145]",),
+    ),
     "instructblip": ModelFamily(
         name="instructblip",
         hf_architectures=("InstructBlipForConditionalGeneration", "InstructBlipForRL"),
@@ -289,7 +379,7 @@ FAMILIES: dict[str, ModelFamily] = {
 
 def scale_down(cfg: VLMConfig, dtype=torch.float32) -> VLMConfig:
     """Shrink a family config to test size, keeping its structure (GQA
-    ratio, projector kind, Q-Former, class-token/pre-norm layout)."""
+    ratio, projector kind, Q-Former, PLoRA, class-token/pre-norm layout)."""
     lm = cfg.lm
     kv_ratio = max(lm.num_heads // lm.num_kv_heads, 1)
     lm_small = dataclasses.replace(
@@ -304,7 +394,11 @@ def scale_down(cfg: VLMConfig, dtype=torch.float32) -> VLMConfig:
     )
     n_grid_tokens = (16 // 4) ** 2
     qf = None
-    if cfg.qformer is not None:
+    proj = dataclasses.replace(cfg.projector, in_dim=16, out_dim=32)
+    if cfg.projector.kind == "resampler":
+        proj = dataclasses.replace(proj, num_queries=4, num_heads=2)
+        n_img_tokens = 4
+    elif cfg.qformer is not None:
         qf = dataclasses.replace(
             cfg.qformer, vocab_size=64, hidden_size=16, num_layers=2,
             num_heads=2, intermediate_size=32, encoder_hidden_size=16,
@@ -320,16 +414,15 @@ def scale_down(cfg: VLMConfig, dtype=torch.float32) -> VLMConfig:
         cfg,
         lm=lm_small,
         vision=vis_small,
-        projector=dataclasses.replace(cfg.projector, in_dim=16, out_dim=32),
+        projector=proj,
         qformer=qf,
         num_image_tokens=n_img_tokens,
         image_token_id=250,
     )
 
 
-# vlrlhf_tpu/models/registry.py:272-293. Every architecture the JAX package
-# imports resolves to its family; qwen_vl and internlm_xc2 are not ported
-# (FAMILIES).
+# vlrlhf_tpu/models/registry.py: every architecture the JAX package imports
+# resolves to its family.
 ARCH_TO_FAMILY = {
     "LlavaForConditionalGeneration": "llava",
     "QWenLMHeadModel": "qwen_vl",
@@ -341,8 +434,8 @@ ARCH_TO_FAMILY = {
 
 def resolve_family(architecture: str, text_model_name: str = "") -> ModelFamily:
     """The family of an HF `architectures[0]` (LlavaNext by its text
-    model's name, as vlrlhf_tpu resolves it). A family vlrlhf_tpu has and
-    the port does not yet is refused by name."""
+    model's name, as vlrlhf_tpu resolves it); any other architecture is
+    refused by name."""
     if architecture == "LlavaNextForConditionalGeneration":
         name = ("llava_next_mistral" if "mistral" in text_model_name.lower()
                 else "llava_next_vicuna")
@@ -350,7 +443,4 @@ def resolve_family(architecture: str, text_model_name: str = "") -> ModelFamily:
         name = ARCH_TO_FAMILY[architecture]
     else:
         raise ValueError(f"architecture {architecture!r} is not a family vlrlhf_tpu supports")
-    if name not in FAMILIES:
-        raise ValueError(f"family {name!r} ({architecture}) is not ported to vlrlhf_torch yet "
-                         "(ROADMAP.md §1 item 9)")
     return FAMILIES[name]

@@ -14,7 +14,9 @@ and the bridge address wq/wk/wv/gate/up separately. Adapters the parts
 hold (single or stacked sets, one rank) fuse with them
 (lora.fuse_adapter_group): the a's side by side on the rank axis, the b's
 block diagonal (zeros for a part without one), so the fused linear's delta
-equals the parts' deltas side by side.
+equals the parts' deltas side by side. PLoRA weights (InternLM-XC2) fuse
+the same way, so the fused linear adds each part's masked PLoRA term on
+top of the one fused base product.
 """
 
 from __future__ import annotations
@@ -68,6 +70,10 @@ def concat_linears(parts: list[Linear]) -> Linear:
             [p.d_out for p in parts])
         fused.lora_a = nn.Parameter(a, requires_grad=False)
         fused.lora_b = nn.Parameter(b, requires_grad=False)
+    if any(p.plora_a is not None for p in parts):
+        fused.set_plora_(*fuse_adapter_group(
+            [None if p.plora_a is None else (p.plora_a.detach(), p.plora_b.detach())
+             for p in parts], [p.d_out for p in parts]))
     return fused
 
 

@@ -39,6 +39,7 @@ the stacked cache by layer offset.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -335,6 +336,7 @@ class LlamaDecoder(nn.Module):
         b = last_token.shape[0]
         nkv, hd = cfg.num_kv_heads, cfg.head_dim_
         sc = cache["k"].shape[3]
+        ctx = _text_ctx(ctx)
         if pending is not None:
             flush_pending(cache, pending)
         x = self.embed(last_token[:, None])  # (B, 1, H)
@@ -386,6 +388,7 @@ class LlamaDecoder(nn.Module):
         b, c = input_ids.shape
         sc = cache["k"].shape[3]
         dev = input_ids.device
+        ctx = _text_ctx(ctx)
         if pending is not None:
             flush_pending(cache, pending)
         lengths = lengths.to(device=dev, dtype=torch.int32)
@@ -425,6 +428,14 @@ class LlamaDecoder(nn.Module):
             last = (chunk_lens.long() - 1).clamp(min=0)
             logits = self.head(hidden[torch.arange(b, device=dev), last][:, None], ctx)[:, 0]
         return logits, lengths + chunk_lens
+
+
+def _text_ctx(ctx: Optional[Ctx]) -> Optional[Ctx]:
+    """ctx without a PLoRA mask: decode and chunk tokens are text positions
+    (vlrlhf_tpu's lm_decode / lm_prefill_chunk drop base_adapters)."""
+    if ctx is None or ctx.lora_mask is None:
+        return ctx
+    return dataclasses.replace(ctx, lora_mask=None)
 
 
 def empty_cache(cfg: LMConfig, b: int, cache_len: int, kv_cache_dtype: str, device) -> dict:

@@ -2,14 +2,21 @@
 
 Serves CLIP ViT-L/14-336 for LLaVA-1.5 and LLaVA-Next: class token,
 pre-LN, quick_gelu, penultimate feature layer (`feature_layer=-2` runs
-num_layers - 1 blocks and skips the post norm); and InstructBLIP's EVA
+num_layers - 1 blocks and skips the post norm); InternLM-XC2's CLIP-L/14
+at 490 px: every layer, no post norm (`feature_layer=-1`), its 24 x 24
+table resized to the 35 x 35 patch grid; Qwen-VL's ViT-bigG/14-448: no
+class token, pre-LN, no post-LN, ln_eps 1e-6; and InstructBLIP's EVA
 ViT-g/14-224: a patch bias, no pre-LN, every layer then the post norm,
-the class token kept, tanh GELU (vlrlhf_tpu's; HF's EVA uses erf,
-ROADMAP.md §3). A position table of another length than the patch grid
-(vlrlhf_tpu's `interpolate_pos_embed`, Qwen-VL's and InternLM-XC2's) is
-refused. Attention goes through ops/attention.py, so on the card every
-block's non-causal attention runs the flash kernel (S=577, D=64 for CLIP;
-S=257, D=88 for EVA).
+the class token kept. "gelu" is the tanh form in both packages (HF's EVA
+and Qwen's nn.GELU use erf, ROADMAP.md §3).
+
+A position table of another grid than the patches is resized in the
+forward by ops/image.py `interpolate_pos_embed` (the grid part only when
+there is a class token), as vlrlhf_tpu does; `set_pos_embed_` holds a
+checkpoint's table of any square grid. Attention goes through
+ops/attention.py, so on the card every block's non-causal attention runs
+the flash kernel (S=577, D=64 for CLIP; S=1226, D=64 for XC2's; S=1024,
+D=104 for Qwen's; S=257, D=88 for EVA).
 
 The patch embedding is written as patch extraction + one matmul over the
 (p*p*3) patch vector in (row, col, channel) order — exactly the NHWC/HWIO
@@ -36,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from vlrlhf_torch.models.common import Ctx, Linear, Norm, empty_param
 from vlrlhf_torch.models.config import ViTConfig
 from vlrlhf_torch.ops.attention import multi_head_attention
+from vlrlhf_torch.ops.image import interpolate_pos_embed
 from vlrlhf_torch.ops.norms import layer_norm
 
 
@@ -91,6 +99,17 @@ class VisionTower(nn.Module):
         self.ln_post = Norm(h, True, device, dt) if cfg.use_post_norm else None
         self.layers = nn.ModuleList(ViTBlock(cfg, device) for _ in range(cfg.num_layers))
 
+    def set_pos_embed_(self, table: torch.Tensor) -> None:
+        """Hold `table` (n, hidden), on its device, as the position table: a
+        square grid (plus the class row when the tower has a class token) of
+        any size, resized to the patch grid in each forward."""
+        n = table.shape[0] - (1 if self.cfg.use_class_token else 0)
+        g = round(n**0.5)
+        if table.dim() != 2 or table.shape[1] != self.cfg.hidden_size or g * g != n:
+            raise ValueError(f"position table {tuple(table.shape)} is not a square grid of "
+                             f"{self.cfg.hidden_size}-wide rows")
+        self.pos_embed = nn.Parameter(table.to(self.cfg.dtype), requires_grad=False)
+
     def forward(self, pixel_values: torch.Tensor, ctx: Optional[Ctx] = None) -> torch.Tensor:
         """(B, H, W, 3) normalized float -> (B, n_tokens, hidden) features;
         `ctx` is the tower's context (adapters on or off)."""
@@ -109,17 +128,12 @@ class VisionTower(nn.Module):
             x = x + self.patch_bias.to(dt)
         pos = self.pos_embed.to(dt)
         n_patches = x.shape[1]
-        n_pos = pos.shape[0] - (1 if cfg.use_class_token else 0)
-        if n_pos != n_patches:
-            raise ValueError(
-                f"{n_patches} patches but {n_pos} position embeddings; "
-                "interpolated position embeddings are not ported yet"
-            )
         if cfg.use_class_token:
             cls = self.cls_token.to(dt)[None, None].expand(b, 1, cfg.hidden_size)
-            x = torch.cat([cls + pos[None, :1], x + pos[None, 1:]], dim=1)
+            grid_pos = interpolate_pos_embed(pos[1:], n_patches)
+            x = torch.cat([cls + pos[None, :1], x + grid_pos[None]], dim=1)
         else:
-            x = x + pos[None]
+            x = x + interpolate_pos_embed(pos, n_patches)[None]
         if self.ln_pre is not None:
             x = layer_norm(x, self.ln_pre.weight, self.ln_pre.bias, cfg.ln_eps)
         layers_ctx = (ctx or Ctx()).sub("layers_scanned")

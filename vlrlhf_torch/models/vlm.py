@@ -19,7 +19,11 @@ tiled to every row, and a `Ctx` that switches the LoRA adapters on or off
 
 The processor emits exactly `num_image_tokens` placeholder tokens per image
 plus an `image_positions` map; projected features land at those positions
-(models/common.py merge_multimodal_embeddings).
+(models/common.py merge_multimodal_embeddings). For a PLoRA family
+(InternLM-XC2) the same map gives the (B, S) mask that gates the
+checkpoint's PLoRA to those positions (`Ctx.lora_mask`), in every forward
+that takes image positions, adapters on or off (vlrlhf_tpu `vlm_forward`,
+models/vlm.py:237-245).
 
 The reward and value heads (`init_rm_head`, `reward_forward`,
 `init_value_head`, `value_forward`) are f32 {"kernel" (H, 1)[, "bias"
@@ -34,12 +38,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+import dataclasses
+
 from vlrlhf_torch.models.anyres import gather_anyres_features
-from vlrlhf_torch.models.common import Ctx, Linear, empty_param, merge_multimodal_embeddings
+from vlrlhf_torch.models.common import (
+    Ctx, Linear, Norm, empty_param, image_position_mask, merge_multimodal_embeddings,
+)
 from vlrlhf_torch.models.config import ProjectorConfig, VLMConfig
 from vlrlhf_torch.models.lm.llama import LlamaDecoder
 from vlrlhf_torch.models.vision.qformer import QFormer
+from vlrlhf_torch.models.vision.resampler import LN_EPS, Resampler
 from vlrlhf_torch.models.vision.vit import VisionTower
+from vlrlhf_torch.ops.norms import layer_norm
 
 # the families' extra image inputs: collator batch keys and model keywords
 IMAGE_INPUT_KEYS = ("anyres_gather", "qformer_input_ids", "qformer_mask")
@@ -51,19 +61,32 @@ def image_inputs(batch: dict) -> dict:
 
 
 class Projector(nn.Module):
-    """LLaVA's mlp2x-GELU projector or InstructBLIP's linear
-    language_projection (vlrlhf_tpu `projector_forward`)."""
+    """LLaVA's and XC2's mlp2x-GELU projector, InstructBLIP's linear
+    language_projection, or Qwen-VL's resampler + ln_post + bias-free
+    square proj (vlrlhf_tpu `projector_forward`)."""
 
     def __init__(self, cfg: ProjectorConfig, device, dtype):
         super().__init__()
-        if cfg.kind not in ("mlp2x_gelu", "linear"):
-            raise ValueError(f"projector kind {cfg.kind!r} is not ported "
-                             "(ROADMAP.md §1 item 9: qwen_vl's resampler)")
+        if cfg.kind not in ("mlp2x_gelu", "linear", "resampler"):
+            raise ValueError(f"projector kind {cfg.kind!r}: expected mlp2x_gelu, linear "
+                             "or resampler")
+        self.kind = cfg.kind
+        if cfg.kind == "resampler":
+            d = cfg.out_dim
+            self.resampler = Resampler(d, cfg.num_heads, cfg.in_dim, cfg.num_queries,
+                                       device, dtype)
+            self.ln_post = Norm(d, True, device, dtype)
+            self.proj = Linear(d, d, False, device, dtype)
+            return
         self.fc1 = Linear(cfg.in_dim, cfg.out_dim, True, device, dtype)
         self.fc2 = (Linear(cfg.out_dim, cfg.out_dim, True, device, dtype)
                     if cfg.kind == "mlp2x_gelu" else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kind == "resampler":
+            x = self.resampler(x)
+            x = layer_norm(x, self.ln_post.weight, self.ln_post.bias, LN_EPS)
+            return self.proj(x)
         x = self.fc1(x)
         # jax.nn.gelu defaults to the tanh approximation
         return x if self.fc2 is None else self.fc2(F.gelu(x, approximate="tanh"))
@@ -165,9 +188,13 @@ class VLM(nn.Module):
         """vlm_forward: returns (final-normed hidden (B, S, H), cache or
         None); with `cache_len` the empty-prefill mode (a bf16 or int8
         cache), without it the training forward. `ctx` switches the
-        adapters on or off in both. Logits come from `head`."""
+        adapters on or off in both; a PLoRA family's image positions add
+        the PLoRA mask to it. Logits come from `head`."""
         embeds = self.embeds(input_ids, pixel_values, image_positions, image_features, ctx,
                              anyres_gather, qformer_input_ids, qformer_mask)
+        if self.cfg.plora and image_positions is not None:
+            ctx = dataclasses.replace(
+                ctx or Ctx(), lora_mask=image_position_mask(image_positions, input_ids.shape[1]))
         lm_ctx = ctx.sub("lm") if ctx is not None else None
         return self.lm(embeds, pad_mask=pad_mask, cache_len=cache_len, ctx=lm_ctx,
                        kv_cache_dtype=kv_cache_dtype)

@@ -17,6 +17,14 @@ per-module inits) and what the bridge does with them:
   - "qformer" (a list of per-layer dicts: self_attn, cross_attn every
     cross_attention_frequency layers, ffn, ffn_query) -> QFormer's layers;
     "image_newline" {"embedding" (H,)} -> VLM.image_newline
+  - vision "pos_embed" of another grid than the patches (a checkpoint's
+    table, resized in the forward) -> VisionTower.set_pos_embed_
+  - projector "resampler" {query, pos_embed, ln_q, ln_kv, kv_proj, attn/
+    wq..wo} with "ln_post" and the bias-free "proj" -> Projector's
+    Resampler, ln_post and proj (Qwen-VL)
+  - "plora" (InternLM-XC2's checkpoint PLoRA, an adapter-shaped tree
+    {"lm": {"layers_scanned": ...}}) -> each LM Linear's frozen plora_a /
+    plora_b in the model's dtype
   - LoRA adapter trees ({"a" (in, r), "b" (r, out)} leaves beside the base
     tree, stacked on the layer axis under "layers_scanned") -> each Linear's
     lora_a / lora_b, f32; a list of N such trees (vlrlhf_tpu's
@@ -101,7 +109,11 @@ def load_vlm_params(model: VLM, params: Mapping[str, Any]) -> VLM:
     _copy(vis.patch_weight, kernel.reshape(-1, kernel.shape[-1]).T)
     if vis.patch_bias is not None:
         _copy(vis.patch_bias, vp["patch_embed"]["bias"])
-    _copy(vis.pos_embed, vp["pos_embed"]["embedding"])
+    pos = vp["pos_embed"]["embedding"]
+    if tuple(np.shape(pos)) != tuple(vis.pos_embed.shape):
+        vis.set_pos_embed_(_f32(pos).to(vis.patch_weight.device))
+    else:
+        _copy(vis.pos_embed, pos)
     if vis.cls_token is not None:
         _copy(vis.cls_token, vp["cls"]["token"])
     if vis.ln_pre is not None:
@@ -117,10 +129,13 @@ def load_vlm_params(model: VLM, params: Mapping[str, Any]) -> VLM:
         _linear(blk.fc1, lp["mlp"]["fc1"])
         _linear(blk.fc2, lp["mlp"]["fc2"])
 
-    pp = params["projector"]
-    _linear(model.projector.fc1, pp["fc1"])
-    if model.projector.fc2 is not None:
-        _linear(model.projector.fc2, pp["fc2"])
+    pp, proj = params["projector"], model.projector
+    if proj.kind == "resampler":
+        _load_resampler(proj, pp)
+    else:
+        _linear(proj.fc1, pp["fc1"])
+        if proj.fc2 is not None:
+            _linear(proj.fc2, pp["fc2"])
     if model.qformer is not None:
         _load_qformer(model.qformer, params["qformer"])
     if model.image_newline is not None:
@@ -139,7 +154,46 @@ def load_vlm_params(model: VLM, params: Mapping[str, Any]) -> VLM:
     _norm(lm.norm, lmp["norm"])
     if lm.lm_head is not None:
         _linear(lm.lm_head, lmp["lm_head"])
+    if params.get("plora"):
+        load_plora_params(model, params["plora"])
     return model
+
+
+def _load_resampler(proj, pp: Mapping[str, Any]) -> None:
+    r, rp = proj.resampler, pp["resampler"]
+    _copy(r.query, rp["query"])
+    _copy(r.pos_embed, rp["pos_embed"])
+    _norm(r.ln_q, rp["ln_q"])
+    _norm(r.ln_kv, rp["ln_kv"])
+    if r.kv_proj is not None:
+        _linear(r.kv_proj, rp["kv_proj"])
+    for name in ("wq", "wk", "wv", "wo"):
+        _linear(getattr(r.attn, name), rp["attn"][name])
+    _norm(proj.ln_post, pp["ln_post"])
+    _linear(proj.proj, pp["proj"])
+
+
+def load_plora_params(model: VLM, plora: Mapping[str, Any]) -> list[str]:
+    """vlrlhf_tpu's PLoRA tree (port_xc2_plora's output: {"a", "b"} leaves
+    stacked under lm/layers_scanned) -> each LM Linear's frozen PLoRA, in
+    the LM's dtype. Returns the module names that hold one."""
+    done = []
+    dt = model.cfg.lm.dtype
+    for name, mod in model.named_modules():
+        if not isinstance(mod, Linear):
+            continue
+        key, layer = _adapter_key(name)
+        node: Any = plora
+        for k in key:
+            node = node.get(k) if isinstance(node, Mapping) else None
+        if not isinstance(node, Mapping) or "a" not in node:
+            continue
+        a, b = _f32(node["a"]), _f32(node["b"])
+        if layer is not None:
+            a, b = a[layer], b[layer]
+        mod.set_plora_(a.to(mod.device, dt), b.to(mod.device, dt))
+        done.append(name)
+    return done
 
 
 def _load_qformer(qf, p: Mapping[str, Any]) -> None:
@@ -275,8 +329,6 @@ def vlm_config_from(src) -> C.VLMConfig:
                 kw[f.name] = _torch_dtype(v) if f.name == "dtype" else v
         return cls(**kw)
 
-    if getattr(src, "plora", False) or src.projector.kind not in ("mlp2x_gelu", "linear"):
-        raise ValueError(f"family {src.family!r} is not ported (ROADMAP.md §1 item 9)")
     qf = getattr(src, "qformer", None)
     return C.VLMConfig(
         lm=conv(C.LMConfig, src.lm),
@@ -285,6 +337,7 @@ def vlm_config_from(src) -> C.VLMConfig:
         image_token_id=src.image_token_id,
         num_image_tokens=src.num_image_tokens,
         qformer=None if qf is None else conv(C.QFormerConfig, qf),
+        plora=bool(getattr(src, "plora", False)),
         family=src.family,
         grid_pinpoints=tuple(tuple(p) for p in getattr(src, "grid_pinpoints", ())),
         image_mean=tuple(src.image_mean),

@@ -1,9 +1,13 @@
-"""Export the port's LLaVA, LLaVA-Next and InstructBLIP weights as an HF
-checkpoint (those families' half of vlrlhf_tpu/utils/hf_export.py: `_ln`,
-`_linear`, `export_llama_lm`, `export_clip_vit`, `export_llava` (with
-`image_newline`), `export_instructblip_vit`, `export_qformer`,
-`export_instructblip`, `save_hf_checkpoint`, `export_hf` and
-`ARCHITECTURES`).
+"""Export the port's weights of any of the five families as an HF
+checkpoint (vlrlhf_tpu/utils/hf_export.py: `_ln`, `_linear`,
+`export_llama_lm`, `export_clip_vit`, `export_llava` (with
+`image_newline`), `export_qwen_lm`, `export_qwen_visual`, `export_qwen_vl`,
+`export_internlm2_lm`, `export_internlm_xc2`, `export_xc2_plora`,
+`export_instructblip_vit`, `export_qformer`, `export_instructblip`,
+`save_hf_checkpoint`, `export_hf` and `ARCHITECTURES`). XC2's PLoRA leaves
+(`plora_a` / `plora_b`, kept apart from the merged weights) go out as its
+Plora_A / Plora_B weights, as vlrlhf_tpu's export_hf(plora_adapters=...)
+writes them.
 
 The input is a state dict keyed by the port's parameter names (a model's
 `state_dict()`, or `lora.merge_lora`'s merged one); each exporter inverts
@@ -30,9 +34,10 @@ from typing import Mapping, Optional
 import torch
 
 from vlrlhf_torch.utils.hf_port import (
-    CLIP_LINEARS, CLIP_NORMS, EVA_LINEARS, EVA_NORMS, LLAMA_LINEARS, LLAMA_NORMS,
-    LLAVA_PROJECTOR, QFORMER_ATTNS, QFORMER_BERT, QFORMER_FFNS, QFORMER_TOKENIZER_DIR,
-    conv_from_patch,
+    CLIP_LINEARS, CLIP_NORMS, EVA_LINEARS, EVA_NORMS, INTERNLM2_LINEARS, INTERNLM2_NORMS,
+    LLAMA_LINEARS, LLAMA_NORMS, LLAVA_PROJECTOR, QFORMER_ATTNS, QFORMER_BERT, QFORMER_FFNS,
+    QFORMER_TOKENIZER_DIR, QWEN_LINEARS, QWEN_NORMS, QWEN_VIS_LINEARS, QWEN_VIS_NORMS,
+    XC2_PROJECTOR, conv_from_patch,
 )
 from vlrlhf_torch.utils.safetensors_io import save_file
 
@@ -123,6 +128,123 @@ def export_llava(src: StateDict, cfg) -> dict[str, torch.Tensor]:
     return dict(sd)
 
 
+def export_qwen_lm(src: StateDict, sd: _SD, prefix: str = "transformer") -> None:
+    """Inverse of hf_port.port_qwen_lm: wq / wk / wv (and biases) fused
+    back into c_attn by blocks of rows."""
+    sd.put(f"{prefix}.wte.weight", _get(src, "lm.embed_tokens"))
+    for i in range(_n_layers(src, "lm")):
+        ours, theirs = f"lm.layers.{i}", f"{prefix}.h.{i}"
+        for o, t in QWEN_NORMS:
+            _ln(sd, f"{theirs}.{t}", src, f"{ours}.{o}")
+        for leaf in ("weight", "bias"):
+            sd.put(f"{theirs}.attn.c_attn.{leaf}", torch.cat(
+                [_get(src, f"{ours}.{n}.{leaf}") for n in ("wq", "wk", "wv")], dim=0))
+        for o, t in QWEN_LINEARS:
+            _linear(sd, f"{theirs}.{t}", src, f"{ours}.{o}")
+    _ln(sd, f"{prefix}.ln_f", src, "lm.norm")
+    _linear(sd, "lm_head", src, "lm.lm_head")
+
+
+def export_qwen_visual(src: StateDict, sd: _SD, cfg, prefix: str = "transformer.visual") -> None:
+    """Inverse of hf_port.port_qwen_visual: the tower's in_proj rows per
+    head interleaved again, the resampler's in blocks, proj as (in, out)."""
+    nh = cfg.vision.num_heads
+    sd.put(f"{prefix}.conv1.weight", conv_from_patch(_get(src, "vision.patch_weight"),
+                                                     cfg.vision.patch_size))
+    sd.put(f"{prefix}.positional_embedding", _get(src, "vision.pos_embed"))
+    _ln(sd, f"{prefix}.ln_pre", src, "vision.ln_pre")
+    for i in range(_n_layers(src, "vision")):
+        ours, theirs = f"vision.layers.{i}", f"{prefix}.transformer.resblocks.{i}"
+        for o, t in QWEN_VIS_NORMS:
+            _ln(sd, f"{theirs}.{t}", src, f"{ours}.{o}")
+        ws = [_get(src, f"{ours}.{n}.weight") for n in ("wq", "wk", "wv")]
+        d, h = ws[0].shape
+        sd.put(f"{theirs}.attn.in_proj.weight",
+               torch.stack([w.reshape(nh, d // nh, h) for w in ws], dim=1).reshape(3 * d, h))
+        bs = [_get(src, f"{ours}.{n}.bias") for n in ("wq", "wk", "wv")]
+        sd.put(f"{theirs}.attn.in_proj.bias",
+               torch.stack([b.reshape(nh, d // nh) for b in bs], dim=1).reshape(3 * d))
+        for o, t in QWEN_VIS_LINEARS:
+            _linear(sd, f"{theirs}.{t}", src, f"{ours}.{o}")
+    ap, r = f"{prefix}.attn_pool", "projector.resampler"
+    sd.put(f"{ap}.query", _get(src, f"{r}.query"))
+    sd.put(f"{ap}.pos_embed", _get(src, f"{r}.pos_embed"))
+    _ln(sd, f"{ap}.ln_q", src, f"{r}.ln_q")
+    _ln(sd, f"{ap}.ln_kv", src, f"{r}.ln_kv")
+    if f"{r}.kv_proj.weight" in src:
+        _linear(sd, f"{ap}.kv_proj", src, f"{r}.kv_proj")
+    for leaf, hf in (("weight", "in_proj_weight"), ("bias", "in_proj_bias")):
+        sd.put(f"{ap}.attn.{hf}", torch.cat(
+            [_get(src, f"{r}.attn.{n}.{leaf}") for n in ("wq", "wk", "wv")], dim=0))
+    _linear(sd, f"{ap}.attn.out_proj", src, f"{r}.attn.wo")
+    _ln(sd, f"{prefix}.ln_post", src, "projector.ln_post")
+    sd.put(f"{prefix}.proj", _get(src, "projector.proj.weight").t())
+
+
+def export_qwen_vl(src: StateDict, cfg) -> dict[str, torch.Tensor]:
+    """The port's Qwen-VL state dict -> HF QWenLMHeadModel keys."""
+    sd = _SD()
+    export_qwen_visual(src, sd, cfg)
+    export_qwen_lm(src, sd)
+    return dict(sd)
+
+
+def _qkv_interleave(parts, nh: int, nkv: int, hd: int) -> torch.Tensor:
+    """Inverse of hf_port._qkv_groups: [q rows, k rows, v rows] ->
+    InternLM2's grouped-interleaved rows."""
+    tail = parts[0].shape[-1]
+    q = parts[0].reshape(nkv, nh // nkv, hd, tail)
+    k = parts[1].reshape(nkv, 1, hd, tail)
+    v = parts[2].reshape(nkv, 1, hd, tail)
+    return torch.cat([q, k, v], dim=1).reshape(-1, tail)
+
+
+def export_internlm2_lm(src: StateDict, sd: _SD, cfg, prefix: str = "model") -> None:
+    """Inverse of hf_port.port_internlm2_lm."""
+    lm = cfg.lm
+    sd.put(f"{prefix}.tok_embeddings.weight", _get(src, "lm.embed_tokens"))
+    for i in range(_n_layers(src, "lm")):
+        ours, theirs = f"lm.layers.{i}", f"{prefix}.layers.{i}"
+        for o, t in INTERNLM2_NORMS:
+            _ln(sd, f"{theirs}.{t}", src, f"{ours}.{o}")
+        sd.put(f"{theirs}.attention.wqkv.weight", _qkv_interleave(
+            [_get(src, f"{ours}.{n}.weight") for n in ("wq", "wk", "wv")],
+            lm.num_heads, lm.num_kv_heads, lm.head_dim_))
+        for o, t in INTERNLM2_LINEARS:
+            _linear(sd, f"{theirs}.{t}", src, f"{ours}.{o}")
+    _ln(sd, f"{prefix}.norm", src, "lm.norm")
+    _linear(sd, "output", src, "lm.lm_head")
+
+
+def export_xc2_plora(src: StateDict, sd: _SD, cfg, prefix: str = "model") -> None:
+    """Inverse of hf_port.port_xc2_plora: the PLoRA leaves as Plora_A /
+    Plora_B weights; wqkv's A is wq's, its B re-interleaved by groups."""
+    lm = cfg.lm
+    for i in range(_n_layers(src, "lm")):
+        ours, theirs = f"lm.layers.{i}", f"{prefix}.layers.{i}"
+        if f"{ours}.wq.plora_a" not in src:
+            continue
+        sd.put(f"{theirs}.attention.wqkv.Plora_A.weight", src[f"{ours}.wq.plora_a"].t())
+        sd.put(f"{theirs}.attention.wqkv.Plora_B.weight", _qkv_interleave(
+            [src[f"{ours}.{n}.plora_b"].t() for n in ("wq", "wk", "wv")],
+            lm.num_heads, lm.num_kv_heads, lm.head_dim_))
+        for o, t in INTERNLM2_LINEARS:
+            sd.put(f"{theirs}.{t}.Plora_A.weight", src[f"{ours}.{o}.plora_a"].t())
+            sd.put(f"{theirs}.{t}.Plora_B.weight", src[f"{ours}.{o}.plora_b"].t())
+
+
+def export_internlm_xc2(src: StateDict, cfg) -> dict[str, torch.Tensor]:
+    """The port's XC2 state dict -> HF InternLMXComposer2ForCausalLM keys,
+    its PLoRA included when the state dict holds it."""
+    sd = _SD()
+    export_clip_vit(src, sd, "vit.vision_tower.vision_model", cfg.vision.patch_size)
+    for ours, theirs in XC2_PROJECTOR:
+        _linear(sd, theirs, src, f"projector.{ours}")
+    export_internlm2_lm(src, sd, cfg)
+    export_xc2_plora(src, sd, cfg)
+    return dict(sd)
+
+
 def export_instructblip_vit(src: StateDict, sd: _SD, prefix: str, patch: int) -> None:
     """Inverse of hf_port.port_instructblip_vit: wq / wk / wv fused back
     into one qkv linear, the embeddings as raw Parameters."""
@@ -178,11 +300,14 @@ def export_instructblip(src: StateDict, cfg) -> dict[str, torch.Tensor]:
 
 
 EXPORTERS = {"llava": export_llava, "llava_next_vicuna": export_llava,
-             "llava_next_mistral": export_llava, "instructblip": export_instructblip}
+             "llava_next_mistral": export_llava, "qwen_vl": export_qwen_vl,
+             "internlm_xc2": export_internlm_xc2, "instructblip": export_instructblip}
 ARCHITECTURES = {
     "llava": ["LlavaForConditionalGeneration"],
     "llava_next_vicuna": ["LlavaNextForConditionalGeneration"],
     "llava_next_mistral": ["LlavaNextForConditionalGeneration"],
+    "qwen_vl": ["QWenLMHeadModel"],
+    "internlm_xc2": ["InternLMXComposer2ForCausalLM"],
     "instructblip": ["InstructBlipForConditionalGeneration"],
 }
 
@@ -190,7 +315,7 @@ ARCHITECTURES = {
 # complete, loadable HF checkpoint (tokenizer, processor, generation config)
 _SIDECAR_PATTERNS = (
     "tokenizer", "special_tokens", "preprocessor", "processor", "chat_template",
-    "generation_config", "added_tokens", "vocab", "merges",
+    "generation_config", "added_tokens", "vocab", "merges", "qwen.tiktoken",
 )
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 

@@ -1,9 +1,18 @@
-"""Import an HF LLaVA, LLaVA-Next or InstructBLIP checkpoint into the
-port's `VLM` (those families' half of vlrlhf_tpu/utils/hf_port.py: `_ln`,
-`_linear`, `port_llama_lm`, `port_clip_vit`, `_normalize_llava_keys`,
-`port_llava` (with LLaVA-Next's `image_newline`), `port_instructblip_vit`,
-`port_instructblip`, `LazyStateDict`, `open_hf_state_dict`,
-`load_hf_state_dict` and `PORTERS`).
+"""Import an HF checkpoint of any of the five families into the port's
+`VLM` (vlrlhf_tpu/utils/hf_port.py: `_ln`, `_linear`, `port_llama_lm`,
+`port_clip_vit`, `_normalize_llava_keys`, `port_llava` (with LLaVA-Next's
+`image_newline`), `port_qwen_lm`, `port_qwen_visual`, `port_qwen_vl`,
+`port_internlm2_lm`, `port_internlm_xc2`, `port_xc2_plora`,
+`port_instructblip_vit`, `port_instructblip`, `LazyStateDict`,
+`open_hf_state_dict`, `load_hf_state_dict` and `PORTERS`).
+
+The fused projections split as vlrlhf_tpu splits them: QWen's c_attn in
+three blocks of rows (with its bias), Qwen's visual in_proj per head
+interleaved [q; k; v], the resampler's nn.MultiheadAttention in_proj in
+blocks, InternLM2's wqkv grouped-interleaved (per kv head: its q heads,
+then k, then v), and XC2's PLoRA on wqkv as one shared A with B split the
+same way. XC2's PLoRA becomes each LM Linear's frozen plora_a / plora_b in
+the model's dtype, never quantized.
 
 The port's Linear holds (out, in) as torch does, so vlrlhf_tpu's transposes
 drop out; only the CLIP patch convolution changes layout ((h, 3, p, p) ->
@@ -61,6 +70,18 @@ QFORMER_BERT = (("wq", "query"), ("wk", "key"), ("wv", "value"))
 QFORMER_FFNS = (("ffn", "intermediate", "output"),
                 ("ffn_query", "intermediate_query", "output_query"))
 QFORMER_TOKENIZER_DIR = "qformer_tokenizer"  # InstructBLIP's second tokenizer
+# QWen (Qwen-VL's LM): the MLP is c_proj(w1(x) * silu(w2(x))), so w2 = gate
+QWEN_NORMS = (("input_layernorm", "ln_1"), ("post_attention_layernorm", "ln_2"))
+QWEN_LINEARS = (("wo", "attn.c_proj"), ("gate", "mlp.w2"), ("up", "mlp.w1"),
+                ("down", "mlp.c_proj"))
+QWEN_VIS_NORMS = (("ln1", "ln_1"), ("ln2", "ln_2"))
+QWEN_VIS_LINEARS = (("wo", "attn.out_proj"), ("fc1", "mlp.c_fc"), ("fc2", "mlp.c_proj"))
+# InternLM2 (XC2's LM); PLoRA rides on every one of these and on wqkv
+INTERNLM2_NORMS = (("input_layernorm", "attention_norm"),
+                   ("post_attention_layernorm", "ffn_norm"))
+INTERNLM2_LINEARS = (("wo", "attention.wo"), ("gate", "feed_forward.w1"),
+                     ("up", "feed_forward.w3"), ("down", "feed_forward.w2"))
+XC2_PROJECTOR = (("fc1", "vision_proj.0"), ("fc2", "vision_proj.2"))
 
 
 def patch_from_conv(w: torch.Tensor) -> torch.Tensor:
@@ -189,6 +210,16 @@ def port_llama_lm(p: _Port, lm: nn.Module, prefix: str = "model") -> None:
         _linear(p, key, lm.lm_head)
 
 
+def _pos_table(p: _Port, vis: nn.Module, table: torch.Tensor) -> None:
+    """A tower's position table: the model's shape, or a checkpoint's
+    square grid of another size (XC2's 24 x 24 CLIP table at 490 px),
+    which the forward resizes."""
+    if tuple(table.shape) == tuple(vis.pos_embed.shape):
+        p.put(vis, "pos_embed", table)
+    else:
+        vis.set_pos_embed_(table.to(vis.cfg.dtype).to(p.device))
+
+
 def port_clip_vit(p: _Port, vis: nn.Module, prefix: str) -> None:
     """HF CLIPVisionModel -> the port's VisionTower (every layer, the
     pre and post norms, whatever feature_layer the forward stops at)."""
@@ -196,7 +227,7 @@ def port_clip_vit(p: _Port, vis: nn.Module, prefix: str) -> None:
     p.put(vis, "patch_weight", patch_from_conv(p.read(f"{emb}.patch_embedding.weight")))
     if vis.patch_bias is not None:
         p.put(vis, "patch_bias", p.read(f"{emb}.patch_embedding.bias"))
-    p.put(vis, "pos_embed", p.read(f"{emb}.position_embedding.weight"))
+    _pos_table(p, vis, p.read(f"{emb}.position_embedding.weight"))
     if vis.cls_token is not None:
         p.put(vis, "cls_token", p.read(f"{emb}.class_embedding"))
     for i, blk in enumerate(vis.layers):
@@ -340,8 +371,155 @@ def port_instructblip(sd: Mapping, model: nn.Module, device,
     return p.bytes_read
 
 
+def _split_weight(p: _Port, lins, w: torch.Tensor, b: Optional[torch.Tensor], name: str):
+    """Fill `lins` (wq, wk, wv) from the row blocks of a fused weight (and
+    bias) already split into a list."""
+    for j, lin in enumerate(lins):
+        _weight(p, lin, w[j], f"{name}[{j}]")
+        if b is not None:
+            p.put(lin, "bias", b[j])
+
+
+def port_qwen_lm(p: _Port, lm: nn.Module, prefix: str = "transformer") -> None:
+    """QWen (Qwen-VL's LM) -> the LlamaDecoder: c_attn's rows (and bias)
+    in three blocks for wq / wk / wv; w2 = gate, w1 = up, c_proj = down."""
+    p.put(lm, "embed_tokens", p.read(f"{prefix}.wte.weight"))
+    for i, layer in enumerate(lm.layers):
+        hp = f"{prefix}.h.{i}"
+        for ours, theirs in QWEN_NORMS:
+            _ln(p, f"{hp}.{theirs}", getattr(layer, ours))
+        w = p.read(f"{hp}.attn.c_attn.weight").chunk(3, dim=0)
+        b = p.read(f"{hp}.attn.c_attn.bias").chunk(3, dim=0)
+        _split_weight(p, (layer.wq, layer.wk, layer.wv), w, b, f"{hp}.attn.c_attn.weight")
+        for ours, theirs in QWEN_LINEARS:
+            _linear(p, f"{hp}.{theirs}", getattr(layer, ours))
+    _ln(p, f"{prefix}.ln_f", lm.norm)
+    _linear(p, "lm_head", lm.lm_head)
+
+
+def port_qwen_visual(p: _Port, vis: nn.Module, proj: nn.Module,
+                     prefix: str = "transformer.visual") -> None:
+    """Qwen's ViT-bigG and its resampler: the tower's in_proj rows are per
+    head interleaved [q; k; v] (VisualAttention), the resampler's
+    nn.MultiheadAttention in_proj in blocks; `proj` is stored (in, out)."""
+    nh = vis.cfg.num_heads
+    p.put(vis, "patch_weight", patch_from_conv(p.read(f"{prefix}.conv1.weight")))
+    _pos_table(p, vis, p.read(f"{prefix}.positional_embedding"))
+    _ln(p, f"{prefix}.ln_pre", vis.ln_pre)
+    for i, blk in enumerate(vis.layers):
+        hp = f"{prefix}.transformer.resblocks.{i}"
+        for ours, theirs in QWEN_VIS_NORMS:
+            _ln(p, f"{hp}.{theirs}", getattr(blk, ours))
+        w = p.read(f"{hp}.attn.in_proj.weight")
+        d, h = w.shape[0] // 3, w.shape[1]
+        w = w.reshape(nh, 3, d // nh, h)
+        b = p.read(f"{hp}.attn.in_proj.bias").reshape(nh, 3, d // nh)
+        _split_weight(p, (blk.wq, blk.wk, blk.wv), [w[:, j].reshape(d, h) for j in range(3)],
+                      [b[:, j].reshape(d) for j in range(3)], f"{hp}.attn.in_proj.weight")
+        for ours, theirs in QWEN_VIS_LINEARS:
+            _linear(p, f"{hp}.{theirs}", getattr(blk, ours))
+    ap, r = f"{prefix}.attn_pool", proj.resampler
+    p.put(r, "query", p.read(f"{ap}.query"))
+    p.put(r, "pos_embed", p.read(f"{ap}.pos_embed"))
+    _ln(p, f"{ap}.ln_q", r.ln_q)
+    _ln(p, f"{ap}.ln_kv", r.ln_kv)
+    if r.kv_proj is not None:
+        _linear(p, f"{ap}.kv_proj", r.kv_proj)
+    w = p.read(f"{ap}.attn.in_proj_weight").chunk(3, dim=0)
+    b = p.read(f"{ap}.attn.in_proj_bias").chunk(3, dim=0)
+    _split_weight(p, (r.attn.wq, r.attn.wk, r.attn.wv), w, b, f"{ap}.attn.in_proj_weight")
+    _linear(p, f"{ap}.attn.out_proj", r.attn.wo)
+    _ln(p, f"{prefix}.ln_post", proj.ln_post)
+    _weight(p, proj.proj, p.read(f"{prefix}.proj").t().contiguous(), f"{prefix}.proj")
+
+
+def port_qwen_vl(sd: Mapping, model: nn.Module, device,
+                 quantize: Sequence[str] = (), bits: int = 8) -> int:
+    """Fill a meta-device Qwen-VL VLM from an HF QWenLMHeadModel state dict
+    (vlrlhf_tpu `port_qwen_vl`); returns the checkpoint bytes read."""
+    p = _Port(sd, model, device, quantize, bits)
+    port_qwen_visual(p, model.vision, model.projector)
+    port_qwen_lm(p, model.lm)
+    _check_complete(model)
+    return p.bytes_read
+
+
+def _qkv_groups(t: torch.Tensor, nh: int, nkv: int, hd: int) -> list[torch.Tensor]:
+    """InternLM2's grouped-interleaved rows (per kv head: its q heads, its
+    k head, its v head) -> [q rows (nh*hd), k rows, v rows]; the trailing
+    axis (in, or PLoRA's r) is kept."""
+    g = nh // nkv
+    w = t.reshape(nkv, g + 2, hd, t.shape[-1])
+    return [w[:, :g].reshape(nh * hd, -1), w[:, g].reshape(nkv * hd, -1),
+            w[:, g + 1].reshape(nkv * hd, -1)]
+
+
+def port_internlm2_lm(p: _Port, lm: nn.Module, prefix: str = "model") -> None:
+    """InternLM2 -> the LlamaDecoder: wqkv split by kv-head groups; w1 =
+    gate, w3 = up, w2 = down; the head is `output`."""
+    cfg = lm.cfg
+    p.put(lm, "embed_tokens", p.read(f"{prefix}.tok_embeddings.weight"))
+    for i, layer in enumerate(lm.layers):
+        hp = f"{prefix}.layers.{i}"
+        for ours, theirs in INTERNLM2_NORMS:
+            _ln(p, f"{hp}.{theirs}", getattr(layer, ours))
+        w = _qkv_groups(p.read(f"{hp}.attention.wqkv.weight"), cfg.num_heads,
+                        cfg.num_kv_heads, cfg.head_dim_)
+        _split_weight(p, (layer.wq, layer.wk, layer.wv), w, None, f"{hp}.attention.wqkv.weight")
+        for ours, theirs in INTERNLM2_LINEARS:
+            _linear(p, f"{hp}.{theirs}", getattr(layer, ours))
+    _ln(p, f"{prefix}.norm", lm.norm)
+    _linear(p, "output", lm.lm_head)
+
+
+def port_xc2_plora(p: _Port, lm: nn.Module, prefix: str = "model") -> int:
+    """XC2's trained PLoRA (Plora_A / Plora_B on wqkv, wo, w1, w3, w2) ->
+    each LM Linear's frozen plora_a (in, r) / plora_b (r, out) in the
+    model's dtype; wqkv's one A is shared by wq / wk / wv and its B split
+    by kv-head groups (vlrlhf_tpu `port_xc2_plora`). Returns the layers
+    that hold PLoRA (0 for a checkpoint without)."""
+    cfg = lm.cfg
+    if f"{prefix}.layers.0.attention.wqkv.Plora_A.weight" not in p.sd:
+        return 0
+
+    def pair(key):
+        return (p.read(f"{key}.Plora_A.weight").t(), p.read(f"{key}.Plora_B.weight").t())
+
+    def hold(lin, a, b):
+        lin.set_plora_(a.to(cfg.dtype).to(p.device).contiguous(),
+                       b.to(cfg.dtype).to(p.device).contiguous())
+
+    for i, layer in enumerate(lm.layers):
+        hp = f"{prefix}.layers.{i}"
+        a = p.read(f"{hp}.attention.wqkv.Plora_A.weight").t()
+        bs = _qkv_groups(p.read(f"{hp}.attention.wqkv.Plora_B.weight"), cfg.num_heads,
+                         cfg.num_kv_heads, cfg.head_dim_)
+        for lin, b in zip((layer.wq, layer.wk, layer.wv), bs):
+            hold(lin, a, b.t())
+        for ours, theirs in INTERNLM2_LINEARS:
+            hold(getattr(layer, ours), *pair(f"{hp}.{theirs}"))
+    return len(lm.layers)
+
+
+def port_internlm_xc2(sd: Mapping, model: nn.Module, device,
+                      quantize: Sequence[str] = (), bits: int = 8) -> int:
+    """Fill a meta-device XC2 VLM from an HF InternLMXComposer2ForCausalLM
+    state dict: the CLIP tower under vit.vision_tower.vision_model (its
+    table at the checkpoint's grid), the two-layer vision_proj, the
+    InternLM2 LM and the PLoRA; returns the checkpoint bytes read."""
+    p = _Port(sd, model, device, quantize, bits)
+    port_clip_vit(p, model.vision, "vit.vision_tower.vision_model")
+    for ours, theirs in XC2_PROJECTOR:
+        _linear(p, theirs, getattr(model.projector, ours))
+    port_internlm2_lm(p, model.lm)
+    port_xc2_plora(p, model.lm)
+    _check_complete(model)
+    return p.bytes_read
+
+
 PORTERS = {"llava": port_llava, "llava_next_vicuna": port_llava,
-           "llava_next_mistral": port_llava, "instructblip": port_instructblip}
+           "llava_next_mistral": port_llava, "qwen_vl": port_qwen_vl,
+           "internlm_xc2": port_internlm_xc2, "instructblip": port_instructblip}
 
 
 class LazyStateDict(Mapping):

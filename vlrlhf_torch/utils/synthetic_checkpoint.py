@@ -1,12 +1,22 @@
-"""A seeded stand-in for a downloaded LLaVA, LLaVA-Next or InstructBLIP
-checkpoint, for machines that cannot download one: a config.json in the
+"""A seeded stand-in for a downloaded checkpoint of any of the five
+families, for machines that cannot download one: a config.json in the
 layout of the published one (llava-hf/llava-1.5-7b-hf,
-llava-hf/llava-v1.6-{vicuna,mistral}-7b-hf, Salesforce/instructblip-
-vicuna-7b) with the model's geometry written out, a llama-layout
-tokenizer.json generated from a seed (and for InstructBLIP a BERT
-WordPiece qformer_tokenizer/), and weights written by utils/hf_export.py.
-The import path (cli/loading.py) reads such a directory exactly as it
-reads a real one; chip_smoke.py and the tests use it.
+llava-hf/llava-v1.6-{vicuna,mistral}-7b-hf, Qwen/Qwen-VL-Chat,
+internlm/internlm-xcomposer2-vl-7b, Salesforce/instructblip-vicuna-7b)
+with the model's geometry written out, a tokenizer generated from a seed
+(a llama-layout tokenizer.json; Qwen-VL's qwen.tiktoken; XC2's
+sentencepiece tokenizer.model; for InstructBLIP also a BERT WordPiece
+qformer_tokenizer/), and weights written by utils/hf_export.py. The import
+path (cli/loading.py) reads such a directory exactly as it reads a real
+one; chip_smoke.py and the tests use it.
+
+`write_qwen_tiktoken` writes the full 151,643 mergeable ranks (the 256
+bytes, every 2-byte pair, then 3-byte tokens), so Qwen's special tokens sit
+on their published ids (<|im_start|> 151644, <img> 151857, <imgpad>
+151859). `sentencepiece_model` writes a BPE ModelProto by hand (no
+protobuf): llama's pieces and merges with scores that order them, and for
+XC2 92,544 pieces whose last six are the user-defined [UNUSED_TOKEN_141]
+... [UNUSED_TOKEN_146] (146 = 92543, InternLM2's <|im_start|>).
 
 The tokenizer follows llama's layout: <unk> 0, <s> 1, </s> 2, the 256
 byte-fallback tokens <0x00>..<0xFF>, the single characters, then BPE
@@ -156,6 +166,72 @@ def instructblip_config(cfg) -> dict:
         "tie_word_embeddings": False,
         "use_decoder_only_language_model": True,
     }
+
+
+# Qwen/Qwen-VL-Chat config.json as published (the geometry is rewritten)
+QWEN_VL_CHAT_CONFIG = {
+    "architectures": ["QWenLMHeadModel"],
+    "attn_dropout_prob": 0.0, "bf16": True, "emb_dropout_prob": 0.0,
+    "hidden_size": 4096, "initializer_range": 0.02, "intermediate_size": 22016,
+    "kv_channels": 128, "layer_norm_epsilon": 1e-06, "max_position_embeddings": 8192,
+    "model_type": "qwen", "no_bias": True, "num_attention_heads": 32,
+    "num_hidden_layers": 32, "onnx_safe": None, "rotary_emb_base": 10000,
+    "rotary_pct": 1.0, "scale_attn_weights": True, "seq_length": 2048,
+    "tie_word_embeddings": False, "tokenizer_type": "QWenTokenizer",
+    "use_cache": True, "use_dynamic_ntk": True, "use_flash_attn": False,
+    "use_logn_attn": True, "vocab_size": 151936,
+    "visual": {"heads": 16, "image_size": 448, "image_start_id": 151857, "layers": 48,
+               "mlp_ratio": 4.9231, "output_dim": 4096, "patch_size": 14, "width": 1664},
+}
+# internlm/internlm-xcomposer2-vl-7b config.json as published
+XC2_7B_CONFIG = {
+    "architectures": ["InternLMXComposer2ForCausalLM"],
+    "bias": False, "bos_token_id": 1, "eos_token_id": 2, "hidden_act": "silu",
+    "hidden_size": 4096, "img_size": 490, "initializer_range": 0.02,
+    "intermediate_size": 14336, "max_length": 4096, "max_position_embeddings": 32768,
+    "model_type": "internlmxcomposer2", "num_attention_heads": 32,
+    "num_hidden_layers": 32, "num_key_value_heads": 8, "pad_token_id": 2,
+    "rms_norm_eps": 1e-05, "rope_scaling": None, "rope_theta": 1000000,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16", "use_cache": True,
+    "vocab_size": 92544,
+}
+
+
+def qwen_vl_config(cfg) -> dict:
+    """The published Qwen-VL-Chat config.json with `cfg`'s geometry; QWen's
+    intermediate_size is twice the MLP width (w1 and w2 together), its
+    visual mlp_ratio gives the tower's MLP width by int(width * ratio)."""
+    import math
+
+    lm, vis = cfg.lm, cfg.vision
+    out = json.loads(json.dumps(QWEN_VL_CHAT_CONFIG))
+    ratio = math.ceil(vis.mlp_dim / vis.hidden_size * 1e4) / 1e4
+    if int(vis.hidden_size * ratio) != vis.mlp_dim:
+        raise ValueError(f"no 4-digit mlp_ratio gives {vis.mlp_dim} from {vis.hidden_size}")
+    out.update(hidden_size=lm.hidden_size, intermediate_size=2 * lm.intermediate_size,
+               kv_channels=lm.head_dim_, layer_norm_epsilon=lm.rms_eps,
+               num_attention_heads=lm.num_heads, num_hidden_layers=lm.num_layers,
+               rotary_emb_base=lm.rope_base, seq_length=lm.max_position_embeddings,
+               use_dynamic_ntk=lm.rope_scaling_type == "dynamic", vocab_size=lm.vocab_size)
+    out["visual"].update(heads=vis.num_heads, image_size=vis.image_size,
+                         image_start_id=cfg.image_token_id - 2, layers=vis.num_layers,
+                         mlp_ratio=ratio, output_dim=cfg.projector.out_dim,
+                         patch_size=vis.patch_size, width=vis.hidden_size,
+                         n_queries=cfg.projector.num_queries)
+    return out
+
+
+def xc2_config(cfg) -> dict:
+    """The published XComposer2-VL-7B config.json with `cfg`'s geometry."""
+    lm = cfg.lm
+    out = json.loads(json.dumps(XC2_7B_CONFIG))
+    out.update(hidden_size=lm.hidden_size, img_size=cfg.vision.image_size,
+               intermediate_size=lm.intermediate_size,
+               max_position_embeddings=lm.max_position_embeddings,
+               num_attention_heads=lm.num_heads, num_hidden_layers=lm.num_layers,
+               num_key_value_heads=lm.num_kv_heads, rms_norm_eps=lm.rms_eps,
+               rope_theta=lm.rope_base, vocab_size=lm.vocab_size)
+    return out
 
 
 def bert_tokenizer(vocab_size: int = 30522, seed: int = 0) -> tuple[dict, dict]:
@@ -308,6 +384,113 @@ def llama_tokenizer(vocab_size: int = 32000, seed: int = 0,
     return tok, conf
 
 
+QWEN_N_RANKS = 151643  # Qwen-VL's mergeable ranks
+
+
+def write_qwen_tiktoken(path: str, n_ranks: int = QWEN_N_RANKS) -> None:
+    """<path>/qwen.tiktoken with `n_ranks` mergeable ranks: the 256 bytes,
+    every 2-byte pair, then 3-byte tokens (each one merge from a 2-byte
+    prefix and a byte), and Qwen-VL's tokenizer_config.json."""
+    import base64
+
+    os.makedirs(path, exist_ok=True)
+    toks = [bytes([b]) for b in range(256)]
+    toks += [bytes([a, b]) for a in range(256) for b in range(256)]
+    outer = 0
+    while len(toks) < n_ranks:
+        a, b = divmod(outer, 256)
+        toks += [bytes([a, b, c]) for c in range(min(256, n_ranks - len(toks)))]
+        outer += 1
+    with open(os.path.join(path, "qwen.tiktoken"), "w") as f:
+        f.write("".join(f"{base64.b64encode(t).decode()} {r}\n"
+                        for r, t in enumerate(toks[:n_ranks])))
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "QWenTokenizer", "model_max_length": 8192,
+                   "padding_side": "right"}, f, indent=2)
+
+
+def _pb_varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b, n = n & 0x7F, n >> 7
+        out.append(b | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def _pb(num: int, value) -> bytes:
+    """One protobuf field: an int as a varint, bytes length-delimited, a
+    float as fixed32."""
+    import struct
+
+    if isinstance(value, bool) or isinstance(value, int):
+        return _pb_varint(num << 3) + _pb_varint(int(value))
+    if isinstance(value, float):
+        return _pb_varint(num << 3 | 5) + struct.pack("<f", value)
+    return _pb_varint(num << 3 | 2) + _pb_varint(len(value)) + value
+
+
+def sentencepiece_model(pieces, byte_fallback: bool = True, add_dummy_prefix: bool = True,
+                        remove_extra_whitespaces: bool = False) -> bytes:
+    """A BPE ModelProto's bytes for `pieces` [(piece, score, type)]
+    (data/tokenizer.py SPM_* types), an identity normalizer."""
+    out = b"".join(_pb(1, _pb(1, p.encode("utf-8")) + _pb(2, float(sc)) + _pb(3, t))
+                   for p, sc, t in pieces)
+    out += _pb(2, _pb(3, 2) + _pb(35, byte_fallback) + _pb(45, b"<unk>"))
+    out += _pb(3, _pb(1, b"identity") + _pb(3, add_dummy_prefix)
+               + _pb(4, remove_extra_whitespaces) + _pb(5, True))
+    return out
+
+
+def spm_pieces(vocab_size: int = 32000, seed: int = 0, user_defined=()) -> list:
+    """llama_tokenizer's vocabulary as sentencepiece pieces: <unk> UNKNOWN,
+    <s> / </s> CONTROL, the bytes BYTE, the characters, the merged pieces
+    scored by their merge order (first merged = highest), and
+    `user_defined` pieces last (USER_DEFINED)."""
+    from vlrlhf_torch.data.tokenizer import (
+        SPM_BYTE, SPM_CONTROL, SPM_NORMAL, SPM_UNKNOWN, SPM_USER_DEFINED,
+    )
+
+    tok, _ = llama_tokenizer(vocab_size - len(user_defined), seed)
+    vocab = tok["model"]["vocab"]
+    merged = {a.replace(" ", "", 1): k for k, a in enumerate(tok["model"]["merges"])}
+    pieces = []
+    for p, i in sorted(vocab.items(), key=lambda t: t[1]):
+        if p == "<unk>":
+            pieces.append((p, 0.0, SPM_UNKNOWN))
+        elif p in ("<s>", "</s>"):
+            pieces.append((p, 0.0, SPM_CONTROL))
+        elif p.startswith("<0x"):
+            pieces.append((p, 0.0, SPM_BYTE))
+        else:
+            pieces.append((p, -float(merged.get(p, len(merged) + i)), SPM_NORMAL))
+    pieces += [(p, 0.0, SPM_USER_DEFINED) for p in user_defined]
+    return pieces
+
+
+XC2_USER_DEFINED = tuple(f"[UNUSED_TOKEN_{i}]" for i in range(141, 147))
+
+
+def write_sentencepiece_tokenizer(path: str, vocab_size: int = 32000, seed: int = 0,
+                                  user_defined=(), tokenizer_class: str = "LlamaTokenizer",
+                                  pad_token: str = "<pad>") -> None:
+    """<path>/tokenizer.model (`spm_pieces`) and a tokenizer_config.json."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "tokenizer.model"), "wb") as f:
+        f.write(sentencepiece_model(spm_pieces(vocab_size, seed, user_defined)))
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": tokenizer_class, "bos_token": "<s>", "eos_token": "</s>",
+                   "unk_token": "<unk>", "pad_token": pad_token, "add_bos_token": True,
+                   "add_eos_token": False, "clean_up_tokenization_spaces": False}, f, indent=2)
+
+
+def write_xc2_tokenizer(path: str, vocab_size: int = 92544, seed: int = 0) -> None:
+    """XC2's tokenizer.model of `vocab_size` pieces (the last six the
+    [UNUSED_TOKEN_141..146] user-defined pieces) and its config."""
+    write_sentencepiece_tokenizer(path, vocab_size, seed, XC2_USER_DEFINED,
+                                  "InternLMXComposer2Tokenizer", pad_token="</s>")
+
+
 def write_tokenizer(path: str, vocab_size: int = 32000, seed: int = 0,
                     layout: str = "prepend") -> None:
     _write_json_pair(path, *llama_tokenizer(vocab_size, seed, layout))
@@ -317,10 +500,24 @@ def write_bert_tokenizer(path: str, vocab_size: int = 30522, seed: int = 0) -> N
     _write_json_pair(path, *bert_tokenizer(vocab_size, seed))
 
 
+def write_family_tokenizer(path: str, family: str) -> None:
+    """The seeded tokenizer of `family`'s published layout in `path`."""
+    if family == "qwen_vl":
+        write_qwen_tiktoken(path)
+    elif family == "internlm_xc2":
+        write_xc2_tokenizer(path)
+    else:
+        write_tokenizer(path)
+
+
 def hf_config(cfg) -> dict:
-    """The config.json of `cfg`'s family (llava, llava_next_*, instructblip)."""
+    """The config.json of `cfg`'s family."""
     if cfg.family == "instructblip":
         return instructblip_config(cfg)
+    if cfg.family == "qwen_vl":
+        return qwen_vl_config(cfg)
+    if cfg.family == "internlm_xc2":
+        return xc2_config(cfg)
     if cfg.family.startswith("llava_next"):
         return llava_next_config(cfg)
     return llava_config(cfg)
@@ -330,9 +527,9 @@ def write_checkpoint(path: str, state_dict: Mapping, cfg, dtype: str = "bfloat16
                      config: dict | None = None) -> int:
     """An HF checkpoint directory of `cfg`'s family from the port's state
     dict: the weights (utils/hf_export.py EXPORTERS), `config` (default
-    hf_config(cfg)), the seeded llama tokenizer and, for InstructBLIP, a
-    seeded WordPiece qformer_tokenizer/ over the Q-Former's vocabulary
-    (less the added [DEC]). Returns the weights file's bytes."""
+    hf_config(cfg)) and the family's seeded tokenizer; for InstructBLIP also a seeded WordPiece qformer_tokenizer/ over the
+    Q-Former's vocabulary (less the added [DEC]). Returns the weights
+    file's bytes."""
     from vlrlhf_torch.utils.hf_export import EXPORTERS, save_hf_checkpoint
     from vlrlhf_torch.utils.hf_port import QFORMER_TOKENIZER_DIR
 
@@ -340,7 +537,7 @@ def write_checkpoint(path: str, state_dict: Mapping, cfg, dtype: str = "bfloat16
                                 dtype=dtype)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(dict(config or hf_config(cfg), torch_dtype=dtype), f, indent=2)
-    write_tokenizer(path)
+    write_family_tokenizer(path, cfg.family)
     if cfg.qformer is not None:
         write_bert_tokenizer(os.path.join(path, QFORMER_TOKENIZER_DIR),
                              cfg.qformer.vocab_size - 1)
