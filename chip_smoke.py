@@ -27,7 +27,12 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      (T=1280) and T=2048 and its transpose (kernel 7) at T=2048,
      LLaVA-1.5-7B's 4096 -> 11008 and 11008 -> 4096 (and, for kernel 7,
      the attention projections' 4096 -> 4096), plus edge shapes (cuBLAS
-     bf16 on the dequantized weight as yardstick)
+     bf16 on the dequantized weight as yardstick); and the shapes one rank
+     of --mesh_model 2 gives them ("tp" in the kernels line): the flash
+     forward and backward at H = 16 (LLaVA's 32 heads split) and GQA
+     16 / 4 (Mistral's 32 / 8) on the DPO pair's S = 1024, the int4
+     kernels at T = 2048 on gate / up column shards (out 5,504) and the
+     repacked down and wo row shards (in 5,504 and 2,048)
   3. serving at full LLaVA-1.5-7B widths but 2 LM / 2 tower layers: the
      same seeded weights on the card (bf16, kernels) and on the CPU (f32,
      plain path), one image prefill + 8 greedy tokens; logit error and
@@ -67,8 +72,8 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      finish_run's merged save over the int4 base, checked on sampled
      linears against the dequantized weight plus scale (A B)^T
   7. the `dpo` trainer's functions (cli.main build_dpo, make_eval_hook,
-     train_dpo, finish_run) at full LLaVA-1.5-7B width and depth on phase
-     6's pair: (a) 3 steps under each remat policy (full, attn, dots, mlp,
+     train_dpo, finish_run) at full LLaVA-1.5-7B width with 16 of its 32
+     LM layers (PHASE7_LAYERS) on phase 6's pair: (a) 3 steps under each remat policy (full, attn, dots, mlp,
      mlp1, acts) from the same adapters: step-1 loss ln 2, loss within
      1e-3 and grad norm within 1e-2 of attn's, median step ms and peak
      memory, the peaks ordered full <= attn <= mlp1 <= mlp <= acts; (b)
@@ -182,6 +187,34 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      full-width, full-depth XComposer2-VL-7B with r = 256 PLoRA: 8
      concurrent 490 x 490 requests of ~1,700 tokens, one DPO pair padded
      to 2048 with PLoRA and LoRA, CE ranking of 16 rows
+  13. multi-GPU training, part 1 (vlrlhf_torch/core: the (data, fsdp,
+     model) mesh, FSDP2 units, tensor parallelism): (a) an in-process NCCL
+     group of one on cuda:0 and the mesh of --mesh_fsdp -1; full-width,
+     full-depth LLaVA-1.5-7B on phase 6's pair and seeds through cli.main
+     build_dpo (every LlamaLayer and the VLM FSDP2 units) and train_steps,
+     3 steps with a checkpoint at step 3: step-1 loss ln 2, losses within
+     1e-3 and grad norms within 1e-2 of phase 6's, the launches of kernels
+     1-3 ("mesh_dpo"), the checkpoint restored in a plain model (phase 6's
+     path) equal to the live adapters; then the mesh and the plain run take
+     turns through train_steps from that state for ms per step and peak
+     memory, and one step of each is profiled; (b) `torchrun --standalone
+     --nproc_per_node 1 -m vlrlhf_torch.cli.main dpo --synthetic 8
+     --mesh_fsdp -1 --max_steps 2`: exit 0, finite metrics; (c) eval of
+     phase 8's MME rows at full width and 2 LM / 2 tower layers, two ranks
+     under torchrun sharing the card over gloo (this script with
+     --mesh13c-worker), each on its half of the rows, against the same
+     eval in this process: the same rows and launches ("mesh_eval"); (d)
+     two ranks sharing the card over gloo (this script with
+     --mesh13d-worker, torchrun's environment): --mesh_fsdp 2, then
+     --mesh_fsdp 1 --mesh_model 2, at full width and 2 LM / 2 tower
+     layers, 2 pairs per global batch, 3 updates each: the first update's
+     gradients leaf by leaf within MESH_GRAD_TOL of the two-pair world-1
+     run (and fsdp = 2's of one process accumulating the same one-pair
+     micro-batches, whose losses it must hold within MESH_LOSS_TOL),
+     step-1 loss ln 2 and gradient norms within 1e-2; model = 2 with its
+     row-parallel all-reduce skipped (a planted fault) must fail
+     MESH_GRAD_TOL; model = 2's launches are "mesh_dpo_tp"; 13b-d's
+     processes start at once
 
 A profiled step prints the card's busy and idle time and its kernel time by
 group (torch.profiler; the flash groups split by head dim). Phase 2's
@@ -209,7 +242,8 @@ serve, DPO, QLoRA, trainer, eval, multi-adapter serving, phase 9's runs
 (next_serve, next_dpo, next_serve_int8_spec, blip_serve, blip_dpo,
 blip_eval) and phase 12's (qwen_int4_reduced, internlm_int4_reduced,
 xc2_qlora4_reduced, qwen_serve, qwen_dpo, qwen_serve_int8_spec,
-xc2_serve, xc2_dpo, xc2_eval), split in
+xc2_serve, xc2_dpo, xc2_eval) and phase 13's (mesh_dpo, mesh_eval,
+mesh_dpo_tp), split in
 launches_by_path; the eval and ppo shapes' times under "eval" and "ppo");
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -218,6 +252,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import itertools
 import json
@@ -269,6 +304,23 @@ MISTRAL_SC = 3200
 # plans differ (672 x 672 -> 2,928 image tokens, 336 x 1008 -> 2,328)
 ANYRES_SIZES = ((672, 672), (336, 1008), (1008, 336), (480, 640), (640, 480), (500, 333),
                 (720, 1280), (600, 600))
+
+
+# phase 2's kernel shapes on one rank of --mesh_model 2 (phase 13's layout):
+# flash at 16 heads (LLaVA's 32 split) and at 16 / 4 (Mistral's GQA 32 / 8),
+# S = 1024 with the DPO pair's lengths
+TP2_FLASH_CASES = (
+    ("tp2_dpo_lm_causal", True, 2, 1024, 16, 16, 128, (1000, 900)),
+    ("tp2_gqa_1024", True, 2, 1024, 16, 4, 128, (1024, 960)),
+)
+# int4 on a rank's shards at the DPO step's T = 2048: gate / up column
+# shards (out 11008 -> 5504), the repacked down row shard (in 5504) and
+# wo's (in 4096 -> 2048)
+TP2_INT4_CASES = (
+    ("tp2_dpo_gate", 2048, 4096, 5504),
+    ("tp2_dpo_down", 2048, 5504, 4096),
+    ("tp2_dpo_wo", 2048, 2048, 4096),
+)
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -445,6 +497,9 @@ def phase_kernels():
         # serving group); the resampler's non-square call follows below
         ("qwen_tower_d104", False, 8, 1024, 16, 16, 104, None),
         ("xc2_tower_s1226", False, 8, 1226, 16, 16, 64, None),
+        # phase 13: a rank's heads under --mesh_model 2 (LLaVA 32 -> 16,
+        # Mistral's GQA 32/8 -> 16/4) on the DPO pair's S = 1024
+        *TP2_FLASH_CASES,
     ]
     errs, times = [], {}
     for label, causal, b, s, h, hkv, d, lens in flash_cases:
@@ -493,7 +548,8 @@ def phase_kernels():
                             "eval": times["ce_rows_padded"], "ppo": times["ppo_update_padded"],
                             "families": {k: times[k] for k in (
                                 "anyres_tiles_noncausal", "eva_noncausal_d88", "mistral_gqa_4096",
-                                "qwen_tower_d104", "resampler_256x1024", "xc2_tower_s1226")}}
+                                "qwen_tower_d104", "resampler_256x1024", "xc2_tower_s1226")},
+                            "tp": {c[0]: times[c[0]] for c in TP2_FLASH_CASES}}
 
     # backward: the DPO path's LM case, a GQA case and an unfrozen tower's
     # (D = 64, non-causal, the 2 tiled rows of one pair)
@@ -505,6 +561,7 @@ def phase_kernels():
         # phase 11: an unfrozen EVA tower (D = 88) and the mistral DPO pair
         ("eva_noncausal_d88", False, 16, 257, 16, 16, 88, (257,) * 16),
         ("mistral_gqa_4096", True, 2, 4096, 32, 8, 128, MISTRAL_LENS),
+        *TP2_FLASH_CASES,
     ]
     bwd = {"dkv": {}, "dq": {}}
     bwd_errs = {"dkv": [], "dq": []}
@@ -589,6 +646,7 @@ def phase_kernels():
             "ppo": dict(zip(keys, bwd[kname]["ppo_update_padded"])),
             "families": {k: dict(zip(keys, bwd[kname][k]))
                          for k in ("eva_noncausal_d88", "mistral_gqa_4096")},
+            "tp": {c[0]: dict(zip(keys, bwd[kname][c[0]])) for c in TP2_FLASH_CASES},
         }
 
     results["decode_attention"] = decode_kernel_checks(randn)
@@ -673,9 +731,10 @@ def int4_kernel_checks(gen) -> dict:
            ("verify_gate", 32, 4096, 11008), ("verify_down", 32, 11008, 4096),
            ("prefill_gate", 1280, 4096, 11008), ("prefill_down", 1280, 11008, 4096),
            ("dpo_gate", 2048, 4096, 11008), ("dpo_down", 2048, 11008, 4096),
-           ("edge", 5, 384, 200), ("edge_wgmma", 65, 384, 200)]
+           ("edge", 5, 384, 200), ("edge_wgmma", 65, 384, 200), *TP2_INT4_CASES]
     bwd = [("dpo_gate", 2048, 4096, 11008), ("dpo_down", 2048, 11008, 4096),
-           ("dpo_attn", 2048, 4096, 4096), ("edge", 5, 384, 200), ("edge_wgmma", 129, 384, 200)]
+           ("dpo_attn", 2048, 4096, 4096), ("edge", 5, 384, 200), ("edge_wgmma", 129, 384, 200),
+           *TP2_INT4_CASES]
     results = {}
     for name, cases, kern, plain in (("int4_matmul", fwd, int4_matmul, int4_matmul_plain),
                                      ("int4_matmul_t", bwd, int4_matmul_t, int4_matmul_t_plain)):
@@ -720,7 +779,8 @@ def int4_kernel_checks(gen) -> dict:
         main = by_case["decode_gate" if name == "int4_matmul" else "dpo_gate"]
         results[name] = {**{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                    "bound_by")},
-                         "max_abs_err": max(errs), "cases": by_case}
+                         "max_abs_err": max(errs), "cases": by_case,
+                         "tp": {c[0]: by_case[c[0]] for c in TP2_INT4_CASES}}
     weights.clear()
     torch.cuda.empty_cache()
     return results
@@ -1706,11 +1766,12 @@ def phase_serve_int4(bf16_ms: float, int8_ms: list) -> dict:
     return launches
 
 
-def profile_breakdown(fn, label: str):
+def profile_breakdown(fn, label: str, host_top: int = 0):
     """Run fn() once under torch.profiler and print where the card's time
     went: wall ms, busy ms (kernel durations summed; one stream), idle
-    share, and kernel time by group and by name. Returns the busy ms (None
-    when the profiler saw no device time)."""
+    share, and kernel time by group and by name; with `host_top`, that many
+    host ops by their own CPU time too. Returns the busy ms (None when the
+    profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1719,7 +1780,10 @@ def profile_breakdown(fn, label: str):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device events but the ranges a library annotates (FSDP2's), which
+    # span kernels already counted
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         print(f"profile {label}: the profiler saw no device time", flush=True)
         return None
@@ -1753,6 +1817,11 @@ def profile_breakdown(fn, label: str):
                         sorted(by_group.items(), key=lambda kv: -kv[1][1])})
           + "; top kernels " + json.dumps([(nm[:60], n, round(t / 1e3, 3)) for nm, (n, t) in top]),
           flush=True)
+    if host_top:
+        ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:host_top]
+        print(f"profile {label}: top host ops by own CPU ms (count) "
+              + json.dumps([(e.key[:60], e.count, round(e.self_cpu_time_total / 1e3, 3))
+                            for e in ops]), flush=True)
     return busy
 
 
@@ -1987,7 +2056,8 @@ def phase_dpo():
     del run, model, batch
     torch.cuda.empty_cache()
     return launches, {"median_ms": med, "pairs_per_s": 1e3 / med,
-                      "mfu": flops / (med * 1e-3) / PEAK_FLOPS, "peak_gib": peak / 2**30}
+                      "mfu": flops / (med * 1e-3) / PEAK_FLOPS, "peak_gib": peak / 2**30,
+                      "losses": losses, "norms": norms}
 
 
 def phase_dpo_qlora4(bf16: dict) -> dict:
@@ -2183,14 +2253,22 @@ def finish_timed(run, args, want: dict, what: str) -> None:
     merged_check(path, want, what)
 
 
-def trainer_model():
-    """Phases 7 and 10b's model: LLaVA-1.5-7B at full width and depth, bf16,
-    random weights from seed 0, on the card; (cfg, model, processor)."""
+PHASE7_LAYERS = 16  # phase 7's LM depth, half of LLaVA-1.5-7B's: the script's time limit
+
+
+def trainer_model(layers: int = 0):
+    """Phases 7 and 10b's model: LLaVA-1.5-7B at full width and depth (or
+    `layers` LM layers), bf16, random weights from seed 0, on the card;
+    (cfg, model, processor)."""
+    import dataclasses
+
     from vlrlhf_torch.models.common import init_random_
     from vlrlhf_torch.models.config import _llava_7b
     from vlrlhf_torch.models.vlm import VLM
 
     cfg = _llava_7b(torch.bfloat16)
+    if layers:
+        cfg = dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, num_layers=layers))
     model = VLM(cfg, "cuda")
     init_random_(model, torch.Generator(device="cuda").manual_seed(0))
     return cfg, model, make_processor(cfg)
@@ -2324,8 +2402,8 @@ def trainer_remat(cfg, model, proc):
 
 
 def phase_trainer():
-    """Phase 7: the `dpo` trainer's functions at full LLaVA-1.5-7B width and
-    depth on phase 6's pair (bf16): (a) the remat policies, (b) an unfrozen
+    """Phase 7: the `dpo` trainer's functions at full LLaVA-1.5-7B width
+    (PHASE7_LAYERS LM layers, the whole tower) on phase 6's pair (bf16): (a) the remat policies, (b) an unfrozen
     tower with tower LoRA targets, (c) the eval pass and its samples, (d)
     checkpoint, resume and the straight run they must equal, (e) the merged
     save. Returns the kernel launch counts of the phase."""
@@ -2339,7 +2417,7 @@ def phase_trainer():
     from vlrlhf_torch.train.metrics import MetricsLogger
     from vlrlhf_torch.train.train_state import load_state_tree_
 
-    cfg, model, proc = trainer_model()
+    cfg, model, proc = trainer_model(PHASE7_LAYERS)
     counted = {"flash_fwd": flash_attention, "flash_bwd_dkv": flash_bwd_dkv,
                "flash_bwd_dq": flash_bwd_dq, "decode_attention": decode_attention}
     for fn in counted.values():
@@ -4513,6 +4591,545 @@ def phase_internlm_xc2() -> dict:
     return {"xc2_serve": serve_l, "xc2_dpo": dpo_l, "xc2_eval": ce_l}
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 13: multi-GPU training, part 1 (core/mesh.py, dist.py, partitioning.py)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _build_dir(name: str) -> str:
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"{name}-{os.getpid()}")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def _metrics_lines(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(x) for x in f if x.strip()]
+
+
+TIMED13A = 4  # 13a: steps per timed train_steps call (4 calls: mesh, plain, plain, mesh)
+
+
+def loop_turn(run, args, out: str, steps: int = TIMED13A) -> dict:
+    """`steps` steps of `run` through cli.main train_steps (the loop a user
+    runs: prefetched batches, the metrics read at every logging step, no
+    checkpoint): ms per step (wall over the call / steps, the card synced
+    at both ends), the step's peak memory above what was resident before
+    it, and the logged losses."""
+    import argparse
+
+    from vlrlhf_torch.cli.main import make_logger, train_steps
+
+    ns = argparse.Namespace(**{**vars(args), "max_steps": steps, "output_dir": out,
+                               "num_train_epochs": float(steps), "save_steps": 10**9,
+                               "run_name": None})
+    logger = make_logger(ns, "dpo", run)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_steps(run, ns, logger)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    logger.close()
+    losses = [r["loss"] for r in _metrics_lines(os.path.join(out, "dpo_metrics.jsonl"))]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"13a: {steps} steps logged {losses}")
+    return {"ms": ms, "peak_gib": peak, "losses": losses}
+
+
+def phase_mesh_dpo(dpo6: dict) -> dict:
+    """13a: an NCCL process group of one on cuda:0 (made here, as torchrun's
+    rank would) and the (data, fsdp, model) = (1, 1, 1) mesh; full-width,
+    full-depth LLaVA-1.5-7B (phase 6's seeds, pair and arguments) through
+    cli.main build_dpo (which places the model: FSDP2 units) and
+    train_steps, 3 steps with a checkpoint at step 3 (rank 0's state.pt of
+    the world-1 tensors). Losses within 1e-3 and grad norms within 1e-2
+    relative of phase 6's first 3. Then a plain model of the same seeds,
+    built by build_dpo with no mesh registered (phase 6's path), restores
+    the checkpoint and must hold the live adapters; from that one state
+    the two runs take turns through train_steps (mesh, plain, plain, mesh;
+    TIMED13A steps each, losses equal within 1e-3) for ms per step and the
+    step's peak memory above the resident, and one step of each is
+    profiled (card busy time, idle share, the top host ops)."""
+    import shutil
+    import statistics
+
+    import torch.distributed as tdist
+    from torch.distributed.fsdp import FSDPModule
+
+    from vlrlhf_torch.cli.main import build_dpo, train_steps, with_remat_policy
+    from vlrlhf_torch.core.mesh import MeshConfig, make_mesh, set_global_mesh
+    from vlrlhf_torch.core.partitioning import full_state_tree
+    from vlrlhf_torch.models.common import init_random_
+    from vlrlhf_torch.models.config import _llava_7b
+    from vlrlhf_torch.models.vlm import VLM
+    from vlrlhf_torch.train.checkpoint import CheckpointManager
+    from vlrlhf_torch.train.dpo import batch_to_device
+    from vlrlhf_torch.train.metrics import MetricsLogger
+    from vlrlhf_torch.train.train_state import load_state_tree_
+
+    tdist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                             world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    out = _build_dir("phase13a")
+    fns = counted(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
+    try:
+        mesh = make_mesh(MeshConfig(fsdp=-1), "cuda")
+        cfg = with_remat_policy(_llava_7b(torch.bfloat16), "attn")
+        model = VLM(cfg, "cuda")
+        init_random_(model, torch.Generator(device="cuda").manual_seed(0))
+        args = dpo_args(output_dir=out, num_train_epochs=3.0, save_steps=3)
+        rows = [pair_row(7, 150, 260, 250)]
+        run = build_dpo(cfg, model, make_processor(cfg), args, rows, seeded_image)
+        units = [m for m in model.modules() if isinstance(m, FSDPModule)]
+        if not (isinstance(model, FSDPModule) and all(isinstance(layer, FSDPModule)
+                                                       for layer in model.lm.layers)):
+            raise AssertionError("13a: the VLM and every LlamaLayer must be FSDP2 units")
+        logger = MetricsLogger(out, "dpo")
+        zero_counts(fns)
+        t0 = time.perf_counter()
+        train_steps(run, args, logger)  # the schedule of phase 6's 5 steps, 3 of them
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        launches = read_counts(fns)
+        logger.close()
+        lines = _metrics_lines(os.path.join(out, "dpo_metrics.jsonl"))
+        losses, norms = [r["loss"] for r in lines], [r["grad_norm"] for r in lines]
+        print(f"13a mesh DPO (NCCL world 1, mesh (data, fsdp, model) = "
+              f"{(mesh.data, mesh.fsdp, mesh.model)}, {len(units)} FSDP2 units): losses "
+              f"{losses} vs phase 6's {dpo6['losses'][:3]}; grad norms {norms} vs "
+              f"{dpo6['norms'][:3]}; launches {json.dumps(launches)}; 3 steps through "
+              f"train_steps with the step-3 checkpoint {loop_s:.3f} s", flush=True)
+        if len(losses) != 3 or abs(losses[0] - math.log(2.0)) > 1e-3:
+            raise AssertionError(f"13a: step-1 loss {losses[:1]} is not ln 2 within 1e-3")
+        for a, b in zip(losses, dpo6["losses"]):
+            if abs(a - b) > 1e-3:
+                raise AssertionError(f"13a losses {losses} differ from phase 6's by > 1e-3")
+        for a, b in zip(norms, dpo6["norms"]):
+            if abs(a - b) > 1e-2 * abs(b):
+                raise AssertionError(f"13a grad norms {norms} differ from phase 6's by > 1e-2")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"13a: a flash kernel was not launched: {launches}")
+
+        # the step-3 checkpoint in a plain model: phase 6's path, no mesh
+        tree, _ = CheckpointManager(os.path.join(out, "checkpoints")).restore()
+        live = full_state_tree(run.state_tree(), mesh)
+        set_global_mesh(None)
+        plain_model = VLM(cfg, "cuda")
+        init_random_(plain_model, torch.Generator(device="cuda").manual_seed(0))
+        plain = build_dpo(cfg, plain_model, make_processor(cfg),
+                          dpo_args(output_dir=out, num_train_epochs=3.0), rows, seeded_image)
+        load_state_tree_(plain.state, plain.keys, tree)
+        set_global_mesh(mesh)
+        same = plain.keys == run.keys and all(
+            torch.equal(p, live["trainable"][k]) for k, p in zip(plain.keys, plain.state.trainable))
+        files = sorted(os.listdir(os.path.join(out, "checkpoints", "3")))
+        ckpt_bytes = sum(os.path.getsize(os.path.join(out, "checkpoints", "3", f)) for f in files)
+        print(f"13a checkpoint: step {tree['step']}, files {files}, {ckpt_bytes / 1e9:.3f} GB; "
+              f"restored in a plain model: adapters equal to the live ones {same}", flush=True)
+        if not same or tree["step"] != 3:
+            raise AssertionError("13a: the restored checkpoint's adapters differ from the live")
+        del tree, live
+
+        turns = []
+        for i, (name, r, m) in enumerate((("mesh", run, mesh), ("plain", plain, None),
+                                          ("plain", plain, None), ("mesh", run, mesh))):
+            set_global_mesh(m)
+            turns.append((name, loop_turn(r, args, os.path.join(out, f"turn{i}"))))
+        set_global_mesh(mesh)
+        got = {k: [t for n, t in turns if n == k] for k in ("mesh", "plain")}
+        for a, b in zip(got["mesh"], got["plain"]):  # the same steps from the same state
+            if max(abs(x - y) for x, y in zip(a["losses"], b["losses"])) > 1e-3:
+                raise AssertionError(f"13a: mesh and plain losses differ: {turns}")
+        med = {k: statistics.median(t["ms"] for t in v) for k, v in got.items()}
+        peak = {k: max(t["peak_gib"] for t in v) for k, v in got.items()}
+        print(f"13a DPO step through train_steps (1 pair, seq 1024, {TIMED13A} steps a turn, "
+              f"mesh / plain / plain / mesh): ms per step "
+              f"{[(n, round(t['ms'], 3)) for n, t in turns]}; mesh {med['mesh']:.3f} vs plain "
+              f"{med['plain']:.3f} ({med['mesh'] / med['plain']:.3f}x); step peak above the "
+              f"resident mesh {peak['mesh']:.3f} GiB vs plain {peak['plain']:.3f} GiB; phase 6's "
+              f"run.step median {dpo6['median_ms']:.3f} ms", flush=True)
+        for name, r in (("mesh", run), ("plain", plain)):
+            set_global_mesh(mesh if name == "mesh" else None)
+            batch = batch_to_device(r.collator([r.tokenize_fn(x) for x in r.rows]), "cuda")
+            r.step(batch)  # warm
+            profile_breakdown(lambda: r.step(batch), f"13a {name} DPO step (world 1)",
+                              host_top=6)
+        set_global_mesh(mesh)
+        del run, model, plain, plain_model, batch
+    finally:
+        set_global_mesh(None)
+        tdist.destroy_process_group()
+        shutil.rmtree(out, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"mesh_dpo": launches}, {"median_ms": med["mesh"], "plain_ms": med["plain"],
+                                    "peak_gib": peak["mesh"]}
+
+
+def torchrun_cmd(nproc: int, *args) -> list:
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+            str(nproc), *args]
+
+
+def start_logged(cmd: list, env=None) -> tuple:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env=env, cwd=os.path.dirname(os.path.abspath(__file__))), \
+        time.perf_counter()
+
+
+def finish_logged(started: tuple, what: str, timeout: float = 400) -> str:
+    proc, t0 = started
+    try:
+        out = proc.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}:\n{out[-4000:]}")
+    print(f"{what}: exit 0 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def phase_launchers() -> dict:
+    """13b-d, their processes started at once. 13b: `torchrun --standalone
+    --nproc_per_node 1 -m vlrlhf_torch.cli.main dpo --synthetic 8
+    --mesh_fsdp -1 --max_steps 2` (NCCL, cuda:0): exit 0, finite metrics.
+    13c: `eval` on phase 8's MME rows (seeded image blobs, `eval_image`)
+    with LLaVA-1.5-7B's widths at 2 LM / 2 tower layers, two ranks under
+    torchrun sharing the card over gloo (this script with
+    --mesh13c-worker: each rank evaluates its contiguous half of the rows,
+    rank 0 gathers, scores and writes), against the same eval in this
+    process: the same rows; the ranks' launches are the "mesh_eval" path.
+    13d: two ranks sharing the card over gloo (NCCL puts one rank on a
+    device; gloo carries FSDP2's all-gather / reduce-scatter and the
+    tensor-parallel all-reduces on CUDA tensors), this script with
+    --mesh13d-worker and torchrun's environment, each MESH13D layout in
+    turn at full width and 2 layers, against runs in this process. Held:
+    the first update's gradients (Adam's first moment after it, 0.1 x the
+    clipped gradient, gathered to the world-1 layout) leaf by leaf within
+    MESH_GRAD_TOL (relative L2) of the two-pair world-1 run for fsdp = 2
+    and model = 2, and of one process accumulating the same one-pair
+    forwards for fsdp = 2, whose three losses must also be within
+    MESH_LOSS_TOL of that control; every layout's step-1 loss ln 2 and
+    step-1 gradient norm within 1e-2 of world 1's. A planted fault, model
+    = 2 with the row-parallel base product's all-reduce skipped, must fail
+    MESH_GRAD_TOL.
+    (Later losses of a layout whose forward shapes differ from world 1's
+    are not held to it: Adam's first update is about lr x sign(g), so bf16
+    noise in the small gradients moves them by ~2e-3, a third of what
+    three updates move them.) Returns the launch counts of 13c and of
+    13d's model = 2 rank 0 ("mesh_dpo_tp")."""
+    import shutil
+
+    from vlrlhf_torch.cli.main import main as cli_main
+
+    out = _build_dir("phase13")
+    procs = {}
+    try:
+        dpo_out = os.path.join(out, "dpo")
+        mme, seed = write_eval_data(out)
+        os.makedirs(os.path.join(out, "ranks"), exist_ok=True)
+        got13d = os.path.join(out, "ranks", "13d.pt")
+        env = dict(os.environ, WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(_free_port()))
+        procs = {
+            "13b": start_logged(torchrun_cmd(
+                1, "-m", "vlrlhf_torch.cli.main", "dpo", "--synthetic", "8", "--mesh_fsdp",
+                "-1", "--max_steps", "2", "--logging_steps", "1",
+                "--per_device_train_batch_size", "1", "--output_dir", dpo_out)),
+            "13c": start_logged(torchrun_cmd(
+                2, os.path.abspath(__file__), "--mesh13c-worker", mme, seed,
+                os.path.join(out, "two"))),
+            **{f"13d rank {r}": start_logged(
+                [sys.executable, os.path.abspath(__file__), "--mesh13d-worker", got13d],
+                env=dict(env, RANK=str(r))) for r in range(2)},
+        }
+        one = mesh13c_eval(mme, seed, os.path.join(out, "one"))
+        world1 = mesh13d_run(os.path.join(out, "world1"))
+        # the control of fsdp = 2: one process, each forward on one pair as
+        # a rank's, the two pairs' gradients met by accumulation
+        accum = mesh13d_run(os.path.join(out, "accum"), per_device=1, accumulate=2)
+        for what in list(procs):
+            finish_logged(procs.pop(what), what)
+
+        lines = _metrics_lines(os.path.join(dpo_out, "dpo_metrics.jsonl"))
+        vals = [v for r in lines for v in r.values() if isinstance(v, float)]
+        print(f"13b torchrun dpo --synthetic 8 --mesh_fsdp -1: {len(lines)} logged steps, "
+              f"losses {[r['loss'] for r in lines]}", flush=True)
+        if len(lines) != 2 or not all(np.isfinite(vals)) or \
+                not os.path.exists(os.path.join(dpo_out, "adapters", "params.pt")):
+            raise AssertionError(f"13b: want 2 finite logged steps and adapters/: {lines}")
+
+        rows = {}
+        for k in ("one", "two"):  # each run decodes the TSV's images into its own temp dir
+            for bench in ("mme", "seedbench"):
+                with open(os.path.join(out, k, f"{bench}.json")) as f:
+                    rows[k, bench] = [dict(r, img=os.path.basename(str(r.get("img"))))
+                                      for r in json.load(f)]
+        with open(os.path.join(out, "two", "launches.json")) as f:
+            eval_launches = json.load(f)
+        same = {b: rows["one", b] == rows["two", b] for b in ("mme", "seedbench")}
+        ppl = [r["ppl"] for r in rows["two", "seedbench"]]
+        print(f"13c torchrun eval, 2 ranks over gloo on one card (LLaVA-1.5-7B widths, 2 "
+              f"layers): MME {len(rows['two', 'mme'])} rows, seedbench "
+              f"{len(rows['two', 'seedbench'])} rows (ppl {min(ppl):.4f}-{max(ppl):.4f}, "
+              f"{len(set(ppl))} distinct), equal to the in-process run's {same}; launches "
+              f"(both ranks) {json.dumps(eval_launches)}, in-process {json.dumps(one)}",
+              flush=True)
+        if not all(same.values()) or len(rows["one", "mme"]) != 32 or len(ppl) != 64:
+            raise AssertionError("13c: the torchrun eval rows differ from the in-process run's")
+        if eval_launches != one:
+            raise AssertionError("13c: the ranks' launches differ from the in-process run's")
+
+        got = torch.load(got13d, weights_only=False)
+        print(f"13d two ranks on one card (gloo), losses / grad norms per update: world 1 "
+              f"{world1['losses']} / {world1['norms']}; world 1 accumulating 2 x 1 pair "
+              f"{accum['losses']}; "
+              + "; ".join(f"{k} {v['losses']} / {v['norms']}" for k, v in got.items()),
+              flush=True)
+        gaps = {"fsdp2 vs accum": grad_gap(got["fsdp2"], accum),
+                "fsdp2 vs world1": grad_gap(got["fsdp2"], world1),
+                "model2 vs world1": grad_gap(got["model2"], world1),
+                "planted vs world1": grad_gap(got["model2_planted"], world1)}
+        loss_gap = max(abs(a - b) for a, b in zip(got["fsdp2"]["losses"], accum["losses"]))
+        print("13d first update's gradients, worst leaf's relative L2 gap (leaf) "
+              + json.dumps({k: (round(v, 6), leaf) for k, (v, leaf) in gaps.items()})
+              + f", tol {MESH_GRAD_TOL} (the planted fault, model = 2 without the row-parallel "
+              f"all-reduce, must exceed it); fsdp2 vs accum losses max |diff| {loss_gap:.3e} "
+              f"(tol {MESH_LOSS_TOL})", flush=True)
+        for k, (v, leaf) in gaps.items():
+            if (v > MESH_GRAD_TOL) != k.startswith("planted"):
+                raise AssertionError(f"13d {k}: the first update's gradients are {v} apart at "
+                                     f"{leaf} (tol {MESH_GRAD_TOL})")
+        if loss_gap > MESH_LOSS_TOL:
+            raise AssertionError(f"13d fsdp2: losses {got['fsdp2']['losses']} against the "
+                                 f"accumulating control {accum['losses']}")
+        for name in ("fsdp2", "model2"):
+            g = got[name]
+            if len(g["losses"]) != 3 or not np.isfinite(g["losses"]).all() or \
+                    abs(g["losses"][0] - math.log(2.0)) > 1e-6 or \
+                    abs(g["norms"][0] - world1["norms"][0]) > 1e-2 * world1["norms"][0]:
+                raise AssertionError(f"13d {name}: {g['losses']} / {g['norms']}: step 1 must "
+                                     f"read ln 2 and world 1's norm {world1['norms'][0]}")
+        return {"mesh_eval": eval_launches, "mesh_dpo_tp": got["model2"]["launches"]}
+    finally:
+        for proc, _ in procs.values():
+            proc.kill()
+            proc.communicate()
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def grad_gap(got: dict, ref: dict) -> tuple:
+    """(the largest relative L2 gap over the leaves of two runs' first-update
+    gradients, its leaf); a leaf both hold at zero (LoRA's a, whose
+    gradient is 0 while b is) counts 0."""
+    worst = (0.0, None)
+    for k, w in ref["grads"].items():
+        g = got["grads"][k]
+        num, den = float((g - w).norm()), float(w.norm())
+        gap = num / den if den > 0 else (0.0 if num == 0 else math.inf)
+        worst = max(worst, (gap, k), key=lambda t: t[0])
+    return worst
+
+
+MESH13D = (("fsdp2", (1, 2, 1), 1, 3, False), ("model2", (1, 1, 2), 2, 3, False),
+           ("model2_planted", (1, 1, 2), 2, 1, True))
+MESH_LOSS_TOL = 1e-3  # 13d: fsdp = 2's losses against its same-arithmetic control
+MESH_GRAD_TOL = 2e-2  # 13d: a layout's first-update gradients against world 1's, per leaf
+MESH13D_LR = 1e-6  # keeps 13d's three losses between ln 2 and 0 (1e-4 took step 2 to 1e-4)
+
+
+def mesh_2layer_cfg():
+    """LLaVA-1.5-7B's widths at 2 LM / 2 tower layers, attn remat (13c, 13d)."""
+    import dataclasses
+
+    from vlrlhf_torch.cli.main import with_remat_policy
+    from vlrlhf_torch.models.config import _llava_7b
+
+    full = with_remat_policy(_llava_7b(torch.bfloat16), "attn")
+    return dataclasses.replace(full, lm=dataclasses.replace(full.lm, num_layers=2),
+                               vision=dataclasses.replace(full.vision, num_layers=2))
+
+
+def mesh13c_eval(mme: str, seed: str, out: str) -> dict:
+    """13c's eval (phase 8's static MME run and its seedbench CE ranking at
+    2 layers, seeded weights): build_eval and run_eval for each; under a
+    process group each rank runs its shard of the rows. Returns the
+    launches summed over the ranks."""
+    from vlrlhf_torch.cli.main import build_eval, run_eval
+    from vlrlhf_torch.core import dist as vdist
+    from vlrlhf_torch.models.common import init_random_
+    from vlrlhf_torch.models.vlm import VLM
+
+    cfg = mesh_2layer_cfg()
+    model = VLM(cfg, "cuda")
+    init_random_(model, torch.Generator(device="cuda").manual_seed(0))
+    fns = counted(("flash_fwd", "decode_attention", "chunk_attention"))
+    zero_counts(fns)
+    for bench, data in (("mme", mme), ("seedbench", seed)):
+        args = eval_args(benchmark=bench, data_file=data, output_dir=out)
+        runner = build_eval(cfg, model, make_processor(cfg), args, eval_image)
+        run_eval(runner, args, progress=False)
+    counts = read_counts(fns)
+    per_rank = vdist.gather_objects([counts])
+    del runner, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n: sum(c[n] for c in per_rank) for n in counts}
+
+
+def mesh13c_worker(mme: str, seed: str, out: str) -> int:
+    """A rank of 13c (started by torchrun): gloo on cuda:0; rank 0 writes
+    the launches beside the rows."""
+    import faulthandler
+
+    import torch.distributed as tdist
+
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    tdist.init_process_group("gloo")
+    launches = mesh13c_eval(mme, seed, out)
+    if tdist.get_rank() == 0:
+        with open(os.path.join(out, "launches.json"), "w") as f:
+            json.dump(launches, f)
+    tdist.barrier()
+    tdist.destroy_process_group()
+    return 0
+
+
+def mesh13d_run(out: str, shape=None, per_device: int = 2, accumulate: int = 1,
+                updates: int = 3) -> dict:
+    """One 13d run: LLaVA-1.5-7B's widths at 2 LM / 2 tower layers (seeded
+    bf16 on cuda:0), 2 pairs per global batch, build_dpo (precomputed
+    reference logps) and train_steps for `updates` updates; returns rank
+    0's logged {"losses", "norms"} per update, "grads": the first update's
+    gradients (Adam's first moment after it, gathered to the world-1
+    layout, on the host) and the flash kernels' "launches". With `shape`,
+    under that (data, fsdp, model) mesh of the process group; with
+    `accumulate` > 1 in one process, --gradient_accumulation_steps over
+    micro-batches of `per_device` pairs (an update's loss is its
+    micro-batches' mean)."""
+    import argparse
+
+    from vlrlhf_torch.cli.main import build_dpo, make_logger, train_steps
+    from vlrlhf_torch.core.dist import is_main_process
+    from vlrlhf_torch.core.mesh import MeshConfig, make_mesh, set_global_mesh
+    from vlrlhf_torch.core.partitioning import tp_dim
+    from vlrlhf_torch.models.common import init_random_
+    from vlrlhf_torch.models.vlm import VLM
+
+    cfg = mesh_2layer_cfg()
+    mesh = make_mesh(MeshConfig(*shape), "cuda") if shape is not None else None
+    fns = counted(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
+    try:
+        model = VLM(cfg, "cuda")
+        init_random_(model, torch.Generator(device="cuda").manual_seed(1))
+        args = dpo_args(output_dir=out, per_device_train_batch_size=per_device,
+                        gradient_accumulation_steps=accumulate, num_train_epochs=6.0,
+                        max_steps=3, learning_rate=MESH13D_LR, warmup_ratio=0.0, run_name=None)
+        run = build_dpo(cfg, model, make_processor(cfg), args,
+                        [pair_row(7, 150, 260, 250), pair_row(8, 140, 240, 270)], seeded_image)
+        logger = make_logger(args, "dpo", run)
+        grads = {}
+
+        def first_update(step, _metrics):
+            if step == accumulate:  # collective under a mesh: every rank is here
+                grads.update({k: host_full(v, tp_dim(k), mesh) / (1 - run.ocfg.b1)
+                              for k, v in run.state_tree()["mu"].items()})
+
+        zero_counts(fns)
+        # the optimizer's schedule counts 3 updates (build_dpo read max_steps 3)
+        train_steps(run, argparse.Namespace(**{**vars(args), "max_steps": updates * accumulate}),
+                    logger, on_step=first_update)
+        launches = read_counts(fns)
+        logger.close()
+        got = {"losses": [], "norms": [], "grads": grads, "launches": launches}
+        if is_main_process():
+            lines = _metrics_lines(os.path.join(out, "dpo_metrics.jsonl"))
+            for k in ("losses", "norms"):
+                vals = [r["loss" if k == "losses" else "grad_norm"] for r in lines]
+                got[k] = [sum(vals[i:i + accumulate]) / accumulate
+                          for i in range(0, len(vals), accumulate)]
+        del run, model
+    finally:
+        set_global_mesh(None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return got
+
+
+def host_full(t: torch.Tensor, dim, mesh) -> torch.Tensor:
+    """A leaf's world-1 value in f32 on the host: its FSDP2 shards, then its
+    tensor-parallel parts along `dim`, joined from CPU copies
+    (all_gather_object). 13d's ranks share the card over gloo, and there
+    DTensor.full_tensor of a CUDA shard took a rank down (SIGSEGV) on the
+    H100."""
+    import torch.distributed as tdist
+    from torch.distributed.tensor import DTensor
+
+    def joined(x, group, d):
+        parts = [None] * tdist.get_world_size(group)
+        tdist.all_gather_object(parts, x, group=group)
+        return torch.cat(parts, dim=d)
+
+    x = (t.to_local() if isinstance(t, DTensor) else t).detach().float().cpu()
+    if mesh is not None and isinstance(t, DTensor) and mesh.fsdp > 1:
+        x = joined(x, mesh.fsdp_group, 0)
+    if mesh is not None and dim is not None and mesh.model > 1:
+        x = joined(x, mesh.tp_group, dim)
+    return x
+
+
+@contextlib.contextmanager
+def row_reduce_skipped():
+    """13d's planted fault for the block: a row-parallel Linear's product
+    (wo, down) is not summed over the model group (models/common.py's
+    reduce_from_tp is the identity)."""
+    from vlrlhf_torch.models import common
+
+    kept = common.reduce_from_tp
+    common.reduce_from_tp = lambda y, group: y
+    try:
+        yield
+    finally:
+        common.reduce_from_tp = kept
+
+
+def mesh13d_worker(out: str) -> int:
+    """A rank of 13d (started by phase_launchers with torchrun's
+    environment): gloo on cuda:0, each MESH13D layout in turn; rank 0
+    writes {name: mesh13d_run's result} to `out` (torch.save)."""
+    import faulthandler
+
+    import torch.distributed as tdist
+
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    tdist.init_process_group("gloo")
+    got = {}
+    for name, shape, per_device, updates, planted in MESH13D:
+        with row_reduce_skipped() if planted else contextlib.nullcontext():
+            got[name] = mesh13d_run(os.path.join(os.path.dirname(out), name), shape,
+                                    per_device, updates=updates)
+    if tdist.get_rank() == 0:
+        torch.save(got, out)
+    tdist.barrier()
+    tdist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4522,6 +5139,10 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--mesh13d-worker"]:  # a rank of phase 13d, started below
+        return mesh13d_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--mesh13c-worker"]:  # a rank of phase 13c, started below
+        return mesh13c_worker(*sys.argv[2:5])
     t_start = time.perf_counter()
 
     def mark(label: str) -> None:
@@ -4581,11 +5202,16 @@ def main() -> int:
     qwen_launches = phase_qwen_vl()
     xc2_launches = phase_internlm_xc2()
     mark("12")
+    mesh_launches, _ = phase_mesh_dpo(dpo_stats)
+    mark("13a")
+    mesh_launches.update(phase_launchers())
+    mark("13")
     runs = {"serve": serve_launches, "serve_int8_spec": spec_launches, "chat_int8": chat_launches,
             "serve_int4": int4_launches, "dpo": dpo_launches, "dpo_qlora4": qlora_launches,
             "dpo_trainer": trainer_launches, "eval": eval_launches,
             "serve_adapters": adapter_launches, **ckpt_launches, **trainer10_launches,
-            **next_launches, **blip_launches, **int4_12, **qwen_launches, **xc2_launches}
+            **next_launches, **blip_launches, **int4_12, **qwen_launches, **xc2_launches,
+            **mesh_launches}
     names = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention", "chunk_attention",
              "int4_matmul", "int4_matmul_t")
     by_path = {name: {path: counts[name] for path, counts in runs.items() if name in counts}
@@ -4661,6 +5287,15 @@ def main() -> int:
                  if by_path[name].get(path, 0) <= 0]
     if missing12:
         raise AssertionError(f"phase 12 paths that did not launch their kernels: {missing12}")
+    if any(by_path[name].get("mesh_dpo", 0) <= 0
+           for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")):
+        raise AssertionError(f"phase 13a (mesh_dpo) must launch kernels 1-3: "
+                             f"{ {n: by_path[n].get('mesh_dpo') for n in by_path} }")
+    if any(by_path[name].get("mesh_dpo_tp", 0) <= 0
+           for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")) or \
+            any(by_path[name].get("mesh_eval", 0) <= 0 for name in ("flash_fwd", "decode_attention")):
+        raise AssertionError(f"phase 13c (mesh_eval) must launch kernels 1 and 4, 13d "
+                             f"(mesh_dpo_tp) kernels 1-3: {by_path}")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
@@ -4668,7 +5303,7 @@ def main() -> int:
          "max_abs_err": kernels[name]["max_abs_err"], "ms": kernels[name]["ms"],
          "plain_ms": kernels[name]["plain_ms"], "bound_ms": kernels[name]["bound_ms"],
          "bound_by": kernels[name]["bound_by"], "library_ms": kernels[name]["library_ms"],
-         **{k: kernels[name][k] for k in ("int8", "chat", "eval", "ppo", "families")
+         **{k: kernels[name][k] for k in ("int8", "chat", "eval", "ppo", "families", "tp")
             if k in kernels[name]}}
         for name in names
     ]}

@@ -1,0 +1,237 @@
+"""The multi-GPU entry points on the CPU: `torchrun --standalone
+--nproc_per_node 2 -m vlrlhf_torch.cli.main ... --device cpu` (gloo) against
+the same command in one plain process, f32:
+  - `dpo --synthetic 10 --mesh_fsdp -1` with one row per rank and the
+    eval hook (--eval_steps 2 --eval_samples 2): every dpo_metrics.jsonl
+    value but perf/* (eval/* too) of the single-process run with two rows
+    per batch within 1e-5, the same greedy samples (rank 0 writes them,
+    generated from the gathered weights), and the rank-0 checkpoint a
+    plain run resumes from; LoRA dropout is off, since a mask is drawn
+    over a rank's own rows (tests/test_torch_dist_train.py holds the
+    tensor-parallel masks to the single-process ones);
+  - `dpo` from a tiny HF checkpoint and a plain_dpo dataset with
+    --merge_adapter_after_training: adapters/, merged/ and merged_hf/
+    equal the single-process run's within 1e-5;
+  - `eval --synthetic 4` on pope (generation) and seedbench (CE ranking):
+    each rank runs its shard of the rows, and the gathered rows and
+    scores equal the single-process run's;
+  - the refusals, each naming its reason: --mesh_pipe 2,
+    --pipeline_microbatches, --sequence_parallel_axis fsdp, ppo on 2
+    processes, mesh flags on eval and ppo, a mesh a plain run cannot make,
+    heads or int4 row widths --mesh_model does not divide, --eval_samples
+    under --mesh_model 2."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_cli_import import FIXTURES, ROWS, tiny_cfg
+from tests.test_torch_score import _pope_and_seed
+from vlrlhf_torch.cli.main import main
+
+TOL = 1e-5
+CPU = ["--device", "cpu", "--bf16", "false"]
+DPO = ["--max_steps", "3", "--logging_steps", "1", "--lora_r", "4", "--max_length", "64",
+       "--learning_rate", "1e-3", "--warmup_ratio", "0", "--lora_dropout", "0"]
+# the eval hook: the holdout's loss pass under the mesh and greedy samples
+# from the gathered weights (10 synthetic rows: 2 held out, 8 train)
+EVAL = ["--eval_steps", "2", "--eval_ratio", "0.2", "--eval_samples", "2"]
+
+
+def torchrun(args: list, nproc: int = 2) -> subprocess.Popen:
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         str(nproc), "-m", "vlrlhf_torch.cli.main", *args],
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish(proc: subprocess.Popen) -> tuple[int, str]:
+    out, _ = proc.communicate(timeout=300)
+    return proc.returncode, out
+
+
+def metrics(path) -> list[dict]:
+    return [json.loads(x) for x in path.read_text().splitlines()]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every torchrun command started at once; the single-process runs go
+    meanwhile."""
+    from vlrlhf_torch.models.common import init_random_
+    from vlrlhf_torch.models.vlm import VLM
+    from vlrlhf_torch.utils.synthetic_checkpoint import write_llava_checkpoint
+
+    tmp = tmp_path_factory.mktemp("dist_cli")
+    ckpt = tmp / "ckpt"
+    cfg = tiny_cfg()
+    write_llava_checkpoint(str(ckpt), init_random_(VLM(cfg, device="cpu"),
+                                                   torch.Generator().manual_seed(2)).state_dict(),
+                           cfg, dtype="float32")
+    data = tmp / "pairs.json"
+    data.write_text(json.dumps(ROWS + ROWS[:1]))  # 4 rows: 2 global batches of 2
+    hf = ["--model_name_or_path", str(ckpt), "--dataset_name", "plain_dpo", "--data_path",
+          str(data), "--image_root", str(FIXTURES), "--max_steps", "2", "--max_length", "256",
+          "--lora_r", "8", "--lora_alpha", "16", "--learning_rate", "1e-2", "--warmup_ratio",
+          "0", "--lora_dropout", "0", "--merge_adapter_after_training"]
+    bench = _pope_and_seed(tmp)
+    ev = {b: ["eval", *CPU, "--synthetic", "4", "--benchmark", b, "--data_file", str(bench[b]),
+              "--max_new_tokens", "4", "--max_length", "128", "--per_device_train_batch_size",
+              "2"] for b in bench}
+    procs = {
+        "dpo": torchrun(["dpo", *CPU, "--synthetic", "10", *DPO, *EVAL, "--save_steps", "2",
+                         "--output_dir", str(tmp / "dpo2"), "--per_device_train_batch_size",
+                         "1", "--mesh_fsdp", "-1"]),
+        "hf": torchrun(["dpo", *CPU, *hf, "--output_dir", str(tmp / "hf2"),
+                        "--per_device_train_batch_size", "1"]),
+        "gqa": torchrun(["dpo", *CPU, "--synthetic", "4", "--model_family",
+                         "llava_next_mistral", "--mesh_model", "2", "--output_dir",
+                         str(tmp / "gqa")]),
+        **{f"eval/{b}": torchrun([*ev[b], "--output_dir", str(tmp / f"{b}2")]) for b in bench},
+    }
+    main(["dpo", *CPU, "--synthetic", "10", *DPO, *EVAL, "--save_steps", "2", "--output_dir",
+          str(tmp / "dpo1"), "--per_device_train_batch_size", "2"])
+    main(["dpo", *CPU, *hf, "--output_dir", str(tmp / "hf1"), "--per_device_train_batch_size",
+          "2"])
+    for b in bench:
+        main([*ev[b], "--output_dir", str(tmp / f"{b}1")])
+    done = {k: finish(p) for k, p in procs.items()}
+    return tmp, done
+
+
+def _ok(done, key):
+    rc, out = done[key]
+    assert rc == 0, out[-3000:]
+    return out
+
+
+def test_dpo_on_two_ranks_logs_the_single_process_metrics(runs):
+    tmp, done = runs
+    _ok(done, "dpo")
+    one, two = (metrics(tmp / d / "dpo_metrics.jsonl") for d in ("dpo1", "dpo2"))
+    assert [r["step"] for r in two] == [1, 2, 2, 3] and len(one) == len(two)
+    assert abs(two[0]["loss"] - np.log(2)) < 1e-6
+    for a, b in zip(one, two):
+        assert a.keys() == b.keys()
+        for k in a.keys() - {"step"} - {k for k in a if k.startswith("perf/")}:
+            np.testing.assert_allclose(b[k], a[k], atol=TOL, rtol=TOL, err_msg=f"{a['step']} {k}")
+    assert "eval/loss" in two[2]
+    # rank 0 wrote the samples: the policy's and the reference's greedy tokens
+    samples = [(tmp / d / "dpo_samples.jsonl").read_text().splitlines() for d in ("dpo1", "dpo2")]
+    assert len(samples[1]) == 2 and samples[0] == samples[1]
+
+
+def test_two_rank_checkpoint_resumes_in_a_plain_run(runs, tmp_path):
+    """The rank-0 checkpoint at step 2 resumes in one process and its
+    next step is the one a plain run resumed from its own step 2 takes."""
+    tmp, done = runs
+    _ok(done, "dpo")
+    outs = {}
+    for name in ("dpo2", "dpo1"):
+        out = tmp_path / name
+        src = tmp / name / "checkpoints"
+        main(["dpo", *CPU, "--synthetic", "10", *DPO, *EVAL, "--output_dir", str(out),
+              "--per_device_train_batch_size", "2", "--resume_from_checkpoint", str(src)])
+        outs[name] = [r for r in metrics(out / "dpo_metrics.jsonl") if "loss" in r][-1]
+    assert outs["dpo2"]["step"] == outs["dpo1"]["step"] == 3
+    np.testing.assert_allclose(outs["dpo2"]["loss"], outs["dpo1"]["loss"], atol=TOL, rtol=TOL)
+
+
+def test_checkpoint_run_writes_the_single_process_files(runs):
+    from safetensors.numpy import load_file
+
+    from vlrlhf_torch.train.checkpoint import load_params
+
+    tmp, done = runs
+    _ok(done, "hf")
+    for sub in ("adapters", "merged"):
+        a, b = load_params(str(tmp / "hf1" / sub)), load_params(str(tmp / "hf2" / sub))
+        assert a.keys() == b.keys() and len(a) > 10
+        for k in a:
+            np.testing.assert_allclose(b[k].numpy(), a[k].numpy(), atol=TOL, rtol=TOL,
+                                       err_msg=f"{sub} {k}")
+    a = load_file(str(tmp / "hf1" / "merged_hf" / "model.safetensors"))
+    b = load_file(str(tmp / "hf2" / "merged_hf" / "model.safetensors"))
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_allclose(b[k], a[k], atol=TOL, rtol=TOL, err_msg=k)
+    assert sorted(os.listdir(tmp / "hf1" / "merged_hf")) == sorted(
+        os.listdir(tmp / "hf2" / "merged_hf"))
+
+
+@pytest.mark.parametrize("bench", ["pope", "seedbench"])
+def test_eval_on_two_ranks_gathers_the_single_process_rows(runs, bench):
+    tmp, done = runs
+    out = _ok(done, f"eval/{bench}")
+    one = json.loads((tmp / f"{bench}1" / f"{bench}.json").read_text())
+    two = json.loads((tmp / f"{bench}2" / f"{bench}.json").read_text())
+    assert len(two) == len(one) == (3 if bench == "pope" else 8)
+    key = "ppl" if bench == "seedbench" else "response"
+    for a, b in zip(one, two):
+        assert {k: v for k, v in a.items() if k != key} == {k: v for k, v in b.items() if k != key}
+        if key == "ppl":
+            np.testing.assert_allclose(b[key], a[key], rtol=TOL, atol=TOL)
+        else:
+            assert b[key] == a[key]
+    assert out.count("{") >= 2  # both ranks print the metrics
+
+
+def test_refuses_kv_heads_that_mesh_model_does_not_divide(runs):
+    rc, out = runs[1]["gqa"]
+    assert rc != 0 and "--mesh_model 2: num_kv_heads 1 is not divisible" in out, out[-2000:]
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--mesh_pipe", "2"], "--mesh_pipe / --pipeline_microbatches: the GPipe pipeline"),
+    (["--pipeline_microbatches", "4"], "--mesh_pipe / --pipeline_microbatches"),
+    (["--sequence_parallel_axis", "fsdp"], "--sequence_parallel_axis fsdp: ring attention"),
+    (["--mesh_model", "2"], "--mesh_model 2: .*launched by torchrun"),
+])
+def test_dpo_refusals(tmp_path, flags, match):
+    with pytest.raises(SystemExit, match=match):
+        main(["dpo", *CPU, "--synthetic", "4", "--output_dir", str(tmp_path), *flags])
+
+
+def test_ppo_eval_and_eval_samples_refusals(tmp_path, monkeypatch):
+    with pytest.raises(SystemExit, match="eval takes no mesh flags"):
+        main(["eval", *CPU, "--synthetic", "4", "--benchmark", "pope", "--data_file", "x",
+              "--output_dir", str(tmp_path), "--mesh_fsdp", "2"])
+    with pytest.raises(SystemExit, match="ppo takes no mesh flags"):
+        main(["ppo", *CPU, "--synthetic", "4", "--output_dir", str(tmp_path),
+              "--mesh_model", "2"])
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(SystemExit, match="ppo on 2 processes: PPO and generation under a mesh"):
+        main(["ppo", *CPU, "--synthetic", "4", "--output_dir", str(tmp_path)])
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    with pytest.raises(SystemExit, match="--eval_samples with --mesh_model 2: generation"):
+        main(["dpo", *CPU, "--synthetic", "4", "--output_dir", str(tmp_path), "--eval_steps",
+              "1", "--eval_samples", "2", "--mesh_model", "2", "--mesh_fsdp", "1"])
+
+
+def test_int4_row_width_that_mesh_model_does_not_divide_is_refused():
+    """An int4 row-parallel linear whose shard would not be a multiple of
+    128 input rows is refused by name before anything is sharded."""
+    from tests.test_int4 import _vlm128
+    from vlrlhf_torch.core.partitioning import check_tp
+    from vlrlhf_torch.models.common import init_random_
+    from vlrlhf_torch.models.vlm import VLM
+    from vlrlhf_torch.ops.quant import TRAIN_QUANT_PATTERNS, quantize_params
+    from vlrlhf_torch.utils.bridge import vlm_config_from
+
+    model = init_random_(VLM(vlm_config_from(_vlm128()), device="cpu"),
+                         torch.Generator().manual_seed(0))
+    check_tp(model, 2)  # dense: 4 heads and 256 MLP rows split in two
+    quantize_params(model, TRAIN_QUANT_PATTERNS, bits=4)
+    with pytest.raises(ValueError, match=r"int4 row-parallel linear lm\.layers\.0\.wo would "
+                                         r"hold 64 input rows"):
+        check_tp(model, 2)
+    with pytest.raises(ValueError, match="num_heads 4 is not divisible"):
+        check_tp(model, 3)

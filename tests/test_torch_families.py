@@ -48,13 +48,16 @@ def _jax_init(jcfg):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_family(family: str, seed: int):
+def _jax_family(family: str, seed: int, lm_overrides: tuple = ()):
     """(jax cfg, jax params) of the scaled-down `family`, built once per
-    (family, seed) and shared by the tests (jax arrays are immutable)."""
+    (family, seed, lm_overrides: (field, value) pairs replaced in its
+    LMConfig) and shared by the tests (jax arrays are immutable)."""
     from vlrlhf_tpu.models.registry import FAMILIES as JF
     from vlrlhf_tpu.models.registry import scale_down
 
     jcfg = scale_down(JF[family].make_config())
+    if lm_overrides:
+        jcfg = dataclasses.replace(jcfg, lm=dataclasses.replace(jcfg.lm, **dict(lm_overrides)))
     if jcfg.grid_pinpoints:
         jcfg = dataclasses.replace(jcfg, grid_pinpoints=PINPOINTS)
     params = _jax_init(jcfg)(jax.random.PRNGKey(seed))
@@ -75,12 +78,13 @@ def _jax_family(family: str, seed: int):
     return jcfg, params
 
 
-def family_port(family: str, seed: int = 0, lora: bool = False, b_offset: float = 0.01):
+def family_port(family: str, seed: int = 0, lora: bool = False, b_offset: float = 0.01,
+                lm_overrides: tuple = ()):
     """(jax cfg, jax params, port model[, lcfg, jax adapters]) sharing one
     set of weights; anyres families get a newline row and the small
     pinpoints (vlrlhf_tpu's tests/test_anyres.py setup). The port's model
     is new on every call; the JAX side is shared (`_jax_family`)."""
-    jcfg, params = _jax_family(family, seed)
+    jcfg, params = _jax_family(family, seed, lm_overrides)
     model = VLM(vlm_config_from(jcfg), device="cpu")
     load_vlm_params(model, jax.device_get(params))
     if not lora:

@@ -1,0 +1,191 @@
+"""One rank of the port's multi-process CPU checks (gloo), started by
+tests/test_torch_dist_*.py with torchrun's environment (RANK, WORLD_SIZE,
+LOCAL_RANK, MASTER_ADDR, MASTER_PORT). It imports torch and vlrlhf_torch
+only.
+
+    python -m tests.torch_dist_worker JOB OUT
+
+JOB is a torch.save of {"cases": [...]}; each case (but "preempt", a
+SIGTERM on one rank during run_training) names a mesh
+(data, fsdp, model), a kind ("train" or "checkpoint"), a pickled port
+model holding its adapters, a global numpy batch and the step's configs.
+Every rank applies the plan (core.partitioning.shard_model_), reads its
+data-parallel slice of the batch and steps (with "resume_dir" from that
+checkpoint's latest step; with "save_dir" saving the state before step
+"save_at" as train_steps does); rank 0 writes OUT, a torch.save of
+{case name: {"metrics": [per step, means over the ranks], "trainable":
+{key: world-1 numpy}}}.
+"""
+
+from __future__ import annotations
+
+import copy
+import sys
+
+import numpy as np
+import torch
+
+from vlrlhf_torch.core import dist as vdist
+from vlrlhf_torch.core.mesh import MeshConfig, make_mesh, set_global_mesh
+from vlrlhf_torch.core.partitioning import (
+    attach_norm_groups_, full_state_tree, shard_full, shard_model_, tp_dim,
+)
+from vlrlhf_torch.lora.lora import lora_keys
+from vlrlhf_torch.train.dpo import DPOConfig, adapter_params, batch_to_device, dpo_step
+from vlrlhf_torch.train.rm import RMConfig, rm_step
+from vlrlhf_torch.train.checkpoint import CheckpointManager
+from vlrlhf_torch.train.sft import SFTConfig, sft_step
+from vlrlhf_torch.train.train_state import (
+    OptimizerConfig, init_train_state, load_state_tree_, state_tree,
+)
+
+PAIR_KEYS = ("pixel_values", "ref_chosen_logps", "ref_rejected_logps")
+
+
+def local_batch(batch: dict, kind: str, rank: int, size: int) -> dict:
+    """This data-parallel rank's rows of a global batch: a pair batch
+    [chosen (B); rejected (B)] keeps [chosen[lo:hi]; rejected[lo:hi]] and
+    the per-pair leaves' [lo:hi]; an sft batch its rows [lo:hi]."""
+    out = {}
+    n = batch["input_ids"].shape[0]
+    pairs = kind in ("dpo", "rm")
+    per = (n // 2 if pairs else n) // size
+    lo, hi = rank * per, (rank + 1) * per
+    for k, v in batch.items():
+        if pairs and v.shape[0] == n:
+            out[k] = np.concatenate([v[lo:hi], v[n // 2 + lo:n // 2 + hi]])
+        else:
+            out[k] = v[lo:hi]
+    return out
+
+
+def _numpy_tree(tree: dict) -> dict:
+    return {k: v.float().cpu().numpy() for k, v in tree.items()}
+
+
+def run_case(case: dict) -> dict:
+    torch.manual_seed(0)
+    mesh = make_mesh(MeshConfig(*case["mesh"]), "cpu")
+    model = copy.deepcopy(case["model"])
+    kind = case.get("step", "dpo")
+    head = None
+    keys = lora_keys(model)
+    shard_model_(model, mesh)
+    params = adapter_params(model)
+    if kind == "rm":
+        head = torch.nn.Parameter(torch.as_tensor(case["head"]).clone())
+        params, keys = params + [head], [f"adapters/{k}" for k in keys] + ["rm_head/kernel"]
+    ocfg = OptimizerConfig(**case["ocfg"])
+    state = init_train_state(params, ocfg)
+    attach_norm_groups_(state, keys, mesh)
+    if case.get("resume_dir"):
+        tree, _ = CheckpointManager(case["resume_dir"]).restore()
+        load_state_tree_(state, keys, tree,
+                         place=lambda k, leaf, full: shard_full(full, leaf, tp_dim(k), mesh))
+    batch = batch_to_device(local_batch(case["batch"], kind, mesh.dp_rank, mesh.dp_size), "cpu")
+    metrics = []
+    ckpt = CheckpointManager(case["save_dir"]) if case.get("save_dir") else None
+    for i in range(case["steps"]):
+        if ckpt is not None and i == case.get("save_at", 1):
+            ckpt.save(i, full_state_tree(state_tree(state, keys), mesh))
+        if kind == "dpo":
+            m = dpo_step(model, DPOConfig(**case["cfg"]), ocfg, state, batch)
+        elif kind == "sft":
+            m = sft_step(model, SFTConfig(**case["cfg"]), ocfg, state, batch)
+        else:
+            m = rm_step(model, RMConfig(**case["cfg"]), ocfg, state, head, batch)
+        metrics.append({k: float(v) for k, v in vdist.global_metrics(m).items()})
+    if ckpt is not None:
+        ckpt.close()
+    tree = full_state_tree(state_tree(state, keys), mesh)
+    set_global_mesh(None)
+    return {"metrics": metrics, "trainable": _numpy_tree(tree["trainable"])}
+
+
+def preempt_case(case: dict) -> dict:
+    """train/loop.py run_training over `steps` dummy steps, rank `rank`
+    sent SIGTERM during step `at`: the step each rank stopped at and the
+    checkpoint steps on disk (rank 0 writes them)."""
+    import os
+    import signal
+
+    from vlrlhf_torch.train.loop import run_training
+
+    done = []
+
+    def step_fn(batch):
+        done.append(1)
+        if vdist.process_index() == case["rank"] and len(done) == case["at"]:
+            os.kill(os.getpid(), signal.SIGTERM)  # the preemption notice
+        return {"loss": torch.tensor(float(len(done)))}
+
+    ckpt = CheckpointManager(case["save_dir"])
+    batches = ({"input_ids": np.zeros((1, 2), np.int64)} for _ in range(case["steps"]))
+    last = run_training(step_fn, batches, "cpu", logging_steps=case["logging_steps"],
+                        checkpoint_manager=ckpt, state_fn=lambda: {"step": len(done)},
+                        save_steps=case["steps"] + 1)
+    ckpt.close()
+    return {"stopped": vdist.process_allgather(np.asarray(last)).tolist(),
+            "saved": ckpt._steps()}
+
+
+def main(job_path: str, out_path: str) -> None:
+    vdist.initialize("cpu")
+    job = torch.load(job_path, weights_only=False)
+    results = {}
+    for case in job["cases"]:
+        run = preempt_case if case.get("step") == "preempt" else run_case
+        results[case["name"]] = run(case)
+    if vdist.is_main_process():
+        torch.save(results, out_path)
+    vdist.sync_global_devices("done")
+    vdist.shutdown()
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:3])
+
+
+class Job:
+    """A job's ranks, started at once as subprocesses with torchrun's
+    environment on a free local port; `result()` waits for them and reads
+    OUT. The caller's process imports nothing from here but this class."""
+
+    def __init__(self, cases: list, world: int, tmp, timeout: float = 300.0):
+        import os
+        import pathlib
+        import socket
+        import subprocess
+
+        tmp = pathlib.Path(tmp)
+        tmp.mkdir(parents=True, exist_ok=True)
+        self.job, self.out, self.timeout = tmp / "job.pt", tmp / "out.pt", timeout
+        torch.save({"cases": cases}, self.job)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        root = pathlib.Path(__file__).resolve().parents[1]
+        self.logs = [tmp / f"rank{r}.log" for r in range(world)]
+        self.procs = []
+        for r in range(world):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                       LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), OMP_NUM_THREADS="1")
+            with open(self.logs[r], "w") as log:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "tests.torch_dist_worker", str(self.job),
+                     str(self.out)], cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT))
+
+    def result(self) -> dict:
+        import subprocess
+
+        try:
+            rcs = [p.wait(timeout=self.timeout) for p in self.procs]
+        except subprocess.TimeoutExpired:
+            for p in self.procs:
+                p.kill()
+            raise
+        if any(rcs):
+            tails = [log.read_text()[-3000:] for log in self.logs]
+            raise RuntimeError(f"ranks exited {rcs}:\n" + "\n---\n".join(tails))
+        return torch.load(self.out, weights_only=False)

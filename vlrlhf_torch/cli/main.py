@@ -55,6 +55,25 @@ merge: --adapter_path (a training run's adapters/; of an rm or ppo run
 only the LoRA adapters) folded into the checkpoint's weights; writes
 <output_dir>/merged and, with --export_format hf, <output_dir>/merged_hf.
 
+Multi-GPU (dpo, sft, rm; eval's rows): launched by torchrun (`torchrun
+--standalone --nproc_per_node N -m vlrlhf_torch.cli.main dpo --mesh_fsdp -1
+...`), each process takes cuda:LOCAL_RANK (or the CPU with --device cpu,
+over gloo), joins the process group and the (data, fsdp, model) mesh of
+--mesh_data / --mesh_fsdp / --mesh_model (core/mesh.py), and the model is
+placed by core/partitioning.py after quantization and the adapters:
+FSDP2 over data x fsdp, tensor parallelism over model.
+--per_device_train_batch_size is rows per data-parallel rank: the global
+batch is that times data x fsdp, and the ranks of one model group read the
+same rows. Metrics are means over the ranks, written by rank 0, which also
+writes the checkpoints (the world-1 tensors, so they resume under any
+layout) and adapters/, merged/, merged_hf/ (the
+files of a single-process run). eval under torchrun gives each rank a
+contiguous shard of the rows and its own whole model; rank 0 gathers,
+judges, scores and writes. Without torchrun nothing of this runs. Refused,
+as multi-GPU part 2 (ROADMAP.md): --mesh_pipe > 1,
+--pipeline_microbatches, --sequence_parallel_axis, ppo on more than one
+process, --eval_samples with --mesh_model > 1, and eval with mesh flags.
+
 Flag names follow vlrlhf_tpu's. Differences: `--device` names the device
 explicitly (default cuda; an absent device is an error, never a silent CPU
 run). ppo reads --reward_model_path also with --synthetic (vlrlhf_tpu
@@ -101,12 +120,72 @@ if TYPE_CHECKING:
 
 
 def resolve_device(name: str) -> torch.device:
+    """--device as a torch.device; a bare "cuda" under torchrun is the
+    process's cuda:LOCAL_RANK."""
+    from vlrlhf_torch.core.dist import launched_by_torchrun, local_device
+
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {name}: no CUDA device is available")
     if dev.type not in ("cuda", "cpu"):
         raise SystemExit(f"--device {name}: only cuda and cpu are supported")
+    if dev.type == "cuda" and dev.index is None and launched_by_torchrun():
+        dev = local_device("cuda")
     return dev
+
+
+PART2 = "multi-GPU part 2 (ROADMAP.md)"
+
+
+def setup_mesh(args, device: torch.device):
+    """The process group and the (data, fsdp, model) mesh of a torchrun
+    launch (core/dist.py, core/mesh.py), or None for a plain run, which
+    must then ask for one device. The part-2 flags are refused here."""
+    from vlrlhf_torch.core import dist
+    from vlrlhf_torch.core.mesh import MeshConfig, make_mesh
+
+    if args.mesh_pipe > 1 or args.pipeline_microbatches:
+        raise SystemExit(f"--mesh_pipe / --pipeline_microbatches: the GPipe pipeline is "
+                         f"{PART2}")
+    if args.sequence_parallel_axis:
+        raise SystemExit(f"--sequence_parallel_axis {args.sequence_parallel_axis}: ring "
+                         f"attention is {PART2}")
+    mcfg = MeshConfig(args.mesh_data, args.mesh_fsdp, args.mesh_model, args.mesh_pipe)
+    if not dist.launched_by_torchrun():
+        try:
+            mcfg.resolve(1)
+        except ValueError as e:
+            raise SystemExit(f"--mesh_data {args.mesh_data} --mesh_fsdp {args.mesh_fsdp} "
+                             f"--mesh_model {args.mesh_model}: {e}; a multi-GPU run is "
+                             "launched by torchrun --nproc_per_node N") from None
+        return None
+    if getattr(args, "eval_samples", 0) and args.mesh_model > 1:
+        raise SystemExit(f"--eval_samples with --mesh_model {args.mesh_model}: generation "
+                         f"over local heads is {PART2}")
+    dist.initialize(device.type)
+    try:
+        return make_mesh(mcfg, device.type)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+
+
+def refuse_mesh_flags(args, command: str, reason: str) -> None:
+    """A command that runs no mesh refuses every mesh flag but the defaults."""
+    flags = (args.mesh_data, args.mesh_fsdp, args.mesh_model, args.mesh_pipe,
+             args.pipeline_microbatches, args.sequence_parallel_axis)
+    if flags != (1, -1, 1, 1, 0, ""):
+        raise SystemExit(f"{command} takes no mesh flags ({reason} {PART2})")
+
+
+def make_logger(args, name: str, run):
+    """The run's MetricsLogger: written by rank 0 only, MFU over every GPU."""
+    from vlrlhf_torch.core import dist
+    from vlrlhf_torch.train.metrics import MetricsLogger
+
+    return MetricsLogger(args.output_dir, args.run_name or name,
+                         flops_per_token=run.flops_per_token,
+                         flops_per_image=run.flops_per_image,
+                         n_devices=dist.process_count(), write=dist.is_main_process())
 
 
 def synthetic_bundle(args, device: torch.device):
@@ -358,6 +437,7 @@ def load_rows(args) -> list[dict]:
     """--dataset_name's builder over --data_path (a local .json / .jsonl)
     and --image_root; --score_margin for vlfeedback_paired; the first
     --data_ratio of the rows (vlrlhf_tpu `_load_rows`, cli/main.py:219-240)."""
+    from vlrlhf_torch.core.dist import main_process_first
     from vlrlhf_torch.data.datasets import DATASET_MAP
 
     if args.dataset_name not in DATASET_MAP:
@@ -372,7 +452,8 @@ def load_rows(args) -> list[dict]:
     if args.dataset_name == "vlfeedback_paired":
         kwargs["score_margin"] = args.score_margin
     try:
-        rows = DATASET_MAP[args.dataset_name](**kwargs)
+        with main_process_first("dataset_cache"):
+            rows = DATASET_MAP[args.dataset_name](**kwargs)
     except ValueError as e:
         raise SystemExit(str(e)) from None
     if args.data_ratio < 1.0:
@@ -436,8 +517,12 @@ def setup_training(model, args) -> tuple[LoraConfig, OptimizerConfig]:
     place (--bits, TRAIN_QUANT_PATTERNS, or the _WIDE set with
     --q_lora_vision) before the adapters attach (--lora_target_modules; 'auto'
     is the family's default, every LM attention and MLP linear but Qwen's
-    MLP down projection, drawn from --seed), then the optimizer's config.
-    `model` holds its base weights on its device already."""
+    MLP down projection, drawn from --seed); under a mesh the plan then
+    places the model (core/partitioning.py shard_model_); then the
+    optimizer's config. `model` holds its base weights on its device
+    already."""
+    from vlrlhf_torch.core.mesh import current_mesh
+    from vlrlhf_torch.core.partitioning import shard_model_
     from vlrlhf_torch.lora.lora import LoraConfig, init_lora
     from vlrlhf_torch.models.config import FAMILIES
     from vlrlhf_torch.train.train_state import OptimizerConfig
@@ -455,6 +540,12 @@ def setup_training(model, args) -> tuple[LoraConfig, OptimizerConfig]:
                       target_patterns=FAMILIES[model.cfg.family].lora_targets
                       if targets == "auto" else tuple(targets.split(",")))
     init_lora(model, lcfg, torch.Generator(device=model.device).manual_seed(args.seed))
+    mesh = current_mesh()
+    if mesh is not None:
+        try:
+            shard_model_(model, mesh)
+        except ValueError as e:  # a width --mesh_model does not divide
+            raise SystemExit(str(e)) from None
     ocfg = OptimizerConfig(
         learning_rate=args.learning_rate, warmup_ratio=args.warmup_ratio,
         total_steps=args.max_steps or 1000, schedule=args.lr_scheduler_type,
@@ -462,6 +553,18 @@ def setup_training(model, args) -> tuple[LoraConfig, OptimizerConfig]:
         grad_accum_steps=args.gradient_accumulation_steps,
     )
     return lcfg, ocfg
+
+
+def mesh_state(state: TrainState, keys: list) -> TrainState:
+    """Under a mesh, the state's gradient-norm groups (core/partitioning.py
+    attach_norm_groups_); the state itself otherwise."""
+    from vlrlhf_torch.core.mesh import current_mesh
+    from vlrlhf_torch.core.partitioning import attach_norm_groups_
+
+    mesh = current_mesh()
+    if mesh is not None:
+        attach_norm_groups_(state, keys, mesh)
+    return state
 
 
 def build_dpo(cfg, model, processor, args, rows: list, image_loader=None) -> DPORun:
@@ -501,9 +604,10 @@ def build_dpo(cfg, model, processor, args, rows: list, image_loader=None) -> DPO
             return dict(_inner(r), ref_chosen_logp=r["ref_chosen_logp"],
                         ref_rejected_logp=r["ref_rejected_logp"])
 
+    keys = lora_keys(model)
     return DPORun(
         model=model, dcfg=dcfg, ocfg=ocfg, lcfg=lcfg,
-        state=init_train_state(adapter_params(model), ocfg), keys=lora_keys(model),
+        state=mesh_state(init_train_state(adapter_params(model), ocfg), keys), keys=keys,
         collator=collator, tokenize_fn=tokenize_fn, rows=rows, eval_rows=eval_rows,
         flops_per_token=dpo_flops_per_token(
             cfg, args.max_length, ref_forward=not (dcfg.reference_free or precompute),
@@ -518,10 +622,14 @@ def make_eval_hook(run: DPORun, processor, args, logger):
     (eval/* means logged at that step) and, with --eval_samples N, greedy
     64-token generations for the first N holdout prompts with the adapters
     on (policy) and off (reference), appended to
-    <output_dir>/dpo_samples.jsonl. None without an eval split."""
+    <output_dir>/dpo_samples.jsonl. None without an eval split. Under a
+    mesh every rank runs every eval batch (its metrics are the same on
+    each) and rank 0 writes."""
     import json
     import os
 
+    from vlrlhf_torch.core.dist import is_main_process
+    from vlrlhf_torch.core.partitioning import unsharded
     from vlrlhf_torch.data.collators import GenerationCollator
     from vlrlhf_torch.generate.engine import GenerateConfig, Generator
     from vlrlhf_torch.train.dpo import batch_to_device, make_dpo_eval_fn
@@ -554,10 +662,16 @@ def make_eval_hook(run: DPORun, processor, args, logger):
         if sample_gen is None:
             return
         outs = {}
-        for name, on in (("policy", True), ("ref", False)):
-            sample_gen.adapters = on
-            outs[name] = sample_gen(sample_batch).cpu().numpy()
+        # under a mesh (model == 1) every rank generates the same samples
+        # from the gathered weights: generation calls module methods
+        # outside FSDP2's hooks
+        with unsharded(run.model):
+            for name, on in (("policy", True), ("ref", False)):
+                sample_gen.adapters = on
+                outs[name] = sample_gen(sample_batch).cpu().numpy()
         sample_gen.adapters = False
+        if not is_main_process():
+            return
         with open(os.path.join(args.output_dir, "dpo_samples.jsonl"), "a") as f:
             for i, r in enumerate(sample_rows):
                 dec = {k: processor.tokenizer.decode(o[i][o[i] != pad].tolist(),
@@ -572,6 +686,8 @@ def maybe_resume(args, run, ckpt) -> int:
     """--resume_from_checkpoint: 'auto' (or 'true') resumes the latest step
     in <output_dir>/checkpoints, a path that manager's latest. Returns the
     step to count on from (0 for a fresh run)."""
+    from vlrlhf_torch.core.mesh import current_mesh
+    from vlrlhf_torch.core.partitioning import shard_full, tp_dim
     from vlrlhf_torch.train.checkpoint import CheckpointManager
     from vlrlhf_torch.train.train_state import load_state_tree_
 
@@ -584,7 +700,12 @@ def maybe_resume(args, run, ckpt) -> int:
         print("no checkpoint found; starting fresh", flush=True)
         return 0
     tree, _ = mgr.restore(step)
-    load_state_tree_(run.state, run.keys, tree)
+    mesh = current_mesh()
+    place = None
+    if mesh is not None:
+        def place(key, leaf, full):
+            return shard_full(full, leaf, tp_dim(key), mesh)
+    load_state_tree_(run.state, run.keys, tree, place=place)
     print(f"resumed from step {step}", flush=True)
     return step
 
@@ -600,18 +721,27 @@ def train_steps(run, args, logger, on_step=None) -> int:
     the last checkpoint is on disk."""
     import os
 
+    from vlrlhf_torch.core.dist import data_parallel_slice
+    from vlrlhf_torch.core.mesh import current_mesh
+    from vlrlhf_torch.core.partitioning import full_state_tree
     from vlrlhf_torch.train.checkpoint import CheckpointManager
     from vlrlhf_torch.train.loop import batch_iterator, prefetch_iterator, run_training
 
     ckpt = CheckpointManager(os.path.join(args.output_dir, "checkpoints"))
     start = maybe_resume(args, run, ckpt)
+    global_bs, span = data_parallel_slice(args.per_device_train_batch_size)
     batches = prefetch_iterator(batch_iterator(
         run.rows, run.tokenize_fn, run.collator, args.per_device_train_batch_size,
-        args.num_train_epochs, args.seed))
+        args.num_train_epochs, args.seed, global_batch_size=global_bs, process_slice=span))
+    mesh = current_mesh()
+    state_fn = run.state_tree
+    if mesh is not None:  # checkpoints hold the world-1 tensors
+        def state_fn():
+            return full_state_tree(run.state_tree(), mesh)
     try:
         return run_training(
             run.step, batches, run.model.device, logger, logging_steps=args.logging_steps,
-            max_steps=args.max_steps, checkpoint_manager=ckpt, state_fn=run.state_tree,
+            max_steps=args.max_steps, checkpoint_manager=ckpt, state_fn=state_fn,
             save_steps=args.save_steps, start_step=start, on_step=on_step,
         )
     finally:
@@ -620,18 +750,24 @@ def train_steps(run, args, logger, on_step=None) -> int:
 
 def save_merged(model, scale: float, args) -> dict:
     """<output_dir>/merged: every weight with the adapters folded in, a
-    quantized base dequantized first (in place); from a checkpoint
+    quantized base made dense first; from a checkpoint
     (--model_name_or_path) also <output_dir>/merged_hf, the merged weights
     as an HF checkpoint beside the source's config and tokenizer files
-    (vlrlhf_tpu `_finish` and `cmd_merge`). Returns the merged state dict."""
+    (vlrlhf_tpu `_finish` and `cmd_merge`). Returns the merged state dict.
+    Under a mesh the weights are gathered to the world-1 layout and rank 0
+    writes the files of a single-process run; the other ranks get {}."""
     import os
 
-    from vlrlhf_torch.lora.lora import merge_lora
-    from vlrlhf_torch.ops.quant import dequantize_params
+    from vlrlhf_torch.core.dist import is_main_process
+    from vlrlhf_torch.core.mesh import current_mesh
+    from vlrlhf_torch.core.partitioning import full_model_state
+    from vlrlhf_torch.lora.lora import merge_state
     from vlrlhf_torch.train.checkpoint import save_params
 
-    dequantize_params(model, torch.bfloat16 if getattr(args, "bf16", True) else torch.float32)
-    merged = merge_lora(model, scale)
+    dtype = torch.bfloat16 if getattr(args, "bf16", True) else torch.float32
+    merged = merge_state(full_model_state(model, current_mesh(), dtype), scale)
+    if not is_main_process():
+        return {}
     save_params(os.path.join(args.output_dir, "merged"), merged)
     src = getattr(args, "model_name_or_path", None)
     if src and not args.synthetic and getattr(args, "export_format", "hf") == "hf":
@@ -647,29 +783,35 @@ def finish_run(run, args) -> None:
     for rm / ppo the head and value adapters beside them) and, with
     --merge_adapter_after_training, `save_merged`'s merged (and merged_hf)
     weights, which fold in the policy's adapters only (vlrlhf_tpu
-    `_finish`, cli/main.py:366-397)."""
+    `_finish`, cli/main.py:366-397). Under a mesh rank 0 writes them from
+    the gathered world-1 tensors: the files of a single-process run."""
     import os
 
+    from vlrlhf_torch.core.dist import is_main_process, sync_global_devices
+    from vlrlhf_torch.core.mesh import current_mesh
+    from vlrlhf_torch.core.partitioning import full_tensor, tp_dim
     from vlrlhf_torch.train.checkpoint import save_params
 
-    save_params(os.path.join(args.output_dir, "adapters"),
-                dict(zip(run.keys, run.state.trainable)))
+    tree = dict(zip(run.keys, run.state.trainable))
+    mesh = current_mesh()
+    if mesh is not None:
+        tree = {k: full_tensor(t, tp_dim(k), mesh) for k, t in tree.items()}
+    if is_main_process():
+        save_params(os.path.join(args.output_dir, "adapters"), tree)
     if args.merge_adapter_after_training:
         save_merged(run.model, run.lcfg.scale, args)
+    sync_global_devices("finish_run")
 
 
 def cmd_dpo(args):
-    from vlrlhf_torch.train.metrics import MetricsLogger
-
     device = resolve_device(args.device)
     if args.synthetic and args.data_path:
         raise SystemExit("--synthetic N makes its own pairs: drop --data_path")
+    setup_mesh(args, device)
     rows = synthetic_rows(args.synthetic) if args.synthetic else load_rows(args)
     family, cfg, model, processor = load_bundle(args, device)
     run = build_dpo(cfg, model, processor, args, rows, image_loader_for(args))
-    logger = MetricsLogger(args.output_dir, args.run_name or "dpo",
-                           flops_per_token=run.flops_per_token,
-                           flops_per_image=run.flops_per_image)
+    logger = make_logger(args, "dpo", run)
     try:
         step = train_dpo(run, processor, args, logger)
     finally:
@@ -717,9 +859,10 @@ def build_sft(cfg, model, processor, args, rows: list, image_loader=None) -> Tra
     lcfg, ocfg = setup_training(model, args)
     scfg = SFTConfig(lora_scale=lcfg.scale, lora_dropout=args.lora_dropout if use_lora else 0.0,
                      dropout_seed=args.seed, logits_chunk=args.logits_chunk)
-    state = init_train_state(adapter_params(model), ocfg)
+    keys = lora_keys(model)
+    state = mesh_state(init_train_state(adapter_params(model), ocfg), keys)
     return TrainRun(
-        model=model, ocfg=ocfg, lcfg=lcfg, state=state, keys=lora_keys(model),
+        model=model, ocfg=ocfg, lcfg=lcfg, state=state, keys=keys,
         collator=SFTCollator(processor, collator_config(cfg, FAMILIES[cfg.family], processor, args),
                              image_loader),
         tokenize_fn=processor.tokenize_row_sft, rows=rows,
@@ -749,10 +892,10 @@ def build_rm(cfg, model, processor, args, rows: list, image_loader=None) -> Trai
     rcfg = RMConfig(lora_scale=lcfg.scale, lora_dropout=args.lora_dropout if use_lora else 0.0,
                     dropout_seed=args.seed)
     head = init_rm_head(cfg.lm.hidden_size, model.device)["kernel"]
-    state = init_train_state(adapter_params(model) + [head], ocfg)
+    keys = [f"adapters/{k}" for k in lora_keys(model)] + ["rm_head/kernel"]
+    state = mesh_state(init_train_state(adapter_params(model) + [head], ocfg), keys)
     return TrainRun(
-        model=model, ocfg=ocfg, lcfg=lcfg, state=state,
-        keys=[f"adapters/{k}" for k in lora_keys(model)] + ["rm_head/kernel"],
+        model=model, ocfg=ocfg, lcfg=lcfg, state=state, keys=keys,
         collator=RMCollator(processor, collator_config(cfg, FAMILIES[cfg.family], processor, args),
                             image_loader),
         tokenize_fn=processor.tokenize_row_dpo, rows=rows,
@@ -766,17 +909,14 @@ def build_rm(cfg, model, processor, args, rows: list, image_loader=None) -> Trai
 def _train_cmd(args, name: str, build, with_pairs: bool) -> None:
     """The body of `sft` and `rm`: rows, the model, `build`, the loop, the
     final saves."""
-    from vlrlhf_torch.train.metrics import MetricsLogger
-
     device = resolve_device(args.device)
     if args.synthetic and args.data_path:
         raise SystemExit("--synthetic N makes its own rows: drop --data_path")
+    setup_mesh(args, device)
     rows = synthetic_rows(args.synthetic, with_pairs) if args.synthetic else load_rows(args)
     _, cfg, model, processor = load_bundle(args, device)
     run = build(cfg, model, processor, args, rows, image_loader_for(args))
-    logger = MetricsLogger(args.output_dir, args.run_name or name,
-                           flops_per_token=run.flops_per_token,
-                           flops_per_image=run.flops_per_image)
+    logger = make_logger(args, name, run)
     try:
         step = train_steps(run, args, logger)
     finally:
@@ -1103,8 +1243,14 @@ def train_ppo(run: PPORun, processor, args, logger, on_step=None) -> int:
 
 
 def cmd_ppo(args):
+    import os
+
     from vlrlhf_torch.train.metrics import MetricsLogger
 
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise SystemExit(f"ppo on {os.environ['WORLD_SIZE']} processes: PPO and generation "
+                         f"under a mesh are {PART2}")
+    refuse_mesh_flags(args, "ppo", "PPO and generation under a mesh are")
     device = resolve_device(args.device)
     if args.synthetic and args.data_path:
         raise SystemExit("--synthetic N makes its own prompts: drop --data_path")
@@ -1189,16 +1335,22 @@ def cmd_eval(args):
 
     if args.benchmark not in BENCHMARKS:
         raise SystemExit(f"--benchmark {args.benchmark}: expected one of {sorted(BENCHMARKS)}")
+    refuse_mesh_flags(args, "eval", "under torchrun each rank evaluates its shard of the rows "
+                                    "with its own whole model; a sharded eval model is")
     if args.endpoint:
         # remote mode: the model lives in a `serve` process; nothing loads here
         from vlrlhf_torch.generate.server import EndpointRunner
 
         print(run_eval(EndpointRunner(args.endpoint), args), flush=True)
         return
+    from vlrlhf_torch.core import dist
+
     device = resolve_device(args.device)
+    dist.initialize(device.type)
     _, cfg, model, processor = load_bundle(args, device)
     runner = build_eval(cfg, model, processor, args, image_loader_for(args))
-    judge = load_judge(args, device) if args.judge_model_path else None
+    # rank 0 alone judges
+    judge = load_judge(args, device) if args.judge_model_path and dist.is_main_process() else None
     print(run_eval(runner, args, judge=judge), flush=True)
 
 
@@ -1259,13 +1411,29 @@ def _add_eval_parser(sub) -> None:
     p.add_argument("--endpoint", type=str, default=None,
                    help="http://host:port of a serve daemon: rows go over /generate and "
                         "/score, no model loads here")
+    _add_mesh_args(p)
     p.set_defaults(fn=cmd_eval)
+
+
+def _add_mesh_args(p) -> None:
+    """vlrlhf_tpu's mesh flags. They take effect under torchrun (dpo, sft,
+    rm); the pipeline and sequence-parallel ones are refused (part 2)."""
+    p.add_argument("--mesh_data", type=int, default=1,
+                   help="data-parallel replicas of the sharded model (HSDP)")
+    p.add_argument("--mesh_fsdp", type=int, default=-1,
+                   help="FSDP2 shards (-1: the ranks the other axes leave)")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="tensor-parallel ranks (heads and the MLP width split)")
+    p.add_argument("--mesh_pipe", type=int, default=1, help="refused above 1 (part 2)")
+    p.add_argument("--pipeline_microbatches", type=int, default=0, help="refused (part 2)")
+    p.add_argument("--sequence_parallel_axis", type=str, default="", help="refused (part 2)")
 
 
 def _add_train_args(p, synthetic_help: str, epochs: bool = True) -> None:
     """The flags dpo, sft, rm and ppo share (vlrlhf_tpu `_common_args`, less
-    the mesh and wandb flags, which the port refuses)."""
+    the wandb flag, which the port refuses)."""
     _add_model_args(p, synthetic_help)
+    _add_mesh_args(p)
     p.add_argument("--output_dir", type=str, required=True)
     p.add_argument("--max_prompt_length", type=int, default=512)
     p.add_argument("--dataset_name", type=str, default="plain_dpo",

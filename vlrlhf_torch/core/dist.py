@@ -1,0 +1,332 @@
+"""The process group and its host collectives (counterpart of
+vlrlhf_tpu/core/dist.py).
+
+A multi-GPU run is one process per GPU started by torchrun, which sets
+RANK, WORLD_SIZE, LOCAL_RANK and the rendezvous address; `initialize`
+joins them in a process group: NCCL on cuda:LOCAL_RANK, or gloo when the
+caller runs on the CPU (the tests' multi-process dry runs). There is no
+fallback from NCCL to gloo. Without a process group every function here is
+the single-process identity, so a plain run takes none of this.
+
+vlrlhf_tpu's `make_global_batch` / `_sharded_concat` assemble one global
+array from per-process rows; here each rank keeps its local
+[chosen; rejected] batch as a plain tensor, and the gradients meet in
+FSDP2's reduce-scatter, so they have no counterpart. `batch_process_span`
+becomes `data_parallel_slice`: a rank's data-parallel coordinate gives its
+slice of every global batch, and the ranks of one tensor-parallel group
+read the same rows.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import datetime
+import json
+import os
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def _dist():
+    import torch.distributed as dist
+
+    return dist
+
+
+def is_initialized() -> bool:
+    dist = _dist()
+    return dist.is_available() and dist.is_initialized()
+
+
+def launched_by_torchrun() -> bool:
+    """True when the environment carries torchrun's rank variables."""
+    return all(k in os.environ for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"))
+
+
+def local_device(device_type: str) -> torch.device:
+    """cuda:LOCAL_RANK under torchrun (cuda:0 otherwise), or the CPU."""
+    if device_type == "cpu":
+        return torch.device("cpu")
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+
+
+def initialize(device_type: str = "cuda") -> bool:
+    """Join torchrun's process group (a no-op when one is up already, or
+    when the process was not launched by torchrun). Returns whether a
+    process group is up."""
+    if is_initialized():
+        return True
+    if not launched_by_torchrun():
+        return False
+    dist = _dist()
+    if device_type == "cuda":
+        dev = local_device("cuda")
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", device_id=dev,
+                                timeout=datetime.timedelta(minutes=30))
+    else:
+        dist.init_process_group("gloo", timeout=datetime.timedelta(minutes=30))
+    return True
+
+
+def shutdown() -> None:
+    if is_initialized():
+        _dist().destroy_process_group()
+
+
+def process_index() -> int:
+    return _dist().get_rank() if is_initialized() else 0
+
+
+def process_count() -> int:
+    return _dist().get_world_size() if is_initialized() else 1
+
+
+def is_main_process() -> bool:
+    return process_index() == 0
+
+
+def sync_global_devices(name: str = "barrier") -> None:
+    """A barrier over every rank (`name` labels it for the reader)."""
+    if is_initialized():
+        _dist().barrier()
+
+
+def gather_objects(objs: list, group=None) -> list:
+    """Every rank's list of JSON-serialisable objects, concatenated in
+    rank order (ranks hold contiguous shards, `shard_rows_for_process`, so
+    this is dataset order; vlrlhf_tpu `gather_objects`, dist.py:62)."""
+    if not is_initialized():
+        return list(objs)
+
+    def _default(o):
+        return o.item() if hasattr(o, "item") else str(o)
+
+    payload = json.dumps(list(objs), default=_default)
+    out: list = [None] * _dist().get_world_size(group)
+    _dist().all_gather_object(out, payload, group=group)
+    return [o for p in out for o in json.loads(p)]
+
+
+def process_allgather(x: Any) -> np.ndarray:
+    """Every rank's array stacked on a new leading axis (rank order)."""
+    x = np.asarray(x)
+    if not is_initialized():
+        return x[None]
+    out: list = [None] * process_count()
+    _dist().all_gather_object(out, x)
+    return np.stack(out)
+
+
+def any_process_failed(local_fail: bool) -> bool:
+    """True iff any rank hit a failure this step: every rank then takes the
+    same branch, keeping the collectives aligned (vlrlhf_tpu
+    `any_process_failed`, dist.py:208)."""
+    if not is_initialized():
+        return bool(local_fail)
+    return bool(process_allgather(np.asarray([int(local_fail)], np.int32)).sum() > 0)
+
+
+@contextlib.contextmanager
+def main_process_first(name: str = "main_first"):
+    """Rank 0 runs the body first (a dataset cache it builds), the others
+    after it (vlrlhf_tpu `main_process_first`, dist.py:221)."""
+    if is_main_process():
+        yield
+        sync_global_devices(f"{name}_done")
+    else:
+        sync_global_devices(f"{name}_done")
+        yield
+
+
+def data_parallel_slice(local_batch: int) -> tuple[int, tuple[int, int]]:
+    """(global batch, (lo, hi)): --per_device_train_batch_size rows per
+    data-parallel rank, the global batch that times data x fsdp, and this
+    rank's rows of it. Without a mesh: (local_batch, (0, local_batch))."""
+    from vlrlhf_torch.core.mesh import current_mesh
+
+    mesh = current_mesh()
+    if mesh is None:
+        return local_batch, (0, local_batch)
+    lo = mesh.dp_rank * local_batch
+    return local_batch * mesh.dp_size, (lo, lo + local_batch)
+
+
+def all_reduce_mean(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean over the group's ranks of a tensor (a copy)."""
+    if not is_initialized():
+        return t
+    dist = _dist()
+    out = t.detach().clone()
+    dist.all_reduce(out, group=group)
+    return out / dist.get_world_size(group)
+
+
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over the group's ranks (a copy; the identity without a
+    process group)."""
+    if not is_initialized():
+        return t
+    out = t.detach().clone()
+    _dist().all_reduce(out, group=group)
+    return out
+
+
+def dp_group():
+    """The data-parallel group of the registered mesh (None: no mesh)."""
+    from vlrlhf_torch.core.mesh import current_mesh
+
+    mesh = current_mesh()
+    return None if mesh is None else mesh.dp_group
+
+
+def dp_size() -> int:
+    from vlrlhf_torch.core.mesh import current_mesh
+
+    mesh = current_mesh()
+    return 1 if mesh is None else mesh.dp_size
+
+
+def global_metrics(metrics: dict) -> dict:
+    """A step's 0-dim metrics as means over the ranks, in one collective
+    (a rank's metric is the mean over its rows; the rows are equal in
+    number on every rank, so this is the mean over the global batch)."""
+    if not is_initialized() or not metrics:
+        return metrics
+    keys = list(metrics)
+    vals = torch.stack([torch.as_tensor(metrics[k]).detach().float().reshape(())
+                        for k in keys])
+    vals = all_reduce_mean(vals)
+    return dict(zip(keys, vals.unbind()))
+
+
+def broadcast_object(obj: Any, src: int = 0) -> Any:
+    if not is_initialized():
+        return obj
+    box = [obj]
+    _dist().broadcast_object_list(box, src=src)
+    return box[0]
+
+
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view: in-place updates reach the DTensor),
+    any other tensor itself."""
+    if is_initialized():
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(t, DTensor):
+            return t.to_local()
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism's collectives
+
+
+@dataclasses.dataclass(frozen=True)
+class TPShard:
+    """A tensor-parallel Linear's place: 'column' (its out rows split) or
+    'row' (its in columns split), the group and this rank's index in it, and
+    the full widths."""
+
+    mode: str
+    group: Any
+    rank: int
+    size: int
+    d_in: int
+    d_out: int
+
+
+def _sum_over(t: torch.Tensor, group) -> torch.Tensor:
+    """The group's sum of `t` (a new tensor in t's dtype), added in f32:
+    a bf16 sum of bf16 partials would round once more than the
+    single-process product does."""
+    acc = t.to(torch.float32, copy=True).contiguous()
+    _dist().all_reduce(acc, group=group)
+    return acc.to(t.dtype)
+
+
+class _CopyToTP(torch.autograd.Function):
+    """The input of a column-parallel product: identity forward; backward,
+    the ranks' partial input gradients summed over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g, ctx.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """The output of a row-parallel product: the ranks' partial sums added
+    up forward; backward, the gradient as it is (every rank holds it
+    whole)."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        return _sum_over(y, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _F32Product(torch.autograd.Function):
+    """x @ m with the products summed and returned in f32: a row-parallel
+    rank's partial sum, which the all-reduce adds in f32 and rounds once,
+    as the single-process product rounds once (a bf16 partial would round
+    twice). On the card a bf16 GEMM with an f32 output; backward in x's
+    dtype, as F.linear's: dx = g @ m.T, and dm = x.T @ g when m trains."""
+
+    @staticmethod
+    def forward(ctx, x, m):
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
+            y = torch.mm(x2, m, out_dtype=torch.float32)
+        else:
+            y = x2.float() @ m.float()
+        ctx.save_for_backward(x if m.requires_grad else None, m)
+        ctx.x_shape, ctx.x_dtype = x.shape, x.dtype
+        return y.reshape(*x.shape[:-1], m.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, m = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(ctx.x_dtype)
+        dx = (g2 @ m.to(ctx.x_dtype).t()).reshape(ctx.x_shape)
+        dm = None
+        if x is not None:
+            dm = (x.reshape(-1, x.shape[-1]).t() @ g2).to(m.dtype)
+        return dx, dm
+
+
+def f32_product(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    return _F32Product.apply(x, m)
+
+
+def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyToTP.apply(x, group)
+
+
+def reduce_from_tp(y: torch.Tensor, group) -> torch.Tensor:
+    return _ReduceFromTP.apply(y, group)
+
+
+def tp_factor(x: torch.Tensor, a: torch.Tensor, tp) -> torch.Tensor:
+    """u = x @ a, the rank-r middle of a factored delta (x a) b, made
+    whole under tensor parallelism: a column linear's u is whole on every
+    rank and its gradient a partial sum (copy_to_tp); a row linear's u is
+    a partial sum, taken in f32 and added up (reduce_from_tp). Then b,
+    replicated or split on out, applies to a whole u, so b's gradient is
+    whole too. Without tp: x @ a."""
+    if tp is None:
+        return x @ a
+    if tp.mode == "column":
+        return copy_to_tp(x @ a, tp.group)
+    return reduce_from_tp(f32_product(x, a), tp.group).to(x.dtype)

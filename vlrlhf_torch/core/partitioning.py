@@ -1,0 +1,364 @@
+"""The parameter plan (counterpart of vlrlhf_tpu/core/partitioning.py,
+`default_lm_rules`): how every leaf of the port's model is placed on the
+(data, fsdp, model) mesh, and the functions that apply it and undo it.
+
+FSDP2 over (data, fsdp): `fully_shard` splits dim 0 of every parameter
+over `fsdp`, and replicates over `data` when data > 1 (HSDP), as
+vlrlhf_tpu's params ride `fsdp` while its batch rides data x fsdp. The
+units are each `LlamaLayer` and the `VLM` root, which holds the embedding,
+lm_head, the final norm, the vision tower, the projector, the Q-Former and
+the resampler. FSDP2's hooks fire on a module's `__call__`, so the layer
+methods the remat loop calls (`attn_out`, `mlp_residual`,
+`_named_forward`) and the root's `row_features` are registered forward
+methods.
+
+Tensor parallelism over `model`, by hand on plain local tensors (the
+port's `Linear` carries LoRA sets, PLoRA and int8 / int4 fields, which
+torch's ColwiseParallel / RowwiseParallel do not know):
+  - wq, wk, wv, gate, up are column-parallel: the weight's out rows, the
+    bias, int8 codes and scales, int4 packed rows, scales and gbias are
+    split; LoRA's and PLoRA's `b` is split on out and `a` replicated;
+  - wo, down are row-parallel: the weight's in columns are split, the bias
+    and the int8 per-out scales stay whole (the bias is added once, after
+    the all-reduce); int4 is split-half packed along in, so each row
+    shard is unpacked and packed again, which needs (in / model) % 128 ==
+    0; LoRA's and PLoRA's `a` is split on in and `b` replicated.
+  The collectives are `core.dist.copy_to_tp` / `reduce_from_tp` inside
+  `Linear`, and each layer's head counts and MLP width become local.
+Replicated over `model` in this slice: embed_tokens and lm_head, the
+norms, the towers, the projector, the Q-Former and the resampler.
+vlrlhf_tpu's rules also split lm_head, the embedding and the towers'
+linears on `model`, replicate the LoRA adapters and the qkv bias, and put
+fsdp on a kernel's `in` dim; the results are the same, and
+tests/test_torch_mesh.py pins each deviation in an explicit table.
+
+Checkpoints and final saves gather every tensor to its world-1 layout
+(`full_tensor`) and restores split it again for the mesh at hand
+(`shard_full`), so a checkpoint resumes under any layout.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import re
+from typing import Optional
+
+import torch
+from torch import nn
+
+from vlrlhf_torch.core.dist import TPShard
+
+COLUMN = ("wq", "wk", "wv", "gate", "up")
+ROW = ("wo", "down")
+# per Linear parameter: the dim tensor parallelism splits (None: whole)
+_COLUMN_DIMS = {"weight": 0, "bias": 0, "weight_q": 0, "weight_scale": 0, "weight_q4": 0,
+                "weight_scale4": 0, "weight_gbias": 0, "lora_a": None, "lora_b": 1,
+                "plora_a": None, "plora_b": 1}
+_ROW_DIMS = {"weight": 1, "bias": None, "weight_q": 1, "weight_scale": None, "weight_q4": 1,
+             "weight_scale4": 1, "weight_gbias": 1, "lora_a": 0, "lora_b": None,
+             "plora_a": 0, "plora_b": None}
+# JAX-layout leaf names -> the port's Linear parameter names
+_JAX_LEAVES = {"kernel": "weight", "bias": "bias", "kernel_q": "weight_q",
+               "kernel_scale": "weight_scale", "kernel_q4": "weight_q4",
+               "kernel_scale4": "weight_scale4", "kernel_gbias": "weight_gbias",
+               "a": "lora_a", "b": "lora_b"}
+_LAYER_LINEAR = re.compile(
+    r"^(?:adapters/|plora/)?lm/layers(?:_scanned|/\d+)/(?:attn|mlp)/(\w+)/(\w+)$")
+
+
+def tp_mode(name: str) -> Optional[str]:
+    """'column', 'row' or None for an LM layer Linear's name (wq, down, ...)."""
+    return "column" if name in COLUMN else "row" if name in ROW else None
+
+
+def linear_tp_dim(mode: Optional[str], leaf: str) -> Optional[int]:
+    """The dim of a Linear's parameter `leaf` that the model axis splits."""
+    if mode is None:
+        return None
+    return (_COLUMN_DIMS if mode == "column" else _ROW_DIMS)[leaf]
+
+
+def tp_dim(path: str) -> Optional[int]:
+    """The dim (in the port's orientation: weights (out, in), adapters
+    a (in, r) / b (r, out)) of the leaf at a JAX-layout path ("lm/
+    layers_scanned/attn/wq/kernel", a checkpoint key "lm/layers/3/attn/wo/a",
+    XC2's PLoRA "plora/lm/layers_scanned/attn/wq/a", split like LoRA) that the
+    model axis splits, or None when it is replicated over model. A scanned
+    path's leading layer axis is not counted."""
+    m = _LAYER_LINEAR.match(path)
+    if m is None or m.group(2) not in _JAX_LEAVES:
+        return None
+    return linear_tp_dim(tp_mode(m.group(1)), _JAX_LEAVES[m.group(2)])
+
+
+def model_spec(path: str, ndim: int) -> tuple:
+    """The leaf's placement on the model axis as one entry per dim ("model"
+    or None), in the port's orientation: the counterpart of the "model"
+    entries of vlrlhf_tpu's `default_lm_rules().spec_for`."""
+    d = tp_dim(path)
+    return tuple("model" if i == d else None for i in range(ndim))
+
+
+# ---------------------------------------------------------------------------
+# Applying the plan
+
+
+def check_tp(model, model_size: int) -> None:
+    """Refuse a tensor-parallel degree the LM does not divide: heads, KV
+    heads and the MLP width, and for an int4 row-parallel linear its local
+    input width (a multiple of 128: its codes are repacked per shard)."""
+    if model_size == 1:
+        return
+    lm = model.cfg.lm
+    for what, n in (("num_heads", lm.num_heads), ("num_kv_heads", lm.num_kv_heads),
+                    ("intermediate_size", lm.intermediate_size)):
+        if n % model_size:
+            raise ValueError(f"--mesh_model {model_size}: {what} {n} is not divisible by it")
+    for i, layer in enumerate(model.lm.layers):
+        for name in ROW:
+            lin = getattr(layer, name)
+            if lin.weight_q4 is not None and (lin.d_in // model_size) % 128:
+                raise ValueError(
+                    f"--mesh_model {model_size}: the int4 row-parallel linear "
+                    f"lm.layers.{i}.{name} would hold {lin.d_in // model_size} input rows per "
+                    "rank, not a multiple of 128 (its packed codes are repacked per shard)")
+
+
+def _slice(t: torch.Tensor, dim: int, rank: int, size: int) -> torch.Tensor:
+    n = t.shape[dim] // size
+    return t.narrow(dim, rank * n, n).contiguous()
+
+
+def _repack_int4_rows(packed: torch.Tensor, scale: torch.Tensor, rank: int, size: int):
+    """An int4 weight's input columns [rank * in/size, (rank + 1) * in/size)
+    as a weight of its own: codes unpacked, sliced and packed split-half
+    again over the shard's width, and the shard's group scales (plus the
+    guard column when its 128-blocks are odd in number)."""
+    from vlrlhf_torch.ops.int4 import (
+        GROUP, din_from_scale_cols, half_padded, scale_cols, unpack_int4,
+    )
+
+    d_in = din_from_scale_cols(scale.shape[1])
+    half, half_p = d_in // 2, packed.shape[1]
+    codes = unpack_int4(packed)
+    q = torch.cat([codes[:, :half], codes[:, half_p:half_p + half]], dim=1)
+    n = d_in // size
+    lo = rank * n
+    u = q[:, lo:lo + n].contiguous().view(torch.uint8)
+    v = (u[:, : n // 2] & 0x0F) | (u[:, n // 2:] << 4)
+    out = torch.zeros((q.shape[0], half_padded(n // 2)), dtype=torch.int8, device=packed.device)
+    out[:, : n // 2] = v.view(torch.int8)
+    s = torch.zeros((q.shape[0], scale_cols(n)), dtype=scale.dtype, device=scale.device)
+    s[:, : n // GROUP] = scale[:, lo // GROUP:(lo + n) // GROUP]
+    return out, s
+
+
+@torch.no_grad()
+def shard_linear_(lin, mode: str, group, rank: int, size: int) -> None:
+    """Keep this rank's tensor-parallel part of a Linear in place: its
+    parameters become the local slices (trainable ones stay trainable) and
+    `lin.tp` makes its forward run the collectives."""
+    if lin.tp is not None:
+        raise ValueError("the Linear is sharded already")
+    d_in, d_out = lin.d_in, lin.d_out
+    dims = _COLUMN_DIMS if mode == "column" else _ROW_DIMS
+    if mode == "row" and lin.weight_q4 is not None:
+        packed, scale = _repack_int4_rows(lin.weight_q4, lin.weight_scale4, rank, size)
+        lin.weight_q4 = nn.Parameter(packed, requires_grad=False)
+        lin.weight_scale4 = nn.Parameter(scale, requires_grad=False)
+        skip = {"weight_q4", "weight_scale4"}
+    else:
+        skip = set()
+    for leaf, dim in dims.items():
+        p = getattr(lin, leaf)
+        if p is None or leaf in skip or dim is None:
+            continue
+        setattr(lin, leaf, nn.Parameter(_slice(p.data, dim, rank, size),
+                                        requires_grad=p.requires_grad))
+    if mode == "column":
+        lin.d_out = d_out // size
+    else:
+        lin.d_in = d_in // size
+    lin.tp = TPShard(mode=mode, group=group, rank=rank, size=size, d_in=d_in, d_out=d_out)
+
+
+def apply_tensor_parallel_(model, mesh) -> None:
+    """Split every LM layer over the mesh's model axis: the seven linears
+    by COLUMN / ROW and each layer's head counts and MLP width made local
+    (a per-layer copy of its LMConfig)."""
+    size = mesh.model
+    if size == 1:
+        return
+    check_tp(model, size)
+    for layer in model.lm.layers:
+        if layer.wqkv is not None or layer.gateup is not None:
+            raise ValueError("the fused wqkv / gateup serving layout is not sharded over "
+                             "--mesh_model (it is not on the training path)")
+        cfg = layer.cfg
+        layer.cfg = dataclasses.replace(
+            cfg, num_heads=cfg.num_heads // size, num_kv_heads=cfg.num_kv_heads // size,
+            intermediate_size=cfg.intermediate_size // size, head_dim=cfg.head_dim_)
+        for name in COLUMN + ROW:
+            shard_linear_(getattr(layer, name), tp_mode(name), mesh.tp_group, mesh.tp_rank, size)
+
+
+LAYER_METHODS = ("attn_out", "mlp_residual", "_named_forward")
+
+
+def apply_fsdp_(model, mesh) -> None:
+    """FSDP2 units: each LlamaLayer (with the remat loop's methods
+    registered) and the VLM root (with `row_features`, the frozen tower's
+    entry outside `forward`)."""
+    from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
+
+    dp_mesh = mesh.fsdp_mesh()
+    with torch.no_grad():  # FSDP2 shards contiguous parameters only
+        for p in model.parameters():
+            if not p.is_contiguous():
+                p.data = p.data.contiguous()
+    for layer in model.lm.layers:
+        fully_shard(layer, mesh=dp_mesh)
+        for name in LAYER_METHODS:
+            register_fsdp_forward_method(layer, name)
+    fully_shard(model, mesh=dp_mesh)
+    register_fsdp_forward_method(model, "row_features")
+
+
+def shard_model_(model, mesh) -> None:
+    """The whole plan on a model that holds its full weights (quantized and
+    with adapters attached, as `setup_training` leaves it)."""
+    apply_tensor_parallel_(model, mesh)
+    apply_fsdp_(model, mesh)
+
+
+def fsdp_units(model) -> list:
+    from torch.distributed.fsdp import FSDPModule
+
+    return [m for m in model.modules() if isinstance(m, FSDPModule)]
+
+
+@contextlib.contextmanager
+def unsharded(model):
+    """Every FSDP unit's parameters gathered for the block (generation and
+    the final gathers call module methods outside FSDP's hooks), resharded
+    after it. A model without units is left as it is."""
+    units = fsdp_units(model)
+    for u in units:
+        u.unshard()
+    try:
+        yield
+    finally:
+        for u in units:
+            u.reshard()
+
+
+# ---------------------------------------------------------------------------
+# The gradient norm's groups
+
+
+def attach_norm_groups_(state, keys: list, mesh) -> None:
+    """Give a TrainState over the mesh's leaves (named by their state-tree
+    keys) its gradient-norm groups: per leaf, the process groups its
+    squared norm is summed over: fsdp for an FSDP2-sharded leaf (the data
+    replicas hold the same shard), then model for a leaf tensor
+    parallelism splits; a plain replicated leaf (the reward head) sums
+    over none. Every distinct value then counts once."""
+    from torch.distributed.tensor import DTensor
+
+    groups = []
+    for p, key in zip(state.trainable, keys):
+        g = (mesh.fsdp_group,) if isinstance(p, DTensor) and mesh.fsdp > 1 else ()
+        if tp_dim(key) is not None and mesh.model > 1:
+            g = g + (mesh.tp_group,)
+        groups.append(g)
+    state.norm_groups = groups
+
+
+# ---------------------------------------------------------------------------
+# Between the mesh and the world-1 layout
+
+
+def _tp_gather(t: torch.Tensor, dim: Optional[int], mesh) -> torch.Tensor:
+    import torch.distributed as dist
+
+    if dim is None or mesh.model == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(mesh.model)]
+    dist.all_gather(parts, t.contiguous(), group=mesh.tp_group)
+    return torch.cat(parts, dim=dim)
+
+
+def full_tensor(t: torch.Tensor, dim: Optional[int], mesh) -> torch.Tensor:
+    """A leaf's world-1 value on every rank: FSDP2's shards gathered, then
+    the tensor-parallel parts along `dim` (collective: every rank calls)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    return _tp_gather(t.detach(), dim, mesh)
+
+
+def shard_full(full: torch.Tensor, like: torch.Tensor, dim: Optional[int], mesh) -> torch.Tensor:
+    """This rank's part of a world-1 `full` tensor for a leaf placed like
+    `like` (a DTensor of FSDP2 or a plain tensor): the tensor-parallel slice
+    along `dim`, then FSDP2's dim-0 shard, on like's device and dtype."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if dim is not None and mesh.model > 1:
+        full = _slice(full, dim, mesh.tp_rank, mesh.model)
+    full = full.to(like.device, like.dtype)
+    if isinstance(like, DTensor):
+        return distribute_tensor(full, like.device_mesh, like.placements,
+                                 src_data_rank=None).to_local()
+    return full
+
+
+def full_state_tree(tree: dict, mesh) -> dict:
+    """A train_state `state_tree` with every tensor gathered to its world-1
+    layout (collective)."""
+    out = {}
+    for group, val in tree.items():
+        if isinstance(val, dict):
+            out[group] = {k: full_tensor(t, tp_dim(k), mesh) for k, t in val.items()}
+        else:
+            out[group] = val
+    return out
+
+
+def _linear_owner(model, name: str):
+    from vlrlhf_torch.models.common import Linear
+
+    mod_name, _, leaf = name.rpartition(".")
+    mod = model.get_submodule(mod_name) if mod_name else model
+    return (mod, leaf) if isinstance(mod, Linear) else (None, leaf)
+
+
+@torch.no_grad()
+def full_model_state(model, mesh, dtype: torch.dtype) -> dict:
+    """The model's state dict in the world-1 layout, with every quantized
+    Linear made dense in `dtype` (ops/quant.py dense_weight), the base
+    lora.merge_state folds the adapters into: under a mesh FSDP2's units
+    gathered, each Linear's local part made dense on its rank, then the
+    tensor-parallel parts joined (collective: every rank calls, the first
+    keeps the tensors, the others get {}). Without a mesh the model's own
+    tensors, on its device."""
+    from vlrlhf_torch.core.dist import is_main_process
+    from vlrlhf_torch.ops.quant import dense_weight
+
+    out = {}
+    with unsharded(model):
+        units = bool(fsdp_units(model))
+        for name, p in model.named_parameters():
+            mod, leaf = _linear_owner(model, name)
+            mode = mod.tp.mode if mod is not None and mod.tp is not None else None
+            if mod is not None and leaf in ("weight_q", "weight_q4"):
+                name, p, leaf = name.rpartition(".")[0] + ".weight", dense_weight(mod, dtype), \
+                    "weight"
+            elif mod is not None and leaf in ("weight_scale", "weight_scale4", "weight_gbias"):
+                continue
+            t = full_tensor(p, linear_tp_dim(mode, leaf), mesh)
+            if is_main_process():
+                # a copy: an unsharded parameter's storage is freed at reshard
+                out[name] = t.clone() if units else t
+    return out

@@ -1,7 +1,8 @@
 """Dataset builders and the train / eval split (vlrlhf_tpu/data/datasets.py:
 `make_vlfeedback_pairs`, `make_vlfeedback_paired_dataset`,
 `build_dataset_from_vlquery_json`, `make_rlhfv_paired_dataset`,
-`build_plain_dpo_dataset`, `DATASET_MAP`, `train_eval_split`), copied
+`build_plain_dpo_dataset`, `DATASET_MAP`, `train_eval_split`,
+`shard_rows_for_process`), copied
 because importing anything under vlrlhf_tpu pulls in jax.
 
 The rows are the same as vlrlhf_tpu's for the same files. Data comes from
@@ -125,3 +126,17 @@ def train_eval_split(rows: list, eval_ratio: float = 0.005,
     eval_idx = set(idx[:n_eval].tolist())
     train = [r for i, r in enumerate(rows) if i not in eval_idx]
     return train, [rows[i] for i in sorted(eval_idx)]
+
+
+def shard_rows_for_process(rows: list[Row]) -> list[Row]:
+    """This process's contiguous ceil(n / world) shard of the rows
+    (vlrlhf_tpu `shard_rows_for_process`, datasets.py:157-167): eval's
+    rows under torchrun, gathered back in process order."""
+    from vlrlhf_torch.core.dist import process_count, process_index
+
+    n = process_count()
+    if n == 1:
+        return rows
+    idx = process_index()
+    per = -(-len(rows) // n)
+    return rows[idx * per : (idx + 1) * per]

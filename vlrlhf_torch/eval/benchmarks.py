@@ -329,17 +329,28 @@ def run_benchmark(
     progress: bool = False,
     judge=None,  # eval.judge.EngineJudge: LLM fallback for choice extraction
 ) -> dict:
-    """Load -> run (generate or ppl) -> score -> persist, one process (the
-    whole dataset, in order: vlrlhf_tpu's per-process shard and gather are
-    the identity here). `runner` is an EvalRunner or an EndpointRunner."""
+    """Load -> run (generate or ppl) -> score -> persist. Under torchrun
+    each process runs its contiguous shard of the rows
+    (shard_rows_for_process) with its own whole model, the results are
+    gathered in process order (dataset order), and the first process alone
+    judges, scores and writes (vlrlhf_tpu/eval/benchmarks.py:336-374); the
+    others return its metrics too. `runner` is an EvalRunner or an
+    EndpointRunner."""
+    from vlrlhf_torch.core.dist import broadcast_object, gather_objects, is_main_process
+    from vlrlhf_torch.data.datasets import shard_rows_for_process
+
     bench = BENCHMARKS[name]
     # a TSV benchmark's decoded images live for the whole run
     with tempfile.TemporaryDirectory() as img_dir:
-        rows = bench.load_rows(data_file, image_root=image_root, img_dir=img_dir)
+        rows = shard_rows_for_process(
+            bench.load_rows(data_file, image_root=image_root, img_dir=img_dir))
         if bench.mode == "ppl":
             results = runner.run_vqa_ppl(rows, batch_size=batch_size, progress=progress)
         else:
             results = runner.run_vqa(rows, batch_size=batch_size, progress=progress)
+    results = gather_objects(results)
+    if not is_main_process():
+        return broadcast_object(None)
     if judge is not None and bench.mode != "ppl":
         # two-stage extraction: deterministic first, the LLM judge for the rest
         from vlrlhf_torch.eval.judge import grade_freeform, judge_unresolved
@@ -359,4 +370,4 @@ def run_benchmark(
         from vlrlhf_torch.eval.db import log_metrics_to_sqlite
 
         log_metrics_to_sqlite(sqlite_db, name.upper(), metrics, tag)
-    return metrics
+    return broadcast_object(metrics)

@@ -171,19 +171,32 @@ def adapters_of(tree: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
 @torch.no_grad()
 def merge_lora(model: nn.Module, scale: float) -> dict[str, torch.Tensor]:
     """The model's state dict with every adapter folded into its base
-    weight, W + scale * (A @ B).T summed in f32 and cast back to W's dtype
-    (vlrlhf_tpu `merge_lora`, lora.py:298); the adapter leaves are left
-    out. The model is not changed. An adapted Linear must hold a dense
-    weight: a quantized base goes through ops/quant.py dequantize_params
-    first, as vlrlhf_tpu's merge does."""
-    merged = {}
+    weight (`merge_state`; vlrlhf_tpu `merge_lora`, lora.py:298). The model
+    is not changed. An adapted Linear must hold a dense weight: a quantized
+    base goes through ops/quant.py dequantize_params first, as vlrlhf_tpu's
+    merge does."""
     for _, name, mod in _adapted(model):
         if mod.weight is None:
             raise ValueError(f"{name}: merge_lora needs a dense weight; dequantize first")
-        delta = (mod.lora_a.float() @ mod.lora_b.float()) * scale  # (in, out)
-        merged[f"{name}.weight"] = (mod.weight.float() + delta.T).to(mod.weight.dtype)
-    return {k: merged.get(k, v) for k, v in model.state_dict().items()
-            if not k.endswith((".lora_a", ".lora_b"))}
+    return merge_state(model.state_dict(), scale)
+
+
+@torch.no_grad()
+def merge_state(state: dict[str, torch.Tensor], scale: float) -> dict[str, torch.Tensor]:
+    """A state dict with every `<m>.weight` that has an adapter beside it
+    replaced by W + scale * (A @ B).T, summed in f32 and cast back to W's
+    dtype; the adapter leaves are left out, every other entry is kept as it
+    is."""
+    out = {}
+    for k, v in state.items():
+        if k.endswith((".lora_a", ".lora_b")):
+            continue
+        base = k[: -len(".weight")] if k.endswith(".weight") else None
+        if base is not None and f"{base}.lora_a" in state:
+            delta = (state[f"{base}.lora_a"].float() @ state[f"{base}.lora_b"].float()) * scale
+            v = (v.float() + delta.T).to(v.dtype)  # delta is (in, out)
+        out[k] = v
+    return out
 
 
 def lora_delta(
@@ -194,6 +207,7 @@ def lora_delta(
     dropout: float = 0.0,
     seed: Optional[int] = None,
     mix: Optional[torch.Tensor] = None,  # (B, N) per-row set weights, stacked sets only
+    tp=None,  # core.dist.TPShard of a tensor-parallel Linear
 ) -> torch.Tensor:
     """delta = dropout(x) @ a @ b * scale, a and b cast to x's dtype.
 
@@ -205,20 +219,36 @@ def lora_delta(
     The dropout mask comes from a generator seeded with `seed` at each call
     (not a running stream), so torch.utils.checkpoint's recompute draws the
     same mask as the first forward. It is not JAX's mask: the keep
-    probability and the 1/(1-p) scale are what match."""
+    probability and the 1/(1-p) scale are what match.
+
+    Tensor-parallel (`tp`), x @ a is core.dist.tp_factor's, made whole
+    before b; a row part's x holds the columns of its rank, and its mask is
+    those columns of the mask the whole x would draw, so a sharded run
+    draws the single-process masks."""
     h = x
     if seed is not None and dropout > 0.0:
         gen = torch.Generator(device=x.device)
         gen.manual_seed(seed)
-        keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - dropout
+        if tp is not None and tp.mode == "row":
+            n = x.shape[-1]
+            keep = torch.rand((*x.shape[:-1], n * tp.size), generator=gen, device=x.device)
+            keep = keep[..., tp.rank * n:(tp.rank + 1) * n] < 1.0 - dropout
+        else:
+            keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - dropout
         h = torch.where(keep, x / (1.0 - dropout), torch.zeros((), dtype=x.dtype, device=x.device))
     if a.dim() == 3:
+        if tp is not None:
+            raise ValueError("stacked adapter sets are not tensor-parallel")
         if mix is None:
             raise ValueError("stacked adapter sets need a per-row Ctx.adapter_mix")
         d_in, n, r = a.shape
         t = (h @ a.reshape(d_in, n * r).to(x.dtype)).unflatten(-1, (n, r))
         w = mix.to(x.dtype).reshape(mix.shape[0], *([1] * (h.dim() - 2)), n, 1)
         return (t * w).flatten(-2) @ b.to(x.dtype) * scale
+    if tp is not None:
+        from vlrlhf_torch.core.dist import tp_factor
+
+        return tp_factor(h, a.to(x.dtype), tp) @ b.to(x.dtype) * scale
     return (h @ a.to(x.dtype)) @ b.to(x.dtype) * scale
 
 

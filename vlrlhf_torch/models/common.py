@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vlrlhf_torch.core.dist import TPShard, copy_to_tp, f32_product, reduce_from_tp, tp_factor
 from vlrlhf_torch.lora.lora import lora_delta
 from vlrlhf_torch.ops.int4 import BLOCK, GROUP, half_padded, int4_apply, quantize_int4, scale_cols
 
@@ -130,6 +131,9 @@ class Linear(nn.Module):
         self.register_parameter("plora_a", None)
         self.register_parameter("plora_b", None)
         self.lora_sets: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
+        # core.partitioning.shard_linear_ sets it: this rank holds a column
+        # or row part of the weight and its forward runs the collectives
+        self.tp: Optional[TPShard] = None
 
     @property
     def device(self) -> torch.device:
@@ -180,13 +184,25 @@ class Linear(nn.Module):
     def base(self, x: torch.Tensor) -> torch.Tensor:
         """The frozen product x @ W.T (+ bias). Its backward needs no
         activation: autograd keeps only weights (int8 codes and scales for
-        a W8A16 base, packed codes for int4)."""
-        if self.weight_q4 is not None:
-            y = int4_apply(x, self.weight_q4, self.weight_scale4, self.weight_gbias)
-        elif self.weight is None:
-            y = W8A16.apply(x, self.weight_q, self.weight_scale)
+        a W8A16 base, packed codes for int4). Tensor-parallel, a column
+        part's input gradient is summed over the group and a row part's
+        output is, before the whole bias is added."""
+        tp = self.tp
+        row = tp is not None and tp.mode == "row"
+        if tp is not None and tp.mode == "column":
+            x = copy_to_tp(x, tp.group)
+        if row and self.weight is not None:
+            # a dense row part's partial sum in f32, added up, rounded once
+            y = reduce_from_tp(f32_product(x, self.weight.to(x.dtype).t()), tp.group).to(x.dtype)
         else:
-            y = F.linear(x, self.weight.to(x.dtype))
+            if self.weight_q4 is not None:
+                y = int4_apply(x, self.weight_q4, self.weight_scale4, self.weight_gbias)
+            elif self.weight is None:
+                y = W8A16.apply(x, self.weight_q, self.weight_scale)
+            else:
+                y = F.linear(x, self.weight.to(x.dtype))
+            if row:
+                y = reduce_from_tp(y, tp.group)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -234,12 +250,12 @@ class Linear(nn.Module):
         at the masked positions, then the trainable adapter at all."""
         out = None
         if self._plora_on(ctx):
-            out = (x @ self.plora_a.to(x.dtype)) @ self.plora_b.to(x.dtype)
+            out = tp_factor(x, self.plora_a.to(x.dtype), self.tp) @ self.plora_b.to(x.dtype)
             out = out * ctx.lora_mask[..., None].to(out.dtype)
         if self._lora_on(ctx):
             a, b = self.adapter_pair(ctx.adapter_set)
             d = lora_delta(x, a, b, ctx.lora_scale, ctx.lora_dropout, ctx.dropout_seed,
-                           ctx.adapter_mix)
+                           ctx.adapter_mix, tp=self.tp)
             out = d if out is None else out + d.to(out.dtype)
         return out
 

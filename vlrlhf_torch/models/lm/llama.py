@@ -105,8 +105,19 @@ class LlamaLayer(nn.Module):
             gate, up = self.gate(x, mctx.sub("gate")), self.up(x, mctx.sub("up"))
         return self.down(F.silu(gate) * up, mctx.sub("down"))
 
+    # The remat loop's entries. Under a mesh they are FSDP2 forward methods
+    # (core/partitioning.py), which gather the layer's weights on the way in
+    # and free them on the way out, so the layer's own code calls the
+    # bodies (_attn_half, _mlp_half) and never these.
     def attn_out(self, x, cos, sin, pad_mask, lctx: Ctx) -> torch.Tensor:
         """The attention half of a training layer: wo(attention(norm(x)))."""
+        return self._attn_half(x, cos, sin, pad_mask, lctx)
+
+    def mlp_residual(self, x: torch.Tensor, lctx: Ctx) -> torch.Tensor:
+        """The MLP half of a training layer, residual included."""
+        return self._mlp_half(x, lctx)
+
+    def _attn_half(self, x, cos, sin, pad_mask, lctx: Ctx) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = x.shape
         actx = lctx.sub("attn")
@@ -116,13 +127,12 @@ class LlamaLayer(nn.Module):
         out = multi_head_attention(q, k, v, causal=True, pad_mask_q=pad_mask, pad_mask_kv=pad_mask)
         return self.wo(out.reshape(b, s, -1), actx.sub("wo"))
 
-    def mlp_residual(self, x: torch.Tensor, lctx: Ctx) -> torch.Tensor:
-        """The MLP half of a training layer, residual included."""
+    def _mlp_half(self, x: torch.Tensor, lctx: Ctx) -> torch.Tensor:
         h = rms_norm(x, self.post_attention_layernorm.weight, self.cfg.rms_eps)
         return x + self.mlp(h, lctx.sub("mlp"))
 
     def forward(self, x, cos, sin, pad_mask, lctx: Ctx) -> torch.Tensor:
-        return self.mlp_residual(x + self.attn_out(x, cos, sin, pad_mask, lctx), lctx)
+        return self._mlp_half(x + self._attn_half(x, cos, sin, pad_mask, lctx), lctx)
 
     def _attend(self, q, k, v, cos, sin, pad_mask) -> torch.Tensor:
         """rope + attention over (B, S, heads * hd) projections; the output is
@@ -156,7 +166,7 @@ class LlamaLayer(nn.Module):
             o = _region(self._attend, q, k, v, cos, sin, pad_mask)
             (a,) = _lins([self.wo], None, (o,), [actx.sub("wo")])
         else:
-            a = _region(self.attn_out, x, cos, sin, pad_mask, lctx)
+            a = _region(self._attn_half, x, cos, sin, pad_mask, lctx)
         x = x + a
         if policy == "mlp1":  # ffn_up is not kept: down's region recomputes it
             (gate,) = _lins([self.gate], norm2, (x,), [mctx.sub("gate")])

@@ -133,13 +133,19 @@ class VLM(nn.Module):
         return self.projector(feats)
 
     def row_features(self, pixel_values: torch.Tensor, ctx: Optional[Ctx] = None,
-                       anyres_gather: Optional[torch.Tensor] = None,
-                       qformer_input_ids: Optional[torch.Tensor] = None,
-                       qformer_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     anyres_gather: Optional[torch.Tensor] = None,
+                     qformer_input_ids: Optional[torch.Tensor] = None,
+                     qformer_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, n_img | n_tiles, H, W, 3) -> (B, n_tok, lm_hidden), the rows
         the merge places at image_positions: each row's images' features
         in order, or with `anyres_gather` (B, n_tok) its tiles' features
-        gathered with the newline rows (vlrlhf_tpu `vlm_embeds`)."""
+        gathered with the newline rows (vlrlhf_tpu `vlm_embeds`). The
+        frozen tower's entry outside `forward`: under a mesh an FSDP2
+        forward method (core/partitioning.py), so `embeds` calls the body."""
+        return self._row_features(pixel_values, ctx, anyres_gather, qformer_input_ids,
+                                  qformer_mask)
+
+    def _row_features(self, pixel_values, ctx, anyres_gather, qformer_input_ids, qformer_mask):
         b, n_img = pixel_values.shape[:2]
         flat = pixel_values.reshape(b * n_img, *pixel_values.shape[2:])
         feats = self.encode_images(flat, ctx, qformer_input_ids, qformer_mask)
@@ -167,7 +173,7 @@ class VLM(nn.Module):
         if image_positions is None:
             raise ValueError("image inputs need image_positions")
         if image_features is None:
-            image_features = self.row_features(pixel_values, ctx, anyres_gather,
+            image_features = self._row_features(pixel_values, ctx, anyres_gather,
                                                qformer_input_ids, qformer_mask)
         return merge_multimodal_embeddings(embeds, image_features, image_positions)
 

@@ -107,26 +107,36 @@ def quantize_params(
 
 
 @torch.no_grad()
+def dense_weight(mod: nn.Module, dtype=torch.bfloat16) -> torch.Tensor:
+    """A quantized Linear's weight made dense: its int8 or int4 codes times
+    their scales (plus an int4 group bias), in f32 and then cast to
+    `dtype`."""
+    from vlrlhf_torch.ops.int4 import GROUP, dequantize_int4
+
+    if mod.weight_q4 is not None:
+        w = dequantize_int4(mod.weight_q4, mod.weight_scale4, torch.float32)
+        if mod.weight_gbias is not None:
+            w = w + mod.weight_gbias.float().repeat_interleave(GROUP, dim=1)
+    else:
+        w = dequantize_linear(mod.weight_q, mod.weight_scale, torch.float32)
+    return w.to(dtype)
+
+
+@torch.no_grad()
 def dequantize_params(model: nn.Module, dtype=torch.bfloat16) -> list[str]:
     """Restore a dense `dtype` weight in every int8 or int4 Linear, in place
     (the plain oracle, and the base a LoRA merge needs); returns the
     paths."""
     from vlrlhf_torch.models.common import Linear
-    from vlrlhf_torch.ops.int4 import GROUP, dequantize_int4
 
     done = []
     for name, mod in model.named_modules():
         if not isinstance(mod, Linear) or mod.weight is not None:
             continue
-        if mod.weight_q4 is not None:
-            w = dequantize_int4(mod.weight_q4, mod.weight_scale4, torch.float32)
-            if mod.weight_gbias is not None:
-                w = w + mod.weight_gbias.float().repeat_interleave(GROUP, dim=1)
-            mod.weight_q4 = mod.weight_scale4 = mod.weight_gbias = None
-        else:
-            w = dequantize_linear(mod.weight_q, mod.weight_scale, torch.float32)
-            mod.weight_q = mod.weight_scale = None
-        mod.weight = nn.Parameter(w.to(dtype), requires_grad=False)
+        w = dense_weight(mod, dtype)
+        mod.weight_q = mod.weight_scale = mod.weight_q4 = mod.weight_scale4 = None
+        mod.weight_gbias = None
+        mod.weight = nn.Parameter(w, requires_grad=False)
         done.append(linear_path(name))
     return done
 

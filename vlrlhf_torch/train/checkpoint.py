@@ -1,6 +1,6 @@
 """Checkpoints (counterpart of vlrlhf_tpu/train/checkpoint.py:
 CheckpointManager with save / restore / latest_step / wait / close, and
-save_params / load_params), single process.
+save_params / load_params).
 
 vlrlhf_tpu writes orbax, which needs JAX to read; the port's format is its
 own. A checkpoint is a directory `<directory>/<step>/` holding `state.pt`,
@@ -14,6 +14,14 @@ asynchronously: into a hidden temporary directory that is renamed to
 newest `max_to_keep` steps stay; `latest_step` reads the directory names.
 `save_params` writes one tree (the adapters, the merged weights) the same
 way, as `<path>/params.pt`.
+
+Under a process group (a torchrun launch, core/dist.py) the tree handed to
+`save` holds the world-1 tensors (core/partitioning.py full_state_tree
+gathers them from the mesh), and the first rank alone writes it as above,
+on its thread (no rank reads a checkpoint of the run it is in). Every rank
+restores the same world-1 tree and the caller splits it for its own mesh,
+so a checkpoint resumes under any layout and in a plain single-process
+run, as vlrlhf_tpu's orbax manager restores onto any mesh.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ import threading
 from typing import Any, Optional
 
 import torch
+
+from vlrlhf_torch.core import dist
 
 
 def _to_host(tree: Any) -> Any:
@@ -66,8 +76,11 @@ class CheckpointManager:
 
     def save(self, step: int, state: dict, extra: Optional[dict] = None) -> None:
         """Snapshot `state` (a tree of tensors and ints) now; write it in
-        the background. One save is in flight at a time."""
+        the background. One save is in flight at a time. Under a process
+        group only the first rank writes."""
         self.wait()
+        if not dist.is_main_process():
+            return
         files = {"state.pt": _to_host(state)}
         if extra:
             files["extra.json"] = extra

@@ -191,24 +191,36 @@ def make_ref_logps_fn(model: VLM, dcfg: DPOConfig):
 
 def precompute_ref_logps(model: VLM, dcfg: DPOConfig, rows: list, tokenize_fn, collator,
                          batch_size: int = 8) -> list:
-    """One adapter-off pass over the dataset (single process); each row
-    gains ref_chosen_logp / ref_rejected_logp floats, which the collator
-    then ships so training steps skip the reference forward. The tail batch
-    is padded by repeating its last row, as vlrlhf_tpu does."""
+    """One adapter-off pass over the dataset; each row gains
+    ref_chosen_logp / ref_rejected_logp floats, which the collator then
+    ships so training steps skip the reference forward. The tail batch is
+    padded by repeating its last row, as vlrlhf_tpu does. Under a mesh
+    each data-parallel rank computes a contiguous ceil(n / ranks) share of
+    the rows in the same number of batches (its model group's collectives
+    run in step), and every rank gathers all of them in order (vlrlhf_tpu
+    dpo.py:307-332)."""
+    from vlrlhf_torch.core.dist import gather_objects
+    from vlrlhf_torch.core.mesh import current_mesh
+
     fn = make_ref_logps_fn(model, dcfg)
-    out = []
-    for start in range(0, len(rows), batch_size):
-        idx = list(range(start, min(start + batch_size, len(rows))))
+    mesh = current_mesh()
+    n_dp, dp_rank = (mesh.dp_size, mesh.dp_rank) if mesh is not None else (1, 0)
+    per = -(-len(rows) // n_dp)
+    mine = list(range(dp_rank * per, min((dp_rank + 1) * per, len(rows))))
+    values = []
+    for start in range(0, per, batch_size):
+        idx = mine[start:start + batch_size]
         real = len(idx)
-        idx += [idx[-1]] * (batch_size - real)
+        idx += [idx[-1] if idx else 0] * (batch_size - real)
         batch = collator([tokenize_fn(rows[i]) for i in idx])
         batch.pop("loss_mask", None)
         c, r = fn(batch_to_device(batch, model.device))
         c, r = torch.stack([c, r]).cpu().tolist()  # one read per batch
-        for k in range(real):
-            out.append(dict(rows[idx[k]], ref_chosen_logp=float(c[k]),
-                            ref_rejected_logp=float(r[k])))
-    return out
+        values += [[float(c[k]), float(r[k])] for k in range(real)]
+    if mesh is not None:
+        values = gather_objects(values, group=mesh.dp_group)
+    return [dict(row, ref_chosen_logp=c, ref_rejected_logp=r)
+            for row, (c, r) in zip(rows, values)]
 
 
 def make_dpo_eval_fn(model: VLM, dcfg: DPOConfig):

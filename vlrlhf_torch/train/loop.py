@@ -1,6 +1,6 @@
 """The training loop (counterpart of vlrlhf_tpu/train/loop.py
 `batch_iterator`, `PreemptionGuard`, `run_training` and
-`prefetch_iterator`), single process.
+`prefetch_iterator`).
 
 Rows are tokenized lazily per batch (on a background thread with
 `prefetch_iterator`); each batch moves to the device, the step runs, and
@@ -9,6 +9,14 @@ them come back in one read. Every `save_steps` steps, and at a SIGTERM
 (`PreemptionGuard`: the step in progress finishes, then the state is saved
 and the loop stops), the state tree goes to the checkpoint manager
 (train/checkpoint.py).
+
+Under a mesh (core/mesh.py) every rank draws the same permutation and
+reads its data-parallel slice of each global batch (`batch_iterator`'s
+`process_slice`); at a logging step the metrics and the interval's token
+and image counts are averaged over the ranks in one collective, and a
+SIGTERM on any rank stops every rank at the same step: the ranks vote
+(`any_process_failed`) at logging and save steps only, which sync anyway,
+so the save stays collective and no other step waits on the host.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from typing import Callable, Iterable, Optional, Sequence
 import numpy as np
 import torch
 
+from vlrlhf_torch.core.dist import any_process_failed, dp_size, global_metrics, process_count
 from vlrlhf_torch.train.dpo import batch_to_device
 
 
@@ -28,21 +37,31 @@ def batch_iterator(
     batch_size: int,
     num_epochs: float,
     seed: int = 42,
+    global_batch_size: int = 0,
+    process_slice: Optional[tuple] = None,
 ) -> Iterable[dict]:
     """Numpy batches over `num_epochs` passes, reshuffled each epoch with
     one seeded generator, a short last batch dropped (the same order as
-    vlrlhf_tpu's single-process iterator)."""
+    vlrlhf_tpu's single-process iterator). Multi-process (vlrlhf_tpu's
+    `global_batch_size` / `process_slice`, loop.py:35-60): every rank
+    draws the same permutation, forms global batches of
+    `global_batch_size` rows and collates its `process_slice` (lo, hi) of
+    each, so the ranks' batches together are the single-process batch."""
     n = len(rows)
+    g = global_batch_size or batch_size
+    lo, hi = process_slice if process_slice is not None else (0, batch_size)
+    if hi - lo != batch_size:
+        raise ValueError(f"process_slice {process_slice} must cover batch_size {batch_size}")
     emitted_epochs = 0.0
     rng = np.random.default_rng(seed)
     while emitted_epochs < num_epochs:
         order = rng.permutation(n)
-        for start in range(0, n, batch_size):
-            idx = order[start : start + batch_size]
-            if len(idx) < batch_size:
+        for start in range(0, n, g):
+            idx = order[start : start + g]
+            if len(idx) < g:
                 continue
-            yield collate_fn([tokenize_fn(rows[int(i)]) for i in idx])
-            emitted_epochs += batch_size / n
+            yield collate_fn([tokenize_fn(rows[int(i)]) for i in idx[lo:hi]])
+            emitted_epochs += g / n
             if emitted_epochs >= num_epochs:
                 return
 
@@ -103,6 +122,8 @@ def run_training(
     again, as in vlrlhf_tpu); returns the last step's number."""
     guard = PreemptionGuard().install()
     last_saved = -1
+    n_dp = dp_size()
+    n_ranks = process_count()
 
     def save(step_idx):
         nonlocal last_saved
@@ -121,16 +142,23 @@ def run_training(
             if pv is not None:
                 interval_images += int(np.prod(pv.shape[:2]))
             if logger is not None and step % logging_steps == 0:
-                host = read_metrics(metrics)  # the only sync of the interval
-                host["perf/interval_tokens"] = interval_tokens
-                host["perf/interval_images"] = interval_images
+                counts = {"perf/interval_tokens": interval_tokens * n_dp,
+                          "perf/interval_images": interval_images * n_dp}
+                metrics = dict(metrics, **{k: torch.tensor(float(v), device=device)
+                                           for k, v in counts.items()})
+                # the only sync of the interval (and its one collective)
+                host = read_metrics(global_metrics(metrics))
                 interval_tokens = interval_images = 0
                 logger.log(step, host)
             if on_step is not None:
                 on_step(step, metrics)
             if step % save_steps == 0:
                 save(step)
-            if guard.flag:
+            stop = guard.flag
+            if n_ranks > 1:  # the ranks' vote is a collective: only at steps that sync anyway
+                stop = (step % logging_steps == 0 or step % save_steps == 0) and \
+                    any_process_failed(stop)
+            if stop:
                 # preempted: save at this step boundary and stop; the run
                 # resumes here with --resume_from_checkpoint
                 save(step)

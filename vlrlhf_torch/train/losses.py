@@ -125,6 +125,17 @@ def sft_loss(
     pad_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Mean shifted CE over labeled tokens (token mean, the HF convention)."""
+    nll_sum, count = sft_loss_terms(logits, labels, pad_mask)
+    return nll_sum / count.clamp(min=1)
+
+
+def sft_loss_terms(
+    logits: torch.Tensor,  # (B, S, V)
+    labels: torch.Tensor,  # (B, S)
+    pad_mask: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(summed shifted CE, labeled-token count) of `sft_loss`: a sharded
+    batch divides the ranks' summed CE by their summed count."""
     logits = logits[:, :-1].float()
     labels = labels[:, 1:]
     mask = labels != LABEL_PAD
@@ -132,7 +143,7 @@ def sft_loss(
         mask = mask & pad_mask[:, 1:].bool()
     safe = torch.where(mask, labels, torch.zeros_like(labels))
     nll = -(_gather_clipped(logits, safe) - torch.logsumexp(logits, dim=-1))
-    return (nll * mask).sum() / mask.sum().clamp(min=1)
+    return (nll * mask).sum(), mask.sum()
 
 
 def rm_loss(chosen_rewards: torch.Tensor, rejected_rewards: torch.Tensor) -> torch.Tensor:

@@ -29,10 +29,18 @@ class MetricsLogger:
         run_name: str = "run",
         flops_per_token: Optional[float] = None,
         flops_per_image: Optional[float] = None,
+        n_devices: int = 1,
+        write: bool = True,
     ):
-        os.makedirs(output_dir, exist_ok=True)
+        """`n_devices`: the GPUs the interval's tokens ran on (perf/mfu is
+        against their summed peak). `write` False (the ranks but the first
+        of a multi-GPU run) computes the same values and writes nothing."""
         self.path = os.path.join(output_dir, f"{run_name}_metrics.jsonl")
-        self._file = open(self.path, "a")
+        self._file = None
+        if write:
+            os.makedirs(output_dir, exist_ok=True)
+            self._file = open(self.path, "a")
+        self.n_devices = n_devices
         self.flops_per_token = flops_per_token
         self.flops_per_image = flops_per_image
         self._last: Optional[tuple[float, int]] = None
@@ -48,11 +56,13 @@ class MetricsLogger:
             out["perf/tokens_per_sec"] = tokens / dt
             if self.flops_per_token:
                 flops = self.flops_per_token * tokens + (self.flops_per_image or 0.0) * images
-                out["perf/mfu"] = flops / dt / H100_BF16_DENSE_FLOPS
+                out["perf/mfu"] = flops / dt / (H100_BF16_DENSE_FLOPS * self.n_devices)
         self._last = (now, step)
-        self._file.write(json.dumps({"step": step, **out}) + "\n")
-        self._file.flush()
+        if self._file is not None:
+            self._file.write(json.dumps({"step": step, **out}) + "\n")
+            self._file.flush()
         return out
 
     def close(self):
-        self._file.close()
+        if self._file is not None:
+            self._file.close()

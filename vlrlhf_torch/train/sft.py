@@ -22,9 +22,10 @@ from typing import Optional
 
 import torch
 
+from vlrlhf_torch.core.dist import all_reduce_sum, dp_group, dp_size
 from vlrlhf_torch.models.common import Ctx, fold_seed
 from vlrlhf_torch.models.vlm import VLM, image_inputs
-from vlrlhf_torch.train.losses import LABEL_PAD, chunked_logps, sft_loss
+from vlrlhf_torch.train.losses import LABEL_PAD, chunked_logps, sft_loss_terms
 from vlrlhf_torch.train.train_state import OptimizerConfig, TrainState, apply_updates, global_norm
 
 
@@ -72,10 +73,20 @@ def sft_step(model: VLM, scfg: SFTConfig, ocfg: OptimizerConfig, state: TrainSta
         logps, _ = chunked_logps(hidden, batch["labels"], model.head_fn(ctx),
                                  loss_mask=batch["pad_mask"], chunk=scfg.logits_chunk)
         mask = (batch["labels"][:, 1:] != LABEL_PAD) & batch["pad_mask"][:, 1:].bool()
-        loss = -logps.sum() / mask.sum().clamp(min=1)
+        nll_sum, count = -logps.sum(), mask.sum()
     else:
-        loss = sft_loss(model.head(hidden, ctx), batch["labels"], batch["pad_mask"])
-    loss.backward()
+        nll_sum, count = sft_loss_terms(model.head(hidden, ctx), batch["labels"],
+                                        batch["pad_mask"])
+    n_dp = dp_size()
+    if n_dp > 1:
+        # the token mean of the global batch: the ranks' sums over their
+        # summed count; FSDP2 averages the gradients over the n_dp ranks
+        total = all_reduce_sum(count.float(), dp_group()).clamp(min=1)
+        (nll_sum / total * n_dp).backward()
+        loss = all_reduce_sum(nll_sum.detach(), dp_group()) / total
+    else:
+        loss = nll_sum / count.clamp(min=1)
+        loss.backward()
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in state.trainable]
     metrics = {"loss": loss.detach(), "ppl": torch.exp(loss.detach())}
     if frozen:

@@ -19,7 +19,13 @@ The state is updated in place (the adapters, their moments and the
 accumulator are the largest buffers a LoRA run owns), with multi-tensor
 `torch._foreach_*` ops, and nothing is read back to the host.
 `state_tree` / `load_state_tree_` give the whole state, keyed by the
-trainable leaves' names, to train/checkpoint.py and back. The freeze masks
+trainable leaves' names, to train/checkpoint.py and back.
+
+Under a mesh (core/partitioning.py) the trainable leaves are FSDP2's
+DTensors: the update steps each rank's local shards, and `norm_groups`
+makes `global_norm` the norm over the whole sharded tree, each distinct
+value counted once, so clipping equals vlrlhf_tpu's optax clipping over
+its sharded arrays. The freeze masks
 of full fine-tuning wait for that mode (vlrlhf_tpu's `--use_lora false`
 trains adapters too: ROADMAP.md §3).
 """
@@ -28,9 +34,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
+
+from vlrlhf_torch.core.dist import local_tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,10 +86,25 @@ def lr_at(cfg: OptimizerConfig, count: int) -> float:
     return lr * 0.5 * (1.0 + math.cos(math.pi * t / decay))
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, f32, on the device."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+def global_norm(tensors: Sequence[torch.Tensor],
+                groups: Optional[Sequence[tuple]] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, f32, on the device.
+    With `groups` (one tuple of process groups per tensor, the tensors
+    being local shards) each tensor's sum of squares is summed over its
+    groups first: the norm of the whole sharded tree."""
+    norms = torch._foreach_norm([local_tensor(t).float() for t in tensors])
+    if groups is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    import torch.distributed as dist
+
+    sq = torch.stack(norms) ** 2
+    total = torch.zeros((), dtype=torch.float32, device=sq.device)
+    for key in dict.fromkeys(groups):  # distinct group tuples, in first-seen order
+        part = sq[[i for i, g in enumerate(groups) if g == key]].sum()
+        for g in key:
+            dist.all_reduce(part, group=g)
+        total = total + part
+    return total.sqrt()
 
 
 @dataclasses.dataclass
@@ -96,6 +119,8 @@ class TrainState:
     step: int = 0
     count: int = 0
     mini_step: int = 0
+    # under a mesh: per leaf, the groups of its squared norm (global_norm)
+    norm_groups: Optional[list[tuple]] = None
 
 
 def init_train_state(trainable: Sequence[torch.Tensor], cfg: OptimizerConfig) -> TrainState:
@@ -115,21 +140,25 @@ def apply_updates(state: TrainState, grads: Sequence[torch.Tensor],
                   cfg: OptimizerConfig) -> torch.Tensor:
     """One call of the optax chain, in place on `state`. Returns the global
     norm of `grads` as given, before clipping (the step's grad_norm)."""
-    grads = [g.float() for g in grads]
-    g_norm = global_norm(grads)
+    grads = [local_tensor(g).float() for g in grads]
+    g_norm = global_norm(grads, state.norm_groups)
     state.step += 1
-    if state.acc_grads is not None:
-        diff = torch._foreach_sub(grads, state.acc_grads)
+    # under a mesh the leaves are DTensors: the update steps the local shards
+    trainable, mu, nu = ([local_tensor(t) for t in ts]
+                         for ts in (state.trainable, state.mu, state.nu))
+    acc = None if state.acc_grads is None else [local_tensor(t) for t in state.acc_grads]
+    if acc is not None:
+        diff = torch._foreach_sub(grads, acc)
         torch._foreach_div_(diff, float(state.mini_step + 1))
-        torch._foreach_add_(state.acc_grads, diff)
+        torch._foreach_add_(acc, diff)
         state.mini_step += 1
         if state.mini_step < cfg.grad_accum_steps:
             return g_norm
-        grads = [a.clone() for a in state.acc_grads]
-        for a in state.acc_grads:
+        grads = [a.clone() for a in acc]
+        for a in acc:
             a.zero_()
         state.mini_step = 0
-        clip_norm = global_norm(grads)  # of the averaged gradients
+        clip_norm = global_norm(grads, state.norm_groups)  # of the averaged gradients
     else:
         clip_norm = g_norm
 
@@ -141,23 +170,23 @@ def apply_updates(state: TrainState, grads: Sequence[torch.Tensor],
     # adamw: scale_by_adam -> add_decayed_weights -> scale by -lr(count)
     lr = lr_at(cfg, state.count)
     state.count += 1
-    torch._foreach_mul_(state.mu, cfg.b1)
-    torch._foreach_add_(state.mu, grads, alpha=1.0 - cfg.b1)
-    torch._foreach_mul_(state.nu, cfg.b2)
-    torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - cfg.b2)
+    torch._foreach_mul_(mu, cfg.b1)
+    torch._foreach_add_(mu, grads, alpha=1.0 - cfg.b1)
+    torch._foreach_mul_(nu, cfg.b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1.0 - cfg.b2)
     # at most two trainable-sized temporaries live at once from here on
     # (the step's memory peak at 7B LoRA r64 is this update's)
     del grads
-    denom = torch._foreach_div(state.nu, 1.0 - cfg.b2**state.count)
+    denom = torch._foreach_div(nu, 1.0 - cfg.b2**state.count)
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, cfg.eps)
-    upd = torch._foreach_div(state.mu, 1.0 - cfg.b1**state.count)  # mu_hat
+    upd = torch._foreach_div(mu, 1.0 - cfg.b1**state.count)  # mu_hat
     torch._foreach_div_(upd, denom)
     del denom
     if cfg.weight_decay:
-        torch._foreach_add_(upd, state.trainable, alpha=cfg.weight_decay)
+        torch._foreach_add_(upd, trainable, alpha=cfg.weight_decay)
     torch._foreach_mul_(upd, -lr)
-    torch._foreach_add_(state.trainable, upd)
+    torch._foreach_add_(trainable, upd)
     return g_norm
 
 
@@ -179,10 +208,14 @@ def state_tree(state: TrainState, keys: Sequence[str]) -> dict:
 
 
 @torch.no_grad()
-def load_state_tree_(state: TrainState, keys: Sequence[str], tree: dict) -> None:
+def load_state_tree_(state: TrainState, keys: Sequence[str], tree: dict,
+                     place: Optional[Callable] = None) -> None:
     """Copy a `state_tree` (from a checkpoint) into `state` in place: each
     tensor lands on its leaf's device in its dtype. The groups, keys and
-    shapes must be the ones `state` holds."""
+    shapes must be the ones `state` holds. Under a mesh the tree holds the
+    world-1 tensors and `place(key, leaf, tensor)` gives this rank's part
+    of one (core/partitioning.py shard_full), which lands in the leaf's
+    local shard."""
     groups = {"trainable": state.trainable, "mu": state.mu, "nu": state.nu}
     if state.acc_grads is not None:
         groups["acc_grads"] = state.acc_grads
@@ -191,7 +224,9 @@ def load_state_tree_(state: TrainState, keys: Sequence[str], tree: dict) -> None
     for group, leaves in groups.items():
         if list(tree[group]) != list(keys):
             raise ValueError(f"checkpoint {group} keys differ from the model's adapters")
-        for dst, src in zip(leaves, tree[group].values()):
+        for key, dst, src in zip(keys, leaves, tree[group].values()):
+            if place is not None:
+                src, dst = place(key, dst, src), local_tensor(dst)
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(f"checkpoint {group} leaf {tuple(src.shape)} does not fit "
                                  f"{tuple(dst.shape)}")
