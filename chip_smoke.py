@@ -32,7 +32,11 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      forward and backward at H = 16 (LLaVA's 32 heads split) and GQA
      16 / 4 (Mistral's 32 / 8) on the DPO pair's S = 1024, the int4
      kernels at T = 2048 on gate / up column shards (out 5,504) and the
-     repacked down and wo row shards (in 5,504 and 2,048)
+     repacked down and wo row shards (in 5,504 and 2,048), kernel 6 at
+     T = 8 on the gate and down shards (ppo's rollouts under QLoRA int4),
+     decode at H = 16 / 16 (B = 8, length 640) and mistral's GQA 16 / 4
+     over ~3,000 tokens, bf16 and int8, and chunk verify at H = 16 (B = 8,
+     C = 4), bf16 and int8
   3. serving at full LLaVA-1.5-7B widths but 2 LM / 2 tower layers: the
      same seeded weights on the card (bf16, kernels) and on the CPU (f32,
      plain path), one image prefill + 8 greedy tokens; logit error and
@@ -133,7 +137,8 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      stats (logprobs, values, advantages over 4 rows, one with an empty
      response) and one update's loss and gradients, without and with value
      adapters; losses and stats within LOSS_REL_TOL, gradient cosines at
-     least GRAD_COS_MIN. (b) full LLaVA-1.5-7B width and depth, seeded
+     least GRAD_COS_MIN. (b) full LLaVA-1.5-7B width at PHASE10_LAYERS =
+     16 of its 32 LM layers (the script's time limit), seeded
      random bf16 weights, through cli.main's build_sft / build_rm /
      build_ppo, train_steps / train_ppo and finish_run: sft 3 steps on 2
      image rows of ~1000 tokens (attn remat, logits_chunk 256), step ms and
@@ -213,8 +218,21 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      micro-batches, whose losses it must hold within MESH_LOSS_TOL),
      step-1 loss ln 2 and gradient norms within 1e-2; model = 2 with its
      row-parallel all-reduce skipped (a planted fault) must fail
-     MESH_GRAD_TOL; model = 2's launches are "mesh_dpo_tp"; 13b-d's
-     processes start at once
+     MESH_GRAD_TOL; model = 2's launches are "mesh_dpo_tp"; fsdp = 2 and
+     model = 2 also save a checkpoint at the last update and, through
+     finish_run, adapters/ and merged/ from the gathered shards: each rank
+     restores the checkpoint into its layout bit for bit, and merged/
+     equals a world-1 merge of the same adapters bit for bit; 13b-d's
+     processes start at once; (e) ppo through build_ppo / train_ppo on two
+     ranks sharing the card over gloo (this script with --mesh13e-worker)
+     at full width and 2 LM / 2 tower layers: one outer step of 4 image
+     prompts, 16 greedy tokens, a seeded reward model held as the named
+     set "reward", one update, at model = 2, fsdp = 2 and two planted
+     faults (advantages whitened per rank at fsdp = 2; decode steps without
+     the row-parallel all-reduce at model = 2), against world 1 in this
+     process: the rollout tokens token for token and the first update's
+     gradients within PPO_GRAD_TOL at every leaf; each fault must exceed
+     it; model = 2's launches (kernels 1-4) are "mesh_ppo"
 
 A profiled step prints the card's busy and idle time and its kernel time by
 group (torch.profiler; the flash groups split by head dim). Phase 2's
@@ -243,7 +261,7 @@ serve, DPO, QLoRA, trainer, eval, multi-adapter serving, phase 9's runs
 blip_eval) and phase 12's (qwen_int4_reduced, internlm_int4_reduced,
 xc2_qlora4_reduced, qwen_serve, qwen_dpo, qwen_serve_int8_spec,
 xc2_serve, xc2_dpo, xc2_eval) and phase 13's (mesh_dpo, mesh_eval,
-mesh_dpo_tp), split in
+mesh_dpo_tp, mesh_ppo), split in
 launches_by_path; the eval and ppo shapes' times under "eval" and "ppo");
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -316,6 +334,12 @@ TP2_FLASH_CASES = (
 # int4 on a rank's shards at the DPO step's T = 2048: gate / up column
 # shards (out 11008 -> 5504), the repacked down row shard (in 5504) and
 # wo's (in 4096 -> 2048)
+# kernel 6 at decode (T = 8) on the same two shards: ppo's rollouts under
+# --mesh_model 2 --q_lora true --bits 4 (the T <= 64 cluster kernel)
+TP2_INT4_DECODE_CASES = (
+    ("tp2_decode_gate", 8, 4096, 5504),
+    ("tp2_decode_down", 8, 5504, 4096),
+)
 TP2_INT4_CASES = (
     ("tp2_dpo_gate", 2048, 4096, 5504),
     ("tp2_dpo_down", 2048, 5504, 4096),
@@ -731,7 +755,8 @@ def int4_kernel_checks(gen) -> dict:
            ("verify_gate", 32, 4096, 11008), ("verify_down", 32, 11008, 4096),
            ("prefill_gate", 1280, 4096, 11008), ("prefill_down", 1280, 11008, 4096),
            ("dpo_gate", 2048, 4096, 11008), ("dpo_down", 2048, 11008, 4096),
-           ("edge", 5, 384, 200), ("edge_wgmma", 65, 384, 200), *TP2_INT4_CASES]
+           ("edge", 5, 384, 200), ("edge_wgmma", 65, 384, 200), *TP2_INT4_CASES,
+           *TP2_INT4_DECODE_CASES]
     bwd = [("dpo_gate", 2048, 4096, 11008), ("dpo_down", 2048, 11008, 4096),
            ("dpo_attn", 2048, 4096, 4096), ("edge", 5, 384, 200), ("edge_wgmma", 129, 384, 200),
            *TP2_INT4_CASES]
@@ -750,7 +775,7 @@ def int4_kernel_checks(gen) -> dict:
             # the kernel alone (its C entry point) and through its wrapper
             alone = int4_kernel_call(name, a, d_out if name == "int4_matmul" else d_in, d_in,
                                      d_out)
-            if label.startswith(("decode", "verify")):
+            if label.startswith(("decode", "verify", "tp2_decode")):
                 copies = itertools.cycle([(packed, scale)] + [(packed.clone(), scale.clone())
                                                               for _ in range(3)])
                 k_ms = time_ms(lambda: alone(*next(copies)), iters=40)
@@ -780,7 +805,7 @@ def int4_kernel_checks(gen) -> dict:
         results[name] = {**{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                    "bound_by")},
                          "max_abs_err": max(errs), "cases": by_case,
-                         "tp": {c[0]: by_case[c[0]] for c in TP2_INT4_CASES}}
+                         "tp": {c[0]: by_case[c[0]] for c in cases if c[0].startswith("tp2")}}
     weights.clear()
     torch.cuda.empty_cache()
     return results
@@ -804,7 +829,10 @@ def decode_kernel_checks(randn) -> dict:
     at layers 2-5), "ppo" the B=8 bf16 one of ppo's rollouts (rows of
     PPO_DECODE_LENS, timed at 672), "families" phase 11b's LLaVA-Next
     mistral slots (B=8, GQA nh 32 / nkv 8, 3,200-slot caches on 4 layers,
-    rows of MISTRAL_DECODE_LENS, timed at 3,000), bf16 and int8."""
+    rows of MISTRAL_DECODE_LENS, timed at 3,000), bf16 and int8; "tp" one
+    rank's heads under --mesh_model 2 (ppo's rollouts and dpo's eval
+    samples): B=8 at nh = nkv = 16 (length 640) and mistral's GQA 16 / 4
+    over ~3,000 tokens, bf16 and int8."""
     import torch.nn.functional as F
 
     from vlrlhf_torch.ops import _build
@@ -829,7 +857,13 @@ def decode_kernel_checks(randn) -> dict:
             # ~3,000-token anyres caches
             ("mistral", 8, 4, 0, 8, MISTRAL_SC,
              [MISTRAL_DECODE_LENS, (0, MISTRAL_SC - 1, 1, 2999, 3000, 3001, 1500, 3100)],
-             (3000,), ("bf16", "int8"))):
+             (3000,), ("bf16", "int8")),
+            # one rank of --mesh_model 2: 16 of LLaVA-1.5-7B's 32 heads, and
+            # 16 / 4 of LLaVA-Next mistral's GQA 32 / 8 (g = 4)
+            ("tp_h16", 8, 8, 2, 16, 1024, [PPO_DECODE_LENS, (0, 1023, 600, 613, 1, 640, 827, 128)],
+             (640,), ("bf16", "int8")),
+            ("tp_gqa", 8, 4, 0, 4, MISTRAL_SC, [MISTRAL_DECODE_LENS], (3000,), ("bf16", "int8"))):
+        nh = 16 if shape.startswith("tp") else 32
         timed_layers = range(layer, layer + 4)
         q = randn(b, nh, hd)
         kc, vc = randn(L, b, nkv, sc, hd), randn(L, b, nkv, sc, hd)
@@ -903,7 +937,9 @@ def decode_kernel_checks(randn) -> dict:
             "int8": results["serve_int8"],
             "chat": {"bf16": results["chat_bf16"], "int8": results["chat_int8"]},
             "eval": results["eval_bf16"], "ppo": results["ppo_bf16"],
-            "families": {"bf16": results["mistral_bf16"], "int8": results["mistral_int8"]}}
+            "families": {"bf16": results["mistral_bf16"], "int8": results["mistral_int8"]},
+            "tp": {k: results[f"tp_{k}"] for k in ("h16_bf16", "h16_int8", "gqa_bf16",
+                                                   "gqa_int8")}}
 
 
 def wrapper_host_us() -> dict:
@@ -975,7 +1011,9 @@ def chunk_kernel_checks(randn) -> dict:
     main entry is the int8 verify shape (the speculative int8 serve's);
     "eval" holds B=16, C=4 (the static speculative verify over eval's
     batch), bf16 and int8; "families" phase 11b's mistral verify (B=8, C=4,
-    GQA 32/8 so g * C = 16, caches of ~3,000 tokens in 3,200 slots)."""
+    GQA 32/8 so g * C = 16, caches of ~3,000 tokens in 3,200 slots); "tp"
+    one rank's 16 heads of --mesh_model 2 at the verify shape (no mesh path
+    reaches kernel 5: checked at kernel level)."""
     import torch.nn.functional as F
 
     from vlrlhf_torch.ops import _build
@@ -995,7 +1033,10 @@ def chunk_kernel_checks(randn) -> dict:
             ("eval_verify", EVAL_LENS, 4, 4, 32, 1024),
             # phase 11b's speculative verify on mistral: g * C = 4 * 4 = 16
             # rows per KV head, the CUDA-core path's limit
-            ("mistral_verify", MISTRAL_DECODE_LENS, 4, 4, 8, MISTRAL_SC)):
+            ("mistral_verify", MISTRAL_DECODE_LENS, 4, 4, 8, MISTRAL_SC),
+            # one rank of --mesh_model 2 at the verify shape: 16 of 32 heads
+            ("tp_verify", (600, 613, 627, 640, 655, 671, 688, 700), 4, 4, 16, 1024)):
+        nh = 16 if label.startswith("tp") else 32
         b = len(lens)
         q = randn(b, c, nh, hd)
         kc, vc = randn(L, b, nkv, sc, hd), randn(L, b, nkv, sc, hd)
@@ -1051,7 +1092,8 @@ def chunk_kernel_checks(randn) -> dict:
             "bound_by": main["bound_by"], "cases": cases,
             "eval": {"bf16": cases["eval_verify_bf16"], "int8": cases["eval_verify_int8"]},
             "families": {"bf16": cases["mistral_verify_bf16"],
-                         "int8": cases["mistral_verify_int8"]}}
+                         "int8": cases["mistral_verify_int8"]},
+            "tp": {"verify_bf16": cases["tp_verify_bf16"], "verify_int8": cases["tp_verify_int8"]}}
 
 
 def make_processor(cfg):
@@ -3184,12 +3226,13 @@ def phase_checkpoint(dpo_ms: float) -> dict:
     import dataclasses
     import shutil
 
+    from vlrlhf_torch.cli.loading import config_from_hf
     from vlrlhf_torch.cli.loading import make_processor as bundle_processor
     from vlrlhf_torch.cli.main import build_eval, build_parser, load_judge, main as cli, run_eval
     from vlrlhf_torch.data.tokenizer import JsonTokenizer
     from vlrlhf_torch.eval.judge import EngineJudge
     from vlrlhf_torch.models.common import init_random_
-    from vlrlhf_torch.models.config import FAMILIES, _llava_7b
+    from vlrlhf_torch.models.config import FAMILIES
     from vlrlhf_torch.models.vlm import VLM
     from vlrlhf_torch.ops.flash_attention import flash_attention, flash_bwd_dkv, flash_bwd_dq
     from vlrlhf_torch.ops.int4 import int4_matmul, int4_matmul_t
@@ -3213,7 +3256,9 @@ def phase_checkpoint(dpo_ms: float) -> dict:
         return serve_args(model_name_or_path=full, bf16=True, device="cuda", adapter=None, **kw)
 
     try:
-        cfg = _llava_7b(torch.bfloat16)
+        # the published config.json's model (its projector_hidden_act "gelu"
+        # is erf), so the in-memory twin computes what the import computes
+        cfg = config_from_hf(LLAVA_15_7B_CONFIG, torch.bfloat16)[1]
 
         def in_memory():
             m = VLM(cfg, "cuda")
@@ -3615,11 +3660,15 @@ def train_timed(run, args, what: str, launches_out: dict, path: str):
     return steps, recs, wall
 
 
+PHASE10_LAYERS = 16  # phase 10b's LM depth, half of LLaVA-1.5-7B's: the script's time limit
+
+
 def phase_trainers() -> dict:
-    """Phase 10b: sft, rm and ppo at full LLaVA-1.5-7B width and depth,
-    seeded random bf16 weights, through cli.main's build_* / train_* /
-    finish_run; 10c: ppo --q_lora true --bits 4 at 2 LM layers. Returns the
-    launch counts of paths sft, rm, ppo and ppo_qlora4."""
+    """Phase 10b: sft, rm and ppo at full LLaVA-1.5-7B width and
+    PHASE10_LAYERS LM layers, seeded random bf16 weights, through
+    cli.main's build_* / train_* / finish_run; 10c: ppo --q_lora true
+    --bits 4 at 2 LM layers. Returns the launch counts of paths sft, rm,
+    ppo and ppo_qlora4."""
     import dataclasses
     import shutil
 
@@ -3632,7 +3681,7 @@ def phase_trainers() -> dict:
                         f"phase10-{os.getpid()}")
     launches: dict = {}
     try:
-        cfg, model, proc = trainer_model()
+        cfg, model, proc = trainer_model(PHASE10_LAYERS)
         model.lm.cfg = dataclasses.replace(model.lm.cfg, remat_policy="attn")
 
         # sft: 3 steps on 2 image rows of ~1000 tokens
@@ -4844,6 +4893,8 @@ def phase_launchers() -> dict:
         got13d = os.path.join(out, "ranks", "13d.pt")
         env = dict(os.environ, WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
                    MASTER_PORT=str(_free_port()))
+        rm_dir = mesh13e_reward(os.path.join(out, "rm"))
+        env13e = dict(env, MASTER_PORT=str(_free_port()))
         procs = {
             "13b": start_logged(torchrun_cmd(
                 1, "-m", "vlrlhf_torch.cli.main", "dpo", "--synthetic", "8", "--mesh_fsdp",
@@ -4855,13 +4906,18 @@ def phase_launchers() -> dict:
             **{f"13d rank {r}": start_logged(
                 [sys.executable, os.path.abspath(__file__), "--mesh13d-worker", got13d],
                 env=dict(env, RANK=str(r))) for r in range(2)},
+            "13e": [start_logged([sys.executable, os.path.abspath(__file__), "--mesh13e-worker",
+                                  os.path.join(out, "ranks"), rm_dir],
+                                 env=dict(env13e, RANK=str(r))) for r in range(2)],
         }
         one = mesh13c_eval(mme, seed, os.path.join(out, "one"))
         world1 = mesh13d_run(os.path.join(out, "world1"))
         # the control of fsdp = 2: one process, each forward on one pair as
         # a rank's, the two pairs' gradients met by accumulation
         accum = mesh13d_run(os.path.join(out, "accum"), per_device=1, accumulate=2)
-        for what in list(procs):
+        world13e = mesh13e_run(os.path.join(out, "ppo_world1"), None, len(PPO13E_WORDS), None,
+                               rm_dir)
+        for what in [w for w in procs if w != "13e"]:
             finish_logged(procs.pop(what), what)
 
         lines = _metrics_lines(os.path.join(dpo_out, "dpo_metrics.jsonl"))
@@ -4923,20 +4979,26 @@ def phase_launchers() -> dict:
                     abs(g["norms"][0] - world1["norms"][0]) > 1e-2 * world1["norms"][0]:
                 raise AssertionError(f"13d {name}: {g['losses']} / {g['norms']}: step 1 must "
                                      f"read ln 2 and world 1's norm {world1['norms'][0]}")
-        return {"mesh_eval": eval_launches, "mesh_dpo_tp": got["model2"]["launches"]}
+        mesh13d_saves(os.path.join(out, "ranks"), got)
+        got13e = mesh13e_check(os.path.join(out, "ranks"), procs.pop("13e"), world13e, rm_dir)
+        return {"mesh_eval": eval_launches, "mesh_dpo_tp": got["model2"]["launches"],
+                "mesh_ppo": got13e}
     finally:
-        for proc, _ in procs.values():
-            proc.kill()
-            proc.communicate()
+        for started in procs.values():
+            for proc, _ in (started if isinstance(started, list) else [started]):
+                proc.kill()
+                proc.communicate()
         shutil.rmtree(out, ignore_errors=True)
 
 
-def grad_gap(got: dict, ref: dict) -> tuple:
+def grad_gap(got: dict, ref: dict, skip=()) -> tuple:
     """(the largest relative L2 gap over the leaves of two runs' first-update
-    gradients, its leaf); a leaf both hold at zero (LoRA's a, whose
-    gradient is 0 while b is) counts 0."""
+    gradients, but those in `skip`, its leaf); a leaf both hold at zero
+    (LoRA's a, whose gradient is 0 while b is) counts 0."""
     worst = (0.0, None)
     for k, w in ref["grads"].items():
+        if k in skip:
+            continue
         g = got["grads"][k]
         num, den = float((g - w).norm()), float(w.norm())
         gap = num / den if den > 0 else (0.0 if num == 0 else math.inf)
@@ -4946,6 +5008,7 @@ def grad_gap(got: dict, ref: dict) -> tuple:
 
 MESH13D = (("fsdp2", (1, 2, 1), 1, 3, False), ("model2", (1, 1, 2), 2, 3, False),
            ("model2_planted", (1, 1, 2), 2, 1, True))
+MESH13D_SAVED = ("fsdp2", "model2")  # the layouts that save, restore and merge
 MESH_LOSS_TOL = 1e-3  # 13d: fsdp = 2's losses against its same-arithmetic control
 MESH_GRAD_TOL = 2e-2  # 13d: a layout's first-update gradients against world 1's, per leaf
 MESH13D_LR = 1e-6  # keeps 13d's three losses between ln 2 and 0 (1e-4 took step 2 to 1e-4)
@@ -5010,7 +5073,7 @@ def mesh13c_worker(mme: str, seed: str, out: str) -> int:
 
 
 def mesh13d_run(out: str, shape=None, per_device: int = 2, accumulate: int = 1,
-                updates: int = 3) -> dict:
+                updates: int = 3, save: bool = False) -> dict:
     """One 13d run: LLaVA-1.5-7B's widths at 2 LM / 2 tower layers (seeded
     bf16 on cuda:0), 2 pairs per global batch, build_dpo (precomputed
     reference logps) and train_steps for `updates` updates; returns rank
@@ -5020,13 +5083,18 @@ def mesh13d_run(out: str, shape=None, per_device: int = 2, accumulate: int = 1,
     under that (data, fsdp, model) mesh of the process group; with
     `accumulate` > 1 in one process, --gradient_accumulation_steps over
     micro-batches of `per_device` pairs (an update's loss is its
-    micro-batches' mean)."""
+    micro-batches' mean). With `save`, a checkpoint at the last update and
+    finish_run's adapters/ and merged/ (--merge_adapter_after_training),
+    written by rank 0 from the gathered world-1 tensors; every rank then
+    restores the checkpoint into its layout (shard_full) and "resumes_exact"
+    says whether each of its live shards came back bit for bit."""
     import argparse
 
-    from vlrlhf_torch.cli.main import build_dpo, make_logger, train_steps
-    from vlrlhf_torch.core.dist import is_main_process
+    from vlrlhf_torch.cli.main import build_dpo, finish_run, make_logger, train_steps
+    from vlrlhf_torch.core.dist import gather_objects, is_main_process, local_tensor
     from vlrlhf_torch.core.mesh import MeshConfig, make_mesh, set_global_mesh
-    from vlrlhf_torch.core.partitioning import tp_dim
+    from vlrlhf_torch.core.partitioning import shard_full, tp_dim
+    from vlrlhf_torch.train.checkpoint import CheckpointManager
     from vlrlhf_torch.models.common import init_random_
     from vlrlhf_torch.models.vlm import VLM
 
@@ -5038,7 +5106,9 @@ def mesh13d_run(out: str, shape=None, per_device: int = 2, accumulate: int = 1,
         init_random_(model, torch.Generator(device="cuda").manual_seed(1))
         args = dpo_args(output_dir=out, per_device_train_batch_size=per_device,
                         gradient_accumulation_steps=accumulate, num_train_epochs=6.0,
-                        max_steps=3, learning_rate=MESH13D_LR, warmup_ratio=0.0, run_name=None)
+                        max_steps=3, learning_rate=MESH13D_LR, warmup_ratio=0.0, run_name=None,
+                        save_steps=updates * accumulate if save else 500,
+                        merge_adapter_after_training=save)
         run = build_dpo(cfg, model, make_processor(cfg), args,
                         [pair_row(7, 150, 260, 250), pair_row(8, 140, 240, 270)], seeded_image)
         logger = make_logger(args, "dpo", run)
@@ -5056,6 +5126,18 @@ def mesh13d_run(out: str, shape=None, per_device: int = 2, accumulate: int = 1,
         launches = read_counts(fns)
         logger.close()
         got = {"losses": [], "norms": [], "grads": grads, "launches": launches}
+        if save:
+            t0 = time.perf_counter()
+            finish_run(run, args)  # adapters/, merged/; every rank leaves it together
+            got["save_s"] = time.perf_counter() - t0
+            tree, _ = CheckpointManager(os.path.join(out, "checkpoints")).restore()
+            live = run.state_tree()
+            exact = all(
+                torch.equal(local_tensor(t).cpu(),
+                            (tree[g][k] if mesh is None else
+                             shard_full(tree[g][k], t, tp_dim(k), mesh)).cpu())
+                for g in ("trainable", "mu", "nu") for k, t in live[g].items())
+            got["resumes_exact"] = gather_objects([bool(exact)])
         if is_main_process():
             lines = _metrics_lines(os.path.join(out, "dpo_metrics.jsonl"))
             for k in ("losses", "norms"):
@@ -5107,6 +5189,377 @@ def row_reduce_skipped():
         common.reduce_from_tp = kept
 
 
+def mesh13d_saves(ranks: str, got: dict) -> None:
+    """13d's saves: each MESH13D_SAVED layout's checkpoint restored into its
+    own layout bit for bit on every rank, its adapters/ equal to the
+    checkpoint's trainable leaves, and its merged/ (gathered from the
+    shards, merged by rank 0) equal bit for bit to a world-1 merge of the
+    same adapters: the seeded 2-layer model in this process, the adapters
+    file set on it, save_merged with no mesh."""
+    import shutil
+
+    from vlrlhf_torch.cli.main import save_merged
+    from vlrlhf_torch.lora.lora import set_adapters_
+    from vlrlhf_torch.models.common import init_random_
+    from vlrlhf_torch.models.vlm import VLM
+    from vlrlhf_torch.train.checkpoint import CheckpointManager, load_params
+
+    cfg = mesh_2layer_cfg()
+    model = VLM(cfg, "cuda")
+    init_random_(model, torch.Generator(device="cuda").manual_seed(1))
+    args = dpo_args()
+    report = {}
+    for name in MESH13D_SAVED:
+        d = os.path.join(ranks, name)
+        adapters = load_params(os.path.join(d, "adapters"))
+        tree, _ = CheckpointManager(os.path.join(d, "checkpoints")).restore()
+        same_adapters = tree["trainable"].keys() == adapters.keys() and all(
+            torch.equal(tree["trainable"][k], adapters[k]) for k in adapters)
+        set_adapters_(model, adapters)
+        w1 = os.path.join(ranks, f"{name}_world1")
+        t0 = time.perf_counter()
+        save_merged(model, args.lora_alpha / args.lora_r, dpo_args(output_dir=w1))
+        w1_s = time.perf_counter() - t0
+        a, b = load_params(os.path.join(d, "merged")), load_params(os.path.join(w1, "merged"))
+        diff = [k for k in b if k not in a or not torch.equal(a[k], b[k])]
+        report[name] = {"resumes_exact": got[name]["resumes_exact"],
+                        "adapters_equal_checkpoint": same_adapters,
+                        "merged_leaves": len(b), "merged_bytes": sum(t.numel() * t.element_size()
+                                                                     for t in b.values()),
+                        "merged_differ": diff[:4], "save_s": round(got[name]["save_s"], 3),
+                        "world1_merge_s": round(w1_s, 3)}
+        shutil.rmtree(w1, ignore_errors=True)
+        shutil.rmtree(os.path.join(d, "merged"), ignore_errors=True)
+    print("13d saves (checkpoint at the last update, adapters/, merged/, through train_steps "
+          "and finish_run on the two ranks): " + json.dumps(report), flush=True)
+    for name, r in report.items():
+        if not all(r["resumes_exact"]) or not r["adapters_equal_checkpoint"] or \
+                r["merged_differ"] or r["merged_leaves"] == 0:
+            raise AssertionError(f"13d {name}: the multi-rank save or merged save is not world "
+                                 f"1's bit for bit: {r}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# 13e: ppo on two gloo ranks sharing the card, each layout against world 1.
+# (name, (data, fsdp, model), rows per data-parallel rank, planted fault)
+MESH13E = (("model2", (1, 1, 2), 4, None), ("fsdp2", (1, 2, 1), 2, None),
+           ("fsdp2_whitened_per_rank", (1, 2, 1), 2, "whiten"),
+           ("model2_decode_unreduced", (1, 1, 2), 4, "decode"))
+# 13e's bound, fixed before its first card run: a layout's first-update
+# gradients (Adam's first moment / 0.1) within 5e-2 relative L2 of world
+# 1's on the same tokens and scores at every leaf
+PPO_GRAD_TOL = 5e-2
+# a layout's reward scores within this of world 1's, relative to world 1's
+# largest |score| (bf16 noise read up to 2.55e-2 at seeds 2-6 before it was
+# set); each planted fault must fail tokens, scores or gradients
+PPO_SCORE_TOL = 5e-2
+PPO13E_WORDS = (60, 70, 80, 90)  # four image prompts, one global batch of 4 rows
+
+
+def mesh13e_reward(out: str, seed: int = 1) -> str:
+    """A seeded reward model for 13e (from 20 + `seed`), written as an rm
+    run's adapters/: r8 LoRA with non-zero b on the family's targets of the
+    2-layer model and an (H, 1) rm_head, so its scores differ row by row."""
+    from vlrlhf_torch.lora.lora import match_lora_targets, module_path
+    from vlrlhf_torch.models.config import FAMILIES
+    from vlrlhf_torch.models.vlm import VLM
+    from vlrlhf_torch.train.checkpoint import save_params
+
+    cfg = mesh_2layer_cfg()
+    model = VLM(cfg, "meta")  # shapes only
+    g = torch.Generator().manual_seed(20 + seed)
+    tree = {}
+    for name, mod in match_lora_targets(model, FAMILIES[cfg.family].lora_targets):
+        key = f"adapters/{module_path(name)[: -len('/kernel')]}"
+        tree[f"{key}/a"] = torch.randn((mod.d_in, 8), generator=g) * mod.d_in**-0.5
+        tree[f"{key}/b"] = torch.randn((8, mod.d_out), generator=g) * 0.02
+    tree["rm_head/kernel"] = torch.randn((cfg.lm.hidden_size, 1), generator=g) * 0.05
+    save_params(os.path.join(out, "adapters"), tree)
+    return os.path.join(out, "adapters")
+
+
+@contextlib.contextmanager
+def ppo_fault(kind):
+    """13e's planted faults: "whiten" whitens the advantages over the rank's
+    rows (train/ppo.py's masked_whiten without its group); "decode" skips
+    the row-parallel all-reduce in every decode step of the rollouts."""
+    from vlrlhf_torch.models.lm.llama import LlamaDecoder
+    from vlrlhf_torch.train import ppo
+
+    if kind is None:
+        yield
+        return
+    if kind == "whiten":
+        kept = ppo.masked_whiten
+        ppo.masked_whiten = lambda x, mask, group=None: kept(x, mask)
+        try:
+            yield
+        finally:
+            ppo.masked_whiten = kept
+        return
+    kept = LlamaDecoder.decode
+
+    def decode(self, *a, **k):
+        with row_reduce_skipped():
+            return kept(self, *a, **k)
+
+    LlamaDecoder.decode = decode
+    try:
+        yield
+    finally:
+        LlamaDecoder.decode = kept
+
+
+def mesh13e_ties(run, rows: list, layout: dict, ref_tokens: list) -> dict:
+    """{"ties": [(row, position, world 1's token, the layout's, gap)],
+    "not_tie": [...]}: each row where the layout's greedy tokens differ from
+    world 1's, judged as tie_or_raise judges one, on `run`'s world-1 model:
+    both tokens its top two after world 1's common prefix, their gap within
+    LOGIT_REL_TOL of the largest |logit|."""
+    from vlrlhf_torch.cli.main import prompt_row
+    from vlrlhf_torch.generate.engine import GenerateConfig, batch_to_device, prefill
+    from vlrlhf_torch.models.common import Ctx
+
+    out = {"ties": [], "not_tie": []}
+    proc = run.gen_collator.processor
+    for i, (ref, got) in enumerate(zip(ref_tokens, layout["tokens"])):
+        d = divergence(ref, got, -1)
+        if d is None:
+            continue
+        j, a, b = d
+        prow = prompt_row(proc, rows[i])
+        t = batch_to_device(run.gen_collator([dict(prow, input_ids=list(prow["input_ids"])
+                                                   + list(ref[:j]))]), run.model.device)
+        with torch.inference_mode():
+            *_, last = prefill(run.model, GenerateConfig(max_new_tokens=1, pad_token_id=-1),
+                               t["input_ids"].shape[1], t["input_ids"], t["pad_mask"],
+                               t["prompt_lens"], t["pixel_values"], t["image_positions"],
+                               None, Ctx(adapters=True, lora_scale=run.lcfg.scale))
+        logits = last[0].float().cpu()
+        gap = float((logits[a] - logits[b]).abs())
+        tie = {a, b} == set(torch.topk(logits, 2).indices.tolist()) and \
+            gap <= LOGIT_REL_TOL * float(logits.abs().max())
+        out["ties" if tie else "not_tie"].append((i, j, a, b, round(gap, 5)))
+    return out
+
+
+@contextlib.contextmanager
+def rollouts_replayed(layout):
+    """train_ppo's static rollouts replaced by `layout`'s global tokens and
+    response lengths (world 1 only); None leaves them."""
+    from vlrlhf_torch.cli import main as cli
+
+    if layout is None:
+        yield
+        return
+    kept = cli.static_rollouts
+    cli.static_rollouts = lambda gen, pb, chunk_sz, generator: (
+        np.asarray(layout["tokens"], np.int32), np.asarray(layout["resp_lens"]))
+    try:
+        yield
+    finally:
+        cli.static_rollouts = kept
+
+
+def mesh13e_run(out: str, shape, per_device: int, fault, rm_dir: str, seed: int = 1,
+                replay=None) -> dict:
+    """One 13e run through cli.main build_ppo and train_ppo: LLaVA-1.5-7B's
+    widths at 2 LM / 2 tower layers (bf16 on cuda:0, weights from `seed`),
+    one outer step of a global batch of 4 image prompts (PPO13E_WORDS;
+    prompts 4 (seed - 1) to 4 seed - 1), 16 greedy tokens (build_ppo's
+    GenerateConfig with do_sample off), the seeded reward model of
+    `rm_dir` as a named set on the same base, one update on the full batch.
+    With `shape` under that mesh of the process group. Returns the global
+    rollout tokens, the first update's gradients (world-1 layout, host),
+    rank 0's logged metrics and the launches of kernels 1-4 (this rank's).
+
+    `replay` (world 1 only) is (a layout's result, world 1's tokens): where
+    the two rollouts differ, each row's first divergence is checked for a
+    top-2 tie of this model's teacher-forced logits ("ties"; any other
+    divergence goes to "not_tie" and the step is not run); then the step
+    runs on the layout's tokens and raw reward scores, so its gradients
+    are world 1's on the same rollout and rewards."""
+    import dataclasses
+
+    from vlrlhf_torch.cli.main import build_ppo, make_logger, train_ppo
+    from vlrlhf_torch.core.dist import is_main_process
+    from vlrlhf_torch.core.mesh import MeshConfig, make_mesh, set_global_mesh
+    from vlrlhf_torch.core.partitioning import tp_dim
+    from vlrlhf_torch.models.common import init_random_
+    from vlrlhf_torch.models.vlm import VLM
+
+    cfg = mesh_2layer_cfg()
+    mesh = make_mesh(MeshConfig(*shape), "cuda") if shape is not None else None
+    fns = counted(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention"))
+    got = {}
+    try:
+        model = VLM(cfg, "cuda")
+        init_random_(model, torch.Generator(device="cuda").manual_seed(seed))
+        args = trainer_args(output_dir=out, per_device_train_batch_size=per_device, max_steps=1,
+                            ppo_epochs=1, minibatch_size=0, max_new_tokens=16,
+                            reward_model_path=rm_dir, learning_rate=MESH13D_LR)
+        rows = [ppo_prompt(len(PPO13E_WORDS) * (seed - 1) + i, w)
+                for i, w in enumerate(PPO13E_WORDS)]
+        run = build_ppo(cfg, model, make_processor(cfg), args, rows, seeded_image)
+        # greedy: each data-parallel rank samples its own rows, so only greedy
+        # rollouts repeat world 1 under every layout
+        run.gen_cfg = dataclasses.replace(run.gen_cfg, do_sample=False)
+        if replay is not None:
+            got.update(mesh13e_ties(run, rows, replay[0], replay[1]))
+            if got["not_tie"]:
+                return got
+            replayed = torch.as_tensor(np.asarray(replay[0]["raw_scores"], np.float32))
+            run.reward_fn = lambda batch: replayed
+        logger = make_logger(args, "ppo", run)
+
+        def first(step, info):  # collective under a mesh: every rank is here
+            got.update(tokens=np.asarray(info["tokens"]).tolist(),
+                       resp_lens=np.asarray(info["resp_lens"]).tolist(),
+                       scores=[round(float(x), 6) for x in info["scores"]],
+                       # the raw scores: 13e scales, norms and clips none
+                       raw_scores=np.asarray(info["scores"], np.float32),
+                       grads={k: host_full(v, tp_dim(k), mesh) / (1 - run.ocfg.b1)
+                              for k, v in run.state_tree()["mu"].items()})
+
+        zero_counts(fns)
+        t0 = time.perf_counter()
+        with ppo_fault(fault), rollouts_replayed(replay and replay[0]):
+            train_ppo(run, make_processor(cfg), args, logger, on_step=first)
+        got["step_s"] = time.perf_counter() - t0
+        got["launches"] = read_counts(fns)
+        logger.close()
+        if is_main_process():
+            got["metrics"] = _metrics_lines(os.path.join(out, "ppo_metrics.jsonl"))
+        del run, model
+    finally:
+        set_global_mesh(None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return got
+
+
+def mesh13e_worker(ranks: str, rm_dir: str, seed: str = "1") -> int:
+    """A rank of 13e: gloo on cuda:0, each MESH13E layout in turn; rank 0
+    writes {name: mesh13e_run's result} to <ranks>/13e.pt."""
+    import faulthandler
+
+    import torch.distributed as tdist
+
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    tdist.init_process_group("gloo")
+    got = {}
+    for name, shape, per_device, fault in MESH13E:
+        got[name] = mesh13e_run(os.path.join(ranks, f"ppo_{name}"), shape, per_device, fault,
+                                rm_dir, int(seed))
+    if tdist.get_rank() == 0:
+        torch.save(got, os.path.join(ranks, "13e.pt"))
+    tdist.barrier()
+    tdist.destroy_process_group()
+    return 0
+
+
+def mesh13e_check(ranks: str, started: list, world1: dict, rm_dir: str, seed: int = 1) -> dict:
+    """13e's checks once its ranks are done, for each layout: the greedy
+    rollout tokens equal world 1's, or differ only from a top-2 tie on
+    (mesh13e_ties); the reward scores within PPO_SCORE_TOL of world 1's;
+    the first update's gradients within PPO_GRAD_TOL at every leaf of
+    world 1's replay of the layout's tokens and scores (whitened
+    advantages magnify the rewards' bf16 noise by the batch's score
+    spread, so the update is held on the same inputs). model = 2 and fsdp
+    = 2 pass all three, each planted fault fails one; kernels 1-4 launched
+    on model = 2's rank 0 ("mesh_ppo"). Each layout's line also reads the
+    worst leaf but the value head ("other"). Returns those launches."""
+    for i, st in enumerate(started):
+        finish_logged(st, f"13e rank {i}")
+    got = torch.load(os.path.join(ranks, "13e.pt"), weights_only=False)
+    report, replays = {}, {}
+    w1 = np.asarray(world1["raw_scores"], np.float64)
+    for name, _, _, fault in MESH13E:
+        g = got[name]
+        key = (repr(g["tokens"]), g["raw_scores"].tobytes())
+        if key not in replays:  # a fault in the update shares its layout's rollout
+            replays[key] = mesh13e_run(os.path.join(ranks, f"replay_{name}"), None,
+                                       len(PPO13E_WORDS), None, rm_dir, seed,
+                                       replay=(g, world1["tokens"]))
+        ref = replays[key]
+        gap, leaf = grad_gap(g, ref) if "grads" in ref else (math.inf, "tokens")
+        score_gap = float(np.abs(np.asarray(g["raw_scores"], np.float64) - w1).max()
+                          / np.abs(w1).max())
+        report[name] = {"tokens_equal": g["tokens"] == world1["tokens"],
+                        "ties": ref["ties"], "not_tie": ref["not_tie"],
+                        "score_gap": score_gap, "grad_gap": gap, "leaf": leaf,
+                        "other": grad_gap(g, ref, skip=("v_head/kernel",))
+                        if "grads" in ref else None,
+                        "scores": g["scores"], "step_s": round(g["step_s"], 3),
+                        "kl_coef": g["metrics"][-1].get("ppo/kl_coef"),
+                        "mean_score": g["metrics"][-1].get("ppo/mean_score")}
+        report[name]["passes"] = not ref["not_tie"] and score_gap <= PPO_SCORE_TOL and \
+            gap <= PPO_GRAD_TOL
+    print(f"13e (seed {seed}) ppo on two ranks sharing the card (gloo), one outer step of "
+          f"{len(PPO13E_WORDS)} image prompts, 16 greedy tokens: world 1 resp_lens "
+          f"{world1['resp_lens']} scores {world1['scores']} mean_score "
+          f"{world1['metrics'][-1]['ppo/mean_score']:.6g} step {world1['step_s']:.3f} s; "
+          + json.dumps(report) + f"; bounds: scores {PPO_SCORE_TOL}, gradients {PPO_GRAD_TOL} "
+          f"(each planted fault must fail one); "
+          f"model2 rank 0 launches {json.dumps(got['model2']['launches'])}", flush=True)
+    for name, _, _, fault in MESH13E:
+        r = report[name]
+        if fault is None and not r["passes"]:
+            raise AssertionError(f"13e {name}: against world 1: {r}")
+        if fault is not None and r["passes"]:
+            raise AssertionError(f"13e {name}: the planted fault ({fault}) passed: {r}")
+    launches = got["model2"]["launches"]
+    if any(launches[n] <= 0 for n in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                                      "decode_attention")):
+        raise AssertionError(f"13e (mesh_ppo) must launch kernels 1-4: {launches}")
+    return launches
+
+
+def study_13e(seeds=(2, 3, 4, 5, 6, 7, 8, 9)) -> None:
+    """13e at other seeds, each against its own world 1 at the same
+    bounds, with both planted faults: seed s takes the model's
+    weights from s, the reward model from 20 + s and prompts 4 (s - 1) to
+    4 s - 1 (13e itself is seed 1). Prints each seed's 13e line; raises
+    at the end if any seed failed. Not part of the script's run; on the
+    card: `python -c "import chip_smoke as c; c.phase_build();
+    c.study_13e()"`."""
+    import shutil
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = _build_dir("study13e")
+    failed = []
+    try:
+        for seed in seeds:
+            ranks = os.path.join(out, f"seed{seed}")
+            os.makedirs(ranks)
+            rm_dir = mesh13e_reward(os.path.join(ranks, "rm"), seed)
+            env = dict(os.environ, WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(_free_port()))
+            started = [start_logged([sys.executable, os.path.abspath(__file__),
+                                     "--mesh13e-worker", ranks, rm_dir, str(seed)],
+                                    env=dict(env, RANK=str(r))) for r in range(2)]
+            try:
+                world1 = mesh13e_run(os.path.join(ranks, "ppo_world1"), None,
+                                     len(PPO13E_WORDS), None, rm_dir, seed)
+                mesh13e_check(ranks, started, world1, rm_dir, seed)
+            except AssertionError as e:
+                failed.append(f"seed {seed}: {str(e)[:2000]}")
+                print(f"13e seed {seed} FAILED: {str(e)[:2000]}", flush=True)
+            finally:
+                for proc, _ in started:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.communicate()
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    if failed:
+        raise AssertionError("13e at other seeds: " + "; ".join(failed))
+
+
 def mesh13d_worker(out: str) -> int:
     """A rank of 13d (started by phase_launchers with torchrun's
     environment): gloo on cuda:0, each MESH13D layout in turn; rank 0
@@ -5122,7 +5575,7 @@ def mesh13d_worker(out: str) -> int:
     for name, shape, per_device, updates, planted in MESH13D:
         with row_reduce_skipped() if planted else contextlib.nullcontext():
             got[name] = mesh13d_run(os.path.join(os.path.dirname(out), name), shape,
-                                    per_device, updates=updates)
+                                    per_device, updates=updates, save=name in MESH13D_SAVED)
     if tdist.get_rank() == 0:
         torch.save(got, out)
     tdist.barrier()
@@ -5143,6 +5596,8 @@ def main() -> int:
         return mesh13d_worker(sys.argv[2])
     if sys.argv[1:2] == ["--mesh13c-worker"]:  # a rank of phase 13c, started below
         return mesh13c_worker(*sys.argv[2:5])
+    if sys.argv[1:2] == ["--mesh13e-worker"]:  # a rank of phase 13e, started below
+        return mesh13e_worker(*sys.argv[2:5])
     t_start = time.perf_counter()
 
     def mark(label: str) -> None:

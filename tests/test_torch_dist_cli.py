@@ -15,11 +15,20 @@ the same command in one plain process, f32:
   - `eval --synthetic 4` on pope (generation) and seedbench (CE ranking):
     each rank runs its shard of the rows, and the gathered rows and
     scores equal the single-process run's;
+  - `ppo --synthetic 8` under fsdp = 2 (one row per rank) and model = 2
+    (also with value adapters under full remat) with greedy rollouts
+    (tests/torch_dist_worker.py greedy_rollouts), score scaling, 2
+    epochs of 2-row minibatches: every ppo_metrics.jsonl value but perf/*
+    and the rollout rate within 1e-5 of the single-process run with two
+    rows per step, and its rank-0 checkpoint resumed in a plain process
+    (the KL coefficient with it) takes the step a plain resume takes;
+  - `dpo --eval_samples 2` under --mesh_model 2: the greedy samples, on
+    each rank's heads with its group's tokens broadcast, and the metrics
+    equal the single-process run's;
   - the refusals, each naming its reason: --mesh_pipe 2,
-    --pipeline_microbatches, --sequence_parallel_axis fsdp, ppo on 2
-    processes, mesh flags on eval and ppo, a mesh a plain run cannot make,
-    heads or int4 row widths --mesh_model does not divide, --eval_samples
-    under --mesh_model 2."""
+    --pipeline_microbatches, --sequence_parallel_axis fsdp, mesh flags on
+    eval, a mesh a plain run cannot make, heads or int4 row widths
+    --mesh_model does not divide."""
 
 import json
 import os
@@ -32,6 +41,7 @@ import torch
 
 from tests.test_torch_cli_import import FIXTURES, ROWS, tiny_cfg
 from tests.test_torch_score import _pope_and_seed
+from tests.torch_dist_worker import greedy_rollouts
 from vlrlhf_torch.cli.main import main
 
 TOL = 1e-5
@@ -41,13 +51,22 @@ DPO = ["--max_steps", "3", "--logging_steps", "1", "--lora_r", "4", "--max_lengt
 # the eval hook: the holdout's loss pass under the mesh and greedy samples
 # from the gathered weights (10 synthetic rows: 2 held out, 8 train)
 EVAL = ["--eval_steps", "2", "--eval_ratio", "0.2", "--eval_samples", "2"]
+PPO = ["ppo", *CPU, "--synthetic", "8", "--max_steps", "2", "--logging_steps", "1", "--lora_r",
+       "4", "--max_length", "64", "--max_new_tokens", "4", "--lora_dropout", "0", "--ppo_epochs",
+       "2", "--minibatch_size", "2", "--use_score_scaling", "true", "--save_steps", "1"]
+# value adapters: a second LoRA set, replicated over the data-parallel ranks,
+# its trunk pass recomputed in the backward
+VALUE = ["--use_value_adapter", "true", "--remat_policy", "full"]
 
 
 def torchrun(args: list, nproc: int = 2) -> subprocess.Popen:
+    """The CLI on `nproc` ranks; a ppo command with greedy rollouts."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
+    entry = (["tests.torch_dist_worker", "--greedy-ppo"] if args[0] == "ppo"
+             else ["vlrlhf_torch.cli.main"])
     return subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-         str(nproc), "-m", "vlrlhf_torch.cli.main", *args],
+         str(nproc), "-m", *entry, *args],
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))), env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
@@ -94,6 +113,17 @@ def runs(tmp_path_factory):
         "gqa": torchrun(["dpo", *CPU, "--synthetic", "4", "--model_family",
                          "llava_next_mistral", "--mesh_model", "2", "--output_dir",
                          str(tmp / "gqa")]),
+        "dpo_model2": torchrun(["dpo", *CPU, "--synthetic", "10", *DPO, *EVAL, "--output_dir",
+                                str(tmp / "dpo_model2"), "--per_device_train_batch_size", "2",
+                                "--mesh_model", "2", "--mesh_fsdp", "1"]),
+        "ppo_fsdp2": torchrun([*PPO, "--output_dir", str(tmp / "ppo_fsdp2"),
+                               "--per_device_train_batch_size", "1", "--mesh_fsdp", "-1"]),
+        "ppo_model2": torchrun([*PPO, "--output_dir", str(tmp / "ppo_model2"),
+                                "--per_device_train_batch_size", "2", "--mesh_model", "2",
+                                "--mesh_fsdp", "1"]),
+        "ppo_value_model2": torchrun([*PPO, *VALUE, "--output_dir", str(tmp / "ppo_value_model2"),
+                                      "--per_device_train_batch_size", "2", "--mesh_model", "2",
+                                      "--mesh_fsdp", "1"]),
         **{f"eval/{b}": torchrun([*ev[b], "--output_dir", str(tmp / f"{b}2")]) for b in bench},
     }
     main(["dpo", *CPU, "--synthetic", "10", *DPO, *EVAL, "--save_steps", "2", "--output_dir",
@@ -102,6 +132,10 @@ def runs(tmp_path_factory):
           "2"])
     for b in bench:
         main([*ev[b], "--output_dir", str(tmp / f"{b}1")])
+    with greedy_rollouts():
+        main([*PPO, "--output_dir", str(tmp / "ppo1"), "--per_device_train_batch_size", "2"])
+        main([*PPO, *VALUE, "--output_dir", str(tmp / "ppo_value1"),
+              "--per_device_train_batch_size", "2"])
     done = {k: finish(p) for k, p in procs.items()}
     return tmp, done
 
@@ -199,21 +233,76 @@ def test_dpo_refusals(tmp_path, flags, match):
         main(["dpo", *CPU, "--synthetic", "4", "--output_dir", str(tmp_path), *flags])
 
 
-def test_ppo_eval_and_eval_samples_refusals(tmp_path, monkeypatch):
+def test_ppo_eval_and_eval_samples_refusals(runs, tmp_path):
+    """eval keeps refusing mesh flags; ppo under torchrun and --eval_samples
+    under --mesh_model 2, refused before, run (their results below)."""
     with pytest.raises(SystemExit, match="eval takes no mesh flags"):
         main(["eval", *CPU, "--synthetic", "4", "--benchmark", "pope", "--data_file", "x",
               "--output_dir", str(tmp_path), "--mesh_fsdp", "2"])
-    with pytest.raises(SystemExit, match="ppo takes no mesh flags"):
-        main(["ppo", *CPU, "--synthetic", "4", "--output_dir", str(tmp_path),
-              "--mesh_model", "2"])
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="ppo on 2 processes: PPO and generation under a mesh"):
-        main(["ppo", *CPU, "--synthetic", "4", "--output_dir", str(tmp_path)])
-    monkeypatch.setenv("RANK", "0")
-    monkeypatch.setenv("LOCAL_RANK", "0")
-    with pytest.raises(SystemExit, match="--eval_samples with --mesh_model 2: generation"):
-        main(["dpo", *CPU, "--synthetic", "4", "--output_dir", str(tmp_path), "--eval_steps",
-              "1", "--eval_samples", "2", "--mesh_model", "2", "--mesh_fsdp", "1"])
+    for key in ("ppo_fsdp2", "ppo_model2", "dpo_model2"):
+        _ok(runs[1], key)
+
+
+def _comparable(row: dict) -> dict:
+    return {k: v for k, v in row.items()
+            if not k.startswith("perf/") and k not in ("ppo/rollout_tok_s", "step")}
+
+
+@pytest.mark.parametrize("layout", ["fsdp2", "model2", "value_model2"])
+def test_ppo_on_two_ranks_logs_the_single_process_metrics(runs, layout):
+    tmp, done = runs
+    _ok(done, f"ppo_{layout}")
+    plain = "ppo_value1" if layout.startswith("value") else "ppo1"
+    one, two = (metrics(tmp / d / "ppo_metrics.jsonl") for d in (plain, f"ppo_{layout}"))
+    assert [r["step"] for r in two] == [1, 2] and len(one) == len(two)
+    for a, b in zip(one, two):
+        a, b = _comparable(a), _comparable(b)
+        assert a.keys() == b.keys() and "ppo/kl_coef" in a
+        for k in a:
+            np.testing.assert_allclose(b[k], a[k], atol=TOL, rtol=TOL, err_msg=k)
+    assert (tmp / f"ppo_{layout}" / "adapters" / "params.pt").exists()
+
+
+def test_two_rank_ppo_checkpoint_resumes_in_a_plain_run(runs, tmp_path):
+    """fsdp = 2's step-1 checkpoint (rank 0's world-1 tensors and the KL
+    coefficient) resumed in one process takes the step a plain resume of
+    the plain run's own step-1 checkpoint takes."""
+    from vlrlhf_torch.train.checkpoint import CheckpointManager
+
+    tmp, done = runs
+    _ok(done, "ppo_fsdp2")
+    last = {}
+    for name in ("ppo_fsdp2", "ppo1"):
+        src = tmp / name / "checkpoints"
+        _, extra = CheckpointManager(str(src)).restore(1)
+        assert extra["kl_coef"] == metrics(tmp / name / "ppo_metrics.jsonl")[0]["ppo/kl_coef"]
+        out = tmp_path / name
+        ckpt = CheckpointManager(str(out / "checkpoints"))
+        tree, extra = CheckpointManager(str(src)).restore(1)
+        ckpt.save(1, tree, extra=extra)
+        ckpt.close()
+        with greedy_rollouts():
+            main([*PPO, "--output_dir", str(out), "--per_device_train_batch_size", "2",
+                  "--resume_from_checkpoint", "auto"])
+        last[name] = metrics(out / "ppo_metrics.jsonl")
+    assert [r["step"] for r in last["ppo_fsdp2"]] == [2]
+    a, b = (_comparable(last[n][0]) for n in ("ppo1", "ppo_fsdp2"))
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_allclose(b[k], a[k], atol=TOL, rtol=TOL, err_msg=k)
+
+
+def test_eval_samples_under_mesh_model_equal_the_single_process_run(runs):
+    tmp, done = runs
+    _ok(done, "dpo_model2")
+    one, two = (metrics(tmp / d / "dpo_metrics.jsonl") for d in ("dpo1", "dpo_model2"))
+    assert [r["step"] for r in two] == [r["step"] for r in one]
+    for a, b in zip(one, two):
+        for k in a.keys() - {"step"} - {k for k in a if k.startswith("perf/")}:
+            np.testing.assert_allclose(b[k], a[k], atol=TOL, rtol=TOL, err_msg=f"{a['step']} {k}")
+    samples = [(tmp / d / "dpo_samples.jsonl").read_text().splitlines()
+               for d in ("dpo1", "dpo_model2")]
+    assert len(samples[1]) == 2 and samples[0] == samples[1]
 
 
 def test_int4_row_width_that_mesh_model_does_not_divide_is_refused():

@@ -210,12 +210,22 @@ def runs(tmp_path_factory):
     calls = {f"llava/{m}": (llava, MESHES[m], {}) for m in MESHES}
     calls.update({f: (fams[f], MESHES["fsdp2_model2"], {}) for f in FAMILIES})
     calls["int8/fsdp2"] = (int8, MESHES["fsdp2"], dict(logits_chunk=16))
-    # the references' compiles overlap on threads
-    with ThreadPoolExecutor(4) as pool:
-        futures = {name: pool.submit(jax_dpo, c[0], c[1], c[3], c[5], mesh,
-                                     dict(beta=0.1, lora_scale=c[2].scale, **kw))
-                   for name, (c, mesh, kw) in calls.items()}
-        want = {name: f.result() for name, f in futures.items()}
+    # the references' compiles overlap on threads; vlrlhf_tpu's make_mesh
+    # registers its mesh globally, and a mesh left registered turns the
+    # later files of this worker onto vlrlhf_tpu's model-sharded paths
+    # (its int4 linears under model > 1: tests/test_torch_qwen_xc2_quant.py
+    # read 7e-3 where it reads 1.5e-3), so the registry is put back
+    from vlrlhf_tpu.core import mesh as jmesh
+
+    prev = jmesh._GLOBAL_MESH
+    try:
+        with ThreadPoolExecutor(4) as pool:
+            futures = {name: pool.submit(jax_dpo, c[0], c[1], c[3], c[5], mesh,
+                                         dict(beta=0.1, lora_scale=c[2].scale, **kw))
+                       for name, (c, mesh, kw) in calls.items()}
+            want = {name: f.result() for name, f in futures.items()}
+    finally:
+        jmesh._GLOBAL_MESH = prev
     got = {**jobs[4].result(), **jobs[2].result()}
     return got, want, (lcfg4, model4, batch4)
 

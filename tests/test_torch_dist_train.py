@@ -89,7 +89,17 @@ def runs(tmp_path_factory):
         dict(_case("straight", FSDP2_MODEL2, model, batch, lcfg), steps=3,
              save_dir=str(ckpt), save_at=1),
     ], 4, tmp / "w4")
-    want = {"sft": _jax_sft(llava, sft_batch), "rm": _jax_rm(llava, batch)}
+    # vlrlhf_tpu's make_mesh registers its mesh globally, and this module
+    # fixture runs outside conftest's per-test restore: put the registry
+    # back, or later files of this xdist worker run under the (1, 2, 2) mesh
+    # (tests/test_mesh_isolation.py fails there)
+    from vlrlhf_tpu.core import mesh as jmesh
+
+    prev = jmesh._GLOBAL_MESH
+    try:
+        want = {"sft": _jax_sft(llava, sft_batch), "rm": _jax_rm(llava, batch)}
+    finally:
+        jmesh._GLOBAL_MESH = prev
     got = first.result()
     second = Job([
         dict(_case("dropout", (1, 1, 2), model, batch, lcfg,

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_hf_import import hf_forms
 from vlrlhf_torch.cli.loading import load_model_bundle
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
@@ -109,7 +110,7 @@ def _jax_bridged(path, cfg):
     from vlrlhf_torch.utils.bridge import load_vlm_params, vlm_config_from
 
     _, jcfg, jparams, _ = jload(path, jnp.float32)
-    assert dataclasses.replace(vlm_config_from(jcfg), qformer=cfg.qformer) == cfg
+    assert hf_forms(dataclasses.replace(vlm_config_from(jcfg), qformer=cfg.qformer), cfg) == cfg
     return load_vlm_params(VLM(cfg, device="cpu"), jax.device_get(jparams))
 
 

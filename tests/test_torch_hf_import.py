@@ -73,6 +73,22 @@ def _inputs(b=2, s=20, seed=0):
     return ids, torch.randn(b, 3, 28, 28, generator=g)
 
 
+def hf_forms(cfg, imported):
+    """`cfg` with the fields an HF import reads from config.json and a
+    config bridged from vlrlhf_tpu (or a family config) fixes otherwise
+    taken from `imported`: the GELU forms of the tower, projector and
+    Q-Former, Qwen's NTK and logn, Mistral's sliding window."""
+    lm = dataclasses.replace(cfg.lm, rope_scaling_type=imported.lm.rope_scaling_type,
+                             logn_attn=imported.lm.logn_attn,
+                             sliding_window=imported.lm.sliding_window)
+    qf = cfg.qformer
+    if qf is not None and imported.qformer is not None:
+        qf = dataclasses.replace(qf, act=imported.qformer.act)
+    return dataclasses.replace(
+        cfg, lm=lm, qformer=qf, vision=dataclasses.replace(cfg.vision, act=imported.vision.act),
+        projector=dataclasses.replace(cfg.projector, act=imported.projector.act))
+
+
 def port_logits(model, ids, pixels, pad_mask=None):
     b, s = ids.shape
     pos = torch.arange(3, 3 + N_IMG, dtype=torch.int32)[None].expand(b, N_IMG)
@@ -114,12 +130,26 @@ def test_import_matches_transformers_and_jax(tiny):
         assert torch.equal(got[k], exp[k]), k
 
 
+def test_imported_gelu_forms_give_transformers_logits_at_1e_5(tiny):
+    """The projector's "gelu" is erf (projector_hidden_act), CLIP's
+    quick_gelu: the imported model's logits are transformers' within 1e-5.
+    On these inputs the erf projector reads 3.9e-7 off, the tanh form
+    vlrlhf_tpu computes 2.1e-5 (7.6e-6 on `_inputs()`'s)."""
+    path, hf = tiny
+    _, cfg, model, _ = load_model_bundle(path, torch.float32, device="cpu")
+    assert (cfg.projector.act, cfg.vision.act) == ("gelu", "quick_gelu")
+    ids, px = _inputs(seed=3)
+    with torch.no_grad():
+        want = hf(input_ids=ids, pixel_values=px).logits.numpy()
+    assert np.abs(port_logits(model, ids, px).numpy() - want).max() <= 1e-5
+
+
 def test_published_llava_15_config_and_refusals():
     from vlrlhf_torch.models.config import _llava_7b
     from vlrlhf_torch.utils.synthetic_checkpoint import LLAVA_15_7B_CONFIG, llava_config
 
     _, cfg = config_from_hf(LLAVA_15_7B_CONFIG)
-    assert cfg == _llava_7b()
+    assert cfg == hf_forms(_llava_7b(), cfg) and cfg.projector.act == "gelu"
     small = dataclasses.replace(_llava_7b(), lm=dataclasses.replace(_llava_7b().lm, num_layers=2))
     assert config_from_hf(llava_config(small))[1] == small
     from vlrlhf_tpu.cli.loading import config_from_hf as jconfig
@@ -132,8 +162,8 @@ def test_published_llava_15_config_and_refusals():
             qwen.lm, max_position_embeddings=2048, head_dim=128))),
                      (XC2_7B_CONFIG, _internlm_xc2_7b())):
         family, got = config_from_hf(hf)
-        assert got == want and family.name == want.family
-        assert vlm_config_from(jconfig(hf)[1]) == got
+        assert got == hf_forms(want, got) and family.name == want.family
+        assert hf_forms(vlm_config_from(jconfig(hf)[1]), got) == got
     with pytest.raises(ValueError, match="not a family vlrlhf_tpu supports"):
         config_from_hf(dict(LLAVA_15_7B_CONFIG, architectures=["GPT2LMHeadModel"]))
 

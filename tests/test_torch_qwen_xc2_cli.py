@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_hf_import import hf_forms
 from vlrlhf_torch.cli.loading import load_model_bundle
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
@@ -126,8 +127,8 @@ def test_import_matches_the_model_and_jax(ckpt):
     family, cfg, model, path = ckpt
     f, cfg2, back, proc = load_model_bundle(path, torch.float32, device="cpu")
     assert f.name == family
-    assert _geometry(cfg2) == _geometry(dataclasses.replace(
-        cfg, image_token_id=cfg2.image_token_id))
+    assert _geometry(cfg2) == _geometry(hf_forms(dataclasses.replace(
+        cfg, image_token_id=cfg2.image_token_id), cfg2))
     _same(back.state_dict(), model.state_dict())
     if family == "internlm_xc2":
         assert cfg2.image_token_id == proc.cfg.image_token_id == 92544  # <ImageHere>, added
@@ -138,7 +139,7 @@ def test_import_matches_the_model_and_jax(ckpt):
     _, jcfg = jconfig(hf, jnp.float32)
     if family == "internlm_xc2":
         jcfg = dataclasses.replace(jcfg, image_token_id=cfg2.image_token_id)
-    assert _geometry(vlm_config_from(jcfg)) == _geometry(cfg2)
+    assert _geometry(hf_forms(vlm_config_from(jcfg), cfg2)) == _geometry(cfg2)
     sd = load_file(str(pathlib.Path(path) / "model.safetensors"))
     params = JPORTERS[family](sd, jcfg)
     if family == "internlm_xc2":

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 from tests.test_torch_families import _jax_init
+from tests.test_torch_int4 import no_jax_mesh  # noqa: F401 (autouse)
 from tests.test_torch_plora import TOL, _jax_logits, _port_logits, _xc2_batch
 
 MODEL_TOL = 5e-3  # int4 linears round their input to bf16 in both packages

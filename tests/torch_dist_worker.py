@@ -4,9 +4,12 @@ LOCAL_RANK, MASTER_ADDR, MASTER_PORT). It imports torch and vlrlhf_torch
 only.
 
     python -m tests.torch_dist_worker JOB OUT
+    python -m tests.torch_dist_worker --greedy-ppo ARGS...   (cli.main ARGS
+                                                              with greedy_rollouts)
 
 JOB is a torch.save of {"cases": [...]}; each case (but "preempt", a
-SIGTERM on one rank during run_training) names a mesh
+SIGTERM on one rank during run_training, "ppo", "ppo_cli": see ppo_case
+and ppo_cli_case) names a mesh
 (data, fsdp, model), a kind ("train" or "checkpoint"), a pickled port
 model holding its adapters, a global numpy batch and the step's configs.
 Every rank applies the plan (core.partitioning.shard_model_), reads its
@@ -19,7 +22,9 @@ checkpoint's latest step; with "save_dir" saving the state before step
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
 import sys
 
 import numpy as np
@@ -129,13 +134,140 @@ def preempt_case(case: dict) -> dict:
             "saved": ckpt._steps()}
 
 
+def ppo_case(case: dict) -> dict:
+    """PPO under the case's mesh on a pickled port model holding its
+    adapters: greedy rollouts of the global prompt batch ("prompts"; each
+    data-parallel rank its rows, static and continuous, on the gathered
+    units), with "sampled" a sampled static rollout whose ranks draw from
+    different seeds, then cli.main's ppo_step on the global rollout
+    ("batch", raw scores "raw") with score scaling and the adaptive KL
+    controller. Rank 0 returns the tokens (global; "sampled": every
+    rank's), every update's metrics, the KL coefficient, the score moments
+    and the world-1 trainable leaves after the step."""
+    import dataclasses
+
+    from vlrlhf_torch.cli.main import PPORun, continuous_rollouts, ppo_step, rows_of
+    from vlrlhf_torch.cli.main import static_rollouts
+    from vlrlhf_torch.core.partitioning import unsharded
+    from vlrlhf_torch.generate.continuous import ContinuousEngine
+    from vlrlhf_torch.generate.engine import GenerateConfig, Generator
+    from vlrlhf_torch.train.ppo import AdaptiveKLController, PPOConfig, RunningMoments
+
+    torch.manual_seed(0)
+    mesh = make_mesh(MeshConfig(*case["mesh"]), "cpu")
+    model = copy.deepcopy(case["model"])
+    keys = [f"adapters/{k}" for k in lora_keys(model)] + ["v_head/kernel"]
+    shard_model_(model, mesh)
+    v_head = {"kernel": torch.nn.Parameter(torch.as_tensor(case["v_head"]).clone())}
+    ocfg, pcfg = OptimizerConfig(**case["ocfg"]), PPOConfig(**case["pcfg"])
+    state = init_train_state(adapter_params(model) + [v_head["kernel"]], ocfg)
+    attach_norm_groups_(state, keys, mesh)
+    run = PPORun(model=model, pcfg=pcfg, ocfg=ocfg, lcfg=None, state=state, keys=keys,
+                 v_head=v_head, value_adapters=False, gen_cfg=None, gen_collator=None, rows=[],
+                 reward_fn=None, flops_per_token=0.0, flops_per_image=0.0)
+    out = {}
+    pb = case["prompts"]
+    per = pb["input_ids"].shape[0] // mesh.dp_size
+    mine = rows_of(pb, mesh.dp_rank * per, (mesh.dp_rank + 1) * per)
+    gcfg = GenerateConfig(max_new_tokens=case["new_tokens"], pad_token_id=0)
+    gen = Generator(model, gcfg, lora_scale=pcfg.lora_scale)
+    gen.adapters = True
+    with unsharded(model):
+        got = {"static": static_rollouts(gen, mine, 1, None)}
+        engine = ContinuousEngine(model, gcfg, n_slots=1, cache_len=128, adapters=True,
+                                  lora_scale=pcfg.lora_scale, emit_stop_token=True)
+        got["continuous"] = continuous_rollouts(engine, mine, [{"img_path": "x"}] * per, None,
+                                                gcfg.max_new_tokens, 0)
+        if case.get("sampled"):
+            sgen = Generator(model, dataclasses.replace(gcfg, do_sample=True),
+                             lora_scale=pcfg.lora_scale)
+            sgen.adapters = True
+            seed = torch.Generator().manual_seed(100 + vdist.process_index())
+            out["sampled"] = vdist.gather_objects([static_rollouts(sgen, mine, 1, seed)[0]
+                                                   .tolist()])
+    for kind, (tokens, lens) in got.items():
+        _, parts = vdist.vote_and_gather((False,), (tokens, lens))
+        out[kind] = (np.concatenate([t for t, _ in parts]), np.concatenate([n for _, n in parts]))
+    moments, kl_ctl = RunningMoments(), AdaptiveKLController(pcfg)
+    scores, kl, history = ppo_step(run, case["batch"], case["raw"], moments, kl_ctl, case["seed"])
+    out.update(scores=scores, kl=kl, history=history, kl_coef=kl_ctl.value,
+               moments=(moments.mean, moments.var, moments.count),
+               trainable=_numpy_tree(full_state_tree(state_tree(state, keys), mesh)["trainable"]))
+    set_global_mesh(None)
+    return out
+
+
+def ppo_cli_case(case: dict) -> dict:
+    """cli.main's ppo under torchrun's process group (setup_mesh with the
+    case's mesh flags, the synthetic bundle, build_ppo, train_ppo) with a
+    reward that raises on rank 1 at the first step: every rank skips that
+    step. Rank 0 returns the metrics lines and, per logged step, the score
+    moments on_step saw."""
+    import json
+    import os
+
+    from vlrlhf_torch.cli.main import (
+        build_parser, build_ppo, make_logger, setup_mesh, synthetic_bundle, synthetic_rows,
+        train_ppo,
+    )
+
+    args = build_parser().parse_args(case["argv"])
+    setup_mesh(args, torch.device("cpu"))
+    _, cfg, model, proc = synthetic_bundle(args, torch.device("cpu"))
+    run = build_ppo(cfg, model, proc, args, synthetic_rows(args.synthetic, with_pairs=False))
+    run.gen_cfg = dataclasses.replace(run.gen_cfg, do_sample=False)
+    calls = []
+    reward = run.reward_fn
+
+    def flaky(batch):
+        calls.append(1)
+        if len(calls) == case["fail_at"] and vdist.process_index() == case["fail_rank"]:
+            raise RuntimeError("the reward model's host raised")
+        return reward(batch)
+
+    run.reward_fn = flaky
+    logger = make_logger(args, "ppo", run)
+    seen = {}
+    train_ppo(run, proc, args, logger,
+              on_step=lambda step, info: seen.update({step: info["moments"]}))
+    logger.close()
+    set_global_mesh(None)
+    path = os.path.join(args.output_dir, "ppo_metrics.jsonl")
+    lines = [json.loads(x) for x in open(path)] if vdist.is_main_process() else []
+    return {"lines": lines, "moments": seen}
+
+
+CASES = {"preempt": preempt_case, "ppo": ppo_case, "ppo_cli": ppo_cli_case}
+
+
+@contextlib.contextmanager
+def greedy_rollouts():
+    """cli.main's ppo with greedy rollouts (build_ppo's GenerateConfig with
+    do_sample=False, where the CLI samples at temperature 1): each
+    data-parallel rank draws its own tokens, so only greedy rollouts repeat
+    the single-process run under every layout."""
+    from vlrlhf_torch.cli import main as cli
+
+    build = cli.build_ppo
+
+    def greedy(*args, **kw):
+        run = build(*args, **kw)
+        run.gen_cfg = dataclasses.replace(run.gen_cfg, do_sample=False)
+        return run
+
+    cli.build_ppo = greedy
+    try:
+        yield
+    finally:
+        cli.build_ppo = build
+
+
 def main(job_path: str, out_path: str) -> None:
     vdist.initialize("cpu")
     job = torch.load(job_path, weights_only=False)
     results = {}
     for case in job["cases"]:
-        run = preempt_case if case.get("step") == "preempt" else run_case
-        results[case["name"]] = run(case)
+        results[case["name"]] = CASES.get(case.get("step"), run_case)(case)
     if vdist.is_main_process():
         torch.save(results, out_path)
     vdist.sync_global_devices("done")
@@ -143,7 +275,13 @@ def main(job_path: str, out_path: str) -> None:
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:3])
+    if sys.argv[1] == "--greedy-ppo":
+        from vlrlhf_torch.cli.main import main as cli_main
+
+        with greedy_rollouts():
+            cli_main(sys.argv[2:])
+    else:
+        main(*sys.argv[1:3])
 
 
 class Job:

@@ -19,13 +19,22 @@ its Q-Former without instructions then).
 
 Qwen-VL (QWenLMHeadModel) reads its flat config: intermediate_size is
 twice the MLP width, kv_channels the head width, seq_length the trained
-context of the dynamic-NTK rope (`use_dynamic_ntk`), `visual` the tower and
+context of QWen's own dynamic-NTK rope (`use_dynamic_ntk`) and of its
+logn query scaling (`use_logn_attn`; both ops/rope.py, vlrlhf_tpu reads
+HF-llama's NTK and no logn), `visual` the tower (nn.GELU: erf) and
 resampler; its placeholder is the tokenizer-special <imgpad>
-(image_start_id + 2). `use_logn_attn` is read by neither package
-(ROADMAP.md §3). InternLM-XC2 keeps the family's tower and projector with
+(image_start_id + 2). InternLM-XC2 keeps the family's tower and projector with
 the config's LM geometry and `img_size`; its tokenizer gains <ImageHere>
 as a special token, whose id becomes the image token id (it may equal the
 LM's vocabulary size: embed clamps it, and its features overwrite it).
+
+Every GELU takes the form config.json names (models/common.py
+`activation`): `projector_hidden_act`, `vision_config.hidden_act`,
+`qformer_config.hidden_act`, where "gelu" is the erf form (vlrlhf_tpu
+computes jax.nn.gelu's tanh form everywhere). A Mistral text model's
+`sliding_window` is read into LMConfig.sliding_window: set, every longer
+sequence and KV cache is refused by name (the attention kernels hold no
+window); null, as Mistral-7B-Instruct-v0.2 ships it, changes nothing.
 """
 
 from __future__ import annotations
@@ -63,7 +72,7 @@ EVA_VISION_DEFAULTS = dict(
 QFORMER_DEFAULTS = dict(
     vocab_size=30522, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
     intermediate_size=3072, cross_attention_frequency=2, encoder_hidden_size=1408,
-    max_position_embeddings=512, layer_norm_eps=1e-12,
+    max_position_embeddings=512, layer_norm_eps=1e-12, hidden_act="gelu",
 )
 
 
@@ -86,6 +95,7 @@ def _llama_lm_from_hf(tc: dict, dtype) -> LMConfig:
         max_position_embeddings=tc["max_position_embeddings"],
         rms_eps=tc["rms_norm_eps"],
         tie_embeddings=bool(tc.get("tie_word_embeddings", False)),
+        sliding_window=tc.get("sliding_window"),
         dtype=dtype,
     )
 
@@ -132,7 +142,7 @@ def _instructblip_from_hf(hf: dict, family: ModelFamily, dtype) -> VLMConfig:
             intermediate_size=qc["intermediate_size"], encoder_hidden_size=vc["hidden_size"],
             num_query_tokens=n_query, cross_attention_frequency=qc["cross_attention_frequency"],
             max_position_embeddings=qc["max_position_embeddings"], ln_eps=qc["layer_norm_eps"],
-            dtype=dtype,
+            act=qc["hidden_act"], dtype=dtype,
         ),
         image_token_id=hf.get("image_token_index") or 32000,
         num_image_tokens=n_query,
@@ -150,14 +160,16 @@ def _qwen_vl_from_hf(hf: dict, dtype) -> VLMConfig:
             num_layers=hf["num_hidden_layers"], num_heads=hf["num_attention_heads"],
             num_kv_heads=hf["num_attention_heads"], head_dim=hf.get("kv_channels", 128),
             qkv_bias=True, rope_base=hf.get("rotary_emb_base", 10000.0),
-            rope_scaling_type="dynamic" if hf.get("use_dynamic_ntk") else "none",
+            rope_scaling_type="qwen_dynamic" if hf.get("use_dynamic_ntk") else "none",
+            logn_attn=bool(hf.get("use_logn_attn", False)),
             max_position_embeddings=hf.get("seq_length", 8192),
             rms_eps=hf.get("layer_norm_epsilon", 1e-6), dtype=dtype,
         ),
         vision=ViTConfig(
             image_size=vis["image_size"], patch_size=vis["patch_size"],
             hidden_size=vis["width"], num_layers=vis["layers"], num_heads=vis["heads"],
-            mlp_dim=int(vis["width"] * vis["mlp_ratio"]), act="gelu", use_class_token=False,
+            mlp_dim=int(vis["width"] * vis["mlp_ratio"]), act=vis.get("hidden_act", "gelu"),
+            use_class_token=False,
             use_pre_norm=True, use_post_norm=False, ln_eps=1e-6, dtype=dtype,
         ),
         projector=ProjectorConfig(
@@ -180,6 +192,9 @@ def _xc2_from_hf(hf: dict, family: ModelFamily, dtype) -> VLMConfig:
     return dataclasses.replace(
         base, lm=_llama_lm_from_hf(hf, dtype),
         vision=dataclasses.replace(base.vision, image_size=img_size),
+        # XC2's vision_proj is nn.Sequential(Linear, nn.GELU(), Linear): erf
+        projector=dataclasses.replace(base.projector,
+                                      act=hf.get("projector_hidden_act", "gelu")),
         num_image_tokens=(img_size // base.vision.patch_size) ** 2,
     )
 
@@ -207,7 +222,8 @@ def config_from_hf(hf: dict, dtype=torch.bfloat16) -> tuple[ModelFamily, VLMConf
         lm=_llama_lm_from_hf(tc, dtype),
         vision=_clip_vit_from_hf(vc, dtype, feature_layer=hf.get("vision_feature_layer", -2)),
         projector=ProjectorConfig(kind="mlp2x_gelu", in_dim=vc["hidden_size"],
-                                  out_dim={**LLAMA_DEFAULTS, **tc}["hidden_size"]),
+                                  out_dim={**LLAMA_DEFAULTS, **tc}["hidden_size"],
+                                  act=hf.get("projector_hidden_act", "gelu")),
         image_token_id=hf.get("image_token_index", 32000),
         num_image_tokens=(vc["image_size"] // vc["patch_size"]) ** 2,
         family=family.name,
@@ -274,6 +290,11 @@ def load_model_bundle(
     with open(os.path.join(path, "config.json")) as f:
         hf = json.load(f)
     family, cfg = config_from_hf(hf, dtype)
+    window = cfg.lm.sliding_window
+    if window and max_length > window:
+        raise ValueError(f"{path}: --max_length {max_length} is longer than the text model's "
+                         f"sliding_window {window}: windowed attention is not ported (the "
+                         "kernels attend every earlier token)")
     if remat_policy:
         cfg = dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, remat_policy=remat_policy))
     tokenizer = load_tokenizer(path)  # before the weights: a refusal costs no load

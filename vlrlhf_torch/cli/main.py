@@ -55,7 +55,7 @@ merge: --adapter_path (a training run's adapters/; of an rm or ppo run
 only the LoRA adapters) folded into the checkpoint's weights; writes
 <output_dir>/merged and, with --export_format hf, <output_dir>/merged_hf.
 
-Multi-GPU (dpo, sft, rm; eval's rows): launched by torchrun (`torchrun
+Multi-GPU (dpo, sft, rm, ppo; eval's rows): launched by torchrun (`torchrun
 --standalone --nproc_per_node N -m vlrlhf_torch.cli.main dpo --mesh_fsdp -1
 ...`), each process takes cuda:LOCAL_RANK (or the CPU with --device cpu,
 over gloo), joins the process group and the (data, fsdp, model) mesh of
@@ -67,12 +67,19 @@ batch is that times data x fsdp, and the ranks of one model group read the
 same rows. Metrics are means over the ranks, written by rank 0, which also
 writes the checkpoints (the world-1 tensors, so they resume under any
 layout) and adapters/, merged/, merged_hf/ (the
-files of a single-process run). eval under torchrun gives each rank a
-contiguous shard of the rows and its own whole model; rank 0 gathers,
-judges, scores and writes. Without torchrun nothing of this runs. Refused,
-as multi-GPU part 2 (ROADMAP.md): --mesh_pipe > 1,
---pipeline_microbatches, --sequence_parallel_axis, ppo on more than one
-process, --eval_samples with --mesh_model > 1, and eval with mesh flags.
+files of a single-process run). Generation under the mesh (ppo's
+rollouts, dpo's --eval_samples) runs on the gathered FSDP2 units with the
+KV caches and decode attention at a rank's heads, a tensor-parallel group's
+sampled tokens broadcast from its first rank each step; ppo's data-parallel
+ranks roll out their own prompts and its statistics (score moments,
+whitening, mean KL, the update's permutation and masked means) are the
+global batch's (train/ppo.py), with one vote per outer step on a failed
+rollout or reward. eval under torchrun gives each rank a contiguous shard
+of the rows and its own whole model; rank 0 gathers, judges, scores and
+writes. Without torchrun nothing of this runs. Refused, as later parts of
+the multi-GPU work (ROADMAP.md): --mesh_pipe > 1,
+--pipeline_microbatches, --sequence_parallel_axis, and eval with mesh
+flags (serve takes none).
 
 Flag names follow vlrlhf_tpu's. Differences: `--device` names the device
 explicitly (default cuda; an absent device is an error, never a silent CPU
@@ -159,9 +166,6 @@ def setup_mesh(args, device: torch.device):
                              f"--mesh_model {args.mesh_model}: {e}; a multi-GPU run is "
                              "launched by torchrun --nproc_per_node N") from None
         return None
-    if getattr(args, "eval_samples", 0) and args.mesh_model > 1:
-        raise SystemExit(f"--eval_samples with --mesh_model {args.mesh_model}: generation "
-                         f"over local heads is {PART2}")
     dist.initialize(device.type)
     try:
         return make_mesh(mcfg, device.type)
@@ -326,6 +330,7 @@ def collator_config(cfg, family, processor, args, **overrides):
         anyres=bool(cfg.grid_pinpoints) and not args.synthetic,
         grid_pinpoints=cfg.grid_pinpoints,
         tile_grid=cfg.vision.image_size // cfg.vision.patch_size,
+        sliding_window=cfg.lm.sliding_window or 0,
         **overrides,
     )
 
@@ -662,9 +667,10 @@ def make_eval_hook(run: DPORun, processor, args, logger):
         if sample_gen is None:
             return
         outs = {}
-        # under a mesh (model == 1) every rank generates the same samples
-        # from the gathered weights: generation calls module methods
-        # outside FSDP2's hooks
+        # under a mesh every rank generates the same samples from the
+        # gathered units (generation calls module methods outside FSDP2's
+        # hooks), a tensor-parallel group on its heads with its first
+        # rank's tokens
         with unsharded(run.model):
             for name, on in (("policy", True), ("ref", False)):
                 sample_gen.adapters = on
@@ -682,9 +688,10 @@ def make_eval_hook(run: DPORun, processor, args, logger):
     return on_step
 
 
-def maybe_resume(args, run, ckpt) -> int:
+def maybe_resume(args, run, ckpt, extras: Optional[Callable[[dict], None]] = None) -> int:
     """--resume_from_checkpoint: 'auto' (or 'true') resumes the latest step
-    in <output_dir>/checkpoints, a path that manager's latest. Returns the
+    in <output_dir>/checkpoints, a path that manager's latest; `extras`
+    takes the checkpoint's extra dict (ppo's KL coefficient). Returns the
     step to count on from (0 for a fresh run)."""
     from vlrlhf_torch.core.mesh import current_mesh
     from vlrlhf_torch.core.partitioning import shard_full, tp_dim
@@ -699,7 +706,9 @@ def maybe_resume(args, run, ckpt) -> int:
     if step is None:
         print("no checkpoint found; starting fresh", flush=True)
         return 0
-    tree, _ = mgr.restore(step)
+    tree, extra = mgr.restore(step)
+    if extras is not None and extra:
+        extras(extra)
     mesh = current_mesh()
     place = None
     if mesh is not None:
@@ -978,7 +987,11 @@ def reward_model_fn(model, path: str, lora_scale: float):
     <output_dir>/adapters): its adapters held as the frozen named set
     REWARD_SET on the policy's base and its head, scored under no_grad
     (vlrlhf_tpu cli/main.py:790-807). The policy's adapters are not
-    touched."""
+    touched. Under a mesh the set is split over --mesh_model like LoRA
+    (each rank holds its part of the world-1 adapters) and replicated over
+    the data-parallel ranks, as the head is."""
+    from vlrlhf_torch.core.mesh import current_mesh
+    from vlrlhf_torch.core.partitioning import tp_dim, tp_part
     from vlrlhf_torch.lora.lora import adapters_of, set_adapters_
     from vlrlhf_torch.models.common import Ctx
     from vlrlhf_torch.train.checkpoint import load_params
@@ -988,7 +1001,9 @@ def reward_model_fn(model, path: str, lora_scale: float):
     if "rm_head/kernel" not in tree:
         raise SystemExit(f"--reward_model_path {path}: no rm_head/kernel (not an rm run's "
                          "adapters directory)")
-    set_adapters_(model, adapters_of(tree), REWARD_SET)
+    mesh = current_mesh()
+    set_adapters_(model, {k: tp_part(v, tp_dim(k), mesh) for k, v in adapters_of(tree).items()},
+                  REWARD_SET)
     kernel = tree["rm_head/kernel"].to(model.device, torch.float32)
     ctx = Ctx(adapters=True, lora_scale=lora_scale, adapter_set=REWARD_SET)
 
@@ -1045,10 +1060,15 @@ def build_ppo(cfg, model, processor, args, rows: list, image_loader=None) -> PPO
     else:
         raise SystemExit("ppo needs --reward_model_path (an rm run's <output_dir>/adapters) "
                          "or --synthetic N")
+    from vlrlhf_torch.core.dist import dp_size
+
+    if args.minibatch_size and args.minibatch_size % dp_size():
+        raise SystemExit(f"--minibatch_size {args.minibatch_size}: a global PPO minibatch "
+                         f"splits over the {dp_size()} data-parallel ranks")
     pad = processor.tokenizer.pad_token_id or 0
     return PPORun(
         model=model, pcfg=pcfg, ocfg=ocfg, lcfg=lcfg,
-        state=init_train_state(leaves, ocfg), keys=keys, v_head=v_head,
+        state=mesh_state(init_train_state(leaves, ocfg), keys), keys=keys, v_head=v_head,
         value_adapters=args.use_value_adapter,
         gen_cfg=GenerateConfig(max_new_tokens=args.max_new_tokens, do_sample=True,
                                temperature=1.0, pad_token_id=pad,
@@ -1108,44 +1128,107 @@ def continuous_rollouts(engine, pb: dict, prompt_rows: list, generator,
     return tokens, resp_lens
 
 
+def rows_of(batch: dict, lo: int, hi: int) -> dict:
+    """Rows [lo, hi) of a batch (arrays or tensors whose leading axis is its
+    rows; anything else as it is)."""
+    n = batch["input_ids"].shape[0]
+    return {k: v[lo:hi] if hasattr(v, "shape") and len(v.shape) and v.shape[0] == n else v
+            for k, v in batch.items()}
+
+
+def ppo_step(run: PPORun, batch: dict, raw: np.ndarray, moments, kl_ctl, seed: int,
+             times: Optional[dict] = None) -> tuple[np.ndarray, float, list]:
+    """One outer step after the rollouts and the reward: the global rollout
+    batch (host arrays) and its raw scores through preprocess_scores (the
+    score moments), the stats pass on this data-parallel rank's rows,
+    ppo_update_epochs over the global rows and the KL controller. Returns
+    (scores, mean KL, every update's metrics as floats); `times` gets the
+    host clock after the stats pass and after the update."""
+    import time
+
+    from vlrlhf_torch.core import dist
+    from vlrlhf_torch.train.dpo import batch_to_device
+    from vlrlhf_torch.train.loop import read_metrics
+    from vlrlhf_torch.train.ppo import (
+        compute_rollout_stats, gather_stats, ppo_update_epochs, preprocess_scores,
+    )
+
+    device = run.model.device
+    n = batch["input_ids"].shape[0]
+    _, (lo, hi) = dist.data_parallel_slice(n // dist.dp_size())
+    tb = batch_to_device(batch, device)
+    scores = preprocess_scores(raw, run.pcfg, moments)
+    stats = gather_stats(compute_rollout_stats(
+        run.model, run.pcfg, run.v_head, rows_of(tb, lo, hi),
+        torch.from_numpy(scores[lo:hi]).to(device), kl_ctl.value, run.value_adapters))
+    kl = float(stats.kl)
+    t_stats = time.perf_counter()
+    history: list = []
+    ppo_update_epochs(run.update, tb, stats, run.pcfg, seed=seed, history=history)
+    history = [read_metrics(m) for m in history]
+    kl_ctl.update(kl, n)
+    if times is not None:
+        times.update(stats=t_stats, update=time.perf_counter())
+    return scores, kl, history
+
+
 def train_ppo(run: PPORun, processor, args, logger, on_step=None) -> int:
     """The outer loop of `ppo` (vlrlhf_tpu cli/main.py:875-1065): per step,
-    --per_device_train_batch_size prompt rows; rollouts from the static
-    engine in chunks of --rollout_chunk_size or, with
-    --rollout_continuous_batching, a continuous engine of that many slots
-    (one per cache length); the reward, preprocess_scores, the stats pass,
-    ppo_update_epochs and the KL controller; the metrics of
+    --per_device_train_batch_size prompt rows per data-parallel rank;
+    rollouts from the static engine in chunks of --rollout_chunk_size or,
+    with --rollout_continuous_batching, a continuous engine of that many
+    slots (one per cache length); the reward, preprocess_scores, the stats
+    pass, ppo_update_epochs and the KL controller; the metrics of
     cli/main.py:1011-1024 and <output_dir>/ppo_gamelog.jsonl every 10
-    steps. A step whose rollout or reward fails is skipped and logged as
-    ppo/skipped. Checkpoints every --save_steps and at a SIGTERM; resume
-    with --resume_from_checkpoint. `on_step(step, info)` sees each step's
-    every minibatch metrics and its phase times. Returns the last step."""
+    steps. A step whose rollout or reward fails on any rank is skipped by
+    every rank, before the score moments see it, and logged as ppo/skipped
+    (the vote of vlrlhf_tpu cli/main.py:985-999; here it rides, with the
+    SIGTERM flag, the two host gathers the step makes anyway). Checkpoints every --save_steps and at a SIGTERM (the
+    world-1 tensors, the KL coefficient and the reward's path beside them);
+    resume with --resume_from_checkpoint (the score moments restart, as in
+    vlrlhf_tpu; the reward set is read again from --reward_model_path).
+    `on_step(step, info)` sees each step's every minibatch metrics and its
+    phase times. Returns the last step.
+
+    Under a mesh every rank collates the global batch's prompts and rolls
+    out its own rows (the FSDP2 units gathered, `partitioning.unsharded`;
+    a tensor-parallel group decodes its rows together, its first rank's
+    tokens broadcast each step, generate/engine.py), each data-parallel rank
+    from its own generator (--seed plus the rank); tokens and rewards meet
+    on every rank, so the score moments, the KL controller and the update's
+    permutation see the global batch, and the stats pass runs on the rank's
+    rows (train/ppo.py). A failure inside a collective (mid-decode, inside
+    the reward model's forward) stalls the group rather than skipping: the
+    skippable failures are the host-side ones, as in vlrlhf_tpu."""
     import json
     import os
     import time
     import traceback
 
+    from vlrlhf_torch.core import dist
+    from vlrlhf_torch.core.mesh import current_mesh
+    from vlrlhf_torch.core.partitioning import full_state_tree, unsharded
     from vlrlhf_torch.generate.continuous import ContinuousEngine
     from vlrlhf_torch.generate.engine import Generator
     from vlrlhf_torch.train.checkpoint import CheckpointManager
     from vlrlhf_torch.train.dpo import batch_to_device
-    from vlrlhf_torch.train.loop import PreemptionGuard, read_metrics
-    from vlrlhf_torch.train.ppo import (
-        AdaptiveKLController, RunningMoments, compute_rollout_stats, ppo_update_epochs,
-        preprocess_scores, rollout_to_batch,
-    )
+    from vlrlhf_torch.train.loop import PreemptionGuard
+    from vlrlhf_torch.train.ppo import AdaptiveKLController, RunningMoments, rollout_to_batch
 
     model, pcfg = run.model, run.pcfg
     device = model.device
+    mesh = current_mesh()
     ckpt = CheckpointManager(os.path.join(args.output_dir, "checkpoints"))
-    start = maybe_resume(args, run, ckpt)
     kl_ctl = AdaptiveKLController(pcfg)
+    start = maybe_resume(args, run, ckpt, extras=lambda e: setattr(
+        kl_ctl, "value", float(e.get("kl_coef", kl_ctl.value))))
     moments = RunningMoments()
-    generator = torch.Generator(device=device).manual_seed(args.seed)
+    generator = torch.Generator(device=device).manual_seed(args.seed + dist.process_index())
     pad_id = run.gen_cfg.pad_token_id
     bs = args.per_device_train_batch_size
+    global_bs, (lo_r, hi_r) = dist.data_parallel_slice(bs)
     rows = run.rows
-    n_steps = args.max_steps or max(len(rows) // bs, 1)
+    n_steps = args.max_steps or max(len(rows) // global_bs, 1)
     # the engines run the model's own adapters: each step samples with the
     # adapters of the last update
     gen = Generator(model, run.gen_cfg, lora_scale=run.lcfg.scale)
@@ -1159,83 +1242,110 @@ def train_ppo(run: PPORun, processor, args, logger, on_step=None) -> int:
     def save(step: int) -> None:
         nonlocal last_saved
         if step != last_saved:
-            ckpt.save(step, run.state_tree())
+            tree = run.state_tree()
+            if mesh is not None:  # checkpoints hold the world-1 tensors
+                tree = full_state_tree(tree, mesh)
+            ckpt.save(step, tree, extra={"kl_coef": kl_ctl.value,
+                                         "reward_model_path": args.reward_model_path or None})
             last_saved = step
 
     try:
         for it in range(start, n_steps):
             done = it + 1
-            lo = (it * bs) % len(rows)
-            chunk = rows[lo: lo + bs]
-            if len(chunk) < bs:
-                chunk = (chunk + rows)[:bs]
+            lo = (it * global_bs) % len(rows)
+            chunk = rows[lo: lo + global_bs]
+            if len(chunk) < global_bs:
+                chunk = (chunk + rows)[:global_bs]
             prompt_rows = [prompt_row(processor, r) for r in chunk]
-            pb = run.gen_collator(prompt_rows)
+            pb = run.gen_collator(prompt_rows)  # the global batch's prompts
+            mine = rows_of(pb, lo_r, hi_r)
             t0 = time.perf_counter()
+            failed, tokens, resp_lens = False, None, None
             try:
-                if args.rollout_continuous_batching:
-                    c_len = -(-(int(np.max(pb["prompt_lens"])) + args.max_new_tokens) // 128) * 128
-                    if c_len not in engines:
-                        engines[c_len] = ContinuousEngine(
-                            model, run.gen_cfg, n_slots=chunk_sz, cache_len=c_len,
-                            adapters=True, lora_scale=run.lcfg.scale, emit_stop_token=True)
-                    tokens, resp_lens = continuous_rollouts(
-                        engines[c_len], pb, prompt_rows, generator, args.max_new_tokens, pad_id)
-                else:
-                    tokens, resp_lens = static_rollouts(gen, pb, chunk_sz, generator)
-                t_roll = time.perf_counter()
-                batch = rollout_to_batch(pb, tokens, pad_id, resp_lens=resp_lens)
-                tb = batch_to_device(batch, device)
-                raw = run.reward_fn(tb).float().cpu().numpy()
-                if not np.all(np.isfinite(raw)):
-                    raise ValueError(f"non-finite RM scores: {raw}")
+                with unsharded(model):
+                    if args.rollout_continuous_batching:
+                        c_len = -(-(int(np.max(mine["prompt_lens"])) + args.max_new_tokens)
+                                  // 128) * 128
+                        if c_len not in engines:
+                            engines[c_len] = ContinuousEngine(
+                                model, run.gen_cfg, n_slots=chunk_sz, cache_len=c_len,
+                                adapters=True, lora_scale=run.lcfg.scale, emit_stop_token=True)
+                        tokens, resp_lens = continuous_rollouts(
+                            engines[c_len], mine, prompt_rows[lo_r:hi_r], generator,
+                            args.max_new_tokens, pad_id)
+                    else:
+                        tokens, resp_lens = static_rollouts(gen, mine, chunk_sz, generator)
             except Exception as e:  # noqa: BLE001 — vlrlhf_tpu's skip, not a crash
                 traceback.print_exc()
-                print(f"rollout/reward failed at step {it + 1}: {e}", flush=True)
+                print(f"rollout failed at step {it + 1}: {e}", flush=True)
+                failed = True
+            t_roll = time.perf_counter()
+            # the vote rides the two gathers the step makes anyway: the
+            # rollouts' tokens, then the rewards (the reward scores the
+            # global batch's rows, so it follows the token gather, and a rank
+            # whose rollout failed must not leave the others inside the
+            # reward model's collectives)
+            (failed, preempted), parts = dist.vote_and_gather(
+                (failed, guard.flag), (tokens, resp_lens))
+            raw = None
+            if not failed:
+                tokens = np.concatenate([t for t, _ in parts])
+                resp_lens = np.concatenate([r for _, r in parts])
+                batch = rollout_to_batch(pb, tokens, pad_id, resp_lens=resp_lens)
+                try:
+                    raw = run.reward_fn(batch_to_device(rows_of(batch, lo_r, hi_r), device))
+                    raw = raw.float().cpu().numpy()
+                    if not np.all(np.isfinite(raw)):
+                        raise ValueError(f"non-finite RM scores: {raw}")
+                except Exception as e:  # noqa: BLE001
+                    traceback.print_exc()
+                    print(f"reward failed at step {it + 1}: {e}", flush=True)
+                    failed = True
+                (failed, late), parts = dist.vote_and_gather((failed, guard.flag), raw)
+                preempted = preempted or late
+            if failed:
                 logger.log(it + 1, {"ppo/skipped": 1.0})
-                continue
-            t_reward = time.perf_counter()
-            scores = preprocess_scores(raw, pcfg, moments)
-            stats = compute_rollout_stats(model, pcfg, run.v_head, tb,
-                                          torch.from_numpy(scores).to(device), kl_ctl.value,
-                                          run.value_adapters)
-            kl = float(stats.kl)
-            t_stats = time.perf_counter()
-            history: list = []
-            ppo_update_epochs(run.update, tb, stats, pcfg, seed=args.seed + it, history=history)
-            history = [read_metrics(m) for m in history]
-            t_update = time.perf_counter()
-            kl_ctl.update(kl, len(chunk))
-            metrics = dict(history[-1]) if history else {}  # the last update's, as vlrlhf_tpu
-            metrics["ppo/mean_score"] = float(np.mean(scores))
-            metrics["ppo/kl"] = kl
-            metrics["ppo/kl_coef"] = kl_ctl.value
-            metrics["perf/interval_tokens"] = float(np.prod(batch["input_ids"].shape))
-            metrics["perf/interval_images"] = float(
-                0 if batch.get("pixel_values") is None else batch["pixel_values"].shape[0])
-            metrics["ppo/rollout_tok_s"] = float(tokens.size / max(t_roll - t0, 1e-9))
-            logger.log(it + 1, metrics)
-            if on_step is not None:
-                on_step(it + 1, {"history": history, "resp_lens": resp_lens,
-                                 "shape": batch["input_ids"].shape, "rollout_s": t_roll - t0,
-                                 "reward_s": t_reward - t_roll, "stats_s": t_stats - t_reward,
-                                 "update_s": t_update - t_stats,
-                                 "step_s": time.perf_counter() - t0})
-            if (it + 1) % args.save_steps == 0:
-                save(it + 1)
-            if guard.flag:
+            else:
+                t_reward = time.perf_counter()
+                times: dict = {}
+                scores, kl, history = ppo_step(run, batch, np.concatenate(parts), moments,
+                                               kl_ctl, args.seed + it, times)
+                t_stats, t_update = times["stats"], times["update"]
+                metrics = dict(history[-1]) if history else {}  # the last update's
+                metrics["ppo/mean_score"] = float(np.mean(scores))
+                metrics["ppo/kl"] = kl
+                metrics["ppo/kl_coef"] = kl_ctl.value
+                metrics["perf/interval_tokens"] = float(np.prod(batch["input_ids"].shape))
+                metrics["perf/interval_images"] = float(
+                    0 if batch.get("pixel_values") is None else batch["pixel_values"].shape[0])
+                metrics["ppo/rollout_tok_s"] = float(tokens.size / max(t_roll - t0, 1e-9))
+                logger.log(it + 1, metrics)
+                if on_step is not None:
+                    on_step(it + 1, {"history": history, "resp_lens": resp_lens,
+                                     "tokens": tokens, "scores": scores,
+                                     "kl_coef": kl_ctl.value,
+                                     "moments": (moments.mean, moments.var, moments.count),
+                                     "shape": batch["input_ids"].shape, "rollout_s": t_roll - t0,
+                                     "reward_s": t_reward - t_roll,
+                                     "stats_s": t_stats - t_reward,
+                                     "update_s": t_update - t_stats,
+                                     "step_s": time.perf_counter() - t0})
+                if (it + 1) % args.save_steps == 0:
+                    save(it + 1)
+                if it % 10 == 0 and dist.is_main_process():
+                    toks = tokens[0]
+                    resp = processor.tokenizer.decode(toks[toks != pad_id].tolist(),
+                                                      skip_special_tokens=True)
+                    with open(os.path.join(args.output_dir, "ppo_gamelog.jsonl"), "a") as f:
+                        f.write(json.dumps({"step": it + 1, "prompt": chunk[0]["prompt"],
+                                            "response": resp,
+                                            "score": float(scores[0])}) + "\n")
+            if preempted:
                 save(it + 1)
                 ckpt.wait()
                 logger.log(it + 1, {"train/preempted": 1.0})
                 print(f"preempted: PPO checkpoint saved at step {it + 1}", flush=True)
                 break
-            if it % 10 == 0:
-                toks = tokens[0]
-                resp = processor.tokenizer.decode(toks[toks != pad_id].tolist(),
-                                                  skip_special_tokens=True)
-                with open(os.path.join(args.output_dir, "ppo_gamelog.jsonl"), "a") as f:
-                    f.write(json.dumps({"step": it + 1, "prompt": chunk[0]["prompt"],
-                                        "response": resp, "score": float(scores[0])}) + "\n")
     finally:
         guard.uninstall()
         ckpt.close()
@@ -1243,23 +1353,14 @@ def train_ppo(run: PPORun, processor, args, logger, on_step=None) -> int:
 
 
 def cmd_ppo(args):
-    import os
-
-    from vlrlhf_torch.train.metrics import MetricsLogger
-
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise SystemExit(f"ppo on {os.environ['WORLD_SIZE']} processes: PPO and generation "
-                         f"under a mesh are {PART2}")
-    refuse_mesh_flags(args, "ppo", "PPO and generation under a mesh are")
     device = resolve_device(args.device)
     if args.synthetic and args.data_path:
         raise SystemExit("--synthetic N makes its own prompts: drop --data_path")
+    setup_mesh(args, device)
     rows = synthetic_rows(args.synthetic, with_pairs=False) if args.synthetic else load_rows(args)
     _, cfg, model, processor = load_bundle(args, device)
     run = build_ppo(cfg, model, processor, args, rows, image_loader_for(args))
-    logger = MetricsLogger(args.output_dir, args.run_name or "ppo",
-                           flops_per_token=run.flops_per_token,
-                           flops_per_image=run.flops_per_image)
+    logger = make_logger(args, "ppo", run)
     try:
         step = train_ppo(run, processor, args, logger)
     finally:
@@ -1539,7 +1640,8 @@ def _add_sft_rm_ppo_parsers(sub) -> None:
     _add_train_args(p, "a tiny random-weight model + N synthetic pairs (no checkpoint)")
     p.set_defaults(fn=cmd_rm)
     p = sub.add_parser(
-        "ppo", help="PPO on one device: rollouts, reward, reference and update on one model; "
+        "ppo", help="PPO: rollouts, reward, reference and update on one model (one device, or "
+                    "the mesh of a torchrun launch); "
                     "writes <output_dir>/ppo_metrics.jsonl, ppo_gamelog.jsonl, checkpoints/, "
                     "adapters/")
     _add_train_args(p, "a tiny random-weight model + N synthetic prompts and the length "
@@ -1654,7 +1756,15 @@ def main(argv: Optional[list] = None):
             f"vlrlhf-torch {args.command}: not ported yet: {' '.join(flags or unknown)} "
             "(vlrlhf_tpu's option; ROADMAP.md lists when it comes)"
         )
-    args.fn(args)
+    from vlrlhf_torch.core.dist import shutdown
+
+    try:
+        args.fn(args)
+    finally:
+        # a torchrun rank leaves its process group before the interpreter
+        # exits: gloo's threads still running at exit abort the process
+        # ("terminate called without an active exception")
+        shutdown()
 
 
 if __name__ == "__main__":

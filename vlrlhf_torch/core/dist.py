@@ -203,6 +203,59 @@ def global_metrics(metrics: dict) -> dict:
     return dict(zip(keys, vals.unbind()))
 
 
+def dp_rank() -> int:
+    """This rank's data-parallel coordinate (0 without a mesh)."""
+    from vlrlhf_torch.core.mesh import current_mesh
+
+    mesh = current_mesh()
+    return 0 if mesh is None else mesh.dp_rank
+
+
+def dp_gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """Every data-parallel rank's rows of `t` (same shape on each),
+    concatenated in data-parallel order along dim 0: the global batch's
+    tensor (the identity without a mesh)."""
+    if dp_size() == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(dp_size())]
+    _dist().all_gather(parts, t.contiguous(), group=dp_group())
+    return torch.cat(parts)
+
+
+def vote_and_gather(flags: tuple, payload: Any) -> tuple[tuple, list]:
+    """One host collective over every rank: each flag OR-ed over the ranks
+    (a failure, a SIGTERM: every rank then takes the same branch), and
+    every data-parallel rank's payload in data-parallel order, the first
+    rank of each tensor-parallel group speaking for it (rank = dp_rank *
+    model + tp_rank). Without a process group: (flags, [payload])."""
+    flags = tuple(bool(f) for f in flags)
+    if not is_initialized():
+        return flags, [payload]
+    from vlrlhf_torch.core.mesh import current_mesh
+
+    out: list = [None] * process_count()
+    _dist().all_gather_object(out, (flags, payload))
+    mesh = current_mesh()
+    voted = tuple(any(f[i] for f, _ in out) for i in range(len(flags)))
+    return voted, [p for _, p in out[:: mesh.model if mesh is not None else 1]]
+
+
+def model_group_tokens(t: torch.Tensor) -> torch.Tensor:
+    """Tokens the ranks of one tensor-parallel group all emit: under a
+    mesh with model > 1, each step's sampled tokens broadcast from the
+    group's first rank (on the device, no host sync), so the group decodes
+    one sequence by construction, whatever each rank's generator drew.
+    Elsewhere `t` itself."""
+    from vlrlhf_torch.core.mesh import current_mesh
+
+    mesh = current_mesh()
+    if mesh is None or mesh.model == 1 or not is_initialized():
+        return t
+    t = t.contiguous()
+    _dist().broadcast(t, src=_dist().get_global_rank(mesh.tp_group, 0), group=mesh.tp_group)
+    return t
+
+
 def broadcast_object(obj: Any, src: int = 0) -> Any:
     if not is_initialized():
         return obj

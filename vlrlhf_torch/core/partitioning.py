@@ -64,7 +64,7 @@ _JAX_LEAVES = {"kernel": "weight", "bias": "bias", "kernel_q": "weight_q",
                "kernel_scale4": "weight_scale4", "kernel_gbias": "weight_gbias",
                "a": "lora_a", "b": "lora_b"}
 _LAYER_LINEAR = re.compile(
-    r"^(?:adapters/|plora/)?lm/layers(?:_scanned|/\d+)/(?:attn|mlp)/(\w+)/(\w+)$")
+    r"^(?:adapters/|value_adapters/|plora/)?lm/layers(?:_scanned|/\d+)/(?:attn|mlp)/(\w+)/(\w+)$")
 
 
 def tp_mode(name: str) -> Optional[str]:
@@ -85,7 +85,8 @@ def tp_dim(path: str) -> Optional[int]:
     layers_scanned/attn/wq/kernel", a checkpoint key "lm/layers/3/attn/wo/a",
     XC2's PLoRA "plora/lm/layers_scanned/attn/wq/a", split like LoRA) that the
     model axis splits, or None when it is replicated over model. A scanned
-    path's leading layer axis is not counted."""
+    path's leading layer axis is not counted. ppo's value adapters
+    ("value_adapters/...") and its reward set are split like LoRA."""
     m = _LAYER_LINEAR.match(path)
     if m is None or m.group(2) not in _JAX_LEAVES:
         return None
@@ -289,14 +290,44 @@ def _tp_gather(t: torch.Tensor, dim: Optional[int], mesh) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def _fsdp_gather(t, mesh) -> torch.Tensor:
+    """An FSDP2 DTensor's whole value from its dim-0 shards, gathered with a
+    plain all_gather over the fsdp group (FSDP2 gives rank i rows [i * c,
+    (i + 1) * c), c = ceil(n / fsdp), the last ranks fewer or none; each
+    part is padded to c rows and the join cut to n). Not
+    DTensor.full_tensor: with two gloo ranks sharing one H100 that call
+    took a rank down (SIGSEGV) on a CUDA shard, where the plain all_gather
+    that FSDP2 and _tp_gather use runs."""
+    import torch.distributed as dist
+
+    local = t.to_local().detach()
+    n = t.shape[0]
+    if mesh.fsdp == 1:
+        return local
+    c = -(-n // mesh.fsdp)
+    if local.shape[0] < c:
+        local = torch.cat([local, local.new_zeros((c - local.shape[0], *local.shape[1:]))])
+    parts = [torch.empty_like(local) for _ in range(mesh.fsdp)]
+    dist.all_gather(parts, local.contiguous(), group=mesh.fsdp_group)
+    return torch.cat(parts)[:n]
+
+
 def full_tensor(t: torch.Tensor, dim: Optional[int], mesh) -> torch.Tensor:
     """A leaf's world-1 value on every rank: FSDP2's shards gathered, then
     the tensor-parallel parts along `dim` (collective: every rank calls)."""
     from torch.distributed.tensor import DTensor
 
     if isinstance(t, DTensor):
-        t = t.full_tensor()
+        t = _fsdp_gather(t, mesh)
     return _tp_gather(t.detach(), dim, mesh)
+
+
+def tp_part(full: torch.Tensor, dim: Optional[int], mesh) -> torch.Tensor:
+    """This rank's tensor-parallel part of a world-1 tensor along `dim`
+    (the tensor itself when `dim` is None or model == 1)."""
+    if dim is None or mesh is None or mesh.model == 1:
+        return full
+    return _slice(full, dim, mesh.tp_rank, mesh.model)
 
 
 def shard_full(full: torch.Tensor, like: torch.Tensor, dim: Optional[int], mesh) -> torch.Tensor:
@@ -305,9 +336,7 @@ def shard_full(full: torch.Tensor, like: torch.Tensor, dim: Optional[int], mesh)
     along `dim`, then FSDP2's dim-0 shard, on like's device and dtype."""
     from torch.distributed.tensor import DTensor, distribute_tensor
 
-    if dim is not None and mesh.model > 1:
-        full = _slice(full, dim, mesh.tp_rank, mesh.model)
-    full = full.to(like.device, like.dtype)
+    full = tp_part(full, dim, mesh).to(like.device, like.dtype)
     if isinstance(like, DTensor):
         return distribute_tensor(full, like.device_mesh, like.placements,
                                  src_data_rank=None).to_local()

@@ -64,6 +64,15 @@ class CollatorConfig:
     anyres: bool = False
     grid_pinpoints: tuple = ()
     tile_grid: int = 24
+    # the LM's sliding window (Mistral): a row longer than it is refused,
+    # as the attention kernels hold no window (0 = full attention)
+    sliding_window: int = 0
+
+
+def _check_window(cfg: CollatorConfig, longest: int) -> None:
+    if cfg.sliding_window and longest > cfg.sliding_window:
+        raise ValueError(f"a row of {longest} tokens is longer than the LM's sliding_window "
+                         f"{cfg.sliding_window}: windowed attention is not ported")
 
 
 def _pad_rows(rows: list, pad_value: int, length: int, dtype=np.int32) -> np.ndarray:
@@ -185,6 +194,7 @@ class GenerationCollator(_CollatorBase):
         images, counts = self._images(rows)
         expanded = [self.processor.expand_image_tokens(r["input_ids"], None, cnt)
                     for r, cnt in zip(rows, counts)]
+        _check_window(cfg, max(len(x[0]) for x in expanded))
         L = cfg.pad_to or _round_up(max(len(x[0]) for x in expanded), cfg.bucket_multiple)
         b = len(rows)
         ids = np.full((b, L), cfg.pad_token_id, np.int32)
@@ -219,6 +229,7 @@ class DPOCollator(_CollatorBase):
                     for r, c in zip(rows, counts)]
         all_rows = chosen + rejected  # [chosen...; rejected...]
         max_len = max(len(x[0]) for x in all_rows)
+        _check_window(cfg, max_len)
         L = cfg.pad_to or _round_up(max_len, cfg.bucket_multiple)
         if max_len > L:
             raise ValueError(f"row of {max_len} tokens does not fit pad_to={L}")
@@ -256,6 +267,7 @@ class SFTCollator(DPOCollator):
         images, counts = self._images(rows)
         expanded = [self.processor.expand_image_tokens(r["input_ids"], r["labels"], c)
                     for r, c in zip(rows, counts)]
+        _check_window(cfg, max(len(x[0]) for x in expanded))
         L = cfg.pad_to or _round_up(max(len(x[0]) for x in expanded), cfg.bucket_multiple)
         return {
             "input_ids": _pad_rows([x[0] for x in expanded], cfg.pad_token_id, L),

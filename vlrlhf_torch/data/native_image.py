@@ -1,7 +1,15 @@
-"""JPEG decode and resize through the native C++ image pipeline
-(native/imageops.cpp, bound with ctypes): the counterpart of
-vlrlhf_tpu/data/native_image.py and the collators' default image loader,
-so no PIL is needed on any path (the card machine has none).
+"""JPEG decode through the native C++ image pipeline (native/imageops.cpp,
+bound with ctypes) and PIL's bicubic resize (data/resample.py): the
+counterpart of vlrlhf_tpu/data/native_image.py and the collators' default
+image loader, so no PIL is needed on any path (the card machine has none).
+
+Every image is decoded at its own size (no DCT downscaling) and resized by
+data/resample.py, which is PIL's `Image.resize(..., BICUBIC)` bit for bit,
+then centre-cropped as vlrlhf_tpu's PIL loader crops
+(data/collators.py `default_image_loader`): what the reference feeds CLIP.
+native/imageops.cpp's own bicubic (vlrlhf_tpu's native loader) is not
+antialiased like PIL's and differs from it at sharp edges, so the port
+does not call it.
 
 The library is compiled from native/imageops.cpp with g++ (`-ljpeg
 -lpthread`, the flags of native/Makefile) into `<repo>/build/` at first
@@ -12,7 +20,7 @@ the loader's), a path that is not a .jpg / .jpeg raises, and so does a file
 the decoder rejects.
 
   load_image(path, size, mode)            one image -> (size, size, 3) uint8
-  load_batch(paths, size, mode, threads)  a batch decoded on a thread pool
+  load_batch(paths, size, mode, threads)  a batch loaded on a thread pool
                                           (None or "" leaves a zero slot)
   decode_image(path)                      one image at its own size ->
                                           (H, W, 3) uint8 (anyres tiling)
@@ -38,7 +46,7 @@ SOURCE = ROOT / "native" / "imageops.cpp"
 BUILD_DIR = ROOT / "build"
 CXX_FLAGS = ["-O2", "-march=native", "-fPIC", "-shared", "-std=c++17", "-Wall"]
 LIBS = ["-ljpeg", "-lpthread"]
-_MODES = {"squash": 0, "shortest_edge_crop": 1}
+_MODES = ("squash", "shortest_edge_crop")
 _JPEG = (".jpg", ".jpeg")
 
 _lock = threading.Lock()
@@ -74,11 +82,6 @@ def _library(source: Optional[Path] = None) -> ctypes.CDLL:
         except OSError as e:  # e.g. built where libjpeg is, loaded where it is not
             raise RuntimeError(f"native image loader: cannot load {out}: {e}") from None
         u8p = ctypes.POINTER(ctypes.c_uint8)
-        lib.vlr_load_image.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, u8p]
-        lib.vlr_load_image.restype = ctypes.c_int
-        lib.vlr_load_batch.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_int, u8p, ctypes.c_int]
-        lib.vlr_load_batch.restype = ctypes.c_int
         ip = ctypes.POINTER(ctypes.c_int)
         lib.vlr_decode_jpeg.argtypes = [ctypes.c_char_p, u8p, ctypes.c_long, ip, ip]
         lib.vlr_decode_jpeg.restype = ctypes.c_long
@@ -91,34 +94,56 @@ def _check(path: str) -> None:
         raise ValueError(f"{path}: the native loader decodes JPEG (.jpg / .jpeg) only")
 
 
+def resize_decoded(img: np.ndarray, size: int, mode: str = "shortest_edge_crop") -> np.ndarray:
+    """A decoded (H, W, 3) uint8 image as the loader gives it: "squash"
+    resizes to (size, size); "shortest_edge_crop" resizes the short side to
+    `size` (the long one to round(side * scale)) and centre-crops, both
+    with PIL's bicubic (vlrlhf_tpu's PIL loader, collators.py:43-53)."""
+    from vlrlhf_torch.data.resample import resize_bicubic
+
+    if mode not in _MODES:
+        raise ValueError(f"resize mode {mode!r}: expected one of {sorted(_MODES)}")
+    if mode == "squash":
+        return resize_bicubic(img, (size, size))
+    h, w = img.shape[:2]
+    scale = size / min(w, h)
+    nw, nh = round(w * scale), round(h * scale)
+    out = resize_bicubic(img, (nw, nh))
+    left, top = (nw - size) // 2, (nh - size) // 2
+    return np.ascontiguousarray(out[top:top + size, left:left + size])
+
+
 def load_image(path: str, size: int, mode: str = "shortest_edge_crop") -> np.ndarray:
-    """Decode + resize one JPEG to (size, size, 3) uint8."""
+    """Decode one JPEG at its own size, then resize: (size, size, 3) uint8."""
     _check(path)
-    lib = _library()
-    out = np.empty((size, size, 3), np.uint8)
-    if lib.vlr_load_image(os.fsencode(path), size, _MODES[mode],
-                          out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))) != 0:
-        raise ValueError(f"{path}: the native loader could not decode it")
-    return out
+    return resize_decoded(decode_image(path), size, mode)
 
 
 def load_batch(paths: Sequence[Optional[str]], size: int, mode: str = "shortest_edge_crop",
                n_threads: int = 8) -> np.ndarray:
-    """(len(paths), size, size, 3) uint8, decoded on `n_threads` native
-    threads; a None or empty path leaves its slot zero."""
+    """(len(paths), size, size, 3) uint8, each image `load_image`'s, on
+    `n_threads` threads (the decode runs outside the GIL); a None or empty
+    path leaves its slot zero."""
+    from concurrent.futures import ThreadPoolExecutor
+
     for p in paths:
         if p:
             _check(p)
-    lib = _library()
-    n = len(paths)
-    out = np.zeros((n, size, size, 3), np.uint8)
-    names = [os.fsencode(p) if p else b"" for p in paths]
-    arr = (ctypes.c_char_p * n)(*names)
-    failed = lib.vlr_load_batch(arr, n, size, _MODES[mode],
-                                out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), n_threads)
+    out = np.zeros((len(paths), size, size, 3), np.uint8)
+    live = [i for i, p in enumerate(paths) if p]
+
+    def one(i):
+        try:
+            out[i] = load_image(paths[i], size, mode)
+            return 0
+        except ValueError:
+            return 1
+
+    with ThreadPoolExecutor(max(1, min(n_threads, len(live) or 1))) as pool:
+        failed = sum(pool.map(one, live))
     if failed:
-        raise ValueError(f"the native loader could not decode {failed} of the {n} images "
-                         f"{[p for p in paths if p]}")
+        raise ValueError(f"the native loader could not decode {failed} of the {len(paths)} "
+                         f"images {[p for p in paths if p]}")
     return out
 
 
@@ -161,7 +186,11 @@ def jpeg_size(path: str) -> tuple[int, int]:
 
 def decode_image(path: str) -> np.ndarray:
     """Decode one JPEG at its own size: (H, W, 3) uint8 RGB."""
-    h, w = jpeg_size(path)
+    _check(path)
+    try:
+        h, w = jpeg_size(path)
+    except ValueError as e:
+        raise ValueError(f"{path}: the native loader could not decode it ({e})") from None
     lib = _library()
     out = np.empty((h, w, 3), np.uint8)
     cw, ch = ctypes.c_int(0), ctypes.c_int(0)

@@ -222,7 +222,7 @@ class ContinuousEngine:
     def _fresh_buffers(self):
         """(cache, pending, state, hist): hist (B, Sc) int32 is the token
         history of each slot, kept only when speculating (else None)."""
-        lm = self.model.cfg.lm
+        lm = self.model.lm.cache_cfg
         b, sc = self.n_slots, self.cache_len
         cache = empty_cache(lm, b, sc, self.gen_cfg.kv_cache_dtype, self.device)
         pending = empty_pending(lm, b, sc, self.device)
@@ -269,6 +269,9 @@ class ContinuousEngine:
             plens_t, pv, ipos, generator, self._ctx(self._slot_mix[slot_t]), **image_kw,
         )
         for key in small:
+            if key == "ntk_alpha":  # per row, QWen's dynamic NTK
+                cache[key][slot_t] = small[key]
+                continue
             # in place into the big cache (and scales): stale kv beyond lb is
             # never attended (slot masking) and is overwritten by decode
             cache[key][:, slot_t, :, :lb] = small[key]

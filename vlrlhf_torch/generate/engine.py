@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vlrlhf_torch.core.dist import model_group_tokens
 from vlrlhf_torch.models.common import Ctx
 from vlrlhf_torch.models.lm.llama import empty_pending
 from vlrlhf_torch.models.vlm import IMAGE_INPUT_KEYS, VLM, image_inputs
@@ -51,10 +52,13 @@ class GenerateConfig:
 
 
 def _sample(gen_cfg: GenerateConfig, logits, generator):
-    return sample_tokens(
+    """A step's tokens (B,) int32. Under a mesh with --mesh_model > 1 the
+    tensor-parallel group takes its first rank's (core/dist.py
+    model_group_tokens), so it decodes one sequence by construction."""
+    return model_group_tokens(sample_tokens(
         logits, generator, temperature=gen_cfg.temperature,
         top_k=gen_cfg.top_k, top_p=gen_cfg.top_p, do_sample=gen_cfg.do_sample,
-    )
+    ))
 
 
 def eos_tensor(gen_cfg: GenerateConfig, device) -> torch.Tensor:
@@ -157,7 +161,7 @@ def decode_loop(
     """Decode columns 1..N-1 after a prefill that sampled column 0, with a
     host check for all-done every `early_exit_every` steps. Returns the
     live (pending, lengths)."""
-    lm = model.cfg.lm
+    lm = model.lm.cache_cfg
     pending = empty_pending(lm, lengths.shape[0], cache["k"].shape[3], lengths.device)
     eos = eos_tensor(gen_cfg, lengths.device)
     for step in range(1, gen_cfg.max_new_tokens):

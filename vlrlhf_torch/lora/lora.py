@@ -91,14 +91,27 @@ def init_lora(model: nn.Module, cfg: LoraConfig, generator: torch.Generator,
     makes the adapted model start equal to the base (the DPO step-1 loss is
     ln 2). With `adapter_set` they go into the Linears' `lora_sets` under
     that name instead of `lora_a` / `lora_b`. Returns the names of the
-    adapted modules."""
+    adapted modules. On a tensor-parallel Linear (`Linear.tp`) the
+    single-process adapter is drawn and this rank keeps its part, so a
+    sharded model holds the world-1 draw."""
+    from vlrlhf_torch.core.partitioning import linear_tp_dim
+
     names = []
     for name, mod in match_lora_targets(model, cfg.target_patterns):
-        d_out, d_in = mod.d_out, mod.d_in
+        tp = mod.tp
+        d_out, d_in = (tp.d_out, tp.d_in) if tp is not None else (mod.d_out, mod.d_in)
         dev = mod.device
         a = torch.randn((d_in, cfg.r), generator=generator, device=dev, dtype=torch.float32)
+        a = a / cfg.r**0.5
         b = torch.zeros((cfg.r, d_out), device=dev, dtype=torch.float32)
-        mod.set_adapter_pair(adapter_set, nn.Parameter(a / cfg.r**0.5), nn.Parameter(b))
+        if tp is not None:
+            part = {}
+            for leaf, t in (("lora_a", a), ("lora_b", b)):
+                dim = linear_tp_dim(tp.mode, leaf)
+                n = None if dim is None else t.shape[dim] // tp.size
+                part[leaf] = t if dim is None else t.narrow(dim, tp.rank * n, n).contiguous()
+            a, b = part["lora_a"], part["lora_b"]
+        mod.set_adapter_pair(adapter_set, nn.Parameter(a), nn.Parameter(b))
         names.append(name)
     if not names:
         raise ValueError(f"no Linear matches the LoRA targets {cfg.target_patterns}")

@@ -83,6 +83,31 @@ class Ctx:
         return dataclasses.replace(self, dropout_seed=fold_seed(self.dropout_seed, value))
 
 
+GELU_TANH = "gelu_pytorch_tanh"  # HF's name for jax.nn.gelu's default form
+
+
+def _quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+def activation(name: str):
+    """The activation of an HF `hidden_act` name: "gelu" is the erf form
+    (nn.GELU, HF's GELUActivation), "gelu_pytorch_tanh" / "gelu_new" the
+    tanh approximation (jax.nn.gelu's default, which vlrlhf_tpu computes
+    everywhere), "quick_gelu" x * sigmoid(1.702 x)."""
+    if name == "quick_gelu":
+        return _quick_gelu
+    if name == "gelu":
+        return F.gelu
+    if name in (GELU_TANH, "gelu_new"):
+        return _gelu_tanh
+    raise ValueError(f"activation {name!r}: expected gelu, {GELU_TANH}, gelu_new or quick_gelu")
+
+
 def empty_param(shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype), requires_grad=False)
 

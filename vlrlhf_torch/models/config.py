@@ -35,6 +35,11 @@ class LMConfig:
     rope_scaling_type: str = "none"
     rope_scaling_factor: float = 1.0
     max_position_embeddings: int = 4096
+    # QWen's use_logn_attn (ops/rope.py; an HF import of Qwen-VL reads it)
+    logn_attn: bool = False
+    # Mistral's sliding_window: None = full attention; set, every sequence
+    # and KV cache longer than it is refused (the kernels hold no window)
+    sliding_window: Optional[int] = None
     rms_eps: float = 1e-6
     qkv_bias: bool = False
     o_bias: bool = False
@@ -58,6 +63,7 @@ class LMConfig:
             scaling_type=self.rope_scaling_type,
             scaling_factor=self.rope_scaling_factor,
             max_position_embeddings=self.max_position_embeddings,
+            logn_attn=self.logn_attn,
         )
 
 
@@ -72,9 +78,11 @@ class ViTConfig:
     use_class_token: bool = True
     use_pre_norm: bool = True
     use_post_norm: bool = True
-    # 'gelu' is jax.nn.gelu's tanh approximation in both packages (Qwen-VL's
-    # and EVA's towers; upstream's nn.GELU is erf, ROADMAP.md §3)
-    act: str = "quick_gelu"  # 'gelu' | 'quick_gelu'
+    # an HF hidden_act name (models/common.py `activation`): 'quick_gelu',
+    # 'gelu' (erf, what an HF import of Qwen-VL's or EVA's tower reads) or
+    # 'gelu_pytorch_tanh' (jax.nn.gelu's default: the scaled-down families
+    # and every config bridged from vlrlhf_tpu)
+    act: str = "quick_gelu"
     # None = all layers (+post norm). -2 = penultimate layer output, no post
     # norm (LLaVA's vision_feature_layer=-2).
     feature_layer: Optional[int] = None
@@ -120,6 +128,8 @@ class QFormerConfig:
     max_position_embeddings: int = 512
     ln_eps: float = 1e-12
     dtype: torch.dtype = torch.bfloat16
+    # the feed-forward's HF hidden_act: an import reads BERT's 'gelu' (erf)
+    act: str = "gelu_pytorch_tanh"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +142,8 @@ class ProjectorConfig:
     out_dim: int = 4096
     num_queries: int = 256  # resampler only
     num_heads: int = 32  # resampler only
+    # mlp2x_gelu's HF projector_hidden_act: an import reads LLaVA's 'gelu' (erf)
+    act: str = "gelu_pytorch_tanh"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,7 +249,7 @@ def _qwen_vl_chat(dtype=torch.bfloat16) -> VLMConfig:
         ),
         vision=ViTConfig(
             image_size=448, patch_size=14, hidden_size=1664, num_layers=48,
-            num_heads=16, mlp_dim=8192, act="gelu", use_class_token=False,
+            num_heads=16, mlp_dim=8192, act="gelu_pytorch_tanh", use_class_token=False,
             use_pre_norm=True, use_post_norm=False, ln_eps=1e-6, dtype=dtype,
         ),
         projector=ProjectorConfig(
@@ -285,7 +297,7 @@ def _instructblip_vicuna_7b(dtype=torch.bfloat16) -> VLMConfig:
         ),
         vision=ViTConfig(
             image_size=224, patch_size=14, hidden_size=1408, num_layers=39,
-            num_heads=16, mlp_dim=6144, act="gelu", use_pre_norm=False,
+            num_heads=16, mlp_dim=6144, act="gelu_pytorch_tanh", use_pre_norm=False,
             use_post_norm=True, patch_bias=True, dtype=dtype,
         ),
         projector=ProjectorConfig(kind="linear", in_dim=768, out_dim=4096),

@@ -54,7 +54,7 @@ from vlrlhf_torch.ops.chunk_attention import chunk_attention
 from vlrlhf_torch.ops.decode_attention import decode_attention
 from vlrlhf_torch.ops.norms import rms_norm
 from vlrlhf_torch.ops.quant import quantize_kv
-from vlrlhf_torch.ops.rope import apply_rope, rope_frequencies
+from vlrlhf_torch.ops.rope import apply_rope, ntk_alpha, rope_frequencies
 
 
 class LlamaLayer(nn.Module):
@@ -246,6 +246,13 @@ class LlamaDecoder(nn.Module):
     def embed(self, ids: torch.Tensor) -> torch.Tensor:
         return embed(self.embed_tokens, ids, self.cfg.dtype)
 
+    @property
+    def cache_cfg(self) -> LMConfig:
+        """The config KV caches and pending writes are sized by: a layer's,
+        whose head counts are this rank's under tensor parallelism
+        (core/partitioning.py apply_tensor_parallel_), else the LM's."""
+        return self.layers[0].cfg if len(self.layers) else self.cfg
+
     def head(self, hidden: torch.Tensor, ctx: Optional[Ctx] = None) -> torch.Tensor:
         """Logits; `ctx` is the LM-level context (an lm_head adapter, if
         targeted, applies under ctx.sub("lm_head") as in vlrlhf_tpu)."""
@@ -274,14 +281,20 @@ class LlamaDecoder(nn.Module):
         cfg = self.cfg
         b, s, _ = inputs_embeds.shape
         positions = torch.arange(s, device=inputs_embeds.device)[None].expand(b, s)
-        cos, sin = rope_frequencies(cfg.rope, positions, seq_len=cache_len or s)
+        alpha = None
+        if cfg.rope_scaling_type == "qwen_dynamic":  # from each row's real length
+            alpha = ntk_alpha(cfg.rope, torch.full((b,), s, device=positions.device)
+                              if pad_mask is None else pad_mask.sum(dim=1))
+        cos, sin = rope_frequencies(cfg.rope, positions, seq_len=cache_len or s, alpha=alpha)
         if cache_len is None:
             return self._train_forward(inputs_embeds, pad_mask, cos, sin, ctx or Ctx()), None
         if cache_len < s:
             raise ValueError(f"cache_len {cache_len} < prompt bucket {s}")
         # allocated once and filled layer by layer in place: only the
         # one stacked cache is ever live (no per-layer caches to stack)
-        cache = empty_cache(cfg, b, cache_len, kv_cache_dtype, inputs_embeds.device)
+        cache = empty_cache(self.cache_cfg, b, cache_len, kv_cache_dtype, inputs_embeds.device)
+        if alpha is not None:  # decode and chunks rotate at the prefill's alpha
+            cache["ntk_alpha"].copy_(alpha)
         x = inputs_embeds
         layers_ctx = (ctx or Ctx()).sub("layers_scanned")
         for i, layer in enumerate(self.layers):
@@ -344,14 +357,14 @@ class LlamaDecoder(nn.Module):
         it is the largest buffer on the card."""
         cfg = self.cfg
         b = last_token.shape[0]
-        nkv, hd = cfg.num_kv_heads, cfg.head_dim_
+        nkv, hd = self.cache_cfg.num_kv_heads, cfg.head_dim_
         sc = cache["k"].shape[3]
         ctx = _text_ctx(ctx)
         if pending is not None:
             flush_pending(cache, pending)
         x = self.embed(last_token[:, None])  # (B, 1, H)
         positions = lengths.long()[:, None]
-        cos, sin = rope_frequencies(cfg.rope, positions, seq_len=sc)
+        cos, sin = rope_frequencies(cfg.rope, positions, seq_len=sc, alpha=cache.get("ntk_alpha"))
         new_k = torch.empty((cfg.num_layers, b, nkv, hd), dtype=cfg.dtype, device=x.device)
         new_v = torch.empty_like(new_k)
         layers_ctx = (ctx or Ctx()).sub("layers_scanned")
@@ -405,7 +418,7 @@ class LlamaDecoder(nn.Module):
         chunk_lens = chunk_lens.to(device=dev, dtype=torch.int32)
         positions = lengths.long()[:, None] + torch.arange(c, device=dev)[None]  # (B, C)
         x = self.embed(input_ids)
-        cos, sin = rope_frequencies(cfg.rope, positions, seq_len=sc)
+        cos, sin = rope_frequencies(cfg.rope, positions, seq_len=sc, alpha=cache.get("ntk_alpha"))
         # the write plan, shared by every layer: rows write chunk positions
         # i < n (n = the real chunk length, cut at Sc); every other position
         # repeats row position n - 1 (same slot, same value), or, for a row
@@ -450,9 +463,14 @@ def _text_ctx(ctx: Optional[Ctx]) -> Optional[Ctx]:
 
 def empty_cache(cfg: LMConfig, b: int, cache_len: int, kv_cache_dtype: str, device) -> dict:
     """A zeroed (L, B, nkv, cache_len, hd) cache: bf16 (the model dtype), or
-    int8 codes with bf16 (L, B, nkv, cache_len) "k_scale" / "v_scale"."""
+    int8 codes with bf16 (L, B, nkv, cache_len) "k_scale" / "v_scale".
+    Under QWen's dynamic NTK it also keeps each row's alpha (B,) f32,
+    "ntk_alpha", which the prefill sets and decode and chunks reuse."""
     if kv_cache_dtype not in ("bf16", "int8"):
         raise ValueError(f"kv_cache_dtype {kv_cache_dtype!r}: expected 'bf16' or 'int8'")
+    if cfg.sliding_window and cache_len > cfg.sliding_window:
+        raise ValueError(f"a KV cache of {cache_len} slots is longer than the LM's "
+                         f"sliding_window {cfg.sliding_window}: windowed attention is not ported")
     shape = (cfg.num_layers, b, cfg.num_kv_heads, cache_len, cfg.head_dim_)
     dt = torch.int8 if kv_cache_dtype == "int8" else cfg.dtype
     cache = {"k": torch.zeros(shape, dtype=dt, device=device),
@@ -460,6 +478,8 @@ def empty_cache(cfg: LMConfig, b: int, cache_len: int, kv_cache_dtype: str, devi
     if kv_cache_dtype == "int8":
         for key in ("k_scale", "v_scale"):
             cache[key] = torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device)
+    if cfg.rope_scaling_type == "qwen_dynamic":
+        cache["ntk_alpha"] = torch.ones((b,), dtype=torch.float32, device=device)
     return cache
 
 

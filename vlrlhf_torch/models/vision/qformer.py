@@ -12,8 +12,9 @@
 
 Its attention is vlrlhf_tpu's plain `reference_attention` (no Pallas
 kernel), so plain torch ops serve here too (ops/attention.py
-`reference_attention`). GELU is the tanh approximation, jax.nn.gelu's
-default, as vlrlhf_tpu computes it (HF's BERT GELU is erf; ROADMAP.md §3).
+`reference_attention`). The feed-forward's activation is the config's
+HF name: BERT's erf "gelu" from an HF import, the tanh form jax.nn.gelu
+computes in a config bridged from vlrlhf_tpu.
 """
 
 from __future__ import annotations
@@ -21,10 +22,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from vlrlhf_torch.models.common import Linear, Norm, embed, empty_param
+from vlrlhf_torch.models.common import Linear, Norm, activation, embed, empty_param
 from vlrlhf_torch.models.config import QFormerConfig
 from vlrlhf_torch.ops.attention import reference_attention
 from vlrlhf_torch.ops.norms import layer_norm
@@ -52,14 +52,15 @@ class QAttention(nn.Module):
 
 
 class QFFN(nn.Module):
-    def __init__(self, h: int, inter: int, device, dtype):
+    def __init__(self, h: int, inter: int, act: str, device, dtype):
         super().__init__()
+        self.act = activation(act)
         self.fc1 = Linear(h, inter, True, device, dtype)
         self.fc2 = Linear(inter, h, True, device, dtype)
         self.ln = Norm(h, True, device, dtype)
 
     def forward(self, y, eps: float):
-        h = self.fc2(F.gelu(self.fc1(y), approximate="tanh"))
+        h = self.fc2(self.act(self.fc1(y)))
         return layer_norm(y + h, self.ln.weight, self.ln.bias, eps)
 
 
@@ -68,8 +69,8 @@ class QFormerLayer(nn.Module):
         super().__init__()
         h, dt = cfg.hidden_size, cfg.dtype
         self.self_attn = QAttention(h, h, device, dt)
-        self.ffn = QFFN(h, cfg.intermediate_size, device, dt)  # text positions
-        self.ffn_query = QFFN(h, cfg.intermediate_size, device, dt)  # query positions
+        self.ffn = QFFN(h, cfg.intermediate_size, cfg.act, device, dt)  # text positions
+        self.ffn_query = QFFN(h, cfg.intermediate_size, cfg.act, device, dt)  # query positions
         self.cross_attn = (QAttention(h, cfg.encoder_hidden_size, device, dt)
                            if cross else None)
 

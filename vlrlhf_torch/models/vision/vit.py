@@ -7,8 +7,10 @@ at 490 px: every layer, no post norm (`feature_layer=-1`), its 24 x 24
 table resized to the 35 x 35 patch grid; Qwen-VL's ViT-bigG/14-448: no
 class token, pre-LN, no post-LN, ln_eps 1e-6; and InstructBLIP's EVA
 ViT-g/14-224: a patch bias, no pre-LN, every layer then the post norm,
-the class token kept. "gelu" is the tanh form in both packages (HF's EVA
-and Qwen's nn.GELU use erf, ROADMAP.md §3).
+the class token kept. The MLP's activation is the config's HF name
+(models/common.py `activation`): an HF import reads EVA's and Qwen's erf
+"gelu", a config bridged from vlrlhf_tpu the tanh form jax.nn.gelu
+computes.
 
 A position table of another grid than the patches is resized in the
 forward by ops/image.py `interpolate_pos_embed` (the grid part only when
@@ -40,18 +42,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from vlrlhf_torch.models.common import Ctx, Linear, Norm, empty_param
+from vlrlhf_torch.models.common import Ctx, Linear, Norm, activation, empty_param
 from vlrlhf_torch.models.config import ViTConfig
 from vlrlhf_torch.ops.attention import multi_head_attention
 from vlrlhf_torch.ops.image import interpolate_pos_embed
 from vlrlhf_torch.ops.norms import layer_norm
-
-
-def _act(name: str):
-    if name == "quick_gelu":
-        return lambda x: x * torch.sigmoid(1.702 * x)
-    # jax.nn.gelu's default is the tanh approximation
-    return lambda x: F.gelu(x, approximate="tanh")
 
 
 class ViTBlock(nn.Module):
@@ -82,7 +77,7 @@ class ViTBlock(nn.Module):
         attn = multi_head_attention(q, k, v, causal=False).reshape(b, s, cfg.hidden_size)
         x = x + self.wo(attn, actx.sub("wo"))
         h = layer_norm(x, self.ln2.weight, self.ln2.bias, cfg.ln_eps)
-        return x + self.fc2(_act(cfg.act)(self.fc1(h, mctx.sub("fc1"))), mctx.sub("fc2"))
+        return x + self.fc2(activation(cfg.act)(self.fc1(h, mctx.sub("fc1"))), mctx.sub("fc2"))
 
 
 class VisionTower(nn.Module):

@@ -35,14 +35,14 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 import dataclasses
 
 from vlrlhf_torch.models.anyres import gather_anyres_features
 from vlrlhf_torch.models.common import (
-    Ctx, Linear, Norm, empty_param, image_position_mask, merge_multimodal_embeddings,
+    Ctx, Linear, Norm, activation, empty_param, image_position_mask,
+    merge_multimodal_embeddings,
 )
 from vlrlhf_torch.models.config import ProjectorConfig, VLMConfig
 from vlrlhf_torch.models.lm.llama import LlamaDecoder
@@ -81,6 +81,7 @@ class Projector(nn.Module):
         self.fc1 = Linear(cfg.in_dim, cfg.out_dim, True, device, dtype)
         self.fc2 = (Linear(cfg.out_dim, cfg.out_dim, True, device, dtype)
                     if cfg.kind == "mlp2x_gelu" else None)
+        self.act = activation(cfg.act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind == "resampler":
@@ -88,8 +89,7 @@ class Projector(nn.Module):
             x = layer_norm(x, self.ln_post.weight, self.ln_post.bias, LN_EPS)
             return self.proj(x)
         x = self.fc1(x)
-        # jax.nn.gelu defaults to the tanh approximation
-        return x if self.fc2 is None else self.fc2(F.gelu(x, approximate="tanh"))
+        return x if self.fc2 is None else self.fc2(self.act(x))
 
 
 class VLM(nn.Module):

@@ -30,6 +30,15 @@ reversed scan runs on the host in f32 numpy (`gae_host`): one device read
 of the deltas instead of a few thousand per-position launches.
 
 Right-padded rows throughout: prompt tokens, then response tokens.
+
+Under a mesh (core/mesh.py) each data-parallel rank holds the global
+rollout batch but runs the stats pass on its own rows; the statistics the
+step takes over rows are global, as vlrlhf_tpu's over its sharded batch:
+the whitening's mean and variance and the mean KL (`group`: sums
+all-reduced over the data-parallel group), and the update's masked means,
+whose denominators are the global minibatch's token counts
+(`ppo_update`), each rank stepping on its share of every global minibatch
+(`ppo_update_epochs`). GAE stays on the host, per row.
 """
 
 from __future__ import annotations
@@ -40,6 +49,9 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from vlrlhf_torch.core.dist import (
+    all_reduce_mean, all_reduce_sum, dp_gather_rows, dp_group, dp_rank, dp_size,
+)
 from vlrlhf_torch.models.common import Ctx
 from vlrlhf_torch.models.vlm import IMAGE_INPUT_KEYS, VLM, image_inputs, value_forward
 from vlrlhf_torch.train.losses import _gather_clipped, chunked_token_logps
@@ -71,15 +83,21 @@ class PPOConfig:
     logits_chunk: int = 0
 
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return (x * mask).sum() / mask.sum().clamp(min=1)
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of x over the mask; with a process `group`, over every
+    rank's x and mask (the sums all-reduced)."""
+    if group is None:
+        return (x * mask).sum() / mask.sum().clamp(min=1)
+    num, den = all_reduce_sum(torch.stack([(x * mask).sum(), mask.sum().to(x.dtype)]),
+                              group).unbind()
+    return num / den.clamp(min=1)
 
 
-def masked_whiten(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_whiten(x: torch.Tensor, mask: torch.Tensor, group=None) -> torch.Tensor:
     """TRL's masked_whiten with shift_mean=True: the biased masked variance
-    and rsqrt(var + 1e-8)."""
-    mean = masked_mean(x, mask)
-    var = masked_mean((x - mean) ** 2, mask)
+    and rsqrt(var + 1e-8); with `group`, the moments of every rank's rows."""
+    mean = masked_mean(x, mask, group)
+    var = masked_mean((x - mean) ** 2, mask, group)
     return (x - mean) * torch.rsqrt(var + 1e-8)
 
 
@@ -156,7 +174,9 @@ def compute_rollout_stats(model: VLM, pcfg: PPOConfig, v_head: dict, batch: dict
                           scores: torch.Tensor, kl_coef: float,
                           value_adapters: bool = False) -> RolloutStats:
     """The stats pass over a rollout batch (input_ids (B, L) prompt +
-    response, pad_mask, response_mask) with sequence `scores` (B,).
+    response, pad_mask, response_mask) with sequence `scores` (B,); under a
+    mesh the rank's rows, the whitening and the mean KL taken over the
+    data-parallel group's (`dp_group`).
 
     The forwards run in slices of the update's minibatch size, so they
     multiply matrices of the shapes the update's forwards do: cuBLAS picks
@@ -166,9 +186,12 @@ def compute_rollout_stats(model: VLM, pcfg: PPOConfig, v_head: dict, batch: dict
     8-row stats and 4-row minibatches, and exactly 1 with 4-row slices). The
     advantages and their whitening then take the whole batch, as in
     vlrlhf_tpu."""
+    group = dp_group() if dp_size() > 1 else None
     value_ctx = policy_ctx(pcfg, adapter_set=VALUE_SET) if value_adapters else None
     parts = []
-    for sub in _row_chunks(batch, pcfg.minibatch_size or batch["input_ids"].shape[0]):
+    # a rank's share of each global minibatch, the update's own shape
+    share = pcfg.minibatch_size // dp_size() if pcfg.minibatch_size else 0
+    for sub in _row_chunks(batch, share or batch["input_ids"].shape[0]):
         lp, v = forward_logps_and_values(model, pcfg, v_head, sub, policy_ctx(pcfg), value_ctx)
         ref = _logps(model, pcfg, _trunk(model, sub, Ctx()), sub["input_ids"], Ctx())
         parts.append((lp, v, ref))
@@ -198,10 +221,18 @@ def compute_rollout_stats(model: VLM, pcfg: PPOConfig, v_head: dict, batch: dict
     advantages = torch.from_numpy(adv).to(ids.device) * mask
     returns = advantages + values
     if pcfg.whiten_advantages:
-        advantages = masked_whiten(advantages, mask) * mask
+        advantages = masked_whiten(advantages, mask, group) * mask
     return RolloutStats(logprobs=logprobs, ref_logprobs=ref_logprobs, values=values,
                         advantages=advantages, returns=returns, response_mask=mask,
-                        kl=masked_mean(kl, mask))
+                        kl=masked_mean(kl, mask, group))
+
+
+def gather_stats(stats: RolloutStats) -> RolloutStats:
+    """Every data-parallel rank's rows of `stats`, in data-parallel order:
+    the global batch's (the mean KL is global already)."""
+    if dp_size() == 1:
+        return stats
+    return RolloutStats(*[f if f.dim() == 0 else dp_gather_rows(f) for f in stats])
 
 
 def ppo_update(model: VLM, pcfg: PPOConfig, ocfg: OptimizerConfig, state: TrainState,
@@ -211,40 +242,68 @@ def ppo_update(model: VLM, pcfg: PPOConfig, ocfg: OptimizerConfig, state: TrainS
     clipped policy loss plus vf_coef times the clipped value loss. The
     trainable leaves are the policy adapters, `v_head`'s and, with
     `value_adapters`, the VALUE_SET adapters; all are in `state.trainable`.
-    Metrics come back as 0-dim device tensors."""
+    Metrics come back as 0-dim device tensors.
+
+    Under a mesh `batch` is the rank's share of a global minibatch: each
+    masked mean divides the rank's sum by the global minibatch's token
+    count, so the ranks' losses add up to the global one, and the backward
+    takes dp_size times the rank's (FSDP2 averages the gradients over the
+    data-parallel ranks; the replicated value head and value adapters are
+    averaged here). The metrics are the global minibatch's on every rank."""
     value_ctx = policy_ctx(pcfg, adapter_set=VALUE_SET) if value_adapters else None
+    n_dp = dp_size()
+    group = dp_group() if n_dp > 1 else None
     for p in state.trainable:
         p.grad = None
     new_logprobs, values = forward_logps_and_values(model, pcfg, v_head, batch,
                                                     policy_ctx(pcfg), value_ctx)
     mask = stats.response_mask
+    count = mask.sum()
+    if group is not None:
+        count = all_reduce_sum(count, group)
+    count = count.clamp(min=1)
+
+    def mean(x):  # the rank's part of the global masked mean
+        return (x * mask).sum() / count
+
     values = values[:, :-1] * mask
     ratio = torch.exp((new_logprobs - stats.logprobs) * mask)
     pg1 = -stats.advantages * ratio
     pg2 = -stats.advantages * ratio.clamp(1.0 - pcfg.cliprange, 1.0 + pcfg.cliprange)
-    pg_loss = masked_mean(torch.maximum(pg1, pg2), mask)
+    pg_loss = mean(torch.maximum(pg1, pg2))
     v_clipped = torch.minimum(torch.maximum(values, stats.values - pcfg.cliprange_value),
                               stats.values + pcfg.cliprange_value)
     vf1 = (values - stats.returns) ** 2
     vf2 = (v_clipped - stats.returns) ** 2
-    vf_loss = 0.5 * masked_mean(torch.maximum(vf1, vf2), mask)
+    vf_loss = 0.5 * mean(torch.maximum(vf1, vf2))
     loss = pg_loss + pcfg.vf_coef * vf_loss
-    loss.backward()
+    (loss * n_dp if group is not None else loss).backward()
+    if group is not None:
+        from vlrlhf_torch.core.dist import local_tensor
+
+        for p in state.trainable:  # the leaves outside FSDP2: their mean here
+            if p.grad is not None and local_tensor(p) is p:
+                p.grad = all_reduce_mean(p.grad, group)
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in state.trainable]
     with torch.no_grad():
         dev = (ratio - 1.0).abs()
-        metrics = {
-            "ppo/loss/policy": pg_loss.detach(),
-            "ppo/loss/value": vf_loss.detach(),
-            "ppo/loss/total": loss.detach(),
-            "ppo/policy/approxkl": masked_mean(0.5 * (new_logprobs - stats.logprobs) ** 2, mask),
-            "ppo/policy/clipfrac": masked_mean((dev > pcfg.cliprange).float(), mask),
-            "ppo/ratio_mean": masked_mean(ratio, mask),
-            # 0 in exact arithmetic on the first minibatch of epoch 0; the
-            # stats and update forwards round differently in bf16, so it
-            # stays within bf16's eps there (about 1e-2)
-            "ppo/ratio_max_abs_dev": (dev * mask).max(),
-        }
+        sums = torch.stack([pg_loss, vf_loss, loss,
+                            mean(0.5 * (new_logprobs - stats.logprobs) ** 2),
+                            mean((dev > pcfg.cliprange).float()), mean(ratio)]).detach()
+        # 0 in exact arithmetic on the first minibatch of epoch 0; the stats
+        # and update forwards round differently in bf16, so it stays within
+        # bf16's eps there (about 1e-2)
+        dev_max = (dev * mask).max()
+        if group is not None:
+            import torch.distributed as tdist
+
+            sums = all_reduce_sum(sums, group)
+            dev_max = dev_max.clone()
+            tdist.all_reduce(dev_max, op=tdist.ReduceOp.MAX, group=group)
+        metrics = dict(zip(("ppo/loss/policy", "ppo/loss/value", "ppo/loss/total",
+                            "ppo/policy/approxkl", "ppo/policy/clipfrac", "ppo/ratio_mean"),
+                           sums.unbind()))
+        metrics["ppo/ratio_max_abs_dev"] = dev_max
     metrics["grad_norm"] = apply_updates(state, grads, ocfg)
     return metrics
 
@@ -298,16 +357,24 @@ def ppo_update_epochs(update_fn: Callable[[dict, RolloutStats], dict], batch: di
     draws as vlrlhf_tpu's) and one `update_fn(minibatch, minibatch stats)`
     per minibatch of `minibatch_size` rows (0 = the full batch); rows past
     the last whole minibatch sit that epoch out. Returns the last update's
-    metrics; `history` collects every update's."""
+    metrics; `history` collects every update's. Under a mesh `batch` and
+    `stats` are the global batch's: the permutation runs over the global
+    rows, and each data-parallel rank steps on its contiguous share of
+    every global minibatch (the minibatch a multiple of the ranks)."""
     b = batch["input_ids"].shape[0]
     mb = min(pcfg.minibatch_size, b) if pcfg.minibatch_size else b
     n_mb = b // mb
+    n_dp, r = dp_size(), dp_rank()
+    if mb % n_dp:
+        raise ValueError(f"a PPO minibatch of {mb} rows does not split over {n_dp} "
+                         "data-parallel ranks")
+    share = mb // n_dp
     rng = np.random.default_rng(seed)
     metrics: dict = {}
     for _ in range(pcfg.ppo_epochs):
         perm = rng.permutation(b)[: n_mb * mb]
         for m in range(n_mb):
-            idx = torch.as_tensor(perm[m * mb: (m + 1) * mb])
+            idx = torch.as_tensor(perm[m * mb + r * share: m * mb + (r + 1) * share])
             mb_batch = {k: _take_rows(v, idx, b) for k, v in batch.items()}
             mb_stats = RolloutStats(*[_take_rows(f, idx, b) for f in stats])
             metrics = update_fn(mb_batch, mb_stats)

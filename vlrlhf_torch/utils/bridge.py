@@ -47,7 +47,7 @@ from torch import nn
 
 from vlrlhf_torch.lora.lora import module_path, set_adapters_, stack_adapter_sets
 from vlrlhf_torch.models import config as C
-from vlrlhf_torch.models.common import Linear, Norm
+from vlrlhf_torch.models.common import GELU_TANH, Linear, Norm
 from vlrlhf_torch.models.vlm import VLM
 
 
@@ -319,7 +319,9 @@ def _torch_dtype(dt) -> torch.dtype:
 
 def vlm_config_from(src) -> C.VLMConfig:
     """The port's VLMConfig for a vlrlhf_tpu VLMConfig (read by attribute
-    name, so this module needs no jax import); dtypes map by name."""
+    name, so this module needs no jax import); dtypes map by name. Every
+    GELU is the tanh form vlrlhf_tpu computes (jax.nn.gelu's default): the
+    tower's "gelu" and the projector's and Q-Former's defaults."""
 
     def conv(cls, obj):
         kw = {}
@@ -330,9 +332,12 @@ def vlm_config_from(src) -> C.VLMConfig:
         return cls(**kw)
 
     qf = getattr(src, "qformer", None)
+    vision = conv(C.ViTConfig, src.vision)
+    if vision.act == "gelu":  # jax.nn.gelu's default: the tanh form
+        vision = dataclasses.replace(vision, act=GELU_TANH)
     return C.VLMConfig(
         lm=conv(C.LMConfig, src.lm),
-        vision=conv(C.ViTConfig, src.vision),
+        vision=vision,
         projector=conv(C.ProjectorConfig, src.projector),
         image_token_id=src.image_token_id,
         num_image_tokens=src.num_image_tokens,

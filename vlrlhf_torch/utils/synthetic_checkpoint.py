@@ -105,7 +105,7 @@ def llava_config(cfg) -> dict:
         num_attention_heads=vis.num_heads, num_hidden_layers=vis.num_layers,
         patch_size=vis.patch_size, hidden_act=vis.act, layer_norm_eps=vis.ln_eps)
     out.update(image_token_index=cfg.image_token_id, vocab_size=lm.vocab_size,
-               vision_feature_layer=vis.feature_layer)
+               vision_feature_layer=vis.feature_layer, projector_hidden_act=cfg.projector.act)
     return out
 
 
@@ -124,7 +124,7 @@ def llava_next_config(cfg) -> dict:
         architectures=["MistralForCausalLM" if mistral else "LlamaForCausalLM"],
         model_type="mistral" if mistral else "llama")
     if mistral:
-        out["text_config"]["sliding_window"] = None
+        out["text_config"]["sliding_window"] = cfg.lm.sliding_window
     return out
 
 
@@ -161,7 +161,7 @@ def instructblip_config(cfg) -> dict:
             "cross_attention_frequency": qf.cross_attention_frequency,
             "encoder_hidden_size": qf.encoder_hidden_size,
             "max_position_embeddings": qf.max_position_embeddings,
-            "layer_norm_eps": qf.ln_eps,
+            "layer_norm_eps": qf.ln_eps, "hidden_act": qf.act,
         },
         "tie_word_embeddings": False,
         "use_decoder_only_language_model": True,
@@ -212,12 +212,13 @@ def qwen_vl_config(cfg) -> dict:
                kv_channels=lm.head_dim_, layer_norm_epsilon=lm.rms_eps,
                num_attention_heads=lm.num_heads, num_hidden_layers=lm.num_layers,
                rotary_emb_base=lm.rope_base, seq_length=lm.max_position_embeddings,
-               use_dynamic_ntk=lm.rope_scaling_type == "dynamic", vocab_size=lm.vocab_size)
+               use_dynamic_ntk=lm.rope_scaling_type in ("dynamic", "qwen_dynamic"),
+               use_logn_attn=lm.logn_attn, vocab_size=lm.vocab_size)
     out["visual"].update(heads=vis.num_heads, image_size=vis.image_size,
                          image_start_id=cfg.image_token_id - 2, layers=vis.num_layers,
                          mlp_ratio=ratio, output_dim=cfg.projector.out_dim,
                          patch_size=vis.patch_size, width=vis.hidden_size,
-                         n_queries=cfg.projector.num_queries)
+                         n_queries=cfg.projector.num_queries, hidden_act=vis.act)
     return out
 
 
@@ -230,7 +231,8 @@ def xc2_config(cfg) -> dict:
                max_position_embeddings=lm.max_position_embeddings,
                num_attention_heads=lm.num_heads, num_hidden_layers=lm.num_layers,
                num_key_value_heads=lm.num_kv_heads, rms_norm_eps=lm.rms_eps,
-               rope_theta=lm.rope_base, vocab_size=lm.vocab_size)
+               rope_theta=lm.rope_base, vocab_size=lm.vocab_size,
+               projector_hidden_act=cfg.projector.act)
     return out
 
 
