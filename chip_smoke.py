@@ -138,7 +138,7 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      response) and one update's loss and gradients, without and with value
      adapters; losses and stats within LOSS_REL_TOL, gradient cosines at
      least GRAD_COS_MIN. (b) full LLaVA-1.5-7B width at PHASE10_LAYERS =
-     16 of its 32 LM layers (the script's time limit), seeded
+     8 of its 32 LM layers (the script's time limit), seeded
      random bf16 weights, through cli.main's build_sft / build_rm /
      build_ppo, train_steps / train_ppo and finish_run: sft 3 steps on 2
      image rows of ~1000 tokens (attn remat, logits_chunk 256), step ms and
@@ -204,7 +204,8 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      turns through train_steps from that state for ms per step and peak
      memory, and one step of each is profiled; (b) `torchrun --standalone
      --nproc_per_node 1 -m vlrlhf_torch.cli.main dpo --synthetic 8
-     --mesh_fsdp -1 --max_steps 2`: exit 0, finite metrics; (c) eval of
+     --mesh_fsdp -1 --sequence_parallel_axis fsdp --max_steps 2` (NCCL, a
+     ring of one): exit 0, finite metrics; (c) eval of
      phase 8's MME rows at full width and 2 LM / 2 tower layers, two ranks
      under torchrun sharing the card over gloo (this script with
      --mesh13c-worker), each on its half of the rows, against the same
@@ -233,6 +234,26 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      process: the rollout tokens token for token and the first update's
      gradients within PPO_GRAD_TOL at every leaf; each fault must exceed
      it; model = 2's launches (kernels 1-4) are "mesh_ppo"
+  14. ring attention over the sequence (vlrlhf_torch/ops/ring_attention.py,
+     --sequence_parallel_axis fsdp): (a) in this process, the per-block
+     functions looped as a ring of n = 2 and 4 (kernel 1 causal on the
+     diagonal block and non-causal before it, the partials merged by
+     log-add-exp, kernels 2-3 per block fed the merged LSE and di) on
+     LLaVA-1.5-7B's attention, B = 1, S = 4096, H = 32, D = 128, and GQA
+     32 / 8, one row of 3,800 tokens: O, dQ, dK, dV against the
+     whole-sequence kernels and against the plain ring on the card, at
+     TOL; each block of the most loaded (last) rank, its critical path and
+     the whole-sequence kernels timed beside their bounds ("ring" in the
+     kernels line); (b) started with 13b-e: two ranks sharing the card
+     over gloo (this script with --mesh14-worker, torchrun's environment),
+     `dpo` through build_dpo / train_steps under --mesh_fsdp 2
+     --sequence_parallel_axis fsdp at full width and 2 LM / 2 tower layers,
+     one pair at S = 4096, no gradient clipping, against world 1 in this
+     process: the first update's gradients leaf by leaf within
+     MESH_GRAD_TOL, step-1 loss ln 2, the gradient norm within 1e-2, each
+     rank's resident and step peak memory beside world 1's; a planted
+     fault (the ring's gradient partials averaged, not summed) must fail
+     MESH_GRAD_TOL; rank 0's launches are "mesh_dpo_sp"
 
 A profiled step prints the card's busy and idle time and its kernel time by
 group (torch.profiler; the flash groups split by head dim). Phase 2's
@@ -260,8 +281,8 @@ serve, DPO, QLoRA, trainer, eval, multi-adapter serving, phase 9's runs
 (next_serve, next_dpo, next_serve_int8_spec, blip_serve, blip_dpo,
 blip_eval) and phase 12's (qwen_int4_reduced, internlm_int4_reduced,
 xc2_qlora4_reduced, qwen_serve, qwen_dpo, qwen_serve_int8_spec,
-xc2_serve, xc2_dpo, xc2_eval) and phase 13's (mesh_dpo, mesh_eval,
-mesh_dpo_tp, mesh_ppo), split in
+xc2_serve, xc2_dpo, xc2_eval), phase 13's (mesh_dpo, mesh_eval,
+mesh_dpo_tp, mesh_ppo) and phase 14's (mesh_dpo_sp), split in
 launches_by_path; the eval and ppo shapes' times under "eval" and "ppo");
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -271,6 +292,7 @@ and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import itertools
 import json
@@ -3660,7 +3682,7 @@ def train_timed(run, args, what: str, launches_out: dict, path: str):
     return steps, recs, wall
 
 
-PHASE10_LAYERS = 16  # phase 10b's LM depth, half of LLaVA-1.5-7B's: the script's time limit
+PHASE10_LAYERS = 8  # phase 10b's LM depth, a quarter of LLaVA-1.5-7B's: the script's time limit
 
 
 def phase_trainers() -> dict:
@@ -4895,11 +4917,13 @@ def phase_launchers() -> dict:
                    MASTER_PORT=str(_free_port()))
         rm_dir = mesh13e_reward(os.path.join(out, "rm"))
         env13e = dict(env, MASTER_PORT=str(_free_port()))
+        got14 = os.path.join(out, "ranks", "14b.pt")
+        env14 = dict(env, MASTER_PORT=str(_free_port()))
         procs = {
             "13b": start_logged(torchrun_cmd(
                 1, "-m", "vlrlhf_torch.cli.main", "dpo", "--synthetic", "8", "--mesh_fsdp",
-                "-1", "--max_steps", "2", "--logging_steps", "1",
-                "--per_device_train_batch_size", "1", "--output_dir", dpo_out)),
+                "-1", "--sequence_parallel_axis", "fsdp", "--max_steps", "2", "--logging_steps",
+                "1", "--per_device_train_batch_size", "1", "--output_dir", dpo_out)),
             "13c": start_logged(torchrun_cmd(
                 2, os.path.abspath(__file__), "--mesh13c-worker", mme, seed,
                 os.path.join(out, "two"))),
@@ -4909,6 +4933,9 @@ def phase_launchers() -> dict:
             "13e": [start_logged([sys.executable, os.path.abspath(__file__), "--mesh13e-worker",
                                   os.path.join(out, "ranks"), rm_dir],
                                  env=dict(env13e, RANK=str(r))) for r in range(2)],
+            **{f"14b rank {r}": start_logged(
+                [sys.executable, os.path.abspath(__file__), "--mesh14-worker", got14],
+                env=dict(env14, RANK=str(r))) for r in range(2)},
         }
         one = mesh13c_eval(mme, seed, os.path.join(out, "one"))
         world1 = mesh13d_run(os.path.join(out, "world1"))
@@ -4917,12 +4944,14 @@ def phase_launchers() -> dict:
         accum = mesh13d_run(os.path.join(out, "accum"), per_device=1, accumulate=2)
         world13e = mesh13e_run(os.path.join(out, "ppo_world1"), None, len(PPO13E_WORDS), None,
                                rm_dir)
+        world14 = mesh14_run(os.path.join(out, "sp_world1"), False)
         for what in [w for w in procs if w != "13e"]:
             finish_logged(procs.pop(what), what)
 
         lines = _metrics_lines(os.path.join(dpo_out, "dpo_metrics.jsonl"))
         vals = [v for r in lines for v in r.values() if isinstance(v, float)]
-        print(f"13b torchrun dpo --synthetic 8 --mesh_fsdp -1: {len(lines)} logged steps, "
+        print(f"13b torchrun dpo --synthetic 8 --mesh_fsdp -1 --sequence_parallel_axis fsdp (NCCL, a "
+              f"ring of one): {len(lines)} logged steps, "
               f"losses {[r['loss'] for r in lines]}", flush=True)
         if len(lines) != 2 or not all(np.isfinite(vals)) or \
                 not os.path.exists(os.path.join(dpo_out, "adapters", "params.pt")):
@@ -4982,7 +5011,7 @@ def phase_launchers() -> dict:
         mesh13d_saves(os.path.join(out, "ranks"), got)
         got13e = mesh13e_check(os.path.join(out, "ranks"), procs.pop("13e"), world13e, rm_dir)
         return {"mesh_eval": eval_launches, "mesh_dpo_tp": got["model2"]["launches"],
-                "mesh_ppo": got13e}
+                "mesh_ppo": got13e, "mesh_dpo_sp": mesh14_check(got14, world14)}
     finally:
         for started in procs.values():
             for proc, _ in (started if isinstance(started, list) else [started]):
@@ -5073,7 +5102,8 @@ def mesh13c_worker(mme: str, seed: str, out: str) -> int:
 
 
 def mesh13d_run(out: str, shape=None, per_device: int = 2, accumulate: int = 1,
-                updates: int = 3, save: bool = False) -> dict:
+                updates: int = 3, save: bool = False, sp: str = "", rows=None,
+                max_length: int = 1024, clip: bool = True) -> dict:
     """One 13d run: LLaVA-1.5-7B's widths at 2 LM / 2 tower layers (seeded
     bf16 on cuda:0), 2 pairs per global batch, build_dpo (precomputed
     reference logps) and train_steps for `updates` updates; returns rank
@@ -5087,7 +5117,13 @@ def mesh13d_run(out: str, shape=None, per_device: int = 2, accumulate: int = 1,
     finish_run's adapters/ and merged/ (--merge_adapter_after_training),
     written by rank 0 from the gathered world-1 tensors; every rank then
     restores the checkpoint into its layout (shard_full) and "resumes_exact"
-    says whether each of its live shards came back bit for bit."""
+    says whether each of its live shards came back bit for bit. 14b's runs
+    pass `sp` (the mesh's --sequence_parallel_axis), their own `rows` and
+    `max_length` (the processor's), and `clip` False (no gradient
+    clipping, so Adam's first moment holds the gradients' scale);
+    "resident_gib" is each rank's device memory after build_dpo (the placed
+    model, adapters and optimizer state) and "peak_gib" its peak above that
+    while train_steps runs."""
     import argparse
 
     from vlrlhf_torch.cli.main import build_dpo, finish_run, make_logger, train_steps
@@ -5099,7 +5135,7 @@ def mesh13d_run(out: str, shape=None, per_device: int = 2, accumulate: int = 1,
     from vlrlhf_torch.models.vlm import VLM
 
     cfg = mesh_2layer_cfg()
-    mesh = make_mesh(MeshConfig(*shape), "cuda") if shape is not None else None
+    mesh = make_mesh(MeshConfig(*shape), "cuda", sp) if shape is not None else None
     fns = counted(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
     try:
         model = VLM(cfg, "cuda")
@@ -5108,9 +5144,15 @@ def mesh13d_run(out: str, shape=None, per_device: int = 2, accumulate: int = 1,
                         gradient_accumulation_steps=accumulate, num_train_epochs=6.0,
                         max_steps=3, learning_rate=MESH13D_LR, warmup_ratio=0.0, run_name=None,
                         save_steps=updates * accumulate if save else 500,
-                        merge_adapter_after_training=save)
-        run = build_dpo(cfg, model, make_processor(cfg), args,
-                        [pair_row(7, 150, 260, 250), pair_row(8, 140, 240, 270)], seeded_image)
+                        merge_adapter_after_training=save, max_length=max_length,
+                        max_grad_norm=1.0 if clip else 1e30)
+        proc = make_processor(cfg)
+        proc.cfg = dataclasses.replace(proc.cfg, max_length=max(max_length, proc.cfg.max_length),
+                                       max_prompt_length=max(max_length // 2,
+                                                             proc.cfg.max_prompt_length))
+        run = build_dpo(cfg, model, proc, args,
+                        rows or [pair_row(7, 150, 260, 250), pair_row(8, 140, 240, 270)],
+                        seeded_image)
         logger = make_logger(args, "dpo", run)
         grads = {}
 
@@ -5119,13 +5161,20 @@ def mesh13d_run(out: str, shape=None, per_device: int = 2, accumulate: int = 1,
                 grads.update({k: host_full(v, tp_dim(k), mesh) / (1 - run.ocfg.b1)
                               for k, v in run.state_tree()["mu"].items()})
 
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()  # the placed model, adapters and optimizer state
+        torch.cuda.reset_peak_memory_stats()
         zero_counts(fns)
         # the optimizer's schedule counts 3 updates (build_dpo read max_steps 3)
         train_steps(run, argparse.Namespace(**{**vars(args), "max_steps": updates * accumulate}),
                     logger, on_step=first_update)
         launches = read_counts(fns)
         logger.close()
-        got = {"losses": [], "norms": [], "grads": grads, "launches": launches}
+        got = {"losses": [], "norms": [], "grads": grads, "launches": launches,
+               "peak_gib": gather_objects([(torch.cuda.max_memory_allocated() - base) / 2**30]),
+               "resident_gib": gather_objects([base / 2**30]),
+               "seq": run.collator([run.tokenize_fn(r) for r in run.rows])["input_ids"].shape[1]}
         if save:
             t0 = time.perf_counter()
             finish_run(run, args)  # adapters/, merged/; every rank leaves it together
@@ -5560,6 +5609,98 @@ def study_13e(seeds=(2, 3, 4, 5, 6, 7, 8, 9)) -> None:
         raise AssertionError("13e at other seeds: " + "; ".join(failed))
 
 
+# 14b: dpo under --sequence_parallel_axis fsdp on two gloo ranks sharing the
+# card (mesh (1, 2, 1): both ranks read the pair, each holds 2,048 of its
+# 4,096 positions), against world 1 in this process. pair_row's words make
+# rows of 4,084 and 3,884 tokens (576 image tokens among them): S = 4096,
+# LLaVA-1.5-7B's position table, so the ring's two shards split at 2,048.
+MESH14_PAIR = (14, 1200, 2300, 2100)
+MESH14 = (("sp2", False, 3), ("sp2_planted", True, 1))  # (name, planted fault, updates)
+
+
+@contextlib.contextmanager
+def sp_partials_averaged():
+    """14b's planted fault for the block: dpo_step's loss is not scaled by
+    the ring's size, so FSDP2's mean over the fsdp ranks averages the
+    ring's gradient partials instead of summing them."""
+    from vlrlhf_torch.train import dpo
+
+    kept = dpo.sp_size
+    dpo.sp_size = lambda: 1
+    try:
+        yield
+    finally:
+        dpo.sp_size = kept
+
+
+def mesh14_run(out: str, sp: bool, updates: int = 3) -> dict:
+    """One 14b run (mesh13d_run): the S = 4096 pair, one pair per global
+    batch, no gradient clipping; under the sequence-parallel mesh (1, 2, 1)
+    with `sp`, else world 1."""
+    return mesh13d_run(out, (1, 2, 1) if sp else None, per_device=1, updates=updates,
+                       sp="fsdp" if sp else "", rows=[pair_row(*MESH14_PAIR)], max_length=4096,
+                       clip=False)
+
+
+def mesh14_worker(out: str) -> int:
+    """A rank of 14b (started by phase_launchers with torchrun's
+    environment): gloo on cuda:0, each MESH14 run in turn; rank 0 writes
+    {name: mesh13d_run's result} to `out` (torch.save)."""
+    import faulthandler
+
+    import torch.distributed as tdist
+
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    tdist.init_process_group("gloo")
+    got = {}
+    for name, planted, updates in MESH14:
+        with sp_partials_averaged() if planted else contextlib.nullcontext():
+            got[name] = mesh14_run(os.path.join(os.path.dirname(out), name), True, updates)
+    if tdist.get_rank() == 0:
+        torch.save(got, out)
+    tdist.barrier()
+    tdist.destroy_process_group()
+    return 0
+
+
+def mesh14_check(got14: str, world1: dict) -> dict:
+    """14b's checks: the first update's gradients leaf by leaf within
+    MESH_GRAD_TOL of world 1's and the planted fault beyond it, step-1
+    loss ln 2, the step-1 gradient norm within 1e-2 of world 1's, kernels
+    1-3 launched on rank 0; prints each rank's peak memory beside world
+    1's. Returns rank 0's launches ("mesh_dpo_sp")."""
+    got = torch.load(got14, weights_only=False)
+    sp2 = got["sp2"]
+    gaps = {k: grad_gap(got[k], world1) for k in ("sp2", "sp2_planted")}
+    print(f"14b dpo --mesh_fsdp 2 --sequence_parallel_axis fsdp, two gloo ranks on one card "
+          f"(LLaVA-1.5-7B widths, 2 LM / 2 tower layers, one pair at S = {sp2['seq']}, the ring "
+          f"of two): losses / grad norms {sp2['losses']} / {sp2['norms']} vs world 1 "
+          f"{world1['losses']} / {world1['norms']} (S = {world1['seq']}); first update's "
+          f"gradients, worst leaf's relative L2 gap (leaf) "
+          + json.dumps({k: (round(v, 6), leaf) for k, (v, leaf) in gaps.items()})
+          + f", tol {MESH_GRAD_TOL} (the planted fault, the ring's partials averaged, must exceed "
+          f"it); per rank resident {[round(x, 3) for x in sp2['resident_gib']]} GiB and the "
+          f"steps' peak above it {[round(x, 3) for x in sp2['peak_gib']]} GiB vs world 1 "
+          f"{round(world1['resident_gib'][0], 3)} / {round(world1['peak_gib'][0], 3)} GiB; "
+          f"launches rank 0 {json.dumps(sp2['launches'])}",
+          flush=True)
+    for k, (v, leaf) in gaps.items():
+        if (v > MESH_GRAD_TOL) != k.endswith("planted"):
+            raise AssertionError(f"14b {k}: the first update's gradients are {v} apart at {leaf} "
+                                 f"(tol {MESH_GRAD_TOL})")
+    if sp2["seq"] != 4096 or world1["seq"] != 4096:
+        raise AssertionError(f"14b: the pair is not at S = 4096: {sp2['seq']} / {world1['seq']}")
+    if len(sp2["losses"]) != 3 or not np.isfinite(sp2["losses"]).all() or \
+            abs(sp2["losses"][0] - math.log(2.0)) > 1e-6 or \
+            abs(sp2["norms"][0] - world1["norms"][0]) > 1e-2 * world1["norms"][0]:
+        raise AssertionError(f"14b: {sp2['losses']} / {sp2['norms']}: step 1 must read ln 2 and "
+                             f"world 1's norm {world1['norms'][0]}")
+    if min(sp2["launches"].values()) <= 0:
+        raise AssertionError(f"14b: a flash kernel was not launched: {sp2['launches']}")
+    return sp2["launches"]
+
+
 def mesh13d_worker(out: str) -> int:
     """A rank of 13d (started by phase_launchers with torchrun's
     environment): gloo on cuda:0, each MESH13D layout in turn; rank 0
@@ -5583,6 +5724,129 @@ def mesh13d_worker(out: str) -> int:
     return 0
 
 
+RING14_S, RING14_LEN = 4096, 3800  # 14a: LLaVA-1.5-7B's position table, a row ending in shard 2
+
+
+def _ring_block_work(nq: int, nk: int, c: int, h: int, hkv: int, d: int, diagonal: bool,
+                     part: str) -> tuple[float, int]:
+    """(FLOPs, bytes) one ring block's launch needs: `nq` valid queries
+    of a c-row shard against `nk` valid keys (the diagonal block causal,
+    its pairs nq(nq+1)/2), each valid input read once (bf16 tensors, f32
+    LSE / di), both segment vectors read, each output written in full.
+    `part`: "fwd" (QK^T, PV), "dkv" (2x the forward's FLOPs) or "dq"
+    (1.5x), as phase 2 counts them."""
+    pairs = nq * (nq + 1) / 2 if diagonal else nq * nk
+    fwd = 4.0 * h * d * pairs
+    q, kv, row, seg = h * d * 2, hkv * d * 2, h * 4, 2 * c * 4
+    if part == "fwd":
+        return fwd, nq * q + nk * 2 * kv + seg + c * (q + row)
+    ins = nq * (2 * q + 2 * row) + nk * 2 * kv + seg
+    if part == "dkv":
+        return 2.0 * fwd, ins + c * 2 * kv
+    return 1.5 * fwd, ins + c * q
+
+
+def phase_ring_kernels() -> dict:
+    """14a: the ring's kernel path in one process, no process group:
+    ops/ring_attention.py's per-block functions looped over the n sources
+    of each query shard (`ring_attention_local`: kernel 1 causal on the
+    diagonal block, non-causal before it, merged by log-add-exp; kernels
+    2 and 3 per block fed the merged LSE and di) at n = 2 and 4, on
+    LLaVA-1.5-7B's attention (B = 1, S = 4096, H = 32, D = 128) and GQA
+    32 / 8, one row of 3,800 real tokens. O, dQ, dK and dV against kernels
+    1-3 on the whole sequence and against the plain ring (the plain
+    versions on the card, f32, through the same loop), at phase 2's TOL
+    (times max(1, max |ref|) for the gradients). Times: each block of the
+    last rank (the most loaded: contiguous shards give rank n - 1 one
+    diagonal and n - 1 off-diagonal blocks), its critical path (the sum of
+    its blocks) and the whole-sequence kernels, each beside its bound.
+    Returns {kernel: {case: numbers}} for the kernels line's "ring"."""
+    from vlrlhf_torch.ops.flash_attention import (
+        KV_PAD_SEG, Q_PAD_SEG, flash_attention, flash_attention_bwd_plain,
+        flash_attention_plain, make_segments,
+    )
+    from vlrlhf_torch.ops.ring_attention import ring_attention_local
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    b, s, h, d, L = 1, RING14_S, 32, 128, RING14_LEN
+    scale = d**-0.5
+    out = {"flash_fwd": {}, "flash_bwd_dkv": {}, "flash_bwd_dq": {}}
+    for label, hkv in (("mha", 32), ("gqa", 8)):
+        def randn(*shape):
+            return torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+
+        q, k, v, do = randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d), randn(b, s, h, d)
+        pad = torch.arange(s, device="cuda")[None] < L
+        qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        whole, lse = flash_attention(qr, kr, vr, pad_mask_q=pad, pad_mask_kv=pad, return_lse=True)
+        whole.backward(do)
+        whole = whole.detach()
+        seg_q = make_segments(b, s, "cuda", None, pad, Q_PAD_SEG)
+        seg_kv = make_segments(b, s, "cuda", None, pad, KV_PAD_SEG)
+        di = (whole.detach().float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        t_whole = {"fwd": time_ms(flash_kernel_call(q, k, v, seg_q, seg_kv, True, scale)),
+                   **{p: time_ms(flash_bwd_kernel_call(f"flash_bwd_{p}_bf16", q, k, v, do, lse, di,
+                                                       seg_q, seg_kv, True, scale))
+                      for p in ("dkv", "dq")}}
+        b_whole = {"fwd": bound(_flash_flops([L], h, d, True), _flash_bytes([L], s, h, hkv, d,
+                                                                           "fwd"))[0],
+                   **{p: bound((2.0 if p == "dkv" else 1.5) * _flash_flops([L], h, d, True),
+                               _flash_bytes([L], s, h, hkv, d, p))[0] for p in ("dkv", "dq")}}
+        for n in (2, 4):
+            what = f"14a {label} n = {n}"
+            o, grads = ring_attention_local(q, k, v, pad, n, do=do)
+            po, pgrads = ring_attention_local(q.float(), k.float(), v.float(), pad, n,
+                                              do=do.float(), attend=flash_attention_plain,
+                                              attend_bwd=flash_attention_bwd_plain)
+            errs = {}
+            for name, got, w, p in (("O", o, whole, po), *zip(("dQ", "dK", "dV"), grads,
+                                                              (qr.grad, kr.grad, vr.grad), pgrads)):
+                atol = TOL if name == "O" else TOL * max(1.0, float(p.abs().max()))
+                errs[name] = (check_close(f"{what} {name} vs the whole-sequence kernels", got, w,
+                                          atol)[0],
+                              check_close(f"{what} {name} vs the plain ring", got, p, atol)[0])
+            del po, pgrads
+            c = s // n
+            lo = (n - 1) * c  # the last rank's queries: L - lo of them valid
+            nq = L - lo
+            sl = (lambda t, j: t[:, j * c:(j + 1) * c].contiguous())
+            blocks = {}
+            for kind, src in (("diag", n - 1), ("off", 0)):
+                diagonal = kind == "diag"
+                args = (sl(q, n - 1), sl(k, src), sl(v, src))
+                segs = (sl(seg_q, n - 1), sl(seg_kv, src))
+                blse = lse[..., lo:].contiguous()
+                bdi = di[..., lo:].contiguous()
+                bdo = sl(do, n - 1)
+                nk = nq if diagonal else c
+                t = {"fwd": time_ms(flash_kernel_call(*args, *segs, diagonal, scale)),
+                     **{p: time_ms(flash_bwd_kernel_call(f"flash_bwd_{p}_bf16", *args, bdo, blse,
+                                                         bdi, *segs, diagonal, scale))
+                        for p in ("dkv", "dq")}}
+                bd = {p: bound(*_ring_block_work(nq, nk, c, h, hkv, d, diagonal, p))[0]
+                      for p in ("fwd", "dkv", "dq")}
+                blocks[kind] = (t, bd)
+            for p, name in (("fwd", "flash_fwd"), ("dkv", "flash_bwd_dkv"), ("dq", "flash_bwd_dq")):
+                td, bdd = blocks["diag"][0][p], blocks["diag"][1][p]
+                to, bdo_ = blocks["off"][0][p], blocks["off"][1][p]
+                crit, crit_bound = td + (n - 1) * to, bdd + (n - 1) * bdo_
+                out[name][f"{label}_n{n}"] = {
+                    "diag_ms": round(td, 4), "diag_bound_ms": round(bdd, 4),
+                    "off_ms": round(to, 4), "off_bound_ms": round(bdo_, 4),
+                    "last_rank_ms": round(crit, 4), "last_rank_bound_ms": round(crit_bound, 4),
+                    "whole_ms": round(t_whole[p], 4), "whole_bound_ms": round(b_whole[p], 4)}
+            print(f"{what} (B = 1, S = {s}, H = {h}, Hkv = {hkv}, D = {d}, one row of {L}): max abs "
+                  f"err (vs whole-sequence kernels, vs plain ring) "
+                  + json.dumps({k2: [float(f"{x:.3e}") for x in e] for k2, e in errs.items()})
+                  + f" (tol {TOL}, x max(1, max |ref|) for the gradients); the last rank's blocks "
+                  f"and critical path vs the whole sequence, ms (bound ms): "
+                  + json.dumps({nm: v[f"{label}_n{n}"] for nm, v in out.items()}), flush=True)
+        del q, k, v, do, qr, kr, vr, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5598,6 +5862,8 @@ def main() -> int:
         return mesh13c_worker(*sys.argv[2:5])
     if sys.argv[1:2] == ["--mesh13e-worker"]:  # a rank of phase 13e, started below
         return mesh13e_worker(*sys.argv[2:5])
+    if sys.argv[1:2] == ["--mesh14-worker"]:  # a rank of phase 14b, started below
+        return mesh14_worker(sys.argv[2])
     t_start = time.perf_counter()
 
     def mark(label: str) -> None:
@@ -5661,6 +5927,8 @@ def main() -> int:
     mark("13a")
     mesh_launches.update(phase_launchers())
     mark("13")
+    ring = phase_ring_kernels()
+    mark("14")
     runs = {"serve": serve_launches, "serve_int8_spec": spec_launches, "chat_int8": chat_launches,
             "serve_int4": int4_launches, "dpo": dpo_launches, "dpo_qlora4": qlora_launches,
             "dpo_trainer": trainer_launches, "eval": eval_launches,
@@ -5751,6 +6019,11 @@ def main() -> int:
             any(by_path[name].get("mesh_eval", 0) <= 0 for name in ("flash_fwd", "decode_attention")):
         raise AssertionError(f"phase 13c (mesh_eval) must launch kernels 1 and 4, 13d "
                              f"(mesh_dpo_tp) kernels 1-3: {by_path}")
+    if any(by_path[name].get("mesh_dpo_sp", 0) <= 0
+           for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")):
+        raise AssertionError(f"phase 14b (mesh_dpo_sp) must launch kernels 1-3: {by_path}")
+    for name, cases in ring.items():
+        kernels[name]["ring"] = cases
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],
@@ -5758,7 +6031,8 @@ def main() -> int:
          "max_abs_err": kernels[name]["max_abs_err"], "ms": kernels[name]["ms"],
          "plain_ms": kernels[name]["plain_ms"], "bound_ms": kernels[name]["bound_ms"],
          "bound_by": kernels[name]["bound_by"], "library_ms": kernels[name]["library_ms"],
-         **{k: kernels[name][k] for k in ("int8", "chat", "eval", "ppo", "families", "tp")
+         **{k: kernels[name][k] for k in ("int8", "chat", "eval", "ppo", "families", "tp",
+                                          "ring")
             if k in kernels[name]}}
         for name in names
     ]}

@@ -26,9 +26,12 @@ the same command in one plain process, f32:
     each rank's heads with its group's tokens broadcast, and the metrics
     equal the single-process run's;
   - the refusals, each naming its reason: --mesh_pipe 2,
-    --pipeline_microbatches, --sequence_parallel_axis fsdp, mesh flags on
-    eval, a mesh a plain run cannot make, heads or int4 row widths
-    --mesh_model does not divide."""
+    --pipeline_microbatches, --sequence_parallel_axis fsdp without torchrun,
+    over data, over model and over an unknown axis, on ppo and eval and with
+    --eval_samples, mesh flags on eval, a mesh a plain run cannot make,
+    heads or int4 row widths --mesh_model does not divide, and --report_to
+    wandb (recipes/dpo_qwenvl.sh's) or an unknown sink. The torchrun runs
+    under the ring: tests/test_torch_dist_sp.py."""
 
 import json
 import os
@@ -225,12 +228,32 @@ def test_refuses_kv_heads_that_mesh_model_does_not_divide(runs):
 @pytest.mark.parametrize("flags,match", [
     (["--mesh_pipe", "2"], "--mesh_pipe / --pipeline_microbatches: the GPipe pipeline"),
     (["--pipeline_microbatches", "4"], "--mesh_pipe / --pipeline_microbatches"),
-    (["--sequence_parallel_axis", "fsdp"], "--sequence_parallel_axis fsdp: ring attention"),
+    (["--sequence_parallel_axis", "fsdp"], "--sequence_parallel_axis fsdp: .*launched by torchrun"),
     (["--mesh_model", "2"], "--mesh_model 2: .*launched by torchrun"),
+    (["--sequence_parallel_axis", "data"],
+     "--sequence_parallel_axis data: the data axis shards the batch's rows"),
+    (["--sequence_parallel_axis", "model", "--mesh_model", "2"],
+     "--sequence_parallel_axis model: .*Megatron-style sequence gathers"),
+    (["--sequence_parallel_axis", "seq"], "--sequence_parallel_axis 'seq': not a mesh axis"),
+    (["--sequence_parallel_axis", "fsdp", "--eval_steps", "1", "--eval_samples", "2"],
+     "--eval_samples under --sequence_parallel_axis fsdp"),
+    # recipes/dpo_qwenvl.sh's sinks: the port writes jsonl and refuses wandb by name
+    (["--report_to", "jsonl,wandb", "--run_name", "dpo_qwenvl"], "--report_to wandb: "),
+    (["--report_to", "tensorboard"], "--report_to 'tensorboard': unknown sink"),
 ])
 def test_dpo_refusals(tmp_path, flags, match):
     with pytest.raises(SystemExit, match=match):
         main(["dpo", *CPU, "--synthetic", "4", "--output_dir", str(tmp_path), *flags])
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["ppo", *CPU, "--synthetic", "4"], "ppo refuses --sequence_parallel_axis fsdp"),
+    (["eval", *CPU, "--synthetic", "4", "--benchmark", "pope", "--data_file", "x"],
+     "eval refuses --sequence_parallel_axis fsdp"),
+])
+def test_ppo_and_eval_refuse_the_sequence_split(tmp_path, argv, match):
+    with pytest.raises(SystemExit, match=match):
+        main([*argv, "--output_dir", str(tmp_path), "--sequence_parallel_axis", "fsdp"])
 
 
 def test_ppo_eval_and_eval_samples_refusals(runs, tmp_path):

@@ -8,16 +8,18 @@ only.
                                                               with greedy_rollouts)
 
 JOB is a torch.save of {"cases": [...]}; each case (but "preempt", a
-SIGTERM on one rank during run_training, "ppo", "ppo_cli": see ppo_case
-and ppo_cli_case) names a mesh
+SIGTERM on one rank during run_training, "ppo", "ppo_cli", "sp_ring" and
+"sp_lm": see their functions) names a mesh
 (data, fsdp, model), a kind ("train" or "checkpoint"), a pickled port
 model holding its adapters, a global numpy batch and the step's configs.
 Every rank applies the plan (core.partitioning.shard_model_), reads its
 data-parallel slice of the batch and steps (with "resume_dir" from that
 checkpoint's latest step; with "save_dir" saving the state before step
-"save_at" as train_steps does); rank 0 writes OUT, a torch.save of
-{case name: {"metrics": [per step, means over the ranks], "trainable":
-{key: world-1 numpy}}}.
+"save_at" as train_steps does; with "sp" "fsdp" on a sequence-parallel
+mesh, whose fsdp ranks read the same rows); rank 0 writes OUT, a
+torch.save of {case name: {"metrics": [per step, means over the ranks],
+"trainable": {key: world-1 numpy}[, "grads": the first step's gradients,
+world-1 numpy]}}.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch
 from vlrlhf_torch.core import dist as vdist
 from vlrlhf_torch.core.mesh import MeshConfig, make_mesh, set_global_mesh
 from vlrlhf_torch.core.partitioning import (
-    attach_norm_groups_, full_state_tree, shard_full, shard_model_, tp_dim,
+    attach_norm_groups_, full_state_tree, full_tensor, shard_full, shard_model_, tp_dim,
 )
 from vlrlhf_torch.lora.lora import lora_keys
 from vlrlhf_torch.train.dpo import DPOConfig, adapter_params, batch_to_device, dpo_step
@@ -70,7 +72,7 @@ def _numpy_tree(tree: dict) -> dict:
 
 def run_case(case: dict) -> dict:
     torch.manual_seed(0)
-    mesh = make_mesh(MeshConfig(*case["mesh"]), "cpu")
+    mesh = make_mesh(MeshConfig(*case["mesh"]), "cpu", case.get("sp", ""))
     model = copy.deepcopy(case["model"])
     kind = case.get("step", "dpo")
     head = None
@@ -100,11 +102,59 @@ def run_case(case: dict) -> dict:
         else:
             m = rm_step(model, RMConfig(**case["cfg"]), ocfg, state, head, batch)
         metrics.append({k: float(v) for k, v in vdist.global_metrics(m).items()})
+        if i == 0 and case.get("grads"):
+            grads = _numpy_tree({k: full_tensor(p.grad, tp_dim(k), mesh)
+                                 for k, p in zip(keys, state.trainable)})
     if ckpt is not None:
         ckpt.close()
     tree = full_state_tree(state_tree(state, keys), mesh)
     set_global_mesh(None)
-    return {"metrics": metrics, "trainable": _numpy_tree(tree["trainable"])}
+    out = {"metrics": metrics, "trainable": _numpy_tree(tree["trainable"])}
+    if case.get("grads"):
+        out["grads"] = grads
+    return out
+
+
+def _sp_gather(t: torch.Tensor, mesh) -> np.ndarray:
+    """The ring's slices of `t` (dim 1) joined in ring order."""
+    parts = [torch.empty_like(t) for _ in range(mesh.sp_size)]
+    torch.distributed.all_gather(parts, t.detach().contiguous(), group=mesh.sp.group)
+    return torch.cat(parts, dim=1).numpy()
+
+
+def sp_ring_case(case: dict) -> dict:
+    """ops/ring_attention.py's op over the case's sequence-parallel mesh:
+    for each of "inputs" ({name: {"q", "k", "v", "pad", "do", "causal"}},
+    whole numpy arrays), every rank takes its slice, runs ring_attention
+    and the backward of sum(O * dO); rank 0 returns {name: (O, dQ, dK,
+    dV)} joined whole."""
+    from vlrlhf_torch.ops.ring_attention import ring_attention
+
+    mesh = make_mesh(MeshConfig(*case["mesh"]), "cpu", "fsdp")
+    out = {}
+    for name, c in case["inputs"].items():
+        lo, hi = mesh.sp.span(c["q"].shape[1])
+        q, k, v = (torch.from_numpy(c[n][:, lo:hi].copy()).requires_grad_()
+                   for n in ("q", "k", "v"))
+        o = ring_attention(q, k, v, torch.from_numpy(c["pad"][:, lo:hi].copy()), mesh.sp,
+                           causal=c["causal"])
+        (o * torch.from_numpy(c["do"][:, lo:hi].copy())).sum().backward()
+        out[name] = tuple(_sp_gather(t, mesh) for t in (o, q.grad, k.grad, v.grad))
+    set_global_mesh(None)
+    return out
+
+
+def sp_lm_case(case: dict) -> dict:
+    """The pickled port model's LM forward (models/lm/llama.py) on the
+    case's "ids" and "pad" under the sequence-parallel mesh: each rank's
+    slice of the logits, joined whole."""
+    mesh = make_mesh(MeshConfig(*case["mesh"]), "cpu", "fsdp")
+    lm = case["model"].lm
+    with torch.no_grad():
+        hidden, _ = lm(lm.embed(torch.from_numpy(case["ids"])), torch.from_numpy(case["pad"]))
+        logits = lm.head(hidden)
+    set_global_mesh(None)
+    return {"logits": _sp_gather(logits, mesh)}
 
 
 def preempt_case(case: dict) -> dict:
@@ -237,7 +287,8 @@ def ppo_cli_case(case: dict) -> dict:
     return {"lines": lines, "moments": seen}
 
 
-CASES = {"preempt": preempt_case, "ppo": ppo_case, "ppo_cli": ppo_cli_case}
+CASES = {"preempt": preempt_case, "ppo": ppo_case, "ppo_cli": ppo_cli_case,
+         "sp_ring": sp_ring_case, "sp_lm": sp_lm_case}
 
 
 @contextlib.contextmanager

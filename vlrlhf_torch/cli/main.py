@@ -76,10 +76,21 @@ whitening, mean KL, the update's permutation and masked means) are the
 global batch's (train/ppo.py), with one vote per outer step on a failed
 rollout or reward. eval under torchrun gives each rank a contiguous shard
 of the rows and its own whole model; rank 0 gathers, judges, scores and
-writes. Without torchrun nothing of this runs. Refused, as later parts of
-the multi-GPU work (ROADMAP.md): --mesh_pipe > 1,
---pipeline_microbatches, --sequence_parallel_axis, and eval with mesh
-flags (serve takes none).
+writes. Without torchrun nothing of this runs. `--sequence_parallel_axis
+fsdp` (dpo, sft, rm under torchrun) splits each sequence over the fsdp
+ranks, which then read the same rows: the global batch is
+--per_device_train_batch_size x data, every layer runs on a rank's
+contiguous slice and attention is a ring over the fsdp group
+(ops/ring_attention.py); the collator's bucket is rounded up to a
+multiple of the ring. Refused, as later parts of the multi-GPU work
+(ROADMAP.md): --mesh_pipe > 1, --pipeline_microbatches, the sequence
+split over `model` (and `data`, which holds the rows), ppo and
+--eval_samples under the sequence split, and eval with mesh flags (serve
+takes none).
+
+--report_to takes jsonl (the metrics file, as always); wandb and any other
+name are refused by name (vlrlhf_tpu drops wandb silently when it cannot
+start a run).
 
 Flag names follow vlrlhf_tpu's. Differences: `--device` names the device
 explicitly (default cuda; an absent device is an error, never a silent CPU
@@ -111,6 +122,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 from typing import TYPE_CHECKING, Callable, Optional
 
 import numpy as np
@@ -146,19 +158,29 @@ PART2 = "multi-GPU part 2 (ROADMAP.md)"
 
 def setup_mesh(args, device: torch.device):
     """The process group and the (data, fsdp, model) mesh of a torchrun
-    launch (core/dist.py, core/mesh.py), or None for a plain run, which
-    must then ask for one device. The part-2 flags are refused here."""
+    launch (core/dist.py, core/mesh.py), with --sequence_parallel_axis
+    fsdp a sequence-parallel one, or None for a plain run, which must then
+    ask for one device. The flags of later parts are refused here."""
     from vlrlhf_torch.core import dist
-    from vlrlhf_torch.core.mesh import MeshConfig, make_mesh
+    from vlrlhf_torch.core.mesh import MeshConfig, check_sp_axis, make_mesh
 
     if args.mesh_pipe > 1 or args.pipeline_microbatches:
         raise SystemExit(f"--mesh_pipe / --pipeline_microbatches: the GPipe pipeline is "
                          f"{PART2}")
-    if args.sequence_parallel_axis:
-        raise SystemExit(f"--sequence_parallel_axis {args.sequence_parallel_axis}: ring "
-                         f"attention is {PART2}")
+    axis = args.sequence_parallel_axis
+    try:
+        check_sp_axis(axis)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    if axis and getattr(args, "eval_samples", 0):
+        raise SystemExit(f"--eval_samples under --sequence_parallel_axis {axis}: the samples' "
+                         f"generation is not sequence-parallel ({PART2})")
     mcfg = MeshConfig(args.mesh_data, args.mesh_fsdp, args.mesh_model, args.mesh_pipe)
     if not dist.launched_by_torchrun():
+        if axis:
+            raise SystemExit(f"--sequence_parallel_axis {axis}: the sequence is split over the "
+                             "ranks of a mesh launched by torchrun (torchrun --nproc_per_node "
+                             "N ... --mesh_fsdp N)")
         try:
             mcfg.resolve(1)
         except ValueError as e:
@@ -168,16 +190,20 @@ def setup_mesh(args, device: torch.device):
         return None
     dist.initialize(device.type)
     try:
-        return make_mesh(mcfg, device.type)
+        return make_mesh(mcfg, device.type, axis)
     except ValueError as e:
         raise SystemExit(str(e)) from None
 
 
 def refuse_mesh_flags(args, command: str, reason: str) -> None:
     """A command that runs no mesh refuses every mesh flag but the defaults."""
+    if args.sequence_parallel_axis:
+        raise SystemExit(f"{command} refuses --sequence_parallel_axis "
+                         f"{args.sequence_parallel_axis}: it runs no sequence-parallel "
+                         f"forward ({PART2})")
     flags = (args.mesh_data, args.mesh_fsdp, args.mesh_model, args.mesh_pipe,
-             args.pipeline_microbatches, args.sequence_parallel_axis)
-    if flags != (1, -1, 1, 1, 0, ""):
+             args.pipeline_microbatches)
+    if flags != (1, -1, 1, 1, 0):
         raise SystemExit(f"{command} takes no mesh flags ({reason} {PART2})")
 
 
@@ -187,6 +213,7 @@ def make_logger(args, name: str, run):
     from vlrlhf_torch.train.metrics import MetricsLogger
 
     return MetricsLogger(args.output_dir, args.run_name or name,
+                         report_to=getattr(args, "report_to", "jsonl"),
                          flops_per_token=run.flops_per_token,
                          flops_per_image=run.flops_per_image,
                          n_devices=dist.process_count(), write=dist.is_main_process())
@@ -319,12 +346,16 @@ def generate_config(processor, family, args):
 
 def collator_config(cfg, family, processor, args, **overrides):
     """The run's CollatorConfig: anyres tiling for a LLaVA-Next checkpoint
-    (--synthetic runs keep one image slot, as vlrlhf_tpu's do)."""
+    (--synthetic runs keep one image slot, as vlrlhf_tpu's do); under
+    sequence parallelism every bucket a multiple of the ring's ranks (the
+    padding is masked: the results do not change)."""
+    from vlrlhf_torch.core.dist import sp_size
     from vlrlhf_torch.data.collators import CollatorConfig
 
     return CollatorConfig(
         pad_token_id=processor.tokenizer.pad_token_id or 0,
-        bucket_multiple=32 if args.synthetic else 128,
+        # a multiple of the sequence-parallel ring, which splits the bucket
+        bucket_multiple=math.lcm(32 if args.synthetic else 128, sp_size()),
         image_size=cfg.vision.image_size,
         resize_mode=family.resize_mode,
         anyres=bool(cfg.grid_pinpoints) and not args.synthetic,
@@ -1356,6 +1387,9 @@ def cmd_ppo(args):
     device = resolve_device(args.device)
     if args.synthetic and args.data_path:
         raise SystemExit("--synthetic N makes its own prompts: drop --data_path")
+    if args.sequence_parallel_axis:
+        raise SystemExit(f"ppo refuses --sequence_parallel_axis {args.sequence_parallel_axis}: "
+                         f"its rollouts and value forwards are not sequence-parallel ({PART2})")
     setup_mesh(args, device)
     rows = synthetic_rows(args.synthetic, with_pairs=False) if args.synthetic else load_rows(args)
     _, cfg, model, processor = load_bundle(args, device)
@@ -1518,7 +1552,8 @@ def _add_eval_parser(sub) -> None:
 
 def _add_mesh_args(p) -> None:
     """vlrlhf_tpu's mesh flags. They take effect under torchrun (dpo, sft,
-    rm); the pipeline and sequence-parallel ones are refused (part 2)."""
+    rm, ppo); the pipeline ones are refused (part 2), and the sequence
+    split where it is not ported (setup_mesh, ppo, eval)."""
     p.add_argument("--mesh_data", type=int, default=1,
                    help="data-parallel replicas of the sharded model (HSDP)")
     p.add_argument("--mesh_fsdp", type=int, default=-1,
@@ -1527,15 +1562,18 @@ def _add_mesh_args(p) -> None:
                    help="tensor-parallel ranks (heads and the MLP width split)")
     p.add_argument("--mesh_pipe", type=int, default=1, help="refused above 1 (part 2)")
     p.add_argument("--pipeline_microbatches", type=int, default=0, help="refused (part 2)")
-    p.add_argument("--sequence_parallel_axis", type=str, default="", help="refused (part 2)")
+    p.add_argument("--sequence_parallel_axis", type=str, default="",
+                   help="fsdp: each sequence split over the fsdp ranks, attention as a ring "
+                        "(dpo, sft, rm under torchrun)")
 
 
 def _add_train_args(p, synthetic_help: str, epochs: bool = True) -> None:
-    """The flags dpo, sft, rm and ppo share (vlrlhf_tpu `_common_args`, less
-    the wandb flag, which the port refuses)."""
+    """The flags dpo, sft, rm and ppo share (vlrlhf_tpu `_common_args`)."""
     _add_model_args(p, synthetic_help)
     _add_mesh_args(p)
     p.add_argument("--output_dir", type=str, required=True)
+    p.add_argument("--report_to", type=str, default="jsonl",
+                   help="comma-separated metric sinks: jsonl (wandb and others are refused)")
     p.add_argument("--max_prompt_length", type=int, default=512)
     p.add_argument("--dataset_name", type=str, default="plain_dpo",
                    help="plain_dpo, vlfeedback_paired, vlquery_json or rlhfv (data/datasets.py)")
@@ -1757,7 +1795,13 @@ def main(argv: Optional[list] = None):
             "(vlrlhf_tpu's option; ROADMAP.md lists when it comes)"
         )
     from vlrlhf_torch.core.dist import shutdown
+    from vlrlhf_torch.train.metrics import check_report_to
 
+    if hasattr(args, "report_to"):
+        try:  # before anything loads
+            check_report_to(args.report_to)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     try:
         args.fn(args)
     finally:

@@ -14,7 +14,13 @@ array from per-process rows; here each rank keeps its local
 FSDP2's reduce-scatter, so they have no counterpart. `batch_process_span`
 becomes `data_parallel_slice`: a rank's data-parallel coordinate gives its
 slice of every global batch, and the ranks of one tensor-parallel group
-read the same rows.
+read the same rows (and under sequence parallelism, those of one fsdp
+group too: core/mesh.py).
+
+Sequence parallelism's collectives live here too: `SPShard` (a rank's
+place in the ring), `ring_exchange` (each tensor to the ring's next rank,
+the previous rank's back) and `sum_over_sp` (a loss term's sum over the
+ring whose backward is the identity).
 """
 
 from __future__ import annotations
@@ -176,11 +182,22 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def dp_group():
-    """The data-parallel group of the registered mesh (None: no mesh)."""
+    """The data-parallel group of the registered mesh, the ranks that read
+    different rows (None: no mesh)."""
     from vlrlhf_torch.core.mesh import current_mesh
 
     mesh = current_mesh()
     return None if mesh is None else mesh.dp_group
+
+
+def grad_group():
+    """The ranks whose gradients FSDP2 reduces together, data x fsdp at
+    this rank's model coordinate (None: no mesh): a trainable leaf outside
+    the FSDP2 units (rm's head) reduces over the same ranks."""
+    from vlrlhf_torch.core.mesh import current_mesh
+
+    mesh = current_mesh()
+    return None if mesh is None else mesh.grad_group
 
 
 def dp_size() -> int:
@@ -193,7 +210,11 @@ def dp_size() -> int:
 def global_metrics(metrics: dict) -> dict:
     """A step's 0-dim metrics as means over the ranks, in one collective
     (a rank's metric is the mean over its rows; the rows are equal in
-    number on every rank, so this is the mean over the global batch)."""
+    number on every rank, so this is the mean over the global batch).
+    Under sequence parallelism the ranks of one ring hold equal metrics
+    (their loss terms are summed over the ring first), so each data
+    replica counts as often as every other and the mean over all ranks is
+    still the mean over the replicas: nothing is counted twice."""
     if not is_initialized() or not metrics:
         return metrics
     keys = list(metrics)
@@ -273,6 +294,104 @@ def local_tensor(t: torch.Tensor) -> torch.Tensor:
         if isinstance(t, DTensor):
             return t.to_local()
     return t
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism's collectives
+
+
+@dataclasses.dataclass(frozen=True)
+class SPShard:
+    """A rank's place in the sequence-parallel ring: the ring's process
+    group, this rank's index in it, the ring's size and the group's backend
+    (which picks the exchange's transport)."""
+
+    group: Any
+    rank: int
+    size: int
+    backend: str
+
+    def span(self, s: int) -> tuple[int, int]:
+        """[lo, hi): this rank's contiguous slice of a length-s sequence."""
+        if s % self.size:
+            raise ValueError(f"a sequence of {s} positions does not split over the "
+                             f"{self.size} sequence-parallel ranks (the collator rounds its "
+                             "bucket up to a multiple of them)")
+        n = s // self.size
+        return self.rank * n, (self.rank + 1) * n
+
+
+def sp_shard() -> "SPShard | None":
+    """The registered mesh's ring (None: no mesh, or no sequence parallelism)."""
+    from vlrlhf_torch.core.mesh import current_mesh
+
+    mesh = current_mesh()
+    return None if mesh is None else mesh.sp
+
+
+def sp_size() -> int:
+    sp = sp_shard()
+    return 1 if sp is None else sp.size
+
+
+class RingExchange:
+    """An exchange in flight (`ring_exchange`): `wait()` returns the
+    received tensors, on the senders' device."""
+
+    def __init__(self, works: list, sent: list, received: list, device):
+        self._works, self._sent, self._received, self._device = works, sent, received, device
+
+    def wait(self) -> list:
+        for w in self._works:
+            w.wait()
+        self._sent = None
+        return [r.to(self._device) for r in self._received]
+
+
+def ring_exchange(tensors, sp: SPShard) -> RingExchange:
+    """Start sending each tensor to the ring's next rank and receiving the
+    previous rank's tensor of the same shape and dtype. Under NCCL the
+    pairs go as one `batch_isend_irecv`, device to device; gloo's
+    point-to-point ops read and write host memory only (two gloo ranks on
+    an H100, torch 2.11: isend of a CUDA tensor aborted the sending rank,
+    "writev: Bad address"), so under gloo a device tensor is staged
+    through a host copy (chosen by the group's backend, never by catching
+    an error)."""
+    dist = _dist()
+    device = tensors[0].device
+    host = sp.backend == "gloo" and device.type != "cpu"
+    sent = [t.detach().to("cpu") if host else t.detach().contiguous() for t in tensors]
+    received = [torch.empty_like(t) for t in sent]
+    nxt = dist.get_global_rank(sp.group, (sp.rank + 1) % sp.size)
+    prv = dist.get_global_rank(sp.group, (sp.rank - 1) % sp.size)
+    ops = []
+    for s, r in zip(sent, received):
+        ops += [dist.P2POp(dist.isend, s, nxt, sp.group), dist.P2POp(dist.irecv, r, prv, sp.group)]
+    return RingExchange(dist.batch_isend_irecv(ops), sent, received, device)
+
+
+class _SumOverSP(torch.autograd.Function):
+    """The ring's sum of a loss term, added in f32. Backward, the gradient
+    as it is: the summed term is replicated on every rank of the ring,
+    each rank backpropagates it into its own slice of the sequence, and
+    the ranks' parameter partials are added up by the gradient reduction
+    (torch.distributed.nn's all_reduce would sum the gradients here too,
+    scaling every one by the ring's size)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        acc = t.detach().to(torch.float32, copy=True).contiguous()
+        _dist().all_reduce(acc, group=group)
+        return acc.to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_over_sp(t: torch.Tensor, sp: "SPShard | None") -> torch.Tensor:
+    """`t` summed over the ring (`_SumOverSP`); `t` itself without one."""
+    return t if sp is None else _SumOverSP.apply(t, sp.group)
 
 
 # ---------------------------------------------------------------------------

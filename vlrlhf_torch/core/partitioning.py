@@ -32,6 +32,17 @@ linears on `model`, replicate the LoRA adapters and the qkv bias, and put
 fsdp on a kernel's `in` dim; the results are the same, and
 tests/test_torch_mesh.py pins each deviation in an explicit table.
 
+The gradient rule: a trainable leaf's gradient is the mean over the
+ranks that read different rows of their gradients. FSDP2's reduction
+(and a leaf outside its units, rm's head, reduced over core.dist
+`grad_group` as it is) averages over data x fsdp. Under sequence
+parallelism (core/mesh.py) the fsdp ranks of a ring hold one row set
+between them, each rank's gradient the partial of its slice of the
+sequence, so the rule becomes the sum over the ring, then the mean over
+data: the steps scale their loss by the ring's size before the backward
+(train/dpo.py, sft.py, rm.py), and the reduction's mean over data x fsdp
+gives it. The gradient norm and the clip then see the summed gradients.
+
 Checkpoints and final saves gather every tensor to its world-1 layout
 (`full_tensor`) and restores split it again for the mesh at hand
 (`shard_full`), so a checkpoint resumes under any layout.

@@ -221,6 +221,7 @@ def lora_delta(
     seed: Optional[int] = None,
     mix: Optional[torch.Tensor] = None,  # (B, N) per-row set weights, stacked sets only
     tp=None,  # core.dist.TPShard of a tensor-parallel Linear
+    seq_span: Optional[tuple[int, int]] = None,  # (offset, whole length): x is a sequence slice
 ) -> torch.Tensor:
     """delta = dropout(x) @ a @ b * scale, a and b cast to x's dtype.
 
@@ -237,17 +238,25 @@ def lora_delta(
     Tensor-parallel (`tp`), x @ a is core.dist.tp_factor's, made whole
     before b; a row part's x holds the columns of its rank, and its mask is
     those columns of the mask the whole x would draw, so a sharded run
-    draws the single-process masks."""
+    draws the single-process masks. Likewise a sequence slice (`seq_span`,
+    x (B, S/n, in)) keeps its rows of the whole sequence's mask."""
     h = x
     if seed is not None and dropout > 0.0:
         gen = torch.Generator(device=x.device)
         gen.manual_seed(seed)
-        if tp is not None and tp.mode == "row":
+        shape = list(x.shape)
+        row = tp is not None and tp.mode == "row"
+        if row:
+            shape[-1] *= tp.size
+        if seq_span is not None:
+            shape[1] = seq_span[1]
+        keep = torch.rand(shape, generator=gen, device=x.device)
+        if seq_span is not None:
+            keep = keep[:, seq_span[0]:seq_span[0] + x.shape[1]]
+        if row:
             n = x.shape[-1]
-            keep = torch.rand((*x.shape[:-1], n * tp.size), generator=gen, device=x.device)
-            keep = keep[..., tp.rank * n:(tp.rank + 1) * n] < 1.0 - dropout
-        else:
-            keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - dropout
+            keep = keep[..., tp.rank * n:(tp.rank + 1) * n]
+        keep = keep < 1.0 - dropout
         h = torch.where(keep, x / (1.0 - dropout), torch.zeros((), dtype=x.dtype, device=x.device))
     if a.dim() == 3:
         if tp is not None:

@@ -64,7 +64,12 @@ class Ctx:
     sets it from the image positions for a PLoRA family, with adapters on
     or off alike; the decode step and the chunk prefill drop it (their
     tokens are text). Being part of the call's Ctx, a remat region's
-    recompute reads the mask its forward read."""
+    recompute reads the mask its forward read.
+
+    `seq_span` (offset, whole length) marks a call on a slice of the
+    sequence (sequence parallelism, models/lm/llama.py): LoRA dropout then
+    draws the whole sequence's mask and keeps the slice's rows, so a
+    sequence-parallel run draws the single-process masks."""
 
     adapters: bool = False
     lora_scale: float = 1.0
@@ -73,6 +78,13 @@ class Ctx:
     adapter_mix: Optional[torch.Tensor] = None
     adapter_set: str = ""
     lora_mask: Optional[torch.Tensor] = None
+    seq_span: Optional[tuple[int, int]] = None
+
+    def seq_shard(self, lo: int, hi: int, s: int) -> "Ctx":
+        """The context of a call on positions [lo, hi) of a length-s
+        sequence: the PLoRA mask sliced, the dropout span set."""
+        mask = None if self.lora_mask is None else self.lora_mask[:, lo:hi]
+        return dataclasses.replace(self, lora_mask=mask, seq_span=(lo, s))
 
     def sub(self, key: str) -> "Ctx":
         return self.fold(zlib.crc32(key.encode()) & 0x7FFFFFFF)
@@ -280,7 +292,7 @@ class Linear(nn.Module):
         if self._lora_on(ctx):
             a, b = self.adapter_pair(ctx.adapter_set)
             d = lora_delta(x, a, b, ctx.lora_scale, ctx.lora_dropout, ctx.dropout_seed,
-                           ctx.adapter_mix, tp=self.tp)
+                           ctx.adapter_mix, tp=self.tp, seq_span=ctx.seq_span)
             out = d if out is None else out + d.to(out.dtype)
         return out
 

@@ -28,6 +28,17 @@ each policy keeping the per-layer tensors its JAX counterpart keeps:
     Pallas calls.
 `LMConfig.remat=False` keeps everything.
 
+Under a sequence-parallel mesh (core/mesh.py) the training forward takes
+the whole sequence's embeddings and pad mask, keeps this rank's contiguous
+slice of them, and runs every layer on it: global positions (the rank's
+offset), cos / sin at the global length, QWen's dynamic-NTK alpha from
+each row's global real length and its logn at the global positions,
+attention as the ring over the fsdp group (ops/ring_attention.py), under
+every remat policy (torch.utils.checkpoint reruns the ring's forward in
+the backward, every rank in the same order). It returns the slice's
+hidden states. The prefill, decode and chunk paths refuse such a mesh by
+name.
+
 KV cache layout is vlrlhf_tpu's head-major decode layout: {"k", "v"} each
 (L, B, nkv, Sc, hd), slot == absolute position (right-padded prompts); an
 int8 cache adds {"k_scale", "v_scale"} (L, B, nkv, Sc) bf16 and every write
@@ -47,6 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+from vlrlhf_torch.core.dist import sp_shard
 from vlrlhf_torch.models.common import Ctx, Linear, Norm, empty_param, embed
 from vlrlhf_torch.models.config import LMConfig
 from vlrlhf_torch.ops.attention import multi_head_attention
@@ -54,7 +66,24 @@ from vlrlhf_torch.ops.chunk_attention import chunk_attention
 from vlrlhf_torch.ops.decode_attention import decode_attention
 from vlrlhf_torch.ops.norms import rms_norm
 from vlrlhf_torch.ops.quant import quantize_kv
+from vlrlhf_torch.ops.ring_attention import ring_attention
 from vlrlhf_torch.ops.rope import apply_rope, ntk_alpha, rope_frequencies
+
+
+def train_attention(q, k, v, pad_mask) -> torch.Tensor:
+    """A training layer's causal attention: the ring over the mesh's
+    sequence-parallel ranks when it has them, else `multi_head_attention`."""
+    sp = sp_shard()
+    if sp is not None:
+        return ring_attention(q, k, v, pad_mask, sp, causal=True)
+    return multi_head_attention(q, k, v, causal=True, pad_mask_q=pad_mask, pad_mask_kv=pad_mask)
+
+
+def refuse_sp(path: str) -> None:
+    if sp_shard() is not None:
+        raise ValueError(f"the {path} path refuses sequence parallelism "
+                         "(--sequence_parallel_axis): only the training forward is "
+                         "sequence-parallel")
 
 
 class LlamaLayer(nn.Module):
@@ -124,7 +153,7 @@ class LlamaLayer(nn.Module):
         h = rms_norm(x, self.input_layernorm.weight, cfg.rms_eps)
         q, k, v = self.qkv(h, actx)
         q, k = apply_rope(q, k, cos, sin)
-        out = multi_head_attention(q, k, v, causal=True, pad_mask_q=pad_mask, pad_mask_kv=pad_mask)
+        out = train_attention(q, k, v, pad_mask)
         return self.wo(out.reshape(b, s, -1), actx.sub("wo"))
 
     def _mlp_half(self, x: torch.Tensor, lctx: Ctx) -> torch.Tensor:
@@ -141,8 +170,7 @@ class LlamaLayer(nn.Module):
         b, s, _ = q.shape
         nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
         q, k = apply_rope(q.reshape(b, s, nh, hd), k.reshape(b, s, nkv, hd), cos, sin)
-        out = multi_head_attention(q, k, v.reshape(b, s, nkv, hd), causal=True,
-                                   pad_mask_q=pad_mask, pad_mask_kv=pad_mask)
+        out = train_attention(q, k, v.reshape(b, s, nkv, hd), pad_mask)
         return out.reshape(b, s, nh * hd)
 
     def _named_forward(self, x, cos, sin, pad_mask, lctx: Ctx, policy: str) -> torch.Tensor:
@@ -277,17 +305,27 @@ class LlamaDecoder(nn.Module):
         "k_scale" / "v_scale" (L, B, nkv, cache_len). Without `cache_len`
         this is the training forward: `ctx` switches adapters on or off,
         and under autograd the layers are rematerialized per
-        `cfg.remat_policy`."""
+        `cfg.remat_policy`; under a sequence-parallel mesh it returns this
+        rank's slice of the hidden states (the module note)."""
         cfg = self.cfg
         b, s, _ = inputs_embeds.shape
-        positions = torch.arange(s, device=inputs_embeds.device)[None].expand(b, s)
+        sp = sp_shard()
+        lo, hi = (0, s) if sp is None else sp.span(s)
+        if sp is not None and cache_len is not None:
+            refuse_sp("prefill")
+        positions = torch.arange(lo, hi, device=inputs_embeds.device)[None].expand(b, hi - lo)
         alpha = None
-        if cfg.rope_scaling_type == "qwen_dynamic":  # from each row's real length
+        if cfg.rope_scaling_type == "qwen_dynamic":  # from each row's (whole) real length
             alpha = ntk_alpha(cfg.rope, torch.full((b,), s, device=positions.device)
                               if pad_mask is None else pad_mask.sum(dim=1))
         cos, sin = rope_frequencies(cfg.rope, positions, seq_len=cache_len or s, alpha=alpha)
         if cache_len is None:
-            return self._train_forward(inputs_embeds, pad_mask, cos, sin, ctx or Ctx()), None
+            ctx = ctx or Ctx()
+            if sp is not None:
+                inputs_embeds = inputs_embeds[:, lo:hi]
+                pad_mask = None if pad_mask is None else pad_mask[:, lo:hi]
+                ctx = ctx.seq_shard(lo, hi, s)
+            return self._train_forward(inputs_embeds, pad_mask, cos, sin, ctx), None
         if cache_len < s:
             raise ValueError(f"cache_len {cache_len} < prompt bucket {s}")
         # allocated once and filled layer by layer in place: only the
@@ -355,6 +393,7 @@ class LlamaDecoder(nn.Module):
         this step's k/v ride through the decode kernel as its bf16 self term
         and come back as the next pending. The cache is written in place —
         it is the largest buffer on the card."""
+        refuse_sp("decode")
         cfg = self.cfg
         b = last_token.shape[0]
         nkv, hd = self.cache_cfg.num_kv_heads, cfg.head_dim_
@@ -407,6 +446,7 @@ class LlamaDecoder(nn.Module):
 
         Returns (logits, new_lengths): logits are the last real position's
         (B, V), or with return_all_logits every position's (B, C, V)."""
+        refuse_sp("chunk prefill")
         cfg = self.cfg
         b, c = input_ids.shape
         sc = cache["k"].shape[3]

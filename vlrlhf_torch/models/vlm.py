@@ -19,7 +19,12 @@ tiled to every row, and a `Ctx` that switches the LoRA adapters on or off
 
 The processor emits exactly `num_image_tokens` placeholder tokens per image
 plus an `image_positions` map; projected features land at those positions
-(models/common.py merge_multimodal_embeddings). For a PLoRA family
+(models/common.py merge_multimodal_embeddings). Under sequence parallelism
+(core/mesh.py) every rank of a ring builds the whole sequence's
+embeddings, the tower, projector, Q-Former or resampler, anyres gather and
+image merge replicated on each, and the LM keeps the rank's slice of them
+(and of the PLoRA mask); `forward` then returns that slice's hidden
+states. For a PLoRA family
 (InternLM-XC2) the same map gives the (B, S) mask that gates the
 checkpoint's PLoRA to those positions (`Ctx.lora_mask`), in every forward
 that takes image positions, adapters on or off (vlrlhf_tpu `vlm_forward`,
@@ -39,6 +44,7 @@ from torch import nn
 
 import dataclasses
 
+from vlrlhf_torch.core.dist import sp_shard, sum_over_sp
 from vlrlhf_torch.models.anyres import gather_anyres_features
 from vlrlhf_torch.models.common import (
     Ctx, Linear, Norm, activation, empty_param, image_position_mask,
@@ -226,10 +232,19 @@ def init_rm_head(hidden_size: int, device="cpu") -> dict[str, torch.Tensor]:
 def last_token_scores(hidden: torch.Tensor, kernel: torch.Tensor, pad_mask: torch.Tensor,
                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(B,) head scores at each row's last real token, sum(pad_mask) - 1
-    (rows right-padded), the product taken in `dtype`."""
-    scores = (hidden.to(dtype) @ kernel.to(dtype))[..., 0]  # (B, S)
+    (rows right-padded), the product taken in `dtype`. Under sequence
+    parallelism `hidden` is this rank's slice of the (whole) `pad_mask`'s
+    sequence: the rank holding a row's last token gives its score, the
+    others 0, summed over the ring (core/dist.py sum_over_sp)."""
+    scores = (hidden.to(dtype) @ kernel.to(dtype))[..., 0]  # (B, S) or (B, S/n)
     last = pad_mask.long().sum(dim=1) - 1
-    return scores.gather(1, last[:, None])[:, 0]
+    sp = sp_shard()
+    if sp is None:
+        return scores.gather(1, last[:, None])[:, 0]
+    lo, hi = sp.span(pad_mask.shape[1])
+    here = (last >= lo) & (last < hi)
+    got = scores.gather(1, (last - lo).clamp(0, hi - lo - 1)[:, None])[:, 0]
+    return sum_over_sp(torch.where(here, got, torch.zeros_like(got)), sp)
 
 
 def reward_forward(model: VLM, rm_head: dict, pad_mask: torch.Tensor,

@@ -15,7 +15,15 @@ One step, as in the JAX package:
   - the policy forward with adapters on, the loss, the backward into the
     LoRA adapters, the gradients' global norm and the optimizer update.
 The metrics come back as 0-dim tensors on the device; the caller reads them
-once per logging step. `make_dpo_eval_fn` is the holdout pass: the same
+once per logging step.
+
+Under sequence parallelism (core/mesh.py) each rank's forward holds a
+slice of every row: its logps and logits sums are summed over the ring
+(train/losses.py), so the loss is whole and equal on every rank of it,
+and each rank's backward gives the partials of its slice. The gradient
+rule is then a sum over the ring and a mean over `data`, where FSDP2's
+reduction takes the mean over data x fsdp: the loss is scaled by the
+ring's size before the backward (core/partitioning.py). `make_dpo_eval_fn` is the holdout pass: the same
 loss with no update, the tower run as the step runs it.
 """
 
@@ -27,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vlrlhf_torch.core.dist import sp_shard, sp_size, sum_over_sp
 from vlrlhf_torch.lora.lora import lora_parameters
 from vlrlhf_torch.models.common import Ctx, fold_seed
 from vlrlhf_torch.models.vlm import VLM, image_inputs
@@ -105,17 +114,20 @@ def forward_logps(model: VLM, dcfg: DPOConfig, batch: dict, ctx: Ctx,
         pixel_values=None if image_features is not None else batch.get("pixel_values"),
         **({} if image_features is not None else image_inputs(batch)),
     )
-    s, v = batch["input_ids"].shape[1], model.cfg.lm.vocab_size
+    s, v = batch["input_ids"].shape[1], model.cfg.lm.vocab_size  # the whole sequence's S
+    sp = sp_shard()
     if dcfg.logits_chunk:
         logps, logits_sum = chunked_logps(
             hidden, batch["labels"], model.head_fn(ctx),
             average_log_prob=dcfg.average_log_prob, loss_mask=loss_mask,
-            chunk=dcfg.logits_chunk,
+            chunk=dcfg.logits_chunk, sp=sp,
         )
         return logps, logits_sum / (s * v)
     logits = model.head(hidden, ctx)
     logps = batch_logps(logits, batch["labels"], average_log_prob=dcfg.average_log_prob,
-                        loss_mask=loss_mask)
+                        loss_mask=loss_mask, sp=sp)
+    if sp is not None:
+        return logps, sum_over_sp(logits.float().sum(dim=(1, 2)), sp) / (s * v)
     return logps, logits.float().mean(dim=(1, 2))
 
 
@@ -154,7 +166,8 @@ def dpo_step(model: VLM, dcfg: DPOConfig, ocfg: OptimizerConfig, state: TrainSta
     out = dpo_loss(pc, pr, ref_chosen, ref_rejected, beta=dcfg.beta,
                    label_smoothing=dcfg.label_smoothing, loss_type=dcfg.loss_type,
                    reference_free=dcfg.reference_free)
-    out.loss.backward()
+    n_sp = sp_size()
+    (out.loss * n_sp if n_sp > 1 else out.loss).backward()  # the ring's partials summed
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in state.trainable]
     metrics = {
         "loss": out.loss.detach(),

@@ -4,6 +4,14 @@ family (sigmoid with label smoothing, ddpo, hinge, ipo, kto_pair,
 reference_free), `sft_loss` and `rm_loss`. Same numerics: logps in f32
 from the logits' dtype, gather minus logsumexp, out-of-vocab labels
 clamped like take(mode="clip").
+
+Under sequence parallelism (`sp`, a core.dist.SPShard) the hidden states
+or logits are this rank's slice of the sequence while the labels and
+masks are whole: the shifted labels and masks are taken on the whole
+sequence, then sliced (a slice's last position is labelled by the next
+slice's first token), the per-row sums are summed over the ring
+(core/dist.py sum_over_sp, whose backward is the identity) and the
+counts come from the whole masks.
 """
 
 from __future__ import annotations
@@ -14,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from vlrlhf_torch.core.dist import sum_over_sp
+
 LABEL_PAD = -100
 
 
@@ -22,13 +32,40 @@ def _gather_clipped(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.gather(logits, -1, idx[..., None])[..., 0]
 
 
+def next_token_targets(labels: torch.Tensor, loss_mask: Optional[torch.Tensor] = None):
+    """(targets, mask), each (B, S): at position t the label of t + 1
+    (0 where it does not count) and whether it counts; the last position
+    counts never."""
+    pad_col = torch.full((labels.shape[0], 1), LABEL_PAD, dtype=labels.dtype,
+                         device=labels.device)
+    labels_next = torch.cat([labels[:, 1:], pad_col], dim=1)
+    mask = labels_next != LABEL_PAD
+    if loss_mask is not None:
+        lm = torch.cat([loss_mask[:, 1:].bool(), torch.zeros_like(mask[:, :1])], dim=1)
+        mask = mask & lm
+    return torch.where(mask, labels_next, torch.zeros_like(labels_next)), mask
+
+
+def _sp_slices(sp, s: int, *ts):
+    lo, hi = sp.span(s)
+    return [t[:, lo:hi] for t in ts]
+
+
 def batch_logps(
-    logits: torch.Tensor,  # (B, S, V)
+    logits: torch.Tensor,  # (B, S, V); under sp this rank's (B, S/n, V)
     labels: torch.Tensor,  # (B, S), LABEL_PAD on non-completion tokens
     average_log_prob: bool = False,
     loss_mask: Optional[torch.Tensor] = None,  # extra mask (DDPO diff mask)
+    sp=None,  # core.dist.SPShard: logits are a slice of the sequence
 ) -> torch.Tensor:
     """Sum (or mean) log p(label) over labeled positions, (B,) f32."""
+    if sp is not None:
+        safe, mask = next_token_targets(labels, loss_mask)
+        local_safe, local_mask = _sp_slices(sp, labels.shape[1], safe, mask)
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        per_token = (_gather_clipped(logits, local_safe).float() - lse) * local_mask
+        total = sum_over_sp(per_token.sum(-1), sp)
+        return total / mask.sum(-1).clamp(min=1) if average_log_prob else total
     logits = logits[:, :-1]
     labels = labels[:, 1:]
     mask = labels != LABEL_PAD
@@ -57,6 +94,7 @@ def chunked_logps(
     average_log_prob: bool = False,
     loss_mask: Optional[torch.Tensor] = None,
     chunk: int = 512,
+    sp=None,  # core.dist.SPShard: hidden is this rank's (B, S/n, H) slice
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """batch_logps without materializing (B, S, V) logits: a loop over
     S-chunks, each under torch.utils.checkpoint, so the backward rebuilds one
@@ -64,26 +102,24 @@ def chunked_logps(
     logits_sum is the f32 sum of the logits over all S positions (the dense
     path's logits mean times S*V)."""
     b, s, _ = hidden.shape
-    pad_col = torch.full((b, 1), LABEL_PAD, dtype=labels.dtype, device=labels.device)
-    labels_next = torch.cat([labels[:, 1:], pad_col], dim=1)
-    mask = labels_next != LABEL_PAD
-    if loss_mask is not None:
-        lm = torch.cat([loss_mask[:, 1:].bool(), torch.zeros_like(mask[:, :1])], dim=1)
-        mask = mask & lm
-    safe = torch.where(mask, labels_next, torch.zeros_like(labels_next))
+    safe, mask = next_token_targets(labels, loss_mask)
+    local_safe, local_mask = (safe, mask) if sp is None else \
+        _sp_slices(sp, labels.shape[1], safe, mask)
     valid = torch.ones((b, s), dtype=torch.bool, device=hidden.device)
     c = min(chunk, s)
     logps = torch.zeros((b,), dtype=torch.float32, device=hidden.device)
     logits_sum = torch.zeros_like(logps)
     for lo in range(0, s, c):
         sl = slice(lo, lo + c)
-        args = (head_fn, hidden[:, sl], safe[:, sl], mask[:, sl], valid[:, sl])
+        args = (head_fn, hidden[:, sl], local_safe[:, sl], local_mask[:, sl], valid[:, sl])
         if torch.is_grad_enabled() and hidden.requires_grad:
             lp, ls = checkpoint(_chunk_terms, *args, use_reentrant=False)
         else:
             lp, ls = _chunk_terms(*args)
         logps = logps + lp
         logits_sum = logits_sum + ls
+    if sp is not None:
+        logps, logits_sum = sum_over_sp(torch.stack([logps, logits_sum]), sp).unbind(0)
     if average_log_prob:
         logps = logps / mask.sum(-1).clamp(min=1)
     return logps, logits_sum
@@ -130,12 +166,19 @@ def sft_loss(
 
 
 def sft_loss_terms(
-    logits: torch.Tensor,  # (B, S, V)
+    logits: torch.Tensor,  # (B, S, V); under sp this rank's (B, S/n, V)
     labels: torch.Tensor,  # (B, S)
     pad_mask: Optional[torch.Tensor] = None,
+    sp=None,  # core.dist.SPShard: logits are a slice of the sequence
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(summed shifted CE, labeled-token count) of `sft_loss`: a sharded
     batch divides the ranks' summed CE by their summed count."""
+    if sp is not None:
+        safe, mask = next_token_targets(labels, pad_mask)
+        local_safe, local_mask = _sp_slices(sp, labels.shape[1], safe, mask)
+        logits = logits.float()
+        nll = -(_gather_clipped(logits, local_safe) - torch.logsumexp(logits, dim=-1))
+        return sum_over_sp((nll * local_mask).sum(), sp), mask.sum()
     logits = logits[:, :-1].float()
     labels = labels[:, 1:]
     mask = labels != LABEL_PAD

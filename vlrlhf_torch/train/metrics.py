@@ -1,5 +1,10 @@
 """Metrics logging to JSONL with tokens/s and MFU (counterpart of
-vlrlhf_tpu/train/metrics.py without wandb).
+vlrlhf_tpu/train/metrics.py).
+
+`report_to` names the sinks: "jsonl", the metrics file, is the one the
+port has. vlrlhf_tpu also takes "wandb" and drops it silently when wandb
+cannot start; the port honours a flag or refuses it, so "wandb" and every
+other name are refused by name.
 
 MFU is taken against one NVIDIA H100 SXM's dense bf16 tensor-core peak,
 989.4 TFLOP/s (NVIDIA's H100 data sheet), at the card's full 700 W limit.
@@ -13,6 +18,22 @@ import time
 from typing import Any, Optional
 
 H100_BF16_DENSE_FLOPS = 989.4e12  # per card, dense (no sparsity)
+REPORT_SINKS = ("jsonl",)
+
+
+def check_report_to(report_to: str) -> tuple:
+    """The sinks of a --report_to value (comma-separated), or ValueError
+    naming each one the port does not write."""
+    sinks = tuple(r.strip() for r in report_to.split(",") if r.strip())
+    refused = [r for r in sinks if r not in REPORT_SINKS]
+    if "wandb" in refused:
+        raise ValueError("--report_to wandb: the port writes no Weights & Biases runs (no wandb "
+                         "client on its machines) and refuses the sink rather than dropping it; "
+                         "use --report_to jsonl")
+    if refused or not sinks:
+        raise ValueError(f"--report_to {report_to!r}: unknown sink(s) {refused}; the port "
+                         f"writes {', '.join(REPORT_SINKS)}")
+    return sinks
 
 
 class MetricsLogger:
@@ -27,14 +48,17 @@ class MetricsLogger:
         self,
         output_dir: str,
         run_name: str = "run",
+        report_to: str = "jsonl",
         flops_per_token: Optional[float] = None,
         flops_per_image: Optional[float] = None,
         n_devices: int = 1,
         write: bool = True,
     ):
-        """`n_devices`: the GPUs the interval's tokens ran on (perf/mfu is
-        against their summed peak). `write` False (the ranks but the first
-        of a multi-GPU run) computes the same values and writes nothing."""
+        """`report_to`: the sinks (`check_report_to`). `n_devices`: the GPUs
+        the interval's tokens ran on (perf/mfu is against their summed
+        peak). `write` False (the ranks but the first of a multi-GPU run)
+        computes the same values and writes nothing."""
+        check_report_to(report_to)
         self.path = os.path.join(output_dir, f"{run_name}_metrics.jsonl")
         self._file = None
         if write:

@@ -22,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from vlrlhf_torch.core.dist import all_reduce_sum, dp_group, dp_size
+from vlrlhf_torch.core.dist import all_reduce_sum, dp_group, dp_size, sp_shard, sp_size
 from vlrlhf_torch.models.common import Ctx, fold_seed
 from vlrlhf_torch.models.vlm import VLM, image_inputs
 from vlrlhf_torch.train.losses import LABEL_PAD, chunked_logps, sft_loss_terms
@@ -69,20 +69,23 @@ def sft_step(model: VLM, scfg: SFTConfig, ocfg: OptimizerConfig, state: TrainSta
         p.grad = None
     hidden, _ = model(batch["input_ids"], batch.get("pixel_values"), batch.get("image_positions"),
                       batch["pad_mask"], ctx=ctx, **image_inputs(batch))
+    sp = sp_shard()
     if scfg.logits_chunk:
         logps, _ = chunked_logps(hidden, batch["labels"], model.head_fn(ctx),
-                                 loss_mask=batch["pad_mask"], chunk=scfg.logits_chunk)
+                                 loss_mask=batch["pad_mask"], chunk=scfg.logits_chunk, sp=sp)
         mask = (batch["labels"][:, 1:] != LABEL_PAD) & batch["pad_mask"][:, 1:].bool()
         nll_sum, count = -logps.sum(), mask.sum()
     else:
         nll_sum, count = sft_loss_terms(model.head(hidden, ctx), batch["labels"],
-                                        batch["pad_mask"])
-    n_dp = dp_size()
-    if n_dp > 1:
-        # the token mean of the global batch: the ranks' sums over their
-        # summed count; FSDP2 averages the gradients over the n_dp ranks
+                                        batch["pad_mask"], sp=sp)
+    n_dp, n_sp = dp_size(), sp_size()
+    if n_dp > 1 or n_sp > 1:
+        # the token mean of the global batch: the data-parallel ranks' sums
+        # (each whole over its ring) over their summed count; FSDP2 averages
+        # the gradients over the n_dp x n_sp ranks, which sums the ring's
+        # partials and averages the replicas
         total = all_reduce_sum(count.float(), dp_group()).clamp(min=1)
-        (nll_sum / total * n_dp).backward()
+        (nll_sum / total * (n_dp * n_sp)).backward()
         loss = all_reduce_sum(nll_sum.detach(), dp_group()) / total
     else:
         loss = nll_sum / count.clamp(min=1)
