@@ -36,7 +36,9 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      T = 8 on the gate and down shards (ppo's rollouts under QLoRA int4),
      decode at H = 16 / 16 (B = 8, length 640) and mistral's GQA 16 / 4
      over ~3,000 tokens, bf16 and int8, and chunk verify at H = 16 (B = 8,
-     C = 4), bf16 and int8
+     C = 4), bf16 and int8; and the shape one pipeline microbatch gives
+     kernels 1-3 under --mesh_pipe 2 ("pipe": B = 1, S = 1024, H = 32,
+     D = 128, one row of 1,000 tokens)
   3. serving at full LLaVA-1.5-7B widths but 2 LM / 2 tower layers: the
      same seeded weights on the card (bf16, kernels) and on the CPU (f32,
      plain path), one image prefill + 8 greedy tokens; logit error and
@@ -253,7 +255,25 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      MESH_GRAD_TOL, step-1 loss ln 2, the gradient norm within 1e-2, each
      rank's resident and step peak memory beside world 1's; a planted
      fault (the ring's gradient partials averaged, not summed) must fail
-     MESH_GRAD_TOL; rank 0's launches are "mesh_dpo_sp"
+     MESH_GRAD_TOL; rank 0's launches are "mesh_dpo_sp"; 14a also times
+     the library calls at the blocks' shapes (SDPA, the aten flash
+     backward)
+  15. the GPipe pipeline (vlrlhf_torch/models/lm/pipeline.py,
+     --mesh_pipe): (a) in this process, `pipeline_local` (both stages here,
+     M = 2) against the plain stack on the card at LLaVA-1.5-7B's widths
+     and 4 layers, LoRA r64, attn remat: the output and the gradients of
+     the embeddings and adapters within MESH_GRAD_TOL; (b) started with
+     13b-e and 14b: two ranks sharing the card over gloo (this script with
+     --mesh15-worker, torchrun's environment), `dpo` through build_dpo /
+     train_steps under --mesh_pipe 2 --pipeline_microbatches 2 (stage 0
+     holding LM layers 0-1, stage 1 layers 2-3) at full width and 4 LM / 2
+     tower layers, phase 6's pair at S = 1024, no gradient clipping,
+     against world 1 in this process: the first update's gradients leaf
+     by leaf within MESH_GRAD_TOL, step-1 loss ln 2, the gradient norm
+     within 1e-2, each stage's launches of kernels 1-3 at the schedule's
+     counts, each rank's resident and step peak memory beside world 1's;
+     a planted fault (each hop hands over the previous microbatch) must
+     fail MESH_GRAD_TOL; rank 0's launches are "mesh_dpo_pipe"
 
 A profiled step prints the card's busy and idle time and its kernel time by
 group (torch.profiler; the flash groups split by head dim). Phase 2's
@@ -282,7 +302,8 @@ serve, DPO, QLoRA, trainer, eval, multi-adapter serving, phase 9's runs
 blip_eval) and phase 12's (qwen_int4_reduced, internlm_int4_reduced,
 xc2_qlora4_reduced, qwen_serve, qwen_dpo, qwen_serve_int8_spec,
 xc2_serve, xc2_dpo, xc2_eval), phase 13's (mesh_dpo, mesh_eval,
-mesh_dpo_tp, mesh_ppo) and phase 14's (mesh_dpo_sp), split in
+mesh_dpo_tp, mesh_ppo), phase 14's (mesh_dpo_sp) and phase 15's
+(mesh_dpo_pipe), split in
 launches_by_path; the eval and ppo shapes' times under "eval" and "ppo");
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -358,6 +379,9 @@ TP2_FLASH_CASES = (
 # wo's (in 4096 -> 2048)
 # kernel 6 at decode (T = 8) on the same two shards: ppo's rollouts under
 # --mesh_model 2 --q_lora true --bits 4 (the T <= 64 cluster kernel)
+# phase 15: one pipeline microbatch of phase 6's pair under --mesh_pipe 2
+# (M = 2: one row of its two; the chosen row's 1,000 tokens stand for it)
+PIPE_FLASH_CASES = (("pipe_microbatch", True, 1, 1024, 32, 32, 128, (1000,)),)
 TP2_INT4_DECODE_CASES = (
     ("tp2_decode_gate", 8, 4096, 5504),
     ("tp2_decode_down", 8, 5504, 4096),
@@ -546,6 +570,8 @@ def phase_kernels():
         # phase 13: a rank's heads under --mesh_model 2 (LLaVA 32 -> 16,
         # Mistral's GQA 32/8 -> 16/4) on the DPO pair's S = 1024
         *TP2_FLASH_CASES,
+        # phase 15: a stage's microbatch under --mesh_pipe 2
+        *PIPE_FLASH_CASES,
     ]
     errs, times = [], {}
     for label, causal, b, s, h, hkv, d, lens in flash_cases:
@@ -595,7 +621,8 @@ def phase_kernels():
                             "families": {k: times[k] for k in (
                                 "anyres_tiles_noncausal", "eva_noncausal_d88", "mistral_gqa_4096",
                                 "qwen_tower_d104", "resampler_256x1024", "xc2_tower_s1226")},
-                            "tp": {c[0]: times[c[0]] for c in TP2_FLASH_CASES}}
+                            "tp": {c[0]: times[c[0]] for c in TP2_FLASH_CASES},
+                            "pipe": {c[0]: times[c[0]] for c in PIPE_FLASH_CASES}}
 
     # backward: the DPO path's LM case, a GQA case and an unfrozen tower's
     # (D = 64, non-causal, the 2 tiled rows of one pair)
@@ -608,6 +635,7 @@ def phase_kernels():
         ("eva_noncausal_d88", False, 16, 257, 16, 16, 88, (257,) * 16),
         ("mistral_gqa_4096", True, 2, 4096, 32, 8, 128, MISTRAL_LENS),
         *TP2_FLASH_CASES,
+        *PIPE_FLASH_CASES,
     ]
     bwd = {"dkv": {}, "dq": {}}
     bwd_errs = {"dkv": [], "dq": []}
@@ -693,6 +721,7 @@ def phase_kernels():
             "families": {k: dict(zip(keys, bwd[kname][k]))
                          for k in ("eva_noncausal_d88", "mistral_gqa_4096")},
             "tp": {c[0]: dict(zip(keys, bwd[kname][c[0]])) for c in TP2_FLASH_CASES},
+            "pipe": {c[0]: dict(zip(keys, bwd[kname][c[0]])) for c in PIPE_FLASH_CASES},
         }
 
     results["decode_attention"] = decode_kernel_checks(randn)
@@ -2317,7 +2346,7 @@ def finish_timed(run, args, want: dict, what: str) -> None:
     merged_check(path, want, what)
 
 
-PHASE7_LAYERS = 16  # phase 7's LM depth, half of LLaVA-1.5-7B's: the script's time limit
+PHASE7_LAYERS = 8  # phase 7's LM depth, a quarter of LLaVA-1.5-7B's: the script's time limit
 
 
 def trainer_model(layers: int = 0):
@@ -4919,6 +4948,8 @@ def phase_launchers() -> dict:
         env13e = dict(env, MASTER_PORT=str(_free_port()))
         got14 = os.path.join(out, "ranks", "14b.pt")
         env14 = dict(env, MASTER_PORT=str(_free_port()))
+        got15 = os.path.join(out, "ranks", "15.pt")
+        env15 = dict(env, MASTER_PORT=str(_free_port()))
         procs = {
             "13b": start_logged(torchrun_cmd(
                 1, "-m", "vlrlhf_torch.cli.main", "dpo", "--synthetic", "8", "--mesh_fsdp",
@@ -4936,6 +4967,9 @@ def phase_launchers() -> dict:
             **{f"14b rank {r}": start_logged(
                 [sys.executable, os.path.abspath(__file__), "--mesh14-worker", got14],
                 env=dict(env14, RANK=str(r))) for r in range(2)},
+            **{f"15 rank {r}": start_logged(
+                [sys.executable, os.path.abspath(__file__), "--mesh15-worker", got15],
+                env=dict(env15, RANK=str(r))) for r in range(2)},
         }
         one = mesh13c_eval(mme, seed, os.path.join(out, "one"))
         world1 = mesh13d_run(os.path.join(out, "world1"))
@@ -4945,6 +4979,8 @@ def phase_launchers() -> dict:
         world13e = mesh13e_run(os.path.join(out, "ppo_world1"), None, len(PPO13E_WORDS), None,
                                rm_dir)
         world14 = mesh14_run(os.path.join(out, "sp_world1"), False)
+        world15 = mesh15_run(os.path.join(out, "pipe_world1"), False)
+        pipeline_local_check()
         for what in [w for w in procs if w != "13e"]:
             finish_logged(procs.pop(what), what)
 
@@ -5011,7 +5047,8 @@ def phase_launchers() -> dict:
         mesh13d_saves(os.path.join(out, "ranks"), got)
         got13e = mesh13e_check(os.path.join(out, "ranks"), procs.pop("13e"), world13e, rm_dir)
         return {"mesh_eval": eval_launches, "mesh_dpo_tp": got["model2"]["launches"],
-                "mesh_ppo": got13e, "mesh_dpo_sp": mesh14_check(got14, world14)}
+                "mesh_ppo": got13e, "mesh_dpo_sp": mesh14_check(got14, world14),
+                "mesh_dpo_pipe": mesh15_check(got15, world15)}
     finally:
         for started in procs.values():
             for proc, _ in (started if isinstance(started, list) else [started]):
@@ -5103,7 +5140,8 @@ def mesh13c_worker(mme: str, seed: str, out: str) -> int:
 
 def mesh13d_run(out: str, shape=None, per_device: int = 2, accumulate: int = 1,
                 updates: int = 3, save: bool = False, sp: str = "", rows=None,
-                max_length: int = 1024, clip: bool = True) -> dict:
+                max_length: int = 1024, clip: bool = True, layers: int = 2,
+                micro: int = 0) -> dict:
     """One 13d run: LLaVA-1.5-7B's widths at 2 LM / 2 tower layers (seeded
     bf16 on cuda:0), 2 pairs per global batch, build_dpo (precomputed
     reference logps) and train_steps for `updates` updates; returns rank
@@ -5123,7 +5161,10 @@ def mesh13d_run(out: str, shape=None, per_device: int = 2, accumulate: int = 1,
     clipping, so Adam's first moment holds the gradients' scale);
     "resident_gib" is each rank's device memory after build_dpo (the placed
     model, adapters and optimizer state) and "peak_gib" its peak above that
-    while train_steps runs."""
+    while train_steps runs. 15's runs pass `layers` (the LM's depth) and,
+    under a `shape` with pipe > 1, `micro` (--pipeline_microbatches); a
+    stage's gradients are joined with the other stages' (every layer's
+    leaf on rank 0)."""
     import argparse
 
     from vlrlhf_torch.cli.main import build_dpo, finish_run, make_logger, train_steps
@@ -5135,7 +5176,8 @@ def mesh13d_run(out: str, shape=None, per_device: int = 2, accumulate: int = 1,
     from vlrlhf_torch.models.vlm import VLM
 
     cfg = mesh_2layer_cfg()
-    mesh = make_mesh(MeshConfig(*shape), "cuda", sp) if shape is not None else None
+    cfg = dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, num_layers=layers))
+    mesh = make_mesh(MeshConfig(*shape), "cuda", sp, micro) if shape is not None else None
     fns = counted(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
     try:
         model = VLM(cfg, "cuda")
@@ -5160,6 +5202,13 @@ def mesh13d_run(out: str, shape=None, per_device: int = 2, accumulate: int = 1,
             if step == accumulate:  # collective under a mesh: every rank is here
                 grads.update({k: host_full(v, tp_dim(k), mesh) / (1 - run.ocfg.b1)
                               for k, v in run.state_tree()["mu"].items()})
+                if mesh is not None and mesh.pp is not None:  # every stage's layers
+                    import torch.distributed as tdist
+
+                    stages = [None] * mesh.pipe
+                    tdist.all_gather_object(stages, dict(grads), group=mesh.pipe_group)
+                    for g in stages:
+                        grads.update(g)
 
         gc.collect()
         torch.cuda.synchronize()
@@ -5172,6 +5221,7 @@ def mesh13d_run(out: str, shape=None, per_device: int = 2, accumulate: int = 1,
         launches = read_counts(fns)
         logger.close()
         got = {"losses": [], "norms": [], "grads": grads, "launches": launches,
+               "rank_launches": gather_objects([launches]),
                "peak_gib": gather_objects([(torch.cuda.max_memory_allocated() - base) / 2**30]),
                "resident_gib": gather_objects([base / 2**30]),
                "seq": run.collator([run.tokenize_fn(r) for r in run.rows])["input_ids"].shape[1]}
@@ -5701,6 +5751,187 @@ def mesh14_check(got14: str, world1: dict) -> dict:
     return sp2["launches"]
 
 
+# 15: dpo under --mesh_pipe 2 (the GPipe pipeline, 2 microbatches) on two
+# gloo ranks sharing the card: mesh (1, 1, 1, 2), stage 0 holding LM layers
+# 0-1 and stage 1 layers 2-3, both reading phase 6's pair (rows of 994 and
+# 984 tokens at S = 1024: a microbatch is one row), LLaVA-1.5-7B's widths
+# at 4 LM / 2 tower layers, against world 1 in this process.
+PHASE15_LAYERS, PHASE15_MICRO = 4, 2
+MESH15 = (("pipe2", False, 3), ("pipe2_planted", True, 1))  # (name, planted fault, updates)
+
+
+@contextlib.contextmanager
+def hop_off_by_one():
+    """15's planted fault for the block: each hop hands the receiving stage
+    the previous microbatch's tensor (the first of each direction its
+    own), so stage 1 runs microbatch i's rows on microbatch i - 1's
+    activations and stage 0 backpropagates microbatch i + 1's gradient."""
+    from vlrlhf_torch.models.lm import pipeline
+
+    kept = pipeline.pipe_recv
+    last = {}
+
+    def shifted(shape, dtype, device, pp, stage):
+        got = kept(shape, dtype, device, pp, stage)
+        prev = last.get(stage, got)
+        last[stage] = got
+        return prev if prev.shape == got.shape else got
+
+    pipeline.pipe_recv = shifted
+    try:
+        yield
+    finally:
+        pipeline.pipe_recv = kept
+
+
+def mesh15_run(out: str, pipe: bool, updates: int = 3) -> dict:
+    """One 15 run (mesh13d_run): phase 6's pair, one pair per global batch,
+    no gradient clipping, 4 LM layers; under the pipeline (1, 1, 1, 2) with
+    PHASE15_MICRO microbatches with `pipe`, else world 1."""
+    return mesh13d_run(out, (1, 1, 1, 2) if pipe else None, per_device=1, updates=updates,
+                       rows=[pair_row(7, 150, 260, 250)], clip=False, layers=PHASE15_LAYERS,
+                       micro=PHASE15_MICRO if pipe else 0)
+
+
+def mesh15_worker(out: str) -> int:
+    """A rank of 15 (started by phase_launchers with torchrun's
+    environment): gloo on cuda:0, each MESH15 run in turn; rank 0 writes
+    {name: mesh13d_run's result} to `out` (torch.save)."""
+    import faulthandler
+
+    import torch.distributed as tdist
+
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    tdist.init_process_group("gloo")
+    got = {}
+    for name, planted, updates in MESH15:
+        with hop_off_by_one() if planted else contextlib.nullcontext():
+            got[name] = mesh15_run(os.path.join(os.path.dirname(out), name), True, updates)
+    if tdist.get_rank() == 0:
+        torch.save(got, out)
+    tdist.barrier()
+    tdist.destroy_process_group()
+    return 0
+
+
+def pipeline_local_check() -> dict:
+    """15a, in this process: models/lm/pipeline.py's schedule with both
+    stages here (`pipeline_local`, S = 2, M = 2) against the plain stack
+    (`run_layers` on the whole batch), on the card with the kernels, at
+    15's shapes: LLaVA-1.5-7B's widths at 4 layers, LoRA r64 on every
+    linear (b seeded non-zero), attn remat, random embeddings of phase 6's
+    two rows (994 and 984 tokens at S = 1024). The stack's output and the
+    gradients of the embeddings and of every adapter leaf within
+    MESH_GRAD_TOL (relative L2; the microbatches' products are one row
+    each, the plain stack's two, so cuBLAS may sum otherwise), and each
+    path's kernel launches. Returns the gaps and the launches."""
+    from vlrlhf_torch.lora.lora import LoraConfig, init_lora, lora_parameters
+    from vlrlhf_torch.models.common import Ctx, init_random_
+    from vlrlhf_torch.models.config import FAMILIES
+    from vlrlhf_torch.models.lm.llama import LlamaDecoder
+    from vlrlhf_torch.models.lm.pipeline import pipeline_local
+    from vlrlhf_torch.ops.rope import rope_frequencies
+
+    cfg = mesh_2layer_cfg().lm
+    cfg = dataclasses.replace(cfg, num_layers=PHASE15_LAYERS)
+    holder = torch.nn.Module()
+    holder.lm = init_random_(LlamaDecoder(cfg, "cuda"), torch.Generator(device="cuda").manual_seed(1))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    init_lora(holder, LoraConfig(r=64, alpha=16.0, target_patterns=FAMILIES["llava"].lora_targets),
+              gen)
+    params = [p for _, p in lora_parameters(holder)]
+    with torch.no_grad():
+        for p in params[1::2]:
+            p.copy_(1e-3 * torch.randn(p.shape, device="cuda", generator=gen))
+    b, s = 2, 1024
+    x0 = torch.randn((b, s, cfg.hidden_size), device="cuda", generator=gen).to(cfg.dtype)
+    pad = torch.arange(s, device="cuda")[None] < torch.tensor([994, 984], device="cuda")[:, None]
+    cos, sin = rope_frequencies(cfg.rope, torch.arange(s, device="cuda")[None].expand(b, s),
+                                seq_len=s)
+    ctx = Ctx(adapters=True, lora_scale=0.25).sub("lm").sub("layers_scanned")
+    dy = torch.randn((b, s, cfg.hidden_size), device="cuda", generator=gen).to(cfg.dtype)
+    fns = counted(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
+    got = {}
+    for name in ("plain", "pipeline_local"):
+        x = x0.clone().requires_grad_()
+        for p in params:
+            p.grad = None
+        zero_counts(fns)
+        if name == "plain":
+            h = holder.lm.run_layers(x, cos, sin, pad, ctx)
+        else:
+            h = pipeline_local(holder.lm, 2, PHASE15_MICRO, x, cos, sin, pad, ctx)
+        h.backward(dy)
+        torch.cuda.synchronize()
+        got[name] = (h.detach().float(), x.grad.float(), [p.grad.float().clone() for p in params],
+                     read_counts(fns))
+
+    def gap(a, w):
+        return float((a - w).norm() / w.norm()) if float(w.norm()) > 0 else float((a - w).norm())
+
+    (ho, xo, go, lo), (hp, xp, gp, lp) = got["plain"], got["pipeline_local"]
+    gaps = {"out": gap(hp[pad], ho[pad]), "dx": gap(xp[pad], xo[pad]),
+            "adapters": max(gap(a, w) for a, w in zip(gp, go))}
+    print(f"15a pipeline_local (S = 2, M = 2) vs the plain stack on the card (LLaVA-1.5-7B "
+          f"widths, {PHASE15_LAYERS} layers, LoRA r64, attn remat, rows of 994 / 984 at "
+          f"S = 1024): relative L2 gaps {json.dumps({k: round(v, 6) for k, v in gaps.items()})} "
+          f"(tol {MESH_GRAD_TOL}); launches plain {json.dumps(lo)}, pipeline_local "
+          f"{json.dumps(lp)}", flush=True)
+    if max(gaps.values()) > MESH_GRAD_TOL or min(lp.values()) <= 0:
+        raise AssertionError(f"15a: pipeline_local departs from the plain stack: {gaps} {lp}")
+    del holder, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"gaps": gaps, "launches": lp}
+
+
+def mesh15_check(got15: str, world1: dict) -> dict:
+    """15's checks: the first update's gradients leaf by leaf within
+    MESH_GRAD_TOL of world 1's and the planted fault beyond it, step-1
+    loss ln 2, the step-1 gradient norm within 1e-2 of world 1's, each
+    stage's launches of kernels 1-3 at the counts the schedule implies
+    (per update: M x L / S layer calls of kernels 2 and 3, twice that of
+    kernel 1 under attn remat, plus the tower's, which world 1 shows);
+    prints each rank's resident and step peak beside world 1's. Returns
+    rank 0's launches ("mesh_dpo_pipe")."""
+    got = torch.load(got15, weights_only=False)
+    p2 = got["pipe2"]
+    gaps = {k: grad_gap(got[k], world1) for k in ("pipe2", "pipe2_planted")}
+    updates, n_layers = len(p2["losses"]), PHASE15_LAYERS
+    lm_calls = updates * PHASE15_MICRO * (n_layers // 2)
+    tower = world1["launches"]["flash_fwd"] - 2 * updates * n_layers
+    want = {"flash_fwd": 2 * lm_calls + tower, "flash_bwd_dkv": lm_calls, "flash_bwd_dq": lm_calls}
+    print(f"15 dpo --mesh_pipe 2 --pipeline_microbatches {PHASE15_MICRO}, two gloo ranks on one "
+          f"card (LLaVA-1.5-7B widths, {n_layers} LM / 2 tower layers, one pair at S = "
+          f"{p2['seq']}, bubble {1 / (PHASE15_MICRO + 1):.4f} of the steps): losses / grad norms "
+          f"{p2['losses']} / {p2['norms']} vs world 1 {world1['losses']} / {world1['norms']}; "
+          f"first update's gradients, worst leaf's relative L2 gap (leaf) "
+          + json.dumps({k: (round(v, 6), leaf) for k, (v, leaf) in gaps.items()})
+          + f", tol {MESH_GRAD_TOL} (the planted fault, the hop off by one microbatch, must "
+          f"exceed it); per rank resident {[round(x, 3) for x in p2['resident_gib']]} GiB and "
+          f"the steps' peak above it {[round(x, 3) for x in p2['peak_gib']]} GiB vs world 1 "
+          f"{round(world1['resident_gib'][0], 3)} / {round(world1['peak_gib'][0], 3)} GiB; "
+          f"launches per rank {json.dumps(p2['rank_launches'])} (the schedule's "
+          f"{json.dumps(want)}), world 1 {json.dumps(world1['launches'])}", flush=True)
+    for k, (v, leaf) in gaps.items():
+        if (v > MESH_GRAD_TOL) != k.endswith("planted"):
+            raise AssertionError(f"15 {k}: the first update's gradients are {v} apart at {leaf} "
+                                 f"(tol {MESH_GRAD_TOL})")
+    if len(p2["grads"]) != len(world1["grads"]):
+        raise AssertionError(f"15: {len(p2['grads'])} gradient leaves joined from the stages, "
+                             f"world 1 has {len(world1['grads'])}")
+    if len(p2["losses"]) != 3 or not np.isfinite(p2["losses"]).all() or \
+            abs(p2["losses"][0] - math.log(2.0)) > 1e-6 or \
+            abs(p2["norms"][0] - world1["norms"][0]) > 1e-2 * world1["norms"][0]:
+        raise AssertionError(f"15: {p2['losses']} / {p2['norms']}: step 1 must read ln 2 and "
+                             f"world 1's norm {world1['norms'][0]}")
+    if any(r != want for r in p2["rank_launches"]):
+        raise AssertionError(f"15: the stages' launches {p2['rank_launches']} are not the "
+                             f"schedule's {want}")
+    return p2["launches"]
+
+
 def mesh13d_worker(out: str) -> int:
     """A rank of 13d (started by phase_launchers with torchrun's
     environment): gloo on cuda:0, each MESH13D layout in turn; rank 0
@@ -5746,6 +5977,33 @@ def _ring_block_work(nq: int, nk: int, c: int, h: int, hkv: int, d: int, diagona
     return 1.5 * fwd, ins + c * q
 
 
+def ring_library_ms(q, k, v, do, pad_q, pad_kv, causal: bool, scale: float) -> dict:
+    """The library calls that compute a ring block's (or the whole
+    sequence's) functions on its inputs, timed: {"fwd": SDPA with the
+    block's boolean mask (the keys' pad mask, and the causal triangle on a
+    diagonal block), "dkv" and "dq": the aten flash backward, one call for
+    dQ, dK and dV (K / V expanded to the query heads under GQA, as phase
+    2 times it)}."""
+    import torch.nn.functional as F
+
+    h, hkv = q.shape[2], k.shape[2]
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    mask = pad_kv[:, None, None, :]
+    if causal:
+        sq, skv = q.shape[1], k.shape[1]
+        mask = mask & torch.ones((sq, skv), dtype=torch.bool, device=q.device).tril()
+    fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                         enable_gqa=h != hkv))
+    ke, ve = (t.repeat_interleave(h // hkv, dim=1) for t in (kt, vt))
+    with torch.no_grad():
+        fo = torch.ops.aten._scaled_dot_product_flash_attention(qt, ke, ve, 0.0, causal, False,
+                                                                scale=scale)
+    bwd = time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        dot, qt, ke, ve, fo[0], fo[1], fo[2], fo[3], fo[4], fo[5], 0.0, causal, fo[6], fo[7],
+        scale=scale))
+    return {"fwd": fwd, "dkv": bwd, "dq": bwd}
+
+
 def phase_ring_kernels() -> dict:
     """14a: the ring's kernel path in one process, no process group:
     ops/ring_attention.py's per-block functions looped over the n sources
@@ -5759,8 +6017,11 @@ def phase_ring_kernels() -> dict:
     (times max(1, max |ref|) for the gradients). Times: each block of the
     last rank (the most loaded: contiguous shards give rank n - 1 one
     diagonal and n - 1 off-diagonal blocks), its critical path (the sum of
-    its blocks) and the whole-sequence kernels, each beside its bound.
-    Returns {kernel: {case: numbers}} for the kernels line's "ring"."""
+    its blocks) and the whole-sequence kernels, each beside its bound and
+    the library call computing the same function on the same inputs
+    (`ring_library_ms`: SDPA for the forward, the aten flash backward for
+    kernels 2 and 3). Returns {kernel: {case: numbers}} for the kernels
+    line's "ring"."""
     from vlrlhf_torch.ops.flash_attention import (
         KV_PAD_SEG, Q_PAD_SEG, flash_attention, flash_attention_bwd_plain,
         flash_attention_plain, make_segments,
@@ -5788,6 +6049,7 @@ def phase_ring_kernels() -> dict:
                    **{p: time_ms(flash_bwd_kernel_call(f"flash_bwd_{p}_bf16", q, k, v, do, lse, di,
                                                        seg_q, seg_kv, True, scale))
                       for p in ("dkv", "dq")}}
+        l_whole = ring_library_ms(q, k, v, do, pad, pad, True, scale)
         b_whole = {"fwd": bound(_flash_flops([L], h, d, True), _flash_bytes([L], s, h, hkv, d,
                                                                            "fwd"))[0],
                    **{p: bound((2.0 if p == "dkv" else 1.5) * _flash_flops([L], h, d, True),
@@ -5825,16 +6087,21 @@ def phase_ring_kernels() -> dict:
                         for p in ("dkv", "dq")}}
                 bd = {p: bound(*_ring_block_work(nq, nk, c, h, hkv, d, diagonal, p))[0]
                       for p in ("fwd", "dkv", "dq")}
-                blocks[kind] = (t, bd)
+                lib = ring_library_ms(*args, bdo, sl(pad, n - 1), sl(pad, src), diagonal, scale)
+                blocks[kind] = (t, bd, lib)
             for p, name in (("fwd", "flash_fwd"), ("dkv", "flash_bwd_dkv"), ("dq", "flash_bwd_dq")):
-                td, bdd = blocks["diag"][0][p], blocks["diag"][1][p]
-                to, bdo_ = blocks["off"][0][p], blocks["off"][1][p]
+                td, bdd, ld = (blocks["diag"][j][p] for j in range(3))
+                to, bdo_, lo_ = (blocks["off"][j][p] for j in range(3))
                 crit, crit_bound = td + (n - 1) * to, bdd + (n - 1) * bdo_
                 out[name][f"{label}_n{n}"] = {
                     "diag_ms": round(td, 4), "diag_bound_ms": round(bdd, 4),
+                    "diag_library_ms": round(ld, 4),
                     "off_ms": round(to, 4), "off_bound_ms": round(bdo_, 4),
+                    "off_library_ms": round(lo_, 4),
                     "last_rank_ms": round(crit, 4), "last_rank_bound_ms": round(crit_bound, 4),
-                    "whole_ms": round(t_whole[p], 4), "whole_bound_ms": round(b_whole[p], 4)}
+                    "last_rank_library_ms": round(ld + (n - 1) * lo_, 4),
+                    "whole_ms": round(t_whole[p], 4), "whole_bound_ms": round(b_whole[p], 4),
+                    "whole_library_ms": round(l_whole[p], 4)}
             print(f"{what} (B = 1, S = {s}, H = {h}, Hkv = {hkv}, D = {d}, one row of {L}): max abs "
                   f"err (vs whole-sequence kernels, vs plain ring) "
                   + json.dumps({k2: [float(f"{x:.3e}") for x in e] for k2, e in errs.items()})
@@ -5864,6 +6131,8 @@ def main() -> int:
         return mesh13e_worker(*sys.argv[2:5])
     if sys.argv[1:2] == ["--mesh14-worker"]:  # a rank of phase 14b, started below
         return mesh14_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--mesh15-worker"]:  # a rank of phase 15, started below
+        return mesh15_worker(sys.argv[2])
     t_start = time.perf_counter()
 
     def mark(label: str) -> None:
@@ -6022,6 +6291,9 @@ def main() -> int:
     if any(by_path[name].get("mesh_dpo_sp", 0) <= 0
            for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")):
         raise AssertionError(f"phase 14b (mesh_dpo_sp) must launch kernels 1-3: {by_path}")
+    if any(by_path[name].get("mesh_dpo_pipe", 0) <= 0
+           for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")):
+        raise AssertionError(f"phase 15 (mesh_dpo_pipe) must launch kernels 1-3: {by_path}")
     for name, cases in ring.items():
         kernels[name]["ring"] = cases
     line = {"kernels": [
@@ -6032,7 +6304,7 @@ def main() -> int:
          "plain_ms": kernels[name]["plain_ms"], "bound_ms": kernels[name]["bound_ms"],
          "bound_by": kernels[name]["bound_by"], "library_ms": kernels[name]["library_ms"],
          **{k: kernels[name][k] for k in ("int8", "chat", "eval", "ppo", "families", "tp",
-                                          "ring")
+                                          "ring", "pipe")
             if k in kernels[name]}}
         for name in names
     ]}

@@ -25,8 +25,11 @@ the same command in one plain process, f32:
   - `dpo --eval_samples 2` under --mesh_model 2: the greedy samples, on
     each rank's heads with its group's tokens broadcast, and the metrics
     equal the single-process run's;
-  - the refusals, each naming its reason: --mesh_pipe 2,
-    --pipeline_microbatches, --sequence_parallel_axis fsdp without torchrun,
+  - the refusals, each naming its reason: --mesh_pipe 2 without torchrun,
+    --pipeline_microbatches without --mesh_pipe > 1, the pipeline with the
+    sequence split, with --eval_samples, on ppo and on eval, rows or
+    layers the pipeline does not divide, --sequence_parallel_axis fsdp
+    without torchrun,
     over data, over model and over an unknown axis, on ppo and eval and with
     --eval_samples, mesh flags on eval, a mesh a plain run cannot make,
     heads or int4 row widths --mesh_model does not divide, and --report_to
@@ -226,8 +229,24 @@ def test_refuses_kv_heads_that_mesh_model_does_not_divide(runs):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--mesh_pipe", "2"], "--mesh_pipe / --pipeline_microbatches: the GPipe pipeline"),
-    (["--pipeline_microbatches", "4"], "--mesh_pipe / --pipeline_microbatches"),
+    # the pipeline runs under torchrun (tests/test_torch_dist_pipe.py); refused
+    # before anything loads: without torchrun, a microbatch count without a
+    # pipeline, with the sequence split or --eval_samples, rows or layers it
+    # does not divide
+    (["--mesh_pipe", "2"], "--mesh_pipe 2: the pipeline's stages are the ranks of a mesh "
+                           "launched by torchrun"),
+    (["--pipeline_microbatches", "4"],
+     "--pipeline_microbatches 4: it splits the rows of a pipeline, which needs --mesh_pipe > 1"),
+    (["--mesh_pipe", "2", "--sequence_parallel_axis", "fsdp"],
+     "--mesh_pipe 2 with --sequence_parallel_axis fsdp: the pipeline and the sequence split "
+     "are mutually exclusive"),
+    (["--mesh_pipe", "2", "--eval_steps", "1", "--eval_samples", "2"],
+     "--eval_samples under --mesh_pipe 2: the samples generate with every layer on a rank"),
+    (["--mesh_pipe", "2", "--pipeline_microbatches", "3", "--per_device_train_batch_size", "1"],
+     "--mesh_pipe 2: 1 pairs = 2 rows per data-parallel rank .* do not split into 3 pipeline "
+     "microbatches"),
+    (["--mesh_pipe", "4", "--per_device_train_batch_size", "2"],
+     "--mesh_pipe 4: the LM's 2 layers do not split into 4 equal stages"),
     (["--sequence_parallel_axis", "fsdp"], "--sequence_parallel_axis fsdp: .*launched by torchrun"),
     (["--mesh_model", "2"], "--mesh_model 2: .*launched by torchrun"),
     (["--sequence_parallel_axis", "data"],
@@ -254,6 +273,20 @@ def test_dpo_refusals(tmp_path, flags, match):
 def test_ppo_and_eval_refuse_the_sequence_split(tmp_path, argv, match):
     with pytest.raises(SystemExit, match=match):
         main([*argv, "--output_dir", str(tmp_path), "--sequence_parallel_axis", "fsdp"])
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["ppo", *CPU, "--synthetic", "4", "--mesh_pipe", "2"],
+     "ppo under --mesh_pipe 2: its rollouts generate with every layer on a rank"),
+    (["sft", *CPU, "--synthetic", "4", "--mesh_pipe", "2", "--pipeline_microbatches", "4",
+      "--per_device_train_batch_size", "2"],
+     "--mesh_pipe 2: 2 rows per data-parallel rank .* do not split into 4 pipeline"),
+    (["eval", *CPU, "--synthetic", "4", "--benchmark", "pope", "--data_file", "x",
+      "--mesh_pipe", "2"], "eval takes no mesh flags"),
+])
+def test_ppo_sft_and_eval_pipeline_refusals(tmp_path, argv, match):
+    with pytest.raises(SystemExit, match=match):
+        main([*argv, "--output_dir", str(tmp_path)])
 
 
 def test_ppo_eval_and_eval_samples_refusals(runs, tmp_path):

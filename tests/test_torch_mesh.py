@@ -7,6 +7,11 @@
     adapters and of its int8-quantized params, in the port's (out, in)
     orientation; where they differ, an explicit table names the leaf and
     both placements (the results are the same: tests/test_torch_dist_*.py);
+  - the rank layout rank = p * (data * fsdp * model) + (d * fsdp + f) *
+    model + m (core.mesh.rank_of / coords_of): init_device_mesh's
+    row-major order over (pipe, data, fsdp, model), a stage a contiguous
+    block of ranks, a tensor-parallel group adjacent ranks, a pipe group
+    one rank per stage at the same (data, fsdp, model);
   - data.datasets.shard_rows_for_process equals vlrlhf_tpu's for 1-5
     processes and 0-11 rows, jax.process_count / process_index
     monkeypatched;
@@ -49,6 +54,26 @@ def test_mesh_config_resolve_matches_jax(shape, n):
             MeshConfig(*shape).resolve(n)
         return
     assert MeshConfig(*shape).resolve(n) == want
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 2, 2), (4, 1, 1, 1), (2, 2, 1, 1), (2, 1, 1, 2),
+                                   (1, 2, 2, 2), (3, 2, 1, 2)])
+def test_rank_layout_pipe_outermost_model_innermost(shape):
+    from vlrlhf_torch.core.mesh import coords_of, rank_of
+
+    pipe, data, fsdp, model = shape
+    world = pipe * data * fsdp * model
+    grid = torch.arange(world).reshape(shape)  # init_device_mesh's layout of the world
+    block = data * fsdp * model
+    for rank in range(world):
+        p, d, f, m = coords_of(shape, rank)
+        assert rank_of(shape, p, d, f, m) == rank == int(grid[p, d, f, m])
+        assert rank == p * block + (d * fsdp + f) * model + m
+        assert p * block <= rank < (p + 1) * block  # a stage: a contiguous block
+        tp = [rank_of(shape, p, d, f, k) for k in range(model)]
+        assert tp == list(range(tp[0], tp[0] + model))  # a tensor-parallel group: neighbours
+        assert [rank_of(shape, q, d, f, m) for q in range(pipe)] == \
+            [q * block + rank % block for q in range(pipe)]  # a pipe group: one per stage
 
 
 # Where the port's plan places a leaf on the model axis otherwise than

@@ -10,16 +10,19 @@ only.
 JOB is a torch.save of {"cases": [...]}; each case (but "preempt", a
 SIGTERM on one rank during run_training, "ppo", "ppo_cli", "sp_ring" and
 "sp_lm": see their functions) names a mesh
-(data, fsdp, model), a kind ("train" or "checkpoint"), a pickled port
-model holding its adapters, a global numpy batch and the step's configs.
-Every rank applies the plan (core.partitioning.shard_model_), reads its
-data-parallel slice of the batch and steps (with "resume_dir" from that
-checkpoint's latest step; with "save_dir" saving the state before step
-"save_at" as train_steps does; with "sp" "fsdp" on a sequence-parallel
-mesh, whose fsdp ranks read the same rows); rank 0 writes OUT, a
-torch.save of {case name: {"metrics": [per step, means over the ranks],
-"trainable": {key: world-1 numpy}[, "grads": the first step's gradients,
-world-1 numpy]}}.
+(data, fsdp, model[, pipe]), a kind ("train" or "checkpoint"), a pickled
+port model holding its adapters, a global numpy batch and the step's
+configs. Every rank applies the plan (core.partitioning.shard_model_),
+reads its data-parallel slice of the batch and steps (with "resume_dir"
+from that checkpoint's latest step; with "save_dir" saving the state
+before step "save_at" as train_steps does; with "sp" "fsdp" on a
+sequence-parallel mesh, whose fsdp ranks read the same rows; with pipe > 1
+a pipeline of "micro" microbatches, whose stages read the same rows); rank
+0 writes OUT, a torch.save of {case name: {"metrics": [per step, means
+over the ranks], "trainable": {key: world-1 numpy}[, "grads": the first
+step's gradients, world-1 numpy][, "stages_equal": {key: whether every
+stage holds the same bits of a leaf outside the stack's layers, after the
+steps}]}}.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ import torch
 from vlrlhf_torch.core import dist as vdist
 from vlrlhf_torch.core.mesh import MeshConfig, make_mesh, set_global_mesh
 from vlrlhf_torch.core.partitioning import (
-    attach_norm_groups_, full_state_tree, full_tensor, shard_full, shard_model_, tp_dim,
+    attach_norm_groups_, full_state_tree, full_tensor, gather_stages, pipe_role, shard_full,
+    shard_model_, stage_tree, tp_dim,
 )
 from vlrlhf_torch.lora.lora import lora_keys
 from vlrlhf_torch.train.dpo import DPOConfig, adapter_params, batch_to_device, dpo_step
@@ -70,14 +74,32 @@ def _numpy_tree(tree: dict) -> dict:
     return {k: v.float().cpu().numpy() for k, v in tree.items()}
 
 
+def stages_equal(state, keys: list, mesh) -> dict:
+    """{key: whether every stage holds the same bits} for each leaf outside
+    the stack's layers, its Adam moments included ({} without a
+    pipeline)."""
+    if mesh.pp is None:
+        return {}
+    out = {}
+    for i, k in enumerate(keys):
+        if pipe_role(k) == "stage":
+            continue
+        mine = [vdist.local_tensor(t[i]).detach().clone() for t in (state.trainable, state.mu,
+                                                                    state.nu)]
+        every: list = [None] * mesh.pipe
+        torch.distributed.all_gather_object(every, mine, group=mesh.pipe_group)
+        out[k] = all(torch.equal(a, b) for other in every for a, b in zip(mine, other))
+    return out
+
+
 def run_case(case: dict) -> dict:
     torch.manual_seed(0)
-    mesh = make_mesh(MeshConfig(*case["mesh"]), "cpu", case.get("sp", ""))
+    mesh = make_mesh(MeshConfig(*case["mesh"]), "cpu", case.get("sp", ""), case.get("micro", 0))
     model = copy.deepcopy(case["model"])
     kind = case.get("step", "dpo")
     head = None
-    keys = lora_keys(model)
     shard_model_(model, mesh)
+    keys = lora_keys(model)  # a stage's: its layers' adapters and the rest
     params = adapter_params(model)
     if kind == "rm":
         head = torch.nn.Parameter(torch.as_tensor(case["head"]).clone())
@@ -87,6 +109,8 @@ def run_case(case: dict) -> dict:
     attach_norm_groups_(state, keys, mesh)
     if case.get("resume_dir"):
         tree, _ = CheckpointManager(case["resume_dir"]).restore()
+        if mesh.pp is not None:
+            tree = stage_tree(tree, keys)
         load_state_tree_(state, keys, tree,
                          place=lambda k, leaf, full: shard_full(full, leaf, tp_dim(k), mesh))
     batch = batch_to_device(local_batch(case["batch"], kind, mesh.dp_rank, mesh.dp_size), "cpu")
@@ -103,13 +127,15 @@ def run_case(case: dict) -> dict:
             m = rm_step(model, RMConfig(**case["cfg"]), ocfg, state, head, batch)
         metrics.append({k: float(v) for k, v in vdist.global_metrics(m).items()})
         if i == 0 and case.get("grads"):
-            grads = _numpy_tree({k: full_tensor(p.grad, tp_dim(k), mesh)
-                                 for k, p in zip(keys, state.trainable)})
+            grads = _numpy_tree(gather_stages(
+                {k: full_tensor(p.grad if p.grad is not None else torch.zeros_like(p), tp_dim(k),
+                                mesh) for k, p in zip(keys, state.trainable)}, mesh))
     if ckpt is not None:
         ckpt.close()
     tree = full_state_tree(state_tree(state, keys), mesh)
+    out = {"metrics": metrics, "trainable": _numpy_tree(tree["trainable"]),
+           "stages_equal": stages_equal(state, keys, mesh)}
     set_global_mesh(None)
-    out = {"metrics": metrics, "trainable": _numpy_tree(tree["trainable"])}
     if case.get("grads"):
         out["grads"] = grads
     return out

@@ -82,11 +82,20 @@ ranks, which then read the same rows: the global batch is
 --per_device_train_batch_size x data, every layer runs on a rank's
 contiguous slice and attention is a ring over the fsdp group
 (ops/ring_attention.py); the collator's bucket is rounded up to a
-multiple of the ring. Refused, as later parts of the multi-GPU work
-(ROADMAP.md): --mesh_pipe > 1, --pipeline_microbatches, the sequence
-split over `model` (and `data`, which holds the rows), ppo and
---eval_samples under the sequence split, and eval with mesh flags (serve
-takes none).
+multiple of the ring. `--mesh_pipe S` (dpo, sft, rm under torchrun) is
+the GPipe pipeline (models/lm/pipeline.py): each of S stages of data x
+fsdp x model ranks holds L / S decoder layers, the rows of each batch
+cross the stages as --pipeline_microbatches microbatches (0: S), and the
+stages read the same rows, so the global batch is
+--per_device_train_batch_size x data x fsdp. Refused by name before
+anything loads: a layer count S does not divide, rows per data-parallel
+rank (dpo's and rm's are 2 x pairs) the microbatches do not divide, the
+pipeline with the sequence split, ppo and dpo --eval_samples under it
+(their generation needs every layer on a rank), --pipeline_microbatches
+without a pipeline. Refused, as later parts of the multi-GPU work
+(ROADMAP.md): the sequence split over `model` (and `data`, which holds
+the rows), ppo and --eval_samples under the sequence split, and eval with
+mesh flags (serve takes none).
 
 --report_to takes jsonl (the metrics file, as always); wandb and any other
 name are refused by name (vlrlhf_tpu drops wandb silently when it cannot
@@ -153,25 +162,81 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
-PART2 = "multi-GPU part 2 (ROADMAP.md)"
+PART2 = "later multi-GPU work (ROADMAP.md)"
+PAIRS = ("dpo", "rm")  # commands whose rows are [chosen; rejected] pairs
+
+
+def lm_layers(args) -> int:
+    """The LM's layer count, from the config alone (no weights load): the
+    --synthetic family's scaled-down config or the checkpoint's
+    config.json."""
+    import json
+    import os
+
+    from vlrlhf_torch.models.config import FAMILIES, scale_down
+
+    if args.synthetic or not getattr(args, "model_name_or_path", None):
+        return scale_down(FAMILIES[args.model_family].make_config()).lm.num_layers
+    from vlrlhf_torch.cli.loading import config_from_hf
+
+    with open(os.path.join(args.model_name_or_path, "config.json")) as f:
+        return config_from_hf(json.load(f))[1].lm.num_layers
+
+
+def check_pipeline_flags(args) -> None:
+    """--mesh_pipe / --pipeline_microbatches on dpo, sft, rm or ppo: every
+    refusal by name, before anything loads."""
+    pipe, micro = args.mesh_pipe, args.pipeline_microbatches
+    if micro < 0 or pipe < 1:
+        raise SystemExit(f"--mesh_pipe {pipe} --pipeline_microbatches {micro}: expected a stage "
+                         "count >= 1 and a microbatch count >= 0")
+    if micro and pipe == 1:
+        raise SystemExit(f"--pipeline_microbatches {micro}: it splits the rows of a pipeline, "
+                         "which needs --mesh_pipe > 1")
+    if pipe == 1:
+        return
+    if args.sequence_parallel_axis:
+        raise SystemExit(f"--mesh_pipe {pipe} with --sequence_parallel_axis "
+                         f"{args.sequence_parallel_axis}: the pipeline and the sequence split "
+                         "are mutually exclusive (as in vlrlhf_tpu, models/lm/pipeline.py:87-91)")
+    if args.command == "ppo":
+        raise SystemExit(f"ppo under --mesh_pipe {pipe}: its rollouts generate with every layer "
+                         "on a rank, and gathering a pipeline's stages for generation is not "
+                         f"ported ({PART2})")
+    if getattr(args, "eval_samples", 0):
+        raise SystemExit(f"--eval_samples under --mesh_pipe {pipe}: the samples generate with "
+                         "every layer on a rank, and gathering a pipeline's stages for "
+                         f"generation is not ported ({PART2}); --eval_steps alone runs the "
+                         "holdout through the pipeline")
+    m = micro or pipe
+    rows = args.per_device_train_batch_size * (2 if args.command in PAIRS else 1)
+    if rows % m:
+        what = (f"{args.per_device_train_batch_size} pairs = {rows} rows"
+                if args.command in PAIRS else f"{rows} rows")
+        raise SystemExit(f"--mesh_pipe {pipe}: {what} per data-parallel rank "
+                         f"(--per_device_train_batch_size) do not split into {m} pipeline "
+                         "microbatches (--pipeline_microbatches)")
+    n_layers = lm_layers(args)
+    if n_layers % pipe:
+        raise SystemExit(f"--mesh_pipe {pipe}: the LM's {n_layers} layers do not split into "
+                         f"{pipe} equal stages")
 
 
 def setup_mesh(args, device: torch.device):
-    """The process group and the (data, fsdp, model) mesh of a torchrun
-    launch (core/dist.py, core/mesh.py), with --sequence_parallel_axis
-    fsdp a sequence-parallel one, or None for a plain run, which must then
-    ask for one device. The flags of later parts are refused here."""
+    """The process group and the (pipe, data, fsdp, model) mesh of a
+    torchrun launch (core/dist.py, core/mesh.py), with
+    --sequence_parallel_axis fsdp a sequence-parallel one, with --mesh_pipe
+    S a pipeline of S stages, or None for a plain run, which must then ask
+    for one device. Refusals come first, by name."""
     from vlrlhf_torch.core import dist
     from vlrlhf_torch.core.mesh import MeshConfig, check_sp_axis, make_mesh
 
-    if args.mesh_pipe > 1 or args.pipeline_microbatches:
-        raise SystemExit(f"--mesh_pipe / --pipeline_microbatches: the GPipe pipeline is "
-                         f"{PART2}")
     axis = args.sequence_parallel_axis
     try:
         check_sp_axis(axis)
     except ValueError as e:
         raise SystemExit(str(e)) from None
+    check_pipeline_flags(args)
     if axis and getattr(args, "eval_samples", 0):
         raise SystemExit(f"--eval_samples under --sequence_parallel_axis {axis}: the samples' "
                          f"generation is not sequence-parallel ({PART2})")
@@ -181,6 +246,10 @@ def setup_mesh(args, device: torch.device):
             raise SystemExit(f"--sequence_parallel_axis {axis}: the sequence is split over the "
                              "ranks of a mesh launched by torchrun (torchrun --nproc_per_node "
                              "N ... --mesh_fsdp N)")
+        if args.mesh_pipe > 1:
+            raise SystemExit(f"--mesh_pipe {args.mesh_pipe}: the pipeline's stages are the ranks "
+                             "of a mesh launched by torchrun (torchrun --nproc_per_node N ... "
+                             f"--mesh_pipe {args.mesh_pipe})")
         try:
             mcfg.resolve(1)
         except ValueError as e:
@@ -190,7 +259,7 @@ def setup_mesh(args, device: torch.device):
         return None
     dist.initialize(device.type)
     try:
-        return make_mesh(mcfg, device.type, axis)
+        return make_mesh(mcfg, device.type, axis, args.pipeline_microbatches)
     except ValueError as e:
         raise SystemExit(str(e)) from None
 
@@ -725,7 +794,7 @@ def maybe_resume(args, run, ckpt, extras: Optional[Callable[[dict], None]] = Non
     takes the checkpoint's extra dict (ppo's KL coefficient). Returns the
     step to count on from (0 for a fresh run)."""
     from vlrlhf_torch.core.mesh import current_mesh
-    from vlrlhf_torch.core.partitioning import shard_full, tp_dim
+    from vlrlhf_torch.core.partitioning import shard_full, stage_tree, tp_dim
     from vlrlhf_torch.train.checkpoint import CheckpointManager
     from vlrlhf_torch.train.train_state import load_state_tree_
 
@@ -745,6 +814,9 @@ def maybe_resume(args, run, ckpt, extras: Optional[Callable[[dict], None]] = Non
     if mesh is not None:
         def place(key, leaf, full):
             return shard_full(full, leaf, tp_dim(key), mesh)
+
+        if mesh.pp is not None:  # a stage restores its layers' leaves
+            tree = stage_tree(tree, run.keys)
     load_state_tree_(run.state, run.keys, tree, place=place)
     print(f"resumed from step {step}", flush=True)
     return step
@@ -824,18 +896,19 @@ def finish_run(run, args) -> None:
     --merge_adapter_after_training, `save_merged`'s merged (and merged_hf)
     weights, which fold in the policy's adapters only (vlrlhf_tpu
     `_finish`, cli/main.py:366-397). Under a mesh rank 0 writes them from
-    the gathered world-1 tensors: the files of a single-process run."""
+    the gathered world-1 tensors (every stage's layers under a pipeline):
+    the files of a single-process run."""
     import os
 
     from vlrlhf_torch.core.dist import is_main_process, sync_global_devices
     from vlrlhf_torch.core.mesh import current_mesh
-    from vlrlhf_torch.core.partitioning import full_tensor, tp_dim
+    from vlrlhf_torch.core.partitioning import full_tensor, gather_stages, tp_dim
     from vlrlhf_torch.train.checkpoint import save_params
 
     tree = dict(zip(run.keys, run.state.trainable))
     mesh = current_mesh()
     if mesh is not None:
-        tree = {k: full_tensor(t, tp_dim(k), mesh) for k, t in tree.items()}
+        tree = gather_stages({k: full_tensor(t, tp_dim(k), mesh) for k, t in tree.items()}, mesh)
     if is_main_process():
         save_params(os.path.join(args.output_dir, "adapters"), tree)
     if args.merge_adapter_after_training:
@@ -1552,16 +1625,19 @@ def _add_eval_parser(sub) -> None:
 
 def _add_mesh_args(p) -> None:
     """vlrlhf_tpu's mesh flags. They take effect under torchrun (dpo, sft,
-    rm, ppo); the pipeline ones are refused (part 2), and the sequence
-    split where it is not ported (setup_mesh, ppo, eval)."""
+    rm, ppo; the pipeline on dpo, sft and rm), and are refused where they
+    are not ported (setup_mesh, check_pipeline_flags, ppo, eval)."""
     p.add_argument("--mesh_data", type=int, default=1,
                    help="data-parallel replicas of the sharded model (HSDP)")
     p.add_argument("--mesh_fsdp", type=int, default=-1,
                    help="FSDP2 shards (-1: the ranks the other axes leave)")
     p.add_argument("--mesh_model", type=int, default=1,
                    help="tensor-parallel ranks (heads and the MLP width split)")
-    p.add_argument("--mesh_pipe", type=int, default=1, help="refused above 1 (part 2)")
-    p.add_argument("--pipeline_microbatches", type=int, default=0, help="refused (part 2)")
+    p.add_argument("--mesh_pipe", type=int, default=1,
+                   help="GPipe stages, each holding L / S decoder layers (dpo, sft, rm under "
+                        "torchrun)")
+    p.add_argument("--pipeline_microbatches", type=int, default=0,
+                   help="microbatches a batch's rows cross the pipeline in (0: one per stage)")
     p.add_argument("--sequence_parallel_axis", type=str, default="",
                    help="fsdp: each sequence split over the fsdp ranks, attention as a ring "
                         "(dpo, sft, rm under torchrun)")

@@ -20,7 +20,11 @@ group too: core/mesh.py).
 Sequence parallelism's collectives live here too: `SPShard` (a rank's
 place in the ring), `ring_exchange` (each tensor to the ring's next rank,
 the previous rank's back) and `sum_over_sp` (a loss term's sum over the
-ring whose backward is the identity).
+ring whose backward is the identity). So do the pipeline's: `PipeShard`
+(a rank's stage, the pipe group and the microbatch count), `pipe_send` /
+`pipe_recv` (one microbatch's tensor to the next or previous stage),
+`pipe_broadcast` (a stage's tensor to every stage) and `pipe_sum_` (a sum
+over the stages in place).
 """
 
 from __future__ import annotations
@@ -232,6 +236,24 @@ def dp_rank() -> int:
     return 0 if mesh is None else mesh.dp_rank
 
 
+def dp_rows(n: int, pairs: bool) -> "tuple[tuple[int, ...], int] | None":
+    """This data-parallel rank's `n` local rows as (their indices in the
+    global batch, its row count), the layout `data_parallel_slice` gives:
+    a pair batch [chosen; rejected] holds the rank's pairs in both halves
+    of the global [chosen; rejected] batch, another batch a contiguous
+    block. None when one rank reads every row (models/common.py Ctx.rows:
+    the LoRA dropout rows)."""
+    size = dp_size()
+    if size == 1:
+        return None
+    if not pairs:
+        lo = dp_rank() * n
+        return tuple(range(lo, lo + n)), n * size
+    h = n // 2
+    lo, g = dp_rank() * h, h * size
+    return tuple(range(lo, lo + h)) + tuple(range(g + lo, g + lo + h)), 2 * g
+
+
 def dp_gather_rows(t: torch.Tensor) -> torch.Tensor:
     """Every data-parallel rank's rows of `t` (same shape on each),
     concatenated in data-parallel order along dim 0: the global batch's
@@ -258,7 +280,10 @@ def vote_and_gather(flags: tuple, payload: Any) -> tuple[tuple, list]:
     _dist().all_gather_object(out, (flags, payload))
     mesh = current_mesh()
     voted = tuple(any(f[i] for f, _ in out) for i in range(len(flags)))
-    return voted, [p for _, p in out[:: mesh.model if mesh is not None else 1]]
+    if mesh is None:
+        return voted, [p for _, p in out]
+    block = mesh.data * mesh.fsdp * mesh.model  # the first stage's ranks
+    return voted, [p for _, p in out[:block:mesh.model]]
 
 
 def model_group_tokens(t: torch.Tensor) -> torch.Tensor:
@@ -392,6 +417,101 @@ class _SumOverSP(torch.autograd.Function):
 def sum_over_sp(t: torch.Tensor, sp: "SPShard | None") -> torch.Tensor:
     """`t` summed over the ring (`_SumOverSP`); `t` itself without one."""
     return t if sp is None else _SumOverSP.apply(t, sp.group)
+
+
+# ---------------------------------------------------------------------------
+# The pipeline's collectives
+
+
+def microbatch_spans(b: int, m: int) -> list[tuple[int, int]]:
+    """[lo, hi) of each of m microbatches of b rows: b / m rows each, or
+    when m does not divide b (a holdout's tail batch) the first b % m one
+    row more."""
+    if b < m:
+        raise ValueError(f"{b} rows cannot form {m} pipeline microbatches "
+                         "(--pipeline_microbatches)")
+    n, extra = divmod(b, m)
+    bounds = [i * n + min(i, extra) for i in range(m + 1)]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+@dataclasses.dataclass(frozen=True)
+class PipeShard:
+    """A rank's stage of the GPipe pipeline (models/lm/pipeline.py): the
+    pipe group (the S ranks of one (data, fsdp, model) coordinate, stage
+    order), this rank's stage, S, the group's backend (which picks the
+    hop's transport) and M, the microbatches each batch's rows cross the
+    stages in."""
+
+    group: Any
+    rank: int
+    size: int
+    backend: str
+    microbatches: int
+
+    def spans(self, b: int) -> list[tuple[int, int]]:
+        return microbatch_spans(b, self.microbatches)
+
+    def peer(self, stage: int) -> int:
+        """The global rank of `stage`'s member of this pipe group."""
+        return _dist().get_global_rank(self.group, stage)
+
+    def staged(self, t: torch.Tensor) -> bool:
+        """Whether `t` travels through a host copy: gloo's point-to-point
+        ops read and write host memory only (ring_exchange)."""
+        return self.backend == "gloo" and t.device.type != "cpu"
+
+
+def pipe_shard() -> "PipeShard | None":
+    """The registered mesh's pipeline (None: no mesh, or pipe == 1)."""
+    from vlrlhf_torch.core.mesh import current_mesh
+
+    mesh = current_mesh()
+    return None if mesh is None else mesh.pp
+
+
+def pipe_send(t: torch.Tensor, pp: PipeShard, stage: int) -> list:
+    """Start sending `t` to `stage`; returns what `wait_sends` waits on.
+    Under NCCL a `batch_isend_irecv` of the device tensor, under gloo a
+    host copy (ring_exchange's rule: gloo's isend of a CUDA tensor aborted
+    the sending rank on the card machine)."""
+    dist = _dist()
+    buf = t.detach().to("cpu") if pp.staged(t) else t.detach().contiguous()
+    return [(dist.batch_isend_irecv([dist.P2POp(dist.isend, buf, pp.peer(stage), pp.group)]),
+             buf)]
+
+
+def wait_sends(pending: list) -> None:
+    for works, _ in pending:
+        for w in works:
+            w.wait()
+    pending.clear()
+
+
+def pipe_recv(shape, dtype, device, pp: PipeShard, stage: int) -> torch.Tensor:
+    """`stage`'s tensor of `shape` and `dtype` (its `pipe_send`), on
+    `device`."""
+    dist = _dist()
+    host = pp.backend == "gloo" and torch.device(device).type != "cpu"
+    buf = torch.empty(shape, dtype=dtype, device="cpu" if host else device)
+    for w in dist.batch_isend_irecv([dist.P2POp(dist.irecv, buf, pp.peer(stage), pp.group)]):
+        w.wait()
+    return buf.to(device) if host else buf
+
+
+def pipe_broadcast(t: torch.Tensor, pp: PipeShard, stage: int) -> torch.Tensor:
+    """`stage`'s `t` on every stage (a new tensor; `t`'s shape and dtype
+    on every rank). Under gloo a device tensor goes through the host."""
+    buf = t.detach().to("cpu") if pp.staged(t) else t.detach().clone().contiguous()
+    _dist().broadcast(buf, src=pp.peer(stage), group=pp.group)
+    return buf.to(t.device) if pp.staged(t) else buf
+
+
+def pipe_sum_(tensors: list, pp: PipeShard) -> None:
+    """Each tensor summed over the stages, in place (every stage then holds
+    the same bits)."""
+    for t in tensors:
+        _dist().all_reduce(t, group=pp.group)
 
 
 # ---------------------------------------------------------------------------

@@ -2,15 +2,24 @@
 
 One process per GPU; the world's ranks form a `DeviceMesh` with named dims
 
+  pipe   — GPipe stages: stage p holds decoder layers [p L/S, (p+1) L/S)
   data   — replicas of the sharded model (HSDP's replicate dim)
   fsdp   — FSDP2 parameter, gradient and optimizer-state sharding
   model  — tensor parallelism over attention heads and the MLP width
 
-laid out rank = (d * fsdp + f) * model + m, so a tensor-parallel group is
-ranks next to each other (one host's NVLink peers). vlrlhf_tpu's fourth
-axis, `pipe`, is parsed and resolved the same way, but a mesh with
-pipe > 1 is refused here: the pipeline is part 2 of the port's multi-GPU
-work (ROADMAP.md).
+laid out rank = p * (data * fsdp * model) + (d * fsdp + f) * model + m:
+`pipe` outermost and `model` innermost, so a tensor-parallel group is
+ranks next to each other (one host's NVLink peers) and a stage is a
+contiguous block of data x fsdp x model ranks. FSDP2 and tensor
+parallelism work inside a stage (their groups share its p); the only
+traffic between blocks is the pipeline's (models/lm/pipeline.py): one
+microbatch's activations per hop, its gradient back, the stack's output
+made whole, and the gradients of leaves before the stack summed. The
+pipe group (`Mesh.pipe_group`, a core.dist.PipeShard's) joins the S
+ranks that share (d, f, m), one per stage, and is a process group of its
+own, so the hops never interleave with a stage's collectives. The ranks
+of one pipe group read the same rows: `dp_size` and `dp_rank` count
+data x fsdp alone.
 
 Sequence parallelism (`sequence_parallel_axis="fsdp"`, vlrlhf_tpu's
 LMConfig.sequence_parallel_axis): the ranks of one fsdp group read the
@@ -25,7 +34,9 @@ point-to-point exchanges never interleave with FSDP2's collectives on the
 fsdp group. The port
 keeps the switch on the mesh, not on the LM's config: every training
 forward under such a mesh is sequence-parallel, and the paths that cannot
-be (prefill, decode, chunks) refuse it by name.
+be (prefill, decode, chunks) refuse it by name. A pipeline and the
+sequence split are refused together, as vlrlhf_tpu asserts
+(models/lm/pipeline.py:87-91).
 """
 
 from __future__ import annotations
@@ -34,9 +45,9 @@ import dataclasses
 import math
 from typing import Optional
 
-from vlrlhf_torch.core.dist import SPShard
+from vlrlhf_torch.core.dist import PipeShard, SPShard
 
-MESH_DIMS = ("data", "fsdp", "model")
+MESH_DIMS = ("pipe", "data", "fsdp", "model")
 
 
 def check_sp_axis(axis: str) -> str:
@@ -96,7 +107,9 @@ class Mesh:
     ranks, or under sequence parallelism those of one (fsdp, model)
     coordinate), `tp_group` the ranks of one (data, fsdp) coordinate and
     `sp` (sequence parallelism only) the ring: the ranks of one (data,
-    model) coordinate."""
+    model) coordinate. Every group but `pp`'s lies inside this rank's
+    stage; `pp` (pipe > 1 only) joins the stages' ranks of this (data,
+    fsdp, model) coordinate."""
 
     device_mesh: object  # torch.distributed.device_mesh.DeviceMesh
     data: int
@@ -108,6 +121,19 @@ class Mesh:
     tp_group: object
     grad_group: object = None
     sp: Optional[SPShard] = None  # the ring, under sequence parallelism
+    pipe: int = 1
+    pp: Optional[PipeShard] = None  # the stages, under a pipeline
+
+    @property
+    def pipe_rank(self) -> int:
+        """This rank's stage (0 without a pipeline)."""
+        return 0 if self.pp is None else self.pp.rank
+
+    @property
+    def pipe_group(self):
+        """The S ranks of this (data, fsdp, model) coordinate, one per stage
+        (None without a pipeline)."""
+        return None if self.pp is None else self.pp.group
 
     @property
     def sp_size(self) -> int:
@@ -143,6 +169,21 @@ class Mesh:
         return self.device_mesh["fsdp"]
 
 
+def rank_of(shape: tuple[int, int, int, int], p: int, d: int, f: int, m: int) -> int:
+    """The rank at (pipe, data, fsdp, model) coordinates (p, d, f, m) of a
+    mesh of `shape` (pipe, data, fsdp, model): pipe outermost, model
+    innermost, as init_device_mesh lays the world out."""
+    _, data, fsdp, model = shape
+    return ((p * data + d) * fsdp + f) * model + m
+
+
+def coords_of(shape: tuple[int, int, int, int], rank: int) -> tuple[int, int, int, int]:
+    """`rank_of`'s inverse: (p, d, f, m)."""
+    _, data, fsdp, model = shape
+    return (rank // (data * fsdp * model), rank // (fsdp * model) % data,
+            rank // model % fsdp, rank % model)
+
+
 _GLOBAL_MESH: Optional[Mesh] = None
 
 
@@ -164,29 +205,36 @@ def current_mesh() -> Optional[Mesh]:
 
 
 def make_mesh(config: Optional[MeshConfig] = None, device_type: str = "cuda",
-              sequence_parallel_axis: str = "") -> Mesh:
-    """The (data, fsdp, model) mesh over every rank of the initialized
-    process group, registered as the global mesh. Every rank takes part:
-    a mesh smaller than the world is refused (vlrlhf_tpu idles the spare
-    devices; a spare process would deadlock the collectives). With
-    `sequence_parallel_axis` "fsdp" the fsdp ranks split each sequence
-    (the module note)."""
+              sequence_parallel_axis: str = "", microbatches: int = 0) -> Mesh:
+    """The (pipe, data, fsdp, model) mesh over every rank of the
+    initialized process group, registered as the global mesh. Every rank
+    takes part: a mesh smaller than the world is refused (vlrlhf_tpu idles
+    the spare devices; a spare process would deadlock the collectives).
+    With `sequence_parallel_axis` "fsdp" the fsdp ranks split each
+    sequence; with pipe > 1 the batch's rows cross the stages as
+    `microbatches` microbatches (0: one per stage, vlrlhf_tpu's default).
+    See the module note."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     config = config or MeshConfig()
     world = dist.get_world_size()
     data, fsdp, model, pipe = config.resolve(world)
-    if pipe > 1:
-        raise ValueError(f"--mesh_pipe {pipe}: the pipeline is not ported yet (multi-GPU "
-                         "part 2, ROADMAP.md)")
-    if data * fsdp * model != world:
-        raise ValueError(f"mesh data={data} fsdp={fsdp} model={model} covers "
-                         f"{data * fsdp * model} ranks, the world has {world}")
     sp = check_sp_axis(sequence_parallel_axis) == "fsdp"
-    dm = init_device_mesh(device_type, (data, fsdp, model), mesh_dim_names=MESH_DIMS)
-    rank = dist.get_rank()
-    coords = (rank // (fsdp * model), (rank // model) % fsdp, rank % model)
+    if pipe > 1 and sp:
+        raise ValueError(f"--mesh_pipe {pipe} with --sequence_parallel_axis fsdp: the pipeline "
+                         "and the sequence split are mutually exclusive (as in vlrlhf_tpu, "
+                         "models/lm/pipeline.py:87-91)")
+    if microbatches and pipe == 1:
+        raise ValueError(f"--pipeline_microbatches {microbatches}: it splits the rows of a "
+                         "pipeline, which needs --mesh_pipe > 1")
+    if pipe * data * fsdp * model != world:
+        raise ValueError(f"mesh pipe={pipe} data={data} fsdp={fsdp} model={model} covers "
+                         f"{pipe * data * fsdp * model} ranks, the world has {world}")
+    shape = (pipe, data, fsdp, model)
+    dm = init_device_mesh(device_type, shape, mesh_dim_names=MESH_DIMS)
+    p, *coords = coords_of(shape, dist.get_rank())
+    coords = tuple(coords)
 
     def groups(members, key) -> object:
         """new_group for every coordinate (every rank creates every group,
@@ -198,20 +246,29 @@ def make_mesh(config: Optional[MeshConfig] = None, device_type: str = "cuda",
                 mine = g
         return mine
 
-    def at(d, f, m):
-        return (d * fsdp + f) * model + m
+    def at(q, d, f, m):
+        return rank_of(shape, q, d, f, m)
 
-    grad_group = groups(((m, [at(d, f, m) for d in range(data) for f in range(fsdp)])
-                         for m in range(model)), coords[2])
-    dp_group = sp_group = None
+    grad_group = groups((((q, m), [at(q, d, f, m) for d in range(data) for f in range(fsdp)])
+                         for q in range(pipe) for m in range(model)), (p, coords[2]))
+    dp_group = sp_group = pp = None
     if sp:
-        dp_group = groups((((f, m), [at(d, f, m) for d in range(data)])
+        dp_group = groups((((f, m), [at(0, d, f, m) for d in range(data)])
                            for f in range(fsdp) for m in range(model)), coords[1:])
-        sp_group = groups((((d, m), [at(d, f, m) for f in range(fsdp)])
+        sp_group = groups((((d, m), [at(0, d, f, m) for f in range(fsdp)])
                            for d in range(data) for m in range(model)), (coords[0], coords[2]))
+    if pipe > 1:
+        pipe_group = groups(((c, [at(q, *c) for q in range(pipe)])
+                             for c in ((d, f, m) for d in range(data) for f in range(fsdp)
+                                       for m in range(model))), coords)
+        pp = PipeShard(pipe_group, p, pipe, dist.get_backend(pipe_group), microbatches or pipe)
+        # the group's first operation is a collective of all its ranks (NCCL
+        # leaves a first point-to-point call on a group undefined otherwise)
+        dist.barrier(group=pipe_group)
     return set_global_mesh(Mesh(
         device_mesh=dm, data=data, fsdp=fsdp, model=model, coords=coords,
         dp_group=dp_group if sp else grad_group, fsdp_group=dm.get_group("fsdp"),
         tp_group=dm.get_group("model"), grad_group=grad_group,
         sp=SPShard(sp_group, coords[1], fsdp, dist.get_backend(sp_group)) if sp else None,
+        pipe=pipe, pp=pp,
     ))

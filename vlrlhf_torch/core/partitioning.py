@@ -1,6 +1,17 @@
 """The parameter plan (counterpart of vlrlhf_tpu/core/partitioning.py,
-`default_lm_rules`): how every leaf of the port's model is placed on the
-(data, fsdp, model) mesh, and the functions that apply it and undo it.
+`default_lm_rules` and `pipe_layers`): how every leaf of the port's model
+is placed on the (pipe, data, fsdp, model) mesh, and the functions that
+apply it and undo it.
+
+The pipeline over `pipe` (S stages) comes first: stage p keeps decoder
+layers [p L/S, (p+1) L/S) (`keep_stage_layers_`, a StageLayers named by
+their global indices) and drops the others, so a rank's resident memory
+falls by (S-1)/S of the stack; vlrlhf_tpu lays the stacked layers' leading
+axis over `pipe` likewise (partitioning.py:55-78). Everything else, the
+root unit below (embedding, towers, projector, final norm, head), stays
+on every stage, as vlrlhf_tpu's towers stay unpipelined. Tensor
+parallelism and FSDP2 then apply to the stage's layers and the root over
+the stage's own model and data x fsdp ranks.
 
 FSDP2 over (data, fsdp): `fully_shard` splits dim 0 of every parameter
 over `fsdp`, and replicates over `data` when data > 1 (HSDP), as
@@ -32,6 +43,15 @@ linears on `model`, replicate the LoRA adapters and the qkv bias, and put
 fsdp on a kernel's `in` dim; the results are the same, and
 tests/test_torch_mesh.py pins each deviation in an explicit table.
 
+Under a pipeline a leaf is a stage's (its LM layer's; `pipe_role`
+"stage"), before the stack ("before": the embedding, the towers and the
+projector, whose gradient only stage 0 computes) or after it ("after":
+lm_head, rm's and ppo's heads, whose gradient every stage computes from
+the same whole output). The optimizer sums a "before" leaf's gradient
+over the stages (train/train_state.py `pipe_sum`), so every replicated
+leaf is bit-equal on every stage after a step, and the gradient norm sums
+a stage leaf's squared norm over the stages too.
+
 The gradient rule: a trainable leaf's gradient is the mean over the
 ranks that read different rows of their gradients. FSDP2's reduction
 (and a leaf outside its units, rm's head, reduced over core.dist
@@ -44,8 +64,10 @@ data: the steps scale their loss by the ring's size before the backward
 gives it. The gradient norm and the clip then see the summed gradients.
 
 Checkpoints and final saves gather every tensor to its world-1 layout
-(`full_tensor`) and restores split it again for the mesh at hand
-(`shard_full`), so a checkpoint resumes under any layout.
+(`full_tensor`, then the stages' layers joined over the pipe group) and
+restores split it again for the mesh at hand (`stage_tree` keeps a
+stage's layers, `shard_full` its part of each), so a checkpoint resumes
+under any layout.
 """
 
 from __future__ import annotations
@@ -74,6 +96,8 @@ _JAX_LEAVES = {"kernel": "weight", "bias": "bias", "kernel_q": "weight_q",
                "kernel_scale": "weight_scale", "kernel_q4": "weight_q4",
                "kernel_scale4": "weight_scale4", "kernel_gbias": "weight_gbias",
                "a": "lora_a", "b": "lora_b"}
+_LM_LAYER = re.compile(r"(^|[/.])lm([/.])layers\2(\d+)\2")
+_AFTER_STACK = re.compile(r"^(?:adapters/)?lm/(?:lm_head|norm)/|^(?:rm_head|v_head)/")
 _LAYER_LINEAR = re.compile(
     r"^(?:adapters/|value_adapters/|plora/)?lm/layers(?:_scanned|/\d+)/(?:attn|mlp)/(\w+)/(\w+)$")
 
@@ -104,6 +128,29 @@ def tp_dim(path: str) -> Optional[int]:
     return linear_tp_dim(tp_mode(m.group(1)), _JAX_LEAVES[m.group(2)])
 
 
+def layer_index(key: str) -> Optional[int]:
+    """The global LM layer index a state-tree key ("lm/layers/3/attn/wq/a",
+    "adapters/lm/layers/3/...") or a parameter name ("lm.layers.3.wq.weight")
+    names, or None for a leaf outside the stack's layers."""
+    m = _LM_LAYER.search(key)
+    return None if m is None else int(m.group(3))
+
+
+def with_layer_index(key: str, index: int) -> str:
+    """`key` naming LM layer `index` instead of its own."""
+    m = _LM_LAYER.search(key)
+    return f"{key[:m.start(3)]}{index}{key[m.end(3):]}"
+
+
+def pipe_role(key: str) -> str:
+    """"stage" (an LM layer's leaf), "after" (a leaf after the stack:
+    lm_head, the final norm, a reward or value head) or "before" (the
+    embedding, the towers, the projector) for a state-tree key."""
+    if layer_index(key) is not None:
+        return "stage"
+    return "after" if _AFTER_STACK.search(key) else "before"
+
+
 def model_spec(path: str, ndim: int) -> tuple:
     """The leaf's placement on the model axis as one entry per dim ("model"
     or None), in the port's orientation: the counterpart of the "model"
@@ -127,7 +174,8 @@ def check_tp(model, model_size: int) -> None:
                     ("intermediate_size", lm.intermediate_size)):
         if n % model_size:
             raise ValueError(f"--mesh_model {model_size}: {what} {n} is not divisible by it")
-    for i, layer in enumerate(model.lm.layers):
+    lo, _ = model.lm.layer_span
+    for i, layer in enumerate(model.lm.layers, lo):
         for name in ROW:
             lin = getattr(layer, name)
             if lin.weight_q4 is not None and (lin.d_in // model_size) % 128:
@@ -237,9 +285,28 @@ def apply_fsdp_(model, mesh) -> None:
     register_fsdp_forward_method(model, "row_features")
 
 
+def keep_stage_layers_(model, mesh) -> None:
+    """Under a pipeline, drop every decoder layer but this rank's stage's
+    (models/lm/llama.py StageLayers keeps their global names); their
+    weights and adapters are freed. A layer count the stages do not divide
+    is refused."""
+    from vlrlhf_torch.models.lm.llama import StageLayers
+    from vlrlhf_torch.models.lm.pipeline import stage_span
+
+    if mesh.pp is None:
+        return
+    lm = model.lm
+    if len(lm.layers) != lm.cfg.num_layers:
+        raise ValueError("the model holds one stage's layers already")
+    lo, hi = stage_span(lm.cfg.num_layers, mesh.pipe, mesh.pipe_rank)
+    lm.layers = StageLayers(list(lm.layers)[lo:hi], lo)
+
+
 def shard_model_(model, mesh) -> None:
     """The whole plan on a model that holds its full weights (quantized and
-    with adapters attached, as `setup_training` leaves it)."""
+    with adapters attached, as `setup_training` leaves it): the stage's
+    layers, then tensor parallelism and FSDP2 over the stage's ranks."""
+    keep_stage_layers_(model, mesh)
     apply_tensor_parallel_(model, mesh)
     apply_fsdp_(model, mesh)
 
@@ -274,8 +341,10 @@ def attach_norm_groups_(state, keys: list, mesh) -> None:
     keys) its gradient-norm groups: per leaf, the process groups its
     squared norm is summed over: fsdp for an FSDP2-sharded leaf (the data
     replicas hold the same shard), then model for a leaf tensor
-    parallelism splits; a plain replicated leaf (the reward head) sums
-    over none. Every distinct value then counts once."""
+    parallelism splits, then pipe for a stage's leaf; a plain replicated
+    leaf (the reward head) sums over none. Every distinct value then
+    counts once. Under a pipeline also its `pipe_sum`: the leaves before
+    the stack, whose gradients are summed over the stages (`pipe_role`)."""
     from torch.distributed.tensor import DTensor
 
     groups = []
@@ -283,8 +352,12 @@ def attach_norm_groups_(state, keys: list, mesh) -> None:
         g = (mesh.fsdp_group,) if isinstance(p, DTensor) and mesh.fsdp > 1 else ()
         if tp_dim(key) is not None and mesh.model > 1:
             g = g + (mesh.tp_group,)
+        if mesh.pp is not None and pipe_role(key) == "stage":
+            g = g + (mesh.pipe_group,)
         groups.append(g)
     state.norm_groups = groups
+    if mesh.pp is not None:
+        state.pipe_sum = (mesh.pp, [i for i, k in enumerate(keys) if pipe_role(k) == "before"])
 
 
 # ---------------------------------------------------------------------------
@@ -354,13 +427,66 @@ def shard_full(full: torch.Tensor, like: torch.Tensor, dim: Optional[int], mesh)
     return full
 
 
-def full_state_tree(tree: dict, mesh) -> dict:
-    """A train_state `state_tree` with every tensor gathered to its world-1
-    layout (collective)."""
+def _pipe_join(t: torch.Tensor, mesh, to_all: bool) -> Optional[list]:
+    """Every stage's `t` (one shape on each), in stage order: on every rank
+    (`to_all`), or on stage 0 alone (the others get None). Under gloo a
+    device tensor goes through a host copy."""
+    import torch.distributed as dist
+
+    pp = mesh.pp
+    src = t.detach().to("cpu") if pp.staged(t) else t.detach().contiguous()
+    if to_all:
+        parts = [torch.empty_like(src) for _ in range(pp.size)]
+        dist.all_gather(parts, src, group=pp.group)
+    else:
+        parts = [torch.empty_like(src) for _ in range(pp.size)] if pp.rank == 0 else None
+        dist.gather(src, parts, dst=pp.peer(0), group=pp.group)
+    return None if parts is None else [p.to(t.device) for p in parts]
+
+
+def gather_stages(tree: dict, mesh) -> dict:
+    """A {key: world-1 tensor} dict of this rank's stage (its layers keyed
+    by global index) joined over the stages: every stage's layers, then
+    the rest, in sorted key order, on every rank (collective; the tree
+    itself without a pipeline). The stages' keys are matched by their
+    place in the stage, so each stage calls with the same structure."""
+    if mesh is None or mesh.pp is None:
+        return tree
+    idx = {k: layer_index(k) for k in tree}
+    local = [k for k in tree if idx[k] is not None]
+    out = {k: v for k, v in tree.items() if idx[k] is None}
+    if local:
+        lo, n = min(idx[k] for k in local), len({idx[k] for k in local})
+        for k in sorted(local, key=lambda k: with_layer_index(k, idx[k] - lo)):
+            for s, t in enumerate(_pipe_join(tree[k], mesh, to_all=True)):
+                out[with_layer_index(k, s * n + idx[k] - lo)] = t
+    return {k: out[k] for k in sorted(out)}
+
+
+def stage_tree(tree: dict, keys: list) -> dict:
+    """A world-1 `state_tree` cut to a stage's leaves `keys` (in their
+    order), the counters kept: what a pipeline stage restores."""
     out = {}
     for group, val in tree.items():
         if isinstance(val, dict):
-            out[group] = {k: full_tensor(t, tp_dim(k), mesh) for k, t in val.items()}
+            missing = [k for k in keys if k not in val]
+            if missing:
+                raise ValueError(f"checkpoint {group} keys differ from the model's adapters: "
+                                 f"{missing[:4]} missing")
+            out[group] = {k: val[k] for k in keys}
+        else:
+            out[group] = val
+    return out
+
+
+def full_state_tree(tree: dict, mesh) -> dict:
+    """A train_state `state_tree` with every tensor gathered to its world-1
+    layout, every stage's layers joined (collective)."""
+    out = {}
+    for group, val in tree.items():
+        if isinstance(val, dict):
+            out[group] = gather_stages({k: full_tensor(t, tp_dim(k), mesh)
+                                        for k, t in val.items()}, mesh)
         else:
             out[group] = val
     return out
@@ -398,7 +524,14 @@ def full_model_state(model, mesh, dtype: torch.dtype) -> dict:
             elif mod is not None and leaf in ("weight_scale", "weight_scale4", "weight_gbias"):
                 continue
             t = full_tensor(p, linear_tp_dim(mode, leaf), mesh)
-            if is_main_process():
+            g = layer_index(name) if mesh is not None and mesh.pp is not None else None
+            if g is not None:
+                lo, hi = model.lm.layer_span
+                parts = _pipe_join(t, mesh, to_all=False)
+                if is_main_process():
+                    for s, part in enumerate(parts):
+                        out[with_layer_index(name, s * (hi - lo) + g - lo)] = part
+            elif is_main_process():
                 # a copy: an unsharded parameter's storage is freed at reshard
                 out[name] = t.clone() if units else t
     return out

@@ -93,15 +93,20 @@ def init_lora(model: nn.Module, cfg: LoraConfig, generator: torch.Generator,
     that name instead of `lora_a` / `lora_b`. Returns the names of the
     adapted modules. On a tensor-parallel Linear (`Linear.tp`) the
     single-process adapter is drawn and this rank keeps its part, so a
-    sharded model holds the world-1 draw."""
+    sharded model holds the world-1 draw. On a pipeline stage's model,
+    which holds some of the LM's layers (core/partitioning.py), the other
+    stages' adapters are drawn in their places and dropped, so the stage's
+    adapters are the world-1 draw too."""
     from vlrlhf_torch.core.partitioning import linear_tp_dim
 
     names = []
-    for name, mod in match_lora_targets(model, cfg.target_patterns):
+    for name, mod, held in _draw_order(model, cfg.target_patterns):
         tp = mod.tp
         d_out, d_in = (tp.d_out, tp.d_in) if tp is not None else (mod.d_out, mod.d_in)
         dev = mod.device
         a = torch.randn((d_in, cfg.r), generator=generator, device=dev, dtype=torch.float32)
+        if not held:
+            continue
         a = a / cfg.r**0.5
         b = torch.zeros((cfg.r, d_out), device=dev, dtype=torch.float32)
         if tp is not None:
@@ -116,6 +121,29 @@ def init_lora(model: nn.Module, cfg: LoraConfig, generator: torch.Generator,
     if not names:
         raise ValueError(f"no Linear matches the LoRA targets {cfg.target_patterns}")
     return names
+
+
+def _draw_order(model: nn.Module, patterns: Sequence[str]) -> list:
+    """(name, Linear, held) in the order a single-process model draws its
+    adapters: the matched Linears, and on a pipeline stage's model also
+    the matched Linears of the LM layers it does not hold, each standing
+    in as the held layer's Linear of the same name (the layers share one
+    shape), with held False."""
+    from vlrlhf_torch.models.common import Linear
+
+    out = [(module_path(name), name, mod, True)
+           for name, mod in match_lora_targets(model, patterns)]
+    lm = getattr(model, "lm", None)
+    if lm is not None and len(lm.layers) < lm.cfg.num_layers:
+        lo, hi = lm.layer_span
+        regs = [re.compile(p) for p in patterns]
+        like = {n: m for n, m in lm.layers[0].named_modules() if isinstance(m, Linear)}
+        for g in (g for g in range(lm.cfg.num_layers) if not lo <= g < hi):
+            for n, mod in like.items():
+                path = module_path(f"lm.layers.{g}.{n}")
+                if any(r.search(path) for r in regs):
+                    out.append((path, f"lm.layers.{g}.{n}", mod, False))
+    return [(name, mod, held) for _, name, mod, held in sorted(out, key=lambda t: t[0])]
 
 
 PLORA_LINEARS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
@@ -222,6 +250,7 @@ def lora_delta(
     mix: Optional[torch.Tensor] = None,  # (B, N) per-row set weights, stacked sets only
     tp=None,  # core.dist.TPShard of a tensor-parallel Linear
     seq_span: Optional[tuple[int, int]] = None,  # (offset, whole length): x is a sequence slice
+    rows: Optional[tuple[tuple[int, ...], int]] = None,  # x's rows of a whole batch
 ) -> torch.Tensor:
     """delta = dropout(x) @ a @ b * scale, a and b cast to x's dtype.
 
@@ -239,7 +268,10 @@ def lora_delta(
     before b; a row part's x holds the columns of its rank, and its mask is
     those columns of the mask the whole x would draw, so a sharded run
     draws the single-process masks. Likewise a sequence slice (`seq_span`,
-    x (B, S/n, in)) keeps its rows of the whole sequence's mask."""
+    x (B, S/n, in)) keeps its positions of the whole sequence's mask, and
+    some rows of a batch (`rows`, (their indices, the batch's row count):
+    a data-parallel rank's, a pipeline microbatch's) keep theirs of the
+    whole batch's."""
     h = x
     if seed is not None and dropout > 0.0:
         gen = torch.Generator(device=x.device)
@@ -250,9 +282,15 @@ def lora_delta(
             shape[-1] *= tp.size
         if seq_span is not None:
             shape[1] = seq_span[1]
+        if rows is not None:
+            if len(rows[0]) != x.shape[0]:
+                raise ValueError(f"dropout rows {len(rows[0])} for an input of {x.shape[0]}")
+            shape[0] = rows[1]
         keep = torch.rand(shape, generator=gen, device=x.device)
         if seq_span is not None:
             keep = keep[:, seq_span[0]:seq_span[0] + x.shape[1]]
+        if rows is not None:
+            keep = keep[torch.tensor(rows[0], device=x.device)]
         if row:
             n = x.shape[-1]
             keep = keep[..., tp.rank * n:(tp.rank + 1) * n]

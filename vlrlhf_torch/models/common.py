@@ -69,7 +69,15 @@ class Ctx:
     `seq_span` (offset, whole length) marks a call on a slice of the
     sequence (sequence parallelism, models/lm/llama.py): LoRA dropout then
     draws the whole sequence's mask and keeps the slice's rows, so a
-    sequence-parallel run draws the single-process masks."""
+    sequence-parallel run draws the single-process masks.
+
+    `rows` (indices, whole count) marks a call on some rows of the global
+    batch: a data-parallel rank's (the steps set it from core.dist
+    `dp_rows`) or a pipeline microbatch's (`row_shard`,
+    models/lm/pipeline.py). LoRA dropout then draws the whole batch's mask
+    and keeps those rows, so data-parallel and pipelined runs draw the
+    single-process masks too. The towers' image rows do not follow it (a
+    rank's images draw their own masks: VLM.encode_images)."""
 
     adapters: bool = False
     lora_scale: float = 1.0
@@ -79,6 +87,14 @@ class Ctx:
     adapter_set: str = ""
     lora_mask: Optional[torch.Tensor] = None
     seq_span: Optional[tuple[int, int]] = None
+    rows: Optional[tuple[tuple[int, ...], int]] = None
+
+    def row_shard(self, lo: int, hi: int, b: int) -> "Ctx":
+        """The context of a call on rows [lo, hi) of this call's b rows: the
+        PLoRA mask's rows kept, the dropout rows narrowed."""
+        mask = None if self.lora_mask is None else self.lora_mask[lo:hi]
+        ids, whole = self.rows if self.rows is not None else (tuple(range(b)), b)
+        return dataclasses.replace(self, lora_mask=mask, rows=(ids[lo:hi], whole))
 
     def seq_shard(self, lo: int, hi: int, s: int) -> "Ctx":
         """The context of a call on positions [lo, hi) of a length-s
@@ -292,7 +308,8 @@ class Linear(nn.Module):
         if self._lora_on(ctx):
             a, b = self.adapter_pair(ctx.adapter_set)
             d = lora_delta(x, a, b, ctx.lora_scale, ctx.lora_dropout, ctx.dropout_seed,
-                           ctx.adapter_mix, tp=self.tp, seq_span=ctx.seq_span)
+                           ctx.adapter_mix, tp=self.tp, seq_span=ctx.seq_span,
+                           rows=ctx.rows)
             out = d if out is None else out + d.to(out.dtype)
         return out
 

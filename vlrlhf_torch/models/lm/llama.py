@@ -39,6 +39,16 @@ the backward, every rank in the same order). It returns the slice's
 hidden states. The prefill, decode and chunk paths refuse such a mesh by
 name.
 
+Under a mesh with pipe > 1 each rank's decoder holds its stage's layers
+only (`StageLayers`, named by their global indices; core/partitioning.py)
+and the training forward runs them through the GPipe schedule
+(models/lm/pipeline.py): the batch's rows cross the stages as
+microbatches, each stage running its layers (`run_layers`, every remat
+policy, each layer's dropout stream folded from its global index) on a
+microbatch's rows, and the stack's output comes back whole on every stage,
+where the final norm and everything after it run on the whole batch. The
+prefill, decode and chunk paths refuse a pipeline by name.
+
 KV cache layout is vlrlhf_tpu's head-major decode layout: {"k", "v"} each
 (L, B, nkv, Sc, hd), slot == absolute position (right-padded prompts); an
 int8 cache adds {"k_scale", "v_scale"} (L, B, nkv, Sc) bf16 and every write
@@ -58,7 +68,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
-from vlrlhf_torch.core.dist import sp_shard
+from vlrlhf_torch.core.dist import pipe_shard, sp_shard
 from vlrlhf_torch.models.common import Ctx, Linear, Norm, empty_param, embed
 from vlrlhf_torch.models.config import LMConfig
 from vlrlhf_torch.ops.attention import multi_head_attention
@@ -79,11 +89,14 @@ def train_attention(q, k, v, pad_mask) -> torch.Tensor:
     return multi_head_attention(q, k, v, causal=True, pad_mask_q=pad_mask, pad_mask_kv=pad_mask)
 
 
-def refuse_sp(path: str) -> None:
+def refuse_split(path: str) -> None:
     if sp_shard() is not None:
         raise ValueError(f"the {path} path refuses sequence parallelism "
                          "(--sequence_parallel_axis): only the training forward is "
                          "sequence-parallel")
+    if pipe_shard() is not None:
+        raise ValueError(f"the {path} path refuses a pipeline (--mesh_pipe): a stage holds "
+                         "some of the layers and only the training forward is pipelined")
 
 
 class LlamaLayer(nn.Module):
@@ -259,6 +272,22 @@ def _dots_context():
 REMAT_POLICIES = ("full", "attn", "dots", "mlp", "mlp1", "acts")
 
 
+class StageLayers(nn.ModuleList):
+    """A pipeline stage's decoder layers, global layers [offset, offset +
+    len): registered under their global indices, so parameter names,
+    adapter keys and checkpoint keys are the single-process model's;
+    indexed and iterated by position."""
+
+    def __init__(self, layers, offset: int):
+        super().__init__()
+        self.offset = offset
+        for i, layer in enumerate(layers):
+            self.add_module(str(offset + i), layer)
+
+    def __getitem__(self, idx):
+        return list(self._modules.values())[idx]
+
+
 class LlamaDecoder(nn.Module):
     def __init__(self, cfg: LMConfig, device):
         super().__init__()
@@ -273,6 +302,13 @@ class LlamaDecoder(nn.Module):
 
     def embed(self, ids: torch.Tensor) -> torch.Tensor:
         return embed(self.embed_tokens, ids, self.cfg.dtype)
+
+    @property
+    def layer_span(self) -> tuple[int, int]:
+        """[lo, hi): the global indices of the layers this decoder holds
+        (all of them, or a pipeline stage's)."""
+        lo = getattr(self.layers, "offset", 0)
+        return lo, lo + len(self.layers)
 
     @property
     def cache_cfg(self) -> LMConfig:
@@ -311,8 +347,8 @@ class LlamaDecoder(nn.Module):
         b, s, _ = inputs_embeds.shape
         sp = sp_shard()
         lo, hi = (0, s) if sp is None else sp.span(s)
-        if sp is not None and cache_len is not None:
-            refuse_sp("prefill")
+        if cache_len is not None:
+            refuse_split("prefill")
         positions = torch.arange(lo, hi, device=inputs_embeds.device)[None].expand(b, hi - lo)
         alpha = None
         if cfg.rope_scaling_type == "qwen_dynamic":  # from each row's (whole) real length
@@ -356,14 +392,33 @@ class LlamaDecoder(nn.Module):
         return rms_norm(x, self.norm.weight, cfg.rms_eps), cache
 
     def _train_forward(self, x, pad_mask, cos, sin, ctx: Ctx) -> torch.Tensor:
-        cfg = self.cfg
         layers_ctx = ctx.sub("layers_scanned")
+        pp = pipe_shard()
+        if pp is None:
+            x = self.run_layers(x, cos, sin, pad_mask, layers_ctx)
+        else:
+            from vlrlhf_torch.models.lm.pipeline import pipeline
+
+            x = pipeline(self.run_layers, x, cos, sin, pad_mask, layers_ctx, pp)
+        return rms_norm(x, self.norm.weight, self.cfg.rms_eps)
+
+    def run_layers(self, x, cos, sin, pad_mask, layers_ctx: Ctx,
+                   span: Optional[tuple[int, int]] = None) -> torch.Tensor:
+        """The training layers of global indices [span) (default: every
+        layer this decoder holds) on x, rematerialized per the policy under
+        autograd; `layers_ctx` is ctx.sub("layers_scanned") and each layer
+        folds its global index into it (a distinct dropout stream per
+        layer, the same on every pipeline layout)."""
+        cfg = self.cfg
         remat = cfg.remat and torch.is_grad_enabled()
         policy = cfg.remat_policy
         if policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy {policy!r}: expected one of {REMAT_POLICIES}")
-        for i, layer in enumerate(self.layers):
-            lctx = layers_ctx.fold(i)  # a distinct dropout stream per layer
+        lo, hi = self.layer_span
+        first, last = span or (lo, hi)
+        for g in range(first, last):
+            layer = self.layers[g - lo]
+            lctx = layers_ctx.fold(g)
             if not remat:
                 x = layer(x, cos, sin, pad_mask, lctx)
             elif policy == "attn":
@@ -375,7 +430,7 @@ class LlamaDecoder(nn.Module):
                 x = _region(layer, x, cos, sin, pad_mask, lctx)
             else:
                 x = layer._named_forward(x, cos, sin, pad_mask, lctx, policy)
-        return rms_norm(x, self.norm.weight, cfg.rms_eps)
+        return x
 
     def decode(
         self,
@@ -393,7 +448,7 @@ class LlamaDecoder(nn.Module):
         this step's k/v ride through the decode kernel as its bf16 self term
         and come back as the next pending. The cache is written in place —
         it is the largest buffer on the card."""
-        refuse_sp("decode")
+        refuse_split("decode")
         cfg = self.cfg
         b = last_token.shape[0]
         nkv, hd = self.cache_cfg.num_kv_heads, cfg.head_dim_
@@ -446,7 +501,7 @@ class LlamaDecoder(nn.Module):
 
         Returns (logits, new_lengths): logits are the last real position's
         (B, V), or with return_all_logits every position's (B, C, V)."""
-        refuse_sp("chunk prefill")
+        refuse_split("chunk prefill")
         cfg = self.cfg
         b, c = input_ids.shape
         sc = cache["k"].shape[3]

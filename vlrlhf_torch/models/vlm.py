@@ -133,7 +133,10 @@ class VLM(nn.Module):
             mean = torch.tensor(cfg.image_mean, dtype=torch.float32, device=x.device)
             std = torch.tensor(cfg.image_std, dtype=torch.float32, device=x.device)
             pixel_values = ((x - mean) / std).to(cfg.lm.dtype)
-        feats = self.vision(pixel_values, (ctx or Ctx()).sub("vision"))
+        vctx = (ctx or Ctx()).sub("vision")
+        if vctx.rows is not None:  # image rows: a rank's draw their own dropout masks
+            vctx = dataclasses.replace(vctx, rows=None)
+        feats = self.vision(pixel_values, vctx)
         if self.qformer is not None:
             feats = self.qformer(feats, qformer_input_ids, qformer_mask)
         return self.projector(feats)

@@ -35,7 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vlrlhf_torch.core.dist import sp_shard, sp_size, sum_over_sp
+from vlrlhf_torch.core.dist import dp_rows, sp_shard, sp_size, sum_over_sp
 from vlrlhf_torch.lora.lora import lora_parameters
 from vlrlhf_torch.models.common import Ctx, fold_seed
 from vlrlhf_torch.models.vlm import VLM, image_inputs
@@ -158,7 +158,7 @@ def dpo_step(model: VLM, dcfg: DPOConfig, ocfg: OptimizerConfig, state: TrainSta
         # a per-step stream: step k always draws step k's masks
         seed = fold_seed(dcfg.dropout_seed, state.step)
     ctx = Ctx(adapters=True, lora_scale=dcfg.lora_scale, lora_dropout=dcfg.lora_dropout,
-              dropout_seed=seed)
+              dropout_seed=seed, rows=dp_rows(batch["input_ids"].shape[0], pairs=True))
     for p in state.trainable:
         p.grad = None
     logps, logits = forward_logps(model, dcfg, batch, ctx, feats)

@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from vlrlhf_torch.core.dist import all_reduce_mean, dp_size, grad_group, sp_size
+from vlrlhf_torch.core.dist import all_reduce_mean, dp_rows, dp_size, grad_group, sp_size
 from vlrlhf_torch.models.common import Ctx, fold_seed
 from vlrlhf_torch.models.vlm import VLM, image_inputs, last_token_scores
 from vlrlhf_torch.train.dpo import pair_image_features
@@ -56,7 +56,7 @@ def rm_step(model: VLM, rcfg: RMConfig, ocfg: OptimizerConfig, state: TrainState
     if rcfg.lora_dropout > 0.0:
         seed = fold_seed(rcfg.dropout_seed, state.step)
     ctx = Ctx(adapters=True, lora_scale=rcfg.lora_scale, lora_dropout=rcfg.lora_dropout,
-              dropout_seed=seed)
+              dropout_seed=seed, rows=dp_rows(batch["input_ids"].shape[0], pairs=True))
     for p in state.trainable:
         p.grad = None
     scores = rm_scores(model, head, batch, ctx, feats)

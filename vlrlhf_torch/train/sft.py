@@ -22,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from vlrlhf_torch.core.dist import all_reduce_sum, dp_group, dp_size, sp_shard, sp_size
+from vlrlhf_torch.core.dist import all_reduce_sum, dp_group, dp_rows, dp_size, sp_shard, sp_size
 from vlrlhf_torch.models.common import Ctx, fold_seed
 from vlrlhf_torch.models.vlm import VLM, image_inputs
 from vlrlhf_torch.train.losses import LABEL_PAD, chunked_logps, sft_loss_terms
@@ -62,7 +62,7 @@ def sft_step(model: VLM, scfg: SFTConfig, ocfg: OptimizerConfig, state: TrainSta
         if scfg.lora_dropout > 0.0:
             seed = fold_seed(scfg.dropout_seed, state.step)
         ctx = Ctx(adapters=True, lora_scale=scfg.lora_scale, lora_dropout=scfg.lora_dropout,
-                  dropout_seed=seed)
+                  dropout_seed=seed, rows=dp_rows(batch["input_ids"].shape[0], pairs=False))
     else:
         ctx = Ctx()
     for p in (*state.trainable, *frozen):

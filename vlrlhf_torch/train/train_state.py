@@ -25,7 +25,10 @@ Under a mesh (core/partitioning.py) the trainable leaves are FSDP2's
 DTensors: the update steps each rank's local shards, and `norm_groups`
 makes `global_norm` the norm over the whole sharded tree, each distinct
 value counted once, so clipping equals vlrlhf_tpu's optax clipping over
-its sharded arrays. The freeze masks
+its sharded arrays. Under a pipeline `pipe_sum` names the leaves before
+the stack, whose gradient only stage 0 computes: their gradients are
+summed over the stages first, in place, so each stage steps them alike
+(core/partitioning.py `pipe_role`). The freeze masks
 of full fine-tuning wait for that mode (vlrlhf_tpu's `--use_lora false`
 trains adapters too: ROADMAP.md §3).
 """
@@ -121,6 +124,9 @@ class TrainState:
     mini_step: int = 0
     # under a mesh: per leaf, the groups of its squared norm (global_norm)
     norm_groups: Optional[list[tuple]] = None
+    # under a pipeline: (core.dist.PipeShard, indices of the leaves whose
+    # gradients are summed over the stages before anything else)
+    pipe_sum: Optional[tuple] = None
 
 
 def init_train_state(trainable: Sequence[torch.Tensor], cfg: OptimizerConfig) -> TrainState:
@@ -139,8 +145,15 @@ def init_train_state(trainable: Sequence[torch.Tensor], cfg: OptimizerConfig) ->
 def apply_updates(state: TrainState, grads: Sequence[torch.Tensor],
                   cfg: OptimizerConfig) -> torch.Tensor:
     """One call of the optax chain, in place on `state`. Returns the global
-    norm of `grads` as given, before clipping (the step's grad_norm)."""
+    norm of `grads` as given, before clipping (the step's grad_norm).
+    Under a pipeline the gradients `state.pipe_sum` names are first summed
+    over the stages, in place."""
     grads = [local_tensor(g).float() for g in grads]
+    if state.pipe_sum is not None:
+        from vlrlhf_torch.core.dist import pipe_sum_
+
+        pp, idx = state.pipe_sum
+        pipe_sum_([grads[i] for i in idx], pp)
     g_norm = global_norm(grads, state.norm_groups)
     state.step += 1
     # under a mesh the leaves are DTensors: the update steps the local shards
