@@ -274,6 +274,26 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      counts, each rank's resident and step peak memory beside world 1's;
      a planted fault (each hop hands over the previous microbatch) must
      fail MESH_GRAD_TOL; rank 0's launches are "mesh_dpo_pipe"
+  16. ppo and dpo's --eval_samples under the pipeline, started with
+     13b-e, 14b and 15b: two ranks sharing the card over gloo (this script
+     with --mesh16-worker, torchrun's environment) under --mesh_pipe 2
+     --pipeline_microbatches 2 at full width and 4 LM / 2 tower layers:
+     13e's ppo outer step (4 image prompts, 16 greedy tokens, a seeded
+     reward model at 4 layers as the named set "reward", one update)
+     through build_ppo / train_ppo, the rollouts on the whole stack
+     (core/partitioning.py whole_stack: each rank joins the other stage's
+     layers for the block) and the reward, stats and update through the
+     schedule, against world 1 in this process: the tokens equal world 1's
+     or part only at a top-2 tie, the scores within PPO_SCORE_TOL, the
+     first update's gradients within PPO_GRAD_TOL of world 1's replay at
+     every leaf; a planted fault (the stack joined in reverse stage order)
+     must fail; each rank's kernels 1-4 at the design's counts (kernel 4
+     decode steps x all 4 layers on every rank, kernels 2-3 updates x M x
+     L / S); each rank's resident memory and rollout and update peaks
+     beside world 1's; then `dpo --eval_samples 2` (build_dpo,
+     make_eval_hook) under the same layout: the greedy policy and
+     reference samples equal world 1's or part only at a tie; rank 0's
+     launches are "mesh_ppo_pipe"
 
 A profiled step prints the card's busy and idle time and its kernel time by
 group (torch.profiler; the flash groups split by head dim). Phase 2's
@@ -302,8 +322,8 @@ serve, DPO, QLoRA, trainer, eval, multi-adapter serving, phase 9's runs
 blip_eval) and phase 12's (qwen_int4_reduced, internlm_int4_reduced,
 xc2_qlora4_reduced, qwen_serve, qwen_dpo, qwen_serve_int8_spec,
 xc2_serve, xc2_dpo, xc2_eval), phase 13's (mesh_dpo, mesh_eval,
-mesh_dpo_tp, mesh_ppo), phase 14's (mesh_dpo_sp) and phase 15's
-(mesh_dpo_pipe), split in
+mesh_dpo_tp, mesh_ppo), phase 14's (mesh_dpo_sp), phase 15's
+(mesh_dpo_pipe) and phase 16's (mesh_ppo_pipe), split in
 launches_by_path; the eval and ppo shapes' times under "eval" and "ppo");
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -4930,7 +4950,8 @@ def phase_launchers() -> dict:
     are not held to it: Adam's first update is about lr x sign(g), so bf16
     noise in the small gradients moves them by ~2e-3, a third of what
     three updates move them.) Returns the launch counts of 13c and of
-    13d's model = 2 rank 0 ("mesh_dpo_tp")."""
+    13d's model = 2 rank 0 ("mesh_dpo_tp"), with 13e's, 14b's, 15's and
+    16's (their ranks started here too)."""
     import shutil
 
     from vlrlhf_torch.cli.main import main as cli_main
@@ -4950,6 +4971,10 @@ def phase_launchers() -> dict:
         env14 = dict(env, MASTER_PORT=str(_free_port()))
         got15 = os.path.join(out, "ranks", "15.pt")
         env15 = dict(env, MASTER_PORT=str(_free_port()))
+        rm16 = mesh13e_reward(os.path.join(out, "rm16"), layers=PHASE16_LAYERS)
+        env16 = dict(env, MASTER_PORT=str(_free_port()))
+        ranks16 = os.path.join(out, "ranks16")
+        os.makedirs(ranks16, exist_ok=True)
         procs = {
             "13b": start_logged(torchrun_cmd(
                 1, "-m", "vlrlhf_torch.cli.main", "dpo", "--synthetic", "8", "--mesh_fsdp",
@@ -4970,6 +4995,9 @@ def phase_launchers() -> dict:
             **{f"15 rank {r}": start_logged(
                 [sys.executable, os.path.abspath(__file__), "--mesh15-worker", got15],
                 env=dict(env15, RANK=str(r))) for r in range(2)},
+            "16": [start_logged([sys.executable, os.path.abspath(__file__), "--mesh16-worker",
+                                 ranks16, rm16], env=dict(env16, RANK=str(r)))
+                   for r in range(2)],
         }
         one = mesh13c_eval(mme, seed, os.path.join(out, "one"))
         world1 = mesh13d_run(os.path.join(out, "world1"))
@@ -4981,7 +5009,10 @@ def phase_launchers() -> dict:
         world14 = mesh14_run(os.path.join(out, "sp_world1"), False)
         world15 = mesh15_run(os.path.join(out, "pipe_world1"), False)
         pipeline_local_check()
-        for what in [w for w in procs if w != "13e"]:
+        world16 = mesh13e_run(os.path.join(out, "ppo16_world1"), None, len(PPO13E_WORDS), None,
+                              rm16, layers=PHASE16_LAYERS)
+        samples16 = mesh16_samples(os.path.join(out, "samples16_world1"), None)
+        for what in [w for w in procs if w not in ("13e", "16")]:
             finish_logged(procs.pop(what), what)
 
         lines = _metrics_lines(os.path.join(dpo_out, "dpo_metrics.jsonl"))
@@ -5048,7 +5079,9 @@ def phase_launchers() -> dict:
         got13e = mesh13e_check(os.path.join(out, "ranks"), procs.pop("13e"), world13e, rm_dir)
         return {"mesh_eval": eval_launches, "mesh_dpo_tp": got["model2"]["launches"],
                 "mesh_ppo": got13e, "mesh_dpo_sp": mesh14_check(got14, world14),
-                "mesh_dpo_pipe": mesh15_check(got15, world15)}
+                "mesh_dpo_pipe": mesh15_check(got15, world15),
+                "mesh_ppo_pipe": mesh16_check(ranks16, procs.pop("16"), world16, samples16,
+                                              rm16)}
     finally:
         for started in procs.values():
             for proc, _ in (started if isinstance(started, list) else [started]):
@@ -5357,16 +5390,18 @@ PPO_SCORE_TOL = 5e-2
 PPO13E_WORDS = (60, 70, 80, 90)  # four image prompts, one global batch of 4 rows
 
 
-def mesh13e_reward(out: str, seed: int = 1) -> str:
+def mesh13e_reward(out: str, seed: int = 1, layers: int = 2) -> str:
     """A seeded reward model for 13e (from 20 + `seed`), written as an rm
     run's adapters/: r8 LoRA with non-zero b on the family's targets of the
-    2-layer model and an (H, 1) rm_head, so its scores differ row by row."""
+    model of `layers` LM layers (13e's 2, 16's 4) and an (H, 1) rm_head,
+    so its scores differ row by row."""
     from vlrlhf_torch.lora.lora import match_lora_targets, module_path
     from vlrlhf_torch.models.config import FAMILIES
     from vlrlhf_torch.models.vlm import VLM
     from vlrlhf_torch.train.checkpoint import save_params
 
     cfg = mesh_2layer_cfg()
+    cfg = dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, num_layers=layers))
     model = VLM(cfg, "meta")  # shapes only
     g = torch.Generator().manual_seed(20 + seed)
     tree = {}
@@ -5381,14 +5416,26 @@ def mesh13e_reward(out: str, seed: int = 1) -> str:
 
 @contextlib.contextmanager
 def ppo_fault(kind):
-    """13e's planted faults: "whiten" whitens the advantages over the rank's
-    rows (train/ppo.py's masked_whiten without its group); "decode" skips
-    the row-parallel all-reduce in every decode step of the rollouts."""
+    """13e's and 16's planted faults: "whiten" whitens the advantages over
+    the rank's rows (train/ppo.py's masked_whiten without its group);
+    "decode" skips the row-parallel all-reduce in every decode step of the
+    rollouts; "stage_order" joins the whole stack for the rollouts with
+    each layer's stage copies in reverse stage order
+    (core/partitioning.py whole_stack: stage 1's layers run first)."""
+    from vlrlhf_torch.core import partitioning
     from vlrlhf_torch.models.lm.llama import LlamaDecoder
     from vlrlhf_torch.train import ppo
 
     if kind is None:
         yield
+        return
+    if kind == "stage_order":
+        copies = partitioning._stage_copies
+        partitioning._stage_copies = lambda layer, mesh: copies(layer, mesh)[::-1]
+        try:
+            yield
+        finally:
+            partitioning._stage_copies = copies
         return
     if kind == "whiten":
         kept = ppo.masked_whiten
@@ -5411,12 +5458,13 @@ def ppo_fault(kind):
         LlamaDecoder.decode = kept
 
 
-def mesh13e_ties(run, rows: list, layout: dict, ref_tokens: list) -> dict:
+def mesh13e_ties(run, rows: list, layout: dict, ref_tokens: list, adapters: bool = True) -> dict:
     """{"ties": [(row, position, world 1's token, the layout's, gap)],
     "not_tie": [...]}: each row where the layout's greedy tokens differ from
-    world 1's, judged as tie_or_raise judges one, on `run`'s world-1 model:
-    both tokens its top two after world 1's common prefix, their gap within
-    LOGIT_REL_TOL of the largest |logit|."""
+    world 1's, judged as tie_or_raise judges one, on `run`'s world-1 model
+    (its adapters on, or off with `adapters` False): both tokens its top
+    two after world 1's common prefix, their gap within LOGIT_REL_TOL of
+    the largest |logit|."""
     from vlrlhf_torch.cli.main import prompt_row
     from vlrlhf_torch.generate.engine import GenerateConfig, batch_to_device, prefill
     from vlrlhf_torch.models.common import Ctx
@@ -5435,7 +5483,7 @@ def mesh13e_ties(run, rows: list, layout: dict, ref_tokens: list) -> dict:
             *_, last = prefill(run.model, GenerateConfig(max_new_tokens=1, pad_token_id=-1),
                                t["input_ids"].shape[1], t["input_ids"], t["pad_mask"],
                                t["prompt_lens"], t["pixel_values"], t["image_positions"],
-                               None, Ctx(adapters=True, lora_scale=run.lcfg.scale))
+                               None, Ctx(adapters=adapters, lora_scale=run.lcfg.scale))
         logits = last[0].float().cpu()
         gap = float((logits[a] - logits[b]).abs())
         tie = {a, b} == set(torch.topk(logits, 2).indices.tolist()) and \
@@ -5462,8 +5510,45 @@ def rollouts_replayed(layout):
         cli.static_rollouts = kept
 
 
+@contextlib.contextmanager
+def ppo_probes(got: dict, base: int):
+    """16's probes on a train_ppo run: the decode steps taken (each
+    generate/engine.py decode_step call) and the card's peak memory above
+    `base` (the resident placed model, adapters and optimizer state)
+    during the rollouts (cli.main static_rollouts, the whole stack joined)
+    and during the update (train/ppo.py ppo_update_epochs), in GiB."""
+    from vlrlhf_torch.cli import main as cli
+    from vlrlhf_torch.generate import engine
+    from vlrlhf_torch.train import ppo
+
+    kept = (cli.static_rollouts, ppo.ppo_update_epochs, engine.decode_step)
+    got["decode_steps"] = 0
+
+    def peak_of(fn, key):
+        def probed(*a, **k):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            got[key] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            return res
+        return probed
+
+    def step(*a, **k):
+        got["decode_steps"] += 1
+        return kept[2](*a, **k)
+
+    cli.static_rollouts = peak_of(kept[0], "rollout_peak_gib")
+    ppo.ppo_update_epochs = peak_of(kept[1], "update_peak_gib")
+    engine.decode_step = step
+    try:
+        yield
+    finally:
+        cli.static_rollouts, ppo.ppo_update_epochs, engine.decode_step = kept
+
+
 def mesh13e_run(out: str, shape, per_device: int, fault, rm_dir: str, seed: int = 1,
-                replay=None) -> dict:
+                replay=None, layers: int = 2, micro: int = 0) -> dict:
     """One 13e run through cli.main build_ppo and train_ppo: LLaVA-1.5-7B's
     widths at 2 LM / 2 tower layers (bf16 on cuda:0, weights from `seed`),
     one outer step of a global batch of 4 image prompts (PPO13E_WORDS;
@@ -5479,18 +5564,26 @@ def mesh13e_run(out: str, shape, per_device: int, fault, rm_dir: str, seed: int 
     top-2 tie of this model's teacher-forced logits ("ties"; any other
     divergence goes to "not_tie" and the step is not run); then the step
     runs on the layout's tokens and raw reward scores, so its gradients
-    are world 1's on the same rollout and rewards."""
+    are world 1's on the same rollout and rewards.
+
+    16's runs pass `layers` (the LM's depth) and, under a `shape` with pipe
+    > 1, `micro` (--pipeline_microbatches); a stage's gradients are joined
+    with the other stages'. Outside a replay the result also holds every
+    rank's launches ("rank_launches"), decode steps, resident memory and
+    rollout and update peaks (`ppo_probes`)."""
     import dataclasses
 
     from vlrlhf_torch.cli.main import build_ppo, make_logger, train_ppo
-    from vlrlhf_torch.core.dist import is_main_process
+    from vlrlhf_torch.core.dist import gather_objects, is_main_process
     from vlrlhf_torch.core.mesh import MeshConfig, make_mesh, set_global_mesh
     from vlrlhf_torch.core.partitioning import tp_dim
     from vlrlhf_torch.models.common import init_random_
     from vlrlhf_torch.models.vlm import VLM
 
     cfg = mesh_2layer_cfg()
-    mesh = make_mesh(MeshConfig(*shape), "cuda") if shape is not None else None
+    cfg = dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, num_layers=layers))
+    mesh = (make_mesh(MeshConfig(*shape), "cuda", microbatches=micro)
+            if shape is not None else None)
     fns = counted(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention"))
     got = {}
     try:
@@ -5514,20 +5607,36 @@ def mesh13e_run(out: str, shape, per_device: int, fault, rm_dir: str, seed: int 
         logger = make_logger(args, "ppo", run)
 
         def first(step, info):  # collective under a mesh: every rank is here
+            grads = {k: host_full(v, tp_dim(k), mesh) / (1 - run.ocfg.b1)
+                     for k, v in run.state_tree()["mu"].items()}
+            if mesh is not None and mesh.pp is not None:  # every stage's layers
+                import torch.distributed as tdist
+
+                stages = [None] * mesh.pipe
+                tdist.all_gather_object(stages, dict(grads), group=mesh.pipe_group)
+                for g in stages:
+                    grads.update(g)
             got.update(tokens=np.asarray(info["tokens"]).tolist(),
                        resp_lens=np.asarray(info["resp_lens"]).tolist(),
                        scores=[round(float(x), 6) for x in info["scores"]],
                        # the raw scores: 13e scales, norms and clips none
                        raw_scores=np.asarray(info["scores"], np.float32),
-                       grads={k: host_full(v, tp_dim(k), mesh) / (1 - run.ocfg.b1)
-                              for k, v in run.state_tree()["mu"].items()})
+                       grads=grads)
 
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()  # the placed model, adapters and optimizer state
+        probes = {"resident_gib": base / 2**30}
         zero_counts(fns)
         t0 = time.perf_counter()
-        with ppo_fault(fault), rollouts_replayed(replay and replay[0]):
+        with ppo_fault(fault), rollouts_replayed(replay and replay[0]), \
+                ppo_probes(probes, base) if replay is None else contextlib.nullcontext():
             train_ppo(run, make_processor(cfg), args, logger, on_step=first)
         got["step_s"] = time.perf_counter() - t0
         got["launches"] = read_counts(fns)
+        if replay is None:
+            got["rank_launches"] = gather_objects([got["launches"]])
+            got["ranks"] = gather_objects([probes])
         logger.close()
         if is_main_process():
             got["metrics"] = _metrics_lines(os.path.join(out, "ppo_metrics.jsonl"))
@@ -5560,29 +5669,24 @@ def mesh13e_worker(ranks: str, rm_dir: str, seed: str = "1") -> int:
     return 0
 
 
-def mesh13e_check(ranks: str, started: list, world1: dict, rm_dir: str, seed: int = 1) -> dict:
-    """13e's checks once its ranks are done, for each layout: the greedy
-    rollout tokens equal world 1's, or differ only from a top-2 tie on
-    (mesh13e_ties); the reward scores within PPO_SCORE_TOL of world 1's;
-    the first update's gradients within PPO_GRAD_TOL at every leaf of
-    world 1's replay of the layout's tokens and scores (whitened
-    advantages magnify the rewards' bf16 noise by the batch's score
-    spread, so the update is held on the same inputs). model = 2 and fsdp
-    = 2 pass all three, each planted fault fails one; kernels 1-4 launched
-    on model = 2's rank 0 ("mesh_ppo"). Each layout's line also reads the
-    worst leaf but the value head ("other"). Returns those launches."""
-    for i, st in enumerate(started):
-        finish_logged(st, f"13e rank {i}")
-    got = torch.load(os.path.join(ranks, "13e.pt"), weights_only=False)
+def ppo_layouts_report(got: dict, names: list, world1: dict, out: str, rm_dir: str,
+                       seed: int = 1, layers: int = 2) -> dict:
+    """{name: report} of each layout's run in `got` against world 1: the
+    rollout tokens equal, or where they part a top-2 tie on world 1's
+    replay (mesh13e_ties), the raw scores' gap relative to world 1's
+    largest |score|, the first update's gradients' worst leaf against
+    world 1's replay of the layout's tokens and scores (and the worst but
+    the value head's, "other"); "passes" when the tokens hold, the scores
+    are within PPO_SCORE_TOL and the gradients within PPO_GRAD_TOL."""
     report, replays = {}, {}
     w1 = np.asarray(world1["raw_scores"], np.float64)
-    for name, _, _, fault in MESH13E:
+    for name in names:
         g = got[name]
         key = (repr(g["tokens"]), g["raw_scores"].tobytes())
         if key not in replays:  # a fault in the update shares its layout's rollout
-            replays[key] = mesh13e_run(os.path.join(ranks, f"replay_{name}"), None,
+            replays[key] = mesh13e_run(os.path.join(out, f"replay_{name}"), None,
                                        len(PPO13E_WORDS), None, rm_dir, seed,
-                                       replay=(g, world1["tokens"]))
+                                       replay=(g, world1["tokens"]), layers=layers)
         ref = replays[key]
         gap, leaf = grad_gap(g, ref) if "grads" in ref else (math.inf, "tokens")
         score_gap = float(np.abs(np.asarray(g["raw_scores"], np.float64) - w1).max()
@@ -5597,6 +5701,25 @@ def mesh13e_check(ranks: str, started: list, world1: dict, rm_dir: str, seed: in
                         "mean_score": g["metrics"][-1].get("ppo/mean_score")}
         report[name]["passes"] = not ref["not_tie"] and score_gap <= PPO_SCORE_TOL and \
             gap <= PPO_GRAD_TOL
+    return report
+
+
+def mesh13e_check(ranks: str, started: list, world1: dict, rm_dir: str, seed: int = 1) -> dict:
+    """13e's checks once its ranks are done, for each layout: the greedy
+    rollout tokens equal world 1's, or differ only from a top-2 tie on
+    (mesh13e_ties); the reward scores within PPO_SCORE_TOL of world 1's;
+    the first update's gradients within PPO_GRAD_TOL at every leaf of
+    world 1's replay of the layout's tokens and scores (whitened
+    advantages magnify the rewards' bf16 noise by the batch's score
+    spread, so the update is held on the same inputs). model = 2 and fsdp
+    = 2 pass all three, each planted fault fails one; kernels 1-4 launched
+    on model = 2's rank 0 ("mesh_ppo"). Each layout's line also reads the
+    worst leaf but the value head ("other"). Returns those launches."""
+    for i, st in enumerate(started):
+        finish_logged(st, f"13e rank {i}")
+    got = torch.load(os.path.join(ranks, "13e.pt"), weights_only=False)
+    report = ppo_layouts_report(got, [name for name, *_ in MESH13E], world1, ranks, rm_dir,
+                                seed)
     print(f"13e (seed {seed}) ppo on two ranks sharing the card (gloo), one outer step of "
           f"{len(PPO13E_WORDS)} image prompts, 16 greedy tokens: world 1 resp_lens "
           f"{world1['resp_lens']} scores {world1['scores']} mean_score "
@@ -5932,6 +6055,188 @@ def mesh15_check(got15: str, world1: dict) -> dict:
     return p2["launches"]
 
 
+# 16: ppo and dpo's --eval_samples under the pipeline, two gloo ranks
+# sharing the card: mesh (1, 1, 1, 2) with PHASE16_MICRO microbatches,
+# stage 0 holding LM layers 0-1 and stage 1 layers 2-3, LLaVA-1.5-7B's
+# widths at 4 LM / 2 tower layers; the rollouts and the samples on the whole
+# stack (core/partitioning.py whole_stack), the reward, stats and update
+# through the schedule; against world 1 in this process.
+PHASE16_LAYERS, PHASE16_MICRO = 4, 2
+MESH16 = (("pipe2", None), ("pipe2_stage_order", "stage_order"))  # (name, planted fault)
+MESH16_PAIRS = 4  # 16's dpo rows: 2 train pairs and a holdout of 2 (--eval_ratio 0.5)
+
+
+@contextlib.contextmanager
+def generated_ids(out: list):
+    """Each Generator call's (adapters on, tokens on the host) appended to
+    `out`: the token ids behind make_eval_hook's decoded samples."""
+    from vlrlhf_torch.generate.engine import Generator
+
+    kept = Generator.__call__
+
+    def call(self, *a, **k):
+        res = kept(self, *a, **k)
+        out.append((self.adapters, (res[0] if isinstance(res, tuple) else res).cpu().tolist()))
+        return res
+
+    Generator.__call__ = call
+    try:
+        yield
+    finally:
+        Generator.__call__ = kept
+
+
+def mesh16_samples(out: str, shape, against=None) -> dict:
+    """16's `dpo --eval_samples 2`: LLaVA-1.5-7B's widths at PHASE16_LAYERS
+    LM / 2 tower layers (seeded bf16 on cuda:0), MESH16_PAIRS image pairs
+    of which 2 are held out (--eval_steps 1 --eval_ratio 0.5), build_dpo
+    and make_eval_hook's call at step 1: the holdout's eval pass (through
+    the schedule under `shape`'s pipeline) and the greedy 64-token policy
+    and reference samples (on the whole stack under the pipeline),
+    dpo_samples.jsonl written by rank 0. Returns the samples' tokens
+    {"policy", "ref"} (one list per holdout row) and the eval pass's
+    metrics. With `against` (world 1 only: a layout's result) also
+    {"ties", "not_tie"} of each row whose tokens differ (mesh13e_ties, the
+    adapters on for the policy's, off for the reference's)."""
+    import types
+
+    from vlrlhf_torch.cli.main import build_dpo, make_eval_hook, make_logger
+    from vlrlhf_torch.core.mesh import MeshConfig, make_mesh, set_global_mesh
+    from vlrlhf_torch.data.collators import GenerationCollator
+    from vlrlhf_torch.models.common import init_random_
+    from vlrlhf_torch.models.vlm import VLM
+
+    cfg = mesh_2layer_cfg()
+    cfg = dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, num_layers=PHASE16_LAYERS))
+    mesh = (make_mesh(MeshConfig(*shape), "cuda", microbatches=PHASE16_MICRO)
+            if shape is not None else None)
+    try:
+        model = VLM(cfg, "cuda")
+        init_random_(model, torch.Generator(device="cuda").manual_seed(1))
+        args = dpo_args(output_dir=out, eval_steps=1, eval_ratio=0.5, eval_samples=2,
+                        precompute_ref_logps=False, run_name=None)
+        proc = make_processor(cfg)
+        rows = [pair_row(20 + i, 60 + 10 * i, 40, 50) for i in range(MESH16_PAIRS)]
+        run = build_dpo(cfg, model, proc, args, rows, seeded_image)
+        os.makedirs(out, exist_ok=True)
+        logger = make_logger(args, "dpo", run)
+        ids: list = []
+        with generated_ids(ids):
+            make_eval_hook(run, proc, args, logger)(1)
+        logger.close()
+        got = {"adapters": [on for on, _ in ids], "policy": ids[0][1], "ref": ids[1][1],
+               "metrics": _metrics_lines(os.path.join(out, "dpo_metrics.jsonl"))
+               if os.path.exists(os.path.join(out, "dpo_metrics.jsonl")) else []}
+        if against is not None:
+            like = types.SimpleNamespace(
+                model=run.model, lcfg=run.lcfg,
+                gen_collator=GenerationCollator(proc, run.collator.cfg, run.collator.image_loader))
+            got["ties"], got["not_tie"] = [], []
+            for kind in ("policy", "ref"):
+                t = mesh13e_ties(like, run.eval_rows, {"tokens": against[kind]}, got[kind],
+                                 adapters=kind == "policy")
+                got["ties"] += [(kind, *x) for x in t["ties"]]
+                got["not_tie"] += [(kind, *x) for x in t["not_tie"]]
+        del run, model
+    finally:
+        set_global_mesh(None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return got
+
+
+def mesh16_worker(out: str, rm_dir: str) -> int:
+    """A rank of 16 (started by phase_launchers with torchrun's
+    environment): gloo on cuda:0; each MESH16 ppo run (mesh13e_run under
+    (1, 1, 1, 2), PHASE16_MICRO microbatches, PHASE16_LAYERS layers), then
+    the dpo samples (mesh16_samples); rank 0 writes {name: result,
+    "samples": ...} to <out>/16.pt."""
+    import faulthandler
+
+    import torch.distributed as tdist
+
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    tdist.init_process_group("gloo")
+    got = {}
+    for name, fault in MESH16:
+        got[name] = mesh13e_run(os.path.join(out, f"ppo_{name}"), (1, 1, 1, 2),
+                                len(PPO13E_WORDS), fault, rm_dir, layers=PHASE16_LAYERS,
+                                micro=PHASE16_MICRO)
+    got["samples"] = mesh16_samples(os.path.join(out, "samples"), (1, 1, 1, 2))
+    if tdist.get_rank() == 0:
+        torch.save(got, os.path.join(out, "16.pt"))
+    tdist.barrier()
+    tdist.destroy_process_group()
+    return 0
+
+
+def mesh16_check(out: str, started: list, world1: dict, samples1: dict, rm_dir: str) -> dict:
+    """16's checks once its ranks are done: for ppo under the pipeline, the
+    greedy rollout tokens equal world 1's or part only at a top-2 tie, the
+    reward scores within PPO_SCORE_TOL and the first update's gradients
+    within PPO_GRAD_TOL at every leaf of world 1's replay
+    (ppo_layouts_report), and the planted fault (the whole stack joined in
+    reverse stage order) fails them; each rank's launches at the design's
+    counts: kernel 4 decode steps x all PHASE16_LAYERS layers (the whole
+    stack on every rank), kernels 2 and 3 updates x M x L / S, kernel 1 the
+    rollout's prefill on L layers plus (reward, stats' policy and
+    reference passes, the update's forward twice under attn remat) x M x
+    L / S, plus the tower's calls, which world 1 shows; each rank's
+    resident memory, rollout and update peaks beside world 1's; the dpo
+    samples' tokens equal world 1's or part only at a tie. Returns rank
+    0's launches ("mesh_ppo_pipe")."""
+    for i, st in enumerate(started):
+        finish_logged(st, f"16 rank {i}")
+    got = torch.load(os.path.join(out, "16.pt"), weights_only=False)
+    report = ppo_layouts_report(got, [name for name, _ in MESH16], world1, out, rm_dir,
+                                layers=PHASE16_LAYERS)
+    p2, n_layers, stages, micro = got["pipe2"], PHASE16_LAYERS, 2, PHASE16_MICRO
+    updates = 1
+    per_pass = micro * (n_layers // stages)
+    tower = world1["launches"]["flash_fwd"] - n_layers * (1 + 3 + 2 * updates)
+    want = [{"flash_fwd": tower + n_layers + (3 + 2 * updates) * per_pass,
+             "flash_bwd_dkv": updates * per_pass, "flash_bwd_dq": updates * per_pass,
+             "decode_attention": r["decode_steps"] * n_layers} for r in p2["ranks"]]
+    samples = got["samples"]
+    same = {k: samples[k] == samples1[k] for k in ("policy", "ref")}
+    ties = {"ties": [], "not_tie": []}
+    if not all(same.values()):
+        ties = mesh16_samples(os.path.join(out, "samples_ties"), None, against=samples)
+    w1 = world1["ranks"][0]
+    mem_keys = ("resident_gib", "rollout_peak_gib", "update_peak_gib")
+    mem = [[round(r[k], 3) for k in mem_keys] for r in p2["ranks"]]
+    print(f"16 ppo --mesh_pipe 2 --pipeline_microbatches {micro}, two gloo ranks on one card "
+          f"(LLaVA-1.5-7B widths, {n_layers} LM / 2 tower layers, one outer step of "
+          f"{len(PPO13E_WORDS)} image prompts, 16 greedy tokens on the whole stack): world 1 "
+          f"resp_lens {world1['resp_lens']} scores {world1['scores']} step "
+          f"{world1['step_s']:.3f} s; " + json.dumps(report)
+          + f"; bounds: scores {PPO_SCORE_TOL}, gradients {PPO_GRAD_TOL} (the planted fault, "
+          f"the stack joined in reverse stage order, must fail one); per rank resident / "
+          f"rollout peak / update peak above it {mem} GiB vs world 1 "
+          f"{[round(w1[k], 3) for k in mem_keys]} GiB; decode steps per rank {[r['decode_steps'] for r in p2['ranks']]} (world 1 "
+          f"{w1['decode_steps']}); launches per rank {json.dumps(p2['rank_launches'])} (the "
+          f"design's {json.dumps(want)}), world 1 {json.dumps(world1['launches'])}", flush=True)
+    print(f"16 dpo --eval_samples 2 under --mesh_pipe 2: greedy 64-token samples of the 2 "
+          f"holdout prompts equal world 1's {same}, ties {ties['ties']}, not ties "
+          f"{ties['not_tie']}; eval pass {samples['metrics']} vs world 1 {samples1['metrics']}",
+          flush=True)
+    for name, fault in MESH16:
+        r = report[name]
+        if fault is None and not r["passes"]:
+            raise AssertionError(f"16 {name}: against world 1: {r}")
+        if fault is not None and r["passes"]:
+            raise AssertionError(f"16 {name}: the planted fault ({fault}) passed: {r}")
+    if p2["rank_launches"] != want or min(r["decode_steps"] for r in p2["ranks"]) <= 0 or \
+            any(r["decode_steps"] != w1["decode_steps"] for r in p2["ranks"]):
+        raise AssertionError(f"16: the ranks' launches {p2['rank_launches']} are not the "
+                             f"design's {want}, or their decode steps differ from world 1's")
+    if ties["not_tie"] or samples["adapters"] != [True, False] or len(samples["policy"]) != 2:
+        raise AssertionError(f"16: the pipeline's dpo samples part from world 1's, not at a tie: "
+                             f"{ties['not_tie']}")
+    return p2["launches"]
+
+
 def mesh13d_worker(out: str) -> int:
     """A rank of 13d (started by phase_launchers with torchrun's
     environment): gloo on cuda:0, each MESH13D layout in turn; rank 0
@@ -6133,6 +6438,8 @@ def main() -> int:
         return mesh14_worker(sys.argv[2])
     if sys.argv[1:2] == ["--mesh15-worker"]:  # a rank of phase 15, started below
         return mesh15_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--mesh16-worker"]:  # a rank of phase 16, started below
+        return mesh16_worker(*sys.argv[2:4])
     t_start = time.perf_counter()
 
     def mark(label: str) -> None:
@@ -6294,6 +6601,9 @@ def main() -> int:
     if any(by_path[name].get("mesh_dpo_pipe", 0) <= 0
            for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")):
         raise AssertionError(f"phase 15 (mesh_dpo_pipe) must launch kernels 1-3: {by_path}")
+    if any(by_path[name].get("mesh_ppo_pipe", 0) <= 0
+           for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention")):
+        raise AssertionError(f"phase 16 (mesh_ppo_pipe) must launch kernels 1-4: {by_path}")
     for name, cases in ring.items():
         kernels[name]["ring"] = cases
     line = {"kernels": [

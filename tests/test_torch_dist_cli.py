@@ -26,9 +26,10 @@ the same command in one plain process, f32:
     each rank's heads with its group's tokens broadcast, and the metrics
     equal the single-process run's;
   - the refusals, each naming its reason: --mesh_pipe 2 without torchrun,
-    --pipeline_microbatches without --mesh_pipe > 1, the pipeline with the
-    sequence split, with --eval_samples, on ppo and on eval, rows or
-    layers the pipeline does not divide, --sequence_parallel_axis fsdp
+    --pipeline_microbatches without --mesh_pipe > 1 (ppo's and
+    --eval_samples' too: both run under torchrun), the pipeline with the
+    sequence split and on eval, rows, layers, a ppo minibatch share or a
+    stats slice the pipeline does not divide, --sequence_parallel_axis fsdp
     without torchrun,
     over data, over model and over an unknown axis, on ppo and eval and with
     --eval_samples, mesh flags on eval, a mesh a plain run cannot make,
@@ -229,10 +230,10 @@ def test_refuses_kv_heads_that_mesh_model_does_not_divide(runs):
 
 
 @pytest.mark.parametrize("flags,match", [
-    # the pipeline runs under torchrun (tests/test_torch_dist_pipe.py); refused
-    # before anything loads: without torchrun, a microbatch count without a
-    # pipeline, with the sequence split or --eval_samples, rows or layers it
-    # does not divide
+    # the pipeline runs under torchrun (tests/test_torch_dist_pipe.py, its
+    # --eval_samples too); refused before anything loads: without torchrun,
+    # a microbatch count without a pipeline, with the sequence split, rows or
+    # layers it does not divide
     (["--mesh_pipe", "2"], "--mesh_pipe 2: the pipeline's stages are the ranks of a mesh "
                            "launched by torchrun"),
     (["--pipeline_microbatches", "4"],
@@ -241,7 +242,7 @@ def test_refuses_kv_heads_that_mesh_model_does_not_divide(runs):
      "--mesh_pipe 2 with --sequence_parallel_axis fsdp: the pipeline and the sequence split "
      "are mutually exclusive"),
     (["--mesh_pipe", "2", "--eval_steps", "1", "--eval_samples", "2"],
-     "--eval_samples under --mesh_pipe 2: the samples generate with every layer on a rank"),
+     "--mesh_pipe 2: the pipeline's stages are the ranks of a mesh launched by torchrun"),
     (["--mesh_pipe", "2", "--pipeline_microbatches", "3", "--per_device_train_batch_size", "1"],
      "--mesh_pipe 2: 1 pairs = 2 rows per data-parallel rank .* do not split into 3 pipeline "
      "microbatches"),
@@ -277,7 +278,15 @@ def test_ppo_and_eval_refuse_the_sequence_split(tmp_path, argv, match):
 
 @pytest.mark.parametrize("argv,match", [
     (["ppo", *CPU, "--synthetic", "4", "--mesh_pipe", "2"],
-     "ppo under --mesh_pipe 2: its rollouts generate with every layer on a rank"),
+     "--mesh_pipe 2: the pipeline's stages are the ranks of a mesh launched by torchrun"),
+    (["ppo", *CPU, "--synthetic", "4", "--mesh_pipe", "2", "--mesh_fsdp", "1",
+      "--minibatch_size", "3"],
+     "--mesh_pipe 2: a PPO minibatch of 3 rows gives each of the 1 data-parallel ranks 3 "
+     "rows, which do not split into 2 pipeline microbatches"),
+    (["ppo", *CPU, "--synthetic", "4", "--mesh_pipe", "2", "--mesh_fsdp", "1",
+      "--minibatch_size", "4", "--per_device_train_batch_size", "5"],
+     "--mesh_pipe 2: the stats pass's last slice of a rank's 5 rollouts holds 1 rows, fewer "
+     "than the 2 pipeline microbatches"),
     (["sft", *CPU, "--synthetic", "4", "--mesh_pipe", "2", "--pipeline_microbatches", "4",
       "--per_device_train_batch_size", "2"],
      "--mesh_pipe 2: 2 rows per data-parallel rank .* do not split into 4 pipeline"),

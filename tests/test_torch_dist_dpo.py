@@ -30,7 +30,7 @@ import pytest
 import torch
 
 from tests.test_dpo_step import tiny_batch
-from tests.torch_dist_worker import Job
+from tests.torch_dist_worker import Job, on_one_thread
 
 TOL = 1e-5
 INT4_LOSS, INT4_REL = 5e-3, 2e-2
@@ -190,6 +190,7 @@ FAMILIES = ("llava_next_mistral", "qwen_vl", "internlm_xc2")
 
 
 @pytest.fixture(scope="module")
+@on_one_thread
 def runs(tmp_path_factory):
     """Both jobs started, then the JAX references computed while they run."""
     tmp = tmp_path_factory.mktemp("dist_dpo")

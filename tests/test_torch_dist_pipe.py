@@ -30,7 +30,9 @@ devices at tests/test_torch_dist_dpo.py's bounds: a 4-rank job holds no
 2 -m vlrlhf_torch.cli.main dpo|sft|rm --mesh_fsdp 1 --mesh_pipe 2` logs
 the single-process run's metrics within 1e-5, LoRA dropout on, and writes
 its adapters/ and merged/ (every stage's layers joined; dpo also with the
-reference pass and the holdout's eval/* through the pipeline's forward).
+reference pass and the holdout's eval/* through the pipeline's forward, and
+--eval_samples 2: the holdout's greedy samples from the whole stack, equal
+to the single-process run's).
 Adam's eps is 1e-3, as in tests/test_torch_dpo.py."""
 
 import copy
@@ -48,7 +50,7 @@ from tests.test_torch_dist_dpo import (
     INT4_LOSS, INT4_REL, OPT, _family, _int4_model, assert_adapters, jax_steps,
 )
 from tests.test_torch_dist_sp import PAIR_LENS, SFT_LENS, _qwen_pair, right_padded
-from tests.torch_dist_worker import Job
+from tests.torch_dist_worker import Job, on_one_thread
 from vlrlhf_torch.cli.main import main
 
 TOL = 1e-5
@@ -58,12 +60,13 @@ LORA_PATTERNS = (r"lm/.*attn/", r"lm/.*mlp/")
 TOWER_PATTERNS = (r"vision/.*attn/(wq|wv)/",)
 # the CLI runs: synthetic rows, 2 pairs a step, 4 microbatches of one row,
 # the merged save; dpo also with the reference pass and the holdout (2 of
-# its 10 pairs) through the pipeline's forward
+# its 10 pairs) through the pipeline's forward, and the holdout's greedy
+# samples generated on the whole stack (core/partitioning.py whole_stack)
 CLI = [*CPU, "--max_steps", "2", "--logging_steps", "1", "--lora_r", "4", "--max_length", "64",
        "--learning_rate", "1e-3", "--warmup_ratio", "0", "--lora_dropout", "0.1",
        "--per_device_train_batch_size", "2", "--merge_adapter_after_training"]
 DPO_CLI = ["--synthetic", "10", "--precompute_ref_logps", "true", "--eval_steps", "2",
-           "--eval_ratio", "0.2"]
+           "--eval_ratio", "0.2", "--eval_samples", "2"]
 PIPE_CLI = ["--mesh_fsdp", "1", "--mesh_pipe", "2"]
 
 
@@ -175,6 +178,7 @@ TRAIN = ("dpo/pipe4", "dpo/fsdp2_pipe2_micro4", "dpo/model2_pipe2_tower", "sft/d
 
 
 @pytest.fixture(scope="module")
+@on_one_thread
 def runs(tmp_path_factory):
     """The 4-rank job and the CLI's torchrun runs started together; the
     references meanwhile."""
@@ -324,6 +328,10 @@ def test_torchrun_cli_under_the_pipeline_logs_the_single_process_metrics(runs, c
         assert a.keys() == b.keys()
         for k in a.keys() - {"step"} - {k for k in a if k.startswith("perf/")}:
             np.testing.assert_allclose(b[k], a[k], atol=TOL, rtol=TOL, err_msg=f"{a['step']} {k}")
+    if cmd == "dpo":  # the greedy policy and reference samples of the whole stack
+        samples = [(tmp / d / "dpo_samples.jsonl").read_text().splitlines()
+                   for d in ("dpo1", "dpo2")]
+        assert len(samples[1]) == 2 and samples[0] == samples[1]
     # adapters/ and merged/: the single-process files, every stage's layers joined
     from vlrlhf_torch.train.checkpoint import load_params
 

@@ -36,7 +36,7 @@ from tests.test_torch_dist_dpo import _KEY, _int4_model, assert_adapters
 from tests.test_torch_models import prompt_batch
 from tests.test_torch_ppo import _rollout_batch
 from tests.test_torch_sft_rm import _setup
-from tests.torch_dist_worker import Job
+from tests.torch_dist_worker import Job, on_one_thread
 
 TOL = 1e-5
 INT4_LOSS, INT4_REL = 5e-3, 2e-2
@@ -128,6 +128,7 @@ def world1(model, prompts, pcfg_kw):
 
 
 @pytest.fixture(scope="module")
+@on_one_thread
 def runs(tmp_path_factory):
     """The job started, then the references computed while it runs."""
     tmp = tmp_path_factory.mktemp("dist_ppo")

@@ -39,7 +39,7 @@ from tests.test_dpo_step import tiny_batch
 from tests.test_torch_dist_cli import CPU, finish, metrics, torchrun
 from tests.test_torch_dist_dpo import OPT, _llava
 from tests.test_torch_ring_attention import CASES as RING_CASES, _inputs, _jax_ring
-from tests.torch_dist_worker import Job
+from tests.torch_dist_worker import Job, on_one_thread
 from vlrlhf_torch.cli.main import main
 
 TOL = 1e-5
@@ -195,6 +195,7 @@ def world1(case: dict) -> dict:
 
 
 @pytest.fixture(scope="module")
+@on_one_thread
 def runs(tmp_path_factory):
     """The 4-rank job and the CLI's torchrun runs started together; the
     references meanwhile."""

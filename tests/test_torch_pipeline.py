@@ -13,8 +13,8 @@ CPU:
     rows in 2 and 3 uneven microbatches;
   - `init_lora` on a stage's layers draws the single-process adapters;
   - the refusals: a layer count the stages do not divide, rows fewer than
-    the microbatches, the prefill / decode / chunk paths under a pipeline,
-    and the CLI's before anything loads (tests/test_torch_dist_cli.py has
+    the microbatches, the prefill / decode / chunk paths on a stage's
+    layers (the whole stack prefills), and the CLI's before anything loads (tests/test_torch_dist_cli.py has
     the rest).
 vlrlhf_tpu's make_mesh registers its mesh globally; the registry is put
 back after each reference."""
@@ -301,6 +301,7 @@ def test_refusals():
     from vlrlhf_torch.core.mesh import Mesh, set_global_mesh
     from vlrlhf_torch.models.common import init_random_
     from vlrlhf_torch.models.config import FAMILIES, scale_down
+    from vlrlhf_torch.models.lm.llama import StageLayers
     from vlrlhf_torch.models.lm.pipeline import stage_span
     from vlrlhf_torch.models.vlm import VLM
 
@@ -317,8 +318,20 @@ def test_refusals():
                          dp_group=None, fsdp_group=None, tp_group=None, pipe=2,
                          pp=PipeShard(None, 0, 2, "gloo", 2)))
     try:
-        with pytest.raises(ValueError, match="the prefill path refuses a pipeline"):
-            model(ids, cache_len=16)
+        # the whole stack (core/partitioning.py whole_stack) prefills; a
+        # stage's layers refuse the prefill, the decode and the chunk
+        _, cache = model(ids, cache_len=16)
+        stage = model.lm.layers
+        model.lm.layers = StageLayers(list(stage)[:1], 0)
+        lens = torch.full((1,), 8, dtype=torch.int32)
+        for path, call in (
+                ("prefill", lambda: model(ids, cache_len=16)),
+                ("decode", lambda: model.lm.decode(ids[:, 0], lens, cache)),
+                ("chunk prefill", lambda: model.lm.prefill_chunk(ids[:, :2], lens, lens, cache))):
+            with pytest.raises(ValueError, match=f"the {path} path refuses a pipeline stage's "
+                                                 "layers"):
+                call()
+        model.lm.layers = stage
     finally:
         set_global_mesh(None)
     base = ["dpo", "--device", "cpu", "--bf16", "false", "--synthetic", "4", "--output_dir",

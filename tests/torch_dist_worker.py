@@ -211,64 +211,108 @@ def preempt_case(case: dict) -> dict:
 
 
 def ppo_case(case: dict) -> dict:
-    """PPO under the case's mesh on a pickled port model holding its
-    adapters: greedy rollouts of the global prompt batch ("prompts"; each
-    data-parallel rank its rows, static and continuous, on the gathered
-    units), with "sampled" a sampled static rollout whose ranks draw from
-    different seeds, then cli.main's ppo_step on the global rollout
-    ("batch", raw scores "raw") with score scaling and the adaptive KL
-    controller. Rank 0 returns the tokens (global; "sampled": every
-    rank's), every update's metrics, the KL coefficient, the score moments
-    and the world-1 trainable leaves after the step."""
+    """PPO under the case's mesh (data, fsdp, model[, pipe]; with "micro"
+    microbatches) on a pickled port model holding its adapters: unless
+    "rollouts" is False, greedy rollouts of the global prompt batch
+    ("prompts"; each data-parallel rank
+    its rows, static and continuous, on the gathered units and, under a
+    pipeline, every stage's layers: core.partitioning whole_stack), with
+    "sampled" a sampled static rollout whose ranks draw from different
+    seeds, then cli.main's ppo_step on the global rollout ("batch", raw
+    scores "raw") with score scaling and the adaptive KL controller. With
+    "value" (a LoraConfig's fields) a value set drawn from "value_seed"
+    (b offset 0.01) trains beside the policy; with "resume_dir" the state
+    and KL coefficient come from that checkpoint (cli.main maybe_resume);
+    with "save_dir" the state after the step is saved there as train_ppo
+    saves it. Rank 0 returns the tokens (global; "sampled": every rank's),
+    every update's metrics, the KL coefficient, the score moments, the
+    world-1 trainable leaves after the step, whether every stage holds the
+    same bits of each leaf outside the stack, and the decoder's layer
+    count inside and after the whole-stack block."""
+    import argparse
     import dataclasses
+    import gc
+    import weakref
 
-    from vlrlhf_torch.cli.main import PPORun, continuous_rollouts, ppo_step, rows_of
-    from vlrlhf_torch.cli.main import static_rollouts
-    from vlrlhf_torch.core.partitioning import unsharded
+    from vlrlhf_torch.cli.main import PPORun, continuous_rollouts, maybe_resume, ppo_step
+    from vlrlhf_torch.cli.main import rows_of, static_rollouts
+    from vlrlhf_torch.core.partitioning import whole_stack
     from vlrlhf_torch.generate.continuous import ContinuousEngine
     from vlrlhf_torch.generate.engine import GenerateConfig, Generator
-    from vlrlhf_torch.train.ppo import AdaptiveKLController, PPOConfig, RunningMoments
+    from vlrlhf_torch.lora.lora import LoraConfig, init_lora, lora_parameters
+    from vlrlhf_torch.train.ppo import VALUE_SET, AdaptiveKLController, PPOConfig, RunningMoments
 
     torch.manual_seed(0)
-    mesh = make_mesh(MeshConfig(*case["mesh"]), "cpu")
+    mesh = make_mesh(MeshConfig(*case["mesh"]), "cpu", microbatches=case.get("micro", 0))
     model = copy.deepcopy(case["model"])
-    keys = [f"adapters/{k}" for k in lora_keys(model)] + ["v_head/kernel"]
     shard_model_(model, mesh)
     v_head = {"kernel": torch.nn.Parameter(torch.as_tensor(case["v_head"]).clone())}
+    leaves = adapter_params(model) + [v_head["kernel"]]
+    keys = [f"adapters/{k}" for k in lora_keys(model)] + ["v_head/kernel"]
+    if case.get("value"):
+        init_lora(model, LoraConfig(**case["value"]),
+                  torch.Generator().manual_seed(case["value_seed"]), adapter_set=VALUE_SET)
+        value = lora_parameters(model, VALUE_SET)
+        with torch.no_grad():
+            for name, p in value:
+                if name.endswith("lora_b"):
+                    p.add_(0.01)
+        leaves += [p for _, p in value]
+        keys += [f"value_adapters/{k}" for k in lora_keys(model, VALUE_SET)]
     ocfg, pcfg = OptimizerConfig(**case["ocfg"]), PPOConfig(**case["pcfg"])
-    state = init_train_state(adapter_params(model) + [v_head["kernel"]], ocfg)
+    state = init_train_state(leaves, ocfg)
     attach_norm_groups_(state, keys, mesh)
     run = PPORun(model=model, pcfg=pcfg, ocfg=ocfg, lcfg=None, state=state, keys=keys,
-                 v_head=v_head, value_adapters=False, gen_cfg=None, gen_collator=None, rows=[],
-                 reward_fn=None, flops_per_token=0.0, flops_per_image=0.0)
-    out = {}
+                 v_head=v_head, value_adapters=bool(case.get("value")), gen_cfg=None,
+                 gen_collator=None, rows=[], reward_fn=None, flops_per_token=0.0,
+                 flops_per_image=0.0)
+    moments, kl_ctl = RunningMoments(), AdaptiveKLController(pcfg)
+    if case.get("resume_dir"):
+        ns = argparse.Namespace(resume_from_checkpoint=case["resume_dir"])
+        maybe_resume(ns, run, None, extras=lambda e: setattr(kl_ctl, "value", e["kl_coef"]))
+    out = {"layers": [len(model.lm.layers)]}
     pb = case["prompts"]
     per = pb["input_ids"].shape[0] // mesh.dp_size
     mine = rows_of(pb, mesh.dp_rank * per, (mesh.dp_rank + 1) * per)
     gcfg = GenerateConfig(max_new_tokens=case["new_tokens"], pad_token_id=0)
     gen = Generator(model, gcfg, lora_scale=pcfg.lora_scale)
     gen.adapters = True
-    with unsharded(model):
-        got = {"static": static_rollouts(gen, mine, 1, None)}
-        engine = ContinuousEngine(model, gcfg, n_slots=1, cache_len=128, adapters=True,
-                                  lora_scale=pcfg.lora_scale, emit_stop_token=True)
-        got["continuous"] = continuous_rollouts(engine, mine, [{"img_path": "x"}] * per, None,
-                                                gcfg.max_new_tokens, 0)
-        if case.get("sampled"):
-            sgen = Generator(model, dataclasses.replace(gcfg, do_sample=True),
-                             lora_scale=pcfg.lora_scale)
-            sgen.adapters = True
-            seed = torch.Generator().manual_seed(100 + vdist.process_index())
-            out["sampled"] = vdist.gather_objects([static_rollouts(sgen, mine, 1, seed)[0]
-                                                   .tolist()])
+    got = {}
+    if case.get("rollouts", True):
+        stage = list(model.lm.layers)
+        with whole_stack(model, mesh):
+            out["layers"].append(len(model.lm.layers))
+            joined = [weakref.ref(m) for m in model.lm.layers if all(m is not s for s in stage)]
+            got["static"] = static_rollouts(gen, mine, 1, None)
+            engine = ContinuousEngine(model, gcfg, n_slots=1, cache_len=128, adapters=True,
+                                      lora_scale=pcfg.lora_scale, emit_stop_token=True)
+            got["continuous"] = continuous_rollouts(engine, mine, [{"img_path": "x"}] * per,
+                                                    None, gcfg.max_new_tokens, 0)
+            if case.get("sampled"):
+                sgen = Generator(model, dataclasses.replace(gcfg, do_sample=True),
+                                 lora_scale=pcfg.lora_scale)
+                sgen.adapters = True
+                seed = torch.Generator().manual_seed(100 + vdist.process_index())
+                out["sampled"] = vdist.gather_objects([static_rollouts(sgen, mine, 1, seed)[0]
+                                                       .tolist()])
+        out["layers"].append(len(model.lm.layers))
+        gc.collect()
+        out["joined_alive"] = sum(r() is not None for r in joined)
     for kind, (tokens, lens) in got.items():
         _, parts = vdist.vote_and_gather((False,), (tokens, lens))
         out[kind] = (np.concatenate([t for t, _ in parts]), np.concatenate([n for _, n in parts]))
-    moments, kl_ctl = RunningMoments(), AdaptiveKLController(pcfg)
     scores, kl, history = ppo_step(run, case["batch"], case["raw"], moments, kl_ctl, case["seed"])
+    tree = full_state_tree(state_tree(state, keys), mesh)
+    if case.get("save_dir"):
+        from vlrlhf_torch.train.checkpoint import CheckpointManager
+
+        ckpt = CheckpointManager(case["save_dir"])
+        ckpt.save(1, tree, extra={"kl_coef": kl_ctl.value})
+        ckpt.close()
     out.update(scores=scores, kl=kl, history=history, kl_coef=kl_ctl.value,
                moments=(moments.mean, moments.var, moments.count),
-               trainable=_numpy_tree(full_state_tree(state_tree(state, keys), mesh)["trainable"]))
+               trainable=_numpy_tree(tree["trainable"]),
+               stages_equal=stages_equal(state, keys, mesh))
     set_global_mesh(None)
     return out
 
@@ -313,8 +357,49 @@ def ppo_cli_case(case: dict) -> dict:
     return {"lines": lines, "moments": seen}
 
 
+def whole_stack_case(case: dict) -> dict:
+    """core.partitioning whole_stack on the pickled port model under the
+    case's mesh, placed and given a value set (from "value" / "value_seed",
+    build_ppo's init_lora) and the reward set of "reward_path"
+    (cli.main reward_model_fn): inside the block, every tensor of every
+    decoder layer (its
+    registered parameters and each named LoRA set's a and b) gathered over
+    the tensor-parallel group to its world-1 value, keyed by parameter name
+    ("lm.layers.3.wq.weight_q", "lm.layers.3.wq.reward.lora_a"; bf16 ones
+    as f32); and the decoder's layer count before, inside and after it."""
+    from vlrlhf_torch.cli.main import reward_model_fn
+    from vlrlhf_torch.core.partitioning import linear_tp_dim, whole_stack
+    from vlrlhf_torch.lora.lora import LoraConfig, init_lora
+    from vlrlhf_torch.models.common import Linear
+    from vlrlhf_torch.train.ppo import VALUE_SET
+
+    mesh = make_mesh(MeshConfig(*case["mesh"]), "cpu")
+    model = copy.deepcopy(case["model"])
+    shard_model_(model, mesh)
+    init_lora(model, LoraConfig(**case["value"]),
+              torch.Generator().manual_seed(case["value_seed"]), adapter_set=VALUE_SET)
+    reward_model_fn(model, case["reward_path"], 0.5)
+    counts = [len(model.lm.layers)]
+    out = {}
+    with whole_stack(model, mesh):
+        counts.append(len(model.lm.layers))
+        for name, mod in model.lm.layers.named_modules(prefix="lm.layers"):
+            mode = mod.tp.mode if isinstance(mod, Linear) and mod.tp is not None else None
+            leaves = [(leaf, p) for leaf, p in mod._parameters.items() if p is not None]
+            for set_name, pair in getattr(mod, "lora_sets", {}).items():
+                leaves += [(f"{set_name}.{leaf}", p) for leaf, p in zip(("lora_a", "lora_b"), pair)]
+            for leaf, p in leaves:
+                # a copy: an FSDP2 unit's gathered storage is freed after the block
+                dim = linear_tp_dim(mode, leaf.rsplit(".", 1)[-1])
+                out[f"{name}.{leaf}"] = full_tensor(p, dim, mesh).clone()
+    counts.append(len(model.lm.layers))
+    set_global_mesh(None)
+    return {"tensors": {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+                        for k, v in out.items()}, "layers": counts}
+
+
 CASES = {"preempt": preempt_case, "ppo": ppo_case, "ppo_cli": ppo_cli_case,
-         "sp_ring": sp_ring_case, "sp_lm": sp_lm_case}
+         "sp_ring": sp_ring_case, "sp_lm": sp_lm_case, "whole_stack": whole_stack_case}
 
 
 @contextlib.contextmanager
@@ -343,8 +428,11 @@ def main(job_path: str, out_path: str) -> None:
     vdist.initialize("cpu")
     job = torch.load(job_path, weights_only=False)
     results = {}
+    import time
     for case in job["cases"]:
+        t0 = time.time()
         results[case["name"]] = CASES.get(case.get("step"), run_case)(case)
+        print("CASE", case["name"], round(time.time() - t0, 1), flush=True)
     if vdist.is_main_process():
         torch.save(results, out_path)
     vdist.sync_global_devices("done")
@@ -361,10 +449,32 @@ if __name__ == "__main__":
         main(*sys.argv[1:3])
 
 
+def on_one_thread(fn):
+    """`fn` (a test module's fixture) run with torch on one host thread,
+    the count restored after: the references a fixture computes beside its
+    job's ranks (one thread each, OMP_NUM_THREADS=1). On a loaded box a
+    many-threaded op waits for its slowest thread: a fixture's world-1 runs
+    took 186 s on 8 threads under the gate's load where they take 18 s on
+    an idle box."""
+    import functools
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.set_num_threads(threads)
+
+    return run
+
+
 class Job:
     """A job's ranks, started at once as subprocesses with torchrun's
     environment on a free local port; `result()` waits for them and reads
-    OUT. The caller's process imports nothing from here but this class."""
+    OUT. The caller's process imports nothing from here but this class and
+    `on_one_thread`."""
 
     def __init__(self, cases: list, world: int, tmp, timeout: float = 300.0):
         import os

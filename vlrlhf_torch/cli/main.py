@@ -68,9 +68,12 @@ same rows. Metrics are means over the ranks, written by rank 0, which also
 writes the checkpoints (the world-1 tensors, so they resume under any
 layout) and adapters/, merged/, merged_hf/ (the
 files of a single-process run). Generation under the mesh (ppo's
-rollouts, dpo's --eval_samples) runs on the gathered FSDP2 units with the
-KV caches and decode attention at a rank's heads, a tensor-parallel group's
-sampled tokens broadcast from its first rank each step; ppo's data-parallel
+rollouts, dpo's --eval_samples) runs on the gathered FSDP2 units and,
+under a pipeline, the whole stack (every stage's layers joined on each
+rank for the block, core/partitioning.py whole_stack), with the KV caches
+and decode attention at a rank's heads, the sampled tokens of the model x
+pipe ranks of one data-parallel coordinate broadcast from their first rank
+each step; ppo's data-parallel
 ranks roll out their own prompts and its statistics (score moments,
 whitening, mean KL, the update's permutation and masked means) are the
 global batch's (train/ppo.py), with one vote per outer step on a failed
@@ -82,17 +85,19 @@ ranks, which then read the same rows: the global batch is
 --per_device_train_batch_size x data, every layer runs on a rank's
 contiguous slice and attention is a ring over the fsdp group
 (ops/ring_attention.py); the collator's bucket is rounded up to a
-multiple of the ring. `--mesh_pipe S` (dpo, sft, rm under torchrun) is
-the GPipe pipeline (models/lm/pipeline.py): each of S stages of data x
+multiple of the ring. `--mesh_pipe S` (dpo, sft, rm, ppo under torchrun)
+is the GPipe pipeline (models/lm/pipeline.py): each of S stages of data x
 fsdp x model ranks holds L / S decoder layers, the rows of each batch
 cross the stages as --pipeline_microbatches microbatches (0: S), and the
 stages read the same rows, so the global batch is
---per_device_train_batch_size x data x fsdp. Refused by name before
-anything loads: a layer count S does not divide, rows per data-parallel
-rank (dpo's and rm's are 2 x pairs) the microbatches do not divide, the
-pipeline with the sequence split, ppo and dpo --eval_samples under it
-(their generation needs every layer on a rank), --pipeline_microbatches
-without a pipeline. Refused, as later parts of the multi-GPU work
+--per_device_train_batch_size x data x fsdp; ppo's reward, stats pass and
+update run through it, its rollouts and dpo's --eval_samples on the whole
+stack. Refused by name before anything loads: a layer count S does not
+divide, rows per data-parallel rank (dpo's and rm's are 2 x pairs) the
+microbatches do not divide, a ppo minibatch share per data-parallel rank
+they do not divide or a stats slice of fewer rows than microbatches, the
+pipeline with the sequence split, --pipeline_microbatches without a
+pipeline. Refused, as later parts of the multi-GPU work
 (ROADMAP.md): the sequence split over `model` (and `data`, which holds
 the rows), ppo and --eval_samples under the sequence split, and eval with
 mesh flags (serve takes none).
@@ -199,27 +204,56 @@ def check_pipeline_flags(args) -> None:
         raise SystemExit(f"--mesh_pipe {pipe} with --sequence_parallel_axis "
                          f"{args.sequence_parallel_axis}: the pipeline and the sequence split "
                          "are mutually exclusive (as in vlrlhf_tpu, models/lm/pipeline.py:87-91)")
-    if args.command == "ppo":
-        raise SystemExit(f"ppo under --mesh_pipe {pipe}: its rollouts generate with every layer "
-                         "on a rank, and gathering a pipeline's stages for generation is not "
-                         f"ported ({PART2})")
-    if getattr(args, "eval_samples", 0):
-        raise SystemExit(f"--eval_samples under --mesh_pipe {pipe}: the samples generate with "
-                         "every layer on a rank, and gathering a pipeline's stages for "
-                         f"generation is not ported ({PART2}); --eval_steps alone runs the "
-                         "holdout through the pipeline")
     m = micro or pipe
-    rows = args.per_device_train_batch_size * (2 if args.command in PAIRS else 1)
-    if rows % m:
-        what = (f"{args.per_device_train_batch_size} pairs = {rows} rows"
-                if args.command in PAIRS else f"{rows} rows")
-        raise SystemExit(f"--mesh_pipe {pipe}: {what} per data-parallel rank "
-                         f"(--per_device_train_batch_size) do not split into {m} pipeline "
-                         "microbatches (--pipeline_microbatches)")
+    if args.command == "ppo":
+        check_ppo_microbatches(args, m)
+    else:
+        rows = args.per_device_train_batch_size * (2 if args.command in PAIRS else 1)
+        if rows % m:
+            what = (f"{args.per_device_train_batch_size} pairs = {rows} rows"
+                    if args.command in PAIRS else f"{rows} rows")
+            raise SystemExit(f"--mesh_pipe {pipe}: {what} per data-parallel rank "
+                             f"(--per_device_train_batch_size) do not split into {m} pipeline "
+                             "microbatches (--pipeline_microbatches)")
     n_layers = lm_layers(args)
     if n_layers % pipe:
         raise SystemExit(f"--mesh_pipe {pipe}: the LM's {n_layers} layers do not split into "
                          f"{pipe} equal stages")
+
+
+def check_ppo_microbatches(args, m: int) -> None:
+    """ppo under a pipeline of `m` microbatches: a data-parallel rank's
+    share of each global minibatch (the update's rows, and the stats
+    pass's slices) must split into m equal microbatches, as vlrlhf_tpu
+    asserts b % m == 0 (models/lm/pipeline.py:101-105); the stats pass's
+    last slice of a rank's rows, where the minibatch does not divide them,
+    runs uneven microbatches (microbatch_spans) and needs m rows at least.
+    The data-parallel ranks are counted at the launch's world size."""
+    import os
+
+    from vlrlhf_torch.core.mesh import MeshConfig
+
+    fixed = [n for n in (args.mesh_data, args.mesh_fsdp, args.mesh_model, args.mesh_pipe)
+             if n > 0]
+    world = int(os.environ.get("WORLD_SIZE", 0)) or math.prod(fixed)
+    try:
+        data, fsdp, _, _ = MeshConfig(args.mesh_data, args.mesh_fsdp, args.mesh_model,
+                                      args.mesh_pipe).resolve(world)
+    except ValueError:
+        return  # setup_mesh refuses the mesh itself
+    dp, per = data * fsdp, args.per_device_train_batch_size
+    mb = min(args.minibatch_size, per * dp) if args.minibatch_size else per * dp
+    share = mb // dp
+    tail = per % share if share else 0
+    if share % m:
+        raise SystemExit(f"--mesh_pipe {args.mesh_pipe}: a PPO minibatch of {mb} rows gives each "
+                         f"of the {dp} data-parallel ranks {share} rows, which do not split into "
+                         f"{m} pipeline microbatches (--minibatch_size, "
+                         "--per_device_train_batch_size, --pipeline_microbatches)")
+    if 0 < tail < m:
+        raise SystemExit(f"--mesh_pipe {args.mesh_pipe}: the stats pass's last slice of a rank's "
+                         f"{per} rollouts holds {tail} rows, fewer than the {m} pipeline "
+                         "microbatches (--minibatch_size, --per_device_train_batch_size)")
 
 
 def setup_mesh(args, device: torch.device):
@@ -734,7 +768,8 @@ def make_eval_hook(run: DPORun, processor, args, logger):
     import os
 
     from vlrlhf_torch.core.dist import is_main_process
-    from vlrlhf_torch.core.partitioning import unsharded
+    from vlrlhf_torch.core.mesh import current_mesh
+    from vlrlhf_torch.core.partitioning import whole_stack
     from vlrlhf_torch.data.collators import GenerationCollator
     from vlrlhf_torch.generate.engine import GenerateConfig, Generator
     from vlrlhf_torch.train.dpo import batch_to_device, make_dpo_eval_fn
@@ -769,9 +804,10 @@ def make_eval_hook(run: DPORun, processor, args, logger):
         outs = {}
         # under a mesh every rank generates the same samples from the
         # gathered units (generation calls module methods outside FSDP2's
-        # hooks), a tensor-parallel group on its heads with its first
-        # rank's tokens
-        with unsharded(run.model):
+        # hooks) and, under a pipeline, every stage's layers joined, a
+        # tensor-parallel group on its heads, with the first rank's tokens
+        # of its model x pipe ranks
+        with whole_stack(run.model, current_mesh()):
             for name, on in (("policy", True), ("ref", False)):
                 sample_gen.adapters = on
                 outs[name] = sample_gen(sample_batch).cpu().numpy()
@@ -1093,9 +1129,11 @@ def reward_model_fn(model, path: str, lora_scale: float):
     (vlrlhf_tpu cli/main.py:790-807). The policy's adapters are not
     touched. Under a mesh the set is split over --mesh_model like LoRA
     (each rank holds its part of the world-1 adapters) and replicated over
-    the data-parallel ranks, as the head is."""
+    the data-parallel ranks, as the head is; under a pipeline a stage holds
+    its layers' part of the set, and the scores come through the
+    schedule."""
     from vlrlhf_torch.core.mesh import current_mesh
-    from vlrlhf_torch.core.partitioning import tp_dim, tp_part
+    from vlrlhf_torch.core.partitioning import layer_index, tp_dim, tp_part
     from vlrlhf_torch.lora.lora import adapters_of, set_adapters_
     from vlrlhf_torch.models.common import Ctx
     from vlrlhf_torch.train.checkpoint import load_params
@@ -1106,8 +1144,10 @@ def reward_model_fn(model, path: str, lora_scale: float):
         raise SystemExit(f"--reward_model_path {path}: no rm_head/kernel (not an rm run's "
                          "adapters directory)")
     mesh = current_mesh()
-    set_adapters_(model, {k: tp_part(v, tp_dim(k), mesh) for k, v in adapters_of(tree).items()},
-                  REWARD_SET)
+    lo, hi = model.lm.layer_span
+    held = {k: v for k, v in adapters_of(tree).items()
+            if layer_index(k) is None or lo <= layer_index(k) < hi}
+    set_adapters_(model, {k: tp_part(v, tp_dim(k), mesh) for k, v in held.items()}, REWARD_SET)
     kernel = tree["rm_head/kernel"].to(model.device, torch.float32)
     ctx = Ctx(adapters=True, lora_scale=lora_scale, adapter_set=REWARD_SET)
 
@@ -1295,9 +1335,11 @@ def train_ppo(run: PPORun, processor, args, logger, on_step=None) -> int:
     phase times. Returns the last step.
 
     Under a mesh every rank collates the global batch's prompts and rolls
-    out its own rows (the FSDP2 units gathered, `partitioning.unsharded`;
-    a tensor-parallel group decodes its rows together, its first rank's
-    tokens broadcast each step, generate/engine.py), each data-parallel rank
+    out its own rows (the FSDP2 units gathered and, under a pipeline, every
+    stage's layers joined for the block, `partitioning.whole_stack`; the
+    model x pipe ranks of a data-parallel coordinate decode its rows
+    together, their first rank's tokens broadcast each step,
+    generate/engine.py), each data-parallel rank
     from its own generator (--seed plus the rank); tokens and rewards meet
     on every rank, so the score moments, the KL controller and the update's
     permutation see the global batch, and the stats pass runs on the rank's
@@ -1311,7 +1353,7 @@ def train_ppo(run: PPORun, processor, args, logger, on_step=None) -> int:
 
     from vlrlhf_torch.core import dist
     from vlrlhf_torch.core.mesh import current_mesh
-    from vlrlhf_torch.core.partitioning import full_state_tree, unsharded
+    from vlrlhf_torch.core.partitioning import full_state_tree, whole_stack
     from vlrlhf_torch.generate.continuous import ContinuousEngine
     from vlrlhf_torch.generate.engine import Generator
     from vlrlhf_torch.train.checkpoint import CheckpointManager
@@ -1366,7 +1408,7 @@ def train_ppo(run: PPORun, processor, args, logger, on_step=None) -> int:
             t0 = time.perf_counter()
             failed, tokens, resp_lens = False, None, None
             try:
-                with unsharded(model):
+                with whole_stack(model, mesh):
                     if args.rollout_continuous_batching:
                         c_len = -(-(int(np.max(mine["prompt_lens"])) + args.max_new_tokens)
                                   // 128) * 128
@@ -1625,8 +1667,8 @@ def _add_eval_parser(sub) -> None:
 
 def _add_mesh_args(p) -> None:
     """vlrlhf_tpu's mesh flags. They take effect under torchrun (dpo, sft,
-    rm, ppo; the pipeline on dpo, sft and rm), and are refused where they
-    are not ported (setup_mesh, check_pipeline_flags, ppo, eval)."""
+    rm, ppo), and are refused where they are not ported (setup_mesh,
+    check_pipeline_flags, ppo, eval)."""
     p.add_argument("--mesh_data", type=int, default=1,
                    help="data-parallel replicas of the sharded model (HSDP)")
     p.add_argument("--mesh_fsdp", type=int, default=-1,
@@ -1634,8 +1676,8 @@ def _add_mesh_args(p) -> None:
     p.add_argument("--mesh_model", type=int, default=1,
                    help="tensor-parallel ranks (heads and the MLP width split)")
     p.add_argument("--mesh_pipe", type=int, default=1,
-                   help="GPipe stages, each holding L / S decoder layers (dpo, sft, rm under "
-                        "torchrun)")
+                   help="GPipe stages, each holding L / S decoder layers (dpo, sft, rm, ppo "
+                        "under torchrun)")
     p.add_argument("--pipeline_microbatches", type=int, default=0,
                    help="microbatches a batch's rows cross the pipeline in (0: one per stage)")
     p.add_argument("--sequence_parallel_axis", type=str, default="",

@@ -267,10 +267,12 @@ def dp_gather_rows(t: torch.Tensor) -> torch.Tensor:
 
 def vote_and_gather(flags: tuple, payload: Any) -> tuple[tuple, list]:
     """One host collective over every rank: each flag OR-ed over the ranks
-    (a failure, a SIGTERM: every rank then takes the same branch), and
-    every data-parallel rank's payload in data-parallel order, the first
-    rank of each tensor-parallel group speaking for it (rank = dp_rank *
-    model + tp_rank). Without a process group: (flags, [payload])."""
+    of every stage (a failure, a SIGTERM, a later stage's failed reward:
+    every rank then takes the same branch), and every data-parallel rank's
+    payload in data-parallel order, the first rank of each tensor-parallel
+    group of the first stage speaking for it (rank = dp_rank * model +
+    tp_rank; a pipeline's stages hold the same rows and tokens). Without a
+    process group: (flags, [payload])."""
     flags = tuple(bool(f) for f in flags)
     if not is_initialized():
         return flags, [payload]
@@ -287,18 +289,21 @@ def vote_and_gather(flags: tuple, payload: Any) -> tuple[tuple, list]:
 
 
 def model_group_tokens(t: torch.Tensor) -> torch.Tensor:
-    """Tokens the ranks of one tensor-parallel group all emit: under a
-    mesh with model > 1, each step's sampled tokens broadcast from the
-    group's first rank (on the device, no host sync), so the group decodes
-    one sequence by construction, whatever each rank's generator drew.
-    Elsewhere `t` itself."""
+    """Tokens the ranks of one data-parallel coordinate all emit: under a
+    mesh with model x pipe > 1, each step's sampled tokens broadcast from
+    the first rank of the group those ranks form (`Mesh.token_group`; on
+    the device, no host sync), so a tensor-parallel group, and under a
+    pipeline every stage decoding the whole stack, decodes one sequence by
+    construction, whatever each rank's generator drew. Elsewhere `t`
+    itself."""
     from vlrlhf_torch.core.mesh import current_mesh
 
     mesh = current_mesh()
-    if mesh is None or mesh.model == 1 or not is_initialized():
+    if mesh is None or mesh.token_group is None or not is_initialized():
         return t
     t = t.contiguous()
-    _dist().broadcast(t, src=_dist().get_global_rank(mesh.tp_group, 0), group=mesh.tp_group)
+    group = mesh.token_group
+    _dist().broadcast(t, src=_dist().get_global_rank(group, 0), group=group)
     return t
 
 

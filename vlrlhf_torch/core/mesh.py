@@ -107,9 +107,11 @@ class Mesh:
     ranks, or under sequence parallelism those of one (fsdp, model)
     coordinate), `tp_group` the ranks of one (data, fsdp) coordinate and
     `sp` (sequence parallelism only) the ring: the ranks of one (data,
-    model) coordinate. Every group but `pp`'s lies inside this rank's
-    stage; `pp` (pipe > 1 only) joins the stages' ranks of this (data,
-    fsdp, model) coordinate."""
+    model) coordinate. Every group but `pp`'s and `token_group`'s lies
+    inside this rank's stage; `pp` (pipe > 1 only) joins the stages' ranks
+    of this (data, fsdp, model) coordinate, and `token_group` the model x
+    pipe ranks of this (data, fsdp) coordinate (the tensor-parallel group
+    without a pipeline)."""
 
     device_mesh: object  # torch.distributed.device_mesh.DeviceMesh
     data: int
@@ -123,6 +125,10 @@ class Mesh:
     sp: Optional[SPShard] = None  # the ring, under sequence parallelism
     pipe: int = 1
     pp: Optional[PipeShard] = None  # the stages, under a pipeline
+    # the ranks of one (data, fsdp) coordinate, model x pipe of them, which
+    # decode the same rows (core.dist model_group_tokens); None when this
+    # rank is alone in it
+    token_group: object = None
 
     @property
     def pipe_rank(self) -> int:
@@ -265,10 +271,15 @@ def make_mesh(config: Optional[MeshConfig] = None, device_type: str = "cuda",
         # the group's first operation is a collective of all its ranks (NCCL
         # leaves a first point-to-point call on a group undefined otherwise)
         dist.barrier(group=pipe_group)
+        token_group = groups((((d, f), [at(q, d, f, m) for q in range(pipe)
+                                        for m in range(model)])
+                              for d in range(data) for f in range(fsdp)), coords[:2])
+    else:
+        token_group = dm.get_group("model") if model > 1 else None
     return set_global_mesh(Mesh(
         device_mesh=dm, data=data, fsdp=fsdp, model=model, coords=coords,
         dp_group=dp_group if sp else grad_group, fsdp_group=dm.get_group("fsdp"),
         tp_group=dm.get_group("model"), grad_group=grad_group,
         sp=SPShard(sp_group, coords[1], fsdp, dist.get_backend(sp_group)) if sp else None,
-        pipe=pipe, pp=pp,
+        pipe=pipe, pp=pp, token_group=token_group,
     ))

@@ -63,6 +63,12 @@ data: the steps scale their loss by the ring's size before the backward
 (train/dpo.py, sft.py, rm.py), and the reduction's mean over data x fsdp
 gives it. The gradient norm and the clip then see the summed gradients.
 
+Generation under a pipeline (ppo's rollouts, dpo's --eval_samples) runs
+on the whole stack, as vlrlhf_tpu's GSPMD gathers every stage's layers for
+its plain decode scan: `whole_stack` joins the other stages' layers onto
+every rank of the pipe group inside FSDP2's gather and drops them after
+the block.
+
 Checkpoints and final saves gather every tensor to its world-1 layout
 (`full_tensor`, then the stages' layers joined over the pipe group) and
 restores split it again for the mesh at hand (`stage_tree` keeps a
@@ -330,6 +336,106 @@ def unsharded(model):
     finally:
         for u in units:
             u.reshard()
+
+
+def _layer_tensors(layer) -> list:
+    """(kind, module name, leaf, tensor) for every tensor a decoder layer
+    holds, in one order on every stage: each registered parameter
+    (weights, biases, int8 / int4 codes, scales and gbias, the policy's
+    LoRA, PLoRA, the norms) and each named LoRA set's a and b."""
+    from vlrlhf_torch.models.common import Linear
+
+    out = []
+    for mname, mod in layer.named_modules():
+        out += [("param", mname, leaf, p) for leaf, p in mod._parameters.items() if p is not None]
+        if isinstance(mod, Linear):
+            for name in sorted(mod.lora_sets):
+                a, b = mod.lora_sets[name]
+                out += [("set_a", mname, name, a), ("set_b", mname, name, b)]
+    return out
+
+
+def _stage_copies(layer, mesh) -> list:
+    """Every stage's copy of the layer at this one's place in its stage, in
+    stage order: this stage's is `layer` itself, each other a new
+    LlamaLayer (built on the meta device, then given the joined tensors as
+    frozen parameters: views into one gathered buffer per dtype, each
+    16-byte aligned, so the int4 wrapper reads its codes in place) with
+    layer's per-layer config, tensor-parallel places and widths."""
+    from vlrlhf_torch.models.common import Linear
+    from vlrlhf_torch.models.lm.llama import LlamaLayer
+
+    items = _layer_tensors(layer)
+    dtypes = sorted({t.dtype for *_, t in items}, key=str)
+
+    def slot(t):  # each tensor's slot starts 16-byte aligned, as the kernels' loads need
+        unit = max(16 // t.element_size(), 1)
+        return -(-t.numel() // unit) * unit
+
+    parts: dict = {}
+    for dt in dtypes:
+        flat = torch.cat([torch.cat([t.detach().reshape(-1),
+                                     t.new_zeros(slot(t) - t.numel())])
+                          for *_, t in items if t.dtype == dt])
+        parts[dt] = _pipe_join(flat, mesh, to_all=True)
+    copies = []
+    for s in range(mesh.pipe):
+        if s == mesh.pipe_rank:
+            copies.append(layer)
+            continue
+        new = LlamaLayer(layer.cfg, "meta")
+        for mname, mod in layer.named_modules():
+            dst = new.get_submodule(mname)
+            for leaf in mod._parameters:
+                setattr(dst, leaf, None)
+            if isinstance(mod, Linear):
+                dst.d_in, dst.d_out, dst.tp = mod.d_in, mod.d_out, mod.tp
+                dst.wqkv = dst.gateup = None
+        offsets = dict.fromkeys(dtypes, 0)
+        sets: dict = {}
+        for kind, mname, leaf, t in items:
+            at, dst = offsets[t.dtype], new.get_submodule(mname)
+            view = parts[t.dtype][s][at:at + t.numel()].view(t.shape)
+            offsets[t.dtype] += slot(t)
+            if kind == "param":
+                setattr(dst, leaf, nn.Parameter(view, requires_grad=False))
+            else:
+                sets.setdefault((mname, leaf), []).append(view)
+        for (mname, name), (a, b) in sets.items():
+            new.get_submodule(mname).lora_sets[name] = (a, b)
+        copies.append(new)
+    return copies
+
+
+@contextlib.contextmanager
+def whole_stack(model, mesh):
+    """The model with every decoder layer for the block: generation's
+    counterpart of vlrlhf_tpu's plain scan over a pipe-sharded stack, in
+    which GSPMD gathers every stage's layers onto each device
+    (models/lm/llama.py:758-761). FSDP2's units are gathered (`unsharded`)
+    and, under a pipeline, the other stages' layers are joined over the
+    pipe group (collective: every rank of the group enters): each layer's
+    weights or int8 / int4 fields as this rank's tensor-parallel part
+    holds them, the policy's LoRA, every named set (ppo's value set, the
+    reward set) and PLoRA, as they are now (after the last update).
+    `model.lm.layers` is then the whole stack in global order; after the
+    block it is the stage's layers again, and the joined ones are freed.
+    Without a pipeline this is `unsharded`."""
+    if mesh is None or mesh.pp is None:
+        with unsharded(model):
+            yield
+        return
+    lm = model.lm
+    stage = lm.layers
+    with unsharded(model):
+        per_place = [_stage_copies(layer, mesh) for layer in stage]
+        lm.layers = nn.ModuleList(per_place[i][s] for s in range(mesh.pipe)
+                                  for i in range(len(stage)))
+        del per_place
+        try:
+            yield
+        finally:
+            lm.layers = stage
 
 
 # ---------------------------------------------------------------------------

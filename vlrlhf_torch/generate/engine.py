@@ -52,9 +52,10 @@ class GenerateConfig:
 
 
 def _sample(gen_cfg: GenerateConfig, logits, generator):
-    """A step's tokens (B,) int32. Under a mesh with --mesh_model > 1 the
-    tensor-parallel group takes its first rank's (core/dist.py
-    model_group_tokens), so it decodes one sequence by construction."""
+    """A step's tokens (B,) int32. Under a mesh with --mesh_model or
+    --mesh_pipe > 1 the model x pipe ranks of a data-parallel coordinate
+    take their first rank's (core/dist.py model_group_tokens), so they
+    decode one sequence by construction."""
     return model_group_tokens(sample_tokens(
         logits, generator, temperature=gen_cfg.temperature,
         top_k=gen_cfg.top_k, top_p=gen_cfg.top_p, do_sample=gen_cfg.do_sample,

@@ -47,7 +47,10 @@ microbatches, each stage running its layers (`run_layers`, every remat
 policy, each layer's dropout stream folded from its global index) on a
 microbatch's rows, and the stack's output comes back whole on every stage,
 where the final norm and everything after it run on the whole batch. The
-prefill, decode and chunk paths refuse a pipeline by name.
+prefill, decode and chunk paths refuse a stage's layers by name; they run
+when the decoder holds the whole stack again (core/partitioning.py
+`whole_stack`, generation's block), and the training forward then runs
+the stack plainly, not through the schedule.
 
 KV cache layout is vlrlhf_tpu's head-major decode layout: {"k", "v"} each
 (L, B, nkv, Sc, hd), slot == absolute position (right-padded prompts); an
@@ -89,14 +92,18 @@ def train_attention(q, k, v, pad_mask) -> torch.Tensor:
     return multi_head_attention(q, k, v, causal=True, pad_mask_q=pad_mask, pad_mask_kv=pad_mask)
 
 
-def refuse_split(path: str) -> None:
+def refuse_split(path: str, whole: bool) -> None:
+    """Refuse a prefill, decode or chunk under sequence parallelism, or
+    under a pipeline on a decoder that holds one stage's layers (`whole`:
+    it holds every layer, core/partitioning.py whole_stack)."""
     if sp_shard() is not None:
         raise ValueError(f"the {path} path refuses sequence parallelism "
                          "(--sequence_parallel_axis): only the training forward is "
                          "sequence-parallel")
-    if pipe_shard() is not None:
-        raise ValueError(f"the {path} path refuses a pipeline (--mesh_pipe): a stage holds "
-                         "some of the layers and only the training forward is pipelined")
+    if pipe_shard() is not None and not whole:
+        raise ValueError(f"the {path} path refuses a pipeline stage's layers (--mesh_pipe): "
+                         "a stage holds some of the layers; generation runs on the whole "
+                         "stack (core/partitioning.py whole_stack)")
 
 
 class LlamaLayer(nn.Module):
@@ -311,6 +318,12 @@ class LlamaDecoder(nn.Module):
         return lo, lo + len(self.layers)
 
     @property
+    def holds_every_layer(self) -> bool:
+        """Whether the decoder holds the whole stack (always, but on a
+        pipeline stage outside core/partitioning.py whole_stack)."""
+        return len(self.layers) == self.cfg.num_layers
+
+    @property
     def cache_cfg(self) -> LMConfig:
         """The config KV caches and pending writes are sized by: a layer's,
         whose head counts are this rank's under tensor parallelism
@@ -348,7 +361,7 @@ class LlamaDecoder(nn.Module):
         sp = sp_shard()
         lo, hi = (0, s) if sp is None else sp.span(s)
         if cache_len is not None:
-            refuse_split("prefill")
+            refuse_split("prefill", self.holds_every_layer)
         positions = torch.arange(lo, hi, device=inputs_embeds.device)[None].expand(b, hi - lo)
         alpha = None
         if cfg.rope_scaling_type == "qwen_dynamic":  # from each row's (whole) real length
@@ -394,7 +407,7 @@ class LlamaDecoder(nn.Module):
     def _train_forward(self, x, pad_mask, cos, sin, ctx: Ctx) -> torch.Tensor:
         layers_ctx = ctx.sub("layers_scanned")
         pp = pipe_shard()
-        if pp is None:
+        if pp is None or self.holds_every_layer:  # the whole stack runs its layers plainly
             x = self.run_layers(x, cos, sin, pad_mask, layers_ctx)
         else:
             from vlrlhf_torch.models.lm.pipeline import pipeline
@@ -448,7 +461,7 @@ class LlamaDecoder(nn.Module):
         this step's k/v ride through the decode kernel as its bf16 self term
         and come back as the next pending. The cache is written in place —
         it is the largest buffer on the card."""
-        refuse_split("decode")
+        refuse_split("decode", self.holds_every_layer)
         cfg = self.cfg
         b = last_token.shape[0]
         nkv, hd = self.cache_cfg.num_kv_heads, cfg.head_dim_
@@ -501,7 +514,7 @@ class LlamaDecoder(nn.Module):
 
         Returns (logits, new_lengths): logits are the last real position's
         (B, V), or with return_all_logits every position's (B, C, V)."""
-        refuse_split("chunk prefill")
+        refuse_split("chunk prefill", self.holds_every_layer)
         cfg = self.cfg
         b, c = input_ids.shape
         sc = cache["k"].shape[3]

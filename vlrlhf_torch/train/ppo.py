@@ -38,7 +38,11 @@ the whitening's mean and variance and the mean KL (`group`: sums
 all-reduced over the data-parallel group), and the update's masked means,
 whose denominators are the global minibatch's token counts
 (`ppo_update`), each rank stepping on its share of every global minibatch
-(`ppo_update_epochs`). GAE stays on the host, per row.
+(`ppo_update_epochs`). GAE stays on the host, per row. Under a pipeline
+(--mesh_pipe) every trunk pass here runs through the GPipe schedule
+(models/lm/pipeline.py): the policy, value and reference forwards of the
+stats pass and the update's, at the same slices of rows; the value head
+is a leaf after the stack and the value adapters a stage's.
 """
 
 from __future__ import annotations
