@@ -30,7 +30,9 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      bf16 on the dequantized weight as yardstick); and the shapes one rank
      of --mesh_model 2 gives them ("tp" in the kernels line): the flash
      forward and backward at H = 16 (LLaVA's 32 heads split) and GQA
-     16 / 4 (Mistral's 32 / 8) on the DPO pair's S = 1024, the int4
+     16 / 4 (Mistral's 32 / 8) on the DPO pair's S = 1024 and, under
+     --sequence_parallel_axis model (phase 17a), at H = 16 over 14b's
+     whole S = 4096 pair (rows of 4,084 / 3,884), the int4
      kernels at T = 2048 on gate / up column shards (out 5,504) and the
      repacked down and wo row shards (in 5,504 and 2,048), kernel 6 at
      T = 8 on the gate and down shards (ppo's rollouts under QLoRA int4),
@@ -155,7 +157,8 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      one profiled outer step. (c) ppo --q_lora true --bits 4 at 2 LM
      layers: one outer step, kernels 6 and 7 launched
   11. the LLaVA-Next and InstructBLIP families: (a) llava_next_mistral and
-     instructblip at their 7B widths but 2 LM / 2 tower layers, the same
+     instructblip at their 7B widths but 1 LM / 2 tower layers
+     (FAMILY_CHECK_LAYERS), the same
      seeded weights on the card (bf16) and the CPU (f32): an image prompt's
      logits and 8 greedy tokens (a 336 x 336 anyres image in 3 tiles; a
      Q-Former instruction read through a seeded WordPiece tokenizer), one
@@ -179,7 +182,8 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
   12. the Qwen-VL and InternLM-XC2 families, each with its tokenizer in
      the published layout (the full-size qwen.tiktoken; a 92,544-piece
      sentencepiece tokenizer.model) read by the port's readers: (a) both at
-     7B widths but 2 LM / 2 tower layers, card bf16 against CPU f32 (XC2
+     7B widths but 1 LM / 2 tower layers (FAMILY_CHECK_LAYERS), card bf16
+     against CPU f32 (XC2
      with a 24 x 24 table resized in the forward, r = 256 PLoRA and 224-px
      images): two image prompts' logits and 8 greedy tokens, one DPO pair's
      loss and gradients, int4 LM linears with --fuse_decode against
@@ -294,6 +298,27 @@ nothing of JAX. Phases, each raising on failure (non-zero exit):
      make_eval_hook) under the same layout: the greedy policy and
      reference samples equal world 1's or part only at a tie; rank 0's
      launches are "mesh_ppo_pipe"
+  17. the sequence split over the tensor-parallel ranks
+     (--sequence_parallel_axis model: each layer gathers its normed slice
+     before the column linears, runs kernels 1-3 on its 16 heads over the
+     whole sequence, reduce-scatters after the row linears), started with
+     13b-e, 14b, 15b and 16: two ranks sharing the card over gloo (this
+     script with --mesh17-worker, torchrun's environment). (a) `dpo` at
+     (1, 1, 2) on 14b's pair (S = 4096) at full width and 2 LM / 2 tower
+     layers, beside --mesh_model 2 alone on the same pair, against 14b's
+     world 1: the first update's gradients leaf by leaf within
+     MESH_GRAD_TOL (both layouts), step-1 loss ln 2 and the gradient norm
+     within 1e-2, each rank's kernels 1-3 launches equal to --mesh_model
+     2's, each rank's resident and step peak memory beside --mesh_model 2's;
+     a planted fault (the replicated leaves' gradient partials not summed
+     over the group) must fail MESH_GRAD_TOL; rank 0's launches are
+     "mesh_dpo_sp_model". (b) 13e's ppo outer step at (1, 1, 2) under the
+     model split and at (1, 2, 1) under the fsdp ring (generation unsplit,
+     the stats pass and update on the slices), against 13e's world 1: the
+     tokens equal or part only at a top-2 tie, the scores within
+     PPO_SCORE_TOL, the first update within PPO_GRAD_TOL of world 1's
+     replay, kernel 4 on every rank at world 1's count (decode steps x
+     layers); the model split's rank 0 launches are "mesh_ppo_sp"
 
 A profiled step prints the card's busy and idle time and its kernel time by
 group (torch.profiler; the flash groups split by head dim). Phase 2's
@@ -323,7 +348,8 @@ blip_eval) and phase 12's (qwen_int4_reduced, internlm_int4_reduced,
 xc2_qlora4_reduced, qwen_serve, qwen_dpo, qwen_serve_int8_spec,
 xc2_serve, xc2_dpo, xc2_eval), phase 13's (mesh_dpo, mesh_eval,
 mesh_dpo_tp, mesh_ppo), phase 14's (mesh_dpo_sp), phase 15's
-(mesh_dpo_pipe) and phase 16's (mesh_ppo_pipe), split in
+(mesh_dpo_pipe), phase 16's (mesh_ppo_pipe) and phase 17's
+(mesh_dpo_sp_model, mesh_ppo_sp), split in
 launches_by_path; the eval and ppo shapes' times under "eval" and "ppo");
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero
@@ -393,6 +419,9 @@ ANYRES_SIZES = ((672, 672), (336, 1008), (1008, 336), (480, 640), (640, 480), (5
 TP2_FLASH_CASES = (
     ("tp2_dpo_lm_causal", True, 2, 1024, 16, 16, 128, (1000, 900)),
     ("tp2_gqa_1024", True, 2, 1024, 16, 4, 128, (1024, 960)),
+    # phase 17a: a rank's heads over the whole S = 4096 pair (rows of 4,084
+    # and 3,884 tokens) under --sequence_parallel_axis model
+    ("tp2_sp_4096", True, 2, 4096, 16, 16, 128, (4084, 3884)),
 )
 # int4 on a rank's shards at the DPO step's T = 2048: gate / up column
 # shards (out 11008 -> 5504), the repacked down row shard (in 5504) and
@@ -3998,9 +4027,15 @@ def family_collator_config(cfg):
                           tile_grid=cfg.vision.image_size // cfg.vision.patch_size)
 
 
+# phases 11a and 12a's LM depth: the CPU's f32 passes at full width take
+# most of their time (the script's time limit)
+FAMILY_CHECK_LAYERS = 1
+
+
 def family_models(family: str, prep=None, image_size: int = 0):
-    """(cfg32, cpu, gpu): `family`'s 7B widths at 2 LM / 2 tower layers (the
-    Q-Former whole), attn remat, the same seeded weights in f32 on the CPU
+    """(cfg32, cpu, gpu): `family`'s 7B widths at FAMILY_CHECK_LAYERS LM / 2
+    tower layers (the Q-Former whole), attn remat, the same seeded weights
+    in f32 on the CPU
     and bf16 on the card. `prep(cpu)` adds what a checkpoint holds beyond
     the config (XC2's PLoRA and 24 x 24 table) before the copy;
     `image_size` shrinks the image (and the image token count) where the
@@ -4013,7 +4048,8 @@ def family_models(family: str, prep=None, image_size: int = 0):
     from vlrlhf_torch.models.vlm import VLM
 
     full = with_remat_policy(FAMILIES[family].make_config(torch.float32), "attn")
-    cfg32 = dataclasses.replace(full, lm=dataclasses.replace(full.lm, num_layers=2),
+    cfg32 = dataclasses.replace(full, lm=dataclasses.replace(full.lm,
+                                                             num_layers=FAMILY_CHECK_LAYERS),
                                 vision=dataclasses.replace(full.vision, num_layers=2))
     if image_size:  # a smaller image: fewer image tokens, the same widths
         grid = image_size // cfg32.vision.patch_size
@@ -4126,8 +4162,9 @@ def card_vs_cpu_dpo(cpu, gpu, batch, dcfg, label: str, counts=None):
 
 
 def phase_families_reduced_depth() -> None:
-    """Phase 11a: llava_next_mistral and instructblip at 2 LM / 2 tower
-    layers, full widths, card bf16 against CPU f32: two image prompts'
+    """Phase 11a: llava_next_mistral and instructblip at FAMILY_CHECK_LAYERS
+    LM / 2 tower layers, full widths, card bf16 against CPU f32: two image
+    prompts'
     logits and 8 greedy tokens in one batch (anyres images of 336 x 336 and
     336 x 672, 3 tiles each but plans of 1,176 and 1,752 tokens, so one row
     is padded; Q-Former instructions of two lengths), one DPO pair's loss
@@ -4168,7 +4205,7 @@ def phase_families_reduced_depth() -> None:
                 cpu, gpu, dbatch, DPOConfig(beta=0.1, lora_scale=lcfg.scale, logits_chunk=256,
                                             frozen_vision=False),
                 "reduced-depth instructblip DPO, unfrozen EVA tower (D = 88)", counts)
-            # policy backward: the LM's 2 layers and the tower's 2 (the
+            # policy backward: the LM's layers and the tower's 2 (the
             # reference forward runs under no_grad)
             want = cfg32.lm.num_layers + cfg32.vision.layers_run
             if min(launches["flash_bwd_dkv"], launches["flash_bwd_dq"]) < want:
@@ -4506,8 +4543,9 @@ def plora_control(cpu, gpu, batch, err: float) -> None:
 
 
 def phase_families12_reduced_depth() -> dict:
-    """Phase 12a: qwen_vl and internlm_xc2 at their 7B widths but 2 LM / 2
-    tower layers, card bf16 against CPU f32 on the same seeded weights (XC2
+    """Phase 12a: qwen_vl and internlm_xc2 at their 7B widths but
+    FAMILY_CHECK_LAYERS LM / 2 tower layers, card bf16 against CPU f32 on
+    the same seeded weights (XC2
     with a 24 x 24 table and r = 256 PLoRA, its images at 224 px so the
     CPU's rows stay short): two image prompts of different
     lengths in one batch (logits, 8 greedy tokens), one DPO pair's loss and
@@ -4552,8 +4590,10 @@ def phase_families12_reduced_depth() -> dict:
         drop_adapters(cpu)
         drop_adapters(gpu)
         if xc2:
-            if share_int4(cpu, gpu, TRAIN_QUANT_PATTERNS, "reduced-depth XC2 QLoRA int4") != 14:
-                raise AssertionError("expected the 14 LM linears of 2 layers int4")
+            if share_int4(cpu, gpu, TRAIN_QUANT_PATTERNS,
+                          "reduced-depth XC2 QLoRA int4") != 7 * cfg32.lm.num_layers:
+                raise AssertionError(f"expected the 7 LM linears of each of "
+                                     f"{cfg32.lm.num_layers} layers int4")
             lcfg = shared_adapters(cpu, gpu, patterns=targets)
             counts = counted(("int4_matmul", "int4_matmul_t"))
             launches = card_vs_cpu_dpo(
@@ -4950,8 +4990,8 @@ def phase_launchers() -> dict:
     are not held to it: Adam's first update is about lr x sign(g), so bf16
     noise in the small gradients moves them by ~2e-3, a third of what
     three updates move them.) Returns the launch counts of 13c and of
-    13d's model = 2 rank 0 ("mesh_dpo_tp"), with 13e's, 14b's, 15's and
-    16's (their ranks started here too)."""
+    13d's model = 2 rank 0 ("mesh_dpo_tp"), with 13e's, 14b's, 15's, 16's
+    and 17's (their ranks started here too)."""
     import shutil
 
     from vlrlhf_torch.cli.main import main as cli_main
@@ -4975,6 +5015,9 @@ def phase_launchers() -> dict:
         env16 = dict(env, MASTER_PORT=str(_free_port()))
         ranks16 = os.path.join(out, "ranks16")
         os.makedirs(ranks16, exist_ok=True)
+        env17 = dict(env, MASTER_PORT=str(_free_port()))
+        ranks17 = os.path.join(out, "ranks17")
+        os.makedirs(ranks17, exist_ok=True)
         procs = {
             "13b": start_logged(torchrun_cmd(
                 1, "-m", "vlrlhf_torch.cli.main", "dpo", "--synthetic", "8", "--mesh_fsdp",
@@ -4998,6 +5041,9 @@ def phase_launchers() -> dict:
             "16": [start_logged([sys.executable, os.path.abspath(__file__), "--mesh16-worker",
                                  ranks16, rm16], env=dict(env16, RANK=str(r)))
                    for r in range(2)],
+            "17": [start_logged([sys.executable, os.path.abspath(__file__), "--mesh17-worker",
+                                 ranks17, rm_dir], env=dict(env17, RANK=str(r)))
+                   for r in range(2)],
         }
         one = mesh13c_eval(mme, seed, os.path.join(out, "one"))
         world1 = mesh13d_run(os.path.join(out, "world1"))
@@ -5012,7 +5058,7 @@ def phase_launchers() -> dict:
         world16 = mesh13e_run(os.path.join(out, "ppo16_world1"), None, len(PPO13E_WORDS), None,
                               rm16, layers=PHASE16_LAYERS)
         samples16 = mesh16_samples(os.path.join(out, "samples16_world1"), None)
-        for what in [w for w in procs if w not in ("13e", "16")]:
+        for what in [w for w in procs if w not in ("13e", "16", "17")]:
             finish_logged(procs.pop(what), what)
 
         lines = _metrics_lines(os.path.join(dpo_out, "dpo_metrics.jsonl"))
@@ -5081,7 +5127,8 @@ def phase_launchers() -> dict:
                 "mesh_ppo": got13e, "mesh_dpo_sp": mesh14_check(got14, world14),
                 "mesh_dpo_pipe": mesh15_check(got15, world15),
                 "mesh_ppo_pipe": mesh16_check(ranks16, procs.pop("16"), world16, samples16,
-                                              rm16)}
+                                              rm16),
+                **mesh17_check(ranks17, procs.pop("17"), world14, world13e, rm_dir)}
     finally:
         for started in procs.values():
             for proc, _ in (started if isinstance(started, list) else [started]):
@@ -5548,7 +5595,7 @@ def ppo_probes(got: dict, base: int):
 
 
 def mesh13e_run(out: str, shape, per_device: int, fault, rm_dir: str, seed: int = 1,
-                replay=None, layers: int = 2, micro: int = 0) -> dict:
+                replay=None, layers: int = 2, micro: int = 0, sp: str = "") -> dict:
     """One 13e run through cli.main build_ppo and train_ppo: LLaVA-1.5-7B's
     widths at 2 LM / 2 tower layers (bf16 on cuda:0, weights from `seed`),
     one outer step of a global batch of 4 image prompts (PPO13E_WORDS;
@@ -5568,7 +5615,8 @@ def mesh13e_run(out: str, shape, per_device: int, fault, rm_dir: str, seed: int 
 
     16's runs pass `layers` (the LM's depth) and, under a `shape` with pipe
     > 1, `micro` (--pipeline_microbatches); a stage's gradients are joined
-    with the other stages'. Outside a replay the result also holds every
+    with the other stages'. 17b's pass `sp` (the mesh's
+    --sequence_parallel_axis). Outside a replay the result also holds every
     rank's launches ("rank_launches"), decode steps, resident memory and
     rollout and update peaks (`ppo_probes`)."""
     import dataclasses
@@ -5582,7 +5630,7 @@ def mesh13e_run(out: str, shape, per_device: int, fault, rm_dir: str, seed: int 
 
     cfg = mesh_2layer_cfg()
     cfg = dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, num_layers=layers))
-    mesh = (make_mesh(MeshConfig(*shape), "cuda", microbatches=micro)
+    mesh = (make_mesh(MeshConfig(*shape), "cuda", sp, microbatches=micro)
             if shape is not None else None)
     fns = counted(("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention"))
     got = {}
@@ -5798,12 +5846,12 @@ def sp_partials_averaged():
     ring's gradient partials instead of summing them."""
     from vlrlhf_torch.train import dpo
 
-    kept = dpo.sp_size
-    dpo.sp_size = lambda: 1
+    kept = dpo.ring_size
+    dpo.ring_size = lambda: 1
     try:
         yield
     finally:
-        dpo.sp_size = kept
+        dpo.ring_size = kept
 
 
 def mesh14_run(out: str, sp: bool, updates: int = 3) -> dict:
@@ -6237,6 +6285,148 @@ def mesh16_check(out: str, started: list, world1: dict, samples1: dict, rm_dir: 
     return p2["launches"]
 
 
+# 17: the sequence split over the tensor-parallel ranks
+# (--sequence_parallel_axis model) on two gloo ranks sharing the card.
+# 17a: 14b's S = 4096 pair and 2 LM / 2 tower layers at (1, 1, 2) under
+# the split, beside --mesh_model 2 alone on the same pair and a planted
+# fault, each against 14b's world 1. 17b: 13e's ppo outer step at
+# (1, 1, 2) under the model split and at (1, 2, 1) under the fsdp ring,
+# each against 13e's world 1.
+# (name, --sequence_parallel_axis, planted fault, updates)
+MESH17A = (("sp_model2", "model", False, 2), ("model2", "", False, 2),
+           ("sp_model2_planted", "model", True, 1))
+# (name, (data, fsdp, model), --sequence_parallel_axis): 4 rows per
+# data-parallel rank, the global batch of 4 either way
+MESH17B = (("sp_model2", (1, 1, 2), "model"), ("sp_fsdp2", (1, 2, 1), "fsdp"))
+
+
+@contextlib.contextmanager
+def tp_partials_unsummed():
+    """17a's planted fault for the block: the gradients of the leaves
+    replicated over model (a rank's slice's partials under the model
+    split) are not summed over the tensor-parallel group
+    (train/train_state.py tp_sum dropped)."""
+    from vlrlhf_torch.core import partitioning
+
+    kept = partitioning.attach_norm_groups_
+
+    def unsummed(state, keys, mesh):
+        kept(state, keys, mesh)
+        state.tp_sum = None
+
+    partitioning.attach_norm_groups_ = unsummed
+    try:
+        yield
+    finally:
+        partitioning.attach_norm_groups_ = kept
+
+
+def mesh17_worker(out: str, rm_dir: str) -> int:
+    """A rank of 17 (started by phase_launchers with torchrun's
+    environment): gloo on cuda:0; each MESH17A dpo run (mesh13d_run on
+    14b's pair under (1, 1, 2)), then each MESH17B ppo run (mesh13e_run);
+    rank 0 writes {"dpo": {name: result}, "ppo": {name: result}} to
+    <out>/17.pt."""
+    import faulthandler
+
+    import torch.distributed as tdist
+
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    tdist.init_process_group("gloo")
+    got = {"dpo": {}, "ppo": {}}
+    for name, axis, planted, updates in MESH17A:
+        with tp_partials_unsummed() if planted else contextlib.nullcontext():
+            got["dpo"][name] = mesh13d_run(
+                os.path.join(out, f"dpo_{name}"), (1, 1, 2), per_device=1, updates=updates,
+                sp=axis, rows=[pair_row(*MESH14_PAIR)], max_length=4096, clip=False)
+    for name, shape, axis in MESH17B:
+        got["ppo"][name] = mesh13e_run(os.path.join(out, f"ppo_{name}"), shape,
+                                       len(PPO13E_WORDS), None, rm_dir, sp=axis)
+    if tdist.get_rank() == 0:
+        torch.save(got, os.path.join(out, "17.pt"))
+    tdist.barrier()
+    tdist.destroy_process_group()
+    return 0
+
+
+def mesh17_check(out: str, started: list, world14: dict, world13e: dict, rm_dir: str) -> dict:
+    """17's checks once its ranks are done. 17a: the first update's
+    gradients leaf by leaf within MESH_GRAD_TOL of 14b's world 1 under the
+    split and under --mesh_model 2 alone, the planted fault (the
+    replicated leaves' partials not summed) beyond it, step-1 loss ln 2 and
+    the gradient norm within 1e-2 of world 1's, each rank's kernels 1-3
+    launches equal to --mesh_model 2's (one call per layer and pass, not
+    one per ring block), each rank's resident and step peak memory beside
+    --mesh_model 2's. 17b: ppo_layouts_report against 13e's world 1 (the
+    tokens equal or part only at a top-2 tie, the scores within
+    PPO_SCORE_TOL, the first update within PPO_GRAD_TOL), kernel 4 on
+    every rank at 13e's world-1 count (decode steps x layers). Returns
+    rank 0's launches: 17a's under the split ("mesh_dpo_sp_model") and
+    17b's under the model split ("mesh_ppo_sp")."""
+    for i, st in enumerate(started):
+        finish_logged(st, f"17 rank {i}")
+    got = torch.load(os.path.join(out, "17.pt"), weights_only=False)
+    dpo = got["dpo"]
+    sp, tp = dpo["sp_model2"], dpo["model2"]
+    gaps = {k: grad_gap(dpo[k], world14) for k in ("sp_model2", "model2", "sp_model2_planted")}
+    print(f"17a dpo --mesh_model 2 --sequence_parallel_axis model, two gloo ranks on one card "
+          f"(LLaVA-1.5-7B widths, 2 LM / 2 tower layers, one pair at S = {sp['seq']}): losses / "
+          f"grad norms {sp['losses']} / {sp['norms']}, --mesh_model 2 alone {tp['losses']} / "
+          f"{tp['norms']}, world 1 {world14['losses']} / {world14['norms']}; first update's "
+          f"gradients, worst leaf's relative L2 gap to world 1 (leaf) "
+          + json.dumps({k: (round(v, 6), leaf) for k, (v, leaf) in gaps.items()})
+          + f", tol {MESH_GRAD_TOL} (the planted fault, the replicated leaves' partials not "
+          f"summed over the group, must exceed it); per rank resident "
+          f"{[round(x, 3) for x in sp['resident_gib']]} GiB and the steps' peak above it "
+          f"{[round(x, 3) for x in sp['peak_gib']]} GiB vs --mesh_model 2 alone "
+          f"{[round(x, 3) for x in tp['resident_gib']]} / {[round(x, 3) for x in tp['peak_gib']]} "
+          f"GiB and world 1 {round(world14['resident_gib'][0], 3)} / "
+          f"{round(world14['peak_gib'][0], 3)} GiB; launches per rank "
+          f"{json.dumps(sp['rank_launches'])}, --mesh_model 2 alone "
+          f"{json.dumps(tp['rank_launches'])}", flush=True)
+    for k, (v, leaf) in gaps.items():
+        if (v > MESH_GRAD_TOL) != k.endswith("planted"):
+            raise AssertionError(f"17a {k}: the first update's gradients are {v} apart at "
+                                 f"{leaf} (tol {MESH_GRAD_TOL})")
+    if sp["seq"] != 4096:
+        raise AssertionError(f"17a: the pair is not at S = 4096: {sp['seq']}")
+    for name, r in (("sp_model2", sp), ("model2", tp)):
+        if not np.isfinite(r["losses"]).all() or abs(r["losses"][0] - math.log(2.0)) > 1e-6 or \
+                abs(r["norms"][0] - world14["norms"][0]) > 1e-2 * world14["norms"][0]:
+            raise AssertionError(f"17a {name}: {r['losses']} / {r['norms']}: step 1 must read "
+                                 f"ln 2 and world 1's norm {world14['norms'][0]}")
+    if sp["rank_launches"] != tp["rank_launches"] or min(sp["launches"].values()) <= 0:
+        raise AssertionError(f"17a: the split's launches {sp['rank_launches']} are not "
+                             f"--mesh_model 2's {tp['rank_launches']}")
+    ppo = got["ppo"]
+    report = ppo_layouts_report(ppo, [name for name, *_ in MESH17B], world13e, out, rm_dir)
+    w1 = world13e["ranks"][0]
+    want4 = w1["decode_steps"] * 2  # 2 LM layers, every rank decoding every row of its group
+    print(f"17b ppo under the sequence split, two gloo ranks on one card (13e's outer step: "
+          f"{len(PPO13E_WORDS)} image prompts, 16 greedy tokens generated unsplit): "
+          + json.dumps(report) + f"; bounds: scores {PPO_SCORE_TOL}, gradients {PPO_GRAD_TOL}; "
+          f"launches per rank " + json.dumps({k: v["rank_launches"] for k, v in ppo.items()})
+          + f", decode steps per rank "
+          + json.dumps({k: [r["decode_steps"] for r in v["ranks"]] for k, v in ppo.items()})
+          + f" (world 1 {w1['decode_steps']}), resident / rollout peak / update peak GiB per "
+          f"rank " + json.dumps({k: [[round(r[m], 3) for m in ("resident_gib", "rollout_peak_gib",
+                                                               "update_peak_gib")]
+                                     for r in v["ranks"]] for k, v in ppo.items()}), flush=True)
+    for name, *_ in MESH17B:
+        if not report[name]["passes"]:
+            raise AssertionError(f"17b {name}: against world 1: {report[name]}")
+        counts = [r["decode_attention"] for r in ppo[name]["rank_launches"]]
+        if counts != [want4] * len(counts):
+            raise AssertionError(f"17b {name}: kernel 4 launched {counts} times per rank, "
+                                 f"the design's {want4} (decode steps x layers)")
+    launches = ppo["sp_model2"]["launches"]
+    if any(launches[n] <= 0 for n in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                                      "decode_attention")):
+        raise AssertionError(f"17b (mesh_ppo_sp) must launch kernels 1-4: {launches}")
+    return {"mesh_dpo_sp_model": sp["launches"], "mesh_ppo_sp": launches}
+
+
 def mesh13d_worker(out: str) -> int:
     """A rank of 13d (started by phase_launchers with torchrun's
     environment): gloo on cuda:0, each MESH13D layout in turn; rank 0
@@ -6440,6 +6630,8 @@ def main() -> int:
         return mesh15_worker(sys.argv[2])
     if sys.argv[1:2] == ["--mesh16-worker"]:  # a rank of phase 16, started below
         return mesh16_worker(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--mesh17-worker"]:  # a rank of phase 17, started below
+        return mesh17_worker(*sys.argv[2:4])
     t_start = time.perf_counter()
 
     def mark(label: str) -> None:
@@ -6604,6 +6796,12 @@ def main() -> int:
     if any(by_path[name].get("mesh_ppo_pipe", 0) <= 0
            for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention")):
         raise AssertionError(f"phase 16 (mesh_ppo_pipe) must launch kernels 1-4: {by_path}")
+    if any(by_path[name].get("mesh_dpo_sp_model", 0) <= 0
+           for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")) or \
+            any(by_path[name].get("mesh_ppo_sp", 0) <= 0
+                for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "decode_attention")):
+        raise AssertionError(f"phase 17 must launch kernels 1-3 (mesh_dpo_sp_model) and 1-4 "
+                             f"(mesh_ppo_sp): {by_path}")
     for name, cases in ring.items():
         kernels[name]["ring"] = cases
     line = {"kernels": [

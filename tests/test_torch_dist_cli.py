@@ -25,17 +25,23 @@ the same command in one plain process, f32:
   - `dpo --eval_samples 2` under --mesh_model 2: the greedy samples, on
     each rank's heads with its group's tokens broadcast, and the metrics
     equal the single-process run's;
+  - `dpo --eval_samples 2` and `ppo` under the sequence split over the
+    tensor-parallel pair (--mesh_model 2 --sequence_parallel_axis model)
+    and over the fsdp pair (--sequence_parallel_axis fsdp), 2 rows a step:
+    the metrics of the single-process runs within 1e-5 and the same
+    greedy samples (generated unsplit);
   - the refusals, each naming its reason: --mesh_pipe 2 without torchrun,
     --pipeline_microbatches without --mesh_pipe > 1 (ppo's and
     --eval_samples' too: both run under torchrun), the pipeline with the
-    sequence split and on eval, rows, layers, a ppo minibatch share or a
-    stats slice the pipeline does not divide, --sequence_parallel_axis fsdp
-    without torchrun,
-    over data, over model and over an unknown axis, on ppo and eval and with
-    --eval_samples, mesh flags on eval, a mesh a plain run cannot make,
-    heads or int4 row widths --mesh_model does not divide, and --report_to
-    wandb (recipes/dpo_qwenvl.sh's) or an unknown sink. The torchrun runs
-    under the ring: tests/test_torch_dist_sp.py."""
+    sequence split (fsdp or model) and on eval, rows, layers, a ppo
+    minibatch share or a stats slice the pipeline does not divide,
+    --sequence_parallel_axis fsdp or model without torchrun, over data (on
+    dpo and on ppo) and over an unknown axis, on eval, mesh flags on eval,
+    a mesh a plain run cannot make, heads or int4 row widths --mesh_model
+    does not divide, and --report_to wandb (recipes/dpo_qwenvl.sh's) or an
+    unknown sink. dpo, sft and rm steps under the ring:
+    tests/test_torch_dist_sp.py; under the model split and ppo under either:
+    tests/test_torch_dist_sp_model.py."""
 
 import json
 import os
@@ -64,6 +70,9 @@ PPO = ["ppo", *CPU, "--synthetic", "8", "--max_steps", "2", "--logging_steps", "
 # value adapters: a second LoRA set, replicated over the data-parallel ranks,
 # its trunk pass recomputed in the backward
 VALUE = ["--use_value_adapter", "true", "--remat_policy", "full"]
+# the sequence split over each axis a pair of ranks can hold
+SPLIT = {"model": ["--mesh_model", "2", "--mesh_fsdp", "1", "--sequence_parallel_axis", "model"],
+         "fsdp": ["--mesh_fsdp", "2", "--sequence_parallel_axis", "fsdp"]}
 
 
 def torchrun(args: list, nproc: int = 2) -> subprocess.Popen:
@@ -131,6 +140,15 @@ def runs(tmp_path_factory):
         "ppo_value_model2": torchrun([*PPO, *VALUE, "--output_dir", str(tmp / "ppo_value_model2"),
                                       "--per_device_train_batch_size", "2", "--mesh_model", "2",
                                       "--mesh_fsdp", "1"]),
+        # the sequence split: over the tensor-parallel pair, and over the
+        # fsdp pair (a ring), 2 rows per step as the plain runs
+        **{f"dpo_sp_{axis}": torchrun(["dpo", *CPU, "--synthetic", "10", *DPO, *EVAL,
+                                       "--output_dir", str(tmp / f"dpo_sp_{axis}"),
+                                       "--per_device_train_batch_size", "2", *SPLIT[axis]])
+           for axis in SPLIT},
+        **{f"ppo_sp_{axis}": torchrun([*PPO, "--output_dir", str(tmp / f"ppo_sp_{axis}"),
+                                       "--per_device_train_batch_size", "2", *SPLIT[axis]])
+           for axis in SPLIT},
         **{f"eval/{b}": torchrun([*ev[b], "--output_dir", str(tmp / f"{b}2")]) for b in bench},
     }
     main(["dpo", *CPU, "--synthetic", "10", *DPO, *EVAL, "--save_steps", "2", "--output_dir",
@@ -253,10 +271,11 @@ def test_refuses_kv_heads_that_mesh_model_does_not_divide(runs):
     (["--sequence_parallel_axis", "data"],
      "--sequence_parallel_axis data: the data axis shards the batch's rows"),
     (["--sequence_parallel_axis", "model", "--mesh_model", "2"],
-     "--sequence_parallel_axis model: .*Megatron-style sequence gathers"),
+     "--sequence_parallel_axis model: .*launched by torchrun .*--mesh_model N"),
     (["--sequence_parallel_axis", "seq"], "--sequence_parallel_axis 'seq': not a mesh axis"),
-    (["--sequence_parallel_axis", "fsdp", "--eval_steps", "1", "--eval_samples", "2"],
-     "--eval_samples under --sequence_parallel_axis fsdp"),
+    (["--mesh_pipe", "2", "--sequence_parallel_axis", "model"],
+     "--mesh_pipe 2 with --sequence_parallel_axis model: the pipeline and the sequence split "
+     "are mutually exclusive"),
     # recipes/dpo_qwenvl.sh's sinks: the port writes jsonl and refuses wandb by name
     (["--report_to", "jsonl,wandb", "--run_name", "dpo_qwenvl"], "--report_to wandb: "),
     (["--report_to", "tensorboard"], "--report_to 'tensorboard': unknown sink"),
@@ -267,13 +286,17 @@ def test_dpo_refusals(tmp_path, flags, match):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["ppo", *CPU, "--synthetic", "4"], "ppo refuses --sequence_parallel_axis fsdp"),
-    (["eval", *CPU, "--synthetic", "4", "--benchmark", "pope", "--data_file", "x"],
+    # ppo runs under either split (the torchruns below); an axis that holds
+    # the rows is refused
+    (["ppo", *CPU, "--synthetic", "4", "--sequence_parallel_axis", "data"],
+     "--sequence_parallel_axis data: the data axis shards the batch's rows"),
+    (["eval", *CPU, "--synthetic", "4", "--benchmark", "pope", "--data_file", "x",
+      "--sequence_parallel_axis", "fsdp"],
      "eval refuses --sequence_parallel_axis fsdp"),
 ])
 def test_ppo_and_eval_refuse_the_sequence_split(tmp_path, argv, match):
     with pytest.raises(SystemExit, match=match):
-        main([*argv, "--output_dir", str(tmp_path), "--sequence_parallel_axis", "fsdp"])
+        main([*argv, "--output_dir", str(tmp_path)])
 
 
 @pytest.mark.parametrize("argv,match", [
@@ -368,6 +391,43 @@ def test_eval_samples_under_mesh_model_equal_the_single_process_run(runs):
     samples = [(tmp / d / "dpo_samples.jsonl").read_text().splitlines()
                for d in ("dpo1", "dpo_model2")]
     assert len(samples[1]) == 2 and samples[0] == samples[1]
+
+
+@pytest.mark.parametrize("axis", list(SPLIT))
+def test_dpo_and_eval_samples_under_the_sequence_split_equal_the_single_process_run(runs, axis):
+    """dpo under the split over `axis` logs the plain run's metrics (the
+    holdout's eval pass through the split forward) and writes its greedy
+    samples, generated unsplit. Under the ring the logits/* means, which
+    take pad positions too, are not compared (a padded query's attention
+    output is 0 in the ring and a uniform average in the CPU's plain
+    attention: tests/test_torch_dist_sp.py); the model split's attention
+    is the plain one."""
+    tmp, done = runs
+    _ok(done, f"dpo_sp_{axis}")
+    one, two = (metrics(tmp / d / "dpo_metrics.jsonl") for d in ("dpo1", f"dpo_sp_{axis}"))
+    assert [r["step"] for r in two] == [r["step"] for r in one] and "eval/loss" in two[2]
+    skip = ("perf/", "logits/", "eval/logits/") if axis == "fsdp" else ("perf/",)
+    for a, b in zip(one, two):
+        assert a.keys() == b.keys()
+        for k in a.keys() - {"step"} - {k for k in a if k.startswith(skip)}:
+            np.testing.assert_allclose(b[k], a[k], atol=TOL, rtol=TOL, err_msg=f"{a['step']} {k}")
+    samples = [(tmp / d / "dpo_samples.jsonl").read_text().splitlines()
+               for d in ("dpo1", f"dpo_sp_{axis}")]
+    assert len(samples[1]) == 2 and samples[0] == samples[1]
+
+
+@pytest.mark.parametrize("axis", list(SPLIT))
+def test_ppo_under_the_sequence_split_logs_the_single_process_metrics(runs, axis):
+    tmp, done = runs
+    _ok(done, f"ppo_sp_{axis}")
+    one, two = (metrics(tmp / d / "ppo_metrics.jsonl") for d in ("ppo1", f"ppo_sp_{axis}"))
+    assert [r["step"] for r in two] == [1, 2] and len(one) == len(two)
+    for a, b in zip(one, two):
+        a, b = _comparable(a), _comparable(b)
+        assert a.keys() == b.keys() and "ppo/kl_coef" in a
+        for k in a:
+            np.testing.assert_allclose(b[k], a[k], atol=TOL, rtol=TOL, err_msg=f"{axis} {k}")
+    assert (tmp / f"ppo_sp_{axis}" / "adapters" / "params.pt").exists()
 
 
 def test_int4_row_width_that_mesh_model_does_not_divide_is_refused():

@@ -8,15 +8,16 @@ only.
                                                               with greedy_rollouts)
 
 JOB is a torch.save of {"cases": [...]}; each case (but "preempt", a
-SIGTERM on one rank during run_training, "ppo", "ppo_cli", "sp_ring" and
-"sp_lm": see their functions) names a mesh
+SIGTERM on one rank during run_training, "ppo", "ppo_cli", "sp_ring",
+"sp_lm", "whole_stack" and "reward": see their functions) names a mesh
 (data, fsdp, model[, pipe]), a kind ("train" or "checkpoint"), a pickled
 port model holding its adapters, a global numpy batch and the step's
 configs. Every rank applies the plan (core.partitioning.shard_model_),
 reads its data-parallel slice of the batch and steps (with "resume_dir"
 from that checkpoint's latest step; with "save_dir" saving the state
-before step "save_at" as train_steps does; with "sp" "fsdp" on a
-sequence-parallel mesh, whose fsdp ranks read the same rows; with pipe > 1
+before step "save_at" as train_steps does; with "sp" "fsdp" or "model" on
+a sequence-parallel mesh, whose fsdp or tensor-parallel ranks read the
+same rows; with pipe > 1
 a pipeline of "micro" microbatches, whose stages read the same rows); rank
 0 writes OUT, a torch.save of {case name: {"metrics": [per step, means
 over the ranks], "trainable": {key: world-1 numpy}[, "grads": the first
@@ -172,10 +173,18 @@ def sp_ring_case(case: dict) -> dict:
 
 def sp_lm_case(case: dict) -> dict:
     """The pickled port model's LM forward (models/lm/llama.py) on the
-    case's "ids" and "pad" under the sequence-parallel mesh: each rank's
-    slice of the logits, joined whole."""
-    mesh = make_mesh(MeshConfig(*case["mesh"]), "cpu", "fsdp")
-    lm = case["model"].lm
+    case's "ids" and "pad" under the sequence-parallel mesh (over "sp",
+    default "fsdp"; under "model" the LM's layers made tensor-parallel
+    first): each rank's slice of the logits, joined whole."""
+    from vlrlhf_torch.core.partitioning import apply_tensor_parallel_
+
+    axis = case.get("sp", "fsdp")
+    mesh = make_mesh(MeshConfig(*case["mesh"]), "cpu", axis)
+    model = case["model"]
+    if axis == "model":
+        model = copy.deepcopy(model)
+        apply_tensor_parallel_(model, mesh)
+    lm = model.lm
     with torch.no_grad():
         hidden, _ = lm(lm.embed(torch.from_numpy(case["ids"])), torch.from_numpy(case["pad"]))
         logits = lm.head(hidden)
@@ -212,7 +221,8 @@ def preempt_case(case: dict) -> dict:
 
 def ppo_case(case: dict) -> dict:
     """PPO under the case's mesh (data, fsdp, model[, pipe]; with "micro"
-    microbatches) on a pickled port model holding its adapters: unless
+    microbatches; with "sp" the sequence split over that axis) on a pickled
+    port model holding its adapters: unless
     "rollouts" is False, greedy rollouts of the global prompt batch
     ("prompts"; each data-parallel rank
     its rows, static and continuous, on the gathered units and, under a
@@ -243,7 +253,8 @@ def ppo_case(case: dict) -> dict:
     from vlrlhf_torch.train.ppo import VALUE_SET, AdaptiveKLController, PPOConfig, RunningMoments
 
     torch.manual_seed(0)
-    mesh = make_mesh(MeshConfig(*case["mesh"]), "cpu", microbatches=case.get("micro", 0))
+    mesh = make_mesh(MeshConfig(*case["mesh"]), "cpu", case.get("sp", ""),
+                     microbatches=case.get("micro", 0))
     model = copy.deepcopy(case["model"])
     shard_model_(model, mesh)
     v_head = {"kernel": torch.nn.Parameter(torch.as_tensor(case["v_head"]).clone())}
@@ -398,8 +409,27 @@ def whole_stack_case(case: dict) -> dict:
                         for k, v in out.items()}, "layers": counts}
 
 
+def reward_case(case: dict) -> dict:
+    """cli.main's reward_model_fn (the rm run at "reward_path" as the
+    named set "reward" on the placed model) scoring the case's "batch"
+    under its mesh with the sequence split over "sp": every rank holds
+    the rows (data x fsdp or data is 1), rank 0 returns its scores and
+    whether the mesh's split reads on again after the scoring."""
+    from vlrlhf_torch.cli.main import reward_model_fn
+
+    mesh = make_mesh(MeshConfig(*case["mesh"]), "cpu", case["sp"])
+    model = copy.deepcopy(case["model"])
+    shard_model_(model, mesh)
+    scores = reward_model_fn(model, case["reward_path"], 0.5)(
+        batch_to_device(case["batch"], "cpu"))
+    out = {"scores": scores.numpy(), "split_after": vdist.sp_shard() is mesh.sp}
+    set_global_mesh(None)
+    return out
+
+
 CASES = {"preempt": preempt_case, "ppo": ppo_case, "ppo_cli": ppo_cli_case,
-         "sp_ring": sp_ring_case, "sp_lm": sp_lm_case, "whole_stack": whole_stack_case}
+         "sp_ring": sp_ring_case, "sp_lm": sp_lm_case, "whole_stack": whole_stack_case,
+         "reward": reward_case}
 
 
 @contextlib.contextmanager

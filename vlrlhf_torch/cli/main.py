@@ -80,12 +80,20 @@ global batch's (train/ppo.py), with one vote per outer step on a failed
 rollout or reward. eval under torchrun gives each rank a contiguous shard
 of the rows and its own whole model; rank 0 gathers, judges, scores and
 writes. Without torchrun nothing of this runs. `--sequence_parallel_axis
-fsdp` (dpo, sft, rm under torchrun) splits each sequence over the fsdp
-ranks, which then read the same rows: the global batch is
+fsdp` (dpo, sft, rm, ppo under torchrun) splits each sequence over the
+fsdp ranks, which then read the same rows: the global batch is
 --per_device_train_batch_size x data, every layer runs on a rank's
 contiguous slice and attention is a ring over the fsdp group
-(ops/ring_attention.py); the collator's bucket is rounded up to a
-multiple of the ring. `--mesh_pipe S` (dpo, sft, rm, ppo under torchrun)
+(ops/ring_attention.py). `--sequence_parallel_axis model` splits it over
+the tensor-parallel ranks (Megatron-LM's sequence parallelism: the
+sequence gathered before the column linears and scattered after the row
+ones, attention on a rank's heads over the whole sequence; the rows ride
+data x fsdp as without a split). Either way the collator's bucket (and
+ppo's rollout batch, for its stats pass and update: train/ppo.py
+pad_to_split) is rounded up to a multiple of the split, and generation
+(ppo's rollouts, dpo's --eval_samples) and ppo's reward model run unsplit
+(core/dist.py unsplit), the ranks of a ring decoding and scoring their
+rows together as a tensor-parallel group does. `--mesh_pipe S` (dpo, sft, rm, ppo under torchrun)
 is the GPipe pipeline (models/lm/pipeline.py): each of S stages of data x
 fsdp x model ranks holds L / S decoder layers, the rows of each batch
 cross the stages as --pipeline_microbatches microbatches (0: S), and the
@@ -97,10 +105,9 @@ divide, rows per data-parallel rank (dpo's and rm's are 2 x pairs) the
 microbatches do not divide, a ppo minibatch share per data-parallel rank
 they do not divide or a stats slice of fewer rows than microbatches, the
 pipeline with the sequence split, --pipeline_microbatches without a
-pipeline. Refused, as later parts of the multi-GPU work
-(ROADMAP.md): the sequence split over `model` (and `data`, which holds
-the rows), ppo and --eval_samples under the sequence split, and eval with
-mesh flags (serve takes none).
+pipeline, the sequence split over `data` (which holds the rows) or an
+unknown axis, a split without torchrun. Refused, as later parts of the
+multi-GPU work (ROADMAP.md): eval with mesh flags (serve takes none).
 
 --report_to takes jsonl (the metrics file, as always); wandb and any other
 name are refused by name (vlrlhf_tpu drops wandb silently when it cannot
@@ -271,15 +278,13 @@ def setup_mesh(args, device: torch.device):
     except ValueError as e:
         raise SystemExit(str(e)) from None
     check_pipeline_flags(args)
-    if axis and getattr(args, "eval_samples", 0):
-        raise SystemExit(f"--eval_samples under --sequence_parallel_axis {axis}: the samples' "
-                         f"generation is not sequence-parallel ({PART2})")
     mcfg = MeshConfig(args.mesh_data, args.mesh_fsdp, args.mesh_model, args.mesh_pipe)
     if not dist.launched_by_torchrun():
         if axis:
+            flag = "--mesh_model" if axis == "model" else "--mesh_fsdp"
             raise SystemExit(f"--sequence_parallel_axis {axis}: the sequence is split over the "
                              "ranks of a mesh launched by torchrun (torchrun --nproc_per_node "
-                             "N ... --mesh_fsdp N)")
+                             f"N ... {flag} N)")
         if args.mesh_pipe > 1:
             raise SystemExit(f"--mesh_pipe {args.mesh_pipe}: the pipeline's stages are the ranks "
                              "of a mesh launched by torchrun (torchrun --nproc_per_node N ... "
@@ -1131,11 +1136,16 @@ def reward_model_fn(model, path: str, lora_scale: float):
     (each rank holds its part of the world-1 adapters) and replicated over
     the data-parallel ranks, as the head is; under a pipeline a stage holds
     its layers' part of the set, and the scores come through the
-    schedule."""
+    schedule. Under a sequence split the scores come from whole sequences
+    (core/dist.py unsplit), as the rollouts do: a forward that keeps
+    nothing for a backward gains no memory from the split, and the ring's
+    bf16 block partials, merged, moved 13e's scores by twice the
+    whole-sequence forward's noise on the card (PERF.md §6)."""
     from vlrlhf_torch.core.mesh import current_mesh
     from vlrlhf_torch.core.partitioning import layer_index, tp_dim, tp_part
     from vlrlhf_torch.lora.lora import adapters_of, set_adapters_
     from vlrlhf_torch.models.common import Ctx
+    from vlrlhf_torch.core.dist import unsplit
     from vlrlhf_torch.train.checkpoint import load_params
     from vlrlhf_torch.train.rm import rm_scores
 
@@ -1153,7 +1163,8 @@ def reward_model_fn(model, path: str, lora_scale: float):
 
     @torch.no_grad()
     def reward_fn(batch: dict) -> torch.Tensor:
-        return rm_scores(model, kernel, batch, ctx)
+        with unsplit():
+            return rm_scores(model, kernel, batch, ctx)
 
     return reward_fn
 
@@ -1294,10 +1305,11 @@ def ppo_step(run: PPORun, batch: dict, raw: np.ndarray, moments, kl_ctl, seed: i
     from vlrlhf_torch.train.dpo import batch_to_device
     from vlrlhf_torch.train.loop import read_metrics
     from vlrlhf_torch.train.ppo import (
-        compute_rollout_stats, gather_stats, ppo_update_epochs, preprocess_scores,
+        compute_rollout_stats, gather_stats, pad_to_split, ppo_update_epochs, preprocess_scores,
     )
 
     device = run.model.device
+    batch = pad_to_split(batch)  # a sequence split's ranks divide its length
     n = batch["input_ids"].shape[0]
     _, (lo, hi) = dist.data_parallel_slice(n // dist.dp_size())
     tb = batch_to_device(batch, device)
@@ -1502,9 +1514,6 @@ def cmd_ppo(args):
     device = resolve_device(args.device)
     if args.synthetic and args.data_path:
         raise SystemExit("--synthetic N makes its own prompts: drop --data_path")
-    if args.sequence_parallel_axis:
-        raise SystemExit(f"ppo refuses --sequence_parallel_axis {args.sequence_parallel_axis}: "
-                         f"its rollouts and value forwards are not sequence-parallel ({PART2})")
     setup_mesh(args, device)
     rows = synthetic_rows(args.synthetic, with_pairs=False) if args.synthetic else load_rows(args)
     _, cfg, model, processor = load_bundle(args, device)
@@ -1681,8 +1690,9 @@ def _add_mesh_args(p) -> None:
     p.add_argument("--pipeline_microbatches", type=int, default=0,
                    help="microbatches a batch's rows cross the pipeline in (0: one per stage)")
     p.add_argument("--sequence_parallel_axis", type=str, default="",
-                   help="fsdp: each sequence split over the fsdp ranks, attention as a ring "
-                        "(dpo, sft, rm under torchrun)")
+                   help="fsdp: each sequence split over the fsdp ranks, attention as a ring; "
+                        "model: split over the tensor-parallel ranks, gathered around their "
+                        "linears (dpo, sft, rm, ppo under torchrun)")
 
 
 def _add_train_args(p, synthetic_help: str, epochs: bool = True) -> None:

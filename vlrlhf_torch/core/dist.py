@@ -14,13 +14,17 @@ array from per-process rows; here each rank keeps its local
 FSDP2's reduce-scatter, so they have no counterpart. `batch_process_span`
 becomes `data_parallel_slice`: a rank's data-parallel coordinate gives its
 slice of every global batch, and the ranks of one tensor-parallel group
-read the same rows (and under sequence parallelism, those of one fsdp
+read the same rows (and under the fsdp sequence split, those of one fsdp
 group too: core/mesh.py).
 
 Sequence parallelism's collectives live here too: `SPShard` (a rank's
-place in the ring), `ring_exchange` (each tensor to the ring's next rank,
-the previous rank's back) and `sum_over_sp` (a loss term's sum over the
-ring whose backward is the identity). So do the pipeline's: `PipeShard`
+place in the split, over `fsdp` a ring, over `model` the tensor-parallel
+group), `ring_exchange` (each tensor to the ring's next rank, the previous
+rank's back), `sum_over_sp` (a loss term's sum over the split whose
+backward is the identity), `gather_seq` / `scatter_seq` (the model
+split's all-gather of the sequence before the column linears and
+reduce-scatter after the row linears) and `unsplit` (generation's block,
+in which nothing is split). So do the pipeline's: `PipeShard`
 (a rank's stage, the pipe group and the microbatch count), `pipe_send` /
 `pipe_recv` (one microbatch's tensor to the next or previous stage),
 `pipe_broadcast` (a stage's tensor to every stage) and `pipe_sum_` (a sum
@@ -269,10 +273,11 @@ def vote_and_gather(flags: tuple, payload: Any) -> tuple[tuple, list]:
     """One host collective over every rank: each flag OR-ed over the ranks
     of every stage (a failure, a SIGTERM, a later stage's failed reward:
     every rank then takes the same branch), and every data-parallel rank's
-    payload in data-parallel order, the first rank of each tensor-parallel
-    group of the first stage speaking for it (rank = dp_rank * model +
-    tp_rank; a pipeline's stages hold the same rows and tokens). Without a
-    process group: (flags, [payload])."""
+    payload in data-parallel order, the first rank of each data-parallel
+    coordinate of the first stage speaking for it (a coordinate's ranks are
+    contiguous: its tensor-parallel group, and under the fsdp split its
+    ring too, read the same rows; a pipeline's stages hold the same rows
+    and tokens). Without a process group: (flags, [payload])."""
     flags = tuple(bool(f) for f in flags)
     if not is_initialized():
         return flags, [payload]
@@ -285,7 +290,7 @@ def vote_and_gather(flags: tuple, payload: Any) -> tuple[tuple, list]:
     if mesh is None:
         return voted, [p for _, p in out]
     block = mesh.data * mesh.fsdp * mesh.model  # the first stage's ranks
-    return voted, [p for _, p in out[:block:mesh.model]]
+    return voted, [p for _, p in out[:block:block // mesh.dp_size]]
 
 
 def model_group_tokens(t: torch.Tensor) -> torch.Tensor:
@@ -332,14 +337,18 @@ def local_tensor(t: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class SPShard:
-    """A rank's place in the sequence-parallel ring: the ring's process
-    group, this rank's index in it, the ring's size and the group's backend
-    (which picks the exchange's transport)."""
+    """A rank's place in the sequence split: the group the sequence is split
+    over, this rank's index in it (it holds slice `rank` of S / size), the
+    group's size, its backend (which picks the transport) and the mesh
+    axis: "fsdp", a ring of its own whose ranks run attention as
+    ops/ring_attention.py's ring, or "model", the tensor-parallel group,
+    whose ranks gather the sequence around their linears (core/mesh.py)."""
 
     group: Any
     rank: int
     size: int
     backend: str
+    axis: str
 
     def span(self, s: int) -> tuple[int, int]:
         """[lo, hi): this rank's contiguous slice of a length-s sequence."""
@@ -351,17 +360,56 @@ class SPShard:
         return self.rank * n, (self.rank + 1) * n
 
 
-def sp_shard() -> "SPShard | None":
-    """The registered mesh's ring (None: no mesh, or no sequence parallelism)."""
+@contextlib.contextmanager
+def unsplit():
+    """A block in which `sp_shard()` reads None (the registered mesh's
+    `split_off`): generation (prefill, decode, chunks) runs on whole
+    sequences under either split, as vlrlhf_tpu's decode takes its cache
+    branch, not the ring (models/lm/llama.py:295); under the model split
+    its tensor-parallel linears run as without one (core/partitioning.py
+    whole_stack enters it, and ppo's reward model: cli/main.py
+    reward_model_fn)."""
     from vlrlhf_torch.core.mesh import current_mesh
 
     mesh = current_mesh()
-    return None if mesh is None else mesh.sp
+    if mesh is None:
+        yield
+        return
+    kept, mesh.split_off = mesh.split_off, True
+    try:
+        yield
+    finally:
+        mesh.split_off = kept
+
+
+def sp_shard() -> "SPShard | None":
+    """The registered mesh's sequence split (None: no mesh, no sequence
+    parallelism, or inside an `unsplit` block)."""
+    from vlrlhf_torch.core.mesh import current_mesh
+
+    mesh = current_mesh()
+    return None if mesh is None or mesh.split_off else mesh.sp
 
 
 def sp_size() -> int:
     sp = sp_shard()
     return 1 if sp is None else sp.size
+
+
+def model_split() -> "SPShard | None":
+    """The sequence split when it runs over the tensor-parallel group
+    (`--sequence_parallel_axis model`), else None."""
+    sp = sp_shard()
+    return sp if sp is not None and sp.axis == "model" else None
+
+
+def ring_size() -> int:
+    """The ranks of the fsdp ring, whose gradient partials FSDP2's mean must
+    sum (the steps scale their loss by it; core/partitioning.py), else 1.
+    The model split's partials are summed by the optimizer instead
+    (train/train_state.py `tp_sum`)."""
+    sp = sp_shard()
+    return sp.size if sp is not None and sp.axis == "fsdp" else 1
 
 
 class RingExchange:
@@ -420,8 +468,75 @@ class _SumOverSP(torch.autograd.Function):
 
 
 def sum_over_sp(t: torch.Tensor, sp: "SPShard | None") -> torch.Tensor:
-    """`t` summed over the ring (`_SumOverSP`); `t` itself without one."""
+    """`t` summed over the split (`_SumOverSP`); `t` itself without one."""
     return t if sp is None else _SumOverSP.apply(t, sp.group)
+
+
+def _gather_seq(x: torch.Tensor, sp: SPShard) -> torch.Tensor:
+    """The split's slices of x (dim 1) joined in rank order (a plain
+    all_gather: gloo carries it on CUDA tensors too)."""
+    parts = [torch.empty_like(x) for _ in range(sp.size)]
+    _dist().all_gather(parts, x.contiguous(), group=sp.group)
+    return torch.cat(parts, dim=1)
+
+
+def _scatter_seq(t: torch.Tensor, sp: SPShard) -> torch.Tensor:
+    """This rank's slice (dim 1) of the split's sum of t, added in f32 and
+    rounded once to t's dtype, as `_sum_over` rounds. Under NCCL a
+    reduce-scatter; gloo has none for CUDA tensors, so there an f32
+    all-reduce of which the rank keeps its slice (chosen by the group's
+    backend)."""
+    n = t.shape[1] // sp.size
+    if sp.backend == "nccl":
+        src = t.to(torch.float32).movedim(1, 0).contiguous()
+        out = src.new_empty((n, *src.shape[1:]))
+        _dist().reduce_scatter_tensor(out, src, group=sp.group)
+        return out.movedim(0, 1).to(t.dtype).contiguous()
+    acc = t.to(torch.float32, copy=True).contiguous()
+    _dist().all_reduce(acc, group=sp.group)
+    return acc[:, sp.rank * n:(sp.rank + 1) * n].to(t.dtype).contiguous()
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The model split's entry to a column linear: the sequence slices
+    all-gathered; backward, the ranks' partial input gradients summed and
+    scattered back to their slices."""
+
+    @staticmethod
+    def forward(ctx, x, sp):
+        ctx.sp = sp
+        return _gather_seq(x, sp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_seq(g, ctx.sp), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """The model split's exit from a row linear: the ranks' partial sums
+    added up, each rank keeping its slice; backward, the slices' gradients
+    gathered whole."""
+
+    @staticmethod
+    def forward(ctx, y, sp):
+        ctx.sp = sp
+        return _scatter_seq(y, sp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq(g, ctx.sp), None
+
+
+def gather_seq(x: torch.Tensor, sp: "SPShard | None") -> torch.Tensor:
+    """(B, S/n, ...) -> (B, S, ...) over the split (`_GatherSeq`); x itself
+    without one or over one rank."""
+    return x if sp is None or sp.size == 1 else _GatherSeq.apply(x, sp)
+
+
+def scatter_seq(y: torch.Tensor, sp: SPShard) -> torch.Tensor:
+    """(B, S, ...) partial sums -> this rank's (B, S/n, ...) slice of their
+    sum (`_ScatterSeq`)."""
+    return y if sp.size == 1 else _ScatterSeq.apply(y, sp)
 
 
 # ---------------------------------------------------------------------------
@@ -621,9 +736,19 @@ def tp_factor(x: torch.Tensor, a: torch.Tensor, tp) -> torch.Tensor:
     rank and its gradient a partial sum (copy_to_tp); a row linear's u is
     a partial sum, taken in f32 and added up (reduce_from_tp). Then b,
     replicated or split on out, applies to a whole u, so b's gradient is
-    whole too. Without tp: x @ a."""
+    whole too. Without tp: x @ a.
+
+    Under the model split a column linear's x is the gathered sequence,
+    whose backward sums the ranks' partial input gradients (gather_seq):
+    u takes no copy_to_tp, so a's gradient is a partial sum, which the
+    optimizer sums over the group as it does every leaf replicated over
+    model (train/train_state.py `tp_sum`). A row linear's u is
+    reduce-scattered to this rank's slice of the sequence, so its
+    replicated b sees the slice and its gradient is partial too."""
     if tp is None:
         return x @ a
+    sp = model_split()
     if tp.mode == "column":
-        return copy_to_tp(x @ a, tp.group)
-    return reduce_from_tp(f32_product(x, a), tp.group).to(x.dtype)
+        return x @ a if sp is not None else copy_to_tp(x @ a, tp.group)
+    part = f32_product(x, a)
+    return (reduce_from_tp(part, tp.group) if sp is None else scatter_seq(part, sp)).to(x.dtype)

@@ -21,22 +21,36 @@ own, so the hops never interleave with a stage's collectives. The ranks
 of one pipe group read the same rows: `dp_size` and `dp_rank` count
 data x fsdp alone.
 
-Sequence parallelism (`sequence_parallel_axis="fsdp"`, vlrlhf_tpu's
-LMConfig.sequence_parallel_axis): the ranks of one fsdp group read the
-same rows and each holds a contiguous S / fsdp slice of every sequence,
-attention running as a ring over the group (ops/ring_attention.py). The
-rows then ride `data` alone, as vlrlhf_tpu's `sp_batch_spec` has them
-(core/partitioning.py:157-169): `dp_size` and `dp_rank` count data
-replicas, `dp_group` joins them, and `grad_group` (data x fsdp, the ranks
-FSDP2 reduces over) is unchanged. The ring has a process group of its own
-(`Mesh.sp`, a core.dist.SPShard over the fsdp group's ranks), so its
-point-to-point exchanges never interleave with FSDP2's collectives on the
-fsdp group. The port
-keeps the switch on the mesh, not on the LM's config: every training
-forward under such a mesh is sequence-parallel, and the paths that cannot
-be (prefill, decode, chunks) refuse it by name. A pipeline and the
-sequence split are refused together, as vlrlhf_tpu asserts
-(models/lm/pipeline.py:87-91).
+Sequence parallelism (vlrlhf_tpu's LMConfig.sequence_parallel_axis) splits
+each sequence into contiguous slices over one axis's ranks, which then
+read the same rows; `Mesh.sp` (a core.dist.SPShard) names the axis, its
+group and this rank's slice:
+  - "fsdp": the ranks of one fsdp group each hold an S / fsdp slice and
+    attention runs as a ring over the group (ops/ring_attention.py). The
+    rows then ride `data` alone, as vlrlhf_tpu's `sp_batch_spec` has them
+    (core/partitioning.py:157-169): `dp_size` and `dp_rank` count data
+    replicas, `dp_group` joins them, and `grad_group` (data x fsdp, the
+    ranks FSDP2 reduces over) is unchanged. The ring has a process group
+    of its own, so its point-to-point exchanges never interleave with
+    FSDP2's collectives on the fsdp group.
+  - "model": Megatron-LM's sequence parallelism over the tensor-parallel
+    group, whose ranks read the same rows anyway. Norms, residuals, the
+    final norm, lm_head and the loss terms run on a rank's S / model
+    slice; each layer all-gathers the normed slice before its column
+    linears (wq / wk / wv, gate / up), runs attention on its heads over
+    the whole sequence (kernels 1-3), and its row linears (wo, down)
+    reduce-scatter their partial sums back to the slice
+    (models/lm/llama.py, models/common.py Linear, core/dist.py
+    gather_seq / scatter_seq). The split's group is `tp_group`; the rows
+    ride data x fsdp, so `dp_size`, `dp_rank`, `dp_group` and
+    `grad_group` are a plain mesh's.
+The port keeps the switch on the mesh, not on the LM's config: every
+training forward under such a mesh is sequence-parallel, and generation
+(prefill, decode, chunks) runs whole sequences inside core/dist.py's
+`unsplit` block (core/partitioning.py whole_stack), as vlrlhf_tpu's decode
+takes its cache branch; outside it they refuse a split by name. A
+pipeline and the sequence split are refused together, as vlrlhf_tpu
+asserts (models/lm/pipeline.py:87-91).
 """
 
 from __future__ import annotations
@@ -51,21 +65,16 @@ MESH_DIMS = ("pipe", "data", "fsdp", "model")
 
 
 def check_sp_axis(axis: str) -> str:
-    """The sequence-parallel axis a mesh accepts: "" (none) or "fsdp". Every
-    other name is refused by name."""
-    if axis in ("", "fsdp"):
+    """The sequence-parallel axis a mesh accepts: "" (none), "fsdp" or
+    "model". Every other name is refused by name."""
+    if axis in ("", "fsdp", "model"):
         return axis
     if axis == "data":
         raise ValueError("--sequence_parallel_axis data: the data axis shards the batch's rows, "
                          "so it cannot split their sequence too (vlrlhf_tpu cannot form "
-                         "P('data', 'data') either); use fsdp")
-    if axis == "model":
-        raise ValueError("--sequence_parallel_axis model: a sequence split over the "
-                         "tensor-parallel ranks needs Megatron-style sequence gathers around "
-                         "the tensor-parallel linears, which are not ported (ROADMAP.md); use "
-                         "fsdp")
+                         "P('data', 'data') either); use fsdp or model")
     raise ValueError(f"--sequence_parallel_axis {axis!r}: not a mesh axis the sequence can be "
-                     "split over; expected fsdp")
+                     "split over; expected fsdp or model")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,14 +113,15 @@ class Mesh:
     collectives use. `grad_group` joins the ranks of one model coordinate
     (data x fsdp: they hold the same model shard and FSDP2 reduces their
     gradients), `dp_group` the ranks that read different rows (the same
-    ranks, or under sequence parallelism those of one (fsdp, model)
+    ranks, or under the fsdp split those of one (fsdp, model)
     coordinate), `tp_group` the ranks of one (data, fsdp) coordinate and
-    `sp` (sequence parallelism only) the ring: the ranks of one (data,
-    model) coordinate. Every group but `pp`'s and `token_group`'s lies
-    inside this rank's stage; `pp` (pipe > 1 only) joins the stages' ranks
-    of this (data, fsdp, model) coordinate, and `token_group` the model x
-    pipe ranks of this (data, fsdp) coordinate (the tensor-parallel group
-    without a pipeline)."""
+    `sp` (sequence parallelism only) the split: under "fsdp" a ring of the
+    ranks of one (data, model) coordinate, under "model" `tp_group`. Every
+    group but `pp`'s and `token_group`'s lies inside this rank's stage;
+    `pp` (pipe > 1 only) joins the stages' ranks of this (data, fsdp,
+    model) coordinate, and `token_group` the ranks that decode the same
+    rows: the model x pipe ranks of this (data, fsdp) coordinate, or under
+    the fsdp split the fsdp x model ranks of this data coordinate."""
 
     device_mesh: object  # torch.distributed.device_mesh.DeviceMesh
     data: int
@@ -129,6 +139,8 @@ class Mesh:
     # decode the same rows (core.dist model_group_tokens); None when this
     # rank is alone in it
     token_group: object = None
+    # inside core.dist's `unsplit` block: generation sees no sequence split
+    split_off: bool = False
 
     @property
     def pipe_rank(self) -> int:
@@ -152,14 +164,20 @@ class Mesh:
         return 0 if self.sp is None else self.sp.rank
 
     @property
+    def ring(self) -> bool:
+        """Whether the sequence is split over fsdp, whose ranks then read
+        the same rows."""
+        return self.sp is not None and self.sp.axis == "fsdp"
+
+    @property
     def dp_size(self) -> int:
-        return self.data * self.fsdp // self.sp_size
+        return self.data if self.ring else self.data * self.fsdp
 
     @property
     def dp_rank(self) -> int:
         """This rank's data-parallel coordinate: which slice of each global
         batch it reads."""
-        if self.sp is not None:
+        if self.ring:
             return self.coords[0]
         return self.coords[0] * self.fsdp + self.coords[1]
 
@@ -217,7 +235,8 @@ def make_mesh(config: Optional[MeshConfig] = None, device_type: str = "cuda",
     takes part: a mesh smaller than the world is refused (vlrlhf_tpu idles
     the spare devices; a spare process would deadlock the collectives).
     With `sequence_parallel_axis` "fsdp" the fsdp ranks split each
-    sequence; with pipe > 1 the batch's rows cross the stages as
+    sequence, with "model" the tensor-parallel ranks; with pipe > 1 the
+    batch's rows cross the stages as
     `microbatches` microbatches (0: one per stage, vlrlhf_tpu's default).
     See the module note."""
     import torch.distributed as dist
@@ -226,11 +245,12 @@ def make_mesh(config: Optional[MeshConfig] = None, device_type: str = "cuda",
     config = config or MeshConfig()
     world = dist.get_world_size()
     data, fsdp, model, pipe = config.resolve(world)
-    sp = check_sp_axis(sequence_parallel_axis) == "fsdp"
-    if pipe > 1 and sp:
-        raise ValueError(f"--mesh_pipe {pipe} with --sequence_parallel_axis fsdp: the pipeline "
-                         "and the sequence split are mutually exclusive (as in vlrlhf_tpu, "
-                         "models/lm/pipeline.py:87-91)")
+    axis = check_sp_axis(sequence_parallel_axis)
+    sp = axis == "fsdp"
+    if pipe > 1 and axis:
+        raise ValueError(f"--mesh_pipe {pipe} with --sequence_parallel_axis {axis}: the "
+                         "pipeline and the sequence split are mutually exclusive (as in "
+                         "vlrlhf_tpu, models/lm/pipeline.py:87-91)")
     if microbatches and pipe == 1:
         raise ValueError(f"--pipeline_microbatches {microbatches}: it splits the rows of a "
                          "pipeline, which needs --mesh_pipe > 1")
@@ -274,12 +294,21 @@ def make_mesh(config: Optional[MeshConfig] = None, device_type: str = "cuda",
         token_group = groups((((d, f), [at(q, d, f, m) for q in range(pipe)
                                         for m in range(model)])
                               for d in range(data) for f in range(fsdp)), coords[:2])
+    elif sp and fsdp * model > 1:  # a ring's ranks decode its rows together
+        token_group = groups(((d, [at(0, d, f, m) for f in range(fsdp) for m in range(model)])
+                              for d in range(data)), coords[0])
     else:
         token_group = dm.get_group("model") if model > 1 else None
+    tp_group = dm.get_group("model")
+    if sp:
+        split = SPShard(sp_group, coords[1], fsdp, dist.get_backend(sp_group), "fsdp")
+    elif axis == "model":
+        split = SPShard(tp_group, coords[2], model, dist.get_backend(tp_group), "model")
+    else:
+        split = None
     return set_global_mesh(Mesh(
         device_mesh=dm, data=data, fsdp=fsdp, model=model, coords=coords,
         dp_group=dp_group if sp else grad_group, fsdp_group=dm.get_group("fsdp"),
-        tp_group=dm.get_group("model"), grad_group=grad_group,
-        sp=SPShard(sp_group, coords[1], fsdp, dist.get_backend(sp_group)) if sp else None,
+        tp_group=tp_group, grad_group=grad_group, sp=split,
         pipe=pipe, pp=pp, token_group=token_group,
     ))

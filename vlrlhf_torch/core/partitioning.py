@@ -35,7 +35,9 @@ torch's ColwiseParallel / RowwiseParallel do not know):
     shard is unpacked and packed again, which needs (in / model) % 128 ==
     0; LoRA's and PLoRA's `a` is split on in and `b` replicated.
   The collectives are `core.dist.copy_to_tp` / `reduce_from_tp` inside
-  `Linear`, and each layer's head counts and MLP width become local.
+  `Linear` (under the model split `gather_seq` before the column linears
+  and `scatter_seq` after the row ones instead), and each layer's head
+  counts and MLP width become local.
 Replicated over `model` in this slice: embed_tokens and lm_head, the
 norms, the towers, the projector, the Q-Former and the resampler.
 vlrlhf_tpu's rules also split lm_head, the embedding and the towers'
@@ -54,20 +56,40 @@ a stage leaf's squared norm over the stages too.
 
 The gradient rule: a trainable leaf's gradient is the mean over the
 ranks that read different rows of their gradients. FSDP2's reduction
-(and a leaf outside its units, rm's head, reduced over core.dist
-`grad_group` as it is) averages over data x fsdp. Under sequence
-parallelism (core/mesh.py) the fsdp ranks of a ring hold one row set
-between them, each rank's gradient the partial of its slice of the
-sequence, so the rule becomes the sum over the ring, then the mean over
-data: the steps scale their loss by the ring's size before the backward
-(train/dpo.py, sft.py, rm.py), and the reduction's mean over data x fsdp
-gives it. The gradient norm and the clip then see the summed gradients.
+(and a leaf outside its units, rm's or ppo's head, reduced over core.dist
+`grad_group` as it is) averages over data x fsdp. Under the fsdp sequence
+split (core/mesh.py) the fsdp ranks of a ring hold one row set between
+them, each rank's gradient the partial of its slice of the sequence, so
+the rule becomes the sum over the ring, then the mean over data: the
+steps scale their loss by the ring's size before the backward
+(core.dist `ring_size`; train/dpo.py, sft.py, rm.py, ppo.py), and the
+reduction's mean over data x fsdp gives it.
 
-Generation under a pipeline (ppo's rollouts, dpo's --eval_samples) runs
-on the whole stack, as vlrlhf_tpu's GSPMD gathers every stage's layers for
-its plain decode scan: `whole_stack` joins the other stages' layers onto
-every rank of the pipe group inside FSDP2's gather and drops them after
-the block.
+Under the model split (Megatron-LM's sequence parallelism over the
+tensor-parallel group; its layout and collectives in core/mesh.py) FSDP2
+does not reduce over `model`, so the loss is not scaled. Instead each
+leaf is one of two kinds:
+  - split over model (tp_dim not None: a column linear's weight shards and
+    LoRA / PLoRA `b`, a row linear's weight shards and `a`): it reads the
+    whole gathered sequence or receives the whole gathered gradient, so
+    its gradient is complete on each rank and is not summed;
+  - replicated over model (tp_dim None: the norms, embed_tokens, lm_head,
+    rm's and ppo's heads, the towers, the projector, the Q-Former and the
+    resampler under tower LoRA, a column linear's `a` and a row linear's
+    `b`): it sees this rank's slice only (a column linear's u = x a takes
+    no copy_to_tp, the gather's backward summing x's gradient; a row
+    linear's u is scattered to the slice), so its gradient is the slice's
+    partial, and the optimizer sums it over the tensor-parallel group
+    (train/train_state.py `tp_sum`, set by `attach_norm_groups_`).
+The gradient norm and the clip then see the summed gradients.
+
+Generation (ppo's rollouts, dpo's --eval_samples) runs inside
+`whole_stack`: FSDP2's units gathered, no sequence split (core.dist
+`unsplit`: whole sequences, the tensor-parallel linears as without a
+split), and under a pipeline the whole stack, as vlrlhf_tpu's GSPMD
+gathers every stage's layers for its plain decode scan: `whole_stack`
+joins the other stages' layers onto every rank of the pipe group and
+drops them after the block.
 
 Checkpoints and final saves gather every tensor to its world-1 layout
 (`full_tensor`, then the stages' layers joined over the pipe group) and
@@ -420,14 +442,17 @@ def whole_stack(model, mesh):
     reward set) and PLoRA, as they are now (after the last update).
     `model.lm.layers` is then the whole stack in global order; after the
     block it is the stage's layers again, and the joined ones are freed.
-    Without a pipeline this is `unsharded`."""
+    Without a pipeline this is `unsharded`. Under either sequence split
+    the block is core.dist's `unsplit`: generation runs whole sequences."""
+    from vlrlhf_torch.core.dist import unsplit
+
     if mesh is None or mesh.pp is None:
-        with unsharded(model):
+        with unsharded(model), unsplit():
             yield
         return
     lm = model.lm
     stage = lm.layers
-    with unsharded(model):
+    with unsharded(model), unsplit():
         per_place = [_stage_copies(layer, mesh) for layer in stage]
         lm.layers = nn.ModuleList(per_place[i][s] for s in range(mesh.pipe)
                                   for i in range(len(stage)))
@@ -450,7 +475,10 @@ def attach_norm_groups_(state, keys: list, mesh) -> None:
     parallelism splits, then pipe for a stage's leaf; a plain replicated
     leaf (the reward head) sums over none. Every distinct value then
     counts once. Under a pipeline also its `pipe_sum`: the leaves before
-    the stack, whose gradients are summed over the stages (`pipe_role`)."""
+    the stack, whose gradients are summed over the stages (`pipe_role`);
+    under the model split its `tp_sum`: the leaves replicated over model,
+    whose gradients are summed over the tensor-parallel group (the
+    gradient rule in the module note)."""
     from torch.distributed.tensor import DTensor
 
     groups = []
@@ -464,6 +492,8 @@ def attach_norm_groups_(state, keys: list, mesh) -> None:
     state.norm_groups = groups
     if mesh.pp is not None:
         state.pipe_sum = (mesh.pp, [i for i, k in enumerate(keys) if pipe_role(k) == "before"])
+    if mesh.sp is not None and mesh.sp.axis == "model" and mesh.model > 1:
+        state.tp_sum = (mesh.tp_group, [i for i, k in enumerate(keys) if tp_dim(k) is None])
 
 
 # ---------------------------------------------------------------------------

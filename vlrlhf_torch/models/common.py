@@ -20,7 +20,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vlrlhf_torch.core.dist import TPShard, copy_to_tp, f32_product, reduce_from_tp, tp_factor
+from vlrlhf_torch.core.dist import (
+    TPShard, copy_to_tp, f32_product, model_split, reduce_from_tp, scatter_seq, tp_factor,
+)
 from vlrlhf_torch.lora.lora import lora_delta
 from vlrlhf_torch.ops.int4 import BLOCK, GROUP, half_padded, int4_apply, quantize_int4, scale_cols
 
@@ -67,9 +69,11 @@ class Ctx:
     recompute reads the mask its forward read.
 
     `seq_span` (offset, whole length) marks a call on a slice of the
-    sequence (sequence parallelism, models/lm/llama.py): LoRA dropout then
+    sequence (the fsdp split, models/lm/llama.py): LoRA dropout then
     draws the whole sequence's mask and keeps the slice's rows, so a
-    sequence-parallel run draws the single-process masks.
+    sequence-parallel run draws the single-process masks. Under the model
+    split every linear reads the whole sequence, so the LM's Ctx keeps its
+    whole `lora_mask` and no `seq_span`.
 
     `rows` (indices, whole count) marks a call on some rows of the global
     batch: a data-parallel rank's (the steps set it from core.dist
@@ -239,14 +243,24 @@ class Linear(nn.Module):
         activation: autograd keeps only weights (int8 codes and scales for
         a W8A16 base, packed codes for int4). Tensor-parallel, a column
         part's input gradient is summed over the group and a row part's
-        output is, before the whole bias is added."""
+        output is, before the whole bias is added. Under the model split
+        (core/mesh.py) a column part's x is the gathered sequence, whose
+        own backward sums the input gradient (core/dist.py gather_seq), and
+        a row part's partial sums are reduce-scattered to this rank's slice
+        of the sequence (core/dist.py scatter_seq), the whole bias added to
+        the slice."""
         tp = self.tp
         row = tp is not None and tp.mode == "row"
-        if tp is not None and tp.mode == "column":
+        split = model_split()
+        if tp is not None and tp.mode == "column" and split is None:
             x = copy_to_tp(x, tp.group)
+
+        def row_sum(part):  # the ranks' partial sums added up, or scattered to the slice
+            return reduce_from_tp(part, tp.group) if split is None else scatter_seq(part, split)
+
         if row and self.weight is not None:
             # a dense row part's partial sum in f32, added up, rounded once
-            y = reduce_from_tp(f32_product(x, self.weight.to(x.dtype).t()), tp.group).to(x.dtype)
+            y = row_sum(f32_product(x, self.weight.to(x.dtype).t())).to(x.dtype)
         else:
             if self.weight_q4 is not None:
                 y = int4_apply(x, self.weight_q4, self.weight_scale4, self.weight_gbias)
@@ -255,7 +269,7 @@ class Linear(nn.Module):
             else:
                 y = F.linear(x, self.weight.to(x.dtype))
             if row:
-                y = reduce_from_tp(y, tp.group)
+                y = row_sum(y)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -304,7 +318,12 @@ class Linear(nn.Module):
         out = None
         if self._plora_on(ctx):
             out = tp_factor(x, self.plora_a.to(x.dtype), self.tp) @ self.plora_b.to(x.dtype)
-            out = out * ctx.lora_mask[..., None].to(out.dtype)
+            mask = ctx.lora_mask
+            split = model_split()
+            if split is not None and self.tp is not None and self.tp.mode == "row":
+                lo, hi = split.span(mask.shape[1])  # the row part's output is the slice
+                mask = mask[:, lo:hi]
+            out = out * mask[..., None].to(out.dtype)
         if self._lora_on(ctx):
             a, b = self.adapter_pair(ctx.adapter_set)
             d = lora_delta(x, a, b, ctx.lora_scale, ctx.lora_dropout, ctx.dropout_seed,

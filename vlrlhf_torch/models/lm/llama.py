@@ -30,14 +30,25 @@ each policy keeping the per-layer tensors its JAX counterpart keeps:
 
 Under a sequence-parallel mesh (core/mesh.py) the training forward takes
 the whole sequence's embeddings and pad mask, keeps this rank's contiguous
-slice of them, and runs every layer on it: global positions (the rank's
-offset), cos / sin at the global length, QWen's dynamic-NTK alpha from
-each row's global real length and its logn at the global positions,
-attention as the ring over the fsdp group (ops/ring_attention.py), under
-every remat policy (torch.utils.checkpoint reruns the ring's forward in
-the backward, every rank in the same order). It returns the slice's
-hidden states. The prefill, decode and chunk paths refuse such a mesh by
-name.
+slice of the embeddings, and runs every layer on it. Over `fsdp` the
+layers see the slice alone: global positions (the rank's offset), cos /
+sin at the global length, QWen's dynamic-NTK alpha from each row's global
+real length and its logn at the global positions, the pad mask's slice,
+attention as the ring over the fsdp group (ops/ring_attention.py). Over
+`model` (Megatron-LM's sequence parallelism) each layer all-gathers its
+normed slice before the column linears (core/dist.py gather_seq), so q /
+k / v hold this rank's heads over the whole sequence: cos / sin, the NTK
+alpha and logn are the whole sequence's, attention is
+`multi_head_attention` (kernels 1-3) with the whole pad mask, and the row
+linears reduce-scatter back to the slice (models/common.py Linear); the
+MLP gathers likewise before gate / up and down scatters. Norms and
+residuals run on the slice. Under every remat policy the gathered tensor
+is recomputed, never kept (the gather sits inside the regions, after the
+norm; "attn" keeps the (B, S/n, h) slices), and torch.utils.checkpoint
+reruns the collectives in the backward, every rank in the same order.
+Either way the forward returns the slice's hidden states. The prefill,
+decode and chunk paths refuse a split by name; generation runs them
+inside core/dist.py's `unsplit` block.
 
 Under a mesh with pipe > 1 each rank's decoder holds its stage's layers
 only (`StageLayers`, named by their global indices; core/partitioning.py)
@@ -71,7 +82,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
-from vlrlhf_torch.core.dist import pipe_shard, sp_shard
+from vlrlhf_torch.core.dist import gather_seq, model_split, pipe_shard, sp_shard
 from vlrlhf_torch.models.common import Ctx, Linear, Norm, empty_param, embed
 from vlrlhf_torch.models.config import LMConfig
 from vlrlhf_torch.ops.attention import multi_head_attention
@@ -84,22 +95,30 @@ from vlrlhf_torch.ops.rope import apply_rope, ntk_alpha, rope_frequencies
 
 
 def train_attention(q, k, v, pad_mask) -> torch.Tensor:
-    """A training layer's causal attention: the ring over the mesh's
-    sequence-parallel ranks when it has them, else `multi_head_attention`."""
+    """A training layer's causal attention: the ring over the fsdp split's
+    ranks when the mesh has it, else `multi_head_attention` (under the
+    model split on this rank's heads over the whole sequence)."""
     sp = sp_shard()
-    if sp is not None:
+    if sp is not None and sp.axis == "fsdp":
         return ring_attention(q, k, v, pad_mask, sp, causal=True)
     return multi_head_attention(q, k, v, causal=True, pad_mask_q=pad_mask, pad_mask_kv=pad_mask)
 
 
+def whole_seq(h: torch.Tensor) -> torch.Tensor:
+    """A normed slice made whole for the column linears under the model
+    split (core/dist.py gather_seq), else h itself."""
+    return gather_seq(h, model_split())
+
+
 def refuse_split(path: str, whole: bool) -> None:
-    """Refuse a prefill, decode or chunk under sequence parallelism, or
-    under a pipeline on a decoder that holds one stage's layers (`whole`:
-    it holds every layer, core/partitioning.py whole_stack)."""
+    """Refuse a prefill, decode or chunk under sequence parallelism (outside
+    core/dist.py's `unsplit` block), or under a pipeline on a decoder that
+    holds one stage's layers (`whole`: it holds every layer,
+    core/partitioning.py whole_stack)."""
     if sp_shard() is not None:
         raise ValueError(f"the {path} path refuses sequence parallelism "
                          "(--sequence_parallel_axis): only the training forward is "
-                         "sequence-parallel")
+                         "sequence-parallel; generation runs inside core.dist.unsplit")
     if pipe_shard() is not None and not whole:
         raise ValueError(f"the {path} path refuses a pipeline stage's layers (--mesh_pipe): "
                          "a stage holds some of the layers; generation runs on the whole "
@@ -168,16 +187,16 @@ class LlamaLayer(nn.Module):
 
     def _attn_half(self, x, cos, sin, pad_mask, lctx: Ctx) -> torch.Tensor:
         cfg = self.cfg
-        b, s, _ = x.shape
         actx = lctx.sub("attn")
-        h = rms_norm(x, self.input_layernorm.weight, cfg.rms_eps)
+        h = whole_seq(rms_norm(x, self.input_layernorm.weight, cfg.rms_eps))
+        b, s, _ = h.shape
         q, k, v = self.qkv(h, actx)
         q, k = apply_rope(q, k, cos, sin)
         out = train_attention(q, k, v, pad_mask)
         return self.wo(out.reshape(b, s, -1), actx.sub("wo"))
 
     def _mlp_half(self, x: torch.Tensor, lctx: Ctx) -> torch.Tensor:
-        h = rms_norm(x, self.post_attention_layernorm.weight, self.cfg.rms_eps)
+        h = whole_seq(rms_norm(x, self.post_attention_layernorm.weight, self.cfg.rms_eps))
         return x + self.mlp(h, lctx.sub("mlp"))
 
     def forward(self, x, cos, sin, pad_mask, lctx: Ctx) -> torch.Tensor:
@@ -200,10 +219,10 @@ class LlamaLayer(nn.Module):
         actx, mctx = lctx.sub("attn"), lctx.sub("mlp")
 
         def norm1(t):
-            return rms_norm(t, self.input_layernorm.weight, eps)
+            return whole_seq(rms_norm(t, self.input_layernorm.weight, eps))
 
         def norm2(t):
-            return rms_norm(t, self.post_attention_layernorm.weight, eps)
+            return whole_seq(rms_norm(t, self.post_attention_layernorm.weight, eps))
 
         def act(g, u):
             return F.silu(g) * u
@@ -355,14 +374,17 @@ class LlamaDecoder(nn.Module):
         this is the training forward: `ctx` switches adapters on or off,
         and under autograd the layers are rematerialized per
         `cfg.remat_policy`; under a sequence-parallel mesh it returns this
-        rank's slice of the hidden states (the module note)."""
+        rank's slice of the hidden states (the module note; under the model
+        split the layers take the whole pad mask and rope tables)."""
         cfg = self.cfg
         b, s, _ = inputs_embeds.shape
         sp = sp_shard()
         lo, hi = (0, s) if sp is None else sp.span(s)
         if cache_len is not None:
             refuse_split("prefill", self.holds_every_layer)
-        positions = torch.arange(lo, hi, device=inputs_embeds.device)[None].expand(b, hi - lo)
+        ring = sp is not None and sp.axis == "fsdp"  # the layers see the slice's positions alone
+        p0, p1 = (lo, hi) if ring else (0, s)
+        positions = torch.arange(p0, p1, device=inputs_embeds.device)[None].expand(b, p1 - p0)
         alpha = None
         if cfg.rope_scaling_type == "qwen_dynamic":  # from each row's (whole) real length
             alpha = ntk_alpha(cfg.rope, torch.full((b,), s, device=positions.device)
@@ -372,6 +394,7 @@ class LlamaDecoder(nn.Module):
             ctx = ctx or Ctx()
             if sp is not None:
                 inputs_embeds = inputs_embeds[:, lo:hi]
+            if ring:
                 pad_mask = None if pad_mask is None else pad_mask[:, lo:hi]
                 ctx = ctx.seq_shard(lo, hi, s)
             return self._train_forward(inputs_embeds, pad_mask, cos, sin, ctx), None

@@ -35,7 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vlrlhf_torch.core.dist import dp_rows, sp_shard, sp_size, sum_over_sp
+from vlrlhf_torch.core.dist import dp_rows, ring_size, sp_shard, sum_over_sp
 from vlrlhf_torch.lora.lora import lora_parameters
 from vlrlhf_torch.models.common import Ctx, fold_seed
 from vlrlhf_torch.models.vlm import VLM, image_inputs
@@ -166,8 +166,8 @@ def dpo_step(model: VLM, dcfg: DPOConfig, ocfg: OptimizerConfig, state: TrainSta
     out = dpo_loss(pc, pr, ref_chosen, ref_rejected, beta=dcfg.beta,
                    label_smoothing=dcfg.label_smoothing, loss_type=dcfg.loss_type,
                    reference_free=dcfg.reference_free)
-    n_sp = sp_size()
-    (out.loss * n_sp if n_sp > 1 else out.loss).backward()  # the ring's partials summed
+    n_ring = ring_size()
+    (out.loss * n_ring if n_ring > 1 else out.loss).backward()  # the ring's partials summed
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in state.trainable]
     metrics = {
         "loss": out.loss.detach(),

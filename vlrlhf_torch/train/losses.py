@@ -132,18 +132,23 @@ def _chunk_token_terms(head_fn, hc, lc):
 
 
 def chunked_token_logps(
-    hidden: torch.Tensor,  # (B, S, H) final hidden states (pre lm_head)
+    hidden: torch.Tensor,  # (B, S, H) final hidden states (pre lm_head); under sp (B, S/n, H)
     ids: torch.Tensor,  # (B, S) token ids
     head_fn,  # (B, C, H) -> (B, C, V)
     *,
     chunk: int = 512,
+    sp=None,  # core.dist.SPShard: hidden is this rank's slice of the sequence
 ) -> torch.Tensor:
     """Per-token logp of ids[t+1] under head(hidden[t]), (B, S-1) f32: PPO's
     token logprobs without materializing (B, S, V) logits. The same S-chunk
     loop as chunked_logps, each chunk under torch.utils.checkpoint, emitting
-    the per-position values instead of their sum."""
+    the per-position values instead of their sum. Under `sp` the slice's
+    positions, (B, S/n): the whole sequence's last position (no next
+    token) is scored against id 0 and is the caller's to drop."""
     b, s, _ = hidden.shape
     ids_next = torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])], dim=1)
+    if sp is not None:
+        (ids_next,) = _sp_slices(sp, ids.shape[1], ids_next)
     c = min(chunk, s)
     parts = []
     for lo in range(0, s, c):
@@ -152,7 +157,8 @@ def chunked_token_logps(
             parts.append(checkpoint(_chunk_token_terms, *args, use_reentrant=False))
         else:
             parts.append(_chunk_token_terms(*args))
-    return torch.cat(parts, dim=1)[:, : s - 1]
+    out = torch.cat(parts, dim=1)
+    return out if sp is not None else out[:, : s - 1]
 
 
 def sft_loss(

@@ -42,7 +42,12 @@ whose denominators are the global minibatch's token counts
 (--mesh_pipe) every trunk pass here runs through the GPipe schedule
 (models/lm/pipeline.py): the policy, value and reference forwards of the
 stats pass and the update's, at the same slices of rows; the value head
-is a leaf after the stack and the value adapters a stage's.
+is a leaf after the stack and the value adapters a stage's. Under a
+sequence split (--sequence_parallel_axis fsdp or model) the stats pass
+computes the per-token logps and values on a rank's slice of the
+positions and gathers them whole before the score, the KL penalty, GAE
+and the whitening; the update takes its per-token terms on the slice and
+sums them over the split.
 """
 
 from __future__ import annotations
@@ -54,7 +59,8 @@ import numpy as np
 import torch
 
 from vlrlhf_torch.core.dist import (
-    all_reduce_mean, all_reduce_sum, dp_gather_rows, dp_group, dp_rank, dp_size,
+    all_reduce_mean, all_reduce_sum, dp_gather_rows, dp_group, dp_rank, dp_size, gather_seq,
+    grad_group, ring_size, sp_shard, sum_over_sp,
 )
 from vlrlhf_torch.models.common import Ctx
 from vlrlhf_torch.models.vlm import IMAGE_INPUT_KEYS, VLM, image_inputs, value_forward
@@ -115,8 +121,15 @@ class RolloutStats(NamedTuple):
     kl: torch.Tensor  # scalar mean KL (for the controller)
 
 
-def token_logprobs(logits: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """logp of ids[t+1] under logits[t], (B, L-1) f32."""
+def token_logprobs(logits: torch.Tensor, ids: torch.Tensor, sp=None) -> torch.Tensor:
+    """logp of ids[t+1] under logits[t], (B, L-1) f32; under `sp` (a
+    core.dist.SPShard, logits this rank's (B, L/n, V) slice) the slice's
+    positions, (B, L/n), the last position scored against id 0."""
+    if sp is not None:
+        nxt = torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])], dim=1)
+        lo, hi = sp.span(ids.shape[1])
+        logits = logits.float()
+        return _gather_clipped(logits, nxt[:, lo:hi]) - torch.logsumexp(logits, dim=-1)
     logits = logits[:, :-1].float()
     return _gather_clipped(logits, ids[:, 1:]) - torch.logsumexp(logits, dim=-1)
 
@@ -134,16 +147,19 @@ def _trunk(model: VLM, batch: dict, ctx: Ctx) -> torch.Tensor:
 
 def _logps(model: VLM, pcfg: PPOConfig, hidden: torch.Tensor, ids: torch.Tensor,
            ctx: Ctx) -> torch.Tensor:
+    sp = sp_shard()
     if pcfg.logits_chunk:
-        return chunked_token_logps(hidden, ids, model.head_fn(ctx), chunk=pcfg.logits_chunk)
-    return token_logprobs(model.head(hidden, ctx), ids)
+        return chunked_token_logps(hidden, ids, model.head_fn(ctx), chunk=pcfg.logits_chunk,
+                                   sp=sp)
+    return token_logprobs(model.head(hidden, ctx), ids, sp)
 
 
 def forward_logps_and_values(model: VLM, pcfg: PPOConfig, v_head: dict, batch: dict, ctx: Ctx,
                              value_ctx: Optional[Ctx] = None):
     """(logps (B, L-1), values (B, L)) under `ctx`; with `value_ctx` the
     values come from a second trunk pass under it (vlrlhf_tpu
-    `_forward_logps_and_values`)."""
+    `_forward_logps_and_values`). Under a sequence split both are this
+    rank's slice, (B, L/n) each (`token_logprobs`)."""
     hidden = _trunk(model, batch, ctx)
     logprobs = _logps(model, pcfg, hidden, batch["input_ids"], ctx)
     if value_ctx is not None:
@@ -192,6 +208,7 @@ def compute_rollout_stats(model: VLM, pcfg: PPOConfig, v_head: dict, batch: dict
     vlrlhf_tpu."""
     group = dp_group() if dp_size() > 1 else None
     value_ctx = policy_ctx(pcfg, adapter_set=VALUE_SET) if value_adapters else None
+    sp = sp_shard()
     parts = []
     # a rank's share of each global minibatch, the update's own shape
     share = pcfg.minibatch_size // dp_size() if pcfg.minibatch_size else 0
@@ -202,6 +219,12 @@ def compute_rollout_stats(model: VLM, pcfg: PPOConfig, v_head: dict, batch: dict
     logprobs, values, ref_logprobs = (torch.cat(t) for t in zip(*parts))
     ids = batch["input_ids"]
     b, n = ids.shape[0], ids.shape[1] - 1
+    if sp is not None:
+        # the slices joined whole: the score, the KL penalty, GAE's reverse
+        # scan and the whitening take the whole response
+        logprobs, values, ref_logprobs = (gather_seq(t, sp) for t in
+                                          (logprobs, values, ref_logprobs))
+        logprobs, ref_logprobs = logprobs[:, :n], ref_logprobs[:, :n]
     mask = batch["response_mask"][:, 1:].float()
     values = values[:, :-1] * mask
     scores = scores.float()
@@ -253,10 +276,18 @@ def ppo_update(model: VLM, pcfg: PPOConfig, ocfg: OptimizerConfig, state: TrainS
     count, so the ranks' losses add up to the global one, and the backward
     takes dp_size times the rank's (FSDP2 averages the gradients over the
     data-parallel ranks; the replicated value head and value adapters are
-    averaged here). The metrics are the global minibatch's on every rank."""
+    averaged here). The metrics are the global minibatch's on every rank.
+
+    Under a sequence split the forwards give this rank's slice of the
+    positions: the per-token terms are taken on it, from the whole
+    stats' slice, and each masked sum is summed over the split
+    (core.dist sum_over_sp); the gradients follow core/partitioning.py's
+    rule (the fsdp ring's size scales the backward, the model split's
+    partials are summed by the optimizer)."""
     value_ctx = policy_ctx(pcfg, adapter_set=VALUE_SET) if value_adapters else None
     n_dp = dp_size()
     group = dp_group() if n_dp > 1 else None
+    sp = sp_shard()
     for p in state.trainable:
         p.grad = None
     new_logprobs, values = forward_logps_and_values(model, pcfg, v_head, batch,
@@ -266,44 +297,56 @@ def ppo_update(model: VLM, pcfg: PPOConfig, ocfg: OptimizerConfig, state: TrainS
     if group is not None:
         count = all_reduce_sum(count, group)
     count = count.clamp(min=1)
+    if sp is None:
+        old_logps, old_values, advantages, returns = (
+            stats.logprobs, stats.values, stats.advantages, stats.returns)
+        values = values[:, :-1]
+    else:  # the whole (B, L-1) stats' columns at this rank's positions
+        lo, hi = sp.span(mask.shape[1] + 1)
+        old_logps, old_values, advantages, returns, mask = (
+            torch.nn.functional.pad(t, (0, 1))[:, lo:hi] for t in
+            (stats.logprobs, stats.values, stats.advantages, stats.returns, mask))
 
     def mean(x):  # the rank's part of the global masked mean
-        return (x * mask).sum() / count
+        return sum_over_sp((x * mask).sum(), sp) / count
 
-    values = values[:, :-1] * mask
-    ratio = torch.exp((new_logprobs - stats.logprobs) * mask)
-    pg1 = -stats.advantages * ratio
-    pg2 = -stats.advantages * ratio.clamp(1.0 - pcfg.cliprange, 1.0 + pcfg.cliprange)
+    values = values * mask
+    ratio = torch.exp((new_logprobs - old_logps) * mask)
+    pg1 = -advantages * ratio
+    pg2 = -advantages * ratio.clamp(1.0 - pcfg.cliprange, 1.0 + pcfg.cliprange)
     pg_loss = mean(torch.maximum(pg1, pg2))
-    v_clipped = torch.minimum(torch.maximum(values, stats.values - pcfg.cliprange_value),
-                              stats.values + pcfg.cliprange_value)
-    vf1 = (values - stats.returns) ** 2
-    vf2 = (v_clipped - stats.returns) ** 2
+    v_clipped = torch.minimum(torch.maximum(values, old_values - pcfg.cliprange_value),
+                              old_values + pcfg.cliprange_value)
+    vf1 = (values - returns) ** 2
+    vf2 = (v_clipped - returns) ** 2
     vf_loss = 0.5 * mean(torch.maximum(vf1, vf2))
     loss = pg_loss + pcfg.vf_coef * vf_loss
-    (loss * n_dp if group is not None else loss).backward()
-    if group is not None:
+    scale = n_dp * ring_size()
+    (loss * scale if scale > 1 else loss).backward()
+    if scale > 1:
         from vlrlhf_torch.core.dist import local_tensor
 
         for p in state.trainable:  # the leaves outside FSDP2: their mean here
             if p.grad is not None and local_tensor(p) is p:
-                p.grad = all_reduce_mean(p.grad, group)
+                p.grad = all_reduce_mean(p.grad, grad_group())
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in state.trainable]
     with torch.no_grad():
         dev = (ratio - 1.0).abs()
         sums = torch.stack([pg_loss, vf_loss, loss,
-                            mean(0.5 * (new_logprobs - stats.logprobs) ** 2),
+                            mean(0.5 * (new_logprobs - old_logps) ** 2),
                             mean((dev > pcfg.cliprange).float()), mean(ratio)]).detach()
         # 0 in exact arithmetic on the first minibatch of epoch 0; the stats
         # and update forwards round differently in bf16, so it stays within
         # bf16's eps there (about 1e-2)
         dev_max = (dev * mask).max()
-        if group is not None:
-            import torch.distributed as tdist
+        import torch.distributed as tdist
 
+        if group is not None:
             sums = all_reduce_sum(sums, group)
-            dev_max = dev_max.clone()
-            tdist.all_reduce(dev_max, op=tdist.ReduceOp.MAX, group=group)
+        for g in (group, None if sp is None else sp.group):
+            if g is not None:
+                dev_max = dev_max.clone()
+                tdist.all_reduce(dev_max, op=tdist.ReduceOp.MAX, group=g)
         metrics = dict(zip(("ppo/loss/policy", "ppo/loss/value", "ppo/loss/total",
                             "ppo/policy/approxkl", "ppo/policy/clipfrac", "ppo/ratio_mean"),
                            sums.unbind()))
@@ -344,6 +387,29 @@ def rollout_to_batch(prompt_batch: dict, response_tokens, pad_token_id: int,
     for k in ("pixel_values", "image_positions", *IMAGE_INPUT_KEYS):
         if prompt_batch.get(k) is not None:
             out[k] = prompt_batch[k]
+    return out
+
+
+def pad_to_split(batch: dict) -> dict:
+    """A rollout batch (host arrays or tensors) whose length L a sequence
+    split's ranks do not divide, padded on the right to the next multiple
+    of them: id 0 and False masks, which every forward and mask drops (the
+    batch itself when they divide it, or without a split). The stats pass
+    and the update take it; the reward reads the unpadded batch (the
+    synthetic reward's response share is of the rollout's own width; a
+    reward model scores whole sequences, cli/main.py reward_model_fn)."""
+    from vlrlhf_torch.core.dist import sp_size
+
+    extra = -batch["input_ids"].shape[1] % sp_size()
+    if not extra:
+        return batch
+    out = dict(batch)
+    for k in ("input_ids", "pad_mask", "response_mask"):
+        v = batch.get(k)
+        if isinstance(v, np.ndarray):
+            out[k] = np.pad(v, ((0, 0), (0, extra)))
+        elif v is not None:
+            out[k] = torch.cat([v, v.new_zeros((v.shape[0], extra))], dim=1)
     return out
 
 

@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from vlrlhf_torch.core.dist import all_reduce_mean, dp_rows, dp_size, grad_group, sp_size
+from vlrlhf_torch.core.dist import all_reduce_mean, dp_rows, dp_size, grad_group, ring_size
 from vlrlhf_torch.models.common import Ctx, fold_seed
 from vlrlhf_torch.models.vlm import VLM, image_inputs, last_token_scores
 from vlrlhf_torch.train.dpo import pair_image_features
@@ -62,9 +62,9 @@ def rm_step(model: VLM, rcfg: RMConfig, ocfg: OptimizerConfig, state: TrainState
     scores = rm_scores(model, head, batch, ctx, feats)
     chosen, rejected = scores[:n], scores[n:]
     loss = rm_loss(chosen, rejected)
-    n_sp = sp_size()
-    (loss * n_sp if n_sp > 1 else loss).backward()  # the ring's partials summed (train/dpo.py)
-    if dp_size() * n_sp > 1 and head.grad is not None:
+    n_ring = ring_size()
+    (loss * n_ring if n_ring > 1 else loss).backward()  # the ring's partials summed (train/dpo.py)
+    if dp_size() * n_ring > 1 and head.grad is not None:
         # the head is replicated, outside FSDP2: its gradient's mean over
         # the ranks FSDP2 reduces over is the global batch's, as theirs is
         head.grad = all_reduce_mean(head.grad, grad_group())

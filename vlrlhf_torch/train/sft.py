@@ -22,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from vlrlhf_torch.core.dist import all_reduce_sum, dp_group, dp_rows, dp_size, sp_shard, sp_size
+from vlrlhf_torch.core.dist import all_reduce_sum, dp_group, dp_rows, dp_size, ring_size, sp_shard
 from vlrlhf_torch.models.common import Ctx, fold_seed
 from vlrlhf_torch.models.vlm import VLM, image_inputs
 from vlrlhf_torch.train.losses import LABEL_PAD, chunked_logps, sft_loss_terms
@@ -78,14 +78,15 @@ def sft_step(model: VLM, scfg: SFTConfig, ocfg: OptimizerConfig, state: TrainSta
     else:
         nll_sum, count = sft_loss_terms(model.head(hidden, ctx), batch["labels"],
                                         batch["pad_mask"], sp=sp)
-    n_dp, n_sp = dp_size(), sp_size()
-    if n_dp > 1 or n_sp > 1:
+    n_dp, n_ring = dp_size(), ring_size()
+    if n_dp > 1 or sp is not None:
         # the token mean of the global batch: the data-parallel ranks' sums
-        # (each whole over its ring) over their summed count; FSDP2 averages
-        # the gradients over the n_dp x n_sp ranks, which sums the ring's
-        # partials and averages the replicas
+        # (each whole over its split) over their summed count; FSDP2
+        # averages the gradients over the n_dp x n_ring ranks, which sums a
+        # ring's partials and averages the replicas (the model split's
+        # partials are summed by the optimizer: train/train_state.py)
         total = all_reduce_sum(count.float(), dp_group()).clamp(min=1)
-        (nll_sum / total * (n_dp * n_sp)).backward()
+        (nll_sum / total * (n_dp * n_ring)).backward()
         loss = all_reduce_sum(nll_sum.detach(), dp_group()) / total
     else:
         loss = nll_sum / count.clamp(min=1)

@@ -28,7 +28,10 @@ value counted once, so clipping equals vlrlhf_tpu's optax clipping over
 its sharded arrays. Under a pipeline `pipe_sum` names the leaves before
 the stack, whose gradient only stage 0 computes: their gradients are
 summed over the stages first, in place, so each stage steps them alike
-(core/partitioning.py `pipe_role`). The freeze masks
+(core/partitioning.py `pipe_role`). Under the model split `tp_sum` names
+the leaves replicated over model, whose gradients each rank computes from
+its slice of the sequence: they are summed over the tensor-parallel group
+first, in place (core/partitioning.py, the gradient rule). The freeze masks
 of full fine-tuning wait for that mode (vlrlhf_tpu's `--use_lora false`
 trains adapters too: ROADMAP.md §3).
 """
@@ -127,6 +130,10 @@ class TrainState:
     # under a pipeline: (core.dist.PipeShard, indices of the leaves whose
     # gradients are summed over the stages before anything else)
     pipe_sum: Optional[tuple] = None
+    # under the model split: (the tensor-parallel group, indices of the
+    # leaves replicated over model, whose gradients are the partials of a
+    # rank's slice of the sequence, summed over the group first)
+    tp_sum: Optional[tuple] = None
 
 
 def init_train_state(trainable: Sequence[torch.Tensor], cfg: OptimizerConfig) -> TrainState:
@@ -147,13 +154,20 @@ def apply_updates(state: TrainState, grads: Sequence[torch.Tensor],
     """One call of the optax chain, in place on `state`. Returns the global
     norm of `grads` as given, before clipping (the step's grad_norm).
     Under a pipeline the gradients `state.pipe_sum` names are first summed
-    over the stages, in place."""
+    over the stages, and under the model split those `state.tp_sum` names
+    over the tensor-parallel group, in place."""
     grads = [local_tensor(g).float() for g in grads]
     if state.pipe_sum is not None:
         from vlrlhf_torch.core.dist import pipe_sum_
 
         pp, idx = state.pipe_sum
         pipe_sum_([grads[i] for i in idx], pp)
+    if state.tp_sum is not None:
+        import torch.distributed as dist
+
+        group, idx = state.tp_sum
+        for i in idx:
+            dist.all_reduce(grads[i], group=group)
     g_norm = global_norm(grads, state.norm_groups)
     state.step += 1
     # under a mesh the leaves are DTensors: the update steps the local shards
